@@ -8,15 +8,23 @@ Run from the root of the repository:  python3 chip_smoke.py
    registers, shared memory and spills;
 2. prints the card (torch and nvidia-smi: name, power limit);
 3. holds every kernel against its plain PyTorch version at the shapes the
-   cropnerf-mxu serving path gives it and at a ragged N, and times both;
-4. drives that path with random weights (full cropnerf-mxu widths, from a
-   seeded torch.Generator): forward at 4096 rays, a 256x256 render (two
-   32,768-ray chunks) and a 128^3 volume export with colours, with the
+   cropnerf-mxu serving and training paths give it and at a ragged N, and
+   times both: K1 forward and backward (the backward against autograd of
+   the plain version), K2 and K3;
+4. drives the serving path with random weights (full cropnerf-mxu widths,
+   from a seeded torch.Generator): forward at 4096 rays, a 256x256 render
+   (two 32,768-ray chunks) and a 128^3 volume export with colours, with the
    launch counts zeroed just before and read just after; then runs the
    same calls with the field on the plain path and compares;
-5. traces one forward, render and export with torch.profiler and prints
-   the device time of the busiest operations and the device's busy share;
-6. prints one JSON line of kernel numbers, the nvidia-smi card line, and
+5. drives the training path: a pixel bank of 32 synthetic 1200x800
+   images resident on the card, cropnerf-mxu at 4096 rays a step; one step
+   on the kernel path against one on the plain path from the same
+   parameters and draws, then a first step and TRAIN_STEPS timed steps
+   with the launch counts zeroed before and read after;
+6. traces one forward, render, export and training step with
+   torch.profiler and prints the device time of the busiest operations
+   and the device's busy share;
+7. prints one JSON line of kernel numbers, the nvidia-smi card line, and
    the status line last.
 
 Any failed phase raises and the script exits non-zero.  It needs a CUDA
@@ -27,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import shutil
 import statistics
 import subprocess
@@ -35,11 +44,14 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 TOL = 1e-2               # max |kernel - plain| / max |plain|, bf16 compute
+GRAD_TOL = 5e-2          # the same for gradients (f32 vs bf16 cotangents)
+ROW_SHARE = 0.99         # dx, dextras: share of rows within GRAD_TOL
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3 bandwidth
 RAYS = 4096              # the forward's ray batch (the JAX entry() batch)
@@ -47,6 +59,8 @@ RENDER_HW = 256          # full-image render, two 32,768-ray chunks
 EXPORT_SIDE = 128        # volume export: 128^3 samples over the AABB
 KERNEL_NS = "cropnerf::"  # the port's kernels in profiler rows
 REPEATS = 5              # timed runs of each path step after its first call
+TRAIN_STEPS = 20         # timed training steps after the first
+BANK = (32, 800, 1200)   # training images, height, width (as bench.py)
 
 
 def log(msg: str) -> None:
@@ -112,6 +126,25 @@ def abs_err(got, ref) -> float:
     return (got.float() - ref.float()).abs().max().item()
 
 
+def row_agreement(got, ref):
+    """(share of rows whose largest error is within GRAD_TOL · max |ref|,
+    relative L2 error) of a per-row gradient such as dx."""
+    row_err = (got - ref).abs().amax(dim=1) / ref.abs().max().clamp_min(1e-12)
+    return ((row_err <= GRAD_TOL).float().mean().item(),
+            ((got - ref).norm() / ref.norm().clamp_min(1e-12)).item())
+
+
+def ptxas_registers(report: str) -> dict:
+    """Registers per kernel entry in an ``nvcc -Xptxas -v`` report."""
+    regs, entry = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "registers" in line and entry is not None:
+            regs[entry] = int(line.split("Used")[1].split("registers")[0])
+    return regs
+
+
 def mlp_macs(dims) -> int:
     return sum(a * b for a, b in zip(dims[:-1], dims[1:]))
 
@@ -124,6 +157,46 @@ def bound(flops: float, nbytes: float):
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def unported_bounds(presets) -> dict:
+    """Bounds of the TPU kernels not ported yet (K4-K6), from the JAX
+    kernels' shapes at the configuration that would reach them; no kernel
+    runs here, so they are not measured.  float32 tables and activations
+    as the JAX package keeps them; tensor-core bf16 peak for products."""
+    peak_f32 = 67e12                        # H100 SXM float32, no tensor cores
+    cfg = presets["cropnerf"]               # K4: the hash field, impl "pallas"
+    g = cfg.model.field.grid
+    n = cfg.train_num_rays_per_batch * cfg.model.num_nerf_samples_per_ray
+    lf = g.num_levels * g.features_per_level
+    table = g.num_levels * 2 ** g.log2_hashmap_size * g.features_per_level * 4
+    ops = n * g.num_levels * (8 * (6 + 3 + 2 * g.features_per_level) + 12)
+    k4 = (table + n * 3 * 4 + n * lf * 4) / PEAK_BYTES * 1e3
+    out = {"hash_encode": dict(
+        shape=f"positions [{n},3], dense table {g.num_levels}x2^"
+              f"{g.log2_hashmap_size}x{g.features_per_level} -> [{n},{lf}] "
+              "(cropnerf train step, field)",
+        bound_ms=max(k4, ops / peak_f32 * 1e3),
+        bound_by="bytes" if k4 >= ops / peak_f32 * 1e3 else "operations")}
+    m = presets["cropnerf-mxu"]             # K5: its proposal net 0, fused
+    p0 = m.model.proposal_fields[0]
+    n = m.train_num_rays_per_batch * m.model.num_proposal_samples_per_ray[0]
+    dims = ([3 * (1 + 2 * p0.pe_freqs)] + [p0.hidden_dim] * (p0.num_layers - 1)
+            + [1])
+    t_ops = 2.0 * n * mlp_macs(dims) / PEAK_BF16_FLOPS * 1e3
+    t_bytes = n * (3 + 1) * 4 / PEAK_BYTES * 1e3
+    out["fused_pe_mlp"] = dict(
+        shape=f"x [{n},3] -> {'->'.join(map(str, dims))} (cropnerf-mxu "
+              "proposal net 0 with mlp_impl='pallas-fused', forward)",
+        bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes")
+    r, smp = m.train_num_rays_per_batch, m.model.num_nerf_samples_per_ray
+    t_bytes = 3 * r * smp * 4 / PEAK_BYTES * 1e3   # density, deltas -> weights
+    out["transmittance"] = dict(
+        shape=f"density, deltas [{r},{smp}] -> weights (cropnerf-mxu final "
+              "level; wired into no model path)",
+        bound_ms=max(t_bytes, 6 * r * smp / peak_f32 * 1e3), bound_by="bytes")
+    return out
 
 
 def main() -> None:
@@ -150,7 +223,7 @@ def main() -> None:
     from cropnerf_tpu_torch.ops.cuda.fused_mlp import fused_mlp, fused_mlp_plain
     from cropnerf_tpu_torch.ops.cuda.fused_pe_field import (
         fused_pe_density, fused_pe_density_plain, fused_pe_nerf,
-        fused_pe_nerf_plain)
+        fused_pe_nerf_bwd, fused_pe_nerf_plain)
     from cropnerf_tpu_torch.ops.posenc import nerf_encoding
     from cropnerf_tpu_torch.train.step import make_render_fn
 
@@ -248,6 +321,82 @@ def main() -> None:
             flops=2.0 * n1 * (trunk_macs + head_macs),
             bytes=nbytes(x, ex, *weights_k1) + out_bytes)
 
+        # K1 backward: the train step's field, 4096 rays x 48 samples, and a
+        # ragged N; cotangents from a seeded generator
+        wd = [w.detach() for w in weights_k1]
+        nb_, nt_, nc_ = len(base), len(top), len(color)
+
+        def groups(ws):
+            return (ws[:nb_], ws[nb_:nb_ + nt_], ws[nb_ + nt_:nb_ + nt_ + nc_],
+                    ws[nb_ + nt_ + nc_:])
+
+        cot_g = torch.Generator(device=dev).manual_seed(2)
+
+        def bwd_case(n):
+            return (x[:n].contiguous(), ex[:n].contiguous(),
+                    [torch.randn((n, c), generator=cot_g, device=dev)
+                     for c in (got[0].shape[1], got[1].shape[1],
+                               got[2].shape[1])])
+
+        def kernel_bwd(xb, exb, cots):
+            dx, dex, *gs = fused_pe_nerf_bwd(xb, exb, *groups(wd), POS_FREQS,
+                                             *cots, False)
+            return [dx, dex] + [t for grp in gs for t in grp]
+
+        def plain_bwd(xb, exb, cots, dtype=torch.bfloat16):
+            leaves = [t.clone().requires_grad_(True) for t in (xb, exb, *wd)]
+            with torch.enable_grad():
+                outs = fused_pe_nerf_plain(leaves[0], leaves[1],
+                                           *groups(leaves[2:]), POS_FREQS,
+                                           dtype)
+                return list(torch.autograd.grad(outs, leaves, cots))
+
+        def bwd_errors(got_g, ref_g):
+            w_err = max(rel_err(a, b) for a, b in zip(got_g[2:], ref_g[2:]))
+            rows = [row_agreement(a, b) for a, b in zip(got_g[:2], ref_g[:2])]
+            return w_err, rows
+
+        bwd = {}
+        for n in (n1, n1 - 77):
+            xb, exb, cots = bwd_case(n)
+            got_g, ref_g = kernel_bwd(xb, exb, cots), plain_bwd(xb, exb, cots)
+            bwd[n] = bwd_errors(got_g, ref_g) + (
+                max(abs_err(a, b) for a, b in zip(got_g, ref_g)),)
+            if n == n1:
+                again = kernel_bwd(xb, exb, cots)
+                deterministic = all(torch.equal(a, b)
+                                    for a, b in zip(got_g, again))
+                ref32 = plain_bwd(xb, exb, cots, torch.float32)
+                vs_f32 = ([rel_err(a, b) for a, b in zip(got_g, ref32)],
+                          [rel_err(a, b) for a, b in zip(ref_g, ref32)])
+                xk, exk, cotk = xb, exb, cots
+                del again, ref32
+            del got_g, ref_g
+        kb = lambda: kernel_bwd(xk, exk, cotk)  # noqa: E731
+        pb = lambda: plain_bwd(xk, exk, cotk)  # noqa: E731
+        head_last = fcfg.hidden_dim_color * 3 + (
+            fcfg.hidden_dim_semantics * fcfg.num_semantic_classes)
+        sem0 = fcfg.geo_feat_dim * fcfg.hidden_dim_semantics
+        fwd_macs = trunk_macs + head_macs
+        # recompute without the heads' output layers, input gradients of
+        # every layer but the semantic layer 0 (pass_sem_grad False), and
+        # every weight gradient
+        bwd_macs = (fwd_macs - head_last) + (fwd_macs - sem0) + fwd_macs
+        kernels["fused_pe_nerf_bwd"] = dict(
+            shape=(f"x [{n1},3], extras [{n1},{de}], cotangents [{n1},16+3+1]"
+                   f" -> dx, dextras, every weight and bias gradient"),
+            source="cropnerf_tpu_torch/csrc/fused_pe_field_bwd.cu",
+            replaces="cropnerf_tpu/ops/pallas/fused_pe_field.py:468",
+            rel_err=bwd[n1][0], max_abs_err=bwd[n1][2], rows=bwd[n1][1],
+            ragged_n=n1 - 77, ragged_rel_err=bwd[n1 - 77][0],
+            ragged_rows=bwd[n1 - 77][1], deterministic=deterministic,
+            vs_f32_kernel=max(vs_f32[0]), vs_f32_plain=max(vs_f32[1]),
+            vs_f32_dx=(vs_f32[0][0], vs_f32[1][0]),
+            ms=device_ms(kb, 5, KERNEL_NS), call_ms=cuda_ms(kb, 5),
+            plain_ms=device_ms(pb, 3),
+            flops=2.0 * n1 * bwd_macs,
+            bytes=nbytes(xk, exk, *cotk, *wd) + nbytes(xk, exk, *wd))
+
         # K2 fused_pe_density: export trunk, 512 rays x 128 samples
         n2 = 512 * EXPORT_SIDE
         x2, _ = field_inputs(n2)
@@ -294,13 +443,28 @@ def main() -> None:
 
     for name, k in kernels.items():
         k["bound_ms"], k["bound_by"] = bound(k["flops"], k["bytes"])
+        tol = GRAD_TOL if "rows" in k else TOL
         log(f"[kernel] {name}: {k['shape']}; err {k['rel_err']:.2e} "
             f"(ragged N={k['ragged_n']}: {k['ragged_rel_err']:.2e}), "
-            f"tol {TOL}; kernel {k['ms']:.4f} ms (wrapper call with weight "
+            f"tol {tol}; kernel {k['ms']:.4f} ms (wrapper call with weight "
             f"packing {k['call_ms']:.4f} ms), plain {k['plain_ms']:.4f} ms, "
             f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}); {card}")
-        check(k["rel_err"] <= TOL and k["ragged_rel_err"] <= TOL,
+        check(k["rel_err"] <= tol and k["ragged_rel_err"] <= tol,
               f"{name} disagrees with its plain version")
+        if "rows" in k:
+            log(f"[kernel] {name}: dx, dextras rows within {GRAD_TOL} of "
+                f"max |plain| and relative L2 error: {k['rows']} (ragged "
+                f"{k['ragged_rows']}); deterministic {k['deterministic']}; "
+                f"against a float32 plain version: kernel "
+                f"{k['vs_f32_kernel']:.2e}, bf16 plain {k['vs_f32_plain']:.2e} "
+                f"(dx {k['vs_f32_dx'][0]:.2e} / {k['vs_f32_dx'][1]:.2e})")
+            check(k["deterministic"], f"{name} differs between two runs")
+            for share, l2 in k["rows"] + k["ragged_rows"]:
+                check(share >= ROW_SHARE and l2 <= GRAD_TOL,
+                      f"{name}: dx/dextras rows {share:.4f}, L2 {l2:.2e}")
+    regs = ptxas_registers(reports["fused_pe_field_bwd"])
+    log(f"[build] fused_pe_field_bwd registers {regs}; tile kernel dynamic "
+        f"shared memory {kfield.bwd_smem_bytes(kfield.pack_pe_field(3, POS_FREQS, base, top, color, sem, de=de, device=dev)[2])} B")
 
     # ---- 4. the serving path ----------------------------------------------
     d = torch.randn((RAYS, 3), generator=torch.Generator().manual_seed(1))
@@ -339,7 +503,9 @@ def main() -> None:
     render_plain = make_render_fn(dataclasses.replace(cfg, model=plain_m))
     out_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_export_"))
 
-    for fn in (fused_pe_nerf, fused_pe_density, fused_mlp):
+    path_kernels = (fused_pe_nerf, fused_pe_nerf_bwd, fused_pe_density,
+                    fused_mlp)
+    for fn in path_kernels:
         fn.launches = 0
     result = {}
     steps = {
@@ -350,11 +516,12 @@ def main() -> None:
             params, m, aabb, out_dir, num_points_per_side=EXPORT_SIDE,
             render_rgb=True, **thresholds))}
     first_ms = {step: wall_ms(fn) for step, fn in steps.items()}
-    launches = {fn.__name__: fn.launches
-                for fn in (fused_pe_nerf, fused_pe_density, fused_mlp)}
+    launches = {fn.__name__: fn.launches for fn in path_kernels}
     log(f"[path] launches on the serving path: {launches}")
-    check(all(v > 0 for v in launches.values()),
+    check(all(v > 0 for k, v in launches.items() if k != "fused_pe_nerf_bwd"),
           f"a kernel of the path never launched: {launches}")
+    check(launches["fused_pe_nerf_bwd"] == 0,
+          "serving recorded a graph and ran the backward")
     # steady state: the first calls above also grew the allocator's pools
     runs_ms = {step: [wall_ms(fn) for _ in range(REPEATS)]
                for step, fn in steps.items()}
@@ -407,7 +574,103 @@ def main() -> None:
         check(abs(counts[k] - counts_p[k]) <= 0.01 * counts_p[k] + 10,
               f"export {k}: {counts[k]} points vs plain {counts_p[k]}")
 
-    # ---- 5. where the time goes: one traced forward, render and export ---
+    # ---- 5. the training path ---------------------------------------------
+    from cropnerf_tpu_torch.data.databank import build_pixel_bank
+    from cropnerf_tpu_torch.train.state import create_train_state
+    from cropnerf_tpu_torch.train.step import (make_eval_batch_fn,
+                                               make_train_step, train_loss)
+    t0 = time.perf_counter()
+    n_img, bh, bw = BANK
+    rs = np.random.RandomState(0)
+    images = rs.randint(0, 255, (n_img, bh, bw, 3), dtype=np.uint8)
+    masks = (rs.rand(n_img, bh, bw) > 0.9).astype(np.uint8)
+    c2w_b = np.tile(np.eye(3, 4, dtype=np.float32)[None], (n_img, 1, 1))
+    c2w_b[:, :, 3] = rs.randn(n_img, 3) * 0.5
+    full = lambda v: torch.full((n_img,), v, device=dev)  # noqa: E731
+    bank = build_pixel_bank(images, masks, Cameras(
+        c2w=torch.from_numpy(c2w_b).to(dev), fx=full(1000.0), fy=full(1000.0),
+        cx=full(bw / 2.0), cy=full(bh / 2.0), width=full(bw).long(),
+        height=full(bh).long()), device=dev)
+    del images, masks
+    R = cfg.train_num_rays_per_batch
+    log(f"[train] bank {n_img} x {bh}x{bw} on the card as uint8 "
+        f"({nbytes(bank.rgb, bank.mask) / 2**20:.1f} MiB), built in "
+        f"{time.perf_counter() - t0:.1f} s; {R} rays a step")
+
+    # one step on the kernel path and on the plain path, same draws
+    plain_cfg = dataclasses.replace(cfg, model=plain_m)
+    one = {}
+    for label, c in (("kernel", cfg), ("plain", plain_cfg)):
+        st = create_train_state(c, n_img, torch.Generator().manual_seed(0), dev)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        idx = torch.randint(0, bank.num_pixels, (R,), generator=gen,
+                            device=dev)
+        loss, _ = train_loss(st.params, bank, idx, 0, c, gen)
+        loss.backward()
+        one[label] = (loss.item(), {k: p.grad.clone() for k, p in
+                                    st.params.named_parameters()})
+        del st
+    (l_k, g_k), (l_p, g_p) = one["kernel"], one["plain"]
+    leaf_err = {k: rel_err(g_k[k], g_p[k]) for k in g_p}
+    worst = max(leaf_err, key=leaf_err.get)
+    log(f"[train] one step, kernel path vs plain path: loss {l_k:.6f} vs "
+        f"{l_p:.6f} (rel {abs(l_k - l_p) / abs(l_p):.2e}); gradient leaves "
+        f"within {GRAD_TOL} of max: {sum(v <= GRAD_TOL for v in leaf_err.values())}"
+        f"/{len(leaf_err)}, worst {worst} {leaf_err[worst]:.2e}")
+    check(math.isfinite(l_k) and abs(l_k - l_p) <= 2e-2 * abs(l_p),
+          f"train loss {l_k} vs plain {l_p}")
+    for k, v in leaf_err.items():
+        check(bool(torch.isfinite(g_k[k]).all()) and v <= GRAD_TOL,
+              f"train gradient {k}: {v:.3e}")
+    del one, g_k, g_p
+
+    # the training path: a first step and TRAIN_STEPS timed steps
+    state = create_train_state(cfg, n_img, torch.Generator().manual_seed(0),
+                               dev)
+    train_step = make_train_step(cfg)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    before = {k: v.clone() for k, v in state.params.state_dict().items()}
+    metrics = {}
+
+    def run_train():
+        metrics.update(train_step(state, bank, gen)[1])
+
+    for fn in path_kernels:
+        fn.launches = 0
+    train_first_ms = wall_ms(run_train)
+    train_runs_ms = [wall_ms(run_train) for _ in range(TRAIN_STEPS)]
+    train_launches = {fn.__name__: fn.launches for fn in path_kernels}
+    n_steps = 1 + TRAIN_STEPS
+    log(f"[train] launches on the training path ({n_steps} steps): "
+        f"{train_launches}")
+    check(train_launches["fused_pe_nerf"] == n_steps
+          and train_launches["fused_pe_nerf_bwd"] == n_steps,
+          f"K1 forward/backward launches {train_launches} != {n_steps} steps")
+    loss_now = metrics["loss"].item()
+    changed = sum(not torch.equal(v, before[k])
+                  for k, v in state.params.state_dict().items())
+    check(math.isfinite(loss_now) and state.step == n_steps,
+          f"training loss {loss_now}, step {state.step}")
+    check(changed == len(before),
+          f"{len(before) - changed} parameter tensors did not change")
+    train_med = statistics.median(train_runs_ms)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run_train()
+    torch.cuda.synchronize()
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
+    eval_m = {k: v.item() for k, v in make_eval_batch_fn(cfg)(
+        state.params, bank, gen).items()}
+    check(all(math.isfinite(v) for v in eval_m.values()), f"eval {eval_m}")
+    log(f"[train] step: median {train_med:.2f} ms of {TRAIN_STEPS} "
+        f"({R / train_med * 1e3:.0f} rays/s), runs "
+        + ", ".join(f"{v:.2f}" for v in train_runs_ms)
+        + f" ms; first step {train_first_ms:.2f} ms; peak device memory "
+        f"{train_peak:.2f} GiB; loss {loss_now:.5f}, "
+        f"psnr {metrics['psnr'].item():.3f}; eval batch {eval_m}; {card}")
+    steps["train step"] = run_train
+
+    # ---- 6. where the time goes: one traced call of each path step ------
     breakdown = {}
     for step, fn in steps.items():
         with profile(activities=[ProfilerActivity.CPU,
@@ -427,10 +690,14 @@ def main() -> None:
         for key, ms, count in ops[:8]:
             log(f"[trace]   {ms:9.3f} ms  x{count:<5d} {key[:90]}")
 
-    # ---- 6. report ---------------------------------------------------------
+    # ---- 7. report ---------------------------------------------------------
+    by_path = {name: {"serving": launches[name],
+                      "train": train_launches[name]} for name in kernels}
     line = {"kernels": [dict(
         name=name, route="cuda", source=k["source"], replaces=k["replaces"],
-        launches=launches[name], max_abs_err=k["max_abs_err"],
+        launches=(train_launches[name] if name.startswith("fused_pe_nerf")
+                  else launches[name]),
+        launches_by_path=by_path[name], max_abs_err=k["max_abs_err"],
         rel_err=k["rel_err"], ms=k["ms"], call_ms=k["call_ms"],
         plain_ms=k["plain_ms"],
         bound_ms=k["bound_ms"], bound_by=k["bound_by"], library_ms=None,
@@ -440,7 +707,17 @@ def main() -> None:
                  "forward_rays_per_s": RAYS / med_ms["forward"] * 1e3,
                  "render_rays_per_s": n_px / med_ms["render"] * 1e3,
                  "export_points": counts},
-        "trace": breakdown}
+        "train": {"card": card, "rays": R, "steps": TRAIN_STEPS,
+                  "median_ms": train_med, "runs_ms": train_runs_ms,
+                  "first_ms": train_first_ms, "peak_gib": train_peak,
+                  "rays_per_s": R / train_med * 1e3, "loss": loss_now,
+                  "vs_plain_loss_rel": abs(l_k - l_p) / abs(l_p),
+                  "vs_plain_grad_worst": [worst, leaf_err[worst]]},
+        "trace": breakdown,
+        "unported_bounds": unported_bounds(PRESETS)}
+    for name, b in line["unported_bounds"].items():
+        log(f"[bounds] {name} (not ported, not measured): {b['shape']}: "
+            f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
     print(json.dumps(line), flush=True)
     shutil.rmtree(out_dir)
     print(smi, flush=True)

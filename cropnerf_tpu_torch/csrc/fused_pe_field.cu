@@ -1,6 +1,7 @@
-// Fused positional-encoding NeRF field, forward, for Hopper (sm_90a).
+// Fused positional-encoding NeRF field, forward, for Hopper (sm_90a).  The
+// backward of fused_pe_nerf is csrc/fused_pe_field_bwd.cu.
 //
-// Replaces the Pallas kernels of cropnerf_tpu/ops/pallas/fused_pe_field.py:
+// Replaces the Pallas forward kernels of cropnerf_tpu/ops/pallas/fused_pe_field.py:
 //   HEADS=false  fused_pe_density (_fwd_kernel):       encode -> trunk -> t
 //   HEADS=true   fused_pe_nerf    (_mega_fwd_kernel):  ... + colour and
 //                semantic heads -> t, rgb_raw, sem_raw
@@ -19,24 +20,9 @@
 // (mma.sync); wgmma/TMA pipelining is later work.
 //
 // sin/cos use the accurate sinf/cosf: arguments reach 2^9 rad.
-#include "fused_layers.cuh"
+#include "pe_field.cuh"
 
 namespace cropnerf {
-
-// meta header (ints), followed by 5 ints per layer in the order
-// base..., top..., colour..., semantic...
-enum {
-  M_DIM, M_FREQS, M_ENC_COLS, M_ENC_PAD, M_DE, M_EX_PAD,
-  M_N_BASE, M_N_TOP, M_N_COLOR, M_N_SEM,
-  M_T_COLS, M_RGB_COLS, M_SEM_COLS, M_HMAX, M_HEADER
-};
-
-struct NetDesc {
-  int dim, num_freqs, enc_cols, enc_pad, de, ex_pad;
-  int n_base, n_top, n_color, n_sem;
-  int t_cols, rgb_cols, sem_cols, hmax;
-  LayerDesc L[MAX_LAYERS];
-};
 
 struct Smem {
   int xs, enc, ex, tb, buf0, buf1, wslab, scratch, total;
@@ -174,34 +160,6 @@ pe_field_fwd_kernel(const float* __restrict__ x, const float* __restrict__ ex,
                         ToGlobal{sem_out, d.sem_cols, row0, n_rows, nullptr, 0});
     }
   }
-}
-
-static bool parse(const int* meta, int meta_len, bool heads, NetDesc* d) {
-  if (meta_len < M_HEADER) return false;
-  d->dim = meta[M_DIM];
-  d->num_freqs = meta[M_FREQS];
-  d->enc_cols = meta[M_ENC_COLS];
-  d->enc_pad = meta[M_ENC_PAD];
-  d->de = meta[M_DE];
-  d->ex_pad = meta[M_EX_PAD];
-  d->n_base = meta[M_N_BASE];
-  d->n_top = meta[M_N_TOP];
-  d->n_color = heads ? meta[M_N_COLOR] : 0;
-  d->n_sem = heads ? meta[M_N_SEM] : 0;
-  d->t_cols = meta[M_T_COLS];
-  d->rgb_cols = meta[M_RGB_COLS];
-  d->sem_cols = meta[M_SEM_COLS];
-  d->hmax = meta[M_HMAX];
-  const int n_layers = d->n_base + d->n_top + d->n_color + d->n_sem;
-  if (d->n_base < 1 || d->n_top < 1 || (heads && (d->n_color < 1 || d->n_sem < 1)))
-    return false;
-  if (d->num_freqs < 0 || d->num_freqs > 30 || d->dim < 1 ||
-      d->enc_cols != d->dim * (1 + 2 * d->num_freqs) ||
-      d->enc_pad < d->enc_cols || d->enc_pad % 16 || d->hmax % 16 ||
-      d->hmax > MAX_WIDTH || (heads && (d->ex_pad < d->de || d->ex_pad % 16)))
-    return false;
-  if (meta_len != M_HEADER + 5 * n_layers) return false;
-  return parse_layers(meta + M_HEADER, n_layers, d->L);
 }
 
 }  // namespace cropnerf

@@ -35,10 +35,11 @@ def field_density(field: VanillaField, positions: torch.Tensor,
 
 
 def field_semantics(field: VanillaField, geo: torch.Tensor, cfg: FieldConfig,
-                    compute_dtype: torch.dtype = torch.bfloat16
-                    ) -> torch.Tensor:
+                    compute_dtype: torch.dtype = torch.bfloat16,
+                    pass_gradients: bool = False) -> torch.Tensor:
     _vanilla_only(cfg)
-    return vanilla_field_semantics(field, geo, cfg, compute_dtype)
+    return vanilla_field_semantics(field, geo, cfg, compute_dtype,
+                                   pass_gradients)
 
 
 def field_rgb(field: VanillaField, geo: torch.Tensor,
@@ -53,8 +54,10 @@ def field_rgb(field: VanillaField, geo: torch.Tensor,
 def field_all(field: VanillaField, positions: torch.Tensor,
               directions: torch.Tensor, camera_idx: torch.Tensor,
               cfg: FieldConfig, train: bool,
-              compute_dtype: torch.dtype = torch.bfloat16
+              compute_dtype: torch.dtype = torch.bfloat16,
+              pass_sem_grads: bool = False
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     _vanilla_only(cfg)
     return vanilla_field_all(field, positions, directions, camera_idx, cfg,
-                             train, compute_dtype=compute_dtype)
+                             train, compute_dtype=compute_dtype,
+                             pass_sem_grads=pass_sem_grads)

@@ -1,16 +1,16 @@
 """CropNeRF model: proposal-sampled semantic NeRF (counterpart of
 ``cropnerf_tpu/models/model.py``).
 
-  * :func:`forward`              full composited forward (eval mode)
+  * :func:`forward`              full composited forward (train or eval)
   * :func:`forward_export`       raw per-sample queries for volume export
   * :func:`forward_accumulation` accumulated weight per ray (visibility)
   * :func:`anneal_factor`, :func:`_proposal_sampling` proposal sampling
 
 The parameters are a :class:`CropNeRFParams` module whose tree mirrors the
-JAX params pytree: ``field``, ``camera_opt`` and ``proposal_{i}``.  This
-slice serves the model: ``forward`` runs with ``train=False`` and every
-entry point runs without autograd; training comes with the backward
-kernels.
+JAX params pytree: ``field``, ``camera_opt`` and ``proposal_{i}``.
+``forward(train=True)`` records the autograd graph the training step
+differentiates; ``forward(train=False)`` and the export entry points run
+without one, whatever the caller's grad mode.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ from ..core.rays import RayBundle, RaySamples
 from ..device import resolve_device
 from ..ops import pdf as pdf_ops
 from ..ops import render as render_ops
+from .camera_opt import apply_to_raybundle, camera_opt_init
 from .config import ModelConfig
 from .field import field_all, field_density, field_init, field_rgb, field_semantics
 from .proposal import ProposalField, proposal_density, proposal_init
@@ -53,8 +54,7 @@ def model_init(cfg: ModelConfig, num_images: int,
     device = resolve_device(device)
     field = field_init(cfg.field, num_images, generator, device)
     props = [proposal_init(p, generator, device) for p in cfg.proposal_fields]
-    return CropNeRFParams(field, torch.zeros((num_images, 6), device=device),
-                          props)
+    return CropNeRFParams(field, camera_opt_init(num_images, device), props)
 
 
 def anneal_factor(step: torch.Tensor | int, cfg: ModelConfig) -> torch.Tensor:
@@ -76,9 +76,14 @@ def _proposal_sampling(params: CropNeRFParams, rb: RayBundle,
                        anneal: torch.Tensor | float,
                        generator: Optional[torch.Generator] = None,
                        compute_dtype: torch.dtype = torch.bfloat16,
+                       prop_update: Optional[bool] = None,
                        ) -> Tuple[RaySamples, List[torch.Tensor], List[torch.Tensor]]:
     """Hierarchical proposal sampling (nerfstudio ProposalNetworkSampler):
-    (final samples, weights per proposal level, s-space bins per level)."""
+    (final samples, weights per proposal level, s-space bins per level).
+
+    ``prop_update`` False runs the proposal nets without a graph: the
+    counterpart of the JAX ``lax.cond`` that stops their gradients on the
+    steps between proposal updates."""
     spacing = pdf_ops.spacing_piecewise()
     weights_list: List[torch.Tensor] = []
     sdist_list: List[torch.Tensor] = []
@@ -86,10 +91,12 @@ def _proposal_sampling(params: CropNeRFParams, rb: RayBundle,
                                     spacing, train, cfg.use_single_jitter,
                                     generator=generator)
     n_prop = cfg.num_proposal_iterations
+    frozen = prop_update is not None and not prop_update
     for i in range(n_prop):
-        density = proposal_density(params.proposal(i), samples.positions,
-                                   cfg.proposal_fields[i],
-                                   compute_dtype=compute_dtype)
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not frozen):
+            density = proposal_density(params.proposal(i), samples.positions,
+                                       cfg.proposal_fields[i],
+                                       compute_dtype=compute_dtype)
         weights = render_ops.render_weights(density, samples.deltas)
         sdist = _sdist(samples)
         weights_list.append(weights)
@@ -103,34 +110,58 @@ def _proposal_sampling(params: CropNeRFParams, rb: RayBundle,
     return samples, weights_list, sdist_list
 
 
-@torch.no_grad()
 def forward(params: CropNeRFParams, ray_bundle: RayBundle, cfg: ModelConfig,
             train: bool = False, anneal: torch.Tensor | float = 1.0,
             background: Optional[str] = None,
-            compute_dtype: torch.dtype = torch.bfloat16
+            compute_dtype: torch.dtype = torch.bfloat16,
+            generator: Optional[torch.Generator] = None,
+            prop_update: Optional[bool] = None
             ) -> Dict[str, torch.Tensor]:
     """Full composited forward: rgb, accumulation, median depth, semantics,
-    per-level weights and bins, and per-proposal expected depths."""
-    if train:
-        raise NotImplementedError(
-            "forward(train=True) comes with the training slice (camera-pose "
-            "optimisation and the backward kernels)")
-    rb = ray_bundle
+    per-level weights and bins, and per-proposal expected depths.
+
+    ``train=True`` applies the camera-opt deltas to the rays, jitters the
+    samplers from ``generator`` (none: no jitter, as a JAX key of None),
+    uses each ray's appearance row and records the autograd graph;
+    ``train=False`` runs without a graph."""
+    with torch.set_grad_enabled(train):
+        return _forward(params, ray_bundle, cfg, train, anneal, background,
+                        compute_dtype, generator, prop_update)
+
+
+def _forward(params, ray_bundle, cfg, train, anneal, background,
+             compute_dtype, generator, prop_update):
+    rb = (apply_to_raybundle(params.camera_opt, ray_bundle,
+                             cfg.camera_opt.mode) if train else ray_bundle)
     samples, weights_list, sdist_list = _proposal_sampling(
-        params, rb, cfg, train, anneal, compute_dtype=compute_dtype)
+        params, rb, cfg, train, anneal, generator, compute_dtype, prop_update)
     density, rgb_samples, sem_samples = field_all(
         params.field, samples.positions, samples.directions,
-        samples.camera_idx, cfg.field, train, compute_dtype)
+        samples.camera_idx, cfg.field, train, compute_dtype,
+        cfg.pass_semantic_gradients)
+    if cfg.use_gradient_scaling:
+        # identity forward; the backward scales by clamp(t², 0, 1)
+        # (nerfstudio scale_gradients_by_distance_squared)
+        s = (samples.midpoints ** 2).clamp(0.0, 1.0)
+
+        def gscale(v, s):
+            return v * s + (v * (1.0 - s)).detach()
+
+        density = gscale(density, s)
+        rgb_samples = gscale(rgb_samples, s[..., None])
+        sem_samples = gscale(sem_samples, s[..., None])
     weights = render_ops.render_weights(density, samples.deltas)
     weights_list = weights_list + [weights]
     sdist_list = sdist_list + [_sdist(samples)]
 
     bg = background or cfg.background_color
-    semantics = render_ops.render_semantics(weights, sem_samples)
+    sem_weights = weights if cfg.pass_semantic_gradients else weights.detach()
+    semantics = render_ops.render_semantics(sem_weights, sem_samples)
     outputs = {
         "rgb": render_ops.render_rgb(weights, rgb_samples, background=bg),
         "accumulation": render_ops.render_accumulation(weights),
-        "depth": render_ops.render_depth_median(weights, samples.midpoints),
+        "depth": render_ops.render_depth_median(weights.detach(),
+                                                samples.midpoints),
         "semantics": semantics,
         "semantics_colormap": torch.sigmoid(semantics),
         "weights_list": weights_list,
@@ -139,7 +170,7 @@ def forward(params: CropNeRFParams, ray_bundle: RayBundle, cfg: ModelConfig,
     for i in range(cfg.num_proposal_iterations):
         mids = 0.5 * (sdist_list[i][..., 1:] + sdist_list[i][..., :-1])
         outputs[f"prop_depth_{i}"] = render_ops.render_depth_expected(
-            weights_list[i], mids)
+            weights_list[i].detach(), mids)
 
     if ray_bundle.mask is not None:
         m = ray_bundle.mask

@@ -3,7 +3,8 @@
 4-layer relu base → skip [h, enc] → 4-layer top → [density | geo]; a colour
 head on [geo, direction encoding (4), appearance] and a semantic head on
 geo.  With ``mlp_impl="pallas-fused"`` the trunk runs in the fused PE-field
-kernels and the heads in the fused MLP kernel.
+kernels and the heads in the fused MLP kernel.  The appearance row is the
+ray's camera's in train mode, the mean (or zero) row otherwise.
 """
 from __future__ import annotations
 
@@ -135,9 +136,12 @@ def vanilla_field_rgb(field: VanillaField, geo: torch.Tensor,
 
 def vanilla_field_semantics(field: VanillaField, geo: torch.Tensor,
                             cfg: FieldConfig,
-                            compute_dtype: torch.dtype = torch.bfloat16
-                            ) -> torch.Tensor:
-    """Semantic logits [..., C] from geo features."""
+                            compute_dtype: torch.dtype = torch.bfloat16,
+                            pass_gradients: bool = False) -> torch.Tensor:
+    """Semantic logits [..., C] from geo features, detached from the
+    density branch unless ``pass_gradients``."""
+    if not pass_gradients:
+        geo = geo.detach()
     return mlp_apply(field.mlp_semantic, geo, compute_dtype=compute_dtype,
                      impl=cfg.mlp_impl)
 
@@ -161,17 +165,20 @@ def vanilla_field_all(field: VanillaField, positions: torch.Tensor,
                       directions: torch.Tensor, camera_idx: torch.Tensor,
                       cfg: FieldConfig, train: bool,
                       aabb: Optional[torch.Tensor] = None,
-                      compute_dtype: torch.dtype = torch.bfloat16
+                      compute_dtype: torch.dtype = torch.bfloat16,
+                      pass_sem_grads: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(density, rgb, semantic logits) in one pass; with
     ``mlp_impl="pallas-fused"`` one ``fused_pe_nerf`` call, otherwise the
-    three split functions."""
+    three split functions.  The semantic head's gradient reaches the trunk
+    only with ``pass_sem_grads``."""
     if cfg.mlp_impl != "pallas-fused":
         density, geo = vanilla_field_density(field, positions, cfg, aabb,
                                              compute_dtype)
         rgb = vanilla_field_rgb(field, geo, directions, camera_idx, cfg,
                                 train, compute_dtype)
-        sem = vanilla_field_semantics(field, geo, cfg, compute_dtype)
+        sem = vanilla_field_semantics(field, geo, cfg, compute_dtype,
+                                      pass_sem_grads)
         return density, rgb, sem
 
     x, selector = _encoder_input(positions, cfg, aabb)
@@ -189,7 +196,8 @@ def vanilla_field_all(field: VanillaField, positions: torch.Tensor,
     t, rgb_raw, sem_raw = fused_pe_nerf(
         x.reshape(-1, 3).contiguous(),
         extras.reshape(-1, extras.shape[-1]).contiguous(),
-        base_wbs, top_wbs, color_wbs, sem_wbs, POS_FREQS, compute_dtype)
+        base_wbs, top_wbs, color_wbs, sem_wbs, POS_FREQS, compute_dtype,
+        pass_sem_grads)
     t = t.reshape(*batch_shape, t.shape[-1])
     density = trunc_exp(t[..., 0]) * selector
     rgb = torch.sigmoid(rgb_raw).reshape(*batch_shape, rgb_raw.shape[-1])

@@ -69,9 +69,11 @@ def check_rows(name: str, t: torch.Tensor, n: int | None = None,
 
 
 def check_kernel_call(name: str, tensors: Sequence[torch.Tensor],
-                      compute_dtype: torch.dtype) -> torch.device:
-    """The checks every CUDA launch makes: one CUDA device, bf16 compute,
-    no autograd (the backward kernels are not ported yet)."""
+                      compute_dtype: torch.dtype,
+                      no_backward: str | None = None) -> torch.device:
+    """The checks every CUDA launch makes: one CUDA device, bf16 compute.
+    ``no_backward`` names the slice that brings a kernel's backward; such a
+    kernel refuses to record an autograd graph until then."""
     device = tensors[0].device
     if device.type != "cuda":
         raise ValueError(f"{name}: expected CPU or CUDA tensors, got {device}")
@@ -81,10 +83,30 @@ def check_kernel_call(name: str, tensors: Sequence[torch.Tensor],
     if compute_dtype != torch.bfloat16:
         raise ValueError(f"{name}: the CUDA kernel computes in bf16; "
                          f"{compute_dtype} runs only on the CPU plain path")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(f"{name}: the backward kernel is not ported; "
-                           "call under torch.no_grad()")
+    if (no_backward is not None and torch.is_grad_enabled()
+            and any(t.requires_grad for t in tensors)):
+        raise RuntimeError(f"{name}: the backward kernel is not ported yet "
+                           f"({no_backward}); call under torch.no_grad()")
     return device
+
+
+def unpack_layers(layers: Sequence[Layer], dwbuf: torch.Tensor,
+                  dbbuf: torch.Tensor, descs: Sequence[int]
+                  ) -> List[Tuple[List[torch.Tensor], torch.Tensor]]:
+    """Inverse of :func:`pack_layers` for gradients: the packed f32 weight
+    and bias gradient buffers → per layer ([gradient of each weight part in
+    its unpadded shape], gradient of the bias in its shape)."""
+    out = []
+    for li, (parts, bias) in enumerate(layers):
+        w_off, b_off, _, n_pad, _ = descs[5 * li:5 * li + 5]
+        n = bias.numel()
+        grads, row = [], 0
+        for w, k_pad in parts:
+            blk = dwbuf[w_off + row * n_pad:w_off + (row + k_pad) * n_pad]
+            grads.append(blk.reshape(k_pad, n_pad)[:w.shape[0], :n])
+            row += k_pad
+        out.append((grads, dbbuf[b_off:b_off + n].reshape(bias.shape)))
+    return out
 
 
 def c_ints(values: Sequence[int]):

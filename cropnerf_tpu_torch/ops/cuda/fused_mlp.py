@@ -81,7 +81,8 @@ def fused_mlp(x: torch.Tensor, wbs: Sequence[torch.Tensor],
         k = w.shape[1]
     if x.device.type == "cpu":
         return fused_mlp_plain(x, wbs, compute_dtype)
-    device = check_kernel_call("fused_mlp", [x, *wbs], compute_dtype)
+    device = check_kernel_call("fused_mlp", [x, *wbs], compute_dtype,
+                               no_backward="slice 5, the remaining kernels")
 
     n_rows = x.shape[0]
     wbuf, bbuf, meta = pack_mlp(din, wbs, device)

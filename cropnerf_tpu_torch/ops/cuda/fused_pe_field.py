@@ -1,4 +1,4 @@
-"""Fused positional-encoding NeRF field, forward (counterpart of
+"""Fused positional-encoding NeRF field (counterpart of
 ``cropnerf_tpu/ops/pallas/fused_pe_field.py``).
 
 ``fused_pe_density`` (trunk only) and ``fused_pe_nerf`` (trunk + colour +
@@ -9,6 +9,12 @@ on the CPU.  The kernel replaces the Pallas ``_fwd_kernel`` and
 ``_mega_fwd_kernel``.  It is compute-bound on an H100 (see the source
 note): every intermediate stays in shared memory, the weights stream from
 L2.  The ragged tail of N is masked in the kernel; there is no fallback.
+
+``fused_pe_nerf`` is differentiable: on the card its backward is
+``fused_pe_nerf_bwd``, the CUDA kernel ``csrc/fused_pe_field_bwd.cu``
+(replacing ``_mega_bwd_kernel``), which recomputes the forward; on the CPU
+autograd runs through the plain version.  ``fused_pe_density`` has no
+backward kernel yet and refuses autograd on the card.
 
 Rounding points follow the JAX kernels: the encoding is rounded to the
 compute dtype before base layer 0, every hidden layer applies relu then
@@ -27,7 +33,7 @@ import torch
 from ..mlp import mm_f32acc
 from . import build
 from .common import (MAX_SMEM_BYTES, c_ints, check_kernel_call, check_rows,
-                     pack_layers, pad16, stream_ptr)
+                     pack_layers, pad16, stream_ptr, unpack_layers)
 
 
 def pe_selector_matrix(num_freqs: int, min_freq_exp: float = 0.0,
@@ -87,9 +93,11 @@ def fused_pe_nerf_plain(x: torch.Tensor, extras: torch.Tensor,
                         top_wbs: Sequence[torch.Tensor],
                         color_wbs: Sequence[torch.Tensor],
                         sem_wbs: Sequence[torch.Tensor], num_freqs: int,
-                        compute_dtype: torch.dtype = torch.bfloat16
+                        compute_dtype: torch.dtype = torch.bfloat16,
+                        pass_sem_grad: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain-PyTorch trunk + heads (≙ the JAX ``_mega_ref``)."""
+    """Plain-PyTorch trunk + heads (≙ the JAX ``_mega_ref``).  The semantic
+    head reads a detached trunk output unless ``pass_sem_grad``."""
     cd = compute_dtype
     t = fused_pe_density_plain(x, base_wbs, top_wbs, num_freqs, cd)
     tb = t.to(cd)
@@ -99,7 +107,8 @@ def fused_pe_nerf_plain(x: torch.Tensor, extras: torch.Tensor,
     for i in range(1, (len(color_wbs) - 1) // 2):
         c = torch.relu(c).to(cd)
         c = mm_f32acc(c, color_wbs[2 * i + 1], cd) + color_wbs[2 * i + 2]
-    sm = mm_f32acc(tb, sem_wbs[0], cd) + sem_wbs[1]
+    ts = tb if pass_sem_grad else tb.detach()
+    sm = mm_f32acc(ts, sem_wbs[0], cd) + sem_wbs[1]
     for i in range(1, len(sem_wbs) // 2):
         sm = torch.relu(sm).to(cd)
         sm = mm_f32acc(sm, sem_wbs[2 * i], cd) + sem_wbs[2 * i + 1]
@@ -119,15 +128,31 @@ def _lib():
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_lib():
+    lib = build.load("fused_pe_field_bwd")
+    lib.cropnerf_pe_field_bwd.argtypes = [ctypes.c_void_p] * 9 + [
+        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_int] + [ctypes.c_void_p] * 6
+    lib.cropnerf_pe_field_bwd.restype = ctypes.c_int
+    lib.cropnerf_pe_field_bwd_sizes.argtypes = [
+        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_longlong,
+        ctypes.POINTER(ctypes.c_longlong)]
+    lib.cropnerf_pe_field_bwd_sizes.restype = ctypes.c_int
+    lib.cropnerf_pe_field_bwd_smem_bytes.argtypes = [
+        ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+    lib.cropnerf_pe_field_bwd_smem_bytes.restype = ctypes.c_int
+    return lib
+
+
 def _pairs(wbs: Sequence[torch.Tensor]):
     return [(wbs[2 * i], wbs[2 * i + 1]) for i in range(len(wbs) // 2)]
 
 
-def pack_pe_field(dim: int, num_freqs: int, base_wbs, top_wbs,
-                  color_wbs=None, sem_wbs=None, de: int = 0,
-                  device: torch.device | str = "cpu"):
-    """(bf16 weights, f32 biases, meta ints) as the kernel takes them.
-    Heads are packed when ``color_wbs``/``sem_wbs`` are given."""
+def _pe_layers(dim: int, num_freqs: int, base_wbs, top_wbs, color_wbs=None,
+               sem_wbs=None, de: int = 0):
+    """(layers for ``pack_layers``, meta header) of the field; the header's
+    last entry, the widest padded layer, is filled in by the packing."""
     enc_cols = dim * (1 + 2 * num_freqs)
     enc_pad = pad16(enc_cols)
     H = base_wbs[-2].shape[1]
@@ -164,12 +189,41 @@ def pack_pe_field(dim: int, num_freqs: int, base_wbs, top_wbs,
         n_sem = len(sem_wbs) // 2
         rgb_cols = color_wbs[-2].shape[1] if n_color > 1 else color_wbs[0].shape[1]
         sem_cols = sem_wbs[-2].shape[1]
+    header = [dim, num_freqs, enc_cols, enc_pad, de, ex_pad,
+              len(base_wbs) // 2, len(top_wbs) // 2, n_color, n_sem,
+              t_cols, rgb_cols, sem_cols]
+    return layers, header
+
+
+def pack_pe_field(dim: int, num_freqs: int, base_wbs, top_wbs,
+                  color_wbs=None, sem_wbs=None, de: int = 0,
+                  device: torch.device | str = "cpu"):
+    """(bf16 weights, f32 biases, meta ints) as the kernels take them.
+    Heads are packed when ``color_wbs``/``sem_wbs`` are given."""
+    layers, header = _pe_layers(dim, num_freqs, base_wbs, top_wbs, color_wbs,
+                                sem_wbs, de)
     wbuf, bbuf, descs = pack_layers(layers, torch.device(device))
-    hmax = max(descs[3::5])
-    meta = [dim, num_freqs, enc_cols, enc_pad, de, ex_pad,
-            len(base_wbs) // 2, len(top_wbs) // 2, n_color, n_sem,
-            t_cols, rgb_cols, sem_cols, hmax] + descs
-    return wbuf, bbuf, meta
+    return wbuf, bbuf, header + [max(descs[3::5])] + descs
+
+
+def unpack_pe_field_grads(dwbuf: torch.Tensor, dbbuf: torch.Tensor, meta,
+                          base_wbs, top_wbs, color_wbs, sem_wbs):
+    """The packed f32 gradient buffers of the backward kernel → gradients
+    in the caller's shapes: (d base_wbs, d top_wbs, d color_wbs,
+    d sem_wbs), each a list parallel to its weights.  The skip layer's
+    gradient is its h block stacked on its enc block."""
+    layers, _ = _pe_layers(meta[0], meta[1], base_wbs, top_wbs, color_wbs,
+                           sem_wbs, meta[4])
+    per_layer = unpack_layers(layers, dwbuf, dbbuf, meta[14:])
+    nb, nt = len(base_wbs) // 2, len(top_wbs) // 2
+    nc = (len(color_wbs) - 1) // 2
+    flat = lambda ls: [g for ws, db in ls for g in (*ws, db)]  # noqa: E731
+    d_base = flat(per_layer[:nb])
+    (dh, de), db0 = per_layer[nb]
+    d_top = [torch.cat([dh, de], dim=0), db0] + flat(per_layer[nb + 1:nb + nt])
+    d_color = flat(per_layer[nb + nt:nb + nt + nc])
+    d_sem = flat(per_layer[nb + nt + nc:])
+    return d_base, d_top, d_color, d_sem
 
 
 def smem_bytes(meta, heads: bool) -> int:
@@ -212,7 +266,8 @@ def fused_pe_density(x: torch.Tensor, base_wbs: Sequence[torch.Tensor],
         return fused_pe_density_plain(x, base_wbs, top_wbs, num_freqs,
                                       compute_dtype)
     device = check_kernel_call("fused_pe_density",
-                               [x, *base_wbs, *top_wbs], compute_dtype)
+                               [x, *base_wbs, *top_wbs], compute_dtype,
+                               no_backward="slice 7, with BayesRays")
     wbuf, bbuf, meta = pack_pe_field(x.shape[1], num_freqs, base_wbs,
                                      top_wbs, device=device)
     t = torch.empty((x.shape[0], top_wbs[-2].shape[1]), dtype=torch.float32,
@@ -225,28 +280,8 @@ def fused_pe_density(x: torch.Tensor, base_wbs: Sequence[torch.Tensor],
     return t
 
 
-def fused_pe_nerf(x: torch.Tensor, extras: torch.Tensor,
-                  base_wbs: Sequence[torch.Tensor],
-                  top_wbs: Sequence[torch.Tensor],
-                  color_wbs: Sequence[torch.Tensor],
-                  sem_wbs: Sequence[torch.Tensor], num_freqs: int,
-                  compute_dtype: torch.dtype = torch.bfloat16
-                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Trunk + colour head + semantic head in one kernel.
-
-    x [N, dim] float32; extras [N, De] float32 (direction encoding ‖
-    appearance row per sample).  color_wbs = [WcT_pad (1+G, Hc), WcE
-    (De, Hc), bc0, Wc1, bc1, ...], sem_wbs = [WsT_pad (1+G, Hs), bs0, Ws1,
-    bs1, ...], head layer-0 weights with a zero top row.  Returns
-    (t [N, 1+G], rgb_raw [N, 3], sem_raw [N, C]) in float32."""
-    check_rows("x", x)
-    check_rows("extras", extras, n=x.shape[0])
-    if x.device.type == "cpu":
-        return fused_pe_nerf_plain(x, extras, base_wbs, top_wbs, color_wbs,
-                                   sem_wbs, num_freqs, compute_dtype)
-    device = check_kernel_call(
-        "fused_pe_nerf",
-        [x, extras, *base_wbs, *top_wbs, *color_wbs, *sem_wbs], compute_dtype)
+def _nerf_forward(x, extras, base_wbs, top_wbs, color_wbs, sem_wbs,
+                  num_freqs, device):
     wbuf, bbuf, meta = pack_pe_field(x.shape[1], num_freqs, base_wbs,
                                      top_wbs, color_wbs, sem_wbs,
                                      de=extras.shape[1], device=device)
@@ -261,5 +296,127 @@ def fused_pe_nerf(x: torch.Tensor, extras: torch.Tensor,
     return outs
 
 
+def bwd_smem_bytes(meta) -> int:
+    """Dynamic shared memory one block of the backward's tile kernel takes
+    (-1 where the kernel rejects the layout)."""
+    return _bwd_lib().cropnerf_pe_field_bwd_smem_bytes(c_ints(meta),
+                                                       len(meta))
+
+
+@torch.no_grad()
+def fused_pe_nerf_bwd(x: torch.Tensor, extras: torch.Tensor,
+                      base_wbs: Sequence[torch.Tensor],
+                      top_wbs: Sequence[torch.Tensor],
+                      color_wbs: Sequence[torch.Tensor],
+                      sem_wbs: Sequence[torch.Tensor], num_freqs: int,
+                      g_t: torch.Tensor, g_rgb: torch.Tensor,
+                      g_sem: torch.Tensor, pass_sem_grad: bool = False):
+    """The backward kernel of ``fused_pe_nerf`` on CUDA tensors: the
+    cotangents of (t, rgb_raw, sem_raw) → (dx, dextras, d base_wbs,
+    d top_wbs, d color_wbs, d sem_wbs) in float32, in the callers' shapes.
+    It recomputes the forward from x, extras and the weights."""
+    device = check_kernel_call(
+        "fused_pe_nerf_bwd",
+        [x, extras, g_t, g_rgb, g_sem, *base_wbs, *top_wbs, *color_wbs,
+         *sem_wbs], torch.bfloat16)
+    n = x.shape[0]
+    wbuf, bbuf, meta = pack_pe_field(x.shape[1], num_freqs, base_wbs,
+                                     top_wbs, color_wbs, sem_wbs,
+                                     de=extras.shape[1], device=device)
+    for name, g, c in (("g_t", g_t, meta[10]), ("g_rgb", g_rgb, meta[11]),
+                       ("g_sem", g_sem, meta[12])):
+        check_rows(name, g, n=n, cols=c)
+    lib = _bwd_lib()
+    sizes = (ctypes.c_longlong * 5)()
+    if lib.cropnerf_pe_field_bwd_sizes(c_ints(meta), len(meta), n, sizes):
+        raise ValueError("fused_pe_nerf_bwd: the kernel rejects this layout")
+    smem = bwd_smem_bytes(meta)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"fused_pe_nerf_bwd: needs {smem} B of shared "
+                         f"memory per block, more than {MAX_SMEM_BYTES}")
+    ws_elems, n_bpart, n_wpart, total_w, total_b = list(sizes)
+    dx = torch.empty_like(x)
+    dex = torch.empty_like(extras)
+    dw = torch.zeros((total_w,), dtype=torch.float32, device=device)
+    db = torch.zeros((total_b,), dtype=torch.float32, device=device)
+    if n:
+        ws = torch.empty((ws_elems,), dtype=torch.bfloat16, device=device)
+        bpart = torch.empty((n_bpart,), dtype=torch.float32, device=device)
+        wpart = torch.empty((n_wpart,), dtype=torch.float32, device=device)
+        with torch.cuda.device(device):
+            err = lib.cropnerf_pe_field_bwd(
+                x.data_ptr(), extras.data_ptr(), g_t.data_ptr(),
+                g_rgb.data_ptr(), g_sem.data_ptr(), dx.data_ptr(),
+                dex.data_ptr(), wbuf.data_ptr(), bbuf.data_ptr(),
+                c_ints(meta), len(meta), n, int(pass_sem_grad),
+                ws.data_ptr(), bpart.data_ptr(), wpart.data_ptr(),
+                dw.data_ptr(), db.data_ptr(), stream_ptr(device))
+        if err:
+            raise RuntimeError(f"fused_pe_nerf_bwd kernel launch failed: "
+                               f"cudaError {err}")
+        fused_pe_nerf_bwd.launches += 1
+    return (dx, dex, *unpack_pe_field_grads(dw, db, meta, base_wbs, top_wbs,
+                                            color_wbs, sem_wbs))
+
+
+class _FusedPeNerf(torch.autograd.Function):
+    """Forward kernel, and the backward kernel as its gradient.  Saves only
+    x, the extras and the weights, as the JAX ``_mega_fwd`` does."""
+
+    @staticmethod
+    def forward(ctx, x, extras, num_freqs, pass_sem_grad, counts, *wbs):
+        nb, nt, nc = counts
+        base, top = wbs[:nb], wbs[nb:nb + nt]
+        color, sem = wbs[nb + nt:nb + nt + nc], wbs[nb + nt + nc:]
+        ctx.save_for_backward(x, extras, *wbs)
+        ctx.config = (num_freqs, pass_sem_grad, counts)
+        outs = _nerf_forward(x, extras, base, top, color, sem, num_freqs,
+                             x.device)
+        return outs
+
+    @staticmethod
+    def backward(ctx, g_t, g_rgb, g_sem):
+        x, extras, *wbs = ctx.saved_tensors
+        num_freqs, pass_sem_grad, (nb, nt, nc) = ctx.config
+        base, top = wbs[:nb], wbs[nb:nb + nt]
+        color, sem = wbs[nb + nt:nb + nt + nc], wbs[nb + nt + nc:]
+        dx, dex, d_base, d_top, d_color, d_sem = fused_pe_nerf_bwd(
+            x, extras, base, top, color, sem, num_freqs,
+            g_t.contiguous(), g_rgb.contiguous(), g_sem.contiguous(),
+            pass_sem_grad)
+        return (dx, dex, None, None, None, *d_base, *d_top, *d_color, *d_sem)
+
+
+def fused_pe_nerf(x: torch.Tensor, extras: torch.Tensor,
+                  base_wbs: Sequence[torch.Tensor],
+                  top_wbs: Sequence[torch.Tensor],
+                  color_wbs: Sequence[torch.Tensor],
+                  sem_wbs: Sequence[torch.Tensor], num_freqs: int,
+                  compute_dtype: torch.dtype = torch.bfloat16,
+                  pass_sem_grad: bool = False
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Trunk + colour head + semantic head in one kernel, differentiable.
+
+    x [N, dim] float32; extras [N, De] float32 (direction encoding ‖
+    appearance row per sample).  color_wbs = [WcT_pad (1+G, Hc), WcE
+    (De, Hc), bc0, Wc1, bc1, ...], sem_wbs = [WsT_pad (1+G, Hs), bs0, Ws1,
+    bs1, ...], head layer-0 weights with a zero top row.  Returns
+    (t [N, 1+G], rgb_raw [N, 3], sem_raw [N, C]) in float32.  The
+    semantic head's gradient stops at its own weights unless
+    ``pass_sem_grad``."""
+    check_rows("x", x)
+    check_rows("extras", extras, n=x.shape[0])
+    if x.device.type == "cpu":
+        return fused_pe_nerf_plain(x, extras, base_wbs, top_wbs, color_wbs,
+                                   sem_wbs, num_freqs, compute_dtype,
+                                   pass_sem_grad)
+    wbs = [*base_wbs, *top_wbs, *color_wbs, *sem_wbs]
+    check_kernel_call("fused_pe_nerf", [x, extras, *wbs], compute_dtype)
+    counts = (len(base_wbs), len(top_wbs), len(color_wbs))
+    return _FusedPeNerf.apply(x, extras, num_freqs, pass_sem_grad, counts,
+                              *wbs)
+
+
 fused_pe_density.launches = 0
 fused_pe_nerf.launches = 0
+fused_pe_nerf_bwd.launches = 0

@@ -210,3 +210,198 @@ def test_pack_layers_pads_and_stacks():
     assert torch.equal(bbuf[:16], torch.cat([b, torch.zeros(13)]))
     second = wbuf[32 * 16:].reshape(16, 32).float()
     assert torch.equal(second[:3, :20], w_c.bfloat16().float())
+
+
+# --- K1 backward: the port's autograd against the JAX custom VJP ---------
+
+# (num_freqs, hidden, n_base, n_top, G, De, Hc, Hs, C, N, interpret): the
+# shapes of test_mega_kernel_interpret_matches_fallback (JAX in interpret
+# mode), and the flagship's full widths at N=256 (JAX's reference path)
+BWD_CASES = [(4, 32, 2, 2, 7, 19, 24, 16, 2, 256, True),
+             (10, 256, 4, 4, 15, 59, 64, 64, 1, 256, False)]
+BWD_TOL = {"f32": 1e-4, "bf16": 5e-2}   # bf16: JAX's own kernel-vs-fallback
+
+
+def _bwd_inputs(case, seed=0):
+    F, H, n_base, n_top, G, De, Hc, Hs, C, N, _ = case
+    rng = np.random.default_rng(seed)
+    enc = 3 * (1 + 2 * F)
+    x = rng.uniform(-1, 1, (N, 3)).astype(np.float32)
+    extras = (rng.standard_normal((N, De)) * 0.3).astype(np.float32)
+    base = np_wbs(rng, [enc] + [H] * n_base)
+    top = np_wbs(rng, [H + enc] + [H] * (n_top - 1) + [1 + G])
+    color = np_wbs(rng, [G + De, Hc, 3])
+    sem = np_wbs(rng, [G, Hs, C])
+    wc0 = color[0]
+    color_wbs = [np.pad(wc0[:G], ((1, 0), (0, 0))), wc0[G:], color[1],
+                 color[2], color[3]]
+    sem_wbs = [np.pad(sem[0], ((1, 0), (0, 0)))] + sem[1:]
+    return x, extras, [base, top, color_wbs, sem_wbs]
+
+
+def _bwd_loss(t, rgb, sm, lib):
+    return (lib.sum(lib.sin(t)) + lib.sum(lib.cos(rgb * 2))
+            + lib.sum(lib.sin(sm * 0.5)))
+
+
+@pytest.mark.parametrize("pass_sem", [False, True])
+@pytest.mark.parametrize("case", BWD_CASES, ids=["jax-test", "flagship"])
+def test_fused_pe_nerf_backward_matches_jax(case, pass_sem, arm):
+    import jax
+    x, extras, groups = _bwd_inputs(case)
+    F, interpret = case[0], case[-1]
+    s = jnp.asarray(jfield.pe_selector_matrix(F))
+
+    def jloss(x, ex, base, top, color, sem):
+        t, rgb, sm = jfield.fused_pe_nerf(x, ex, s, base, top, color, sem, F,
+                                          pass_sem, 128, interpret, 3, 128)
+        return _bwd_loss(t, rgb, sm, jnp)
+
+    ref = jax.grad(jloss, argnums=(0, 1, 2, 3, 4, 5))(
+        jnp.asarray(x), jnp.asarray(extras), *[to_jax(g) for g in groups])
+    xt, ext = torch.from_numpy(x), torch.from_numpy(extras)
+    tg = [[w.requires_grad_(True) for w in to_torch(g)] for g in groups]
+    for t in (xt, ext):
+        t.requires_grad_(True)
+    out = tfield.fused_pe_nerf(xt, ext, *tg, F, arm.dtype,
+                               pass_sem_grad=pass_sem)
+    _bwd_loss(*out, torch).backward()
+    tol = BWD_TOL[arm.name]
+    assert_close(xt.grad, ref[0], tol, "dx")
+    assert_close(ext.grad, ref[1], tol, "dextras")
+    for gi, (got_g, ref_g) in enumerate(zip(tg, ref[2:])):
+        for wi, (w, r) in enumerate(zip(got_g, ref_g)):
+            assert_close(w.grad, r, tol, f"group {gi} tensor {wi}")
+    # the semantic head's cotangent reaches the trunk only with pass_sem
+    sem_only = tfield.fused_pe_nerf(xt, ext, *tg, F, arm.dtype,
+                                    pass_sem_grad=pass_sem)[2].sum()
+    trunk_grad = torch.autograd.grad(sem_only, tg[0][0], allow_unused=True)[0]
+    assert (trunk_grad is not None and trunk_grad.abs().sum() > 0) == pass_sem
+
+
+def _kernel_model_pe_field_bwd(x, extras, wbuf, bbuf, meta, g_t, g_rgb,
+                               g_sem, pass_sem):
+    """csrc/fused_pe_field_bwd.cu's three passes in torch, on the packed
+    buffers and meta the wrapper builds: the tile pass (recompute with the
+    workspace slots, backprop with f32 cotangents rounded to bf16 as
+    product operands, per-layer bias column sums, dx, dextras), the
+    split-K weight-gradient pass Aᵀ·G over the slots, and the sums into the
+    packed f32 gradient buffers."""
+    (dim, F, enc_cols, enc_pad, de, ex_pad, n_base, n_top, n_color, n_sem,
+     t_cols, rgb_cols, sem_cols, _) = meta[:14]
+    L = [meta[14 + 5 * i:19 + 5 * i] for i in range((len(meta) - 14) // 5)]
+    n_layers = len(L)
+    top0, c0 = n_base, n_base + n_top
+    s0 = c0 + n_color
+    N = x.shape[0]
+    relu_bf16 = lambda v: torch.relu(v).bfloat16()  # noqa: E731
+    enc = torch.zeros((N, enc_pad))
+    enc[:, :enc_cols] = tfield._encode(x, F)
+    enc = enc.bfloat16()
+    ex = torch.zeros((N, ex_pad))
+    ex[:, :de] = extras
+    ex = ex.bfloat16()
+
+    act = {}                                  # the workspace's act slots
+
+    def inputs(l):                            # layer_inputs in the source
+        a0 = enc if l == 0 else act[c0 - 1] if l == s0 else act[l - 1]
+        a1 = enc if l == top0 else ex if l == c0 else a0
+        return a0, a1
+
+    for l in range(n_layers):                 # forward recompute
+        if l in (s0 - 1, n_layers - 1):
+            continue                          # heads' outputs: not read
+        a0, a1 = inputs(l)
+        v = _kernel_layer(a0, a1, wbuf, bbuf, L[l])
+        act[l] = v.bfloat16() if l == c0 - 1 else relu_bf16(v)
+
+    G = {}
+    dbbuf = torch.zeros(bbuf.shape)
+
+    def emit(l, g, mask):
+        if mask is not None:
+            g = torch.where(mask.float() > 0, g, 0.0)
+        G[l] = g.bfloat16()
+        dbbuf[L[l][1]:L[l][1] + L[l][3]] = g.sum(0)
+        return g
+
+    def bp(g, l, c_lo, cw):
+        w_off, _, k, n, _ = L[l]
+        w = wbuf[w_off:w_off + k * n].reshape(k, n).float()
+        return g.bfloat16().float() @ w[c_lo:c_lo + cw].T
+
+    def padded(g, cols, n):
+        out = torch.zeros((N, n))
+        out[:, :cols] = g
+        return out
+
+    tp = L[c0 - 1][3]
+    gt = padded(g_t, t_cols, tp)
+    dex = None
+    for first, last, g_in, cols in ((c0, s0 - 1, g_rgb, rgb_cols),
+                                    (s0, n_layers - 1, g_sem, sem_cols)):
+        g = emit(last, padded(g_in, cols, L[last][3]), None)
+        for l in range(last, first, -1):
+            g = emit(l - 1, bp(g, l, 0, L[l][2]), act[l - 1])
+        ka, k = L[first][4], L[first][2]
+        if first == c0:
+            gt = gt + bp(g, first, 0, ka)
+            dex = bp(g, first, ka, k - ka)[:, :de]
+        elif pass_sem:
+            gt = gt + bp(g, first, 0, k)
+    g = emit(c0 - 1, gt, None)
+    for l in range(c0 - 1, top0, -1):
+        g = emit(l - 1, bp(g, l, 0, L[l][2]), act[l - 1])
+    ka, k = L[top0][4], L[top0][2]
+    g_h = emit(top0 - 1, bp(g, top0, 0, ka), act[top0 - 1])
+    genc = bp(g, top0, ka, k - ka)
+    g = g_h
+    for l in range(top0 - 1, 0, -1):
+        g = emit(l - 1, bp(g, l, 0, L[l][2]), act[l - 1])
+    genc = genc + bp(g, 0, 0, L[0][2])
+
+    col = torch.arange(enc_pad)
+    sin_end = dim * (1 + F)
+    pre = torch.zeros((N, enc_pad))
+    pre[:, :enc_cols] = x @ torch.from_numpy(tfield.pe_selector_matrix(F))
+    d_pre = torch.where(col < dim, genc,
+                        torch.where(col < sin_end, genc * torch.cos(pre),
+                                    -genc * torch.sin(pre)))
+    dx = d_pre[:, :enc_cols] @ torch.from_numpy(tfield.pe_selector_matrix(F)).T
+
+    dwbuf = torch.zeros(wbuf.shape)
+    for l in range(n_layers):                 # split-K pass: Aᵀ·G
+        w_off, _, k, n, ka = L[l]
+        a0, a1 = inputs(l)
+        a = torch.cat([a0[:, :ka], a1[:, :k - ka]], dim=1)
+        dwbuf[w_off:w_off + k * n] = (a.float().T @ G[l].float()).reshape(-1)
+    return dx, dex, dwbuf, dbbuf
+
+
+@pytest.mark.parametrize("pass_sem", [False, True])
+@pytest.mark.parametrize("case", BWD_CASES, ids=["jax-test", "flagship"])
+def test_backward_kernel_model_reproduces_plain_autograd(case, pass_sem):
+    x, extras, groups = _bwd_inputs(case, seed=4)
+    F = case[0]
+    rng = np.random.default_rng(5)
+    xt, ext = torch.from_numpy(x).requires_grad_(True), torch.from_numpy(extras).requires_grad_(True)
+    tg = [[w.requires_grad_(True) for w in to_torch(g)] for g in groups]
+    outs = tfield.fused_pe_nerf_plain(xt, ext, *tg, F,
+                                      pass_sem_grad=pass_sem)
+    cots = [torch.from_numpy(rng.standard_normal(o.shape).astype(np.float32))
+            for o in outs]
+    flat_w = [w for g in tg for w in g]
+    ref = torch.autograd.grad(outs, [xt, ext, *flat_w], cots)
+
+    with torch.no_grad():
+        wbuf, bbuf, meta = tfield.pack_pe_field(3, F, *tg, de=extras.shape[1])
+        dx, dex, dwbuf, dbbuf = _kernel_model_pe_field_bwd(
+            xt, ext, wbuf, bbuf, meta, *cots, pass_sem)
+        grads = tfield.unpack_pe_field_grads(dwbuf, dbbuf, meta, *tg)
+    got = [dx, dex] + [g for group in grads for g in group]
+    assert len(got) == len(ref)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert g.shape == r.shape, (i, g.shape, r.shape)
+        err = ((g - r).abs().max() / r.abs().max().clamp_min(1e-6)).item()
+        assert err <= 2e-2, (i, err)

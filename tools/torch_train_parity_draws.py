@@ -1,0 +1,79 @@
+"""How far one training step of the PyTorch port moves from the JAX
+package's in float32, over several pixel draws, and how far the port moves
+from itself when its products are summed in float64.
+
+Both differences come from summation order: a relu unit whose
+pre-activation lies within rounding of zero takes either side.  The tests
+in tests/test_torch_train.py set their bounds from these numbers.  Runs on
+the CPU (JAX and PyTorch side by side, as the tests do):
+
+    JAX_PLATFORMS=cpu python tools/torch_train_parity_draws.py --draws 10
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
+os.environ["CROPNERF_FP32_MATMUL"] = "1"
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+import cropnerf_tpu_torch.ops.cuda.fused_pe_field as pe_field  # noqa: E402
+import cropnerf_tpu_torch.ops.mlp as mlp  # noqa: E402
+import test_torch_train as T  # noqa: E402
+
+
+def mm_f64_sums(a, w, compute_dtype):
+    return (a.to(compute_dtype).double() @ w.to(compute_dtype).double()).float()
+
+
+def port_grads(tcfg, tb, idx, mm):
+    mlp.mm_f32acc = pe_field.mm_f32acc = mm
+    _, tp = T.jax_and_torch_params(T._cfgs()[0].model, num_images=T.N_IMG)
+    loss, _ = T.tstep.train_loss(tp, tb, torch.from_numpy(idx), T.STEP, tcfg,
+                                 compute_dtype=torch.float32)
+    loss.backward()
+    return {k: p.grad.numpy().copy() for k, p in tp.named_parameters()}
+
+
+def rel(a, b):
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-12))
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--draws", type=int, default=10)
+    args = ap.parse_args()
+    import jax
+    jcfg, tcfg = T._cfgs()
+    jb, tb = T._banks()
+    plain_mm = mlp.mm_f32acc
+    for seed in range(args.draws):
+        idx = np.random.default_rng(seed).integers(0, jb.num_pixels, (T.RAYS,))
+        jidx = jnp.asarray(idx, jnp.int32)
+        params, _ = T.jax_and_torch_params(jcfg.model, num_images=T.N_IMG)
+        (_, _), (grads, _, _) = jax.jit(jax.value_and_grad(
+            T._jax_loss_fn(jcfg, jb, jidx, T.STEP), argnums=(0, 1, 2),
+            has_aux=True))(params, *T._jax_rays(jb, jidx))
+        ref = T._named(grads)
+        f32 = port_grads(tcfg, tb, idx, plain_mm)
+        f64 = port_grads(tcfg, tb, idx, mm_f64_sums)
+        for label, keys in (("trunk", [k for k in ref if T._kinked(k)]),
+                            ("other", [k for k in ref if not T._kinked(k)
+                                       and k != "camera_opt"])):
+            jx = max(keys, key=lambda k: rel(f32[k], ref[k]))
+            me = max(keys, key=lambda k: rel(f32[k], f64[k]))
+            print(f"draw {seed} {label}: port vs JAX {rel(f32[jx], ref[jx]):.2e}"
+                  f" ({jx}); port vs float64 sums {rel(f32[me], f64[me]):.2e}"
+                  f" ({me})")
+    mlp.mm_f32acc = pe_field.mm_f32acc = plain_mm
+
+
+if __name__ == "__main__":
+    main()
