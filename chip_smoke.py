@@ -8,22 +8,29 @@ Run from the root of the repository:  python3 chip_smoke.py
    registers, shared memory and spills;
 2. prints the card (torch and nvidia-smi: name, power limit);
 3. holds every kernel against its plain PyTorch version at the shapes the
-   cropnerf-mxu serving and training paths give it and at a ragged N, and
-   times both: K1 forward and backward (the backward against autograd of
-   the plain version), K2 and K3;
-4. drives the serving path with random weights (full cropnerf-mxu widths,
-   from a seeded torch.Generator): forward at 4096 rays, a 256x256 render
-   (two 32,768-ray chunks) and a 128^3 volume export with colours, with the
-   launch counts zeroed just before and read just after; then runs the
-   same calls with the field on the plain path and compares;
-5. drives the training path: a pixel bank of 32 synthetic 1200x800
-   images resident on the card, cropnerf-mxu at 4096 rays a step; one step
-   on the kernel path against one on the plain path from the same
-   parameters and draws, then a first step and TRAIN_STEPS timed steps
-   with the launch counts zeroed before and read after;
-6. traces one forward, render, export and training step with
-   torch.profiler and prints the device time of the busiest operations
-   and the device's busy share;
+   serving and training paths give it and at a ragged N, and times both:
+   for cropnerf-mxu K1 forward and backward (the backward against autograd
+   of the plain version), K2 and K3; for cropnerf (the hash-grid field,
+   the CLI default) the hash-grid encode K4 forward and backward at the
+   field's and both proposal nets' shapes, a ragged N and a small dense
+   [L, T, F] table;
+4. drives the serving paths with random weights from a seeded
+   torch.Generator at full published widths: forward at 4096 rays, a
+   256x256 render (two 32,768-ray chunks) and a 128^3 volume export with
+   colours, with the launch counts zeroed just before and read just after;
+   then runs the same calls with the kernels' plain versions and compares.
+   cropnerf-mxu first, then cropnerf, whose launch counts are checked
+   exactly for each call;
+5. drives the training paths: a pixel bank of 32 synthetic 1200x800
+   images resident on the card, 4096 rays a step; one step on the kernel
+   path against one on the plain path from the same parameters and draws,
+   then a first step and TRAIN_STEPS timed steps with the launch counts
+   zeroed before and read after; for cropnerf then one step between
+   proposal updates (the proposal nets run without a graph);
+6. traces one forward, render, export and training step of cropnerf-mxu
+   and one forward and training step of cropnerf with torch.profiler, and
+   prints the device time of the busiest operations and the device's busy
+   share;
 7. prints one JSON line of kernel numbers, the nvidia-smi card line, and
    the status line last.
 
@@ -53,10 +60,21 @@ TOL = 1e-2               # max |kernel - plain| / max |plain|, bf16 compute
 GRAD_TOL = 5e-2          # the same for gradients (f32 vs bf16 cotangents)
 ROW_SHARE = 0.99         # dx, dextras: share of rows within GRAD_TOL
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+PEAK_F32_FLOPS = 67e12   # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3 bandwidth
+HASH_TOL = 1e-5          # K4 forward and table gradient, of max |plain|
+DPOS_TOL = 1e-4          # K4 position gradient (another summation order)
+# K4 flops per (position, level), counted from csrc/hash_encode.cu: the
+# cell (3 products, 3 differences); per corner, forward 5 for the weight
+# and 4 for the blend, backward 5 for the weight, 2 for the scatter, 3 for
+# the dot product and 9 for d(weight)/d(pos); 3 to scale the position
+# gradient
+HASH_FWD_FLOPS = 6 + 8 * 9
+HASH_BWD_FLOPS = 6 + 8 * 19 + 3
 RAYS = 4096              # the forward's ray batch (the JAX entry() batch)
 RENDER_HW = 256          # full-image render, two 32,768-ray chunks
 EXPORT_SIDE = 128        # volume export: 128^3 samples over the AABB
+EXPORT_RAYS = 512        # rays per export chunk (sample_volume's default)
 KERNEL_NS = "cropnerf::"  # the port's kernels in profiler rows
 REPEATS = 5              # timed runs of each path step after its first call
 TRAIN_STEPS = 20         # timed training steps after the first
@@ -160,24 +178,11 @@ def nbytes(*tensors) -> int:
 
 
 def unported_bounds(presets) -> dict:
-    """Bounds of the TPU kernels not ported yet (K4-K6), from the JAX
+    """Bounds of the TPU kernels not ported yet (K5, K6), from the JAX
     kernels' shapes at the configuration that would reach them; no kernel
-    runs here, so they are not measured.  float32 tables and activations
-    as the JAX package keeps them; tensor-core bf16 peak for products."""
-    peak_f32 = 67e12                        # H100 SXM float32, no tensor cores
-    cfg = presets["cropnerf"]               # K4: the hash field, impl "pallas"
-    g = cfg.model.field.grid
-    n = cfg.train_num_rays_per_batch * cfg.model.num_nerf_samples_per_ray
-    lf = g.num_levels * g.features_per_level
-    table = g.num_levels * 2 ** g.log2_hashmap_size * g.features_per_level * 4
-    ops = n * g.num_levels * (8 * (6 + 3 + 2 * g.features_per_level) + 12)
-    k4 = (table + n * 3 * 4 + n * lf * 4) / PEAK_BYTES * 1e3
-    out = {"hash_encode": dict(
-        shape=f"positions [{n},3], dense table {g.num_levels}x2^"
-              f"{g.log2_hashmap_size}x{g.features_per_level} -> [{n},{lf}] "
-              "(cropnerf train step, field)",
-        bound_ms=max(k4, ops / peak_f32 * 1e3),
-        bound_by="bytes" if k4 >= ops / peak_f32 * 1e3 else "operations")}
+    runs here, so they are not measured.  float32 activations as the JAX
+    package keeps them; tensor-core bf16 peak for products."""
+    out = {}
     m = presets["cropnerf-mxu"]             # K5: its proposal net 0, fused
     p0 = m.model.proposal_fields[0]
     n = m.train_num_rays_per_batch * m.model.num_proposal_samples_per_ray[0]
@@ -195,8 +200,414 @@ def unported_bounds(presets) -> dict:
     out["transmittance"] = dict(
         shape=f"density, deltas [{r},{smp}] -> weights (cropnerf-mxu final "
               "level; wired into no model path)",
-        bound_ms=max(t_bytes, 6 * r * smp / peak_f32 * 1e3), bound_by="bytes")
+        bound_ms=max(t_bytes, 6 * r * smp / PEAK_F32_FLOPS * 1e3),
+        bound_by="bytes")
     return out
+
+
+# ---- the hash-grid family (cropnerf) ---------------------------------------
+
+def hash_path_shapes(cfg):
+    """(label, positions, grid config) of the three encodes of one cropnerf
+    training step: the field and the two proposal nets."""
+    m, rays = cfg.model, cfg.train_num_rays_per_batch
+    return [("field", rays * m.num_nerf_samples_per_ray, m.field.grid),
+            ("proposal 0", rays * m.num_proposal_samples_per_ray[0],
+             m.proposal_fields[0].grid),
+            ("proposal 1", rays * m.num_proposal_samples_per_ray[1],
+             m.proposal_fields[1].grid)]
+
+
+def rows_touched(pos, layout) -> int:
+    """Table rows that these positions read: the corners of their cells at
+    every level, each counted once (the data-dependent part of K4's
+    bytes)."""
+    from cropnerf_tpu_torch.ops.hashgrid import _hash3
+    res, offsets, dense, t = layout
+    rows = []
+    for r, off, d in zip(res, offsets, dense):
+        base = torch.floor(pos * r).long()
+        if d:
+            base = base.clamp(0, r - 1)
+        for corner in range(8):
+            c = base + torch.tensor([corner & 1, (corner >> 1) & 1,
+                                     (corner >> 2) & 1], device=pos.device)
+            idx = ((c[:, 0] * (r + 1) + c[:, 1]) * (r + 1) + c[:, 2] if d
+                   else _hash3(c[:, 0], c[:, 1], c[:, 2], t))
+            rows.append(torch.unique(off + idx))
+    return int(torch.unique(torch.cat(rows)).numel())
+
+
+def hash_kernels(cfg, dev, card, report: str) -> dict:
+    """K4 forward and backward against the plain version at the path's
+    shapes, a ragged N and a small dense [L, T, F] table: errors, and at
+    the path's shapes times and bounds.  Returns the two kernels' entries
+    of the JSON line, each summed over one training step's three
+    encodes."""
+    from cropnerf_tpu_torch.ops import hashgrid as hg
+    from cropnerf_tpu_torch.ops.cuda import hash_encode as kh
+    g = torch.Generator(device=dev).manual_seed(5)
+    path = hash_path_shapes(cfg)
+    field_grid = path[0][2]
+    cases = path + [
+        ("field, ragged N", path[0][1] - 77, field_grid),
+        ("small dense [L,T,F] table", 1000,
+         dataclasses.replace(field_grid, num_levels=4, log2_hashmap_size=12,
+                             min_res=4, max_res=32, layout="dense"))]
+    per = {}
+    for label, n, gc in cases:
+        res = hg.level_resolutions(gc.num_levels, gc.min_res, gc.max_res)
+        t = 2 ** gc.log2_hashmap_size
+        shape = ((sum(hg.level_row_counts(res, t)), gc.features_per_level)
+                 if gc.layout == "packed"
+                 else (gc.num_levels, t, gc.features_per_level))
+        table = torch.rand(shape, generator=g, device=dev) * 2 - 1
+        pos = torch.rand((n, 3), generator=g, device=dev)
+        pos[:3] = torch.tensor([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0],
+                                [1.0, 0.0, 0.5]], device=dev)
+        table2d, offsets, dense, _ = hg._table_layout(table, res, "auto", t)
+        layout = (tuple(res), tuple(offsets), tuple(dense), t)
+        cot = torch.randn((n, 2 * len(res)), generator=g, device=dev)
+
+        def kf():
+            return kh.hash_encode_fwd(table2d, pos, *layout)
+
+        def pf():
+            return hg.hashgrid_encode_plain(table, pos, res, table_size=t)
+
+        def kb():
+            return kh.hash_encode_bwd(table2d, pos, cot, *layout)
+
+        def pb():
+            tt = table.clone().requires_grad_(True)
+            tp = pos.clone().requires_grad_(True)
+            with torch.enable_grad():
+                hg.hashgrid_encode_plain(tt, tp, res,
+                                         table_size=t).backward(cot)
+            return tt.grad.reshape(-1, 2), tp.grad
+
+        with torch.no_grad():
+            out, ref = kf(), pf()
+        (dt, dp), (dt_ref, dp_ref) = kb(), pb()
+        k = dict(n=n, levels=len(res), rows=table2d.shape[0],
+                 dense_levels=sum(dense), layout=gc.layout,
+                 fwd_err=rel_err(out, ref), fwd_abs=abs_err(out, ref),
+                 fwd_bitwise=bool(torch.equal(out, ref)),
+                 dtable_err=rel_err(dt, dt_ref), dtable_abs=abs_err(dt, dt_ref),
+                 dpos_err=rel_err(dp, dp_ref), dpos_abs=abs_err(dp, dp_ref))
+        log(f"[kernel] hash_encode {label}: positions [{n},3], {k['levels']} "
+            f"levels, {k['layout']} table of {k['rows']} rows "
+            f"({k['dense_levels']} dense levels); err forward "
+            f"{k['fwd_err']:.2e} (bit-identical {k['fwd_bitwise']}), dtable "
+            f"{k['dtable_err']:.2e}, dpos {k['dpos_err']:.2e} (limits "
+            f"{HASH_TOL}, {HASH_TOL}, {DPOS_TOL})")
+        check(k["fwd_err"] <= HASH_TOL and k["dtable_err"] <= HASH_TOL
+              and k["dpos_err"] <= DPOS_TOL,
+              f"hash_encode {label} disagrees with its plain version")
+        if (label, n, gc) in path:
+            touched = rows_touched(pos, layout)
+            k.update(touched=touched,
+                     ms=device_ms(kf, 20, KERNEL_NS), call_ms=cuda_ms(kf, 20),
+                     plain_ms=device_ms(pf, 3),
+                     bwd_ms=device_ms(kb, 10, KERNEL_NS),
+                     bwd_call_ms=cuda_ms(kb, 10), bwd_plain_ms=device_ms(pb, 3))
+            # each input read once (of the table, the rows these positions
+            # touch), each output written once (the whole table gradient)
+            fwd_bytes = nbytes(pos, out) + touched * 8
+            bwd_bytes = nbytes(pos, cot, dt, dp) + touched * 8
+            k.update(
+                bound_ms=max(fwd_bytes / PEAK_BYTES, n * len(res)
+                             * HASH_FWD_FLOPS / PEAK_F32_FLOPS) * 1e3,
+                bwd_bound_ms=max(bwd_bytes / PEAK_BYTES, n * len(res)
+                                 * HASH_BWD_FLOPS / PEAK_F32_FLOPS) * 1e3,
+                whole_table_bound_ms=nbytes(pos, out, table2d)
+                / PEAK_BYTES * 1e3)
+            log(f"[kernel] hash_encode {label}: forward {k['ms']:.4f} ms "
+                f"(call {k['call_ms']:.4f}), plain {k['plain_ms']:.4f} ms, "
+                f"bound {k['bound_ms']:.4f} ms (bytes; {touched} of "
+                f"{k['rows']} rows read; with the whole table read "
+                f"{k['whole_table_bound_ms']:.4f} ms); backward "
+                f"{k['bwd_ms']:.4f} ms (call with the zeroed gradient "
+                f"{k['bwd_call_ms']:.4f}), plain {k['bwd_plain_ms']:.4f} ms, "
+                f"bound {k['bwd_bound_ms']:.4f} ms (bytes); {card}")
+        per[label] = k
+        del table, table2d, pos, cot, out, ref, dt, dp, dt_ref, dp_ref
+    spills = [line.strip() for line in report.splitlines() if "spill" in line]
+    log(f"[build] hash_encode registers {ptxas_registers(report)}; "
+        + "; ".join(spills))
+    timed = [per[p[0]] for p in path]
+    shape = ", ".join(f"{p[0]} [{p[1]},3] x {per[p[0]]['levels']} levels "
+                      f"({per[p[0]]['rows']} rows)" for p in path)
+    common = dict(source="cropnerf_tpu_torch/csrc/hash_encode.cu",
+                  bound_by="bytes", by_shape=per)
+    return {
+        "hash_encode": dict(
+            common, replaces="cropnerf_tpu/ops/pallas/hash_encode.py:35",
+            shape=f"one cropnerf train step's three encodes: {shape}",
+            ms=sum(k["ms"] for k in timed),
+            call_ms=sum(k["call_ms"] for k in timed),
+            plain_ms=sum(k["plain_ms"] for k in timed),
+            bound_ms=sum(k["bound_ms"] for k in timed),
+            rel_err=max(k["fwd_err"] for k in per.values()),
+            max_abs_err=max(k["fwd_abs"] for k in per.values())),
+        "hash_encode_bwd": dict(
+            common, replaces="cropnerf_tpu/ops/pallas/hash_encode.py:131",
+            shape=f"the backward of the same three encodes: {shape}",
+            ms=sum(k["bwd_ms"] for k in timed),
+            call_ms=sum(k["bwd_call_ms"] for k in timed),
+            plain_ms=sum(k["bwd_plain_ms"] for k in timed),
+            bound_ms=sum(k["bwd_bound_ms"] for k in timed),
+            rel_err=max(max(k["dtable_err"], k["dpos_err"])
+                        for k in per.values()),
+            max_abs_err=max(max(k["dtable_abs"], k["dpos_abs"])
+                            for k in per.values()))}
+
+
+def plain_grids(cfg):
+    """``cfg`` with every hash grid on the plain PyTorch encode."""
+    def plain(g):
+        return dataclasses.replace(g, impl="plain")
+    m = cfg.model
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        m, field=dataclasses.replace(m.field, grid=plain(m.field.grid)),
+        proposal_fields=tuple(dataclasses.replace(p, grid=plain(p.grid))
+                              for p in m.proposal_fields)))
+
+
+def counted(kernels, fn) -> dict:
+    """Launches of each kernel during ``fn()``: every count is set to 0
+    just before and read just after."""
+    for k in kernels:
+        k.launches = 0
+    fn()
+    return {k.__name__: k.launches for k in kernels}
+
+
+def export_thresholds(params, fcfg, g, dev) -> dict:
+    """The reference thresholds (density 70, logit 3, sigmoid 0.9) keep no
+    sample of a field with random weights; take them from the field's own
+    quantiles over the box, so that every cloud holds points."""
+    from cropnerf_tpu_torch.models.field import field_density, field_semantics
+    with torch.no_grad():
+        pts = torch.rand((65536, 3), generator=g, device=dev) * 2 - 1
+        dens, geo = field_density(params.field, pts, fcfg)
+        logit = field_semantics(params.field, geo, fcfg)[:, 0]
+    return dict(density_threshold=dens.quantile(0.75).item(),
+                semantic_threshold=logit.quantile(0.5).item(),
+                colormap_threshold=torch.sigmoid(logit.quantile(0.25)).item())
+
+
+def hash_serving(dev, card, rb, cams, aabb, out_dir, kernels):
+    """cropnerf serving at full published widths (field grid 16 x 2^19,
+    proposal grids 5 x 2^17, 256/96/48 samples): forward, render and
+    export, each with exact launch counts, timed, then against the plain
+    path.  The grids are drawn in ±0.5 (the ±1e-4 init gives a nearly
+    constant field).  Returns (numbers for the JSON line, the forward call
+    for the trace)."""
+    from cropnerf_tpu_torch.export.ply import ply_vertex_count
+    from cropnerf_tpu_torch.export.volume import export_and_write
+    from cropnerf_tpu_torch.models.config import PRESETS
+    from cropnerf_tpu_torch.models.model import forward, model_init
+    from cropnerf_tpu_torch.train.step import make_render_fn
+    cfg = PRESETS["cropnerf"]
+    m = cfg.model
+    params = model_init(m, num_images=8,
+                        generator=torch.Generator().manual_seed(0), device=dev)
+    g = torch.Generator(device=dev).manual_seed(6)
+    with torch.no_grad():
+        for name, p in params.named_parameters():
+            if name.endswith("grid"):
+                p.uniform_(-0.5, 0.5, generator=g)
+    thresholds = export_thresholds(params, m.field, g, dev)
+    log(f"[path] cropnerf export thresholds {thresholds}")
+    n_px = RENDER_HW * RENDER_HW
+    per_pass = 1 + m.num_proposal_iterations
+    expected = {"forward": per_pass,
+                "render": math.ceil(n_px / cfg.eval_num_rays_per_chunk) * per_pass,
+                "export": math.ceil(EXPORT_SIDE ** 2 / EXPORT_RAYS)}
+    render = make_render_fn(cfg)
+    result = {}
+    steps = {
+        "forward": lambda: result.update(fwd=forward(params, rb, m)),
+        "render": lambda: result.update(
+            img=render(params, cams, 0, RENDER_HW, RENDER_HW)),
+        "export": lambda: result.update(paths=export_and_write(
+            params, m, aabb, out_dir / "cropnerf",
+            num_points_per_side=EXPORT_SIDE, rays_per_batch=EXPORT_RAYS,
+            render_rgb=True, **thresholds))}
+    launches, first_ms = {}, {}
+    for step, fn in steps.items():
+        first_ms[step] = wall_ms(
+            lambda: launches.update({step: counted(kernels, fn)}))
+        want = {k.__name__: 0 for k in kernels}
+        want["hash_encode"] = expected[step]
+        log(f"[path] cropnerf {step} launches: {launches[step]}")
+        check(launches[step] == want, f"cropnerf {step} launches "
+              f"{launches[step]}, expected {want}")
+    runs_ms = {step: [wall_ms(fn) for _ in range(REPEATS)]
+               for step, fn in steps.items()}
+    med_ms = {step: statistics.median(v) for step, v in runs_ms.items()}
+    counts = {k: ply_vertex_count(p) for k, p in result["paths"].items()}
+    for step, what, n_rays in (
+            ("forward", f"{RAYS} rays", RAYS),
+            ("render", f"{RENDER_HW}x{RENDER_HW}", n_px),
+            ("export", f"{EXPORT_SIDE}^3 with colours, points {counts}",
+             None)):
+        rate = (f" ({n_rays / med_ms[step] * 1e3:.0f} rays/s)"
+                if n_rays else "")
+        log(f"[path] cropnerf {step} {what}: median {med_ms[step]:.2f} ms of "
+            f"{REPEATS}{rate}, runs "
+            + ", ".join(f"{v:.2f}" for v in runs_ms[step])
+            + f" ms; first call {first_ms[step]:.2f} ms; {card}")
+
+    fwd, img = result["fwd"], result["img"]
+    for k in ("rgb", "accumulation", "depth", "semantics"):
+        check(bool(torch.isfinite(fwd[k]).all()) and fwd[k].shape[0] == RAYS,
+              f"cropnerf forward {k}")
+        check(bool(torch.isfinite(img[k]).all())
+              and img[k].shape[:2] == (RENDER_HW, RENDER_HW),
+              f"cropnerf render {k}")
+    plain = plain_grids(cfg)
+    fwd_p = forward(params, rb, plain.model)
+    img_p = make_render_fn(plain)(params, cams, 0, RENDER_HW, RENDER_HW)
+    agree = {}
+    for label, a, b in (("forward", fwd, fwd_p), ("render", img, img_p)):
+        for k in ("rgb", "accumulation", "semantics", "depth"):
+            agree[f"{label} {k}"] = rel_err(a[k], b[k])
+    paths_p = export_and_write(params, plain.model, aabb,
+                               out_dir / "cropnerf-plain",
+                               num_points_per_side=EXPORT_SIDE,
+                               rays_per_batch=EXPORT_RAYS, render_rgb=True,
+                               **thresholds)
+    counts_p = {k: ply_vertex_count(p) for k, p in paths_p.items()}
+    log("[check] cropnerf kernel path vs plain path: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in agree.items())
+        + f"; export points {counts} vs plain {counts_p}")
+    for k, v in agree.items():
+        check(v <= 2 * TOL, f"cropnerf {k}: {v:.3e} > {2 * TOL}")
+    check(counts["density"] > counts["semantic"] > 0, f"export {counts}")
+    for k in counts:
+        check(abs(counts[k] - counts_p[k]) <= 0.01 * counts_p[k] + 10,
+              f"cropnerf export {k}: {counts[k]} points vs plain {counts_p[k]}")
+    info = {"card": card, "repeats": REPEATS, "median_ms": med_ms,
+            "runs_ms": runs_ms, "first_ms": first_ms,
+            "forward_rays_per_s": RAYS / med_ms["forward"] * 1e3,
+            "render_rays_per_s": n_px / med_ms["render"] * 1e3,
+            "export_points": counts, "launches": launches,
+            "vs_plain": agree}
+    return info, steps["forward"]
+
+
+def hash_training(dev, card, bank, kernels):
+    """cropnerf training at 4096 rays on the resident bank: one step on the
+    kernel path against the plain path, a first step and TRAIN_STEPS timed
+    steps (all proposal-update steps: 3 forward and 3 backward encodes
+    each), then one step between proposal updates (3 forward, 1 backward)
+    and the peak memory of an update step.  Returns (numbers for the JSON
+    line, the step call for the trace)."""
+    from cropnerf_tpu_torch.models.config import PRESETS
+    from cropnerf_tpu_torch.train.state import create_train_state
+    from cropnerf_tpu_torch.train.step import (_prop_update_bool,
+                                               make_eval_batch_fn,
+                                               make_train_step, train_loss)
+    cfg = PRESETS["cropnerf"]
+    R = cfg.train_num_rays_per_batch
+    n_img = bank.num_images
+    one = {}
+    for label, c in (("kernel", cfg), ("plain", plain_grids(cfg))):
+        st = create_train_state(c, n_img, torch.Generator().manual_seed(0), dev)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        idx = torch.randint(0, bank.num_pixels, (R,), generator=gen,
+                            device=dev)
+        loss, _ = train_loss(st.params, bank, idx, 0, c, gen)
+        loss.backward()
+        one[label] = (loss.item(), {k: p.grad.clone() for k, p in
+                                    st.params.named_parameters()})
+        del st
+    (l_k, g_k), (l_p, g_p) = one["kernel"], one["plain"]
+    leaf_err = {k: rel_err(g_k[k], g_p[k]) for k in g_p}
+    worst = max(leaf_err, key=leaf_err.get)
+    log(f"[train] cropnerf one step, kernel path vs plain path: loss "
+        f"{l_k:.6f} vs {l_p:.6f} (rel {abs(l_k - l_p) / abs(l_p):.2e}); "
+        f"gradient leaves within {GRAD_TOL} of max: "
+        f"{sum(v <= GRAD_TOL for v in leaf_err.values())}/{len(leaf_err)}, "
+        f"worst {worst} {leaf_err[worst]:.2e}")
+    check(math.isfinite(l_k) and abs(l_k - l_p) <= 2e-2 * abs(l_p),
+          f"cropnerf train loss {l_k} vs plain {l_p}")
+    for k, v in leaf_err.items():
+        check(bool(torch.isfinite(g_k[k]).all()) and v <= GRAD_TOL,
+              f"cropnerf train gradient {k}: {v:.3e}")
+    del one, g_k, g_p
+
+    state = create_train_state(cfg, n_img, torch.Generator().manual_seed(0),
+                               dev)
+    train_step = make_train_step(cfg)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    before = {k: v.clone() for k, v in state.params.state_dict().items()}
+    metrics = {}
+
+    def run_train():
+        metrics.update(train_step(state, bank, gen)[1])
+
+    runs = []
+    n_steps = 1 + TRAIN_STEPS
+    launches = counted(kernels, lambda: runs.extend(
+        wall_ms(run_train) for _ in range(n_steps)))
+    first_ms, runs_ms = runs[0], runs[1:]
+    log(f"[train] cropnerf launches on the training path ({n_steps} "
+        f"steps): {launches}")
+    want = {k.__name__: 0 for k in kernels}
+    want.update(hash_encode=3 * n_steps, hash_encode_bwd=3 * n_steps)
+    check(launches == want, f"cropnerf training launches {launches}, "
+          f"expected {want}")
+    loss_now = metrics["loss"].item()
+    changed = sum(not torch.equal(v, before[k])
+                  for k, v in state.params.state_dict().items())
+    check(math.isfinite(loss_now) and state.step == n_steps,
+          f"cropnerf training loss {loss_now}, step {state.step}")
+    check(changed == len(before),
+          f"{len(before) - changed} cropnerf parameter tensors did not change")
+
+    # one step between proposal updates: no proposal backward
+    state.step = 5001
+    check(not bool(_prop_update_bool(state.step, cfg)), "5001 updates")
+    before = {k: v.clone() for k, v in state.params.state_dict().items()}
+    frozen_launches = counted(kernels, run_train)
+    want.update(hash_encode=3, hash_encode_bwd=1)
+    log(f"[train] cropnerf launches of one step between proposal updates "
+        f"(step 5001): {frozen_launches}")
+    check(frozen_launches == want, f"cropnerf step 5001 launches "
+          f"{frozen_launches}, expected {want}")
+    moved = {k: not torch.equal(v, before[k])
+             for k, v in state.params.state_dict().items()}
+    check(all(v != k.startswith("proposal_") for k, v in moved.items()),
+          f"step 5001 moved {moved}")
+
+    med = statistics.median(runs_ms)
+    # back to the timed steps' schedule, where every step updates the
+    # proposal nets, for the peak memory and the trace
+    state.step = n_steps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run_train()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    eval_m = {k: v.item() for k, v in make_eval_batch_fn(cfg)(
+        state.params, bank, gen).items()}
+    check(all(math.isfinite(v) for v in eval_m.values()), f"eval {eval_m}")
+    log(f"[train] cropnerf step: median {med:.2f} ms of {TRAIN_STEPS} "
+        f"({R / med * 1e3:.0f} rays/s), runs "
+        + ", ".join(f"{v:.2f}" for v in runs_ms)
+        + f" ms; first step {first_ms:.2f} ms; peak device memory "
+        f"{peak:.2f} GiB; loss {loss_now:.5f}, psnr "
+        f"{metrics['psnr'].item():.3f}; eval batch {eval_m}; {card}")
+    info = {"card": card, "rays": R, "steps": TRAIN_STEPS, "median_ms": med,
+            "runs_ms": runs_ms, "first_ms": first_ms, "peak_gib": peak,
+            "rays_per_s": R / med * 1e3, "loss": loss_now,
+            "launches": launches, "no_update_step_launches": frozen_launches,
+            "vs_plain_loss_rel": abs(l_k - l_p) / abs(l_p),
+            "vs_plain_grad_worst": [worst, leaf_err[worst]]}
+    return info, run_train
 
 
 def main() -> None:
@@ -213,13 +624,14 @@ def main() -> None:
     from cropnerf_tpu_torch.core.rays import RayBundle
     from cropnerf_tpu_torch.export.volume import export_and_write
     from cropnerf_tpu_torch.models.config import PRESETS
-    from cropnerf_tpu_torch.models.field import field_density, field_semantics
     from cropnerf_tpu_torch.models.model import forward, model_init
     from cropnerf_tpu_torch.models.vanilla import (DIR_FREQS, POS_FREQS,
                                                    fused_field_weights)
     from cropnerf_tpu_torch.ops.cuda import build
     from cropnerf_tpu_torch.ops.cuda import fused_mlp as kmlp
     from cropnerf_tpu_torch.ops.cuda import fused_pe_field as kfield
+    from cropnerf_tpu_torch.ops.cuda.hash_encode import (hash_encode,
+                                                         hash_encode_bwd)
     from cropnerf_tpu_torch.ops.cuda.fused_mlp import fused_mlp, fused_mlp_plain
     from cropnerf_tpu_torch.ops.cuda.fused_pe_field import (
         fused_pe_density, fused_pe_density_plain, fused_pe_nerf,
@@ -465,6 +877,8 @@ def main() -> None:
     regs = ptxas_registers(reports["fused_pe_field_bwd"])
     log(f"[build] fused_pe_field_bwd registers {regs}; tile kernel dynamic "
         f"shared memory {kfield.bwd_smem_bytes(kfield.pack_pe_field(3, POS_FREQS, base, top, color, sem, de=de, device=dev)[2])} B")
+    hash_k = hash_kernels(PRESETS["cropnerf"], dev, card,
+                          reports["hash_encode"])
 
     # ---- 4. the serving path ----------------------------------------------
     d = torch.randn((RAYS, 3), generator=torch.Generator().manual_seed(1))
@@ -485,17 +899,7 @@ def main() -> None:
                    width=torch.full((1,), RENDER_HW, device=dev),
                    height=torch.full((1,), RENDER_HW, device=dev))
     aabb = [[-1.0, -1.0, -1.0], [1.0, 1.0, 1.0]]
-    # The reference thresholds (density 70, logit 3, sigmoid 0.9) keep no
-    # sample of a field with random weights; take them from the field's own
-    # quantiles over the box, so that every cloud holds points.
-    with torch.no_grad():
-        pts = torch.rand((65536, 3), generator=g, device=dev) * 2 - 1
-        dens, geo = field_density(params.field, pts, fcfg)
-        logit = field_semantics(params.field, geo, fcfg)[:, 0]
-    thresholds = dict(density_threshold=dens.quantile(0.75).item(),
-                      semantic_threshold=logit.quantile(0.5).item(),
-                      colormap_threshold=torch.sigmoid(
-                          logit.quantile(0.25)).item())
+    thresholds = export_thresholds(params, fcfg, g, dev)
     log(f"[path] export thresholds {thresholds}")
     render = make_render_fn(cfg)
     plain_m = dataclasses.replace(
@@ -573,6 +977,10 @@ def main() -> None:
     for k in counts:
         check(abs(counts[k] - counts_p[k]) <= 0.01 * counts_p[k] + 10,
               f"export {k}: {counts[k]} points vs plain {counts_p[k]}")
+
+    all_kernels = path_kernels + (hash_encode, hash_encode_bwd)
+    hash_path, hash_forward = hash_serving(dev, card, rb, cams, aabb, out_dir,
+                                           all_kernels)
 
     # ---- 5. the training path ---------------------------------------------
     from cropnerf_tpu_torch.data.databank import build_pixel_bank
@@ -669,6 +1077,9 @@ def main() -> None:
         f"{train_peak:.2f} GiB; loss {loss_now:.5f}, "
         f"psnr {metrics['psnr'].item():.3f}; eval batch {eval_m}; {card}")
     steps["train step"] = run_train
+    hash_train, hash_step = hash_training(dev, card, bank, all_kernels)
+    steps["cropnerf forward"] = hash_forward
+    steps["cropnerf train step"] = hash_step
 
     # ---- 6. where the time goes: one traced call of each path step ------
     breakdown = {}
@@ -701,7 +1112,18 @@ def main() -> None:
         rel_err=k["rel_err"], ms=k["ms"], call_ms=k["call_ms"],
         plain_ms=k["plain_ms"],
         bound_ms=k["bound_ms"], bound_by=k["bound_by"], library_ms=None,
-        shape=k["shape"], card=card) for name, k in kernels.items()],
+        shape=k["shape"], card=card) for name, k in kernels.items()] + [dict(
+        name=name, route="cuda", source=k["source"], replaces=k["replaces"],
+        launches=hash_train["launches"][name],
+        launches_by_path={
+            "serving": {step: n[name]
+                        for step, n in hash_path["launches"].items()},
+            "train": hash_train["launches"][name],
+            "no_update_step": hash_train["no_update_step_launches"][name]},
+        max_abs_err=k["max_abs_err"], rel_err=k["rel_err"], ms=k["ms"],
+        call_ms=k["call_ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+        bound_by=k["bound_by"], library_ms=None, shape=k["shape"], card=card,
+        by_shape=k["by_shape"]) for name, k in hash_k.items()],
         "path": {"card": card, "repeats": REPEATS, "median_ms": med_ms,
                  "runs_ms": runs_ms, "first_ms": first_ms,
                  "forward_rays_per_s": RAYS / med_ms["forward"] * 1e3,
@@ -713,6 +1135,8 @@ def main() -> None:
                   "rays_per_s": R / train_med * 1e3, "loss": loss_now,
                   "vs_plain_loss_rel": abs(l_k - l_p) / abs(l_p),
                   "vs_plain_grad_worst": [worst, leaf_err[worst]]},
+        "cropnerf_path": hash_path,
+        "cropnerf_train": hash_train,
         "trace": breakdown,
         "unported_bounds": unported_bounds(PRESETS)}
     for name, b in line["unported_bounds"].items():

@@ -2,6 +2,8 @@
 (counterpart of ``cropnerf_tpu/core/spatial.py``)."""
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 
 
@@ -28,3 +30,19 @@ def unit_selector(x_unit: torch.Tensor) -> torch.Tensor:
     """{0,1} mask of positions inside the unit cube."""
     inside = ((x_unit >= 0.0) & (x_unit <= 1.0)).all(dim=-1)
     return inside.to(x_unit.dtype)
+
+
+def to_unit(positions: torch.Tensor, use_contraction: bool,
+            aabb: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(positions in [0, 1]^3, zeroed outside the unit cube, and the
+    in-cube selector): scene contraction, or the AABB normalisation that
+    export uses."""
+    if use_contraction:
+        unit = contracted_to_unit(positions)
+    else:
+        if aabb is None:
+            raise ValueError("use_contraction=False needs an aabb")
+        unit = aabb_to_unit(positions, aabb)
+    selector = unit_selector(unit)
+    return unit * selector[..., None], selector

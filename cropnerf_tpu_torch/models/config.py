@@ -4,8 +4,11 @@ The port's own copy of ``cropnerf_tpu/models/config.py``: the same frozen
 dataclasses, defaults and ``PRESETS``, field for field (pinned by
 ``tests/test_torch_model.py``), so a run configuration written by either
 package describes the same model.  Option values that only the JAX package
-acts on (hash-grid ``impl``/``cell_pack``, the Pallas row tiles, remat) are
-kept so the trees stay equal; the port ignores them.
+acts on (hash-grid ``cell_pack``, the Pallas row tiles, remat) are kept so
+the trees stay equal; the port ignores them.  Hash-grid ``impl`` "xla" and
+"pallas" both run the port's ``hash_encode`` kernels on the card; the
+port's own value "plain" selects the plain PyTorch encode, the reference
+path its tests compare with.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ class HashGridConfig:
     log2_hashmap_size: int = 19
     min_res: int = 16
     max_res: int = 2048
-    impl: str = "xla"
+    impl: str = "xla"                   # "xla" | "pallas" | "plain" (port)
     layout: str = "packed"
     cell_pack: bool = True
 

@@ -25,16 +25,17 @@ from ..ops import pdf as pdf_ops
 from ..ops import render as render_ops
 from .camera_opt import apply_to_raybundle, camera_opt_init
 from .config import ModelConfig
-from .field import field_all, field_density, field_init, field_rgb, field_semantics
+from .field import (Field, field_all, field_density, field_init, field_rgb,
+                    field_semantics)
 from .proposal import ProposalField, proposal_density, proposal_init
-from .vanilla import VanillaField
 
 
 class CropNeRFParams(nn.Module):
-    """The params tree: ``field``, ``camera_opt`` [num_images, 6] SO3xR3
-    tangent deltas, and one ``proposal_{i}`` per proposal net."""
+    """The params tree: ``field`` (hash-grid or vanilla), ``camera_opt``
+    [num_images, 6] SO3xR3 tangent deltas, and one ``proposal_{i}`` per
+    proposal net."""
 
-    def __init__(self, field: VanillaField, camera_opt: torch.Tensor,
+    def __init__(self, field: Field, camera_opt: torch.Tensor,
                  proposals: List[ProposalField]):
         super().__init__()
         self.field = field

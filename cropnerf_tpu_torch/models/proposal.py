@@ -1,5 +1,7 @@
 """Proposal density nets (counterpart of ``cropnerf_tpu/models/proposal.py``):
-the positional-encoding branch."""
+a small hash grid and a narrow MLP (nerfstudio ``HashMLPDensityField``, the
+presets' default), or with ``field_type="pe"`` an MLP on the positional
+encoding of the position."""
 from __future__ import annotations
 
 from typing import Optional
@@ -8,31 +10,39 @@ import torch
 from torch import nn
 
 from ..core import spatial
+from ..device import resolve_device
 from ..ops.activations import trunc_exp
 from ..ops.mlp import MLP, mlp_apply, mlp_init
 from ..ops.posenc import nerf_encoding
 from .config import ProposalFieldConfig
-
-HASH_NOT_PORTED = ("hash-grid proposal nets are not ported yet (hash-grid "
-                   "family slice: ops/hashgrid.py and the hash_encode kernel)")
+from .field import grid_features, grid_init
 
 
 class ProposalField(nn.Module):
-    """PE proposal net: one MLP on the encoding of the position."""
+    """One MLP, on the hash-grid features of the position when ``grid`` is
+    given, else on its positional encoding."""
 
-    def __init__(self, mlp: MLP):
+    def __init__(self, mlp: MLP, grid: Optional[torch.Tensor] = None):
         super().__init__()
+        self.grid = None if grid is None else nn.Parameter(grid)
         self.mlp = mlp
 
 
 def proposal_init(cfg: ProposalFieldConfig, generator: torch.Generator,
-                  device: torch.device | str = "cpu") -> ProposalField:
-    if cfg.field_type != "pe":
-        raise NotImplementedError(HASH_NOT_PORTED)
+                  device: torch.device | str = "cuda") -> ProposalField:
+    """Random proposal-net parameters drawn from ``generator``, on
+    ``device``."""
+    device = resolve_device(device)
     num_layers = 1 if cfg.use_linear else cfg.num_layers
-    pe_dim = 3 * (2 * cfg.pe_freqs + 1)
-    return ProposalField(mlp_init(pe_dim, cfg.hidden_dim, 1,
-                                  max(num_layers, 2), generator, device))
+    if cfg.field_type == "pe":
+        pe_dim = 3 * (2 * cfg.pe_freqs + 1)
+        return ProposalField(mlp_init(pe_dim, cfg.hidden_dim, 1,
+                                      max(num_layers, 2), generator, device))
+    g = cfg.grid
+    grid = grid_init(g, generator, device)
+    return ProposalField(mlp_init(g.num_levels * g.features_per_level,
+                                  cfg.hidden_dim, 1, num_layers, generator,
+                                  device), grid)
 
 
 def proposal_density(prop: ProposalField, positions: torch.Tensor,
@@ -41,21 +51,15 @@ def proposal_density(prop: ProposalField, positions: torch.Tensor,
                      compute_dtype: torch.dtype = torch.bfloat16
                      ) -> torch.Tensor:
     """positions [..., 3] world → density [...]."""
-    if cfg.field_type != "pe":
-        raise NotImplementedError(HASH_NOT_PORTED)
-    if cfg.mlp_impl == "pallas-fused":
-        raise NotImplementedError(
-            "the fused PE + MLP proposal kernel (fused_pe_mlp) is not "
-            "ported yet; use mlp_impl='xla' or 'pallas'")
-    if use_contraction:
-        unit = spatial.contracted_to_unit(positions)
+    unit, selector = spatial.to_unit(positions, use_contraction, aabb)
+    if cfg.field_type == "pe":
+        if cfg.mlp_impl == "pallas-fused":
+            raise NotImplementedError(
+                "the fused PE + MLP proposal kernel (fused_pe_mlp) is not "
+                "ported yet; use mlp_impl='xla' or 'pallas'")
+        feats = nerf_encoding(unit * 2.0 - 1.0, cfg.pe_freqs)
     else:
-        if aabb is None:
-            raise ValueError("use_contraction=False needs an aabb")
-        unit = spatial.aabb_to_unit(positions, aabb)
-    selector = spatial.unit_selector(unit)
-    unit = unit * selector[..., None]
-    enc = nerf_encoding(unit * 2.0 - 1.0, cfg.pe_freqs)
-    h = mlp_apply(prop.mlp, enc, compute_dtype=compute_dtype,
+        feats = grid_features(prop.grid, unit, cfg.grid)
+    h = mlp_apply(prop.mlp, feats, compute_dtype=compute_dtype,
                   impl=cfg.mlp_impl)
     return trunc_exp(h[..., 0]) * selector

@@ -65,14 +65,7 @@ def _encoder_input(positions: torch.Tensor, cfg: FieldConfig,
                    aabb: Optional[torch.Tensor]
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(x = unit*2-1 in the encoder domain, in-box selector)."""
-    if cfg.use_contraction:
-        unit = spatial.contracted_to_unit(positions)
-    else:
-        if aabb is None:
-            raise ValueError("use_contraction=False needs an aabb")
-        unit = spatial.aabb_to_unit(positions, aabb)
-    selector = spatial.unit_selector(unit)
-    unit = unit * selector[..., None]
+    unit, selector = spatial.to_unit(positions, cfg.use_contraction, aabb)
     return unit * 2.0 - 1.0, selector
 
 
@@ -105,8 +98,8 @@ def vanilla_field_density(field: VanillaField, positions: torch.Tensor,
     return density, h[..., 1:]
 
 
-def _appearance_rows(field: VanillaField, camera_idx: torch.Tensor,
-                     cfg: FieldConfig, train: bool) -> Optional[torch.Tensor]:
+def appearance_rows(field: VanillaField, camera_idx: torch.Tensor,
+                    cfg: FieldConfig, train: bool) -> Optional[torch.Tensor]:
     if not cfg.appearance_embedding_dim:
         return None
     table = field.appearance
@@ -126,7 +119,7 @@ def vanilla_field_rgb(field: VanillaField, geo: torch.Tensor,
     """geo [R, S, G], directions [R, 3], camera_idx [R] → rgb [R, S, 3]."""
     enc = nerf_encoding(directions, DIR_FREQS)
     parts = [geo, enc[..., None, :].expand(*geo.shape[:-1], enc.shape[-1])]
-    app = _appearance_rows(field, camera_idx, cfg, train)
+    app = appearance_rows(field, camera_idx, cfg, train)
     if app is not None:
         parts.append(app[..., None, :].expand(*geo.shape[:-1], app.shape[-1]))
     return mlp_apply(field.mlp_color, torch.cat(parts, dim=-1),
@@ -187,7 +180,7 @@ def vanilla_field_all(field: VanillaField, positions: torch.Tensor,
     # per-ray colour-head extras (direction encoding ‖ appearance row),
     # broadcast over the samples: the kernel's one O(N·De) input
     enc_d = nerf_encoding(directions, DIR_FREQS)
-    app = _appearance_rows(field, camera_idx, cfg, train)
+    app = appearance_rows(field, camera_idx, cfg, train)
     ray_extras = enc_d if app is None else torch.cat([enc_d, app], dim=-1)
     extras = ray_extras[..., None, :].expand(*batch_shape,
                                              ray_extras.shape[-1])

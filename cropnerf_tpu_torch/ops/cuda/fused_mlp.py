@@ -82,7 +82,7 @@ def fused_mlp(x: torch.Tensor, wbs: Sequence[torch.Tensor],
     if x.device.type == "cpu":
         return fused_mlp_plain(x, wbs, compute_dtype)
     device = check_kernel_call("fused_mlp", [x, *wbs], compute_dtype,
-                               no_backward="slice 5, the remaining kernels")
+                               no_backward="slice 4, the remaining kernels")
 
     n_rows = x.shape[0]
     wbuf, bbuf, meta = pack_mlp(din, wbs, device)

@@ -267,7 +267,7 @@ def fused_pe_density(x: torch.Tensor, base_wbs: Sequence[torch.Tensor],
                                       compute_dtype)
     device = check_kernel_call("fused_pe_density",
                                [x, *base_wbs, *top_wbs], compute_dtype,
-                               no_backward="slice 7, with BayesRays")
+                               no_backward="slice 5, with BayesRays")
     wbuf, bbuf, meta = pack_pe_field(x.shape[1], num_freqs, base_wbs,
                                      top_wbs, device=device)
     t = torch.empty((x.shape[0], top_wbs[-2].shape[1]), dtype=torch.float32,

@@ -1,15 +1,17 @@
 """Per-group optimizer with exponential-decay learning rates (counterpart
 of ``cropnerf_tpu/train/optim.py``).
 
-One ``torch.optim.Adam`` over the model with the reference's three
-parameter groups, ``fields``, ``proposal_networks`` and ``camera_opt``,
-each with its own eps, weight decay and schedule.  As in optax, the update
-of step t (counted from 0) uses the schedule's value at t.  RAdam, which
-only the hash-grid presets use, comes with the hash-grid slice.
+The reference's three parameter groups, ``fields``, ``proposal_networks``
+and ``camera_opt``, each with its own optimizer kind (``torch.optim.Adam``
+or ``torch.optim.RAdam``), eps, weight decay and schedule.  Weight decay is
+coupled L2 (added to the gradient before the update), which the JAX package
+reproduces by chaining ``optax.add_decayed_weights`` before the transform.
+As in optax, the update of step t (counted from 0) uses the schedule's
+value at t.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -44,13 +46,7 @@ def optimizer_group_of(param_key: str) -> str:
     return "fields"
 
 
-def _check_kind(kind: str) -> None:
-    if kind == "radam":
-        raise NotImplementedError(
-            "optimizer 'radam' (the hash-grid presets) comes with the "
-            "hash-grid slice (slice 4)")
-    if kind != "adam":
-        raise ValueError(f"unknown optimizer {kind!r}")
+KINDS = {"adam": torch.optim.Adam, "radam": torch.optim.RAdam}
 
 
 def group_schedules(cfg: TrainConfig):
@@ -67,11 +63,35 @@ def group_schedules(cfg: TrainConfig):
     }
 
 
-def make_optimizer(params: nn.Module, cfg: TrainConfig) -> torch.optim.Adam:
-    """Adam over ``params`` (a CropNeRFParams) in three groups; call
-    :func:`apply_updates` to take a step."""
-    _check_kind(cfg.optimizer)
-    _check_kind(cfg.camera_opt_optimizer)
+class GroupOptimizer:
+    """The groups' optimizers, one torch optimizer per kind in use (the
+    ``cropnerf-mxu-huge`` preset trains ``fields`` with Adam and
+    ``camera_opt`` with RAdam), stepped together."""
+
+    def __init__(self, optimizers: List[torch.optim.Optimizer]):
+        self.optimizers = optimizers
+
+    @property
+    def param_groups(self) -> List[Dict]:
+        return [g for opt in self.optimizers for g in opt.param_groups]
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        for opt in self.optimizers:
+            opt.zero_grad(set_to_none=set_to_none)
+
+    def step(self) -> None:
+        for opt in self.optimizers:
+            opt.step()
+
+
+def make_optimizer(params: nn.Module, cfg: TrainConfig) -> GroupOptimizer:
+    """The three groups of ``params`` (a CropNeRFParams) under their
+    optimizer kinds; call :func:`apply_updates` to take a step."""
+    kinds = {"fields": cfg.optimizer, "proposal_networks": cfg.optimizer,
+             "camera_opt": cfg.camera_opt_optimizer}
+    for kind in kinds.values():
+        if kind not in KINDS:
+            raise ValueError(f"unknown optimizer {kind!r}")
     members = {g: [] for g in GROUPS}
     for name, p in params.named_parameters():
         members[optimizer_group_of(name.split(".")[0])].append(p)
@@ -81,13 +101,17 @@ def make_optimizer(params: nn.Module, cfg: TrainConfig) -> torch.optim.Adam:
         "camera_opt": (cfg.camera_opt_eps, cfg.camera_opt_weight_decay),
     }
     schedules = group_schedules(cfg)
-    groups = [dict(params=members[g], name=g, lr=schedules[g](0),
-                   eps=settings[g][0], weight_decay=settings[g][1])
-              for g in GROUPS if members[g]]
-    return torch.optim.Adam(groups, betas=(0.9, 0.999))
+    by_kind: Dict[str, List[Dict]] = {}
+    for g in GROUPS:
+        if members[g]:
+            by_kind.setdefault(kinds[g], []).append(dict(
+                params=members[g], name=g, lr=schedules[g](0),
+                eps=settings[g][0], weight_decay=settings[g][1]))
+    return GroupOptimizer([KINDS[kind](groups, betas=(0.9, 0.999))
+                           for kind, groups in by_kind.items()])
 
 
-def apply_updates(optimizer: torch.optim.Adam, cfg: TrainConfig,
+def apply_updates(optimizer: GroupOptimizer, cfg: TrainConfig,
                   step: int) -> None:
     """One optimizer update at schedule step ``step`` (the count of
     updates before it), in place on the parameters."""

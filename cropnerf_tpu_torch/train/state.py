@@ -8,7 +8,7 @@ import torch
 
 from ..models.config import TrainConfig
 from ..models.model import CropNeRFParams, model_init
-from .optim import make_optimizer
+from .optim import GroupOptimizer, make_optimizer
 
 
 @dataclasses.dataclass
@@ -17,7 +17,7 @@ class TrainState:
     place and advances ``step``, the count of updates taken."""
 
     params: CropNeRFParams
-    optimizer: torch.optim.Optimizer
+    optimizer: GroupOptimizer
     step: int = 0
 
 

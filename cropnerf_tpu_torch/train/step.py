@@ -2,8 +2,9 @@
 renderer (counterpart of ``cropnerf_tpu/train/step.py``).
 
 One step: sample pixels from the resident bank, generate rays, run
-``forward(train=True)``, sum the losses, backpropagate (through the
-``fused_pe_nerf`` backward kernel on the card) and take one optimizer
+``forward(train=True)``, sum the losses, backpropagate (on the card
+through the ``fused_pe_nerf`` backward kernel of the vanilla field, or the
+``hash_encode`` backward kernel of each hash grid) and take one optimizer
 update.  PyTorch runs eagerly, so where the JAX package jits one program
 per step the port issues the same work operation by operation; the step
 updates the parameters and the optimizer state in place (JAX's buffer

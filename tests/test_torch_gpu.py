@@ -6,9 +6,11 @@ the JAX-side conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
-Tolerance: the kernel and the plain version round the same operands to bf16
-and sum in float32 in another order, so their outputs agree to bf16
-rounding carried through the layers: max |kernel - plain| <= 1e-2 ·
+Tolerance of the MLP kernels (K1-K3; K4, the float32 hash-grid encode,
+states its own above its tests): the kernel and the plain version round
+the same operands to bf16 and sum in float32 in another order, so their
+outputs agree to bf16 rounding carried through the layers:
+max |kernel - plain| <= 1e-2 ·
 max |plain| for outputs, 5e-2 · max |plain| for weight and bias gradients
 (the plain version's autograd rounds cotangents to bf16 where the kernel
 keeps them in float32).  The per-row gradients dx and dextras are held
@@ -127,12 +129,12 @@ def test_kernels_refuse_float32_and_autograd(cuda):
     x, extras = _field_inputs(256, color[1].shape[0], cuda)
     with torch.no_grad(), pytest.raises(ValueError, match="bf16"):
         kfield.fused_pe_density(x, base, top, POS_FREQS, torch.float32)
-    with pytest.raises(RuntimeError, match="slice 7"):
+    with pytest.raises(RuntimeError, match="slice 5"):
         kfield.fused_pe_density(x, base, top, POS_FREQS)
     heads = [params.field.mlp_semantic.w[0], params.field.mlp_semantic.b[0]
              .reshape(1, -1), params.field.mlp_semantic.w[1],
              params.field.mlp_semantic.b[1].reshape(1, -1)]
-    with pytest.raises(RuntimeError, match="slice 5"):
+    with pytest.raises(RuntimeError, match="slice 4"):
         kmlp.fused_mlp(x[:, :1].expand(256, 15).contiguous(), heads)
     t, _, _ = kfield.fused_pe_nerf(x, extras, base, top, color, sem,
                                    POS_FREQS)
@@ -250,3 +252,146 @@ def test_forward_kernel_path_matches_plain_path(cuda):
         assert _rel_err(got[k], ref[k]) <= 2 * TOL, (k, _rel_err(got[k], ref[k]))
     same = (got["depth"] - ref["depth"]).abs() <= 1e-3 * ref["depth"].abs() + 1e-4
     assert same.float().mean() >= 0.99
+
+
+# ---- K4, the hash-grid encode (csrc/hash_encode.cu) --------------------------
+#
+# Forward: the kernel repeats the plain version's roundings, so it agrees to
+# 1e-5 of max |plain| (both sides float32).  The table gradient sums with
+# atomics in another order: 1e-5.  The position gradient sums over levels
+# and corners in another order: 1e-4.
+HASH_TOL, DTABLE_TOL, DPOS_TOL = 1e-5, 1e-5, 1e-4
+
+# (layout, positions, levels, log2 T, min res, max res, hash mode): the
+# cropnerf path's three nets, a ragged N, a small dense [L, T, F] table and
+# a hash-only packed table
+HASH_CASES = {
+    "field": ("packed", 196_608, 16, 19, 16, 2048, "auto"),
+    "proposal0": ("packed", 1_048_576, 5, 17, 16, 128, "auto"),
+    "proposal1": ("packed", 393_216, 5, 17, 16, 256, "auto"),
+    "field-ragged": ("packed", 196_608 - 77, 16, 19, 16, 2048, "auto"),
+    "dense-layout": ("dense", 1000, 4, 12, 4, 32, "auto"),
+    "hash-mode": ("packed", 4099, 4, 12, 4, 32, "hash"),
+}
+
+
+def _hash_inputs(cuda, layout, n, levels, log2_t, min_res, max_res, mode,
+                 seed=6):
+    from cropnerf_tpu_torch.ops.hashgrid import (level_resolutions,
+                                                 level_row_counts)
+    res = level_resolutions(levels, min_res, max_res)
+    t = 2 ** log2_t
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    shape = ((sum(level_row_counts(res, t, mode)), 2) if layout == "packed"
+             else (levels, t, 2))
+    table = torch.rand(shape, generator=g, device=cuda) * 2 - 1
+    pos = torch.rand((n, 3), generator=g, device=cuda)
+    edges = torch.tensor([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0], [1.0, 0.0, 0.5]]
+                         + [[k / r, 1 - k / r, 0.5] for r in res[:3]
+                            for k in range(3)], device=cuda)
+    pos[:edges.shape[0]] = edges
+    return table, pos, res, t
+
+
+@pytest.mark.parametrize("case", list(HASH_CASES))
+def test_hash_encode_kernel_matches_plain(cuda, case):
+    from cropnerf_tpu_torch.ops import hashgrid
+    from cropnerf_tpu_torch.ops.cuda import hash_encode as khash
+    *shape, mode = HASH_CASES[case]
+    table, pos, res, t = _hash_inputs(cuda, *shape, mode)
+    cot = torch.randn((pos.shape[0], 2 * len(res)), device=cuda,
+                      generator=torch.Generator(device=cuda).manual_seed(7))
+    grads = []
+    for encode in (hashgrid.hashgrid_encode, hashgrid.hashgrid_encode_plain):
+        tt = table.clone().requires_grad_(True)
+        tp = pos.clone().requires_grad_(True)
+        before = (khash.hash_encode.launches, khash.hash_encode_bwd.launches)
+        out = encode(tt, tp, res, mode, t)
+        out.backward(cot)
+        torch.cuda.synchronize()
+        launched = (khash.hash_encode.launches - before[0],
+                    khash.hash_encode_bwd.launches - before[1])
+        assert launched == ((1, 1) if encode is hashgrid.hashgrid_encode
+                            else (0, 0))
+        grads.append((out.detach(), tt.grad, tp.grad))
+    (out, dt, dp), (ref, dt_ref, dp_ref) = grads
+    assert torch.isfinite(out).all() and torch.isfinite(dt).all()
+    assert _rel_err(out, ref) <= HASH_TOL, _rel_err(out, ref)
+    assert _rel_err(dt, dt_ref) <= DTABLE_TOL, _rel_err(dt, dt_ref)
+    assert _rel_err(dp, dp_ref) <= DPOS_TOL, _rel_err(dp, dp_ref)
+
+
+def test_hash_encode_backward_without_position_gradient(cuda):
+    """Positions that need no gradient take the kernel's dtable-only
+    variant; the table gradient is the same."""
+    from cropnerf_tpu_torch.ops import hashgrid
+    table, pos, res, t = _hash_inputs(cuda, *HASH_CASES["dense-layout"])
+    dts = []
+    for need_pos in (False, True):
+        tt = table.clone().requires_grad_(True)
+        hashgrid.hashgrid_encode(tt, pos.clone().requires_grad_(need_pos),
+                                 res).sum().backward()
+        dts.append(tt.grad)
+    assert _rel_err(dts[0], dts[1]) <= DTABLE_TOL
+
+
+def test_hash_field_runs_in_both_compute_dtypes(cuda):
+    """The encode is float32 throughout and takes no compute dtype: the
+    field runs on the card in the bf16 and the float32 arm."""
+    from cropnerf_tpu_torch.models.field import field_density
+    from cropnerf_tpu_torch.ops.cuda import hash_encode as khash
+    cfg = PRESETS["cropnerf-tiny"].model
+    params = model_init(cfg, 2, torch.Generator().manual_seed(0), cuda)
+    x = torch.randn((4096, 3), device=cuda)
+    for dtype in (torch.bfloat16, torch.float32):
+        before = khash.hash_encode.launches
+        with torch.no_grad():
+            density, geo = field_density(params.field, x, cfg.field,
+                                         compute_dtype=dtype)
+        assert khash.hash_encode.launches == before + 1
+        assert torch.isfinite(density).all() and torch.isfinite(geo).all()
+
+
+def _plain_grid(cfg):
+    """``cfg`` with every hash grid on the plain PyTorch encode."""
+    def plain(g):
+        return dataclasses.replace(g, impl="plain")
+    m = cfg.model
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        m, field=dataclasses.replace(m.field, grid=plain(m.field.grid)),
+        proposal_fields=tuple(dataclasses.replace(p, grid=plain(p.grid))
+                              for p in m.proposal_fields)))
+
+
+@pytest.mark.parametrize("step", [300, 5001], ids=["update", "no-update"])
+def test_cropnerf_train_step_kernel_path_matches_plain_path(cuda, step):
+    from cropnerf_tpu_torch.ops.cuda import hash_encode as khash
+    from cropnerf_tpu_torch.train.state import create_train_state
+    from cropnerf_tpu_torch.train.step import train_loss
+    cfg = dataclasses.replace(PRESETS["cropnerf"],
+                              train_num_rays_per_batch=1024)
+    bank = _synthetic_bank(cuda)
+    results = []
+    for c in (cfg, _plain_grid(cfg)):
+        state = create_train_state(c, bank.num_images,
+                                   torch.Generator().manual_seed(0), cuda)
+        gen = torch.Generator(device=cuda).manual_seed(1)
+        idx = torch.randint(0, bank.num_pixels, (1024,), generator=gen,
+                            device=cuda)
+        before = (khash.hash_encode.launches, khash.hash_encode_bwd.launches)
+        loss, _ = train_loss(state.params, bank, idx, step, c, gen)
+        loss.backward()
+        launched = (khash.hash_encode.launches - before[0],
+                    khash.hash_encode_bwd.launches - before[1])
+        assert launched == (((3, 3) if step == 300 else (3, 1))
+                            if c is cfg else (0, 0)), launched
+        results.append((loss.detach(), {
+            k: p.grad.clone() for k, p in state.params.named_parameters()
+            if p.grad is not None}))
+    (l_k, g_k), (l_p, g_p) = results
+    assert torch.isfinite(l_k) and abs(l_k - l_p) <= 1e-3 * abs(l_p)
+    assert set(g_k) == set(g_p)
+    assert any(k.startswith("proposal_") for k in g_k) == (step == 300)
+    for k in g_p:
+        assert torch.isfinite(g_k[k]).all(), k
+        assert _rel_err(g_k[k], g_p[k]) <= BWD_TOL, (k, _rel_err(g_k[k], g_p[k]))

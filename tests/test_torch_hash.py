@@ -1,0 +1,160 @@
+"""The PyTorch port's hash-grid encode and SH encoding against the JAX
+package, on the CPU (the port's plain version; the CUDA kernels are held
+against it on the card in tests/test_torch_gpu.py).
+
+The grid has dense and hashed levels: 4 levels, 2^12 rows, resolutions 4,
+8, 16, 32, of which 4 and 8 index densely.  Positions include 0, 1 and
+grid vertices k/res, which pin the floor and the dense clip.  Tolerances
+as tests/test_pallas_hash.py: rtol 1e-5, atol 1e-6 for values and the
+table gradient, 1e-5 for the position gradient.
+"""
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cropnerf_tpu.ops import hashgrid as jhash
+from cropnerf_tpu.ops.pallas.hash_encode import hashgrid_encode_pallas
+from cropnerf_tpu.ops.sh import sh_encoding as jax_sh
+from cropnerf_tpu_torch.ops import hashgrid as thash
+from cropnerf_tpu_torch.ops.cuda import hash_encode as khash
+from cropnerf_tpu_torch.ops.sh import sh_encoding as torch_sh
+
+LOG2_T = 12
+T = 2 ** LOG2_T
+RES = (4, 8, 16, 32)
+N = 1024
+
+
+def _positions(seed=0, n=N):
+    """Uniform positions with boundary rows: 0, 1, vertices k/res of every
+    level, and mixes of them."""
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+    edges = [np.zeros(3), np.ones(3), [1, 0, 0.5], [0, 1, 1]]
+    for r in RES:
+        k = rng.integers(0, r + 1, (6, 3))
+        edges += list(k / r)
+    pos[:len(edges)] = np.asarray(edges, np.float32)
+    return pos
+
+
+def _table(layout, hash_mode="auto", seed=1):
+    rng = np.random.default_rng(seed)
+    if layout == "dense":
+        shape = (len(RES), T, 2)
+    else:
+        shape = (sum(jhash.level_row_counts(RES, T, hash_mode)), 2)
+    return rng.uniform(-1, 1, shape).astype(np.float32)
+
+
+def test_grid_layout_helpers_match_jax():
+    assert thash.level_resolutions(4, 4, 32) == RES
+    for args in ((16, 16, 2048), (5, 16, 128), (5, 16, 256), (3, 16, 32),
+                 (1, 16, 64)):
+        assert thash.level_resolutions(*args) == jhash.level_resolutions(*args)
+    for res in (4, 8, 15, 16, 32, 64, 127):
+        for t in (2 ** 10, 2 ** 12, 2 ** 19):
+            assert thash.level_uses_dense(res, t) == jhash.level_uses_dense(
+                res, t)
+    for mode in ("auto", "hash"):
+        assert thash.level_row_counts(RES, T, mode) == jhash.level_row_counts(
+            RES, T, mode)
+        for packed in (True, False):
+            assert thash._level_offsets(RES, T, mode, packed) == \
+                jhash._level_offsets(RES, T, mode, packed)
+    # the cropnerf field: 5 dense levels, 6,098,925 packed rows
+    field = jhash.level_resolutions(16, 16, 2048)
+    assert sum(thash.level_row_counts(field, 2 ** 19)) == 6_098_925
+    assert sum(thash.level_uses_dense(r, 2 ** 19) for r in field) == 5
+
+
+def test_dense_layout_matches_pallas_kernel_interpret():
+    """The Pallas kernel K4 takes the dense [L, T, F] layout."""
+    table, pos = _table("dense"), _positions()
+    ref = hashgrid_encode_pallas(jnp.asarray(table), jnp.asarray(pos), RES,
+                                 128, True)
+    got = thash.hashgrid_encode(torch.from_numpy(table),
+                                torch.from_numpy(pos), RES)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("hash_mode,cell_pack", [("auto", False),
+                                                 ("auto", True),
+                                                 ("hash", False)])
+def test_packed_layout_matches_hashgrid_encode(hash_mode, cell_pack):
+    table, pos = _table("packed", hash_mode), _positions(seed=2)
+    ref = jhash.hashgrid_encode(jnp.asarray(table), jnp.asarray(pos), RES,
+                                hash_mode, T, cell_pack)
+    got = thash.hashgrid_encode(torch.from_numpy(table),
+                                torch.from_numpy(pos), RES, hash_mode, T,
+                                cell_pack)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_batched_positions_keep_their_shape():
+    table = torch.from_numpy(_table("packed"))
+    pos = torch.from_numpy(_positions(n=96)).reshape(4, 24, 3)
+    out = thash.hashgrid_encode(table, pos, RES, table_size=T)
+    assert out.shape == (4, 24, 2 * len(RES))
+    flat = thash.hashgrid_encode(table, pos.reshape(-1, 3), RES, table_size=T)
+    assert torch.equal(out.reshape(-1, out.shape[-1]), flat)
+
+
+@pytest.mark.parametrize("layout,hash_mode", [("packed", "auto"),
+                                              ("dense", "auto"),
+                                              ("packed", "hash")])
+def test_gradients_match_jax(layout, hash_mode):
+    """d table and d positions against jax.vjp through hashgrid_encode
+    (the custom VJP: flat scatters and the analytic position gradient)."""
+    table, pos = _table(layout, hash_mode, seed=3), _positions(seed=4)
+    cot = np.random.default_rng(5).standard_normal(
+        (N, 2 * len(RES))).astype(np.float32)
+    _, vjp = jax.vjp(lambda t, p: jhash.hashgrid_encode(t, p, RES, hash_mode,
+                                                        T),
+                     jnp.asarray(table), jnp.asarray(pos))
+    ref_t, ref_p = vjp(jnp.asarray(cot))
+    tt = torch.from_numpy(table).requires_grad_(True)
+    tpos = torch.from_numpy(pos).requires_grad_(True)
+    thash.hashgrid_encode(tt, tpos, RES, hash_mode, T).backward(
+        torch.from_numpy(cot))
+    np.testing.assert_allclose(tt.grad.numpy(), np.asarray(ref_t), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(tpos.grad.numpy(), np.asarray(ref_p),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_hash_is_uint32_teschner():
+    """The int64 hash with 32-bit cuts equals the uint32 product, XOR and
+    modulus, wrap-around included."""
+    rng = np.random.default_rng(6)
+    ijk = rng.integers(-5, 1 << 20, (3, 4096)).astype(np.int32)
+    ref = jhash._hash3(*(jnp.asarray(a) for a in ijk), T)
+    got = thash._hash3(*(torch.from_numpy(a).long() for a in ijk), T)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def test_kernel_wrapper_takes_only_cuda_tensors():
+    """The CUDA wrapper has no CPU path: CPU tensors reach the plain
+    version through hashgrid_encode, and the wrapper refuses them."""
+    table = torch.from_numpy(_table("packed"))
+    pos = torch.from_numpy(_positions(n=64))
+    offsets, _ = thash._level_offsets(RES, T, "auto", True)
+    dense = tuple(thash.level_uses_dense(r, T) for r in RES)
+    with pytest.raises(ValueError, match="CUDA"):
+        khash.hash_encode(table, pos, RES, tuple(offsets), dense, T)
+    assert khash.hash_encode.launches == 0
+
+
+@pytest.mark.parametrize("levels", [1, 2, 3, 4])
+def test_sh_encoding_matches_jax(levels):
+    d = np.random.default_rng(7).standard_normal((257, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    np.testing.assert_allclose(
+        torch_sh(torch.from_numpy(d), levels).numpy(),
+        np.asarray(jax_sh(jnp.asarray(d), levels)), rtol=1e-6, atol=1e-7)

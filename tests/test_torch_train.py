@@ -271,13 +271,68 @@ def test_schedules_match_jax():
         assert toptim.optimizer_group_of(key) == joptim.optimizer_group_of(key)
 
 
-def test_radam_waits_for_the_hash_grid_slice():
-    _, tcfg = _cfgs()
-    tp = tmodel.model_init(tcfg.model, 2, torch.Generator().manual_seed(0),
+OPTIMIZER_FIELDS = (
+    "optimizer", "learning_rate", "adam_eps", "lr_final",
+    "prop_learning_rate", "prop_lr_final", "camera_opt_optimizer",
+    "camera_opt_lr", "camera_opt_eps", "camera_opt_weight_decay",
+    "camera_opt_lr_final")
+
+
+@pytest.mark.parametrize("preset", ["cropnerf-big", "cropnerf-huge",
+                                    "cropnerf-mxu-huge"])
+def test_radam_updates_match_optax(preset):
+    """Three updates from identical gradients under a RAdam preset's group
+    settings (kinds, eps, coupled weight decay, schedules with short
+    decays), on a cropnerf-tiny parameter set: RAdam for the fields and
+    proposal nets beside Adam for camera_opt (big), RAdam for every group
+    with weight decay on camera_opt (huge), and Adam for the fields and
+    proposal nets beside RAdam for camera_opt (mxu-huge)."""
+    src = TORCH_PRESETS[preset]
+    settings = {k: getattr(src, k) for k in OPTIMIZER_FIELDS}
+    tcfg = dataclasses.replace(TORCH_PRESETS["cropnerf-tiny"], **settings,
+                               lr_decay_max_steps=4,
+                               prop_lr_decay_max_steps=2,
+                               camera_opt_decay_steps=1)
+    jcfg = dataclasses.replace(JAX_PRESETS["cropnerf-tiny"], **settings,
+                               lr_decay_max_steps=4,
+                               prop_lr_decay_max_steps=2,
+                               camera_opt_decay_steps=1)
+    tp = tmodel.model_init(tcfg.model, N_IMG, torch.Generator().manual_seed(0),
                            device="cpu")
-    for change in (dict(optimizer="radam"), dict(camera_opt_optimizer="radam")):
-        with pytest.raises(NotImplementedError, match="hash-grid"):
-            toptim.make_optimizer(tp, dataclasses.replace(tcfg, **change))
+    tparams = dict(tp.named_parameters())
+
+    def tree(arrays):       # {top-level key: {rest of the name: array}}
+        out = {}            # (copies: the port updates its tensors in place)
+        for name, a in arrays.items():
+            top, _, rest = name.partition(".")
+            if rest:
+                out.setdefault(top, {})[rest] = jnp.array(a)
+            else:
+                out[top] = jnp.array(a)
+        return out
+
+    params = tree({k: p.detach().numpy() for k, p in tparams.items()})
+    tx = joptim.make_optimizer(jcfg)
+    opt_state = tx.init(params)
+    topt = toptim.make_optimizer(tp, tcfg)
+    names = {"adam": "Adam", "radam": "RAdam"}
+    assert {type(o).__name__ for o in topt.optimizers} == {
+        names[settings["optimizer"]], names[settings["camera_opt_optimizer"]]}
+    update = jax.jit(tx.update)
+    rng = np.random.default_rng(4)
+    for step in range(3):
+        g_np = {k: (rng.standard_normal(p.shape) * 10.0 ** rng.uniform(-4, 0)
+                    ).astype(np.float32) for k, p in tparams.items()}
+        updates, opt_state = update(tree(g_np), opt_state, params)
+        params = optax.apply_updates(params, updates)
+        for k, v in g_np.items():
+            tparams[k].grad = torch.from_numpy(v.copy())
+        toptim.apply_updates(topt, tcfg, step)
+    for k, p in tparams.items():
+        top, _, rest = k.partition(".")
+        ref = params[top][rest] if rest else params[top]
+        np.testing.assert_allclose(p.detach().numpy(), np.asarray(ref),
+                                   rtol=1e-5, atol=1e-7, err_msg=k)
 
 
 def test_forward_train_with_camera_deltas_matches_jax(arm):

@@ -84,6 +84,26 @@ def reduced_mxu(presets, **model_changes):
                                                               **changes))
 
 
+def reduced_cropnerf(presets, **model_changes):
+    """The cropnerf preset (the hash-grid field) at full MLP widths with a
+    small field grid of dense and hashed levels (4 levels, 2^12 rows,
+    resolutions 4, 8, 16, 32: the first two dense), 3-level 2^10-row
+    proposal grids and 32, 16 then 8 samples per ray."""
+    cfg = presets["cropnerf"]
+    m = cfg.model
+    field = dataclasses.replace(m.field, grid=dataclasses.replace(
+        m.field.grid, num_levels=4, log2_hashmap_size=12, min_res=4,
+        max_res=32))
+    props = tuple(dataclasses.replace(p, grid=dataclasses.replace(
+        p.grid, num_levels=3, log2_hashmap_size=10))
+        for p in m.proposal_fields)
+    changes = dict(field=field, proposal_fields=props,
+                   num_nerf_samples_per_ray=8,
+                   num_proposal_samples_per_ray=(32, 16))
+    changes.update(model_changes)
+    return dataclasses.replace(cfg, model=dataclasses.replace(m, **changes))
+
+
 def ray_arrays(n_rays: int, seed: int = 0, near: float = 0.05,
                far: float = 1000.0):
     """The entry() rays: origin (0, 0, 1.5), random unit directions."""

@@ -4,10 +4,13 @@ from itself when its products are summed in float64.
 
 Both differences come from summation order: a relu unit whose
 pre-activation lies within rounding of zero takes either side.  The tests
-in tests/test_torch_train.py set their bounds from these numbers.  Runs on
-the CPU (JAX and PyTorch side by side, as the tests do):
+in tests/test_torch_train.py (``--preset cropnerf-mxu``) and
+tests/test_torch_hash_model.py (``--preset cropnerf``, the hash-grid
+model) set their bounds from these numbers.  Runs on the CPU (JAX and
+PyTorch side by side, as the tests do):
 
-    JAX_PLATFORMS=cpu python tools/torch_train_parity_draws.py --draws 10
+    JAX_PLATFORMS=cpu python tools/torch_train_parity_draws.py --draws 10 \
+        --preset cropnerf
 """
 from __future__ import annotations
 
@@ -33,10 +36,38 @@ def mm_f64_sums(a, w, compute_dtype):
     return (a.to(compute_dtype).double() @ w.to(compute_dtype).double()).float()
 
 
-def port_grads(tcfg, tb, idx, mm):
+def case(preset: str):
+    """(JAX config, port config, params factory, relu-leaf predicate, step)
+    of the named test's training step."""
+    if preset == "cropnerf-mxu":
+        jcfg, tcfg = T._cfgs()
+        return (jcfg, tcfg, lambda: T.jax_and_torch_params(
+            jcfg.model, num_images=T.N_IMG), T._kinked, T.STEP)
+    import dataclasses
+
+    import test_torch_hash_model as M
+    jcfg, tcfg = (dataclasses.replace(c, model=dataclasses.replace(
+        c.model, proposal_no_grad_schedule=False))
+        for c in M._cfgs(train_num_rays_per_batch=T.RAYS))
+    return jcfg, tcfg, M._params, hash_relu_leaf, M.UPDATE_STEP
+
+
+def hash_relu_leaf(leaf: str) -> bool:
+    """Hash-grid model leaves behind a relu unit: the grids, the
+    appearance table, camera_opt and every layer but the last of each
+    MLP."""
+    parts = leaf.split(".")
+    if parts[-1] in ("grid", "appearance", "camera_opt"):
+        return True
+    n_layers = {"mlp_base": 2, "mlp_semantic": 2, "mlp_color": 3,
+                "mlp": 2, "semantic_head": 1}[parts[-3]]
+    return int(parts[-1]) < n_layers - 1
+
+
+def port_grads(tcfg, tb, idx, mm, params_fn, step):
     mlp.mm_f32acc = pe_field.mm_f32acc = mm
-    _, tp = T.jax_and_torch_params(T._cfgs()[0].model, num_images=T.N_IMG)
-    loss, _ = T.tstep.train_loss(tp, tb, torch.from_numpy(idx), T.STEP, tcfg,
+    _, tp = params_fn()
+    loss, _ = T.tstep.train_loss(tp, tb, torch.from_numpy(idx), step, tcfg,
                                  compute_dtype=torch.float32)
     loss.backward()
     return {k: p.grad.numpy().copy() for k, p in tp.named_parameters()}
@@ -49,29 +80,33 @@ def rel(a, b):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--draws", type=int, default=10)
+    ap.add_argument("--preset", choices=("cropnerf-mxu", "cropnerf"),
+                    default="cropnerf-mxu")
     args = ap.parse_args()
     import jax
-    jcfg, tcfg = T._cfgs()
+    jcfg, tcfg, params_fn, kinked, step = case(args.preset)
     jb, tb = T._banks()
     plain_mm = mlp.mm_f32acc
     for seed in range(args.draws):
         idx = np.random.default_rng(seed).integers(0, jb.num_pixels, (T.RAYS,))
         jidx = jnp.asarray(idx, jnp.int32)
-        params, _ = T.jax_and_torch_params(jcfg.model, num_images=T.N_IMG)
+        params, _ = params_fn()
         (_, _), (grads, _, _) = jax.jit(jax.value_and_grad(
-            T._jax_loss_fn(jcfg, jb, jidx, T.STEP), argnums=(0, 1, 2),
+            T._jax_loss_fn(jcfg, jb, jidx, step), argnums=(0, 1, 2),
             has_aux=True))(params, *T._jax_rays(jb, jidx))
         ref = T._named(grads)
-        f32 = port_grads(tcfg, tb, idx, plain_mm)
-        f64 = port_grads(tcfg, tb, idx, mm_f64_sums)
-        for label, keys in (("trunk", [k for k in ref if T._kinked(k)]),
-                            ("other", [k for k in ref if not T._kinked(k)
+        f32 = port_grads(tcfg, tb, idx, plain_mm, params_fn, step)
+        f64 = port_grads(tcfg, tb, idx, mm_f64_sums, params_fn, step)
+        for label, keys in (("relu", [k for k in ref if kinked(k)]),
+                            ("other", [k for k in ref if not kinked(k)
                                        and k != "camera_opt"])):
             jx = max(keys, key=lambda k: rel(f32[k], ref[k]))
             me = max(keys, key=lambda k: rel(f32[k], f64[k]))
+            l2 = max(float(np.linalg.norm(f32[k] - ref[k])
+                           / max(np.linalg.norm(ref[k]), 1e-12)) for k in keys)
             print(f"draw {seed} {label}: port vs JAX {rel(f32[jx], ref[jx]):.2e}"
-                  f" ({jx}); port vs float64 sums {rel(f32[me], f64[me]):.2e}"
-                  f" ({me})")
+                  f" ({jx}), largest relative L2 {l2:.2e}; port vs float64 "
+                  f"sums {rel(f32[me], f64[me]):.2e} ({me})")
     mlp.mm_f32acc = pe_field.mm_f32acc = plain_mm
 
 
