@@ -10,10 +10,11 @@ Run from the root of the repository:  python3 chip_smoke.py
 3. holds every kernel against its plain PyTorch version at the shapes the
    serving and training paths give it and at a ragged N, and times both:
    for cropnerf-mxu K1 forward and backward (the backward against autograd
-   of the plain version), K2 and K3; for cropnerf (the hash-grid field,
-   the CLI default) the hash-grid encode K4 forward and backward at the
-   field's and both proposal nets' shapes, a ragged N and a small dense
-   [L, T, F] table;
+   of the plain version), K2 and K3 forward and backward (the backwards at
+   the BayesRays batch, with and without weight gradients); for cropnerf
+   (the hash-grid field, the CLI default) the hash-grid encode K4 forward
+   and backward at the field's and both proposal nets' shapes, a ragged N
+   and a small dense [L, T, F] table;
 4. drives the serving paths with random weights from a seeded
    torch.Generator at full published widths: forward at 4096 rays, a
    256x256 render (two 32,768-ray chunks) and a 128^3 volume export with
@@ -27,10 +28,17 @@ Run from the root of the repository:  python3 chip_smoke.py
    then a first step and TRAIN_STEPS timed steps with the launch counts
    zeroed before and read after; for cropnerf then one step between
    proposal updates (the proposal nets run without a graph);
-6. traces one forward, render, export and training step of cropnerf-mxu
-   and one forward and training step of cropnerf with torch.profiler, and
-   prints the device time of the busiest operations and the device's busy
-   share;
+5b. drives the BayesRays pass on the same bank ([uncertainty] lines): the
+   Hessian at lod 8 over UNC_BATCHES batches of 4096 rays, semantics
+   channel, for cropnerf-mxu (K2 and K3 forward and backward, dx only; then
+   one rgb-channel batch) and cropnerf (K4 forward and its dpos-only
+   backward), with exact launch counts and the grid held against the plain
+   path; then the per-ray uncertainty and a 256x256 render filtered at
+   uncertainty 0.5 through make_render_fn's density hook;
+6. traces one forward, render, export and training step of cropnerf-mxu,
+   one forward and training step of cropnerf and one BayesRays batch of
+   each with torch.profiler, and prints the device time of the busiest
+   operations and the device's busy share;
 7. prints one JSON line of kernel numbers, the nvidia-smi card line, and
    the status line last.
 
@@ -79,6 +87,10 @@ KERNEL_NS = "cropnerf::"  # the port's kernels in profiler rows
 REPEATS = 5              # timed runs of each path step after its first call
 TRAIN_STEPS = 20         # timed training steps after the first
 BANK = (32, 800, 1200)   # training images, height, width (as bench.py)
+UNC_LOD = 8              # BayesRays grid: (2^8+1)^3 cells (the CLI default)
+UNC_BATCHES = 8          # BayesRays ray batches of RAYS rays
+UNC_THRESHOLD = 0.5      # uncertainty filter of the filtered render
+UNC_VIEW_SAMPLES = 1000  # the viewer's uncertainty normaliser (its default)
 
 
 def log(msg: str) -> None:
@@ -150,6 +162,25 @@ def row_agreement(got, ref):
     row_err = (got - ref).abs().amax(dim=1) / ref.abs().max().clamp_min(1e-12)
     return ((row_err <= GRAD_TOL).float().mean().item(),
             ((got - ref).norm() / ref.norm().clamp_min(1e-12)).item())
+
+
+def weight_grad_errors(got, ref):
+    """(max error / max |ref|, relative L2) over weight and bias gradient
+    pairs, the worst of each."""
+    pairs = list(zip(got, ref))
+    if not pairs:
+        return 0.0, 0.0
+    return (max(rel_err(a, b) for a, b in pairs),
+            max(((a - b).norm() / b.norm().clamp_min(1e-12)).item()
+                for a, b in pairs))
+
+
+def weight_grads_ok(w_err, w_l2, n) -> bool:
+    """Weight and bias gradients within GRAD_TOL in relative L2, and within
+    GRAD_TOL of max |plain| over 1000 rows or more: a relu unit that flips
+    in one row moves that row's outer product by up to ~10 % of the largest
+    entry when the sum runs over a single 128-row tile."""
+    return w_l2 <= GRAD_TOL and (n < 1000 or w_err <= GRAD_TOL)
 
 
 def ptxas_registers(report: str) -> dict:
@@ -610,6 +641,377 @@ def hash_training(dev, card, bank, kernels):
     return info, run_train
 
 
+# ---- the BayesRays slice: K2 and K3 backward, the [uncertainty] phase ------
+
+def density_bwd_entry(base, top, trunk_macs, n, dev, card, report) -> dict:
+    """K2 backward (the trunk-only mode of csrc/fused_pe_field_bwd.cu)
+    against autograd through the plain version at N = 128, 1000, n - 77 and
+    n, with the weight gradients and with dx alone (the BayesRays pass's
+    variant, which the entry's ms and bound are for)."""
+    from cropnerf_tpu_torch.models.vanilla import POS_FREQS
+    from cropnerf_tpu_torch.ops.cuda import fused_pe_field as kf
+    g = torch.Generator(device=dev).manual_seed(11)
+    wd = [w.detach() for w in (*base, *top)]
+    nb = len(base)
+    x_all = torch.rand((n, 3), generator=g, device=dev) * 2 - 1
+    cot_all = torch.randn((n, top[-2].shape[1]), generator=g, device=dev)
+
+    def plain(xb, cot, need_dw):
+        leaves = [xb.clone().requires_grad_(True)] + [
+            w.clone().requires_grad_(need_dw) for w in wd]
+        with torch.enable_grad():
+            out = kf.fused_pe_density_plain(leaves[0], leaves[1:nb + 1],
+                                            leaves[nb + 1:], POS_FREQS)
+            ask = leaves if need_dw else leaves[:1]
+            return list(torch.autograd.grad(out, ask, cot))
+
+    def kernel(xb, cot, need_dw):
+        dx, db_, dt_ = kf.fused_pe_density_bwd(xb, wd[:nb], wd[nb:],
+                                               POS_FREQS, cot, True,
+                                               need_dw)
+        return [dx] + (list(db_) + list(dt_) if need_dw else [])
+
+    cases = {}
+    for m in (128, 1000, n - 77, n):
+        xb, cot = x_all[:m].contiguous(), cot_all[:m].contiguous()
+        for need_dw in (False, True):
+            got, ref = kernel(xb, cot, need_dw), plain(xb, cot, need_dw)
+            share, l2 = row_agreement(got[0], ref[0])
+            w_err, w_l2 = weight_grad_errors(got[1:], ref[1:])
+            cases[(m, need_dw)] = dict(
+                rows=share, dx_l2=l2, w_err=w_err, w_l2=w_l2,
+                abs=max(abs_err(a, b) for a, b in zip(got, ref)))
+            check(share >= ROW_SHARE and l2 <= GRAD_TOL
+                  and weight_grads_ok(w_err, w_l2, m),
+                  f"fused_pe_density_bwd N={m} dW={need_dw}: rows {share:.4f}"
+                  f", dx L2 {l2:.2e}, weights {w_err:.2e} (L2 {w_l2:.2e})")
+            if m == n:
+                again = kernel(xb, cot, need_dw)
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      "fused_pe_density_bwd differs between two runs")
+                if need_dw:
+                    check(torch.equal(got[0], dx_only),
+                          "dx-only K2 backward differs from the full one")
+                else:
+                    dx_only = got[0]
+            del got, ref
+    xb, cot = x_all, cot_all
+    k = dict(
+        shape=f"x [{n},3], g [{n},16] -> dx (BayesRays: no weight gradient)",
+        source="cropnerf_tpu_torch/csrc/fused_pe_field_bwd.cu",
+        replaces="cropnerf_tpu/ops/pallas/fused_pe_field.py:151",
+        cases={f"N={m}{' with dW' if w else ' dx only'}": v
+               for (m, w), v in cases.items()},
+        max_abs_err=cases[(n, False)]["abs"],
+        rel_err=cases[(n, False)]["dx_l2"],
+        ms=device_ms(lambda: kernel(xb, cot, False), 10, KERNEL_NS),
+        call_ms=cuda_ms(lambda: kernel(xb, cot, False), 10),
+        plain_ms=device_ms(lambda: plain(xb, cot, False), 3),
+        with_dw_ms=device_ms(lambda: kernel(xb, cot, True), 5, KERNEL_NS),
+        with_dw_plain_ms=device_ms(lambda: plain(xb, cot, True), 3),
+        # recompute and input gradients (dx only); the weight gradient adds
+        # a third product
+        flops=2.0 * n * trunk_macs * 2,
+        bytes=nbytes(xb, cot, xb, *wd))
+    k["bound_ms"], k["bound_by"] = bound(k["flops"], k["bytes"])
+    k["with_dw_bound_ms"] = bound(3.0 * n * trunk_macs * 2,
+                                  nbytes(xb, cot, xb, *wd) + nbytes(*wd))[0]
+    k["registers"] = ptxas_registers(report)
+    log(f"[kernel] fused_pe_density_bwd: {k['shape']}; dx rows within "
+        f"{GRAD_TOL} of max and L2 by case: "
+        + ", ".join(f"{c}: {v['rows']:.5f}/{v['dx_l2']:.2e} (weights "
+                    f"{v['w_err']:.2e})" for c, v in k["cases"].items())
+        + f"; dx only {k['ms']:.4f} ms (call {k['call_ms']:.4f}), plain "
+        f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
+        f"({k['bound_by']}); with dW {k['with_dw_ms']:.4f} ms, plain "
+        f"{k['with_dw_plain_ms']:.4f} ms, bound {k['with_dw_bound_ms']:.4f} "
+        f"ms; {card}")
+    return k
+
+
+def mlp_bwd_entry(heads, n, dev, card, report) -> dict:
+    """K3 backward on the vanilla field's two heads at the BayesRays batch
+    (N = n) and a ragged N, with and without weight gradients, against
+    autograd through the plain version.  The entry's ms and bound are the
+    two heads' dx-only backwards summed (the semantics path runs the
+    semantic head, the rgb path the colour head)."""
+    from cropnerf_tpu_torch.ops.cuda import fused_mlp as km
+    g = torch.Generator(device=dev).manual_seed(12)
+    per = {}
+    for label, wbs in heads.items():
+        wd = [w.detach() for w in wbs]
+        din, dout = wd[0].shape[0], wd[-2].shape[1]
+        x_all = torch.randn((n, din), generator=g, device=dev)
+        cot_all = torch.randn((n, dout), generator=g, device=dev)
+
+        def plain(xb, cot, need_dw, wd=wd):
+            leaves = [xb.clone().requires_grad_(True)] + [
+                w.clone().requires_grad_(need_dw) for w in wd]
+            with torch.enable_grad():
+                out = km.fused_mlp_plain(leaves[0], leaves[1:])
+                ask = leaves if need_dw else leaves[:1]
+                return list(torch.autograd.grad(out, ask, cot))
+
+        def kernel(xb, cot, need_dw, wd=wd):
+            dx, dw = km.fused_mlp_bwd(xb, wd, cot, True, need_dw)
+            return [dx] + (dw if need_dw else [])
+
+        errs = {}
+        for m in (n, n - 3):
+            xb, cot = x_all[:m].contiguous(), cot_all[:m].contiguous()
+            for need_dw in (False, True):
+                got, ref = kernel(xb, cot, need_dw), plain(xb, cot, need_dw)
+                share, l2 = row_agreement(got[0], ref[0])
+                w_err, w_l2 = weight_grad_errors(got[1:], ref[1:])
+                errs[f"N={m}{' with dW' if need_dw else ' dx only'}"] = dict(
+                    rows=share, dx_l2=l2, w_err=w_err, w_l2=w_l2,
+                    abs=max(abs_err(a, b) for a, b in zip(got, ref)))
+                check(share >= ROW_SHARE and l2 <= GRAD_TOL
+                      and weight_grads_ok(w_err, w_l2, m),
+                      f"fused_mlp_bwd {label} N={m} dW={need_dw}: rows "
+                      f"{share:.4f}, dx L2 {l2:.2e}, weights {w_err:.2e}")
+                if m == n:
+                    again = kernel(xb, cot, need_dw)
+                    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                          f"fused_mlp_bwd {label} differs between two runs")
+        xb, cot = x_all, cot_all
+        dims = [din] + [w.shape[1] for w in wd[0::2]]
+        macs = mlp_macs(dims)
+        hidden = macs - dims[-2] * dims[-1]
+        k = dict(errs=errs, ms=device_ms(lambda: kernel(xb, cot, False), 20,
+                                         KERNEL_NS),
+                 call_ms=cuda_ms(lambda: kernel(xb, cot, False), 20),
+                 plain_ms=device_ms(lambda: plain(xb, cot, False), 5),
+                 with_dw_ms=device_ms(lambda: kernel(xb, cot, True), 10,
+                                      KERNEL_NS),
+                 with_dw_plain_ms=device_ms(lambda: plain(xb, cot, True), 5),
+                 dims=dims)
+        k["bound_ms"], k["bound_by"] = bound(2.0 * n * (hidden + macs),
+                                             nbytes(xb, cot, xb, *wd))
+        # the weight gradients add one product and write dW once
+        k["with_dw_bound_ms"] = bound(2.0 * n * (hidden + 2 * macs),
+                                      nbytes(xb, cot, xb, *wd) + nbytes(*wd))[0]
+        per[label] = k
+        log(f"[kernel] fused_mlp_bwd {label} [{n},{din}]->"
+            f"{'->'.join(map(str, dims[1:]))}: rows/L2/weights by case "
+            + ", ".join(f"{c}: {v['rows']:.5f}/{v['dx_l2']:.2e}/"
+                        f"{v['w_err']:.2e}" for c, v in errs.items())
+            + f"; dx only {k['ms']:.4f} ms (call {k['call_ms']:.4f}), plain "
+            f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
+            f"({k['bound_by']}); with dW {k['with_dw_ms']:.4f} ms, plain "
+            f"{k['with_dw_plain_ms']:.4f} ms, bound "
+            f"{k['with_dw_bound_ms']:.4f} ms; {card}")
+    regs = {e: r for e, r in ptxas_registers(report).items() if "bwd" in e}
+    spills = [line.strip() for line in report.splitlines() if "spill" in line]
+    log(f"[build] fused_mlp registers (backward entries) {regs}; "
+        + "; ".join(spills))
+    vals = list(per.values())
+    return dict(
+        shape=(f"semantic head [{n},15]->64->1 and colour head [{n},74]->64"
+               f"->3, g -> dx (BayesRays: no weight gradient)"),
+        source="cropnerf_tpu_torch/csrc/fused_mlp.cu",
+        replaces="cropnerf_tpu/ops/pallas/fused_mlp.py:45",
+        by_head=per, registers=regs,
+        max_abs_err=max(e["abs"] for k in vals for e in k["errs"].values()),
+        rel_err=max(e["dx_l2"] for k in vals for e in k["errs"].values()),
+        ms=sum(k["ms"] for k in vals), call_ms=sum(k["call_ms"] for k in vals),
+        plain_ms=sum(k["plain_ms"] for k in vals),
+        bound_ms=sum(k["bound_ms"] for k in vals), bound_by="bytes")
+
+
+def uncertainty_phase(dev, card, bank, cams, kernels) -> tuple:
+    """The BayesRays pass at full width on the resident bank: lod 8, RAYS
+    rays a batch, UNC_BATCHES batches, the semantics channel, for
+    cropnerf-mxu (then one rgb-channel batch) and cropnerf, with exact
+    launch counts (counts zeroed just before each run and read just after)
+    and the kernel path held against the plain path; then the per-ray
+    uncertainty and a RENDER_HW^2 render filtered at UNC_THRESHOLD through
+    make_render_fn's density hook, each timed and held against the plain
+    path, at UNC_THRESHOLD and at the median uncertainty of a batch's
+    samples (random weights give a grid that 0.5 may filter whole).
+    Returns (numbers for the JSON line, one batch call per preset for the
+    trace)."""
+    from cropnerf_tpu_torch.models.config import PRESETS
+    from cropnerf_tpu_torch.models.model import _proposal_sampling, model_init
+    from cropnerf_tpu_torch.train.step import make_render_fn
+    from cropnerf_tpu_torch.uncertainty import bayesrays as br
+    out, trace_steps = {}, {}
+    for preset in ("cropnerf-mxu", "cropnerf"):
+        cfg = PRESETS[preset]
+        m = cfg.model
+        if preset == "cropnerf":
+            plain_cfg = plain_grids(cfg)
+        else:
+            plain_cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+                m, field=dataclasses.replace(m.field, mlp_impl="xla")))
+        params = model_init(m, bank.num_images, torch.Generator().manual_seed(0),
+                            dev)
+        with torch.no_grad():
+            gg = torch.Generator(device=dev).manual_seed(6)
+            for name, prm in params.named_parameters():
+                if name.endswith("grid"):
+                    prm.uniform_(-0.5, 0.5, generator=gg)
+        batches = list(br.bank_ray_batches(
+            bank, m, UNC_BATCHES, RAYS, torch.Generator(device=dev).manual_seed(9)))
+        comp = br.ComputeUncertainty(params, m, lod=UNC_LOD)
+        per_batch = ({"hash_encode": 3, "hash_encode_bwd": 1}
+                     if preset == "cropnerf" else
+                     {"fused_pe_density": 1, "fused_pe_density_bwd": 1,
+                      "fused_mlp": 1, "fused_mlp_bwd": 1})
+        want = {k.__name__: UNC_BATCHES * per_batch.get(k.__name__, 0)
+                for k in kernels}
+        grid, runs = [], []
+
+        def run_all():
+            acc = None
+            for rb in batches:
+                t0 = time.perf_counter()
+                h = comp.batch(rb)
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - t0) * 1e3)
+                acc = h if acc is None else acc + h
+            grid.append(acc)
+
+        launches = counted(kernels, run_all)
+        log(f"[uncertainty] {preset} launches in {UNC_BATCHES} batches: "
+            f"{launches}")
+        check(launches == want, f"{preset} uncertainty launches {launches}, "
+              f"expected {want}")
+        hess = grid[0]
+        check(bool(torch.isfinite(hess).all()) and hess.max() > 0
+              and hess.shape == ((2 ** UNC_LOD + 1) ** 3,),
+              f"{preset} Hessian grid")
+        check(all(p.requires_grad for p in params.parameters()),
+              "the pass left parameters frozen")
+        check(torch.equal(comp.batch(batches[0]), comp.batch(batches[0])),
+              f"{preset} Hessian batch differs between two runs")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        comp.batch(batches[0])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        plain_comp = br.ComputeUncertainty(params, plain_cfg.model, lod=UNC_LOD)
+        plain_runs, plain_hess = [], None
+        for rb in batches:
+            t0 = time.perf_counter()
+            h = plain_comp.batch(rb)
+            torch.cuda.synchronize()
+            plain_runs.append((time.perf_counter() - t0) * 1e3)
+            plain_hess = h if plain_hess is None else plain_hess + h
+        l2 = ((hess - plain_hess).norm() / plain_hess.norm()).item()
+        hot = len(set(hess.topk(1000).indices.tolist())
+                  & set(plain_hess.topk(1000).indices.tolist())) / 1000
+        med = statistics.median(runs[1:])
+        touched = int((hess > 0).sum())
+        info = {"batches": UNC_BATCHES, "rays": RAYS, "lod": UNC_LOD,
+                "runs_ms": runs, "median_ms": med,
+                "batches_per_s": 1e3 / med, "rays_per_s": RAYS / med * 1e3,
+                "first_ms": runs[0], "peak_gib": peak,
+                "plain_runs_ms": plain_runs,
+                "plain_median_ms": statistics.median(plain_runs[1:]),
+                "launches": launches, "vs_plain_l2": l2, "hot1000": hot,
+                "cells_touched": touched}
+        log(f"[uncertainty] {preset} lod {UNC_LOD}, {RAYS} rays a batch: "
+            f"median {med:.2f} ms a batch ({1e3 / med:.2f} batches/s, "
+            f"{RAYS / med * 1e3:.0f} rays/s), runs "
+            + ", ".join(f"{v:.2f}" for v in runs)
+            + f" ms; plain path median {info['plain_median_ms']:.2f} ms; "
+            f"peak device memory {peak:.3f} GiB; {touched} cells touched; "
+            f"vs plain path: relative L2 {l2:.3e}, hottest 1000 cells "
+            f"shared {hot:.3f}; {card}")
+        check(l2 <= (1e-3 if preset == "cropnerf" else GRAD_TOL) and hot >= 0.9,
+              f"{preset} Hessian vs plain path: L2 {l2:.3e}, hot {hot:.3f}")
+
+        if preset == "cropnerf-mxu":
+            rgb = br.ComputeUncertainty(params, m, lod=UNC_LOD, channel="rgb")
+            res = {}
+            rgb_launches = counted(kernels, lambda: res.update(
+                h=rgb.batch(batches[0])))
+            want_rgb = {k.__name__: 0 for k in kernels}
+            want_rgb.update(fused_pe_density=1, fused_pe_density_bwd=3,
+                            fused_mlp=1, fused_mlp_bwd=3)
+            log(f"[uncertainty] {preset} rgb channel, one batch: launches "
+                f"{rgb_launches}")
+            check(rgb_launches == want_rgb, f"rgb launches {rgb_launches}, "
+                  f"expected {want_rgb}")
+            ref = br.ComputeUncertainty(params, plain_cfg.model, lod=UNC_LOD,
+                                        channel="rgb").batch(batches[0])
+            info["rgb_launches"] = rgb_launches
+            info["rgb_vs_plain_l2"] = ((res["h"] - ref).norm()
+                                       / ref.norm()).item()
+            info["rgb_ms"] = wall_ms(lambda: rgb.batch(batches[0]))
+            log(f"[uncertainty] {preset} rgb channel: {info['rgb_ms']:.2f} ms "
+                f"a batch; vs plain path relative L2 "
+                f"{info['rgb_vs_plain_l2']:.3e}; {card}")
+            check(info["rgb_vs_plain_l2"] <= GRAD_TOL, "rgb channel vs plain")
+
+        # the filtered paths, with the viewer's uncertainty normaliser
+        rb = batches[0]
+        got = {}
+        wall_ms(lambda: got.update(u=br.render_uncertainty(
+            params, rb, m, hess, UNC_LOD, UNC_VIEW_SAMPLES)))
+        unc_ms = statistics.median(
+            [wall_ms(lambda: br.render_uncertainty(params, rb, m, hess, UNC_LOD,
+                                                   UNC_VIEW_SAMPLES))
+             for _ in range(REPEATS)])
+        u_plain = br.render_uncertainty(params, rb, plain_cfg.model, hess,
+                                        UNC_LOD, UNC_VIEW_SAMPLES)
+        u_err = rel_err(got["u"], u_plain)
+        check(bool(torch.isfinite(got["u"]).all()) and got["u"].shape == (RAYS,)
+              and u_err <= 2 * TOL, f"{preset} render_uncertainty")
+        # a second threshold, the median pointwise uncertainty of the
+        # batch's samples, keeps about half of them whatever the weights
+        with torch.no_grad():
+            samples, _, _ = _proposal_sampling(params, rb, m, False, 1.0)
+            mid = br.uncertainty_at(samples.positions, hess, m, UNC_LOD,
+                                    UNC_VIEW_SAMPLES).median().item()
+        hook = br.make_uncertainty_density_hook(hess, m, UNC_LOD,
+                                                UNC_VIEW_SAMPLES)
+        render = make_render_fn(cfg, density_hook=hook)
+        render_p = make_render_fn(plain_cfg, density_hook=hook)
+        unfiltered = make_render_fn(cfg)(params, cams, 0, RENDER_HW, RENDER_HW)
+        acc_all = unfiltered["accumulation"].mean().clamp_min(1e-12)
+        filt = {}
+        for thr in (UNC_THRESHOLD, mid):
+            img = {}
+            n_launch = counted(kernels, lambda: img.update(
+                f=render(params, cams, 0, RENDER_HW, RENDER_HW, thr)))
+            img_p = render_p(params, cams, 0, RENDER_HW, RENDER_HW, thr)
+            errs = {k: rel_err(img["f"][k], img_p[k])
+                    for k in ("rgb", "accumulation", "semantics")}
+            for k, v in errs.items():
+                check(bool(torch.isfinite(img["f"][k]).all()) and v <= 2 * TOL,
+                      f"{preset} filtered render {k} at {thr:.4f}: {v:.3e}")
+            filt[round(thr, 6)] = dict(
+                launches=n_launch, vs_plain=errs,
+                accumulation_share=(img["f"]["accumulation"].mean()
+                                    / acc_all).item())
+        kept = filt[round(mid, 6)]["accumulation_share"]
+        check(0.0 < kept < 1.0, f"{preset}: the filter at the median "
+              f"uncertainty {mid:.4f} kept {kept:.3f} of the accumulation")
+        render_ms = statistics.median(
+            [wall_ms(lambda: render(params, cams, 0, RENDER_HW, RENDER_HW,
+                                    UNC_THRESHOLD)) for _ in range(REPEATS)])
+        info.update(render_uncertainty_ms=unc_ms, render_uncertainty_err=u_err,
+                    filtered_render_ms=render_ms,
+                    filtered_render_rays_per_s=RENDER_HW ** 2 / render_ms * 1e3,
+                    unfiltered_render_ms=wall_ms(lambda: make_render_fn(cfg)(
+                        params, cams, 0, RENDER_HW, RENDER_HW)),
+                    median_threshold=mid, filtered=filt)
+        log(f"[uncertainty] {preset} render_uncertainty {RAYS} rays: median "
+            f"{unc_ms:.2f} ms, vs plain path {u_err:.3e}; filtered render "
+            f"{RENDER_HW}x{RENDER_HW} at threshold {UNC_THRESHOLD}: median "
+            f"{render_ms:.2f} ms ({RENDER_HW ** 2 / render_ms * 1e3:.0f} "
+            f"rays/s; unfiltered {info['unfiltered_render_ms']:.2f} ms); by "
+            f"threshold (launches, vs plain path, accumulation share of the "
+            f"unfiltered render): {filt}; {card}")
+        out[preset] = info
+        trace_steps[f"{preset} uncertainty batch"] = (
+            lambda comp=comp, rb=rb: comp.batch(rb))
+        del params, comp, plain_comp, batches, hess, plain_hess
+    return out, trace_steps
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke FAILED: no CUDA device is visible")
@@ -632,10 +1034,12 @@ def main() -> None:
     from cropnerf_tpu_torch.ops.cuda import fused_pe_field as kfield
     from cropnerf_tpu_torch.ops.cuda.hash_encode import (hash_encode,
                                                          hash_encode_bwd)
-    from cropnerf_tpu_torch.ops.cuda.fused_mlp import fused_mlp, fused_mlp_plain
+    from cropnerf_tpu_torch.ops.cuda.fused_mlp import (fused_mlp,
+                                                       fused_mlp_bwd,
+                                                       fused_mlp_plain)
     from cropnerf_tpu_torch.ops.cuda.fused_pe_field import (
-        fused_pe_density, fused_pe_density_plain, fused_pe_nerf,
-        fused_pe_nerf_bwd, fused_pe_nerf_plain)
+        fused_pe_density, fused_pe_density_bwd, fused_pe_density_plain,
+        fused_pe_nerf, fused_pe_nerf_bwd, fused_pe_nerf_plain)
     from cropnerf_tpu_torch.ops.posenc import nerf_encoding
     from cropnerf_tpu_torch.train.step import make_render_fn
 
@@ -854,6 +1258,8 @@ def main() -> None:
             bytes=nbytes(geo, cin, *sem_wbs, *col_wbs, *got))
 
     for name, k in kernels.items():
+        if name in ("fused_pe_density_bwd", "fused_mlp_bwd"):
+            continue                      # checked and logged by their entries
         k["bound_ms"], k["bound_by"] = bound(k["flops"], k["bytes"])
         tol = GRAD_TOL if "rows" in k else TOL
         log(f"[kernel] {name}: {k['shape']}; err {k['rel_err']:.2e} "
@@ -875,8 +1281,24 @@ def main() -> None:
                 check(share >= ROW_SHARE and l2 <= GRAD_TOL,
                       f"{name}: dx/dextras rows {share:.4f}, L2 {l2:.2e}")
     regs = ptxas_registers(reports["fused_pe_field_bwd"])
-    log(f"[build] fused_pe_field_bwd registers {regs}; tile kernel dynamic "
-        f"shared memory {kfield.bwd_smem_bytes(kfield.pack_pe_field(3, POS_FREQS, base, top, color, sem, de=de, device=dev)[2])} B")
+    bwd_smem = {
+        "with the heads": kfield.bwd_smem_bytes(kfield.pack_pe_field(
+            3, POS_FREQS, base, top, color, sem, de=de, device=dev)[2]),
+        "trunk only": kfield.bwd_smem_bytes(kfield.pack_pe_field(
+            3, POS_FREQS, base, top, device=dev)[2], False),
+        "fused_mlp semantic head": kmlp.bwd_smem_bytes(kmlp.pack_mlp(
+            sem_wbs[0].shape[0], sem_wbs, dev)[2]),
+        "fused_mlp colour head": kmlp.bwd_smem_bytes(kmlp.pack_mlp(
+            col_wbs[0].shape[0], col_wbs, dev)[2])}
+    log(f"[build] fused_pe_field_bwd registers {regs}; backward dynamic "
+        f"shared memory per block: "
+        + ", ".join(f"{k} {v} B" for k, v in bwd_smem.items()))
+    n_unc = RAYS * m.num_nerf_samples_per_ray        # one BayesRays batch
+    kernels["fused_pe_density_bwd"] = density_bwd_entry(
+        base, top, trunk_macs, n_unc, dev, card, reports["fused_pe_field_bwd"])
+    kernels["fused_mlp_bwd"] = mlp_bwd_entry(
+        {"semantic head": sem_wbs, "colour head": col_wbs}, n_unc, dev, card,
+        reports["fused_mlp"])
     hash_k = hash_kernels(PRESETS["cropnerf"], dev, card,
                           reports["hash_encode"])
 
@@ -908,7 +1330,7 @@ def main() -> None:
     out_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_export_"))
 
     path_kernels = (fused_pe_nerf, fused_pe_nerf_bwd, fused_pe_density,
-                    fused_mlp)
+                    fused_pe_density_bwd, fused_mlp, fused_mlp_bwd)
     for fn in path_kernels:
         fn.launches = 0
     result = {}
@@ -922,10 +1344,10 @@ def main() -> None:
     first_ms = {step: wall_ms(fn) for step, fn in steps.items()}
     launches = {fn.__name__: fn.launches for fn in path_kernels}
     log(f"[path] launches on the serving path: {launches}")
-    check(all(v > 0 for k, v in launches.items() if k != "fused_pe_nerf_bwd"),
+    check(all(v > 0 for k, v in launches.items() if not k.endswith("_bwd")),
           f"a kernel of the path never launched: {launches}")
-    check(launches["fused_pe_nerf_bwd"] == 0,
-          "serving recorded a graph and ran the backward")
+    check(all(v == 0 for k, v in launches.items() if k.endswith("_bwd")),
+          "serving recorded a graph and ran a backward")
     # steady state: the first calls above also grew the allocator's pools
     runs_ms = {step: [wall_ms(fn) for _ in range(REPEATS)]
                for step, fn in steps.items()}
@@ -1081,6 +1503,10 @@ def main() -> None:
     steps["cropnerf forward"] = hash_forward
     steps["cropnerf train step"] = hash_step
 
+    # ---- 5b. the BayesRays pass and the uncertainty-filtered paths -------
+    unc, unc_steps = uncertainty_phase(dev, card, bank, cams, all_kernels)
+    steps.update(unc_steps)
+
     # ---- 6. where the time goes: one traced call of each path step ------
     breakdown = {}
     for step, fn in steps.items():
@@ -1102,12 +1528,19 @@ def main() -> None:
             log(f"[trace]   {ms:9.3f} ms  x{count:<5d} {key[:90]}")
 
     # ---- 7. report ---------------------------------------------------------
+    unc_mxu = unc["cropnerf-mxu"]["launches"]
     by_path = {name: {"serving": launches[name],
-                      "train": train_launches[name]} for name in kernels}
+                      "train": train_launches[name],
+                      "uncertainty": unc_mxu[name]} for name in kernels}
+    # each kernel's main path: K1 the training step, K2 and K3 forward the
+    # export, their backwards the BayesRays pass
+    main_launches = {name: (train_launches[name]
+                            if name.startswith("fused_pe_nerf") else
+                            unc_mxu[name] if name.endswith("_bwd") else
+                            launches[name]) for name in kernels}
     line = {"kernels": [dict(
         name=name, route="cuda", source=k["source"], replaces=k["replaces"],
-        launches=(train_launches[name] if name.startswith("fused_pe_nerf")
-                  else launches[name]),
+        launches=main_launches[name],
         launches_by_path=by_path[name], max_abs_err=k["max_abs_err"],
         rel_err=k["rel_err"], ms=k["ms"], call_ms=k["call_ms"],
         plain_ms=k["plain_ms"],
@@ -1119,7 +1552,8 @@ def main() -> None:
             "serving": {step: n[name]
                         for step, n in hash_path["launches"].items()},
             "train": hash_train["launches"][name],
-            "no_update_step": hash_train["no_update_step_launches"][name]},
+            "no_update_step": hash_train["no_update_step_launches"][name],
+            "uncertainty": unc["cropnerf"]["launches"][name]},
         max_abs_err=k["max_abs_err"], rel_err=k["rel_err"], ms=k["ms"],
         call_ms=k["call_ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
         bound_by=k["bound_by"], library_ms=None, shape=k["shape"], card=card,
@@ -1137,6 +1571,9 @@ def main() -> None:
                   "vs_plain_grad_worst": [worst, leaf_err[worst]]},
         "cropnerf_path": hash_path,
         "cropnerf_train": hash_train,
+        "uncertainty": unc,
+        "bwd_kernels": {name: kernels[name] for name in
+                        ("fused_pe_density_bwd", "fused_mlp_bwd")},
         "trace": breakdown,
         "unported_bounds": unported_bounds(PRESETS)}
     for name, b in line["unported_bounds"].items():

@@ -1,14 +1,19 @@
-// Fused positional-encoding NeRF field (trunk + colour and semantic heads),
-// backward, for Hopper (sm_90a).
+// Fused positional-encoding NeRF field, backward, for Hopper (sm_90a): the
+// trunk + colour and semantic heads (heads = 1), or the trunk alone
+// (heads = 0).
 //
 // Replaces cropnerf_tpu/ops/pallas/fused_pe_field.py:_mega_bwd_kernel (the
-// backward of fused_pe_nerf, wrapper _mega_bwd).  Given x [N, dim], the
-// extras [N, De], the packed weights and the cotangents g_t [N, 1+G],
-// g_rgb [N, 3], g_sem [N, C], it returns dx [N, dim], dextras [N, De] and
-// the float32 gradient of every weight and bias, in the packed layout the
-// forward reads (ops/cuda/common.py pack_layers), for the wrapper to unpack.
+// backward of fused_pe_nerf, wrapper _mega_bwd) and _bwd_kernel (the
+// backward of fused_pe_density, wrapper _bwd).  Given x [N, dim], the
+// extras [N, De] (heads only), the packed weights and the cotangents
+// g_t [N, 1+G] (and g_rgb [N, 3], g_sem [N, C] with the heads), it returns
+// dx [N, dim], dextras [N, De] and the float32 gradient of every weight and
+// bias, in the packed layout the forward reads (ops/cuda/common.py
+// pack_layers), for the wrapper to unpack.  A null dx skips dx; a null
+// wpart skips the weight and bias gradients (passes 2 and 3 and the
+// workspace's cotangent slots): the BayesRays pass asks for dx alone.
 //
-// Arithmetic, as the TPU kernel: the forward is recomputed in bf16 with f32
+// Arithmetic, as the TPU kernels: the forward is recomputed in bf16 with f32
 // sums at the forward's rounding points; the cotangent g stays f32 and is
 // rounded to bf16 only as a product operand (the input gradient g·Wᵀ and
 // the weight gradient Aᵀ·g); relu masks come from the bf16 activations; the
@@ -20,7 +25,7 @@
 // Bound on an H100: compute.  About three times the forward's ~0.87 MFLOP a
 // sample (recompute, input gradient, weight gradient): ~5.1e11 FLOP at
 // N = 196,608, ~0.52 ms at 989 TFLOP/s, against ~0.5 KB a row of inputs and
-// outputs.
+// outputs; two times (~0.34 ms) for the trunk's dx alone.
 //
 // Design.  On the TPU the grid runs in order and the kernel sums weight
 // gradients across grid steps in its output refs; on the card blocks run
@@ -44,41 +49,45 @@
 //      into db, in a fixed order.
 // Rows past N load zero cotangents, so they add nothing to dW or db.  This
 // first version uses wmma (mma.sync); pipelining is later work.
+#include "bwd_layers.cuh"
 #include "pe_field.cuh"
 
 namespace cropnerf {
 
-constexpr int LDB = KS + PAD;          // staged Wᵀ slab: cw rows of KS
 constexpr int DW_BM = 64;              // dW tile: weight rows (input features)
 constexpr int DW_BN = 64;              // dW tile: weight columns (outputs)
 constexpr int DW_RK = 32;              // rows of the batch staged per step
 constexpr int DW_LD = 64 + PAD;
 constexpr int DW_THREADS = (DW_BM / 16) * 32;
 constexpr int ROWS_PER_SPLIT = 2048;   // batch rows per split-K chunk
-constexpr int SUM_THREADS = 256;
 
 // Column offsets of the workspace slots, a bf16 [n_pad, cols] matrix: the
 // encoding, the extras, each layer's bf16 output (act; -1 for the heads'
 // last layers, whose outputs the backward does not read) and each layer's
-// cotangent (g).  act of the last trunk layer is bf16(t), the heads' input.
+// cotangent (g; -1 without the weight-gradient pass, which alone reads
+// them).  act of the last trunk layer is bf16(t), the heads' input (written
+// but not read without the heads).
 struct Slots {
   int enc, ex, cols;
   int act[MAX_LAYERS];
   int g[MAX_LAYERS];
 };
 
-static Slots make_slots(const NetDesc& d) {
+static Slots make_slots(const NetDesc& d, bool need_dw) {
   Slots s;
   int off = 0;
   s.enc = off; off += d.enc_pad;
   s.ex = off; off += d.ex_pad;
   const int n = d.n_layers();
   for (int l = 0; l < n; ++l) {
-    const bool last_head = l == d.sem0() - 1 || l == n - 1;
+    const bool last_head = d.n_color > 0 && (l == d.sem0() - 1 || l == n - 1);
     s.act[l] = last_head ? -1 : off;
     if (!last_head) off += d.L[l].n;
   }
-  for (int l = 0; l < n; ++l) { s.g[l] = off; off += d.L[l].n; }
+  for (int l = 0; l < n; ++l) {
+    s.g[l] = need_dw ? off : -1;
+    if (need_dw) off += d.L[l].n;
+  }
   s.cols = off;
   return s;
 }
@@ -116,7 +125,7 @@ __host__ __device__ inline BwdSmem bwd_smem_layout(const NetDesc& d) {
   s.buf0 = off; off += act_bytes(d.hmax);
   s.buf1 = off; off += act_bytes(d.hmax);
   const int slab = slab_bytes(d.hmax);
-  const int slab_t = align128(MAX_WIDTH * LDB * 2);
+  const int slab_t = wt_slab_bytes(MAX_WIDTH);
   s.wslab = off; off += slab > slab_t ? slab : slab_t;
   s.scratch = off; off += SCRATCH_BYTES;
   s.colsum = off; off += WARPS * MAX_WIDTH * 4;
@@ -141,8 +150,10 @@ struct ToSmemStash {
 };
 
 // Backward epilogue of a layer's cotangent: the relu mask of the layer's
-// output, bf16 into the next product's operand and into the workspace; the
-// f32 value feeds the bias-gradient column sum.
+// output, bf16 into the next product's operand and, for the weight-gradient
+// pass, into the workspace; the f32 value feeds the bias-gradient column
+// sum.
+template <bool STORE>    // keep G for the weight-gradient pass
 struct GEmit {
   static constexpr bool kColsum = true;
   bf16* gb;
@@ -155,158 +166,16 @@ struct GEmit {
     if (mask_col >= 0 && !(__bfloat162float(row[mask_col + c]) > 0.0f)) v = 0.0f;
     const bf16 h = __float2bfloat16_rn(v);
     gb[r * ldg + c] = h;
-    row[g_col + c] = h;
+    if (STORE) row[g_col + c] = h;
     return v;
   }
 };
 
-struct SetF32 {
-  static constexpr bool kColsum = false;
-  float* dst;
-  int ld;
-  __device__ __forceinline__ float operator()(int r, int c, float v) const {
-    dst[r * ld + c] = v;
-    return 0.0f;
-  }
-};
-
-struct AddF32 {
-  static constexpr bool kColsum = false;
-  float* dst;
-  int ld;
-  __device__ __forceinline__ float operator()(int r, int c, float v) const {
-    dst[r * ld + c] += v;
-    return 0.0f;
-  }
-};
-
-struct ToRows {        // f32 into rows [row0, row0 + TILE) of [n_rows, cols]
-  static constexpr bool kColsum = false;
-  float* out;
-  int cols;
-  long long row0, n_rows;
-  __device__ __forceinline__ float operator()(int r, int c, float v) const {
-    if (c < cols && row0 + r < n_rows) out[(row0 + r) * cols + c] = v;
-    return 0.0f;
-  }
-};
-
-// The calling lane holds 8 values of row (lane >> 1), columns c .. c+7 of
-// its warp's 16-row strip; sums them over the strip's rows (a fixed
-// shuffle tree) into the warp's row of colsum.
-__device__ __forceinline__ void strip_colsum(float (&s)[8], float* colsum, int c) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-#pragma unroll
-    for (int o = 2; o < 32; o <<= 1) s[j] += __shfl_xor_sync(0xffffffffu, s[j], o);
-  }
-  if (lane < 2) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) colsum[warp * MAX_WIDTH + c + j] = s[j];
-  }
-}
-
-// Sums the warps' column sums of n columns into out (a tile's bias
-// gradient), in warp order.
-__device__ __forceinline__ void flush_colsum(const float* colsum, int n, float* out) {
-  __syncthreads();
-  for (int c = threadIdx.x; c < n; c += THREADS) {
-    float s = 0.0f;
-    for (int w = 0; w < WARPS; ++w) s += colsum[w * MAX_WIDTH + c];
-    out[c] = s;
-  }
-  __syncthreads();
-}
-
-// epi(r, c, src(r, c)) over the warp's 16-row strip and n columns, in the
-// lane layout of the products' epilogue.
-template <class Src, class Epi>
-__device__ __forceinline__ void strip_apply(int n, const Src& src, const Epi& epi,
-                                            float* colsum) {
-  __syncthreads();
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int r = warp * 16 + (lane >> 1);
-  const int c0 = (lane & 1) * 8;
-  for (int f = 0; f < (n >> 4); ++f) {
-    float s[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = f * 16 + c0 + j;
-      s[j] = epi(r, c, src(r, c));
-    }
-    if (Epi::kColsum) strip_colsum(s, colsum, f * 16 + c0);
-  }
-  __syncwarp();
-}
-
-// out[r, c] = sum_j gb[r, j] · W[c_lo + c, j] for c < cw, j < L.n: the
-// input gradient g·Wᵀ of layer L over rows [c_lo, c_lo + cw) of its packed
-// [k, n] weight.  Wᵀ is staged column-major in KS-wide slabs, read as a
-// col_major wmma operand.  Every thread of the block calls it.
-template <class Epi>
-__device__ __forceinline__ void grad_input(
-    const bf16* gb, int ldg, const bf16* __restrict__ wbuf, const LayerDesc L,
-    int c_lo, int cw, bf16* wslab, float* scratch, float* colsum,
-    const Epi& epi) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int nfrag = cw >> 4;
-  const bf16* w = wbuf + L.w_off;
-  const bf16* gw = gb + warp * 16 * ldg;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MAXF];
-#pragma unroll
-  for (int f = 0; f < MAXF; ++f) wmma::fill_fragment(acc[f], 0.0f);
-
-  constexpr int VEC = KS / 8;              // 16-byte vectors per staged row
-  for (int j0 = 0; j0 < L.n; j0 += KS) {
-    const int js = min(KS, L.n - j0);
-    __syncthreads();                         // slab free; prior writes visible
-    for (int v = threadIdx.x; v < cw * VEC; v += THREADS) {
-      const int c = v / VEC;
-      const int q = v - c * VEC;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (q * 8 < js)
-        val = __ldg(reinterpret_cast<const uint4*>(
-            w + (size_t)(c_lo + c) * L.n + j0 + q * 8));
-      *reinterpret_cast<uint4*>(wslab + c * LDB + q * 8) = val;
-    }
-    __syncthreads();
-    for (int kk = 0; kk < js; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-      wmma::load_matrix_sync(af, gw + j0 + kk, ldg);
-#pragma unroll
-      for (int f = 0; f < MAXF; ++f) {
-        if (f < nfrag) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bfr;
-          wmma::load_matrix_sync(bfr, wslab + f * 16 * LDB + kk, LDB);
-          wmma::mma_sync(acc[f], af, bfr, acc[f]);
-        }
-      }
-    }
-  }
-
-  float* sc = scratch + warp * 256;
-  const int r = lane >> 1;
-  const int c0 = (lane & 1) * 8;
-#pragma unroll
-  for (int f = 0; f < MAXF; ++f) {
-    if (f < nfrag) {
-      wmma::store_matrix_sync(sc, acc[f], 16, wmma::mem_row_major);
-      __syncwarp();
-      float s[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        s[j] = epi(warp * 16 + r, f * 16 + c0 + j, sc[r * 16 + c0 + j]);
-      if (Epi::kColsum) strip_colsum(s, colsum, f * 16 + c0);
-      __syncwarp();
-    }
-  }
-}
-
+// HEADS: the trunk and both heads (fused_pe_nerf) or the trunk alone
+// (fused_pe_density); STORE: with the weight-gradient pass (G to the
+// workspace, per-tile bias sums).  Compile-time, so each variant keeps only
+// the work and the registers it needs.
+template <bool HEADS, bool STORE>
 __global__ void __launch_bounds__(THREADS, 1)
 pe_field_bwd_tile_kernel(const float* __restrict__ x, const float* __restrict__ ex,
                          const float* __restrict__ g_t, const float* __restrict__ g_rgb,
@@ -331,7 +200,9 @@ pe_field_bwd_tile_kernel(const float* __restrict__ x, const float* __restrict__ 
 
   const long long row0 = (long long)blockIdx.x * TILE;
   const long long ws_ld = sl.cols;
-  float* bias_tile = bpart + (size_t)blockIdx.x * total_b;
+  float* bias_tile = STORE ? bpart + (size_t)blockIdx.x * total_b : nullptr;
+  auto bias_out = [&](int l) { return STORE ? bias_tile + d.L[l].b_off : nullptr; };
+  using Emit = GEmit<STORE>;
 
   // ---- recompute the forward; stash every layer's input in the workspace
   const long long n_x = n_rows * d.dim;
@@ -422,7 +293,7 @@ pe_field_bwd_tile_kernel(const float* __restrict__ x, const float* __restrict__ 
   }
   int gi = 0;
   bf16* gcur = bufs[0];
-  for (int head = 0; head < 2; ++head) {           // colour, then semantic
+  for (int head = 0; head < (HEADS ? 2 : 0); ++head) {  // colour, then semantic
     const int first = head == 0 ? d.color0() : d.sem0();
     const int last = first + (head == 0 ? d.n_color : d.n_sem) - 1;
     const float* g_in = head == 0 ? g_rgb : g_sem;
@@ -432,61 +303,62 @@ pe_field_bwd_tile_kernel(const float* __restrict__ x, const float* __restrict__ 
                   return (c < cols && row0 + r < n_rows) ? g_in[(row0 + r) * cols + c]
                                                          : 0.0f;
                 },
-                GEmit{gcur, ldh, ws, ws_ld, row0, sl.g[last], -1}, colsum);
-    flush_colsum(colsum, d.L[last].n, bias_tile + d.L[last].b_off);
+                Emit{gcur, ldh, ws, ws_ld, row0, sl.g[last], -1}, colsum);
+    flush_colsum(colsum, d.L[last].n, bias_out(last));
     for (int l = last; l > first; --l) {
       bf16* gnext = bufs[gi ^ 1];
-      grad_input(gcur, ldh, w, d.L[l], 0, d.L[l].k, wslab, scratch, colsum,
-                 GEmit{gnext, ldh, ws, ws_ld, row0, sl.g[l - 1], sl.act[l - 1]});
-      flush_colsum(colsum, d.L[l - 1].n, bias_tile + d.L[l - 1].b_off);
+      grad_input<MAXF>(gcur, ldh, w, d.L[l], 0, d.L[l].k, wslab, scratch, colsum,
+                       Emit{gnext, ldh, ws, ws_ld, row0, sl.g[l - 1], sl.act[l - 1]});
+      flush_colsum(colsum, d.L[l - 1].n, bias_out(l - 1));
       gcur = gnext;
       gi ^= 1;
     }
     const LayerDesc L0 = d.L[first];
     if (head == 0) {
-      grad_input(gcur, ldh, w, L0, 0, L0.ka, wslab, scratch, colsum, AddF32{gt, tp});
-      grad_input(gcur, ldh, w, L0, L0.ka, L0.k - L0.ka, wslab, scratch, colsum,
-                 ToRows{dex, d.de, row0, n_rows});
+      grad_input<MAXF>(gcur, ldh, w, L0, 0, L0.ka, wslab, scratch, colsum, AddF32{gt, tp});
+      grad_input<MAXF>(gcur, ldh, w, L0, L0.ka, L0.k - L0.ka, wslab, scratch,
+                       colsum, ToRows{dex, d.de, row0, n_rows});
     } else if (pass_sem) {
-      grad_input(gcur, ldh, w, L0, 0, L0.k, wslab, scratch, colsum, AddF32{gt, tp});
+      grad_input<MAXF>(gcur, ldh, w, L0, 0, L0.k, wslab, scratch, colsum, AddF32{gt, tp});
     }
   }
 
   const int t_last = d.color0() - 1;               // top stack
   strip_apply(tp, [&](int r, int c) { return gt[r * tp + c]; },
-              GEmit{gcur, ldh, ws, ws_ld, row0, sl.g[t_last], -1}, colsum);
-  flush_colsum(colsum, tp, bias_tile + d.L[t_last].b_off);
+              Emit{gcur, ldh, ws, ws_ld, row0, sl.g[t_last], -1}, colsum);
+  flush_colsum(colsum, tp, bias_out(t_last));
   for (int l = t_last; l > d.top0(); --l) {
     bf16* gnext = bufs[gi ^ 1];
-    grad_input(gcur, ldh, w, d.L[l], 0, d.L[l].k, wslab, scratch, colsum,
-               GEmit{gnext, ldh, ws, ws_ld, row0, sl.g[l - 1], sl.act[l - 1]});
-    flush_colsum(colsum, d.L[l - 1].n, bias_tile + d.L[l - 1].b_off);
+    grad_input<MAXF>(gcur, ldh, w, d.L[l], 0, d.L[l].k, wslab, scratch, colsum,
+                     Emit{gnext, ldh, ws, ws_ld, row0, sl.g[l - 1], sl.act[l - 1]});
+    flush_colsum(colsum, d.L[l - 1].n, bias_out(l - 1));
     gcur = gnext;
     gi ^= 1;
   }
   const LayerDesc Ls = d.L[d.top0()];              // skip layer: [h | enc]
   const int h_last = d.n_base - 1;
   bf16* gnext = bufs[gi ^ 1];
-  grad_input(gcur, ldh, w, Ls, 0, Ls.ka, wslab, scratch, colsum,
-             GEmit{gnext, ldh, ws, ws_ld, row0, sl.g[h_last], sl.act[h_last]});
-  flush_colsum(colsum, d.L[h_last].n, bias_tile + d.L[h_last].b_off);
-  grad_input(gcur, ldh, w, Ls, Ls.ka, Ls.k - Ls.ka, wslab, scratch, colsum,
-             SetF32{genc, d.enc_pad});
+  grad_input<MAXF>(gcur, ldh, w, Ls, 0, Ls.ka, wslab, scratch, colsum,
+                   Emit{gnext, ldh, ws, ws_ld, row0, sl.g[h_last], sl.act[h_last]});
+  flush_colsum(colsum, d.L[h_last].n, bias_out(h_last));
+  grad_input<MAXF>(gcur, ldh, w, Ls, Ls.ka, Ls.k - Ls.ka, wslab, scratch, colsum,
+                   SetF32{genc, d.enc_pad});
   gcur = gnext;
   gi ^= 1;
   for (int l = h_last; l > 0; --l) {               // base stack
     gnext = bufs[gi ^ 1];
-    grad_input(gcur, ldh, w, d.L[l], 0, d.L[l].k, wslab, scratch, colsum,
-               GEmit{gnext, ldh, ws, ws_ld, row0, sl.g[l - 1], sl.act[l - 1]});
-    flush_colsum(colsum, d.L[l - 1].n, bias_tile + d.L[l - 1].b_off);
+    grad_input<MAXF>(gcur, ldh, w, d.L[l], 0, d.L[l].k, wslab, scratch, colsum,
+                     Emit{gnext, ldh, ws, ws_ld, row0, sl.g[l - 1], sl.act[l - 1]});
+    flush_colsum(colsum, d.L[l - 1].n, bias_out(l - 1));
     gcur = gnext;
     gi ^= 1;
   }
-  grad_input(gcur, ldh, w, d.L[0], 0, d.L[0].k, wslab, scratch, colsum,
-             AddF32{genc, d.enc_pad});
+  grad_input<MAXF>(gcur, ldh, w, d.L[0], 0, d.L[0].k, wslab, scratch, colsum,
+                   AddF32{genc, d.enc_pad});
   __syncthreads();
 
   // dx = (d encode / d pre · g_enc) · Sᵀ
+  if (dx == nullptr) return;
   for (int i = threadIdx.x; i < TILE * d.dim; i += THREADS) {
     const int r = i / d.dim;
     const int dd = i - r * d.dim;
@@ -579,33 +451,27 @@ pe_field_bwd_dw_kernel(const bf16* __restrict__ ws, long long ws_ld,
       wmma::store_matrix_sync(out + j0 + f * 16, acc[f], Ld.n, wmma::mem_row_major);
 }
 
-// dst[c] = sum_r src[r, c], r in order.
-__global__ void column_sum_kernel(const float* __restrict__ src, long long rows,
-                                  long long cols, float* __restrict__ dst) {
-  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= cols) return;
-  float s = 0.0f;
-  for (long long r = 0; r < rows; ++r) s += src[r * cols + c];
-  dst[c] = s;
-}
-
 struct BwdPlan {
   NetDesc d;
   Slots sl;
   long long n_pad, n_tiles, splits, total_w, total_b;
 };
 
-static bool plan(const int* meta, int meta_len, long long n_rows, BwdPlan* p) {
-  if (!parse(meta, meta_len, true, &p->d)) return false;
+// heads = false plans the trunk alone (fused_pe_density's backward);
+// need_dw = false leaves the cotangent slots out of the workspace.
+static bool plan(const int* meta, int meta_len, long long n_rows, bool heads,
+                 bool need_dw, BwdPlan* p) {
+  if (!parse(meta, meta_len, heads, &p->d)) return false;
   const NetDesc& d = p->d;
   const int n = d.n_layers();
-  // the wrapper's packing: heads after the trunk, layer 0 of each head on
-  // the padded trunk output
-  if (d.L[d.color0()].ka != d.t_pad() || d.L[d.color0()].k != d.t_pad() + d.ex_pad ||
-      d.L[d.sem0()].k != d.t_pad() || d.L[d.top0()].k - d.L[d.top0()].ka != d.enc_pad ||
-      d.L[0].k != d.enc_pad)
+  // the wrapper's packing: the encoding feeds layer 0 and the skip layer;
+  // heads after the trunk, layer 0 of each head on the padded trunk output
+  if (d.L[d.top0()].k - d.L[d.top0()].ka != d.enc_pad || d.L[0].k != d.enc_pad)
     return false;
-  p->sl = make_slots(d);
+  if (heads && (d.L[d.color0()].ka != d.t_pad() ||
+                d.L[d.color0()].k != d.t_pad() + d.ex_pad || d.L[d.sem0()].k != d.t_pad()))
+    return false;
+  p->sl = make_slots(d, need_dw);
   p->n_tiles = (n_rows + TILE - 1) / TILE;
   p->n_pad = p->n_tiles * TILE;
   p->splits = (p->n_pad + ROWS_PER_SPLIT - 1) / ROWS_PER_SPLIT;
@@ -618,14 +484,16 @@ static bool plan(const int* meta, int meta_len, long long n_rows, BwdPlan* p) {
 }  // namespace cropnerf
 
 // Sizes of the buffers the wrapper allocates for cropnerf_pe_field_bwd:
-// out[0] bf16 workspace elements, out[1] f32 bias partials, out[2] f32
-// weight partials, out[3] packed weights, out[4] packed biases.  Returns 0,
-// or -1 where the layout is rejected.
+// out[0] bf16 workspace elements (fewer without the weight gradients),
+// out[1] f32 bias partials, out[2] f32 weight partials, out[3] packed
+// weights, out[4] packed biases.  Returns 0, or -1 where the layout is
+// rejected.
 extern "C" int cropnerf_pe_field_bwd_sizes(const int* meta, int meta_len,
-                                           long long n_rows, long long* out) {
+                                           long long n_rows, int heads,
+                                           int need_dw, long long* out) {
   using namespace cropnerf;
   BwdPlan p;
-  if (!plan(meta, meta_len, n_rows, &p)) return -1;
+  if (!plan(meta, meta_len, n_rows, heads != 0, need_dw != 0, &p)) return -1;
   out[0] = p.n_pad * p.sl.cols;
   out[1] = p.n_tiles * p.total_b;
   out[2] = p.splits * p.total_w;
@@ -635,39 +503,51 @@ extern "C" int cropnerf_pe_field_bwd_sizes(const int* meta, int meta_len,
 }
 
 // Dynamic shared memory of the tile kernel (-1 where the layout is rejected).
-extern "C" int cropnerf_pe_field_bwd_smem_bytes(const int* meta, int meta_len) {
+extern "C" int cropnerf_pe_field_bwd_smem_bytes(const int* meta, int meta_len,
+                                                int heads) {
   using namespace cropnerf;
   BwdPlan p;
-  if (!plan(meta, meta_len, 1, &p)) return -1;
+  if (!plan(meta, meta_len, 1, heads != 0, true, &p)) return -1;
   return bwd_smem_layout(p.d).total;
 }
 
 // Launches the backward on `stream`; returns a cudaError_t (0 on success).
 // Device pointers except `meta`; ws, bpart and wpart are scratch of the
 // sizes above; dw and db receive the packed f32 weight and bias gradients.
+// Without the heads ex, g_rgb, g_sem and dex are not read (null).  A null
+// dx skips dx; null bpart, wpart, dw and db skip the weight gradients
+// (trunk only: the heads always take them).
 extern "C" int cropnerf_pe_field_bwd(
     const float* x, const float* ex, const float* g_t, const float* g_rgb,
     const float* g_sem, float* dx, float* dex, const void* w, const float* b,
-    const int* meta, int meta_len, long long n_rows, int pass_sem, void* ws,
-    float* bpart, float* wpart, float* dw, float* db, void* stream) {
+    const int* meta, int meta_len, long long n_rows, int heads, int pass_sem,
+    void* ws, float* bpart, float* wpart, float* dw, float* db, void* stream) {
   using namespace cropnerf;
+  const bool need_dw = wpart != nullptr;
+  if (need_dw && (bpart == nullptr || dw == nullptr || db == nullptr))
+    return (int)cudaErrorInvalidValue;
   BwdPlan p;
-  if (!plan(meta, meta_len, n_rows, &p)) return (int)cudaErrorInvalidValue;
+  if (!plan(meta, meta_len, n_rows, heads != 0, need_dw, &p))
+    return (int)cudaErrorInvalidValue;
   if (n_rows <= 0) return 0;
   const NetDesc& d = p.d;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const bf16* wb = reinterpret_cast<const bf16*>(w);
   bf16* wsb = reinterpret_cast<bf16*>(ws);
 
+  if (heads && !need_dw) return (int)cudaErrorInvalidValue;   // not built
   const int smem = bwd_smem_layout(d).total;
+  auto kernel = heads ? pe_field_bwd_tile_kernel<true, true>
+                : need_dw ? pe_field_bwd_tile_kernel<false, true>
+                          : pe_field_bwd_tile_kernel<false, false>;
   cudaError_t e = cudaFuncSetAttribute(
-      pe_field_bwd_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  pe_field_bwd_tile_kernel<<<(unsigned)p.n_tiles, THREADS, smem, s>>>(
+  kernel<<<(unsigned)p.n_tiles, THREADS, smem, s>>>(
       x, ex, g_t, g_rgb, g_sem, dx, dex, wb, b, wsb, bpart, d, p.sl, n_rows,
       pass_sem, (int)p.total_b);
   e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  if (e != cudaSuccess || !need_dw) return (int)e;
 
   DwArgs args;
   int max_tiles = 0;
@@ -689,11 +569,7 @@ extern "C" int cropnerf_pe_field_bwd(
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 
-  column_sum_kernel<<<(unsigned)((p.total_w + SUM_THREADS - 1) / SUM_THREADS),
-                      SUM_THREADS, 0, s>>>(wpart, p.splits, p.total_w, dw);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  column_sum_kernel<<<(unsigned)((p.total_b + SUM_THREADS - 1) / SUM_THREADS),
-                      SUM_THREADS, 0, s>>>(bpart, p.n_tiles, p.total_b, db);
-  return (int)cudaGetLastError();
+  const int err = column_sum(wpart, p.splits, p.total_w, dw, s);
+  if (err) return err;
+  return column_sum(bpart, p.n_tiles, p.total_b, db, s);
 }

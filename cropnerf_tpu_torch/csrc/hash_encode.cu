@@ -30,11 +30,14 @@
 // summed in order 0..7 with separate roundings.  The forward equals the
 // plain version bit for bit.
 //
-// Backward, one thread per position, looping over the levels: the table
-// gradient by atomicAdd of w*g into f32 zeros (sorting to avoid the atomics
-// is later work), and, when the positions need it, the position gradient
-// sum over levels and corners of dw * <feat, g> with dw = d(w)/d(pos),
-// the x res factor included, accumulated in registers with no atomics.
+// Backward, one thread per position, looping over the levels: when the
+// table needs it, the table gradient by atomicAdd of w*g into f32 zeros
+// (sorting to avoid the atomics is later work), and, when the positions
+// need it, the position gradient sum over levels and corners of
+// dw * <feat, g> with dw = d(w)/d(pos), the x res factor included,
+// accumulated in registers with no atomics.  Each is a template variant: the
+// training step asks for both (or the table alone for frozen positions),
+// the BayesRays pass for the position gradient alone.
 #include <cuda_runtime.h>
 
 namespace cropnerf {
@@ -134,7 +137,7 @@ hash_encode_fwd_kernel(const float* __restrict__ pos,
   out[i * n_levels + l] = make_float2(ax, ay);
 }
 
-template <bool DPOS>
+template <bool DTABLE, bool DPOS>
 __global__ void __launch_bounds__(THREADS)
 hash_encode_bwd_kernel(const float* __restrict__ pos,
                        const float2* __restrict__ table,
@@ -157,8 +160,10 @@ hash_encode_bwd_kernel(const float* __restrict__ pos,
       corner_terms(c, corner, t);
       const float w = t[0] * t[1] * t[2];
       const long long row = corner_row(c, corner, lv, mask);
-      atomicAdd(dtable + 2 * row, w * g.x);
-      atomicAdd(dtable + 2 * row + 1, w * g.y);
+      if (DTABLE) {
+        atomicAdd(dtable + 2 * row, w * g.x);
+        atomicAdd(dtable + 2 * row + 1, w * g.y);
+      }
       if (DPOS) {
         const float2 v = __ldg(table + row);
         const float dot = v.x * g.x + v.y * g.y;
@@ -204,8 +209,9 @@ extern "C" int cropnerf_hash_encode_fwd(const float* pos, const void* table,
   return (int)cudaGetLastError();
 }
 
-// Backward on `stream`: adds into dtable (zeros of the table's shape) and,
-// when dpos is not null, writes dpos [n, 3].  grad is [n, n_levels] float2.
+// Backward on `stream`: when dtable is not null, adds into it (zeros of the
+// table's shape); when dpos is not null, writes dpos [n, 3].  grad is
+// [n, n_levels] float2.
 extern "C" int cropnerf_hash_encode_bwd(const float* pos, const void* table,
                                         const void* grad,
                                         const long long* levels, int n_levels,
@@ -219,11 +225,14 @@ extern "C" int cropnerf_hash_encode_bwd(const float* pos, const void* table,
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const float2* t = reinterpret_cast<const float2*>(table);
   const float2* g = reinterpret_cast<const float2*>(grad);
-  if (dpos != nullptr)
-    hash_encode_bwd_kernel<true><<<grid, THREADS, 0, s>>>(
+  if (dtable != nullptr && dpos != nullptr)
+    hash_encode_bwd_kernel<true, true><<<grid, THREADS, 0, s>>>(
         pos, t, g, levels, n_levels, mask, dtable, dpos, n);
-  else
-    hash_encode_bwd_kernel<false><<<grid, THREADS, 0, s>>>(
+  else if (dtable != nullptr)
+    hash_encode_bwd_kernel<true, false><<<grid, THREADS, 0, s>>>(
+        pos, t, g, levels, n_levels, mask, dtable, dpos, n);
+  else if (dpos != nullptr)
+    hash_encode_bwd_kernel<false, true><<<grid, THREADS, 0, s>>>(
         pos, t, g, levels, n_levels, mask, dtable, dpos, n);
   return (int)cudaGetLastError();
 }

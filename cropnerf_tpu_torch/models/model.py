@@ -14,7 +14,7 @@ without one, whatever the caller's grad mode.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -78,13 +78,16 @@ def _proposal_sampling(params: CropNeRFParams, rb: RayBundle,
                        generator: Optional[torch.Generator] = None,
                        compute_dtype: torch.dtype = torch.bfloat16,
                        prop_update: Optional[bool] = None,
+                       density_hook: Optional[Callable] = None,
                        ) -> Tuple[RaySamples, List[torch.Tensor], List[torch.Tensor]]:
     """Hierarchical proposal sampling (nerfstudio ProposalNetworkSampler):
     (final samples, weights per proposal level, s-space bins per level).
 
     ``prop_update`` False runs the proposal nets without a graph: the
     counterpart of the JAX ``lax.cond`` that stops their gradients on the
-    steps between proposal updates."""
+    steps between proposal updates.  ``density_hook`` (positions, density)
+    -> density post-processes each proposal density, so that the samplers
+    avoid what an uncertainty-filtered render removes."""
     spacing = pdf_ops.spacing_piecewise()
     weights_list: List[torch.Tensor] = []
     sdist_list: List[torch.Tensor] = []
@@ -98,6 +101,8 @@ def _proposal_sampling(params: CropNeRFParams, rb: RayBundle,
             density = proposal_density(params.proposal(i), samples.positions,
                                        cfg.proposal_fields[i],
                                        compute_dtype=compute_dtype)
+        if density_hook is not None:
+            density = density_hook(samples.positions, density)
         weights = render_ops.render_weights(density, samples.deltas)
         sdist = _sdist(samples)
         weights_list.append(weights)
@@ -116,7 +121,8 @@ def forward(params: CropNeRFParams, ray_bundle: RayBundle, cfg: ModelConfig,
             background: Optional[str] = None,
             compute_dtype: torch.dtype = torch.bfloat16,
             generator: Optional[torch.Generator] = None,
-            prop_update: Optional[bool] = None
+            prop_update: Optional[bool] = None,
+            density_hook: Optional[Callable] = None
             ) -> Dict[str, torch.Tensor]:
     """Full composited forward: rgb, accumulation, median depth, semantics,
     per-level weights and bins, and per-proposal expected depths.
@@ -124,18 +130,22 @@ def forward(params: CropNeRFParams, ray_bundle: RayBundle, cfg: ModelConfig,
     ``train=True`` applies the camera-opt deltas to the rays, jitters the
     samplers from ``generator`` (none: no jitter, as a JAX key of None),
     uses each ray's appearance row and records the autograd graph;
-    ``train=False`` runs without a graph."""
+    ``train=False`` runs without a graph.  ``density_hook`` (positions,
+    density) -> density post-processes every proposal density and the final
+    field density (after gradient scaling): the BayesRays
+    uncertainty-filtered render."""
     with torch.set_grad_enabled(train):
         return _forward(params, ray_bundle, cfg, train, anneal, background,
-                        compute_dtype, generator, prop_update)
+                        compute_dtype, generator, prop_update, density_hook)
 
 
 def _forward(params, ray_bundle, cfg, train, anneal, background,
-             compute_dtype, generator, prop_update):
+             compute_dtype, generator, prop_update, density_hook):
     rb = (apply_to_raybundle(params.camera_opt, ray_bundle,
                              cfg.camera_opt.mode) if train else ray_bundle)
     samples, weights_list, sdist_list = _proposal_sampling(
-        params, rb, cfg, train, anneal, generator, compute_dtype, prop_update)
+        params, rb, cfg, train, anneal, generator, compute_dtype, prop_update,
+        density_hook)
     density, rgb_samples, sem_samples = field_all(
         params.field, samples.positions, samples.directions,
         samples.camera_idx, cfg.field, train, compute_dtype,
@@ -151,6 +161,8 @@ def _forward(params, ray_bundle, cfg, train, anneal, background,
         density = gscale(density, s)
         rgb_samples = gscale(rgb_samples, s[..., None])
         sem_samples = gscale(sem_samples, s[..., None])
+    if density_hook is not None:
+        density = density_hook(samples.positions, density)
     weights = render_ops.render_weights(density, samples.deltas)
     weights_list = weights_list + [weights]
     sdist_list = sdist_list + [_sdist(samples)]

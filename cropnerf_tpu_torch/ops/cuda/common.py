@@ -69,11 +69,8 @@ def check_rows(name: str, t: torch.Tensor, n: int | None = None,
 
 
 def check_kernel_call(name: str, tensors: Sequence[torch.Tensor],
-                      compute_dtype: torch.dtype,
-                      no_backward: str | None = None) -> torch.device:
-    """The checks every CUDA launch makes: one CUDA device, bf16 compute.
-    ``no_backward`` names the slice that brings a kernel's backward; such a
-    kernel refuses to record an autograd graph until then."""
+                      compute_dtype: torch.dtype) -> torch.device:
+    """The checks every CUDA launch makes: one CUDA device, bf16 compute."""
     device = tensors[0].device
     if device.type != "cuda":
         raise ValueError(f"{name}: expected CPU or CUDA tensors, got {device}")
@@ -83,10 +80,6 @@ def check_kernel_call(name: str, tensors: Sequence[torch.Tensor],
     if compute_dtype != torch.bfloat16:
         raise ValueError(f"{name}: the CUDA kernel computes in bf16; "
                          f"{compute_dtype} runs only on the CPU plain path")
-    if (no_backward is not None and torch.is_grad_enabled()
-            and any(t.requires_grad for t in tensors)):
-        raise RuntimeError(f"{name}: the backward kernel is not ported yet "
-                           f"({no_backward}); call under torch.no_grad()")
     return device
 
 

@@ -10,11 +10,13 @@ on the CPU.  The kernel replaces the Pallas ``_fwd_kernel`` and
 note): every intermediate stays in shared memory, the weights stream from
 L2.  The ragged tail of N is masked in the kernel; there is no fallback.
 
-``fused_pe_nerf`` is differentiable: on the card its backward is
-``fused_pe_nerf_bwd``, the CUDA kernel ``csrc/fused_pe_field_bwd.cu``
-(replacing ``_mega_bwd_kernel``), which recomputes the forward; on the CPU
-autograd runs through the plain version.  ``fused_pe_density`` has no
-backward kernel yet and refuses autograd on the card.
+Both are differentiable.  On the card their backwards are
+``fused_pe_nerf_bwd`` and ``fused_pe_density_bwd``, the CUDA kernel
+``csrc/fused_pe_field_bwd.cu`` with and without the heads (replacing
+``_mega_bwd_kernel`` and ``_bwd_kernel``), which recomputes the forward;
+``fused_pe_density_bwd`` computes only the gradients autograd asks for
+(dx alone in the BayesRays pass).  On the CPU autograd runs through the
+plain versions.
 
 Rounding points follow the JAX kernels: the encoding is rounded to the
 compute dtype before base layer 0, every hidden layer applies relu then
@@ -133,14 +135,14 @@ def _bwd_lib():
     lib = build.load("fused_pe_field_bwd")
     lib.cropnerf_pe_field_bwd.argtypes = [ctypes.c_void_p] * 9 + [
         ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_int] + [ctypes.c_void_p] * 6
+        ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
     lib.cropnerf_pe_field_bwd.restype = ctypes.c_int
     lib.cropnerf_pe_field_bwd_sizes.argtypes = [
         ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_longlong,
-        ctypes.POINTER(ctypes.c_longlong)]
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
     lib.cropnerf_pe_field_bwd_sizes.restype = ctypes.c_int
     lib.cropnerf_pe_field_bwd_smem_bytes.argtypes = [
-        ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int]
     lib.cropnerf_pe_field_bwd_smem_bytes.restype = ctypes.c_int
     return lib
 
@@ -207,16 +209,17 @@ def pack_pe_field(dim: int, num_freqs: int, base_wbs, top_wbs,
 
 
 def unpack_pe_field_grads(dwbuf: torch.Tensor, dbbuf: torch.Tensor, meta,
-                          base_wbs, top_wbs, color_wbs, sem_wbs):
+                          base_wbs, top_wbs, color_wbs=None, sem_wbs=None):
     """The packed f32 gradient buffers of the backward kernel → gradients
     in the caller's shapes: (d base_wbs, d top_wbs, d color_wbs,
-    d sem_wbs), each a list parallel to its weights.  The skip layer's
-    gradient is its h block stacked on its enc block."""
+    d sem_wbs), each a list parallel to its weights (the heads' lists
+    empty without heads).  The skip layer's gradient is its h block stacked
+    on its enc block."""
     layers, _ = _pe_layers(meta[0], meta[1], base_wbs, top_wbs, color_wbs,
                            sem_wbs, meta[4])
     per_layer = unpack_layers(layers, dwbuf, dbbuf, meta[14:])
     nb, nt = len(base_wbs) // 2, len(top_wbs) // 2
-    nc = (len(color_wbs) - 1) // 2
+    nc = (len(color_wbs) - 1) // 2 if color_wbs is not None else 0
     flat = lambda ls: [g for ws, db in ls for g in (*ws, db)]  # noqa: E731
     d_base = flat(per_layer[:nb])
     (dh, de), db0 = per_layer[nb]
@@ -253,21 +256,7 @@ def _launch(name, x, extras, outs, wbuf, bbuf, meta, heads, device):
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
 
-def fused_pe_density(x: torch.Tensor, base_wbs: Sequence[torch.Tensor],
-                     top_wbs: Sequence[torch.Tensor], num_freqs: int,
-                     compute_dtype: torch.dtype = torch.bfloat16
-                     ) -> torch.Tensor:
-    """x [N, dim] float32 (encoder domain, unit*2-1) → t [N, Dout] float32.
-
-    base_wbs/top_wbs = [W0, b0, W1, b1, ...]; W_top0 is the skip layer
-    [H + dim(1+2F), H_top]."""
-    check_rows("x", x)
-    if x.device.type == "cpu":
-        return fused_pe_density_plain(x, base_wbs, top_wbs, num_freqs,
-                                      compute_dtype)
-    device = check_kernel_call("fused_pe_density",
-                               [x, *base_wbs, *top_wbs], compute_dtype,
-                               no_backward="slice 5, with BayesRays")
+def _density_forward(x, base_wbs, top_wbs, num_freqs, device):
     wbuf, bbuf, meta = pack_pe_field(x.shape[1], num_freqs, base_wbs,
                                      top_wbs, device=device)
     t = torch.empty((x.shape[0], top_wbs[-2].shape[1]), dtype=torch.float32,
@@ -278,6 +267,25 @@ def fused_pe_density(x: torch.Tensor, base_wbs: Sequence[torch.Tensor],
             0, device)
     fused_pe_density.launches += 1
     return t
+
+
+def fused_pe_density(x: torch.Tensor, base_wbs: Sequence[torch.Tensor],
+                     top_wbs: Sequence[torch.Tensor], num_freqs: int,
+                     compute_dtype: torch.dtype = torch.bfloat16
+                     ) -> torch.Tensor:
+    """x [N, dim] float32 (encoder domain, unit*2-1) → t [N, Dout] float32,
+    differentiable in x and the weights.
+
+    base_wbs/top_wbs = [W0, b0, W1, b1, ...]; W_top0 is the skip layer
+    [H + dim(1+2F), H_top]."""
+    check_rows("x", x)
+    if x.device.type == "cpu":
+        return fused_pe_density_plain(x, base_wbs, top_wbs, num_freqs,
+                                      compute_dtype)
+    check_kernel_call("fused_pe_density", [x, *base_wbs, *top_wbs],
+                      compute_dtype)
+    return _FusedPeDensity.apply(x, num_freqs, len(base_wbs), *base_wbs,
+                                 *top_wbs)
 
 
 def _nerf_forward(x, extras, base_wbs, top_wbs, color_wbs, sem_wbs,
@@ -296,11 +304,100 @@ def _nerf_forward(x, extras, base_wbs, top_wbs, color_wbs, sem_wbs,
     return outs
 
 
-def bwd_smem_bytes(meta) -> int:
+def bwd_smem_bytes(meta, heads: bool = True) -> int:
     """Dynamic shared memory one block of the backward's tile kernel takes
     (-1 where the kernel rejects the layout)."""
     return _bwd_lib().cropnerf_pe_field_bwd_smem_bytes(c_ints(meta),
-                                                       len(meta))
+                                                       len(meta), int(heads))
+
+
+def _bwd_launch(name, x, extras, cots, dx, dex, wbuf, bbuf, meta, heads,
+                pass_sem, need_dw, device):
+    """One launch of the backward kernel: the workspace and partials, then
+    (dw, db) packed, or None without weight gradients."""
+    lib = _bwd_lib()
+    n = x.shape[0]
+    sizes = (ctypes.c_longlong * 5)()
+    if lib.cropnerf_pe_field_bwd_sizes(c_ints(meta), len(meta), n,
+                                       int(heads), int(need_dw), sizes):
+        raise ValueError(f"{name}: the kernel rejects this layout")
+    smem = bwd_smem_bytes(meta, heads)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"{name}: needs {smem} B of shared memory per "
+                         f"block, more than {MAX_SMEM_BYTES}")
+    ws_elems, n_bpart, n_wpart, total_w, total_b = list(sizes)
+    f32 = dict(dtype=torch.float32, device=device)
+    dw = db = None
+    ptrs = [None] * 4
+    if need_dw:
+        dw, db = torch.zeros((total_w,), **f32), torch.zeros((total_b,), **f32)
+        if n:
+            bpart = torch.empty((n_bpart,), **f32)
+            wpart = torch.empty((n_wpart,), **f32)
+            ptrs = [t.data_ptr() for t in (bpart, wpart, dw, db)]
+    if n:
+        ws = torch.empty((ws_elems,), dtype=torch.bfloat16, device=device)
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        with torch.cuda.device(device):
+            err = lib.cropnerf_pe_field_bwd(
+                x.data_ptr(), ptr(extras), *[ptr(c) for c in cots], ptr(dx),
+                ptr(dex), wbuf.data_ptr(), bbuf.data_ptr(), c_ints(meta),
+                len(meta), n, int(heads), int(pass_sem), ws.data_ptr(),
+                *ptrs, stream_ptr(device))
+        if err:
+            raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    return (dw, db) if need_dw else None
+
+
+@torch.no_grad()
+def fused_pe_density_bwd(x: torch.Tensor, base_wbs: Sequence[torch.Tensor],
+                         top_wbs: Sequence[torch.Tensor], num_freqs: int,
+                         g_t: torch.Tensor, need_dx: bool = True,
+                         need_dw: bool = True):
+    """The backward kernel of ``fused_pe_density`` on CUDA tensors: the
+    cotangent of t → (dx or None, d base_wbs, d top_wbs) in float32, the
+    weight gradients in the callers' shapes or None without ``need_dw``.
+    It recomputes the forward from x and the weights."""
+    device = check_kernel_call("fused_pe_density_bwd",
+                               [x, g_t, *base_wbs, *top_wbs], torch.bfloat16)
+    wbuf, bbuf, meta = pack_pe_field(x.shape[1], num_freqs, base_wbs,
+                                     top_wbs, device=device)
+    check_rows("g_t", g_t, n=x.shape[0], cols=meta[10])
+    dx = torch.empty_like(x) if need_dx else None
+    packed = _bwd_launch("fused_pe_density_bwd", x, None, (g_t, None, None),
+                         dx, None, wbuf, bbuf, meta, False, False, need_dw,
+                         device)
+    if x.shape[0]:
+        fused_pe_density_bwd.launches += 1
+    if not need_dw:
+        return dx, None, None
+    d_base, d_top, _, _ = unpack_pe_field_grads(*packed, meta, base_wbs,
+                                                top_wbs)
+    return dx, d_base, d_top
+
+
+class _FusedPeDensity(torch.autograd.Function):
+    """Forward kernel, and the backward kernel as its gradient, run only
+    for the gradients asked for.  Saves only x and the weights, as the JAX
+    ``_fwd`` does."""
+
+    @staticmethod
+    def forward(ctx, x, num_freqs, nb, *wbs):
+        ctx.save_for_backward(x, *wbs)
+        ctx.config = (num_freqs, nb)
+        return _density_forward(x, wbs[:nb], wbs[nb:], num_freqs, x.device)
+
+    @staticmethod
+    def backward(ctx, g_t):
+        x, *wbs = ctx.saved_tensors
+        num_freqs, nb = ctx.config
+        need_dx = ctx.needs_input_grad[0]
+        need_dw = any(ctx.needs_input_grad[3:])
+        dx, d_base, d_top = fused_pe_density_bwd(
+            x, wbs[:nb], wbs[nb:], num_freqs, g_t.contiguous(), need_dx,
+            need_dw)
+        d_w = [*d_base, *d_top] if need_dw else [None] * len(wbs)
+        return (dx, None, None, *d_w)
 
 
 @torch.no_grad()
@@ -326,34 +423,12 @@ def fused_pe_nerf_bwd(x: torch.Tensor, extras: torch.Tensor,
     for name, g, c in (("g_t", g_t, meta[10]), ("g_rgb", g_rgb, meta[11]),
                        ("g_sem", g_sem, meta[12])):
         check_rows(name, g, n=n, cols=c)
-    lib = _bwd_lib()
-    sizes = (ctypes.c_longlong * 5)()
-    if lib.cropnerf_pe_field_bwd_sizes(c_ints(meta), len(meta), n, sizes):
-        raise ValueError("fused_pe_nerf_bwd: the kernel rejects this layout")
-    smem = bwd_smem_bytes(meta)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"fused_pe_nerf_bwd: needs {smem} B of shared "
-                         f"memory per block, more than {MAX_SMEM_BYTES}")
-    ws_elems, n_bpart, n_wpart, total_w, total_b = list(sizes)
     dx = torch.empty_like(x)
     dex = torch.empty_like(extras)
-    dw = torch.zeros((total_w,), dtype=torch.float32, device=device)
-    db = torch.zeros((total_b,), dtype=torch.float32, device=device)
+    dw, db = _bwd_launch("fused_pe_nerf_bwd", x, extras, (g_t, g_rgb, g_sem),
+                         dx, dex, wbuf, bbuf, meta, True, pass_sem_grad, True,
+                         device)
     if n:
-        ws = torch.empty((ws_elems,), dtype=torch.bfloat16, device=device)
-        bpart = torch.empty((n_bpart,), dtype=torch.float32, device=device)
-        wpart = torch.empty((n_wpart,), dtype=torch.float32, device=device)
-        with torch.cuda.device(device):
-            err = lib.cropnerf_pe_field_bwd(
-                x.data_ptr(), extras.data_ptr(), g_t.data_ptr(),
-                g_rgb.data_ptr(), g_sem.data_ptr(), dx.data_ptr(),
-                dex.data_ptr(), wbuf.data_ptr(), bbuf.data_ptr(),
-                c_ints(meta), len(meta), n, int(pass_sem_grad),
-                ws.data_ptr(), bpart.data_ptr(), wpart.data_ptr(),
-                dw.data_ptr(), db.data_ptr(), stream_ptr(device))
-        if err:
-            raise RuntimeError(f"fused_pe_nerf_bwd kernel launch failed: "
-                               f"cudaError {err}")
         fused_pe_nerf_bwd.launches += 1
     return (dx, dex, *unpack_pe_field_grads(dw, db, meta, base_wbs, top_wbs,
                                             color_wbs, sem_wbs))
@@ -418,5 +493,6 @@ def fused_pe_nerf(x: torch.Tensor, extras: torch.Tensor,
 
 
 fused_pe_density.launches = 0
+fused_pe_density_bwd.launches = 0
 fused_pe_nerf.launches = 0
 fused_pe_nerf_bwd.launches = 0

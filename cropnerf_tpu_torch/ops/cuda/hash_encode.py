@@ -4,9 +4,10 @@ custom VJP in ``cropnerf_tpu/ops/hashgrid.py``).
 
 ``hash_encode`` launches the CUDA kernel ``csrc/hash_encode.cu`` and is
 differentiable: its backward is the kernel's backward, which scatters the
-table gradient with atomics and returns the analytic position gradient when
-the positions need one.  The table is [rows, 2] float32 with each level at
-a row offset, so the dense and the packed layout both come here
+table gradient with atomics when the table needs one and returns the
+analytic position gradient when the positions need one.  The table is
+[rows, 2] float32 with each level at a row offset, so the dense and the
+packed layout both come here
 (``ops/hashgrid.py`` computes the offsets and holds the plain version).
 The kernels are float32 throughout and take no compute dtype; they accept
 only CUDA tensors and raise on anything else: there is no fallback.
@@ -93,24 +94,26 @@ def hash_encode_fwd(table2d: torch.Tensor, pos: torch.Tensor,
 def hash_encode_bwd(table2d: torch.Tensor, pos: torch.Tensor,
                     grad: torch.Tensor, resolutions: Tuple[int, ...],
                     offsets: Tuple[int, ...], dense: Tuple[bool, ...],
-                    table_size: int, need_dpos: bool = True
-                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                    table_size: int, need_dpos: bool = True,
+                    need_dtable: bool = True
+                    ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """The backward kernel: the cotangent [N, L·2] of the features →
-    (d table [rows, 2], d pos [N, 3] or None) in float32."""
+    (d table [rows, 2] or None, d pos [N, 3] or None) in float32."""
     device = _check("hash_encode_bwd", table2d, pos, resolutions, table_size)
     L, n = len(resolutions), pos.shape[0]
     check_rows("grad", grad, n=n, cols=L * FEATURES)
     if grad.device != device:
         raise ValueError(f"hash_encode_bwd: grad on {grad.device}")
-    dtable = torch.zeros_like(table2d)
+    dtable = torch.zeros_like(table2d) if need_dtable else None
     dpos = torch.empty_like(pos) if need_dpos else None
-    if n == 0:
+    if n == 0 or not (need_dtable or need_dpos):
         return dtable, dpos
     levels = _levels(device, resolutions, offsets, dense)
     with torch.cuda.device(device):
         err = _lib().cropnerf_hash_encode_bwd(
             pos.data_ptr(), table2d.data_ptr(), grad.data_ptr(),
-            levels.data_ptr(), L, table_size - 1, dtable.data_ptr(),
+            levels.data_ptr(), L, table_size - 1,
+            dtable.data_ptr() if need_dtable else None,
             dpos.data_ptr() if need_dpos else None, n, stream_ptr(device))
     if err:
         raise RuntimeError(f"hash_encode_bwd kernel launch failed: "
@@ -134,7 +137,8 @@ class _HashEncode(torch.autograd.Function):
         table2d, pos = ctx.saved_tensors
         dtable, dpos = hash_encode_bwd(table2d, pos, g.contiguous(),
                                        *ctx.layout,
-                                       need_dpos=ctx.needs_input_grad[1])
+                                       need_dpos=ctx.needs_input_grad[1],
+                                       need_dtable=ctx.needs_input_grad[0])
         return dtable, dpos, None
 
 

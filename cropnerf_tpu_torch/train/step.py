@@ -167,17 +167,24 @@ RENDER_KEYS = ("rgb", "accumulation", "depth", "semantics",
 
 
 def make_render_fn(cfg: TrainConfig, background: Optional[str] = None,
-                   compute_dtype: torch.dtype = torch.bfloat16) -> Callable:
-    """``render(params, cameras, cam_index, height, width)`` → image-shaped
-    outputs [H, W, C].  The pixels are padded to a whole number of
-    ``eval_num_rays_per_chunk`` chunks, so every chunk has one shape, and
-    rendered one chunk at a time."""
+                   compute_dtype: torch.dtype = torch.bfloat16,
+                   density_hook: Optional[Callable] = None) -> Callable:
+    """``render(params, cameras, cam_index, height, width, hook_arg=0.0)``
+    → image-shaped outputs [H, W, C].  The pixels are padded to a whole
+    number of ``eval_num_rays_per_chunk`` chunks, so every chunk has one
+    shape, and rendered one chunk at a time.  ``density_hook`` is an
+    optional (positions, density, hook_arg) -> density post-filter, and
+    ``hook_arg`` a float given per call (the viewer's uncertainty-filter
+    slider)."""
     m = cfg.model
     chunk = cfg.eval_num_rays_per_chunk
 
     @torch.no_grad()
     def render(params: CropNeRFParams, cameras: Cameras, cam_index: int,
-               height: int, width: int) -> Dict[str, torch.Tensor]:
+               height: int, width: int,
+               hook_arg: float = 0.0) -> Dict[str, torch.Tensor]:
+        hook = (None if density_hook is None
+                else lambda p, d: density_hook(p, d, hook_arg))
         device = cameras.c2w.device
         ys, xs = torch.meshgrid(torch.arange(height, device=device),
                                 torch.arange(width, device=device),
@@ -200,7 +207,7 @@ def make_render_fn(cfg: TrainConfig, background: Optional[str] = None,
                            camera_idx=cx)
             rb = near_far_collider(rb, m.near_plane, m.far_plane)
             out = forward(params, rb, m, train=False, background=background,
-                          compute_dtype=compute_dtype)
+                          compute_dtype=compute_dtype, density_hook=hook)
             for k in RENDER_KEYS:
                 pieces[k].append(out[k])
         return {k: torch.cat(v)[:n].reshape(height, width, -1)

@@ -122,20 +122,22 @@ def test_fused_mlp_kernel_matches_plain(cuda, dims, n):
 
 
 def test_kernels_refuse_float32_and_autograd(cuda):
-    """float32 compute runs only on the CPU; K2 and K3 have no backward
-    kernel yet and refuse to record a graph (K1 records one)."""
+    """float32 compute runs only on the CPU; every MLP kernel now has its
+    backward, so K1, K2 and K3 all record a graph."""
     cfg, params = _field(cuda)
     base, top, color, sem = fused_field_weights(params.field, cfg.field)
     x, extras = _field_inputs(256, color[1].shape[0], cuda)
     with torch.no_grad(), pytest.raises(ValueError, match="bf16"):
         kfield.fused_pe_density(x, base, top, POS_FREQS, torch.float32)
-    with pytest.raises(RuntimeError, match="slice 5"):
-        kfield.fused_pe_density(x, base, top, POS_FREQS)
     heads = [params.field.mlp_semantic.w[0], params.field.mlp_semantic.b[0]
              .reshape(1, -1), params.field.mlp_semantic.w[1],
              params.field.mlp_semantic.b[1].reshape(1, -1)]
-    with pytest.raises(RuntimeError, match="slice 4"):
-        kmlp.fused_mlp(x[:, :1].expand(256, 15).contiguous(), heads)
+    with torch.no_grad(), pytest.raises(ValueError, match="bf16"):
+        kmlp.fused_mlp(x[:, :1].expand(256, 15).contiguous(), heads,
+                       torch.float32)
+    assert kfield.fused_pe_density(x, base, top, POS_FREQS).requires_grad
+    assert kmlp.fused_mlp(x[:, :1].expand(256, 15).contiguous(),
+                          heads).requires_grad
     t, _, _ = kfield.fused_pe_nerf(x, extras, base, top, color, sem,
                                    POS_FREQS)
     assert t.requires_grad
@@ -180,6 +182,93 @@ def test_fused_pe_nerf_backward_kernel_matches_plain(cuda, n, pass_sem):
     again = _grads(kfield.fused_pe_nerf(x, extras, base, top, color, sem,
                                         POS_FREQS, pass_sem_grad=pass_sem),
                    [x, extras, *wbs], cots)
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+        "the backward kernel is not deterministic"
+
+
+def _leaves(ws, need_dw):
+    return [w.detach().clone().requires_grad_(need_dw) for w in ws]
+
+
+def _weight_grad_agrees(got, ref, n: int) -> bool:
+    """Weight and bias gradients of the K2 and K3 backwards: within BWD_TOL
+    in relative L2 norm, and within BWD_TOL of max |plain| over 1000 rows
+    or more.  A relu unit that takes the other side in one row moves that
+    row's outer product, up to ~10 % of the largest entry when the sum runs
+    over a single 128-row tile; more rows dilute it."""
+    l2 = ((got - ref).norm() / ref.norm().clamp_min(1e-12)).item()
+    return l2 <= BWD_TOL and (n < 1000 or _rel_err(got, ref) <= BWD_TOL)
+
+
+@pytest.mark.parametrize("need_dw", [True, False], ids=["with-dW", "dx-only"])
+@pytest.mark.parametrize("n", [128, 1000, 196_608 - 77, 196_608])
+def test_fused_pe_density_backward_kernel_matches_plain(cuda, n, need_dw):
+    """K2's backward (the trunk-only mode of csrc/fused_pe_field_bwd.cu),
+    with the weight gradients and with dx alone (the BayesRays pass); dx
+    alone is bit-identical to the dx of the full backward."""
+    cfg, params = _field(cuda)
+    base, top, _, _ = fused_field_weights(params.field, cfg.field)
+    base, top = _leaves(base, need_dw), _leaves(top, need_dw)
+    x, _ = _field_inputs(n, 1, cuda, seed=2)
+    x.requires_grad_(True)
+    leaves = [x] + (base + top if need_dw else [])
+    cot = torch.randn((n, top[-2].shape[1]), device=cuda,
+                      generator=torch.Generator(device=cuda).manual_seed(5))
+    before = (kfield.fused_pe_density.launches,
+              kfield.fused_pe_density_bwd.launches)
+    got = _grads(kfield.fused_pe_density(x, base, top, POS_FREQS), leaves, cot)
+    torch.cuda.synchronize()
+    assert (kfield.fused_pe_density.launches,
+            kfield.fused_pe_density_bwd.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    ref = _grads(kfield.fused_pe_density_plain(x, base, top, POS_FREQS),
+                 leaves, cot)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert a.shape == b.shape and torch.isfinite(a).all(), i
+        ok = (_grad_agrees(a, b, per_row=True) if i == 0
+              else _weight_grad_agrees(a, b, n))
+        assert ok, (i, _rel_err(a, b))
+    again = _grads(kfield.fused_pe_density(x, base, top, POS_FREQS), leaves,
+                   cot)
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+        "the backward kernel is not deterministic"
+    if not need_dw:
+        full = _grads(kfield.fused_pe_density(x, _leaves(base, True),
+                                              _leaves(top, True), POS_FREQS),
+                      [x], cot)
+        assert torch.equal(full[0], got[0])
+
+
+@pytest.mark.parametrize("need_dw", [True, False], ids=["with-dW", "dx-only"])
+@pytest.mark.parametrize("n", [196_608, 196_608 - 3, 127])
+@pytest.mark.parametrize("dims", [(15, 64, 1), (74, 64, 3), (63, 256, 256, 16)],
+                         ids=["semantic-head", "colour-head", "wide"])
+def test_fused_mlp_backward_kernel_matches_plain(cuda, dims, n, need_dw):
+    """K3's backward on the vanilla field's heads, at the BayesRays batch
+    and ragged N, and a wide 3-layer MLP."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    wbs = []
+    for i in range(len(dims) - 1):
+        wbs.append(torch.randn((dims[i], dims[i + 1]), generator=g,
+                               device=cuda) / dims[i] ** 0.5)
+        wbs.append(torch.randn((1, dims[i + 1]), generator=g, device=cuda)
+                   * 0.05)
+    wbs = _leaves(wbs, need_dw)
+    x = torch.randn((n, dims[0]), generator=g, device=cuda, requires_grad=True)
+    cot = torch.randn((n, dims[-1]), generator=g, device=cuda)
+    leaves = [x] + (wbs if need_dw else [])
+    before = (kmlp.fused_mlp.launches, kmlp.fused_mlp_bwd.launches)
+    got = _grads(kmlp.fused_mlp(x, wbs), leaves, cot)
+    torch.cuda.synchronize()
+    assert (kmlp.fused_mlp.launches, kmlp.fused_mlp_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = _grads(kmlp.fused_mlp_plain(x, wbs), leaves, cot)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert a.shape == b.shape and torch.isfinite(a).all(), i
+        ok = (_grad_agrees(a, b, per_row=True) if i == 0
+              else _weight_grad_agrees(a, b, n))
+        assert ok, (i, _rel_err(a, b))
+    again = _grads(kmlp.fused_mlp(x, wbs), leaves, cot)
     assert all(torch.equal(a, b) for a, b in zip(got, again)), \
         "the backward kernel is not deterministic"
 
@@ -335,6 +424,25 @@ def test_hash_encode_backward_without_position_gradient(cuda):
     assert _rel_err(dts[0], dts[1]) <= DTABLE_TOL
 
 
+def test_hash_encode_backward_without_table_gradient(cuda):
+    """A table that needs no gradient (the BayesRays pass) takes the
+    dpos-only variant: no table gradient, the same position gradient."""
+    from cropnerf_tpu_torch.ops import hashgrid
+    from cropnerf_tpu_torch.ops.cuda import hash_encode as khash
+    table, pos, res, t = _hash_inputs(cuda, *HASH_CASES["field-ragged"])
+    dps = []
+    for need_table in (False, True):
+        tt = table.clone().requires_grad_(need_table)
+        tp = pos.clone().requires_grad_(True)
+        before = khash.hash_encode_bwd.launches
+        hashgrid.hashgrid_encode(tt, tp, res, "auto", t).sum().backward()
+        torch.cuda.synchronize()
+        assert khash.hash_encode_bwd.launches == before + 1
+        assert (tt.grad is not None) == need_table
+        dps.append(tp.grad)
+    assert torch.equal(dps[0], dps[1])
+
+
 def test_hash_field_runs_in_both_compute_dtypes(cuda):
     """The encode is float32 throughout and takes no compute dtype: the
     field runs on the card in the bf16 and the float32 arm."""
@@ -395,3 +503,66 @@ def test_cropnerf_train_step_kernel_path_matches_plain_path(cuda, step):
     for k in g_p:
         assert torch.isfinite(g_k[k]).all(), k
         assert _rel_err(g_k[k], g_p[k]) <= BWD_TOL, (k, _rel_err(g_k[k], g_p[k]))
+
+
+# ---- BayesRays: the kernel path against the plain path ----------------------
+#
+# The Hessian grid is a sum of squared position gradients.  The hash model
+# is float32 around its MLPs' bf16 products on both paths, so its grid
+# agrees to 1e-3 in relative L2; the PE trunk's dx differs row by row where
+# a relu unit flips (above), so its grid is held to 5e-2 in relative L2 and
+# by its 1,000 hottest cells (90 % shared).
+
+def _uncertainty_bundle(cuda, n=512):
+    from cropnerf_tpu_torch.core.cameras import near_far_collider
+    from cropnerf_tpu_torch.core.rays import RayBundle
+    g = torch.Generator(device=cuda).manual_seed(8)
+    d = torch.randn((n, 3), generator=g, device=cuda)
+    rb = RayBundle(origins=torch.tensor([[0.0, 0.0, 1.5]], device=cuda)
+                   .expand(n, 3).contiguous(),
+                   directions=d / d.norm(dim=-1, keepdim=True),
+                   nears=torch.zeros((n,), device=cuda),
+                   fars=torch.ones((n,), device=cuda),
+                   camera_idx=torch.zeros((n,), dtype=torch.long, device=cuda))
+    return near_far_collider(rb, 0.05, 1000.0)
+
+
+@pytest.mark.parametrize("channel", ["semantics", "rgb"])
+@pytest.mark.parametrize("preset", ["cropnerf-mxu", "cropnerf"])
+def test_uncertainty_kernel_path_matches_plain_path(cuda, preset, channel):
+    from cropnerf_tpu_torch.ops.cuda import hash_encode as khash
+    from cropnerf_tpu_torch.uncertainty.bayesrays import ComputeUncertainty
+    cfg = PRESETS[preset].model
+    if preset == "cropnerf":
+        plain = _plain_grid(PRESETS[preset]).model
+    else:
+        plain = dataclasses.replace(cfg, field=dataclasses.replace(
+            cfg.field, mlp_impl="xla"))
+    params = model_init(cfg, 8, torch.Generator().manual_seed(0), cuda)
+    with torch.no_grad():
+        for name, p in params.named_parameters():
+            if name.endswith("grid"):
+                p.uniform_(-0.5, 0.5)
+    rb = _uncertainty_bundle(cuda)
+    kernels = (kfield.fused_pe_nerf, kfield.fused_pe_density,
+               kfield.fused_pe_density_bwd, kmlp.fused_mlp,
+               kmlp.fused_mlp_bwd, khash.hash_encode, khash.hash_encode_bwd)
+    grids = []
+    for c in (cfg, plain):
+        before = [k.launches for k in kernels]
+        grids.append(ComputeUncertainty(params, c, lod=6,
+                                        channel=channel).batch(rb))
+        torch.cuda.synchronize()
+        launched = [k.launches - b for k, b in zip(kernels, before)]
+        vjps = 1 if channel == "semantics" else 3
+        want = ([0] * 7 if c is plain else
+                [0, 0, 0, 0, 0, 3, vjps] if preset == "cropnerf" else
+                [0, 1, vjps, 1, vjps, 0, 0])
+        assert launched == want, (preset, c is plain, launched)
+    got, ref = grids
+    assert torch.isfinite(got).all() and got.max() > 0
+    l2 = ((got - ref).norm() / ref.norm()).item()
+    assert l2 <= (1e-3 if preset == "cropnerf" else 5e-2), l2
+    hot = set(got.topk(1000).indices.tolist())
+    assert len(hot & set(ref.topk(1000).indices.tolist())) >= 900
+    assert all(p.requires_grad for p in params.parameters())
