@@ -14,7 +14,12 @@ Run from the root of the repository:  python3 chip_smoke.py
    the BayesRays batch, with and without weight gradients); for cropnerf
    (the hash-grid field, the CLI default) the hash-grid encode K4 forward
    and backward at the field's and both proposal nets' shapes, a ragged N
-   and a small dense [L, T, F] table;
+   and a small dense [L, T, F] table; the fused PE proposal nets K5
+   forward and backward (with dx and the weight gradients) at both nets'
+   training shapes and a ragged N; the transmittance scan K6 at a training
+   step's three compositing shapes, at [16384, 3000] and at a ragged shape,
+   called through its own entry point with its launches counted (no model
+   path calls it);
 4. drives the serving paths with random weights from a seeded
    torch.Generator at full published widths: forward at 4096 rays, a
    256x256 render (two 32,768-ray chunks) and a 128^3 volume export with
@@ -35,9 +40,16 @@ Run from the root of the repository:  python3 chip_smoke.py
    backward), with exact launch counts and the grid held against the plain
    path; then the per-ray uncertainty and a 256x256 render filtered at
    uncertainty 0.5 through make_render_fn's density hook;
+5c. drives cropnerf-mxu with both PE proposal nets on the fused kernel
+   ([propfused] lines, the configuration benchmarks/ab_pe_fused.py builds):
+   forward and the 256x256 render, 1 + TRAIN_STEPS training steps with
+   every loss held against the plain path's, and the depth point cloud at
+   16,384 rays a batch up to 1,000,000 points (thresholds at a first
+   batch's medians), each with exact launch counts of K1 and K5;
 6. traces one forward, render, export and training step of cropnerf-mxu,
-   one forward and training step of cropnerf and one BayesRays batch of
-   each with torch.profiler, and prints the device time of the busiest
+   one forward and training step of cropnerf, one BayesRays batch of each,
+   and one training step and depth-cloud batch of the fused-proposal path
+   with torch.profiler, and prints the device time of the busiest
    operations and the device's busy share;
 7. prints one JSON line of kernel numbers, the nvidia-smi card line, and
    the status line last.
@@ -84,6 +96,7 @@ RENDER_HW = 256          # full-image render, two 32,768-ray chunks
 EXPORT_SIDE = 128        # volume export: 128^3 samples over the AABB
 EXPORT_RAYS = 512        # rays per export chunk (sample_volume's default)
 KERNEL_NS = "cropnerf::"  # the port's kernels in profiler rows
+PROFILE_TRIES = 3        # profiler windows per device_ms before it fails
 REPEATS = 5              # timed runs of each path step after its first call
 TRAIN_STEPS = 20         # timed training steps after the first
 BANK = (32, 800, 1200)   # training images, height, width (as bench.py)
@@ -122,18 +135,24 @@ def device_ms(fn, iters: int, only: str | None = None) -> float:
     """Device time per call over ``iters`` calls: the kernels and copies
     torch.profiler records, those whose name contains ``only`` if given.
     Unlike ``cuda_ms`` it leaves out host time the device waited through,
-    such as a wrapper packing its weights."""
+    such as a wrapper packing its weights.  A window in which the profiler
+    recorded no device row at all (it now and then drops a short window's
+    events) is profiled again, up to PROFILE_TRIES windows in all."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e.self_device_time_total for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and (only is None or only in e.key)]
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        if events:
+            break
+    rows = [e.self_device_time_total for e in events
+            if only is None or only in e.key]
     check(bool(rows) and sum(rows) > 0, f"the profiler saw no device time "
           f"for {only or 'the plain version'}")
     return sum(rows) / 1e3 / iters
@@ -206,34 +225,6 @@ def bound(flops: float, nbytes: float):
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def unported_bounds(presets) -> dict:
-    """Bounds of the TPU kernels not ported yet (K5, K6), from the JAX
-    kernels' shapes at the configuration that would reach them; no kernel
-    runs here, so they are not measured.  float32 activations as the JAX
-    package keeps them; tensor-core bf16 peak for products."""
-    out = {}
-    m = presets["cropnerf-mxu"]             # K5: its proposal net 0, fused
-    p0 = m.model.proposal_fields[0]
-    n = m.train_num_rays_per_batch * m.model.num_proposal_samples_per_ray[0]
-    dims = ([3 * (1 + 2 * p0.pe_freqs)] + [p0.hidden_dim] * (p0.num_layers - 1)
-            + [1])
-    t_ops = 2.0 * n * mlp_macs(dims) / PEAK_BF16_FLOPS * 1e3
-    t_bytes = n * (3 + 1) * 4 / PEAK_BYTES * 1e3
-    out["fused_pe_mlp"] = dict(
-        shape=f"x [{n},3] -> {'->'.join(map(str, dims))} (cropnerf-mxu "
-              "proposal net 0 with mlp_impl='pallas-fused', forward)",
-        bound_ms=max(t_ops, t_bytes),
-        bound_by="operations" if t_ops >= t_bytes else "bytes")
-    r, smp = m.train_num_rays_per_batch, m.model.num_nerf_samples_per_ray
-    t_bytes = 3 * r * smp * 4 / PEAK_BYTES * 1e3   # density, deltas -> weights
-    out["transmittance"] = dict(
-        shape=f"density, deltas [{r},{smp}] -> weights (cropnerf-mxu final "
-              "level; wired into no model path)",
-        bound_ms=max(t_bytes, 6 * r * smp / PEAK_F32_FLOPS * 1e3),
-        bound_by="bytes")
-    return out
 
 
 # ---- the hash-grid family (cropnerf) ---------------------------------------
@@ -801,7 +792,8 @@ def mlp_bwd_entry(heads, n, dev, card, report) -> dict:
             f"({k['bound_by']}); with dW {k['with_dw_ms']:.4f} ms, plain "
             f"{k['with_dw_plain_ms']:.4f} ms, bound "
             f"{k['with_dw_bound_ms']:.4f} ms; {card}")
-    regs = {e: r for e, r in ptxas_registers(report).items() if "bwd" in e}
+    regs = {e: r for e, r in ptxas_registers(report).items()
+            if "bwd" in e and "Lb0E" in e}
     spills = [line.strip() for line in report.splitlines() if "spill" in line]
     log(f"[build] fused_mlp registers (backward entries) {regs}; "
         + "; ".join(spills))
@@ -1012,6 +1004,404 @@ def uncertainty_phase(dev, card, bank, cams, kernels) -> tuple:
     return out, trace_steps
 
 
+# ---- slice 5: K5 (fused PE proposal nets), K6 (transmittance), [propfused] --
+
+def propfused_cfg(cfg):
+    """cropnerf-mxu with both PE proposal nets on the fused kernel, as
+    benchmarks/ab_pe_fused.py builds it (pallas-fused:pallas-fused)."""
+    m = cfg.model
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        m, proposal_fields=tuple(dataclasses.replace(p, mlp_impl="pallas-fused")
+                                 for p in m.proposal_fields)))
+
+
+def all_plain_cfg(cfg):
+    """``cfg`` with the field and the proposal nets on plain matmuls."""
+    m = cfg.model
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        m, field=dataclasses.replace(m.field, mlp_impl="xla"),
+        proposal_fields=tuple(dataclasses.replace(p, mlp_impl="xla")
+                              for p in m.proposal_fields)))
+
+
+def pe_mlp_entries(cfg, dev, card, report) -> dict:
+    """K5 forward and backward (the PE variant of csrc/fused_mlp.cu)
+    against the plain version at one cropnerf-mxu training step's shapes of
+    both proposal nets (4096 rays x 256 and x 96 samples) and a ragged N;
+    the backward with dx and the weight gradients, the variant the training
+    step runs (its samples carry the camera-opt graph).  Each entry's ms,
+    plain ms and bound are the two nets' summed: one training step's
+    calls."""
+    from cropnerf_tpu_torch.models.proposal import proposal_init
+    from cropnerf_tpu_torch.ops.cuda import fused_pe_field as kf
+    m, R = cfg.model, cfg.train_num_rays_per_batch
+    g = torch.Generator(device=dev).manual_seed(13)
+    per = {}
+    for i, (p, smp) in enumerate(zip(m.proposal_fields,
+                                     m.num_proposal_samples_per_ray)):
+        n, F = R * smp, p.pe_freqs
+        prop = proposal_init(p, torch.Generator().manual_seed(i), dev)
+        wd = [t.detach() for w, b in zip(prop.mlp.w, prop.mlp.b)
+              for t in (w, b.reshape(1, -1))]
+        dims = [3 * (1 + 2 * F)] + [w.shape[1] for w in wd[0::2]]
+        x_all = torch.rand((n, 3), generator=g, device=dev) * 2 - 1
+        cot_all = torch.randn((n, 1), generator=g, device=dev)
+
+        def fwd(xb, wd=wd, F=F):
+            with torch.no_grad():
+                return kf.fused_pe_mlp(xb, wd, F)
+
+        def plain_fwd(xb, wd=wd, F=F):
+            with torch.no_grad():
+                return kf.fused_pe_mlp_plain(xb, wd, F)
+
+        def bwd(xb, cot, wd=wd, F=F):
+            dx, dw = kf.fused_pe_mlp_bwd(xb, wd, F, cot, True, True)
+            return [dx] + dw
+
+        def plain_bwd(xb, cot, wd=wd, F=F):
+            leaves = [xb.clone().requires_grad_(True)] + [
+                w.clone().requires_grad_(True) for w in wd]
+            with torch.enable_grad():
+                out = kf.fused_pe_mlp_plain(leaves[0], leaves[1:], F)
+                return list(torch.autograd.grad(out, leaves, cot))
+
+        cases = {}
+        for nc in (n, n - 77):
+            xb, cot = x_all[:nc].contiguous(), cot_all[:nc].contiguous()
+            out, ref = fwd(xb), plain_fwd(xb)
+            got_g, ref_g = bwd(xb, cot), plain_bwd(xb, cot)
+            share, l2 = row_agreement(got_g[0], ref_g[0])
+            w_err, w_l2 = weight_grad_errors(got_g[1:], ref_g[1:])
+            cases[f"N={nc}"] = c = dict(
+                fwd_err=rel_err(out, ref), fwd_abs=abs_err(out, ref),
+                rows=share, dx_l2=l2, w_err=w_err, w_l2=w_l2,
+                bwd_abs=max(abs_err(a, b) for a, b in zip(got_g, ref_g)))
+            check(c["fwd_err"] <= TOL, f"fused_pe_mlp net {i} N={nc}: "
+                  f"{c['fwd_err']:.2e}")
+            check(share >= ROW_SHARE and l2 <= GRAD_TOL
+                  and weight_grads_ok(w_err, w_l2, nc),
+                  f"fused_pe_mlp_bwd net {i} N={nc}: rows {share:.4f}, dx L2 "
+                  f"{l2:.2e}, weights {w_err:.2e} (L2 {w_l2:.2e})")
+            if nc == n:
+                again = bwd(xb, cot)
+                c["deterministic"] = (torch.equal(out, fwd(xb)) and all(
+                    torch.equal(a, b) for a, b in zip(got_g, again)))
+                check(c["deterministic"], f"fused_pe_mlp net {i} differs "
+                      "between two runs")
+            del got_g, ref_g
+        xb, cot = x_all, cot_all
+        macs = mlp_macs(dims)
+        hidden = macs - dims[-2] * dims[-1]
+        k = dict(n=n, num_freqs=F, dims=dims, cases=cases,
+                 ms=device_ms(lambda: fwd(xb), 20, KERNEL_NS),
+                 call_ms=cuda_ms(lambda: fwd(xb), 20),
+                 plain_ms=device_ms(lambda: plain_fwd(xb), 5),
+                 bwd_ms=device_ms(lambda: bwd(xb, cot), 10, KERNEL_NS),
+                 bwd_call_ms=cuda_ms(lambda: bwd(xb, cot), 10),
+                 bwd_plain_ms=device_ms(lambda: plain_bwd(xb, cot), 5))
+        # tensor-core products only (the encoding's sin/cos are ~30
+        # transcendentals a row against ~6,300 multiply-adds); the backward
+        # recomputes the hidden layers, then every input gradient and every
+        # weight gradient
+        k["bound_ms"], k["bound_by"] = bound(2.0 * n * macs,
+                                             nbytes(xb, *wd) + n * 4)
+        k["bwd_bound_ms"], k["bwd_bound_by"] = bound(
+            2.0 * n * (hidden + 2 * macs), nbytes(xb, cot, xb, *wd, *wd))
+        per[f"net {i}"] = k
+        log(f"[kernel] fused_pe_mlp net {i} [{n},3] -> "
+            f"{'->'.join(map(str, dims))} (F={F}): err by case "
+            + ", ".join(f"{c_}: fwd {v['fwd_err']:.2e}, dx rows {v['rows']:.5f}"
+                        f"/L2 {v['dx_l2']:.2e}, weights {v['w_err']:.2e}/L2 "
+                        f"{v['w_l2']:.2e}" for c_, v in cases.items())
+            + f"; forward {k['ms']:.4f} ms (call {k['call_ms']:.4f}), plain "
+            f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
+            f"({k['bound_by']}); backward with dx and dW {k['bwd_ms']:.4f} ms "
+            f"(call {k['bwd_call_ms']:.4f}), plain {k['bwd_plain_ms']:.4f} ms, "
+            f"bound {k['bwd_bound_ms']:.4f} ms ({k['bwd_bound_by']}); {card}")
+        del x_all, cot_all
+    regs = {e: r for e, r in ptxas_registers(report).items() if "Lb1E" in e}
+    log(f"[build] fused_mlp registers of the PE variant (fused_pe_mlp) {regs}")
+    vals = list(per.values())
+    shape = " and ".join(f"{name} x [{k['n']},3] -> "
+                         f"{'->'.join(map(str, k['dims']))}"
+                         for name, k in per.items())
+    common = dict(source="cropnerf_tpu_torch/csrc/fused_mlp.cu",
+                  by_net=per, registers=regs)
+    return {
+        "fused_pe_mlp": dict(
+            common, replaces="cropnerf_tpu/ops/pallas/fused_pe_field.py:822",
+            shape=f"one training step's two proposal nets: {shape}",
+            ms=sum(k["ms"] for k in vals),
+            call_ms=sum(k["call_ms"] for k in vals),
+            plain_ms=sum(k["plain_ms"] for k in vals),
+            bound_ms=sum(k["bound_ms"] for k in vals), bound_by="operations",
+            rel_err=max(c["fwd_err"] for k in vals for c in k["cases"].values()),
+            max_abs_err=max(c["fwd_abs"] for k in vals
+                            for c in k["cases"].values())),
+        "fused_pe_mlp_bwd": dict(
+            common, replaces="cropnerf_tpu/ops/pallas/fused_pe_field.py:835",
+            shape=f"their backward with dx and every weight gradient: {shape}",
+            ms=sum(k["bwd_ms"] for k in vals),
+            call_ms=sum(k["bwd_call_ms"] for k in vals),
+            plain_ms=sum(k["bwd_plain_ms"] for k in vals),
+            bound_ms=sum(k["bwd_bound_ms"] for k in vals), bound_by="operations",
+            rel_err=max(c["dx_l2"] for k in vals for c in k["cases"].values()),
+            max_abs_err=max(c["bwd_abs"] for k in vals
+                            for c in k["cases"].values()))}
+
+
+# K6 shapes: the three compositing levels of a cropnerf-mxu training step
+# (4096 rays x 48, 256, 96 samples), the Pallas docstring's long axis (S up
+# to 3000, volume export) and a ragged R and S
+K6_SHAPES = [(4096, 48), (4096, 256), (4096, 96), (16_384, 3000), (4093, 77)]
+K6_TOL = 1e-5            # max |kernel - plain| (weights lie in [0, 1])
+K6_FLOPS = 8             # per sample: a product, the scan add, the exclusive
+                         # difference, two negations, 1 - e, the product
+
+
+def transmittance_entry(dev, card, kernels) -> dict:
+    """K6 against ops/render.py render_weights at K6_SHAPES.  Its main path
+    is its own entry point (no model path calls it, as none calls the
+    Pallas kernel): the five calls, counts zeroed just before and read just
+    after.  The entry's ms, plain ms and bound are the long axis's."""
+    from cropnerf_tpu_torch.ops.cuda.transmittance import render_weights_cuda
+    from cropnerf_tpu_torch.ops.render import render_weights
+    g = torch.Generator(device=dev).manual_seed(14)
+    inputs = []
+    for R, S in K6_SHAPES:
+        density = torch.rand((R, S), generator=g, device=dev) * 5
+        deltas = torch.rand((R, S), generator=g, device=dev) * 0.1 * 48 / S
+        inputs.append((density, deltas))
+    outs = []
+    with torch.no_grad():
+        launches = counted(kernels, lambda: outs.extend(
+            render_weights_cuda(d, dl) for d, dl in inputs))
+        want = {k.__name__: 0 for k in kernels}
+        want["render_weights_cuda"] = len(K6_SHAPES)
+        check(launches == want, f"render_weights_cuda launches {launches}")
+        per = {}
+        for (R, S), (d, dl), out in zip(K6_SHAPES, inputs, outs):
+            ref = render_weights(d, dl)
+            err = abs_err(out, ref)
+            c = dict(max_abs_err=err, rel_err=rel_err(out, ref),
+                     deterministic=torch.equal(out, render_weights_cuda(d, dl)),
+                     ms=device_ms(lambda: render_weights_cuda(d, dl), 20,
+                                  KERNEL_NS),
+                     call_ms=cuda_ms(lambda: render_weights_cuda(d, dl), 20),
+                     plain_ms=device_ms(lambda: render_weights(d, dl), 10))
+            c["bound_ms"] = max(nbytes(d, dl, out) / PEAK_BYTES,
+                                K6_FLOPS * R * S / PEAK_F32_FLOPS) * 1e3
+            check(err <= K6_TOL and c["deterministic"],
+                  f"render_weights_cuda [{R},{S}]: {err:.2e}")
+            per[f"[{R},{S}]"] = c
+            log(f"[kernel] render_weights_cuda [{R},{S}]: err {err:.2e} (tol "
+                f"{K6_TOL}); kernel {c['ms']:.4f} ms (call {c['call_ms']:.4f}),"
+                f" plain {c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
+                f"(bytes); {card}")
+    R, S = max(K6_SHAPES, key=lambda rs: rs[1])        # the long axis
+    head = per[f"[{R},{S}]"]
+    return dict(
+        shape=(f"density, deltas [{R},{S}] -> weights (the long axis; "
+               "by_shape: a training step's three levels, a ragged shape)"),
+        source="cropnerf_tpu_torch/csrc/transmittance.cu",
+        replaces="cropnerf_tpu/ops/pallas/transmittance.py:36",
+        launches=launches["render_weights_cuda"], by_shape=per,
+        max_abs_err=max(c["max_abs_err"] for c in per.values()),
+        rel_err=max(c["rel_err"] for c in per.values()),
+        ms=head["ms"], call_ms=head["call_ms"], plain_ms=head["plain_ms"],
+        bound_ms=head["bound_ms"], bound_by="bytes")
+
+
+CLOUD_RAYS = 16_384      # the CLI's rays per depth-cloud batch
+CLOUD_POINTS = 1_000_000  # the CLI default's points (the reference: 10 M)
+
+
+def propfused_phase(dev, card, bank, rb, cams, kernels) -> tuple:
+    """The fused-proposal path (K5) at full widths: forward at RAYS rays and
+    the RENDER_HW^2 render against the plain path (field and proposal nets
+    on plain matmuls), 1 + TRAIN_STEPS training steps with every loss held
+    against the plain path's, and the depth point cloud at CLOUD_RAYS rays
+    a batch up to CLOUD_POINTS points, with exact launch counts for each
+    call.  Returns (numbers for the JSON line, calls for the trace)."""
+    from cropnerf_tpu_torch.export import pointcloud as tpc
+    from cropnerf_tpu_torch.models.config import PRESETS
+    from cropnerf_tpu_torch.models.model import forward, model_init
+    from cropnerf_tpu_torch.train.state import create_train_state
+    from cropnerf_tpu_torch.train.step import (_bank_rays, make_render_fn,
+                                               make_train_step)
+    cfg = propfused_cfg(PRESETS["cropnerf-mxu"])
+    plain = all_plain_cfg(cfg)
+    m, mp = cfg.model, plain.model
+    params = model_init(m, bank.num_images, torch.Generator().manual_seed(0),
+                        dev)
+    render, render_p = make_render_fn(cfg), make_render_fn(plain)
+    n_chunks = math.ceil(RENDER_HW ** 2 / cfg.eval_num_rays_per_chunk)
+    n_prop = m.num_proposal_iterations
+
+    def want(**counts):
+        w = {k.__name__: 0 for k in kernels}
+        w.update(counts)
+        return w
+
+    res, info = {}, {"card": card}
+    steps = {"forward": (lambda: res.update(fwd=forward(params, rb, m)),
+                         want(fused_pe_nerf=1, fused_pe_mlp=n_prop)),
+             "render": (lambda: res.update(img=render(params, cams, 0,
+                                                      RENDER_HW, RENDER_HW)),
+                        want(fused_pe_nerf=n_chunks,
+                             fused_pe_mlp=n_prop * n_chunks))}
+    for step, (fn, expect) in steps.items():
+        launches = counted(kernels, fn)
+        log(f"[propfused] {step} launches: {launches}")
+        check(launches == expect, f"propfused {step} launches {launches}, "
+              f"expected {expect}")
+        runs = [wall_ms(fn) for _ in range(REPEATS)]
+        info[step] = dict(launches=launches, runs_ms=runs,
+                          median_ms=statistics.median(runs))
+    fwd_p = forward(params, rb, mp)
+    img_p = render_p(params, cams, 0, RENDER_HW, RENDER_HW)
+    agree = {}
+    for label, a, b in (("forward", res["fwd"], fwd_p),
+                        ("render", res["img"], img_p)):
+        for k in ("rgb", "accumulation", "semantics"):
+            check(bool(torch.isfinite(a[k]).all()), f"propfused {label} {k}")
+            agree[f"{label} {k}"] = rel_err(a[k], b[k])
+        dd = (a["depth"] - b["depth"]).abs()
+        agree[f"{label} depth equal"] = (
+            dd <= 1e-3 * b["depth"].abs() + 1e-4).float().mean().item()
+    for k, v in agree.items():
+        check(v >= 0.99 if k.endswith("depth equal") else v <= 2 * TOL,
+              f"propfused {k}: {v:.3e}")
+    info["vs_plain"] = agree
+    log(f"[propfused] forward {RAYS} rays: median "
+        f"{info['forward']['median_ms']:.2f} ms; render {RENDER_HW}x"
+        f"{RENDER_HW}: median {info['render']['median_ms']:.2f} ms "
+        f"({RENDER_HW ** 2 / info['render']['median_ms'] * 1e3:.0f} rays/s); "
+        f"vs plain path " + ", ".join(f"{k} {v:.3e}" for k, v in agree.items())
+        + f"; {card}")
+
+    # training: the kernel path and the plain path from the same parameters
+    # and draws, every step's loss held against the plain path's
+    n_steps = 1 + TRAIN_STEPS
+    losses, runs, states = {}, [], {}
+    for label, c in (("kernel", cfg), ("plain", plain)):
+        state = create_train_state(c, bank.num_images,
+                                   torch.Generator().manual_seed(0), dev)
+        step_fn = make_train_step(c)
+        gen = torch.Generator(device=dev).manual_seed(4)
+        out = []
+
+        def run(state=state, step_fn=step_fn, gen=gen, out=out):
+            out.append(step_fn(state, bank, gen)[1]["loss"])
+
+        if label == "kernel":
+            launches = counted(kernels, lambda: runs.extend(
+                wall_ms(run) for _ in range(n_steps)))
+        else:
+            plain_runs = [wall_ms(run) for _ in range(n_steps)]
+        losses[label] = [v.item() for v in out]
+        states[label] = (state, run)
+    per_step = want(fused_pe_nerf=1, fused_pe_nerf_bwd=1,
+                    fused_pe_mlp=n_prop, fused_pe_mlp_bwd=n_prop)
+    expect = {k: n_steps * v for k, v in per_step.items()}
+    log(f"[propfused] launches in {n_steps} training steps: {launches}")
+    check(launches == expect, f"propfused training launches {launches}, "
+          f"expected {expect}")
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses["kernel"],
+                                                     losses["plain"])]
+    check(all(math.isfinite(v) for v in losses["kernel"])
+          and max(loss_rel) <= 2e-2, f"propfused losses {losses}")
+    med = statistics.median(runs[1:])
+    state, run_train = states["kernel"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run_train()
+    torch.cuda.synchronize()
+    info["train"] = dict(
+        launches=launches, runs_ms=runs, median_ms=med, first_ms=runs[0],
+        rays_per_s=cfg.train_num_rays_per_batch / med * 1e3,
+        plain_runs_ms=plain_runs,
+        plain_median_ms=statistics.median(plain_runs[1:]),
+        losses=losses["kernel"], plain_losses=losses["plain"],
+        max_loss_rel=max(loss_rel),
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"[propfused] train step at {cfg.train_num_rays_per_batch} rays: "
+        f"median {med:.2f} ms of {TRAIN_STEPS} "
+        f"({info['train']['rays_per_s']:.0f} rays/s), runs "
+        + ", ".join(f"{v:.2f}" for v in runs)
+        + f" ms; plain path median {info['train']['plain_median_ms']:.2f} ms; "
+        f"losses vs plain path: max rel {max(loss_rel):.2e} (first "
+        f"{losses['kernel'][0]:.5f} vs {losses['plain'][0]:.5f}, last "
+        f"{losses['kernel'][-1]:.5f} vs {losses['plain'][-1]:.5f}); peak "
+        f"{info['train']['peak_gib']:.2f} GiB; {card}")
+    del states["plain"]
+
+    # the depth point cloud: thresholds at a first batch's medians (random
+    # weights keep no ray at the CLI's 0.5), then the exporter
+    gen = torch.Generator(device=dev).manual_seed(12)
+    idx0 = torch.randint(0, bank.num_pixels, (CLOUD_RAYS,), generator=gen,
+                         device=dev)
+    with torch.no_grad():
+        out0 = forward(params, _bank_rays(bank, idx0, cfg)[2], m)
+    thr = dict(accumulation_threshold=out0["accumulation"].median().item(),
+               semantic_threshold=out0["semantics_colormap"].median().item())
+    batch = {}
+    for label, mm in (("kernel", m), ("plain", mp)):
+        batch[label] = tpc.depth_points(params, mm, bank, idx0, **thr)
+    (pk, ck, kk), (pp, cp, kp) = batch["kernel"], batch["plain"]
+    same = ((pk - pp).abs().amax(1) <= 1e-3 * pp.abs().amax(1) + 1e-4)
+    cloud_agree = dict(keep_equal=(kk == kp).float().mean().item(),
+                       points_equal=same.float().mean().item(),
+                       colours=rel_err(ck, cp))
+    check(cloud_agree["keep_equal"] >= 0.99 and cloud_agree["points_equal"]
+          >= 0.99 and cloud_agree["colours"] <= 2 * TOL,
+          f"propfused depth batch vs plain path {cloud_agree}")
+    batch_ms = []                 # each batch's device work, synchronised
+    depth_points = tpc.depth_points
+
+    def counting_batch(*a, **kw):
+        out = []
+        batch_ms.append(wall_ms(lambda: out.extend(depth_points(*a, **kw))))
+        return tuple(out)
+
+    cloud = {}
+    tpc.depth_points = counting_batch
+    try:
+        t0 = time.perf_counter()
+        launches = counted(kernels, lambda: cloud.update(pc=tpc.generate_point_cloud(
+            params, m, bank, num_points=CLOUD_POINTS, rays_per_batch=CLOUD_RAYS,
+            generator=torch.Generator(device=dev).manual_seed(12), **thr)))
+        cloud_s = time.perf_counter() - t0
+    finally:
+        tpc.depth_points = depth_points
+    nb = len(batch_ms)
+    pts, cols = cloud["pc"]
+    expect = want(fused_pe_nerf=nb, fused_pe_mlp=n_prop * nb)
+    log(f"[propfused] depth cloud launches in {nb} batches: {launches}")
+    check(launches == expect, f"depth cloud launches {launches}, expected "
+          f"{expect}")
+    check(0 < len(pts) <= CLOUD_POINTS and bool(np.isfinite(pts).all())
+          and cols.shape == pts.shape, f"depth cloud {pts.shape}")
+    batches_s = sum(batch_ms) / 1e3
+    info["pointcloud"] = dict(
+        rays_per_batch=CLOUD_RAYS, num_points=CLOUD_POINTS, batches=nb,
+        points=len(pts), thresholds=thr, seconds=cloud_s,
+        batches_seconds=batches_s,
+        median_batch_ms=statistics.median(batch_ms), launches=launches,
+        first_batch_vs_plain=cloud_agree)
+    log(f"[propfused] depth cloud: {len(pts)} points (of {CLOUD_POINTS} "
+        f"asked) from {nb} batches of {CLOUD_RAYS} rays at thresholds {thr}: "
+        f"{cloud_s:.2f} s, of which the batches {batches_s:.2f} s (median "
+        f"{statistics.median(batch_ms):.2f} ms a batch) and the host's "
+        f"copies, concatenation and outlier removal the rest; first batch vs "
+        f"plain path {cloud_agree}; {card}")
+    trace = {"propfused train step": run_train,
+             "propfused depth-cloud batch": lambda: tpc.depth_points(
+                 params, m, bank, idx0, **thr)}
+    return info, trace
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke FAILED: no CUDA device is visible")
@@ -1039,7 +1429,9 @@ def main() -> None:
                                                        fused_mlp_plain)
     from cropnerf_tpu_torch.ops.cuda.fused_pe_field import (
         fused_pe_density, fused_pe_density_bwd, fused_pe_density_plain,
-        fused_pe_nerf, fused_pe_nerf_bwd, fused_pe_nerf_plain)
+        fused_pe_mlp, fused_pe_mlp_bwd, fused_pe_nerf, fused_pe_nerf_bwd,
+        fused_pe_nerf_plain)
+    from cropnerf_tpu_torch.ops.cuda.transmittance import render_weights_cuda
     from cropnerf_tpu_torch.ops.posenc import nerf_encoding
     from cropnerf_tpu_torch.train.step import make_render_fn
 
@@ -1301,6 +1693,7 @@ def main() -> None:
         reports["fused_mlp"])
     hash_k = hash_kernels(PRESETS["cropnerf"], dev, card,
                           reports["hash_encode"])
+    pe_k = pe_mlp_entries(cfg, dev, card, reports["fused_mlp"])
 
     # ---- 4. the serving path ----------------------------------------------
     d = torch.randn((RAYS, 3), generator=torch.Generator().manual_seed(1))
@@ -1400,7 +1793,9 @@ def main() -> None:
         check(abs(counts[k] - counts_p[k]) <= 0.01 * counts_p[k] + 10,
               f"export {k}: {counts[k]} points vs plain {counts_p[k]}")
 
-    all_kernels = path_kernels + (hash_encode, hash_encode_bwd)
+    all_kernels = path_kernels + (hash_encode, hash_encode_bwd, fused_pe_mlp,
+                                  fused_pe_mlp_bwd, render_weights_cuda)
+    k6 = transmittance_entry(dev, card, all_kernels)
     hash_path, hash_forward = hash_serving(dev, card, rb, cams, aabb, out_dir,
                                            all_kernels)
 
@@ -1507,6 +1902,10 @@ def main() -> None:
     unc, unc_steps = uncertainty_phase(dev, card, bank, cams, all_kernels)
     steps.update(unc_steps)
 
+    # ---- 5c. the fused-proposal path: K5 serving, training, depth cloud --
+    pf_info, pf_steps = propfused_phase(dev, card, bank, rb, cams, all_kernels)
+    steps.update(pf_steps)
+
     # ---- 6. where the time goes: one traced call of each path step ------
     breakdown = {}
     for step, fn in steps.items():
@@ -1557,7 +1956,27 @@ def main() -> None:
         max_abs_err=k["max_abs_err"], rel_err=k["rel_err"], ms=k["ms"],
         call_ms=k["call_ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
         bound_by=k["bound_by"], library_ms=None, shape=k["shape"], card=card,
-        by_shape=k["by_shape"]) for name, k in hash_k.items()],
+        by_shape=k["by_shape"]) for name, k in hash_k.items()] + [dict(
+        name=name, route="cuda", source=k["source"], replaces=k["replaces"],
+        launches=pf_info["train"]["launches"][name],
+        launches_by_path={
+            "forward": pf_info["forward"]["launches"][name],
+            "render": pf_info["render"]["launches"][name],
+            "train": pf_info["train"]["launches"][name],
+            "pointcloud": pf_info["pointcloud"]["launches"][name]},
+        max_abs_err=k["max_abs_err"], rel_err=k["rel_err"], ms=k["ms"],
+        call_ms=k["call_ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+        bound_by=k["bound_by"], library_ms=None, shape=k["shape"], card=card,
+        registers=k["registers"], by_net=k["by_net"])
+        for name, k in pe_k.items()] + [dict(
+        name="render_weights_cuda", route="cuda", source=k6["source"],
+        replaces=k6["replaces"], launches=k6["launches"],
+        launches_by_path={"its entry point at K6_SHAPES": k6["launches"],
+                          "model paths": 0},
+        max_abs_err=k6["max_abs_err"], rel_err=k6["rel_err"], ms=k6["ms"],
+        call_ms=k6["call_ms"], plain_ms=k6["plain_ms"],
+        bound_ms=k6["bound_ms"], bound_by=k6["bound_by"], library_ms=None,
+        shape=k6["shape"], card=card, by_shape=k6["by_shape"])],
         "path": {"card": card, "repeats": REPEATS, "median_ms": med_ms,
                  "runs_ms": runs_ms, "first_ms": first_ms,
                  "forward_rays_per_s": RAYS / med_ms["forward"] * 1e3,
@@ -1574,11 +1993,8 @@ def main() -> None:
         "uncertainty": unc,
         "bwd_kernels": {name: kernels[name] for name in
                         ("fused_pe_density_bwd", "fused_mlp_bwd")},
-        "trace": breakdown,
-        "unported_bounds": unported_bounds(PRESETS)}
-    for name, b in line["unported_bounds"].items():
-        log(f"[bounds] {name} (not ported, not measured): {b['shape']}: "
-            f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        "propfused": pf_info,
+        "trace": breakdown}
     print(json.dumps(line), flush=True)
     shutil.rmtree(out_dir)
     print(smi, flush=True)

@@ -1,4 +1,5 @@
-// Fused relu MLP, forward and recompute-backward, for Hopper (sm_90a).
+// Fused relu MLP, forward and recompute-backward, for Hopper (sm_90a); and
+// the same MLP on the positional encoding of its input (template PE).
 //
 // Replaces the Pallas kernels cropnerf_tpu/ops/pallas/fused_mlp.py
 // _fwd_kernel: x [N, Din] -> (W0, b0) -> relu -> ... -> (W_last, b_last)
@@ -6,29 +7,44 @@
 // _bwd_kernel: the cotangent g [N, Dout] -> dx [N, Din] and the f32
 // gradient of every weight and bias, recomputing the forward from x.
 //
-// Bound on an H100: memory.  The vanilla field's heads, [N, 15] -> 64 -> 1
-// and [N, 74] -> 64 -> 3, take ~2-10 kFLOP per row against 64-308 bytes of
-// input and output (the backward ~2-3 times the flops, x, g and dx), below
-// the card's ~295 FLOP/byte balance point.  So the forward reads x once and
-// writes y once, with no hidden activation in device memory; the few KB of
-// weights stay in L2 and are staged per block.  Small widths give small
-// tiles of shared memory, so several blocks share an SM.
+// With PE = true the kernels replace cropnerf_tpu/ops/pallas/fused_pe_field.py
+// _plain_fwd_kernel and _plain_bwd_kernel (fused_pe_mlp, the PE proposal
+// nets): x [N, dim] is encoded in the prologue, [x | sin(2^f x) | cos(2^f x)]
+// (f-major blocks, ops/posenc.nerf_encoding's columns) rounded to bf16, in
+// place of the load of x; the backward takes the encoding's gradient through
+// d(encode)/d(pre) and the selector (the identity column and each 2^f of a
+// coordinate) into dx [N, dim] in the prologue's place.  sin/cos are the
+// accurate sinf/cosf: |2^f x| reaches 16 (F = 5) and 32 (F = 6).  The last
+// layer is linear with its f32 bias and writes [N, Dout] f32; Dout = 1 is
+// padded to one 16-column fragment by the packing, as every width is.
+//
+// Bound on an H100: memory for the heads, operations for the proposal nets.
+// The vanilla field's heads, [N, 15] -> 64 -> 1 and [N, 74] -> 64 -> 3, take
+// ~2-10 kFLOP per row against 64-308 bytes of input and output (the backward
+// ~2-3 times the flops, x, g and dx), below the card's ~295 FLOP/byte balance
+// point; the proposal nets, 33 or 39 -> 64 -> 64 -> 1, take ~13 kFLOP per row
+// against 16 bytes (x and the output), above it.  So the forward reads x
+// once and writes y once, with no hidden activation in device memory; the
+// few KB of weights stay in L2 and are staged per block.  Small widths give
+// small tiles of shared memory, so several blocks share an SM.
 //
 // Backward design.  One block recomputes a 128-row tile's forward and keeps
 // every layer's bf16 input A_l in shared memory.  Going back through the
 // layers it computes, per layer l: the tile's weight gradient A_lᵀ·G_l on
 // the tensor cores, added into the block's own row of an f32 partial
 // buffer; then G_{l-1} = relu mask of A_l (g·W_lᵀ), written in place over
-// A_l, whose last reader that product was; for l = 0, dx.  Arithmetic as the
-// TPU kernel: bf16 recompute with f32 sums at the forward's rounding points
-// (every hidden layer from the bf16 activation, as the forward), cotangents
-// rounded to bf16 only as product operands, relu masks from the bf16
-// activations, the bias gradient the f32 column sum of g.  The TPU sums the
-// weight gradient over its sequential grid; here each block takes a fixed
-// run of tiles in order and a fixed-order column sum reduces the blocks'
-// rows, with no atomics, so two runs give the same bits.  Without weight
-// gradients (the BayesRays pass asks for dx alone) each block takes one
-// tile and writes no partials.  Rows past N load zero cotangents.
+// A_l, whose last reader that product was; for l = 0, dx (with PE: the f32
+// encoding gradient per column, then per row a fixed-order sum over each
+// coordinate's columns).  Arithmetic as the TPU kernel: bf16 recompute with
+// f32 sums at the forward's rounding points (every hidden layer from the
+// bf16 activation, as the forward), cotangents rounded to bf16 only as
+// product operands, relu masks from the bf16 activations, the bias gradient
+// the f32 column sum of g.  The TPU sums the weight gradient over its
+// sequential grid; here each block takes a fixed run of tiles in order and a
+// fixed-order column sum reduces the blocks' rows, with no atomics, so two
+// runs give the same bits.  Without weight gradients (the BayesRays pass
+// asks for dx alone) each block takes one tile and writes no partials.  Rows
+// past N load zero inputs and cotangents.
 #include "bwd_layers.cuh"
 
 namespace cropnerf {
@@ -38,6 +54,7 @@ enum { M_DIN, M_DIN_PAD, M_DOUT, M_N_LAYERS, M_HMAX, M_HEADER };
 
 struct MlpDesc {
   int din, din_pad, dout, n_layers, hmax;
+  int pe_dim, num_freqs;  // PE: x has pe_dim columns, din = pe_dim (1 + 2F)
   LayerDesc L[MAX_LAYERS];
 };
 
@@ -45,10 +62,52 @@ __host__ __device__ inline int mlp_smem_bytes(const MlpDesc& d) {
   return 2 * act_bytes(d.hmax) + slab_bytes(d.hmax) + SCRATCH_BYTES;
 }
 
+// Column c of the NeRF encoding of a row with `dim` coordinates: the
+// coordinate it reads, its frequency 2^f, and its kind (0 identity, 1 sine,
+// 2 cosine).  x·2^f is exact, so it equals the selector product bit for bit.
+struct PeCol {
+  int coord;
+  float freq;
+  int kind;
+};
+
+__device__ __forceinline__ PeCol pe_col(int c, int dim, int num_freqs) {
+  if (c < dim) return {c, 1.0f, 0};
+  const int sin_end = dim * (1 + num_freqs);
+  const int j = c < sin_end ? c - dim : c - sin_end;
+  const int f = j / dim;
+  return {j - f * dim, (float)(1 << f), c < sin_end ? 1 : 2};
+}
+
+// A_0 of the tile: bf16(x), or with PE bf16(encode(x)); zero past N and in
+// the padded columns.
+template <bool PE>
+__device__ __forceinline__ void load_input(const float* __restrict__ x, bf16* a0, int ld,
+                                           int din, int din_pad, int pe_dim,
+                                           int num_freqs, long long row0,
+                                           long long n_rows) {
+  for (int i = threadIdx.x; i < TILE * din_pad; i += THREADS) {
+    const int r = i / din_pad;
+    const int c = i - r * din_pad;
+    float v = 0.0f;
+    if (c < din && row0 + r < n_rows) {
+      if constexpr (PE) {
+        const PeCol p = pe_col(c, pe_dim, num_freqs);
+        const float xv = x[(row0 + r) * pe_dim + p.coord];
+        const float pre = xv * p.freq;
+        v = p.kind == 0 ? xv : p.kind == 1 ? sinf(pre) : cosf(pre);
+      } else {
+        v = x[(row0 + r) * din + c];
+      }
+    }
+    a0[r * ld + c] = __float2bfloat16_rn(v);
+  }
+}
+
 // NF: the widest layer's 16-column fragments, rounded up to 4, 8 or 16.
-// The heads (64 wide) take NF = 4, which leaves registers for two or more
-// resident blocks per SM.
-template <int NF>
+// The heads and the proposal nets (64 wide) take NF = 4, which leaves
+// registers for two or more resident blocks per SM.
+template <int NF, bool PE>
 __global__ void __launch_bounds__(THREADS, NF <= 8 ? 2 : 1)
 fused_mlp_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
                      const bf16* __restrict__ w, const float* __restrict__ b,
@@ -62,12 +121,8 @@ fused_mlp_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
 
   const long long row0 = (long long)blockIdx.x * TILE;
   const int ldh = d.hmax + PAD;
-  for (int i = threadIdx.x; i < TILE * d.din_pad; i += THREADS) {
-    const int r = i / d.din_pad;
-    const int c = i - r * d.din_pad;
-    const float v = (c < d.din && row0 + r < n_rows) ? x[(row0 + r) * d.din + c] : 0.0f;
-    bufs[0][r * ldh + c] = __float2bfloat16_rn(v);
-  }
+  load_input<PE>(x, bufs[0], ldh, d.din, d.din_pad, d.pe_dim, d.num_freqs, row0,
+                 n_rows);
   int cur = 0;
   for (int i = 0; i < d.n_layers; ++i) {
     const bf16* a = bufs[cur];
@@ -82,42 +137,62 @@ fused_mlp_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
   }
 }
 
-static bool parse(const int* meta, int meta_len, MlpDesc* d) {
+// pe_dim = 0: a plain MLP (fused_mlp); otherwise the PE MLP (fused_pe_mlp).
+static bool parse(const int* meta, int meta_len, int pe_dim, int num_freqs,
+                  MlpDesc* d) {
   if (meta_len < M_HEADER) return false;
   d->din = meta[M_DIN];
   d->din_pad = meta[M_DIN_PAD];
   d->dout = meta[M_DOUT];
   d->n_layers = meta[M_N_LAYERS];
   d->hmax = meta[M_HMAX];
+  d->pe_dim = pe_dim;
+  d->num_freqs = num_freqs;
   if (d->din < 1 || d->din_pad < d->din || d->din_pad % 16 ||
       d->din_pad > d->hmax || d->hmax % 16 || d->hmax > MAX_WIDTH || d->dout < 1)
+    return false;
+  if (pe_dim < 0 || (pe_dim > 0 && (num_freqs < 0 || num_freqs > 30 ||
+                                    d->din != pe_dim * (1 + 2 * num_freqs))))
     return false;
   if (meta_len != M_HEADER + 5 * d->n_layers) return false;
   return parse_layers(meta + M_HEADER, d->n_layers, d->L);
 }
 
-template <int NF>
+template <int NF, bool PE>
 static int launch(const float* x, float* out, const void* w, const float* b,
                   const MlpDesc& d, long long n_rows, void* stream) {
   const int smem = mlp_smem_bytes(d);
   cudaError_t e = cudaFuncSetAttribute(
-      fused_mlp_fwd_kernel<NF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fused_mlp_fwd_kernel<NF, PE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((unsigned)((n_rows + TILE - 1) / TILE));
-  fused_mlp_fwd_kernel<NF><<<grid, THREADS, smem,
-                             reinterpret_cast<cudaStream_t>(stream)>>>(
+  fused_mlp_fwd_kernel<NF, PE><<<grid, THREADS, smem,
+                                 reinterpret_cast<cudaStream_t>(stream)>>>(
       x, out, reinterpret_cast<const bf16*>(w), b, d, n_rows);
   return (int)cudaGetLastError();
 }
 
+template <bool PE>
+static int launch_fwd(const float* x, float* out, const void* w, const float* b,
+                      const MlpDesc& d, long long n_rows, void* stream) {
+  if (n_rows <= 0) return 0;
+  int max_n = 0;
+  for (int i = 0; i < d.n_layers; ++i)
+    max_n = d.L[i].n > max_n ? d.L[i].n : max_n;
+  if (max_n <= 64) return launch<4, PE>(x, out, w, b, d, n_rows, stream);
+  if (max_n <= 128) return launch<8, PE>(x, out, w, b, d, n_rows, stream);
+  return launch<MAXF, PE>(x, out, w, b, d, n_rows, stream);
+}
+
 // ---- backward --------------------------------------------------------------
 
-constexpr int BWD_TILES_PER_BLOCK = 4;  // tiles per block with weight gradients
+constexpr int BWD_TILES_PER_BLOCK = 4;  // least tiles per block with weight gradients
+constexpr int MAX_DW_BLOCKS = 512;      // more tiles per block beyond this many blocks
 
 struct MlpBwdSmem {
   int act[MAX_LAYERS];   // A_l, the input of layer l, bf16 [TILE, k_l + PAD]
-  int gl, wslab, scratch, colsum, total;
+  int gl, wslab, scratch, colsum, dpre, total;
 };
 
 __host__ __device__ inline MlpBwdSmem mlp_bwd_smem(const MlpDesc& d) {
@@ -130,6 +205,7 @@ __host__ __device__ inline MlpBwdSmem mlp_bwd_smem(const MlpDesc& d) {
   s.wslab = off; off += slab > slab_t ? slab : slab_t;
   s.scratch = off; off += SCRATCH_BYTES;
   s.colsum = off; off += WARPS * MAX_WIDTH * 4;
+  s.dpre = off; if (d.pe_dim > 0) off += align128(TILE * d.din_pad * 4);
   s.total = off;
   return s;
 }
@@ -159,6 +235,48 @@ struct LoadG {
     return v;
   }
 };
+
+// Backward epilogue of layer 0 with PE: the f32 gradient of encoding column
+// c through d(encode)/d(pre) (_encode_bwd), times the column's selector
+// entry 2^f, into dpre [TILE, din_pad] (zero past N and in padded columns).
+struct EncBwd {
+  static constexpr bool kColsum = false;
+  float* dpre;
+  int ld;
+  const float* x;
+  int dim, num_freqs, din;
+  long long row0, n_rows;
+  __device__ __forceinline__ float operator()(int r, int c, float v) const {
+    float out = 0.0f;
+    if (c < din && row0 + r < n_rows) {
+      const PeCol p = pe_col(c, dim, num_freqs);
+      const float pre = x[(row0 + r) * dim + p.coord] * p.freq;
+      const float dp = p.kind == 0 ? v : p.kind == 1 ? v * cosf(pre) : -v * sinf(pre);
+      out = dp * p.freq;
+    }
+    dpre[r * ld + c] = out;
+    return 0.0f;
+  }
+};
+
+// dx[row, k] = the sum of dpre over the encoding columns of coordinate k, in
+// column order (identity, sines by frequency, cosines by frequency): d_pre·Sᵀ.
+__device__ __forceinline__ void pe_dx(const float* dpre, int ld, int dim, int num_freqs,
+                                      float* __restrict__ dx, long long row0,
+                                      long long n_rows) {
+  __syncthreads();
+  const int sin_end = dim * (1 + num_freqs);
+  for (int i = threadIdx.x; i < TILE * dim; i += THREADS) {
+    const int r = i / dim;
+    const int k = i - r * dim;
+    if (row0 + r >= n_rows) continue;
+    const float* p = dpre + r * ld;
+    float s = p[k];
+    for (int f = 0; f < num_freqs; ++f) s += p[dim + f * dim + k];
+    for (int f = 0; f < num_freqs; ++f) s += p[sin_end + f * dim + k];
+    dx[(row0 + r) * dim + k] = s;
+  }
+}
 
 // wrow[w_off + i·n + j] += sum_r A[r, i] · G[r, j] over the tile's rows:
 // layer L's weight gradient, 16x16 output fragments spread over the warps.
@@ -195,7 +313,7 @@ __device__ __forceinline__ void tile_dw(const bf16* a, int lda, const bf16* g, i
   }
 }
 
-template <int NF>
+template <int NF, bool PE>
 __global__ void __launch_bounds__(THREADS, NF <= 8 ? 2 : 1)
 fused_mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g_out,
                      float* __restrict__ dx, const bf16* __restrict__ w,
@@ -208,6 +326,7 @@ fused_mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g_ou
   bf16* wslab = reinterpret_cast<bf16*>(smem + s.wslab);
   float* scratch = reinterpret_cast<float*>(smem + s.scratch);
   float* colsum = reinterpret_cast<float*>(smem + s.colsum);
+  float* dpre = reinterpret_cast<float*>(smem + s.dpre);
   auto act = [&](int l) { return reinterpret_cast<bf16*>(smem + s.act[l]); };
   auto ld = [&](int l) { return d.L[l].k + PAD; };
   const int n = d.n_layers;
@@ -223,14 +342,10 @@ fused_mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g_ou
     const long long row0 = tile * TILE;
     __syncthreads();                               // the previous tile is done
 
-    // recompute the forward: A_0 = bf16(x), A_{l+1} = bf16(relu(A_l W_l + b_l))
-    bf16* a0 = act(0);
-    for (int i = threadIdx.x; i < TILE * d.din_pad; i += THREADS) {
-      const int r = i / d.din_pad;
-      const int c = i - r * d.din_pad;
-      const float v = (c < d.din && row0 + r < n_rows) ? x[(row0 + r) * d.din + c] : 0.0f;
-      a0[r * ld(0) + c] = __float2bfloat16_rn(v);
-    }
+    // recompute the forward: A_0 = bf16(x or encode(x)),
+    // A_{l+1} = bf16(relu(A_l W_l + b_l))
+    load_input<PE>(x, act(0), ld(0), d.din, d.din_pad, d.pe_dim, d.num_freqs, row0,
+                   n_rows);
     for (int l = 0; l < n - 1; ++l)
       dense_layer<NF>(act(l), ld(l), act(l), ld(l), w, b, d.L[l], wslab, scratch,
                       ToSmem{act(l + 1), ld(l + 1), true});
@@ -255,8 +370,15 @@ fused_mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g_ou
         gcur = act(l);
         ldg = ld(l);
       } else if (dx != nullptr) {
-        grad_input<NF>(gcur, ldg, w, d.L[0], 0, d.L[0].k, wslab, scratch, colsum,
-                       ToRows{dx, d.din, row0, n_rows});
+        if constexpr (PE) {
+          grad_input<NF>(gcur, ldg, w, d.L[0], 0, d.L[0].k, wslab, scratch, colsum,
+                         EncBwd{dpre, d.din_pad, x, d.pe_dim, d.num_freqs, d.din,
+                                row0, n_rows});
+          pe_dx(dpre, d.din_pad, d.pe_dim, d.num_freqs, dx, row0, n_rows);
+        } else {
+          grad_input<NF>(gcur, ldg, w, d.L[0], 0, d.L[0].k, wslab, scratch, colsum,
+                         ToRows{dx, d.din, row0, n_rows});
+        }
       }
     }
   }
@@ -266,10 +388,16 @@ struct MlpBwdPlan {
   long long n_blocks, tiles_per_block, total_w, total_b;
 };
 
+// With weight gradients each block takes BWD_TILES_PER_BLOCK tiles, or more
+// where that would give more than MAX_DW_BLOCKS blocks (the proposal nets'
+// million rows), so the partial rows stay few; the plan depends on n_rows
+// alone, so two runs give the same bits.
 static MlpBwdPlan mlp_bwd_plan(const MlpDesc& d, long long n_rows, bool need_dw) {
   MlpBwdPlan p;
   const long long n_tiles = (n_rows + TILE - 1) / TILE;
-  p.tiles_per_block = need_dw ? BWD_TILES_PER_BLOCK : 1;
+  const long long spread = (n_tiles + MAX_DW_BLOCKS - 1) / MAX_DW_BLOCKS;
+  p.tiles_per_block = need_dw ? (spread > BWD_TILES_PER_BLOCK ? spread : BWD_TILES_PER_BLOCK)
+                              : 1;
   p.n_blocks = (n_tiles + p.tiles_per_block - 1) / p.tiles_per_block;
   const LayerDesc& Ln = d.L[d.n_layers - 1];
   p.total_w = (long long)Ln.w_off + (long long)Ln.k * Ln.n;
@@ -278,7 +406,7 @@ static MlpBwdPlan mlp_bwd_plan(const MlpDesc& d, long long n_rows, bool need_dw)
 }
 
 // The backward's layout check: each layer's padded input is the previous
-// layer's padded output, and the first takes the padded x.
+// layer's padded output, and the first takes the padded x (or encoding).
 static bool bwd_layout_ok(const MlpDesc& d) {
   if (d.L[0].k != d.din_pad) return false;
   for (int l = 0; l < d.n_layers; ++l) {
@@ -288,18 +416,44 @@ static bool bwd_layout_ok(const MlpDesc& d) {
   return true;
 }
 
-template <int NF>
+template <int NF, bool PE>
 static int launch_bwd(const float* x, const float* g, float* dx, const void* w,
                       const float* b, const MlpDesc& d, long long n_rows, float* wpart,
                       float* bpart, const MlpBwdPlan& p, cudaStream_t stream) {
   const int smem = mlp_bwd_smem(d).total;
   cudaError_t e = cudaFuncSetAttribute(
-      fused_mlp_bwd_kernel<NF>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fused_mlp_bwd_kernel<NF, PE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  fused_mlp_bwd_kernel<NF><<<(unsigned)p.n_blocks, THREADS, smem, stream>>>(
+  fused_mlp_bwd_kernel<NF, PE><<<(unsigned)p.n_blocks, THREADS, smem, stream>>>(
       x, g, dx, reinterpret_cast<const bf16*>(w), b, wpart, bpart, d, n_rows,
       (int)p.tiles_per_block, p.total_w, p.total_b);
   return (int)cudaGetLastError();
+}
+
+// The backward and its weight-gradient sums on `stream`.
+template <bool PE>
+static int run_bwd(const float* x, const float* g, float* dx, const void* w,
+                   const float* b, const MlpDesc& d, long long n_rows, float* wpart,
+                   float* bpart, float* dw, float* db, void* stream) {
+  const bool need_dw = wpart != nullptr;
+  if (need_dw && (bpart == nullptr || dw == nullptr || db == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (n_rows <= 0) return 0;
+  const MlpBwdPlan p = mlp_bwd_plan(d, n_rows, need_dw);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  int max_n = 0;
+  for (int i = 0; i < d.n_layers; ++i) {
+    max_n = d.L[i].n > max_n ? d.L[i].n : max_n;
+    max_n = d.L[i].k > max_n ? d.L[i].k : max_n;
+  }
+  const int err =
+      max_n <= 64    ? launch_bwd<4, PE>(x, g, dx, w, b, d, n_rows, wpart, bpart, p, s)
+      : max_n <= 128 ? launch_bwd<8, PE>(x, g, dx, w, b, d, n_rows, wpart, bpart, p, s)
+                     : launch_bwd<MAXF, PE>(x, g, dx, w, b, d, n_rows, wpart, bpart, p, s);
+  if (err || !need_dw) return err;
+  const int e = column_sum(wpart, p.n_blocks, p.total_w, dw, s);
+  if (e) return e;
+  return column_sum(bpart, p.n_blocks, p.total_b, db, s);
 }
 
 }  // namespace cropnerf
@@ -311,33 +465,42 @@ extern "C" int cropnerf_fused_mlp_fwd(const float* x, float* out,
                                       long long n_rows, void* stream) {
   using namespace cropnerf;
   MlpDesc d;
-  if (!parse(meta, meta_len, &d)) return (int)cudaErrorInvalidValue;
-  if (n_rows <= 0) return 0;
-  int max_n = 0;
-  for (int i = 0; i < d.n_layers; ++i)
-    max_n = d.L[i].n > max_n ? d.L[i].n : max_n;
-  if (max_n <= 64) return launch<4>(x, out, w, b, d, n_rows, stream);
-  if (max_n <= 128) return launch<8>(x, out, w, b, d, n_rows, stream);
-  return launch<MAXF>(x, out, w, b, d, n_rows, stream);
+  if (!parse(meta, meta_len, 0, 0, &d)) return (int)cudaErrorInvalidValue;
+  return launch_fwd<false>(x, out, w, b, d, n_rows, stream);
 }
 
+// The PE MLP's forward: x [n_rows, pe_dim]; meta describes the MLP on the
+// encoding (din = pe_dim (1 + 2 num_freqs)).
+extern "C" int cropnerf_fused_pe_mlp_fwd(const float* x, float* out,
+                                         const void* w, const float* b,
+                                         const int* meta, int meta_len, int pe_dim,
+                                         int num_freqs, long long n_rows,
+                                         void* stream) {
+  using namespace cropnerf;
+  MlpDesc d;
+  if (pe_dim < 1 || !parse(meta, meta_len, pe_dim, num_freqs, &d))
+    return (int)cudaErrorInvalidValue;
+  return launch_fwd<true>(x, out, w, b, d, n_rows, stream);
+}
+
+// Dynamic shared memory of the forward, with or without PE.
 extern "C" int cropnerf_fused_mlp_smem_bytes(const int* meta, int meta_len) {
   using namespace cropnerf;
   MlpDesc d;
-  if (!parse(meta, meta_len, &d)) return -1;
+  if (!parse(meta, meta_len, 0, 0, &d)) return -1;
   return mlp_smem_bytes(d);
 }
 
-// Sizes for cropnerf_fused_mlp_bwd: out[0] f32 weight partials and out[1]
-// f32 bias partials (zeros the wrapper allocates when weight gradients are
-// asked for), out[2] packed weights, out[3] packed biases.  Returns 0, or -1
-// where the layout is rejected.
+// Sizes for the backward, with or without PE: out[0] f32 weight partials
+// and out[1] f32 bias partials (zeros the wrapper allocates when weight
+// gradients are asked for), out[2] packed weights, out[3] packed biases.
+// Returns 0, or -1 where the layout is rejected.
 extern "C" int cropnerf_fused_mlp_bwd_sizes(const int* meta, int meta_len,
                                             long long n_rows, int need_dw,
                                             long long* out) {
   using namespace cropnerf;
   MlpDesc d;
-  if (!parse(meta, meta_len, &d) || !bwd_layout_ok(d)) return -1;
+  if (!parse(meta, meta_len, 0, 0, &d) || !bwd_layout_ok(d)) return -1;
   const MlpBwdPlan p = mlp_bwd_plan(d, n_rows, need_dw != 0);
   out[0] = p.n_blocks * p.total_w;
   out[1] = p.n_blocks * p.total_b;
@@ -346,11 +509,13 @@ extern "C" int cropnerf_fused_mlp_bwd_sizes(const int* meta, int meta_len,
   return 0;
 }
 
-// Dynamic shared memory of the backward (-1 where the layout is rejected).
-extern "C" int cropnerf_fused_mlp_bwd_smem_bytes(const int* meta, int meta_len) {
+// Dynamic shared memory of the backward (-1 where the layout is rejected);
+// pe_dim 0 for the plain MLP.
+extern "C" int cropnerf_fused_mlp_bwd_smem_bytes(const int* meta, int meta_len,
+                                                 int pe_dim, int num_freqs) {
   using namespace cropnerf;
   MlpDesc d;
-  if (!parse(meta, meta_len, &d) || !bwd_layout_ok(d)) return -1;
+  if (!parse(meta, meta_len, pe_dim, num_freqs, &d) || !bwd_layout_ok(d)) return -1;
   return mlp_bwd_smem(d).total;
 }
 
@@ -365,24 +530,21 @@ extern "C" int cropnerf_fused_mlp_bwd(const float* x, const float* g, float* dx,
                                       float* dw, float* db, void* stream) {
   using namespace cropnerf;
   MlpDesc d;
-  if (!parse(meta, meta_len, &d) || !bwd_layout_ok(d)) return (int)cudaErrorInvalidValue;
-  const bool need_dw = wpart != nullptr;
-  if (need_dw && (bpart == nullptr || dw == nullptr || db == nullptr))
+  if (!parse(meta, meta_len, 0, 0, &d) || !bwd_layout_ok(d)) return (int)cudaErrorInvalidValue;
+  return run_bwd<false>(x, g, dx, w, b, d, n_rows, wpart, bpart, dw, db, stream);
+}
+
+// The PE MLP's backward: as above with x [n_rows, pe_dim] and dx [n_rows,
+// pe_dim].
+extern "C" int cropnerf_fused_pe_mlp_bwd(const float* x, const float* g, float* dx,
+                                         const void* w, const float* b,
+                                         const int* meta, int meta_len, int pe_dim,
+                                         int num_freqs, long long n_rows,
+                                         float* wpart, float* bpart, float* dw,
+                                         float* db, void* stream) {
+  using namespace cropnerf;
+  MlpDesc d;
+  if (pe_dim < 1 || !parse(meta, meta_len, pe_dim, num_freqs, &d) || !bwd_layout_ok(d))
     return (int)cudaErrorInvalidValue;
-  if (n_rows <= 0) return 0;
-  const MlpBwdPlan p = mlp_bwd_plan(d, n_rows, need_dw);
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  int max_n = 0;
-  for (int i = 0; i < d.n_layers; ++i) {
-    max_n = d.L[i].n > max_n ? d.L[i].n : max_n;
-    max_n = d.L[i].k > max_n ? d.L[i].k : max_n;
-  }
-  const int err =
-      max_n <= 64    ? launch_bwd<4>(x, g, dx, w, b, d, n_rows, wpart, bpart, p, s)
-      : max_n <= 128 ? launch_bwd<8>(x, g, dx, w, b, d, n_rows, wpart, bpart, p, s)
-                     : launch_bwd<MAXF>(x, g, dx, w, b, d, n_rows, wpart, bpart, p, s);
-  if (err || !need_dw) return err;
-  const int e = column_sum(wpart, p.n_blocks, p.total_w, dw, s);
-  if (e) return e;
-  return column_sum(bpart, p.n_blocks, p.total_b, db, s);
+  return run_bwd<true>(x, g, dx, w, b, d, n_rows, wpart, bpart, dw, db, stream);
 }

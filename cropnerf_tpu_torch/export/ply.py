@@ -13,11 +13,16 @@ import numpy as np
 
 def write_ply(path: Path, points: np.ndarray,
               colors: Optional[np.ndarray] = None,
-              alpha: Optional[np.ndarray] = None) -> None:
-    """points [N,3] float; colors [N,3] uint8 or float in [0,1]; alpha [N]."""
+              alpha: Optional[np.ndarray] = None,
+              normals: Optional[np.ndarray] = None) -> None:
+    """points [N,3] float; colors [N,3] uint8 or float in [0,1]; alpha [N];
+    normals [N,3] float (nx/ny/nz, the Open3D depth-export convention)."""
     points = np.asarray(points, np.float32)
     n = len(points)
     props = ["property float x", "property float y", "property float z"]
+    if normals is not None:
+        props += ["property float nx", "property float ny",
+                  "property float nz"]
     cols = None
     if colors is not None:
         cols = np.asarray(colors)
@@ -35,11 +40,16 @@ def write_ply(path: Path, points: np.ndarray,
         "ply", "format binary_little_endian 1.0",
         f"element vertex {n}", *props, "end_header", ""])
     fields = [("x", "<f4"), ("y", "<f4"), ("z", "<f4")]
+    if normals is not None:
+        fields += [("nx", "<f4"), ("ny", "<f4"), ("nz", "<f4")]
     if cols is not None:
         names = ["red", "green", "blue", "alpha"][:cols.shape[1]]
         fields += [(nm, "u1") for nm in names]
     rec = np.empty(n, dtype=fields)
     rec["x"], rec["y"], rec["z"] = points[:, 0], points[:, 1], points[:, 2]
+    if normals is not None:
+        nrm = np.asarray(normals, np.float32)
+        rec["nx"], rec["ny"], rec["nz"] = nrm[:, 0], nrm[:, 1], nrm[:, 2]
     if cols is not None:
         for i, nm in enumerate(["red", "green", "blue", "alpha"][:cols.shape[1]]):
             rec[nm] = cols[:, i]

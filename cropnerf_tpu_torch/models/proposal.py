@@ -1,7 +1,8 @@
 """Proposal density nets (counterpart of ``cropnerf_tpu/models/proposal.py``):
 a small hash grid and a narrow MLP (nerfstudio ``HashMLPDensityField``, the
 presets' default), or with ``field_type="pe"`` an MLP on the positional
-encoding of the position."""
+encoding of the position (one fused encode + MLP kernel with
+``mlp_impl="pallas-fused"``)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -12,6 +13,7 @@ from torch import nn
 from ..core import spatial
 from ..device import resolve_device
 from ..ops.activations import trunc_exp
+from ..ops.cuda.fused_pe_field import fused_pe_mlp
 from ..ops.mlp import MLP, mlp_apply, mlp_init
 from ..ops.posenc import nerf_encoding
 from .config import ProposalFieldConfig
@@ -52,11 +54,16 @@ def proposal_density(prop: ProposalField, positions: torch.Tensor,
                      ) -> torch.Tensor:
     """positions [..., 3] world → density [...]."""
     unit, selector = spatial.to_unit(positions, use_contraction, aabb)
+    if cfg.field_type == "pe" and cfg.mlp_impl == "pallas-fused":
+        # one kernel: encode + MLP (ops/cuda/fused_pe_field.py fused_pe_mlp)
+        x = unit * 2.0 - 1.0
+        wbs = []
+        for w, b in zip(prop.mlp.w, prop.mlp.b):
+            wbs += [w, b.reshape(1, -1)]
+        h = fused_pe_mlp(x.reshape(-1, 3), wbs, cfg.pe_freqs, compute_dtype)
+        h = h.reshape(*x.shape[:-1], h.shape[-1])
+        return trunc_exp(h[..., 0]) * selector
     if cfg.field_type == "pe":
-        if cfg.mlp_impl == "pallas-fused":
-            raise NotImplementedError(
-                "the fused PE + MLP proposal kernel (fused_pe_mlp) is not "
-                "ported yet; use mlp_impl='xla' or 'pallas'")
         feats = nerf_encoding(unit * 2.0 - 1.0, cfg.pe_freqs)
     else:
         feats = grid_features(prop.grid, unit, cfg.grid)

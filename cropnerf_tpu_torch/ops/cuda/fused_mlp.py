@@ -11,13 +11,15 @@ H100 (see the source note).  On the card the backward
 (``fused_mlp_bwd``) recomputes the forward from x and the weights, as the
 JAX custom VJP saves only ``(x, wbs)``, and computes only the gradients
 autograd asks for: dx alone when no weight needs one.  The ragged tail of
-N is masked in the kernels; there is no fallback.
+N is masked in the kernels; there is no fallback.  ``run_forward`` and
+``run_backward`` also launch the PE variant of the same kernels, which
+``fused_pe_field.fused_pe_mlp`` (the PE proposal nets) wraps.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import torch
 
@@ -43,25 +45,28 @@ def fused_mlp_plain(x: torch.Tensor, wbs: Sequence[torch.Tensor],
 
 @functools.lru_cache(maxsize=None)
 def _lib():
+    """The library of ``csrc/fused_mlp.cu``: the plain MLP's entry points and
+    the PE MLP's (``fused_pe_mlp`` in ``fused_pe_field.py``)."""
     lib = build.load("fused_mlp")
-    lib.cropnerf_fused_mlp_fwd.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_void_p]
-    lib.cropnerf_fused_mlp_fwd.restype = ctypes.c_int
-    lib.cropnerf_fused_mlp_smem_bytes.argtypes = [
-        ctypes.POINTER(ctypes.c_int), ctypes.c_int]
-    lib.cropnerf_fused_mlp_smem_bytes.restype = ctypes.c_int
-    lib.cropnerf_fused_mlp_bwd.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_longlong] + [
-        ctypes.c_void_p] * 5
-    lib.cropnerf_fused_mlp_bwd.restype = ctypes.c_int
-    lib.cropnerf_fused_mlp_bwd_sizes.argtypes = [
-        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
-    lib.cropnerf_fused_mlp_bwd_sizes.restype = ctypes.c_int
-    lib.cropnerf_fused_mlp_bwd_smem_bytes.argtypes = [
-        ctypes.POINTER(ctypes.c_int), ctypes.c_int]
-    lib.cropnerf_fused_mlp_bwd_smem_bytes.restype = ctypes.c_int
+    meta = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+    pe = [ctypes.c_int, ctypes.c_int]
+    lib.cropnerf_fused_mlp_fwd.argtypes = [ctypes.c_void_p] * 4 + meta + [
+        ctypes.c_longlong, ctypes.c_void_p]
+    lib.cropnerf_fused_pe_mlp_fwd.argtypes = [ctypes.c_void_p] * 4 + meta + pe + [
+        ctypes.c_longlong, ctypes.c_void_p]
+    lib.cropnerf_fused_mlp_smem_bytes.argtypes = meta
+    lib.cropnerf_fused_mlp_bwd.argtypes = [ctypes.c_void_p] * 5 + meta + [
+        ctypes.c_longlong] + [ctypes.c_void_p] * 5
+    lib.cropnerf_fused_pe_mlp_bwd.argtypes = [ctypes.c_void_p] * 5 + meta + pe + [
+        ctypes.c_longlong] + [ctypes.c_void_p] * 5
+    lib.cropnerf_fused_mlp_bwd_sizes.argtypes = meta + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+    lib.cropnerf_fused_mlp_bwd_smem_bytes.argtypes = meta + pe
+    for f in ("cropnerf_fused_mlp_fwd", "cropnerf_fused_pe_mlp_fwd",
+              "cropnerf_fused_mlp_smem_bytes", "cropnerf_fused_mlp_bwd",
+              "cropnerf_fused_pe_mlp_bwd", "cropnerf_fused_mlp_bwd_sizes",
+              "cropnerf_fused_mlp_bwd_smem_bytes"):
+        getattr(lib, f).restype = ctypes.c_int
     return lib
 
 
@@ -85,49 +90,55 @@ def smem_bytes(meta) -> int:
     return _lib().cropnerf_fused_mlp_smem_bytes(c_ints(meta), len(meta))
 
 
-def bwd_smem_bytes(meta) -> int:
+def bwd_smem_bytes(meta, pe: Tuple[int, int] = (0, 0)) -> int:
     """Dynamic shared memory one block of the backward takes for ``meta``
-    (-1 where the kernel rejects the layout)."""
-    return _lib().cropnerf_fused_mlp_bwd_smem_bytes(c_ints(meta), len(meta))
+    (-1 where the kernel rejects the layout); ``pe`` (dim, num_freqs) for
+    the PE MLP."""
+    return _lib().cropnerf_fused_mlp_bwd_smem_bytes(c_ints(meta), len(meta),
+                                                    *pe)
 
 
-def _forward(x, wbs, device):
+def run_forward(name, x, wbs, din, pe=None):
+    """One launch of the forward kernel (of the PE MLP with ``pe`` = (dim,
+    num_freqs), whose MLP takes the ``din``-wide encoding); no launch for
+    N = 0.  Returns the [N, Dout] float32 output."""
+    device = x.device
     n_rows = x.shape[0]
-    wbuf, bbuf, meta = pack_mlp(x.shape[1], wbs, device)
+    wbuf, bbuf, meta = pack_mlp(din, wbs, device)
     out = torch.empty((n_rows, wbs[-2].shape[1]), dtype=torch.float32,
                       device=device)
     if n_rows == 0:
         return out
+    lib = _lib()
+    args = [x.data_ptr(), out.data_ptr(), wbuf.data_ptr(), bbuf.data_ptr(),
+            c_ints(meta), len(meta)]
     with torch.cuda.device(device):
-        err = _lib().cropnerf_fused_mlp_fwd(
-            x.data_ptr(), out.data_ptr(), wbuf.data_ptr(), bbuf.data_ptr(),
-            c_ints(meta), len(meta), n_rows, stream_ptr(device))
+        err = (lib.cropnerf_fused_mlp_fwd(*args, n_rows, stream_ptr(device))
+               if pe is None else lib.cropnerf_fused_pe_mlp_fwd(
+                   *args, *pe, n_rows, stream_ptr(device)))
     if err:
-        raise RuntimeError(f"fused_mlp kernel launch failed: cudaError {err}")
-    fused_mlp.launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     return out
 
 
-@torch.no_grad()
-def fused_mlp_bwd(x: torch.Tensor, wbs: Sequence[torch.Tensor],
-                  g: torch.Tensor, need_dx: bool = True,
-                  need_dw: bool = True):
-    """The backward kernel of ``fused_mlp`` on CUDA tensors: the cotangent
-    g [N, Dout] → (dx [N, Din] or None, [dW0, db0, dW1, db1, ...] in the
-    shapes of ``wbs`` or None) in float32.  It recomputes the forward."""
-    device = check_kernel_call("fused_mlp_bwd", [x, g, *wbs], torch.bfloat16)
+def run_backward(name, x, wbs, g, din, need_dx, need_dw, pe=None):
+    """One launch of the backward kernel (of the PE MLP with ``pe``) and its
+    weight-gradient sums: (dx or None, [dW0, db0, ...] in the shapes of
+    ``wbs`` or None) in float32.  No launch for N = 0."""
+    device = check_kernel_call(name, [x, g, *wbs], torch.bfloat16)
     n = x.shape[0]
     check_rows("g", g, n=n, cols=wbs[-2].shape[1])
-    wbuf, bbuf, meta = pack_mlp(x.shape[1], wbs, device)
+    wbuf, bbuf, meta = pack_mlp(din, wbs, device)
     lib = _lib()
     sizes = (ctypes.c_longlong * 4)()
     if lib.cropnerf_fused_mlp_bwd_sizes(c_ints(meta), len(meta), n,
                                         int(need_dw), sizes):
-        raise ValueError("fused_mlp_bwd: the kernel rejects this layout")
-    smem = bwd_smem_bytes(meta)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"fused_mlp_bwd: needs {smem} B of shared memory "
-                         f"per block, more than {MAX_SMEM_BYTES}")
+        raise ValueError(f"{name}: the kernel rejects this layout")
+    smem = bwd_smem_bytes(meta, pe or (0, 0))
+    if not 0 < smem <= MAX_SMEM_BYTES:
+        raise ValueError(f"{name}: the kernel rejects this layout or needs "
+                         f"{smem} B of shared memory per block, more than "
+                         f"{MAX_SMEM_BYTES}")
     n_wpart, n_bpart, total_w, total_b = list(sizes)
     dx = torch.empty_like(x) if need_dx else None
     ptrs = [None] * 4
@@ -138,22 +149,42 @@ def fused_mlp_bwd(x: torch.Tensor, wbs: Sequence[torch.Tensor],
         bpart = torch.zeros((n_bpart,), dtype=torch.float32, device=device)
         ptrs = [t.data_ptr() for t in (wpart, bpart, dw, db)]
     if n:
+        args = [x.data_ptr(), g.data_ptr(), dx.data_ptr() if need_dx else None,
+                wbuf.data_ptr(), bbuf.data_ptr(), c_ints(meta), len(meta)]
         with torch.cuda.device(device):
-            err = lib.cropnerf_fused_mlp_bwd(
-                x.data_ptr(), g.data_ptr(),
-                dx.data_ptr() if need_dx else None, wbuf.data_ptr(),
-                bbuf.data_ptr(), c_ints(meta), len(meta), n, *ptrs,
-                stream_ptr(device))
+            err = (lib.cropnerf_fused_mlp_bwd(*args, n, *ptrs,
+                                              stream_ptr(device))
+                   if pe is None else lib.cropnerf_fused_pe_mlp_bwd(
+                       *args, *pe, n, *ptrs, stream_ptr(device)))
         if err:
-            raise RuntimeError(f"fused_mlp_bwd kernel launch failed: "
-                               f"cudaError {err}")
-        fused_mlp_bwd.launches += 1
+            raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     dwbs = None
     if need_dw:
         dwbs = [t for ws, db_l in unpack_layers(_layers(wbs), dw, db,
                                                 meta[5:])
                 for t in (*ws, db_l)]
     return dx, dwbs
+
+
+def _forward(x, wbs):
+    out = run_forward("fused_mlp", x, wbs, x.shape[1])
+    if x.shape[0]:
+        fused_mlp.launches += 1
+    return out
+
+
+@torch.no_grad()
+def fused_mlp_bwd(x: torch.Tensor, wbs: Sequence[torch.Tensor],
+                  g: torch.Tensor, need_dx: bool = True,
+                  need_dw: bool = True):
+    """The backward kernel of ``fused_mlp`` on CUDA tensors: the cotangent
+    g [N, Dout] → (dx [N, Din] or None, [dW0, db0, dW1, db1, ...] in the
+    shapes of ``wbs`` or None) in float32.  It recomputes the forward."""
+    out = run_backward("fused_mlp_bwd", x, wbs, g, x.shape[1], need_dx,
+                       need_dw)
+    if x.shape[0]:
+        fused_mlp_bwd.launches += 1
+    return out
 
 
 class _FusedMlp(torch.autograd.Function):
@@ -163,7 +194,7 @@ class _FusedMlp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, *wbs):
         ctx.save_for_backward(x, *wbs)
-        return _forward(x, wbs, x.device)
+        return _forward(x, wbs)
 
     @staticmethod
     def backward(ctx, g):

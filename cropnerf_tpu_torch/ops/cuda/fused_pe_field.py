@@ -18,6 +18,14 @@ Both are differentiable.  On the card their backwards are
 (dx alone in the BayesRays pass).  On the CPU autograd runs through the
 plain versions.
 
+``fused_pe_mlp`` (the PE proposal nets with ``mlp_impl="pallas-fused"``:
+encode, then a narrow relu MLP to [N, 1]) launches the PE variant of the
+fused MLP kernels, ``csrc/fused_mlp.cu`` (replacing ``_plain_fwd_kernel``
+and ``_plain_bwd_kernel``), forward and recompute-backward, for tensors on
+the card, and ``fused_pe_mlp_plain`` for tensors on the CPU.  The JAX
+selector argument ``s`` (zero gradient) has no counterpart: the kernels
+and the plain version build the encoding from the frequencies.
+
 Rounding points follow the JAX kernels: the encoding is rounded to the
 compute dtype before base layer 0, every hidden layer applies relu then
 rounds, the skip layer sums its two partial products in float32, and the
@@ -34,6 +42,7 @@ import torch
 
 from ..mlp import mm_f32acc
 from . import build
+from .fused_mlp import fused_mlp_plain, run_backward, run_forward
 from .common import (MAX_SMEM_BYTES, c_ints, check_kernel_call, check_rows,
                      pack_layers, pad16, stream_ptr, unpack_layers)
 
@@ -492,7 +501,91 @@ def fused_pe_nerf(x: torch.Tensor, extras: torch.Tensor,
                               *wbs)
 
 
+# ---- fused_pe_mlp: the PE proposal nets ------------------------------------
+
+def fused_pe_mlp_plain(x: torch.Tensor, wbs: Sequence[torch.Tensor],
+                       num_freqs: int,
+                       compute_dtype: torch.dtype = torch.bfloat16
+                       ) -> torch.Tensor:
+    """Plain-PyTorch PE MLP (≙ the JAX ``_plain_ref``): x [N, dim] →
+    encoding rounded to ``compute_dtype`` → relu hidden layers (each
+    rounded) → linear last layer → [N, Dout] float32."""
+    return fused_mlp_plain(_encode(x, num_freqs).to(compute_dtype), wbs,
+                           compute_dtype)
+
+
+def _check_pe_mlp(x, wbs, num_freqs) -> int:
+    """The encoding width the first weight must take; raises on a bad call."""
+    if len(wbs) < 2 or len(wbs) % 2:
+        raise ValueError("wbs must be [W0, b0, W1, b1, ...]")
+    check_rows("x", x)
+    k = enc = x.shape[1] * (1 + 2 * num_freqs)
+    for w in wbs[0::2]:
+        if w.dim() != 2 or w.shape[0] != k:
+            raise ValueError(f"weight {tuple(w.shape)} does not take width {k}")
+        k = w.shape[1]
+    return enc
+
+
+@torch.no_grad()
+def fused_pe_mlp_bwd(x: torch.Tensor, wbs: Sequence[torch.Tensor],
+                     num_freqs: int, g: torch.Tensor, need_dx: bool = True,
+                     need_dw: bool = True):
+    """The backward kernel of ``fused_pe_mlp`` on CUDA tensors: the
+    cotangent g [N, Dout] → (dx [N, dim] or None, [dW0, db0, ...] in the
+    shapes of ``wbs`` or None) in float32.  It recomputes the forward."""
+    enc = _check_pe_mlp(x, wbs, num_freqs)
+    out = run_backward("fused_pe_mlp_bwd", x, wbs, g, enc, need_dx, need_dw,
+                       pe=(x.shape[1], num_freqs))
+    if x.shape[0]:
+        fused_pe_mlp_bwd.launches += 1
+    return out
+
+
+class _FusedPeMlp(torch.autograd.Function):
+    """Forward kernel, and the backward kernel as its gradient, run only
+    for the gradients asked for (no dx where x needs none, no weight
+    gradients where the weights need none).  Saves only x and the weights,
+    as the JAX ``_plain_fwd`` does."""
+
+    @staticmethod
+    def forward(ctx, x, num_freqs, *wbs):
+        ctx.save_for_backward(x, *wbs)
+        ctx.num_freqs = num_freqs
+        out = run_forward("fused_pe_mlp", x, wbs,
+                          x.shape[1] * (1 + 2 * num_freqs),
+                          pe=(x.shape[1], num_freqs))
+        if x.shape[0]:
+            fused_pe_mlp.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *wbs = ctx.saved_tensors
+        need_dx = ctx.needs_input_grad[0]
+        need_dw = any(ctx.needs_input_grad[2:])
+        dx, dwbs = fused_pe_mlp_bwd(x, wbs, ctx.num_freqs, g.contiguous(),
+                                    need_dx, need_dw)
+        return (dx, None, *(dwbs if need_dw else [None] * len(wbs)))
+
+
+def fused_pe_mlp(x: torch.Tensor, wbs: Sequence[torch.Tensor],
+                 num_freqs: int,
+                 compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """x [N, dim] float32 (encoder domain, unit*2-1) → NeRF encoding with
+    ``num_freqs`` frequencies → relu MLP wbs = [W0, b0, W1, b1, ...] (W
+    [in, out], b [1, out]; linear last layer) → [N, Dout] float32,
+    differentiable in x and the weights."""
+    _check_pe_mlp(x, wbs, num_freqs)
+    if x.device.type == "cpu":
+        return fused_pe_mlp_plain(x, wbs, num_freqs, compute_dtype)
+    check_kernel_call("fused_pe_mlp", [x, *wbs], compute_dtype)
+    return _FusedPeMlp.apply(x, num_freqs, *wbs)
+
+
 fused_pe_density.launches = 0
 fused_pe_density_bwd.launches = 0
 fused_pe_nerf.launches = 0
 fused_pe_nerf_bwd.launches = 0
+fused_pe_mlp.launches = 0
+fused_pe_mlp_bwd.launches = 0

@@ -6,11 +6,11 @@ the JAX-side conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
-Tolerance of the MLP kernels (K1-K3; K4, the float32 hash-grid encode,
-states its own above its tests): the kernel and the plain version round
-the same operands to bf16 and sum in float32 in another order, so their
-outputs agree to bf16 rounding carried through the layers:
-max |kernel - plain| <= 1e-2 ·
+Tolerance of the MLP kernels (K1-K3 and K5; K4, the float32 hash-grid
+encode, and K6, the transmittance scan, state their own above their
+tests): the kernel and the plain version round the same operands to bf16
+and sum in float32 in another order, so their outputs agree to bf16
+rounding carried through the layers: max |kernel - plain| <= 1e-2 ·
 max |plain| for outputs, 5e-2 · max |plain| for weight and bias gradients
 (the plain version's autograd rounds cotangents to bf16 where the kernel
 keeps them in float32).  The per-row gradients dx and dextras are held
@@ -566,3 +566,169 @@ def test_uncertainty_kernel_path_matches_plain_path(cuda, preset, channel):
     hot = set(got.topk(1000).indices.tolist())
     assert len(hot & set(ref.topk(1000).indices.tolist())) >= 900
     assert all(p.requires_grad for p in params.parameters())
+
+
+# ---- K5, the fused PE proposal nets (csrc/fused_mlp.cu, PE variant) ---------
+#
+# Held as K3: outputs to TOL of max |plain|, dx row by row, weight and bias
+# gradients in relative L2 (and by their max from 1000 rows on).
+
+# (num_freqs, N): the two nets at one cropnerf-mxu training step's sample
+# counts (4096 rays x 256 and x 96), a ragged N of each and a small N
+K5_GPU_CASES = {"net0": (5, 1_048_576), "net1": (6, 393_216),
+                "net0-ragged": (5, 1_048_576 - 77), "net1-ragged": (6, 1000)}
+
+
+def _prop_net(cuda, num_freqs, need_dw=True, seed=0):
+    from cropnerf_tpu_torch.models.config import ProposalFieldConfig
+    from cropnerf_tpu_torch.models.proposal import proposal_init
+    cfg = ProposalFieldConfig(field_type="pe", hidden_dim=64, num_layers=3,
+                              pe_freqs=num_freqs, mlp_impl="pallas-fused")
+    prop = proposal_init(cfg, torch.Generator().manual_seed(seed), cuda)
+    wbs = []
+    for w, b in zip(prop.mlp.w, prop.mlp.b):
+        wbs += [w, b.reshape(1, -1)]
+    return _leaves(wbs, need_dw)
+
+
+@pytest.mark.parametrize("need_dw", [True, False], ids=["with-dW", "dx-only"])
+@pytest.mark.parametrize("case", list(K5_GPU_CASES))
+def test_fused_pe_mlp_kernel_matches_plain(cuda, case, need_dw):
+    F, n = K5_GPU_CASES[case]
+    wbs = _prop_net(cuda, F, need_dw)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = (torch.rand((n, 3), generator=g, device=cuda) * 2 - 1).requires_grad_(True)
+    cot = torch.randn((n, 1), generator=g, device=cuda)
+    leaves = [x] + (wbs if need_dw else [])
+    before = (kfield.fused_pe_mlp.launches, kfield.fused_pe_mlp_bwd.launches)
+    out = kfield.fused_pe_mlp(x, wbs, F)
+    got = _grads(out, leaves, cot)
+    torch.cuda.synchronize()
+    assert (kfield.fused_pe_mlp.launches, kfield.fused_pe_mlp_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref_out = kfield.fused_pe_mlp_plain(x, wbs, F)
+    ref = _grads(ref_out, leaves, cot)
+    assert out.shape == (n, 1) and torch.isfinite(out).all()
+    assert _rel_err(out.detach(), ref_out.detach()) <= TOL
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert a.shape == b.shape and torch.isfinite(a).all(), i
+        ok = (_grad_agrees(a, b, per_row=True) if i == 0
+              else _weight_grad_agrees(a, b, n))
+        assert ok, (i, _rel_err(a, b))
+    out2 = kfield.fused_pe_mlp(x, wbs, F)
+    again = _grads(out2, leaves, cot)
+    assert torch.equal(out, out2), "the forward kernel is not deterministic"
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+        "the backward kernel is not deterministic"
+
+
+def test_fused_pe_mlp_backward_computes_what_is_asked(cuda):
+    """dx only where x needs it, weight gradients only where the weights
+    need them; each alone equals the full backward's bit for bit.  N = 0
+    launches nothing."""
+    F, n = 5, 65_536 - 5
+    x = torch.rand((n, 3), device=cuda) * 2 - 1
+    cot = torch.randn((n, 1), device=cuda)
+    full_w = _prop_net(cuda, F)
+    xg = x.clone().requires_grad_(True)
+    full = _grads(kfield.fused_pe_mlp(xg, full_w, F), [xg, *full_w], cot)
+    dx_only = _grads(kfield.fused_pe_mlp(xg, _prop_net(cuda, F, False), F),
+                     [xg], cot)
+    w_only = _prop_net(cuda, F)
+    dw_only = _grads(kfield.fused_pe_mlp(x, w_only, F), w_only, cot)
+    assert torch.equal(dx_only[0], full[0])
+    assert all(torch.equal(a, b) for a, b in zip(dw_only, full[1:]))
+    before = (kfield.fused_pe_mlp.launches, kfield.fused_pe_mlp_bwd.launches)
+    empty = x[:0].clone().requires_grad_(True)
+    out = kfield.fused_pe_mlp(empty, full_w, F)
+    grads = _grads(out, [empty, *full_w], torch.zeros((0, 1), device=cuda))
+    assert out.shape == (0, 1) and grads[0].shape == (0, 3)
+    assert all(float(g.abs().sum()) == 0 for g in grads[1:])
+    assert (kfield.fused_pe_mlp.launches,
+            kfield.fused_pe_mlp_bwd.launches) == before
+    with torch.no_grad(), pytest.raises(ValueError, match="bf16"):
+        kfield.fused_pe_mlp(x, full_w, F, torch.float32)
+
+
+# ---- K6, the transmittance scan (csrc/transmittance.cu) ----------------------
+#
+# The kernel scans each row in 32-sample segments where torch.cumsum sums
+# in its own order: the weights agree to 1e-5 absolute (they lie in [0, 1]).
+
+@pytest.mark.parametrize("shape", [(4096, 48), (4096, 256), (4096, 96),
+                                   (16_384, 3000), (4093, 77), (1, 1)])
+@torch.no_grad()
+def test_render_weights_kernel_matches_plain(cuda, shape):
+    from cropnerf_tpu_torch.ops.cuda.transmittance import render_weights_cuda
+    from cropnerf_tpu_torch.ops.render import render_weights
+    R, S = shape
+    g = torch.Generator(device=cuda).manual_seed(10)
+    density = torch.rand((R, S), generator=g, device=cuda) * 5
+    deltas = torch.rand((R, S), generator=g, device=cuda) * 0.1 * 48 / S
+    before = render_weights_cuda.launches
+    got = render_weights_cuda(density, deltas)
+    torch.cuda.synchronize()
+    assert render_weights_cuda.launches == before + 1
+    ref = render_weights(density, deltas)
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= 1e-5
+    assert torch.equal(got, render_weights_cuda(density, deltas))
+
+
+def test_render_weights_kernel_refuses_autograd(cuda):
+    from cropnerf_tpu_torch.ops.cuda.transmittance import render_weights_cuda
+    density = torch.rand((8, 48), device=cuda, requires_grad=True)
+    with pytest.raises(ValueError, match="forward only"):
+        render_weights_cuda(density, torch.rand((8, 48), device=cuda))
+    empty = density.detach()[:0]
+    before = render_weights_cuda.launches
+    assert render_weights_cuda(empty, empty).shape == (0, 48)
+    assert render_weights_cuda.launches == before
+
+
+def _propfused(cfg):
+    """cropnerf-mxu with both PE proposal nets on the fused kernel, as
+    benchmarks/ab_pe_fused.py builds it."""
+    m = cfg.model
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        m, proposal_fields=tuple(dataclasses.replace(p, mlp_impl="pallas-fused")
+                                 for p in m.proposal_fields)))
+
+
+def test_propfused_train_step_kernel_path_matches_plain_path(cuda):
+    """One training step of the fused-proposal path against the plain path
+    (field and proposal nets on plain matmuls): K1 forward and backward
+    once, K5 forward and backward once per proposal net."""
+    from cropnerf_tpu_torch.train.state import create_train_state
+    from cropnerf_tpu_torch.train.step import train_loss
+    cfg = _propfused(dataclasses.replace(PRESETS["cropnerf-mxu"],
+                                         train_num_rays_per_batch=1024))
+    m = cfg.model
+    plain = dataclasses.replace(cfg, model=dataclasses.replace(
+        m, field=dataclasses.replace(m.field, mlp_impl="xla"),
+        proposal_fields=tuple(dataclasses.replace(p, mlp_impl="xla")
+                              for p in m.proposal_fields)))
+    bank = _synthetic_bank(cuda)
+    kernels = (kfield.fused_pe_nerf, kfield.fused_pe_nerf_bwd,
+               kfield.fused_pe_mlp, kfield.fused_pe_mlp_bwd,
+               kfield.fused_pe_density, kmlp.fused_mlp)
+    results = []
+    for c in (cfg, plain):
+        state = create_train_state(c, bank.num_images,
+                                   torch.Generator().manual_seed(0), cuda)
+        gen = torch.Generator(device=cuda).manual_seed(1)
+        idx = torch.randint(0, bank.num_pixels, (1024,), generator=gen,
+                            device=cuda)
+        before = [k.launches for k in kernels]
+        loss, _ = train_loss(state.params, bank, idx, 300, c, gen)
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = [k.launches - b for k, b in zip(kernels, before)]
+        assert launched == ([1, 1, 2, 2, 0, 0] if c is cfg else [0] * 6), launched
+        results.append((loss.detach(), {k: p.grad.clone() for k, p in
+                                        state.params.named_parameters()}))
+    (l_k, g_k), (l_p, g_p) = results
+    assert torch.isfinite(l_k) and abs(l_k - l_p) <= 2e-2 * abs(l_p)
+    for k in g_p:
+        assert torch.isfinite(g_k[k]).all(), k
+        assert _rel_err(g_k[k], g_p[k]) <= BWD_TOL, (k, _rel_err(g_k[k], g_p[k]))

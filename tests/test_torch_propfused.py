@@ -1,0 +1,512 @@
+"""The fused PE proposal nets (K5, ``fused_pe_mlp``), the transmittance
+scan (K6, ``render_weights_cuda``) and the depth point-cloud export of the
+PyTorch port against the JAX package.
+
+The path is ``cropnerf-mxu`` with both PE proposal nets on the fused
+kernel (``mlp_impl="pallas-fused"``, as ``benchmarks/ab_pe_fused.py``
+builds it), here at full widths with few samples per ray.  The JAX
+kernels run as their own tests run them on the CPU (interpret mode on
+128-row tiles, or the jnp path); the port's wrappers take their plain
+PyTorch versions for CPU tensors.  Each comparison runs in the float32 arm
+(1e-4) and the bf16 arm (2e-2; gradients 5e-2, the rtol of JAX's own
+kernel-vs-fallback test).  CPU models of the CUDA kernels' loops hold the
+kernels' arithmetic (the encoding's backward through the selector, the
+segmented warp scan) against the plain versions.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cropnerf_tpu.ops.pallas import fused_pe_field as jfield
+from cropnerf_tpu.ops.pallas.transmittance import render_weights_pallas
+from cropnerf_tpu_torch.ops import render as trender
+from cropnerf_tpu_torch.ops.cuda import fused_mlp as tmlp
+from cropnerf_tpu_torch.ops.cuda import fused_pe_field as tfield
+from cropnerf_tpu_torch.ops.cuda.transmittance import render_weights_cuda
+from torch_parity import (arm, assert_close, np_wbs, to_jax,  # noqa: F401
+                          to_torch)
+
+BWD_TOL = {"f32": 1e-4, "bf16": 5e-2}
+PROP_WIDTHS = {5: [33, 64, 64, 1], 6: [39, 64, 64, 1]}   # the path's two nets
+
+
+def _loss(out, lib):
+    return lib.sum(lib.sin(out * 2.0))
+
+
+# --- K5: fused_pe_mlp --------------------------------------------------------
+
+# (num_freqs, N, JAX interpret): both nets through the Pallas kernel in
+# interpret mode (128-row tiles) and through the jnp path, and a ragged N
+# (the jnp path: no tile of 128 rows or more divides it)
+K5_CASES = {"net0-kernel": (5, 256, True), "net1-kernel": (6, 256, True),
+            "net0-jnp": (5, 256, False), "net1-ragged": (6, 200, False)}
+
+
+@pytest.mark.parametrize("case", list(K5_CASES))
+def test_fused_pe_mlp_matches_jax(case, arm):
+    F, n, interpret = K5_CASES[case]
+    rng = np.random.default_rng(20 + F)
+    x = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    wbs = np_wbs(rng, PROP_WIDTHS[F])
+    s = jnp.asarray(jfield.pe_selector_matrix(F))
+
+    def jloss(x, wbs):
+        out = jfield.fused_pe_mlp(x, s, wbs, F, 128, interpret, 3, 128)
+        return _loss(out, jnp), out
+
+    (_, ref), (jdx, jdw) = jax.jit(jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True))(jnp.asarray(x), to_jax(wbs))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    wt = [w.requires_grad_(True) for w in to_torch(wbs)]
+    before = (tfield.fused_pe_mlp.launches, tfield.fused_pe_mlp_bwd.launches)
+    out = tfield.fused_pe_mlp(xt, wt, F, arm.dtype)
+    _loss(out, torch).backward()
+    assert before == (tfield.fused_pe_mlp.launches,
+                      tfield.fused_pe_mlp_bwd.launches)   # the CPU: no launch
+    assert_close(out, ref, arm.tol, "out")
+    tol = BWD_TOL[arm.name]
+    assert_close(xt.grad, jdx, tol, "dx")
+    for i, (w, r) in enumerate(zip(wt, jdw)):
+        assert_close(w.grad, r, tol, f"wbs {i}")
+
+
+def test_fused_pe_mlp_checks_its_inputs():
+    wbs = to_torch(np_wbs(np.random.default_rng(0), PROP_WIDTHS[5]))
+    x = torch.rand(10, 3)
+    with pytest.raises(ValueError):                 # encoding width 33, not 39
+        tfield.fused_pe_mlp(x, wbs, 6)
+    with pytest.raises(ValueError):                 # not float32
+        tfield.fused_pe_mlp(x.double(), wbs, 5)
+    with pytest.raises(ValueError):                 # an odd weight list
+        tfield.fused_pe_mlp(x, wbs[:3], 5)
+    assert tfield.fused_pe_mlp(x[:0], wbs, 5).shape == (0, 1)
+
+
+def _kernel_model_pe_mlp(x, wbuf, bbuf, meta, F, g):
+    """csrc/fused_mlp.cu's PE variant in torch, on the packed buffers and
+    meta the wrapper builds: the encoding in the prologue (x·2^f, no
+    product), the bf16 recompute, the per-layer weight gradients Aᵀ·G of
+    bf16 operands, relu masks from the bf16 activations, then layer 0's f32
+    input gradient through d(encode)/d(pre) times 2^f and, per coordinate,
+    the sum over its columns in column order."""
+    din, din_pad, dout, n_layers, _ = meta[:5]
+    L = [meta[5 + 5 * i:10 + 5 * i] for i in range(n_layers)]
+    N, dim = x.shape
+    sin_end = dim * (1 + F)
+    col = torch.arange(din)
+    j = torch.where(col < sin_end, col - dim, col - sin_end)
+    coord = torch.where(col < dim, col, j % dim)
+    freq = torch.where(col < dim, torch.ones(din),
+                       (2.0 ** (j // dim)).float())
+    pre = x[:, coord] * freq
+    enc = torch.where(col < dim, x[:, coord],
+                      torch.where(col < sin_end, torch.sin(pre),
+                                  torch.cos(pre)))
+    a = torch.zeros((N, din_pad))
+    a[:, :din] = enc
+    acts = [a.bfloat16()]
+    layer = lambda a, l: (a.float() @ wbuf[L[l][0]:L[l][0] + L[l][2] * L[l][3]]  # noqa: E731
+                          .reshape(L[l][2], L[l][3]).float()
+                          + bbuf[L[l][1]:L[l][1] + L[l][3]])
+    for l in range(n_layers - 1):
+        acts.append(torch.relu(layer(acts[l], l)).bfloat16())
+    out = layer(acts[-1], n_layers - 1)[:, :dout]
+    gl = torch.zeros((N, L[-1][3]))
+    gl[:, :dout] = g
+    dwbuf, dbbuf = torch.zeros(wbuf.shape), torch.zeros(bbuf.shape)
+    dbbuf[L[-1][1]:L[-1][1] + L[-1][3]] = gl.sum(0)
+    gcur = gl.bfloat16()
+    for l in range(n_layers - 1, -1, -1):
+        w_off, b_off, k, n, _ = L[l]
+        dwbuf[w_off:w_off + k * n] = (acts[l].float().T
+                                      @ gcur.float()).reshape(-1)
+        v = gcur.float() @ wbuf[w_off:w_off + k * n].reshape(k, n).float().T
+        if l == 0:
+            break
+        v = torch.where(acts[l].float() > 0, v, 0.0)
+        dbbuf[L[l - 1][1]:L[l - 1][1] + L[l - 1][3]] = v.sum(0)
+        gcur = v.bfloat16()
+    v = v[:, :din]
+    d_pre = torch.where(col < dim, v, torch.where(col < sin_end,
+                                                  v * torch.cos(pre),
+                                                  -v * torch.sin(pre))) * freq
+    dx = torch.zeros((N, dim))
+    for c in range(din):                          # column order, per coordinate
+        dx[:, coord[c]] += d_pre[:, c]
+    return out, dx, dwbuf, dbbuf
+
+
+@pytest.mark.parametrize("F", [5, 6])
+def test_pe_mlp_kernel_model_reproduces_plain(F):
+    rng = np.random.default_rng(30 + F)
+    x = torch.from_numpy(rng.uniform(-1, 1, (300, 3)).astype(np.float32))
+    x.requires_grad_(True)
+    wt = [w.requires_grad_(True) for w in to_torch(np_wbs(rng,
+                                                          PROP_WIDTHS[F]))]
+    out = tfield.fused_pe_mlp_plain(x, wt, F)
+    cot = torch.from_numpy(rng.standard_normal(out.shape).astype(np.float32))
+    ref = torch.autograd.grad(out, [x, *wt], cot)
+    with torch.no_grad():
+        wbuf, bbuf, meta = tmlp.pack_mlp(3 * (1 + 2 * F), wt)
+        assert meta[:5] == [3 * (1 + 2 * F), 48, 1, 3, 64]
+        got_out, dx, dwbuf, dbbuf = _kernel_model_pe_mlp(x, wbuf, bbuf, meta,
+                                                         F, cot)
+        grads = [t for ws, db in tmlp.unpack_layers(tmlp._layers(wt), dwbuf,
+                                                    dbbuf, meta[5:])
+                 for t in (*ws, db)]
+    assert_close(got_out, out.detach(), 1e-5, "out")
+    for i, (g, r) in enumerate(zip([dx] + grads, ref)):
+        assert g.shape == r.shape, (i, g.shape, r.shape)
+        err = ((g - r).abs().max() / r.abs().max().clamp_min(1e-6)).item()
+        assert err <= 2e-2, (i, err)
+
+
+def test_proposal_density_pallas_fused_matches_jax(arm):
+    """proposal_density of a PE net with mlp_impl="pallas-fused": density
+    and the gradients of the weights and the positions."""
+    from cropnerf_tpu.models.config import ProposalFieldConfig as JaxCfg
+    from cropnerf_tpu.models.proposal import proposal_density as jax_density
+    from cropnerf_tpu.models.proposal import proposal_init as jax_init
+    from cropnerf_tpu_torch.models.config import ProposalFieldConfig
+    from cropnerf_tpu_torch.models.proposal import (ProposalField,
+                                                    proposal_density)
+    from cropnerf_tpu_torch.ops.mlp import MLP
+    kw = dict(field_type="pe", hidden_dim=64, num_layers=3, pe_freqs=5,
+              mlp_impl="pallas-fused")
+    params = jax_init(jax.random.PRNGKey(40), JaxCfg(**kw))
+    pos = (np.random.default_rng(41).standard_normal((16, 24, 3)) * 0.8
+           ).astype(np.float32)
+
+    def jloss(p, x):
+        d = jax_density(p, x, JaxCfg(**kw))
+        return jnp.sum(jnp.sin(d)), d
+
+    (_, ref), (jg, jgx) = jax.jit(jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True))(params, jnp.asarray(pos))
+    mlp = MLP([torch.from_numpy(np.array(w)) for w in params["mlp"]["w"]],
+              [torch.from_numpy(np.array(b)) for b in params["mlp"]["b"]])
+    prop = ProposalField(mlp)
+    xt = torch.from_numpy(pos).requires_grad_(True)
+    d = proposal_density(prop, xt, ProposalFieldConfig(**kw),
+                         compute_dtype=arm.dtype)
+    torch.sum(torch.sin(d)).backward()
+    assert_close(d, ref, arm.tol, "density")
+    tol = BWD_TOL[arm.name]
+    assert_close(xt.grad, jgx, tol, "positions")
+    for i in range(3):
+        assert_close(mlp.w[i].grad, jg["mlp"]["w"][i], tol, f"w{i}")
+        assert_close(mlp.b[i].grad, jg["mlp"]["b"][i], tol, f"b{i}")
+
+
+# --- K6: render_weights_cuda -------------------------------------------------
+
+# (R, S, JAX tile): a [256, 48] block on four tiles, a ragged [7, 16] (the
+# JAX jnp fallback) and the docstring's long axis, S = 3000
+K6_CASES = {"256x48": (256, 48, 64), "ragged-7x16": (7, 16, 4),
+            "8x3000": (8, 3000, 8)}
+
+
+def _k6_inputs(R, S, seed=0):
+    rng = np.random.default_rng(seed)
+    density = (rng.uniform(0, 5, (R, S))).astype(np.float32)
+    deltas = (rng.uniform(0, 0.1, (R, S)) * 48 / S).astype(np.float32)
+    return density, deltas
+
+
+@pytest.mark.parametrize("case", list(K6_CASES))
+def test_render_weights_cuda_matches_jax_kernel(case):
+    R, S, tile = K6_CASES[case]
+    density, deltas = _k6_inputs(R, S)
+    ref = render_weights_pallas(jnp.asarray(density), jnp.asarray(deltas),
+                                tile_r=tile, interpret=True)
+    before = render_weights_cuda.launches
+    got = render_weights_cuda(torch.from_numpy(density),
+                              torch.from_numpy(deltas))
+    assert render_weights_cuda.launches == before
+    assert got.dtype == torch.float32 and got.shape == (R, S)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_render_weights_cuda_casts_and_refuses_autograd():
+    density, deltas = _k6_inputs(16, 48, seed=1)
+    d64 = torch.from_numpy(density).double()
+    got = render_weights_cuda(d64, torch.from_numpy(deltas))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), trender.render_weights(
+        torch.from_numpy(density), torch.from_numpy(deltas)).numpy(),
+        rtol=1e-6, atol=1e-7)
+    leaf = torch.from_numpy(density).requires_grad_(True)
+    with pytest.raises(ValueError, match="forward only"):
+        render_weights_cuda(leaf, torch.from_numpy(deltas))
+    with pytest.raises(ValueError, match="forward only"):
+        render_weights_cuda(torch.from_numpy(density),
+                            torch.from_numpy(deltas).requires_grad_(True))
+    with torch.no_grad():              # no graph is recorded: no gradient
+        render_weights_cuda(leaf, torch.from_numpy(deltas))
+    with pytest.raises(ValueError):
+        render_weights_cuda(torch.zeros(4, 8), torch.zeros(4, 9))
+
+
+def _kernel_model_scan(density, deltas):
+    """csrc/transmittance.cu's loop in torch: per row, 32-sample segments;
+    in each a Hillis-Steele inclusive scan (the __shfl_up_sync steps) plus
+    the running total of the earlier segments."""
+    R, S = density.shape
+    tau = density * deltas
+    out = torch.empty_like(tau)
+    carry = torch.zeros((R,))
+    for s0 in range(0, S, 32):
+        seg = torch.zeros((R, 32))
+        w = min(32, S - s0)
+        seg[:, :w] = tau[:, s0:s0 + w]
+        incl = seg.clone()
+        o = 1
+        while o < 32:
+            shifted = torch.zeros_like(incl)
+            shifted[:, o:] = incl[:, :-o]
+            incl = incl + shifted
+            o *= 2
+        accum = carry[:, None] + incl
+        t = seg[:, :w]
+        out[:, s0:s0 + w] = (1 - torch.exp(-t)) * torch.exp(-(accum[:, :w] - t))
+        carry = carry + incl[:, 31]
+    return out
+
+
+@pytest.mark.parametrize("shape", [(5, 48), (3, 3000), (2, 33)])
+def test_scan_kernel_model_reproduces_plain(shape):
+    density, deltas = _k6_inputs(*shape, seed=2)
+    d, dl = torch.from_numpy(density), torch.from_numpy(deltas)
+    np.testing.assert_allclose(_kernel_model_scan(d, dl).numpy(),
+                               trender.render_weights(d, dl).numpy(),
+                               rtol=1e-5, atol=1e-6)
+
+
+# --- the path: cropnerf-mxu with fused PE proposal nets ----------------------
+
+def propfused(presets, **changes):
+    """The path's configuration, reduced: ``cropnerf-mxu`` with both PE
+    proposal nets on the fused kernel (``benchmarks/ab_pe_fused.py``'s
+    ``dataclasses.replace``) at full widths, 32 and 16 proposal samples
+    then 8 field samples per ray."""
+    from torch_parity import reduced_mxu
+    cfg = reduced_mxu(presets)
+    m = cfg.model
+    m = dataclasses.replace(
+        m, proposal_fields=tuple(dataclasses.replace(p, mlp_impl="pallas-fused")
+                              for p in m.proposal_fields))
+    return dataclasses.replace(cfg, model=m, **changes)
+
+
+def test_train_step_matches_jax(arm, monkeypatch):
+    """One training step (every step updates the proposal nets, whose
+    positions carry the camera-opt graph: K5's backward with dx)."""
+    from cropnerf_tpu.models.config import PRESETS as JAX_PRESETS
+    from cropnerf_tpu_torch.models.config import PRESETS as TORCH_PRESETS
+    from test_torch_train import RAYS, STEP, check_train_step
+    jcfg, tcfg = (propfused(p, train_num_rays_per_batch=RAYS)
+                  for p in (JAX_PRESETS, TORCH_PRESETS))
+    assert not tcfg.model.proposal_no_grad_schedule
+    check_train_step(jcfg, tcfg, STEP, arm, monkeypatch)
+
+
+def test_render_matches_jax(arm):
+    """make_render_fn: an 8x8 image with lens distortion in one chunk."""
+    from cropnerf_tpu.core.cameras import Cameras as JaxCameras
+    from cropnerf_tpu.models.config import PRESETS as JAX_PRESETS
+    from cropnerf_tpu.train.step import make_render_fn as jax_make_render_fn
+    from cropnerf_tpu_torch.core.cameras import Cameras as TorchCameras
+    from cropnerf_tpu_torch.models.config import PRESETS as TORCH_PRESETS
+    from cropnerf_tpu_torch.train.step import make_render_fn
+    from test_torch_render_export import H, W, _camera_arrays
+    from torch_parity import jax_and_torch_params
+    jcfg, tcfg = (propfused(p, eval_num_rays_per_chunk=H * W)
+                  for p in (JAX_PRESETS, TORCH_PRESETS))
+    params, tp = jax_and_torch_params(jcfg.model, num_images=1)
+    cams = _camera_arrays()
+    ref = jax_make_render_fn(jcfg)(
+        params, JaxCameras(**{k: jnp.asarray(v) for k, v in cams.items()}),
+        0, H, W)
+    got = make_render_fn(tcfg, compute_dtype=arm.dtype)(
+        tp, TorchCameras(**{k: torch.from_numpy(v) for k, v in cams.items()}),
+        0, H, W)
+    for k in ("rgb", "accumulation", "semantics", "semantics_colormap"):
+        assert got[k].shape[:2] == (H, W)
+        assert_close(got[k], ref[k], arm.tol, k)
+    same_depth = np.isclose(got["depth"].numpy(), np.asarray(ref["depth"]),
+                            atol=arm.tol, rtol=arm.tol)
+    assert same_depth.mean() >= (1.0 if arm.name == "f32" else 0.9)
+
+
+# --- the depth point cloud ---------------------------------------------------
+
+CLOUD_RAYS = 64
+
+
+def _gap_threshold(values) -> float:
+    """A threshold near the median that no value lies close to: the middle
+    of the widest gap between neighbouring sorted values in the middle
+    half, so that rounding between the two packages flips no decision."""
+    v = np.sort(np.asarray(values, np.float64))
+    lo, hi = len(v) // 4, 3 * len(v) // 4
+    i = lo + int(np.argmax(np.diff(v[lo:hi + 1])))
+    return float((v[i] + v[i + 1]) / 2)
+
+
+def _jax_batch(jcfg, jb):
+    """The per-batch body of the JAX ``generate_point_cloud`` (its
+    ``run_batch``), from the package's public functions, returning the
+    forward's outputs beside the points."""
+    from cropnerf_tpu.core.cameras import generate_rays, near_far_collider
+    from cropnerf_tpu.core.rays import RayBundle
+    from cropnerf_tpu.data.databank import decode_pixel_index
+    from cropnerf_tpu.models.model import forward
+    m = jcfg.model
+
+    @jax.jit
+    def run(params, idx):
+        cam, px, py = decode_pixel_index(idx, jb.height, jb.width)
+        origins, dirs = generate_rays(jb.cameras, cam, px, py)
+        n = idx.shape[0]
+        rb = RayBundle(origins=origins, directions=dirs,
+                       nears=jnp.zeros((n,)), fars=jnp.ones((n,)),
+                       camera_idx=cam)
+        rb = near_far_collider(rb, m.near_plane, m.far_plane)
+        out = forward(params, rb, m, key=None, train=False)
+        return out, origins + dirs * out["depth"]
+
+    return run
+
+
+def test_forward_and_depth_batch_match_jax(arm, monkeypatch):
+    """The depth cloud's per-batch function on the ray indices of the JAX
+    exporter's first batch (seed 0): the forward it runs (both fused
+    proposal nets and the field), the points, colours and keep mask; in the
+    float32 arm the JAX ``generate_point_cloud`` itself keeps the same
+    points."""
+    from cropnerf_tpu.export import pointcloud as jpc
+    from cropnerf_tpu.models.config import PRESETS as JAX_PRESETS
+    from cropnerf_tpu_torch.export import pointcloud as tpc
+    from cropnerf_tpu_torch.models.config import PRESETS as TORCH_PRESETS
+    from test_torch_train import N_IMG, _banks
+    from torch_parity import jax_and_torch_params
+    jcfg, tcfg = propfused(JAX_PRESETS), propfused(TORCH_PRESETS)
+    params, tp = jax_and_torch_params(jcfg.model, num_images=N_IMG)
+    jb, tb = _banks()
+    _, sub = jax.random.split(jax.random.PRNGKey(0))
+    jidx = jax.random.randint(sub, (CLOUD_RAYS,), 0, jb.num_pixels)
+    ref, ref_pts = jax.tree_util.tree_map(np.asarray,
+                                          _jax_batch(jcfg, jb)(params, jidx))
+    acc_thr = _gap_threshold(ref["accumulation"][:, 0])
+    sem_thr = _gap_threshold(ref["semantics_colormap"][:, 0])
+    ref_keep = ((ref["accumulation"][:, 0] > acc_thr)
+                & (ref["semantics_colormap"][:, 0] > sem_thr))
+    assert 0 < ref_keep.sum() < CLOUD_RAYS
+
+    seen = {}
+    forward = tpc.forward
+
+    def spy(*args, **kw):
+        seen["out"] = forward(*args, **kw)
+        return seen["out"]
+
+    monkeypatch.setattr(tpc, "forward", spy)
+    pts, rgb, keep = tpc.depth_points(
+        tp, tcfg.model, tb, torch.from_numpy(np.array(jidx)).long(),
+        semantic_threshold=sem_thr, accumulation_threshold=acc_thr,
+        compute_dtype=arm.dtype)
+    got = seen["out"]
+    for k in ("rgb", "accumulation", "semantics", "semantics_colormap",
+              "prop_depth_0", "prop_depth_1"):
+        assert_close(got[k], ref[k], arm.tol, k)
+    for i in range(3):
+        assert_close(got["weights_list"][i], ref["weights_list"][i], arm.tol,
+                     f"weights {i}")
+    same_depth = np.isclose(got["depth"].numpy()[:, 0], ref["depth"][:, 0],
+                            atol=arm.tol, rtol=arm.tol)
+    assert same_depth.mean() >= (1.0 if arm.name == "f32" else 0.9)
+    assert_close(pts[same_depth], ref_pts[same_depth], arm.tol, "points")
+    assert_close(rgb, ref["rgb"], arm.tol, "colours")
+    # a decision flips only where the reference lies within rounding of
+    # its threshold; the gap thresholds leave none in either arm
+    np.testing.assert_array_equal(keep.numpy(), ref_keep)
+    if arm.name == "f32":
+        j_pts, j_cols = jpc.generate_point_cloud(
+            params, jcfg.model, jb, num_points=CLOUD_RAYS,
+            rays_per_batch=CLOUD_RAYS, semantic_threshold=sem_thr,
+            accumulation_threshold=acc_thr, remove_outliers=False,
+            max_batches=1)
+        assert_close(pts[keep], j_pts, 1e-4, "exported points")
+        assert_close(rgb[keep], j_cols, 1e-4, "exported colours")
+
+
+def _cloud(seed=0, n=3000):
+    rng = np.random.default_rng(seed)
+    pts = rng.standard_normal((n, 3)).astype(np.float32) * [1.0, 1.0, 0.05]
+    pts[:12] *= 15.0                                   # far outliers
+    return pts.astype(np.float32)
+
+
+@pytest.mark.parametrize("std_ratio", [2.0, 10.0])
+def test_outlier_removal_and_normals_match_jax(std_ratio):
+    from cropnerf_tpu.counting.clustering import \
+        statistical_outlier_removal as jax_sor
+    from cropnerf_tpu.export.pointcloud import estimate_normals as jax_normals
+    from cropnerf_tpu_torch.counting.clustering import \
+        statistical_outlier_removal
+    from cropnerf_tpu_torch.export.pointcloud import estimate_normals
+    pts = _cloud()
+    got, ref = statistical_outlier_removal(pts, 20, std_ratio), jax_sor(
+        pts, 20, std_ratio)
+    np.testing.assert_array_equal(got, ref)
+    assert len(got) < len(pts)
+    view = pts.mean(0) + np.float32([0, 0, 1])
+    n_got, n_ref = estimate_normals(pts, 10, view), jax_normals(pts, 10, view)
+    np.testing.assert_allclose(n_got, n_ref, atol=1e-6)
+    assert np.median(np.abs(n_got[12:, 2])) > 0.9     # the flat cloud's z
+
+
+def test_generate_point_cloud_and_export(tmp_path):
+    """The port's exporter end to end on the CPU: batches drawn from its
+    generator, the kept points of each batch, the outlier removal, and the
+    PLY with normals."""
+    from cropnerf_tpu_torch.counting.clustering import \
+        statistical_outlier_removal
+    from cropnerf_tpu_torch.export import pointcloud as tpc
+    from cropnerf_tpu_torch.export.ply import read_ply
+    from cropnerf_tpu_torch.models.config import PRESETS as TORCH_PRESETS
+    from cropnerf_tpu_torch.models.model import model_init
+    from test_torch_train import N_IMG, _banks
+    m = propfused(TORCH_PRESETS).model
+    params = model_init(m, N_IMG, torch.Generator().manual_seed(0), "cpu")
+    _, tb = _banks()
+    kw = dict(semantic_threshold=-1.0, accumulation_threshold=-1.0)
+    pts, cols = tpc.generate_point_cloud(
+        params, m, tb, num_points=150, rays_per_batch=CLOUD_RAYS,
+        generator=torch.Generator().manual_seed(3), **kw)
+    g = torch.Generator().manual_seed(3)
+    want = []
+    for _ in range(3):
+        idx = torch.randint(0, tb.num_pixels, (CLOUD_RAYS,), generator=g)
+        p, c, k = tpc.depth_points(params, m, tb, idx, **kw)
+        want.append(torch.cat([p[k], c[k]], 1).numpy())
+    want = np.concatenate(want)[:150]
+    want = want[statistical_outlier_removal(want[:, :3], 20, 10.0)]
+    np.testing.assert_array_equal(pts, want[:, :3])
+    np.testing.assert_array_equal(cols, want[:, 3:])
+    path = tpc.export_depth_pointcloud(
+        params, m, tb, tmp_path / "semantics_pc.ply", normals_k=8,
+        num_points=100, rays_per_batch=CLOUD_RAYS, **kw)
+    header = path.read_bytes()[:400].split(b"end_header")[0].decode()
+    assert "property float nx" in header
+    read, colors = read_ply(path)
+    assert read.shape[1] == 3 and colors.shape == read.shape
+    assert 50 < len(read) <= 100 and np.isfinite(read).all()

@@ -175,6 +175,16 @@ def test_train_step_loss_and_gradients_match_jax(arm, no_grad_schedule,
             c.model, proposal_no_grad_schedule=True)) for c in (jcfg, tcfg))
     step = 4001 if no_grad_schedule else STEP
     assert bool(tstep._prop_update_bool(step, tcfg)) != no_grad_schedule
+    check_train_step(jcfg, tcfg, step, arm, monkeypatch)
+
+
+def check_train_step(jcfg, tcfg, step, arm, monkeypatch):
+    """One training step of ``tcfg`` on the port against ``jcfg`` on JAX,
+    from the same parameters and pixels: the loss and its terms, every
+    gradient leaf (the trunk's under the relu-kink bound), the rays'
+    gradients and the camera-opt leaf."""
+    frozen = (tcfg.model.proposal_no_grad_schedule
+              and not bool(tstep._prop_update_bool(step, tcfg)))
     params, tp = jax_and_torch_params(jcfg.model, num_images=N_IMG)
     jb, tb = _banks()
     idx = np.random.default_rng(PIXEL_SEED).integers(0, jb.num_pixels, (RAYS,))
@@ -210,7 +220,7 @@ def test_train_step_loss_and_gradients_match_jax(arm, no_grad_schedule,
     for k, r in ref.items():
         if k != "camera_opt":
             _close(got[k].numpy(), r, arm, k, _kinked(k))
-    if no_grad_schedule:
+    if frozen:
         assert all(got[k].abs().sum() == 0 for k in got
                    if k.startswith("proposal_"))
     # camera_opt sums each camera's rays' pose gradients, which cancel: it
