@@ -11,7 +11,9 @@ Run from the root of the repository:  python3 chip_smoke.py
    serving and training paths give it and at a ragged N, and times both:
    for cropnerf-mxu K1 forward and backward (the backward against autograd
    of the plain version), K2 and K3 forward and backward (the backwards at
-   the BayesRays batch, with and without weight gradients); for cropnerf
+   the BayesRays batch, with and without weight gradients; K1's and K2's
+   backward pass by pass, tile, dW and sums, over three profiler windows,
+   with their registers and spills); for cropnerf
    (the hash-grid field, the CLI default) the hash-grid encode K4 forward
    and backward at the field's and both proposal nets' shapes, a ragged N
    and a small dense [L, T, F] table; the fused PE proposal nets K5
@@ -158,6 +160,52 @@ def device_ms(fn, iters: int, only: str | None = None) -> float:
     return sum(rows) / 1e3 / iters
 
 
+# the passes of the PE trunk's backward (csrc/fused_pe_field_bwd.cu), by
+# the kernel names the profiler records
+BWD_PASSES = {"tile": ("pe_field_bwd_tile_kernel",),
+              "dw": ("pe_field_bwd_dw_kernel",),
+              "sums": ("chunk_sum_kernel", "column_sum_kernel")}
+BWD_WINDOWS = 3          # profiler windows per backward timing
+
+
+def pass_ms(fn, iters: int) -> dict:
+    """Device ms per call of each pass of the PE trunk's backward and of all
+    its kernels ("total"), over BWD_WINDOWS profiler windows: the median,
+    minimum and maximum of the windows.  A window the profiler dropped is
+    profiled again, up to PROFILE_TRIES more windows."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    per = {name: [] for name in (*BWD_PASSES, "total")}
+    for _ in range(BWD_WINDOWS + PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and KERNEL_NS in e.key]
+        if not events:
+            continue
+        for name, keys in BWD_PASSES.items():
+            per[name].append(sum(e.self_device_time_total for e in events
+                                 if any(k in e.key for k in keys))
+                             / 1e3 / iters)
+        per["total"].append(sum(e.self_device_time_total for e in events)
+                            / 1e3 / iters)
+        if len(per["total"]) == BWD_WINDOWS:
+            break
+    check(len(per["total"]) == BWD_WINDOWS,
+          "the profiler saw no device time for the PE backward")
+    return {name: {"median": statistics.median(v), "min": min(v),
+                   "max": max(v)} for name, v in per.items()}
+
+
+def fmt_passes(p: dict) -> str:
+    return ", ".join(f"{name} {v['median']:.4f} ({v['min']:.4f}-"
+                     f"{v['max']:.4f})" for name, v in p.items())
+
+
 def wall_ms(fn) -> float:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -211,6 +259,35 @@ def ptxas_registers(report: str) -> dict:
         elif "registers" in line and entry is not None:
             regs[entry] = int(line.split("Used")[1].split("registers")[0])
     return regs
+
+
+def ptxas_spills(report: str) -> dict:
+    """Spill bytes (stores + loads) per function (kernel entries and
+    device functions not inlined) in an ``nvcc -Xptxas -v`` report."""
+    spills, name = {}, None
+    for line in report.splitlines():
+        if "Function properties for" in line:
+            name = line.split("Function properties for")[1].strip()
+        elif "spill stores" in line and name is not None:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            spills[name] = nums[1] + nums[2]
+            name = None
+    return spills
+
+
+def short_names(per_entry: dict) -> dict:
+    """Mangled kernel names of the PE backward -> readable ones (the
+    template's STORE flag as <true>/<false>); others as they are."""
+    out = {}
+    for name, v in per_entry.items():
+        short = name
+        for kernel in ("pe_field_bwd_tile_kernel", "pe_field_bwd_dw_kernel",
+                       "chunk_sum_kernel", "column_sum_kernel", "dx_rows"):
+            if kernel in name:
+                short = kernel + ("<true>" if "ILb1E" in name else
+                                  "<false>" if "ILb0E" in name else "")
+        out[short] = v
+    return out
 
 
 def mlp_macs(dims) -> int:
@@ -695,19 +772,22 @@ def density_bwd_entry(base, top, trunk_macs, n, dev, card, report) -> dict:
                for (m, w), v in cases.items()},
         max_abs_err=cases[(n, False)]["abs"],
         rel_err=cases[(n, False)]["dx_l2"],
-        ms=device_ms(lambda: kernel(xb, cot, False), 10, KERNEL_NS),
+        passes=pass_ms(lambda: kernel(xb, cot, False), 10),
         call_ms=cuda_ms(lambda: kernel(xb, cot, False), 10),
         plain_ms=device_ms(lambda: plain(xb, cot, False), 3),
-        with_dw_ms=device_ms(lambda: kernel(xb, cot, True), 5, KERNEL_NS),
+        with_dw_passes=pass_ms(lambda: kernel(xb, cot, True), 5),
         with_dw_plain_ms=device_ms(lambda: plain(xb, cot, True), 3),
         # recompute and input gradients (dx only); the weight gradient adds
         # a third product
         flops=2.0 * n * trunk_macs * 2,
         bytes=nbytes(xb, cot, xb, *wd))
+    k["ms"] = k["passes"]["total"]["median"]
+    k["with_dw_ms"] = k["with_dw_passes"]["total"]["median"]
     k["bound_ms"], k["bound_by"] = bound(k["flops"], k["bytes"])
     k["with_dw_bound_ms"] = bound(3.0 * n * trunk_macs * 2,
                                   nbytes(xb, cot, xb, *wd) + nbytes(*wd))[0]
-    k["registers"] = ptxas_registers(report)
+    k["registers"] = short_names(ptxas_registers(report))
+    k["spill_bytes"] = short_names(ptxas_spills(report))
     log(f"[kernel] fused_pe_density_bwd: {k['shape']}; dx rows within "
         f"{GRAD_TOL} of max and L2 by case: "
         + ", ".join(f"{c}: {v['rows']:.5f}/{v['dx_l2']:.2e} (weights "
@@ -717,6 +797,10 @@ def density_bwd_entry(base, top, trunk_macs, n, dev, card, report) -> dict:
         f"({k['bound_by']}); with dW {k['with_dw_ms']:.4f} ms, plain "
         f"{k['with_dw_plain_ms']:.4f} ms, bound {k['with_dw_bound_ms']:.4f} "
         f"ms; {card}")
+    log(f"[kernel] fused_pe_density_bwd: device ms per pass over "
+        f"{BWD_WINDOWS} windows, median (min-max): dx only "
+        f"{fmt_passes(k['passes'])}; with dW {fmt_passes(k['with_dw_passes'])}"
+        f"; registers {k['registers']}, spill bytes {k['spill_bytes']}; {card}")
     return k
 
 
@@ -1600,7 +1684,7 @@ def main() -> None:
             ragged_rows=bwd[n1 - 77][1], deterministic=deterministic,
             vs_f32_kernel=max(vs_f32[0]), vs_f32_plain=max(vs_f32[1]),
             vs_f32_dx=(vs_f32[0][0], vs_f32[1][0]),
-            ms=device_ms(kb, 5, KERNEL_NS), call_ms=cuda_ms(kb, 5),
+            passes=pass_ms(kb, 5), call_ms=cuda_ms(kb, 5),
             plain_ms=device_ms(pb, 3),
             flops=2.0 * n1 * bwd_macs,
             bytes=nbytes(xk, exk, *cotk, *wd) + nbytes(xk, exk, *wd))
@@ -1649,6 +1733,8 @@ def main() -> None:
                               + mlp_macs([cin.shape[1], 64, 3])),
             bytes=nbytes(geo, cin, *sem_wbs, *col_wbs, *got))
 
+    k1b = kernels["fused_pe_nerf_bwd"]
+    k1b["ms"] = k1b["passes"]["total"]["median"]
     for name, k in kernels.items():
         if name in ("fused_pe_density_bwd", "fused_mlp_bwd"):
             continue                      # checked and logged by their entries
@@ -1668,11 +1754,18 @@ def main() -> None:
                 f"against a float32 plain version: kernel "
                 f"{k['vs_f32_kernel']:.2e}, bf16 plain {k['vs_f32_plain']:.2e} "
                 f"(dx {k['vs_f32_dx'][0]:.2e} / {k['vs_f32_dx'][1]:.2e})")
+            log(f"[kernel] {name}: device ms per pass over {BWD_WINDOWS} "
+                f"windows, median (min-max): {fmt_passes(k['passes'])}; "
+                f"{card}")
             check(k["deterministic"], f"{name} differs between two runs")
             for share, l2 in k["rows"] + k["ragged_rows"]:
                 check(share >= ROW_SHARE and l2 <= GRAD_TOL,
                       f"{name}: dx/dextras rows {share:.4f}, L2 {l2:.2e}")
-    regs = ptxas_registers(reports["fused_pe_field_bwd"])
+    regs = short_names(ptxas_registers(reports["fused_pe_field_bwd"]))
+    spills = short_names(ptxas_spills(reports["fused_pe_field_bwd"]))
+    k1b["registers"], k1b["spill_bytes"] = regs, spills
+    log(f"[kernel] fused_pe_nerf_bwd: registers {regs}, spill bytes "
+        f"{spills}; {card}")
     bwd_smem = {
         "with the heads": kfield.bwd_smem_bytes(kfield.pack_pe_field(
             3, POS_FREQS, base, top, color, sem, de=de, device=dev)[2]),
@@ -1682,7 +1775,8 @@ def main() -> None:
             sem_wbs[0].shape[0], sem_wbs, dev)[2]),
         "fused_mlp colour head": kmlp.bwd_smem_bytes(kmlp.pack_mlp(
             col_wbs[0].shape[0], col_wbs, dev)[2])}
-    log(f"[build] fused_pe_field_bwd registers {regs}; backward dynamic "
+    log(f"[build] fused_pe_field_bwd registers {regs}, spill bytes "
+        f"{spills}; backward dynamic "
         f"shared memory per block: "
         + ", ".join(f"{k} {v} B" for k, v in bwd_smem.items()))
     n_unc = RAYS * m.num_nerf_samples_per_ray        # one BayesRays batch
@@ -1944,7 +2038,10 @@ def main() -> None:
         rel_err=k["rel_err"], ms=k["ms"], call_ms=k["call_ms"],
         plain_ms=k["plain_ms"],
         bound_ms=k["bound_ms"], bound_by=k["bound_by"], library_ms=None,
-        shape=k["shape"], card=card) for name, k in kernels.items()] + [dict(
+        shape=k["shape"], card=card,
+        **{key: k[key] for key in ("passes", "with_dw_passes", "registers",
+                                   "spill_bytes") if key in k})
+        for name, k in kernels.items()] + [dict(
         name=name, route="cuda", source=k["source"], replaces=k["replaces"],
         launches=hash_train["launches"][name],
         launches_by_path={

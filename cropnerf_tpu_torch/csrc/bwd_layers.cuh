@@ -1,6 +1,6 @@
-// Shared pieces of the recompute-backward kernels for Hopper (sm_90a): the
-// fused PE field's (fused_pe_field_bwd.cu) and the fused MLP's
-// (fused_mlp.cu).
+// Pieces of the fused MLP's recompute-backward kernels for Hopper (sm_90a)
+// (fused_mlp.cu); the fused PE field's backward (fused_pe_field_bwd.cu)
+// takes only column_sum from here.
 //
 // Layout as in fused_layers.cuh: a block owns a tile of TILE rows, each warp
 // one 16-row strip.  A layer's input gradient g·Wᵀ runs on the tensor cores

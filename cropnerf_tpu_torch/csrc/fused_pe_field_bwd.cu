@@ -1,17 +1,15 @@
 // Fused positional-encoding NeRF field, backward, for Hopper (sm_90a): the
-// trunk + colour and semantic heads (heads = 1), or the trunk alone
-// (heads = 0).
+// trunk + colour and semantic heads, or the trunk alone.
 //
 // Replaces cropnerf_tpu/ops/pallas/fused_pe_field.py:_mega_bwd_kernel (the
 // backward of fused_pe_nerf, wrapper _mega_bwd) and _bwd_kernel (the
 // backward of fused_pe_density, wrapper _bwd).  Given x [N, dim], the
-// extras [N, De] (heads only), the packed weights and the cotangents
-// g_t [N, 1+G] (and g_rgb [N, 3], g_sem [N, C] with the heads), it returns
-// dx [N, dim], dextras [N, De] and the float32 gradient of every weight and
-// bias, in the packed layout the forward reads (ops/cuda/common.py
-// pack_layers), for the wrapper to unpack.  A null dx skips dx; a null
-// wpart skips the weight and bias gradients (passes 2 and 3 and the
-// workspace's cotangent slots): the BayesRays pass asks for dx alone.
+// extras [N, De] (heads only), the weights and the cotangents g_t [N, 1+G]
+// (and g_rgb [N, 3], g_sem [N, C] with the heads), it returns dx [N, dim],
+// dextras [N, De] and the float32 gradient of every weight and bias in the
+// packed layout the forward reads (ops/cuda/common.py pack_layers).  A
+// null dx skips dx; a program without the weight gradients (dx alone, the
+// BayesRays pass) writes no workspace and no bias sums.
 //
 // Arithmetic, as the TPU kernels: the forward is recomputed in bf16 with f32
 // sums at the forward's rounding points; the cotangent g stays f32 and is
@@ -25,551 +23,815 @@
 // Bound on an H100: compute.  About three times the forward's ~0.87 MFLOP a
 // sample (recompute, input gradient, weight gradient): ~5.1e11 FLOP at
 // N = 196,608, ~0.52 ms at 989 TFLOP/s, against ~0.5 KB a row of inputs and
-// outputs; two times (~0.34 ms) for the trunk's dx alone.
+// outputs; two times (~0.34 ms) for the trunk's dx alone.  The weight
+// gradient needs every layer's activation and cotangent of every row, a
+// workspace of ~8 KB a row written once and read once: ~1 ms more at
+// 3.35 TB/s at that N.
 //
-// Design.  On the TPU the grid runs in order and the kernel sums weight
-// gradients across grid steps in its output refs; on the card blocks run
-// concurrently, so that sum is a cross-block reduction and is done in
-// passes, without floating-point atomics, so two runs give the same bits:
-//   1. pe_field_bwd_tile_kernel, one block per 128-row tile: recomputes the
-//      forward, writes every layer's bf16 input activation A_l to a
-//      workspace in device memory, backpropagates the tile through the heads
-//      and the trunk (input gradients on the tensor cores, Wᵀ staged
-//      column-major in shared memory), writes each layer's bf16 cotangent
-//      G_l to the workspace, each layer's per-tile f32 bias-gradient sum to
-//      a partial buffer, dx and dextras.  Every activation of the network
-//      would take ~67 KB of shared memory per layer, far beyond a block's
-//      227 KB, so activations go to the workspace (bf16, ~8 KB a row at the
-//      flagship's widths; the wrapper allocates it) and the block keeps only
-//      the two cotangent buffers it is working on.
-//   2. pe_field_bwd_dw_kernel: dW_l = A_lᵀ·G_l as a split-K product over row
-//      chunks, each block a 64x64 output tile of one layer over one chunk,
-//      written to an f32 [splits, packed weights] buffer.
-//   3. column_sum_kernel: sums the splits into dW and the tiles' bias sums
-//      into db, in a fixed order.
-// Rows past N load zero cotangents, so they add nothing to dW or db.  This
-// first version uses wmma (mma.sync); pipelining is later work.
+// Design.  The host plans the work (ops/cuda/pe_bwd_plan.py): a program of
+// ops for the tile kernel, a weight image, workspace slots and the tasks of
+// the weight-gradient pass.  Three passes, no floating-point atomics, so
+// two runs give the same bits:
+//   1. pe_field_bwd_tile_kernel, one block per 128-row tile: two consumer
+//      warpgroups of 64 rows each and a producer warpgroup that hands its
+//      registers to them (setmaxnreg), so that the 64 x 256 f32
+//      accumulators fit without spills.  One producer thread streams the
+//      weight image through a ring of 32-row slabs in shared
+//      memory with bulk copies that complete on mbarriers, so the next
+//      slab loads while the warpgroups multiply the current one.  Each
+//      warpgroup runs the program on its rows: every product is a wgmma
+//      (64 x N, N = 16..256, f32 accumulators in registers) on an operand
+//      that stays in shared memory, written in place after the product,
+//      so one activation buffer serves the whole network.  The forward
+//      keeps each hidden layer's relu mask as bits in shared memory; the
+//      backward reads them there.  With the weight gradients, each layer's
+//      A and G are written to the workspace as whole 64-row blocks by one
+//      bulk store each (overlapping the next product), and each layer's
+//      bias-gradient column sums go to a per-warpgroup row of partials.
+//   2. pe_field_bwd_dw_kernel: dW_l = A_lᵀ·G_l as a split-K wgmma GEMM over
+//      the workspace, both operands MN-major straight from its blocks, 128
+//      weight rows a task, 64-row blocks loaded by bulk copies into a ring.
+//   3. column sums: the splits into dW, and the bias partials into db in
+//      two passes (64-row chunks, then the chunks), each in a fixed order.
+// Rows past N load zero cotangents, so they add nothing to dW or db.
 #include "bwd_layers.cuh"
-#include "pe_field.cuh"
+#include "wgmma_layers.cuh"
+
+#include <type_traits>
 
 namespace cropnerf {
+namespace pebwd {
 
-constexpr int DW_BM = 64;              // dW tile: weight rows (input features)
-constexpr int DW_BN = 64;              // dW tile: weight columns (outputs)
-constexpr int DW_RK = 32;              // rows of the batch staged per step
-constexpr int DW_LD = 64 + PAD;
-constexpr int DW_THREADS = (DW_BM / 16) * 32;
-constexpr int ROWS_PER_SPLIT = 2048;   // batch rows per split-K chunk
-
-// Column offsets of the workspace slots, a bf16 [n_pad, cols] matrix: the
-// encoding, the extras, each layer's bf16 output (act; -1 for the heads'
-// last layers, whose outputs the backward does not read) and each layer's
-// cotangent (g; -1 without the weight-gradient pass, which alone reads
-// them).  act of the last trunk layer is bf16(t), the heads' input (written
-// but not read without the heads).
-struct Slots {
-  int enc, ex, cols;
-  int act[MAX_LAYERS];
-  int g[MAX_LAYERS];
+// ---- the program (mirrors ops/cuda/pe_bwd_plan.py) --------------------------
+enum {
+  H_DIM, H_FREQS, H_ENC_COLS, H_ENC_PAD, H_DE, H_EX_PAD, H_T_COLS, H_RGB_COLS,
+  H_SEM_COLS, H_ACT_W, H_TB_W, H_MASK_WORDS, H_WS_COLS, H_ENC_SLOT, H_N_OPS,
+  H_N_TASKS, H_TOTAL_W, H_TOTAL_B, H_IMG_ELEMS, H_STORE, H_HEADER
+};
+enum {
+  O_KIND, O_N, O_K, O_A0, O_A1, O_KA, O_IMG, O_EPI, O_BOFF, O_NVALID, O_MASK,
+  O_WS, O_COL, OP_INTS
+};
+enum { FWD, EX, EMIT, BWD };
+enum { ACT, ENC, TB };
+enum { RELU, LINEAR };
+enum { G_MASKED, GT_ADD, DEX, GENC_SET, GENC_ADD };
+enum { SRC_GT, SRC_RGB, SRC_SEM };
+enum {
+  T_A_COL, T_A_W, T_I0, T_M_VALID, T_W_ROW0, T_G_COL, T_BN, T_N, T_W_OFF,
+  TASK_INTS
 };
 
-static Slots make_slots(const NetDesc& d, bool need_dw) {
-  Slots s;
-  int off = 0;
-  s.enc = off; off += d.enc_pad;
-  s.ex = off; off += d.ex_pad;
-  const int n = d.n_layers();
-  for (int l = 0; l < n; ++l) {
-    const bool last_head = d.n_color > 0 && (l == d.sem0() - 1 || l == n - 1);
-    s.act[l] = last_head ? -1 : off;
-    if (!last_head) off += d.L[l].n;
-  }
-  for (int l = 0; l < n; ++l) {
-    s.g[l] = need_dw ? off : -1;
-    if (need_dw) off += d.L[l].n;
-  }
-  s.cols = off;
-  return s;
-}
+constexpr int ROWS = 64;               // rows of a warpgroup, of a workspace block
+constexpr int TILE_ROWS = 2 * ROWS;
+constexpr int CONSUMERS = 256;         // two warpgroups
+constexpr int ALL_THREADS = CONSUMERS + 128;  // and the producer's warpgroup
+constexpr int DW_THREADS = CONSUMERS + 32;    // the dW pass: a producer warp
+constexpr int PRODUCER_REGS = 40;      // setmaxnreg: the producer gives
+constexpr int CONSUMER_REGS = 232;     // registers to the accumulators
+constexpr int SLAB_K = 32;             // weight rows per slab
+constexpr int SLAB_BYTES = SLAB_K * 256 * 2;
+constexpr int MAX_STAGES = 8;
+constexpr int MAX_N = 256;
+constexpr int SMEM_LIMIT = 232448;
+constexpr int CHUNK = 512;             // elements of an 8-column chunk of 64 rows
+constexpr int DW_A_BYTES = 128 * ROWS * 2;      // A: 128 weight rows of a block
+constexpr int DW_STAGE = DW_A_BYTES + MAX_N * ROWS * 2;
+constexpr int DW_STAGES = 4;
+constexpr int SPLIT_TARGET = 264;      // pe_bwd_plan.py SPLIT_TARGET
 
-// Slot and row range of layer l's input [A0 | A1] (A1 from row ka on).
-static void layer_inputs(const NetDesc& d, const Slots& s, int l, int* a0,
-                         int* a1) {
-  *a1 = -1;
-  if (l == 0) *a0 = s.enc;
-  else if (l == d.sem0()) *a0 = s.act[d.color0() - 1];
-  else *a0 = s.act[l - 1];
-  if (l == d.top0()) *a1 = s.enc;
-  if (l == d.color0()) *a1 = s.ex;
-}
+__host__ __device__ inline int al128(int b) { return (b + 127) & ~127; }
+__host__ __device__ inline long long lmax(long long a, long long b) { return a > b ? a : b; }
+__host__ __device__ inline long long lmin(long long a, long long b) { return a < b ? a : b; }
 
-struct BwdSmem {
-  int xs, enc, ex, tb, genc, gt, buf0, buf1, wslab, scratch, colsum, total;
+struct Layout {        // dynamic shared memory of the tile kernel, in bytes
+  int wg_bytes;        // one warpgroup's region
+  int xs, enc, tb, gt, genc, act, colsum;    // offsets inside it
+  int masks, ring, bars, stages, total;
 };
 
-// The forward's buffers (enc, ex, tb) and the backward's f32 cotangents of
-// the encoding and of t (genc, gt) share one region.
-__host__ __device__ inline BwdSmem bwd_smem_layout(const NetDesc& d) {
-  BwdSmem s;
+__host__ __device__ inline Layout tile_layout(const int* h) {
+  Layout s;
   int off = 0;
-  s.xs = off; off += align128(TILE * d.dim * 4);
+  s.xs = off; off += al128(ROWS * h[H_DIM] * 4);
   const int u = off;
-  s.enc = off; off += act_bytes(d.enc_pad);
-  s.ex = off; off += act_bytes(d.ex_pad);
-  s.tb = off; off += act_bytes(d.t_pad());
-  const int fwd_end = off;
-  off = u;
-  s.genc = off; off += align128(TILE * d.enc_pad * 4);
-  s.gt = off; off += align128(TILE * d.t_pad() * 4);
-  off = off > fwd_end ? off : fwd_end;
-  s.buf0 = off; off += act_bytes(d.hmax);
-  s.buf1 = off; off += act_bytes(d.hmax);
-  const int slab = slab_bytes(d.hmax);
-  const int slab_t = wt_slab_bytes(MAX_WIDTH);
-  s.wslab = off; off += slab > slab_t ? slab : slab_t;
-  s.scratch = off; off += SCRATCH_BYTES;
-  s.colsum = off; off += WARPS * MAX_WIDTH * 4;
-  s.total = off;
+  s.enc = off; off += al128(ROWS * h[H_ENC_PAD] * 2);
+  s.tb = off; off += al128(ROWS * h[H_TB_W] * 2);
+  s.gt = off; off += al128(ROWS * h[H_TB_W] * 4);
+  s.genc = u;                          // the backward's, over enc/tb/gt
+  off = (int)lmax(off, u + al128(ROWS * h[H_ENC_PAD] * 4));
+  s.act = off; off += al128(ROWS * h[H_ACT_W] * 2);
+  s.colsum = off; off += 4 * MAX_N * 4;
+  s.wg_bytes = off;
+  off = 2 * s.wg_bytes;
+  s.masks = off; off += al128(h[H_MASK_WORDS] * CONSUMERS * 4);
+  s.bars = off; off += 2 * MAX_STAGES * 8;
+  s.ring = al128(off);
+  s.stages = (int)lmin(MAX_STAGES, (SMEM_LIMIT - s.ring) / SLAB_BYTES);
+  s.total = s.ring + s.stages * SLAB_BYTES;
   return s;
 }
 
-// Forward epilogue: optional relu, bf16 into shared memory and into the
-// layer's workspace slot.
-struct ToSmemStash {
-  bf16* dst;
-  int ld;
-  bool relu;
+struct TileArgs {
+  const float *x, *ex, *g_t, *g_rgb, *g_sem;
+  float *dx, *dex;
+  const bf16* img;
+  const float* bias;
+  const int* ops;
   bf16* ws;
-  long long ws_ld, row0;
-  int col;
-  __device__ __forceinline__ void operator()(int r, int c, float v) const {
-    const bf16 h = __float2bfloat16_rn(relu ? fmaxf(v, 0.0f) : v);
-    dst[r * ld + c] = h;
-    ws[(row0 + r) * ws_ld + col + c] = h;
+  float* bpart;
+  long long n_rows, n_pad;
+  int h[H_HEADER];
+  Layout s;
+};
+
+// A 64-row chunk-major tile: element (r, c).
+__device__ __forceinline__ int cm(int r, int c) { return (c >> 3) * CHUNK + r * 8 + (c & 7); }
+
+// The calling thread's place in the wgmma accumulator layout.
+struct Lane {
+  int t, wg, warp, lane, r0, cq;
+  __device__ Lane() {
+    t = threadIdx.x & 127;
+    wg = threadIdx.x >> 7;
+    warp = t >> 5;
+    lane = t & 31;
+    r0 = warp * 16 + (lane >> 2);
+    cq = 2 * (lane & 3);
   }
 };
 
-// Backward epilogue of a layer's cotangent: the relu mask of the layer's
-// output, bf16 into the next product's operand and, for the weight-gradient
-// pass, into the workspace; the f32 value feeds the bias-gradient column
-// sum.
-template <bool STORE>    // keep G for the weight-gradient pass
-struct GEmit {
-  static constexpr bool kColsum = true;
-  bf16* gb;
-  int ldg;
-  bf16* ws;
-  long long ws_ld, row0;
-  int g_col, mask_col;   // mask_col -1: no activation after the layer
-  __device__ __forceinline__ float operator()(int r, int c, float v) const {
-    bf16* row = ws + (row0 + r) * ws_ld;
-    if (mask_col >= 0 && !(__bfloat162float(row[mask_col + c]) > 0.0f)) v = 0.0f;
-    const bf16 h = __float2bfloat16_rn(v);
-    gb[r * ldg + c] = h;
-    if (STORE) row[g_col + c] = h;
-    return v;
-  }
-};
-
-// HEADS: the trunk and both heads (fused_pe_nerf) or the trunk alone
-// (fused_pe_density); STORE: with the weight-gradient pass (G to the
-// workspace, per-tile bias sums).  Compile-time, so each variant keeps only
-// the work and the registers it needs.
-template <bool HEADS, bool STORE>
-__global__ void __launch_bounds__(THREADS, 1)
-pe_field_bwd_tile_kernel(const float* __restrict__ x, const float* __restrict__ ex,
-                         const float* __restrict__ g_t, const float* __restrict__ g_rgb,
-                         const float* __restrict__ g_sem, float* __restrict__ dx,
-                         float* __restrict__ dex, const bf16* __restrict__ w,
-                         const float* __restrict__ b, bf16* ws,
-                         float* __restrict__ bpart, const NetDesc d, const Slots sl,
-                         long long n_rows, int pass_sem, int total_b) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const BwdSmem s = bwd_smem_layout(d);
-  float* xs = reinterpret_cast<float*>(smem + s.xs);
-  bf16* enc = reinterpret_cast<bf16*>(smem + s.enc);
-  bf16* exs = reinterpret_cast<bf16*>(smem + s.ex);
-  bf16* tb = reinterpret_cast<bf16*>(smem + s.tb);
-  float* genc = reinterpret_cast<float*>(smem + s.genc);
-  float* gt = reinterpret_cast<float*>(smem + s.gt);
-  bf16* bufs[2] = {reinterpret_cast<bf16*>(smem + s.buf0),
-                   reinterpret_cast<bf16*>(smem + s.buf1)};
-  bf16* wslab = reinterpret_cast<bf16*>(smem + s.wslab);
-  float* scratch = reinterpret_cast<float*>(smem + s.scratch);
-  float* colsum = reinterpret_cast<float*>(smem + s.colsum);
-
-  const long long row0 = (long long)blockIdx.x * TILE;
-  const long long ws_ld = sl.cols;
-  float* bias_tile = STORE ? bpart + (size_t)blockIdx.x * total_b : nullptr;
-  auto bias_out = [&](int l) { return STORE ? bias_tile + d.L[l].b_off : nullptr; };
-  using Emit = GEmit<STORE>;
-
-  // ---- recompute the forward; stash every layer's input in the workspace
-  const long long n_x = n_rows * d.dim;
-  for (int i = threadIdx.x; i < TILE * d.dim; i += THREADS) {
-    const long long g = row0 * d.dim + i;
-    xs[i] = g < n_x ? x[g] : 0.0f;
-  }
-  const int ldx = d.ex_pad + PAD;
-  for (int i = threadIdx.x; i < TILE * d.ex_pad; i += THREADS) {
-    const int r = i / d.ex_pad;
-    const int c = i - r * d.ex_pad;
-    const float v = (c < d.de && row0 + r < n_rows) ? ex[(row0 + r) * d.de + c] : 0.0f;
-    const bf16 h = __float2bfloat16_rn(v);
-    exs[r * ldx + c] = h;
-    ws[(row0 + r) * ws_ld + sl.ex + c] = h;
-  }
-  __syncthreads();
-  const int lde = d.enc_pad + PAD;
-  const int sin_end = d.dim * (1 + d.num_freqs);
-  for (int i = threadIdx.x; i < TILE * d.enc_pad; i += THREADS) {
-    const int r = i / d.enc_pad;
-    const int c = i - r * d.enc_pad;
-    float v = 0.0f;
-    if (c < d.dim) {
-      v = xs[r * d.dim + c];
-    } else if (c < d.enc_cols) {
-      const int j = c < sin_end ? c - d.dim : c - sin_end;
-      const int f = j / d.dim;
-      const float pre = xs[r * d.dim + (j - f * d.dim)] * (float)(1 << f);
-      v = c < sin_end ? sinf(pre) : cosf(pre);
+// Column sums of a warpgroup's 64 rows: s[2j + p] holds this lane's two
+// rows of column 8j + cq + p.  A fixed reduce-scatter over the 8 lanes that
+// share columns leaves each column's 16-row sum in one lane, written to the
+// warp's row of `out`.
+template <int NV>
+__device__ __forceinline__ void warp_colsum(float (&s)[NV], float* out, int lane) {
+  int base = 0, dup = 0;
+  constexpr int C1 = NV >= 2 ? NV / 2 : 1;
+  constexpr int C2 = C1 >= 2 ? C1 / 2 : 1;
+  constexpr int C3 = C2 >= 2 ? C2 / 2 : 1;
+  auto step = [&](auto CNT, int m) {
+    constexpr int C = decltype(CNT)::value;
+    const bool hi = (lane & m) != 0;
+    if constexpr (C >= 2) {
+#pragma unroll
+      for (int i = 0; i < C / 2; ++i) {
+        const float send = hi ? s[i] : s[i + C / 2];
+        const float keep = hi ? s[i + C / 2] : s[i];
+        s[i] = keep + __shfl_xor_sync(0xffffffffu, send, m);
+      }
+      if (hi) base += C / 2;
+    } else {
+      s[0] += __shfl_xor_sync(0xffffffffu, s[0], m);
+      dup |= m;
     }
-    const bf16 h = __float2bfloat16_rn(v);
-    enc[r * lde + c] = h;
-    ws[(row0 + r) * ws_ld + sl.enc + c] = h;
-  }
-
-  const int ldh = d.hmax + PAD;
-  const int tp = d.t_pad();
-  const int ldt = tp + PAD;
-  int nb = 0;
-  const bf16* cur = enc;
-  int ldc = lde;
-  for (int l = 0; l < d.n_base; ++l) {             // base stack
-    bf16* dst = bufs[nb];
-    nb ^= 1;
-    dense_layer<MAXF>(cur, ldc, cur, ldc, w, b, d.L[l], wslab, scratch,
-                      ToSmemStash{dst, ldh, true, ws, ws_ld, row0, sl.act[l]});
-    cur = dst;
-    ldc = ldh;
-  }
-  for (int i = 0; i < d.n_top; ++i) {              // skip layer, top stack
-    const int l = d.top0() + i;
-    const bf16* a1 = i == 0 ? enc : cur;
-    const int lda1 = i == 0 ? lde : ldc;
-    const bool last = i == d.n_top - 1;
-    bf16* dst = last ? tb : bufs[nb];
-    if (!last) nb ^= 1;
-    dense_layer<MAXF>(cur, ldc, a1, lda1, w, b, d.L[l], wslab, scratch,
-                      ToSmemStash{dst, last ? ldt : ldh, !last, ws, ws_ld, row0,
-                                  sl.act[l]});
-    cur = dst;
-    ldc = last ? ldt : ldh;
-  }
-  for (int head = 0; head < 2; ++head) {           // the heads' hidden layers
-    const int first = head == 0 ? d.color0() : d.sem0();
-    const int count = head == 0 ? d.n_color : d.n_sem;
-    cur = tb;
-    ldc = ldt;
-    for (int i = 0; i < count - 1; ++i) {
-      const int l = first + i;
-      const bool cat = head == 0 && i == 0;        // colour layer 0: [tb | ex]
-      bf16* dst = bufs[nb];
-      nb ^= 1;
-      dense_layer<MAXF>(cur, ldc, cat ? exs : cur, cat ? ldx : ldc, w, b,
-                        d.L[l], wslab, scratch,
-                        ToSmemStash{dst, ldh, true, ws, ws_ld, row0, sl.act[l]});
-      cur = dst;
-      ldc = ldh;
-    }
-  }
-  __syncthreads();                                 // genc/gt alias enc/ex/tb
-
-  // ---- backward
-  for (int i = threadIdx.x; i < TILE * tp; i += THREADS) {
-    const int r = i / tp;
-    const int c = i - r * tp;
-    gt[i] = (c < d.t_cols && row0 + r < n_rows) ? g_t[(row0 + r) * d.t_cols + c] : 0.0f;
-  }
-  int gi = 0;
-  bf16* gcur = bufs[0];
-  for (int head = 0; head < (HEADS ? 2 : 0); ++head) {  // colour, then semantic
-    const int first = head == 0 ? d.color0() : d.sem0();
-    const int last = first + (head == 0 ? d.n_color : d.n_sem) - 1;
-    const float* g_in = head == 0 ? g_rgb : g_sem;
-    const int cols = head == 0 ? d.rgb_cols : d.sem_cols;
-    strip_apply(d.L[last].n,
-                [&](int r, int c) {
-                  return (c < cols && row0 + r < n_rows) ? g_in[(row0 + r) * cols + c]
-                                                         : 0.0f;
-                },
-                Emit{gcur, ldh, ws, ws_ld, row0, sl.g[last], -1}, colsum);
-    flush_colsum(colsum, d.L[last].n, bias_out(last));
-    for (int l = last; l > first; --l) {
-      bf16* gnext = bufs[gi ^ 1];
-      grad_input<MAXF>(gcur, ldh, w, d.L[l], 0, d.L[l].k, wslab, scratch, colsum,
-                       Emit{gnext, ldh, ws, ws_ld, row0, sl.g[l - 1], sl.act[l - 1]});
-      flush_colsum(colsum, d.L[l - 1].n, bias_out(l - 1));
-      gcur = gnext;
-      gi ^= 1;
-    }
-    const LayerDesc L0 = d.L[first];
-    if (head == 0) {
-      grad_input<MAXF>(gcur, ldh, w, L0, 0, L0.ka, wslab, scratch, colsum, AddF32{gt, tp});
-      grad_input<MAXF>(gcur, ldh, w, L0, L0.ka, L0.k - L0.ka, wslab, scratch,
-                       colsum, ToRows{dex, d.de, row0, n_rows});
-    } else if (pass_sem) {
-      grad_input<MAXF>(gcur, ldh, w, L0, 0, L0.k, wslab, scratch, colsum, AddF32{gt, tp});
-    }
-  }
-
-  const int t_last = d.color0() - 1;               // top stack
-  strip_apply(tp, [&](int r, int c) { return gt[r * tp + c]; },
-              Emit{gcur, ldh, ws, ws_ld, row0, sl.g[t_last], -1}, colsum);
-  flush_colsum(colsum, tp, bias_out(t_last));
-  for (int l = t_last; l > d.top0(); --l) {
-    bf16* gnext = bufs[gi ^ 1];
-    grad_input<MAXF>(gcur, ldh, w, d.L[l], 0, d.L[l].k, wslab, scratch, colsum,
-                     Emit{gnext, ldh, ws, ws_ld, row0, sl.g[l - 1], sl.act[l - 1]});
-    flush_colsum(colsum, d.L[l - 1].n, bias_out(l - 1));
-    gcur = gnext;
-    gi ^= 1;
-  }
-  const LayerDesc Ls = d.L[d.top0()];              // skip layer: [h | enc]
-  const int h_last = d.n_base - 1;
-  bf16* gnext = bufs[gi ^ 1];
-  grad_input<MAXF>(gcur, ldh, w, Ls, 0, Ls.ka, wslab, scratch, colsum,
-                   Emit{gnext, ldh, ws, ws_ld, row0, sl.g[h_last], sl.act[h_last]});
-  flush_colsum(colsum, d.L[h_last].n, bias_out(h_last));
-  grad_input<MAXF>(gcur, ldh, w, Ls, Ls.ka, Ls.k - Ls.ka, wslab, scratch, colsum,
-                   SetF32{genc, d.enc_pad});
-  gcur = gnext;
-  gi ^= 1;
-  for (int l = h_last; l > 0; --l) {               // base stack
-    gnext = bufs[gi ^ 1];
-    grad_input<MAXF>(gcur, ldh, w, d.L[l], 0, d.L[l].k, wslab, scratch, colsum,
-                     Emit{gnext, ldh, ws, ws_ld, row0, sl.g[l - 1], sl.act[l - 1]});
-    flush_colsum(colsum, d.L[l - 1].n, bias_out(l - 1));
-    gcur = gnext;
-    gi ^= 1;
-  }
-  grad_input<MAXF>(gcur, ldh, w, d.L[0], 0, d.L[0].k, wslab, scratch, colsum,
-                   AddF32{genc, d.enc_pad});
-  __syncthreads();
-
-  // dx = (d encode / d pre · g_enc) · Sᵀ
-  if (dx == nullptr) return;
-  for (int i = threadIdx.x; i < TILE * d.dim; i += THREADS) {
-    const int r = i / d.dim;
-    const int dd = i - r * d.dim;
-    if (row0 + r >= n_rows) continue;
-    const float xv = xs[r * d.dim + dd];
-    const float* ge = genc + r * d.enc_pad;
-    float acc = ge[dd];
-    for (int f = 0; f < d.num_freqs; ++f) {
-      const float scale = (float)(1 << f);
-      const float pre = xv * scale;
-      acc += ge[d.dim + f * d.dim + dd] * cosf(pre) * scale;
-      acc += -ge[sin_end + f * d.dim + dd] * sinf(pre) * scale;
-    }
-    dx[(row0 + r) * d.dim + dd] = acc;
+  };
+  step(std::integral_constant<int, NV>{}, 4);
+  step(std::integral_constant<int, C1>{}, 8);
+  step(std::integral_constant<int, C2>{}, 16);
+  if (lane & dup) return;
+#pragma unroll
+  for (int i = 0; i < C3; ++i) {
+    const int idx = base + i;
+    out[8 * (idx >> 1) + 2 * (lane & 3) + (idx & 1)] = s[i];
   }
 }
 
-// One layer of the split-K weight-gradient pass.
-struct DwLayer {
-  int a0, a1, ka, k, g, n, w_off, tiles_n, tiles;
-};
+template <bool STORE>
+struct Tile {
+  const TileArgs& a;
+  unsigned char* wgm;   // this warpgroup's region
+  uint32_t* masks;
+  unsigned char* ring;
+  uint64_t* full;
+  uint64_t* empty;
+  Lane ln;
+  long long row0;       // first row of the warpgroup
+  int slab = 0;
 
-struct DwArgs {
-  DwLayer L[MAX_LAYERS];
-};
+  __device__ bf16* act() const { return reinterpret_cast<bf16*>(wgm + a.s.act); }
+  __device__ bf16* enc() const { return reinterpret_cast<bf16*>(wgm + a.s.enc); }
+  __device__ bf16* tb() const { return reinterpret_cast<bf16*>(wgm + a.s.tb); }
+  __device__ float* gt() const { return reinterpret_cast<float*>(wgm + a.s.gt); }
+  __device__ float* genc() const { return reinterpret_cast<float*>(wgm + a.s.genc); }
+  __device__ float* xs() const { return reinterpret_cast<float*>(wgm + a.s.xs); }
+  __device__ float* colsum() const { return reinterpret_cast<float*>(wgm + a.s.colsum); }
+  __device__ bf16* buf(int id) const { return id == ACT ? act() : id == ENC ? enc() : tb(); }
+  __device__ void sync() const { named_sync(1 + ln.wg, 128); }
 
-// wpart[split, w_off + i·n + j] = sum over the split's rows r of
-// A[r, i] · G[r, j]: blockIdx.z the layer, blockIdx.y the split, blockIdx.x
-// a 64x64 output tile.  Aᵀ is a col_major wmma operand of the staged rows.
-__global__ void __launch_bounds__(DW_THREADS)
-pe_field_bwd_dw_kernel(const bf16* __restrict__ ws, long long ws_ld,
-                       long long n_pad, int rows_per_split,
-                       float* __restrict__ wpart, long long total_w,
-                       const DwArgs args) {
-  const DwLayer Ld = args.L[blockIdx.z];
-  if ((int)blockIdx.x >= Ld.tiles) return;
-  __shared__ __align__(128) bf16 as[DW_RK * DW_LD];
-  __shared__ __align__(128) bf16 gs[DW_RK * DW_LD];
-  const int warp = threadIdx.x >> 5;
-  const int i0 = (blockIdx.x / Ld.tiles_n) * DW_BM;
-  const int j0 = (blockIdx.x % Ld.tiles_n) * DW_BN;
-  const long long r_begin = (long long)blockIdx.y * rows_per_split;
-  const long long r_end = min(r_begin + rows_per_split, n_pad);
-  const bool m_ok = i0 + warp * 16 < Ld.k;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[DW_BN / 16];
-#pragma unroll
-  for (int f = 0; f < DW_BN / 16; ++f) wmma::fill_fragment(acc[f], 0.0f);
-
-  for (long long r0 = r_begin; r0 < r_end; r0 += DW_RK) {
-    __syncthreads();
-    for (int v = threadIdx.x; v < DW_RK * 8; v += DW_THREADS) {
-      const int rr = v >> 3;
-      const int q = (v & 7) * 8;
-      const bf16* row = ws + (r0 + rr) * ws_ld;
-      const int i = i0 + q;
-      const int j = j0 + q;
-      uint4 a = make_uint4(0u, 0u, 0u, 0u);
-      uint4 g = make_uint4(0u, 0u, 0u, 0u);
-      if (i < Ld.k)
-        a = __ldg(reinterpret_cast<const uint4*>(
-            row + (i < Ld.ka ? Ld.a0 + i : Ld.a1 + i - Ld.ka)));
-      if (j < Ld.n) g = __ldg(reinterpret_cast<const uint4*>(row + Ld.g + j));
-      *reinterpret_cast<uint4*>(as + rr * DW_LD + q) = a;
-      *reinterpret_cast<uint4*>(gs + rr * DW_LD + q) = g;
+  // Before the warpgroup overwrites a buffer: its bulk stores have read
+  // their sources and every warp's products have read their operands.
+  __device__ void before_write() const {
+    if (STORE && ln.t == 0) bulk_wait_read();
+    sync();
+  }
+  // After the warpgroup wrote `src` (width columns): visible to wgmma and
+  // the bulk engine; stored to workspace slot `col` unless col < 0.
+  __device__ void after_write(const bf16* src, int col, int width) const {
+    fence_async_smem();
+    sync();
+    if (STORE && col >= 0 && ln.t == 0) {
+      bf16* dst = a.ws + (long long)col * a.n_pad + (row0 / ROWS) * ROWS * width;
+      bulk_store(dst, src, ROWS * width * 2);
+      bulk_commit();
     }
-    __syncthreads();
-    if (m_ok) {
+  }
+
+  // acc = [A0 | A1] · B over the op's K, B streamed from the ring.
+  template <int N>
+  __device__ void product(const int* op, float (&acc)[N / 2]) {
+    const int K = op[O_K], ka = op[O_KA];
+    const uint32_t a0 = smem_u32(buf(op[O_A0])), a1 = smem_u32(buf(op[O_A1]));
+    const uint32_t r = smem_u32(ring);
+    const int S = a.s.stages;
 #pragma unroll
-      for (int kk = 0; kk < DW_RK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> af;
-        wmma::load_matrix_sync(af, as + kk * DW_LD + warp * 16, DW_LD);
+    for (int i = 0; i < N / 2; ++i) acc[i] = 0.0f;
+    fence_regs(acc);
+    const int first = slab, n_slabs = (K + SLAB_K - 1) / SLAB_K;
+    for (int s = 0; s < n_slabs; ++s) {
+      const int cur = first + s, stage = cur % S;
+      mbar_wait(&full[stage], (cur / S) & 1);
+      wgmma_fence();
+      const int k0 = s * SLAB_K, ks = min(SLAB_K, K - k0);
+      for (int kk = 0; kk < ks; kk += 16) {
+        const int kg = k0 + kk;
+        const uint32_t abase = kg < ka ? a0 + (kg >> 3) * 1024 : a1 + ((kg - ka) >> 3) * 1024;
+        const uint64_t da = gmma_desc(abase, 1024, 128);
+        const uint64_t db = gmma_desc(r + stage * SLAB_BYTES + (kk >> 3) * N * 16, N * 16, 128);
+        Wgmma<N, 0, 0>::mma(acc, da, db, 1);
+      }
+      wgmma_commit();
+      if (s > 0) {
+        wgmma_wait<1>();
+        if (ln.lane == 0) mbar_arrive(&empty[(cur - 1) % S]);
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (ln.lane == 0) mbar_arrive(&empty[(first + n_slabs - 1) % S]);
+    slab = first + n_slabs;
+  }
+
+  // A cotangent tile into the act buffer in place: the relu mask of `mask`
+  // (-1: none), bf16 for the next product, f32 column sums for the bias
+  // gradient, the workspace slot.
+  template <int N>
+  __device__ void emit_g(const int* op, float (&v)[N / 2]) {
+    constexpr int W = (N + 63) / 64;
+    uint32_t mw[W];
+    const int mask = op[O_MASK];
 #pragma unroll
-        for (int f = 0; f < DW_BN / 16; ++f) {
-          if (j0 + f * 16 < Ld.n) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-            wmma::load_matrix_sync(bfr, gs + kk * DW_LD + f * 16, DW_LD);
-            wmma::mma_sync(acc[f], af, bfr, acc[f]);
-          }
-        }
+    for (int w = 0; w < W; ++w)
+      mw[w] = mask >= 0 ? masks[(mask + w) * CONSUMERS + threadIdx.x] : 0xffffffffu;
+    before_write();
+    bf16* dst = act();
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const uint32_t bits = mw[j >> 3] >> ((j & 7) * 4);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (!((bits >> q) & 1)) v[4 * j + q] = 0.0f;
+      const int c = 8 * j + ln.cq;
+      *reinterpret_cast<__nv_bfloat162*>(dst + cm(ln.r0, c)) =
+          __floats2bfloat162_rn(v[4 * j], v[4 * j + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dst + cm(ln.r0 + 8, c)) =
+          __floats2bfloat162_rn(v[4 * j + 2], v[4 * j + 3]);
+    }
+    const int boff = op[O_BOFF];
+    if (STORE && boff >= 0) {
+      float s[N / 4];
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+        s[2 * j] = v[4 * j] + v[4 * j + 2];
+        s[2 * j + 1] = v[4 * j + 1] + v[4 * j + 3];
+      }
+      warp_colsum<N / 4>(s, colsum() + ln.warp * MAX_N, ln.lane);
+    }
+    after_write(dst, op[O_WS], N);
+    if (STORE && boff >= 0) {
+      const float* cs = colsum();
+      float* out = a.bpart + (long long)(blockIdx.x * 2 + ln.wg) * a.h[H_TOTAL_B] + boff;
+      for (int c = ln.t; c < op[O_NVALID]; c += 128)
+        out[c] = ((cs[c] + cs[MAX_N + c]) + cs[2 * MAX_N + c]) + cs[3 * MAX_N + c];
+    }
+  }
+
+  template <int N>
+  __device__ void forward_epilogue(const int* op, float (&v)[N / 2]) {
+    const bool relu = op[O_EPI] == RELU;
+    const float* bias = a.bias + op[O_BOFF];
+    const int nvalid = op[O_NVALID];
+    constexpr int W = (N + 63) / 64;
+    uint32_t mw[W];
+#pragma unroll
+    for (int w = 0; w < W; ++w) mw[w] = 0;
+    before_write();
+    bf16* dst = relu ? act() : tb();
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const int c = 8 * j + ln.cq;
+      const float b0 = c < nvalid ? __ldg(bias + c) : 0.0f;
+      const float b1 = c + 1 < nvalid ? __ldg(bias + c + 1) : 0.0f;
+      float y[4] = {v[4 * j] + b0, v[4 * j + 1] + b1, v[4 * j + 2] + b0, v[4 * j + 3] + b1};
+      if (relu) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) y[q] = fmaxf(y[q], 0.0f);
+      }
+      const __nv_bfloat162 h0 = __floats2bfloat162_rn(y[0], y[1]);
+      const __nv_bfloat162 h1 = __floats2bfloat162_rn(y[2], y[3]);
+      *reinterpret_cast<__nv_bfloat162*>(dst + cm(ln.r0, c)) = h0;
+      *reinterpret_cast<__nv_bfloat162*>(dst + cm(ln.r0 + 8, c)) = h1;
+      const uint32_t bits = (__bfloat162float(h0.x) > 0.0f) | (__bfloat162float(h0.y) > 0.0f) << 1 |
+                            (__bfloat162float(h1.x) > 0.0f) << 2 |
+                            (__bfloat162float(h1.y) > 0.0f) << 3;
+      mw[j >> 3] |= bits << ((j & 7) * 4);
+    }
+    if (op[O_MASK] >= 0) {
+#pragma unroll
+      for (int w = 0; w < W; ++w) masks[(op[O_MASK] + w) * CONSUMERS + threadIdx.x] = mw[w];
+    }
+    after_write(dst, op[O_WS], N);
+  }
+
+  // f32 into a chunk-major f32 tile (set or add), columns from `col`.
+  template <int N>
+  __device__ void to_f32(float* dst, int col, bool add, const float (&v)[N / 2]) {
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const int c = col + 8 * j + ln.cq;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float2* p = reinterpret_cast<float2*>(dst + cm(ln.r0 + 8 * h, c));
+        float2 o = add ? *p : make_float2(0.0f, 0.0f);
+        o.x += v[4 * j + 2 * h];
+        o.y += v[4 * j + 2 * h + 1];
+        *p = o;
       }
     }
   }
-  if (!m_ok) return;
-  float* out = wpart + (size_t)blockIdx.y * total_w + Ld.w_off +
-               (size_t)(i0 + warp * 16) * Ld.n;
-#pragma unroll
-  for (int f = 0; f < DW_BN / 16; ++f)
-    if (j0 + f * 16 < Ld.n)
-      wmma::store_matrix_sync(out + j0 + f * 16, acc[f], Ld.n, wmma::mem_row_major);
-}
 
-struct BwdPlan {
-  NetDesc d;
-  Slots sl;
-  long long n_pad, n_tiles, splits, total_w, total_b;
+  template <int N>
+  __device__ void run_product(const int* op) {
+    float acc[N / 2];
+    product<N>(op, acc);
+    if (op[O_KIND] == FWD) {
+      forward_epilogue<N>(op, acc);
+      return;
+    }
+    const int epi = op[O_EPI];
+    if (epi == G_MASKED) {
+      emit_g<N>(op, acc);
+      return;
+    }
+    before_write();
+    if (epi == DEX) {
+      const int de = a.h[H_DE];
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+        const int c = op[O_COL] + 8 * j + ln.cq;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const long long row = row0 + ln.r0 + 8 * (q >> 1);
+          if (c + (q & 1) < de && row < a.n_rows) a.dex[row * de + c + (q & 1)] = acc[4 * j + q];
+        }
+      }
+    } else if (epi == GT_ADD) {
+      to_f32<N>(gt(), op[O_COL], true, acc);
+    } else {
+      to_f32<N>(genc(), op[O_COL], epi == GENC_ADD, acc);
+    }
+    fence_async_smem();
+    sync();
+  }
+
+  // A cotangent from the trunk output's f32 tile or from a head's input.
+  template <int N>
+  __device__ void emit(const int* op) {
+    float v[N / 2];
+    const int src = op[O_EPI];
+    const float* g = src == SRC_RGB ? a.g_rgb : a.g_sem;
+    const int cols = src == SRC_RGB ? a.h[H_RGB_COLS] : a.h[H_SEM_COLS];
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int r = ln.r0 + 8 * (q >> 1), c = 8 * j + ln.cq + (q & 1);
+        if (src == SRC_GT) {
+          v[4 * j + q] = gt()[cm(r, c)];
+        } else {
+          const long long row = row0 + r;
+          v[4 * j + q] = (c < cols && row < a.n_rows) ? g[row * cols + c] : 0.0f;
+        }
+      }
+    }
+    emit_g<N>(op, v);
+  }
+
+  __device__ void load_extras(const int* op) {
+    before_write();
+    bf16* dst = act();
+    const int de = a.h[H_DE], w = op[O_N];
+    for (int i = ln.t; i < ROWS * w; i += 128) {
+      const int r = i / w, c = i - r * w;
+      const long long row = row0 + r;
+      dst[cm(r, c)] = __float2bfloat16_rn((c < de && row < a.n_rows) ? a.ex[row * de + c] : 0.0f);
+    }
+    after_write(dst, op[O_WS], w);
+  }
+
+  __device__ void prologue() {
+    const int dim = a.h[H_DIM], F = a.h[H_FREQS], enc_cols = a.h[H_ENC_COLS];
+    const int enc_pad = a.h[H_ENC_PAD], tw = a.h[H_TB_W], t_cols = a.h[H_T_COLS];
+    float* x = xs();
+    for (int i = ln.t; i < ROWS * dim; i += 128) {
+      const long long g = row0 * dim + i;
+      x[i] = g < a.n_rows * dim ? a.x[g] : 0.0f;
+    }
+    for (int i = ln.t; i < ROWS * tw; i += 128) {
+      const int r = i / tw, c = i - r * tw;
+      const long long row = row0 + r;
+      gt()[cm(r, c)] = (c < t_cols && row < a.n_rows) ? a.g_t[row * t_cols + c] : 0.0f;
+    }
+    sync();
+    bf16* e = enc();
+    const int sin_end = dim * (1 + F);
+    for (int i = ln.t; i < ROWS * enc_pad; i += 128) {
+      const int r = i / enc_pad, c = i - r * enc_pad;
+      float v = 0.0f;
+      if (c < dim) {
+        v = x[r * dim + c];
+      } else if (c < enc_cols) {
+        const int j = c < sin_end ? c - dim : c - sin_end;
+        const int f = j / dim;
+        const float pre = x[r * dim + (j - f * dim)] * (float)(1 << f);
+        v = c < sin_end ? sinf(pre) : cosf(pre);
+      }
+      e[cm(r, c)] = __float2bfloat16_rn(v);
+    }
+    after_write(e, a.h[H_ENC_SLOT], enc_pad);
+  }
+
+  __device__ void run() {
+    prologue();
+    const int n_ops = a.h[H_N_OPS];
+    for (int o = 0; o < n_ops; ++o) {
+      int op[OP_INTS];
+#pragma unroll
+      for (int i = 0; i < OP_INTS; ++i) op[i] = __ldg(a.ops + o * OP_INTS + i);
+      const int kind = op[O_KIND];
+      if (kind == EX) {
+        load_extras(op);
+        continue;
+      }
+      switch (op[O_N]) {
+#define CROPNERF_CASE(NN)                            \
+  case NN:                                           \
+    if (kind == EMIT) emit<NN>(op);                  \
+    else run_product<NN>(op);                        \
+    break;
+        CROPNERF_CASE(16)
+        CROPNERF_CASE(32)
+        CROPNERF_CASE(64)
+        CROPNERF_CASE(128)
+        CROPNERF_CASE(256)
+#undef CROPNERF_CASE
+      }
+    }
+  }
 };
 
-// heads = false plans the trunk alone (fused_pe_density's backward);
-// need_dw = false leaves the cotangent slots out of the workspace.
-static bool plan(const int* meta, int meta_len, long long n_rows, bool heads,
-                 bool need_dw, BwdPlan* p) {
-  if (!parse(meta, meta_len, heads, &p->d)) return false;
-  const NetDesc& d = p->d;
-  const int n = d.n_layers();
-  // the wrapper's packing: the encoding feeds layer 0 and the skip layer;
-  // heads after the trunk, layer 0 of each head on the padded trunk output
-  if (d.L[d.top0()].k - d.L[d.top0()].ka != d.enc_pad || d.L[0].k != d.enc_pad)
+// dx = (d encode / d pre · g_enc) · Sᵀ over a warpgroup's rows; one
+// function for both tile-kernel variants, so dx alone is bit-equal to the
+// dx of the full backward.
+__device__ __noinline__ void dx_rows(const float* xs, const float* genc, float* dx,
+                                     long long row0, long long n_rows, int dim, int F, int t) {
+  const int sin_end = dim * (1 + F);
+  for (int i = t; i < ROWS * dim; i += 128) {
+    const int r = i / dim;
+    const int dd = i - r * dim;
+    if (row0 + r >= n_rows) continue;
+    const float xv = xs[r * dim + dd];
+    float acc = genc[cm(r, dd)];
+    for (int f = 0; f < F; ++f) {
+      const float scale = (float)(1 << f);
+      const float pre = xv * scale;
+      acc += genc[cm(r, dim + f * dim + dd)] * cosf(pre) * scale;
+      acc += -genc[cm(r, sin_end + f * dim + dd)] * sinf(pre) * scale;
+    }
+    dx[(row0 + r) * dim + dd] = acc;
+  }
+}
+
+template <bool STORE>
+__global__ void __launch_bounds__(ALL_THREADS, 1)
+pe_field_bwd_tile_kernel(const __grid_constant__ TileArgs a) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + a.s.bars);
+  uint64_t* empty = full + MAX_STAGES;
+  const int S = a.s.stages;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], CONSUMERS / 32);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {      // the producer: the weight slabs, in order
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x != CONSUMERS) return;
+    unsigned char* ring = smem + a.s.ring;
+    int slab = 0;
+    for (int o = 0; o < a.h[H_N_OPS]; ++o) {
+      const int* op = a.ops + o * OP_INTS;
+      const int kind = __ldg(op + O_KIND);
+      if (kind != FWD && kind != BWD) continue;
+      const int N = __ldg(op + O_N), K = __ldg(op + O_K);
+      const bf16* src = a.img + __ldg(op + O_IMG);
+      for (int k0 = 0; k0 < K; k0 += SLAB_K, ++slab) {
+        const int stage = slab % S;
+        mbar_wait(&empty[stage], ((slab / S) & 1) ^ 1);
+        const uint32_t bytes = (uint32_t)(min(SLAB_K, K - k0) * N * 2);
+        mbar_expect_tx(&full[stage], bytes);
+        bulk_load(ring + stage * SLAB_BYTES, src + (long long)k0 * N, bytes, &full[stage]);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<CONSUMER_REGS>();
+
+  Tile<STORE> tile{a, smem + (threadIdx.x >> 7) * a.s.wg_bytes,
+                   reinterpret_cast<uint32_t*>(smem + a.s.masks), smem + a.s.ring, full, empty};
+  tile.row0 = (long long)blockIdx.x * TILE_ROWS + tile.ln.wg * ROWS;
+  tile.run();
+  if (a.dx != nullptr)
+    dx_rows(tile.xs(), tile.genc(), a.dx, tile.row0, a.n_rows, a.h[H_DIM], a.h[H_FREQS],
+            tile.ln.t);
+  if (STORE && tile.ln.t == 0) bulk_wait();
+}
+
+// ---- the weight-gradient pass -------------------------------------------------
+
+struct DwArgs {
+  const bf16* ws;
+  const int* tasks;
+  float* wpart;
+  long long n_pad, n_blocks, total_w;
+  int per_split;       // 64-row blocks per split
+};
+
+// One task over one split: wpart[split, w_off + (w_row0 + i) n + j] =
+// sum over the split's rows r of A[r, i0 + i] G[r, j], i < m_valid, j < n.
+// Warpgroup w takes i in [64w, 64w + 64).
+template <int BN>
+__device__ void dw_task(const DwArgs& a, const int* t, unsigned char* ring, uint64_t* full,
+                        uint64_t* empty, long long b0, long long b1) {
+  const Lane ln;
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+  fence_regs(acc);
+  const uint32_t r = smem_u32(ring);
+  const int nb = (int)(b1 - b0);
+  for (int s = 0; s < nb; ++s) {
+    const int stage = s % DW_STAGES;
+    mbar_wait(&full[stage], (s / DW_STAGES) & 1);
+    wgmma_fence();
+    const uint32_t sa = r + stage * DW_STAGE + ln.wg * (DW_A_BYTES / 2);
+    const uint32_t sg = r + stage * DW_STAGE + DW_A_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < ROWS; kk += 16) {
+      const uint64_t da = gmma_desc(sa + (kk >> 3) * 128, 128, 1024);
+      const uint64_t db = gmma_desc(sg + (kk >> 3) * 128, 128, 1024);
+      Wgmma<BN, 1, 1>::mma(acc, da, db, 1);
+    }
+    wgmma_commit();
+    if (s > 0) {
+      wgmma_wait<1>();
+      if (ln.lane == 0) mbar_arrive(&empty[(s - 1) % DW_STAGES]);
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  const int n = t[T_N], m_valid = t[T_M_VALID];
+  float* out = a.wpart + (long long)blockIdx.y * a.total_w + t[T_W_OFF];
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = 8 * j + ln.cq;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = ln.wg * ROWS + ln.r0 + 8 * h;
+      if (i < m_valid && c < n) {
+        float* p = out + (long long)(t[T_W_ROW0] + i) * n + c;
+        *reinterpret_cast<float2*>(p) = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(DW_THREADS, 1)
+pe_field_bwd_dw_kernel(const __grid_constant__ DwArgs a) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + DW_STAGES * DW_STAGE);
+  uint64_t* empty = full + DW_STAGES;
+  int t[TASK_INTS];
+#pragma unroll
+  for (int i = 0; i < TASK_INTS; ++i) t[i] = __ldg(a.tasks + blockIdx.x * TASK_INTS + i);
+  const long long b0 = (long long)blockIdx.y * a.per_split;
+  const long long b1 = lmin(b0 + a.per_split, a.n_blocks);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < DW_STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], CONSUMERS / 32);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int BN = t[T_BN];
+  if (threadIdx.x >= CONSUMERS) {      // the producer: A and G of each block
+    if (threadIdx.x != CONSUMERS) return;
+    const uint32_t g_bytes = (uint32_t)(BN * ROWS * 2);
+    for (long long b = b0; b < b1; ++b) {
+      const int s = (int)(b - b0), stage = s % DW_STAGES;
+      mbar_wait(&empty[stage], ((s / DW_STAGES) & 1) ^ 1);
+      mbar_expect_tx(&full[stage], DW_A_BYTES + g_bytes);
+      unsigned char* dst = smem + stage * DW_STAGE;
+      const bf16* pa = a.ws + (long long)t[T_A_COL] * a.n_pad + b * ROWS * t[T_A_W] +
+                       (t[T_I0] >> 3) * CHUNK;
+      const bf16* pg = a.ws + (long long)t[T_G_COL] * a.n_pad + b * ROWS * BN;
+      bulk_load(dst, pa, DW_A_BYTES, &full[stage]);
+      bulk_load(dst + DW_A_BYTES, pg, g_bytes, &full[stage]);
+    }
+    return;
+  }
+  switch (BN) {
+    case 16: dw_task<16>(a, t, smem, full, empty, b0, b1); break;
+    case 32: dw_task<32>(a, t, smem, full, empty, b0, b1); break;
+    case 64: dw_task<64>(a, t, smem, full, empty, b0, b1); break;
+    case 128: dw_task<128>(a, t, smem, full, empty, b0, b1); break;
+    case 256: dw_task<256>(a, t, smem, full, empty, b0, b1); break;
+  }
+}
+
+// partial[k, c] = sum of src[r, c] over rows r of chunk k, in order: the
+// first of two fixed-order passes over a tall [rows, cols] matrix (the
+// bias partials, two rows a tile), the second being column_sum over the
+// chunks.
+constexpr int SUM_CHUNK = 64;
+
+__global__ void chunk_sum_kernel(const float* __restrict__ src, long long rows, long long cols,
+                                 float* __restrict__ partial) {
+  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= cols) return;
+  const long long r0 = (long long)blockIdx.y * SUM_CHUNK;
+  const long long r1 = lmin(r0 + SUM_CHUNK, rows);
+  float s = 0.0f;
+  for (long long r = r0; r < r1; ++r) s += src[r * cols + c];
+  partial[blockIdx.y * cols + c] = s;
+}
+
+// The program's header, checked; the split plan of the weight-gradient
+// pass (pe_bwd_plan.py dw_splits).
+struct Plan {
+  const int* h;
+  long long n_tiles, n_pad, n_blocks, splits, per_split;
+};
+
+static bool plan(const int* prog, int prog_len, long long n_rows, Plan* p) {
+  if (prog_len < H_HEADER) return false;
+  const int* h = prog;
+  p->h = h;
+  if (prog_len != H_HEADER + h[H_N_OPS] * OP_INTS + h[H_N_TASKS] * TASK_INTS) return false;
+  if (h[H_DIM] < 1 || h[H_FREQS] < 0 || h[H_FREQS] > 30 || h[H_ENC_PAD] % 16 ||
+      h[H_ACT_W] > MAX_N || h[H_ACT_W] % 16 || h[H_TB_W] > MAX_N || h[H_EX_PAD] > h[H_ACT_W] ||
+      h[H_ENC_PAD] > h[H_ACT_W])
     return false;
-  if (heads && (d.L[d.color0()].ka != d.t_pad() ||
-                d.L[d.color0()].k != d.t_pad() + d.ex_pad || d.L[d.sem0()].k != d.t_pad()))
-    return false;
-  p->sl = make_slots(d, need_dw);
-  p->n_tiles = (n_rows + TILE - 1) / TILE;
-  p->n_pad = p->n_tiles * TILE;
-  p->splits = (p->n_pad + ROWS_PER_SPLIT - 1) / ROWS_PER_SPLIT;
-  const LayerDesc& Ln = d.L[n - 1];
-  p->total_w = (long long)Ln.w_off + (long long)Ln.k * Ln.n;
-  p->total_b = (long long)Ln.b_off + Ln.n;
+  const int* ops = prog + H_HEADER;
+  for (int o = 0; o < h[H_N_OPS]; ++o) {
+    const int* op = ops + o * OP_INTS;
+    const int N = op[O_N];
+    if (N != 16 && N != 32 && N != 64 && N != 128 && N != 256 && op[O_KIND] != EX) return false;
+    if ((op[O_KIND] == FWD || op[O_KIND] == BWD) && (op[O_K] <= 0 || op[O_K] % 16 ||
+                                                    op[O_KA] % 16))
+      return false;
+  }
+  const int* tasks = ops + h[H_N_OPS] * OP_INTS;
+  for (int i = 0; i < h[H_N_TASKS]; ++i) {
+    const int bn = tasks[i * TASK_INTS + T_BN];
+    if (bn != 16 && bn != 32 && bn != 64 && bn != 128 && bn != 256) return false;
+  }
+  if (tile_layout(h).stages < 2) return false;
+  p->n_tiles = (n_rows + TILE_ROWS - 1) / TILE_ROWS;
+  p->n_pad = p->n_tiles * TILE_ROWS;
+  p->n_blocks = p->n_pad / ROWS;
+  const long long n_tasks = lmax(h[H_N_TASKS], 1);
+  const long long want = lmax(1, (SPLIT_TARGET + n_tasks - 1) / n_tasks);
+  p->per_split = lmax(1, (p->n_blocks + want - 1) / want);
+  p->splits = (p->n_blocks + p->per_split - 1) / p->per_split;
   return true;
 }
 
+}  // namespace pebwd
 }  // namespace cropnerf
 
 // Sizes of the buffers the wrapper allocates for cropnerf_pe_field_bwd:
-// out[0] bf16 workspace elements (fewer without the weight gradients),
-// out[1] f32 bias partials, out[2] f32 weight partials, out[3] packed
-// weights, out[4] packed biases.  Returns 0, or -1 where the layout is
-// rejected.
-extern "C" int cropnerf_pe_field_bwd_sizes(const int* meta, int meta_len,
-                                           long long n_rows, int heads,
-                                           int need_dw, long long* out) {
-  using namespace cropnerf;
-  BwdPlan p;
-  if (!plan(meta, meta_len, n_rows, heads != 0, need_dw != 0, &p)) return -1;
-  out[0] = p.n_pad * p.sl.cols;
-  out[1] = p.n_tiles * p.total_b;
-  out[2] = p.splits * p.total_w;
-  out[3] = p.total_w;
-  out[4] = p.total_b;
+// out[0] bf16 workspace elements (0 without the weight gradients), out[1]
+// f32 bias partials (and their chunk sums), out[2] f32 weight partials, out[3] packed weights,
+// out[4] packed biases.  Returns 0, or -1 where the program is rejected.
+extern "C" int cropnerf_pe_field_bwd_sizes(const int* prog, int prog_len, long long n_rows,
+                                           long long* out) {
+  using namespace cropnerf::pebwd;
+  Plan p;
+  if (!plan(prog, prog_len, n_rows, &p)) return -1;
+  const int* h = p.h;
+  const bool store = h[H_STORE] != 0;
+  out[0] = store ? (long long)h[H_WS_COLS] * p.n_pad + ROWS * 128 : 0;
+  out[1] = store ? (p.n_tiles * 2 + (p.n_tiles * 2 + SUM_CHUNK - 1) / SUM_CHUNK) * h[H_TOTAL_B]
+                 : 0;
+  out[2] = store ? p.splits * (long long)h[H_TOTAL_W] : 0;
+  out[3] = h[H_TOTAL_W];
+  out[4] = h[H_TOTAL_B];
   return 0;
 }
 
-// Dynamic shared memory of the tile kernel (-1 where the layout is rejected).
-extern "C" int cropnerf_pe_field_bwd_smem_bytes(const int* meta, int meta_len,
-                                                int heads) {
-  using namespace cropnerf;
-  BwdPlan p;
-  if (!plan(meta, meta_len, 1, heads != 0, true, &p)) return -1;
-  return bwd_smem_layout(p.d).total;
+// Dynamic shared memory of the tile kernel (-1 where the program is
+// rejected).
+extern "C" int cropnerf_pe_field_bwd_smem_bytes(const int* prog, int prog_len) {
+  using namespace cropnerf::pebwd;
+  Plan p;
+  if (!plan(prog, prog_len, 1, &p)) return -1;
+  return tile_layout(p.h).total;
 }
 
 // Launches the backward on `stream`; returns a cudaError_t (0 on success).
-// Device pointers except `meta`; ws, bpart and wpart are scratch of the
-// sizes above; dw and db receive the packed f32 weight and bias gradients.
-// Without the heads ex, g_rgb, g_sem and dex are not read (null).  A null
-// dx skips dx; null bpart, wpart, dw and db skip the weight gradients
-// (trunk only: the heads always take them).
-extern "C" int cropnerf_pe_field_bwd(
-    const float* x, const float* ex, const float* g_t, const float* g_rgb,
-    const float* g_sem, float* dx, float* dex, const void* w, const float* b,
-    const int* meta, int meta_len, long long n_rows, int heads, int pass_sem,
-    void* ws, float* bpart, float* wpart, float* dw, float* db, void* stream) {
-  using namespace cropnerf;
-  const bool need_dw = wpart != nullptr;
-  if (need_dw && (bpart == nullptr || dw == nullptr || db == nullptr))
-    return (int)cudaErrorInvalidValue;
-  BwdPlan p;
-  if (!plan(meta, meta_len, n_rows, heads != 0, need_dw, &p))
+// `prog` is the program on the host, `prog_dev` the same ints on the device;
+// every other pointer is on the device.  ws, bpart and wpart are scratch of
+// the sizes above; dw and db receive the packed f32 weight and bias
+// gradients.  Without the heads ex, g_rgb, g_sem and dex are not read
+// (null).  A null dx skips dx.
+extern "C" int cropnerf_pe_field_bwd(const float* x, const float* ex, const float* g_t,
+                                     const float* g_rgb, const float* g_sem, float* dx,
+                                     float* dex, const void* img, const float* b,
+                                     const int* prog, const int* prog_dev, int prog_len,
+                                     long long n_rows, void* ws, float* bpart, float* wpart,
+                                     float* dw, float* db, void* stream) {
+  using namespace cropnerf::pebwd;
+  Plan p;
+  if (!plan(prog, prog_len, n_rows, &p)) return (int)cudaErrorInvalidValue;
+  const int* h = p.h;
+  const bool store = h[H_STORE] != 0;
+  if (store && (ws == nullptr || bpart == nullptr || wpart == nullptr || dw == nullptr ||
+                db == nullptr))
     return (int)cudaErrorInvalidValue;
   if (n_rows <= 0) return 0;
-  const NetDesc& d = p.d;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const bf16* wb = reinterpret_cast<const bf16*>(w);
-  bf16* wsb = reinterpret_cast<bf16*>(ws);
 
-  if (heads && !need_dw) return (int)cudaErrorInvalidValue;   // not built
-  const int smem = bwd_smem_layout(d).total;
-  auto kernel = heads ? pe_field_bwd_tile_kernel<true, true>
-                : need_dw ? pe_field_bwd_tile_kernel<false, true>
-                          : pe_field_bwd_tile_kernel<false, false>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  TileArgs ta;
+  ta.x = x; ta.ex = ex; ta.g_t = g_t; ta.g_rgb = g_rgb; ta.g_sem = g_sem;
+  ta.dx = dx; ta.dex = dex;
+  ta.img = reinterpret_cast<const cropnerf::bf16*>(img);
+  ta.bias = b;
+  ta.ops = prog_dev + H_HEADER;
+  ta.ws = reinterpret_cast<cropnerf::bf16*>(ws);
+  ta.bpart = bpart;
+  ta.n_rows = n_rows;
+  ta.n_pad = p.n_pad;
+  for (int i = 0; i < H_HEADER; ++i) ta.h[i] = h[i];
+  ta.s = tile_layout(h);
+  auto kernel = store ? pe_field_bwd_tile_kernel<true> : pe_field_bwd_tile_kernel<false>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ta.s.total);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<(unsigned)p.n_tiles, THREADS, smem, s>>>(
-      x, ex, g_t, g_rgb, g_sem, dx, dex, wb, b, wsb, bpart, d, p.sl, n_rows,
-      pass_sem, (int)p.total_b);
+  kernel<<<(unsigned)p.n_tiles, ALL_THREADS, ta.s.total, s>>>(ta);
   e = cudaGetLastError();
-  if (e != cudaSuccess || !need_dw) return (int)e;
+  if (e != cudaSuccess || !store) return (int)e;
 
-  DwArgs args;
-  int max_tiles = 0;
-  const int n = d.n_layers();
-  for (int l = 0; l < n; ++l) {
-    DwLayer& o = args.L[l];
-    layer_inputs(d, p.sl, l, &o.a0, &o.a1);
-    o.ka = d.L[l].ka;
-    o.k = d.L[l].k;
-    o.g = p.sl.g[l];
-    o.n = d.L[l].n;
-    o.w_off = d.L[l].w_off;
-    o.tiles_n = (o.n + DW_BN - 1) / DW_BN;
-    o.tiles = o.tiles_n * ((o.k + DW_BM - 1) / DW_BM);
-    max_tiles = o.tiles > max_tiles ? o.tiles : max_tiles;
-  }
-  pe_field_bwd_dw_kernel<<<dim3(max_tiles, (unsigned)p.splits, n), DW_THREADS, 0, s>>>(
-      wsb, p.sl.cols, p.n_pad, ROWS_PER_SPLIT, wpart, p.total_w, args);
+  DwArgs da;
+  da.ws = ta.ws;
+  da.tasks = prog_dev + H_HEADER + h[H_N_OPS] * OP_INTS;
+  da.wpart = wpart;
+  da.n_pad = p.n_pad;
+  da.n_blocks = p.n_blocks;
+  da.total_w = h[H_TOTAL_W];
+  da.per_split = (int)p.per_split;
+  const int dw_smem = DW_STAGES * DW_STAGE + 2 * DW_STAGES * 8;
+  e = cudaFuncSetAttribute(pe_field_bwd_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           dw_smem);
+  if (e != cudaSuccess) return (int)e;
+  pe_field_bwd_dw_kernel<<<dim3((unsigned)h[H_N_TASKS], (unsigned)p.splits), DW_THREADS,
+                           dw_smem, s>>>(da);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 
-  const int err = column_sum(wpart, p.splits, p.total_w, dw, s);
+  const int err = cropnerf::column_sum(wpart, p.splits, h[H_TOTAL_W], dw, s);
   if (err) return err;
-  return column_sum(bpart, p.n_tiles, p.total_b, db, s);
+  const long long rows = p.n_tiles * 2, chunks = (rows + SUM_CHUNK - 1) / SUM_CHUNK;
+  float* partial = bpart + rows * h[H_TOTAL_B];
+  chunk_sum_kernel<<<dim3((unsigned)((h[H_TOTAL_B] + 255) / 256), (unsigned)chunks), 256, 0, s>>>(
+      bpart, rows, h[H_TOTAL_B], partial);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return cropnerf::column_sum(partial, chunks, h[H_TOTAL_B], db, s);
 }

@@ -1,5 +1,6 @@
-// Network description of the fused positional-encoding NeRF field, shared by
-// its forward (fused_pe_field.cu) and backward (fused_pe_field_bwd.cu).
+// Network description of the fused positional-encoding NeRF field, read by
+// its forward (fused_pe_field.cu).  The backward (fused_pe_field_bwd.cu)
+// reads a program that ops/cuda/pe_bwd_plan.py builds from the same meta.
 //
 // The wrapper (ops/cuda/fused_pe_field.py pack_pe_field) passes a meta
 // array: a header of ints, then 5 ints per layer (LayerDesc) in the order

@@ -11,9 +11,11 @@ note): every intermediate stays in shared memory, the weights stream from
 L2.  The ragged tail of N is masked in the kernel; there is no fallback.
 
 Both are differentiable.  On the card their backwards are
-``fused_pe_nerf_bwd`` and ``fused_pe_density_bwd``, the CUDA kernel
+``fused_pe_nerf_bwd`` and ``fused_pe_density_bwd``, the CUDA kernels of
 ``csrc/fused_pe_field_bwd.cu`` with and without the heads (replacing
-``_mega_bwd_kernel`` and ``_bwd_kernel``), which recomputes the forward;
+``_mega_bwd_kernel`` and ``_bwd_kernel``), which recompute the forward;
+``pe_bwd_plan.py`` plans them (the tile program, the ``wgmma`` weight
+image, the workspace and the weight-gradient tasks).
 ``fused_pe_density_bwd`` computes only the gradients autograd asks for
 (dx alone in the BayesRays pass).  On the CPU autograd runs through the
 plain versions.
@@ -43,6 +45,7 @@ import torch
 from ..mlp import mm_f32acc
 from . import build
 from .fused_mlp import fused_mlp_plain, run_backward, run_forward
+from .pe_bwd_plan import build_plan, image_index, weight_image
 from .common import (MAX_SMEM_BYTES, c_ints, check_kernel_call, check_rows,
                      pack_layers, pad16, stream_ptr, unpack_layers)
 
@@ -143,15 +146,15 @@ def _lib():
 def _bwd_lib():
     lib = build.load("fused_pe_field_bwd")
     lib.cropnerf_pe_field_bwd.argtypes = [ctypes.c_void_p] * 9 + [
-        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
+        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_longlong] + [ctypes.c_void_p] * 6
     lib.cropnerf_pe_field_bwd.restype = ctypes.c_int
     lib.cropnerf_pe_field_bwd_sizes.argtypes = [
         ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+        ctypes.POINTER(ctypes.c_longlong)]
     lib.cropnerf_pe_field_bwd_sizes.restype = ctypes.c_int
     lib.cropnerf_pe_field_bwd_smem_bytes.argtypes = [
-        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int]
+        ctypes.POINTER(ctypes.c_int), ctypes.c_int]
     lib.cropnerf_pe_field_bwd_smem_bytes.restype = ctypes.c_int
     return lib
 
@@ -316,22 +319,40 @@ def _nerf_forward(x, extras, base_wbs, top_wbs, color_wbs, sem_wbs,
 def bwd_smem_bytes(meta, heads: bool = True) -> int:
     """Dynamic shared memory one block of the backward's tile kernel takes
     (-1 where the kernel rejects the layout)."""
-    return _bwd_lib().cropnerf_pe_field_bwd_smem_bytes(c_ints(meta),
-                                                       len(meta), int(heads))
+    prog = build_plan(meta, heads, False, True).ints()
+    return _bwd_lib().cropnerf_pe_field_bwd_smem_bytes(c_ints(prog), len(prog))
+
+
+@functools.lru_cache(maxsize=8)
+def _bwd_program(meta: tuple, heads: bool, pass_sem: bool, need_dw: bool,
+                 device: torch.device):
+    """(plan, its ints on the host, the same on the device, the weight
+    image's gather index on the device) of one backward layout, built once:
+    a copy from host memory to the card waits for the stream, so it is not
+    made on every call."""
+    plan = build_plan(list(meta), heads, pass_sem, need_dw)
+    prog = plan.ints()
+    return (plan, prog, torch.tensor(prog, dtype=torch.int32, device=device),
+            image_index(list(meta), plan).to(device))
 
 
 def _bwd_launch(name, x, extras, cots, dx, dex, wbuf, bbuf, meta, heads,
                 pass_sem, need_dw, device):
-    """One launch of the backward kernel: the workspace and partials, then
-    (dw, db) packed, or None without weight gradients."""
+    """One launch of the backward kernel (pe_bwd_plan.py plans it): the
+    program, the weight image, the workspace and partials, then (dw, db)
+    packed, or None without weight gradients."""
     lib = _bwd_lib()
     n = x.shape[0]
+    try:
+        plan, prog, prog_dev, index = _bwd_program(
+            tuple(meta), heads, pass_sem, need_dw, device)
+    except ValueError as e:
+        raise ValueError(f"{name}: the kernel rejects this layout ({e})") from e
     sizes = (ctypes.c_longlong * 5)()
-    if lib.cropnerf_pe_field_bwd_sizes(c_ints(meta), len(meta), n,
-                                       int(heads), int(need_dw), sizes):
+    if lib.cropnerf_pe_field_bwd_sizes(c_ints(prog), len(prog), n, sizes):
         raise ValueError(f"{name}: the kernel rejects this layout")
-    smem = bwd_smem_bytes(meta, heads)
-    if smem > MAX_SMEM_BYTES:
+    smem = lib.cropnerf_pe_field_bwd_smem_bytes(c_ints(prog), len(prog))
+    if not 0 < smem <= MAX_SMEM_BYTES:
         raise ValueError(f"{name}: needs {smem} B of shared memory per "
                          f"block, more than {MAX_SMEM_BYTES}")
     ws_elems, n_bpart, n_wpart, total_w, total_b = list(sizes)
@@ -345,14 +366,16 @@ def _bwd_launch(name, x, extras, cots, dx, dex, wbuf, bbuf, meta, heads,
             wpart = torch.empty((n_wpart,), **f32)
             ptrs = [t.data_ptr() for t in (bpart, wpart, dw, db)]
     if n:
-        ws = torch.empty((ws_elems,), dtype=torch.bfloat16, device=device)
+        img = weight_image(wbuf, index)
+        ws = (torch.empty((ws_elems,), dtype=torch.bfloat16, device=device)
+              if ws_elems else None)
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         with torch.cuda.device(device):
             err = lib.cropnerf_pe_field_bwd(
                 x.data_ptr(), ptr(extras), *[ptr(c) for c in cots], ptr(dx),
-                ptr(dex), wbuf.data_ptr(), bbuf.data_ptr(), c_ints(meta),
-                len(meta), n, int(heads), int(pass_sem), ws.data_ptr(),
-                *ptrs, stream_ptr(device))
+                ptr(dex), img.data_ptr(), bbuf.data_ptr(), c_ints(prog),
+                prog_dev.data_ptr(), len(prog), n, ptr(ws), *ptrs,
+                stream_ptr(device))
         if err:
             raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     return (dw, db) if need_dw else None

@@ -1,0 +1,332 @@
+"""The program of the PE field's recompute backward (``csrc/fused_pe_field_bwd.cu``).
+
+The tile kernel interprets a list of ops that this module builds from the
+forward's meta (``pack_pe_field``): the forward recompute layer by layer,
+then the backward through the heads and the trunk.  Each product op names
+its operands, its output width N (16, 32, 64, 128 or 256: one ``wgmma``
+shape), its reduction width K and the offset of its B operand in the
+weight image; each op names its epilogue.  The same module lays out the
+workspace that the weight-gradient pass reads and lists that pass's tasks.
+Everything here is plain Python, so the CPU tests run the program
+(``tests/test_torch_kernels.py``) and hold it against autograd.
+
+Layouts, shared with the kernel:
+
+* a block of 64 rows of an activation of width w is "chunk-major": element
+  (r, c) at (c // 8) * 512 + r * 8 + c % 8, so that every 8x8 bf16 core
+  matrix of ``wgmma`` is 128 contiguous bytes;
+* the weight image holds, for each product op in program order, its B
+  matrix [K, N] in the K-major core-matrix layout: element (k, j) at
+  ((k // 8) * (N // 8) + j // 8) * 64 + (j % 8) * 8 + k % 8;
+* the workspace holds slots (an activation A_l or a cotangent G_l), each
+  ``width`` columns wide starting at column ``col`` of a row: element
+  (R, c) of the slot at col * n_pad + (R // 64) * 64 * width + the
+  chunk-major offset of (R % 64, c).  A slot's 64-row block is one
+  contiguous range, written by one bulk store and read by one bulk load.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List
+
+import torch
+
+TILE = 128               # rows per tile (two warpgroups of 64)
+BLOCK = 64               # rows per warpgroup and per workspace block
+DW_M = 128               # weight rows per weight-gradient task (2 x 64)
+MAX_N = 256
+SPLIT_TARGET = 264       # weight-gradient blocks to aim for (2 per SM)
+
+# header of the program
+(H_DIM, H_FREQS, H_ENC_COLS, H_ENC_PAD, H_DE, H_EX_PAD, H_T_COLS, H_RGB_COLS,
+ H_SEM_COLS, H_ACT_W, H_TB_W, H_MASK_WORDS, H_WS_COLS, H_ENC_SLOT, H_N_OPS,
+ H_N_TASKS, H_TOTAL_W, H_TOTAL_B, H_IMG_ELEMS, H_STORE, H_HEADER) = range(21)
+
+# op fields
+(O_KIND, O_N, O_K, O_A0, O_A1, O_KA, O_IMG, O_EPI, O_BOFF, O_NVALID, O_MASK,
+ O_WS, O_COL, OP_INTS) = range(14)
+# op kinds
+FWD, EX, EMIT, BWD = range(4)
+# shared-memory buffers of a warpgroup
+ACT, ENC, TB = range(3)
+# epilogues: FWD ops
+RELU, LINEAR = range(2)
+# epilogues: BWD ops (G_MASKED writes the cotangent in place)
+G_MASKED, GT_ADD, DEX, GENC_SET, GENC_ADD = range(5)
+# EMIT sources
+SRC_GT, SRC_RGB, SRC_SEM = range(3)
+
+# weight-gradient task fields
+(T_A_COL, T_A_W, T_I0, T_M_VALID, T_W_ROW0, T_G_COL, T_BN, T_N, T_W_OFF,
+ TASK_INTS) = range(10)
+
+
+def pow2_width(n: int) -> int:
+    """The smallest wgmma width (16 · 2^i) that holds n columns."""
+    w = 16
+    while w < n:
+        w *= 2
+    if w > MAX_N:
+        raise ValueError(f"width {n} exceeds {MAX_N}")
+    return w
+
+
+def pow2_chunks(n: int) -> List[int]:
+    """n (a multiple of 16) as a sum of wgmma widths, largest first."""
+    out, rest = [], n
+    for w in (256, 128, 64, 32, 16):
+        while rest >= w:
+            out.append(w)
+            rest -= w
+    return out
+
+
+@dataclasses.dataclass
+class Plan:
+    header: List[int]
+    ops: List[List[int]]
+    tasks: List[List[int]]
+    # per product op, in order: (layer, transposed, row0, rows, K, N) of
+    # the B matrix it reads (see image_index)
+    images: List[tuple]
+    slots: dict              # name -> (col, width)
+
+    def ints(self) -> List[int]:
+        return (self.header + [v for op in self.ops for v in op]
+                + [v for t in self.tasks for v in t])
+
+
+def build_plan(meta, heads: bool, pass_sem: bool, need_dw: bool) -> Plan:
+    """The tile program, workspace slots and weight-gradient tasks for the
+    packed layout ``meta`` (``pack_pe_field``).  ``heads`` False plans the
+    trunk alone (the backward of fused_pe_density); ``need_dw`` False
+    plans dx alone (no workspace, no bias sums)."""
+    (dim, F, enc_cols, enc_pad, de, ex_pad, n_base, n_top, n_color, n_sem,
+     t_cols, rgb_cols, sem_cols, _) = meta[:14]
+    L = [list(meta[14 + 5 * i:19 + 5 * i]) for i in range((len(meta) - 14) // 5)]
+    if not heads:
+        n_color = n_sem = 0
+        L = L[:n_base + n_top]
+    if heads and not need_dw:
+        raise ValueError("the backward with the heads always computes dW")
+    top0, c0 = n_base, n_base + n_top
+    s0 = c0 + n_color
+    n_layers = len(L)
+    nw = [pow2_width(l[3]) for l in L]
+    t_last = c0 - 1
+    t_w = nw[t_last]
+    if L[0][2] != enc_pad or L[top0][2] - L[top0][4] != enc_pad:
+        raise ValueError("the encoding must feed layer 0 and the skip layer")
+    if heads and (L[c0][4] != L[t_last][3] or L[c0][2] != L[t_last][3] + ex_pad
+                  or L[s0][2] != L[t_last][3]):
+        raise ValueError("head layer 0 must take the padded trunk output")
+
+    # the layers whose output passes a relu (and so has a mask)
+    hidden = (list(range(n_base)) + list(range(top0, t_last))
+              + list(range(c0, c0 + n_color - 1)) + list(range(s0, n_layers - 1)))
+    masks, words = {}, 0
+    for l in hidden:
+        masks[l] = words
+        words += (nw[l] + 63) // 64
+
+    slots, ws_cols = {}, 0
+
+    def slot(name, width):
+        nonlocal ws_cols
+        if need_dw:
+            slots[name] = (ws_cols, width)
+            ws_cols += width
+        return slots[name][0] if need_dw else -1
+
+    enc_slot = slot("enc", enc_pad)
+    ops, images, img = [], [], 0
+    fields = dict(a0=O_A0, a1=O_A1, ka=O_KA, epi=O_EPI, boff=O_BOFF,
+                  nvalid=O_NVALID, mask=O_MASK, ws=O_WS, col=O_COL)
+
+    def other(kind, N, **f):
+        op = [0] * OP_INTS
+        op[O_KIND], op[O_N] = kind, N
+        op[O_BOFF] = op[O_MASK] = op[O_WS] = -1
+        for k, v in f.items():
+            op[fields[k]] = v
+        ops.append(op)
+        return op
+
+    def product(kind, layer, transposed, row0, rows, K, N, **f):
+        nonlocal img
+        op = other(kind, N, **f)
+        op[O_K], op[O_IMG] = K, img
+        images.append((layer, transposed, row0, rows, K, N))
+        img += K * N
+
+    # ---- forward recompute
+    def fwd(l, a0, a1=None):
+        w_off, b_off, k, n, ka = L[l]
+        last_trunk = l == t_last
+        product(FWD, l, False, 0, k, k, nw[l], a0=a0,
+                a1=a0 if a1 is None else a1, ka=ka if a1 is not None else k,
+                epi=LINEAR if last_trunk else RELU, boff=b_off, nvalid=n,
+                mask=masks.get(l, -1), ws=slot(f"a{l}", nw[l]))
+
+    for l in range(n_base):
+        fwd(l, ENC if l == 0 else ACT)
+    for l in range(top0, c0):
+        fwd(l, ACT, ENC if l == top0 else None)
+    if heads:
+        other(EX, ex_pad, ws=slot("ex", ex_pad))
+        for l in range(c0, c0 + n_color - 1):
+            fwd(l, TB if l == c0 else ACT, ACT if l == c0 else None)
+        for l in range(s0, n_layers - 1):
+            fwd(l, TB if l == s0 else ACT)
+
+    # ---- backward
+    def emit(l, src):
+        other(EMIT, nw[l], epi=src, boff=L[l][1] if need_dw else -1,
+              nvalid=L[l][3], ws=slot(f"g{l}", nw[l]))
+
+    def grad_g(l):
+        """G_{l-1} = mask ⊙ (G_l · W_lᵀ), in place (the skip layer's h part)."""
+        p = l - 1 if l != top0 else n_base - 1
+        n_in = L[l][4] if l == top0 else L[l][2]
+        product(BWD, l, True, 0, n_in, L[l][3], nw[p], a0=ACT, a1=ACT,
+                ka=L[l][3], epi=G_MASKED, boff=L[p][1] if need_dw else -1,
+                nvalid=L[p][3], mask=masks[p], ws=slot(f"g{p}", nw[p]))
+
+    def grad_to(l, c_lo, cw, epi):
+        col = 0
+        for N in pow2_chunks(cw):
+            product(BWD, l, True, c_lo + col, N, L[l][3], N, a0=ACT, a1=ACT,
+                    ka=L[l][3], epi=epi, col=col)
+            col += N
+
+    if heads:
+        for first, count, src in ((c0, n_color, SRC_RGB), (s0, n_sem, SRC_SEM)):
+            last = first + count - 1
+            emit(last, src)
+            for l in range(last, first, -1):
+                grad_g(l)
+            ka, k = L[first][4], L[first][2]
+            if first == c0:
+                grad_to(first, 0, ka, GT_ADD)
+                grad_to(first, ka, k - ka, DEX)
+            elif pass_sem:
+                grad_to(first, 0, k, GT_ADD)
+    emit(t_last, SRC_GT)
+    for l in range(t_last, top0, -1):
+        grad_g(l)
+    ka, k = L[top0][4], L[top0][2]
+    grad_to(top0, ka, k - ka, GENC_SET)
+    grad_g(top0)
+    for l in range(n_base - 1, 0, -1):
+        grad_g(l)
+    grad_to(0, 0, L[0][2], GENC_ADD)
+
+    # ---- weight-gradient tasks: dW_l = A_lᵀ · G_l over the rows
+    tasks = []
+    if need_dw:
+        def a_parts(l):
+            k, ka = L[l][2], L[l][4]
+            if l == 0:
+                return [("enc", 0, k)]
+            if l == top0:
+                return [(f"a{n_base - 1}", 0, ka), ("enc", ka, k - ka)]
+            if heads and l == c0:
+                return [(f"a{t_last}", 0, ka), ("ex", ka, k - ka)]
+            if heads and l == s0:
+                return [(f"a{t_last}", 0, k)]
+            return [(f"a{l - 1}", 0, k)]
+
+        for l in range(n_layers):
+            g_col, g_w = slots[f"g{l}"]
+            for name, row0, rows in a_parts(l):
+                a_col, a_w = slots[name]
+                for i0 in range(0, rows, DW_M):
+                    t = [0] * TASK_INTS
+                    t[T_A_COL], t[T_A_W], t[T_I0] = a_col, a_w, i0
+                    t[T_M_VALID] = min(DW_M, rows - i0)
+                    t[T_W_ROW0] = row0 + i0
+                    t[T_G_COL], t[T_BN], t[T_N] = g_col, g_w, L[l][3]
+                    t[T_W_OFF] = L[l][0]
+                    tasks.append(t)
+
+    act_w = max([nw[l] for l in range(n_layers)] + [ex_pad if heads else 0])
+    ln = L[-1]
+    header = [0] * H_HEADER
+    header[H_DIM], header[H_FREQS] = dim, F
+    header[H_ENC_COLS], header[H_ENC_PAD] = enc_cols, enc_pad
+    header[H_DE], header[H_EX_PAD] = (de, ex_pad) if heads else (0, 0)
+    header[H_T_COLS], header[H_RGB_COLS], header[H_SEM_COLS] = (
+        t_cols, rgb_cols if heads else 0, sem_cols if heads else 0)
+    header[H_ACT_W], header[H_TB_W] = act_w, t_w
+    header[H_MASK_WORDS], header[H_WS_COLS] = words, ws_cols
+    header[H_ENC_SLOT] = enc_slot
+    header[H_N_OPS], header[H_N_TASKS] = len(ops), len(tasks)
+    header[H_TOTAL_W] = ln[0] + ln[2] * ln[3]
+    header[H_TOTAL_B] = ln[1] + ln[3]
+    header[H_IMG_ELEMS] = img
+    header[H_STORE] = int(need_dw)
+    return Plan(header, ops, tasks, images, slots)
+
+
+def image_index(meta, plan: Plan) -> torch.Tensor:
+    """Where each element of the weight image comes from: an index into the
+    packed bf16 weights (``pack_pe_field``), -1 for a zero.  Each product
+    op's B [K, N] in the K-major core-matrix layout, in program order: a
+    forward op's B is W_l's [k, n] block (zero columns up to N); a backward
+    op's is Wᵀ restricted to the input rows it produces (zero rows up to
+    N)."""
+    L = [meta[14 + 5 * i:19 + 5 * i] for i in range((len(meta) - 14) // 5)]
+    parts = []
+    for layer, transposed, row0, rows, K, N in plan.images:
+        w_off, _, k, n, _ = L[layer]
+        idx = torch.full((K, N), -1, dtype=torch.int64)
+        cols = torch.arange(n)
+        if transposed:
+            idx[:n, :rows] = w_off + (row0 + torch.arange(rows))[None, :] * n + cols[:, None]
+        else:
+            idx[:, :n] = w_off + torch.arange(k)[:, None] * n + cols[None, :]
+        parts.append(core_k_major(idx))
+    return torch.cat(parts)
+
+
+def weight_image(wbuf: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """The bf16 weight image the tile kernel streams, gathered from the
+    packed weights by :func:`image_index` (its -1 takes an appended zero)."""
+    return torch.cat([wbuf, wbuf.new_zeros(1)])[index]
+
+
+def core_k_major(b: torch.Tensor) -> torch.Tensor:
+    """B [K, N] → its K-major core-matrix image (flat)."""
+    K, N = b.shape
+    return b.reshape(K // 8, 8, N // 8, 8).permute(0, 2, 3, 1).reshape(-1)
+
+
+def from_core_k_major(img: torch.Tensor, K: int, N: int) -> torch.Tensor:
+    """Inverse of :func:`core_k_major`."""
+    return img.reshape(K // 8, N // 8, 8, 8).permute(0, 3, 1, 2).reshape(K, N)
+
+
+def ws_elems(plan: Plan, n_rows: int) -> int:
+    """bf16 elements of the workspace at n_rows rows, with the tail the
+    weight-gradient pass may read past the last slot (one task's A block)."""
+    if not plan.header[H_STORE]:
+        return 0
+    n_pad = -(-n_rows // TILE) * TILE
+    return plan.header[H_WS_COLS] * n_pad + BLOCK * DW_M
+
+
+def ws_index(col: int, width: int, n_pad: int, rows: torch.Tensor,
+             cols: torch.Tensor) -> torch.Tensor:
+    """Workspace element index of (row, column) of the slot (col, width)."""
+    r, c = rows[:, None], cols[None, :]
+    return (col * n_pad + (r // BLOCK) * BLOCK * width + (c // 8) * 512
+            + (r % BLOCK) * 8 + c % 8)
+
+
+def dw_splits(n_rows: int, n_tasks: int) -> int:
+    """Row splits of the weight-gradient pass: about SPLIT_TARGET blocks in
+    all, each split a whole number of 64-row blocks."""
+    blocks = -(-n_rows // TILE) * (TILE // BLOCK)
+    want = max(1, -(-SPLIT_TARGET // max(n_tasks, 1)))
+    per = max(1, -(-blocks // want))
+    return -(-blocks // per), per

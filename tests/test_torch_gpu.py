@@ -239,6 +239,95 @@ def test_fused_pe_density_backward_kernel_matches_plain(cuda, n, need_dw):
         assert torch.equal(full[0], got[0])
 
 
+# Row counts at the edges of the backward's tiling: empty, one row, either
+# side of a 64-row warpgroup block and of a 128-row tile, and a ragged
+# BayesRays-sized batch.
+EDGE_N = [0, 1, 63, 64, 65, 127, 129, 196_531]
+
+
+@pytest.mark.parametrize("pass_sem", [False, True])
+@pytest.mark.parametrize("n", EDGE_N)
+@torch.no_grad()
+def test_fused_pe_nerf_backward_tiling_edges(cuda, n, pass_sem):
+    """K1's backward at the tiling's edges against autograd through the
+    plain version; two runs give the same bits."""
+    cfg, params = _field(cuda)
+    groups = [[w.detach() for w in grp]
+              for grp in fused_field_weights(params.field, cfg.field)]
+    x, extras = _field_inputs(n, groups[2][1].shape[0], cuda, seed=7)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    cots = [torch.randn((n, c), generator=g, device=cuda) for c in (16, 3, 1)]
+    got = kfield.fused_pe_nerf_bwd(x, extras, *groups, POS_FREQS, *cots,
+                                   pass_sem)
+    again = kfield.fused_pe_nerf_bwd(x, extras, *groups, POS_FREQS, *cots,
+                                     pass_sem)
+    flat = lambda out: [out[0], out[1]] + [t for grp in out[2:] for t in grp]  # noqa: E731
+    got, again = flat(got), flat(again)
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+        "the backward kernel is not deterministic"
+    leaves = [t.clone().requires_grad_(True)
+              for t in (x, extras, *[w for grp in groups for w in grp])]
+    nb, nt, nc = (len(grp) for grp in groups[:3])
+    w = leaves[2:]
+    with torch.enable_grad():
+        outs = kfield.fused_pe_nerf_plain(
+            leaves[0], leaves[1], w[:nb], w[nb:nb + nt],
+            w[nb + nt:nb + nt + nc], w[nb + nt + nc:], POS_FREQS,
+            pass_sem_grad=pass_sem)
+        ref = list(torch.autograd.grad(outs, leaves, cots, allow_unused=True))
+    for i, (a, b) in enumerate(zip(got, ref)):
+        b = torch.zeros_like(a) if b is None else b
+        assert a.shape == b.shape and torch.isfinite(a).all(), i
+        if n == 0:
+            assert not a.abs().sum(), i
+            continue
+        ok = (_grad_agrees(a, b, per_row=True) if i < 2
+              else _weight_grad_agrees(a, b, n))
+        assert ok, (n, i, _rel_err(a, b))
+
+
+@pytest.mark.parametrize("n", EDGE_N)
+@torch.no_grad()
+def test_fused_pe_density_backward_tiling_edges(cuda, n):
+    """K2's backward at the tiling's edges: dx alone and the weight
+    gradients alone are bit-equal to the full backward's, two runs give the
+    same bits, and the full backward agrees with autograd through the plain
+    version."""
+    cfg, params = _field(cuda)
+    base, top, _, _ = fused_field_weights(params.field, cfg.field)
+    base, top = [w.detach() for w in base], [w.detach() for w in top]
+    x, _ = _field_inputs(n, 1, cuda, seed=9)
+    cot = torch.randn((n, top[-2].shape[1]), device=cuda,
+                      generator=torch.Generator(device=cuda).manual_seed(10))
+    bwd = lambda dx, dw: kfield.fused_pe_density_bwd(  # noqa: E731
+        x, base, top, POS_FREQS, cot, dx, dw)
+    dx, d_base, d_top = bwd(True, True)
+    full = [dx, *d_base, *d_top]
+    again = bwd(True, True)
+    assert all(torch.equal(a, b) for a, b in
+               zip(full, [again[0], *again[1], *again[2]]))
+    dx_only = bwd(True, False)
+    assert dx_only[1] is None and torch.equal(dx_only[0], dx)
+    dw_only = bwd(False, True)
+    assert dw_only[0] is None
+    assert all(torch.equal(a, b) for a, b in
+               zip(full[1:], [*dw_only[1], *dw_only[2]]))
+    leaves = [t.clone().requires_grad_(True) for t in (x, *base, *top)]
+    with torch.enable_grad():
+        out = kfield.fused_pe_density_plain(
+            leaves[0], leaves[1:len(base) + 1], leaves[len(base) + 1:],
+            POS_FREQS)
+        ref = torch.autograd.grad(out, leaves, cot)
+    for i, (a, b) in enumerate(zip(full, ref)):
+        assert a.shape == b.shape and torch.isfinite(a).all(), i
+        if n == 0:
+            assert not a.abs().sum(), i
+            continue
+        ok = (_grad_agrees(a, b, per_row=True) if i == 0
+              else _weight_grad_agrees(a, b, n))
+        assert ok, (n, i, _rel_err(a, b))
+
+
 @pytest.mark.parametrize("need_dw", [True, False], ids=["with-dW", "dx-only"])
 @pytest.mark.parametrize("n", [196_608, 196_608 - 3, 127])
 @pytest.mark.parametrize("dims", [(15, 64, 1), (74, 64, 3), (63, 256, 256, 16)],

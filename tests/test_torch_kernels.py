@@ -280,106 +280,127 @@ def test_fused_pe_nerf_backward_matches_jax(case, pass_sem, arm):
 
 
 def _kernel_model_pe_field_bwd(x, extras, wbuf, bbuf, meta, g_t, g_rgb,
-                               g_sem, pass_sem):
-    """csrc/fused_pe_field_bwd.cu's three passes in torch, on the packed
-    buffers and meta the wrapper builds: the tile pass (recompute with the
-    workspace slots, backprop with f32 cotangents rounded to bf16 as
-    product operands, per-layer bias column sums, dx, dextras), the
-    split-K weight-gradient pass Aᵀ·G over the slots, and the sums into the
-    packed f32 gradient buffers.  A meta without heads (n_color 0) runs the
-    trunk alone."""
-    (dim, F, enc_cols, enc_pad, de, ex_pad, n_base, n_top, n_color, n_sem,
-     t_cols, rgb_cols, sem_cols, _) = meta[:14]
-    L = [meta[14 + 5 * i:19 + 5 * i] for i in range((len(meta) - 14) // 5)]
-    n_layers = len(L)
-    top0, c0 = n_base, n_base + n_top
-    s0 = c0 + n_color
+                               g_sem, pass_sem, need_dw=True):
+    """csrc/fused_pe_field_bwd.cu's three passes in torch, on what the
+    wrapper hands the kernel (ops/cuda/pe_bwd_plan.py): the tile program run
+    op by op on 64-row blocks (products from the wgmma weight image, relu
+    masks kept from the recompute, cotangents in place, f32 cotangents
+    rounded to bf16 as product operands, per-block bias column sums, each
+    A and G written to its workspace slot in the chunk-major block
+    layout), dx, dextras; the weight-gradient tasks Aᵀ·G read back from
+    the workspace per split; the fixed-order sums.  A meta without heads
+    (n_color 0) runs the trunk alone; need_dw False returns dx alone."""
+    from cropnerf_tpu_torch.ops.cuda import pe_bwd_plan as P
+    heads = meta[8] > 0
+    plan = P.build_plan(meta, heads, pass_sem, need_dw)
+    img = P.weight_image(wbuf, P.image_index(meta, plan))
+    h = plan.header
+    dim, F, enc_cols, enc_pad = h[P.H_DIM], h[P.H_FREQS], h[P.H_ENC_COLS], h[P.H_ENC_PAD]
+    de, tw = h[P.H_DE], h[P.H_TB_W]
     N = x.shape[0]
-    relu_bf16 = lambda v: torch.relu(v).bfloat16()  # noqa: E731
-    enc = torch.zeros((N, enc_pad))
-    enc[:, :enc_cols] = tfield._encode(x, F)
-    enc = enc.bfloat16()
-    ex = torch.zeros((N, ex_pad))
-    if n_color:
-        ex[:, :de] = extras
-    ex = ex.bfloat16()
+    n_pad = -(-N // P.TILE) * P.TILE
+    rows = torch.arange(n_pad)
 
-    act = {}                                  # the workspace's act slots
-
-    def inputs(l):                            # layer_inputs in the source
-        a0 = enc if l == 0 else act[c0 - 1] if l == s0 else act[l - 1]
-        a1 = enc if l == top0 else ex if l == c0 else a0
-        return a0, a1
-
-    for l in range(n_layers):                 # forward recompute
-        if l in (s0 - 1, n_layers - 1):
-            continue                          # heads' outputs: not read
-        a0, a1 = inputs(l)
-        v = _kernel_layer(a0, a1, wbuf, bbuf, L[l])
-        act[l] = v.bfloat16() if l == c0 - 1 else relu_bf16(v)
-
-    G = {}
-    dbbuf = torch.zeros(bbuf.shape)
-
-    def emit(l, g, mask):
-        if mask is not None:
-            g = torch.where(mask.float() > 0, g, 0.0)
-        G[l] = g.bfloat16()
-        dbbuf[L[l][1]:L[l][1] + L[l][3]] = g.sum(0)
-        return g
-
-    def bp(g, l, c_lo, cw):
-        w_off, _, k, n, _ = L[l]
-        w = wbuf[w_off:w_off + k * n].reshape(k, n).float()
-        return g.bfloat16().float() @ w[c_lo:c_lo + cw].T
-
-    def padded(g, cols, n):
-        out = torch.zeros((N, n))
-        out[:, :cols] = g
+    def padded(t, cols):
+        out = torch.zeros((n_pad, cols))
+        if t is not None:
+            out[:N, :t.shape[1]] = t
         return out
 
-    tp = L[c0 - 1][3]
-    gt = padded(g_t, t_cols, tp)
-    dex = None
-    heads = ((c0, s0 - 1, g_rgb, rgb_cols),
-             (s0, n_layers - 1, g_sem, sem_cols)) if n_color else ()
-    for first, last, g_in, cols in heads:
-        g = emit(last, padded(g_in, cols, L[last][3]), None)
-        for l in range(last, first, -1):
-            g = emit(l - 1, bp(g, l, 0, L[l][2]), act[l - 1])
-        ka, k = L[first][4], L[first][2]
-        if first == c0:
-            gt = gt + bp(g, first, 0, ka)
-            dex = bp(g, first, ka, k - ka)[:, :de]
-        elif pass_sem:
-            gt = gt + bp(g, first, 0, k)
-    g = emit(c0 - 1, gt, None)
-    for l in range(c0 - 1, top0, -1):
-        g = emit(l - 1, bp(g, l, 0, L[l][2]), act[l - 1])
-    ka, k = L[top0][4], L[top0][2]
-    g_h = emit(top0 - 1, bp(g, top0, 0, ka), act[top0 - 1])
-    genc = bp(g, top0, ka, k - ka)
-    g = g_h
-    for l in range(top0 - 1, 0, -1):
-        g = emit(l - 1, bp(g, l, 0, L[l][2]), act[l - 1])
-    genc = genc + bp(g, 0, 0, L[0][2])
+    xs = padded(x, dim)
+    ws = torch.zeros(P.ws_elems(plan, N), dtype=torch.bfloat16)
+
+    def store(col, t):
+        if col >= 0:
+            ws[P.ws_index(col, t.shape[1], n_pad, rows,
+                          torch.arange(t.shape[1]))] = t.bfloat16()
+
+    enc = torch.zeros((n_pad, enc_pad))
+    enc[:, :enc_cols] = tfield._encode(xs, F)
+    bufs = {P.ENC: enc.bfloat16(),
+            P.ACT: torch.zeros((n_pad, h[P.H_ACT_W]), dtype=torch.bfloat16),
+            P.TB: torch.zeros((n_pad, tw), dtype=torch.bfloat16)}
+    store(h[P.H_ENC_SLOT], bufs[P.ENC])
+    gt = padded(g_t, tw)
+    genc = torch.zeros((n_pad, enc_pad))
+    dex = torch.zeros((n_pad, de)) if heads else None
+    masks = {}
+    bpart = torch.zeros((n_pad // P.BLOCK, h[P.H_TOTAL_B]))
+
+    def emit_g(op, v):
+        if op[P.O_MASK] >= 0:
+            v = torch.where(masks[op[P.O_MASK]], v, 0.0)
+        n = op[P.O_N]
+        bufs[P.ACT][:, :n] = v.bfloat16()
+        if op[P.O_BOFF] >= 0:
+            b, nv = op[P.O_BOFF], op[P.O_NVALID]
+            bpart[:, b:b + nv] = v.reshape(-1, P.BLOCK, n).sum(1)[:, :nv]
+        store(op[P.O_WS], bufs[P.ACT][:, :n])
+
+    for op in plan.ops:
+        kind, n, K, ka = op[P.O_KIND], op[P.O_N], op[P.O_K], op[P.O_KA]
+        if kind == P.EX:
+            bufs[P.ACT][:, :n] = padded(extras, n).bfloat16()
+            store(op[P.O_WS], bufs[P.ACT][:, :n])
+            continue
+        if kind == P.EMIT:
+            src = op[P.O_EPI]
+            v = (gt[:, :n] if src == P.SRC_GT
+                 else padded(g_rgb if src == P.SRC_RGB else g_sem, n))
+            emit_g(op, v.clone())
+            continue
+        b = P.from_core_k_major(img[op[P.O_IMG]:op[P.O_IMG] + K * n], K, n)
+        a = torch.cat([bufs[op[P.O_A0]][:, :ka], bufs[op[P.O_A1]][:, :K - ka]], 1)
+        acc = a.float() @ b.float()
+        epi = op[P.O_EPI]
+        if kind == P.FWD:
+            nv = op[P.O_NVALID]
+            acc[:, :nv] += bbuf[op[P.O_BOFF]:op[P.O_BOFF] + nv]
+            hb = (torch.relu(acc) if epi == P.RELU else acc).bfloat16()
+            bufs[P.ACT if epi == P.RELU else P.TB][:, :n] = hb
+            if op[P.O_MASK] >= 0:
+                masks[op[P.O_MASK]] = hb.float() > 0
+            store(op[P.O_WS], hb)
+        elif epi == P.G_MASKED:
+            emit_g(op, acc)
+        else:
+            c = op[P.O_COL]
+            if epi == P.GT_ADD:
+                gt[:, c:c + n] += acc
+            elif epi == P.DEX:
+                if c < de:
+                    dex[:, c:c + n] = acc[:, :min(n, de - c)]
+            elif epi == P.GENC_SET:
+                genc[:, c:c + n] = acc
+            else:
+                genc[:, c:c + n] += acc
 
     col = torch.arange(enc_pad)
     sin_end = dim * (1 + F)
-    pre = torch.zeros((N, enc_pad))
-    pre[:, :enc_cols] = x @ torch.from_numpy(tfield.pe_selector_matrix(F))
+    sel = torch.from_numpy(tfield.pe_selector_matrix(F))
+    pre = torch.zeros((n_pad, enc_pad))
+    pre[:, :enc_cols] = xs @ sel
     d_pre = torch.where(col < dim, genc,
                         torch.where(col < sin_end, genc * torch.cos(pre),
                                     -genc * torch.sin(pre)))
-    dx = d_pre[:, :enc_cols] @ torch.from_numpy(tfield.pe_selector_matrix(F)).T
+    dx = (d_pre[:, :enc_cols] @ sel.T)[:N]
+    if not need_dw:
+        return dx, None, None, None
 
-    dwbuf = torch.zeros(wbuf.shape)
-    for l in range(n_layers):                 # split-K pass: Aᵀ·G
-        w_off, _, k, n, ka = L[l]
-        a0, a1 = inputs(l)
-        a = torch.cat([a0[:, :ka], a1[:, :k - ka]], dim=1)
-        dwbuf[w_off:w_off + k * n] = (a.float().T @ G[l].float()).reshape(-1)
-    return dx, dex, dwbuf, dbbuf
+    splits, per = P.dw_splits(N, len(plan.tasks))
+    wpart = torch.zeros((splits, h[P.H_TOTAL_W]))
+    for sp in range(splits):                  # split-K pass: Aᵀ·G per task
+        r = rows[sp * per * P.BLOCK:(sp + 1) * per * P.BLOCK]
+        for t in plan.tasks:
+            m, nn, bn = t[P.T_M_VALID], t[P.T_N], t[P.T_BN]
+            a = ws[P.ws_index(t[P.T_A_COL], t[P.T_A_W], n_pad, r,
+                              t[P.T_I0] + torch.arange(m))]
+            g = ws[P.ws_index(t[P.T_G_COL], bn, n_pad, r, torch.arange(nn))]
+            o = t[P.T_W_OFF] + t[P.T_W_ROW0] * nn
+            wpart[sp, o:o + m * nn] = (a.float().T @ g.float()).reshape(-1)
+    dwbuf = wpart.sum(0)
+    dbbuf = bpart.sum(0)
+    return dx, (dex[:N, :de] if heads else None), dwbuf, dbbuf
 
 
 @pytest.mark.parametrize("pass_sem", [False, True])
@@ -408,6 +429,171 @@ def test_backward_kernel_model_reproduces_plain_autograd(case, pass_sem):
         assert g.shape == r.shape, (i, g.shape, r.shape)
         err = ((g - r).abs().max() / r.abs().max().clamp_min(1e-6)).item()
         assert err <= 2e-2, (i, err)
+
+
+def _bwd_meta(case, heads=True):
+    _, extras, (base, top, color, sem) = _bwd_inputs(case)
+    F = case[0]
+    tb, tt, tc, ts = (to_torch(g) for g in (base, top, color, sem))
+    if heads:
+        return tfield.pack_pe_field(3, F, tb, tt, tc, ts, de=extras.shape[1])
+    return tfield.pack_pe_field(3, F, tb, tt)
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=["jax-test", "flagship"])
+def test_pe_bwd_weight_image_holds_each_product_operand(case):
+    """The wgmma weight image: each product op's B, decoded from the
+    K-major core-matrix layout, is the layer's W block (forward) or the Wᵀ
+    rows it produces (backward), zero-padded to the op's N."""
+    from cropnerf_tpu_torch.ops.cuda import pe_bwd_plan as P
+    wbuf, _, meta = _bwd_meta(case)
+    plan = P.build_plan(meta, True, True, True)
+    img = P.weight_image(wbuf, P.image_index(meta, plan))
+    assert img.numel() == plan.header[P.H_IMG_ELEMS]
+    L = [meta[14 + 5 * i:19 + 5 * i] for i in range((len(meta) - 14) // 5)]
+    products = [op for op in plan.ops if op[P.O_KIND] in (P.FWD, P.BWD)]
+    assert len(products) == len(plan.images)
+    for op, (layer, transposed, row0, rows, K, N) in zip(products, plan.images):
+        assert (op[P.O_K], op[P.O_N]) == (K, N) and N in (16, 32, 64, 128, 256)
+        assert K % 16 == 0 and 0 < op[P.O_KA] <= K
+        b = P.from_core_k_major(img[op[P.O_IMG]:op[P.O_IMG] + K * N], K, N)
+        w_off, _, k, n, _ = L[layer]
+        w = wbuf[w_off:w_off + k * n].reshape(k, n)
+        want = torch.zeros((K, N), dtype=wbuf.dtype)
+        if transposed:
+            want[:n, :rows] = w[row0:row0 + rows].T
+        else:
+            want[:, :n] = w
+        assert torch.equal(b, want)
+    # a core matrix (8 rows of K, 8 columns of N) is 64 contiguous elements,
+    # its rows 8 apart along N and K contiguous inside a row
+    b = torch.arange(32 * 48, dtype=torch.float32).reshape(32, 48)
+    flat = P.core_k_major(b)
+    assert torch.equal(P.from_core_k_major(flat, 32, 48), b)
+    assert torch.equal(flat[:64].reshape(8, 8), b[:8, :8].T)
+    assert torch.equal(flat[64:128].reshape(8, 8), b[:8, 8:16].T)
+    assert torch.equal(flat[6 * 64:7 * 64].reshape(8, 8), b[8:16, :8].T)
+
+
+@pytest.mark.parametrize("heads", [True, False], ids=["heads", "trunk"])
+def test_pe_bwd_workspace_slots_and_tasks(heads):
+    """Workspace slots are disjoint; each 64-row block of a slot is one
+    contiguous range (one bulk store, one bulk load); the weight-gradient
+    tasks cover every weight row of every layer once, and the splits every
+    block once."""
+    from cropnerf_tpu_torch.ops.cuda import pe_bwd_plan as P
+    _, _, meta = _bwd_meta(BWD_CASES[0], heads)
+    plan = P.build_plan(meta, heads, False, True)
+    n_rows = 300
+    n_pad = 384
+    used = torch.zeros(P.ws_elems(plan, n_rows), dtype=torch.int32)
+    rows = torch.arange(n_pad)
+    for col, width in plan.slots.values():
+        idx = P.ws_index(col, width, n_pad, rows, torch.arange(width))
+        used[idx.reshape(-1)] += 1
+        for blk in range(n_pad // P.BLOCK):
+            b = idx[blk * P.BLOCK:(blk + 1) * P.BLOCK].reshape(-1)
+            assert b.max() - b.min() + 1 == P.BLOCK * width == b.unique().numel()
+    assert used.max() == 1
+    assert used.sum() == plan.header[P.H_WS_COLS] * n_pad
+    L = [meta[14 + 5 * i:19 + 5 * i] for i in range((len(meta) - 14) // 5)]
+    n_layers = len(L) if heads else meta[6] + meta[7]
+    covered = {}
+    for t in plan.tasks:
+        rows_t = range(t[P.T_W_ROW0], t[P.T_W_ROW0] + t[P.T_M_VALID])
+        for r in rows_t:
+            key = (t[P.T_W_OFF], r)
+            covered[key] = covered.get(key, 0) + 1
+        assert 0 < t[P.T_M_VALID] <= P.DW_M and t[P.T_BN] == P.pow2_width(t[P.T_N])
+    for w_off, _, k, n, _ in L[:n_layers]:
+        assert all(covered.get((w_off, r)) == 1 for r in range(k))
+    assert len(covered) == sum(l[2] for l in L[:n_layers])
+    for n, tasks in ((1, 21), (196_608, 21), (5000, 16), (129, 0)):
+        splits, per = P.dw_splits(n, tasks)
+        blocks = -(-n // P.TILE) * 2
+        assert (splits - 1) * per < blocks <= splits * per
+    assert P.dw_splits(0, 21) == (0, 1)     # no rows: no split, no division
+
+
+def test_pe_bwd_programs_ask_only_for_what_is_needed():
+    """dx alone plans no workspace, no tasks and no bias sums; pass_sem adds
+    the semantic head's input gradient; every mask an op reads was written
+    earlier by a forward op of the same width."""
+    from cropnerf_tpu_torch.ops.cuda import pe_bwd_plan as P
+    _, _, meta = _bwd_meta(BWD_CASES[1], heads=False)
+    dx_only = P.build_plan(meta, False, False, False)
+    assert dx_only.slots == {} and dx_only.tasks == []
+    assert all(op[P.O_WS] == -1 and op[P.O_BOFF] == -1 for op in dx_only.ops
+               if op[P.O_KIND] in (P.EMIT, P.BWD))
+    assert dx_only.header[P.H_WS_COLS] == 0 and P.ws_elems(dx_only, 1000) == 0
+    full = P.build_plan(meta, False, False, True)
+    assert [op[:P.O_IMG] for op in full.ops] == [op[:P.O_IMG] for op in dx_only.ops]
+    _, _, hmeta = _bwd_meta(BWD_CASES[1])
+    with pytest.raises(ValueError):
+        P.build_plan(hmeta, True, False, False)
+    without, with_sem = (P.build_plan(hmeta, True, ps, True) for ps in (False, True))
+    extra = len(with_sem.ops) - len(without.ops)
+    t_pad = hmeta[14 + 5 * (hmeta[6] + hmeta[7] - 1) + 3]
+    assert extra == len(P.pow2_chunks(t_pad))
+    assert [op[P.O_EPI] for op in with_sem.ops if op[P.O_KIND] == P.BWD].count(P.GT_ADD) == \
+        2 * extra
+    for plan in (without, with_sem, full, dx_only):
+        written = {}
+        for op in plan.ops:
+            if op[P.O_KIND] == P.FWD and op[P.O_MASK] >= 0:
+                written[op[P.O_MASK]] = op[P.O_N]
+            elif op[P.O_KIND] == P.BWD and op[P.O_EPI] == P.G_MASKED:
+                assert written[op[P.O_MASK]] == op[P.O_N]
+    assert P.pow2_chunks(48) == [32, 16] and P.pow2_chunks(160) == [128, 32]
+    assert [P.pow2_width(n) for n in (16, 17, 48, 64, 200)] == [16, 32, 64, 64, 256]
+    with pytest.raises(ValueError):
+        P.pow2_width(272)
+
+
+def _warp_colsum_model(nv):
+    """csrc/fused_pe_field_bwd.cu warp_colsum's lane and index algebra: for
+    each lane, (column, [original value indices summed into it]) written."""
+    writes = {}
+    for lane in range(32):
+        base, dup, count = 0, 0, nv
+        for m in (4, 8, 16):
+            if count >= 2:
+                if lane & m:
+                    base += count // 2
+                count //= 2
+            else:
+                dup |= m
+        if lane & dup:
+            continue
+        for i in range(count):
+            idx = base + i
+            col = 8 * (idx >> 1) + 2 * (lane & 3) + (idx & 1)
+            writes.setdefault(col, []).append(lane)
+    return writes
+
+
+@pytest.mark.parametrize("n", [16, 32, 64, 128, 256])
+def test_warp_colsum_writes_each_column_once(n):
+    writes = _warp_colsum_model(n // 4)
+    assert sorted(writes) == list(range(n))
+    assert all(len(v) == 1 for v in writes.values())
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=["jax-test", "flagship"])
+def test_trunk_backward_kernel_model_dx_alone_matches_full(case):
+    """The dx-only program (the BayesRays pass's) gives the full program's
+    dx."""
+    x, _, (base, top, _, _) = _bwd_inputs(case, seed=6)
+    xt = torch.from_numpy(x)
+    wbuf, bbuf, meta = tfield.pack_pe_field(3, case[0], to_torch(base),
+                                            to_torch(top))
+    cot = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        (x.shape[0], meta[10])).astype(np.float32))
+    full = _kernel_model_pe_field_bwd(xt, None, wbuf, bbuf, meta, cot, None,
+                                      None, False)
+    alone = _kernel_model_pe_field_bwd(xt, None, wbuf, bbuf, meta, cot, None,
+                                       None, False, need_dw=False)
+    assert alone[2] is None and torch.equal(alone[0], full[0])
 
 
 # --- K2 and K3 backward: the port's autograd against the JAX custom VJPs ---
