@@ -12,8 +12,11 @@ Run from the root of the repository:  python3 chip_smoke.py
    for cropnerf-mxu K1 forward and backward (the backward against autograd
    of the plain version), K2 and K3 forward and backward (the backwards at
    the BayesRays batch, with and without weight gradients; K1's and K2's
-   backward pass by pass, tile, dW and sums, over three profiler windows,
-   with their registers and spills); for cropnerf
+   forward over three profiler windows, also under the schedule the port
+   does not use (its two warpgroups together instead of out of phase),
+   which must give the same bits, and their backward pass by pass, tile,
+   dW and sums, over three windows, each with its registers and spills;
+   two runs of each give the same bits); for cropnerf
    (the hash-grid field, the CLI default) the hash-grid encode K4 forward
    and backward at the field's and both proposal nets' shapes, a ragged N
    and a small dense [L, T, F] table; the fused PE proposal nets K5
@@ -165,18 +168,21 @@ def device_ms(fn, iters: int, only: str | None = None) -> float:
 BWD_PASSES = {"tile": ("pe_field_bwd_tile_kernel",),
               "dw": ("pe_field_bwd_dw_kernel",),
               "sums": ("chunk_sum_kernel", "column_sum_kernel")}
-BWD_WINDOWS = 3          # profiler windows per backward timing
+# the PE field's forward (csrc/fused_pe_field.cu): one kernel
+FWD_PASSES = {"kernel": ("pe_field_fwd_kernel",)}
+BWD_WINDOWS = 3          # profiler windows per K1/K2 timing
 
 
-def pass_ms(fn, iters: int) -> dict:
-    """Device ms per call of each pass of the PE trunk's backward and of all
-    its kernels ("total"), over BWD_WINDOWS profiler windows: the median,
-    minimum and maximum of the windows.  A window the profiler dropped is
-    profiled again, up to PROFILE_TRIES more windows."""
+def pass_ms(fn, iters: int, passes: dict = BWD_PASSES) -> dict:
+    """Device ms per call of each pass of the PE field's forward or
+    backward (``passes``: name -> kernel names) and of all the port's
+    kernels it launches ("total"), over BWD_WINDOWS profiler windows: the
+    median, minimum and maximum of the windows.  A window the profiler
+    dropped is profiled again, up to PROFILE_TRIES more windows."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    per = {name: [] for name in (*BWD_PASSES, "total")}
+    per = {name: [] for name in (*passes, "total")}
     for _ in range(BWD_WINDOWS + PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -187,7 +193,7 @@ def pass_ms(fn, iters: int) -> dict:
                   if e.device_type == DeviceType.CUDA and KERNEL_NS in e.key]
         if not events:
             continue
-        for name, keys in BWD_PASSES.items():
+        for name, keys in passes.items():
             per[name].append(sum(e.self_device_time_total for e in events
                                  if any(k in e.key for k in keys))
                              / 1e3 / iters)
@@ -196,7 +202,7 @@ def pass_ms(fn, iters: int) -> dict:
         if len(per["total"]) == BWD_WINDOWS:
             break
     check(len(per["total"]) == BWD_WINDOWS,
-          "the profiler saw no device time for the PE backward")
+          "the profiler saw no device time for the PE field's kernels")
     return {name: {"median": statistics.median(v), "min": min(v),
                    "max": max(v)} for name, v in per.items()}
 
@@ -276,13 +282,14 @@ def ptxas_spills(report: str) -> dict:
 
 
 def short_names(per_entry: dict) -> dict:
-    """Mangled kernel names of the PE backward -> readable ones (the
-    template's STORE flag as <true>/<false>); others as they are."""
+    """Mangled kernel names of the PE field's kernels -> readable ones (the
+    backward's STORE flag as <true>/<false>); others as they are."""
     out = {}
     for name, v in per_entry.items():
         short = name
         for kernel in ("pe_field_bwd_tile_kernel", "pe_field_bwd_dw_kernel",
-                       "chunk_sum_kernel", "column_sum_kernel", "dx_rows"):
+                       "chunk_sum_kernel", "column_sum_kernel", "dx_rows",
+                       "pe_field_fwd_kernel"):
             if kernel in name:
                 short = kernel + ("<true>" if "ILb1E" in name else
                                   "<false>" if "ILb0E" in name else "")
@@ -1596,6 +1603,7 @@ def main() -> None:
         k1 = lambda: fused_pe_nerf(x, ex, base, top, color, sem, POS_FREQS)  # noqa: E731
         p1 = lambda: fused_pe_nerf_plain(x, ex, base, top, color, sem, POS_FREQS)  # noqa: E731
         got, ref = k1(), p1()
+        fwd_same = all(torch.equal(a, b) for a, b in zip(got, k1()))
         err_rel = max(rel_err(a, b) for a, b in zip(got, ref))
         err_abs = max(abs_err(a, b) for a, b in zip(got, ref))
         xr, exr = x[:n1 - 77].contiguous(), ex[:n1 - 77].contiguous()
@@ -1608,7 +1616,8 @@ def main() -> None:
             source="cropnerf_tpu_torch/csrc/fused_pe_field.cu",
             replaces="cropnerf_tpu/ops/pallas/fused_pe_field.py:423",
             rel_err=err_rel, max_abs_err=err_abs, ragged_n=n1 - 77,
-            ragged_rel_err=ragged, ms=device_ms(k1, 10, KERNEL_NS), call_ms=cuda_ms(k1, 10),
+            ragged_rel_err=ragged, deterministic=fwd_same,
+            passes=pass_ms(k1, 10, FWD_PASSES), call_ms=cuda_ms(k1, 10),
             plain_ms=device_ms(p1, 5),
             flops=2.0 * n1 * (trunk_macs + head_macs),
             bytes=nbytes(x, ex, *weights_k1) + out_bytes)
@@ -1695,6 +1704,7 @@ def main() -> None:
         k2 = lambda: fused_pe_density(x2, base, top, POS_FREQS)  # noqa: E731
         p2 = lambda: fused_pe_density_plain(x2, base, top, POS_FREQS)  # noqa: E731
         got, ref = k2(), p2()
+        fwd_same = torch.equal(got, k2())
         xr = x2[:n2 - 45].contiguous()
         kernels["fused_pe_density"] = dict(
             shape=f"x [{n2},3] -> t [{n2},16]",
@@ -1705,7 +1715,8 @@ def main() -> None:
             ragged_rel_err=rel_err(fused_pe_density(xr, base, top, POS_FREQS),
                                    fused_pe_density_plain(xr, base, top,
                                                           POS_FREQS)),
-            ms=device_ms(k2, 10, KERNEL_NS), call_ms=cuda_ms(k2, 10),
+            deterministic=fwd_same,
+            passes=pass_ms(k2, 10, FWD_PASSES), call_ms=cuda_ms(k2, 10),
             plain_ms=device_ms(p2, 5),
             flops=2.0 * n2 * trunk_macs,
             bytes=nbytes(x2, *base, *top) + nbytes(got))
@@ -1733,8 +1744,19 @@ def main() -> None:
                               + mlp_macs([cin.shape[1], 64, 3])),
             bytes=nbytes(geo, cin, *sem_wbs, *col_wbs, *got))
 
+    fwd_regs = short_names(ptxas_registers(reports["fused_pe_field"]))
+    fwd_spills = short_names(ptxas_spills(reports["fused_pe_field"]))
+    for name in ("fused_pe_nerf", "fused_pe_nerf_bwd", "fused_pe_density"):
+        kernels[name]["ms"] = kernels[name]["passes"]["total"]["median"]
+    for name in ("fused_pe_nerf", "fused_pe_density"):
+        k = kernels[name]
+        k["registers"], k["spill_bytes"] = fwd_regs, fwd_spills
+        log(f"[kernel] {name}: device ms over {BWD_WINDOWS} windows, median "
+            f"(min-max): {fmt_passes(k['passes'])}; two runs bit-identical "
+            f"{k['deterministic']}; registers {fwd_regs}, spill bytes "
+            f"{fwd_spills}; {card}")
+        check(k["deterministic"], f"{name} differs between two runs")
     k1b = kernels["fused_pe_nerf_bwd"]
-    k1b["ms"] = k1b["passes"]["total"]["median"]
     for name, k in kernels.items():
         if name in ("fused_pe_density_bwd", "fused_mlp_bwd"):
             continue                      # checked and logged by their entries

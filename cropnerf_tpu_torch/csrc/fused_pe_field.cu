@@ -1,208 +1,365 @@
 // Fused positional-encoding NeRF field, forward, for Hopper (sm_90a).  The
-// backward of fused_pe_nerf is csrc/fused_pe_field_bwd.cu.
+// backward of fused_pe_nerf and fused_pe_density is fused_pe_field_bwd.cu.
 //
 // Replaces the Pallas forward kernels of cropnerf_tpu/ops/pallas/fused_pe_field.py:
-//   HEADS=false  fused_pe_density (_fwd_kernel):       encode -> trunk -> t
-//   HEADS=true   fused_pe_nerf    (_mega_fwd_kernel):  ... + colour and
-//                semantic heads -> t, rgb_raw, sem_raw
+//   fused_pe_density (_fwd_kernel):       encode -> trunk -> t
+//   fused_pe_nerf    (_mega_fwd_kernel):  ... + colour and semantic heads
+//                                         -> t, rgb_raw, sem_raw
 // Per row: x [dim] -> NeRF encoding [x | sin(2^f x) | cos(2^f x)] -> relu
-// base stack -> skip layer on [h | enc] -> top stack -> t [1+G];
+// base stack -> skip layer on [h | enc] -> top stack -> t [1+G] in f32;
 // colour head layer 0 on [bf16(t) | extras], semantic head on bf16(t).
+// bf16 operands, f32 sums, bias added in f32, relu then bf16 after each
+// hidden layer: the JAX kernels' rounding points.
 //
 // Bound on an H100: compute.  The flagship does ~0.87 MFLOP per sample
 // against ~330 bytes of input and output, far above the card's ~295
-// FLOP/byte balance point, so the design keeps every intermediate (the
-// [N, 63..319] encodings and activations) in shared memory and feeds the
-// tensor cores from there; only x, the extras and the outputs touch device
-// memory.  The weights (~0.86 MB bf16) do not fit one SM's shared memory;
-// they stream from L2 in K-slabs shared by the block's eight warps, so a
-// 128-row tile reads each weight once.  This first version uses wmma
-// (mma.sync); wgmma/TMA pipelining is later work.
+// FLOP/byte balance point, so every intermediate stays in shared memory and
+// only x, the extras and the outputs touch device memory.
 //
-// sin/cos use the accurate sinf/cosf: arguments reach 2^9 rad.
-#include "pe_field.cuh"
+// Design.  The host plans a program (ops/cuda/pe_plan.py
+// build_forward_plan): one FWD op per layer with its epilogue (RELU, or
+// T_OUT / RGB_OUT / SEM_OUT for the outputs) and an EX op for the extras.
+// The tile interpreter of pe_tile.cuh runs it, the same code and the same
+// products as the backward's recompute, so the two give the same bits:
+//  * two consumer warpgroups of 64 rows multiply with wgmma on operands in
+//    shared memory; a producer warpgroup streams the weight image (~0.88 MB
+//    with the heads, from L2) through a ring of 64-row slabs (4 stages of
+//    32 KB).  Every slab costs a barrier wait, a fence and a release, so
+//    the slabs are twice the backward's depth: each is one group of 4
+//    wgmma steps, and two groups stay in flight;
+//  * the warpgroups run out of phase (PingPong): warpgroup 1 starts each
+//    product once warpgroup 0 has issued its first slab's, so one's
+//    epilogue runs while the other's slabs multiply (on the H100 this is
+//    faster than both multiplying each slab together: PERF.md).  Each slab
+//    is freed when all 8 consumer warps have arrived on its `empty` barrier;
+//  * persistent blocks: min(tiles, SMs) blocks walk the 128-row tiles with
+//    a stride, and the producer runs the program's slab sequence once per
+//    tile without draining the ring, so there is no wave tail of blocks;
+//  * the serial parts are kept short: the encoding takes one sincosf per
+//    (coordinate, frequency), two threads a row, from x loaded into
+//    registers a tile ahead; the extras (up to 2 * EX_REGS columns; wider
+//    ones straight into shared memory) load into registers under the
+//    trunk's last product; the biases are copied to shared memory once per
+//    block and read as float2; the outputs are staged in shared memory
+//    (over the encoding, free by then) and written row by row, consecutive
+//    threads on consecutive addresses.
+// No atomics: two runs give the same bits.
+#include "pe_tile.cuh"
 
 namespace cropnerf {
+namespace pefwd {
 
-struct Smem {
-  int xs, enc, ex, tb, buf0, buf1, wslab, scratch, total;
+using namespace pe;
+
+constexpr int MAX_DIM = 4;             // a row's x is kept in registers
+constexpr int SLAB_ROWS = 64;          // weight rows per slab: 4 wgmma steps a group
+constexpr int WAIT_DEPTH = 2;          // wgmma groups in flight (pe::product)
+constexpr int EX_REGS = 32;            // extras prefetched a thread (64 columns a row)
+constexpr int MIN_STAGES = 3;          // PingPong hands over after 1 slab: 1 <= stages - 2
+
+struct Layout {        // dynamic shared memory, in bytes
+  int wg_bytes;        // one warpgroup's region
+  int enc, tb, act;    // offsets inside it; enc also stages the outputs
+  int bias, ops, turn, total;
+  RingLayout ring;
 };
 
-__host__ __device__ inline Smem smem_layout(const NetDesc& d, bool heads) {
-  Smem s;
+__host__ __device__ inline int out_cols(const int* h) {
+  return (int)lmax(h[H_T_COLS], lmax(h[H_RGB_COLS], h[H_SEM_COLS]));
+}
+
+__host__ __device__ inline Layout fwd_layout(const int* h) {
+  Layout s;
   int off = 0;
-  s.xs = off; off += align128(TILE * d.dim * 4);
-  s.enc = off; off += act_bytes(d.enc_pad);
-  const int t_pad = d.L[d.n_base + d.n_top - 1].n;
-  s.ex = off; if (heads) off += act_bytes(d.ex_pad);
-  s.tb = off; if (heads) off += act_bytes(t_pad);
-  s.buf0 = off; off += act_bytes(d.hmax);
-  s.buf1 = off; off += act_bytes(d.hmax);
-  s.wslab = off; off += slab_bytes(d.hmax);
-  s.scratch = off; off += SCRATCH_BYTES;
-  s.total = off;
+  s.enc = off; off += al128((int)lmax(ROWS * h[H_ENC_PAD] * 2, ROWS * out_cols(h) * 4));
+  s.tb = off; off += al128(ROWS * h[H_TB_W] * 2);
+  s.act = off; off += al128(ROWS * h[H_ACT_W] * 2);
+  s.wg_bytes = off;
+  off = 2 * s.wg_bytes;
+  s.bias = off; off += al128(h[H_TOTAL_B] * 4);
+  s.ops = off; off += al128(h[H_N_OPS] * OP_INTS * 4);
+  s.turn = off; off += 2 * 8;
+  s.ring = ring_layout(off, SLAB_ROWS);
+  s.total = s.ring.total;
   return s;
 }
 
-template <bool HEADS>
-__global__ void __launch_bounds__(THREADS, 1)
-pe_field_fwd_kernel(const float* __restrict__ x, const float* __restrict__ ex,
-                    float* __restrict__ t_out, float* __restrict__ rgb_out,
-                    float* __restrict__ sem_out, const bf16* __restrict__ w,
-                    const float* __restrict__ b, const NetDesc d,
-                    long long n_rows) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Smem s = smem_layout(d, HEADS);
-  float* xs = reinterpret_cast<float*>(smem + s.xs);
-  bf16* enc = reinterpret_cast<bf16*>(smem + s.enc);
-  bf16* exs = reinterpret_cast<bf16*>(smem + s.ex);
-  bf16* tb = reinterpret_cast<bf16*>(smem + s.tb);
-  bf16* bufs[2] = {reinterpret_cast<bf16*>(smem + s.buf0),
-                   reinterpret_cast<bf16*>(smem + s.buf1)};
-  bf16* wslab = reinterpret_cast<bf16*>(smem + s.wslab);
-  float* scratch = reinterpret_cast<float*>(smem + s.scratch);
+struct FwdArgs {
+  const float *x, *ex;
+  float *t, *rgb, *sem;
+  const bf16* img;
+  const float* bias;
+  const int* ops;
+  long long n_rows, n_tiles;
+  int h[H_HEADER];
+  Layout s;
+};
 
-  const long long row0 = (long long)blockIdx.x * TILE;
-  const long long n_x = n_rows * d.dim;
-  for (int i = threadIdx.x; i < TILE * d.dim; i += THREADS) {
-    const long long g = row0 * d.dim + i;
-    xs[i] = g < n_x ? x[g] : 0.0f;
+// The order of the consumers' products, out of phase: warpgroup 0 starts
+// each product, warpgroup 1 starts it once warpgroup 0 has issued the
+// products of its first slab, and warpgroup 0 starts the next once
+// warpgroup 1 has done the same, so each warpgroup's epilogue runs while
+// the other's slabs multiply.  Both read the same slabs; before it hands
+// over, a warpgroup holds at most 1 <= stages - 2 slab of its product that
+// the other has not read (MIN_STAGES), so the ring always has room for it
+// and the two never wait on each other in a circle.
+//
+// turn[w] completes a phase when the other warpgroup's 4 warps have handed
+// over; p counts the calling warpgroup's products, `total` is the block's
+// count, the same for both.  mbarriers rather than named barriers, so that
+// a fault in the order traps (mbar_wait) instead of hanging the card.
+struct PingPong {
+  uint64_t* turn;
+  int wg, lane;
+  long long p, total;
+  __device__ void wait() const {
+    if (wg == 0 && p == 0) return;
+    mbar_wait(&turn[wg], (uint32_t)((wg == 0 ? p - 1 : p) & 1));
   }
-  const int ldx = d.ex_pad + PAD;
-  if (HEADS) {
-    for (int i = threadIdx.x; i < TILE * d.ex_pad; i += THREADS) {
-      const int r = i / d.ex_pad;
-      const int c = i - r * d.ex_pad;
-      const float v = (c < d.de && row0 + r < n_rows) ? ex[(row0 + r) * d.de + c] : 0.0f;
-      exs[r * ldx + c] = __float2bfloat16_rn(v);
+  __device__ void pass() const {
+    if ((wg == 0 || p + 1 < total) && lane == 0) mbar_arrive(&turn[wg ^ 1]);
+  }
+};
+
+struct FwdTile {
+  const FwdArgs& a;
+  unsigned char* wgm;   // this warpgroup's region
+  const float* bias;    // the block's copies of the biases and the ops
+  const int* ops;
+  Ring rg;
+  uint64_t* turn;
+  Lane ln;
+  long long row0 = 0;   // first row of the warpgroup in the current tile
+  long long p = 0, total = 0;
+  int slab = 0;
+  // Registers: x of the thread's row (two threads a row) and its half of
+  // the row's extras, loaded ahead.  Indexed only by constants, so that the
+  // tile stays in registers (every method is inlined).
+  float xr[MAX_DIM];
+  float exr[EX_REGS];
+
+  __device__ __forceinline__ bf16* enc() const { return reinterpret_cast<bf16*>(wgm + a.s.enc); }
+  __device__ __forceinline__ float* stage() const { return reinterpret_cast<float*>(wgm + a.s.enc); }
+  __device__ __forceinline__ bf16* tb() const { return reinterpret_cast<bf16*>(wgm + a.s.tb); }
+  __device__ __forceinline__ bf16* act() const { return reinterpret_cast<bf16*>(wgm + a.s.act); }
+  __device__ __forceinline__ bf16* buf(int id) const { return id == ACT ? act() : id == ENC ? enc() : tb(); }
+  __device__ __forceinline__ void sync() const { named_sync(1 + ln.wg, 128); }
+  __device__ __forceinline__ int row() const { return ln.t >> 1; }
+  __device__ __forceinline__ int half() const { return ln.t & 1; }
+
+  // x of the thread's row of the warpgroup's rows from row0 (zeros past N).
+  __device__ __forceinline__ void load_x(long long first) {
+    const long long r = first + row();
+    const int dim = a.h[H_DIM];
+#pragma unroll
+    for (int d = 0; d < MAX_DIM; ++d) xr[d] = (d < dim && r < a.n_rows) ? a.x[r * dim + d] : 0.0f;
+  }
+
+  // The thread's half of its row's extras, loaded before the trunk's last
+  // product so that the loads run under it (w <= 2 * EX_REGS).
+  __device__ __forceinline__ void load_extras(int w) {
+    const long long r = row0 + row();
+    const int de = a.h[H_DE], c0 = half() * (w / 2);
+#pragma unroll
+    for (int i = 0; i < EX_REGS; ++i) {
+      const int c = c0 + i;
+      exr[i] = (i < w / 2 && c < de && r < a.n_rows) ? a.ex[r * de + c] : 0.0f;
     }
   }
+
+  // The extras into the act tile: from the registers, or straight from
+  // device memory where they are too wide for them.
+  __device__ __forceinline__ void store_extras(int w) {
+    const int c0 = half() * (w / 2);
+    if (w > 2 * EX_REGS) {
+      const long long r = row0 + row();
+      const int de = a.h[H_DE];
+      for (int i = 0; i < w / 2; ++i) {
+        const int c = c0 + i;
+        const float v = (c < de && r < a.n_rows) ? a.ex[r * de + c] : 0.0f;
+        act()[cm(row(), c)] = __float2bfloat16_rn(v);
+      }
+      return;
+    }
+#pragma unroll
+    for (int i = 0; i < EX_REGS; ++i)
+      if (i < w / 2) act()[cm(row(), c0 + i)] = __float2bfloat16_rn(exr[i]);
+  }
+
+  // f32 rows of an output: the product plus its bias, staged row-major
+  // [64, cols] and stored with consecutive threads on consecutive addresses
+  // (rows past n_rows and the padded columns are dropped).
+  template <int N>
+  __device__ __forceinline__ void output(const int* op, const float (&v)[N / 2], const float* b) {
+    const int epi = op[O_EPI], nvalid = op[O_NVALID];
+    const int cols = epi == T_OUT ? a.h[H_T_COLS] : epi == RGB_OUT ? a.h[H_RGB_COLS]
+                                                                  : a.h[H_SEM_COLS];
+    float* out = epi == T_OUT ? a.t : epi == RGB_OUT ? a.rgb : a.sem;
+    float* st = stage();
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int c = 8 * j + ln.cq + (q & 1);
+        if (c < cols)
+          st[(ln.r0 + 8 * (q >> 1)) * cols + c] = v[4 * j + q] + (c < nvalid ? b[c] : 0.0f);
+      }
+    }
+    sync();
+    const long long first = row0 * cols, end = a.n_rows * cols;
+    for (int i = ln.t; i < ROWS * cols; i += 128)
+      if (first + i < end) out[first + i] = st[i];
+  }
+
+  template <int N>
+  __device__ __forceinline__ void run_product(const int* op) {
+    float acc[N / 2];
+    pe::product<N, WAIT_DEPTH>(op, smem_u32(buf(op[O_A0])), smem_u32(buf(op[O_A1])), rg, slab,
+                               ln.lane, acc, PingPong{turn, ln.wg, ln.lane, p, total});
+    ++p;
+    const int epi = op[O_EPI], nvalid = op[O_NVALID];
+    const float* b = bias + op[O_BOFF];
+    sync();                            // every warp's products have read their operands
+    if (epi == RGB_OUT || epi == SEM_OUT) {
+      output<N>(op, acc, b);
+      return;
+    }
+    uint32_t mw[(N + 63) / 64] = {};
+    activation_out<N>(acc,
+                      [&](int c) {     // nvalid is even: c < nvalid covers c + 1
+                        return c < nvalid ? *reinterpret_cast<const float2*>(b + c)
+                                          : make_float2(0.0f, 0.0f);
+                      },
+                      epi == RELU, epi == RELU ? act() : tb(), ln, mw);
+    fence_async_smem();                // visible to the next products
+    if (epi == T_OUT) output<N>(op, acc, b);
+    sync();
+  }
+
+  __device__ __forceinline__ void run() {
+    const int n_ops = a.h[H_N_OPS];
+    int n_products = 0, ex_w = 0;
+    for (int o = 0; o < n_ops; ++o) {
+      const int kind = ops[o * OP_INTS + O_KIND];
+      n_products += kind == FWD;
+      if (kind == EX) ex_w = ops[o * OP_INTS + O_N];
+    }
+    const long long my_tiles = (a.n_tiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
+    total = my_tiles * n_products;
+    load_x((long long)blockIdx.x * TILE_ROWS + ln.wg * ROWS);
+    for (long long tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
+      row0 = tile * TILE_ROWS + ln.wg * ROWS;
+      sync();                          // the last tile's outputs have left the stage
+      encode_row([&](int d) { return d == 0 ? xr[0] : d == 1 ? xr[1] : d == 2 ? xr[2] : xr[3]; },
+                 row(), half(), a.h, enc());
+      fence_async_smem();
+      sync();
+      load_x(row0 + (long long)gridDim.x * TILE_ROWS);   // the next tile's, ahead
+      for (int o = 0; o < n_ops; ++o) {
+        int op[OP_INTS];
+#pragma unroll
+        for (int i = 0; i < OP_INTS; ++i) op[i] = ops[o * OP_INTS + i];
+        if (op[O_KIND] == EX) {        // the extras, over the trunk's last activation
+          store_extras(op[O_N]);
+          fence_async_smem();
+          sync();
+          continue;
+        }
+        if (op[O_EPI] == T_OUT && ex_w > 0 && ex_w <= 2 * EX_REGS) load_extras(ex_w);
+        switch (op[O_N]) {
+          case 16: run_product<16>(op); break;
+          case 32: run_product<32>(op); break;
+          case 64: run_product<64>(op); break;
+          case 128: run_product<128>(op); break;
+          case 256: run_product<256>(op); break;
+        }
+      }
+    }
+  }
+};
+
+__global__ void __launch_bounds__(ALL_THREADS, 1)
+pe_field_fwd_kernel(const __grid_constant__ FwdArgs a) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const Ring rg = make_ring(smem, a.s.ring);
+  float* bias = reinterpret_cast<float*>(smem + a.s.bias);
+  int* ops = reinterpret_cast<int*>(smem + a.s.ops);
+  uint64_t* turn = reinterpret_cast<uint64_t*>(smem + a.s.turn);
+  init_ring(rg);
+  if (threadIdx.x == 0) {
+    mbar_init(&turn[0], 4);
+    mbar_init(&turn[1], 4);
+    mbar_fence_init();
+  }
+  for (int i = threadIdx.x; i < a.h[H_TOTAL_B]; i += ALL_THREADS) bias[i] = a.bias[i];
+  for (int i = threadIdx.x; i < a.h[H_N_OPS] * OP_INTS; i += ALL_THREADS) ops[i] = a.ops[i];
   __syncthreads();
-
-  // encoding, cast to bf16 (the JAX kernels' enc.astype(bf16))
-  const int lde = d.enc_pad + PAD;
-  const int sin_end = d.dim * (1 + d.num_freqs);
-  for (int i = threadIdx.x; i < TILE * d.enc_pad; i += THREADS) {
-    const int r = i / d.enc_pad;
-    const int c = i - r * d.enc_pad;
-    float v = 0.0f;
-    if (c < d.dim) {
-      v = xs[r * d.dim + c];
-    } else if (c < d.enc_cols) {
-      const int j = c < sin_end ? c - d.dim : c - sin_end;
-      const int f = j / d.dim;
-      const float pre = xs[r * d.dim + (j - f * d.dim)] * (float)(1 << f);
-      v = c < sin_end ? sinf(pre) : cosf(pre);
-    }
-    enc[r * lde + c] = __float2bfloat16_rn(v);
-  }
-
-  const int ldh = d.hmax + PAD;
-  int li = 0, nb = 0;
-  const bf16* cur = enc;
-  int ldc = lde;
-  for (int i = 0; i < d.n_base; ++i, ++li) {     // all-relu base stack
-    bf16* dst = bufs[nb];
-    nb ^= 1;
-    dense_layer<MAXF>(cur, ldc, cur, ldc, w, b, d.L[li], wslab, scratch,
-                      ToSmem{dst, ldh, true});
-    cur = dst;
-    ldc = ldh;
-  }
-  const int t_pad = d.L[d.n_base + d.n_top - 1].n;
-  const int ldt = t_pad + PAD;
-  for (int i = 0; i < d.n_top; ++i, ++li) {      // skip layer, then top stack
-    const bf16* a1 = i == 0 ? enc : cur;
-    const int lda1 = i == 0 ? lde : ldc;
-    if (i < d.n_top - 1) {
-      bf16* dst = bufs[nb];
-      nb ^= 1;
-      dense_layer<MAXF>(cur, ldc, a1, lda1, w, b, d.L[li], wslab, scratch,
-                        ToSmem{dst, ldh, true});
-      cur = dst;
-      ldc = ldh;
-    } else {
-      dense_layer<MAXF>(cur, ldc, a1, lda1, w, b, d.L[li], wslab, scratch,
-                        ToGlobal{t_out, d.t_cols, row0, n_rows, HEADS ? tb : nullptr, ldt});
-    }
-  }
-  if (!HEADS) return;
-
-  cur = tb;                                       // colour head on [tb | extras]
-  ldc = ldt;
-  for (int i = 0; i < d.n_color; ++i, ++li) {
-    const bf16* a1 = i == 0 ? exs : cur;
-    const int lda1 = i == 0 ? ldx : ldc;
-    if (i < d.n_color - 1) {
-      bf16* dst = bufs[nb];
-      nb ^= 1;
-      dense_layer<MAXF>(cur, ldc, a1, lda1, w, b, d.L[li], wslab, scratch,
-                        ToSmem{dst, ldh, true});
-      cur = dst;
-      ldc = ldh;
-    } else {
-      dense_layer<MAXF>(cur, ldc, a1, lda1, w, b, d.L[li], wslab, scratch,
-                        ToGlobal{rgb_out, d.rgb_cols, row0, n_rows, nullptr, 0});
-    }
-  }
-  cur = tb;                                       // semantic head on tb
-  ldc = ldt;
-  for (int i = 0; i < d.n_sem; ++i, ++li) {
-    if (i < d.n_sem - 1) {
-      bf16* dst = bufs[nb];
-      nb ^= 1;
-      dense_layer<MAXF>(cur, ldc, cur, ldc, w, b, d.L[li], wslab, scratch,
-                        ToSmem{dst, ldh, true});
-      cur = dst;
-      ldc = ldh;
-    } else {
-      dense_layer<MAXF>(cur, ldc, cur, ldc, w, b, d.L[li], wslab, scratch,
-                        ToGlobal{sem_out, d.sem_cols, row0, n_rows, nullptr, 0});
-    }
-  }
+  split_roles(
+      [&] {                            // the producer: the program's slabs, once per tile
+        int slab = 0;
+        for (long long tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x)
+          produce_slabs(a.ops, a.h[H_N_OPS], a.img, rg, slab);
+      },
+      [&] {
+        FwdTile tile{a, smem + (threadIdx.x >> 7) * a.s.wg_bytes, bias, ops, rg, turn};
+        tile.run();
+      });
 }
 
+// The forward program's header and ops, checked.
+static bool program_fits(const int* prog, int prog_len) {
+  if (!program_ok(prog, prog_len, 0) || prog[H_N_TASKS] != 0) return false;
+  const int* h = prog;
+  if (h[H_DIM] > MAX_DIM) return false;
+  for (int o = 0; o < h[H_N_OPS]; ++o) {
+    const int* op = prog + H_HEADER + o * OP_INTS;
+    if (op[O_KIND] != FWD && op[O_KIND] != EX) return false;
+    if (op[O_KIND] == EX && (op[O_N] > h[H_ACT_W] || op[O_N] < 1)) return false;
+    if (op[O_KIND] == FWD && (op[O_EPI] < RELU || op[O_EPI] > SEM_OUT)) return false;
+  }
+  return fwd_layout(h).ring.stages >= MIN_STAGES;
+}
+
+}  // namespace pefwd
 }  // namespace cropnerf
 
 // Launches the forward on `stream`; returns a cudaError_t (0 on success).
-// heads=0: fused_pe_density (ex, rgb_out, sem_out unused); heads=1:
-// fused_pe_nerf.  All pointers are device pointers except `meta`.
-extern "C" int cropnerf_pe_field_fwd(const float* x, const float* ex,
-                                     float* t_out, float* rgb_out,
-                                     float* sem_out, const void* w,
-                                     const float* b, const int* meta,
-                                     int meta_len, long long n_rows,
-                                     int heads, void* stream) {
-  using namespace cropnerf;
-  NetDesc d;
-  if (!parse(meta, meta_len, heads != 0, &d)) return (int)cudaErrorInvalidValue;
+// `prog` is the program (pe_plan.py build_forward_plan) on the host,
+// `prog_dev` the same ints on the device; `img` is its weight image, `b`
+// the packed f32 biases.  Without the heads ex, rgb_out and sem_out are
+// not read (null).  Every pointer but `prog` is on the device.
+extern "C" int cropnerf_pe_field_fwd(const float* x, const float* ex, float* t_out,
+                                     float* rgb_out, float* sem_out, const void* img,
+                                     const float* b, const int* prog, const int* prog_dev,
+                                     int prog_len, long long n_rows, void* stream) {
+  using namespace cropnerf::pefwd;
+  if (!program_fits(prog, prog_len)) return (int)cudaErrorInvalidValue;
   if (n_rows <= 0) return 0;
-  const int smem = smem_layout(d, heads != 0).total;
-  const dim3 grid((unsigned)((n_rows + TILE - 1) / TILE));
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const bf16* wb = reinterpret_cast<const bf16*>(w);
-  cudaError_t e;
-  if (heads) {
-    e = cudaFuncSetAttribute(pe_field_fwd_kernel<true>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    pe_field_fwd_kernel<true><<<grid, THREADS, smem, s>>>(
-        x, ex, t_out, rgb_out, sem_out, wb, b, d, n_rows);
-  } else {
-    e = cudaFuncSetAttribute(pe_field_fwd_kernel<false>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    pe_field_fwd_kernel<false><<<grid, THREADS, smem, s>>>(
-        x, ex, t_out, rgb_out, sem_out, wb, b, d, n_rows);
-  }
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  FwdArgs fa;
+  fa.x = x; fa.ex = ex; fa.t = t_out; fa.rgb = rgb_out; fa.sem = sem_out;
+  fa.img = reinterpret_cast<const cropnerf::bf16*>(img);
+  fa.bias = b;
+  fa.ops = prog_dev + H_HEADER;
+  fa.n_rows = n_rows;
+  fa.n_tiles = (n_rows + TILE_ROWS - 1) / TILE_ROWS;
+  for (int i = 0; i < H_HEADER; ++i) fa.h[i] = prog[i];
+  fa.s = fwd_layout(prog);
+  e = cudaFuncSetAttribute(pe_field_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           fa.s.total);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned blocks = (unsigned)lmin(fa.n_tiles, sms);
+  pe_field_fwd_kernel<<<blocks, ALL_THREADS, fa.s.total,
+                        reinterpret_cast<cudaStream_t>(stream)>>>(fa);
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory the launch above asks for (for reports and checks).
-extern "C" int cropnerf_pe_field_smem_bytes(const int* meta, int meta_len,
-                                            int heads) {
-  using namespace cropnerf;
-  NetDesc d;
-  if (!parse(meta, meta_len, heads != 0, &d)) return -1;
-  return smem_layout(d, heads != 0).total;
+// Dynamic shared memory of the forward (-1 where the program is rejected).
+extern "C" int cropnerf_pe_field_fwd_smem_bytes(const int* prog, int prog_len) {
+  using namespace cropnerf::pefwd;
+  if (!program_fits(prog, prog_len)) return -1;
+  return fwd_layout(prog).total;
 }

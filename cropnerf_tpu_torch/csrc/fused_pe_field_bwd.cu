@@ -28,7 +28,7 @@
 // workspace of ~8 KB a row written once and read once: ~1 ms more at
 // 3.35 TB/s at that N.
 //
-// Design.  The host plans the work (ops/cuda/pe_bwd_plan.py): a program of
+// Design.  The host plans the work (ops/cuda/pe_plan.py): a program of
 // ops for the tile kernel, a weight image, workspace slots and the tasks of
 // the weight-gradient pass.  Three passes, no floating-point atomics, so
 // two runs give the same bits:
@@ -38,7 +38,8 @@
 //      accumulators fit without spills.  One producer thread streams the
 //      weight image through a ring of 32-row slabs in shared
 //      memory with bulk copies that complete on mbarriers, so the next
-//      slab loads while the warpgroups multiply the current one.  Each
+//      slab loads while the warpgroups multiply the current one (the tile
+//      interpreter of pe_tile.cuh, which the forward shares).  Each
 //      warpgroup runs the program on its rows: every product is a wgmma
 //      (64 x N, N = 16..256, f32 accumulators in registers) on an operand
 //      that stays in shared memory, written in place after the product,
@@ -55,26 +56,16 @@
 //      two passes (64-row chunks, then the chunks), each in a fixed order.
 // Rows past N load zero cotangents, so they add nothing to dW or db.
 #include "bwd_layers.cuh"
-#include "wgmma_layers.cuh"
+#include "pe_tile.cuh"
 
 #include <type_traits>
 
 namespace cropnerf {
 namespace pebwd {
 
-// ---- the program (mirrors ops/cuda/pe_bwd_plan.py) --------------------------
-enum {
-  H_DIM, H_FREQS, H_ENC_COLS, H_ENC_PAD, H_DE, H_EX_PAD, H_T_COLS, H_RGB_COLS,
-  H_SEM_COLS, H_ACT_W, H_TB_W, H_MASK_WORDS, H_WS_COLS, H_ENC_SLOT, H_N_OPS,
-  H_N_TASKS, H_TOTAL_W, H_TOTAL_B, H_IMG_ELEMS, H_STORE, H_HEADER
-};
-enum {
-  O_KIND, O_N, O_K, O_A0, O_A1, O_KA, O_IMG, O_EPI, O_BOFF, O_NVALID, O_MASK,
-  O_WS, O_COL, OP_INTS
-};
-enum { FWD, EX, EMIT, BWD };
-enum { ACT, ENC, TB };
-enum { RELU, LINEAR };
+using namespace pe;
+
+// ---- the backward's part of the program (mirrors ops/cuda/pe_plan.py) -------
 enum { G_MASKED, GT_ADD, DEX, GENC_SET, GENC_ADD };
 enum { SRC_GT, SRC_RGB, SRC_SEM };
 enum {
@@ -82,27 +73,12 @@ enum {
   TASK_INTS
 };
 
-constexpr int ROWS = 64;               // rows of a warpgroup, of a workspace block
-constexpr int TILE_ROWS = 2 * ROWS;
-constexpr int CONSUMERS = 256;         // two warpgroups
-constexpr int ALL_THREADS = CONSUMERS + 128;  // and the producer's warpgroup
+// ROWS (pe_tile.cuh) is also the workspace block's row count
 constexpr int DW_THREADS = CONSUMERS + 32;    // the dW pass: a producer warp
-constexpr int PRODUCER_REGS = 40;      // setmaxnreg: the producer gives
-constexpr int CONSUMER_REGS = 232;     // registers to the accumulators
-constexpr int SLAB_K = 32;             // weight rows per slab
-constexpr int SLAB_BYTES = SLAB_K * 256 * 2;
-constexpr int MAX_STAGES = 8;
-constexpr int MAX_N = 256;
-constexpr int SMEM_LIMIT = 232448;
-constexpr int CHUNK = 512;             // elements of an 8-column chunk of 64 rows
 constexpr int DW_A_BYTES = 128 * ROWS * 2;      // A: 128 weight rows of a block
 constexpr int DW_STAGE = DW_A_BYTES + MAX_N * ROWS * 2;
 constexpr int DW_STAGES = 4;
-constexpr int SPLIT_TARGET = 264;      // pe_bwd_plan.py SPLIT_TARGET
-
-__host__ __device__ inline int al128(int b) { return (b + 127) & ~127; }
-__host__ __device__ inline long long lmax(long long a, long long b) { return a > b ? a : b; }
-__host__ __device__ inline long long lmin(long long a, long long b) { return a < b ? a : b; }
+constexpr int SPLIT_TARGET = 264;      // pe_plan.py SPLIT_TARGET
 
 struct Layout {        // dynamic shared memory of the tile kernel, in bytes
   int wg_bytes;        // one warpgroup's region
@@ -125,10 +101,11 @@ __host__ __device__ inline Layout tile_layout(const int* h) {
   s.wg_bytes = off;
   off = 2 * s.wg_bytes;
   s.masks = off; off += al128(h[H_MASK_WORDS] * CONSUMERS * 4);
-  s.bars = off; off += 2 * MAX_STAGES * 8;
-  s.ring = al128(off);
-  s.stages = (int)lmin(MAX_STAGES, (SMEM_LIMIT - s.ring) / SLAB_BYTES);
-  s.total = s.ring + s.stages * SLAB_BYTES;
+  const RingLayout r = ring_layout(off, SLAB_K);
+  s.bars = r.bars;
+  s.ring = r.ring;
+  s.stages = r.stages;
+  s.total = r.total;
   return s;
 }
 
@@ -143,22 +120,6 @@ struct TileArgs {
   long long n_rows, n_pad;
   int h[H_HEADER];
   Layout s;
-};
-
-// A 64-row chunk-major tile: element (r, c).
-__device__ __forceinline__ int cm(int r, int c) { return (c >> 3) * CHUNK + r * 8 + (c & 7); }
-
-// The calling thread's place in the wgmma accumulator layout.
-struct Lane {
-  int t, wg, warp, lane, r0, cq;
-  __device__ Lane() {
-    t = threadIdx.x & 127;
-    wg = threadIdx.x >> 7;
-    warp = t >> 5;
-    lane = t & 31;
-    r0 = warp * 16 + (lane >> 2);
-    cq = 2 * (lane & 3);
-  }
 };
 
 // Column sums of a warpgroup's 64 rows: s[2j + p] holds this lane's two
@@ -203,9 +164,7 @@ struct Tile {
   const TileArgs& a;
   unsigned char* wgm;   // this warpgroup's region
   uint32_t* masks;
-  unsigned char* ring;
-  uint64_t* full;
-  uint64_t* empty;
+  Ring rg;
   Lane ln;
   long long row0;       // first row of the warpgroup
   int slab = 0;
@@ -241,36 +200,8 @@ struct Tile {
   // acc = [A0 | A1] · B over the op's K, B streamed from the ring.
   template <int N>
   __device__ void product(const int* op, float (&acc)[N / 2]) {
-    const int K = op[O_K], ka = op[O_KA];
-    const uint32_t a0 = smem_u32(buf(op[O_A0])), a1 = smem_u32(buf(op[O_A1]));
-    const uint32_t r = smem_u32(ring);
-    const int S = a.s.stages;
-#pragma unroll
-    for (int i = 0; i < N / 2; ++i) acc[i] = 0.0f;
-    fence_regs(acc);
-    const int first = slab, n_slabs = (K + SLAB_K - 1) / SLAB_K;
-    for (int s = 0; s < n_slabs; ++s) {
-      const int cur = first + s, stage = cur % S;
-      mbar_wait(&full[stage], (cur / S) & 1);
-      wgmma_fence();
-      const int k0 = s * SLAB_K, ks = min(SLAB_K, K - k0);
-      for (int kk = 0; kk < ks; kk += 16) {
-        const int kg = k0 + kk;
-        const uint32_t abase = kg < ka ? a0 + (kg >> 3) * 1024 : a1 + ((kg - ka) >> 3) * 1024;
-        const uint64_t da = gmma_desc(abase, 1024, 128);
-        const uint64_t db = gmma_desc(r + stage * SLAB_BYTES + (kk >> 3) * N * 16, N * 16, 128);
-        Wgmma<N, 0, 0>::mma(acc, da, db, 1);
-      }
-      wgmma_commit();
-      if (s > 0) {
-        wgmma_wait<1>();
-        if (ln.lane == 0) mbar_arrive(&empty[(cur - 1) % S]);
-      }
-    }
-    wgmma_wait<0>();
-    fence_regs(acc);
-    if (ln.lane == 0) mbar_arrive(&empty[(first + n_slabs - 1) % S]);
-    slab = first + n_slabs;
+    pe::product<N>(op, smem_u32(buf(op[O_A0])), smem_u32(buf(op[O_A1])), rg, slab, ln.lane,
+                   acc);
   }
 
   // A cotangent tile into the act buffer in place: the relu mask of `mask`
@@ -328,25 +259,12 @@ struct Tile {
     for (int w = 0; w < W; ++w) mw[w] = 0;
     before_write();
     bf16* dst = relu ? act() : tb();
-#pragma unroll
-    for (int j = 0; j < N / 8; ++j) {
-      const int c = 8 * j + ln.cq;
-      const float b0 = c < nvalid ? __ldg(bias + c) : 0.0f;
-      const float b1 = c + 1 < nvalid ? __ldg(bias + c + 1) : 0.0f;
-      float y[4] = {v[4 * j] + b0, v[4 * j + 1] + b1, v[4 * j + 2] + b0, v[4 * j + 3] + b1};
-      if (relu) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) y[q] = fmaxf(y[q], 0.0f);
-      }
-      const __nv_bfloat162 h0 = __floats2bfloat162_rn(y[0], y[1]);
-      const __nv_bfloat162 h1 = __floats2bfloat162_rn(y[2], y[3]);
-      *reinterpret_cast<__nv_bfloat162*>(dst + cm(ln.r0, c)) = h0;
-      *reinterpret_cast<__nv_bfloat162*>(dst + cm(ln.r0 + 8, c)) = h1;
-      const uint32_t bits = (__bfloat162float(h0.x) > 0.0f) | (__bfloat162float(h0.y) > 0.0f) << 1 |
-                            (__bfloat162float(h1.x) > 0.0f) << 2 |
-                            (__bfloat162float(h1.y) > 0.0f) << 3;
-      mw[j >> 3] |= bits << ((j & 7) * 4);
-    }
+    activation_out<N>(v,
+                      [&](int c) {
+                        return make_float2(c < nvalid ? __ldg(bias + c) : 0.0f,
+                                           c + 1 < nvalid ? __ldg(bias + c + 1) : 0.0f);
+                      },
+                      relu, dst, ln, mw);
     if (op[O_MASK] >= 0) {
 #pragma unroll
       for (int w = 0; w < W; ++w) masks[(op[O_MASK] + w) * CONSUMERS + threadIdx.x] = mw[w];
@@ -441,8 +359,7 @@ struct Tile {
   }
 
   __device__ void prologue() {
-    const int dim = a.h[H_DIM], F = a.h[H_FREQS], enc_cols = a.h[H_ENC_COLS];
-    const int enc_pad = a.h[H_ENC_PAD], tw = a.h[H_TB_W], t_cols = a.h[H_T_COLS];
+    const int dim = a.h[H_DIM], tw = a.h[H_TB_W], t_cols = a.h[H_T_COLS];
     float* x = xs();
     for (int i = ln.t; i < ROWS * dim; i += 128) {
       const long long g = row0 * dim + i;
@@ -454,22 +371,9 @@ struct Tile {
       gt()[cm(r, c)] = (c < t_cols && row < a.n_rows) ? a.g_t[row * t_cols + c] : 0.0f;
     }
     sync();
-    bf16* e = enc();
-    const int sin_end = dim * (1 + F);
-    for (int i = ln.t; i < ROWS * enc_pad; i += 128) {
-      const int r = i / enc_pad, c = i - r * enc_pad;
-      float v = 0.0f;
-      if (c < dim) {
-        v = x[r * dim + c];
-      } else if (c < enc_cols) {
-        const int j = c < sin_end ? c - dim : c - sin_end;
-        const int f = j / dim;
-        const float pre = x[r * dim + (j - f * dim)] * (float)(1 << f);
-        v = c < sin_end ? sinf(pre) : cosf(pre);
-      }
-      e[cm(r, c)] = __float2bfloat16_rn(v);
-    }
-    after_write(e, a.h[H_ENC_SLOT], enc_pad);
+    const float* xr = x + (ln.t >> 1) * dim;
+    encode_row([&](int d) { return xr[d]; }, ln.t >> 1, ln.t & 1, a.h, enc());
+    after_write(enc(), a.h[H_ENC_SLOT], a.h[H_ENC_PAD]);
   }
 
   __device__ void run() {
@@ -527,49 +431,25 @@ template <bool STORE>
 __global__ void __launch_bounds__(ALL_THREADS, 1)
 pe_field_bwd_tile_kernel(const __grid_constant__ TileArgs a) {
   extern __shared__ __align__(1024) unsigned char smem[];
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + a.s.bars);
-  uint64_t* empty = full + MAX_STAGES;
-  const int S = a.s.stages;
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < S; ++i) {
-      mbar_init(&full[i], 1);
-      mbar_init(&empty[i], CONSUMERS / 32);
-    }
-    mbar_fence_init();
-  }
+  const Ring rg =
+      make_ring(smem, RingLayout{a.s.bars, a.s.ring, a.s.stages, a.s.total, SLAB_K});
+  init_ring(rg);
   __syncthreads();
-
-  if (threadIdx.x >= CONSUMERS) {      // the producer: the weight slabs, in order
-    setmaxnreg_dec<PRODUCER_REGS>();
-    if (threadIdx.x != CONSUMERS) return;
-    unsigned char* ring = smem + a.s.ring;
-    int slab = 0;
-    for (int o = 0; o < a.h[H_N_OPS]; ++o) {
-      const int* op = a.ops + o * OP_INTS;
-      const int kind = __ldg(op + O_KIND);
-      if (kind != FWD && kind != BWD) continue;
-      const int N = __ldg(op + O_N), K = __ldg(op + O_K);
-      const bf16* src = a.img + __ldg(op + O_IMG);
-      for (int k0 = 0; k0 < K; k0 += SLAB_K, ++slab) {
-        const int stage = slab % S;
-        mbar_wait(&empty[stage], ((slab / S) & 1) ^ 1);
-        const uint32_t bytes = (uint32_t)(min(SLAB_K, K - k0) * N * 2);
-        mbar_expect_tx(&full[stage], bytes);
-        bulk_load(ring + stage * SLAB_BYTES, src + (long long)k0 * N, bytes, &full[stage]);
-      }
-    }
-    return;
-  }
-  setmaxnreg_inc<CONSUMER_REGS>();
-
-  Tile<STORE> tile{a, smem + (threadIdx.x >> 7) * a.s.wg_bytes,
-                   reinterpret_cast<uint32_t*>(smem + a.s.masks), smem + a.s.ring, full, empty};
-  tile.row0 = (long long)blockIdx.x * TILE_ROWS + tile.ln.wg * ROWS;
-  tile.run();
-  if (a.dx != nullptr)
-    dx_rows(tile.xs(), tile.genc(), a.dx, tile.row0, a.n_rows, a.h[H_DIM], a.h[H_FREQS],
-            tile.ln.t);
-  if (STORE && tile.ln.t == 0) bulk_wait();
+  split_roles(
+      [&] {                            // the producer: the weight slabs, in order
+        int slab = 0;
+        produce_slabs(a.ops, a.h[H_N_OPS], a.img, rg, slab);
+      },
+      [&] {
+        Tile<STORE> tile{a, smem + (threadIdx.x >> 7) * a.s.wg_bytes,
+                         reinterpret_cast<uint32_t*>(smem + a.s.masks), rg};
+        tile.row0 = (long long)blockIdx.x * TILE_ROWS + tile.ln.wg * ROWS;
+        tile.run();
+        if (a.dx != nullptr)
+          dx_rows(tile.xs(), tile.genc(), a.dx, tile.row0, a.n_rows, a.h[H_DIM], a.h[H_FREQS],
+                  tile.ln.t);
+        if (STORE && tile.ln.t == 0) bulk_wait();
+      });
 }
 
 // ---- the weight-gradient pass -------------------------------------------------
@@ -693,31 +573,17 @@ __global__ void chunk_sum_kernel(const float* __restrict__ src, long long rows, 
 }
 
 // The program's header, checked; the split plan of the weight-gradient
-// pass (pe_bwd_plan.py dw_splits).
+// pass (pe_plan.py dw_splits).
 struct Plan {
   const int* h;
   long long n_tiles, n_pad, n_blocks, splits, per_split;
 };
 
 static bool plan(const int* prog, int prog_len, long long n_rows, Plan* p) {
-  if (prog_len < H_HEADER) return false;
+  if (!program_ok(prog, prog_len, TASK_INTS)) return false;
   const int* h = prog;
   p->h = h;
-  if (prog_len != H_HEADER + h[H_N_OPS] * OP_INTS + h[H_N_TASKS] * TASK_INTS) return false;
-  if (h[H_DIM] < 1 || h[H_FREQS] < 0 || h[H_FREQS] > 30 || h[H_ENC_PAD] % 16 ||
-      h[H_ACT_W] > MAX_N || h[H_ACT_W] % 16 || h[H_TB_W] > MAX_N || h[H_EX_PAD] > h[H_ACT_W] ||
-      h[H_ENC_PAD] > h[H_ACT_W])
-    return false;
-  const int* ops = prog + H_HEADER;
-  for (int o = 0; o < h[H_N_OPS]; ++o) {
-    const int* op = ops + o * OP_INTS;
-    const int N = op[O_N];
-    if (N != 16 && N != 32 && N != 64 && N != 128 && N != 256 && op[O_KIND] != EX) return false;
-    if ((op[O_KIND] == FWD || op[O_KIND] == BWD) && (op[O_K] <= 0 || op[O_K] % 16 ||
-                                                    op[O_KA] % 16))
-      return false;
-  }
-  const int* tasks = ops + h[H_N_OPS] * OP_INTS;
+  const int* tasks = prog + H_HEADER + h[H_N_OPS] * OP_INTS;
   for (int i = 0; i < h[H_N_TASKS]; ++i) {
     const int bn = tasks[i * TASK_INTS + T_BN];
     if (bn != 16 && bn != 32 && bn != 64 && bn != 128 && bn != 256) return false;

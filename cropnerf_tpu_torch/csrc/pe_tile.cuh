@@ -1,0 +1,291 @@
+// The tile interpreter shared by the PE field's forward (fused_pe_field.cu)
+// and its recompute backward (fused_pe_field_bwd.cu), for Hopper (sm_90a).
+//
+// Both kernels run a program that ops/cuda/pe_plan.py builds: a header,
+// then ops of OP_INTS ints.  A block owns tiles of 128 rows: two consumer
+// warpgroups of 64 rows each run the program's products as wgmma (64 x N,
+// N = 16..256, f32 accumulators in registers) on operands that stay in
+// shared memory in the chunk-major layout (wgmma_layers.cuh), and a
+// producer warpgroup streams the weight image (each product's B, K-major
+// core matrices, in program order) through a ring of 32-row slabs with bulk
+// copies that complete on mbarriers.  The producer keeps one thread and
+// hands its registers to the consumers (setmaxnreg), so that a 64 x 256
+// product's 128 accumulators a thread fit without spills.  A slab is free
+// again when all 8 consumer warps have arrived on its `empty` barrier.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+#include "wgmma_layers.cuh"
+
+namespace cropnerf {
+
+using bf16 = __nv_bfloat16;
+
+namespace pe {
+
+// ---- the program (mirrors ops/cuda/pe_plan.py) -------------------------------
+enum {
+  H_DIM, H_FREQS, H_ENC_COLS, H_ENC_PAD, H_DE, H_EX_PAD, H_T_COLS, H_RGB_COLS,
+  H_SEM_COLS, H_ACT_W, H_TB_W, H_MASK_WORDS, H_WS_COLS, H_ENC_SLOT, H_N_OPS,
+  H_N_TASKS, H_TOTAL_W, H_TOTAL_B, H_IMG_ELEMS, H_STORE, H_HEADER
+};
+enum {
+  O_KIND, O_N, O_K, O_A0, O_A1, O_KA, O_IMG, O_EPI, O_BOFF, O_NVALID, O_MASK,
+  O_WS, O_COL, OP_INTS
+};
+enum { FWD, EX, EMIT, BWD };
+enum { ACT, ENC, TB };
+// epilogues of FWD ops; the *_OUT ones write f32 rows of an output
+enum { RELU, LINEAR, T_OUT, RGB_OUT, SEM_OUT };
+
+constexpr int ROWS = 64;               // rows of a warpgroup
+constexpr int TILE_ROWS = 2 * ROWS;
+constexpr int CONSUMERS = 256;         // two warpgroups
+constexpr int ALL_THREADS = CONSUMERS + 128;  // and the producer's warpgroup
+constexpr int PRODUCER_REGS = 40;      // setmaxnreg: the producer gives
+constexpr int CONSUMER_REGS = 232;     // registers to the accumulators
+constexpr int SLAB_K = 32;             // weight rows per slab (the backward's)
+constexpr int MAX_STAGES = 8;
+constexpr int MAX_N = 256;
+constexpr int SMEM_LIMIT = 232448;
+constexpr int CHUNK = 512;             // elements of an 8-column chunk of 64 rows
+
+__host__ __device__ inline int al128(int b) { return (b + 127) & ~127; }
+__host__ __device__ inline long long lmax(long long a, long long b) { return a > b ? a : b; }
+__host__ __device__ inline long long lmin(long long a, long long b) { return a < b ? a : b; }
+
+// The slab ring's barriers and stages after `off` bytes of other shared
+// memory: slabs of slab_k weight rows (up to MAX_N wide), as many stages as
+// fit, up to MAX_STAGES.
+struct RingLayout {
+  int bars, ring, stages, total, slab_k;
+};
+
+__host__ __device__ inline int stage_bytes(int slab_k) { return slab_k * MAX_N * 2; }
+
+__host__ __device__ inline RingLayout ring_layout(int off, int slab_k) {
+  RingLayout r;
+  r.bars = off;
+  r.ring = al128(off + 2 * MAX_STAGES * 8);
+  r.stages = (int)lmin(MAX_STAGES, (SMEM_LIMIT - r.ring) / stage_bytes(slab_k));
+  r.total = r.ring + r.stages * stage_bytes(slab_k);
+  r.slab_k = slab_k;
+  return r;
+}
+
+// The header and ops both kernels accept: `task_ints` ints per task after
+// the ops (0 for the forward, which has none).
+inline bool program_ok(const int* prog, int prog_len, int task_ints) {
+  if (prog_len < H_HEADER) return false;
+  const int* h = prog;
+  if (h[H_N_OPS] < 1 || h[H_N_TASKS] < 0 ||
+      prog_len != H_HEADER + h[H_N_OPS] * OP_INTS + h[H_N_TASKS] * task_ints)
+    return false;
+  if (h[H_DIM] < 1 || h[H_FREQS] < 0 || h[H_FREQS] > 30 || h[H_ENC_PAD] % 16 ||
+      h[H_ACT_W] > MAX_N || h[H_ACT_W] % 16 || h[H_TB_W] > MAX_N || h[H_EX_PAD] > h[H_ACT_W] ||
+      h[H_ENC_PAD] > h[H_ACT_W])
+    return false;
+  const int* ops = prog + H_HEADER;
+  for (int o = 0; o < h[H_N_OPS]; ++o) {
+    const int* op = ops + o * OP_INTS;
+    const int N = op[O_N];
+    if (N != 16 && N != 32 && N != 64 && N != 128 && N != 256 && op[O_KIND] != EX) return false;
+    if ((op[O_KIND] == FWD || op[O_KIND] == BWD) && (op[O_K] <= 0 || op[O_K] % 16 ||
+                                                    op[O_KA] % 16))
+      return false;
+  }
+  return true;
+}
+
+// A 64-row chunk-major tile: element (r, c).
+__device__ __forceinline__ int cm(int r, int c) { return (c >> 3) * CHUNK + r * 8 + (c & 7); }
+
+// The calling thread's place in the wgmma accumulator layout.
+struct Lane {
+  int t, wg, warp, lane, r0, cq;
+  __device__ Lane() {
+    t = threadIdx.x & 127;
+    wg = threadIdx.x >> 7;
+    warp = t >> 5;
+    lane = t & 31;
+    r0 = warp * 16 + (lane >> 2);
+    cq = 2 * (lane & 3);
+  }
+};
+
+// ---- the weight ring -----------------------------------------------------------
+
+struct Ring {
+  unsigned char* base;
+  uint64_t* full;      // a slab has landed (the producer's transaction count)
+  uint64_t* empty;     // every consumer warp is done with it
+  int stages, slab_k;
+};
+
+__device__ __forceinline__ Ring make_ring(unsigned char* smem, const RingLayout& r) {
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + r.bars);
+  return Ring{smem + r.ring, full, full + MAX_STAGES, r.stages, r.slab_k};
+}
+
+// One thread initialises the barriers; a block barrier must follow.
+__device__ __forceinline__ void init_ring(const Ring& rg) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < rg.stages; ++i) {
+      mbar_init(&rg.full[i], 1);
+      mbar_init(&rg.empty[i], CONSUMERS / 32);
+    }
+    mbar_fence_init();
+  }
+}
+
+// The producer: every product op's B, in program order, as slabs of
+// rg.slab_k rows.  `slab` counts slabs across calls (a persistent block runs
+// the program once per tile without draining the ring).
+__device__ __forceinline__ void produce_slabs(const int* ops, int n_ops, const bf16* img,
+                                              const Ring& rg, int& slab) {
+  const int S = rg.stages, SK = rg.slab_k;
+  for (int o = 0; o < n_ops; ++o) {
+    const int* op = ops + o * OP_INTS;
+    const int kind = __ldg(op + O_KIND);
+    if (kind != FWD && kind != BWD) continue;
+    const int N = __ldg(op + O_N), K = __ldg(op + O_K);
+    const bf16* src = img + __ldg(op + O_IMG);
+    for (int k0 = 0; k0 < K; k0 += SK, ++slab) {
+      const int stage = slab % S;
+      mbar_wait(&rg.empty[stage], ((slab / S) & 1) ^ 1);
+      const uint32_t bytes = (uint32_t)(min(SK, K - k0) * N * 2);
+      mbar_expect_tx(&rg.full[stage], bytes);
+      bulk_load(rg.base + stage * stage_bytes(SK), src + (long long)k0 * N, bytes,
+                &rg.full[stage]);
+    }
+  }
+}
+
+// The roles of a block's warpgroups: the last one keeps one producer
+// thread with few registers, the first two take the rest.  No block-wide
+// barrier may follow (the producer's other threads have left).
+template <class Producer, class Consumer>
+__device__ __forceinline__ void split_roles(Producer&& produce, Consumer&& consume) {
+  if (threadIdx.x >= CONSUMERS) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == CONSUMERS) produce();
+    return;
+  }
+  setmaxnreg_inc<CONSUMER_REGS>();
+  consume();
+}
+
+// ---- the product ---------------------------------------------------------------
+
+// No ordering between the two warpgroups' products.
+struct AnyOrder {
+  __device__ void wait() const {}
+  __device__ void pass() const {}
+};
+
+// acc = [A0 | A1] · B over the op's K, B streamed from the ring; a0/a1 are
+// the shared addresses of the chunk-major operands.  Each slab's products
+// are one wgmma group; up to DEPTH groups stay in flight while the next is
+// issued, and a slab is released when its group is done.  `turn.wait()`
+// runs before the first slab's products are issued, `turn.pass()` right
+// after they are.
+template <int N, int DEPTH = 1, class Turn = AnyOrder>
+__device__ __forceinline__ void product(const int* op, uint32_t a0, uint32_t a1, const Ring& rg,
+                                        int& slab, int lane, float (&acc)[N / 2],
+                                        const Turn& turn = Turn()) {
+  const int K = op[O_K], ka = op[O_KA];
+  const uint32_t r = smem_u32(rg.base);
+  const int S = rg.stages, SK = rg.slab_k;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.0f;
+  fence_regs(acc);
+  turn.wait();
+  const int first = slab, n_slabs = (K + SK - 1) / SK;
+  for (int s = 0; s < n_slabs; ++s) {
+    const int cur = first + s, stage = cur % S;
+    mbar_wait(&rg.full[stage], (cur / S) & 1);
+    wgmma_fence();
+    const int k0 = s * SK, ks = min(SK, K - k0);
+    for (int kk = 0; kk < ks; kk += 16) {
+      const int kg = k0 + kk;
+      const uint32_t abase = kg < ka ? a0 + (kg >> 3) * 1024 : a1 + ((kg - ka) >> 3) * 1024;
+      const uint64_t da = gmma_desc(abase, 1024, 128);
+      const uint64_t db =
+          gmma_desc(r + stage * stage_bytes(SK) + (kk >> 3) * N * 16, N * 16, 128);
+      Wgmma<N, 0, 0>::mma(acc, da, db, 1);
+    }
+    wgmma_commit();
+    if (s == 0) turn.pass();
+    if (s >= DEPTH) {
+      wgmma_wait<DEPTH>();
+      if (lane == 0) mbar_arrive(&rg.empty[(cur - DEPTH) % S]);
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  if (lane == 0)
+    for (int s = n_slabs > DEPTH ? n_slabs - DEPTH : 0; s < n_slabs; ++s)
+      mbar_arrive(&rg.empty[(first + s) % S]);
+  slab = first + n_slabs;
+}
+
+// y = v + bias over a product's columns, relu'd if asked, rounded to bf16
+// into the chunk-major tile `dst`; bias2(c) gives the biases of columns c
+// and c + 1 (c even).  Bit 4(j % 8) + q of mw[j / 8] is set where
+// y[4j + q] > 0 after the rounding (the backward's relu masks).
+template <int N, class Bias2>
+__device__ __forceinline__ void activation_out(const float (&v)[N / 2], const Bias2& bias2,
+                                               bool relu, bf16* dst, const Lane& ln,
+                                               uint32_t (&mw)[(N + 63) / 64]) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int c = 8 * j + ln.cq;
+    const float2 b = bias2(c);
+    float y[4] = {v[4 * j] + b.x, v[4 * j + 1] + b.y, v[4 * j + 2] + b.x, v[4 * j + 3] + b.y};
+    if (relu) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) y[q] = fmaxf(y[q], 0.0f);
+    }
+    const __nv_bfloat162 h0 = __floats2bfloat162_rn(y[0], y[1]);
+    const __nv_bfloat162 h1 = __floats2bfloat162_rn(y[2], y[3]);
+    *reinterpret_cast<__nv_bfloat162*>(dst + cm(ln.r0, c)) = h0;
+    *reinterpret_cast<__nv_bfloat162*>(dst + cm(ln.r0 + 8, c)) = h1;
+    const uint32_t bits = (__bfloat162float(h0.x) > 0.0f) | (__bfloat162float(h0.y) > 0.0f) << 1 |
+                          (__bfloat162float(h1.x) > 0.0f) << 2 |
+                          (__bfloat162float(h1.y) > 0.0f) << 3;
+    mw[j >> 3] |= bits << ((j & 7) * 4);
+  }
+}
+
+// ---- the rows' encoding --------------------------------------------------------
+
+// Row r's NeRF encoding [x | sin(2^f x) | cos(2^f x)], rounded to bf16,
+// into the chunk-major tile e (zero columns up to enc_pad); xv(d) is the
+// row's coordinate d.  Two threads share a row: half 0 writes x and the
+// even frequencies, half 1 the odd ones and the zero columns.  sincosf is
+// the accurate sinf and cosf in one range reduction (arguments reach
+// 2^9 rad); no integer division.
+template <class Xv>
+__device__ __forceinline__ void encode_row(const Xv& xv, int r, int half, const int* h, bf16* e) {
+  const int dim = h[H_DIM], F = h[H_FREQS];
+  const int cos0 = dim * (1 + F);
+  if (half == 0) {
+    for (int d = 0; d < dim; ++d) e[cm(r, d)] = __float2bfloat16_rn(xv(d));
+  } else {
+    for (int c = h[H_ENC_COLS]; c < h[H_ENC_PAD]; ++c) e[cm(r, c)] = __float2bfloat16_rn(0.0f);
+  }
+  for (int f = half; f < F; f += 2) {
+    const float scale = (float)(1 << f);
+    for (int d = 0; d < dim; ++d) {
+      float sn, cs;
+      sincosf(xv(d) * scale, &sn, &cs);
+      e[cm(r, dim + f * dim + d)] = __float2bfloat16_rn(sn);
+      e[cm(r, cos0 + f * dim + d)] = __float2bfloat16_rn(cs);
+    }
+  }
+}
+
+}  // namespace pe
+}  // namespace cropnerf

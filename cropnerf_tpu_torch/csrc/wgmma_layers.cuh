@@ -1,5 +1,6 @@
-// Hopper (sm_90a) building blocks of the redesigned recompute backward
-// (fused_pe_field_bwd.cu): warpgroup matrix products (wgmma) on operands in
+// Hopper (sm_90a) building blocks of the PE field's tile kernels (the
+// forward fused_pe_field.cu and the recompute backward fused_pe_field_bwd.cu,
+// through pe_tile.cuh): warpgroup matrix products (wgmma) on operands in
 // shared memory, mbarriers, and the bulk-copy engine (cp.async.bulk) that
 // moves contiguous byte ranges between device and shared memory.
 //

@@ -8,13 +8,16 @@ tensors on the card and compute ``fused_pe_density_plain`` /
 on the CPU.  The kernel replaces the Pallas ``_fwd_kernel`` and
 ``_mega_fwd_kernel``.  It is compute-bound on an H100 (see the source
 note): every intermediate stays in shared memory, the weights stream from
-L2.  The ragged tail of N is masked in the kernel; there is no fallback.
+L2.  ``pe_plan.py`` plans it (``build_forward_plan``: the program and its
+``wgmma`` weight image); the kernel runs that program on the tile
+interpreter it shares with the backward.  The ragged tail of N is masked
+in the kernel; there is no fallback.
 
 Both are differentiable.  On the card their backwards are
 ``fused_pe_nerf_bwd`` and ``fused_pe_density_bwd``, the CUDA kernels of
 ``csrc/fused_pe_field_bwd.cu`` with and without the heads (replacing
 ``_mega_bwd_kernel`` and ``_bwd_kernel``), which recompute the forward;
-``pe_bwd_plan.py`` plans them (the tile program, the ``wgmma`` weight
+``pe_plan.py`` plans them too (the tile program, the ``wgmma`` weight
 image, the workspace and the weight-gradient tasks).
 ``fused_pe_density_bwd`` computes only the gradients autograd asks for
 (dx alone in the BayesRays pass).  On the CPU autograd runs through the
@@ -45,7 +48,7 @@ import torch
 from ..mlp import mm_f32acc
 from . import build
 from .fused_mlp import fused_mlp_plain, run_backward, run_forward
-from .pe_bwd_plan import build_plan, image_index, weight_image
+from .pe_plan import build_forward_plan, build_plan, image_index, weight_image
 from .common import (MAX_SMEM_BYTES, c_ints, check_kernel_call, check_rows,
                      pack_layers, pad16, stream_ptr, unpack_layers)
 
@@ -133,12 +136,12 @@ def fused_pe_nerf_plain(x: torch.Tensor, extras: torch.Tensor,
 def _lib():
     lib = build.load("fused_pe_field")
     lib.cropnerf_pe_field_fwd.argtypes = [ctypes.c_void_p] * 7 + [
-        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_void_p]
     lib.cropnerf_pe_field_fwd.restype = ctypes.c_int
-    lib.cropnerf_pe_field_smem_bytes.argtypes = [
-        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int]
-    lib.cropnerf_pe_field_smem_bytes.restype = ctypes.c_int
+    lib.cropnerf_pe_field_fwd_smem_bytes.argtypes = [
+        ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+    lib.cropnerf_pe_field_fwd_smem_bytes.restype = ctypes.c_int
     return lib
 
 
@@ -242,28 +245,48 @@ def unpack_pe_field_grads(dwbuf: torch.Tensor, dbbuf: torch.Tensor, meta,
 
 
 def smem_bytes(meta, heads: bool) -> int:
-    """Dynamic shared memory one block of the kernel takes for ``meta``
-    (-1 where the kernel rejects the layout)."""
-    return _lib().cropnerf_pe_field_smem_bytes(c_ints(meta), len(meta),
-                                               int(heads))
+    """Dynamic shared memory one block of the forward kernel takes for
+    ``meta`` (-1 where the kernel rejects the layout)."""
+    prog = build_forward_plan(meta, heads).ints()
+    return _lib().cropnerf_pe_field_fwd_smem_bytes(c_ints(prog), len(prog))
+
+
+@functools.lru_cache(maxsize=16)
+def _program(meta: tuple, device: torch.device, heads: bool,
+             backward: bool = False, pass_sem: bool = False,
+             need_dw: bool = False):
+    """(plan, its ints on the host, the same on the device, the weight
+    image's gather index on the device) of one layout of the forward or
+    backward kernel, built once: a copy from host memory to the card waits
+    for the stream, so it is not made on every call."""
+    meta = list(meta)
+    plan = (build_plan(meta, heads, pass_sem, need_dw) if backward
+            else build_forward_plan(meta, heads))
+    prog = plan.ints()
+    return (plan, prog, torch.tensor(prog, dtype=torch.int32, device=device),
+            image_index(meta, plan).to(device))
 
 
 def _launch(name, x, extras, outs, wbuf, bbuf, meta, heads, device):
+    """One launch of the forward kernel on the program pe_plan.py plans."""
     lib = _lib()
-    smem = smem_bytes(meta, heads)
+    try:
+        _, prog, prog_dev, index = _program(tuple(meta), device, heads)
+    except ValueError as e:
+        raise ValueError(f"{name}: the kernel rejects this layout ({e})") from e
+    smem = lib.cropnerf_pe_field_fwd_smem_bytes(c_ints(prog), len(prog))
     if smem < 0:
         raise ValueError(f"{name}: the kernel rejects this network layout")
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"{name}: needs {smem} B of shared memory per "
                          f"block, more than {MAX_SMEM_BYTES}")
-    t, rgb, sem = outs
+    img = weight_image(wbuf, index)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(device):
         err = lib.cropnerf_pe_field_fwd(
-            x.data_ptr(), extras.data_ptr() if heads else None, t.data_ptr(),
-            rgb.data_ptr() if heads else None,
-            sem.data_ptr() if heads else None, wbuf.data_ptr(),
-            bbuf.data_ptr(), c_ints(meta), len(meta), x.shape[0], heads,
-            stream_ptr(device))
+            x.data_ptr(), ptr(extras), *[ptr(o) for o in outs],
+            img.data_ptr(), bbuf.data_ptr(), c_ints(prog),
+            prog_dev.data_ptr(), len(prog), x.shape[0], stream_ptr(device))
     if err:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
@@ -276,7 +299,7 @@ def _density_forward(x, base_wbs, top_wbs, num_freqs, device):
     if x.shape[0] == 0:
         return t
     _launch("fused_pe_density", x, None, (t, None, None), wbuf, bbuf, meta,
-            0, device)
+            False, device)
     fused_pe_density.launches += 1
     return t
 
@@ -311,7 +334,7 @@ def _nerf_forward(x, extras, base_wbs, top_wbs, color_wbs, sem_wbs,
                  for c in (t_cols, rgb_cols, sem_cols))
     if n == 0:
         return outs
-    _launch("fused_pe_nerf", x, extras, outs, wbuf, bbuf, meta, 1, device)
+    _launch("fused_pe_nerf", x, extras, outs, wbuf, bbuf, meta, True, device)
     fused_pe_nerf.launches += 1
     return outs
 
@@ -323,29 +346,16 @@ def bwd_smem_bytes(meta, heads: bool = True) -> int:
     return _bwd_lib().cropnerf_pe_field_bwd_smem_bytes(c_ints(prog), len(prog))
 
 
-@functools.lru_cache(maxsize=8)
-def _bwd_program(meta: tuple, heads: bool, pass_sem: bool, need_dw: bool,
-                 device: torch.device):
-    """(plan, its ints on the host, the same on the device, the weight
-    image's gather index on the device) of one backward layout, built once:
-    a copy from host memory to the card waits for the stream, so it is not
-    made on every call."""
-    plan = build_plan(list(meta), heads, pass_sem, need_dw)
-    prog = plan.ints()
-    return (plan, prog, torch.tensor(prog, dtype=torch.int32, device=device),
-            image_index(list(meta), plan).to(device))
-
-
 def _bwd_launch(name, x, extras, cots, dx, dex, wbuf, bbuf, meta, heads,
                 pass_sem, need_dw, device):
-    """One launch of the backward kernel (pe_bwd_plan.py plans it): the
+    """One launch of the backward kernel (pe_plan.py plans it): the
     program, the weight image, the workspace and partials, then (dw, db)
     packed, or None without weight gradients."""
     lib = _bwd_lib()
     n = x.shape[0]
     try:
-        plan, prog, prog_dev, index = _bwd_program(
-            tuple(meta), heads, pass_sem, need_dw, device)
+        plan, prog, prog_dev, index = _program(
+            tuple(meta), device, heads, True, pass_sem, need_dw)
     except ValueError as e:
         raise ValueError(f"{name}: the kernel rejects this layout ({e})") from e
     sizes = (ctypes.c_longlong * 5)()

@@ -1,16 +1,22 @@
-"""The program of the PE field's recompute backward (``csrc/fused_pe_field_bwd.cu``).
+"""The programs of the PE field's tile kernels: the forward
+(``csrc/fused_pe_field.cu``) and the recompute backward
+(``csrc/fused_pe_field_bwd.cu``), which share their interpreter
+(``csrc/pe_tile.cuh``).
 
-The tile kernel interprets a list of ops that this module builds from the
-forward's meta (``pack_pe_field``): the forward recompute layer by layer,
-then the backward through the heads and the trunk.  Each product op names
-its operands, its output width N (16, 32, 64, 128 or 256: one ``wgmma``
-shape), its reduction width K and the offset of its B operand in the
-weight image; each op names its epilogue.  The same module lays out the
-workspace that the weight-gradient pass reads and lists that pass's tasks.
-Everything here is plain Python, so the CPU tests run the program
-(``tests/test_torch_kernels.py``) and hold it against autograd.
+Each kernel interprets a list of ops that this module builds from the
+forward's meta (``pack_pe_field``).  The forward program runs the layers
+in order and writes t, rgb_raw and sem_raw; the backward's runs the
+forward recompute layer by layer, then the backward through the heads and
+the trunk.  Each product op names its operands, its output width N (16,
+32, 64, 128 or 256: one ``wgmma`` shape), its reduction width K and the
+offset of its B operand in the weight image; each op names its epilogue.
+For the backward the same module lays out the workspace that the
+weight-gradient pass reads and lists that pass's tasks.  Everything here is
+plain Python, so the CPU tests run both programs
+(``tests/test_torch_kernels.py``) and hold them against the plain versions
+and autograd.
 
-Layouts, shared with the kernel:
+Layouts, shared with the kernels:
 
 * a block of 64 rows of an activation of width w is "chunk-major": element
   (r, c) at (c // 8) * 512 + r * 8 + c % 8, so that every 8x8 bf16 core
@@ -49,8 +55,9 @@ SPLIT_TARGET = 264       # weight-gradient blocks to aim for (2 per SM)
 FWD, EX, EMIT, BWD = range(4)
 # shared-memory buffers of a warpgroup
 ACT, ENC, TB = range(3)
-# epilogues: FWD ops
-RELU, LINEAR = range(2)
+# epilogues: FWD ops (the *_OUT ones write float32 rows to the outputs; T_OUT
+# also keeps t's bf16 copy in TB for the heads)
+RELU, LINEAR, T_OUT, RGB_OUT, SEM_OUT = range(5)
 # epilogues: BWD ops (G_MASKED writes the cotangent in place)
 G_MASKED, GT_ADD, DEX, GENC_SET, GENC_ADD = range(5)
 # EMIT sources
@@ -96,30 +103,119 @@ class Plan:
                 + [v for t in self.tasks for v in t])
 
 
+class _Net:
+    """The layers of ``meta`` as the programs see them, checked, and the
+    op list being built."""
+
+    def __init__(self, meta, heads: bool):
+        (self.dim, self.F, self.enc_cols, self.enc_pad, de, ex_pad, n_base,
+         n_top, n_color, n_sem, self.t_cols, rgb_cols, sem_cols, _) = meta[:14]
+        L = [list(meta[14 + 5 * i:19 + 5 * i])
+             for i in range((len(meta) - 14) // 5)]
+        if not heads:
+            n_color = n_sem = 0
+            L = L[:n_base + n_top]
+        self.heads, self.L = heads, L
+        self.de, self.ex_pad = (de, ex_pad) if heads else (0, 0)
+        self.rgb_cols, self.sem_cols = ((rgb_cols, sem_cols) if heads
+                                        else (0, 0))
+        self.n_base, self.n_color, self.n_sem = n_base, n_color, n_sem
+        self.top0, self.c0 = n_base, n_base + n_top
+        self.s0 = self.c0 + n_color
+        self.n_layers = len(L)
+        self.nw = [pow2_width(l[3]) for l in L]
+        self.t_last = self.c0 - 1
+        if L[0][2] != self.enc_pad or L[self.top0][2] - L[self.top0][4] != self.enc_pad:
+            raise ValueError("the encoding must feed layer 0 and the skip layer")
+        if heads and (L[self.c0][4] != L[self.t_last][3]
+                      or L[self.c0][2] != L[self.t_last][3] + ex_pad
+                      or L[self.s0][2] != L[self.t_last][3]):
+            raise ValueError("head layer 0 must take the padded trunk output")
+        self.ops, self.images, self.img = [], [], 0
+
+    _FIELDS = dict(a0=O_A0, a1=O_A1, ka=O_KA, epi=O_EPI, boff=O_BOFF,
+                   nvalid=O_NVALID, mask=O_MASK, ws=O_WS, col=O_COL)
+
+    def other(self, kind, N, **f):
+        op = [0] * OP_INTS
+        op[O_KIND], op[O_N] = kind, N
+        op[O_BOFF] = op[O_MASK] = op[O_WS] = -1
+        for k, v in f.items():
+            op[self._FIELDS[k]] = v
+        self.ops.append(op)
+        return op
+
+    def product(self, kind, layer, transposed, row0, rows, K, N, **f):
+        op = self.other(kind, N, **f)
+        op[O_K], op[O_IMG] = K, self.img
+        self.images.append((layer, transposed, row0, rows, K, N))
+        self.img += K * N
+
+    def fwd(self, l, a0, a1=None, **f):
+        """A forward product op of layer l on [a0 | a1] (a0 alone if a1 is
+        None), bias and epilogue fields in ``f``."""
+        w_off, b_off, k, n, ka = self.L[l]
+        self.product(FWD, l, False, 0, k, k, self.nw[l], a0=a0,
+                     a1=a0 if a1 is None else a1,
+                     ka=ka if a1 is not None else k, boff=b_off, nvalid=n,
+                     **f)
+
+    def header(self, fields: dict) -> List[int]:
+        """The program's header; ``fields`` maps header indices to values."""
+        act_w = max(self.nw + [self.ex_pad])
+        ln = self.L[-1]
+        h = [0] * H_HEADER
+        h[H_DIM], h[H_FREQS] = self.dim, self.F
+        h[H_ENC_COLS], h[H_ENC_PAD] = self.enc_cols, self.enc_pad
+        h[H_DE], h[H_EX_PAD] = self.de, self.ex_pad
+        h[H_T_COLS], h[H_RGB_COLS], h[H_SEM_COLS] = (
+            self.t_cols, self.rgb_cols, self.sem_cols)
+        h[H_ACT_W], h[H_TB_W] = act_w, self.nw[self.t_last]
+        h[H_N_OPS] = len(self.ops)
+        h[H_TOTAL_W] = ln[0] + ln[2] * ln[3]
+        h[H_TOTAL_B] = ln[1] + ln[3]
+        h[H_IMG_ELEMS] = self.img
+        for k, v in fields.items():
+            h[k] = v
+        return h
+
+
+def build_forward_plan(meta, heads: bool) -> Plan:
+    """The forward kernel's program for the packed layout ``meta``: one FWD
+    op per layer in order (the heads' output layers included), the EX op
+    that brings the extras in before the colour head, and the output
+    epilogues: T_OUT on the trunk's last layer, RGB_OUT and SEM_OUT on the
+    heads' last layers.  ``heads`` False plans the trunk alone
+    (fused_pe_density).  No masks, workspace or tasks."""
+    net = _Net(meta, heads)
+    last = net.n_layers - 1
+    for l in range(net.n_base):
+        net.fwd(l, ENC if l == 0 else ACT, epi=RELU)
+    for l in range(net.top0, net.c0):
+        net.fwd(l, ACT, ENC if l == net.top0 else None,
+                epi=T_OUT if l == net.t_last else RELU)
+    if heads:
+        net.other(EX, net.ex_pad)
+        for l in range(net.c0, net.s0):
+            net.fwd(l, TB if l == net.c0 else ACT, ACT if l == net.c0 else None,
+                    epi=RGB_OUT if l == net.s0 - 1 else RELU)
+        for l in range(net.s0, net.n_layers):
+            net.fwd(l, TB if l == net.s0 else ACT,
+                    epi=SEM_OUT if l == last else RELU)
+    return Plan(net.header({H_ENC_SLOT: -1}), net.ops, [], net.images, {})
+
+
 def build_plan(meta, heads: bool, pass_sem: bool, need_dw: bool) -> Plan:
-    """The tile program, workspace slots and weight-gradient tasks for the
-    packed layout ``meta`` (``pack_pe_field``).  ``heads`` False plans the
-    trunk alone (the backward of fused_pe_density); ``need_dw`` False
-    plans dx alone (no workspace, no bias sums)."""
-    (dim, F, enc_cols, enc_pad, de, ex_pad, n_base, n_top, n_color, n_sem,
-     t_cols, rgb_cols, sem_cols, _) = meta[:14]
-    L = [list(meta[14 + 5 * i:19 + 5 * i]) for i in range((len(meta) - 14) // 5)]
-    if not heads:
-        n_color = n_sem = 0
-        L = L[:n_base + n_top]
+    """The backward's tile program, workspace slots and weight-gradient
+    tasks for the packed layout ``meta`` (``pack_pe_field``).  ``heads``
+    False plans the trunk alone (the backward of fused_pe_density);
+    ``need_dw`` False plans dx alone (no workspace, no bias sums)."""
     if heads and not need_dw:
         raise ValueError("the backward with the heads always computes dW")
-    top0, c0 = n_base, n_base + n_top
-    s0 = c0 + n_color
-    n_layers = len(L)
-    nw = [pow2_width(l[3]) for l in L]
-    t_last = c0 - 1
-    t_w = nw[t_last]
-    if L[0][2] != enc_pad or L[top0][2] - L[top0][4] != enc_pad:
-        raise ValueError("the encoding must feed layer 0 and the skip layer")
-    if heads and (L[c0][4] != L[t_last][3] or L[c0][2] != L[t_last][3] + ex_pad
-                  or L[s0][2] != L[t_last][3]):
-        raise ValueError("head layer 0 must take the padded trunk output")
+    net = _Net(meta, heads)
+    L, nw, n_base, n_layers = net.L, net.nw, net.n_base, net.n_layers
+    top0, c0, s0, t_last = net.top0, net.c0, net.s0, net.t_last
+    n_color, n_sem = net.n_color, net.n_sem
 
     # the layers whose output passes a relu (and so has a mask)
     hidden = (list(range(n_base)) + list(range(top0, t_last))
@@ -138,34 +234,11 @@ def build_plan(meta, heads: bool, pass_sem: bool, need_dw: bool) -> Plan:
             ws_cols += width
         return slots[name][0] if need_dw else -1
 
-    enc_slot = slot("enc", enc_pad)
-    ops, images, img = [], [], 0
-    fields = dict(a0=O_A0, a1=O_A1, ka=O_KA, epi=O_EPI, boff=O_BOFF,
-                  nvalid=O_NVALID, mask=O_MASK, ws=O_WS, col=O_COL)
-
-    def other(kind, N, **f):
-        op = [0] * OP_INTS
-        op[O_KIND], op[O_N] = kind, N
-        op[O_BOFF] = op[O_MASK] = op[O_WS] = -1
-        for k, v in f.items():
-            op[fields[k]] = v
-        ops.append(op)
-        return op
-
-    def product(kind, layer, transposed, row0, rows, K, N, **f):
-        nonlocal img
-        op = other(kind, N, **f)
-        op[O_K], op[O_IMG] = K, img
-        images.append((layer, transposed, row0, rows, K, N))
-        img += K * N
+    enc_slot = slot("enc", net.enc_pad)
 
     # ---- forward recompute
     def fwd(l, a0, a1=None):
-        w_off, b_off, k, n, ka = L[l]
-        last_trunk = l == t_last
-        product(FWD, l, False, 0, k, k, nw[l], a0=a0,
-                a1=a0 if a1 is None else a1, ka=ka if a1 is not None else k,
-                epi=LINEAR if last_trunk else RELU, boff=b_off, nvalid=n,
+        net.fwd(l, a0, a1, epi=LINEAR if l == t_last else RELU,
                 mask=masks.get(l, -1), ws=slot(f"a{l}", nw[l]))
 
     for l in range(n_base):
@@ -173,7 +246,7 @@ def build_plan(meta, heads: bool, pass_sem: bool, need_dw: bool) -> Plan:
     for l in range(top0, c0):
         fwd(l, ACT, ENC if l == top0 else None)
     if heads:
-        other(EX, ex_pad, ws=slot("ex", ex_pad))
+        net.other(EX, net.ex_pad, ws=slot("ex", net.ex_pad))
         for l in range(c0, c0 + n_color - 1):
             fwd(l, TB if l == c0 else ACT, ACT if l == c0 else None)
         for l in range(s0, n_layers - 1):
@@ -181,22 +254,22 @@ def build_plan(meta, heads: bool, pass_sem: bool, need_dw: bool) -> Plan:
 
     # ---- backward
     def emit(l, src):
-        other(EMIT, nw[l], epi=src, boff=L[l][1] if need_dw else -1,
-              nvalid=L[l][3], ws=slot(f"g{l}", nw[l]))
+        net.other(EMIT, nw[l], epi=src, boff=L[l][1] if need_dw else -1,
+                  nvalid=L[l][3], ws=slot(f"g{l}", nw[l]))
 
     def grad_g(l):
         """G_{l-1} = mask ⊙ (G_l · W_lᵀ), in place (the skip layer's h part)."""
         p = l - 1 if l != top0 else n_base - 1
         n_in = L[l][4] if l == top0 else L[l][2]
-        product(BWD, l, True, 0, n_in, L[l][3], nw[p], a0=ACT, a1=ACT,
-                ka=L[l][3], epi=G_MASKED, boff=L[p][1] if need_dw else -1,
-                nvalid=L[p][3], mask=masks[p], ws=slot(f"g{p}", nw[p]))
+        net.product(BWD, l, True, 0, n_in, L[l][3], nw[p], a0=ACT, a1=ACT,
+                    ka=L[l][3], epi=G_MASKED, boff=L[p][1] if need_dw else -1,
+                    nvalid=L[p][3], mask=masks[p], ws=slot(f"g{p}", nw[p]))
 
     def grad_to(l, c_lo, cw, epi):
         col = 0
         for N in pow2_chunks(cw):
-            product(BWD, l, True, c_lo + col, N, L[l][3], N, a0=ACT, a1=ACT,
-                    ka=L[l][3], epi=epi, col=col)
+            net.product(BWD, l, True, c_lo + col, N, L[l][3], N, a0=ACT,
+                        a1=ACT, ka=L[l][3], epi=epi, col=col)
             col += N
 
     if heads:
@@ -249,23 +322,10 @@ def build_plan(meta, heads: bool, pass_sem: bool, need_dw: bool) -> Plan:
                     t[T_W_OFF] = L[l][0]
                     tasks.append(t)
 
-    act_w = max([nw[l] for l in range(n_layers)] + [ex_pad if heads else 0])
-    ln = L[-1]
-    header = [0] * H_HEADER
-    header[H_DIM], header[H_FREQS] = dim, F
-    header[H_ENC_COLS], header[H_ENC_PAD] = enc_cols, enc_pad
-    header[H_DE], header[H_EX_PAD] = (de, ex_pad) if heads else (0, 0)
-    header[H_T_COLS], header[H_RGB_COLS], header[H_SEM_COLS] = (
-        t_cols, rgb_cols if heads else 0, sem_cols if heads else 0)
-    header[H_ACT_W], header[H_TB_W] = act_w, t_w
-    header[H_MASK_WORDS], header[H_WS_COLS] = words, ws_cols
-    header[H_ENC_SLOT] = enc_slot
-    header[H_N_OPS], header[H_N_TASKS] = len(ops), len(tasks)
-    header[H_TOTAL_W] = ln[0] + ln[2] * ln[3]
-    header[H_TOTAL_B] = ln[1] + ln[3]
-    header[H_IMG_ELEMS] = img
-    header[H_STORE] = int(need_dw)
-    return Plan(header, ops, tasks, images, slots)
+    header = net.header({H_MASK_WORDS: words, H_WS_COLS: ws_cols,
+                         H_ENC_SLOT: enc_slot, H_N_TASKS: len(tasks),
+                         H_STORE: int(need_dw)})
+    return Plan(header, net.ops, tasks, net.images, slots)
 
 
 def image_index(meta, plan: Plan) -> torch.Tensor:

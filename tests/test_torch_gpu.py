@@ -99,6 +99,54 @@ def test_fused_pe_density_kernel_matches_plain(cuda, n, hidden):
     assert _rel_err(got, ref) <= TOL
 
 
+# Row counts at the edges of the forward's persistent tiling: one row,
+# either side of a 64-row warpgroup block, one tile past a block's first,
+# either side of one 128-row tile per SM, and a ragged training batch.
+FWD_EDGE_N = [1, 64, 65, 129, 128 * 132 - 1, 128 * 132 + 1, 196_608 - 77]
+
+
+@pytest.mark.parametrize("hidden", [256, 64])
+@pytest.mark.parametrize("n", FWD_EDGE_N)
+@torch.no_grad()
+def test_fused_pe_nerf_forward_tiling_edges(cuda, n, hidden):
+    """K1's forward at the tiling's edges against its plain version; each
+    call counts one launch, and two runs give the same bits."""
+    cfg, params = _field(cuda, hidden_dim=hidden)
+    base, top, color, sem = fused_field_weights(params.field, cfg.field)
+    x, extras = _field_inputs(n, color[1].shape[0], cuda, seed=11)
+    before = kfield.fused_pe_nerf.launches
+    got = kfield.fused_pe_nerf(x, extras, base, top, color, sem, POS_FREQS)
+    again = kfield.fused_pe_nerf(x, extras, base, top, color, sem, POS_FREQS)
+    torch.cuda.synchronize()
+    assert kfield.fused_pe_nerf.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+        "the forward kernel is not deterministic"
+    ref = kfield.fused_pe_nerf_plain(x, extras, base, top, color, sem,
+                                     POS_FREQS)
+    for name, g, r in zip(("t", "rgb_raw", "sem_raw"), got, ref):
+        assert g.shape == r.shape and torch.isfinite(g).all(), name
+        assert _rel_err(g, r) <= TOL, (name, _rel_err(g, r))
+
+
+@pytest.mark.parametrize("hidden", [256, 64])
+@pytest.mark.parametrize("n", FWD_EDGE_N)
+@torch.no_grad()
+def test_fused_pe_density_forward_tiling_edges(cuda, n, hidden):
+    """K2's forward (the trunk-only program) at the tiling's edges."""
+    cfg, params = _field(cuda, hidden_dim=hidden)
+    base, top, _, _ = fused_field_weights(params.field, cfg.field)
+    x, _ = _field_inputs(n, 1, cuda, seed=12)
+    before = kfield.fused_pe_density.launches
+    got = kfield.fused_pe_density(x, base, top, POS_FREQS)
+    again = kfield.fused_pe_density(x, base, top, POS_FREQS)
+    torch.cuda.synchronize()
+    assert kfield.fused_pe_density.launches == before + 2
+    assert torch.equal(got, again), "the forward kernel is not deterministic"
+    ref = kfield.fused_pe_density_plain(x, base, top, POS_FREQS)
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    assert _rel_err(got, ref) <= TOL, _rel_err(got, ref)
+
+
 @pytest.mark.parametrize("dims", [(15, 64, 1), (74, 64, 3), (15, 128, 1),
                                   (63, 256, 256, 16)])
 @pytest.mark.parametrize("n", [127, 65_536 - 3])
@@ -184,6 +232,41 @@ def test_fused_pe_nerf_backward_kernel_matches_plain(cuda, n, pass_sem):
                    [x, extras, *wbs], cots)
     assert all(torch.equal(a, b) for a, b in zip(got, again)), \
         "the backward kernel is not deterministic"
+
+
+@pytest.mark.parametrize("preset", ["cropnerf-mxu-q", "cropnerf-mxu-big",
+                                    "cropnerf-mxu-huge"])
+def test_fused_pe_nerf_preset_widths(cuda, preset):
+    """K1 forward and backward at the widths of the other fused-field
+    presets against the plain version: ``-big``'s 155 extras columns are
+    too wide for the forward's register prefetch and go straight to shared
+    memory; ``-big`` and ``-huge`` have 31 trunk outputs and a 3-layer
+    semantic head."""
+    cfg = PRESETS[preset].model
+    params = model_init(cfg, 8, torch.Generator().manual_seed(0), cuda)
+    base, top, color, sem = fused_field_weights(params.field, cfg.field)
+    n = 65_536 - 45
+    x, extras = _field_inputs(n, color[1].shape[0], cuda, seed=13)
+    x.requires_grad_(True)
+    extras.requires_grad_(True)
+    wbs = [*base, *top, *color, *sem]
+    before = (kfield.fused_pe_nerf.launches, kfield.fused_pe_nerf_bwd.launches)
+    got = kfield.fused_pe_nerf(x, extras, base, top, color, sem, POS_FREQS)
+    ref = kfield.fused_pe_nerf_plain(x, extras, base, top, color, sem,
+                                     POS_FREQS)
+    for name, a, b in zip(("t", "rgb_raw", "sem_raw"), got, ref):
+        assert a.shape == b.shape and torch.isfinite(a).all(), name
+        assert _rel_err(a, b) <= TOL, (name, _rel_err(a, b))
+    g = torch.Generator(device=cuda).manual_seed(5)
+    cots = [torch.randn(o.shape, generator=g, device=cuda) for o in ref]
+    got_g = _grads(got, [x, extras, *wbs], cots)
+    torch.cuda.synchronize()
+    assert (kfield.fused_pe_nerf.launches,
+            kfield.fused_pe_nerf_bwd.launches) == (before[0] + 1, before[1] + 1)
+    ref_g = _grads(ref, [x, extras, *wbs], cots)
+    for i, (a, b) in enumerate(zip(got_g, ref_g)):
+        assert a.shape == b.shape and torch.isfinite(a).all(), i
+        assert _grad_agrees(a, b, per_row=i < 2), (i, _rel_err(a, b))
 
 
 def _leaves(ws, need_dw):

@@ -212,6 +212,191 @@ def test_pack_layers_pads_and_stacks():
     assert torch.equal(second[:3, :20], w_c.bfloat16().float())
 
 
+# --- the forward program (ops/cuda/pe_plan.py build_forward_plan) --------
+
+def _kernel_model_pe_field_fwd(x, extras, wbuf, bbuf, meta, heads):
+    """csrc/fused_pe_field.cu's program run op by op in torch on what the
+    wrapper hands the kernel: the wgmma weight image gathered from the
+    packed weights, the packed biases, 128-row tiles (rows past N zero).
+    Each product sums its operands in float32; the activations and the
+    encoding take the weights' dtype (bf16 as on the card, float32 for the
+    f32 arm).  Returns t, or (t, rgb_raw, sem_raw) with the heads."""
+    from cropnerf_tpu_torch.ops.cuda import pe_plan as P
+    cd = wbuf.dtype
+    plan = P.build_forward_plan(meta, heads)
+    img = P.weight_image(wbuf, P.image_index(meta, plan))
+    h = plan.header
+    N = x.shape[0]
+    n_pad = -(-N // P.TILE) * P.TILE
+
+    def padded(t, cols):
+        out = torch.zeros((n_pad, cols))
+        out[:N, :t.shape[1]] = t
+        return out
+
+    enc = torch.zeros((n_pad, h[P.H_ENC_PAD]))
+    enc[:, :h[P.H_ENC_COLS]] = tfield._encode(padded(x, h[P.H_DIM]), h[P.H_FREQS])
+    bufs = {P.ENC: enc.to(cd), P.ACT: torch.zeros((n_pad, h[P.H_ACT_W]), dtype=cd),
+            P.TB: torch.zeros((n_pad, h[P.H_TB_W]), dtype=cd)}
+    cols = {P.T_OUT: h[P.H_T_COLS], P.RGB_OUT: h[P.H_RGB_COLS],
+            P.SEM_OUT: h[P.H_SEM_COLS]}
+    outs = {}
+    for op in plan.ops:
+        n, K, ka = op[P.O_N], op[P.O_K], op[P.O_KA]
+        if op[P.O_KIND] == P.EX:
+            bufs[P.ACT][:, :n] = padded(extras, n).to(cd)
+            continue
+        b = P.from_core_k_major(img[op[P.O_IMG]:op[P.O_IMG] + K * n], K, n)
+        a = torch.cat([bufs[op[P.O_A0]][:, :ka], bufs[op[P.O_A1]][:, :K - ka]], 1)
+        acc = a.float() @ b.float()
+        nv, epi = op[P.O_NVALID], op[P.O_EPI]
+        acc[:, :nv] += bbuf[op[P.O_BOFF]:op[P.O_BOFF] + nv]
+        if epi == P.RELU:
+            bufs[P.ACT][:, :n] = torch.relu(acc).to(cd)
+            continue
+        if epi in (P.LINEAR, P.T_OUT):
+            bufs[P.TB][:, :n] = acc.to(cd)
+        if epi != P.LINEAR:
+            outs[epi] = acc[:N, :cols[epi]]
+    if not heads:
+        return outs[P.T_OUT]
+    return outs[P.T_OUT], outs[P.RGB_OUT], outs[P.SEM_OUT]
+
+
+def _f32_weight_buffer(groups, F, de):
+    """pack_pe_field's weight buffer in float32, for the f32 arm's run of
+    the programs: the same layers and blocks, unrounded."""
+    from cropnerf_tpu_torch.ops.cuda.common import pad16
+    layers, _ = tfield._pe_layers(3, F, *groups, de=de)
+    blocks = []
+    for parts, bias in layers:
+        for w, k_pad in parts:
+            blk = torch.zeros((k_pad, pad16(bias.numel())))
+            blk[:w.shape[0], :w.shape[1]] = w
+            blocks.append(blk.reshape(-1))
+    return torch.cat(blocks)
+
+
+def _fwd_case(case, heads, dtype=torch.bfloat16, seed=3):
+    x, extras, base, top, color_wbs, sem_wbs = _pe_inputs(case, seed=seed)
+    groups = [to_torch(g) for g in ((base, top, color_wbs, sem_wbs) if heads
+                                    else (base, top))]
+    de = extras.shape[1] if heads else 0
+    wbuf, bbuf, meta = tfield.pack_pe_field(3, case[0], *groups, de=de)
+    if dtype == torch.float32:
+        f32 = _f32_weight_buffer(groups, case[0], de)
+        assert f32.shape == wbuf.shape and torch.equal(f32.bfloat16(), wbuf)
+        wbuf = f32
+    return (torch.from_numpy(x), torch.from_numpy(extras), groups,
+            (wbuf, bbuf, meta))
+
+
+@pytest.mark.parametrize("heads", [True, False], ids=["heads", "trunk"])
+@pytest.mark.parametrize("case", PE_CASES, ids=["narrow", "flagship"])
+def test_forward_kernel_model_reproduces_plain_path(case, heads):
+    """The forward program on the weight image gives the plain version's
+    outputs: the same bf16 operands and rounding points, float32 sums in
+    another order (tolerance 1e-5 of max |plain|, as the packed layout's)."""
+    x, ex, groups, (wbuf, bbuf, meta) = _fwd_case(case, heads)
+    got = _kernel_model_pe_field_fwd(x, ex, wbuf, bbuf, meta, heads)
+    if heads:
+        ref = tfield.fused_pe_nerf_plain(x, ex, *groups, case[0])
+        for name, g, r in zip(("t", "rgb_raw", "sem_raw"), got, ref):
+            assert_close(g, r, 1e-5, name)
+    else:
+        assert_close(got, tfield.fused_pe_density_plain(x, *groups, case[0]),
+                     1e-5, "t")
+
+
+@pytest.mark.parametrize("heads", [True, False], ids=["heads", "trunk"])
+@pytest.mark.parametrize("case", PE_CASES, ids=["narrow", "flagship"])
+def test_forward_kernel_model_matches_jax_kernel(case, heads, arm):
+    """The forward program against the JAX kernels in interpret mode, in
+    both arms at the arm's tolerance (f32 1e-4, bf16 2e-2): the f32 arm
+    runs the program on a float32 image and float32 activations."""
+    x, ex, _, (wbuf, bbuf, meta) = _fwd_case(case, heads, arm.dtype, seed=0)
+    _, _, base, top, color_wbs, sem_wbs = _pe_inputs(case, seed=0)
+    F = case[0]
+    s = jnp.asarray(jfield.pe_selector_matrix(F))
+    got = _kernel_model_pe_field_fwd(x, ex, wbuf, bbuf, meta, heads)
+    if heads:
+        ref = jfield.fused_pe_nerf(jnp.asarray(x.numpy()), jnp.asarray(ex.numpy()),
+                                   s, to_jax(base), to_jax(top),
+                                   to_jax(color_wbs), to_jax(sem_wbs), F, False,
+                                   128, True, 3, 128)
+        for name, g, r in zip(("t", "rgb_raw", "sem_raw"), got, ref):
+            assert_close(g, r, arm.tol, name)
+    else:
+        ref = jfield.fused_pe_density(jnp.asarray(x.numpy()), s, to_jax(base),
+                                      to_jax(top), F, 128, True, 3, 128)
+        assert_close(got, ref, arm.tol, "t")
+
+
+def _check_weight_image(plan, wbuf, meta):
+    """Each product op's B, decoded from the weight image's K-major
+    core-matrix layout, is the layer's W block (forward) or the Wᵀ rows it
+    produces (backward), zero-padded to the op's N."""
+    from cropnerf_tpu_torch.ops.cuda import pe_plan as P
+    img = P.weight_image(wbuf, P.image_index(meta, plan))
+    assert img.numel() == plan.header[P.H_IMG_ELEMS]
+    L = [meta[14 + 5 * i:19 + 5 * i] for i in range((len(meta) - 14) // 5)]
+    products = [op for op in plan.ops if op[P.O_KIND] in (P.FWD, P.BWD)]
+    assert len(products) == len(plan.images)
+    for op, (layer, transposed, row0, rows, K, N) in zip(products, plan.images):
+        assert (op[P.O_K], op[P.O_N]) == (K, N) and N in (16, 32, 64, 128, 256)
+        assert K % 16 == 0 and 0 < op[P.O_KA] <= K
+        b = P.from_core_k_major(img[op[P.O_IMG]:op[P.O_IMG] + K * N], K, N)
+        w_off, _, k, n, _ = L[layer]
+        w = wbuf[w_off:w_off + k * n].reshape(k, n)
+        want = torch.zeros((K, N), dtype=wbuf.dtype)
+        if transposed:
+            want[:n, :rows] = w[row0:row0 + rows].T
+        else:
+            want[:, :n] = w
+        assert torch.equal(b, want)
+
+
+@pytest.mark.parametrize("heads", [True, False], ids=["heads", "trunk"])
+@pytest.mark.parametrize("case", PE_CASES, ids=["narrow", "flagship"])
+def test_pe_fwd_plan_runs_each_layer_once(case, heads):
+    """One FWD op per layer in order, the EX op before the colour head, the
+    output epilogues on the trunk's, colour head's and semantic head's last
+    layers, RELU elsewhere; each product's B in the weight image; no
+    masks, workspace or tasks."""
+    from cropnerf_tpu_torch.ops.cuda import pe_plan as P
+    _, _, _, (wbuf, _, meta) = _fwd_case(case, heads)
+    plan = P.build_forward_plan(meta, heads)
+    n_base, n_top, n_color, n_sem = meta[6:10]
+    n_layers = n_base + n_top + (n_color + n_sem if heads else 0)
+    fwd = [op for op in plan.ops if op[P.O_KIND] == P.FWD]
+    assert [op[P.O_KIND] for op in plan.ops] == (
+        [P.FWD] * (n_base + n_top) + ([P.EX] + [P.FWD] * (n_color + n_sem)
+                                      if heads else []))
+    assert [layer for layer, *_ in plan.images] == list(range(n_layers))
+    last = {n_base + n_top - 1: P.T_OUT}
+    if heads:
+        last.update({n_base + n_top + n_color - 1: P.RGB_OUT,
+                     n_layers - 1: P.SEM_OUT})
+    assert [op[P.O_EPI] for op in fwd] == [last.get(l, P.RELU)
+                                           for l in range(n_layers)]
+    assert all(op[P.O_MASK] == -1 and op[P.O_WS] == -1 for op in plan.ops)
+    assert plan.tasks == [] and plan.slots == {}
+    h = plan.header
+    assert (h[P.H_MASK_WORDS], h[P.H_WS_COLS], h[P.H_N_TASKS], h[P.H_STORE]) == (0, 0, 0, 0)
+    assert (h[P.H_RGB_COLS], h[P.H_SEM_COLS]) == ((3, 1) if heads else (0, 0))
+    _check_weight_image(plan, wbuf, meta)
+    # the products are those of the backward's recompute, with the heads'
+    # output layers on top
+    if heads:
+        bwd = P.build_plan(meta, True, False, True)
+        rec = [op for op in bwd.ops if op[P.O_KIND] == P.FWD]
+        keep = [i for i, (layer, *_) in enumerate(plan.images)
+                if layer not in (n_base + n_top + n_color - 1, n_layers - 1)]
+        assert [[fwd[i][f] for f in (P.O_N, P.O_K, P.O_A0, P.O_A1, P.O_KA, P.O_BOFF)]
+                for i in keep] == [[op[f] for f in (P.O_N, P.O_K, P.O_A0, P.O_A1,
+                                                    P.O_KA, P.O_BOFF)] for op in rec]
+
+
 # --- K1 backward: the port's autograd against the JAX custom VJP ---------
 
 # (num_freqs, hidden, n_base, n_top, G, De, Hc, Hs, C, N, interpret): the
@@ -282,7 +467,7 @@ def test_fused_pe_nerf_backward_matches_jax(case, pass_sem, arm):
 def _kernel_model_pe_field_bwd(x, extras, wbuf, bbuf, meta, g_t, g_rgb,
                                g_sem, pass_sem, need_dw=True):
     """csrc/fused_pe_field_bwd.cu's three passes in torch, on what the
-    wrapper hands the kernel (ops/cuda/pe_bwd_plan.py): the tile program run
+    wrapper hands the kernel (ops/cuda/pe_plan.py): the tile program run
     op by op on 64-row blocks (products from the wgmma weight image, relu
     masks kept from the recompute, cotangents in place, f32 cotangents
     rounded to bf16 as product operands, per-block bias column sums, each
@@ -290,7 +475,7 @@ def _kernel_model_pe_field_bwd(x, extras, wbuf, bbuf, meta, g_t, g_rgb,
     layout), dx, dextras; the weight-gradient tasks Aᵀ·G read back from
     the workspace per split; the fixed-order sums.  A meta without heads
     (n_color 0) runs the trunk alone; need_dw False returns dx alone."""
-    from cropnerf_tpu_torch.ops.cuda import pe_bwd_plan as P
+    from cropnerf_tpu_torch.ops.cuda import pe_plan as P
     heads = meta[8] > 0
     plan = P.build_plan(meta, heads, pass_sem, need_dw)
     img = P.weight_image(wbuf, P.image_index(meta, plan))
@@ -445,26 +630,9 @@ def test_pe_bwd_weight_image_holds_each_product_operand(case):
     """The wgmma weight image: each product op's B, decoded from the
     K-major core-matrix layout, is the layer's W block (forward) or the Wᵀ
     rows it produces (backward), zero-padded to the op's N."""
-    from cropnerf_tpu_torch.ops.cuda import pe_bwd_plan as P
+    from cropnerf_tpu_torch.ops.cuda import pe_plan as P
     wbuf, _, meta = _bwd_meta(case)
-    plan = P.build_plan(meta, True, True, True)
-    img = P.weight_image(wbuf, P.image_index(meta, plan))
-    assert img.numel() == plan.header[P.H_IMG_ELEMS]
-    L = [meta[14 + 5 * i:19 + 5 * i] for i in range((len(meta) - 14) // 5)]
-    products = [op for op in plan.ops if op[P.O_KIND] in (P.FWD, P.BWD)]
-    assert len(products) == len(plan.images)
-    for op, (layer, transposed, row0, rows, K, N) in zip(products, plan.images):
-        assert (op[P.O_K], op[P.O_N]) == (K, N) and N in (16, 32, 64, 128, 256)
-        assert K % 16 == 0 and 0 < op[P.O_KA] <= K
-        b = P.from_core_k_major(img[op[P.O_IMG]:op[P.O_IMG] + K * N], K, N)
-        w_off, _, k, n, _ = L[layer]
-        w = wbuf[w_off:w_off + k * n].reshape(k, n)
-        want = torch.zeros((K, N), dtype=wbuf.dtype)
-        if transposed:
-            want[:n, :rows] = w[row0:row0 + rows].T
-        else:
-            want[:, :n] = w
-        assert torch.equal(b, want)
+    _check_weight_image(P.build_plan(meta, True, True, True), wbuf, meta)
     # a core matrix (8 rows of K, 8 columns of N) is 64 contiguous elements,
     # its rows 8 apart along N and K contiguous inside a row
     b = torch.arange(32 * 48, dtype=torch.float32).reshape(32, 48)
@@ -481,7 +649,7 @@ def test_pe_bwd_workspace_slots_and_tasks(heads):
     contiguous range (one bulk store, one bulk load); the weight-gradient
     tasks cover every weight row of every layer once, and the splits every
     block once."""
-    from cropnerf_tpu_torch.ops.cuda import pe_bwd_plan as P
+    from cropnerf_tpu_torch.ops.cuda import pe_plan as P
     _, _, meta = _bwd_meta(BWD_CASES[0], heads)
     plan = P.build_plan(meta, heads, False, True)
     n_rows = 300
@@ -519,7 +687,7 @@ def test_pe_bwd_programs_ask_only_for_what_is_needed():
     """dx alone plans no workspace, no tasks and no bias sums; pass_sem adds
     the semantic head's input gradient; every mask an op reads was written
     earlier by a forward op of the same width."""
-    from cropnerf_tpu_torch.ops.cuda import pe_bwd_plan as P
+    from cropnerf_tpu_torch.ops.cuda import pe_plan as P
     _, _, meta = _bwd_meta(BWD_CASES[1], heads=False)
     dx_only = P.build_plan(meta, False, False, False)
     assert dx_only.slots == {} and dx_only.tasks == []
