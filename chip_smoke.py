@@ -20,7 +20,8 @@ Run from the root of the repository:  python3 chip_smoke.py
    (the hash-grid field, the CLI default) the hash-grid encode K4 forward
    and backward at the field's and both proposal nets' shapes, a ragged N
    and a small dense [L, T, F] table; the fused PE proposal nets K5
-   forward and backward (with dx and the weight gradients) at both nets'
+   forward and backward (with dx and the weight gradients; the backward
+   is csrc/fused_pe_mlp_bwd.cu) at both nets'
    training shapes and a ragged N; the transmittance scan K6 at a training
    step's three compositing shapes, at [16384, 3000] and at a ragged shape,
    called through its own entry point with its launches counted (no model
@@ -37,7 +38,10 @@ Run from the root of the repository:  python3 chip_smoke.py
    path against one on the plain path from the same parameters and draws,
    then a first step and TRAIN_STEPS timed steps with the launch counts
    zeroed before and read after; for cropnerf then one step between
-   proposal updates (the proposal nets run without a graph);
+   proposal updates (the proposal nets run without a graph), and K4's
+   backward on the positions and cotangents of one training step's three
+   calls (tools/hash_bwd_real_step.py captures them), against its plain
+   version and timed beside the uniform positions;
 5b. drives the BayesRays pass on the same bank ([uncertainty] lines): the
    Hessian at lod 8 over UNC_BATCHES batches of 4096 rays, semantics
    channel, for cropnerf-mxu (K2 and K3 forward and backward, dx only; then
@@ -101,10 +105,9 @@ RENDER_HW = 256          # full-image render, two 32,768-ray chunks
 EXPORT_SIDE = 128        # volume export: 128^3 samples over the AABB
 EXPORT_RAYS = 512        # rays per export chunk (sample_volume's default)
 KERNEL_NS = "cropnerf::"  # the port's kernels in profiler rows
-PROFILE_TRIES = 3        # profiler windows per device_ms before it fails
+PROFILE_TRIES = 5        # profiler windows per device_ms before CUDA events
 REPEATS = 5              # timed runs of each path step after its first call
 TRAIN_STEPS = 20         # timed training steps after the first
-BANK = (32, 800, 1200)   # training images, height, width (as bench.py)
 UNC_LOD = 8              # BayesRays grid: (2^8+1)^3 cells (the CLI default)
 UNC_BATCHES = 8          # BayesRays ray batches of RAYS rays
 UNC_THRESHOLD = 0.5      # uncertainty filter of the filtered render
@@ -140,27 +143,31 @@ def device_ms(fn, iters: int, only: str | None = None) -> float:
     """Device time per call over ``iters`` calls: the kernels and copies
     torch.profiler records, those whose name contains ``only`` if given.
     Unlike ``cuda_ms`` it leaves out host time the device waited through,
-    such as a wrapper packing its weights.  A window in which the profiler
-    recorded no device row at all (it now and then drops a short window's
-    events) is profiled again, up to PROFILE_TRIES windows in all."""
+    such as a wrapper packing its weights.  The profiler now and then drops
+    a window's device rows, all of them or only some (a fill kernel kept,
+    the port's kernel lost): a window with no device time for ``only`` is
+    profiled again, up to PROFILE_TRIES windows in all, and if every window
+    came back empty the calls are timed with CUDA events instead."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    for _ in range(PROFILE_TRIES):
+    what = only or "the plain version"
+    for window in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA]
-        if events:
-            break
-    rows = [e.self_device_time_total for e in events
-            if only is None or only in e.key]
-    check(bool(rows) and sum(rows) > 0, f"the profiler saw no device time "
-          f"for {only or 'the plain version'}")
-    return sum(rows) / 1e3 / iters
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA
+                    and (only is None or only in e.key))
+        if total > 0:
+            return total / 1e3 / iters
+        log(f"[profile] window {window + 1} of {PROFILE_TRIES} recorded no "
+            f"device time for {what}")
+    log(f"[profile] no device time for {what} in {PROFILE_TRIES} windows: "
+        f"timed with CUDA events instead (host time included)")
+    return cuda_ms(fn, iters)
 
 
 # the passes of the PE trunk's backward (csrc/fused_pe_field_bwd.cu), by
@@ -170,20 +177,31 @@ BWD_PASSES = {"tile": ("pe_field_bwd_tile_kernel",),
               "sums": ("chunk_sum_kernel", "column_sum_kernel")}
 # the PE field's forward (csrc/fused_pe_field.cu): one kernel
 FWD_PASSES = {"kernel": ("pe_field_fwd_kernel",)}
+# the hash-grid encode's backward (csrc/hash_encode.cu): the privatised
+# levels, the other levels, the sum of the levels' dpos shares
+HASH_BWD_PASSES = {"private": ("hash_private_kernel",),
+                   "levels": ("hash_level_kernel",),
+                   "dpos sum": ("hash_dpos_sum_kernel",)}
+# the PE proposal nets' backward (csrc/fused_pe_mlp_bwd.cu)
+PE_MLP_BWD_PASSES = {"kernel": ("pe_mlp_bwd_kernel",),
+                     "sums": ("column_sum_kernel",)}
 BWD_WINDOWS = 3          # profiler windows per K1/K2 timing
 
 
 def pass_ms(fn, iters: int, passes: dict = BWD_PASSES) -> dict:
-    """Device ms per call of each pass of the PE field's forward or
-    backward (``passes``: name -> kernel names) and of all the port's
+    """Device ms per call of each pass of a kernel call (``passes``: name
+    -> kernel names; the PE field's forward or backward, the hash-grid
+    encode's backward, the PE nets' backward) and of all the port's
     kernels it launches ("total"), over BWD_WINDOWS profiler windows: the
-    median, minimum and maximum of the windows.  A window the profiler
-    dropped is profiled again, up to PROFILE_TRIES more windows."""
+    median, minimum and maximum of the windows.  A window with no device
+    time for the port's kernels is profiled again, up to PROFILE_TRIES
+    more windows; if none had any, "total" is timed with CUDA events and
+    the passes are not measured (None)."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
     per = {name: [] for name in (*passes, "total")}
-    for _ in range(BWD_WINDOWS + PROFILE_TRIES):
+    for window in range(BWD_WINDOWS + PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -191,24 +209,36 @@ def pass_ms(fn, iters: int, passes: dict = BWD_PASSES) -> dict:
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA and KERNEL_NS in e.key]
-        if not events:
+        total = sum(e.self_device_time_total for e in events)
+        if total <= 0:
+            log(f"[profile] window {window + 1} recorded no device time for "
+                f"{KERNEL_NS}")
             continue
         for name, keys in passes.items():
             per[name].append(sum(e.self_device_time_total for e in events
                                  if any(k in e.key for k in keys))
                              / 1e3 / iters)
-        per["total"].append(sum(e.self_device_time_total for e in events)
-                            / 1e3 / iters)
+        per["total"].append(total / 1e3 / iters)
         if len(per["total"]) == BWD_WINDOWS:
             break
-    check(len(per["total"]) == BWD_WINDOWS,
-          "the profiler saw no device time for the PE field's kernels")
+    if not per["total"]:
+        log(f"[profile] no device time for {KERNEL_NS} in "
+            f"{BWD_WINDOWS + PROFILE_TRIES} windows: total timed with CUDA "
+            f"events instead (host time included), passes not measured")
+        ms = cuda_ms(fn, iters)
+        none = {"median": None, "min": None, "max": None}
+        return {**{name: dict(none) for name in passes},
+                "total": {"median": ms, "min": ms, "max": ms}}
+    if len(per["total"]) < BWD_WINDOWS:
+        log(f"[profile] {len(per['total'])} of {BWD_WINDOWS} windows "
+            f"recorded device time for {KERNEL_NS}")
     return {name: {"median": statistics.median(v), "min": min(v),
                    "max": max(v)} for name, v in per.items()}
 
 
 def fmt_passes(p: dict) -> str:
-    return ", ".join(f"{name} {v['median']:.4f} ({v['min']:.4f}-"
+    return ", ".join(f"{name} not measured" if v["median"] is None else
+                     f"{name} {v['median']:.4f} ({v['min']:.4f}-"
                      f"{v['max']:.4f})" for name, v in p.items())
 
 
@@ -415,8 +445,9 @@ def hash_kernels(cfg, dev, card, report: str) -> dict:
             k.update(touched=touched,
                      ms=device_ms(kf, 20, KERNEL_NS), call_ms=cuda_ms(kf, 20),
                      plain_ms=device_ms(pf, 3),
-                     bwd_ms=device_ms(kb, 10, KERNEL_NS),
+                     bwd_passes=pass_ms(kb, 10, HASH_BWD_PASSES),
                      bwd_call_ms=cuda_ms(kb, 10), bwd_plain_ms=device_ms(pb, 3))
+            k["bwd_ms"] = k["bwd_passes"]["total"]["median"]
             # each input read once (of the table, the rows these positions
             # touch), each output written once (the whole table gradient)
             fwd_bytes = nbytes(pos, out) + touched * 8
@@ -434,8 +465,10 @@ def hash_kernels(cfg, dev, card, report: str) -> dict:
                 f"{k['rows']} rows read; with the whole table read "
                 f"{k['whole_table_bound_ms']:.4f} ms); backward "
                 f"{k['bwd_ms']:.4f} ms (call with the zeroed gradient "
-                f"{k['bwd_call_ms']:.4f}), plain {k['bwd_plain_ms']:.4f} ms, "
-                f"bound {k['bwd_bound_ms']:.4f} ms (bytes); {card}")
+                f"{k['bwd_call_ms']:.4f}; by pass over {BWD_WINDOWS} windows, "
+                f"median (min-max): {fmt_passes(k['bwd_passes'])}), plain "
+                f"{k['bwd_plain_ms']:.4f} ms, bound {k['bwd_bound_ms']:.4f} ms "
+                f"(bytes); {card}")
         per[label] = k
         del table, table2d, pos, cot, out, ref, dt, dp, dt_ref, dp_ref
     spills = [line.strip() for line in report.splitlines() if "spill" in line]
@@ -644,6 +677,7 @@ def hash_training(dev, card, bank, kernels):
         check(bool(torch.isfinite(g_k[k]).all()) and v <= GRAD_TOL,
               f"cropnerf train gradient {k}: {v:.3e}")
     del one, g_k, g_p
+    real_step = hash_bwd_real_step(bank, dev)
 
     state = create_train_state(cfg, n_img, torch.Generator().manual_seed(0),
                                dev)
@@ -712,8 +746,44 @@ def hash_training(dev, card, bank, kernels):
             "rays_per_s": R / med * 1e3, "loss": loss_now,
             "launches": launches, "no_update_step_launches": frozen_launches,
             "vs_plain_loss_rel": abs(l_k - l_p) / abs(l_p),
-            "vs_plain_grad_worst": [worst, leaf_err[worst]]}
+            "vs_plain_grad_worst": [worst, leaf_err[worst]],
+            "hash_encode_bwd_real_step": real_step}
     return info, run_train
+
+
+def hash_bwd_real_step(bank, dev) -> dict:
+    """K4's backward on the positions and cotangents of one cropnerf
+    training step (tools/hash_bwd_real_step.py captures them): each call
+    against its plain version with a float64 table, and the device time of
+    the step's three calls."""
+    from cropnerf_tpu_torch.ops import hashgrid as hg
+    from cropnerf_tpu_torch.ops.cuda import hash_encode as kh
+    from tools.hash_bwd_real_step import step_inputs
+    captured = step_inputs(bank, dev)
+    check(len(captured) == 3, f"{len(captured)} hash_encode_bwd calls in a "
+          "cropnerf training step, expected 3")
+    calls = []
+    for table2d, pos, cot, layout in captured:
+        res, offsets, dense, t = layout
+        dt, dp = kh.hash_encode_bwd(table2d, pos, cot, *layout)
+        tt = table2d.double().requires_grad_(True)
+        tp = pos.clone().requires_grad_(True)
+        with torch.enable_grad():
+            hg.hashgrid_encode_plain(tt, tp, res, table_size=t).backward(
+                cot.double())
+        c = dict(n=pos.shape[0], levels=len(res),
+                 dtable_err=rel_err(dt, tt.grad), dpos_err=rel_err(dp, tp.grad),
+                 passes=pass_ms(lambda: kh.hash_encode_bwd(table2d, pos, cot,
+                                                           *layout), 10,
+                                HASH_BWD_PASSES))
+        c["ms"] = c["passes"]["total"]["median"]
+        check(c["dtable_err"] <= HASH_TOL and c["dpos_err"] <= DPOS_TOL,
+              f"hash_encode_bwd on a training step's inputs: {c}")
+        calls.append(c)
+        del tt, tp, dt, dp
+    return {"calls": calls, "ms": sum(c["ms"] for c in calls),
+            "ms_min": sum(c["passes"]["total"]["min"] for c in calls),
+            "ms_max": sum(c["passes"]["total"]["max"] for c in calls)}
 
 
 # ---- the BayesRays slice: K2 and K3 backward, the [uncertainty] phase ------
@@ -1115,9 +1185,9 @@ def all_plain_cfg(cfg):
                               for p in m.proposal_fields)))
 
 
-def pe_mlp_entries(cfg, dev, card, report) -> dict:
-    """K5 forward and backward (the PE variant of csrc/fused_mlp.cu)
-    against the plain version at one cropnerf-mxu training step's shapes of
+def pe_mlp_entries(cfg, dev, card, report, bwd_report) -> dict:
+    """K5 forward (the PE variant of csrc/fused_mlp.cu) and backward
+    (csrc/fused_pe_mlp_bwd.cu) against the plain version at one cropnerf-mxu training step's shapes of
     both proposal nets (4096 rays x 256 and x 96 samples) and a ragged N;
     the backward with dx and the weight gradients, the variant the training
     step runs (its samples carry the camera-opt graph).  Each entry's ms,
@@ -1188,9 +1258,11 @@ def pe_mlp_entries(cfg, dev, card, report) -> dict:
                  ms=device_ms(lambda: fwd(xb), 20, KERNEL_NS),
                  call_ms=cuda_ms(lambda: fwd(xb), 20),
                  plain_ms=device_ms(lambda: plain_fwd(xb), 5),
-                 bwd_ms=device_ms(lambda: bwd(xb, cot), 10, KERNEL_NS),
+                 bwd_passes=pass_ms(lambda: bwd(xb, cot), 10,
+                                    PE_MLP_BWD_PASSES),
                  bwd_call_ms=cuda_ms(lambda: bwd(xb, cot), 10),
                  bwd_plain_ms=device_ms(lambda: plain_bwd(xb, cot), 5))
+        k["bwd_ms"] = k["bwd_passes"]["total"]["median"]
         # tensor-core products only (the encoding's sin/cos are ~30
         # transcendentals a row against ~6,300 multiply-adds); the backward
         # recomputes the hidden layers, then every input gradient and every
@@ -1208,20 +1280,26 @@ def pe_mlp_entries(cfg, dev, card, report) -> dict:
             + f"; forward {k['ms']:.4f} ms (call {k['call_ms']:.4f}), plain "
             f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
             f"({k['bound_by']}); backward with dx and dW {k['bwd_ms']:.4f} ms "
-            f"(call {k['bwd_call_ms']:.4f}), plain {k['bwd_plain_ms']:.4f} ms, "
+            f"(call {k['bwd_call_ms']:.4f}; by pass over {BWD_WINDOWS} "
+            f"windows, median (min-max): {fmt_passes(k['bwd_passes'])}), "
+            f"plain {k['bwd_plain_ms']:.4f} ms, "
             f"bound {k['bwd_bound_ms']:.4f} ms ({k['bwd_bound_by']}); {card}")
         del x_all, cot_all
     regs = {e: r for e, r in ptxas_registers(report).items() if "Lb1E" in e}
-    log(f"[build] fused_mlp registers of the PE variant (fused_pe_mlp) {regs}")
+    bwd_regs = ptxas_registers(bwd_report)
+    bwd_spills = ptxas_spills(bwd_report)
+    log(f"[build] fused_mlp registers of the PE variant (fused_pe_mlp) "
+        f"{regs}; fused_pe_mlp_bwd registers {bwd_regs}, spill bytes "
+        f"{bwd_spills}")
     vals = list(per.values())
     shape = " and ".join(f"{name} x [{k['n']},3] -> "
                          f"{'->'.join(map(str, k['dims']))}"
                          for name, k in per.items())
-    common = dict(source="cropnerf_tpu_torch/csrc/fused_mlp.cu",
-                  by_net=per, registers=regs)
     return {
         "fused_pe_mlp": dict(
-            common, replaces="cropnerf_tpu/ops/pallas/fused_pe_field.py:822",
+            source="cropnerf_tpu_torch/csrc/fused_mlp.cu", by_net=per,
+            registers=regs,
+            replaces="cropnerf_tpu/ops/pallas/fused_pe_field.py:822",
             shape=f"one training step's two proposal nets: {shape}",
             ms=sum(k["ms"] for k in vals),
             call_ms=sum(k["call_ms"] for k in vals),
@@ -1231,7 +1309,9 @@ def pe_mlp_entries(cfg, dev, card, report) -> dict:
             max_abs_err=max(c["fwd_abs"] for k in vals
                             for c in k["cases"].values())),
         "fused_pe_mlp_bwd": dict(
-            common, replaces="cropnerf_tpu/ops/pallas/fused_pe_field.py:835",
+            source="cropnerf_tpu_torch/csrc/fused_pe_mlp_bwd.cu", by_net=per,
+            registers=bwd_regs, spill_bytes=bwd_spills,
+            replaces="cropnerf_tpu/ops/pallas/fused_pe_field.py:835",
             shape=f"their backward with dx and every weight gradient: {shape}",
             ms=sum(k["bwd_ms"] for k in vals),
             call_ms=sum(k["bwd_call_ms"] for k in vals),
@@ -1809,7 +1889,8 @@ def main() -> None:
         reports["fused_mlp"])
     hash_k = hash_kernels(PRESETS["cropnerf"], dev, card,
                           reports["hash_encode"])
-    pe_k = pe_mlp_entries(cfg, dev, card, reports["fused_mlp"])
+    pe_k = pe_mlp_entries(cfg, dev, card, reports["fused_mlp"],
+                          reports["fused_pe_mlp_bwd"])
 
     # ---- 4. the serving path ----------------------------------------------
     d = torch.randn((RAYS, 3), generator=torch.Generator().manual_seed(1))
@@ -1916,23 +1997,13 @@ def main() -> None:
                                            all_kernels)
 
     # ---- 5. the training path ---------------------------------------------
-    from cropnerf_tpu_torch.data.databank import build_pixel_bank
     from cropnerf_tpu_torch.train.state import create_train_state
     from cropnerf_tpu_torch.train.step import (make_eval_batch_fn,
                                                make_train_step, train_loss)
+    from tools.hash_bwd_real_step import BANK, synthetic_bank
     t0 = time.perf_counter()
     n_img, bh, bw = BANK
-    rs = np.random.RandomState(0)
-    images = rs.randint(0, 255, (n_img, bh, bw, 3), dtype=np.uint8)
-    masks = (rs.rand(n_img, bh, bw) > 0.9).astype(np.uint8)
-    c2w_b = np.tile(np.eye(3, 4, dtype=np.float32)[None], (n_img, 1, 1))
-    c2w_b[:, :, 3] = rs.randn(n_img, 3) * 0.5
-    full = lambda v: torch.full((n_img,), v, device=dev)  # noqa: E731
-    bank = build_pixel_bank(images, masks, Cameras(
-        c2w=torch.from_numpy(c2w_b).to(dev), fx=full(1000.0), fy=full(1000.0),
-        cx=full(bw / 2.0), cy=full(bh / 2.0), width=full(bw).long(),
-        height=full(bh).long()), device=dev)
-    del images, masks
+    bank = synthetic_bank(dev)
     R = cfg.train_num_rays_per_batch
     log(f"[train] bank {n_img} x {bh}x{bw} on the card as uint8 "
         f"({nbytes(bank.rgb, bank.mask) / 2**20:.1f} MiB), built in "
@@ -2011,6 +2082,16 @@ def main() -> None:
         f"psnr {metrics['psnr'].item():.3f}; eval batch {eval_m}; {card}")
     steps["train step"] = run_train
     hash_train, hash_step = hash_training(dev, card, bank, all_kernels)
+    real = hash_train["hash_encode_bwd_real_step"]
+    hash_k["hash_encode_bwd"]["real_step"] = real
+    log(f"[kernel] hash_encode_bwd, one cropnerf training step's three "
+        f"calls: {hash_k['hash_encode_bwd']['ms']:.4f} ms on uniform "
+        f"positions, {real['ms']:.4f} ms ({real['ms_min']:.4f}-"
+        f"{real['ms_max']:.4f}) on the step's own ("
+        + ", ".join(f"[{c['n']},3] x {c['levels']} levels {c['ms']:.4f} ms, "
+                    f"err dtable {c['dtable_err']:.2e} dpos "
+                    f"{c['dpos_err']:.2e}" for c in real["calls"])
+        + f"); {card}")
     steps["cropnerf forward"] = hash_forward
     steps["cropnerf train step"] = hash_step
 
@@ -2075,7 +2156,9 @@ def main() -> None:
         max_abs_err=k["max_abs_err"], rel_err=k["rel_err"], ms=k["ms"],
         call_ms=k["call_ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
         bound_by=k["bound_by"], library_ms=None, shape=k["shape"], card=card,
-        by_shape=k["by_shape"]) for name, k in hash_k.items()] + [dict(
+        by_shape=k["by_shape"],
+        **{key: k[key] for key in ("real_step",) if key in k})
+        for name, k in hash_k.items()] + [dict(
         name=name, route="cuda", source=k["source"], replaces=k["replaces"],
         launches=pf_info["train"]["launches"][name],
         launches_by_path={
@@ -2086,7 +2169,8 @@ def main() -> None:
         max_abs_err=k["max_abs_err"], rel_err=k["rel_err"], ms=k["ms"],
         call_ms=k["call_ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
         bound_by=k["bound_by"], library_ms=None, shape=k["shape"], card=card,
-        registers=k["registers"], by_net=k["by_net"])
+        registers=k["registers"], by_net=k["by_net"],
+        **{key: k[key] for key in ("spill_bytes",) if key in k})
         for name, k in pe_k.items()] + [dict(
         name="render_weights_cuda", route="cuda", source=k6["source"],
         replaces=k6["replaces"], launches=k6["launches"],

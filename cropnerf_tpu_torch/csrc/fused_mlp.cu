@@ -1,5 +1,6 @@
 // Fused relu MLP, forward and recompute-backward, for Hopper (sm_90a); and
-// the same MLP on the positional encoding of its input (template PE).
+// the forward of the same MLP on the positional encoding of its input
+// (template PE; its backward is fused_pe_mlp_bwd.cu).
 //
 // Replaces the Pallas kernels cropnerf_tpu/ops/pallas/fused_mlp.py
 // _fwd_kernel: x [N, Din] -> (W0, b0) -> relu -> ... -> (W_last, b_last)
@@ -7,16 +8,14 @@
 // _bwd_kernel: the cotangent g [N, Dout] -> dx [N, Din] and the f32
 // gradient of every weight and bias, recomputing the forward from x.
 //
-// With PE = true the kernels replace cropnerf_tpu/ops/pallas/fused_pe_field.py
-// _plain_fwd_kernel and _plain_bwd_kernel (fused_pe_mlp, the PE proposal
-// nets): x [N, dim] is encoded in the prologue, [x | sin(2^f x) | cos(2^f x)]
-// (f-major blocks, ops/posenc.nerf_encoding's columns) rounded to bf16, in
-// place of the load of x; the backward takes the encoding's gradient through
-// d(encode)/d(pre) and the selector (the identity column and each 2^f of a
-// coordinate) into dx [N, dim] in the prologue's place.  sin/cos are the
-// accurate sinf/cosf: |2^f x| reaches 16 (F = 5) and 32 (F = 6).  The last
-// layer is linear with its f32 bias and writes [N, Dout] f32; Dout = 1 is
-// padded to one 16-column fragment by the packing, as every width is.
+// With PE = true the forward replaces cropnerf_tpu/ops/pallas/fused_pe_field.py
+// _plain_fwd_kernel (fused_pe_mlp, the PE proposal nets): x [N, dim] is
+// encoded in the prologue, [x | sin(2^f x) | cos(2^f x)] (f-major blocks,
+// ops/posenc.nerf_encoding's columns) rounded to bf16, in place of the load
+// of x.  sin/cos are the accurate sinf/cosf: |2^f x| reaches 16 (F = 5) and
+// 32 (F = 6).  The last layer is linear with its f32 bias and writes
+// [N, Dout] f32; Dout = 1 is padded to one 16-column fragment by the
+// packing, as every width is.
 //
 // Bound on an H100: memory for the heads, operations for the proposal nets.
 // The vanilla field's heads, [N, 15] -> 64 -> 1 and [N, 74] -> 64 -> 3, take
@@ -33,13 +32,11 @@
 // layers it computes, per layer l: the tile's weight gradient A_lᵀ·G_l on
 // the tensor cores, added into the block's own row of an f32 partial
 // buffer; then G_{l-1} = relu mask of A_l (g·W_lᵀ), written in place over
-// A_l, whose last reader that product was; for l = 0, dx (with PE: the f32
-// encoding gradient per column, then per row a fixed-order sum over each
-// coordinate's columns).  Arithmetic as the TPU kernel: bf16 recompute with
-// f32 sums at the forward's rounding points (every hidden layer from the
-// bf16 activation, as the forward), cotangents rounded to bf16 only as
-// product operands, relu masks from the bf16 activations, the bias gradient
-// the f32 column sum of g.  The TPU sums the weight gradient over its
+// A_l, whose last reader that product was; for l = 0, dx.  Arithmetic as
+// the TPU kernel: bf16 recompute with f32 sums at the forward's rounding
+// points (every hidden layer from the bf16 activation, as the forward),
+// cotangents rounded to bf16 only as product operands, relu masks from the
+// bf16 activations, the bias gradient the f32 column sum of g.  The TPU sums the weight gradient over its
 // sequential grid; here each block takes a fixed run of tiles in order and a
 // fixed-order column sum reduces the blocks' rows, with no atomics, so two
 // runs give the same bits.  Without weight gradients (the BayesRays pass
@@ -192,7 +189,7 @@ constexpr int MAX_DW_BLOCKS = 512;      // more tiles per block beyond this many
 
 struct MlpBwdSmem {
   int act[MAX_LAYERS];   // A_l, the input of layer l, bf16 [TILE, k_l + PAD]
-  int gl, wslab, scratch, colsum, dpre, total;
+  int gl, wslab, scratch, colsum, total;
 };
 
 __host__ __device__ inline MlpBwdSmem mlp_bwd_smem(const MlpDesc& d) {
@@ -205,7 +202,6 @@ __host__ __device__ inline MlpBwdSmem mlp_bwd_smem(const MlpDesc& d) {
   s.wslab = off; off += slab > slab_t ? slab : slab_t;
   s.scratch = off; off += SCRATCH_BYTES;
   s.colsum = off; off += WARPS * MAX_WIDTH * 4;
-  s.dpre = off; if (d.pe_dim > 0) off += align128(TILE * d.din_pad * 4);
   s.total = off;
   return s;
 }
@@ -235,48 +231,6 @@ struct LoadG {
     return v;
   }
 };
-
-// Backward epilogue of layer 0 with PE: the f32 gradient of encoding column
-// c through d(encode)/d(pre) (_encode_bwd), times the column's selector
-// entry 2^f, into dpre [TILE, din_pad] (zero past N and in padded columns).
-struct EncBwd {
-  static constexpr bool kColsum = false;
-  float* dpre;
-  int ld;
-  const float* x;
-  int dim, num_freqs, din;
-  long long row0, n_rows;
-  __device__ __forceinline__ float operator()(int r, int c, float v) const {
-    float out = 0.0f;
-    if (c < din && row0 + r < n_rows) {
-      const PeCol p = pe_col(c, dim, num_freqs);
-      const float pre = x[(row0 + r) * dim + p.coord] * p.freq;
-      const float dp = p.kind == 0 ? v : p.kind == 1 ? v * cosf(pre) : -v * sinf(pre);
-      out = dp * p.freq;
-    }
-    dpre[r * ld + c] = out;
-    return 0.0f;
-  }
-};
-
-// dx[row, k] = the sum of dpre over the encoding columns of coordinate k, in
-// column order (identity, sines by frequency, cosines by frequency): d_pre·Sᵀ.
-__device__ __forceinline__ void pe_dx(const float* dpre, int ld, int dim, int num_freqs,
-                                      float* __restrict__ dx, long long row0,
-                                      long long n_rows) {
-  __syncthreads();
-  const int sin_end = dim * (1 + num_freqs);
-  for (int i = threadIdx.x; i < TILE * dim; i += THREADS) {
-    const int r = i / dim;
-    const int k = i - r * dim;
-    if (row0 + r >= n_rows) continue;
-    const float* p = dpre + r * ld;
-    float s = p[k];
-    for (int f = 0; f < num_freqs; ++f) s += p[dim + f * dim + k];
-    for (int f = 0; f < num_freqs; ++f) s += p[sin_end + f * dim + k];
-    dx[(row0 + r) * dim + k] = s;
-  }
-}
 
 // wrow[w_off + i·n + j] += sum_r A[r, i] · G[r, j] over the tile's rows:
 // layer L's weight gradient, 16x16 output fragments spread over the warps.
@@ -313,7 +267,7 @@ __device__ __forceinline__ void tile_dw(const bf16* a, int lda, const bf16* g, i
   }
 }
 
-template <int NF, bool PE>
+template <int NF>
 __global__ void __launch_bounds__(THREADS, NF <= 8 ? 2 : 1)
 fused_mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g_out,
                      float* __restrict__ dx, const bf16* __restrict__ w,
@@ -326,7 +280,6 @@ fused_mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g_ou
   bf16* wslab = reinterpret_cast<bf16*>(smem + s.wslab);
   float* scratch = reinterpret_cast<float*>(smem + s.scratch);
   float* colsum = reinterpret_cast<float*>(smem + s.colsum);
-  float* dpre = reinterpret_cast<float*>(smem + s.dpre);
   auto act = [&](int l) { return reinterpret_cast<bf16*>(smem + s.act[l]); };
   auto ld = [&](int l) { return d.L[l].k + PAD; };
   const int n = d.n_layers;
@@ -342,10 +295,9 @@ fused_mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g_ou
     const long long row0 = tile * TILE;
     __syncthreads();                               // the previous tile is done
 
-    // recompute the forward: A_0 = bf16(x or encode(x)),
-    // A_{l+1} = bf16(relu(A_l W_l + b_l))
-    load_input<PE>(x, act(0), ld(0), d.din, d.din_pad, d.pe_dim, d.num_freqs, row0,
-                   n_rows);
+    // recompute the forward: A_0 = bf16(x), A_{l+1} = bf16(relu(A_l W_l + b_l))
+    load_input<false>(x, act(0), ld(0), d.din, d.din_pad, d.pe_dim, d.num_freqs, row0,
+                      n_rows);
     for (int l = 0; l < n - 1; ++l)
       dense_layer<NF>(act(l), ld(l), act(l), ld(l), w, b, d.L[l], wslab, scratch,
                       ToSmem{act(l + 1), ld(l + 1), true});
@@ -370,15 +322,8 @@ fused_mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g_ou
         gcur = act(l);
         ldg = ld(l);
       } else if (dx != nullptr) {
-        if constexpr (PE) {
-          grad_input<NF>(gcur, ldg, w, d.L[0], 0, d.L[0].k, wslab, scratch, colsum,
-                         EncBwd{dpre, d.din_pad, x, d.pe_dim, d.num_freqs, d.din,
-                                row0, n_rows});
-          pe_dx(dpre, d.din_pad, d.pe_dim, d.num_freqs, dx, row0, n_rows);
-        } else {
-          grad_input<NF>(gcur, ldg, w, d.L[0], 0, d.L[0].k, wslab, scratch, colsum,
-                         ToRows{dx, d.din, row0, n_rows});
-        }
+        grad_input<NF>(gcur, ldg, w, d.L[0], 0, d.L[0].k, wslab, scratch, colsum,
+                       ToRows{dx, d.din, row0, n_rows});
       }
     }
   }
@@ -389,8 +334,8 @@ struct MlpBwdPlan {
 };
 
 // With weight gradients each block takes BWD_TILES_PER_BLOCK tiles, or more
-// where that would give more than MAX_DW_BLOCKS blocks (the proposal nets'
-// million rows), so the partial rows stay few; the plan depends on n_rows
+// where that would give more than MAX_DW_BLOCKS blocks (large N), so the
+// partial rows stay few; the plan depends on n_rows
 // alone, so two runs give the same bits.
 static MlpBwdPlan mlp_bwd_plan(const MlpDesc& d, long long n_rows, bool need_dw) {
   MlpBwdPlan p;
@@ -416,22 +361,21 @@ static bool bwd_layout_ok(const MlpDesc& d) {
   return true;
 }
 
-template <int NF, bool PE>
+template <int NF>
 static int launch_bwd(const float* x, const float* g, float* dx, const void* w,
                       const float* b, const MlpDesc& d, long long n_rows, float* wpart,
                       float* bpart, const MlpBwdPlan& p, cudaStream_t stream) {
   const int smem = mlp_bwd_smem(d).total;
   cudaError_t e = cudaFuncSetAttribute(
-      fused_mlp_bwd_kernel<NF, PE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fused_mlp_bwd_kernel<NF>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  fused_mlp_bwd_kernel<NF, PE><<<(unsigned)p.n_blocks, THREADS, smem, stream>>>(
+  fused_mlp_bwd_kernel<NF><<<(unsigned)p.n_blocks, THREADS, smem, stream>>>(
       x, g, dx, reinterpret_cast<const bf16*>(w), b, wpart, bpart, d, n_rows,
       (int)p.tiles_per_block, p.total_w, p.total_b);
   return (int)cudaGetLastError();
 }
 
 // The backward and its weight-gradient sums on `stream`.
-template <bool PE>
 static int run_bwd(const float* x, const float* g, float* dx, const void* w,
                    const float* b, const MlpDesc& d, long long n_rows, float* wpart,
                    float* bpart, float* dw, float* db, void* stream) {
@@ -447,9 +391,9 @@ static int run_bwd(const float* x, const float* g, float* dx, const void* w,
     max_n = d.L[i].k > max_n ? d.L[i].k : max_n;
   }
   const int err =
-      max_n <= 64    ? launch_bwd<4, PE>(x, g, dx, w, b, d, n_rows, wpart, bpart, p, s)
-      : max_n <= 128 ? launch_bwd<8, PE>(x, g, dx, w, b, d, n_rows, wpart, bpart, p, s)
-                     : launch_bwd<MAXF, PE>(x, g, dx, w, b, d, n_rows, wpart, bpart, p, s);
+      max_n <= 64    ? launch_bwd<4>(x, g, dx, w, b, d, n_rows, wpart, bpart, p, s)
+      : max_n <= 128 ? launch_bwd<8>(x, g, dx, w, b, d, n_rows, wpart, bpart, p, s)
+                     : launch_bwd<MAXF>(x, g, dx, w, b, d, n_rows, wpart, bpart, p, s);
   if (err || !need_dw) return err;
   const int e = column_sum(wpart, p.n_blocks, p.total_w, dw, s);
   if (e) return e;
@@ -491,7 +435,7 @@ extern "C" int cropnerf_fused_mlp_smem_bytes(const int* meta, int meta_len) {
   return mlp_smem_bytes(d);
 }
 
-// Sizes for the backward, with or without PE: out[0] f32 weight partials
+// Sizes for the backward: out[0] f32 weight partials
 // and out[1] f32 bias partials (zeros the wrapper allocates when weight
 // gradients are asked for), out[2] packed weights, out[3] packed biases.
 // Returns 0, or -1 where the layout is rejected.
@@ -509,13 +453,11 @@ extern "C" int cropnerf_fused_mlp_bwd_sizes(const int* meta, int meta_len,
   return 0;
 }
 
-// Dynamic shared memory of the backward (-1 where the layout is rejected);
-// pe_dim 0 for the plain MLP.
-extern "C" int cropnerf_fused_mlp_bwd_smem_bytes(const int* meta, int meta_len,
-                                                 int pe_dim, int num_freqs) {
+// Dynamic shared memory of the backward (-1 where the layout is rejected).
+extern "C" int cropnerf_fused_mlp_bwd_smem_bytes(const int* meta, int meta_len) {
   using namespace cropnerf;
   MlpDesc d;
-  if (!parse(meta, meta_len, pe_dim, num_freqs, &d) || !bwd_layout_ok(d)) return -1;
+  if (!parse(meta, meta_len, 0, 0, &d) || !bwd_layout_ok(d)) return -1;
   return mlp_bwd_smem(d).total;
 }
 
@@ -531,20 +473,5 @@ extern "C" int cropnerf_fused_mlp_bwd(const float* x, const float* g, float* dx,
   using namespace cropnerf;
   MlpDesc d;
   if (!parse(meta, meta_len, 0, 0, &d) || !bwd_layout_ok(d)) return (int)cudaErrorInvalidValue;
-  return run_bwd<false>(x, g, dx, w, b, d, n_rows, wpart, bpart, dw, db, stream);
-}
-
-// The PE MLP's backward: as above with x [n_rows, pe_dim] and dx [n_rows,
-// pe_dim].
-extern "C" int cropnerf_fused_pe_mlp_bwd(const float* x, const float* g, float* dx,
-                                         const void* w, const float* b,
-                                         const int* meta, int meta_len, int pe_dim,
-                                         int num_freqs, long long n_rows,
-                                         float* wpart, float* bpart, float* dw,
-                                         float* db, void* stream) {
-  using namespace cropnerf;
-  MlpDesc d;
-  if (pe_dim < 1 || !parse(meta, meta_len, pe_dim, num_freqs, &d) || !bwd_layout_ok(d))
-    return (int)cudaErrorInvalidValue;
-  return run_bwd<true>(x, g, dx, w, b, d, n_rows, wpart, bpart, dw, db, stream);
+  return run_bwd(x, g, dx, w, b, d, n_rows, wpart, bpart, dw, db, stream);
 }

@@ -30,14 +30,32 @@
 // summed in order 0..7 with separate roundings.  The forward equals the
 // plain version bit for bit.
 //
-// Backward, one thread per position, looping over the levels: when the
-// table needs it, the table gradient by atomicAdd of w*g into f32 zeros
-// (sorting to avoid the atomics is later work), and, when the positions
-// need it, the position gradient sum over levels and corners of
-// dw * <feat, g> with dw = d(w)/d(pos), the x res factor included,
-// accumulated in registers with no atomics.  Each is a template variant: the
-// training step asks for both (or the table alone for frozen positions),
-// the BayesRays pass for the position gradient alone.
+// Backward: the table gradient (sum over positions and corners of w g into
+// each row) and the position gradient (sum over levels and corners of
+// d(w)/d(pos) <feat, g>, the x res factor included), each computed only
+// when asked: the training step asks for both (or the table alone for
+// frozen positions), the BayesRays pass for the position gradient alone.
+// Bound on an H100: the L2's atomic throughput (a training step's three
+// encodes add ~83 M corner contributions into ~7 M rows), then the random
+// gathers of the position gradient.  The work is laid out by level, each
+// level one pass over the positions:
+//   - a privatised level (dense, its (res+1)^3 x 8 B lattice fits a
+//     block's shared memory; ops/cuda/hash_encode.py private_levels picks
+//     them) is summed by each block into a shared copy with shared-memory
+//     atomics, then every row the block touched is added into the table
+//     with one float2 reduction: a coarse level takes as many
+//     contributions as any other onto a few thousand rows;
+//   - the other levels run with the level on grid y and one float2
+//     reduction (red.global.add.v2.f32) a corner;
+//   - in both, a warp first sums the runs of neighbouring lanes that hit
+//     the same row (a ray's samples share coarse cells), so a run costs
+//     one atomic;
+//   - the same pass gathers the corners' rows for the position gradient,
+//     under the atomics, and writes the level's share; a last kernel sums
+//     the levels in order, with no atomics, so dpos has the same bits on
+//     every run and in every variant.
+// The table gradient is not reproducible bit for bit (nor is XLA's
+// scatter-add); it agrees with the plain version to float32 rounding.
 #include <cuda_runtime.h>
 
 namespace cropnerf {
@@ -137,36 +155,82 @@ hash_encode_fwd_kernel(const float* __restrict__ pos,
   out[i * n_levels + l] = make_float2(ax, ay);
 }
 
-template <bool DTABLE, bool DPOS>
-__global__ void __launch_bounds__(THREADS)
-hash_encode_bwd_kernel(const float* __restrict__ pos,
-                       const float2* __restrict__ table,
-                       const float2* __restrict__ grad,
-                       const long long* __restrict__ levels, int n_levels,
-                       unsigned mask, float* __restrict__ dtable,
-                       float* __restrict__ dpos, long long n) {
-  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= n) return;
-  const float p[3] = {pos[3 * i], pos[3 * i + 1], pos[3 * i + 2]};
-  float dp[3] = {0.0f, 0.0f, 0.0f};
-  for (int l = 0; l < n_levels; ++l) {
-    const Level lv = load_level(levels, l);
+// ---- backward -------------------------------------------------------------
+
+constexpr unsigned FULL = 0xffffffffu;
+constexpr unsigned NO_ROW = 0xffffffffu;   // a lane past N
+constexpr int PRIV_THREADS = 1024;
+
+// The table gradient's contribution of one corner, (w g.x, w g.y), added
+// by add(row, sum) into a row of a level (its shared copy or the table
+// itself).  Neighbouring
+// samples of a ray often share a coarse cell, so a warp's lanes hold runs of
+// the same row: a segmented sum over each run of equal rows (runs are found
+// between neighbouring lanes) leaves the run's sum on its first lane, which
+// alone adds it.  Every lane of the warp calls it; a lane past N passes
+// NO_ROW.
+template <class Add>
+__device__ __forceinline__ void add_runs(unsigned row, float2 v, const Add& add) {
+  const int lane = threadIdx.x & 31;
+  const unsigned prev = __shfl_up_sync(FULL, row, 1);
+  const bool head = lane == 0 || prev != row;
+  const unsigned heads = __ballot_sync(FULL, head);
+  if (heads != FULL) {
+    const int run = __popc(heads & (FULL >> (31 - lane)));
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const float ox = __shfl_down_sync(FULL, v.x, d);
+      const float oy = __shfl_down_sync(FULL, v.y, d);
+      const int orun = __shfl_down_sync(FULL, run, d);
+      if (lane + d < 32 && orun == run) {
+        v.x += ox;
+        v.y += oy;
+      }
+    }
+  }
+  if (head && row != NO_ROW) add(row, v);
+}
+
+// One level of the backward for the positions strided over the blocks,
+// each warp's lanes on neighbouring positions.  With DTABLE, add(row, (w
+// g.x, w g.y)) through add_runs for the 8 corners of every position (every
+// lane of the block alike, NO_ROW past N).  With DPOS, the level's share of
+// the position gradient, dl = sum over corners of d(w)/d(frac) <feat, g>
+// (the 8 rows gathered first), into dlev[l, i, :]; the levels are summed
+// afterwards in order (hash_dpos_sum_kernel).
+template <int BLOCK, bool DTABLE, bool DPOS, class Add>
+__device__ __forceinline__ void level_pass(const float* __restrict__ pos,
+                                           const float2* __restrict__ table,
+                                           const float2* __restrict__ grad, int n_levels,
+                                           int l, const Level& lv, unsigned mask, long long n,
+                                           float* __restrict__ dlev, const Add& add) {
+  const long long stride = (long long)gridDim.x * BLOCK;
+  for (long long i0 = (long long)blockIdx.x * BLOCK + (threadIdx.x & ~31); i0 < n;
+       i0 += stride) {
+    const long long i = i0 + (threadIdx.x & 31);
+    const bool in = i < n;
+    const float p[3] = {in ? pos[3 * i] : 0.0f, in ? pos[3 * i + 1] : 0.0f,
+                        in ? pos[3 * i + 2] : 0.0f};
     const Cell c = cell_of(p, lv);
-    const float2 g = grad[i * n_levels + l];
+    const float2 g = in ? grad[i * n_levels + l] : make_float2(0.0f, 0.0f);
+    float2 v[8];
+    if (DPOS) {
+#pragma unroll
+      for (int corner = 0; corner < 8; ++corner)
+        v[corner] = in ? __ldg(table + corner_row(c, corner, lv, mask)) : make_float2(0.0f, 0.0f);
+    }
     float dl[3] = {0.0f, 0.0f, 0.0f};
 #pragma unroll
     for (int corner = 0; corner < 8; ++corner) {
       float t[3];
       corner_terms(c, corner, t);
-      const float w = t[0] * t[1] * t[2];
-      const long long row = corner_row(c, corner, lv, mask);
       if (DTABLE) {
-        atomicAdd(dtable + 2 * row, w * g.x);
-        atomicAdd(dtable + 2 * row + 1, w * g.y);
+        const float w = t[0] * t[1] * t[2];
+        const unsigned row = in ? (unsigned)(corner_row(c, corner, lv, mask) - lv.offset) : NO_ROW;
+        add_runs(row, make_float2(w * g.x, w * g.y), add);
       }
       if (DPOS) {
-        const float2 v = __ldg(table + row);
-        const float dot = v.x * g.x + v.y * g.y;
+        const float dot = v[corner].x * g.x + v[corner].y * g.y;
 #pragma unroll
         for (int d = 0; d < 3; ++d) {
           const float s = ((corner >> d) & 1) ? 1.0f : -1.0f;
@@ -175,19 +239,123 @@ hash_encode_bwd_kernel(const float* __restrict__ pos,
         }
       }
     }
-    if (DPOS) {
+    if (DPOS && in) {
 #pragma unroll
-      for (int d = 0; d < 3; ++d) dp[d] += dl[d] * (float)lv.res;
+      for (int d = 0; d < 3; ++d) dlev[((long long)l * n + i) * 3 + d] = dl[d];
     }
   }
-  if (DPOS) {
-#pragma unroll
-    for (int d = 0; d < 3; ++d) dpos[3 * i + d] = dp[d];
+}
+
+// One vector reduction of a row's two floats into device memory.
+__device__ __forceinline__ void red2(float* dtable, long long row, float2 v) {
+  atomicAdd(reinterpret_cast<float2*>(dtable) + row, v);
+}
+
+// A privatised level (dense, its (res+1)^3 lattice fits the block's shared
+// memory): the block sums the table gradient into a shared copy of the
+// lattice, then adds each row it touched into the table once.
+template <bool DPOS>
+__global__ void __launch_bounds__(PRIV_THREADS)
+hash_private_kernel(const float* __restrict__ pos, const float2* __restrict__ table,
+                    const float2* __restrict__ grad, const long long* __restrict__ levels,
+                    int n_levels, int l, float* __restrict__ dtable, float* __restrict__ dlev,
+                    long long n) {
+  extern __shared__ float2 lat[];
+  const Level lv = load_level(levels, l);
+  const int side = lv.res + 1;
+  const int rows = side * side * side;
+  for (int r = threadIdx.x; r < rows; r += PRIV_THREADS) lat[r] = make_float2(0.0f, 0.0f);
+  __syncthreads();
+  level_pass<PRIV_THREADS, true, DPOS>(pos, table, grad, n_levels, l, lv, 0u, n, dlev,
+                                       [&](unsigned r, float2 s) {
+                                         atomicAdd(&lat[r].x, s.x);
+                                         atomicAdd(&lat[r].y, s.y);
+                                       });
+  __syncthreads();
+  for (int r = threadIdx.x; r < rows; r += PRIV_THREADS) {
+    const float2 v = lat[r];
+    if (v.x != 0.0f || v.y != 0.0f) red2(dtable, lv.offset + r, v);
   }
+}
+
+// The other levels, the level on grid y (its rows stay hot in L2 while its
+// blocks run): one vector reduction a run of a row into the table.
+template <bool DTABLE, bool DPOS>
+__global__ void __launch_bounds__(THREADS)
+hash_level_kernel(const float* __restrict__ pos, const float2* __restrict__ table,
+                  const float2* __restrict__ grad, const long long* __restrict__ levels,
+                  int n_levels, const int* __restrict__ level_ids, unsigned mask,
+                  float* __restrict__ dtable, float* __restrict__ dlev, long long n) {
+  const int l = __ldg(level_ids + blockIdx.y);
+  const Level lv = load_level(levels, l);
+  level_pass<THREADS, DTABLE, DPOS>(pos, table, grad, n_levels, l, lv, mask, n, dlev,
+                                    [&](unsigned r, float2 s) { red2(dtable, lv.offset + r, s); });
+}
+
+// dpos = sum over the levels, in order, of res x dl: no atomics, the same
+// bits on every run and in every variant.
+__global__ void __launch_bounds__(THREADS)
+hash_dpos_sum_kernel(const float* __restrict__ dlev, const long long* __restrict__ levels,
+                     int n_levels, float* __restrict__ dpos, long long n) {
+  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (i >= n) return;
+  float dp[3] = {0.0f, 0.0f, 0.0f};
+  for (int l = 0; l < n_levels; ++l) {
+    const float res = (float)load_level(levels, l).res;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) dp[d] += dlev[((long long)l * n + i) * 3 + d] * res;
+  }
+#pragma unroll
+  for (int d = 0; d < 3; ++d) dpos[3 * i + d] = dp[d];
 }
 
 static bool valid(int n_levels, long long n) {
   return n_levels >= 1 && n_levels <= 65535 && n >= 0;
+}
+
+// Blocks of `kernel` that fill the card at `smem` bytes of dynamic shared
+// memory a block, and no more than `needed`.
+template <class K>
+static int fill_blocks(K kernel, int threads, int smem, long long needed, int* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long fill = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  *blocks = (int)(needed < fill ? needed : fill);
+  return 0;
+}
+
+template <bool DPOS>
+static int launch_private(const float* pos, const float2* t, const float2* g,
+                          const long long* levels, int n_levels, int l, int rows, float* dtable,
+                          float* dlev, long long n, cudaStream_t s) {
+  const int smem = rows * (int)sizeof(float2);
+  cudaError_t e = cudaFuncSetAttribute(hash_private_kernel<DPOS>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  const int err = fill_blocks(hash_private_kernel<DPOS>, PRIV_THREADS, smem,
+                              (n + PRIV_THREADS - 1) / PRIV_THREADS, &blocks);
+  if (err) return err;
+  hash_private_kernel<DPOS><<<(unsigned)blocks, PRIV_THREADS, smem, s>>>(
+      pos, t, g, levels, n_levels, l, dtable, dlev, n);
+  return 0;
+}
+
+template <bool DTABLE, bool DPOS>
+static int launch_levels(const float* pos, const float2* t, const float2* g,
+                         const long long* levels, int n_levels, const int* ids, int n_ids,
+                         unsigned mask, float* dtable, float* dlev, long long n, cudaStream_t s) {
+  int blocks = 0;
+  const int err = fill_blocks(hash_level_kernel<DTABLE, DPOS>, THREADS, 0,
+                              (n + THREADS - 1) / THREADS, &blocks);
+  if (err) return err;
+  hash_level_kernel<DTABLE, DPOS><<<dim3((unsigned)blocks, (unsigned)n_ids), THREADS, 0, s>>>(
+      pos, t, g, levels, n_levels, ids, mask, dtable, dlev, n);
+  return 0;
 }
 
 }  // namespace cropnerf
@@ -209,30 +377,52 @@ extern "C" int cropnerf_hash_encode_fwd(const float* pos, const void* table,
   return (int)cudaGetLastError();
 }
 
-// Backward on `stream`: when dtable is not null, adds into it (zeros of the
-// table's shape); when dpos is not null, writes dpos [n, 3].  grad is
-// [n, n_levels] float2.
+// Backward on `stream`.  When dtable is not null it adds the table gradient
+// into it (zeros of the table's shape); when dpos is not null it writes
+// dpos [n, 3], with dlev [n_levels, n, 3] as scratch.  level_ids, on the
+// card, holds the n_private privatised levels and then the others;
+// private_levels and private_rows, on the host, the privatised levels and
+// their lattice rows.  With the table gradient, each privatised level is
+// one launch and the others one launch with the level on grid y; without
+// it, every level runs in that one launch.  grad is [n, n_levels] float2.
 extern "C" int cropnerf_hash_encode_bwd(const float* pos, const void* table,
                                         const void* grad,
                                         const long long* levels, int n_levels,
                                         unsigned mask, float* dtable,
-                                        float* dpos, long long n,
-                                        void* stream) {
+                                        float* dpos, float* dlev, long long n,
+                                        const int* level_ids, int n_private,
+                                        const int* private_levels,
+                                        const int* private_rows, void* stream) {
   using namespace cropnerf;
-  if (!valid(n_levels, n)) return (int)cudaErrorInvalidValue;
-  if (n == 0) return 0;
-  const dim3 grid((unsigned)((n + THREADS - 1) / THREADS));
+  if (!valid(n_levels, n) || n_private < 0 || n_private > n_levels ||
+      (dpos != nullptr && dlev == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (n == 0 || (dtable == nullptr && dpos == nullptr)) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const float2* t = reinterpret_cast<const float2*>(table);
   const float2* g = reinterpret_cast<const float2*>(grad);
-  if (dtable != nullptr && dpos != nullptr)
-    hash_encode_bwd_kernel<true, true><<<grid, THREADS, 0, s>>>(
-        pos, t, g, levels, n_levels, mask, dtable, dpos, n);
-  else if (dtable != nullptr)
-    hash_encode_bwd_kernel<true, false><<<grid, THREADS, 0, s>>>(
-        pos, t, g, levels, n_levels, mask, dtable, dpos, n);
-  else if (dpos != nullptr)
-    hash_encode_bwd_kernel<false, true><<<grid, THREADS, 0, s>>>(
-        pos, t, g, levels, n_levels, mask, dtable, dpos, n);
+  const bool with_dpos = dpos != nullptr;
+  int err = 0;
+  if (dtable != nullptr) {
+    for (int k = 0; k < n_private && !err; ++k)
+      err = with_dpos ? launch_private<true>(pos, t, g, levels, n_levels, private_levels[k],
+                                             private_rows[k], dtable, dlev, n, s)
+                      : launch_private<false>(pos, t, g, levels, n_levels, private_levels[k],
+                                              private_rows[k], dtable, dlev, n, s);
+    if (!err && n_private < n_levels)
+      err = with_dpos ? launch_levels<true, true>(pos, t, g, levels, n_levels,
+                                                  level_ids + n_private, n_levels - n_private,
+                                                  mask, dtable, dlev, n, s)
+                      : launch_levels<true, false>(pos, t, g, levels, n_levels,
+                                                   level_ids + n_private, n_levels - n_private,
+                                                   mask, dtable, dlev, n, s);
+  } else {
+    err = launch_levels<false, true>(pos, t, g, levels, n_levels, level_ids, n_levels, mask,
+                                     dtable, dlev, n, s);
+  }
+  if (err) return err;
+  if (with_dpos)
+    hash_dpos_sum_kernel<<<(unsigned)((n + THREADS - 1) / THREADS), THREADS, 0, s>>>(
+        dlev, levels, n_levels, dpos, n);
   return (int)cudaGetLastError();
 }

@@ -11,15 +11,15 @@ H100 (see the source note).  On the card the backward
 (``fused_mlp_bwd``) recomputes the forward from x and the weights, as the
 JAX custom VJP saves only ``(x, wbs)``, and computes only the gradients
 autograd asks for: dx alone when no weight needs one.  The ragged tail of
-N is masked in the kernels; there is no fallback.  ``run_forward`` and
-``run_backward`` also launch the PE variant of the same kernels, which
+N is masked in the kernels; there is no fallback.  ``run_forward`` also
+launches the PE variant of the forward, which
 ``fused_pe_field.fused_pe_mlp`` (the PE proposal nets) wraps.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence, Tuple
+from typing import Sequence
 
 import torch
 
@@ -57,14 +57,12 @@ def _lib():
     lib.cropnerf_fused_mlp_smem_bytes.argtypes = meta
     lib.cropnerf_fused_mlp_bwd.argtypes = [ctypes.c_void_p] * 5 + meta + [
         ctypes.c_longlong] + [ctypes.c_void_p] * 5
-    lib.cropnerf_fused_pe_mlp_bwd.argtypes = [ctypes.c_void_p] * 5 + meta + pe + [
-        ctypes.c_longlong] + [ctypes.c_void_p] * 5
     lib.cropnerf_fused_mlp_bwd_sizes.argtypes = meta + [
         ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
-    lib.cropnerf_fused_mlp_bwd_smem_bytes.argtypes = meta + pe
+    lib.cropnerf_fused_mlp_bwd_smem_bytes.argtypes = meta
     for f in ("cropnerf_fused_mlp_fwd", "cropnerf_fused_pe_mlp_fwd",
               "cropnerf_fused_mlp_smem_bytes", "cropnerf_fused_mlp_bwd",
-              "cropnerf_fused_pe_mlp_bwd", "cropnerf_fused_mlp_bwd_sizes",
+              "cropnerf_fused_mlp_bwd_sizes",
               "cropnerf_fused_mlp_bwd_smem_bytes"):
         getattr(lib, f).restype = ctypes.c_int
     return lib
@@ -90,12 +88,10 @@ def smem_bytes(meta) -> int:
     return _lib().cropnerf_fused_mlp_smem_bytes(c_ints(meta), len(meta))
 
 
-def bwd_smem_bytes(meta, pe: Tuple[int, int] = (0, 0)) -> int:
+def bwd_smem_bytes(meta) -> int:
     """Dynamic shared memory one block of the backward takes for ``meta``
-    (-1 where the kernel rejects the layout); ``pe`` (dim, num_freqs) for
-    the PE MLP."""
-    return _lib().cropnerf_fused_mlp_bwd_smem_bytes(c_ints(meta), len(meta),
-                                                    *pe)
+    (-1 where the kernel rejects the layout)."""
+    return _lib().cropnerf_fused_mlp_bwd_smem_bytes(c_ints(meta), len(meta))
 
 
 def run_forward(name, x, wbs, din, pe=None):
@@ -121,20 +117,20 @@ def run_forward(name, x, wbs, din, pe=None):
     return out
 
 
-def run_backward(name, x, wbs, g, din, need_dx, need_dw, pe=None):
-    """One launch of the backward kernel (of the PE MLP with ``pe``) and its
-    weight-gradient sums: (dx or None, [dW0, db0, ...] in the shapes of
-    ``wbs`` or None) in float32.  No launch for N = 0."""
+def run_backward(name, x, wbs, g, need_dx, need_dw):
+    """One launch of the backward kernel and its weight-gradient sums: (dx
+    or None, [dW0, db0, ...] in the shapes of ``wbs`` or None) in float32.
+    No launch for N = 0."""
     device = check_kernel_call(name, [x, g, *wbs], torch.bfloat16)
     n = x.shape[0]
     check_rows("g", g, n=n, cols=wbs[-2].shape[1])
-    wbuf, bbuf, meta = pack_mlp(din, wbs, device)
+    wbuf, bbuf, meta = pack_mlp(x.shape[1], wbs, device)
     lib = _lib()
     sizes = (ctypes.c_longlong * 4)()
     if lib.cropnerf_fused_mlp_bwd_sizes(c_ints(meta), len(meta), n,
                                         int(need_dw), sizes):
         raise ValueError(f"{name}: the kernel rejects this layout")
-    smem = bwd_smem_bytes(meta, pe or (0, 0))
+    smem = bwd_smem_bytes(meta)
     if not 0 < smem <= MAX_SMEM_BYTES:
         raise ValueError(f"{name}: the kernel rejects this layout or needs "
                          f"{smem} B of shared memory per block, more than "
@@ -152,10 +148,8 @@ def run_backward(name, x, wbs, g, din, need_dx, need_dw, pe=None):
         args = [x.data_ptr(), g.data_ptr(), dx.data_ptr() if need_dx else None,
                 wbuf.data_ptr(), bbuf.data_ptr(), c_ints(meta), len(meta)]
         with torch.cuda.device(device):
-            err = (lib.cropnerf_fused_mlp_bwd(*args, n, *ptrs,
-                                              stream_ptr(device))
-                   if pe is None else lib.cropnerf_fused_pe_mlp_bwd(
-                       *args, *pe, n, *ptrs, stream_ptr(device)))
+            err = lib.cropnerf_fused_mlp_bwd(*args, n, *ptrs,
+                                             stream_ptr(device))
         if err:
             raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     dwbs = None
@@ -180,8 +174,7 @@ def fused_mlp_bwd(x: torch.Tensor, wbs: Sequence[torch.Tensor],
     """The backward kernel of ``fused_mlp`` on CUDA tensors: the cotangent
     g [N, Dout] → (dx [N, Din] or None, [dW0, db0, dW1, db1, ...] in the
     shapes of ``wbs`` or None) in float32.  It recomputes the forward."""
-    out = run_backward("fused_mlp_bwd", x, wbs, g, x.shape[1], need_dx,
-                       need_dw)
+    out = run_backward("fused_mlp_bwd", x, wbs, g, need_dx, need_dw)
     if x.shape[0]:
         fused_mlp_bwd.launches += 1
     return out

@@ -24,12 +24,15 @@ image, the workspace and the weight-gradient tasks).
 plain versions.
 
 ``fused_pe_mlp`` (the PE proposal nets with ``mlp_impl="pallas-fused"``:
-encode, then a narrow relu MLP to [N, 1]) launches the PE variant of the
-fused MLP kernels, ``csrc/fused_mlp.cu`` (replacing ``_plain_fwd_kernel``
-and ``_plain_bwd_kernel``), forward and recompute-backward, for tensors on
-the card, and ``fused_pe_mlp_plain`` for tensors on the CPU.  The JAX
-selector argument ``s`` (zero gradient) has no counterpart: the kernels
-and the plain version build the encoding from the frequencies.
+encode, then a narrow relu MLP to [N, 1]) launches, for tensors on the
+card, the PE variant of the fused MLP forward, ``csrc/fused_mlp.cu``
+(replacing ``_plain_fwd_kernel``), and its own recompute backward,
+``csrc/fused_pe_mlp_bwd.cu`` (replacing ``_plain_bwd_kernel``: persistent
+warpgroups on ``wgmma`` with the net resident in shared memory and the
+weight gradients held in registers; ``pe_mlp_images`` builds its weight
+images), and computes ``fused_pe_mlp_plain`` for tensors on the CPU.  The
+JAX selector argument ``s`` (zero gradient) has no counterpart: the
+kernels and the plain version build the encoding from the frequencies.
 
 Rounding points follow the JAX kernels: the encoding is rounded to the
 compute dtype before base layer 0, every hidden layer applies relu then
@@ -47,7 +50,7 @@ import torch
 
 from ..mlp import mm_f32acc
 from . import build
-from .fused_mlp import fused_mlp_plain, run_backward, run_forward
+from .fused_mlp import fused_mlp_plain, run_forward
 from .pe_plan import build_forward_plan, build_plan, image_index, weight_image
 from .common import (MAX_SMEM_BYTES, c_ints, check_kernel_call, check_rows,
                      pack_layers, pad16, stream_ptr, unpack_layers)
@@ -560,6 +563,81 @@ def _check_pe_mlp(x, wbs, num_freqs) -> int:
     return enc
 
 
+# csrc/fused_pe_mlp_bwd.cu: the widths its layout pads every net to, the
+# coordinates of x and the warpgroups a block
+PE_MLP_HIDDEN, PE_MLP_OUT, PE_MLP_ENC, PE_MLP_DIM, PE_MLP_WGS = 64, 16, 64, 3, 3
+
+
+def _check_pe_mlp_bwd(x, wbs, num_freqs) -> None:
+    """The nets the backward kernel takes: x [N, 3], an encoding of at most
+    64 columns, hidden layers at most 64 wide, at most 16 outputs, 2 or 3
+    layers."""
+    widths = [w.shape[1] for w in wbs[0::2]]
+    ok = (x.shape[1] == PE_MLP_DIM
+          and x.shape[1] * (1 + 2 * num_freqs) <= PE_MLP_ENC
+          and len(widths) in (2, 3)
+          and all(h <= PE_MLP_HIDDEN for h in widths[:-1])
+          and widths[-1] <= PE_MLP_OUT)
+    if not ok:
+        raise ValueError(
+            f"fused_pe_mlp_bwd: the kernel takes x [N, {PE_MLP_DIM}], at most "
+            f"{PE_MLP_ENC} encoding columns, 2 or 3 layers, hidden widths up "
+            f"to {PE_MLP_HIDDEN} and {PE_MLP_OUT} outputs; got x "
+            f"{tuple(x.shape)}, F={num_freqs}, widths {widths}")
+
+
+def pe_mlp_images(wbs: Sequence[torch.Tensor], device: torch.device | str = "cpu"
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernel's weights: (bf16 images, f32 biases).  Every
+    layer's weight is zero-padded to [64, 64] ([64, 16] for the last) and
+    laid out twice as a wgmma B operand in K-major core matrices: first all
+    forward images (element (k, n) at (k/8)·width·8 + n·8 + k%8), then all
+    input-gradient images of Wᵀ (element (n, k) at (n/8)·64·8 + k·8 + n%8).
+    The biases are padded alike, layer after layer."""
+    n_layers = len(wbs) // 2
+    fwd, bwd, bias = [], [], []
+    for l in range(n_layers):
+        w, b = wbs[2 * l], wbs[2 * l + 1].reshape(-1)
+        width = PE_MLP_OUT if l == n_layers - 1 else PE_MLP_HIDDEN
+        wp = torch.zeros((PE_MLP_HIDDEN, width), dtype=torch.bfloat16,
+                         device=device)
+        wp[:w.shape[0], :w.shape[1]] = w
+        fwd.append(wp.reshape(PE_MLP_HIDDEN // 8, 8, width).permute(0, 2, 1)
+                   .reshape(-1))
+        bwd.append(wp.reshape(PE_MLP_HIDDEN, width // 8, 8).permute(1, 0, 2)
+                   .reshape(-1))
+        bp = torch.zeros((width,), dtype=torch.float32, device=device)
+        bp[:b.numel()] = b
+        bias.append(bp)
+    return torch.cat(fwd + bwd), torch.cat(bias)
+
+
+def pe_mlp_bwd_blocks(n_rows: int, sm_count: int) -> int:
+    """Persistent blocks of the backward: one per SM, fewer where the
+    64-row tiles do not give each of a block's warpgroups one.  Warpgroup
+    w of block b takes tiles 3b + w, then every 3·blocks-th after it."""
+    tiles = -(-n_rows // 64)
+    return max(1, min(sm_count, -(-tiles // PE_MLP_WGS)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _pe_mlp_bwd_lib():
+    lib = build.load("fused_pe_mlp_bwd")
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.cropnerf_pe_mlp_bwd_layout.argtypes = [
+        i32, ctypes.POINTER(ctypes.c_longlong)]
+    lib.cropnerf_pe_mlp_bwd.argtypes = [vp] * 5 + [i32] * 3 + [
+        ctypes.c_longlong, i32] + [vp] * 5
+    for f in ("cropnerf_pe_mlp_bwd_layout", "cropnerf_pe_mlp_bwd"):
+        getattr(lib, f).restype = ctypes.c_int
+    return lib
+
+
 @torch.no_grad()
 def fused_pe_mlp_bwd(x: torch.Tensor, wbs: Sequence[torch.Tensor],
                      num_freqs: int, g: torch.Tensor, need_dx: bool = True,
@@ -567,12 +645,55 @@ def fused_pe_mlp_bwd(x: torch.Tensor, wbs: Sequence[torch.Tensor],
     """The backward kernel of ``fused_pe_mlp`` on CUDA tensors: the
     cotangent g [N, Dout] → (dx [N, dim] or None, [dW0, db0, ...] in the
     shapes of ``wbs`` or None) in float32.  It recomputes the forward."""
-    enc = _check_pe_mlp(x, wbs, num_freqs)
-    out = run_backward("fused_pe_mlp_bwd", x, wbs, g, enc, need_dx, need_dw,
-                       pe=(x.shape[1], num_freqs))
-    if x.shape[0]:
+    _check_pe_mlp(x, wbs, num_freqs)
+    device = check_kernel_call("fused_pe_mlp_bwd", [x, g, *wbs],
+                               torch.bfloat16)
+    n, n_layers = x.shape[0], len(wbs) // 2
+    check_rows("g", g, n=n, cols=wbs[-2].shape[1])
+    _check_pe_mlp_bwd(x, wbs, num_freqs)
+    if not (need_dx or need_dw):
+        raise ValueError("fused_pe_mlp_bwd: nothing asked for")
+    lib = _pe_mlp_bwd_lib()
+    sizes = (ctypes.c_longlong * 6)()
+    if lib.cropnerf_pe_mlp_bwd_layout(n_layers, sizes):
+        raise ValueError(f"fused_pe_mlp_bwd: {n_layers} layers")
+    img_elems, n_bias, total_w, total_b, _, wgs = list(sizes)
+    img, bias = pe_mlp_images(wbs, device)
+    if (img.numel(), bias.numel(), wgs) != (img_elems, n_bias, PE_MLP_WGS):
+        raise RuntimeError("fused_pe_mlp_bwd: the weight images do not match "
+                           "the kernel's layout")
+    blocks = pe_mlp_bwd_blocks(n, _sm_count(device))
+    dx = torch.empty_like(x) if need_dx else None
+    ptrs = [None] * 4
+    if need_dw:
+        dw = torch.zeros((total_w,), dtype=torch.float32, device=device)
+        db = torch.zeros((total_b,), dtype=torch.float32, device=device)
+        wpart = torch.empty((blocks * total_w,), dtype=torch.float32,
+                            device=device)
+        bpart = torch.empty((blocks * total_b,), dtype=torch.float32,
+                            device=device)
+        ptrs = [t.data_ptr() for t in (wpart, bpart, dw, db)]
+    if n:
+        with torch.cuda.device(device):
+            err = lib.cropnerf_pe_mlp_bwd(
+                x.data_ptr(), g.data_ptr(), dx.data_ptr() if need_dx else None,
+                img.data_ptr(), bias.data_ptr(), n_layers, num_freqs,
+                g.shape[1], n, blocks, *ptrs, stream_ptr(device))
+        if err:
+            raise RuntimeError(f"fused_pe_mlp_bwd kernel launch failed: "
+                               f"cudaError {err}")
         fused_pe_mlp_bwd.launches += 1
-    return out
+    dwbs = None
+    if need_dw:
+        dwbs = []
+        for l in range(n_layers):
+            w, b = wbs[2 * l], wbs[2 * l + 1]
+            width = PE_MLP_OUT if l == n_layers - 1 else PE_MLP_HIDDEN
+            w_off, b_off = l * PE_MLP_HIDDEN * PE_MLP_HIDDEN, l * PE_MLP_HIDDEN
+            dwbs.append(dw[w_off:w_off + PE_MLP_HIDDEN * width]
+                        .reshape(PE_MLP_HIDDEN, width)[:w.shape[0], :w.shape[1]])
+            dwbs.append(db[b_off:b_off + b.numel()].reshape(b.shape))
+    return dx, dwbs
 
 
 class _FusedPeMlp(torch.autograd.Function):
@@ -608,11 +729,14 @@ def fused_pe_mlp(x: torch.Tensor, wbs: Sequence[torch.Tensor],
     """x [N, dim] float32 (encoder domain, unit*2-1) → NeRF encoding with
     ``num_freqs`` frequencies → relu MLP wbs = [W0, b0, W1, b1, ...] (W
     [in, out], b [1, out]; linear last layer) → [N, Dout] float32,
-    differentiable in x and the weights."""
+    differentiable in x and the weights.  On the card, a graph is recorded
+    only for the nets the backward kernel takes (``_check_pe_mlp_bwd``)."""
     _check_pe_mlp(x, wbs, num_freqs)
     if x.device.type == "cpu":
         return fused_pe_mlp_plain(x, wbs, num_freqs, compute_dtype)
     check_kernel_call("fused_pe_mlp", [x, *wbs], compute_dtype)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *wbs)):
+        _check_pe_mlp_bwd(x, wbs, num_freqs)
     return _FusedPeMlp.apply(x, num_freqs, *wbs)
 
 

@@ -3,9 +3,11 @@
 custom VJP in ``cropnerf_tpu/ops/hashgrid.py``).
 
 ``hash_encode`` launches the CUDA kernel ``csrc/hash_encode.cu`` and is
-differentiable: its backward is the kernel's backward, which scatters the
-table gradient with atomics when the table needs one and returns the
-analytic position gradient when the positions need one.  The table is
+differentiable: its backward is the kernels' backward, one pass over the
+positions per level that adds the table gradient when the table needs one
+(the levels of :func:`private_levels` summed in shared memory first) and
+gathers each level's share of the position gradient when the positions
+need one, then sums those shares in level order.  The table is
 [rows, 2] float32 with each level at a row offset, so the dense and the
 packed layout both come here
 (``ops/hashgrid.py`` computes the offsets and holds the plain version).
@@ -21,7 +23,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from . import build
-from .common import check_rows, stream_ptr
+from .common import MAX_SMEM_BYTES, c_ints, check_rows, stream_ptr
 
 FEATURES = 2          # csrc/hash_encode.cu reads rows as float2
 
@@ -36,7 +38,9 @@ def _lib():
     lib.cropnerf_hash_encode_bwd.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+        ctypes.c_void_p]
     lib.cropnerf_hash_encode_bwd.restype = ctypes.c_int
     return lib
 
@@ -48,6 +52,24 @@ def _levels(device: torch.device, resolutions: Tuple[int, ...],
     once per layout."""
     rows = [[o, r, int(d)] for o, r, d in zip(offsets, resolutions, dense)]
     return torch.tensor(rows, dtype=torch.int64, device=device)
+
+
+def private_levels(resolutions: Sequence[int], dense: Sequence[bool],
+                   smem_bytes: int = MAX_SMEM_BYTES) -> Tuple[int, ...]:
+    """The levels whose table gradient the backward sums in shared memory
+    first: the dense ones whose (res+1)^3 rows of 8 bytes fit the shared
+    memory one block can take."""
+    return tuple(l for l, (r, d) in enumerate(zip(resolutions, dense))
+                 if d and (r + 1) ** 3 * 8 <= smem_bytes)
+
+
+@functools.lru_cache(maxsize=64)
+def _level_ids(device: torch.device, resolutions: Tuple[int, ...],
+               dense: Tuple[bool, ...]) -> torch.Tensor:
+    """int32 [L] on the card: the privatised levels, then the others."""
+    priv = private_levels(resolutions, dense)
+    rest = [l for l in range(len(resolutions)) if l not in priv]
+    return torch.tensor([*priv, *rest], dtype=torch.int32, device=device)
 
 
 def _check(name: str, table2d: torch.Tensor, pos: torch.Tensor,
@@ -97,8 +119,9 @@ def hash_encode_bwd(table2d: torch.Tensor, pos: torch.Tensor,
                     table_size: int, need_dpos: bool = True,
                     need_dtable: bool = True
                     ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
-    """The backward kernel: the cotangent [N, L·2] of the features →
-    (d table [rows, 2] or None, d pos [N, 3] or None) in float32."""
+    """The backward kernels: the cotangent [N, L·2] of the features →
+    (d table [rows, 2] or None, d pos [N, 3] or None) in float32.  One
+    call counts one launch, whatever number of kernels it starts."""
     device = _check("hash_encode_bwd", table2d, pos, resolutions, table_size)
     L, n = len(resolutions), pos.shape[0]
     check_rows("grad", grad, n=n, cols=L * FEATURES)
@@ -109,12 +132,20 @@ def hash_encode_bwd(table2d: torch.Tensor, pos: torch.Tensor,
     if n == 0 or not (need_dtable or need_dpos):
         return dtable, dpos
     levels = _levels(device, resolutions, offsets, dense)
+    priv = private_levels(resolutions, dense)
+    # each level's share of dpos, summed by the last kernel
+    dlev = (torch.empty((L, n, 3), dtype=torch.float32, device=device)
+            if need_dpos else None)
     with torch.cuda.device(device):
         err = _lib().cropnerf_hash_encode_bwd(
             pos.data_ptr(), table2d.data_ptr(), grad.data_ptr(),
             levels.data_ptr(), L, table_size - 1,
             dtable.data_ptr() if need_dtable else None,
-            dpos.data_ptr() if need_dpos else None, n, stream_ptr(device))
+            dpos.data_ptr() if need_dpos else None,
+            dlev.data_ptr() if need_dpos else None, n,
+            _level_ids(device, resolutions, dense).data_ptr(), len(priv),
+            c_ints(priv), c_ints([(resolutions[l] + 1) ** 3 for l in priv]),
+            stream_ptr(device))
     if err:
         raise RuntimeError(f"hash_encode_bwd kernel launch failed: "
                            f"cudaError {err}")

@@ -615,6 +615,108 @@ def test_hash_encode_backward_without_table_gradient(cuda):
     assert torch.equal(dps[0], dps[1])
 
 
+# K4's backward on positions that collide: (grid, N, kind).  Against the
+# plain version with a float64 table (the positions and cells stay float32),
+# so that the reference's own float32 sums do not set the error.
+K4_BWD_CASES = {
+    "one-coarse-cell": ("field", 65_536, "cell"),
+    "identical": ("field", 65_536, "same"),
+    "cell-edges": ("field", 65_536, "edges"),
+    "rays": ("proposal0", 262_144, "rays"),
+    "huge-layout": ("huge-field", 100_000, "uniform"),
+    "dense-layout": ("dense", 5000, "edges"),
+    "ragged": ("proposal1", 1003, "uniform"),
+}
+K4_GRIDS = {  # (layout, levels, log2 T, min res, max res) or a preset's field
+    "field": ("packed", 16, 19, 16, 2048),
+    "proposal0": ("packed", 5, 17, 16, 128),
+    "proposal1": ("packed", 5, 17, 16, 256),
+    "dense": ("dense", 4, 12, 4, 32),
+}
+
+
+def _k4_bwd_inputs(cuda, grid, n, kind):
+    from cropnerf_tpu_torch.ops import hashgrid
+    if grid == "huge-field":
+        gc = PRESETS["cropnerf-huge"].model.field.grid
+        layout, levels, log2_t = "packed", gc.num_levels, gc.log2_hashmap_size
+        lo, hi = gc.min_res, gc.max_res
+    else:
+        layout, levels, log2_t, lo, hi = K4_GRIDS[grid]
+    table, pos, res, t = _hash_inputs(cuda, layout, n, levels, log2_t, lo, hi,
+                                      "auto", seed=12)
+    g = torch.Generator(device=cuda).manual_seed(13)
+    if kind == "cell":                        # one cell of level 0 (r = 16)
+        pos = 0.26 + torch.rand((n, 3), generator=g, device=cuda) * 0.05
+    elif kind == "same":
+        pos = torch.full((n, 3), 0.4, device=cuda)
+    elif kind == "edges":                     # vertices k/r of every level, 1.0
+        r = torch.tensor(res, device=cuda)[torch.randint(
+            0, len(res), (n, 1), generator=g, device=cuda)].float()
+        k = torch.floor(torch.rand((n, 3), generator=g, device=cuda) * (r + 1))
+        pos = torch.minimum(k / r, torch.ones((), device=cuda))
+        pos[:n // 8] = 1.0
+    elif kind == "rays":                      # 256 samples along each ray
+        start = torch.rand((n // 256, 1, 3), generator=g, device=cuda)
+        d = torch.randn((n // 256, 1, 3), generator=g, device=cuda)
+        step = torch.linspace(0, 0.5, 256, device=cuda)[None, :, None]
+        pos = (start + d / d.norm(dim=-1, keepdim=True) * step).clamp(0, 1)
+        pos = pos.reshape(-1, 3)
+    return table, pos.contiguous(), res, t
+
+
+@pytest.mark.parametrize("variant", ["both", "table", "dpos"])
+@pytest.mark.parametrize("case", list(K4_BWD_CASES))
+def test_hash_encode_backward_on_colliding_positions(cuda, case, variant):
+    """Each variant of K4's backward (the training step's, the table
+    alone, the BayesRays pass's dpos alone) where many contributions land
+    on one row: the table gradient within DTABLE_TOL and dpos within
+    DPOS_TOL of the float64 reference; dpos the same bits in every variant;
+    one launch."""
+    from cropnerf_tpu_torch.ops import hashgrid
+    from cropnerf_tpu_torch.ops.cuda import hash_encode as khash
+    table, pos, res, t = _k4_bwd_inputs(cuda, *K4_BWD_CASES[case])
+    cot = torch.randn((pos.shape[0], 2 * len(res)), device=cuda,
+                      generator=torch.Generator(device=cuda).manual_seed(14))
+    table2d, offsets, dense, t = hashgrid._table_layout(table, res, "auto", t)
+    layout = (tuple(res), tuple(offsets), tuple(dense), t)
+    need_t, need_p = variant in ("both", "table"), variant in ("both", "dpos")
+    before = khash.hash_encode_bwd.launches
+    dt, dp = khash.hash_encode_bwd(table2d, pos, cot, *layout,
+                                   need_dpos=need_p, need_dtable=need_t)
+    torch.cuda.synchronize()
+    assert khash.hash_encode_bwd.launches == before + 1
+    assert (dt is not None, dp is not None) == (need_t, need_p)
+    tt = table.double().requires_grad_(True)
+    tp = pos.clone().requires_grad_(True)
+    hashgrid.hashgrid_encode_plain(tt, tp, res, table_size=t).backward(
+        cot.double())
+    if need_t:
+        ref = tt.grad.reshape(-1, 2)
+        assert torch.isfinite(dt).all()
+        assert _rel_err(dt.double(), ref) <= DTABLE_TOL, _rel_err(dt.double(), ref)
+    if need_p:
+        assert _rel_err(dp.double(), tp.grad.double()) <= DPOS_TOL
+        _, dp_both = khash.hash_encode_bwd(table2d, pos, cot, *layout)
+        assert torch.equal(dp, dp_both)
+
+
+def test_hash_encode_backward_of_no_positions(cuda):
+    """N = 0: a zero table gradient, an empty dpos, no launch."""
+    from cropnerf_tpu_torch.ops import hashgrid
+    from cropnerf_tpu_torch.ops.cuda import hash_encode as khash
+    table, pos, res, t = _hash_inputs(cuda, *HASH_CASES["field"][:-1], "auto")
+    table2d, offsets, dense, t = hashgrid._table_layout(table, res, "auto", t)
+    before = khash.hash_encode_bwd.launches
+    dt, dp = khash.hash_encode_bwd(
+        table2d, pos[:0].contiguous(), torch.zeros((0, 2 * len(res)),
+                                                   device=cuda),
+        tuple(res), tuple(offsets), tuple(dense), t)
+    assert khash.hash_encode_bwd.launches == before
+    assert dp.shape == (0, 3) and dt.shape == table2d.shape
+    assert not dt.any()
+
+
 def test_hash_field_runs_in_both_compute_dtypes(cuda):
     """The encode is float32 throughout and takes no compute dtype: the
     field runs on the card in the bf16 and the float32 arm."""
@@ -740,7 +842,8 @@ def test_uncertainty_kernel_path_matches_plain_path(cuda, preset, channel):
     assert all(p.requires_grad for p in params.parameters())
 
 
-# ---- K5, the fused PE proposal nets (csrc/fused_mlp.cu, PE variant) ---------
+# ---- K5, the fused PE proposal nets (csrc/fused_mlp.cu, PE variant, forward;
+# csrc/fused_pe_mlp_bwd.cu, backward) ----------------------------------------
 #
 # Held as K3: outputs to TOL of max |plain|, dx row by row, weight and bias
 # gradients in relative L2 (and by their max from 1000 rows on).
@@ -820,6 +923,54 @@ def test_fused_pe_mlp_backward_computes_what_is_asked(cuda):
             kfield.fused_pe_mlp_bwd.launches) == before
     with torch.no_grad(), pytest.raises(ValueError, match="bf16"):
         kfield.fused_pe_mlp(x, full_w, F, torch.float32)
+
+
+@pytest.mark.parametrize("n", [1, 63, 64 * 1000 + 5])
+@pytest.mark.parametrize("F", [5, 6])
+def test_fused_pe_mlp_backward_tiling_edges(cuda, F, n):
+    """K5's backward at the edges of its 64-row tiles and of the persistent
+    warpgroups' runs: dx and dW against the plain version, dx alone and dW
+    alone the full backward's bits, two runs the same bits."""
+    wbs = _prop_net(cuda, F)
+    g = torch.Generator(device=cuda).manual_seed(15)
+    x = (torch.rand((n, 3), generator=g, device=cuda) * 2 - 1).contiguous()
+    cot = torch.randn((n, 1), generator=g, device=cuda)
+    wd = [w.detach() for w in wbs]
+    dx, dw = kfield.fused_pe_mlp_bwd(x, wd, F, cot, True, True)
+    dx2, dw2 = kfield.fused_pe_mlp_bwd(x, wd, F, cot, True, True)
+    dx_only, none = kfield.fused_pe_mlp_bwd(x, wd, F, cot, True, False)
+    none2, dw_only = kfield.fused_pe_mlp_bwd(x, wd, F, cot, False, True)
+    torch.cuda.synchronize()
+    assert none is None and none2 is None
+    assert torch.equal(dx, dx2) and all(torch.equal(a, b)
+                                        for a, b in zip(dw, dw2))
+    assert torch.equal(dx, dx_only) and all(torch.equal(a, b)
+                                            for a, b in zip(dw, dw_only))
+    leaves = [x.clone().requires_grad_(True)] + _leaves(wd, True)
+    ref = _grads(kfield.fused_pe_mlp_plain(leaves[0], leaves[1:], F), leaves,
+                 cot)
+    assert dx.shape == (n, 3) and torch.isfinite(dx).all()
+    assert _grad_agrees(dx, ref[0], per_row=True)
+    for i, (a, b) in enumerate(zip(dw, ref[1:])):
+        assert a.shape == b.shape and torch.isfinite(a).all(), i
+        assert _weight_grad_agrees(a, b, n), (i, _rel_err(a, b))
+
+
+def test_fused_pe_mlp_backward_refuses_wider_nets(cuda):
+    """A net the backward kernel does not take (hidden 128) is refused when
+    the forward records the graph, before any launch."""
+    from cropnerf_tpu_torch.models.config import ProposalFieldConfig
+    from cropnerf_tpu_torch.models.proposal import proposal_init
+    cfg = ProposalFieldConfig(field_type="pe", hidden_dim=128, num_layers=3,
+                              pe_freqs=5, mlp_impl="pallas-fused")
+    prop = proposal_init(cfg, torch.Generator().manual_seed(0), cuda)
+    wbs = _leaves([t for w, b in zip(prop.mlp.w, prop.mlp.b)
+                   for t in (w, b.reshape(1, -1))], True)
+    x = torch.rand((100, 3), device=cuda) * 2 - 1
+    with pytest.raises(ValueError, match="hidden widths"):
+        kfield.fused_pe_mlp(x, wbs, 5)
+    with torch.no_grad():
+        assert kfield.fused_pe_mlp(x, wbs, 5).shape == (100, 1)
 
 
 # ---- K6, the transmittance scan (csrc/transmittance.cu) ----------------------

@@ -129,6 +129,127 @@ def test_gradients_match_jax(layout, hash_mode):
                                rtol=1e-5, atol=1e-5)
 
 
+# the levels whose table gradient the kernel sums in shared memory first,
+# per grid (the field, then each proposal net) of each preset, and for the
+# dense [L, T, F] layout of this file's grid
+PRIVATE_CASES = {
+    "cropnerf": [(0, 1), (0, 1), (0,)],
+    "cropnerf-huge": [(0, 1), (0,), (0,)],
+    "cropnerf-tiny": [(), ()],
+    "dense-layout": [(0, 1)],
+}
+
+
+@pytest.mark.parametrize("case", list(PRIVATE_CASES))
+def test_private_levels_follow_the_layout(case):
+    """Dense levels whose (res+1)^3 rows of 8 bytes fit one block's shared
+    memory (232,448 bytes), whatever the preset: for cropnerf the field's
+    levels 0-1 (39,304 and 97,336 bytes; level 2 needs 238,328), proposal
+    0's levels 0-1 (157,464 bytes) and proposal 1's level 0."""
+    from cropnerf_tpu_torch.models.config import PRESETS
+    if case == "dense-layout":
+        layouts = [(RES, T)]
+    else:
+        m = PRESETS[case].model
+        layouts = [(thash.level_resolutions(gc.num_levels, gc.min_res,
+                                            gc.max_res),
+                    2 ** gc.log2_hashmap_size)
+                   for gc in [m.field.grid] + [p.grid for p in
+                                               m.proposal_fields]]
+    got = []
+    for res, t in layouts:
+        dense = [thash.level_uses_dense(r, t) for r in res]
+        priv = khash.private_levels(res, dense)
+        assert all(dense[l] and (res[l] + 1) ** 3 * 8 <= 232_448
+                   for l in priv)
+        got.append(priv)
+    assert got == PRIVATE_CASES[case]
+    assert khash.private_levels(RES, [True] * 4, smem_bytes=729 * 8) == (0, 1)
+
+
+def _table_pass_model(table2d, pos, cot, res, offsets, dense, t, blocks,
+                      threads=64):
+    """csrc/hash_encode.cu's table pass in torch, contribution by
+    contribution: each level's positions strided over `blocks` blocks of
+    `threads`; in each warp and corner, runs of neighbouring lanes on one
+    row summed first; a privatised level summed per block into a copy of
+    its lattice whose touched rows are then added to the table, the other
+    levels added directly."""
+    n = pos.shape[0]
+    priv = khash.private_levels(res, dense)
+    dt = torch.zeros_like(table2d)
+    lane = torch.arange(n)
+    block = (lane // threads) % blocks
+    for l, r in enumerate(res):
+        scaled = pos * r
+        base = torch.floor(scaled)
+        frac = scaled - base
+        base = base.long()
+        if dense[l]:
+            base = base.clamp(0, r - 1)
+        g = cot[:, 2 * l:2 * l + 2]
+        copies = {}
+        for corner in range(8):
+            bits = [(corner >> d) & 1 for d in range(3)]
+            c = [base[:, d] + bits[d] for d in range(3)]
+            idx = ((c[0] * (r + 1) + c[1]) * (r + 1) + c[2] if dense[l]
+                   else thash._hash3(c[0], c[1], c[2], t))
+            tw = [frac[:, d] if bits[d] else 1.0 - frac[:, d]
+                  for d in range(3)]
+            v = (tw[0] * tw[1] * tw[2])[:, None] * g
+            for w0 in range(0, n, 32):          # runs within each warp
+                rows, vals = idx[w0:w0 + 32].tolist(), v[w0:w0 + 32]
+                k = 0
+                while k < len(rows):
+                    e = k
+                    while e + 1 < len(rows) and rows[e + 1] == rows[k]:
+                        e += 1
+                    s = vals[k:e + 1].sum(0)
+                    if l in priv:
+                        b = int(block[w0 + k])
+                        copies.setdefault(b, torch.zeros(
+                            ((r + 1) ** 3, 2)))[rows[k]] += s
+                    else:
+                        dt[offsets[l] + rows[k]] += s
+                    k = e + 1
+        for b in sorted(copies):                  # each block's flush
+            touched = (copies[b] != 0).any(1)
+            rows = torch.nonzero(touched)[:, 0]
+            dt[offsets[l] + rows] += copies[b][rows]
+    return dt
+
+
+@pytest.mark.parametrize("layout,hash_mode", [("packed", "auto"),
+                                              ("dense", "auto"),
+                                              ("packed", "hash")])
+def test_table_pass_model_matches_jax(layout, hash_mode):
+    """The table pass's accumulation (privatised levels, runs, blocks)
+    against the JAX custom VJP's table gradient, within 1e-5 of its
+    largest entry; half the positions are samples along rays, so runs of
+    one row occur."""
+    table = _table(layout, hash_mode, seed=7)
+    rng = np.random.default_rng(8)
+    pos = _positions(seed=9, n=N)
+    start = rng.uniform(0.1, 0.9, (16, 1, 3))
+    step = rng.uniform(-0.01, 0.01, (16, 1, 3)) * np.arange(32)[None, :,
+                                                                   None]
+    pos[N // 2:] = np.clip(start + step, 0, 1).reshape(-1, 3)
+    cot = rng.standard_normal((N, 2 * len(RES))).astype(np.float32)
+    _, vjp = jax.vjp(lambda t: jhash.hashgrid_encode(t, jnp.asarray(pos),
+                                                     RES, hash_mode, T),
+                     jnp.asarray(table))
+    ref = np.asarray(vjp(jnp.asarray(cot))[0]).reshape(-1, 2)
+    table2d, offsets, dense, t = thash._table_layout(
+        torch.from_numpy(table), RES, hash_mode, T)
+    if hash_mode == "auto":
+        assert khash.private_levels(RES, dense) == (0, 1)
+    got = _table_pass_model(table2d, torch.from_numpy(pos),
+                            torch.from_numpy(cot), RES, offsets, dense, t,
+                            blocks=3)
+    err = np.abs(got.numpy() - ref).max() / np.abs(ref).max()
+    assert err <= 1e-5, err
+
+
 def test_hash_is_uint32_teschner():
     """The int64 hash with 32-bit cuts equals the uint32 product, XOR and
     modulus, wrap-around included."""

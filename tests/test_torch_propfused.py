@@ -87,18 +87,28 @@ def test_fused_pe_mlp_checks_its_inputs():
     with pytest.raises(ValueError):                 # an odd weight list
         tfield.fused_pe_mlp(x, wbs[:3], 5)
     assert tfield.fused_pe_mlp(x[:0], wbs, 5).shape == (0, 1)
+    tfield._check_pe_mlp_bwd(x, wbs, 5)             # the backward kernel's nets
+    wide = to_torch(np_wbs(np.random.default_rng(0), [33, 128, 128, 1]))
+    with pytest.raises(ValueError, match="hidden widths"):
+        tfield._check_pe_mlp_bwd(x, wide, 5)
 
 
-def _kernel_model_pe_mlp(x, wbuf, bbuf, meta, F, g):
-    """csrc/fused_mlp.cu's PE variant in torch, on the packed buffers and
-    meta the wrapper builds: the encoding in the prologue (x·2^f, no
-    product), the bf16 recompute, the per-layer weight gradients Aᵀ·G of
-    bf16 operands, relu masks from the bf16 activations, then layer 0's f32
-    input gradient through d(encode)/d(pre) times 2^f and, per coordinate,
-    the sum over its columns in column order."""
+def _kernel_model_pe_mlp(x, wbs, F, g, sm_count):
+    """The PE MLP's CUDA kernels in torch: the forward (csrc/fused_mlp.cu's
+    PE variant) on the buffers ``pack_mlp`` builds, and the backward
+    (csrc/fused_pe_mlp_bwd.cu) on the weight images ``pe_mlp_images``
+    builds, read back as its wgmma operands index them, in its order: the
+    encoding from x with its f32 derivatives; the bf16 recompute; per
+    64-row tile, going back through the layers, the weight gradient Aᵀ·G of
+    bf16 operands added into its warpgroup's f32 sum, the input gradient
+    G·Wᵀ, the relu mask of the bf16 activation and the f32 column sums;
+    then each block's warpgroups' sums in order and the blocks' in order;
+    dx from layer 0's f32 input gradient times d(encode)/d(pre)·2^f, summed
+    per coordinate in column order.  Returns (out, dx, [dW0, db0, ...])."""
+    N, dim = x.shape
+    wbuf, bbuf, meta = tmlp.pack_mlp(dim * (1 + 2 * F), wbs)
     din, din_pad, dout, n_layers, _ = meta[:5]
     L = [meta[5 + 5 * i:10 + 5 * i] for i in range(n_layers)]
-    N, dim = x.shape
     sin_end = dim * (1 + F)
     col = torch.arange(din)
     j = torch.where(col < sin_end, col - dim, col - sin_end)
@@ -109,63 +119,132 @@ def _kernel_model_pe_mlp(x, wbuf, bbuf, meta, F, g):
     enc = torch.where(col < dim, x[:, coord],
                       torch.where(col < sin_end, torch.sin(pre),
                                   torch.cos(pre)))
+    # the forward kernel, on the packed buffers
     a = torch.zeros((N, din_pad))
     a[:, :din] = enc
-    acts = [a.bfloat16()]
-    layer = lambda a, l: (a.float() @ wbuf[L[l][0]:L[l][0] + L[l][2] * L[l][3]]  # noqa: E731
-                          .reshape(L[l][2], L[l][3]).float()
-                          + bbuf[L[l][1]:L[l][1] + L[l][3]])
-    for l in range(n_layers - 1):
-        acts.append(torch.relu(layer(acts[l], l)).bfloat16())
-    out = layer(acts[-1], n_layers - 1)[:, :dout]
-    gl = torch.zeros((N, L[-1][3]))
-    gl[:, :dout] = g
-    dwbuf, dbbuf = torch.zeros(wbuf.shape), torch.zeros(bbuf.shape)
-    dbbuf[L[-1][1]:L[-1][1] + L[-1][3]] = gl.sum(0)
-    gcur = gl.bfloat16()
-    for l in range(n_layers - 1, -1, -1):
+    h = a.bfloat16()
+    for l in range(n_layers):
         w_off, b_off, k, n, _ = L[l]
-        dwbuf[w_off:w_off + k * n] = (acts[l].float().T
-                                      @ gcur.float()).reshape(-1)
-        v = gcur.float() @ wbuf[w_off:w_off + k * n].reshape(k, n).float().T
-        if l == 0:
-            break
-        v = torch.where(acts[l].float() > 0, v, 0.0)
-        dbbuf[L[l - 1][1]:L[l - 1][1] + L[l - 1][3]] = v.sum(0)
-        gcur = v.bfloat16()
-    v = v[:, :din]
-    d_pre = torch.where(col < dim, v, torch.where(col < sin_end,
-                                                  v * torch.cos(pre),
-                                                  -v * torch.sin(pre))) * freq
+        h = (h.float() @ wbuf[w_off:w_off + k * n].reshape(k, n).float()
+             + bbuf[b_off:b_off + n])
+        if l < n_layers - 1:
+            h = torch.relu(h).bfloat16()
+    out = h[:, :dout]
+    # the backward kernel, on its weight images
+    HW, OW = tfield.PE_MLP_HIDDEN, tfield.PE_MLP_OUT
+    widths = [HW] * (n_layers - 1) + [OW]
+    img, bias = tfield.pe_mlp_images(wbs)
+    total_w = sum(HW * n for n in widths)
+    k_, n_ = torch.arange(HW)[:, None], None
+    fw, bw, boff = [], [], 0
+    for l, n in enumerate(widths):
+        off = l * HW * HW
+        n_ = torch.arange(n)[None]
+        fw.append(img[off + (k_ // 8) * n * 8 + n_ * 8 + k_ % 8].float())
+        jj, ii = torch.arange(n)[:, None], torch.arange(HW)[None]
+        bw.append(img[total_w + off + (jj // 8) * HW * 8 + ii * 8
+                      + jj % 8].float())
+    b_at = [l * HW for l in range(n_layers)]
+    e = torch.zeros((N, HW))
+    e[:, :din] = enc
+    acts = [e.bfloat16()]
+    for l in range(n_layers - 1):
+        acts.append(torch.relu(acts[l].float() @ fw[l]
+                               + bias[b_at[l]:b_at[l] + HW]).bfloat16())
+    gl = torch.zeros((N, OW))
+    gl[:, :dout] = g
+    deriv = torch.where(col < dim, torch.ones(din),
+                        torch.where(col < sin_end, torch.cos(pre),
+                                    -torch.sin(pre)) * freq)
+    blocks = tfield.pe_mlp_bwd_blocks(N, sm_count)
+    wgs = blocks * tfield.PE_MLP_WGS
+    dws = [[torch.zeros((HW, n)) for n in widths] for _ in range(wgs)]
+    dbs = [[torch.zeros(n) for n in widths] for _ in range(wgs)]
     dx = torch.zeros((N, dim))
-    for c in range(din):                          # column order, per coordinate
-        dx[:, coord[c]] += d_pre[:, c]
-    return out, dx, dwbuf, dbbuf
+    for t in range(-(-N // 64)):
+        r = slice(64 * t, min(64 * t + 64, N))
+        wg = t % wgs
+        gcur = gl[r].bfloat16()
+        dbs[wg][-1] += gl[r].sum(0)
+        for l in range(n_layers - 1, -1, -1):
+            dws[wg][l] += acts[l][r].float().T @ gcur.float()
+            v = gcur.float() @ bw[l]
+            if l == 0:
+                break
+            v = torch.where(acts[l][r].float() > 0, v, 0.0)
+            dbs[wg][l - 1] += v.sum(0)
+            gcur = v.bfloat16()
+        d_pre = v[:, :din] * deriv[r]
+        for c in range(din):                      # column order, per coordinate
+            dx[r, coord[c]] += d_pre[:, c]
+    grads = []
+    for l in range(n_layers):
+        w, b = wbs[2 * l], wbs[2 * l + 1]
+        parts = [sum(dws[wg][l] for wg in range(
+            blk * tfield.PE_MLP_WGS, (blk + 1) * tfield.PE_MLP_WGS))
+            for blk in range(blocks)]
+        bparts = [sum(dbs[wg][l] for wg in range(
+            blk * tfield.PE_MLP_WGS, (blk + 1) * tfield.PE_MLP_WGS))
+            for blk in range(blocks)]
+        grads += [sum(parts)[:w.shape[0], :w.shape[1]],
+                  sum(bparts)[:b.numel()].reshape(b.shape)]
+    return out, dx, grads
 
 
 @pytest.mark.parametrize("F", [5, 6])
 def test_pe_mlp_kernel_model_reproduces_plain(F):
+    """The CUDA kernels' model against the JAX VJP of fused_pe_mlp (its
+    kernel in interpret mode at 384 rows; at 300 rows, no tile divisor, its
+    jnp path) and the forward against the plain version; the rows spread
+    over 2 blocks of 3 warpgroups, at 300 rows the last tile ragged."""
+    n = {5: 384, 6: 300}[F]
     rng = np.random.default_rng(30 + F)
-    x = torch.from_numpy(rng.uniform(-1, 1, (300, 3)).astype(np.float32))
-    x.requires_grad_(True)
-    wt = [w.requires_grad_(True) for w in to_torch(np_wbs(rng,
-                                                          PROP_WIDTHS[F]))]
-    out = tfield.fused_pe_mlp_plain(x, wt, F)
-    cot = torch.from_numpy(rng.standard_normal(out.shape).astype(np.float32))
-    ref = torch.autograd.grad(out, [x, *wt], cot)
+    xn = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    wn = np_wbs(rng, PROP_WIDTHS[F])
+    cot = rng.standard_normal((n, 1)).astype(np.float32)
+    s = jnp.asarray(jfield.pe_selector_matrix(F))
+    ref_out, vjp = jax.vjp(lambda x, w: jfield.fused_pe_mlp(
+        x, s, w, F, 128, True, 3, 128), jnp.asarray(xn), to_jax(wn))
+    jdx, jdw = vjp(jnp.asarray(cot))
+    x, wt = torch.from_numpy(xn), to_torch(wn)
     with torch.no_grad():
-        wbuf, bbuf, meta = tmlp.pack_mlp(3 * (1 + 2 * F), wt)
-        assert meta[:5] == [3 * (1 + 2 * F), 48, 1, 3, 64]
-        got_out, dx, dwbuf, dbbuf = _kernel_model_pe_mlp(x, wbuf, bbuf, meta,
-                                                         F, cot)
-        grads = [t for ws, db in tmlp.unpack_layers(tmlp._layers(wt), dwbuf,
-                                                    dbbuf, meta[5:])
-                 for t in (*ws, db)]
-    assert_close(got_out, out.detach(), 1e-5, "out")
-    for i, (g, r) in enumerate(zip([dx] + grads, ref)):
+        got_out, dx, grads = _kernel_model_pe_mlp(x, wt, F,
+                                                  torch.from_numpy(cot), 2)
+        plain = tfield.fused_pe_mlp_plain(x, wt, F)
+    assert tfield.pe_mlp_bwd_blocks(n, 2) == 2
+    assert tfield.pe_mlp_bwd_blocks(n, 132) == 2
+    assert_close(got_out, plain, 1e-5, "out")
+    assert_close(got_out, ref_out, 2e-2, "out vs JAX")
+    for i, (g, r) in enumerate(zip([dx] + grads, [jdx, *jdw])):
+        r = np.asarray(r)
         assert g.shape == r.shape, (i, g.shape, r.shape)
-        err = ((g - r).abs().max() / r.abs().max().clamp_min(1e-6)).item()
+        err = (np.abs(g.numpy() - r).max() / max(np.abs(r).max(), 1e-6))
         assert err <= 2e-2, (i, err)
+
+
+def test_pe_mlp_images_lay_out_both_operands():
+    """Every weight of the backward's images once in the forward image at
+    (k/8)·width·8 + n·8 + k%8 and once in the input-gradient image at
+    (n/8)·64·8 + k·8 + n%8, zero elsewhere; the biases padded alike."""
+    wt = to_torch(np_wbs(np.random.default_rng(3), PROP_WIDTHS[6]))
+    img, bias = tfield.pe_mlp_images(wt)
+    assert img.dtype == torch.bfloat16 and img.numel() == 2 * (2 * 64 * 64
+                                                               + 64 * 16)
+    assert bias.tolist() == torch.cat([
+        torch.nn.functional.pad(wt[2 * l + 1].reshape(-1), (0, n - w))
+        for l, (w, n) in enumerate([(64, 64), (64, 64), (1, 16)])]).tolist()
+    half = img.numel() // 2
+    for l, (k, n, width) in enumerate([(39, 64, 64), (64, 64, 64),
+                                       (64, 1, 16)]):
+        w = wt[2 * l].bfloat16()
+        kk, nn = torch.meshgrid(torch.arange(k), torch.arange(n),
+                                indexing="ij")
+        off = l * 64 * 64
+        fwd = img[off + (kk // 8) * width * 8 + nn * 8 + kk % 8]
+        bwd = img[half + off + (nn // 8) * 64 * 8 + kk * 8 + nn % 8]
+        assert torch.equal(fwd, w) and torch.equal(bwd, w)
+        block = img[off:off + 64 * width]
+        assert torch.count_nonzero(block) == torch.count_nonzero(w)
 
 
 def test_proposal_density_pallas_fused_matches_jax(arm):

@@ -1,0 +1,90 @@
+"""Checksums of the outputs of the port's kernels that a kernel redesign
+leaves alone, on seeded inputs at the main paths' shapes, on one NVIDIA
+GPU: K3 forward and backward (``fused_mlp``, ``fused_mlp_bwd``: dx alone
+and with the weight gradients), K4 forward (``hash_encode_fwd``) and K5
+forward (``fused_pe_mlp``).  Run it on two trees in one call on the same
+card; equal lines mean equal bits:
+
+    python3 tools/kernel_bits.py [--port-root DIR]
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import sys
+from pathlib import Path
+
+import torch
+
+
+def digest(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--port-root", type=Path,
+                        default=Path(__file__).resolve().parents[1])
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device is visible")
+    sys.path.insert(0, str(args.port_root.resolve()))
+    from cropnerf_tpu_torch.models.config import PRESETS
+    from cropnerf_tpu_torch.models.proposal import proposal_init
+    from cropnerf_tpu_torch.ops import hashgrid as hg
+    from cropnerf_tpu_torch.ops.cuda import fused_mlp as kmlp
+    from cropnerf_tpu_torch.ops.cuda import fused_pe_field as kfield
+    from cropnerf_tpu_torch.ops.cuda import hash_encode as kh
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(21)
+    out = {}
+    with torch.no_grad():
+        # K3: the vanilla field's heads at an export chunk and a BayesRays batch
+        for name, dims in (("semantic head", (15, 64, 1)),
+                           ("colour head", (74, 64, 3))):
+            wbs = []
+            for a, b in zip(dims[:-1], dims[1:]):
+                wbs += [torch.randn((a, b), generator=g, device=dev) / a ** 0.5,
+                        torch.randn((1, b), generator=g, device=dev) * 0.05]
+            x = torch.randn((65_536, dims[0]), generator=g, device=dev)
+            out[f"fused_mlp {name}"] = digest([kmlp.fused_mlp(x, wbs)])
+            x = torch.randn((196_605, dims[0]), generator=g, device=dev)
+            cot = torch.randn((196_605, dims[-1]), generator=g, device=dev)
+            for need_dw in (False, True):
+                dx, dw = kmlp.fused_mlp_bwd(x, wbs, cot, True, need_dw)
+                out[f"fused_mlp_bwd {name} dW={need_dw}"] = digest(
+                    [dx] + (dw or []))
+        # K4: a cropnerf step's three encodes
+        m = PRESETS["cropnerf"].model
+        for name, n, gc in (("field", 196_608, m.field.grid),
+                            ("proposal 0", 1_048_576, m.proposal_fields[0].grid),
+                            ("proposal 1", 393_216, m.proposal_fields[1].grid)):
+            res = hg.level_resolutions(gc.num_levels, gc.min_res, gc.max_res)
+            t = 2 ** gc.log2_hashmap_size
+            table = torch.rand((sum(hg.level_row_counts(res, t)), 2),
+                               generator=g, device=dev) * 2 - 1
+            pos = torch.rand((n, 3), generator=g, device=dev)
+            table2d, offsets, dense, _ = hg._table_layout(table, res, "auto", t)
+            out[f"hash_encode {name}"] = digest([kh.hash_encode_fwd(
+                table2d, pos, tuple(res), tuple(offsets), tuple(dense), t)])
+        # K5 forward: the fused proposal nets of cropnerf-mxu
+        mx = PRESETS["cropnerf-mxu"].model
+        for i, (p, smp) in enumerate(zip(mx.proposal_fields,
+                                         mx.num_proposal_samples_per_ray)):
+            prop = proposal_init(p, torch.Generator().manual_seed(i), dev)
+            wbs = [t.detach() for w, b in zip(prop.mlp.w, prop.mlp.b)
+                   for t in (w, b.reshape(1, -1))]
+            x = torch.rand((4096 * smp, 3), generator=g, device=dev) * 2 - 1
+            out[f"fused_pe_mlp net {i}"] = digest([kfield.fused_pe_mlp(
+                x, wbs, p.pe_freqs)])
+    print(json.dumps({"port_root": str(args.port_root),
+                      "card": torch.cuda.get_device_name(0), "sha256": out}),
+          flush=True)
+
+
+if __name__ == "__main__":
+    main()
