@@ -19,10 +19,15 @@ Run from the root of the repository:  python3 chip_smoke.py
    two runs of each give the same bits); for cropnerf
    (the hash-grid field, the CLI default) the hash-grid encode K4 forward
    and backward at the field's and both proposal nets' shapes, a ragged N
-   and a small dense [L, T, F] table; the fused PE proposal nets K5
-   forward and backward (with dx and the weight gradients; the backward
-   is csrc/fused_pe_mlp_bwd.cu) at both nets'
-   training shapes and a ragged N; the transmittance scan K6 at a training
+   and a small dense [L, T, F] table (the forward bit for bit, over three
+   profiler windows, with the distinct 32-byte sectors its gathers touch
+   and their time at the rate a PyTorch index_select gathers 8-byte
+   rows, which the kernel beats: no floor); the fused PE proposal nets K5 forward and backward
+   (csrc/fused_pe_mlp_fwd.cu and csrc/fused_pe_mlp_bwd.cu; the backward
+   with dx and the weight gradients) at both nets' training shapes, a
+   ragged N and N < 64, each over three profiler windows, and the
+   forward's second route (the PE variant of csrc/fused_mlp.cu) at
+   cropnerf-mxu-q's 128-wide nets; the transmittance scan K6 at a training
    step's three compositing shapes, at [16384, 3000] and at a ragged shape,
    called through its own entry point with its launches counted (no model
    path calls it);
@@ -41,7 +46,8 @@ Run from the root of the repository:  python3 chip_smoke.py
    proposal updates (the proposal nets run without a graph), and K4's
    backward on the positions and cotangents of one training step's three
    calls (tools/hash_bwd_real_step.py captures them), against its plain
-   version and timed beside the uniform positions;
+   version and timed beside the uniform positions, and K4's forward on the
+   same positions, bit for bit, timed, with their sectors;
 5b. drives the BayesRays pass on the same bank ([uncertainty] lines): the
    Hessian at lod 8 over UNC_BATCHES batches of 4096 rays, semantics
    channel, for cropnerf-mxu (K2 and K3 forward and backward, dx only; then
@@ -182,9 +188,13 @@ FWD_PASSES = {"kernel": ("pe_field_fwd_kernel",)}
 HASH_BWD_PASSES = {"private": ("hash_private_kernel",),
                    "levels": ("hash_level_kernel",),
                    "dpos sum": ("hash_dpos_sum_kernel",)}
-# the PE proposal nets' backward (csrc/fused_pe_mlp_bwd.cu)
+# the PE proposal nets' backward (csrc/fused_pe_mlp_bwd.cu) and forward
+# (csrc/fused_pe_mlp_fwd.cu)
 PE_MLP_BWD_PASSES = {"kernel": ("pe_mlp_bwd_kernel",),
                      "sums": ("column_sum_kernel",)}
+PE_MLP_FWD_PASSES = {"kernel": ("pe_mlp_fwd_kernel",)}
+# the hash-grid encode's forward (csrc/hash_encode.cu)
+HASH_FWD_PASSES = {"kernel": ("hash_encode_fwd_kernel",)}
 BWD_WINDOWS = 3          # profiler windows per K1/K2 timing
 
 
@@ -354,24 +364,56 @@ def hash_path_shapes(cfg):
              m.proposal_fields[1].grid)]
 
 
-def rows_touched(pos, layout) -> int:
-    """Table rows that these positions read: the corners of their cells at
-    every level, each counted once (the data-dependent part of K4's
-    bytes)."""
+def corner_rows(pos, layout):
+    """Per level, the table rows [N, 8] of the 8 corners these positions
+    read, in corner order, as csrc/hash_encode.cu indexes them."""
     from cropnerf_tpu_torch.ops.hashgrid import _hash3
     res, offsets, dense, t = layout
-    rows = []
     for r, off, d in zip(res, offsets, dense):
         base = torch.floor(pos * r).long()
         if d:
             base = base.clamp(0, r - 1)
+        rows = []
         for corner in range(8):
             c = base + torch.tensor([corner & 1, (corner >> 1) & 1,
                                      (corner >> 2) & 1], device=pos.device)
             idx = ((c[:, 0] * (r + 1) + c[:, 1]) * (r + 1) + c[:, 2] if d
                    else _hash3(c[:, 0], c[:, 1], c[:, 2], t))
-            rows.append(torch.unique(off + idx))
-    return int(torch.unique(torch.cat(rows)).numel())
+            rows.append(off + idx)
+        yield torch.stack(rows, 1)
+
+
+def rows_touched(pos, layout) -> int:
+    """Table rows that these positions read: the corners of their cells at
+    every level, each counted once (the data-dependent part of K4's
+    bytes)."""
+    return int(torch.unique(torch.cat([torch.unique(rows) for rows in
+                                       corner_rows(pos, layout)])).numel())
+
+
+def lookup_sectors(pos, layout) -> int:
+    """The distinct 32-byte sectors of the table that the 8 corner gathers
+    of each (position, level) touch, summed over the positions and levels
+    (a sector holds 4 aligned 8-byte rows; the table starts 32-byte
+    aligned): K4 forward's gathers at one sector per distinct sector."""
+    total = 0
+    for rows in corner_rows(pos, layout):
+        sec = torch.sort(rows >> 2, dim=1).values
+        total += int(sec.shape[0] + (sec[:, 1:] != sec[:, :-1]).sum())
+    return total
+
+
+def gather_rate(table2d, n: int = 1 << 24) -> float:
+    """The card's rate of random 8-byte row gathers, sectors a second: a
+    PyTorch index_select of n uniform random rows of ``table2d`` seen as
+    one float64 a row (a thread a row, each gather a sector of its own;
+    the int32 indices and the output streamed besides), timed over one
+    profiler window."""
+    g = torch.Generator(device=table2d.device).manual_seed(17)
+    idx = torch.randint(0, table2d.shape[0], (n,), generator=g,
+                        device=table2d.device, dtype=torch.int32)
+    rows = table2d.view(torch.float64).reshape(-1)
+    return n / (device_ms(lambda: rows.index_select(0, idx), 10) * 1e-3)
 
 
 def hash_kernels(cfg, dev, card, report: str) -> dict:
@@ -390,7 +432,7 @@ def hash_kernels(cfg, dev, card, report: str) -> dict:
         ("small dense [L,T,F] table", 1000,
          dataclasses.replace(field_grid, num_levels=4, log2_hashmap_size=12,
                              min_res=4, max_res=32, layout="dense"))]
-    per = {}
+    per, rate = {}, None
     for label, n, gc in cases:
         res = hg.level_resolutions(gc.num_levels, gc.min_res, gc.max_res)
         t = 2 ** gc.log2_hashmap_size
@@ -427,6 +469,7 @@ def hash_kernels(cfg, dev, card, report: str) -> dict:
         (dt, dp), (dt_ref, dp_ref) = kb(), pb()
         k = dict(n=n, levels=len(res), rows=table2d.shape[0],
                  dense_levels=sum(dense), layout=gc.layout,
+                 group=kh.level_group(len(res)),
                  fwd_err=rel_err(out, ref), fwd_abs=abs_err(out, ref),
                  fwd_bitwise=bool(torch.equal(out, ref)),
                  dtable_err=rel_err(dt, dt_ref), dtable_abs=abs_err(dt, dt_ref),
@@ -437,17 +480,22 @@ def hash_kernels(cfg, dev, card, report: str) -> dict:
             f"{k['fwd_err']:.2e} (bit-identical {k['fwd_bitwise']}), dtable "
             f"{k['dtable_err']:.2e}, dpos {k['dpos_err']:.2e} (limits "
             f"{HASH_TOL}, {HASH_TOL}, {DPOS_TOL})")
-        check(k["fwd_err"] <= HASH_TOL and k["dtable_err"] <= HASH_TOL
+        check(k["fwd_bitwise"] and k["dtable_err"] <= HASH_TOL
               and k["dpos_err"] <= DPOS_TOL,
               f"hash_encode {label} disagrees with its plain version")
         if (label, n, gc) in path:
             touched = rows_touched(pos, layout)
-            k.update(touched=touched,
-                     ms=device_ms(kf, 20, KERNEL_NS), call_ms=cuda_ms(kf, 20),
+            if rate is None:                 # on the field's table
+                rate = gather_rate(table2d)
+            k.update(touched=touched, sectors=lookup_sectors(pos, layout),
+                     fwd_passes=pass_ms(kf, 20, HASH_FWD_PASSES),
+                     call_ms=cuda_ms(kf, 20),
                      plain_ms=device_ms(pf, 3),
                      bwd_passes=pass_ms(kb, 10, HASH_BWD_PASSES),
                      bwd_call_ms=cuda_ms(kb, 10), bwd_plain_ms=device_ms(pb, 3))
+            k["ms"] = k["fwd_passes"]["total"]["median"]
             k["bwd_ms"] = k["bwd_passes"]["total"]["median"]
+            k["sectors_at_index_select_rate_ms"] = k["sectors"] / rate * 1e3
             # each input read once (of the table, the rows these positions
             # touch), each output written once (the whole table gradient)
             fwd_bytes = nbytes(pos, out) + touched * 8
@@ -460,10 +508,16 @@ def hash_kernels(cfg, dev, card, report: str) -> dict:
                 whole_table_bound_ms=nbytes(pos, out, table2d)
                 / PEAK_BYTES * 1e3)
             log(f"[kernel] hash_encode {label}: forward {k['ms']:.4f} ms "
-                f"(call {k['call_ms']:.4f}), plain {k['plain_ms']:.4f} ms, "
-                f"bound {k['bound_ms']:.4f} ms (bytes; {touched} of "
+                f"(call {k['call_ms']:.4f}; {k['group']} levels a thread; "
+                f"over {BWD_WINDOWS} windows, median (min-max): "
+                f"{fmt_passes(k['fwd_passes'])}), plain {k['plain_ms']:.4f} "
+                f"ms, bound {k['bound_ms']:.4f} ms (bytes; {touched} of "
                 f"{k['rows']} rows read; with the whole table read "
-                f"{k['whole_table_bound_ms']:.4f} ms); backward "
+                f"{k['whole_table_bound_ms']:.4f} ms); gathers "
+                f"{k['sectors'] / (n * len(res)):.3f} distinct 32-byte "
+                f"sectors a (position, level), {k['sectors']} in all: "
+                f"{k['sectors_at_index_select_rate_ms']:.4f} ms at "
+                f"index_select's gather rate {rate:.4e} sectors/s; backward "
                 f"{k['bwd_ms']:.4f} ms (call with the zeroed gradient "
                 f"{k['bwd_call_ms']:.4f}; by pass over {BWD_WINDOWS} windows, "
                 f"median (min-max): {fmt_passes(k['bwd_passes'])}), plain "
@@ -484,6 +538,11 @@ def hash_kernels(cfg, dev, card, report: str) -> dict:
             common, replaces="cropnerf_tpu/ops/pallas/hash_encode.py:35",
             shape=f"one cropnerf train step's three encodes: {shape}",
             ms=sum(k["ms"] for k in timed),
+            ms_min=sum(k["fwd_passes"]["total"]["min"] for k in timed),
+            ms_max=sum(k["fwd_passes"]["total"]["max"] for k in timed),
+            gather_rate=rate,
+            sectors_at_index_select_rate_ms=sum(k["sectors_at_index_select_rate_ms"] for k in timed),
+            fwd_bitwise=all(k["fwd_bitwise"] for k in per.values()),
             call_ms=sum(k["call_ms"] for k in timed),
             plain_ms=sum(k["plain_ms"] for k in timed),
             bound_ms=sum(k["bound_ms"] for k in timed),
@@ -637,13 +696,14 @@ def hash_serving(dev, card, rb, cams, aabb, out_dir, kernels):
     return info, steps["forward"]
 
 
-def hash_training(dev, card, bank, kernels):
+def hash_training(dev, card, bank, kernels, rate):
     """cropnerf training at 4096 rays on the resident bank: one step on the
     kernel path against the plain path, a first step and TRAIN_STEPS timed
     steps (all proposal-update steps: 3 forward and 3 backward encodes
     each), then one step between proposal updates (3 forward, 1 backward)
-    and the peak memory of an update step.  Returns (numbers for the JSON
-    line, the step call for the trace)."""
+    and the peak memory of an update step; K4 on one step's own inputs
+    (``hash_real_step``, sectors timed at index_select's gather rate
+    ``rate``).  Returns (numbers for the JSON line, the step call for the trace)."""
     from cropnerf_tpu_torch.models.config import PRESETS
     from cropnerf_tpu_torch.train.state import create_train_state
     from cropnerf_tpu_torch.train.step import (_prop_update_bool,
@@ -677,7 +737,7 @@ def hash_training(dev, card, bank, kernels):
         check(bool(torch.isfinite(g_k[k]).all()) and v <= GRAD_TOL,
               f"cropnerf train gradient {k}: {v:.3e}")
     del one, g_k, g_p
-    real_step = hash_bwd_real_step(bank, dev)
+    real_step = hash_real_step(bank, dev, rate)
 
     state = create_train_state(cfg, n_img, torch.Generator().manual_seed(0),
                                dev)
@@ -747,23 +807,45 @@ def hash_training(dev, card, bank, kernels):
             "launches": launches, "no_update_step_launches": frozen_launches,
             "vs_plain_loss_rel": abs(l_k - l_p) / abs(l_p),
             "vs_plain_grad_worst": [worst, leaf_err[worst]],
-            "hash_encode_bwd_real_step": real_step}
+            "hash_encode_real_step": real_step}
     return info, run_train
 
 
-def hash_bwd_real_step(bank, dev) -> dict:
-    """K4's backward on the positions and cotangents of one cropnerf
-    training step (tools/hash_bwd_real_step.py captures them): each call
-    against its plain version with a float64 table, and the device time of
-    the step's three calls."""
+def hash_real_step(bank, dev, rate) -> dict:
+    """K4 on the inputs of one cropnerf training step
+    (tools/hash_bwd_real_step.py captures them): the forward of each of
+    the step's three encodes bit for bit against its plain version, with
+    its sectors (their time at index_select's gather rate ``rate``); the
+    backward of each against its plain version with a float64 table; the
+    device time of the three calls of each."""
     from cropnerf_tpu_torch.ops import hashgrid as hg
     from cropnerf_tpu_torch.ops.cuda import hash_encode as kh
     from tools.hash_bwd_real_step import step_inputs
     captured = step_inputs(bank, dev)
-    check(len(captured) == 3, f"{len(captured)} hash_encode_bwd calls in a "
-          "cropnerf training step, expected 3")
+    check(len(captured["fwd"]) == 3 and len(captured["bwd"]) == 3,
+          f"{len(captured['fwd'])} hash_encode and {len(captured['bwd'])} "
+          "hash_encode_bwd calls in a cropnerf training step, expected 3 each")
+    fwd_calls = []
+    for table2d, pos, layout in captured["fwd"]:
+        res, offsets, dense, t = layout
+        with torch.no_grad():
+            out = kh.hash_encode_fwd(table2d, pos, *layout)
+            ref = hg.hashgrid_encode_plain(table2d, pos, res, table_size=t)
+        sectors = lookup_sectors(pos, layout)
+        c = dict(n=pos.shape[0], levels=len(res),
+                 bitwise=bool(torch.equal(out, ref)), sectors=sectors,
+                 sectors_per_lookup=sectors / (pos.shape[0] * len(res)),
+                 sectors_at_index_select_rate_ms=sectors / rate * 1e3,
+                 passes=pass_ms(lambda: kh.hash_encode_fwd(table2d, pos,
+                                                           *layout), 20,
+                                HASH_FWD_PASSES))
+        c["ms"] = c["passes"]["total"]["median"]
+        check(c["bitwise"], f"hash_encode on a training step's inputs "
+              f"differs from its plain version: {c}")
+        fwd_calls.append(c)
+        del out, ref
     calls = []
-    for table2d, pos, cot, layout in captured:
+    for table2d, pos, cot, layout in captured["bwd"]:
         res, offsets, dense, t = layout
         dt, dp = kh.hash_encode_bwd(table2d, pos, cot, *layout)
         tt = table2d.double().requires_grad_(True)
@@ -781,9 +863,15 @@ def hash_bwd_real_step(bank, dev) -> dict:
               f"hash_encode_bwd on a training step's inputs: {c}")
         calls.append(c)
         del tt, tp, dt, dp
-    return {"calls": calls, "ms": sum(c["ms"] for c in calls),
-            "ms_min": sum(c["passes"]["total"]["min"] for c in calls),
-            "ms_max": sum(c["passes"]["total"]["max"] for c in calls)}
+
+    def total(cs):
+        return {"calls": cs, "ms": sum(c["ms"] for c in cs),
+                "ms_min": sum(c["passes"]["total"]["min"] for c in cs),
+                "ms_max": sum(c["passes"]["total"]["max"] for c in cs)}
+
+    fwd = total(fwd_calls)
+    fwd["sectors_at_index_select_rate_ms"] = sum(c["sectors_at_index_select_rate_ms"] for c in fwd_calls)
+    return {"fwd": fwd, "bwd": total(calls)}
 
 
 # ---- the BayesRays slice: K2 and K3 backward, the [uncertainty] phase ------
@@ -1185,26 +1273,37 @@ def all_plain_cfg(cfg):
                               for p in m.proposal_fields)))
 
 
-def pe_mlp_entries(cfg, dev, card, report, bwd_report) -> dict:
-    """K5 forward (the PE variant of csrc/fused_mlp.cu) and backward
-    (csrc/fused_pe_mlp_bwd.cu) against the plain version at one cropnerf-mxu training step's shapes of
-    both proposal nets (4096 rays x 256 and x 96 samples) and a ragged N;
-    the backward with dx and the weight gradients, the variant the training
-    step runs (its samples carry the camera-opt graph).  Each entry's ms,
-    plain ms and bound are the two nets' summed: one training step's
-    calls."""
+def pe_mlp_entries(cfg, dev, card, reports, kernels) -> dict:
+    """K5 forward (csrc/fused_pe_mlp_fwd.cu) and backward
+    (csrc/fused_pe_mlp_bwd.cu) against the plain version at one
+    cropnerf-mxu training step's shapes of both proposal nets (4096 rays x
+    256 and x 96 samples), a ragged N and N < 64; the backward with dx and
+    the weight gradients, the variant the training step runs (its samples
+    carry the camera-opt graph).  Each entry's ms, plain ms and bound are
+    the two nets' summed: one training step's calls; the kernels' times
+    are the median of BWD_WINDOWS profiler windows.  Then the forward's
+    second route (pe_mlp_fwd_route "wmma": the PE variant of
+    csrc/fused_mlp.cu) at cropnerf-mxu-q's 128-wide nets, with its own
+    launch count."""
+    from cropnerf_tpu_torch.models.config import PRESETS
     from cropnerf_tpu_torch.models.proposal import proposal_init
     from cropnerf_tpu_torch.ops.cuda import fused_pe_field as kf
     m, R = cfg.model, cfg.train_num_rays_per_batch
     g = torch.Generator(device=dev).manual_seed(13)
+
+    def net(p, seed):
+        prop = proposal_init(p, torch.Generator().manual_seed(seed), dev)
+        return [t.detach() for w, b in zip(prop.mlp.w, prop.mlp.b)
+                for t in (w, b.reshape(1, -1))]
+
     per = {}
     for i, (p, smp) in enumerate(zip(m.proposal_fields,
                                      m.num_proposal_samples_per_ray)):
         n, F = R * smp, p.pe_freqs
-        prop = proposal_init(p, torch.Generator().manual_seed(i), dev)
-        wd = [t.detach() for w, b in zip(prop.mlp.w, prop.mlp.b)
-              for t in (w, b.reshape(1, -1))]
+        wd = net(p, i)
         dims = [3 * (1 + 2 * F)] + [w.shape[1] for w in wd[0::2]]
+        check(kf.pe_mlp_fwd_route(3, F, dims[1:]) == "wgmma",
+              f"proposal net {i} {dims} is not on the wgmma route")
         x_all = torch.rand((n, 3), generator=g, device=dev) * 2 - 1
         cot_all = torch.randn((n, 1), generator=g, device=dev)
 
@@ -1228,7 +1327,7 @@ def pe_mlp_entries(cfg, dev, card, report, bwd_report) -> dict:
                 return list(torch.autograd.grad(out, leaves, cot))
 
         cases = {}
-        for nc in (n, n - 77):
+        for nc in (n, n - 77, 50):
             xb, cot = x_all[:nc].contiguous(), cot_all[:nc].contiguous()
             out, ref = fwd(xb), plain_fwd(xb)
             got_g, ref_g = bwd(xb, cot), plain_bwd(xb, cot)
@@ -1238,7 +1337,8 @@ def pe_mlp_entries(cfg, dev, card, report, bwd_report) -> dict:
                 fwd_err=rel_err(out, ref), fwd_abs=abs_err(out, ref),
                 rows=share, dx_l2=l2, w_err=w_err, w_l2=w_l2,
                 bwd_abs=max(abs_err(a, b) for a, b in zip(got_g, ref_g)))
-            check(c["fwd_err"] <= TOL, f"fused_pe_mlp net {i} N={nc}: "
+            check(out.shape == (nc, 1) and bool(torch.isfinite(out).all())
+                  and c["fwd_err"] <= TOL, f"fused_pe_mlp net {i} N={nc}: "
                   f"{c['fwd_err']:.2e}")
             check(share >= ROW_SHARE and l2 <= GRAD_TOL
                   and weight_grads_ok(w_err, w_l2, nc),
@@ -1255,13 +1355,14 @@ def pe_mlp_entries(cfg, dev, card, report, bwd_report) -> dict:
         macs = mlp_macs(dims)
         hidden = macs - dims[-2] * dims[-1]
         k = dict(n=n, num_freqs=F, dims=dims, cases=cases,
-                 ms=device_ms(lambda: fwd(xb), 20, KERNEL_NS),
+                 fwd_passes=pass_ms(lambda: fwd(xb), 20, PE_MLP_FWD_PASSES),
                  call_ms=cuda_ms(lambda: fwd(xb), 20),
                  plain_ms=device_ms(lambda: plain_fwd(xb), 5),
                  bwd_passes=pass_ms(lambda: bwd(xb, cot), 10,
                                     PE_MLP_BWD_PASSES),
                  bwd_call_ms=cuda_ms(lambda: bwd(xb, cot), 10),
                  bwd_plain_ms=device_ms(lambda: plain_bwd(xb, cot), 5))
+        k["ms"] = k["fwd_passes"]["total"]["median"]
         k["bwd_ms"] = k["bwd_passes"]["total"]["median"]
         # tensor-core products only (the encoding's sin/cos are ~30
         # transcendentals a row against ~6,300 multiply-adds); the backward
@@ -1277,37 +1378,85 @@ def pe_mlp_entries(cfg, dev, card, report, bwd_report) -> dict:
             + ", ".join(f"{c_}: fwd {v['fwd_err']:.2e}, dx rows {v['rows']:.5f}"
                         f"/L2 {v['dx_l2']:.2e}, weights {v['w_err']:.2e}/L2 "
                         f"{v['w_l2']:.2e}" for c_, v in cases.items())
-            + f"; forward {k['ms']:.4f} ms (call {k['call_ms']:.4f}), plain "
-            f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
-            f"({k['bound_by']}); backward with dx and dW {k['bwd_ms']:.4f} ms "
-            f"(call {k['bwd_call_ms']:.4f}; by pass over {BWD_WINDOWS} "
-            f"windows, median (min-max): {fmt_passes(k['bwd_passes'])}), "
-            f"plain {k['bwd_plain_ms']:.4f} ms, "
-            f"bound {k['bwd_bound_ms']:.4f} ms ({k['bwd_bound_by']}); {card}")
+            + f"; forward {k['ms']:.4f} ms (call {k['call_ms']:.4f}; over "
+            f"{BWD_WINDOWS} windows, median (min-max): "
+            f"{fmt_passes(k['fwd_passes'])}), plain {k['plain_ms']:.4f} ms, "
+            f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}); backward with "
+            f"dx and dW {k['bwd_ms']:.4f} ms (call {k['bwd_call_ms']:.4f}; by "
+            f"pass over {BWD_WINDOWS} windows, median (min-max): "
+            f"{fmt_passes(k['bwd_passes'])}), plain {k['bwd_plain_ms']:.4f} "
+            f"ms, bound {k['bwd_bound_ms']:.4f} ms ({k['bwd_bound_by']}); "
+            f"{card}")
         del x_all, cot_all
-    regs = {e: r for e, r in ptxas_registers(report).items() if "Lb1E" in e}
-    bwd_regs = ptxas_registers(bwd_report)
-    bwd_spills = ptxas_spills(bwd_report)
-    log(f"[build] fused_mlp registers of the PE variant (fused_pe_mlp) "
-        f"{regs}; fused_pe_mlp_bwd registers {bwd_regs}, spill bytes "
-        f"{bwd_spills}")
+
+    # the second route: cropnerf-mxu-q's 128-wide proposal nets
+    mq = PRESETS["cropnerf-mxu-q"].model
+    wide = {}
+    for i, p in enumerate(mq.proposal_fields):
+        n, F = R * mq.num_proposal_samples_per_ray[i], p.pe_freqs
+        wd = net(p, i)
+        dims = [3 * (1 + 2 * F)] + [w.shape[1] for w in wd[0::2]]
+        check(kf.pe_mlp_fwd_route(3, F, dims[1:]) == "wmma",
+              f"cropnerf-mxu-q net {i} {dims} is not on the wmma route")
+        xb = torch.rand((n, 3), generator=g, device=dev) * 2 - 1
+        res = {}
+        launches = counted(kernels, lambda: res.update(
+            out=kf.fused_pe_mlp(xb, wd, F).detach()))
+        with torch.no_grad():
+            ref = kf.fused_pe_mlp_plain(xb, wd, F)
+            ragged = rel_err(kf.fused_pe_mlp(xb[:n - 77], wd, F),
+                             kf.fused_pe_mlp_plain(xb[:n - 77], wd, F))
+        wide[f"net {i}"] = w = dict(
+            n=n, dims=dims, launches=launches,
+            rel_err=rel_err(res["out"], ref),
+            ragged_rel_err=ragged,
+            ms=device_ms(lambda: kf.fused_pe_mlp(xb, wd, F).detach(), 10,
+                         KERNEL_NS),
+            plain_ms=device_ms(lambda: kf.fused_pe_mlp_plain(xb, wd, F), 5))
+        w["bound_ms"], w["bound_by"] = bound(2.0 * n * mlp_macs(dims),
+                                             nbytes(xb, *wd) + n * 4)
+        want = {k_.__name__: 0 for k_ in kernels}
+        want["fused_pe_mlp_wide"] = 1
+        log(f"[kernel] fused_pe_mlp second route (wmma, csrc/fused_mlp.cu) "
+            f"cropnerf-mxu-q net {i} [{n},3] -> {'->'.join(map(str, dims))}: "
+            f"err {w['rel_err']:.2e} (ragged {ragged:.2e}), {w['ms']:.4f} ms, "
+            f"plain {w['plain_ms']:.4f} ms, bound {w['bound_ms']:.4f} ms "
+            f"({w['bound_by']}), launches {launches}; {card}")
+        check(launches == want and w["rel_err"] <= TOL and ragged <= TOL,
+              f"fused_pe_mlp second route net {i}: {w}")
+    regs = ptxas_registers(reports["fused_pe_mlp_fwd"])
+    spills = ptxas_spills(reports["fused_pe_mlp_fwd"])
+    wide_regs = {e: r for e, r in ptxas_registers(reports["fused_mlp"]).items()
+                 if "Lb1E" in e}
+    bwd_regs = ptxas_registers(reports["fused_pe_mlp_bwd"])
+    bwd_spills = ptxas_spills(reports["fused_pe_mlp_bwd"])
+    log(f"[build] fused_pe_mlp_fwd registers {regs}, spill bytes {spills}; "
+        f"second route (fused_mlp PE variant) registers {wide_regs}; "
+        f"fused_pe_mlp_bwd registers {bwd_regs}, spill bytes {bwd_spills}")
+    check(all(v == 0 for v in spills.values()),
+          f"fused_pe_mlp_fwd spills {spills}")
     vals = list(per.values())
     shape = " and ".join(f"{name} x [{k['n']},3] -> "
                          f"{'->'.join(map(str, k['dims']))}"
                          for name, k in per.items())
     return {
         "fused_pe_mlp": dict(
-            source="cropnerf_tpu_torch/csrc/fused_mlp.cu", by_net=per,
-            registers=regs,
+            source="cropnerf_tpu_torch/csrc/fused_pe_mlp_fwd.cu", by_net=per,
+            registers=regs, spill_bytes=spills,
             replaces="cropnerf_tpu/ops/pallas/fused_pe_field.py:822",
             shape=f"one training step's two proposal nets: {shape}",
             ms=sum(k["ms"] for k in vals),
+            ms_min=sum(k["fwd_passes"]["total"]["min"] for k in vals),
+            ms_max=sum(k["fwd_passes"]["total"]["max"] for k in vals),
             call_ms=sum(k["call_ms"] for k in vals),
             plain_ms=sum(k["plain_ms"] for k in vals),
             bound_ms=sum(k["bound_ms"] for k in vals), bound_by="operations",
             rel_err=max(c["fwd_err"] for k in vals for c in k["cases"].values()),
             max_abs_err=max(c["fwd_abs"] for k in vals
-                            for c in k["cases"].values())),
+                            for c in k["cases"].values()),
+            second_route=dict(
+                route="wmma", source="cropnerf_tpu_torch/csrc/fused_mlp.cu",
+                registers=wide_regs, by_net=wide)),
         "fused_pe_mlp_bwd": dict(
             source="cropnerf_tpu_torch/csrc/fused_pe_mlp_bwd.cu", by_net=per,
             registers=bwd_regs, spill_bytes=bwd_spills,
@@ -1600,8 +1749,8 @@ def main() -> None:
                                                        fused_mlp_plain)
     from cropnerf_tpu_torch.ops.cuda.fused_pe_field import (
         fused_pe_density, fused_pe_density_bwd, fused_pe_density_plain,
-        fused_pe_mlp, fused_pe_mlp_bwd, fused_pe_nerf, fused_pe_nerf_bwd,
-        fused_pe_nerf_plain)
+        fused_pe_mlp, fused_pe_mlp_bwd, fused_pe_mlp_wide, fused_pe_nerf,
+        fused_pe_nerf_bwd, fused_pe_nerf_plain)
     from cropnerf_tpu_torch.ops.cuda.transmittance import render_weights_cuda
     from cropnerf_tpu_torch.ops.posenc import nerf_encoding
     from cropnerf_tpu_torch.train.step import make_render_fn
@@ -1889,8 +2038,6 @@ def main() -> None:
         reports["fused_mlp"])
     hash_k = hash_kernels(PRESETS["cropnerf"], dev, card,
                           reports["hash_encode"])
-    pe_k = pe_mlp_entries(cfg, dev, card, reports["fused_mlp"],
-                          reports["fused_pe_mlp_bwd"])
 
     # ---- 4. the serving path ----------------------------------------------
     d = torch.randn((RAYS, 3), generator=torch.Generator().manual_seed(1))
@@ -1991,7 +2138,9 @@ def main() -> None:
               f"export {k}: {counts[k]} points vs plain {counts_p[k]}")
 
     all_kernels = path_kernels + (hash_encode, hash_encode_bwd, fused_pe_mlp,
-                                  fused_pe_mlp_bwd, render_weights_cuda)
+                                  fused_pe_mlp_wide, fused_pe_mlp_bwd,
+                                  render_weights_cuda)
+    pe_k = pe_mlp_entries(cfg, dev, card, reports, all_kernels)
     k6 = transmittance_entry(dev, card, all_kernels)
     hash_path, hash_forward = hash_serving(dev, card, rb, cams, aabb, out_dir,
                                            all_kernels)
@@ -2081,16 +2230,32 @@ def main() -> None:
         f"{train_peak:.2f} GiB; loss {loss_now:.5f}, "
         f"psnr {metrics['psnr'].item():.3f}; eval batch {eval_m}; {card}")
     steps["train step"] = run_train
-    hash_train, hash_step = hash_training(dev, card, bank, all_kernels)
-    real = hash_train["hash_encode_bwd_real_step"]
-    hash_k["hash_encode_bwd"]["real_step"] = real
+    hash_train, hash_step = hash_training(
+        dev, card, bank, all_kernels, hash_k["hash_encode"]["gather_rate"])
+    real = hash_train["hash_encode_real_step"]
+    hash_k["hash_encode"]["real_step"] = real_f = real["fwd"]
+    hash_k["hash_encode_bwd"]["real_step"] = real_b = real["bwd"]
+    log(f"[kernel] hash_encode, one cropnerf training step's three calls: "
+        f"{hash_k['hash_encode']['ms']:.4f} ms on uniform positions, "
+        f"{real_f['ms']:.4f} ms ({real_f['ms_min']:.4f}-"
+        f"{real_f['ms_max']:.4f}) on the step's own ("
+        + ", ".join(f"[{c['n']},3] x {c['levels']} levels {c['ms']:.4f} ms, "
+                    f"bit-identical {c['bitwise']}, "
+                    f"{c['sectors_per_lookup']:.3f} sectors a lookup, "
+                    f"{c['sectors_at_index_select_rate_ms']:.4f} ms at "
+                    "index_select's gather rate" for c in real_f["calls"])
+        + f"); its sectors at index_select's gather rate "
+        f"{real_f['sectors_at_index_select_rate_ms']:.4f} ms against "
+        f"{hash_k['hash_encode']['sectors_at_index_select_rate_ms']:.4f} ms "
+        f"on uniform positions (no floor: the kernel moves sectors faster); "
+        f"{card}")
     log(f"[kernel] hash_encode_bwd, one cropnerf training step's three "
         f"calls: {hash_k['hash_encode_bwd']['ms']:.4f} ms on uniform "
-        f"positions, {real['ms']:.4f} ms ({real['ms_min']:.4f}-"
-        f"{real['ms_max']:.4f}) on the step's own ("
+        f"positions, {real_b['ms']:.4f} ms ({real_b['ms_min']:.4f}-"
+        f"{real_b['ms_max']:.4f}) on the step's own ("
         + ", ".join(f"[{c['n']},3] x {c['levels']} levels {c['ms']:.4f} ms, "
                     f"err dtable {c['dtable_err']:.2e} dpos "
-                    f"{c['dpos_err']:.2e}" for c in real["calls"])
+                    f"{c['dpos_err']:.2e}" for c in real_b["calls"])
         + f"); {card}")
     steps["cropnerf forward"] = hash_forward
     steps["cropnerf train step"] = hash_step
@@ -2157,7 +2322,10 @@ def main() -> None:
         call_ms=k["call_ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
         bound_by=k["bound_by"], library_ms=None, shape=k["shape"], card=card,
         by_shape=k["by_shape"],
-        **{key: k[key] for key in ("real_step",) if key in k})
+        **{key: k[key] for key in ("real_step", "ms_min", "ms_max",
+                                   "gather_rate",
+                                   "sectors_at_index_select_rate_ms",
+                                   "fwd_bitwise") if key in k})
         for name, k in hash_k.items()] + [dict(
         name=name, route="cuda", source=k["source"], replaces=k["replaces"],
         launches=pf_info["train"]["launches"][name],
@@ -2170,7 +2338,8 @@ def main() -> None:
         call_ms=k["call_ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
         bound_by=k["bound_by"], library_ms=None, shape=k["shape"], card=card,
         registers=k["registers"], by_net=k["by_net"],
-        **{key: k[key] for key in ("spill_bytes",) if key in k})
+        **{key: k[key] for key in ("spill_bytes", "ms_min", "ms_max",
+                                   "second_route") if key in k})
         for name, k in pe_k.items()] + [dict(
         name="render_weights_cuda", route="cuda", source=k6["source"],
         replaces=k6["replaces"], launches=k6["launches"],

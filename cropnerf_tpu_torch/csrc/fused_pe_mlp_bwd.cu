@@ -49,35 +49,23 @@
 // and the SM count alone, so two runs give the same bits.  Rows past N load
 // zero x and zero cotangents, so they add nothing.
 #include "bwd_layers.cuh"
-#include "wgmma_layers.cuh"
+#include "pe_mlp.cuh"
 
 namespace cropnerf {
 namespace pemlp {
 
 constexpr int WGS = 3;                 // warpgroups a block
 constexpr int THREADS = 128 * WGS;
-constexpr int ROWS = 64;               // rows of a tile (a warpgroup's)
-constexpr int HW = 64;                 // hidden width, padded
-constexpr int OW = 16;                 // output width, padded
-constexpr int DIM = 3;                 // coordinates of x
-constexpr int ENC_MAX = 64;            // encoding columns, padded
 constexpr int DLD = ENC_MAX + 4;       // row stride of the derivative tile
-constexpr int CHUNK = 512;             // elements of an 8-column chunk
-constexpr int TILE_BYTES = ROWS * HW * 2;
 constexpr int GL_BYTES = ROWS * OW * 2;
-
-__host__ __device__ constexpr int al128(int b) { return (b + 127) & ~127; }
 
 // Everything the layout of a net with NL layers fixes: the weight images
 // (forward images of every layer, then input-gradient images), the biases,
 // the packed gradient rows and the shared memory.
 template <int NL>
-struct Geo {
-  __host__ __device__ static constexpr int width(int l) { return l == NL - 1 ? OW : HW; }
-  __host__ __device__ static constexpr int w_off(int l) { return l * HW * HW; }  // [HW, width]
-  __host__ __device__ static constexpr int b_off(int l) { return l * HW; }
-  static constexpr int TOTAL_W = (NL - 1) * HW * HW + HW * OW;
-  static constexpr int TOTAL_B = (NL - 1) * HW + OW;
+struct Geo : Net<NL> {
+  static constexpr int TOTAL_W = Net<NL>::TOTAL_W;
+  static constexpr int TOTAL_B = Net<NL>::TOTAL_B;
   static constexpr int IMG_BYTES = 2 * TOTAL_W * 2;
   static constexpr int BIAS_AT = IMG_BYTES;
   static constexpr int WG_AT = al128(IMG_BYTES + TOTAL_B * 4);
@@ -91,32 +79,6 @@ struct Geo {
 };
 static_assert(Geo<3>::SMEM <= 232448, "shared memory");
 static_assert(ROWS * HW * 4 <= Geo<2>::BACC_AT, "the reduction's staging tile");
-
-// Element (r, c) of a chunk-major 64-row tile.
-__device__ __forceinline__ int cm(int r, int c) { return (c >> 3) * CHUNK + r * 8 + (c & 7); }
-
-struct Lane {
-  int t, wg, warp, lane, r0, cq;
-  __device__ Lane() {
-    t = threadIdx.x & 127;
-    wg = threadIdx.x >> 7;
-    warp = t >> 5;
-    lane = t & 31;
-    r0 = warp * 16 + (lane >> 2);
-    cq = 2 * (lane & 3);
-  }
-};
-
-// acc (=) A·B: A a chunk-major 64-row tile (K-major), B a weight image of N
-// columns (K-major core matrices), k < K.
-template <int N>
-__device__ __forceinline__ void mma_k(float (&acc)[N / 2], uint32_t a, uint32_t b, int K) {
-  for (int k = 0; k < K; k += 16) {
-    const uint64_t da = gmma_desc(a + (k >> 3) * 1024, 1024, 128);
-    const uint64_t db = gmma_desc(b + (k >> 3) * N * 16, N * 16, 128);
-    Wgmma<N, 0, 0>::mma(acc, da, db, k > 0 ? 1 : 0);
-  }
-}
 
 // dw += Aᵀ·G over the tile's 64 rows: A [64 rows, 64 columns] and G [64
 // rows, N columns] chunk-major, both MN-major operands.

@@ -17,11 +17,22 @@
 // Bound on an H100: memory.  A call moves its positions, its output and
 // at most the whole table once (the cropnerf field: 6.1 M rows, 49 MB), and
 // does ~30 flops a corner; in practice the random 8-byte gathers cost a
-// 32-byte sector each.  The design keeps every intermediate in registers
-// (no [N, 8, F] corner tensor in device memory, as the TPU kernel keeps it
-// out of HBM) and puts the level on the grid's y axis, like the Pallas grid
-// (L, N/TILE): blocks of one level run together, so its rows stay hot in
-// the 50 MB L2.
+// 32-byte sector each, about five distinct sectors a (position, level).
+// The design keeps every intermediate in registers (no [N, 8, F] corner
+// tensor in device memory, as the TPU kernel keeps it out of HBM).  A
+// thread encodes one position at a group of G neighbouring levels
+// (ops/cuda/hash_encode.py level_group: the whole row up to 8 levels, else
+// 4), reading the position once, with two levels' gathers in flight; the
+// group sits on the grid's y axis, so the blocks of one group run together
+// and its levels' rows stay hot in the 50 MB L2 (the field's table is
+// 49 MB).  The block stages its [256, G] results in shared memory and
+// stores them with neighbouring threads on neighbouring output addresses:
+// each 32-byte sector of the [N, L, 2] output is written whole by one
+// warp, where one thread per (position, level) wrote 8 bytes of 32
+// sectors in each store.  A dense level's z-neighbour corners share a
+// 16-byte load where they can (gather).  Positions that bunch along rays
+// (a training step's) gain most from the whole-row stores; uniform ones,
+// whose gathers miss more, from the paired loads.
 //
 // Rounding matches the plain PyTorch version (ops/hashgrid.py
 // hashgrid_encode_plain) operation for operation: scaled = pos * res with
@@ -57,6 +68,7 @@
 // The table gradient is not reproducible bit for bit (nor is XLA's
 // scatter-add); it agrees with the plain version to float32 rounding.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace cropnerf {
 
@@ -131,28 +143,101 @@ __device__ __forceinline__ void corner_terms(const Cell& c, int corner,
     t[d] = ((corner >> d) & 1) ? c.f[d] : __fsub_rn(1.0f, c.f[d]);
 }
 
-__global__ void __launch_bounds__(THREADS)
-hash_encode_fwd_kernel(const float* __restrict__ pos,
-                       const float2* __restrict__ table,
-                       const long long* __restrict__ levels, int n_levels,
-                       unsigned mask, float2* __restrict__ out, long long n) {
-  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= n) return;
-  const int l = blockIdx.y;
-  const Level lv = load_level(levels, l);
-  const float p[3] = {pos[3 * i], pos[3 * i + 1], pos[3 * i + 2]};
-  const Cell c = cell_of(p, lv);
+// One (position, level): its cell and its 8 corners' rows, gathered.  In a
+// dense level the corners that differ only in z (c and c + 4) are
+// neighbouring rows: one 16-byte load takes both when the first starts a
+// 16-byte boundary, else it takes the first and an 8-byte load the second
+// (no branch, so all of a lookup's loads go out together).  A hashed
+// level's corners are 8 separate 8-byte loads (pairing them there, where
+// only some x-pairs are neighbours, measured slower).
+struct Lookup {
+  Cell c;
+  float2 v[8];
+};
+
+__device__ __forceinline__ float2 lo2(const float4& w) { return make_float2(w.x, w.y); }
+__device__ __forceinline__ float2 hi2(const float4& w) { return make_float2(w.z, w.w); }
+
+__device__ __forceinline__ Lookup gather(const float p[3], const float2* __restrict__ table,
+                                         const Level& lv, unsigned mask) {
+  Lookup k;
+  k.c = cell_of(p, lv);
+  if (lv.dense) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float2* ra = table + corner_row(k.c, q, lv, mask);  // corner q + 4 at ra + 1
+      const uintptr_t a = reinterpret_cast<uintptr_t>(ra);
+      const bool at16 = (a & 15) == 0;
+      // the 16 bytes holding row ra: rows ra, ra + 1, or ra - 1, ra (inside
+      // the table's allocation, which starts 256-byte aligned, even for a
+      // table that starts 8 bytes past a 16-byte boundary)
+      const float4 w = __ldg(reinterpret_cast<const float4*>(a & ~(uintptr_t)15));
+      k.v[q] = at16 ? lo2(w) : hi2(w);
+      float2 up = hi2(w);
+      if (!at16) up = __ldg(ra + 1);
+      k.v[q + 4] = up;
+    }
+  } else {
+#pragma unroll
+    for (int corner = 0; corner < 8; ++corner)
+      k.v[corner] = __ldg(table + corner_row(k.c, corner, lv, mask));
+  }
+  return k;
+}
+
+// The corners blended in order 0..7 with weights (tx·ty)·tz.
+__device__ __forceinline__ float2 blend(const Lookup& k) {
   float ax = 0.0f, ay = 0.0f;
 #pragma unroll
   for (int corner = 0; corner < 8; ++corner) {
     float t[3];
-    corner_terms(c, corner, t);
+    corner_terms(k.c, corner, t);
     const float w = __fmul_rn(__fmul_rn(t[0], t[1]), t[2]);
-    const float2 v = __ldg(table + corner_row(c, corner, lv, mask));
-    ax = __fadd_rn(ax, __fmul_rn(v.x, w));
-    ay = __fadd_rn(ay, __fmul_rn(v.y, w));
+    ax = __fadd_rn(ax, __fmul_rn(k.v[corner].x, w));
+    ay = __fadd_rn(ay, __fmul_rn(k.v[corner].y, w));
   }
-  out[i * n_levels + l] = make_float2(ax, ay);
+  return make_float2(ax, ay);
+}
+
+constexpr int MAX_GROUP = 16;
+
+// Shared memory of a block of the forward: its [THREADS, G] results at a
+// row stride of G | 1 float2, odd, so a warp's stores and loads spread
+// over the banks.
+__host__ __device__ inline int fwd_stage_stride(int group) { return group | 1; }
+
+// Position i = blockIdx.x·THREADS + threadIdx.x at levels l0 .. l0+nl-1 of
+// the group blockIdx.y.
+__global__ void __launch_bounds__(THREADS)
+hash_encode_fwd_kernel(const float* __restrict__ pos,
+                       const float2* __restrict__ table,
+                       const long long* __restrict__ levels, int n_levels,
+                       int group, unsigned mask, float2* __restrict__ out,
+                       long long n) {
+  extern __shared__ float2 stage[];
+  const long long i0 = (long long)blockIdx.x * THREADS;
+  const long long i = i0 + threadIdx.x;
+  const int l0 = blockIdx.y * group;
+  const int nl = min(group, n_levels - l0);
+  const int sp = fwd_stage_stride(group);
+  if (i < n) {
+    const float p[3] = {pos[3 * i], pos[3 * i + 1], pos[3 * i + 2]};
+    float2* mine = stage + threadIdx.x * sp;
+    int j = 0;
+    for (; j + 1 < nl; j += 2) {       // two levels' gathers in flight
+      const Lookup a = gather(p, table, load_level(levels, l0 + j), mask);
+      const Lookup b = gather(p, table, load_level(levels, l0 + j + 1), mask);
+      mine[j] = blend(a);
+      mine[j + 1] = blend(b);
+    }
+    if (j < nl) mine[j] = blend(gather(p, table, load_level(levels, l0 + j), mask));
+  }
+  __syncthreads();
+  const int rows = (int)min((long long)THREADS, n - i0);
+  for (int q = threadIdx.x; q < rows * nl; q += THREADS) {
+    const int r = q / nl, j = q - r * nl;
+    out[(i0 + r) * n_levels + l0 + j] = stage[r * sp + j];
+  }
 }
 
 // ---- backward -------------------------------------------------------------
@@ -360,19 +445,21 @@ static int launch_levels(const float* pos, const float2* t, const float2* g,
 
 }  // namespace cropnerf
 
-// Forward on `stream`: out [n, n_levels] float2.  Returns a cudaError_t
-// (0 on success).
+// Forward on `stream`: out [n, n_levels] float2, a thread per position and
+// group of `group` levels (1 to 16).  Returns a cudaError_t (0 on success).
 extern "C" int cropnerf_hash_encode_fwd(const float* pos, const void* table,
                                         const long long* levels, int n_levels,
-                                        unsigned mask, void* out, long long n,
-                                        void* stream) {
+                                        int group, unsigned mask, void* out,
+                                        long long n, void* stream) {
   using namespace cropnerf;
-  if (!valid(n_levels, n)) return (int)cudaErrorInvalidValue;
+  if (!valid(n_levels, n) || group < 1 || group > MAX_GROUP) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  const dim3 grid((unsigned)((n + THREADS - 1) / THREADS), (unsigned)n_levels);
-  hash_encode_fwd_kernel<<<grid, THREADS, 0,
+  const int groups = (n_levels + group - 1) / group;
+  const int smem = THREADS * fwd_stage_stride(group) * (int)sizeof(float2);
+  const dim3 grid((unsigned)((n + THREADS - 1) / THREADS), (unsigned)groups);
+  hash_encode_fwd_kernel<<<grid, THREADS, smem,
                            reinterpret_cast<cudaStream_t>(stream)>>>(
-      pos, reinterpret_cast<const float2*>(table), levels, n_levels, mask,
+      pos, reinterpret_cast<const float2*>(table), levels, n_levels, group, mask,
       reinterpret_cast<float2*>(out), n);
   return (int)cudaGetLastError();
 }

@@ -179,6 +179,48 @@ struct Wgmma<256, TA, TB> {
   }
 };
 
+// D[64 x N] (+)= A[64 x 16] · B[16 x N] with A in registers: each thread
+// holds four bf16 pairs of its rows r0 and r0 + 8 (the accumulator layout
+// above), a[0] (r0, k 2q..2q+1), a[1] (r0 + 8, the same), a[2] and a[3] the
+// same 8 columns on, q = t % 4.  So the f32 accumulator of a product with
+// 16 columns j, rounded in pairs, is the A operand of the next product
+// over those 16 values of k.  B as above (TB: 1 for MN-major).
+template <int N, int TB>
+struct WgmmaRA;
+
+template <int TB>
+struct WgmmaRA<16, TB> {
+  __device__ __forceinline__ static void mma(float (&d)[8], const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+  }
+};
+
+template <int TB>
+struct WgmmaRA<64, TB> {
+  __device__ __forceinline__ static void mma(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+  }
+};
+
 // ---- mbarriers and the bulk-copy engine ------------------------------------
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {

@@ -25,14 +25,18 @@ plain versions.
 
 ``fused_pe_mlp`` (the PE proposal nets with ``mlp_impl="pallas-fused"``:
 encode, then a narrow relu MLP to [N, 1]) launches, for tensors on the
-card, the PE variant of the fused MLP forward, ``csrc/fused_mlp.cu``
-(replacing ``_plain_fwd_kernel``), and its own recompute backward,
-``csrc/fused_pe_mlp_bwd.cu`` (replacing ``_plain_bwd_kernel``: persistent
-warpgroups on ``wgmma`` with the net resident in shared memory and the
-weight gradients held in registers; ``pe_mlp_images`` builds its weight
-images), and computes ``fused_pe_mlp_plain`` for tensors on the CPU.  The
-JAX selector argument ``s`` (zero gradient) has no counterpart: the
-kernels and the plain version build the encoding from the frequencies.
+card, its forward ``csrc/fused_pe_mlp_fwd.cu`` (replacing
+``_plain_fwd_kernel``) and its recompute backward
+``csrc/fused_pe_mlp_bwd.cu`` (replacing ``_plain_bwd_kernel``): both
+persistent warpgroups on ``wgmma`` with the net resident in shared memory,
+on the weight images ``pe_mlp_images`` builds once per call (the
+forward half alone where no graph is recorded) and the backward reuses.
+Nets wider than those kernels take (``pe_mlp_fwd_route``) run their
+forward on the PE variant of the fused MLP forward,
+``csrc/fused_mlp.cu``, and have no backward kernel.  On the
+CPU it computes ``fused_pe_mlp_plain``.  The JAX selector argument ``s``
+(zero gradient) has no counterpart: the kernels and the plain version
+build the encoding from the frequencies.
 
 Rounding points follow the JAX kernels: the encoding is rounded to the
 compute dtype before base layer 0, every hidden layer applies relu then
@@ -563,22 +567,37 @@ def _check_pe_mlp(x, wbs, num_freqs) -> int:
     return enc
 
 
-# csrc/fused_pe_mlp_bwd.cu: the widths its layout pads every net to, the
-# coordinates of x and the warpgroups a block
-PE_MLP_HIDDEN, PE_MLP_OUT, PE_MLP_ENC, PE_MLP_DIM, PE_MLP_WGS = 64, 16, 64, 3, 3
+# csrc/pe_mlp.cuh: the widths the kernels' layout pads every net to, the
+# coordinates of x; the warpgroups a block of the backward and the forward
+PE_MLP_HIDDEN, PE_MLP_OUT, PE_MLP_ENC, PE_MLP_DIM = 64, 16, 64, 3
+PE_MLP_WGS, PE_MLP_FWD_WGS = 3, 4
+
+
+def pe_mlp_kernels_take(dim: int, num_freqs: int,
+                        widths: Sequence[int]) -> bool:
+    """Whether the wgmma kernels (``csrc/fused_pe_mlp_fwd.cu`` and
+    ``csrc/fused_pe_mlp_bwd.cu``) take a net: x [N, 3], an encoding of at
+    most 64 columns, 2 or 3 layers of output widths ``widths``, hidden
+    layers at most 64 wide and at most 16 outputs."""
+    return (dim == PE_MLP_DIM and dim * (1 + 2 * num_freqs) <= PE_MLP_ENC
+            and len(widths) in (2, 3)
+            and all(h <= PE_MLP_HIDDEN for h in widths[:-1])
+            and widths[-1] <= PE_MLP_OUT)
+
+
+def pe_mlp_fwd_route(dim: int, num_freqs: int, widths: Sequence[int]) -> str:
+    """The forward kernel a net takes on the card, by its shape alone:
+    "wgmma" (``csrc/fused_pe_mlp_fwd.cu``) for every net the wgmma kernels
+    take (all presets' PE proposal nets at 64 wide), else "wmma" (the PE
+    variant of ``csrc/fused_mlp.cu``, hidden widths up to 256: the 128-wide
+    nets of ``cropnerf-mxu-q``)."""
+    return "wgmma" if pe_mlp_kernels_take(dim, num_freqs, widths) else "wmma"
 
 
 def _check_pe_mlp_bwd(x, wbs, num_freqs) -> None:
-    """The nets the backward kernel takes: x [N, 3], an encoding of at most
-    64 columns, hidden layers at most 64 wide, at most 16 outputs, 2 or 3
-    layers."""
+    """The nets the backward kernel takes (``pe_mlp_kernels_take``)."""
     widths = [w.shape[1] for w in wbs[0::2]]
-    ok = (x.shape[1] == PE_MLP_DIM
-          and x.shape[1] * (1 + 2 * num_freqs) <= PE_MLP_ENC
-          and len(widths) in (2, 3)
-          and all(h <= PE_MLP_HIDDEN for h in widths[:-1])
-          and widths[-1] <= PE_MLP_OUT)
-    if not ok:
+    if not pe_mlp_kernels_take(x.shape[1], num_freqs, widths):
         raise ValueError(
             f"fused_pe_mlp_bwd: the kernel takes x [N, {PE_MLP_DIM}], at most "
             f"{PE_MLP_ENC} encoding columns, 2 or 3 layers, hidden widths up "
@@ -586,38 +605,58 @@ def _check_pe_mlp_bwd(x, wbs, num_freqs) -> None:
             f"{tuple(x.shape)}, F={num_freqs}, widths {widths}")
 
 
-def pe_mlp_images(wbs: Sequence[torch.Tensor], device: torch.device | str = "cpu"
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The backward kernel's weights: (bf16 images, f32 biases).  Every
-    layer's weight is zero-padded to [64, 64] ([64, 16] for the last) and
-    laid out twice as a wgmma B operand in K-major core matrices: first all
-    forward images (element (k, n) at (k/8)·width·8 + n·8 + k%8), then all
-    input-gradient images of Wᵀ (element (n, k) at (n/8)·64·8 + k·8 + n%8).
-    The biases are padded alike, layer after layer."""
-    n_layers = len(wbs) // 2
+@functools.lru_cache(maxsize=None)
+def _pe_mlp_gather(shapes: tuple, backward: bool, device: torch.device
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Where each element of ``pe_mlp_images`` for weights and biases of
+    ``shapes`` comes from in their flattened concatenation with one zero
+    appended (the padding), on ``device``: (image indices, bias indices,
+    that zero)."""
+    n_layers, pad = len(shapes) // 2, sum(int(np.prod(s)) for s in shapes)
+    at = torch.arange(pad).split([int(np.prod(s)) for s in shapes])
     fwd, bwd, bias = [], [], []
     for l in range(n_layers):
-        w, b = wbs[2 * l], wbs[2 * l + 1].reshape(-1)
+        w, b = at[2 * l].reshape(shapes[2 * l]), at[2 * l + 1]
         width = PE_MLP_OUT if l == n_layers - 1 else PE_MLP_HIDDEN
-        wp = torch.zeros((PE_MLP_HIDDEN, width), dtype=torch.bfloat16,
-                         device=device)
+        wp = torch.full((PE_MLP_HIDDEN, width), pad)
         wp[:w.shape[0], :w.shape[1]] = w
         fwd.append(wp.reshape(PE_MLP_HIDDEN // 8, 8, width).permute(0, 2, 1)
                    .reshape(-1))
         bwd.append(wp.reshape(PE_MLP_HIDDEN, width // 8, 8).permute(1, 0, 2)
                    .reshape(-1))
-        bp = torch.zeros((width,), dtype=torch.float32, device=device)
-        bp[:b.numel()] = b
-        bias.append(bp)
-    return torch.cat(fwd + bwd), torch.cat(bias)
+        bias.append(torch.nn.functional.pad(b, (0, width - b.numel()),
+                                            value=pad))
+    img = torch.cat(fwd + (bwd if backward else []))
+    return (img.to(device), torch.cat(bias).to(device),
+            torch.zeros(1, device=device))
 
 
-def pe_mlp_bwd_blocks(n_rows: int, sm_count: int) -> int:
-    """Persistent blocks of the backward: one per SM, fewer where the
+def pe_mlp_images(wbs: Sequence[torch.Tensor], backward: bool = True
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The wgmma kernels' weights, on the weights' device: (bf16 images,
+    f32 biases).  Every layer's weight is zero-padded to [64, 64] ([64, 16]
+    for the last) and laid out as a wgmma B operand in K-major core
+    matrices: first all forward images (element (k, n) at
+    (k/8)·width·8 + n·8 + k%8; all the forward kernel reads), then, with
+    ``backward``, all input-gradient images of Wᵀ (element (n, k) at
+    (n/8)·64·8 + k·8 + n%8).  The biases are padded alike, layer after
+    layer.  Four operations on the card: one concatenation and gathers at
+    indices cached per shape and device."""
+    img_at, bias_at, zero = _pe_mlp_gather(
+        tuple(tuple(t.shape) for t in wbs), backward, wbs[0].device)
+    flat = torch.cat([t.reshape(-1) for t in wbs] + [zero]).float()
+    return (flat.index_select(0, img_at).to(torch.bfloat16),
+            flat.index_select(0, bias_at))
+
+
+def pe_mlp_blocks(n_rows: int, sm_count: int, wgs: int) -> int:
+    """Persistent blocks of the wgmma kernels of ``wgs`` warpgroups a block
+    (the backward's 3, the forward's 4): one per SM, fewer where the
     64-row tiles do not give each of a block's warpgroups one.  Warpgroup
-    w of block b takes tiles 3b + w, then every 3·blocks-th after it."""
+    w of block b takes tiles wgs·b + w, then every wgs·blocks-th after
+    it."""
     tiles = -(-n_rows // 64)
-    return max(1, min(sm_count, -(-tiles // PE_MLP_WGS)))
+    return max(1, min(sm_count, -(-tiles // wgs)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -638,13 +677,94 @@ def _pe_mlp_bwd_lib():
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _pe_mlp_fwd_lib():
+    lib = build.load("fused_pe_mlp_fwd")
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.cropnerf_pe_mlp_fwd_layout.argtypes = [
+        i32, ctypes.POINTER(ctypes.c_longlong)]
+    lib.cropnerf_pe_mlp_fwd.argtypes = [vp] * 4 + [i32] * 3 + [
+        ctypes.c_longlong, i32, vp]
+    for f in ("cropnerf_pe_mlp_fwd_layout", "cropnerf_pe_mlp_fwd"):
+        getattr(lib, f).restype = ctypes.c_int
+    return lib
+
+
+def _layout(name, layout_fn, n_layers) -> list:
+    """The sizes a kernel's C layout function reports for a depth."""
+    sizes = (ctypes.c_longlong * 6)()
+    if layout_fn(n_layers, sizes):
+        raise ValueError(f"{name}: {n_layers} layers")
+    return list(sizes)
+
+
+def _check_images(name, img, bias, img_elems, n_bias) -> None:
+    if img.numel() not in img_elems or bias.numel() != n_bias:
+        raise RuntimeError(f"{name}: the weight images do not match the "
+                           "kernel's layout")
+
+
+@functools.lru_cache(maxsize=None)
+def _pe_mlp_fwd_layout(n_layers: int) -> Tuple[int, int]:
+    """(elements of the forward images, of the biases) of the forward
+    kernel's layout for a depth."""
+    fwd_elems, n_bias, _, wgs = _layout(
+        "fused_pe_mlp", _pe_mlp_fwd_lib().cropnerf_pe_mlp_fwd_layout,
+        n_layers)[:4]
+    if wgs != PE_MLP_FWD_WGS:
+        raise RuntimeError("fused_pe_mlp_fwd: the kernel's warpgroups do "
+                           "not match the plan")
+    return fwd_elems, n_bias
+
+
+def _pe_mlp_fwd_launch(x, wbs, num_freqs, img, bias) -> torch.Tensor:
+    """One launch of ``csrc/fused_pe_mlp_fwd.cu`` on CUDA tensors (none for
+    N = 0) on ``pe_mlp_images``, with or without the backward's half: the
+    [N, Dout] float32 output."""
+    device, n = x.device, x.shape[0]
+    lib = _pe_mlp_fwd_lib()
+    fwd_elems, n_bias = _pe_mlp_fwd_layout(len(wbs) // 2)
+    _check_images("fused_pe_mlp", img, bias, (fwd_elems, 2 * fwd_elems),
+                  n_bias)
+    out = torch.empty((n, wbs[-2].shape[1]), dtype=torch.float32,
+                      device=device)
+    if n == 0:
+        return out
+    blocks = pe_mlp_blocks(n, _sm_count(device), PE_MLP_FWD_WGS)
+    with torch.cuda.device(device):
+        err = lib.cropnerf_pe_mlp_fwd(
+            x.data_ptr(), out.data_ptr(), img.data_ptr(), bias.data_ptr(),
+            len(wbs) // 2, num_freqs, out.shape[1], n, blocks,
+            stream_ptr(device))
+    if err:
+        raise RuntimeError(f"fused_pe_mlp kernel launch failed: cudaError "
+                           f"{err}")
+    fused_pe_mlp.launches += 1
+    return out
+
+
+def fused_pe_mlp_wide(x: torch.Tensor, wbs: Sequence[torch.Tensor],
+                      num_freqs: int) -> torch.Tensor:
+    """The "wmma" route of ``pe_mlp_fwd_route`` on CUDA tensors: the PE
+    variant of ``csrc/fused_mlp.cu``'s forward for nets the wgmma kernels
+    do not take (one launch, none for N = 0)."""
+    out = run_forward("fused_pe_mlp", x, wbs,
+                      x.shape[1] * (1 + 2 * num_freqs),
+                      pe=(x.shape[1], num_freqs))
+    if x.shape[0]:
+        fused_pe_mlp_wide.launches += 1
+    return out
+
+
 @torch.no_grad()
 def fused_pe_mlp_bwd(x: torch.Tensor, wbs: Sequence[torch.Tensor],
                      num_freqs: int, g: torch.Tensor, need_dx: bool = True,
-                     need_dw: bool = True):
+                     need_dw: bool = True, images=None):
     """The backward kernel of ``fused_pe_mlp`` on CUDA tensors: the
     cotangent g [N, Dout] → (dx [N, dim] or None, [dW0, db0, ...] in the
-    shapes of ``wbs`` or None) in float32.  It recomputes the forward."""
+    shapes of ``wbs`` or None) in float32.  It recomputes the forward.
+    ``images``: the (image, bias) of ``pe_mlp_images`` for ``wbs`` where
+    the caller has them (the forward's), else built here."""
     _check_pe_mlp(x, wbs, num_freqs)
     device = check_kernel_call("fused_pe_mlp_bwd", [x, g, *wbs],
                                torch.bfloat16)
@@ -654,15 +774,14 @@ def fused_pe_mlp_bwd(x: torch.Tensor, wbs: Sequence[torch.Tensor],
     if not (need_dx or need_dw):
         raise ValueError("fused_pe_mlp_bwd: nothing asked for")
     lib = _pe_mlp_bwd_lib()
-    sizes = (ctypes.c_longlong * 6)()
-    if lib.cropnerf_pe_mlp_bwd_layout(n_layers, sizes):
-        raise ValueError(f"fused_pe_mlp_bwd: {n_layers} layers")
-    img_elems, n_bias, total_w, total_b, _, wgs = list(sizes)
-    img, bias = pe_mlp_images(wbs, device)
-    if (img.numel(), bias.numel(), wgs) != (img_elems, n_bias, PE_MLP_WGS):
-        raise RuntimeError("fused_pe_mlp_bwd: the weight images do not match "
-                           "the kernel's layout")
-    blocks = pe_mlp_bwd_blocks(n, _sm_count(device))
+    img_elems, n_bias, total_w, total_b, _, wgs = _layout(
+        "fused_pe_mlp_bwd", lib.cropnerf_pe_mlp_bwd_layout, n_layers)
+    img, bias = images if images is not None else pe_mlp_images(wbs)
+    _check_images("fused_pe_mlp_bwd", img, bias, (img_elems,), n_bias)
+    if wgs != PE_MLP_WGS:
+        raise RuntimeError("fused_pe_mlp_bwd: the kernel's warpgroups do "
+                           "not match the plan")
+    blocks = pe_mlp_blocks(n, _sm_count(device), PE_MLP_WGS)
     dx = torch.empty_like(x) if need_dx else None
     ptrs = [None] * 4
     if need_dw:
@@ -699,19 +818,16 @@ def fused_pe_mlp_bwd(x: torch.Tensor, wbs: Sequence[torch.Tensor],
 class _FusedPeMlp(torch.autograd.Function):
     """Forward kernel, and the backward kernel as its gradient, run only
     for the gradients asked for (no dx where x needs none, no weight
-    gradients where the weights need none).  Saves only x and the weights,
-    as the JAX ``_plain_fwd`` does."""
+    gradients where the weights need none).  Saves x and the weights, as
+    the JAX ``_plain_fwd`` does, and the weight images the forward built,
+    which the backward reads too."""
 
     @staticmethod
     def forward(ctx, x, num_freqs, *wbs):
         ctx.save_for_backward(x, *wbs)
         ctx.num_freqs = num_freqs
-        out = run_forward("fused_pe_mlp", x, wbs,
-                          x.shape[1] * (1 + 2 * num_freqs),
-                          pe=(x.shape[1], num_freqs))
-        if x.shape[0]:
-            fused_pe_mlp.launches += 1
-        return out
+        ctx.images = pe_mlp_images(wbs)
+        return _pe_mlp_fwd_launch(x, wbs, num_freqs, *ctx.images)
 
     @staticmethod
     def backward(ctx, g):
@@ -719,8 +835,23 @@ class _FusedPeMlp(torch.autograd.Function):
         need_dx = ctx.needs_input_grad[0]
         need_dw = any(ctx.needs_input_grad[2:])
         dx, dwbs = fused_pe_mlp_bwd(x, wbs, ctx.num_freqs, g.contiguous(),
-                                    need_dx, need_dw)
+                                    need_dx, need_dw, ctx.images)
         return (dx, None, *(dwbs if need_dw else [None] * len(wbs)))
+
+
+def _fused_pe_mlp_card(x, wbs, num_freqs) -> torch.Tensor:
+    """``fused_pe_mlp`` on checked CUDA tensors.  Where a graph is recorded
+    (only for the nets the backward kernel takes), the autograd function
+    above; else the forward kernel that ``pe_mlp_fwd_route`` picks, the
+    wgmma kernel on the forward half of the weight images alone."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *wbs)):
+        _check_pe_mlp_bwd(x, wbs, num_freqs)
+        return _FusedPeMlp.apply(x, num_freqs, *wbs)
+    widths = [w.shape[1] for w in wbs[0::2]]
+    if pe_mlp_fwd_route(x.shape[1], num_freqs, widths) == "wmma":
+        return fused_pe_mlp_wide(x, wbs, num_freqs)
+    return _pe_mlp_fwd_launch(x, wbs, num_freqs,
+                              *pe_mlp_images(wbs, backward=False))
 
 
 def fused_pe_mlp(x: torch.Tensor, wbs: Sequence[torch.Tensor],
@@ -729,15 +860,14 @@ def fused_pe_mlp(x: torch.Tensor, wbs: Sequence[torch.Tensor],
     """x [N, dim] float32 (encoder domain, unit*2-1) → NeRF encoding with
     ``num_freqs`` frequencies → relu MLP wbs = [W0, b0, W1, b1, ...] (W
     [in, out], b [1, out]; linear last layer) → [N, Dout] float32,
-    differentiable in x and the weights.  On the card, a graph is recorded
+    differentiable in x and the weights.  On the card the forward kernel
+    is the one ``pe_mlp_fwd_route`` picks by shape, and a graph is recorded
     only for the nets the backward kernel takes (``_check_pe_mlp_bwd``)."""
     _check_pe_mlp(x, wbs, num_freqs)
     if x.device.type == "cpu":
         return fused_pe_mlp_plain(x, wbs, num_freqs, compute_dtype)
     check_kernel_call("fused_pe_mlp", [x, *wbs], compute_dtype)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *wbs)):
-        _check_pe_mlp_bwd(x, wbs, num_freqs)
-    return _FusedPeMlp.apply(x, num_freqs, *wbs)
+    return _fused_pe_mlp_card(x, wbs, num_freqs)
 
 
 fused_pe_density.launches = 0
@@ -745,4 +875,5 @@ fused_pe_density_bwd.launches = 0
 fused_pe_nerf.launches = 0
 fused_pe_nerf_bwd.launches = 0
 fused_pe_mlp.launches = 0
+fused_pe_mlp_wide.launches = 0
 fused_pe_mlp_bwd.launches = 0

@@ -3,7 +3,9 @@
 custom VJP in ``cropnerf_tpu/ops/hashgrid.py``).
 
 ``hash_encode`` launches the CUDA kernel ``csrc/hash_encode.cu`` and is
-differentiable: its backward is the kernels' backward, one pass over the
+differentiable.  Its forward gives a thread one position at a group of
+levels (:func:`level_group`) and stores each block's results whole
+sectors at a time; its backward is the kernels' backward, one pass over the
 positions per level that adds the table gradient when the table needs one
 (the levels of :func:`private_levels` summed in shared memory first) and
 gathers each level's share of the position gradient when the positions
@@ -33,7 +35,8 @@ def _lib():
     lib = build.load("hash_encode")
     lib.cropnerf_hash_encode_fwd.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_uint, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_uint, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_void_p]
     lib.cropnerf_hash_encode_fwd.restype = ctypes.c_int
     lib.cropnerf_hash_encode_bwd.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -52,6 +55,17 @@ def _levels(device: torch.device, resolutions: Tuple[int, ...],
     once per layout."""
     rows = [[o, r, int(d)] for o, r, d in zip(offsets, resolutions, dense)]
     return torch.tensor(rows, dtype=torch.int64, device=device)
+
+
+MAX_GROUP = 16        # csrc/hash_encode.cu MAX_GROUP: levels a thread
+
+
+def level_group(n_levels: int) -> int:
+    """Levels one thread of the forward encodes at its position: the whole
+    row of up to 8 levels (the proposal nets' 5: 40 contiguous bytes), else
+    4 (the field's 16: one 32-byte sector of the output per position, and
+    a group's hashed levels, 16 MB of table, held in the 50 MB L2)."""
+    return n_levels if n_levels <= 8 else 4
 
 
 def private_levels(resolutions: Sequence[int], dense: Sequence[bool],
@@ -95,7 +109,8 @@ def _check(name: str, table2d: torch.Tensor, pos: torch.Tensor,
 def hash_encode_fwd(table2d: torch.Tensor, pos: torch.Tensor,
                     resolutions: Tuple[int, ...], offsets: Tuple[int, ...],
                     dense: Tuple[bool, ...], table_size: int) -> torch.Tensor:
-    """The forward kernel: pos [N, 3] → features [N, L·2] float32."""
+    """The forward kernel: pos [N, 3] → features [N, L·2] float32, a
+    thread per position and :func:`level_group` levels."""
     device = _check("hash_encode", table2d, pos, resolutions, table_size)
     L, n = len(resolutions), pos.shape[0]
     out = torch.empty((n, L * FEATURES), dtype=torch.float32, device=device)
@@ -105,7 +120,8 @@ def hash_encode_fwd(table2d: torch.Tensor, pos: torch.Tensor,
     with torch.cuda.device(device):
         err = _lib().cropnerf_hash_encode_fwd(
             pos.data_ptr(), table2d.data_ptr(), levels.data_ptr(), L,
-            table_size - 1, out.data_ptr(), n, stream_ptr(device))
+            level_group(L), table_size - 1, out.data_ptr(), n,
+            stream_ptr(device))
     if err:
         raise RuntimeError(f"hash_encode kernel launch failed: cudaError {err}")
     hash_encode.launches += 1

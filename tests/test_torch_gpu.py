@@ -582,6 +582,48 @@ def test_hash_encode_kernel_matches_plain(cuda, case):
     assert _rel_err(dp, dp_ref) <= DPOS_TOL, _rel_err(dp, dp_ref)
 
 
+@pytest.mark.parametrize("case", list(HASH_CASES))
+def test_hash_encode_forward_is_bit_identical(cuda, case):
+    """K4's forward equals the plain version bit for bit at the path's
+    shapes, a ragged N, a small dense [L, T, F] table and a hash-only
+    table, with positions at exactly 0 and 1 and on grid vertices, at its
+    level groups (the proposal nets' 5 levels one group, the field's 16
+    four)."""
+    from cropnerf_tpu_torch.ops import hashgrid
+    from cropnerf_tpu_torch.ops.cuda import hash_encode as khash
+    *shape, mode = HASH_CASES[case]
+    table, pos, res, t = _hash_inputs(cuda, *shape, mode)
+    table2d, offsets, dense, t = hashgrid._table_layout(table, res, mode, t)
+    layout = (tuple(res), tuple(offsets), tuple(dense), t)
+    before = khash.hash_encode.launches
+    out = khash.hash_encode_fwd(table2d, pos, *layout)
+    torch.cuda.synchronize()
+    assert khash.hash_encode.launches == before + 1
+    ref = hashgrid.hashgrid_encode_plain(table, pos, res, mode, t)
+    assert out.shape == ref.shape and torch.equal(out, ref)
+    empty = khash.hash_encode_fwd(table2d, pos[:0], *layout)
+    assert empty.shape == (0, ref.shape[1])
+    assert khash.hash_encode.launches == before + 1
+
+
+@pytest.mark.parametrize("case", ["dense-layout", "proposal1"])
+def test_hash_encode_forward_on_a_table_offset_by_a_row(cuda, case):
+    """A table whose first row sits 8 bytes past a 16-byte boundary (a
+    view one row into a larger tensor): the dense levels' paired 16-byte
+    loads take their other path, and the forward keeps its bits."""
+    from cropnerf_tpu_torch.ops import hashgrid
+    from cropnerf_tpu_torch.ops.cuda import hash_encode as khash
+    *shape, mode = HASH_CASES[case]
+    table, pos, res, t = _hash_inputs(cuda, *shape, mode)
+    table2d, offsets, dense, t = hashgrid._table_layout(table, res, mode, t)
+    shifted = torch.cat([torch.zeros((1, 2), device=cuda), table2d])[1:]
+    assert shifted.data_ptr() % 16 == 8 and torch.equal(shifted, table2d)
+    out = khash.hash_encode_fwd(shifted, pos, tuple(res), tuple(offsets),
+                                tuple(dense), t)
+    ref = hashgrid.hashgrid_encode_plain(table, pos, res, mode, t)
+    assert torch.equal(out, ref)
+
+
 def test_hash_encode_backward_without_position_gradient(cuda):
     """Positions that need no gradient take the kernel's dtable-only
     variant; the table gradient is the same."""
@@ -842,7 +884,8 @@ def test_uncertainty_kernel_path_matches_plain_path(cuda, preset, channel):
     assert all(p.requires_grad for p in params.parameters())
 
 
-# ---- K5, the fused PE proposal nets (csrc/fused_mlp.cu, PE variant, forward;
+# ---- K5, the fused PE proposal nets (csrc/fused_pe_mlp_fwd.cu, forward, or
+# for nets wider than 64 the PE variant of csrc/fused_mlp.cu;
 # csrc/fused_pe_mlp_bwd.cu, backward) ----------------------------------------
 #
 # Held as K3: outputs to TOL of max |plain|, dx row by row, weight and bias
@@ -854,11 +897,12 @@ K5_GPU_CASES = {"net0": (5, 1_048_576), "net1": (6, 393_216),
                 "net0-ragged": (5, 1_048_576 - 77), "net1-ragged": (6, 1000)}
 
 
-def _prop_net(cuda, num_freqs, need_dw=True, seed=0):
+def _prop_net(cuda, num_freqs, need_dw=True, seed=0, hidden=64, layers=3):
     from cropnerf_tpu_torch.models.config import ProposalFieldConfig
     from cropnerf_tpu_torch.models.proposal import proposal_init
-    cfg = ProposalFieldConfig(field_type="pe", hidden_dim=64, num_layers=3,
-                              pe_freqs=num_freqs, mlp_impl="pallas-fused")
+    cfg = ProposalFieldConfig(field_type="pe", hidden_dim=hidden,
+                              num_layers=layers, pe_freqs=num_freqs,
+                              mlp_impl="pallas-fused")
     prop = proposal_init(cfg, torch.Generator().manual_seed(seed), cuda)
     wbs = []
     for w, b in zip(prop.mlp.w, prop.mlp.b):
@@ -895,6 +939,59 @@ def test_fused_pe_mlp_kernel_matches_plain(cuda, case, need_dw):
     assert torch.equal(out, out2), "the forward kernel is not deterministic"
     assert all(torch.equal(a, b) for a, b in zip(got, again)), \
         "the backward kernel is not deterministic"
+
+
+# (num_freqs, hidden width, layers, N) of the forward alone: both nets at
+# a training step's sample counts, a ragged N, N < 64, one row and none, a
+# two-layer net, and cropnerf-mxu-q's 128-wide nets (the wmma route)
+K5_FWD_GPU_CASES = {"net0": (5, 64, 3, 1_048_576), "net1": (6, 64, 3, 393_216),
+                    "net0-ragged": (5, 64, 3, 1_048_576 - 77),
+                    "net1-small": (6, 64, 3, 50), "one-row": (5, 64, 3, 1),
+                    "empty": (5, 64, 3, 0), "two-layers": (8, 32, 2, 4099),
+                    "q-net0": (5, 128, 3, 1_048_576),
+                    "q-net1-ragged": (6, 128, 3, 393_216 - 77)}
+
+
+@pytest.mark.parametrize("case", list(K5_FWD_GPU_CASES))
+@torch.no_grad()
+def test_fused_pe_mlp_forward_routes(cuda, case):
+    """K5's forward on the route its net's shape picks: the wgmma kernel
+    (csrc/fused_pe_mlp_fwd.cu) for nets up to 64 wide, the wmma route for
+    the 128-wide ones, each counting its own launches; against the plain
+    version, and the same bits on two runs."""
+    F, hidden, layers, n = K5_FWD_GPU_CASES[case]
+    wbs = _prop_net(cuda, F, False, hidden=hidden, layers=layers)
+    widths = [w.shape[1] for w in wbs[0::2]]
+    route = kfield.pe_mlp_fwd_route(3, F, widths)
+    assert route == ("wmma" if hidden > 64 else "wgmma")
+    g = torch.Generator(device=cuda).manual_seed(19)
+    x = torch.rand((n, 3), generator=g, device=cuda) * 2 - 1
+    before = (kfield.fused_pe_mlp.launches, kfield.fused_pe_mlp_wide.launches)
+    out = kfield.fused_pe_mlp(x, wbs, F)
+    torch.cuda.synchronize()
+    launched = (kfield.fused_pe_mlp.launches - before[0],
+                kfield.fused_pe_mlp_wide.launches - before[1])
+    assert launched == ((0, 0) if n == 0 else (1, 0) if route == "wgmma"
+                        else (0, 1))
+    assert out.shape == (n, 1) and torch.isfinite(out).all()
+    if n:
+        assert _rel_err(out, kfield.fused_pe_mlp_plain(x, wbs, F)) <= TOL
+        assert torch.equal(out, kfield.fused_pe_mlp(x, wbs, F))
+
+
+@pytest.mark.parametrize("F", [5, 6])
+def test_fused_pe_mlp_forward_same_bits_with_and_without_a_graph(cuda, F):
+    """The wgmma forward on the forward half of the weight images (no graph
+    recorded) and on the whole image (a graph recorded, the images saved
+    for the backward) gives the same bits, a ragged last tile included."""
+    wbs = _prop_net(cuda, F, True)
+    g = torch.Generator(device=cuda).manual_seed(23)
+    x = torch.rand((4099, 3), generator=g, device=cuda) * 2 - 1
+    with torch.no_grad():
+        alone = kfield.fused_pe_mlp(x, wbs, F)
+    recorded = kfield.fused_pe_mlp(x, wbs, F)
+    assert recorded.requires_grad and not alone.requires_grad
+    assert torch.equal(alone, recorded.detach())
 
 
 def test_fused_pe_mlp_backward_computes_what_is_asked(cuda):

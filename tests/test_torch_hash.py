@@ -42,12 +42,12 @@ def _positions(seed=0, n=N):
     return pos
 
 
-def _table(layout, hash_mode="auto", seed=1):
+def _table(layout, hash_mode="auto", seed=1, res=RES):
     rng = np.random.default_rng(seed)
     if layout == "dense":
-        shape = (len(RES), T, 2)
+        shape = (len(res), T, 2)
     else:
-        shape = (sum(jhash.level_row_counts(RES, T, hash_mode)), 2)
+        shape = (sum(jhash.level_row_counts(res, T, hash_mode)), 2)
     return rng.uniform(-1, 1, shape).astype(np.float32)
 
 
@@ -248,6 +248,82 @@ def test_table_pass_model_matches_jax(layout, hash_mode):
                             blocks=3)
     err = np.abs(got.numpy() - ref).max() / np.abs(ref).max()
     assert err <= 1e-5, err
+
+
+@pytest.mark.parametrize("levels", [1, 3, 4, 5, 8, 9, 12, 16])
+def test_level_groups_cover_every_level_once(levels):
+    """The forward's level groups: the whole row up to 8 levels (the
+    proposal nets' 5 in one group), else groups of 4 (the field's 16 in
+    4), each level in exactly one group."""
+    group = khash.level_group(levels)
+    assert 1 <= group <= khash.MAX_GROUP
+    groups = [list(range(l0, min(l0 + group, levels)))
+              for l0 in range(0, levels, group)]
+    assert [l for g in groups for l in g] == list(range(levels))
+    assert len(groups) == (1 if levels <= 8 else -(-levels // 4))
+
+
+FWD_THREADS = 256     # csrc/hash_encode.cu THREADS: positions a block
+
+
+def _fwd_store_model(per_level, group):
+    """csrc/hash_encode.cu's forward as it stores, in torch: a block of
+    FWD_THREADS positions at one group of levels stages its results at
+    row stride group | 1 in shared memory, then element q of the block's
+    rows × levels goes from stage[(q / nl)·stride + q % nl] to output row
+    i0 + q / nl, level l0 + q % nl.  per_level [N, L, 2] → [N, L·2]; every
+    output element written exactly once."""
+    n, L, _ = per_level.shape
+    out = torch.full((n * L, 2), float("nan"))
+    written = torch.zeros(n * L, dtype=torch.long)
+    sp = group | 1
+    for i0 in range(0, n, FWD_THREADS):
+        rows = min(FWD_THREADS, n - i0)
+        for l0 in range(0, L, group):
+            nl = min(group, L - l0)
+            stage = torch.full((FWD_THREADS * sp, 2), float("nan"))
+            t = torch.arange(rows)[:, None]
+            j = torch.arange(nl)[None]
+            stage[(t * sp + j).reshape(-1)] = per_level[
+                i0:i0 + rows, l0:l0 + nl].reshape(-1, 2)
+            q = torch.arange(rows * nl)
+            dst = (i0 + q // nl) * L + l0 + q % nl
+            out[dst] = stage[(q // nl) * sp + q % nl]
+            written[dst] += 1
+    assert bool((written == 1).all())
+    return out.reshape(n, L * 2)
+
+
+# the forward's level groups at the presets' level counts: RES's 4 and a
+# proposal net's 5 (one group each), the field's 16 (four groups of 4)
+STORE_RES = {"4 levels": RES, "5 levels": (4, 6, 8, 12, 16),
+             "16 levels": tuple(range(2, 34, 2))}
+
+
+@pytest.mark.parametrize("levels", list(STORE_RES))
+@pytest.mark.parametrize("layout,hash_mode,n", [("packed", "auto", 300),
+                                                ("dense", "auto", 261),
+                                                ("packed", "hash", 40)])
+def test_forward_store_order_keeps_the_plain_layout(layout, hash_mode, n,
+                                                    levels):
+    """Each level encoded alone by the plain version, put where the
+    forward kernel's staging and stores put it at its level groups, gives
+    hashgrid_encode_plain's [N, L·2] output bit for bit: level l at
+    columns 2l, 2l + 1, a ragged last block included."""
+    res = STORE_RES[levels]
+    table = torch.from_numpy(_table(layout, hash_mode, res=res))
+    pos = torch.from_numpy(_positions(n=n))
+    ref = thash.hashgrid_encode_plain(table, pos, res, hash_mode, T)
+    if layout == "dense":
+        per = [table[l:l + 1] for l in range(len(res))]
+    else:
+        rows = thash.level_row_counts(res, T, hash_mode)
+        offs = np.cumsum((0,) + rows)
+        per = [table[offs[l]:offs[l + 1]] for l in range(len(res))]
+    per_level = torch.stack([thash.hashgrid_encode_plain(
+        per[l], pos, (res[l],), hash_mode, T) for l in range(len(res))], 1)
+    got = _fwd_store_model(per_level, khash.level_group(len(res)))
+    assert torch.equal(got, ref)
 
 
 def test_hash_is_uint32_teschner():

@@ -93,23 +93,12 @@ def test_fused_pe_mlp_checks_its_inputs():
         tfield._check_pe_mlp_bwd(x, wide, 5)
 
 
-def _kernel_model_pe_mlp(x, wbs, F, g, sm_count):
-    """The PE MLP's CUDA kernels in torch: the forward (csrc/fused_mlp.cu's
-    PE variant) on the buffers ``pack_mlp`` builds, and the backward
-    (csrc/fused_pe_mlp_bwd.cu) on the weight images ``pe_mlp_images``
-    builds, read back as its wgmma operands index them, in its order: the
-    encoding from x with its f32 derivatives; the bf16 recompute; per
-    64-row tile, going back through the layers, the weight gradient Aᵀ·G of
-    bf16 operands added into its warpgroup's f32 sum, the input gradient
-    G·Wᵀ, the relu mask of the bf16 activation and the f32 column sums;
-    then each block's warpgroups' sums in order and the blocks' in order;
-    dx from layer 0's f32 input gradient times d(encode)/d(pre)·2^f, summed
-    per coordinate in column order.  Returns (out, dx, [dW0, db0, ...])."""
-    N, dim = x.shape
-    wbuf, bbuf, meta = tmlp.pack_mlp(dim * (1 + 2 * F), wbs)
-    din, din_pad, dout, n_layers, _ = meta[:5]
-    L = [meta[5 + 5 * i:10 + 5 * i] for i in range(n_layers)]
-    sin_end = dim * (1 + F)
+def _pe_encoding(x, F):
+    """The kernels' encoding columns [x | sin(2^f x) | cos(2^f x)] in
+    f-major blocks: (encoding, each column's coordinate, its frequency,
+    its pre-activation, the first cos column)."""
+    dim = x.shape[1]
+    din, sin_end = dim * (1 + 2 * F), dim * (1 + F)
     col = torch.arange(din)
     j = torch.where(col < sin_end, col - dim, col - sin_end)
     coord = torch.where(col < dim, col, j % dim)
@@ -119,18 +108,67 @@ def _kernel_model_pe_mlp(x, wbs, F, g, sm_count):
     enc = torch.where(col < dim, x[:, coord],
                       torch.where(col < sin_end, torch.sin(pre),
                                   torch.cos(pre)))
-    # the forward kernel, on the packed buffers
-    a = torch.zeros((N, din_pad))
-    a[:, :din] = enc
+    return enc, coord, freq, pre, sin_end
+
+
+def _wmma_forward_model(x, wbs, F):
+    """The forward of the "wmma" route (csrc/fused_mlp.cu's PE variant) in
+    torch, on the buffers pack_mlp builds: the encoding zero-padded to a
+    multiple of 16 columns and rounded to bf16, each layer's product on
+    the packed bf16 weights with f32 sums plus the f32 bias, relu and bf16
+    for the hidden layers, the last layer's first Dout columns."""
+    dim = x.shape[1]
+    wbuf, bbuf, meta = tmlp.pack_mlp(dim * (1 + 2 * F), wbs)
+    din, din_pad, dout, n_layers, _ = meta[:5]
+    layers = [meta[5 + 5 * i:10 + 5 * i] for i in range(n_layers)]
+    a = torch.zeros((x.shape[0], din_pad))
+    a[:, :din] = _pe_encoding(x, F)[0]
     h = a.bfloat16()
-    for l in range(n_layers):
-        w_off, b_off, k, n, _ = L[l]
+    for l, (w_off, b_off, k, n, _) in enumerate(layers):
         h = (h.float() @ wbuf[w_off:w_off + k * n].reshape(k, n).float()
              + bbuf[b_off:b_off + n])
         if l < n_layers - 1:
             h = torch.relu(h).bfloat16()
-    out = h[:, :dout]
-    # the backward kernel, on its weight images
+    return h[:, :dout]
+
+
+@pytest.mark.parametrize("hidden", [64, 128])
+@pytest.mark.parametrize("F", [5, 6])
+def test_wmma_route_model_reproduces_plain(F, hidden):
+    """The wmma route's forward on pack_mlp's buffers against the plain
+    version: the 64-wide nets of the path and cropnerf-mxu-q's 128-wide
+    ones, which take this route on the card; 300 rows."""
+    rng = np.random.default_rng(50 + F)
+    dims = [3 * (1 + 2 * F), hidden, hidden, 1]
+    wt = to_torch(np_wbs(rng, dims))
+    x = torch.from_numpy(rng.uniform(-1, 1, (300, 3)).astype(np.float32))
+    if hidden == 128:
+        assert tfield.pe_mlp_fwd_route(3, F, dims[1:]) == "wmma"
+    with torch.no_grad():
+        got = _wmma_forward_model(x, wt, F)
+        plain = tfield.fused_pe_mlp_plain(x, wt, F)
+    assert got.shape == (300, 1)
+    assert_close(got, plain, 1e-5, "out")
+
+
+def _kernel_model_pe_mlp(x, wbs, F, g, sm_count):
+    """The PE MLP's CUDA kernels in torch, on the weight images
+    ``pe_mlp_images`` builds, read back as their wgmma operands index them:
+    the forward (csrc/fused_pe_mlp_fwd.cu: the encoding rounded to bf16,
+    every layer's product on the forward images with f32 sums, bias, relu
+    and bf16 for the hidden layers, the last bias in f32) and the backward
+    (csrc/fused_pe_mlp_bwd.cu), in its order: the encoding from x with its
+    f32 derivatives; the bf16 recompute; per 64-row tile, going back
+    through the layers, the weight gradient Aᵀ·G of bf16 operands added
+    into its warpgroup's f32 sum, the input gradient G·Wᵀ, the relu mask of
+    the bf16 activation and the f32 column sums; then each block's
+    warpgroups' sums in order and the blocks' in order; dx from layer 0's
+    f32 input gradient times d(encode)/d(pre)·2^f, summed per coordinate in
+    column order.  Returns (out, dx, [dW0, db0, ...])."""
+    N, dim = x.shape
+    din, dout, n_layers = dim * (1 + 2 * F), wbs[-2].shape[1], len(wbs) // 2
+    enc, coord, freq, pre, sin_end = _pe_encoding(x, F)
+    col = torch.arange(din)
     HW, OW = tfield.PE_MLP_HIDDEN, tfield.PE_MLP_OUT
     widths = [HW] * (n_layers - 1) + [OW]
     img, bias = tfield.pe_mlp_images(wbs)
@@ -145,18 +183,20 @@ def _kernel_model_pe_mlp(x, wbs, F, g, sm_count):
         bw.append(img[total_w + off + (jj // 8) * HW * 8 + ii * 8
                       + jj % 8].float())
     b_at = [l * HW for l in range(n_layers)]
+    # the forward, and the backward's recompute: the same products
     e = torch.zeros((N, HW))
     e[:, :din] = enc
     acts = [e.bfloat16()]
     for l in range(n_layers - 1):
         acts.append(torch.relu(acts[l].float() @ fw[l]
                                + bias[b_at[l]:b_at[l] + HW]).bfloat16())
+    out = (acts[-1].float() @ fw[-1] + bias[b_at[-1]:b_at[-1] + OW])[:, :dout]
     gl = torch.zeros((N, OW))
     gl[:, :dout] = g
     deriv = torch.where(col < dim, torch.ones(din),
                         torch.where(col < sin_end, torch.cos(pre),
                                     -torch.sin(pre)) * freq)
-    blocks = tfield.pe_mlp_bwd_blocks(N, sm_count)
+    blocks = tfield.pe_mlp_blocks(N, sm_count, tfield.PE_MLP_WGS)
     wgs = blocks * tfield.PE_MLP_WGS
     dws = [[torch.zeros((HW, n)) for n in widths] for _ in range(wgs)]
     dbs = [[torch.zeros(n) for n in widths] for _ in range(wgs)]
@@ -211,8 +251,8 @@ def test_pe_mlp_kernel_model_reproduces_plain(F):
         got_out, dx, grads = _kernel_model_pe_mlp(x, wt, F,
                                                   torch.from_numpy(cot), 2)
         plain = tfield.fused_pe_mlp_plain(x, wt, F)
-    assert tfield.pe_mlp_bwd_blocks(n, 2) == 2
-    assert tfield.pe_mlp_bwd_blocks(n, 132) == 2
+    assert tfield.pe_mlp_blocks(n, 2, tfield.PE_MLP_WGS) == 2
+    assert tfield.pe_mlp_blocks(n, 132, tfield.PE_MLP_WGS) == 2
     assert_close(got_out, plain, 1e-5, "out")
     assert_close(got_out, ref_out, 2e-2, "out vs JAX")
     for i, (g, r) in enumerate(zip([dx] + grads, [jdx, *jdw])):
@@ -245,6 +285,170 @@ def test_pe_mlp_images_lay_out_both_operands():
         assert torch.equal(fwd, w) and torch.equal(bwd, w)
         block = img[off:off + 64 * width]
         assert torch.count_nonzero(block) == torch.count_nonzero(w)
+
+
+@pytest.mark.parametrize("preset", ["cropnerf-mxu", "cropnerf-mxu-q",
+                                    "cropnerf-mxu-big", "cropnerf-mxu-huge"])
+def test_pe_mlp_forward_route_by_preset(preset):
+    """Every preset's PE proposal nets at 64 wide take the wgmma forward
+    kernel (csrc/fused_pe_mlp_fwd.cu), cropnerf-mxu-q's 128-wide nets the
+    wmma route (the PE variant of csrc/fused_mlp.cu): the route depends on
+    the net's shape alone."""
+    from cropnerf_tpu_torch.models.config import PRESETS
+    from cropnerf_tpu_torch.models.proposal import proposal_init
+    want = "wmma" if preset == "cropnerf-mxu-q" else "wgmma"
+    for i, p in enumerate(PRESETS[preset].model.proposal_fields):
+        prop = proposal_init(p, torch.Generator().manual_seed(i), "cpu")
+        widths = [w.shape[1] for w in prop.mlp.w]
+        assert tfield.pe_mlp_fwd_route(3, p.pe_freqs, widths) == want
+        assert tfield.pe_mlp_kernels_take(3, p.pe_freqs, widths) == (
+            want == "wgmma")
+
+
+# (dim, F, output widths, route): the wgmma kernels' edges
+ROUTE_EDGES = [(3, 8, [64, 64, 1], "wgmma"),      # 51 encoding columns
+               (3, 10, [64, 64, 1], "wgmma"),     # 63 columns
+               (3, 11, [64, 64, 1], "wmma"),      # 69 columns
+               (3, 5, [32, 1], "wgmma"),          # 2 layers, narrower
+               (3, 5, [64, 64, 64, 1], "wmma"),   # 4 layers
+               (3, 5, [64, 64, 17], "wmma"),      # 17 outputs
+               (3, 5, [64, 65, 1], "wmma"),       # a hidden layer of 65
+               (2, 5, [64, 64, 1], "wmma")]       # x [N, 2]
+
+
+@pytest.mark.parametrize("case", range(len(ROUTE_EDGES)))
+def test_pe_mlp_forward_route_edges(case):
+    dim, F, widths, route = ROUTE_EDGES[case]
+    assert tfield.pe_mlp_fwd_route(dim, F, widths) == route
+
+
+@pytest.mark.parametrize("n", [1_048_576, 393_216, 1_048_576 - 77, 200, 50,
+                               1])
+@pytest.mark.parametrize("wgs", [tfield.PE_MLP_FWD_WGS, tfield.PE_MLP_WGS],
+                         ids=["forward", "backward"])
+def test_pe_mlp_tile_plan(n, wgs):
+    """The wgmma kernels' persistent plan at the path's shapes (both nets
+    of a training step), a ragged N and N < 64, on 132 SMs: every 64-row
+    tile taken once, by warpgroup w of block b at wgs·b + w + k·wgs·blocks
+    in order, every block with a tile, the warpgroups' runs within one
+    tile of each other."""
+    tiles = -(-n // 64)
+    blocks = tfield.pe_mlp_blocks(n, 132, wgs)
+    assert blocks == min(132, -(-tiles // wgs))
+    # the kernels' loop: tile = wgs·b + w, then every wgs·blocks-th after it
+    plan = [list(range(wgs * b + w, tiles, wgs * blocks))
+            for b in range(blocks) for w in range(wgs)]
+    assert sorted(t for run in plan for t in run) == list(range(tiles))
+    assert all(plan[wgs * b] for b in range(blocks))
+    lens = [len(run) for run in plan]
+    assert max(lens) - min(lens) <= 1
+
+
+def _stand_in_kernels(monkeypatch):
+    """The K5 kernels' entry points stood in for by the plain version,
+    recording what each was handed."""
+    seen = {}
+
+    def launch(x, wbs, num_freqs, img, bias):
+        seen["fwd"] = (img, bias)
+        return tfield.fused_pe_mlp_plain(x, wbs, num_freqs)
+
+    def wide(x, wbs, num_freqs):
+        seen["wide"] = True
+        return tfield.fused_pe_mlp_plain(x, wbs, num_freqs)
+
+    def bwd(x, wbs, num_freqs, g, need_dx, need_dw, images):
+        seen["bwd"] = images
+        return None, [torch.zeros_like(w) for w in wbs]
+
+    monkeypatch.setattr(tfield, "_pe_mlp_fwd_launch", launch)
+    monkeypatch.setattr(tfield, "fused_pe_mlp_wide", wide)
+    monkeypatch.setattr(tfield, "fused_pe_mlp_bwd", bwd)
+    return seen
+
+
+def _hidden_net(hidden, seed=40):
+    rng = np.random.default_rng(seed)
+    wt = to_torch(np_wbs(rng, [33, hidden, hidden, 1]))
+    x = torch.from_numpy(rng.uniform(-1, 1, (100, 3)).astype(np.float32))
+    return x, wt
+
+
+@pytest.mark.parametrize("hidden", [64, 128])
+def test_forward_saves_its_images_for_the_backward(hidden, monkeypatch):
+    """Where a graph is recorded, the card path builds the wgmma kernels'
+    weight images once, in the forward, and hands those very tensors to
+    the backward: they equal pe_mlp_images of the weights.  A net on the
+    wmma route has no backward kernel and records no graph.  The kernels
+    are stood in for by the plain version here."""
+    F = 5
+    x, wt = _hidden_net(hidden)
+    wt = [w.requires_grad_(True) for w in wt]
+    seen = _stand_in_kernels(monkeypatch)
+    if hidden == 128:
+        with pytest.raises(ValueError, match="hidden widths"):
+            tfield._fused_pe_mlp_card(x, wt, F)
+        assert seen == {}
+        return
+    out = tfield._fused_pe_mlp_card(x, wt, F)
+    out.sum().backward()
+    img, bias = tfield.pe_mlp_images([w.detach() for w in wt])
+    assert all(a is b for a, b in zip(seen["bwd"], seen["fwd"]))
+    assert torch.equal(seen["fwd"][0], img)
+    assert torch.equal(seen["fwd"][1], bias)
+
+
+@pytest.mark.parametrize("hidden", [64, 128])
+def test_forward_without_a_graph_builds_only_forward_images(hidden,
+                                                            monkeypatch):
+    """Where no graph is recorded (serving, the render, the depth cloud),
+    the card path launches the forward kernel its route picks and builds
+    no backward half: the wgmma kernel gets the forward images alone, the
+    wmma route none."""
+    F = 5
+    x, wt = _hidden_net(hidden)
+    seen = _stand_in_kernels(monkeypatch)
+    with torch.no_grad():
+        out = tfield._fused_pe_mlp_card(x, [w.requires_grad_(True)
+                                            for w in wt], F)
+    assert not out.requires_grad
+    if hidden == 128:
+        assert seen == {"wide": True}
+        return
+    img, bias = tfield.pe_mlp_images(wt)
+    assert set(seen) == {"fwd"}
+    assert torch.equal(seen["fwd"][0], img[:img.numel() // 2])
+    assert torch.equal(seen["fwd"][1], bias)
+
+
+def _images_by_layer(wbs):
+    """pe_mlp_images written out layer by layer, as the kernels read them:
+    the padded weight copied into each core-matrix layout."""
+    n_layers = len(wbs) // 2
+    fwd, bwd, bias = [], [], []
+    for l in range(n_layers):
+        w, b = wbs[2 * l], wbs[2 * l + 1].reshape(-1)
+        width = tfield.PE_MLP_OUT if l == n_layers - 1 else 64
+        wp = torch.zeros((64, width), dtype=torch.bfloat16)
+        wp[:w.shape[0], :w.shape[1]] = w
+        fwd.append(wp.reshape(8, 8, width).permute(0, 2, 1).reshape(-1))
+        bwd.append(wp.reshape(64, width // 8, 8).permute(1, 0, 2).reshape(-1))
+        bias.append(torch.nn.functional.pad(b, (0, width - b.numel())))
+    return torch.cat(fwd), torch.cat(bwd), torch.cat(bias)
+
+
+@pytest.mark.parametrize("widths", [PROP_WIDTHS[5], PROP_WIDTHS[6],
+                                    [33, 32, 1], [39, 64, 48, 16]])
+def test_pe_mlp_images_gather_equals_the_layer_layout(widths):
+    """The images gathered at cached indices equal the layers laid out one
+    by one, bit for bit, with and without the backward's half."""
+    wt = to_torch(np_wbs(np.random.default_rng(41), widths))
+    fwd, bwd, bias = _images_by_layer(wt)
+    img, got_bias = tfield.pe_mlp_images(wt)
+    assert torch.equal(img, torch.cat([fwd, bwd]))
+    assert torch.equal(got_bias, bias)
+    img, got_bias = tfield.pe_mlp_images(wt, backward=False)
+    assert torch.equal(img, fwd) and torch.equal(got_bias, bias)
 
 
 def test_proposal_density_pallas_fused_matches_jax(arm):

@@ -1,16 +1,18 @@
-"""The hash-grid encode's backward (K4, ``hash_encode_bwd``) on the inputs
-of one real ``cropnerf`` training step, on one NVIDIA GPU.
+"""The hash-grid encode (K4, ``hash_encode_fwd`` and ``hash_encode_bwd``)
+on the inputs of one real ``cropnerf`` training step, on one NVIDIA GPU.
 
 A training step's samples bunch along rays and into the scene, so its
-positions collide in the coarse cells far more than uniform ones do.
-``step_inputs`` runs one step (``train_loss`` and its backward, random
-weights from seed 0, 4096 rays from a bank of synthetic images) and keeps
-the (table, positions, cotangent, layout) of the step's three backward
-calls: the field and the two proposal nets.  ``chip_smoke.py`` times the
-kernel on them beside uniform positions.  Run alone, this script prints the
-device time of the three calls, summed, for the port found under
-``--port-root`` (default: this repository), so that two trees can be timed
-in one call on the same card:
+positions collide in the coarse cells far more than uniform ones do and
+share more table sectors.  ``step_inputs`` runs one step (``train_loss``
+and its backward, random weights from seed 0, 4096 rays from a bank of
+synthetic images) and keeps the (table, positions, layout) of the step's
+three forward calls and the (table, positions, cotangent, layout) of its
+three backward calls: the field and the two proposal nets.
+``chip_smoke.py`` checks and times the kernels on them beside uniform
+positions.  Run alone, this script prints the device time of the three
+forward calls and of the three backward calls, each summed, for the port
+found under ``--port-root`` (default: this repository), so that two trees
+can be timed in one call on the same card:
 
     python3 tools/hash_bwd_real_step.py [--port-root DIR]
 """
@@ -46,10 +48,11 @@ def synthetic_bank(dev):
         height=full(bh).long()), device=dev)
 
 
-def step_inputs(bank, dev):
-    """[(table2d, positions, cotangent, layout)] of the hash_encode_bwd
-    calls of one cropnerf training step on ``bank``, copied as the kernel
-    received them."""
+def step_inputs(bank, dev) -> dict:
+    """{"fwd": [(table2d, positions, layout)], "bwd": [(table2d,
+    positions, cotangent, layout)]} of the hash_encode_fwd and
+    hash_encode_bwd calls of one cropnerf training step on ``bank``,
+    copied as the kernels received them."""
     from cropnerf_tpu_torch.models.config import PRESETS
     from cropnerf_tpu_torch.ops.cuda import hash_encode as kh
     from cropnerf_tpu_torch.train.state import create_train_state
@@ -60,25 +63,31 @@ def step_inputs(bank, dev):
     gen = torch.Generator(device=dev).manual_seed(3)
     idx = torch.randint(0, bank.num_pixels, (cfg.train_num_rays_per_batch,),
                         generator=gen, device=dev)
-    captured, kernel = [], kh.hash_encode_bwd
+    captured = {"fwd": [], "bwd": []}
+    fwd, bwd = kh.hash_encode_fwd, kh.hash_encode_bwd
 
-    def capture(table2d, pos, grad, *layout, **kw):
+    def capture_fwd(table2d, pos, *layout):
+        captured["fwd"].append((table2d.detach().clone(), pos.clone(),
+                                layout))
+        return fwd(table2d, pos, *layout)
+
+    def capture_bwd(table2d, pos, grad, *layout, **kw):
+        captured["bwd"].append((table2d.detach().clone(), pos.clone(),
+                                grad.clone(), layout))
         # the kernel counts its launches on the module's hash_encode_bwd
-        captured.append((table2d.detach().clone(), pos.clone(), grad.clone(),
-                         layout))
-        kh.hash_encode_bwd = kernel
+        kh.hash_encode_bwd = bwd
         try:
-            return kernel(table2d, pos, grad, *layout, **kw)
+            return bwd(table2d, pos, grad, *layout, **kw)
         finally:
-            kh.hash_encode_bwd = capture
+            kh.hash_encode_bwd = capture_bwd
 
-    kh.hash_encode_bwd = capture
+    kh.hash_encode_fwd, kh.hash_encode_bwd = capture_fwd, capture_bwd
     try:
         loss, _ = train_loss(state.params, bank, idx, 0, cfg, gen)
         loss.backward()
         torch.cuda.synchronize()
     finally:
-        kh.hash_encode_bwd = kernel
+        kh.hash_encode_fwd, kh.hash_encode_bwd = fwd, bwd
     return captured
 
 
@@ -117,18 +126,22 @@ def main() -> None:
     from cropnerf_tpu_torch.ops.cuda import hash_encode as kh
     dev = torch.device("cuda")
     captured = step_inputs(synthetic_bank(dev), dev)
-    per_call = []
-    for table2d, pos, grad, layout in captured:
-        per_call.append(device_ms(
-            lambda: kh.hash_encode_bwd(table2d, pos, grad, *layout)))
+    out = {}
+    for name, calls in captured.items():
+        per_call = []
+        for table2d, pos, *grad, layout in calls:
+            def fn(table2d=table2d, pos=pos, grad=grad, layout=layout):
+                if grad:
+                    return kh.hash_encode_bwd(table2d, pos, grad[0], *layout)
+                return kh.hash_encode_fwd(table2d, pos, *layout)
+            per_call.append(dict(n=int(pos.shape[0]), levels=len(layout[0]),
+                                 ms=device_ms(fn)))
+        out[name] = {"calls": per_call, "ms": sum(c["ms"] for c in per_call)}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    print(json.dumps({
-        "port_root": str(args.port_root), "card": smi,
-        "calls": [dict(n=int(p.shape[0]), levels=len(layout[0]), ms=ms)
-                  for (_, p, _, layout), ms in zip(captured, per_call)],
-        "ms": sum(per_call)}), flush=True)
+    print(json.dumps({"port_root": str(args.port_root), "card": smi, **out}),
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -2,8 +2,8 @@
 leaves alone, on seeded inputs at the main paths' shapes, on one NVIDIA
 GPU: K3 forward and backward (``fused_mlp``, ``fused_mlp_bwd``: dx alone
 and with the weight gradients), K4 forward (``hash_encode_fwd``) and K5
-forward (``fused_pe_mlp``).  Run it on two trees in one call on the same
-card; equal lines mean equal bits:
+backward (``fused_pe_mlp_bwd``: dx and every weight gradient).  Run it on
+two trees in one call on the same card; equal lines mean equal bits:
 
     python3 tools/kernel_bits.py [--port-root DIR]
 """
@@ -71,7 +71,7 @@ def main() -> None:
             table2d, offsets, dense, _ = hg._table_layout(table, res, "auto", t)
             out[f"hash_encode {name}"] = digest([kh.hash_encode_fwd(
                 table2d, pos, tuple(res), tuple(offsets), tuple(dense), t)])
-        # K5 forward: the fused proposal nets of cropnerf-mxu
+        # K5 backward: the fused proposal nets of cropnerf-mxu, dx and dW
         mx = PRESETS["cropnerf-mxu"].model
         for i, (p, smp) in enumerate(zip(mx.proposal_fields,
                                          mx.num_proposal_samples_per_ray)):
@@ -79,8 +79,9 @@ def main() -> None:
             wbs = [t.detach() for w, b in zip(prop.mlp.w, prop.mlp.b)
                    for t in (w, b.reshape(1, -1))]
             x = torch.rand((4096 * smp, 3), generator=g, device=dev) * 2 - 1
-            out[f"fused_pe_mlp net {i}"] = digest([kfield.fused_pe_mlp(
-                x, wbs, p.pe_freqs)])
+            cot = torch.randn((4096 * smp, 1), generator=g, device=dev)
+            dx, dw = kfield.fused_pe_mlp_bwd(x, wbs, p.pe_freqs, cot)
+            out[f"fused_pe_mlp_bwd net {i}"] = digest([dx] + dw)
     print(json.dumps({"port_root": str(args.port_root),
                       "card": torch.cuda.get_device_name(0), "sha256": out}),
           flush=True)
