@@ -11,7 +11,11 @@ Run from the root of the repository:  python3 chip_smoke.py
    serving and training paths give it and at a ragged N, and times both:
    for cropnerf-mxu K1 forward and backward (the backward against autograd
    of the plain version), K2 and K3 forward and backward (the backwards at
-   the BayesRays batch, with and without weight gradients; K1's and K2's
+   the BayesRays batch, with and without weight gradients; K3 per head on
+   its wgmma kernels, at an export chunk or a BayesRays batch, the tiles'
+   edges, a ragged N and an x or g off 16-byte alignment, two runs
+   bit-identical, and on its wmma route at cropnerf-mxu-huge's colour
+   head, each route's launches counted apart; K1's and K2's
    forward over three profiler windows, also under the schedule the port
    does not use (its two warpgroups together instead of out of phase),
    which must give the same bits, and their backward pass by pass, tile,
@@ -34,8 +38,10 @@ Run from the root of the repository:  python3 chip_smoke.py
 4. drives the serving paths with random weights from a seeded
    torch.Generator at full published widths: forward at 4096 rays, a
    256x256 render (two 32,768-ray chunks) and a 128^3 volume export with
-   colours, with the launch counts zeroed just before and read just after;
-   then runs the same calls with the kernels' plain versions and compares.
+   colours, with the launch counts zeroed just before each and read just
+   after (the export's K3 launches exactly: each head once a chunk, all
+   on the wgmma kernels); then runs the same calls with the kernels' plain
+   versions and compares.
    cropnerf-mxu first, then cropnerf, whose launch counts are checked
    exactly for each call;
 5. drives the training paths: a pixel bank of 32 synthetic 1200x800
@@ -78,6 +84,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import shutil
 import statistics
 import subprocess
@@ -969,18 +976,135 @@ def density_bwd_entry(base, top, trunk_macs, n, dev, card, report) -> dict:
     return k
 
 
+def kernel_names(per_entry: dict, keep: str) -> dict:
+    """Mangled names of the kernel entries whose name holds ``keep`` ->
+    name<args> (ints as numbers, bools as true/false); others dropped."""
+    out = {}
+    for name, v in per_entry.items():
+        m = re.search(r"([A-Za-z_]+_kernel)I((?:L[ib]\d+E)+)E", name)
+        if keep in name and m:
+            args = [a if t == "i" else ("true" if a == "1" else "false")
+                    for t, a in re.findall(r"L([ib])(\d+)E", m.group(2))]
+            out[f"{m.group(1)}<{', '.join(args)}>"] = v
+    return out
+
+
+def k3_counts(fn) -> dict:
+    """Launches of K3's four counters during ``fn()``."""
+    from cropnerf_tpu_torch.ops.cuda import fused_mlp as km
+    return counted((km.fused_mlp, km.fused_mlp_wide, km.fused_mlp_bwd,
+                    km.fused_mlp_bwd_wide), fn)
+
+
+def mlp_fwd_entry(heads, n, dev, card, report) -> dict:
+    """K3 forward (csrc/fused_mlp_fwd.cu, the wgmma route) on the vanilla
+    field's two heads at one export chunk (N = n) against the plain
+    version: at n, a ragged N, the tiles' edges (N = 1, 63, 64, 65) and an
+    x one row into a larger tensor (not 16-byte aligned, the same bits as
+    an aligned copy); two runs bit-identical; each call's launches on the
+    wgmma counter alone.  The entry's ms, plain ms and bound are the two
+    heads' summed (the export launches each head once a chunk)."""
+    from cropnerf_tpu_torch.ops.cuda import fused_mlp as km
+    g = torch.Generator(device=dev).manual_seed(14)
+    per = {}
+    want = {"fused_mlp": 1, "fused_mlp_wide": 0, "fused_mlp_bwd": 0,
+            "fused_mlp_bwd_wide": 0}
+    for label, wbs in heads.items():
+        wd = [w.detach() for w in wbs]
+        dims = [wd[0].shape[0]] + [w.shape[1] for w in wd[0::2]]
+        check(km.fused_mlp_route(dims[0], dims[1:]) == "wgmma",
+              f"K3 {label} {dims} is not on the wgmma route")
+        x_all = torch.randn((n + 1, dims[0]), generator=g, device=dev)
+        x = x_all[:n]
+
+        def run(xb, wd=wd):
+            with torch.no_grad():
+                return km.fused_mlp(xb, wd)
+
+        def plain(xb, wd=wd):
+            with torch.no_grad():
+                return km.fused_mlp_plain(xb, wd)
+
+        cases = {}
+        for m in (n, n - 3, 1, 63, 64, 65):
+            res = {}
+            launched = k3_counts(lambda: res.update(out=run(x_all[:m])))
+            out, ref = res["out"], plain(x_all[:m])
+            cases[f"N={m}"] = dict(err=rel_err(out, ref),
+                                   abs=abs_err(out, ref), launches=launched)
+            check(launched == want and out.shape == (m, dims[-1])
+                  and bool(torch.isfinite(out).all())
+                  and cases[f"N={m}"]["err"] <= TOL,
+                  f"fused_mlp {label} N={m}: {cases[f'N={m}']}")
+        xu = x_all[1:]
+        check(xu.data_ptr() % 16 != 0, "the unaligned case is aligned")
+        unaligned, ref = run(xu), plain(xu)
+        cases["unaligned x"] = dict(err=rel_err(unaligned, ref),
+                                    abs=abs_err(unaligned, ref),
+                                    same_bits_as_aligned=torch.equal(
+                                        unaligned, run(xu.clone())))
+        check(cases["unaligned x"]["same_bits_as_aligned"]
+              and cases["unaligned x"]["err"] <= TOL,
+              f"fused_mlp {label} on an unaligned x: {cases['unaligned x']}")
+        deterministic = torch.equal(run(x), run(x))
+        check(deterministic, f"fused_mlp {label} differs between two runs")
+        k = dict(dims=dims, cases=cases, deterministic=deterministic,
+                 ms=device_ms(lambda: run(x), 20, KERNEL_NS),
+                 call_ms=cuda_ms(lambda: run(x), 20),
+                 plain_ms=device_ms(lambda: plain(x), 20))
+        k["bound_ms"], k["bound_by"] = bound(
+            2.0 * n * mlp_macs(dims), nbytes(x, *wd) + n * dims[-1] * 4)
+        per[label] = k
+        log(f"[kernel] fused_mlp {label} [{n},{dims[0]}]->"
+            f"{'->'.join(map(str, dims[1:]))} (wgmma): err by case "
+            + ", ".join(f"{c}: {v['err']:.2e}" for c, v in cases.items())
+            + f"; unaligned x bit-identical to aligned "
+            f"{cases['unaligned x']['same_bits_as_aligned']}, two runs "
+            f"bit-identical {deterministic}; {k['ms']:.4f} ms (call "
+            f"{k['call_ms']:.4f}), plain {k['plain_ms']:.4f} ms, bound "
+            f"{k['bound_ms']:.4f} ms ({k['bound_by']}); {card}")
+    regs = kernel_names(ptxas_registers(report), "3mlp14mlp_fwd")
+    spills = kernel_names(ptxas_spills(report), "3mlp14mlp_fwd")
+    log(f"[build] fused_mlp_fwd registers {regs}, spill bytes {spills}")
+    check(all(v == 0 for v in spills.values()), f"fused_mlp_fwd spills {spills}")
+    vals = list(per.values())
+    return dict(
+        shape=" and ".join(f"{label} [{n},{k['dims'][0]}]->"
+                           f"{'->'.join(map(str, k['dims'][1:]))}"
+                           for label, k in per.items())
+        + " (one export chunk, one launch a head)",
+        source="cropnerf_tpu_torch/csrc/fused_mlp_fwd.cu",
+        replaces="cropnerf_tpu/ops/pallas/fused_mlp.py:30",
+        kernel_route="wgmma", by_head=per, registers=regs, spill_bytes=spills,
+        deterministic=all(k["deterministic"] for k in vals),
+        max_abs_err=max(c["abs"] for k in vals for c in k["cases"].values()),
+        rel_err=max(c["err"] for k in vals for c in k["cases"].values()),
+        ms=sum(k["ms"] for k in vals), call_ms=sum(k["call_ms"] for k in vals),
+        plain_ms=sum(k["plain_ms"] for k in vals),
+        bound_ms=sum(k["bound_ms"] for k in vals), bound_by="bytes")
+
+
 def mlp_bwd_entry(heads, n, dev, card, report) -> dict:
-    """K3 backward on the vanilla field's two heads at the BayesRays batch
-    (N = n) and a ragged N, with and without weight gradients, against
-    autograd through the plain version.  The entry's ms and bound are the
-    two heads' dx-only backwards summed (the semantics path runs the
-    semantic head, the rgb path the colour head)."""
+    """K3 backward (csrc/fused_mlp_bwd.cu, the wgmma route) on the vanilla
+    field's two heads at the BayesRays batch (N = n), a ragged N and the
+    tiles' edges (N = 1, 63, 64, 65), with and without weight gradients,
+    against autograd through the plain version; on x and g one float into
+    larger buffers (not 16-byte aligned: the same bits as aligned copies);
+    two runs bit-identical; each call's launches on the wgmma counter
+    alone.  The entry's ms and bound are the two heads' dx-only backwards
+    summed (the semantics path runs the semantic head, the rgb path the
+    colour head)."""
     from cropnerf_tpu_torch.ops.cuda import fused_mlp as km
     g = torch.Generator(device=dev).manual_seed(12)
     per = {}
+    want = {"fused_mlp": 0, "fused_mlp_wide": 0, "fused_mlp_bwd": 1,
+            "fused_mlp_bwd_wide": 0}
     for label, wbs in heads.items():
         wd = [w.detach() for w in wbs]
         din, dout = wd[0].shape[0], wd[-2].shape[1]
+        dims = [din] + [w.shape[1] for w in wd[0::2]]
+        check(km.fused_mlp_route(din, dims[1:]) == "wgmma",
+              f"K3 backward {label} {dims} is not on the wgmma route")
         x_all = torch.randn((n, din), generator=g, device=dev)
         cot_all = torch.randn((n, dout), generator=g, device=dev)
 
@@ -997,35 +1121,53 @@ def mlp_bwd_entry(heads, n, dev, card, report) -> dict:
             return [dx] + (dw if need_dw else [])
 
         errs = {}
-        for m in (n, n - 3):
+        for m in (n, n - 3, 1, 63, 64, 65):
             xb, cot = x_all[:m].contiguous(), cot_all[:m].contiguous()
             for need_dw in (False, True):
-                got, ref = kernel(xb, cot, need_dw), plain(xb, cot, need_dw)
+                res = {}
+                launched = k3_counts(lambda: res.update(
+                    got=kernel(xb, cot, need_dw)))
+                got, ref = res["got"], plain(xb, cot, need_dw)
                 share, l2 = row_agreement(got[0], ref[0])
                 w_err, w_l2 = weight_grad_errors(got[1:], ref[1:])
                 errs[f"N={m}{' with dW' if need_dw else ' dx only'}"] = dict(
                     rows=share, dx_l2=l2, w_err=w_err, w_l2=w_l2,
                     abs=max(abs_err(a, b) for a, b in zip(got, ref)))
-                check(share >= ROW_SHARE and l2 <= GRAD_TOL
-                      and weight_grads_ok(w_err, w_l2, m),
+                check(launched == want and share >= ROW_SHARE
+                      and l2 <= GRAD_TOL and weight_grads_ok(w_err, w_l2, m),
                       f"fused_mlp_bwd {label} N={m} dW={need_dw}: rows "
-                      f"{share:.4f}, dx L2 {l2:.2e}, weights {w_err:.2e}")
+                      f"{share:.4f}, dx L2 {l2:.2e}, weights {w_err:.2e}, "
+                      f"launches {launched}")
                 if m == n:
                     again = kernel(xb, cot, need_dw)
                     check(all(torch.equal(a, b) for a, b in zip(got, again)),
                           f"fused_mlp_bwd {label} differs between two runs")
+        # x and g one float into larger buffers: not 16-byte aligned
+        xf = torch.empty((n * din + 1,), device=dev)
+        gf = torch.empty((n * dout + 1,), device=dev)
+        xu, gu = xf[1:].view(n, din), gf[1:].view(n, dout)
+        xu.copy_(x_all)
+        gu.copy_(cot_all)
+        check(xu.data_ptr() % 16 != 0 and gu.data_ptr() % 16 != 0,
+              "the unaligned case is aligned")
+        unaligned_same = all(
+            torch.equal(a, b) for need_dw in (False, True)
+            for a, b in zip(kernel(xu, gu, need_dw),
+                            kernel(x_all, cot_all, need_dw)))
+        check(unaligned_same, f"fused_mlp_bwd {label}: unaligned x and g "
+              "change the bits")
+        del xf, gf, xu, gu
         xb, cot = x_all, cot_all
-        dims = [din] + [w.shape[1] for w in wd[0::2]]
         macs = mlp_macs(dims)
         hidden = macs - dims[-2] * dims[-1]
-        k = dict(errs=errs, ms=device_ms(lambda: kernel(xb, cot, False), 20,
-                                         KERNEL_NS),
+        k = dict(errs=errs, dims=dims, unaligned_same_bits=unaligned_same,
+                 deterministic=True,
+                 ms=device_ms(lambda: kernel(xb, cot, False), 20, KERNEL_NS),
                  call_ms=cuda_ms(lambda: kernel(xb, cot, False), 20),
                  plain_ms=device_ms(lambda: plain(xb, cot, False), 5),
                  with_dw_ms=device_ms(lambda: kernel(xb, cot, True), 10,
                                       KERNEL_NS),
-                 with_dw_plain_ms=device_ms(lambda: plain(xb, cot, True), 5),
-                 dims=dims)
+                 with_dw_plain_ms=device_ms(lambda: plain(xb, cot, True), 5))
         k["bound_ms"], k["bound_by"] = bound(2.0 * n * (hidden + macs),
                                              nbytes(xb, cot, xb, *wd))
         # the weight gradients add one product and write dW once
@@ -1033,31 +1175,149 @@ def mlp_bwd_entry(heads, n, dev, card, report) -> dict:
                                       nbytes(xb, cot, xb, *wd) + nbytes(*wd))[0]
         per[label] = k
         log(f"[kernel] fused_mlp_bwd {label} [{n},{din}]->"
-            f"{'->'.join(map(str, dims[1:]))}: rows/L2/weights by case "
-            + ", ".join(f"{c}: {v['rows']:.5f}/{v['dx_l2']:.2e}/"
-                        f"{v['w_err']:.2e}" for c, v in errs.items())
-            + f"; dx only {k['ms']:.4f} ms (call {k['call_ms']:.4f}), plain "
+            f"{'->'.join(map(str, dims[1:]))} (wgmma): rows/L2/weights by "
+            "case " + ", ".join(f"{c}: {v['rows']:.5f}/{v['dx_l2']:.2e}/"
+                                f"{v['w_err']:.2e}" for c, v in errs.items())
+            + f"; unaligned x and g bit-identical to aligned {unaligned_same}"
+            f"; dx only {k['ms']:.4f} ms (call {k['call_ms']:.4f}), plain "
             f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
             f"({k['bound_by']}); with dW {k['with_dw_ms']:.4f} ms, plain "
             f"{k['with_dw_plain_ms']:.4f} ms, bound "
             f"{k['with_dw_bound_ms']:.4f} ms; {card}")
-    regs = {e: r for e, r in ptxas_registers(report).items()
-            if "bwd" in e and "Lb0E" in e}
-    spills = [line.strip() for line in report.splitlines() if "spill" in line]
-    log(f"[build] fused_mlp registers (backward entries) {regs}; "
-        + "; ".join(spills))
+    regs = kernel_names(ptxas_registers(report), "3mlp14mlp_bwd")
+    spills = kernel_names(ptxas_spills(report), "3mlp14mlp_bwd")
+    log(f"[build] fused_mlp_bwd registers {regs}, spill bytes {spills}")
+    check(all(v == 0 for v in spills.values()), f"fused_mlp_bwd spills {spills}")
     vals = list(per.values())
     return dict(
-        shape=(f"semantic head [{n},15]->64->1 and colour head [{n},74]->64"
-               f"->3, g -> dx (BayesRays: no weight gradient)"),
-        source="cropnerf_tpu_torch/csrc/fused_mlp.cu",
+        shape=" and ".join(f"{label} [{n},{k['dims'][0]}]->"
+                           f"{'->'.join(map(str, k['dims'][1:]))}"
+                           for label, k in per.items())
+        + ", g -> dx (BayesRays: no weight gradient)",
+        source="cropnerf_tpu_torch/csrc/fused_mlp_bwd.cu",
         replaces="cropnerf_tpu/ops/pallas/fused_mlp.py:45",
-        by_head=per, registers=regs,
+        kernel_route="wgmma", by_head=per, registers=regs, spill_bytes=spills,
         max_abs_err=max(e["abs"] for k in vals for e in k["errs"].values()),
         rel_err=max(e["dx_l2"] for k in vals for e in k["errs"].values()),
         ms=sum(k["ms"] for k in vals), call_ms=sum(k["call_ms"] for k in vals),
         plain_ms=sum(k["plain_ms"] for k in vals),
+        with_dw_ms=sum(k["with_dw_ms"] for k in vals),
         bound_ms=sum(k["bound_ms"] for k in vals), bound_by="bytes")
+
+
+def mlp_wide_entries(dev, card, report, n_fwd, n_bwd) -> dict:
+    """K3's wmma route (csrc/fused_mlp.cu, PRs 1 and 4) at
+    cropnerf-mxu-huge's colour head, [N, 89] -> 256 -> 3, which no path of
+    this script drives: the forward at an export chunk (N = n_fwd) and a
+    ragged N, the backward at a BayesRays batch (N = n_bwd) with and
+    without weight gradients, against the plain version, each call's
+    launches on the wmma counters alone."""
+    from cropnerf_tpu_torch.models.config import PRESETS
+    from cropnerf_tpu_torch.models.vanilla import DIR_FREQS
+    from cropnerf_tpu_torch.ops.cuda import fused_mlp as km
+    from cropnerf_tpu_torch.ops.mlp import mlp_init
+    f = PRESETS["cropnerf-mxu-huge"].model.field
+    dims = [f.geo_feat_dim + 3 * (2 * DIR_FREQS + 1)
+            + f.appearance_embedding_dim, f.hidden_dim_color, 3]
+    check(km.fused_mlp_route(dims[0], dims[1:]) == "wmma",
+          f"-huge's colour head {dims} is not on the wmma route")
+    head = mlp_init(dims[0], dims[1], dims[2], 2,
+                    torch.Generator().manual_seed(15), dev)
+    wd = [t.detach() for w, b in zip(head.w, head.b)
+          for t in (w, b.reshape(1, -1))]
+    g = torch.Generator(device=dev).manual_seed(16)
+    x = torch.randn((n_bwd, dims[0]), generator=g, device=dev)
+    cot = torch.randn((n_bwd, dims[-1]), generator=g, device=dev)
+    xf = x[:n_fwd]
+
+    def fwd(xb):
+        with torch.no_grad():
+            return km.fused_mlp(xb, wd)
+
+    def plain_fwd(xb):
+        with torch.no_grad():
+            return km.fused_mlp_plain(xb, wd)
+
+    def bwd(xb, cb, need_dw):
+        dx, dw = km.fused_mlp_bwd(xb, wd, cb, True, need_dw)
+        return [dx] + (dw if need_dw else [])
+
+    def plain_bwd(xb, cb, need_dw):
+        leaves = [xb.clone().requires_grad_(True)] + [
+            w.clone().requires_grad_(need_dw) for w in wd]
+        with torch.enable_grad():
+            out = km.fused_mlp_plain(leaves[0], leaves[1:])
+            return list(torch.autograd.grad(
+                out, leaves if need_dw else leaves[:1], cb))
+
+    res = {}
+    fwd_launches = k3_counts(lambda: res.update(out=fwd(xf)))
+    fwd_err = rel_err(res["out"], plain_fwd(xf))
+    ragged = rel_err(fwd(xf[:n_fwd - 3]), plain_fwd(xf[:n_fwd - 3]))
+    check(fwd_launches == {"fused_mlp": 0, "fused_mlp_wide": 1,
+                           "fused_mlp_bwd": 0, "fused_mlp_bwd_wide": 0}
+          and fwd_err <= TOL and ragged <= TOL,
+          f"fused_mlp wmma route: err {fwd_err:.2e}, ragged {ragged:.2e}, "
+          f"launches {fwd_launches}")
+    bwd_cases, bwd_launches = {}, {}
+    for need_dw in (False, True):
+        bwd_launches[need_dw] = k3_counts(lambda: res.update(
+            got=bwd(x, cot, need_dw)))
+        got, ref = res["got"], plain_bwd(x, cot, need_dw)
+        share, l2 = row_agreement(got[0], ref[0])
+        w_err, w_l2 = weight_grad_errors(got[1:], ref[1:])
+        bwd_cases["with dW" if need_dw else "dx only"] = dict(
+            rows=share, dx_l2=l2, w_err=w_err, w_l2=w_l2,
+            abs=max(abs_err(a, b) for a, b in zip(got, ref)))
+        check(bwd_launches[need_dw] == {"fused_mlp": 0, "fused_mlp_wide": 0,
+                                        "fused_mlp_bwd": 0,
+                                        "fused_mlp_bwd_wide": 1}
+              and share >= ROW_SHARE and l2 <= GRAD_TOL
+              and weight_grads_ok(w_err, w_l2, n_bwd),
+              f"fused_mlp_bwd wmma route dW={need_dw}: rows {share:.4f}, "
+              f"dx L2 {l2:.2e}, weights {w_err:.2e}, launches "
+              f"{bwd_launches[need_dw]}")
+    macs = mlp_macs(dims)
+    hidden = macs - dims[-2] * dims[-1]
+    regs = kernel_names(ptxas_registers(report), "fused_mlp")
+    spills = kernel_names(ptxas_spills(report), "fused_mlp")
+    shape = f"-huge's colour head [{{n}},{dims[0]}]->{dims[1]}->{dims[2]}"
+    fwd_k = dict(
+        shape=shape.format(n=n_fwd) + " (no path of this script)",
+        source="cropnerf_tpu_torch/csrc/fused_mlp.cu",
+        replaces="cropnerf_tpu/ops/pallas/fused_mlp.py:30",
+        kernel_route="wmma", launches=fwd_launches["fused_mlp_wide"],
+        rel_err=max(fwd_err, ragged),
+        max_abs_err=abs_err(res["out"], plain_fwd(xf)),
+        ms=device_ms(lambda: fwd(xf), 10, KERNEL_NS),
+        call_ms=cuda_ms(lambda: fwd(xf), 10),
+        plain_ms=device_ms(lambda: plain_fwd(xf), 10),
+        registers={e: r for e, r in regs.items() if "fwd" in e},
+        spill_bytes={e: r for e, r in spills.items() if "fwd" in e})
+    fwd_k["bound_ms"], fwd_k["bound_by"] = bound(
+        2.0 * n_fwd * macs, nbytes(xf, *wd) + n_fwd * dims[-1] * 4)
+    bwd_k = dict(
+        shape=shape.format(n=n_bwd) + ", g -> dx (no path of this script)",
+        source="cropnerf_tpu_torch/csrc/fused_mlp.cu",
+        replaces="cropnerf_tpu/ops/pallas/fused_mlp.py:45",
+        kernel_route="wmma", launches=bwd_launches[False]["fused_mlp_bwd_wide"],
+        cases=bwd_cases,
+        rel_err=max(c["dx_l2"] for c in bwd_cases.values()),
+        max_abs_err=max(c["abs"] for c in bwd_cases.values()),
+        ms=device_ms(lambda: bwd(x, cot, False), 10, KERNEL_NS),
+        call_ms=cuda_ms(lambda: bwd(x, cot, False), 10),
+        plain_ms=device_ms(lambda: plain_bwd(x, cot, False), 5),
+        registers={e: r for e, r in regs.items() if "bwd" in e},
+        spill_bytes={e: r for e, r in spills.items() if "bwd" in e})
+    bwd_k["bound_ms"], bwd_k["bound_by"] = bound(
+        2.0 * n_bwd * (hidden + macs), nbytes(x, cot, x, *wd))
+    for name, k in (("fused_mlp_wide", fwd_k), ("fused_mlp_bwd_wide", bwd_k)):
+        log(f"[kernel] {name} (wmma route, csrc/fused_mlp.cu): {k['shape']}; "
+            f"err {k['rel_err']:.2e}, {k['ms']:.4f} ms (call "
+            f"{k['call_ms']:.4f}), plain {k['plain_ms']:.4f} ms, bound "
+            f"{k['bound_ms']:.4f} ms ({k['bound_by']}), launches "
+            f"{k['launches']}; registers {k['registers']}; {card}")
+    return {"fused_mlp_wide": fwd_k, "fused_mlp_bwd_wide": bwd_k}
 
 
 def uncertainty_phase(dev, card, bank, cams, kernels) -> tuple:
@@ -1804,15 +2064,18 @@ def main() -> None:
     col_wbs = [w for pair in zip(params.field.mlp_color.w,
                                  params.field.mlp_color.b)
                for w in (pair[0], pair[1].reshape(1, -1))]
+    def head_net(wbs):
+        """(din, dout, layers) of a head, as the wgmma kernels' layouts
+        take it."""
+        return wbs[0].shape[0], wbs[-2].shape[1], len(wbs) // 2
+
     smem = {
         "fused_pe_nerf": kfield.smem_bytes(kfield.pack_pe_field(
             3, POS_FREQS, base, top, color, sem, de=de, device=dev)[2], True),
         "fused_pe_density": kfield.smem_bytes(kfield.pack_pe_field(
             3, POS_FREQS, base, top, device=dev)[2], False),
-        "fused_mlp semantic head": kmlp.smem_bytes(kmlp.pack_mlp(
-            sem_wbs[0].shape[0], sem_wbs, dev)[2]),
-        "fused_mlp colour head": kmlp.smem_bytes(kmlp.pack_mlp(
-            col_wbs[0].shape[0], col_wbs, dev)[2])}
+        "fused_mlp semantic head": kmlp.mlp_layout(*head_net(sem_wbs))[2],
+        "fused_mlp colour head": kmlp.mlp_layout(*head_net(col_wbs))[2]}
     log("[build] dynamic shared memory per block at the path's widths: "
         + ", ".join(f"{k} {v} B" for k, v in smem.items()))
     check(all(v > 0 for v in smem.values()), f"kernel layouts {smem}")
@@ -1950,29 +2213,11 @@ def main() -> None:
             flops=2.0 * n2 * trunk_macs,
             bytes=nbytes(x2, *base, *top) + nbytes(got))
 
-        # K3 fused_mlp: the export's semantic and colour heads, same chunk
-        geo = torch.randn((n2, fcfg.geo_feat_dim), generator=g, device=dev)
-        cin = torch.randn((n2, col_wbs[0].shape[0]), generator=g, device=dev)
-        k3 = lambda: (fused_mlp(geo, sem_wbs), fused_mlp(cin, col_wbs))  # noqa: E731
-        p3 = lambda: (fused_mlp_plain(geo, sem_wbs), fused_mlp_plain(cin, col_wbs))  # noqa: E731
-        got, ref = k3(), p3()
-        gr, cr = geo[:n2 - 3].contiguous(), cin[:n2 - 3].contiguous()
-        ragged = max(rel_err(fused_mlp(gr, sem_wbs), fused_mlp_plain(gr, sem_wbs)),
-                     rel_err(fused_mlp(cr, col_wbs), fused_mlp_plain(cr, col_wbs)))
-        kernels["fused_mlp"] = dict(
-            shape=(f"semantic head [{n2},{geo.shape[1]}]->64->1 and colour "
-                   f"head [{n2},{cin.shape[1]}]->64->3 (one export chunk)"),
-            source="cropnerf_tpu_torch/csrc/fused_mlp.cu",
-            replaces="cropnerf_tpu/ops/pallas/fused_mlp.py:30",
-            rel_err=max(rel_err(a, b) for a, b in zip(got, ref)),
-            max_abs_err=max(abs_err(a, b) for a, b in zip(got, ref)),
-            ragged_n=n2 - 3, ragged_rel_err=ragged,
-            ms=device_ms(k3, 20, KERNEL_NS), call_ms=cuda_ms(k3, 20),
-            plain_ms=device_ms(p3, 20),
-            flops=2.0 * n2 * (mlp_macs([geo.shape[1], 64, 1])
-                              + mlp_macs([cin.shape[1], 64, 3])),
-            bytes=nbytes(geo, cin, *sem_wbs, *col_wbs, *got))
 
+    # K3 fused_mlp: the export's semantic and colour heads, same chunk
+    heads = {"semantic head": sem_wbs, "colour head": col_wbs}
+    kernels["fused_mlp"] = mlp_fwd_entry(heads, n2, dev, card,
+                                         reports["fused_mlp_fwd"])
     fwd_regs = short_names(ptxas_registers(reports["fused_pe_field"]))
     fwd_spills = short_names(ptxas_spills(reports["fused_pe_field"]))
     for name in ("fused_pe_nerf", "fused_pe_nerf_bwd", "fused_pe_density"):
@@ -1987,7 +2232,7 @@ def main() -> None:
         check(k["deterministic"], f"{name} differs between two runs")
     k1b = kernels["fused_pe_nerf_bwd"]
     for name, k in kernels.items():
-        if name in ("fused_pe_density_bwd", "fused_mlp_bwd"):
+        if name in ("fused_pe_density_bwd", "fused_mlp", "fused_mlp_bwd"):
             continue                      # checked and logged by their entries
         k["bound_ms"], k["bound_by"] = bound(k["flops"], k["bytes"])
         tol = GRAD_TOL if "rows" in k else TOL
@@ -2022,10 +2267,10 @@ def main() -> None:
             3, POS_FREQS, base, top, color, sem, de=de, device=dev)[2]),
         "trunk only": kfield.bwd_smem_bytes(kfield.pack_pe_field(
             3, POS_FREQS, base, top, device=dev)[2], False),
-        "fused_mlp semantic head": kmlp.bwd_smem_bytes(kmlp.pack_mlp(
-            sem_wbs[0].shape[0], sem_wbs, dev)[2]),
-        "fused_mlp colour head": kmlp.bwd_smem_bytes(kmlp.pack_mlp(
-            col_wbs[0].shape[0], col_wbs, dev)[2])}
+        "fused_mlp semantic head": kmlp.mlp_layout(*head_net(sem_wbs),
+                                                   False)[4],
+        "fused_mlp colour head": kmlp.mlp_layout(*head_net(col_wbs),
+                                                 False)[4]}
     log(f"[build] fused_pe_field_bwd registers {regs}, spill bytes "
         f"{spills}; backward dynamic "
         f"shared memory per block: "
@@ -2033,9 +2278,9 @@ def main() -> None:
     n_unc = RAYS * m.num_nerf_samples_per_ray        # one BayesRays batch
     kernels["fused_pe_density_bwd"] = density_bwd_entry(
         base, top, trunk_macs, n_unc, dev, card, reports["fused_pe_field_bwd"])
-    kernels["fused_mlp_bwd"] = mlp_bwd_entry(
-        {"semantic head": sem_wbs, "colour head": col_wbs}, n_unc, dev, card,
-        reports["fused_mlp"])
+    kernels["fused_mlp_bwd"] = mlp_bwd_entry(heads, n_unc, dev, card,
+                                             reports["fused_mlp_bwd"])
+    k3_wide = mlp_wide_entries(dev, card, reports["fused_mlp"], n2, n_unc)
     hash_k = hash_kernels(PRESETS["cropnerf"], dev, card,
                           reports["hash_encode"])
 
@@ -2067,9 +2312,8 @@ def main() -> None:
     out_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_export_"))
 
     path_kernels = (fused_pe_nerf, fused_pe_nerf_bwd, fused_pe_density,
-                    fused_pe_density_bwd, fused_mlp, fused_mlp_bwd)
-    for fn in path_kernels:
-        fn.launches = 0
+                    fused_pe_density_bwd, fused_mlp, fused_mlp_bwd,
+                    kmlp.fused_mlp_wide, kmlp.fused_mlp_bwd_wide)
     result = {}
     steps = {
         "forward": lambda: result.update(fwd=forward(params, rb, m)),
@@ -2078,13 +2322,26 @@ def main() -> None:
         "export": lambda: result.update(paths=export_and_write(
             params, m, aabb, out_dir, num_points_per_side=EXPORT_SIDE,
             render_rgb=True, **thresholds))}
-    first_ms = {step: wall_ms(fn) for step, fn in steps.items()}
-    launches = {fn.__name__: fn.launches for fn in path_kernels}
-    log(f"[path] launches on the serving path: {launches}")
-    check(all(v > 0 for k, v in launches.items() if not k.endswith("_bwd")),
+    first_ms, step_launches = {}, {}
+    for step, fn in steps.items():
+        step_launches[step] = counted(path_kernels, lambda step=step, fn=fn:
+                                      first_ms.update({step: wall_ms(fn)}))
+        log(f"[path] launches of the {step}: {step_launches[step]}")
+    launches = {name: sum(n[name] for n in step_launches.values())
+                for name in step_launches["forward"]}
+    check(all(v > 0 for k, v in launches.items() if "_bwd" not in k
+              and "wide" not in k),
           f"a kernel of the path never launched: {launches}")
-    check(all(v == 0 for k, v in launches.items() if k.endswith("_bwd")),
+    check(all(v == 0 for k, v in launches.items() if "_bwd" in k),
           "serving recorded a graph and ran a backward")
+    # K3 runs each head once an export chunk, on the wgmma kernels alone
+    n_chunks = -(-EXPORT_SIDE ** 2 // EXPORT_RAYS)
+    want_k3 = {"forward": 0, "render": 0, "export": 2 * n_chunks}
+    for step, n in want_k3.items():
+        got = step_launches[step]
+        check(got["fused_mlp"] == n and got["fused_mlp_wide"] == 0,
+              f"K3 launches of the {step}: {got}, expected fused_mlp {n} "
+              f"and fused_mlp_wide 0")
     # steady state: the first calls above also grew the allocator's pools
     runs_ms = {step: [wall_ms(fn) for _ in range(REPEATS)]
                for step, fn in steps.items()}
@@ -2290,7 +2547,8 @@ def main() -> None:
 
     # ---- 7. report ---------------------------------------------------------
     unc_mxu = unc["cropnerf-mxu"]["launches"]
-    by_path = {name: {"serving": launches[name],
+    by_path = {name: {"serving": {step: n[name]
+                                  for step, n in step_launches.items()},
                       "train": train_launches[name],
                       "uncertainty": unc_mxu[name]} for name in kernels}
     # each kernel's main path: K1 the training step, K2 and K3 forward the
@@ -2308,8 +2566,20 @@ def main() -> None:
         bound_ms=k["bound_ms"], bound_by=k["bound_by"], library_ms=None,
         shape=k["shape"], card=card,
         **{key: k[key] for key in ("passes", "with_dw_passes", "registers",
-                                   "spill_bytes") if key in k})
+                                   "spill_bytes", "kernel_route", "by_head",
+                                   "deterministic", "with_dw_ms")
+           if key in k})
         for name, k in kernels.items()] + [dict(
+        name=name, route="cuda", source=k["source"], replaces=k["replaces"],
+        launches=k["launches"],
+        launches_by_path={"its phase at -huge's colour head": k["launches"],
+                          "model paths of this script": 0},
+        max_abs_err=k["max_abs_err"], rel_err=k["rel_err"], ms=k["ms"],
+        call_ms=k["call_ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+        bound_by=k["bound_by"], library_ms=None, shape=k["shape"], card=card,
+        kernel_route=k["kernel_route"], registers=k["registers"],
+        spill_bytes=k["spill_bytes"])
+        for name, k in k3_wide.items()] + [dict(
         name=name, route="cuda", source=k["source"], replaces=k["replaces"],
         launches=hash_train["launches"][name],
         launches_by_path={

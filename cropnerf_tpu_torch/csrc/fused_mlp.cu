@@ -1,6 +1,10 @@
 // Fused relu MLP, forward and recompute-backward, for Hopper (sm_90a); and
 // the forward of the same MLP on the positional encoding of its input
-// (template PE; its backward is fused_pe_mlp_bwd.cu).
+// (template PE; its backward is fused_pe_mlp_bwd.cu).  The "wmma" route of
+// ops/cuda/fused_mlp.py fused_mlp_route and pe_mlp_fwd_route: the nets the
+// wgmma kernels (fused_mlp_fwd.cu and fused_mlp_bwd.cu, fused_pe_mlp_fwd.cu)
+// do not take, such as the 128- and 256-wide heads of cropnerf-mxu-big and
+// -huge and cropnerf-mxu-q's 128-wide PE proposal nets.
 //
 // Replaces the Pallas kernels cropnerf_tpu/ops/pallas/fused_mlp.py
 // _fwd_kernel: x [N, Din] -> (W0, b0) -> relu -> ... -> (W_last, b_last)
@@ -425,14 +429,6 @@ extern "C" int cropnerf_fused_pe_mlp_fwd(const float* x, float* out,
   if (pe_dim < 1 || !parse(meta, meta_len, pe_dim, num_freqs, &d))
     return (int)cudaErrorInvalidValue;
   return launch_fwd<true>(x, out, w, b, d, n_rows, stream);
-}
-
-// Dynamic shared memory of the forward, with or without PE.
-extern "C" int cropnerf_fused_mlp_smem_bytes(const int* meta, int meta_len) {
-  using namespace cropnerf;
-  MlpDesc d;
-  if (!parse(meta, meta_len, 0, 0, &d)) return -1;
-  return mlp_smem_bytes(d);
 }
 
 // Sizes for the backward: out[0] f32 weight partials

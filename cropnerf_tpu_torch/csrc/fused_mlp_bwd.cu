@@ -1,0 +1,547 @@
+// The vanilla field's heads' recompute backward (fused_mlp) for Hopper
+// (sm_90a).
+//
+// Replaces cropnerf_tpu/ops/pallas/fused_mlp.py _bwd_kernel (the backward
+// of fused_mlp) for the nets fused_mlp_fwd.cu takes: x [N, din] through a
+// relu MLP of 2 or 3 layers, hidden layers at most 64 wide, din at most
+// 128, at most 16 outputs.  Given the cotangent g [N, dout] it returns dx
+// [N, din] and the f32 gradient of every weight and bias, each only where
+// asked.
+//
+// Arithmetic, as the TPU kernel: the forward is recomputed in bf16 with
+// f32 sums; relu masks come from the bf16 activations; the cotangents stay
+// f32 and are rounded to bf16 only as product operands; dx is the f32 sum
+// G_0·W_0ᵀ; bias gradients are f32 column sums of the unrounded
+// cotangents.
+//
+// Bound on an H100: bytes.  The BayesRays pass asks for dx alone: the
+// colour head reads x and g and writes dx, 604 bytes a row, for ~10 kMAC
+// (the hidden layer's recompute and two input gradients), ~33 FLOP a byte.
+// So dx is the whole cost, and the kernel moves x, g and dx by bulk copies
+// with nothing else through device memory.
+//
+// Design.  The forward kernel's skeleton: persistent blocks of up to four
+// warpgroups (two with weight gradients), 64-row tiles in a fixed order,
+// the whole net resident in shared memory (both halves of mlp_images: the
+// forward images and the input-gradient images of Wᵀ).  Per tile a
+// warpgroup:
+//   1. waits for its x and g tiles, bulk-copied into one of two stages
+//      while the previous tile ran (the ragged last tile, or an x or g not
+//      16-byte aligned, by the threads, rows past N as zero);
+//   2. recomputes the hidden layers as wgmma m64n64 products fed from
+//      registers, keeping each bf16 activation in registers: they are the
+//      relu masks;
+//   3. goes back through the layers with the cotangents in registers:
+//      G·W_lᵀ as wgmma with G the register A operand, the relu mask and the
+//      bf16 rounding in registers; dx = G_0·W_0ᵀ in 16-column products,
+//      staged over the x tile it no longer needs and written back by one
+//      bulk store.
+// Without weight gradients that is all: no column sum, no barrier for one.
+// With them, the activations and cotangents also go to chunk-major tiles,
+// and dW_l += A_lᵀ·G_l runs as wgmma with both operands MN-major from
+// those tiles (layer 0 as dW_0ᵀ += G_0ᵀ·A_0, one 16-column block of A_0 at
+// a time), the relu masks read back from the activations' tiles; the sums
+// stay in registers across all of a warpgroup's tiles, and each warp adds
+// its rows' bias-gradient column sums into its own row in shared memory.
+// At the end the block adds its warpgroups' sums in order into its partial
+// row, and fixed-order column sums reduce the blocks' rows.  No atomics: the plan depends on N and the
+// SM count alone, so two runs give the same bits.  Rows past N load zero x
+// and zero cotangents, so they add nothing.
+#include "bwd_layers.cuh"
+#include "wgmma_mlp.cuh"
+
+namespace cropnerf {
+namespace mlp {
+
+// Warpgroups a block, at most: four with dx alone (three for a 3-layer net,
+// whose two activations stay in registers as masks), two with the weight
+// gradients in registers.
+__host__ __device__ constexpr int bwd_max_wgs(int nl, bool dw) {
+  return dw ? 2 : nl == 3 ? 3 : 4;
+}
+
+__device__ __forceinline__ float bf_lo(uint32_t p) { return __uint_as_float(p << 16); }
+__device__ __forceinline__ float bf_hi(uint32_t p) { return __uint_as_float(p & 0xffff0000u); }
+
+// A warp's column sums of a thread's f32 sums over its lanes with the same
+// columns (lane % 4), in a fixed shuffle order.
+__device__ __forceinline__ float warp_colsum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  v += __shfl_xor_sync(0xffffffffu, v, 16);
+  return v;
+}
+
+// The output cotangent as the register A operand of G·W_lastᵀ (one k-step
+// of 16 columns, zero past dout); with DB its f32 column sums over the
+// warp's 16 rows added into the warp's bias row `brow`.
+template <bool DB>
+__device__ __forceinline__ void g_to_a(uint32_t (&a)[4], const float* t, int dout, float* brow,
+                                       const Lane& ln) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int c = ln.cq + 8 * h;
+    const float* p0 = t + ln.r0 * dout + c;
+    const float* p1 = p0 + 8 * dout;
+    const float u0 = c < dout ? p0[0] : 0.0f, u1 = c + 1 < dout ? p0[1] : 0.0f;
+    const float w0 = c < dout ? p1[0] : 0.0f, w1 = c + 1 < dout ? p1[1] : 0.0f;
+    a[2 * h] = bf16_pair(u0, u1);
+    a[2 * h + 1] = bf16_pair(w0, w1);
+    if (DB) {
+      const float s0 = warp_colsum(u0 + w0), s1 = warp_colsum(u1 + w1);
+      if (ln.lane < 4) {
+        brow[c] += s0;
+        brow[c + 1] += s1;
+      }
+    }
+  }
+}
+
+// The cotangent of the layer below from acc = G·W_lᵀ: the relu mask of the
+// bf16 activation `act` (the forward's A operand registers) applied in f32,
+// rounded to the register A operand g of the next product; with DB the f32
+// column sums over the warp's 16 rows added into the warp's bias row.
+template <bool DB>
+__device__ __forceinline__ void mask_to_g(uint32_t (&g)[HW / 16][4], const float (&acc)[HW / 2],
+                                          const uint32_t (&act)[HW / 16][4], float* brow,
+                                          const Lane& ln) {
+#pragma unroll
+  for (int s = 0; s < HW / 16; ++s) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int j = 2 * s + h;
+      const uint32_t m0 = act[s][2 * h], m1 = act[s][2 * h + 1];
+      const float v0 = bf_lo(m0) > 0.0f ? acc[4 * j] : 0.0f;
+      const float v1 = bf_hi(m0) > 0.0f ? acc[4 * j + 1] : 0.0f;
+      const float v2 = bf_lo(m1) > 0.0f ? acc[4 * j + 2] : 0.0f;
+      const float v3 = bf_hi(m1) > 0.0f ? acc[4 * j + 3] : 0.0f;
+      g[s][2 * h] = bf16_pair(v0, v1);
+      g[s][2 * h + 1] = bf16_pair(v2, v3);
+      if (DB) {
+        const float s0 = warp_colsum(v0 + v2), s1 = warp_colsum(v1 + v3);
+        if (ln.lane < 4) {
+          brow[8 * j + ln.cq] += s0;
+          brow[8 * j + ln.cq + 1] += s1;
+        }
+      }
+    }
+  }
+}
+
+// One 16-column step s of a register A operand into a chunk-major tile.
+__device__ __forceinline__ void store_step(bf16* t, int s, const uint32_t (&a)[4],
+                                           const Lane& ln) {
+  const int c = 16 * s + ln.cq;
+  *reinterpret_cast<uint32_t*>(t + cm(ln.r0, c)) = a[0];
+  *reinterpret_cast<uint32_t*>(t + cm(ln.r0 + 8, c)) = a[1];
+  *reinterpret_cast<uint32_t*>(t + cm(ln.r0, c + 8)) = a[2];
+  *reinterpret_cast<uint32_t*>(t + cm(ln.r0 + 8, c + 8)) = a[3];
+}
+
+// The register A operand of a 64-column chunk-major tile (the inverse of
+// store_tile).
+__device__ __forceinline__ void load_tile(uint32_t (&a)[HW / 16][4], const bf16* t,
+                                          const Lane& ln) {
+#pragma unroll
+  for (int s = 0; s < HW / 16; ++s) {
+    const int c = 16 * s + ln.cq;
+    a[s][0] = *reinterpret_cast<const uint32_t*>(t + cm(ln.r0, c));
+    a[s][1] = *reinterpret_cast<const uint32_t*>(t + cm(ln.r0 + 8, c));
+    a[s][2] = *reinterpret_cast<const uint32_t*>(t + cm(ln.r0, c + 8));
+    a[s][3] = *reinterpret_cast<const uint32_t*>(t + cm(ln.r0 + 8, c + 8));
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_tile(bf16* t, const uint32_t (&a)[N][4], int steps,
+                                           const Lane& ln) {
+#pragma unroll
+  for (int s = 0; s < N; ++s)
+    if (s < steps) store_step(t, s, a[s], ln);
+}
+
+// row[i·n + c] (=, or += unless `first`) the accumulators of a 64 x n
+// weight gradient (rows r0, r0 + 8 and columns 8j + cq (+1) of the thread).
+template <int R>
+__device__ __forceinline__ void add_rows(float* row, int n, const float (&v)[R], bool first,
+                                         const Lane& ln) {
+#pragma unroll
+  for (int j = 0; j < R / 4; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float* p = row + (ln.r0 + 8 * h) * n + 8 * j + ln.cq + e;
+        const float x = v[4 * j + 2 * h + e];
+        *p = first ? x : *p + x;
+      }
+    }
+  }
+}
+
+template <int NL, bool DW, bool DX>
+__global__ void __launch_bounds__(128 * bwd_max_wgs(NL, DW), 1)
+mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g_out,
+               float* __restrict__ dx, const bf16* __restrict__ img,
+               const float* __restrict__ bias, float* __restrict__ wpart,
+               float* __restrict__ bpart, long long n_rows, int din, int dout, int in_al,
+               int dx_al) {
+  const Layout L(din, dout, NL);
+  const BwdSmem S(L, DW);
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Lane ln;
+  const int wgs = blockDim.x >> 7;
+  const int xb = L.x_bytes(), ob = L.o_bytes();
+  unsigned char* reg = smem + S.wg_at + ln.wg * S.wg_bytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(reg + S.bar_at);
+  const float* sbias = reinterpret_cast<const float*>(smem + S.bias_at);
+  const uint32_t s_img = smem_u32(smem);
+  auto fimg = [&](int l) { return s_img + L.fw_off(l) * 2; };
+  auto bimg = [&](int l) { return s_img + L.bw_off(l) * 2; };
+  bf16* a0t = reinterpret_cast<bf16*>(reg + S.a0_at);                 // A_0
+  auto aht = [&](int l) {                                              // A_l, l >= 1
+    return reinterpret_cast<bf16*>(reg + S.ah_at + (l - 1) * TILE_BYTES);
+  };
+  bf16* glt = reinterpret_cast<bf16*>(reg + S.gl_at);                 // G_{NL-1}
+  auto ght = [&](int l) {                                              // G_l, l < NL - 1
+    return reinterpret_cast<bf16*>(reg + S.gh_at + l * TILE_BYTES);
+  };
+  // the bias gradients' column sums: one row a warp, for the whole kernel
+  float* bsum = reinterpret_cast<float*>(smem + S.bsum_at(wgs));
+  float* brow = bsum + (ln.wg * 4 + ln.warp) * L.n_bias();
+  const int bar = 1 + ln.wg;
+  const bool elected = ln.t == 0;
+
+  // the net, once per block; the stages' barriers; the bias rows zero
+  {
+    const uint4* src = reinterpret_cast<const uint4*>(img);
+    uint4* dst = reinterpret_cast<uint4*>(smem);
+    for (int i = threadIdx.x; i < S.bias_at / 16; i += blockDim.x) dst[i] = __ldg(src + i);
+    float* b = reinterpret_cast<float*>(smem + S.bias_at);
+    for (int i = threadIdx.x; i < L.n_bias(); i += blockDim.x) b[i] = __ldg(bias + i);
+    if (elected) {
+      mbar_init(&full[0], 1);
+      mbar_init(&full[1], 1);
+      mbar_fence_init();
+    }
+    if (DW)
+      for (int i = threadIdx.x; i < wgs * 4 * L.n_bias(); i += blockDim.x) bsum[i] = 0.0f;
+  }
+  fence_async_smem();
+  __syncthreads();
+
+  // weight gradient sums over the warpgroup's tiles
+  float dw0[MAX_KB][8];                // dW_0ᵀ by 16-column blocks of kp
+  float dwh[NL == 3 ? HW / 2 : 1];     // dW_1 of a 3-layer net
+  float dwl[OW / 2];                   // dW of the last layer
+  if constexpr (DW) {
+#pragma unroll
+    for (int i = 0; i < MAX_KB; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) dw0[i][j] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < (NL == 3 ? HW / 2 : 1); ++i) dwh[i] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < OW / 2; ++i) dwl[i] = 0.0f;
+  }
+
+  const int kb = L.kp >> 4;
+  const long long n_tiles = (n_rows + ROWS - 1) / ROWS;
+  const long long stride = (long long)gridDim.x * wgs;
+  auto bulk_in = [&](long long t) { return in_al && (t + 1) * ROWS <= n_rows; };
+  // the elected thread's half of a tile's arrival on stage s: bulk copies
+  // of x and g, or a bare arrival where the threads load them
+  auto issue = [&](long long t, int s) {
+    if (t >= n_tiles) return;
+    unsigned char* st = reg + s * S.stage_bytes;
+    if (bulk_in(t)) {
+      mbar_expect_tx(&full[s], xb + ob);
+      bulk_load(st, x + t * ROWS * din, xb, &full[s]);
+      bulk_load(st + xb, g_out + t * ROWS * dout, ob, &full[s]);
+    } else {
+      mbar_arrive(&full[s]);
+    }
+  };
+  long long tile = (long long)blockIdx.x * wgs + ln.wg;
+  if (elected) issue(tile, 0);
+
+  float acc[HW / 2];
+  uint32_t a0[MAX_KB][4];
+  uint32_t act[NL - 1][HW / 16][4];    // A_l (l >= 1), bf16 pairs: the relu masks
+  uint32_t mask[HW / 16][4];           // with dW, a mask read back from its tile
+  uint32_t gh[HW / 16][4];             // the hidden cotangent, bf16 pairs
+  uint32_t gl[4];                      // the output cotangent, bf16 pairs
+  for (int it = 0; tile < n_tiles; tile += stride, ++it) {
+    const int s = it & 1;
+    const long long row0 = tile * ROWS;
+    float* xt = reinterpret_cast<float*>(reg + s * S.stage_bytes);
+    float* gt = reinterpret_cast<float*>(reg + s * S.stage_bytes + xb);
+    if (elected) {
+      bulk_wait_read();                  // the previous tile's dx store has read its stage
+      issue(tile + stride, s ^ 1);       // the next tile, under this one
+    }
+    mbar_wait(&full[s], (it >> 1) & 1);
+    if (!bulk_in(tile)) {
+      load_rows(xt, x, row0, din, n_rows, ln);
+      load_rows(gt, g_out, row0, dout, n_rows, ln);
+      named_sync(bar, 128);
+    }
+
+    // ---- 1. the stages into registers (and, for dW, into operand tiles)
+    x_to_a(a0, xt, din, kb, ln);
+    g_to_a<DW>(gl, gt, dout, brow + L.b_off(NL - 1), ln);
+    if constexpr (DW) {
+      store_tile(a0t, a0, kb, ln);
+      store_step(glt, 0, gl, ln);
+      fence_async_smem();
+    }
+    named_sync(bar, 128);                // the stage is read
+
+    // ---- 2. the forward: A_{l+1} = bf16(relu(A_l W_l + b_l)) in registers
+    wgmma_fence();
+    mma_layer0(acc, a0, fimg(0), kb);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    relu_to_a(act[0], acc, sbias + L.b_off(0), ln);
+    if constexpr (NL == 3) {
+      wgmma_fence();
+      mma_regs<HW>(acc, act[0], fimg(1));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      relu_to_a(act[1], acc, sbias + L.b_off(1), ln);
+    }
+    if constexpr (DW) {
+#pragma unroll
+      for (int l = 1; l < NL; ++l) store_tile(aht(l), act[l - 1], HW / 16, ln);
+      fence_async_smem();
+      named_sync(bar, 128);
+    }
+
+    // ---- 3. back through the layers: the last layer's input gradient (one
+    // k-step) and weight gradient
+    wgmma_fence();
+    if constexpr (DW) mma_dw<OW>(dwl, smem_u32(aht(NL - 1)), smem_u32(glt));
+    WgmmaRA<HW, 0>::mma(acc, gl, gmma_desc(bimg(NL - 1), HW * 16, 128), 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if constexpr (DW) fence_regs(dwl);
+    // G_{NL-2} = mask(A_{NL-1}) (G_{NL-1}·W_{NL-1}ᵀ); with dW the mask is
+    // read back from A's tile, so no activation stays in registers
+    if constexpr (DW) load_tile(mask, aht(NL - 1), ln);
+    mask_to_g<DW>(gh, acc, DW ? mask : act[NL - 2], brow + L.b_off(NL - 2), ln);
+    if constexpr (NL == 3) {
+      // the hidden layer: G_0 = mask(A_1) (G_1·W_1ᵀ), dW_1 += A_1ᵀ·G_1
+      if constexpr (DW) {
+        store_tile(ght(1), gh, HW / 16, ln);
+        fence_async_smem();
+        named_sync(bar, 128);
+      }
+      wgmma_fence();
+      if constexpr (DW) mma_dw<HW>(dwh, smem_u32(aht(1)), smem_u32(ght(1)));
+      mma_regs<HW>(acc, gh, bimg(1));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if constexpr (DW) fence_regs(dwh);
+      if constexpr (DW) load_tile(mask, aht(1), ln);
+      mask_to_g<DW>(gh, acc, DW ? mask : act[0], brow + L.b_off(0), ln);
+    }
+    if constexpr (DW) {
+      // dW_0ᵀ += G_0ᵀ·A_0, a 16-column block of A_0 at a time
+      store_tile(ght(0), gh, HW / 16, ln);
+      fence_async_smem();
+      named_sync(bar, 128);
+      wgmma_fence();
+#pragma unroll
+      for (int cb = 0; cb < MAX_KB; ++cb)
+        if (cb < kb) mma_dw<16>(dw0[cb], smem_u32(ght(0)), smem_u32(a0t) + cb * 2048);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int cb = 0; cb < MAX_KB; ++cb) fence_regs(dw0[cb]);
+    }
+
+    // ---- 4. dx = G_0·W_0ᵀ, two 16-column products a group, staged over
+    // the x tile for one bulk store, or stored by the threads that hold it
+    if constexpr (DX) {
+      const bool bulk_out = dx_al && (tile + 1) * ROWS <= n_rows;
+      for (int cb = 0; cb < kb; cb += 2) {
+        float d[2][8];
+        wgmma_fence();
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          if (cb + u < kb) {
+#pragma unroll
+            for (int k = 0; k < HW / 16; ++k)
+              WgmmaRA<16, 0>::mma(
+                  d[u], gh[k],
+                  gmma_desc(bimg(0) + 2 * k * L.kp * 16 + (cb + u) * 256, L.kp * 16, 128),
+                  k > 0 ? 1 : 0);
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(d[0]);
+        fence_regs(d[1]);
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          if (cb + u >= kb) continue;
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int c = 16 * (cb + u) + 8 * j + ln.cq;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int r = ln.r0 + 8 * h;
+              float* o = bulk_out ? xt + r * din + c : dx + (row0 + r) * din + c;
+              if (bulk_out || row0 + r < n_rows) {
+                if (c < din) o[0] = d[u][4 * j + 2 * h];
+                if (c + 1 < din) o[1] = d[u][4 * j + 2 * h + 1];
+              }
+            }
+          }
+        }
+      }
+      if (bulk_out) {
+        fence_async_smem();
+        named_sync(bar, 128);
+        if (elected) {
+          bulk_store(dx + row0 * din, xt, xb);
+          bulk_commit();
+        }
+      }
+    }
+  }
+  if (elected) bulk_wait();
+
+  if constexpr (DW) {
+    // the block's partial row: its warpgroups' weight sums in order, then
+    // the bias rows of every warp in order
+    float* wrow = wpart + (long long)blockIdx.x * L.fwd_elems();
+    for (int w = 0; w < wgs; ++w) {
+      if (ln.wg == w) {
+        // dW_0 [kp, HW] from the blocks of dW_0ᵀ: (16cb + 8j + cq + e, r0 + 8h)
+#pragma unroll
+        for (int cb = 0; cb < MAX_KB; ++cb) {
+          if (cb >= kb) continue;
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                float* p = wrow + L.fw_off(0) + (16 * cb + 8 * j + ln.cq + e) * HW + ln.r0 + 8 * h;
+                const float v = dw0[cb][4 * j + 2 * h + e];
+                *p = w == 0 ? v : *p + v;
+              }
+        }
+        if constexpr (NL == 3) add_rows(wrow + L.fw_off(1), HW, dwh, w == 0, ln);
+        add_rows(wrow + L.fw_off(NL - 1), OW, dwl, w == 0, ln);
+      }
+      __syncthreads();
+    }
+    for (int c = threadIdx.x; c < L.n_bias(); c += blockDim.x) {
+      float v = 0.0f;
+      for (int q = 0; q < 4 * wgs; ++q) v += bsum[q * L.n_bias() + c];
+      bpart[(long long)blockIdx.x * L.n_bias() + c] = v;
+    }
+  }
+}
+
+// Warpgroups a block of the backward: as many as fit, up to its maximum.
+static int bwd_wgs(const Layout& L, bool dw) {
+  const BwdSmem S(L, dw);
+  int wgs = bwd_max_wgs(L.nl, dw);
+  while (wgs > 0 && S.total(wgs) > 232448) --wgs;
+  return wgs;
+}
+
+template <int NL, bool DW, bool DX>
+static int launch(const float* x, const float* g, float* dx, const void* img, const float* bias,
+                  float* wpart, float* bpart, long long n_rows, int din, int dout, int blocks,
+                  int wgs, cudaStream_t s) {
+  auto k = mlp_bwd_kernel<NL, DW, DX>;
+  const int smem = BwdSmem(Layout(din, dout, NL), DW).total(wgs);
+  cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int in_al = (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
+                    (reinterpret_cast<uintptr_t>(g) & 15) == 0;
+  const int dx_al = (reinterpret_cast<uintptr_t>(dx) & 15) == 0;
+  k<<<(unsigned)blocks, 128 * wgs, smem, s>>>(x, g, dx, reinterpret_cast<const bf16*>(img), bias,
+                                              wpart, bpart, n_rows, din, dout, in_al, dx_al);
+  return (int)cudaGetLastError();
+}
+
+template <int NL>
+static int run(const float* x, const float* g, float* dx, const void* img, const float* bias,
+               float* wpart, float* bpart, float* dw, float* db, long long n_rows, int din,
+               int dout, int blocks, int wgs, cudaStream_t s) {
+  const bool need_dw = wpart != nullptr, need_dx = dx != nullptr;
+  int err;
+  if (need_dw && need_dx)
+    err = launch<NL, true, true>(x, g, dx, img, bias, wpart, bpart, n_rows, din, dout, blocks,
+                                 wgs, s);
+  else if (need_dw)
+    err = launch<NL, true, false>(x, g, dx, img, bias, wpart, bpart, n_rows, din, dout, blocks,
+                                  wgs, s);
+  else
+    err = launch<NL, false, true>(x, g, dx, img, bias, wpart, bpart, n_rows, din, dout, blocks,
+                                  wgs, s);
+  if (err || !need_dw) return err;
+  const Layout L(din, dout, NL);
+  err = column_sum(wpart, blocks, L.fwd_elems(), dw, s);
+  if (err) return err;
+  return column_sum(bpart, blocks, L.n_bias(), db, s);
+}
+
+}  // namespace mlp
+}  // namespace cropnerf
+
+// Sizes of the backward for a net x [N, din] -> n_layers layers -> dout,
+// with or without weight gradients: out[0] the elements of the weight
+// images (bf16; both halves of mlp_images), out[1] the padded biases,
+// out[2] and out[3] a block's partial row of weight and bias gradients
+// (layer l's padded weight [K, width] at its forward image's offset, its
+// bias at l·64), out[4] the dynamic shared memory, out[5] the warpgroups a
+// block.  Returns 0, or -1 for a net the kernel does not take.
+extern "C" int cropnerf_mlp_bwd_layout(int din, int dout, int n_layers, int need_dw,
+                                       long long* out) {
+  using namespace cropnerf::mlp;
+  const Layout L(din, dout, n_layers);
+  if (!L.ok()) return -1;
+  const int wgs = bwd_wgs(L, need_dw != 0);
+  if (wgs < 1) return -1;
+  out[0] = 2 * L.fwd_elems();
+  out[1] = L.n_bias();
+  out[2] = L.fwd_elems();
+  out[3] = L.n_bias();
+  out[4] = BwdSmem(L, need_dw != 0).total(wgs);
+  out[5] = wgs;
+  return 0;
+}
+
+// The backward on `stream`: x [n_rows, din], g [n_rows, dout]; img and bias
+// as mlp_images builds them.  A null dx skips dx; null wpart, bpart, dw and
+// db skip the weight gradients, otherwise wpart and bpart hold `blocks`
+// rows of the partial sizes and dw, db receive the padded f32 gradients.
+// Returns a cudaError_t (0 on success).
+extern "C" int cropnerf_mlp_bwd(const float* x, const float* g, float* dx, const void* img,
+                                const float* bias, int din, int dout, int n_layers,
+                                long long n_rows, int blocks, float* wpart, float* bpart,
+                                float* dw, float* db, void* stream) {
+  using namespace cropnerf::mlp;
+  const Layout L(din, dout, n_layers);
+  const bool need_dw = wpart != nullptr;
+  if (!L.ok() || (need_dw && (bpart == nullptr || dw == nullptr || db == nullptr)) ||
+      (!need_dw && dx == nullptr) || blocks < 1 || n_rows < 0)
+    return (int)cudaErrorInvalidValue;
+  const int wgs = bwd_wgs(L, need_dw);
+  if (wgs < 1) return (int)cudaErrorInvalidValue;
+  if (n_rows == 0) return 0;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (n_layers == 2)
+    return run<2>(x, g, dx, img, bias, wpart, bpart, dw, db, n_rows, din, dout, blocks, wgs, s);
+  return run<3>(x, g, dx, img, bias, wpart, bpart, dw, db, n_rows, din, dout, blocks, wgs, s);
+}

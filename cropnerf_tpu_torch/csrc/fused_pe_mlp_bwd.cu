@@ -49,7 +49,7 @@
 // and the SM count alone, so two runs give the same bits.  Rows past N load
 // zero x and zero cotangents, so they add nothing.
 #include "bwd_layers.cuh"
-#include "pe_mlp.cuh"
+#include "wgmma_mlp.cuh"
 
 namespace cropnerf {
 namespace pemlp {
@@ -79,18 +79,6 @@ struct Geo : Net<NL> {
 };
 static_assert(Geo<3>::SMEM <= 232448, "shared memory");
 static_assert(ROWS * HW * 4 <= Geo<2>::BACC_AT, "the reduction's staging tile");
-
-// dw += Aᵀ·G over the tile's 64 rows: A [64 rows, 64 columns] and G [64
-// rows, N columns] chunk-major, both MN-major operands.
-template <int N>
-__device__ __forceinline__ void mma_dw(float (&dw)[N / 2], uint32_t a, uint32_t g) {
-#pragma unroll
-  for (int k = 0; k < ROWS; k += 16) {
-    const uint64_t da = gmma_desc(a + (k >> 3) * 128, 128, 1024);
-    const uint64_t dg = gmma_desc(g + (k >> 3) * 128, 128, 1024);
-    Wgmma<N, 1, 1>::mma(dw, da, dg, 1);
-  }
-}
 
 // Adds a warp's column sums of (a, b) at columns (c, c + 1), rows r0 and
 // r0 + 8 of each lane, into the warp's bias row: a fixed shuffle tree over

@@ -36,7 +36,7 @@
 //      through shared memory; the last layer is m64n16;
 //   4. adds the last bias in registers and stores the rows it holds (rows
 //      past N load zero x and store nothing).
-#include "pe_mlp.cuh"
+#include "wgmma_mlp.cuh"
 
 namespace cropnerf {
 namespace pemlp {
@@ -55,37 +55,6 @@ struct FwdGeo : Net<NL> {
   static constexpr int SMEM = E_AT + FWD_WGS * E_BYTES;
 };
 static_assert(FwdGeo<3>::IMG_BYTES % 16 == 0 && FwdGeo<2>::IMG_BYTES % 16 == 0, "uint4 copy");
-
-__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// A of the next product from a 64-column accumulator: bf16(relu(acc + b)),
-// four registers for each 16 columns.
-__device__ __forceinline__ void relu_to_a(uint32_t (&a)[HW / 16][4], const float (&acc)[HW / 2],
-                                          const float* b, const Lane& ln) {
-#pragma unroll
-  for (int s = 0; s < HW / 16; ++s) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int j = 2 * s + h, c = 8 * j + ln.cq;
-      const float b0 = b[c], b1 = b[c + 1];
-      a[s][2 * h] = bf16_pair(fmaxf(acc[4 * j] + b0, 0.0f), fmaxf(acc[4 * j + 1] + b1, 0.0f));
-      a[s][2 * h + 1] =
-          bf16_pair(fmaxf(acc[4 * j + 2] + b0, 0.0f), fmaxf(acc[4 * j + 3] + b1, 0.0f));
-    }
-  }
-}
-
-// acc (=) A·B over K = HW with A in registers, B a weight image of N columns.
-template <int N>
-__device__ __forceinline__ void mma_regs(float (&acc)[N / 2], const uint32_t (&a)[HW / 16][4],
-                                         uint32_t b) {
-#pragma unroll
-  for (int s = 0; s < HW / 16; ++s)
-    WgmmaRA<N, 0>::mma(acc, a[s], gmma_desc(b + 2 * s * N * 16, N * 16, 128), s > 0 ? 1 : 0);
-}
 
 template <int NL>
 __global__ void __launch_bounds__(FWD_THREADS, 1)

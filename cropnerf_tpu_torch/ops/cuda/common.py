@@ -1,18 +1,21 @@
 """Argument checks and weight packing shared by the kernel wrappers.
 
-The kernels take every weight of a network in one bf16 buffer and every
-bias in one f32 buffer.  Each matrix is zero-padded to multiples of 16 in
-both dims (the wmma tile); a layer whose input is a concatenation of two
-activations (the skip layer, the colour head's layer 0) stacks the two
-padded row blocks.  Each layer is described to the kernel by five ints:
-(weight offset, bias offset, padded K, padded N, rows taken from the first
-input).
+The wmma kernels take every weight of a network in one bf16 buffer and
+every bias in one f32 buffer (``pack_layers``).  Each matrix is
+zero-padded to multiples of 16 in both dims (the wmma tile); a layer whose
+input is a concatenation of two activations (the skip layer, the colour
+head's layer 0) stacks the two padded row blocks.  Each layer is described
+to the kernel by five ints: (weight offset, bias offset, padded K, padded
+N, rows taken from the first input).  The wgmma MLP kernels (K3 and K5)
+take ``weight_images`` instead and run ``persistent_blocks`` blocks.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 # one dense layer: ([(weight [k_i, n], padded k_i), ...], bias [n] or [1, n])
@@ -100,6 +103,78 @@ def unpack_layers(layers: Sequence[Layer], dwbuf: torch.Tensor,
             row += k_pad
         out.append((grads, dbbuf[b_off:b_off + n].reshape(bias.shape)))
     return out
+
+
+# csrc/wgmma_mlp.cuh: the widths the wgmma MLP kernels pad a net's hidden
+# layers and its output to
+WGMMA_HIDDEN, WGMMA_OUT = 64, 16
+
+
+@functools.lru_cache(maxsize=None)
+def _image_gather(shapes: tuple, k0: int, backward: bool,
+                  device: torch.device
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Where each element of ``weight_images`` for weights and biases of
+    ``shapes`` comes from in their flattened concatenation with one zero
+    appended (the padding), on ``device``: (image indices, bias indices,
+    that zero)."""
+    n_layers, pad = len(shapes) // 2, sum(int(np.prod(s)) for s in shapes)
+    at = torch.arange(pad).split([int(np.prod(s)) for s in shapes])
+    fwd, bwd, bias = [], [], []
+    for l in range(n_layers):
+        w, b = at[2 * l].reshape(shapes[2 * l]), at[2 * l + 1]
+        k = k0 if l == 0 else WGMMA_HIDDEN
+        width = WGMMA_OUT if l == n_layers - 1 else WGMMA_HIDDEN
+        wp = torch.full((k, width), pad)
+        wp[:w.shape[0], :w.shape[1]] = w
+        fwd.append(wp.reshape(k // 8, 8, width).permute(0, 2, 1).reshape(-1))
+        bwd.append(wp.reshape(k, width // 8, 8).permute(1, 0, 2).reshape(-1))
+        bias.append(torch.nn.functional.pad(b, (0, width - b.numel()),
+                                            value=pad))
+    img = torch.cat(fwd + (bwd if backward else []))
+    return (img.to(device), torch.cat(bias).to(device),
+            torch.zeros(1, device=device))
+
+
+def weight_images(wbs: Sequence[torch.Tensor], k0: int,
+                  backward: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The wgmma MLP kernels' weights, on the weights' device: (bf16
+    images, f32 biases).  Every layer's weight is zero-padded to [k0, 64]
+    (layer 0), [64, 64] (hidden) or [64, 16] (the last) and laid out as a
+    wgmma B operand in K-major core matrices: first all forward images
+    (element (k, n) of a [K, width] weight at (k/8)·width·8 + n·8 + k%8;
+    all a forward kernel reads), then, with ``backward``, all
+    input-gradient images of Wᵀ (element (n, k) at (n/8)·K·8 + k·8 + n%8).
+    The biases are padded alike, layer after layer.  Four operations on the
+    card: one concatenation and gathers at indices cached per shape and
+    device."""
+    img_at, bias_at, zero = _image_gather(
+        tuple(tuple(t.shape) for t in wbs), k0, backward, wbs[0].device)
+    flat = torch.cat([t.reshape(-1) for t in wbs] + [zero]).float()
+    return (flat.index_select(0, img_at).to(torch.bfloat16),
+            flat.index_select(0, bias_at))
+
+
+def check_images(name, img, bias, img_elems, n_bias) -> None:
+    """Raises unless ``weight_images``' (img, bias) have sizes a kernel's
+    layout reports (``img_elems``: the sizes it takes)."""
+    if img.numel() not in img_elems or bias.numel() != n_bias:
+        raise RuntimeError(f"{name}: the weight images do not match the "
+                           "kernel's layout")
+
+
+def persistent_blocks(n_rows: int, sm_count: int, wgs: int) -> int:
+    """Persistent blocks of a wgmma MLP kernel of ``wgs`` warpgroups a
+    block: one per SM, fewer where the 64-row tiles do not give each of a
+    block's warpgroups one.  Warpgroup w of block b takes tiles wgs·b + w,
+    then every wgs·blocks-th after it."""
+    tiles = -(-n_rows // 64)
+    return max(1, min(sm_count, -(-tiles // wgs)))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def c_ints(values: Sequence[int]):

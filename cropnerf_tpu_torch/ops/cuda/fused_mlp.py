@@ -1,32 +1,47 @@
 """Fused relu MLP, forward and backward (counterpart of
 ``cropnerf_tpu/ops/pallas/fused_mlp.py``).
 
-``fused_mlp`` launches the CUDA kernels of ``csrc/fused_mlp.cu`` for a
-tensor on the card and computes ``fused_mlp_plain``, the same arithmetic in
-plain PyTorch, for a tensor on the CPU (autograd through it is the CPU
-backward).  The kernels replace the Pallas ``_fwd_kernel`` and
-``_bwd_kernel``; they run the vanilla field's semantic and colour heads on
-the export path and in the BayesRays pass.  They are memory-bound on an
-H100 (see the source note).  On the card the backward
-(``fused_mlp_bwd``) recomputes the forward from x and the weights, as the
-JAX custom VJP saves only ``(x, wbs)``, and computes only the gradients
-autograd asks for: dx alone when no weight needs one.  The ragged tail of
-N is masked in the kernels; there is no fallback.  ``run_forward`` also
-launches the PE variant of the forward, which
-``fused_pe_field.fused_pe_mlp`` (the PE proposal nets) wraps.
+``fused_mlp`` launches CUDA kernels for a tensor on the card and computes
+``fused_mlp_plain``, the same arithmetic in plain PyTorch, for a tensor on
+the CPU (autograd through it is the CPU backward).  The kernels replace
+the Pallas ``_fwd_kernel`` and ``_bwd_kernel``; they run the vanilla
+field's semantic and colour heads on the export path and in the BayesRays
+pass, and are memory-bound on an H100 (see the sources' notes).  A net's
+shape alone picks its kernels (``fused_mlp_route``):
+
+- "wgmma", the heads of ``cropnerf-mxu`` and ``-q`` (2 or 3 layers,
+  hidden widths up to 64, up to 128 inputs and 16 outputs):
+  ``csrc/fused_mlp_fwd.cu`` and ``csrc/fused_mlp_bwd.cu``, persistent
+  warpgroups on ``wgmma`` with the net resident in shared memory as the
+  weight images ``mlp_images`` builds once per call (the forward half
+  alone where no graph is recorded) and the backward reuses; launches
+  counted on ``fused_mlp`` and ``fused_mlp_bwd``;
+- "wmma", every other net (``-big``'s and ``-huge``'s heads):
+  ``csrc/fused_mlp.cu`` on ``pack_mlp``'s buffers; launches counted on
+  ``fused_mlp_wide`` and ``fused_mlp_bwd_wide``.
+
+On the card the backward (``fused_mlp_bwd``) recomputes the forward from x
+and the weights, as the JAX custom VJP saves only ``(x, wbs)``, and
+computes only the gradients autograd asks for: dx alone when no weight
+needs one.  The ragged tail of N is masked in the kernels; there is no
+fallback.  ``run_forward`` also launches the PE variant of the wmma
+forward, which ``fused_pe_field.fused_pe_mlp`` (the PE proposal nets)
+takes for nets wider than its own kernels.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import torch
 
 from ..mlp import mm_f32acc
 from . import build
-from .common import (MAX_SMEM_BYTES, c_ints, check_kernel_call, check_rows,
-                     pack_layers, pad16, stream_ptr, unpack_layers)
+from .common import (MAX_SMEM_BYTES, WGMMA_HIDDEN, WGMMA_OUT, c_ints,
+                     check_images, check_kernel_call, check_rows,
+                     pack_layers, pad16, persistent_blocks, sm_count,
+                     stream_ptr, unpack_layers, weight_images)
 
 
 def fused_mlp_plain(x: torch.Tensor, wbs: Sequence[torch.Tensor],
@@ -45,8 +60,9 @@ def fused_mlp_plain(x: torch.Tensor, wbs: Sequence[torch.Tensor],
 
 @functools.lru_cache(maxsize=None)
 def _lib():
-    """The library of ``csrc/fused_mlp.cu``: the plain MLP's entry points and
-    the PE MLP's (``fused_pe_mlp`` in ``fused_pe_field.py``)."""
+    """The library of ``csrc/fused_mlp.cu`` (the "wmma" route): the plain
+    MLP's entry points and the PE MLP's (``fused_pe_mlp`` in
+    ``fused_pe_field.py``)."""
     lib = build.load("fused_mlp")
     meta = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
     pe = [ctypes.c_int, ctypes.c_int]
@@ -54,14 +70,13 @@ def _lib():
         ctypes.c_longlong, ctypes.c_void_p]
     lib.cropnerf_fused_pe_mlp_fwd.argtypes = [ctypes.c_void_p] * 4 + meta + pe + [
         ctypes.c_longlong, ctypes.c_void_p]
-    lib.cropnerf_fused_mlp_smem_bytes.argtypes = meta
     lib.cropnerf_fused_mlp_bwd.argtypes = [ctypes.c_void_p] * 5 + meta + [
         ctypes.c_longlong] + [ctypes.c_void_p] * 5
     lib.cropnerf_fused_mlp_bwd_sizes.argtypes = meta + [
         ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
     lib.cropnerf_fused_mlp_bwd_smem_bytes.argtypes = meta
     for f in ("cropnerf_fused_mlp_fwd", "cropnerf_fused_pe_mlp_fwd",
-              "cropnerf_fused_mlp_smem_bytes", "cropnerf_fused_mlp_bwd",
+              "cropnerf_fused_mlp_bwd",
               "cropnerf_fused_mlp_bwd_sizes",
               "cropnerf_fused_mlp_bwd_smem_bytes"):
         getattr(lib, f).restype = ctypes.c_int
@@ -81,11 +96,6 @@ def pack_mlp(din: int, wbs: Sequence[torch.Tensor],
     hmax = max([pad16(din)] + [pad16(w.shape[1]) for w in wbs[0::2]])
     return wbuf, bbuf, [din, pad16(din), wbs[-2].shape[1], len(layers),
                         hmax] + descs
-
-
-def smem_bytes(meta) -> int:
-    """Dynamic shared memory one block of the kernel takes for ``meta``."""
-    return _lib().cropnerf_fused_mlp_smem_bytes(c_ints(meta), len(meta))
 
 
 def bwd_smem_bytes(meta) -> int:
@@ -118,9 +128,9 @@ def run_forward(name, x, wbs, din, pe=None):
 
 
 def run_backward(name, x, wbs, g, need_dx, need_dw):
-    """One launch of the backward kernel and its weight-gradient sums: (dx
-    or None, [dW0, db0, ...] in the shapes of ``wbs`` or None) in float32.
-    No launch for N = 0."""
+    """One launch of the wmma backward kernel and its weight-gradient sums:
+    (dx or None, [dW0, db0, ...] in the shapes of ``wbs`` or None) in
+    float32.  No launch for N = 0."""
     device = check_kernel_call(name, [x, g, *wbs], torch.bfloat16)
     n = x.shape[0]
     check_rows("g", g, n=n, cols=wbs[-2].shape[1])
@@ -160,54 +170,234 @@ def run_backward(name, x, wbs, g, need_dx, need_dw):
     return dx, dwbs
 
 
-def _forward(x, wbs):
+# csrc/wgmma_mlp.cuh: the widest input the wgmma kernels take
+MLP_MAX_DIN = 128
+
+
+def fused_mlp_route(din: int, widths: Sequence[int]) -> str:
+    """The kernels a net x [N, din] → ``widths`` (each layer's output
+    width) takes on the card, by its shape alone: "wgmma"
+    (``csrc/fused_mlp_fwd.cu``, ``csrc/fused_mlp_bwd.cu``) for 2 or 3
+    layers with hidden widths up to 64, din up to 128 and up to 16 outputs
+    (both heads of ``cropnerf-mxu`` and ``-q``), else "wmma"
+    (``csrc/fused_mlp.cu``; ``-big``'s and ``-huge``'s heads)."""
+    return ("wgmma" if len(widths) in (2, 3) and 1 <= din <= MLP_MAX_DIN
+            and all(h <= WGMMA_HIDDEN for h in widths[:-1])
+            and widths[-1] <= WGMMA_OUT else "wmma")
+
+
+def _route(x, wbs) -> str:
+    return fused_mlp_route(x.shape[1], [w.shape[1] for w in wbs[0::2]])
+
+
+def mlp_images(wbs: Sequence[torch.Tensor], backward: bool = True
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The wgmma kernels' weights (``common.weight_images``): layer 0's
+    rows padded to din rounded up to 16, every other layer's to 64."""
+    return weight_images(wbs, pad16(wbs[0].shape[0]), backward)
+
+
+def _wgmma_lib(name: str, entry: str, argtypes) -> ctypes.CDLL:
+    lib = build.load(name)
+    getattr(lib, f"{entry}_layout").restype = ctypes.c_int
+    getattr(lib, entry).argtypes = argtypes
+    getattr(lib, entry).restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_lib():
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib = _wgmma_lib("fused_mlp_fwd", "cropnerf_mlp_fwd",
+                     [vp] * 4 + [i32] * 3 + [ctypes.c_longlong, i32, vp])
+    lib.cropnerf_mlp_fwd_layout.argtypes = [i32] * 3 + [
+        ctypes.POINTER(ctypes.c_longlong)]
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib():
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib = _wgmma_lib("fused_mlp_bwd", "cropnerf_mlp_bwd",
+                     [vp] * 5 + [i32] * 3 + [ctypes.c_longlong, i32]
+                     + [vp] * 5)
+    lib.cropnerf_mlp_bwd_layout.argtypes = [i32] * 4 + [
+        ctypes.POINTER(ctypes.c_longlong)]
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def mlp_layout(din: int, dout: int, n_layers: int, need_dw=None) -> list:
+    """The sizes the wgmma forward (``need_dw`` None: image and bias
+    elements, shared memory, warpgroups a block) or backward kernel's C
+    layout function (image and bias elements, partial-row sizes, shared
+    memory, warpgroups) reports for a net."""
+    sizes = (ctypes.c_longlong * 6)()
+    err = (_fwd_lib().cropnerf_mlp_fwd_layout(din, dout, n_layers, sizes)
+           if need_dw is None else _bwd_lib().cropnerf_mlp_bwd_layout(
+               din, dout, n_layers, int(need_dw), sizes))
+    if err:
+        raise ValueError(f"fused_mlp: the wgmma kernels do not take x [N, "
+                         f"{din}] -> {n_layers} layers -> {dout}")
+    return list(sizes)
+
+
+def _wgmma_forward(x, wbs, img, bias) -> torch.Tensor:
+    """One launch of ``csrc/fused_mlp_fwd.cu`` on CUDA tensors (none for
+    N = 0) on ``mlp_images``, with or without the backward's half: the
+    [N, Dout] float32 output."""
+    device, (n, din) = x.device, x.shape
+    dout, n_layers = wbs[-2].shape[1], len(wbs) // 2
+    fwd_elems, n_bias, _, wgs = mlp_layout(din, dout, n_layers)[:4]
+    check_images("fused_mlp", img, bias, (fwd_elems, 2 * fwd_elems), n_bias)
+    out = torch.empty((n, dout), dtype=torch.float32, device=device)
+    if n == 0:
+        return out
+    blocks = persistent_blocks(n, sm_count(device), wgs)
+    with torch.cuda.device(device):
+        err = _fwd_lib().cropnerf_mlp_fwd(
+            x.data_ptr(), out.data_ptr(), img.data_ptr(), bias.data_ptr(),
+            din, dout, n_layers, n, blocks, stream_ptr(device))
+    if err:
+        raise RuntimeError(f"fused_mlp kernel launch failed: cudaError {err}")
+    fused_mlp.launches += 1
+    return out
+
+
+def fused_mlp_wide(x: torch.Tensor, wbs: Sequence[torch.Tensor]
+                   ) -> torch.Tensor:
+    """The "wmma" route's forward on CUDA tensors (``csrc/fused_mlp.cu``;
+    one launch, none for N = 0)."""
     out = run_forward("fused_mlp", x, wbs, x.shape[1])
     if x.shape[0]:
-        fused_mlp.launches += 1
+        fused_mlp_wide.launches += 1
+    return out
+
+
+@torch.no_grad()
+def fused_mlp_bwd_wide(x: torch.Tensor, wbs: Sequence[torch.Tensor],
+                       g: torch.Tensor, need_dx: bool = True,
+                       need_dw: bool = True):
+    """The "wmma" route's backward on CUDA tensors (``csrc/fused_mlp.cu``):
+    as ``fused_mlp_bwd``."""
+    out = run_backward("fused_mlp_bwd", x, wbs, g, need_dx, need_dw)
+    if x.shape[0]:
+        fused_mlp_bwd_wide.launches += 1
     return out
 
 
 @torch.no_grad()
 def fused_mlp_bwd(x: torch.Tensor, wbs: Sequence[torch.Tensor],
                   g: torch.Tensor, need_dx: bool = True,
-                  need_dw: bool = True):
-    """The backward kernel of ``fused_mlp`` on CUDA tensors: the cotangent
-    g [N, Dout] → (dx [N, Din] or None, [dW0, db0, dW1, db1, ...] in the
-    shapes of ``wbs`` or None) in float32.  It recomputes the forward."""
-    out = run_backward("fused_mlp_bwd", x, wbs, g, need_dx, need_dw)
-    if x.shape[0]:
+                  need_dw: bool = True, images=None):
+    """The backward kernel of ``fused_mlp`` on CUDA tensors, on the route
+    the net's shape picks: the cotangent g [N, Dout] → (dx [N, Din] or
+    None, [dW0, db0, dW1, db1, ...] in the shapes of ``wbs`` or None) in
+    float32.  It recomputes the forward.  ``images``: the (image, bias) of
+    ``mlp_images`` for ``wbs`` where the caller has them (the forward's),
+    else built here."""
+    device = check_kernel_call("fused_mlp_bwd", [x, g, *wbs], torch.bfloat16)
+    check_rows("x", x)
+    n, din = x.shape
+    dout, n_layers = wbs[-2].shape[1], len(wbs) // 2
+    check_rows("g", g, n=n, cols=dout)
+    if not (need_dx or need_dw):
+        raise ValueError("fused_mlp_bwd: nothing asked for")
+    if _route(x, wbs) == "wmma":
+        return fused_mlp_bwd_wide(x, wbs, g, need_dx, need_dw)
+    img_elems, n_bias, total_w, total_b, _, wgs = mlp_layout(
+        din, dout, n_layers, need_dw)
+    img, bias = images if images is not None else mlp_images(wbs)
+    check_images("fused_mlp_bwd", img, bias, (img_elems,), n_bias)
+    blocks = persistent_blocks(n, sm_count(device), wgs)
+    dx = torch.empty_like(x) if need_dx else None
+    ptrs = [None] * 4
+    if need_dw:
+        dw = torch.zeros((total_w,), dtype=torch.float32, device=device)
+        db = torch.zeros((total_b,), dtype=torch.float32, device=device)
+        wpart = torch.empty((blocks * total_w,), dtype=torch.float32,
+                            device=device)
+        bpart = torch.empty((blocks * total_b,), dtype=torch.float32,
+                            device=device)
+        ptrs = [t.data_ptr() for t in (wpart, bpart, dw, db)]
+    if n:
+        with torch.cuda.device(device):
+            err = _bwd_lib().cropnerf_mlp_bwd(
+                x.data_ptr(), g.data_ptr(), dx.data_ptr() if need_dx else None,
+                img.data_ptr(), bias.data_ptr(), din, dout, n_layers, n,
+                blocks, *ptrs, stream_ptr(device))
+        if err:
+            raise RuntimeError(f"fused_mlp_bwd kernel launch failed: "
+                               f"cudaError {err}")
         fused_mlp_bwd.launches += 1
+    return dx, (unpack_images_grads(wbs, dw, db) if need_dw else None)
+
+
+def unpack_images_grads(wbs: Sequence[torch.Tensor], dw: torch.Tensor,
+                        db: torch.Tensor) -> list:
+    """The wgmma backward's padded f32 gradients (layer l's weight [K,
+    width] at its forward image's offset, its bias at l·64) → [dW0, db0,
+    ...] in the shapes of ``wbs``."""
+    n_layers, kp = len(wbs) // 2, pad16(wbs[0].shape[0])
+    out, w_off = [], 0
+    for l in range(n_layers):
+        w, b = wbs[2 * l], wbs[2 * l + 1]
+        k = kp if l == 0 else WGMMA_HIDDEN
+        width = WGMMA_OUT if l == n_layers - 1 else WGMMA_HIDDEN
+        out.append(dw[w_off:w_off + k * width].reshape(k, width)
+                   [:w.shape[0], :w.shape[1]])
+        out.append(db[l * WGMMA_HIDDEN:l * WGMMA_HIDDEN + b.numel()]
+                   .reshape(b.shape))
+        w_off += k * width
     return out
 
 
 class _FusedMlp(torch.autograd.Function):
-    """Forward kernel, and the backward kernel as its gradient.  Saves only
-    x and the weights, as the JAX custom VJP does."""
+    """Forward kernel, and the backward kernel as its gradient, on the
+    route the net's shape picks.  Saves x and the weights, as the JAX
+    custom VJP does, and on the wgmma route the weight images the forward
+    built, which the backward reads too."""
 
     @staticmethod
     def forward(ctx, x, *wbs):
         ctx.save_for_backward(x, *wbs)
-        return _forward(x, wbs)
+        ctx.images = None
+        if _route(x, wbs) == "wmma":
+            return fused_mlp_wide(x, wbs)
+        ctx.images = mlp_images(wbs)
+        return _wgmma_forward(x, wbs, *ctx.images)
 
     @staticmethod
     def backward(ctx, g):
         x, *wbs = ctx.saved_tensors
         need_dx = ctx.needs_input_grad[0]
         need_dw = any(ctx.needs_input_grad[1:])
-        dx, dwbs = fused_mlp_bwd(x, wbs, g.contiguous(), need_dx, need_dw)
+        dx, dwbs = fused_mlp_bwd(x, wbs, g.contiguous(), need_dx, need_dw,
+                                 ctx.images)
         return (dx, *(dwbs if need_dw else [None] * len(wbs)))
+
+
+def _fused_mlp_card(x, wbs) -> torch.Tensor:
+    """``fused_mlp`` on checked CUDA tensors: where a graph is recorded,
+    the autograd function above; else the forward kernel of the net's
+    route alone, on the wgmma route with the forward half of the images."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *wbs)):
+        return _FusedMlp.apply(x, *wbs)
+    if _route(x, wbs) == "wmma":
+        return fused_mlp_wide(x, wbs)
+    return _wgmma_forward(x, wbs, *mlp_images(wbs, backward=False))
 
 
 def fused_mlp(x: torch.Tensor, wbs: Sequence[torch.Tensor],
               compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """x [N, Din] float32 → [N, Dout] float32 through the relu MLP
     wbs = [W0, b0, W1, b1, ...] (W [in, out], b [1, out] or [out]),
-    differentiable in x and the weights."""
+    differentiable in x and the weights.  On the card the kernels of the
+    route the net's shape picks (``fused_mlp_route``)."""
     if len(wbs) < 2 or len(wbs) % 2:
         raise ValueError("wbs must be [W0, b0, W1, b1, ...]")
     check_rows("x", x)
-    din = x.shape[1]
-    k = din
+    k = x.shape[1]
     for w in wbs[0::2]:
         if w.dim() != 2 or w.shape[0] != k:
             raise ValueError(f"weight {tuple(w.shape)} does not take width {k}")
@@ -215,8 +405,10 @@ def fused_mlp(x: torch.Tensor, wbs: Sequence[torch.Tensor],
     if x.device.type == "cpu":
         return fused_mlp_plain(x, wbs, compute_dtype)
     check_kernel_call("fused_mlp", [x, *wbs], compute_dtype)
-    return _FusedMlp.apply(x, *wbs)
+    return _fused_mlp_card(x, wbs)
 
 
 fused_mlp.launches = 0
+fused_mlp_wide.launches = 0
 fused_mlp_bwd.launches = 0
+fused_mlp_bwd_wide.launches = 0

@@ -56,8 +56,12 @@ from ..mlp import mm_f32acc
 from . import build
 from .fused_mlp import fused_mlp_plain, run_forward
 from .pe_plan import build_forward_plan, build_plan, image_index, weight_image
-from .common import (MAX_SMEM_BYTES, c_ints, check_kernel_call, check_rows,
-                     pack_layers, pad16, stream_ptr, unpack_layers)
+from .common import (MAX_SMEM_BYTES, WGMMA_HIDDEN, WGMMA_OUT, c_ints,
+                     check_images, check_kernel_call, check_rows,
+                     pack_layers, pad16, stream_ptr, unpack_layers,
+                     weight_images)
+from .common import persistent_blocks as pe_mlp_blocks
+from .common import sm_count
 
 
 def pe_selector_matrix(num_freqs: int, min_freq_exp: float = 0.0,
@@ -567,9 +571,10 @@ def _check_pe_mlp(x, wbs, num_freqs) -> int:
     return enc
 
 
-# csrc/pe_mlp.cuh: the widths the kernels' layout pads every net to, the
+# csrc/wgmma_mlp.cuh: the widths the kernels' layout pads every net to, the
 # coordinates of x; the warpgroups a block of the backward and the forward
-PE_MLP_HIDDEN, PE_MLP_OUT, PE_MLP_ENC, PE_MLP_DIM = 64, 16, 64, 3
+PE_MLP_HIDDEN, PE_MLP_OUT, PE_MLP_ENC, PE_MLP_DIM = (WGMMA_HIDDEN, WGMMA_OUT,
+                                                     64, 3)
 PE_MLP_WGS, PE_MLP_FWD_WGS = 3, 4
 
 
@@ -605,63 +610,11 @@ def _check_pe_mlp_bwd(x, wbs, num_freqs) -> None:
             f"{tuple(x.shape)}, F={num_freqs}, widths {widths}")
 
 
-@functools.lru_cache(maxsize=None)
-def _pe_mlp_gather(shapes: tuple, backward: bool, device: torch.device
-                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Where each element of ``pe_mlp_images`` for weights and biases of
-    ``shapes`` comes from in their flattened concatenation with one zero
-    appended (the padding), on ``device``: (image indices, bias indices,
-    that zero)."""
-    n_layers, pad = len(shapes) // 2, sum(int(np.prod(s)) for s in shapes)
-    at = torch.arange(pad).split([int(np.prod(s)) for s in shapes])
-    fwd, bwd, bias = [], [], []
-    for l in range(n_layers):
-        w, b = at[2 * l].reshape(shapes[2 * l]), at[2 * l + 1]
-        width = PE_MLP_OUT if l == n_layers - 1 else PE_MLP_HIDDEN
-        wp = torch.full((PE_MLP_HIDDEN, width), pad)
-        wp[:w.shape[0], :w.shape[1]] = w
-        fwd.append(wp.reshape(PE_MLP_HIDDEN // 8, 8, width).permute(0, 2, 1)
-                   .reshape(-1))
-        bwd.append(wp.reshape(PE_MLP_HIDDEN, width // 8, 8).permute(1, 0, 2)
-                   .reshape(-1))
-        bias.append(torch.nn.functional.pad(b, (0, width - b.numel()),
-                                            value=pad))
-    img = torch.cat(fwd + (bwd if backward else []))
-    return (img.to(device), torch.cat(bias).to(device),
-            torch.zeros(1, device=device))
-
-
 def pe_mlp_images(wbs: Sequence[torch.Tensor], backward: bool = True
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The wgmma kernels' weights, on the weights' device: (bf16 images,
-    f32 biases).  Every layer's weight is zero-padded to [64, 64] ([64, 16]
-    for the last) and laid out as a wgmma B operand in K-major core
-    matrices: first all forward images (element (k, n) at
-    (k/8)·width·8 + n·8 + k%8; all the forward kernel reads), then, with
-    ``backward``, all input-gradient images of Wᵀ (element (n, k) at
-    (n/8)·64·8 + k·8 + n%8).  The biases are padded alike, layer after
-    layer.  Four operations on the card: one concatenation and gathers at
-    indices cached per shape and device."""
-    img_at, bias_at, zero = _pe_mlp_gather(
-        tuple(tuple(t.shape) for t in wbs), backward, wbs[0].device)
-    flat = torch.cat([t.reshape(-1) for t in wbs] + [zero]).float()
-    return (flat.index_select(0, img_at).to(torch.bfloat16),
-            flat.index_select(0, bias_at))
-
-
-def pe_mlp_blocks(n_rows: int, sm_count: int, wgs: int) -> int:
-    """Persistent blocks of the wgmma kernels of ``wgs`` warpgroups a block
-    (the backward's 3, the forward's 4): one per SM, fewer where the
-    64-row tiles do not give each of a block's warpgroups one.  Warpgroup
-    w of block b takes tiles wgs·b + w, then every wgs·blocks-th after
-    it."""
-    tiles = -(-n_rows // 64)
-    return max(1, min(sm_count, -(-tiles // wgs)))
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    """The wgmma kernels' weights (``common.weight_images``), every
+    layer's rows padded to 64: the encoding's too."""
+    return weight_images(wbs, PE_MLP_HIDDEN, backward)
 
 
 @functools.lru_cache(maxsize=None)
@@ -698,12 +651,6 @@ def _layout(name, layout_fn, n_layers) -> list:
     return list(sizes)
 
 
-def _check_images(name, img, bias, img_elems, n_bias) -> None:
-    if img.numel() not in img_elems or bias.numel() != n_bias:
-        raise RuntimeError(f"{name}: the weight images do not match the "
-                           "kernel's layout")
-
-
 @functools.lru_cache(maxsize=None)
 def _pe_mlp_fwd_layout(n_layers: int) -> Tuple[int, int]:
     """(elements of the forward images, of the biases) of the forward
@@ -724,13 +671,13 @@ def _pe_mlp_fwd_launch(x, wbs, num_freqs, img, bias) -> torch.Tensor:
     device, n = x.device, x.shape[0]
     lib = _pe_mlp_fwd_lib()
     fwd_elems, n_bias = _pe_mlp_fwd_layout(len(wbs) // 2)
-    _check_images("fused_pe_mlp", img, bias, (fwd_elems, 2 * fwd_elems),
+    check_images("fused_pe_mlp", img, bias, (fwd_elems, 2 * fwd_elems),
                   n_bias)
     out = torch.empty((n, wbs[-2].shape[1]), dtype=torch.float32,
                       device=device)
     if n == 0:
         return out
-    blocks = pe_mlp_blocks(n, _sm_count(device), PE_MLP_FWD_WGS)
+    blocks = pe_mlp_blocks(n, sm_count(device), PE_MLP_FWD_WGS)
     with torch.cuda.device(device):
         err = lib.cropnerf_pe_mlp_fwd(
             x.data_ptr(), out.data_ptr(), img.data_ptr(), bias.data_ptr(),
@@ -777,11 +724,11 @@ def fused_pe_mlp_bwd(x: torch.Tensor, wbs: Sequence[torch.Tensor],
     img_elems, n_bias, total_w, total_b, _, wgs = _layout(
         "fused_pe_mlp_bwd", lib.cropnerf_pe_mlp_bwd_layout, n_layers)
     img, bias = images if images is not None else pe_mlp_images(wbs)
-    _check_images("fused_pe_mlp_bwd", img, bias, (img_elems,), n_bias)
+    check_images("fused_pe_mlp_bwd", img, bias, (img_elems,), n_bias)
     if wgs != PE_MLP_WGS:
         raise RuntimeError("fused_pe_mlp_bwd: the kernel's warpgroups do "
                            "not match the plan")
-    blocks = pe_mlp_blocks(n, _sm_count(device), PE_MLP_WGS)
+    blocks = pe_mlp_blocks(n, sm_count(device), PE_MLP_WGS)
     dx = torch.empty_like(x) if need_dx else None
     ptrs = [None] * 4
     if need_dw:

@@ -1,0 +1,291 @@
+"""The fused relu MLP (K3, ``fused_mlp``: the vanilla field's heads) of the
+PyTorch port: its route by shape, the wgmma kernels' weight images, a CPU
+model of their arithmetic on those images, and the plain version against
+the JAX kernel at ``cropnerf-mxu-big``'s head shapes.
+
+The kernels themselves run only on the card (tests/test_torch_gpu.py).
+The JAX kernel runs as its own tests run it on the CPU (interpret mode on
+128-row tiles, or its jnp path for a ragged N).  Tolerances: the float32
+arm 1e-4 and the bf16 arm 2e-2 of ``torch_parity``; the kernel model
+against the JAX VJP as the card's tests hold the kernels (dx row by row,
+the rest in relative L2: bf16 operands, f32 sums in another order).
+"""
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cropnerf_tpu.ops.pallas.fused_mlp import fused_mlp as jax_fused_mlp
+from cropnerf_tpu_torch.models.config import PRESETS
+from cropnerf_tpu_torch.ops.cuda import fused_mlp as tmlp
+from cropnerf_tpu_torch.ops.cuda.common import pad16
+from torch_parity import (arm, assert_close, np_wbs, to_jax,  # noqa: F401
+                          to_torch)
+
+HW, OW = 64, 16            # csrc/wgmma_mlp.cuh: hidden and output padding
+
+
+# the heads of every preset whose field runs them through fused_mlp
+# (mlp_impl "pallas-fused"): (semantic head, colour head) and their routes
+HEAD_ROUTES = {
+    "cropnerf-mxu": (([15, 64, 1], "wgmma"), ([74, 64, 3], "wgmma")),
+    "cropnerf-mxu-q": (([15, 64, 1], "wgmma"), ([74, 64, 3], "wgmma")),
+    "cropnerf-mxu-big": (([30, 128, 128, 1], "wmma"),
+                         ([185, 128, 3], "wmma")),
+    "cropnerf-mxu-huge": (([30, 128, 128, 1], "wmma"),
+                          ([89, 256, 3], "wmma")),
+}
+
+
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+def test_fused_mlp_route_by_preset(preset):
+    """Every preset's heads: the cropnerf-mxu family runs them through
+    fused_mlp, -mxu and -q on the wgmma kernels, -big and -huge (128- and
+    256-wide) on the wmma route; every other preset computes its heads on
+    plain matmuls (mlp_impl "xla"), never reaching the kernel.  The widths
+    are the ones the field's own init builds."""
+    from cropnerf_tpu_torch.models.vanilla import vanilla_field_init
+    f = PRESETS[preset].model.field
+    if preset not in HEAD_ROUTES:
+        assert f.mlp_impl == "xla"
+        return
+    field = vanilla_field_init(f, 2, torch.Generator().manual_seed(0))
+    built = [[m.w[0].shape[0]] + [w.shape[1] for w in m.w]
+             for m in (field.mlp_semantic, field.mlp_color)]
+    assert built == [dims for dims, _ in HEAD_ROUTES[preset]]
+    for dims, route in HEAD_ROUTES[preset]:
+        assert tmlp.fused_mlp_route(dims[0], dims[1:]) == route
+
+
+# (din, output widths, route): the wgmma kernels' edges
+ROUTE_EDGES = [(128, [64, 16], "wgmma"),      # the widest input, 16 outputs
+               (129, [64, 1], "wmma"),        # one input column more
+               (1, [8, 1], "wgmma"),          # one input, a narrow layer
+               (39, [64, 48, 16], "wgmma"),   # three layers
+               (15, [64, 64, 64, 1], "wmma"),  # four layers
+               (15, [1], "wmma"),             # one layer
+               (15, [65, 1], "wmma"),         # a hidden layer of 65
+               (15, [64, 17], "wmma")]        # 17 outputs
+
+
+@pytest.mark.parametrize("case", range(len(ROUTE_EDGES)))
+def test_fused_mlp_route_edges(case):
+    din, widths, route = ROUTE_EDGES[case]
+    assert tmlp.fused_mlp_route(din, widths) == route
+
+
+def _operands(wbs):
+    """The weight images of ``mlp_images`` read back as the wgmma kernels
+    index them: per layer the forward B operand [K, width] (element (k, n)
+    at (k/8)·width·8 + n·8 + k%8 of its image) and the input-gradient B
+    operand of Wᵀ (element (n, k) at (n/8)·K·8 + k·8 + n%8), both returned
+    as [K, width] with K = din padded to 16 for layer 0 and 64 after, and
+    the padded biases; the layers' offsets in the forward half."""
+    n_layers = len(wbs) // 2
+    img, bias = tmlp.mlp_images(wbs)
+    ks = [pad16(wbs[0].shape[0])] + [HW] * (n_layers - 1)
+    widths = [HW] * (n_layers - 1) + [OW]
+    half = sum(k * w for k, w in zip(ks, widths))
+    assert img.numel() == 2 * half
+    fw, bw, offs, off = [], [], [], 0
+    for K, N in zip(ks, widths):
+        k, n = torch.arange(K)[:, None], torch.arange(N)[None]
+        fw.append(img[off + (k // 8) * N * 8 + n * 8 + k % 8].float())
+        bw.append(img[half + off + (n // 8) * K * 8 + k * 8 + n % 8].float())
+        offs.append(off)
+        off += K * N
+    return fw, bw, bias, offs, widths
+
+
+@pytest.mark.parametrize("dims", [[15, 64, 1], [74, 64, 3], [39, 64, 48, 16],
+                                  [128, 32, 16], [1, 8, 1]])
+def test_mlp_images_ungather_to_the_padded_weights(dims):
+    """Both halves of the wgmma kernels' images, read back as the kernels
+    index them, are the weights rounded to bf16 and zero-padded to [din
+    rounded to 16, 64], [64, 64] and [64, 16]; the biases padded alike; the
+    forward half alone is the image's first half, bit for bit."""
+    wt = to_torch(np_wbs(np.random.default_rng(7), dims))
+    fw, bw, bias, _, widths = _operands(wt)
+    b_off = 0
+    for l, width in enumerate(widths):
+        w, b = wt[2 * l], wt[2 * l + 1].reshape(-1)
+        padded = torch.zeros(fw[l].shape)
+        padded[:w.shape[0], :w.shape[1]] = w.bfloat16().float()
+        assert torch.equal(fw[l], padded) and torch.equal(bw[l], padded), l
+        assert torch.equal(bias[b_off:b_off + width],
+                           torch.nn.functional.pad(b, (0, width - b.numel())))
+        b_off += width
+    img, got_bias = tmlp.mlp_images(wt)
+    fwd_img, fwd_bias = tmlp.mlp_images(wt, backward=False)
+    assert torch.equal(fwd_img, img[:img.numel() // 2])
+    assert torch.equal(fwd_bias, got_bias)
+
+
+def _kernel_model(x, wbs, g):
+    """The wgmma kernels' arithmetic in torch on the operands read back from
+    ``mlp_images`` (``_operands``): the forward (x rounded to bf16 and
+    zero-padded, each product with f32 sums plus the f32 bias, relu and
+    bf16 for the hidden layers) and the backward (the last layer's
+    cotangent rounded as the product operand, its f32 column sums the bias
+    gradient; G·Wᵀ on the input-gradient operands, the relu mask of the
+    bf16 activation in f32; dW_l = A_lᵀ·G_l of bf16 operands, layer 0's as
+    (G_0ᵀ·A_0)ᵀ), the weight gradients packed into the partial row's layout
+    and unpacked by ``unpack_images_grads``.  Returns (out, dx, grads)."""
+    N, din = x.shape
+    dout, n_layers = wbs[-2].shape[1], len(wbs) // 2
+    fw, bw, bias, offs, widths = _operands(wbs)
+    b_at = [l * HW for l in range(n_layers)]
+    a = torch.zeros((N, fw[0].shape[0]))
+    a[:, :din] = x
+    acts = [a.bfloat16().float()]
+    for l in range(n_layers - 1):
+        acts.append(torch.relu(acts[l] @ fw[l] + bias[b_at[l]:b_at[l] + HW])
+                    .bfloat16().float())
+    out = (acts[-1] @ fw[-1] + bias[b_at[-1]:b_at[-1] + OW])[:, :dout]
+    gcur = torch.zeros((N, OW))
+    gcur[:, :dout] = g
+    dw = torch.zeros(sum(f.numel() for f in fw))
+    db = torch.zeros(bias.numel())
+    for l in range(n_layers - 1, -1, -1):
+        width = widths[l]
+        db[b_at[l]:b_at[l] + width] = gcur.sum(0)
+        gb = gcur.bfloat16().float()
+        grad_w = (acts[l].T @ gb if l else (gb.T @ acts[0]).T)
+        dw[offs[l]:offs[l] + grad_w.numel()] = grad_w.reshape(-1)
+        v = gb @ bw[l].T
+        if l:
+            gcur = torch.where(acts[l] > 0, v, 0.0)
+    dx = v[:, :din]
+    return out, dx, tmlp.unpack_images_grads(wbs, dw, db)
+
+
+@pytest.mark.parametrize("dims,n", [([74, 64, 3], 384), ([15, 64, 1], 300),
+                                    ([39, 64, 48, 16], 256)],
+                         ids=["colour-head", "semantic-head-ragged",
+                              "three-layers"])
+def test_kernel_model_reproduces_jax(dims, n):
+    """The kernels' model against autograd through the plain version (the
+    same roundings: 1e-2 of max), and against the JAX VJP of fused_mlp
+    (its kernel in interpret mode at 384 and 256 rows; at 300 rows, no tile
+    divisor, its jnp path): the output to 2e-2 of max, dx row by row (2e-2
+    of max on 98 % of rows) and every gradient to 5e-2 in relative L2, the
+    card's gradient tolerance.  In the three-layer net XLA sums layer 1 in
+    another order, so a few of its bf16 activations round to the other
+    neighbour and their rows' relu masks differ (3 of 256 rows here, 16 %
+    of max dx each); torch and the model agree there."""
+    rng = np.random.default_rng(60 + n)
+    xn = rng.standard_normal((n, dims[0])).astype(np.float32)
+    wn = np_wbs(rng, dims)
+    cot = rng.standard_normal((n, dims[-1])).astype(np.float32)
+    ref_out, vjp = jax.vjp(lambda x, w: jax_fused_mlp(x, w, 128, True),
+                           jnp.asarray(xn), to_jax(wn))
+    jax_grads = [np.asarray(r) for r in (lambda d, w: [d, *w])(
+        *vjp(jnp.asarray(cot)))]
+    x, wt = torch.from_numpy(xn), to_torch(wn)
+    leaves = [t.clone().requires_grad_(True) for t in (x, *wt)]
+    plain_out = tmlp.fused_mlp_plain(leaves[0], leaves[1:])
+    plain_grads = torch.autograd.grad(plain_out, leaves,
+                                      torch.from_numpy(cot))
+    with torch.no_grad():
+        out, dx, grads = _kernel_model(x, wt, torch.from_numpy(cot))
+    assert_close(out, plain_out.detach(), 1e-5, "out")
+    assert_close(out, ref_out, 2e-2, "out vs JAX")
+    for i, (got, ref, jref) in enumerate(zip([dx] + grads, plain_grads,
+                                             jax_grads)):
+        got, ref = got.numpy(), ref.numpy()
+        assert got.shape == ref.shape == jref.shape, i
+        assert np.abs(got - ref).max() <= 1e-2 * np.abs(ref).max(), i
+        assert (np.linalg.norm(got - jref)
+                <= 5e-2 * np.linalg.norm(jref)), i
+    rows = np.abs(dx.numpy() - jax_grads[0]).max(1)
+    assert (rows <= 2e-2 * np.abs(jax_grads[0]).max()).mean() >= 0.98
+
+
+@pytest.mark.parametrize("dims", [[30, 128, 128, 1], [185, 128, 3]],
+                         ids=["semantic-head", "colour-head"])
+def test_fused_mlp_plain_matches_jax_at_big_heads(dims, arm):
+    """fused_mlp_plain (the CPU path of fused_mlp) against the JAX kernel
+    in interpret mode at cropnerf-mxu-big's two head shapes, 256 rows."""
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((256, dims[0])).astype(np.float32)
+    wbs = np_wbs(rng, dims)
+    ref = jax_fused_mlp(jnp.asarray(x), to_jax(wbs), 128, True)
+    got = tmlp.fused_mlp(torch.from_numpy(x), to_torch(wbs), arm.dtype)
+    assert_close(got, ref, arm.tol, "y")
+
+
+def _stand_in_kernels(monkeypatch):
+    """The K3 kernels' entry points stood in for by the plain version,
+    recording what each was handed."""
+    seen = {}
+
+    def launch(x, wbs, img, bias):
+        seen["fwd"] = (img, bias)
+        return tmlp.fused_mlp_plain(x, wbs)
+
+    def wide(x, wbs):
+        seen["wide"] = True
+        return tmlp.fused_mlp_plain(x, wbs)
+
+    def bwd(x, wbs, g, need_dx, need_dw, images):
+        seen["bwd"] = images
+        return None, [torch.zeros_like(w) for w in wbs]
+
+    monkeypatch.setattr(tmlp, "_wgmma_forward", launch)
+    monkeypatch.setattr(tmlp, "fused_mlp_wide", wide)
+    monkeypatch.setattr(tmlp, "fused_mlp_bwd", bwd)
+    return seen
+
+
+def _net(dims, seed=40):
+    rng = np.random.default_rng(seed)
+    wt = to_torch(np_wbs(rng, dims))
+    x = torch.from_numpy(rng.standard_normal((100, dims[0]))
+                         .astype(np.float32))
+    return x, wt
+
+
+@pytest.mark.parametrize("dims", [[74, 64, 3], [89, 256, 3]],
+                         ids=["wgmma", "wmma"])
+def test_forward_saves_its_images_for_the_backward(dims, monkeypatch):
+    """Where a graph is recorded, the card path of the wgmma route builds
+    the weight images once, in the forward, and hands those very tensors
+    to the backward; the wmma route builds none.  The kernels are stood in
+    for by the plain version."""
+    x, wt = _net(dims)
+    wt = [w.requires_grad_(True) for w in wt]
+    seen = _stand_in_kernels(monkeypatch)
+    out = tmlp._fused_mlp_card(x, wt)
+    out.sum().backward()
+    if dims[1] > HW:
+        assert seen == {"wide": True, "bwd": None}
+        return
+    img, bias = tmlp.mlp_images([w.detach() for w in wt])
+    assert all(a is b for a, b in zip(seen["bwd"], seen["fwd"]))
+    assert torch.equal(seen["fwd"][0], img)
+    assert torch.equal(seen["fwd"][1], bias)
+
+
+@pytest.mark.parametrize("dims", [[74, 64, 3], [89, 256, 3]],
+                         ids=["wgmma", "wmma"])
+def test_forward_without_a_graph_builds_only_forward_images(dims,
+                                                            monkeypatch):
+    """Where no graph is recorded (the export, the render), the card path
+    launches the forward kernel its route picks and builds no backward
+    half: the wgmma kernel gets the forward images alone, the wmma route
+    none."""
+    x, wt = _net(dims)
+    seen = _stand_in_kernels(monkeypatch)
+    with torch.no_grad():
+        out = tmlp._fused_mlp_card(x, [w.requires_grad_(True) for w in wt])
+    assert not out.requires_grad
+    if dims[1] > HW:
+        assert seen == {"wide": True}
+        return
+    img, bias = tmlp.mlp_images(wt)
+    assert set(seen) == {"fwd"}
+    assert torch.equal(seen["fwd"][0], img[:img.numel() // 2])
+    assert torch.equal(seen["fwd"][1], bias)

@@ -147,26 +147,78 @@ def test_fused_pe_density_forward_tiling_edges(cuda, n, hidden):
     assert _rel_err(got, ref) <= TOL, _rel_err(got, ref)
 
 
-@pytest.mark.parametrize("dims", [(15, 64, 1), (74, 64, 3), (15, 128, 1),
-                                  (63, 256, 256, 16)])
-@pytest.mark.parametrize("n", [127, 65_536 - 3])
-@torch.no_grad()
-def test_fused_mlp_kernel_matches_plain(cuda, dims, n):
-    g = torch.Generator(device=cuda).manual_seed(3)
+# K3 (fused_mlp): the heads of cropnerf-mxu and -q (wgmma route), a
+# three-layer net on the wgmma kernels, and -big's and -huge's heads and
+# wider nets (wmma route)
+K3_DIMS = [(15, 64, 1), (74, 64, 3), (39, 64, 48, 16), (15, 128, 1),
+           (63, 256, 256, 16), (30, 128, 128, 1), (185, 128, 3), (89, 256, 3)]
+K3_IDS = ["semantic-head", "colour-head", "three-layers", "128-wide", "wide",
+          "big-semantic-head", "big-colour-head", "huge-colour-head"]
+
+
+def _k3_net(cuda, dims, seed=3):
+    g = torch.Generator(device=cuda).manual_seed(seed)
     wbs = []
     for i in range(len(dims) - 1):
         wbs.append(torch.randn((dims[i], dims[i + 1]), generator=g,
                                device=cuda) / dims[i] ** 0.5)
         wbs.append(torch.randn((1, dims[i + 1]), generator=g, device=cuda)
                    * 0.05)
+    return g, wbs
+
+
+def _k3_counters(route, backward=False):
+    """The launch counter of K3's route, forward or backward."""
+    if backward:
+        return (kmlp.fused_mlp_bwd if route == "wgmma"
+                else kmlp.fused_mlp_bwd_wide)
+    return kmlp.fused_mlp if route == "wgmma" else kmlp.fused_mlp_wide
+
+
+def _k3_launches():
+    return [k.launches for k in (kmlp.fused_mlp, kmlp.fused_mlp_wide,
+                                 kmlp.fused_mlp_bwd, kmlp.fused_mlp_bwd_wide)]
+
+
+@pytest.mark.parametrize("dims", K3_DIMS, ids=K3_IDS)
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 127, 65_536 - 3])
+@torch.no_grad()
+def test_fused_mlp_kernel_matches_plain(cuda, dims, n):
+    """K3's forward on the route the net's shape picks, each route counting
+    its own launches, against the plain version, at the tiles' edges and an
+    export chunk's ragged N; two runs give the same bits."""
+    g, wbs = _k3_net(cuda, dims)
+    route = kmlp.fused_mlp_route(dims[0], dims[1:])
+    assert route == ("wgmma" if max(dims[1:-1]) <= 64 and dims[0] <= 128
+                     else "wmma")
     x = torch.randn((n, dims[0]), generator=g, device=cuda)
-    before = kmlp.fused_mlp.launches
+    before = _k3_launches()
     got = kmlp.fused_mlp(x, wbs)
     torch.cuda.synchronize()
-    assert kmlp.fused_mlp.launches == before + 1
+    moved = [a - b for a, b in zip(_k3_launches(), before)]
+    assert moved == ([1, 0, 0, 0] if route == "wgmma" else [0, 1, 0, 0])
     ref = kmlp.fused_mlp_plain(x, wbs)
     assert got.shape == ref.shape and torch.isfinite(got).all()
     assert _rel_err(got, ref) <= TOL
+    assert torch.equal(got, kmlp.fused_mlp(x, wbs)), "not deterministic"
+
+
+@pytest.mark.parametrize("dims", K3_DIMS[:3] + K3_DIMS[5:],
+                         ids=K3_IDS[:3] + K3_IDS[5:])
+@pytest.mark.parametrize("n", [64, 1000, 65_536 - 3])
+@torch.no_grad()
+def test_fused_mlp_on_an_unaligned_x(cuda, dims, n):
+    """x a contiguous view one row into a larger tensor, so its address is
+    not 16-byte aligned for these widths: the wgmma kernels load it with
+    ordinary loads, and every route gives the same bits as on an aligned
+    copy."""
+    g, wbs = _k3_net(cuda, dims)
+    big = torch.randn((n + 1, dims[0]), generator=g, device=cuda)
+    x = big[1:]
+    assert x.is_contiguous() and x.data_ptr() % 16
+    got = kmlp.fused_mlp(x, wbs)
+    assert torch.equal(got, kmlp.fused_mlp(x.clone(), wbs))
+    assert _rel_err(got, kmlp.fused_mlp_plain(x, wbs)) <= TOL
 
 
 def test_kernels_refuse_float32_and_autograd(cuda):
@@ -412,28 +464,24 @@ def test_fused_pe_density_backward_tiling_edges(cuda, n):
 
 
 @pytest.mark.parametrize("need_dw", [True, False], ids=["with-dW", "dx-only"])
-@pytest.mark.parametrize("n", [196_608, 196_608 - 3, 127])
-@pytest.mark.parametrize("dims", [(15, 64, 1), (74, 64, 3), (63, 256, 256, 16)],
-                         ids=["semantic-head", "colour-head", "wide"])
+@pytest.mark.parametrize("n", [196_608, 196_608 - 3, 127, 1, 63, 64, 65])
+@pytest.mark.parametrize("dims", K3_DIMS, ids=K3_IDS)
 def test_fused_mlp_backward_kernel_matches_plain(cuda, dims, n, need_dw):
-    """K3's backward on the vanilla field's heads, at the BayesRays batch
-    and ragged N, and a wide 3-layer MLP."""
-    g = torch.Generator(device=cuda).manual_seed(3)
-    wbs = []
-    for i in range(len(dims) - 1):
-        wbs.append(torch.randn((dims[i], dims[i + 1]), generator=g,
-                               device=cuda) / dims[i] ** 0.5)
-        wbs.append(torch.randn((1, dims[i + 1]), generator=g, device=cuda)
-                   * 0.05)
+    """K3's backward on the vanilla field's heads (the BayesRays batch,
+    ragged N and the tiles' edges), a three-layer net and the wmma route's
+    nets, each route counting its own launches; two runs give the same
+    bits."""
+    g, wbs = _k3_net(cuda, dims)
+    route = kmlp.fused_mlp_route(dims[0], dims[1:])
     wbs = _leaves(wbs, need_dw)
     x = torch.randn((n, dims[0]), generator=g, device=cuda, requires_grad=True)
     cot = torch.randn((n, dims[-1]), generator=g, device=cuda)
     leaves = [x] + (wbs if need_dw else [])
-    before = (kmlp.fused_mlp.launches, kmlp.fused_mlp_bwd.launches)
+    before = _k3_launches()
     got = _grads(kmlp.fused_mlp(x, wbs), leaves, cot)
     torch.cuda.synchronize()
-    assert (kmlp.fused_mlp.launches, kmlp.fused_mlp_bwd.launches) == (
-        before[0] + 1, before[1] + 1)
+    moved = [a - b for a, b in zip(_k3_launches(), before)]
+    assert moved == ([1, 0, 1, 0] if route == "wgmma" else [0, 1, 0, 1])
     ref = _grads(kmlp.fused_mlp_plain(x, wbs), leaves, cot)
     for i, (a, b) in enumerate(zip(got, ref)):
         assert a.shape == b.shape and torch.isfinite(a).all(), i
@@ -443,6 +491,29 @@ def test_fused_mlp_backward_kernel_matches_plain(cuda, dims, n, need_dw):
     again = _grads(kmlp.fused_mlp(x, wbs), leaves, cot)
     assert all(torch.equal(a, b) for a, b in zip(got, again)), \
         "the backward kernel is not deterministic"
+
+
+@pytest.mark.parametrize("dims", K3_DIMS[:3], ids=K3_IDS[:3])
+def test_fused_mlp_backward_asks_and_alignment(cuda, dims):
+    """The wgmma backward: dx alone and the weight gradients alone are the
+    full backward's bits; on x and g one float into larger buffers (not
+    16-byte aligned) the same bits again."""
+    g, wbs = _k3_net(cuda, dims)
+    n = 4099
+    xb = torch.randn((n * dims[0] + 1,), generator=g, device=cuda)
+    gb = torch.randn((n * dims[-1] + 1,), generator=g, device=cuda)
+    x_off, g_off = xb[1:].view(n, dims[0]), gb[1:].view(n, dims[-1])
+    assert x_off.data_ptr() % 16 and g_off.data_ptr() % 16
+    x, cot = x_off.clone(), g_off.clone()
+    dx, dw = kmlp.fused_mlp_bwd(x, wbs, cot, True, True)
+    dx_only, none = kmlp.fused_mlp_bwd(x, wbs, cot, True, False)
+    no_dx, dw_only = kmlp.fused_mlp_bwd(x, wbs, cot, False, True)
+    assert none is None and no_dx is None
+    assert torch.equal(dx, dx_only)
+    assert all(torch.equal(a, b) for a, b in zip(dw, dw_only))
+    off_dx, off_dw = kmlp.fused_mlp_bwd(x_off, wbs, g_off, True, True)
+    assert torch.equal(dx, off_dx)
+    assert all(torch.equal(a, b) for a, b in zip(dw, off_dw))
 
 
 def _synthetic_bank(cuda, n_img=4, h=120, w=160):

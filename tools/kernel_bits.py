@@ -1,9 +1,13 @@
 """Checksums of the outputs of the port's kernels that a kernel redesign
 leaves alone, on seeded inputs at the main paths' shapes, on one NVIDIA
 GPU: K3 forward and backward (``fused_mlp``, ``fused_mlp_bwd``: dx alone
-and with the weight gradients), K4 forward (``hash_encode_fwd``) and K5
-backward (``fused_pe_mlp_bwd``: dx and every weight gradient).  Run it on
-two trees in one call on the same card; equal lines mean equal bits:
+and with the weight gradients) at cropnerf-mxu's heads and, on its wmma
+route (``csrc/fused_mlp.cu``), at cropnerf-mxu-huge's colour head; K4
+forward (``hash_encode_fwd``); K5 forward (``fused_pe_mlp`` without a
+graph) and backward (``fused_pe_mlp_bwd``: dx and every weight gradient)
+at cropnerf-mxu's proposal nets, and K5's forward on its wmma route at
+cropnerf-mxu-q's 128-wide nets.  Run it on two trees in one call on the
+same card; equal lines mean equal bits:
 
     python3 tools/kernel_bits.py [--port-root DIR]
 """
@@ -43,9 +47,10 @@ def main() -> None:
     g = torch.Generator(device=dev).manual_seed(21)
     out = {}
     with torch.no_grad():
-        # K3: the vanilla field's heads at an export chunk and a BayesRays batch
-        for name, dims in (("semantic head", (15, 64, 1)),
-                           ("colour head", (74, 64, 3))):
+        # K3: the vanilla field's heads at an export chunk and a BayesRays
+        # batch (-huge's colour head, the wmma route, comes last, so that
+        # the draws before it are those of earlier versions of this script)
+        def k3(name, dims):
             wbs = []
             for a, b in zip(dims[:-1], dims[1:]):
                 wbs += [torch.randn((a, b), generator=g, device=dev) / a ** 0.5,
@@ -58,6 +63,9 @@ def main() -> None:
                 dx, dw = kmlp.fused_mlp_bwd(x, wbs, cot, True, need_dw)
                 out[f"fused_mlp_bwd {name} dW={need_dw}"] = digest(
                     [dx] + (dw or []))
+
+        k3("semantic head", (15, 64, 1))
+        k3("colour head", (74, 64, 3))
         # K4: a cropnerf step's three encodes
         m = PRESETS["cropnerf"].model
         for name, n, gc in (("field", 196_608, m.field.grid),
@@ -71,17 +79,25 @@ def main() -> None:
             table2d, offsets, dense, _ = hg._table_layout(table, res, "auto", t)
             out[f"hash_encode {name}"] = digest([kh.hash_encode_fwd(
                 table2d, pos, tuple(res), tuple(offsets), tuple(dense), t)])
-        # K5 backward: the fused proposal nets of cropnerf-mxu, dx and dW
-        mx = PRESETS["cropnerf-mxu"].model
-        for i, (p, smp) in enumerate(zip(mx.proposal_fields,
-                                         mx.num_proposal_samples_per_ray)):
-            prop = proposal_init(p, torch.Generator().manual_seed(i), dev)
-            wbs = [t.detach() for w, b in zip(prop.mlp.w, prop.mlp.b)
-                   for t in (w, b.reshape(1, -1))]
-            x = torch.rand((4096 * smp, 3), generator=g, device=dev) * 2 - 1
-            cot = torch.randn((4096 * smp, 1), generator=g, device=dev)
-            dx, dw = kfield.fused_pe_mlp_bwd(x, wbs, p.pe_freqs, cot)
-            out[f"fused_pe_mlp_bwd net {i}"] = digest([dx] + dw)
+        # K5: the fused proposal nets of cropnerf-mxu, the forward (no graph)
+        # and the backward with dx and dW; then -q's 128-wide nets, the
+        # forward's wmma route
+        for preset in ("cropnerf-mxu", "cropnerf-mxu-q"):
+            mx = PRESETS[preset].model
+            for i, (p, smp) in enumerate(zip(mx.proposal_fields,
+                                             mx.num_proposal_samples_per_ray)):
+                prop = proposal_init(p, torch.Generator().manual_seed(i), dev)
+                wbs = [t.detach() for w, b in zip(prop.mlp.w, prop.mlp.b)
+                       for t in (w, b.reshape(1, -1))]
+                x = torch.rand((4096 * smp, 3), generator=g, device=dev) * 2 - 1
+                tag = "" if preset == "cropnerf-mxu" else " wmma route"
+                out[f"fused_pe_mlp{tag} net {i}"] = digest(
+                    [kfield.fused_pe_mlp(x, wbs, p.pe_freqs)])
+                if preset == "cropnerf-mxu":
+                    cot = torch.randn((4096 * smp, 1), generator=g, device=dev)
+                    dx, dw = kfield.fused_pe_mlp_bwd(x, wbs, p.pe_freqs, cot)
+                    out[f"fused_pe_mlp_bwd net {i}"] = digest([dx] + dw)
+        k3("huge colour head", (89, 256, 3))
     print(json.dumps({"port_root": str(args.port_root),
                       "card": torch.cuda.get_device_name(0), "sha256": out}),
           flush=True)
