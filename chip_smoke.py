@@ -67,6 +67,21 @@ Run from the root of the repository:  python3 chip_smoke.py
    every loss held against the plain path's, and the depth point cloud at
    16,384 rays a batch up to 1,000,000 points (thresholds at a first
    batch's medians), each with exact launch counts of K1 and K5;
+5d. drives the CLI in process, cli.main([...]) ([cli] lines), on a
+   ray-traced 3DCotton-layout dataset of 32 views of 1200x800: for cropnerf
+   train --max-steps 500 (an eval batch, an eval image and the save at step
+   500, then the full eval), train --resume --max-steps 20, export at 128^3
+   (thresholds from the trained field's quantiles), uncertainty at lod 8
+   over 8 batches and render (2 frames of 256x256, --eval-metrics); for
+   cropnerf-mxu the same with export-pointcloud (1,000,000 points) in
+   place of render.  It checks each command's kernels launched (counts
+   zeroed just before it), the loss falling, finite eval metrics, the
+   checkpoint bit for bit through load_trainer_from_run, the CLI's export
+   row for row against a direct export_and_write and the run directory's
+   files, and prints each command's wall seconds, the loop's rays/s beside
+   the bare step's and the checkpoint's size and save time.  Without
+   matplotlib (the eval-image PNGs need it) train runs through the Trainer
+   API with the eval image moved past the run, and the phase says so;
 6. traces one forward, render, export and training step of cropnerf-mxu,
    one forward and training step of cropnerf, one BayesRays batch of each,
    and one training step and depth-cloud batch of the fused-proposal path
@@ -1982,6 +1997,327 @@ def propfused_phase(dev, card, bank, rb, cams, kernels) -> tuple:
     return info, trace
 
 
+# ---- the trainer loop and the CLI: the [cli] phase -----------------------
+
+CLI_IMAGES = (32, 800, 1200)   # views, height, width: the [train] bank's shape
+CLI_FOCAL = 1000.0             # pixels: a 62-degree horizontal field of view
+CLI_STEPS = 500                # both presets' eval-batch and eval-image cadence
+CLI_RESUME_STEPS = 20
+CLI_EXPORT_SIDE = 128
+CLI_UNC_ITERS = 8
+CLI_UNC_LOD = 8
+CLI_RENDER = ("2", "256")      # --n-frames, --size
+# the terms that must fall from the first logged step to step 500.  The
+# total of cropnerf-mxu is its semantic BCE, which stays near 0.5 over its
+# first 500 steps (lr 1e-3) in the JAX package too
+# (tools/loss_terms.py), so it is printed and not held
+CLI_FALLING = {"cropnerf": ("loss", "rgb_loss"),
+               "cropnerf-mxu": ("rgb_loss",)}
+CLI_TERMS = ("loss", "rgb_loss", "semantics_loss", "interlevel_loss",
+             "distortion_loss", "psnr")
+# (centre, radius, tint, crop): two crops and a grey occluder that the
+# images show and the masks leave out
+CLI_SPHERES = (((0.0, 0.0, 0.0), 0.30, (0.85, 0.20, 0.10), 1),
+               ((0.32, -0.22, 0.12), 0.17, (0.90, 0.60, 0.10), 1),
+               ((-0.28, 0.26, -0.08), 0.21, (0.40, 0.48, 0.36), 0))
+
+
+def write_cli_dataset(root: Path, n: int, height: int, width: int,
+                      focal: float) -> Path:
+    """A 3DCotton-layout dataset (transforms.json, images/, semantics/):
+    ``n`` views on a ring around three matte spheres, ray-traced with
+    numpy, on a white background; the masks cover the two crops."""
+    (root / "images").mkdir(parents=True)
+    (root / "semantics").mkdir()
+    from PIL import Image
+    ys, xs = np.meshgrid(np.arange(height, dtype=np.float32),
+                         np.arange(width, dtype=np.float32), indexing="ij")
+    dirs_cam = np.stack([(xs + 0.5 - width / 2) / focal,
+                         -(ys + 0.5 - height / 2) / focal,
+                         -np.ones_like(xs)], -1)
+    light = np.array([0.5, 0.5, 1.0]) / np.linalg.norm([0.5, 0.5, 1.0])
+    frames = []
+    for i in range(n):
+        theta = 2 * np.pi * i / n
+        eye = np.array([1.2 * np.cos(theta), 1.2 * np.sin(theta),
+                        (0.3, 0.55)[i % 2]])
+        fwd = -eye / np.linalg.norm(eye)
+        right = np.cross(fwd, [0.0, 0.0, 1.0])
+        right /= np.linalg.norm(right)
+        c2w = np.concatenate([np.stack([right, np.cross(right, fwd), -fwd],
+                                       axis=1), eye[:, None]], axis=1)
+        dirs = dirs_cam @ c2w[:, :3].T.astype(np.float32)
+        dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+        img = np.ones((height, width, 3), np.float32)
+        mask = np.zeros((height, width), np.uint8)
+        zbuf = np.full((height, width), np.inf, np.float32)
+        for ctr, rad, tint, crop in CLI_SPHERES:
+            oc = eye - np.asarray(ctr)
+            b = dirs @ oc.astype(np.float32)
+            disc = b * b - (oc @ oc - rad ** 2)
+            t = -b - np.sqrt(np.maximum(disc, 0))
+            hit = (disc > 0) & (t > 0) & (t < zbuf)
+            p = eye + t[hit][:, None] * dirs[hit]
+            lam = np.clip(((p - np.asarray(ctr)) / rad) @ light, 0.2, 1.0)
+            img[hit] = lam[:, None] * np.asarray(tint)
+            zbuf[hit] = t[hit]
+            mask[hit] = 255 * crop
+        name = f"frame_{i:04d}.png"
+        Image.fromarray((img * 255).astype(np.uint8)).save(
+            root / "images" / name, compress_level=1)
+        Image.fromarray(mask).save(root / "semantics" / name,
+                                   compress_level=1)
+        mat = np.eye(4)
+        mat[:3] = c2w
+        frames.append({"file_path": f"images/{name}",
+                       "transform_matrix": mat.tolist()})
+    (root / "transforms.json").write_text(json.dumps({
+        "fl_x": focal, "fl_y": focal, "cx": width / 2, "cy": height / 2,
+        "w": width, "h": height, "frames": frames}))
+    return root
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def metrics_log(run: Path) -> list:
+    return [json.loads(line) for line in
+            (run / "logs" / "metrics.jsonl").read_text().splitlines()]
+
+
+def cli_phase(dev, card, kernels, bare_step_ms: dict) -> dict:
+    """``python -m cropnerf_tpu_torch.cli`` in process, at full published
+    widths, for ``cropnerf`` (train, resume, export, uncertainty, render)
+    and ``cropnerf-mxu`` (the same with export-pointcloud in place of
+    render) on a ray-traced 3DCotton-layout dataset: each command's wall
+    seconds and launches (counts zeroed just before it), the loss, the
+    eval metrics, the checkpoint round trip, the CLI's export against a
+    direct one and the run directory's files.  ``bare_step_ms``: each
+    preset's bare training-step median from its [train] phase."""
+    import importlib.util
+    from cropnerf_tpu_torch import cli
+    from cropnerf_tpu_torch.data.dataparser import DataparserConfig
+    from cropnerf_tpu_torch.export.ply import read_ply
+    from cropnerf_tpu_torch.models.config import PRESETS
+    from cropnerf_tpu_torch.train.trainer import Trainer, load_trainer_from_run
+    from cropnerf_tpu_torch.export.volume import export_and_write
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    t0 = time.perf_counter()
+    n_img, h, w = CLI_IMAGES
+    data = write_cli_dataset(work / "data", n_img, h, w, CLI_FOCAL)
+    log(f"[cli] dataset: {n_img} views of {w}x{h}, three spheres, written "
+        f"in {time.perf_counter() - t0:.1f} s")
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    if not have_mpl:
+        log("[cli] matplotlib does not import on this machine: "
+            "evaluation/vis.py cannot write the eval-image PNGs, and the "
+            "port raises there as the JAX package does. So train runs "
+            "through the Trainer API with the preset's steps_per_eval_image "
+            "moved past the run (dataclasses.replace), then eval_image(0) "
+            "without save_dir; every other command runs through cli.main")
+    table = {"cropnerf": {"train": ("hash_encode", "hash_encode_bwd"),
+                          "export": ("hash_encode",),
+                          "uncertainty": ("hash_encode", "hash_encode_bwd"),
+                          "render": ("hash_encode",)},
+             "cropnerf-mxu": {"train": ("fused_pe_nerf", "fused_pe_nerf_bwd"),
+                              "export": ("fused_pe_density", "fused_mlp"),
+                              "uncertainty": ("fused_pe_density_bwd",
+                                              "fused_mlp_bwd"),
+                              "export-pointcloud": ("fused_pe_nerf",)}}
+    table = {p: {**cmds, "resume": cmds["train"]} for p, cmds in table.items()}
+    g = torch.Generator(device=dev).manual_seed(11)
+    info = {"card": card, "dataset": list(CLI_IMAGES),
+            "matplotlib": have_mpl}
+    for preset in ("cropnerf", "cropnerf-mxu"):
+        run = work / preset
+        cmd_s, launches, res = {}, {}, {}
+
+        def drive(name, fn):
+            t = time.perf_counter()
+            launches[name] = counted(kernels, lambda: res.update({name: fn()}))
+            sync(dev)
+            cmd_s[name] = time.perf_counter() - t
+            log(f"[cli] {preset} {name}: {cmd_s[name]:.2f} s, launches "
+                + str({k: v for k, v in launches[name].items() if v}))
+            return res[name]
+
+        train_args = ["train", "--method", preset, "--data", str(data),
+                      "--output", str(run)]
+        if have_mpl:
+            drive("train", lambda: cli.main(
+                train_args + ["--max-steps", str(CLI_STEPS)]))
+        else:
+            def train_api():
+                cfg = dataclasses.replace(
+                    PRESETS[preset], steps_per_eval_image=CLI_STEPS + 1)
+                trainer = Trainer(cfg, DataparserConfig(data_dir=data), run,
+                                  device=dev)
+                trainer.train(num_steps=CLI_STEPS)
+                em = trainer.eval_image(0)
+                log(f"[cli] {preset} eval_image(0) without save_dir: {em}")
+                check(all(math.isfinite(v) for v in em.values()),
+                      f"{preset} eval image {em}")
+                return trainer
+            drive("train", train_api)
+        log_train = metrics_log(run)
+        trained = [r for r in log_train if "train/loss" in r]
+        first, last = trained[0], trained[-1]
+        for r in trained:
+            log(f"[cli] {preset} step {r['step']}: " + ", ".join(
+                f"{k} {r['train/' + k]:.5f}" for k in CLI_TERMS))
+        check(last["step"] == CLI_STEPS
+              and all(last[f"train/{k}"] < first[f"train/{k}"]
+                      for k in CLI_FALLING[preset]),
+              f"{preset} {CLI_FALLING[preset]} at step {first['step']} -> "
+              f"step {last['step']}: {first} -> {last}")
+        # the held-out eval view against a training view: how far the
+        # field generalises after CLI_STEPS steps
+        tr = res.pop("train")
+        out = tr.render(tr.state.params, tr.bank.cameras, 0, h, w)
+        gt = tr.bank.rgb[:h * w].float().reshape(h, w, 3) / 255.0
+        train_view_psnr = float(10 * torch.log10(
+            1 / ((out["rgb"] - gt) ** 2).mean()))
+        del tr, out, gt
+        evals = {k: v for r in log_train for k, v in r.items()
+                 if k.startswith("eval")}
+        check(len(evals) > 0 and all(math.isfinite(v) for v in evals.values()),
+              f"{preset} eval metrics {evals}")
+
+        trainer = drive("resume", lambda: cli.main(
+            train_args + ["--resume", "--max-steps", str(CLI_RESUME_STEPS)]))
+        end = CLI_STEPS + CLI_RESUME_STEPS
+        ckpt = run / "checkpoints" / f"step-{end:09d}.pt"
+        check(trainer.state.step == end and ckpt.is_file(),
+              f"{preset} resume: step {trainer.state.step}, {ckpt.name} "
+              f"{'written' if ckpt.is_file() else 'absent'}")
+        sync(dev)
+        t = time.perf_counter()
+        trainer.save_checkpoint()
+        save_s = time.perf_counter() - t
+        ckpt_mib = ckpt.stat().st_size / 2**20
+        reloaded = load_trainer_from_run(run, device=dev)
+        sd_a = trainer.state.params.state_dict()
+        sd_b = reloaded.state.params.state_dict()
+        same_params = sd_a.keys() == sd_b.keys() and all(
+            torch.equal(sd_a[k], sd_b[k]) for k in sd_a)
+        opt_a = trainer.state.optimizer.state_dict()
+        opt_b = reloaded.state.optimizer.state_dict()
+        same_opt = len(opt_a) == len(opt_b) and all(
+            a["param_groups"] == b["param_groups"]
+            and a["state"].keys() == b["state"].keys()
+            and all(torch.equal(v, b["state"][i][k])
+                    for i in a["state"] for k, v in a["state"][i].items())
+            for a, b in zip(opt_a, opt_b))
+        log(f"[cli] {preset} checkpoint {ckpt.name}: {ckpt_mib:.1f} MiB, "
+            f"saved in {save_s:.3f} s; reloaded step {reloaded.state.step}, "
+            f"params bit for bit {same_params}, optimizer state bit for bit "
+            f"{same_opt}; {card}")
+        check(reloaded.state.step == end and same_params and same_opt,
+              f"{preset} checkpoint round trip")
+
+        # export thresholds from the trained field's quantiles over the box
+        thr = export_thresholds(reloaded.state.params, reloaded.cfg.model.field,
+                                g, dev)
+        thr_args = ["--semantic-threshold", repr(thr["semantic_threshold"]),
+                    "--density-threshold", repr(thr["density_threshold"]),
+                    "--colormap-threshold", repr(thr["colormap_threshold"])]
+        paths = drive("export", lambda: cli.main(
+            ["export", "--run-dir", str(run), "--num-points-per-side",
+             str(CLI_EXPORT_SIDE)] + thr_args))
+        direct = export_and_write(
+            reloaded.state.params, reloaded.cfg.model,
+            reloaded.train_outputs.scene_box, work / f"{preset}_direct",
+            dataparser_scale=2.0, num_points_per_side=CLI_EXPORT_SIDE,
+            **{k: float(v) for k, v in thr.items()})
+        export_points = {}
+        for name, path in direct.items():
+            pts, cols = read_ply(path)
+            got_pts, got_cols = read_ply(paths[name])
+            export_points[name] = len(got_pts)
+            check(len(pts) > 0 and np.array_equal(got_pts, pts)
+                  and np.array_equal(got_cols, cols),
+                  f"{preset} export {name}: CLI {len(got_pts)} points vs "
+                  f"direct {len(pts)}, rows equal "
+                  f"{len(pts) == len(got_pts) and np.array_equal(got_pts, pts)}")
+        log(f"[cli] {preset} export through the CLI: points {export_points}, "
+            f"equal row for row to a direct export_and_write; thresholds "
+            + ", ".join(f"{k} {v:.4g}" for k, v in thr.items()))
+        del reloaded
+
+        unc = drive("uncertainty", lambda: cli.main(
+            ["uncertainty", "--run-dir", str(run), "--iters",
+             str(CLI_UNC_ITERS), "--lod", str(CLI_UNC_LOD)]))
+        grid = np.load(unc)
+        check(grid.shape == ((2 ** CLI_UNC_LOD + 1) ** 3,)
+              and bool(np.isfinite(grid).all()) and grid.max() > 0,
+              f"{preset} uncertainty grid {grid.shape}")
+        if preset == "cropnerf":
+            out = drive("render", lambda: cli.main(
+                ["render", "--run-dir", str(run), "--n-frames", CLI_RENDER[0],
+                 "--size", CLI_RENDER[1], "--eval-metrics"]))
+            check(Path(out).exists(), f"{preset} render wrote no {out}")
+        else:
+            pc = drive("export-pointcloud", lambda: cli.main(
+                ["export-pointcloud", "--run-dir", str(run), "--num-points",
+                 str(CLOUD_POINTS), "--rays-per-batch", str(CLOUD_RAYS)]))
+            pts, _ = read_ply(pc)
+            res["cloud_points"] = len(pts)
+            check(bool(np.isfinite(pts).all()), f"{preset} depth cloud")
+            log(f"[cli] {preset} depth cloud: {len(pts)} points")
+
+        for cmd, names in table[preset].items():
+            got = {k: launches[cmd][k] for k in names}
+            check(all(v > 0 for v in got.values()),
+                  f"{preset} {cmd}: a kernel of its path was not launched "
+                  f"{got}")
+        files = ["run_config.json", "dataparser_transforms.json",
+                 "logs/metrics.jsonl", f"checkpoints/step-{CLI_STEPS:09d}.pt",
+                 f"checkpoints/step-{end:09d}.pt"]
+        if have_mpl:
+            files += [f"eval_images/step_{CLI_STEPS:09d}/{n}.png" for n in
+                      ("img", "accumulation", "depth", "semantics")]
+        missing = [f for f in files if not (run / f).is_file()]
+        check(not missing, f"{preset} run directory lacks {missing}")
+        last_train = [r for r in metrics_log(run) if "train/loss" in r
+                      and r["step"] == CLI_STEPS][0]
+        rate, rate_win = (last_train["train/rays_per_s"],
+                          last_train["train/rays_per_s_window"])
+        bare = bare_step_ms[preset]
+        R = PRESETS[preset].train_num_rays_per_batch
+        log(f"[cli] {preset} loop: loss {first['train/loss']:.4f} at step "
+            f"{first['step']} -> {last['train/loss']:.4f} at {CLI_STEPS}; "
+            f"PSNR of training view 0 {train_view_psnr:.2f}, of the "
+            f"held-out eval view {evals.get('eval_all/eval_psnr', math.nan):.2f}; "
+            f"rays_per_s {rate:.0f} over the run, rays_per_s_window "
+            f"{rate_win:.0f} (steps {CLI_STEPS - 100}-{CLI_STEPS}), bare "
+            f"step {bare:.2f} ms = {R / bare * 1e3:.0f} rays/s ([train]); "
+            f"run directory: {', '.join(files)}; {card}")
+        log(f"[cli] {preset} wall s: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in cmd_s.items())
+            + f"; {card}")
+        info[preset] = {
+            "command_s": cmd_s, "launches": {
+                cmd: {k: v for k, v in n.items() if v}
+                for cmd, n in launches.items()},
+            "loss_first": [first["step"], first["train/loss"]],
+            "loss_last": [last["step"], last["train/loss"]],
+            "eval": evals, "train_view_psnr": train_view_psnr,
+            "rays_per_s": rate, "rays_per_s_window": rate_win,
+            "bare_step_ms": bare, "bare_rays_per_s": R / bare * 1e3,
+            "checkpoint_mib": ckpt_mib, "save_s": save_s,
+            "export_points": export_points, "thresholds": thr,
+            **({"cloud_points": res["cloud_points"]}
+               if "cloud_points" in res else {})}
+        res.clear()
+        del trainer
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    shutil.rmtree(work)
+    return info
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke FAILED: no CUDA device is visible")
@@ -2525,6 +2861,11 @@ def main() -> None:
     pf_info, pf_steps = propfused_phase(dev, card, bank, rb, cams, all_kernels)
     steps.update(pf_steps)
 
+    # ---- 5d. the trainer loop and the CLI ---------------------------------
+    cli_info = cli_phase(dev, card, all_kernels,
+                         {"cropnerf": hash_train["median_ms"],
+                          "cropnerf-mxu": train_med})
+
     # ---- 6. where the time goes: one traced call of each path step ------
     breakdown = {}
     for step, fn in steps.items():
@@ -2636,7 +2977,13 @@ def main() -> None:
         "bwd_kernels": {name: kernels[name] for name in
                         ("fused_pe_density_bwd", "fused_mlp_bwd")},
         "propfused": pf_info,
+        "cli": cli_info,
         "trace": breakdown}
+    for entry in line["kernels"]:
+        entry["launches_by_path"]["cli"] = {
+            f"{preset} {cmd}": n.get(entry["name"], 0)
+            for preset in ("cropnerf", "cropnerf-mxu")
+            for cmd, n in cli_info[preset]["launches"].items()}
     print(json.dumps(line), flush=True)
     shutil.rmtree(out_dir)
     print(smi, flush=True)

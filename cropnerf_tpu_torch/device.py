@@ -11,6 +11,8 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     running on the CPU, which only an explicit ``device="cpu"`` selects.
     """
     dev = torch.device(device)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"device {dev}: the port runs on 'cuda' or 'cpu'")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is visible; pass device='cpu' "
                            "to run on the CPU")

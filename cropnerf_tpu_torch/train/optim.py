@@ -83,6 +83,26 @@ class GroupOptimizer:
         for opt in self.optimizers:
             opt.step()
 
+    def state_dict(self) -> List[Dict]:
+        """Each optimizer's ``state_dict``, in order."""
+        return [opt.state_dict() for opt in self.optimizers]
+
+    def load_state_dict(self, states: List[Dict]) -> None:
+        """Load :meth:`state_dict`'s list.  Torch matches the moments to the
+        parameters by their order in each group, which ``make_optimizer``
+        keeps as ``named_parameters`` gives it.  An unfused torch optimizer
+        keeps its step counts on the host; a checkpoint loaded with
+        ``map_location`` on the card brings them there, so they go back
+        to the host (on the card every update would wait to read them)."""
+        if len(states) != len(self.optimizers):
+            raise ValueError(f"{len(states)} optimizer states for "
+                             f"{len(self.optimizers)} optimizers")
+        for opt, st in zip(self.optimizers, states):
+            opt.load_state_dict(st)
+            for s in opt.state.values():
+                if torch.is_tensor(s.get("step")):
+                    s["step"] = s["step"].cpu()
+
 
 def make_optimizer(params: nn.Module, cfg: TrainConfig) -> GroupOptimizer:
     """The three groups of ``params`` (a CropNeRFParams) under their

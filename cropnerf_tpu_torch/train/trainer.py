@@ -1,0 +1,346 @@
+"""Training engine: loop, eval cadence, checkpointing, logging (counterpart
+of ``cropnerf_tpu/train/trainer.py``).
+
+The constructor parses the train and eval splits, puts both pixel banks on
+the card, creates the train state, checks the cadences against
+``steps_per_dispatch``, builds the step and writes the run metadata
+(``run_config.json`` and ``dataparser_transforms.json``, field for field
+as the JAX package writes them, so that runs of either package describe
+the same model and frame).  The loop logs every ``log_every`` steps and on
+the last; only those steps read values from the card.  Checkpoints are
+``torch.save`` files, ``checkpoints/step-{step:09d}.pt``, holding the
+parameters, each optimizer's state and the step; a JAX run's orbax
+checkpoint becomes one through ``tools/jax_run_to_torch.py``.  The
+multi-GPU bank and the JAX trainer's throughput watchdog are not part of
+the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ..core.cameras import Cameras
+from ..data.databank import PixelBank, build_pixel_bank
+from ..data.dataparser import DataparserConfig, DataparserOutputs, parse_transforms
+from ..data.dataset import SEMANTIC_THRESHOLD, load_split
+from ..device import resolve_device
+from ..models.config import TrainConfig, train_config_from_dict
+from ..ops import metrics as metric_ops
+from ..utils.writer import MetricsWriter
+from .state import TrainState, create_train_state
+from .step import make_eval_batch_fn, make_render_fn, make_train_step
+
+
+def cameras_from_outputs(out: DataparserOutputs,
+                         device: torch.device | str = "cuda") -> Cameras:
+    """The parsed split's cameras on ``device``."""
+    device = resolve_device(device)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return Cameras(
+        c2w=t(out.c2w), fx=t(out.fx), fy=t(out.fy), cx=t(out.cx),
+        cy=t(out.cy), width=t(out.width), height=t(out.height),
+        distortion=(t(out.distortion)
+                    if np.abs(out.distortion).max() > 0 else None))
+
+
+class Trainer:
+    """Trains one model on one GPU (or the CPU)."""
+
+    def __init__(self, cfg: TrainConfig, data_config: DataparserConfig,
+                 output_dir: Path, experiment_name: str = "cropnerf",
+                 resume: bool = False, steps_per_dispatch: int = 1,
+                 num_images_override: Optional[int] = None,
+                 semantic_threshold: "int | str" = SEMANTIC_THRESHOLD,
+                 device: torch.device | str = "cuda"):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.data_config = data_config
+        self.output_dir = Path(output_dir)
+        self.experiment_name = experiment_name
+
+        self.semantic_threshold = semantic_threshold
+        self.train_outputs = parse_transforms(data_config, "train")
+        self.eval_outputs = parse_transforms(data_config, "eval")
+        images, masks = load_split(self.train_outputs,
+                                   semantic_threshold=semantic_threshold)
+        self.bank: PixelBank = build_pixel_bank(
+            images, masks, cameras_from_outputs(self.train_outputs,
+                                                self.device), self.device)
+        self.eval_images, self.eval_masks = load_split(
+            self.eval_outputs, semantic_threshold=semantic_threshold)
+        self.eval_cameras = cameras_from_outputs(self.eval_outputs,
+                                                 self.device)
+        self.eval_bank: PixelBank = build_pixel_bank(
+            self.eval_images, self.eval_masks, self.eval_cameras, self.device)
+
+        # num_images_override: rebuild the per-image params (appearance
+        # embedding, camera-opt) at a run's recorded image count
+        self.num_train_images = int(num_images_override
+                                    or self.bank.num_images)
+        self.state: TrainState = create_train_state(
+            cfg, self.num_train_images,
+            torch.Generator().manual_seed(cfg.seed), self.device)
+        # steps_per_dispatch > 1 runs that many optimizer steps per call of
+        # the step; the eval and save cadences must fall on call boundaries
+        k = int(steps_per_dispatch)
+        if k < 1:
+            raise ValueError(f"steps_per_dispatch={k} must be >= 1")
+        for name, cadence in (("steps_per_eval_batch", cfg.steps_per_eval_batch),
+                              ("steps_per_eval_image", cfg.steps_per_eval_image),
+                              ("steps_per_save", cfg.steps_per_save)):
+            if cadence % k:
+                raise ValueError(f"{name}={cadence} must be a multiple of "
+                                 f"steps_per_dispatch={k}")
+        self.steps_per_dispatch = k
+        self.train_step = make_train_step(cfg, num_inner=k)
+        self.eval_batch_fn = make_eval_batch_fn(cfg)
+        self.render = make_render_fn(cfg)
+        # the loop's draws; a resume does not restore them (nor does JAX's)
+        self._loop_gen = torch.Generator(device=self.device).manual_seed(
+            cfg.seed + 1)
+
+        self.ckpt_dir = self.output_dir / "checkpoints"
+        self.output_dir.mkdir(parents=True, exist_ok=True)
+        self.writer = MetricsWriter(self.output_dir / "logs")
+        self._write_run_metadata()
+        self._stop_requested = False
+        if resume:
+            ckpts = sorted(self.ckpt_dir.glob("step-*"))
+            if ckpts:
+                self.load_checkpoint(ckpts[-1])
+                print(f"resumed from {ckpts[-1].name} "
+                      f"(step {self.state.step})", flush=True)
+
+    def install_signal_handlers(self) -> dict:
+        """Graceful preemption: SIGTERM/SIGINT request a stop; the train
+        loop checkpoints and returns instead of dying mid-step.  Returns
+        the handlers they replace, signal → handler, for the caller to
+        put back once training is over."""
+        import signal
+
+        def _handler(signum, frame):
+            self._stop_requested = True
+            print(f"signal {signum}: finishing step and checkpointing...",
+                  flush=True)
+
+        return {sig: signal.signal(sig, _handler)
+                for sig in (signal.SIGTERM, signal.SIGINT)}
+
+    # -- checkpointing --
+
+    def _write_run_metadata(self) -> None:
+        meta = {
+            "experiment_name": self.experiment_name,
+            "num_train_images": self.num_train_images,
+            "shard_bank": False,   # the sharded bank is not ported
+            "semantic_threshold": self.semantic_threshold,
+            "config": dataclasses.asdict(self.cfg),
+            "data_config": {k: str(v) for k, v in
+                            dataclasses.asdict(self.data_config).items()},
+            "dataparser_transform":
+                self.train_outputs.dataparser_transform.tolist(),
+            "dataparser_scale": self.train_outputs.dataparser_scale,
+        }
+        (self.output_dir / "run_config.json").write_text(
+            json.dumps(meta, indent=2, default=str))
+        # exporter-compatible transforms file (scripts/exporter.py:100-101)
+        (self.output_dir / "dataparser_transforms.json").write_text(json.dumps({
+            "transform": self.train_outputs.dataparser_transform.tolist(),
+            "scale": self.train_outputs.dataparser_scale,
+        }, indent=2))
+
+    def save_checkpoint(self) -> Path:
+        """Params, every optimizer's moments and the step, written to a
+        hidden file and renamed, so a checkpoint is whole or absent."""
+        step = self.state.step
+        path = self.ckpt_dir / f"step-{step:09d}.pt"
+        self.ckpt_dir.mkdir(parents=True, exist_ok=True)
+        tmp = self.ckpt_dir / f".{path.name}.tmp"
+        torch.save({"params": self.state.params.state_dict(),
+                    "optimizers": self.state.optimizer.state_dict(),
+                    "step": step}, tmp)
+        os.replace(tmp, path)
+        return path
+
+    def load_checkpoint(self, path: Path) -> None:
+        path = Path(path)
+        if path.is_dir():
+            raise ValueError(
+                f"{path} is a JAX (orbax) checkpoint; convert the run first "
+                f"with tools/jax_run_to_torch.py --run-dir {path.parent.parent}")
+        ckpt = torch.load(path, map_location=self.device, weights_only=True)
+        self.state.params.load_state_dict(ckpt["params"])
+        if "optimizers" in ckpt:
+            self.state.optimizer.load_state_dict(ckpt["optimizers"])
+        else:
+            # a converted run without optimizer moments: params-only resume
+            print(f"{path.name} holds no optimizer state: the optimizer "
+                  f"starts fresh", flush=True)
+        self.state.step = int(ckpt["step"])
+
+    # -- eval --
+
+    def eval_image(self, eval_idx: int = 0,
+                   save_dir: Optional[Path] = None) -> Dict[str, float]:
+        h = int(self.eval_outputs.height[eval_idx])
+        w = int(self.eval_outputs.width[eval_idx])
+        out = self.render(self.state.params, self.eval_cameras, eval_idx,
+                          h, w)
+        gt = torch.from_numpy(self.eval_images[eval_idx]).to(
+            self.device).float() / 255.
+        mask_gt = torch.from_numpy(self.eval_masks[eval_idx]).to(
+            self.device).float()
+        m = {
+            "eval_psnr": float(metric_ops.psnr(out["rgb"], gt)),
+            "eval_ssim": float(metric_ops.ssim(out["rgb"], gt)),
+            # the IoU of the 0.9-binarised semantic map
+            "eval_iou": float(metric_ops.binary_iou(
+                out["semantics_colormap"][..., 0], mask_gt,
+                threshold=0.9)),
+        }
+        lp = self._lpips(out["rgb"], gt)
+        if lp is not None:
+            m["eval_lpips"] = lp
+        if save_dir is not None:
+            from ..evaluation.vis import save_eval_images
+            save_eval_images(save_dir,
+                             {k: v.cpu().numpy() for k, v in out.items()},
+                             np.asarray(self.eval_images[eval_idx]),
+                             np.asarray(self.eval_masks[eval_idx]))
+        return m
+
+    def _lpips(self, pred, gt) -> Optional[float]:
+        """LPIPS when weights are available; None (reported as unavailable)
+        otherwise."""
+        from ..ops.lpips import lpips, lpips_available
+        if not lpips_available():
+            if not getattr(self, "_lpips_warned", False):
+                print("eval: lpips unavailable (no VGG weights; set "
+                      "CROPNERF_LPIPS_WEIGHTS) — reporting PSNR/SSIM/IoU "
+                      "only", flush=True)
+                self._lpips_warned = True
+            return None
+        return float(lpips(pred, gt))
+
+    def eval_batch(self, seed: int = 0) -> Dict[str, float]:
+        """Loss/PSNR on a random eval ray batch drawn with ``seed``."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        m = self.eval_batch_fn(self.state.params, self.eval_bank, gen)
+        return {f"eval_batch_{k}": float(v) for k, v in m.items()}
+
+    def eval_all_images(self) -> Dict[str, float]:
+        """Average metrics over every eval image."""
+        n = len(self.eval_images)
+        acc: Dict[str, float] = {}
+        for i in range(n):
+            m = self.eval_image(i)
+            for k, v in m.items():
+                acc[k] = acc.get(k, 0.0) + v
+        return {k: v / n for k, v in acc.items()}
+
+    # -- main loop --
+
+    def train(self, num_steps: Optional[int] = None,
+              log_every: int = 100) -> Dict[str, float]:
+        cfg = self.cfg
+        total = num_steps or cfg.max_num_iterations
+        k = self.steps_per_dispatch
+        if total % k:
+            raise ValueError(f"num_steps={total} must be a multiple of "
+                             f"steps_per_dispatch={k}")
+        if log_every % k and k != 1:
+            raise ValueError(f"log_every={log_every} must be a multiple of "
+                             f"steps_per_dispatch={k}")
+        last_metrics: Dict[str, float] = {}
+        t0 = time.perf_counter()
+        rays_done = 0
+        # the window rate covers the training calls since the last log; the
+        # window is re-armed after that step's eval and save work
+        t_win, rays_win = t0, 0
+        for i in range(total // k):
+            if self._stop_requested:
+                break
+            self.state, metrics = self.train_step(self.state, self.bank,
+                                                  self._loop_gen)
+            rays_done += cfg.train_num_rays_per_batch * k
+            rays_win += cfg.train_num_rays_per_batch * k
+            step = self.state.step
+            did_log = step % log_every == 0 or i == total // k - 1
+            if did_log:
+                # float() waits for the card, so the rates below count
+                # executed (not queued) steps
+                m = {key: float(v) for key, v in metrics.items()}
+                now = time.perf_counter()
+                m["rays_per_s"] = rays_done / max(now - t0, 1e-9)
+                m["rays_per_s_window"] = rays_win / max(now - t_win, 1e-9)
+                m["step"] = step
+                last_metrics = m
+                self.writer.write(step, m)
+                print(f"[step {step}] loss={m['loss']:.4f} "
+                      f"psnr={m['psnr']:.2f} rays/s={m['rays_per_s']:.0f}",
+                      flush=True)
+            if step % cfg.steps_per_eval_batch == 0 and step > 0:
+                eb = self.eval_batch(seed=step)
+                last_metrics.update(eb)
+                self.writer.write(step, eb, prefix="eval")
+            if step % cfg.steps_per_eval_image == 0 and step > 0:
+                em = self.eval_image(0, save_dir=self.output_dir /
+                                     "eval_images" / f"step_{step:09d}")
+                last_metrics.update(em)
+                self.writer.write(step, em, prefix="eval")
+                print(f"[step {step}] eval "
+                      f"psnr={last_metrics['eval_psnr']:.2f} "
+                      f"iou={last_metrics['eval_iou']:.3f}", flush=True)
+            if (cfg.steps_per_eval_all_images > 0 and step > 0
+                    and step % cfg.steps_per_eval_all_images == 0):
+                ea = self.eval_all_images()
+                last_metrics.update({f"all_{key}": v for key, v in ea.items()})
+                self.writer.write(step, ea, prefix="eval_all")
+            if step % cfg.steps_per_save == 0 and step > 0:
+                self.save_checkpoint()
+            if did_log:
+                t_win, rays_win = time.perf_counter(), 0
+        # full eval at the end of training
+        if not self._stop_requested:
+            ea = self.eval_all_images()
+            last_metrics.update({f"all_{key}": v for key, v in ea.items()})
+            self.writer.write(self.state.step, ea, prefix="eval_all")
+            print("[final] " + " ".join(f"{key}={v:.3f}"
+                                        for key, v in ea.items()), flush=True)
+        self.save_checkpoint()
+        return last_metrics
+
+
+def load_trainer_from_run(run_dir: Path,
+                          device: torch.device | str = "cuda") -> Trainer:
+    """A Trainer (model, data and the latest checkpoint) from a run
+    directory written by either package; a JAX run's checkpoint must have
+    been converted by ``tools/jax_run_to_torch.py``."""
+    run_dir = Path(run_dir)
+    meta = json.loads((run_dir / "run_config.json").read_text())
+    cfg = train_config_from_dict(meta["config"])
+    dc = meta["data_config"]
+    data_config = DataparserConfig(
+        data_dir=Path(dc["data_dir"]),
+        train_split_fraction=float(dc["train_split_fraction"]),
+        semantic_dir=dc["semantic_dir"])
+    trainer = Trainer(cfg, data_config, run_dir,
+                      experiment_name=meta.get("experiment_name", "cropnerf"),
+                      num_images_override=meta.get("num_train_images"),
+                      semantic_threshold=meta.get("semantic_threshold",
+                                                  SEMANTIC_THRESHOLD),
+                      device=device)
+    ckpts = sorted((run_dir / "checkpoints").glob("step-*"))
+    if ckpts:
+        trainer.load_checkpoint(ckpts[-1])
+    return trainer
