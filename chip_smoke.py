@@ -5,7 +5,8 @@ Run from the root of the repository:  python3 chip_smoke.py
 
 1. builds the CUDA kernels from cropnerf_tpu_torch/csrc (nvcc, sm_90a, one
    process per source, started together) and prints each kernel's
-   registers, shared memory and spills;
+   registers, shared memory and spills, then the native point-cloud ops
+   (make, g++) from cropnerf_tpu_torch/native;
 2. prints the card (torch and nvidia-smi: name, power limit);
 3. holds every kernel against its plain PyTorch version at the shapes the
    serving and training paths give it and at a ragged N, and times both:
@@ -82,11 +83,25 @@ Run from the root of the repository:  python3 chip_smoke.py
    the bare step's and the checkpoint's size and save time.  Without
    matplotlib (the eval-image PNGs need it) train runs through the Trainer
    API with the eval image moved past the run, and the phase says so;
+5e. drives the counting pipeline through the CLI on the [cli] runs
+   ([count] lines), for cropnerf and cropnerf-mxu: export over the plant's
+   box at 256 a side with the reference's thresholds → segment → project
+   (every training camera, the training split's instance labels) → count,
+   cropnerf-mxu's count held to the scene's two crops (cropnerf's printed:
+   its field keeps semantic haze on this scene); for cropnerf then render
+   --export-cameras, export-pointcloud --all-points, depth-project,
+   depth-count, process-labels, rescale --nearest, segment-masks and
+   import-colmap once each.  Each project's launches are held exactly to
+   its plan (K4 forward six times a dispatch; K1 and K2 forward once
+   each), its kernel path against the plain path on one subcluster from
+   three cameras, its PNG tree for completeness, and the native
+   point-cloud backend (built in step 1 from cropnerf_tpu_torch/native)
+   must be the one that ran;
 6. traces one forward, render, export and training step of cropnerf-mxu,
    one forward and training step of cropnerf, one BayesRays batch of each,
-   and one training step and depth-cloud batch of the fused-proposal path
-   with torch.profiler, and prints the device time of the busiest
-   operations and the device's busy share;
+   one training step and depth-cloud batch of the fused-proposal path and
+   one dispatch of each project with torch.profiler, and prints the device
+   time of the busiest operations and the device's busy share;
 7. prints one JSON line of kernel numbers, the nvidia-smi card line, and
    the status line last.
 
@@ -2026,9 +2041,12 @@ def write_cli_dataset(root: Path, n: int, height: int, width: int,
                       focal: float) -> Path:
     """A 3DCotton-layout dataset (transforms.json, images/, semantics/):
     ``n`` views on a ring around three matte spheres, ray-traced with
-    numpy, on a white background; the masks cover the two crops."""
+    numpy, on a white background; the masks cover the two crops.  Beside
+    it, labels/ holds each view's instance labels from the same z-buffer:
+    1 and 2 for the two crops, 0 for the background and the occluder."""
     (root / "images").mkdir(parents=True)
     (root / "semantics").mkdir()
+    (root / "labels").mkdir()
     from PIL import Image
     ys, xs = np.meshgrid(np.arange(height, dtype=np.float32),
                          np.arange(width, dtype=np.float32), indexing="ij")
@@ -2050,8 +2068,9 @@ def write_cli_dataset(root: Path, n: int, height: int, width: int,
         dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
         img = np.ones((height, width, 3), np.float32)
         mask = np.zeros((height, width), np.uint8)
+        label = np.zeros((height, width), np.uint8)
         zbuf = np.full((height, width), np.inf, np.float32)
-        for ctr, rad, tint, crop in CLI_SPHERES:
+        for k, (ctr, rad, tint, crop) in enumerate(CLI_SPHERES):
             oc = eye - np.asarray(ctr)
             b = dirs @ oc.astype(np.float32)
             disc = b * b - (oc @ oc - rad ** 2)
@@ -2062,11 +2081,14 @@ def write_cli_dataset(root: Path, n: int, height: int, width: int,
             img[hit] = lam[:, None] * np.asarray(tint)
             zbuf[hit] = t[hit]
             mask[hit] = 255 * crop
+            label[hit] = (k + 1) * crop
         name = f"frame_{i:04d}.png"
         Image.fromarray((img * 255).astype(np.uint8)).save(
             root / "images" / name, compress_level=1)
         Image.fromarray(mask).save(root / "semantics" / name,
                                    compress_level=1)
+        Image.fromarray(label).save(root / "labels" / name,
+                                    compress_level=1)
         mat = np.eye(4)
         mat[:3] = c2w
         frames.append({"file_path": f"images/{name}",
@@ -2087,7 +2109,7 @@ def metrics_log(run: Path) -> list:
             (run / "logs" / "metrics.jsonl").read_text().splitlines()]
 
 
-def cli_phase(dev, card, kernels, bare_step_ms: dict) -> dict:
+def cli_phase(dev, card, kernels, bare_step_ms: dict, work: Path) -> dict:
     """``python -m cropnerf_tpu_torch.cli`` in process, at full published
     widths, for ``cropnerf`` (train, resume, export, uncertainty, render)
     and ``cropnerf-mxu`` (the same with export-pointcloud in place of
@@ -2095,7 +2117,9 @@ def cli_phase(dev, card, kernels, bare_step_ms: dict) -> dict:
     seconds and launches (counts zeroed just before it), the loss, the
     eval metrics, the checkpoint round trip, the CLI's export against a
     direct one and the run directory's files.  ``bare_step_ms``: each
-    preset's bare training-step median from its [train] phase."""
+    preset's bare training-step median from its [train] phase.  The
+    dataset and the run directories stay in ``work`` for the [count]
+    phase."""
     import importlib.util
     from cropnerf_tpu_torch import cli
     from cropnerf_tpu_torch.data.dataparser import DataparserConfig
@@ -2103,7 +2127,6 @@ def cli_phase(dev, card, kernels, bare_step_ms: dict) -> dict:
     from cropnerf_tpu_torch.models.config import PRESETS
     from cropnerf_tpu_torch.train.trainer import Trainer, load_trainer_from_run
     from cropnerf_tpu_torch.export.volume import export_and_write
-    work = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
     t0 = time.perf_counter()
     n_img, h, w = CLI_IMAGES
     data = write_cli_dataset(work / "data", n_img, h, w, CLI_FOCAL)
@@ -2314,8 +2337,395 @@ def cli_phase(dev, card, kernels, bare_step_ms: dict) -> dict:
         del trainer
         if dev.type == "cuda":
             torch.cuda.empty_cache()
-    shutil.rmtree(work)
     return info
+
+
+# ---- the counting pipeline through the CLI: the [count] phase --------------
+
+# Fixed settings of the phase, chosen once from the scene, not from the
+# trained fields (PERF.md §6 gives the runs that chose them):
+# - the volume export crops to the plant, the three spheres' box in the
+#   dataparser frame widened by COUNT_MARGIN (ns-export's crop box; the
+#   scene box also holds the hash grid's floaters near the cameras), at 256
+#   samples a side with the reference's thresholds (semantic logit 3,
+#   density 70, sigmoid 0.9);
+# - segment's voxel of 0.01 (DBSCAN eps 0.2 = 20 voxels) joins the crops'
+#   shell into one supercluster, and the crops touch; four subclusters a
+#   supercluster, which the merger joins by their labels;
+# - the count is held on cropnerf-mxu.  cropnerf's field on this 31-view
+#   ring keeps semantic haze around the crops at 500 and at 2000 steps, in
+#   its volume export and in its depth cloud alike; its subclusters gather
+#   label evidence from one or two cameras of 31, and it counted 3 in five
+#   of eight runs and settings (PERF.md §6).  Its chain runs all the same,
+#   with every other check, and prints its count.
+COUNT_EXPORT_SIDE = 256
+COUNT_MARGIN = 0.1
+COUNT_THRESHOLDS = (("--semantic-threshold", "3.0"),
+                    ("--density-threshold", "70.0"),
+                    ("--colormap-threshold", "0.9"))
+COUNT_VX_SIZE = 0.01
+COUNT_K = 4
+COUNT_TRUTH = 2                 # the crops of CLI_SPHERES
+COUNT_CHECK_CAMS = (0, 10, 20)  # kernel against plain path: subcluster 0
+                                # of supercluster 0 from these cameras
+# kernel against plain path: the occlusion-free image within 2/255 a pixel
+# (K4 gives the plain version's bits); on the PE field a relu unit within a
+# bf16 rounding of zero flips now and then (K1's and K2's tolerance), so
+# there at most COUNT_WO_OCC_SHARE of a crop's pixels may lie beyond 2/255,
+# none beyond COUNT_WO_OCC_CAP (measured on trained fields: up to 0.0156 %
+# of a crop beyond 2/255, 0.034 at worst; PERF.md §6)
+COUNT_WO_OCC_TOL = 2 / 255
+COUNT_WO_OCC_SHARE = 1e-3
+COUNT_WO_OCC_CAP = 0.1
+COUNT_VISIBLE_SHARE = 0.005     # visible pixels that may flip (acc ~ 0.5)
+COUNT_CLOUD_POINTS = 200_000    # export-pointcloud for depth-project
+# the kernels a dispatch of project launches: cropnerf three hash-grid
+# encodes in each pass, cropnerf-mxu the PE field once in each pass
+COUNT_LAUNCHES = {"cropnerf": {"hash_encode": 6},
+                  "cropnerf-mxu": {"fused_pe_nerf": 1,
+                                   "fused_pe_density": 1}}
+
+
+def plant_box(outputs) -> np.ndarray:
+    """The three spheres' box in the dataparser frame of ``outputs``,
+    widened by COUNT_MARGIN: [2, 3]."""
+    T, s = outputs.dataparser_transform, outputs.dataparser_scale
+    ends = [s * (T[:, :3] @ np.asarray(c) + T[:, 3]) + sign * r * s
+            for c, r, _, _ in CLI_SPHERES for sign in (-1, 1)]
+    return np.stack([np.min(ends, 0) - COUNT_MARGIN,
+                     np.max(ends, 0) + COUNT_MARGIN])
+
+
+def ring_text_model(directory: Path, transforms: dict) -> int:
+    """A COLMAP text model (cameras.txt, images.txt) of the dataset's
+    cameras: world→camera poses in OpenCV axes, one PINHOLE camera."""
+    from cropnerf_tpu_torch.data.colmap import rotmat_to_qvec
+    directory.mkdir(parents=True)
+    t = transforms
+    (directory / "cameras.txt").write_text(
+        f"1 PINHOLE {t['w']} {t['h']} {t['fl_x']} {t['fl_y']} {t['cx']} "
+        f"{t['cy']}\n")
+    lines = []
+    for i, frame in enumerate(t["frames"]):
+        c2w = np.array(frame["transform_matrix"])[:3]
+        c2w[:, 1:3] *= -1                      # OpenGL → OpenCV axes
+        R = c2w[:, :3].T
+        q, tv = rotmat_to_qvec(R), -R @ c2w[:, 3]
+        lines += [f"{i + 1} {' '.join(map(str, q))} {' '.join(map(str, tv))} "
+                  f"1 {Path(frame['file_path']).name}", ""]
+    (directory / "images.txt").write_text("\n".join(lines) + "\n")
+    return len(t["frames"])
+
+
+def projection_against_plain(trainer, plain_cfg, info, dev) -> dict:
+    """Supercluster 0's first subcluster from COUNT_CHECK_CAMS through the
+    kernel path and the plain path, same parameters and jobs."""
+    from cropnerf_tpu_torch.projection.project import ClusterProjector
+    jobs = [(c, info[0]["aabb"][0]) for c in COUNT_CHECK_CAMS]
+    out, secs = {}, {}
+    for name, cfg in (("kernel", trainer.cfg.model), ("plain", plain_cfg)):
+        proj = ClusterProjector(trainer.state.params, cfg,
+                                trainer.bank.cameras, trainer.bank.height,
+                                trainer.bank.width)
+        t = time.perf_counter()
+        out[name] = {i: (w, v) for i, w, v in proj.iter_projections(jobs)}
+        secs[name] = time.perf_counter() - t
+        if name == "kernel":
+            plan = proj.plan(jobs)
+            kernel_proj = proj
+    worst_wo, worst_share, worst_beyond = 0.0, 0.0, 0.0
+    skipped = {name: sorted(i for i, (w, _) in out[name].items()
+                            if not w.any()) for name in out}
+    for job in plan.jobs:
+        (wk, vk), (wp, vp) = out["kernel"][job.index], out["plain"][job.index]
+        diff = np.abs(wk - wp)
+        worst_wo = max(worst_wo, float(diff.max()))
+        worst_beyond = max(worst_beyond, float(
+            (diff > COUNT_WO_OCC_TOL).sum()) / job.n_pix)
+        worst_share = max(worst_share,
+                          float(((vk > 0) != (vp > 0)).sum()) / job.n_pix)
+    return dict(jobs=len(jobs), rays=plan.rays, worst_wo_occ=worst_wo,
+                worst_wo_occ_share_beyond=worst_beyond,
+                worst_visible_share=worst_share, skipped=skipped,
+                seconds=secs, projector=kernel_proj, plan=plan)
+
+
+def count_phase(dev, card, kernels, work: Path) -> tuple:
+    """The counting pipeline through ``python -m cropnerf_tpu_torch.cli``
+    in process, on the [cli] phase's runs and dataset, for cropnerf and
+    cropnerf-mxu: export (the plant's box, 256 a side, the dataparser
+    frame) → segment → project (every training camera, the training
+    split's instance labels) → count; cropnerf-mxu's count is held to the
+    scene's two crops.  For cropnerf then render --export-cameras,
+    export-pointcloud --all-points, depth-project and depth-count, and
+    process-labels, rescale, segment-masks and import-colmap once each on
+    the phase's own files.  Each project's launches are held exactly
+    against its plan's dispatches, its kernel path against the plain path
+    on one subcluster from three cameras, and its PNG tree for
+    completeness.  Returns the phase's numbers and one dispatch of each
+    project for the [trace] lines."""
+    from cropnerf_tpu_torch import cli
+    from cropnerf_tpu_torch.counting import clustering
+    from cropnerf_tpu_torch.data.dataparser import (DataparserConfig,
+                                                    parse_transforms)
+    from cropnerf_tpu_torch.export.ply import read_ply
+    from cropnerf_tpu_torch.native import pointcloud_ops as nat
+    from cropnerf_tpu_torch.train.trainer import load_trainer_from_run
+
+    check(nat.available(), "the native point-cloud backend is not "
+          f"available: {nat.load_error()}")
+    check(clustering._native() is nat,
+          "the counting stage would not run on the native backend")
+    log(f"[count] point-cloud backend: native ({nat.library_path().name}, "
+        "built from cropnerf_tpu_torch/native/src)")
+    data = work / "data"
+    # project indexes its labels by training camera: the label directory
+    # holds the training split's frames alone, in the split's order
+    train = parse_transforms(DataparserConfig(data_dir=data), "train")
+    labels = work / "labels_train"
+    labels.mkdir()
+    for p in train.image_paths:
+        shutil.copy(data / "labels" / p.name, labels / f"label_{p.name}")
+    n_cams = len(train.image_paths)
+    box = plant_box(train)
+    box_args = ["--aabb", *(repr(float(v)) for v in box.ravel())]
+    thr = [a for pair in COUNT_THRESHOLDS for a in pair]
+    log(f"[count] labels: {n_cams} training views of {CLI_IMAGES[0]} "
+        f"(ids 1, 2 the crops; 0 the background and the occluder); export "
+        f"{COUNT_EXPORT_SIDE} a side over the plant's box "
+        f"{np.round(box, 4).tolist()}, "
+        + ", ".join(f"{k} {v}" for k, v in COUNT_THRESHOLDS)
+        + f"; segment --vx-size {COUNT_VX_SIZE} --k {COUNT_K}; truth "
+        f"{COUNT_TRUTH} crops")
+    info = {"card": card, "truth": COUNT_TRUTH, "backend": "native",
+            "settings": {"export_side": COUNT_EXPORT_SIDE,
+                         "aabb": box.tolist(),
+                         "thresholds": dict(COUNT_THRESHOLDS),
+                         "vx_size": COUNT_VX_SIZE, "k": COUNT_K}}
+    steps = {}
+    for preset in ("cropnerf", "cropnerf-mxu"):
+        run = work / preset
+        pcd = run / "count_exports"
+        out = run / "projection"
+        cmd_s, launches, res = {}, {}, {}
+
+        def drive(name, argv):
+            t = time.perf_counter()
+            launches[name] = counted(
+                kernels, lambda: res.update({name: cli.main(argv)}))
+            sync(dev)
+            cmd_s[name] = time.perf_counter() - t
+            log(f"[count] {preset} {name}: {cmd_s[name]:.2f} s, launches "
+                + str({k: v for k, v in launches[name].items() if v}))
+            return res[name]
+
+        drive("export", ["export", "--run-dir", str(run), "--output-dir",
+                         str(pcd), "--num-points-per-side",
+                         str(COUNT_EXPORT_SIDE), *box_args, *thr])
+        cloud = {name: len(read_ply(pcd / f"{name}.ply")[0])
+                 for name in ("semantic", "semantic_colormap", "density")}
+        drive("segment", ["segment", "--pcd-dir", str(pcd), "--k",
+                          str(COUNT_K), "--vx-size", str(COUNT_VX_SIZE)])
+        sc = np.load(pcd / f"all_super_cluster_info_nsub_{COUNT_K}.npy",
+                     allow_pickle=True)
+        sc_points = [sum(len(p) for p in row["pcd"].values()) for row in sc]
+        log(f"[count] {preset} clouds {cloud}; segment: {len(sc)} "
+            f"superclusters of {sc_points} points")
+        check(len(sc) > 0, f"{preset} segment found no supercluster")
+
+        cams = range(n_cams)
+        report = drive("project", [
+            "project", "--run-dir", str(run), "--pcd-dir", str(pcd),
+            "--k", str(COUNT_K), "--label-dir", str(labels),
+            "--output-dir", str(out)])
+        plan = report.plan
+        want = {k.__name__: COUNT_LAUNCHES[preset].get(k.__name__, 0)
+                * plan["dispatches"] for k in kernels}
+        check(launches["project"] == want,
+              f"{preset} project launched {launches['project']}, its plan "
+              f"of {plan['dispatches']} dispatches asks {want}")
+        missing = [
+            f"super_cluster_{s}/cam_{c}/{kind}_cluster_{i}.png"
+            for s in range(len(sc)) for c in cams
+            for i in range(COUNT_K) for kind in ("wo_occ", "visible")
+            if not (out / f"super_cluster_{s}" / f"cam_{c}" /
+                    f"{kind}_cluster_{i}.png").is_file()]
+        label_counts = {len(list(d.glob("label_*.png")))
+                        for d in out.glob("super_cluster_*/cam_*")}
+        check(not missing and label_counts == {1}
+              and len(list(out.glob("super_cluster_*/cam_*")))
+              == len(sc) * len(cams),
+              f"{preset} projection tree: missing {missing[:4]}, labels a "
+              f"camera directory {label_counts}")
+        rate = plan["rays"] / report.render_s
+        log(f"[count] {preset} project: "
+            f"{plan['jobs']} jobs ({plan['outside']} outside every view), "
+            f"{plan['rays']} rays in {plan['dispatches']} dispatches of up "
+            f"to {plan['rays_per_dispatch']}; {rate:.0f} rays/s over both "
+            f"passes; render {report.render_s:.2f} s, PNG "
+            f"{report.png_s:.2f} s; launches "
+            f"{ {k: v for k, v in launches['project'].items() if v} } "
+            f"= {COUNT_LAUNCHES[preset]} x {plan['dispatches']}; PNG tree "
+            f"complete ({2 * plan['jobs']} images, one label in each of "
+            f"{len(sc) * len(cams)} camera directories); {card}")
+
+        result = drive("count", [
+            "count", "--projection-dir", str(out), "--pcd-dir", str(pcd),
+            "--k", str(COUNT_K), "--frame-sampling-interval", "1"])
+        log(f"[count] {preset} count: total_count {result.total_count} "
+            f"(truth {COUNT_TRUTH}; "
+            + ("held" if preset == "cropnerf-mxu" else "printed, not held")
+            + "), per supercluster "
+            f"{result.per_super_cluster}, affinities "
+            f"{[np.round(a, 2).tolist() for a in result.affinities[:2]]}")
+        if preset == "cropnerf-mxu":
+            check(result.total_count == COUNT_TRUTH,
+                  f"{preset} counted {result.total_count} crops, the scene "
+                  f"holds {COUNT_TRUTH}")
+
+        trainer = load_trainer_from_run(run, device=dev)
+        plain_cfg = (plain_grids(trainer.cfg) if preset == "cropnerf"
+                     else all_plain_cfg(trainer.cfg)).model
+        vs = projection_against_plain(trainer, plain_cfg, sc, dev)
+        share = 0.0 if preset == "cropnerf" else COUNT_WO_OCC_SHARE
+        cap = COUNT_WO_OCC_TOL if preset == "cropnerf" else COUNT_WO_OCC_CAP
+        log(f"[count] {preset} kernel path against the plain path on "
+            f"supercluster 0's subcluster 0 from cameras "
+            f"{COUNT_CHECK_CAMS} ({vs['jobs']} "
+            f"jobs, {vs['rays']} rays; {vs['seconds']['kernel']:.1f} s "
+            f"against {vs['seconds']['plain']:.1f} s): wo_occ worst "
+            f"{vs['worst_wo_occ']:.5f} (at most {cap:.5f}), beyond "
+            f"{COUNT_WO_OCC_TOL:.5f} on at most "
+            f"{vs['worst_wo_occ_share_beyond']:.5%} of a crop (at most "
+            f"{share:.2%}), visible pixels flipped at most "
+            f"{vs['worst_visible_share']:.4%} of a crop (at most "
+            f"{COUNT_VISIBLE_SHARE:.1%}), jobs with zero images "
+            f"{vs['skipped']}")
+        proj, vplan = vs.pop("projector"), vs.pop("plan")
+        check(vs["worst_wo_occ"] <= cap
+              and vs["worst_wo_occ_share_beyond"] <= share
+              and vs["worst_visible_share"] <= COUNT_VISIBLE_SHARE
+              and vs["skipped"]["kernel"] == vs["skipped"]["plain"],
+              f"{preset} project: kernel path against plain path {vs}")
+        steps[f"{preset} project dispatch"] = (
+            lambda proj=proj, vplan=vplan:
+            proj._render(vplan.jobs, vplan.dispatches[0]))
+
+        entry = {"command_s": cmd_s, "launches": {
+            cmd: {k: v for k, v in n.items() if v}
+            for cmd, n in launches.items()}, "cloud": cloud,
+            "superclusters": len(sc), "supercluster_points": sc_points,
+            "plan": plan,
+            "render_s": report.render_s, "png_s": report.png_s,
+            "rays_per_s": rate, "total_count": result.total_count,
+            "per_super_cluster": result.per_super_cluster,
+            "vs_plain": vs}
+        del trainer
+        if preset == "cropnerf":
+            entry.update(host_commands(drive, run, pcd, data, labels, work,
+                                       n_cams))
+        log(f"[count] {preset} wall s: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in cmd_s.items())
+            + f"; {card}")
+        info[preset] = entry
+        res.clear()
+        torch.cuda.empty_cache()
+    return info, steps
+
+
+def host_commands(drive, run, pcd, data, labels, work, n_cams) -> dict:
+    """depth-project on export-pointcloud's cloud and render
+    --export-cameras' poses, depth-count, then process-labels, rescale
+    --nearest, segment-masks and import-colmap once each."""
+    from PIL import Image
+    from cropnerf_tpu_torch.data.preprocess import (
+        convert_segmentation_img_to_label)
+    n_img, h, w = CLI_IMAGES
+    drive("render --export-cameras", [
+        "render", "--run-dir", str(run), "--export-cameras", "--n-frames",
+        "1", "--size", "64", "--output", str(work / "orbit.mp4")])
+    cloud = work / "full_tree.ply"
+    drive("export-pointcloud", [
+        "export-pointcloud", "--run-dir", str(run), "--output", str(cloud),
+        "--num-points", str(COUNT_CLOUD_POINTS), "--all-points"])
+    depth = run / "depth_projection"
+    drive("depth-project", [
+        "depth-project", "--pcd-dir", str(pcd), "--transforms",
+        str(run / "transforms_train.json"), "--full-tree", str(cloud),
+        "--k", str(COUNT_K), "--output-dir", str(depth), "--height", str(h),
+        "--width", str(w), "--fx", str(CLI_FOCAL), "--fy", str(CLI_FOCAL),
+        "--cx", str(w / 2), "--cy", str(h / 2)])
+    cams = sorted(depth.glob("super_cluster_*/cam_*"))
+    check(len(cams) > 0 and all(len(list(d.glob("occ_free_*.png")))
+                                == COUNT_K for d in cams),
+          f"depth-project wrote {len(cams)} camera directories")
+    label_names = sorted(labels.iterdir())
+    for d in cams:      # the merger reads each camera's label beside it
+        shutil.copy(label_names[int(d.name.split("_")[-1])], d)
+    depth_result = drive("depth-count", [
+        "depth-count", "--projection-dir", str(depth), "--pcd-dir",
+        str(pcd), "--k", str(COUNT_K), "--frame-sampling-interval", "1"])
+    log(f"[count] cropnerf depth-count: total_count "
+        f"{depth_result.total_count} (truth {COUNT_TRUTH}; printed, not "
+        f"held), per supercluster {depth_result.per_super_cluster}")
+
+    # process-labels on instance-colour renderings of four label images
+    seg = work / "seg_colour"
+    seg.mkdir()
+    palette = np.array([[0, 0, 0], [230, 25, 75], [60, 180, 75]], np.uint8)
+    ids = {}
+    for p in label_names[:4]:
+        lab = np.asarray(Image.open(p))
+        ids[p.name] = lab
+        Image.fromarray(palette[lab]).save(seg / p.name)
+    drive("process-labels", ["process-labels", "--seg-dir", str(seg),
+                             "--out-dir", str(work / "seg_labels")])
+    for name, lab in ids.items():
+        got = np.asarray(Image.open(work / "seg_labels" / f"label_{name}"))
+        ref, _ = convert_segmentation_img_to_label(palette[lab])
+        check(np.array_equal(got, ref) and np.array_equal(got > 0, lab > 0),
+              f"process-labels {name}")
+    drive("rescale --nearest", [
+        "rescale", "--src-dir", str(labels), "--dst-dir",
+        str(work / "labels_half"), "--factor", "2", "--nearest"])
+    half = np.asarray(Image.open(work / "labels_half" / label_names[0].name))
+    full = np.asarray(Image.open(label_names[0]))
+    check(half.shape == (h // 2, w // 2)
+          and set(np.unique(half)) <= set(np.unique(full)),
+          f"rescale --nearest: {half.shape}, ids {np.unique(half)}")
+    images = work / "images_some"
+    images.mkdir()
+    for p in sorted((data / "images").iterdir())[:2]:
+        shutil.copy(p, images)
+    drive("segment-masks", ["segment-masks", "--image-dir", str(images),
+                            "--out-dir", str(work / "masks"), "--k", "3"])
+    masks = [np.asarray(Image.open(p)) for p in sorted((work /
+                                                       "masks").iterdir())]
+    check(len(masks) == 2 and all(m.shape == (h, w)
+                                  and set(np.unique(m)) <= {0, 255}
+                                  for m in masks),
+          f"segment-masks wrote {[(m.shape, np.unique(m)) for m in masks]}")
+    log(f"[count] segment-masks: foreground shares "
+        f"{[float((m > 0).mean()) for m in masks]} (components over 20 % "
+        f"of a frame are dropped, as the reference does)")
+    meta = json.loads((data / "transforms.json").read_text())
+    ring_text_model(work / "colmap", meta)
+    drive("import-colmap", ["import-colmap", "--colmap-dir",
+                            str(work / "colmap"), "--output",
+                            str(work / "colmap_transforms.json")])
+    out = json.loads((work / "colmap_transforms.json").read_text())
+    centres = [np.array(f["transform_matrix"])[:3, 3] for f in out["frames"]]
+    ref = [np.array(f["transform_matrix"])[:3, 3] for f in meta["frames"]]
+    dist = [np.linalg.norm(a - b) for a, b in
+            ((centres[i], centres[i + 1]) for i in range(len(centres) - 1))]
+    dist_ref = [np.linalg.norm(a - b) for a, b in
+                ((ref[i], ref[i + 1]) for i in range(len(ref) - 1))]
+    check(len(out["frames"]) == n_img and np.allclose(dist, dist_ref,
+                                                      atol=1e-4),
+          "import-colmap: the ring's camera centres")
+    return {"depth_total_count": depth_result.total_count,
+            "depth_per_super_cluster": depth_result.per_super_cluster,
+            "segment_mask_shares": [float((m > 0).mean()) for m in masks]}
 
 
 def main() -> None:
@@ -2356,6 +2766,15 @@ def main() -> None:
     reports = build.build()
     log(f"[build] {time.perf_counter() - t0:.1f} s for {', '.join(reports)} "
         f"(nvcc {' '.join(build.NVCC_FLAGS)})")
+    from cropnerf_tpu_torch.native import pointcloud_ops as native
+    t0 = time.perf_counter()
+    native_lib = native.build()
+    native_flags = subprocess.run(
+        ["make", "-s", "-C", str(native_lib.parents[1] / "native"), "flags"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip()
+    log(f"[build] {time.perf_counter() - t0:.1f} s for the native "
+        f"point-cloud ops ({native_lib.relative_to(repo)}: {native_flags})")
     for name, report in reports.items():
         for line in report.splitlines():
             if any(s in line for s in ("Compiling entry", "registers",
@@ -2862,9 +3281,15 @@ def main() -> None:
     steps.update(pf_steps)
 
     # ---- 5d. the trainer loop and the CLI ---------------------------------
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
     cli_info = cli_phase(dev, card, all_kernels,
                          {"cropnerf": hash_train["median_ms"],
-                          "cropnerf-mxu": train_med})
+                          "cropnerf-mxu": train_med}, work)
+
+    # ---- 5e. the counting pipeline through the CLI ------------------------
+    count_info, count_steps = count_phase(dev, card, all_kernels, work)
+    steps.update(count_steps)
+    shutil.rmtree(work)
 
     # ---- 6. where the time goes: one traced call of each path step ------
     breakdown = {}
@@ -2978,12 +3403,17 @@ def main() -> None:
                         ("fused_pe_density_bwd", "fused_mlp_bwd")},
         "propfused": pf_info,
         "cli": cli_info,
+        "count": count_info,
         "trace": breakdown}
     for entry in line["kernels"]:
         entry["launches_by_path"]["cli"] = {
             f"{preset} {cmd}": n.get(entry["name"], 0)
             for preset in ("cropnerf", "cropnerf-mxu")
             for cmd, n in cli_info[preset]["launches"].items()}
+        entry["launches_by_path"]["count"] = {
+            f"{preset} {cmd}": n.get(entry["name"], 0)
+            for preset in ("cropnerf", "cropnerf-mxu")
+            for cmd, n in count_info[preset]["launches"].items()}
     print(json.dumps(line), flush=True)
     shutil.rmtree(out_dir)
     print(smi, flush=True)

@@ -8,8 +8,10 @@ with an explicit ``torch.Generator`` and rendered on the device by
 sits at origin + direction · median depth, and a ray is kept where its
 accumulation (and, with ``only_semantics``, its semantic colormap) passes
 the threshold.  Only the kept points and colours cross to the host, once
-per batch.  Statistical outliers are then removed on the host; normals,
-when asked for, are PCA over the k nearest neighbours.
+per batch.  Statistical outliers are then removed on the host by a k-d
+tree queried on every core (the JAX exporter calls the counting stage's
+native backend, whose grid suits volume-filling clouds, not these
+surfaces); normals, when asked for, are PCA over the k nearest neighbours.
 """
 from __future__ import annotations
 
@@ -22,7 +24,6 @@ import torch
 
 from ..core.cameras import generate_rays, near_far_collider
 from ..core.rays import RayBundle
-from ..counting.clustering import statistical_outlier_removal
 from ..data.databank import PixelBank, decode_pixel_index
 from ..models.config import ModelConfig
 from ..models.model import CropNeRFParams, forward
@@ -98,9 +99,31 @@ def generate_point_cloud(params: CropNeRFParams, model_cfg: ModelConfig,
     pts = np.concatenate(points)[:num_points]
     cols = np.concatenate(colors)[:num_points]
     if remove_outliers and len(pts) > 50:
-        keep = statistical_outlier_removal(pts, 20, std_ratio)
+        keep = outlier_inliers(pts, 20, std_ratio)
         pts, cols = pts[keep], cols[keep]
     return pts.astype(np.float32), cols.astype(np.float32)
+
+
+def outlier_inliers(points: np.ndarray, nb_neighbors: int = 20,
+                    std_ratio: float = 2.0) -> np.ndarray:
+    """Index array of inliers (Open3D ``remove_statistical_outlier``
+    semantics, the scipy path of ``counting.clustering``'s
+    ``statistical_outlier_removal``, whose indices it returns): drop points
+    whose mean distance to their ``nb_neighbors`` nearest neighbours
+    exceeds the global mean + std_ratio · std of that distance.
+
+    The native backend sizes its search grid for a volume-filling cloud;
+    on a surface cloud each occupied cell holds thousands of points, and
+    its time grows as n^1.45, on one thread where the compiler has no
+    OpenMP: a 1,000,000-point depth cloud took minutes (PERF.md §6).  The
+    k-d tree query runs on every core."""
+    if len(points) <= nb_neighbors:
+        return np.arange(len(points))
+    from scipy.spatial import cKDTree
+    dists, _ = cKDTree(points).query(points, k=nb_neighbors + 1, workers=-1)
+    mean_d = dists[:, 1:].mean(axis=1)
+    thresh = mean_d.mean() + std_ratio * mean_d.std()
+    return np.where(mean_d <= thresh)[0]
 
 
 def estimate_normals(points: np.ndarray, k: int = 10,

@@ -1,6 +1,6 @@
 """The port's CLI (cropnerf_tpu_torch/cli.py) on the CPU
 (``CROPNERF_PLATFORM=cpu``): each command's options against the JAX
-CLI's, and the five commands on one tiny run directory (cropnerf-tiny,
+CLI's, and the model commands on one tiny run directory (cropnerf-tiny,
 4 steps, the 6-view 32x32 dataset of tests/test_trainer.py)."""
 from __future__ import annotations
 
@@ -10,6 +10,7 @@ import json
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from cropnerf_tpu import cli as jcli
 from cropnerf_tpu_torch import cli
@@ -22,8 +23,18 @@ from test_trainer import write_synthetic_dataset
 OMITTED = {"--multichip", "--shard-bank", "--min-rays-per-s", "--remat"}
 JAX_ADDERS = {"train": jcli._add_train, "export": jcli._add_export,
               "export-pointcloud": jcli._add_export_pointcloud,
+              "segment": jcli._add_segment, "project": jcli._add_project,
+              "count": jcli._add_count,
+              "depth-project": jcli._add_depth_project,
+              "depth-count": jcli._add_depth_count,
               "render": jcli._add_render,
-              "uncertainty": jcli._add_uncertainty}
+              "uncertainty": jcli._add_uncertainty,
+              "process-labels": jcli._add_process_labels,
+              "rescale": jcli._add_rescale,
+              "segment-masks": jcli._add_segment_masks,
+              "import-colmap": jcli._add_import_colmap}
+# the JAX CLI's commands the port leaves out until their items land
+OMITTED_COMMANDS = {"viewer"}
 EXPORT_THRESHOLDS = ["--semantic-threshold", "-100", "--density-threshold",
                      "0", "--colormap-threshold", "0.1"]
 
@@ -44,6 +55,22 @@ def test_command_options_match_jax(command):
                    .choices[command])
     assert got == {k: v for k, v in ref.items() if k not in OMITTED}
     assert set(ref) - set(got) <= OMITTED
+
+
+def test_the_port_has_every_jax_command_but_the_viewer():
+    port = set(cli.build_parser()._subparsers._group_actions[0].choices)
+    jax_commands = set()
+
+    class _Sub:
+        def add_parser(self, name, **kwargs):
+            jax_commands.add(name)
+            return argparse.ArgumentParser()
+
+    for name in dir(jcli):
+        if name.startswith("_add_") and name != "_add_multichip_flag":
+            getattr(jcli, name)(_Sub())
+    assert len(jax_commands) == 15
+    assert port == jax_commands - OMITTED_COMMANDS == set(JAX_ADDERS)
 
 
 @pytest.fixture(scope="module")
@@ -161,3 +188,42 @@ def test_train_in_process_gives_the_signal_handlers_back(run_dir, on_cpu,
                         "--train-split-fraction", "0.8"])
     assert trainer.state.step == 2 and trainer.steps_per_dispatch == 2
     assert {s: signal.getsignal(s) for s in before} == before
+
+
+def test_project_on_the_run(run_dir, on_cpu, capsys):
+    """`project` loads the run and projects through the training cameras
+    at the bank's size: every job's two images and each camera's label."""
+    pcd = run_dir / "exports"
+    pcd.mkdir(exist_ok=True)
+    box = np.array([[-0.3, -0.3, -0.3], [0.3, 0.3, 0.3]], np.float32)
+    info = np.array([{"aabb": np.stack([box, box * 0.5]),
+                      "pcd": {0: np.zeros((1, 3)), 1: np.zeros((1, 3))}}],
+                    dtype=object)
+    np.save(pcd / "all_super_cluster_info_nsub_2.npy", info,
+            allow_pickle=True)
+    labels = run_dir / "labels"
+    labels.mkdir(exist_ok=True)
+    for i in range(5):
+        Image.fromarray(np.full((32, 32), i, np.uint8)).save(
+            labels / f"label_frame_{i:04d}.png")
+    out = run_dir / "projection_test"
+    report = cli.main(["project", "--run-dir", str(run_dir), "--pcd-dir",
+                       str(pcd), "--output-dir", str(out), "--label-dir",
+                       str(labels)])
+    assert capsys.readouterr().out.strip().splitlines()[-1] == str(out)
+    assert report.plan["jobs"] == 5 * 2
+    for c in range(5):
+        cam = out / "super_cluster_0" / f"cam_{c}"
+        names = sorted(p.name for p in cam.iterdir())
+        assert names == [f"label_frame_{c:04d}.png",
+                         "visible_cluster_0.png", "visible_cluster_1.png",
+                         "wo_occ_cluster_0.png", "wo_occ_cluster_1.png"]
+        assert Image.open(cam / "wo_occ_cluster_0.png").size == (32, 32)
+
+
+def test_project_raises_without_a_card(run_dir, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("CROPNERF_PLATFORM", raising=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["project", "--run-dir", str(run_dir), "--pcd-dir",
+                  str(run_dir)])

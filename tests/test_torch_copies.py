@@ -12,7 +12,16 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 
 COPIES = ["models/config.py", "export/ply.py", "data/dataparser.py",
-          "data/dataset.py", "utils/writer.py", "evaluation/vis.py"]
+          "data/dataset.py", "utils/writer.py", "evaluation/vis.py",
+          "counting/clustering.py", "counting/segmenter.py",
+          "counting/graph.py", "counting/merger.py",
+          "counting/depth_projection.py", "data/preprocess.py",
+          "data/colmap.py", "data/autoseg.py"]
+# native/pointcloud_ops.py builds its library into the port's _build
+# directory and keeps the build's output, so its loader differs; these
+# functions of it hold the JAX file's code
+NATIVE_WRAPPERS = ["available", "voxel_downsample", "dbscan",
+                   "statistical_outlier_removal", "kmeans"]
 
 
 class _StripDocsAndImports(ast.NodeTransformer):
@@ -51,6 +60,25 @@ def test_copy_holds_the_jax_code(module):
     assert port_file.exists(), f"the port has no copy of {module}"
     assert code_of(port_file) == code_of(jax_file), (
         f"cropnerf_tpu_torch/{module} has drifted from cropnerf_tpu/{module}")
+
+
+def _functions(path: Path) -> dict:
+    tree = _StripDocsAndImports().visit(ast.parse(path.read_text()))
+    return {node.name: ast.dump(node, include_attributes=False)
+            for node in tree.body if isinstance(node, ast.FunctionDef)}
+
+
+def test_native_wrappers_hold_the_jax_code():
+    rel = Path("native") / "pointcloud_ops.py"
+    jax_fns = _functions(REPO / "cropnerf_tpu" / rel)
+    port_fns = _functions(REPO / "cropnerf_tpu_torch" / rel)
+    for name in NATIVE_WRAPPERS:
+        assert port_fns[name] == jax_fns[name], name
+    # and the C++ source is the JAX one below its opening comment
+    src = [(REPO / pkg / "native" / "src" / "pointcloud_ops.cc").read_text()
+           for pkg in ("cropnerf_tpu", "cropnerf_tpu_torch")]
+    assert (src[0][src[0].index("#include"):]
+            == src[1][src[1].index("#include"):])
 
 
 def test_the_comparison_sees_a_changed_line(tmp_path):

@@ -1223,3 +1223,130 @@ def test_propfused_train_step_kernel_path_matches_plain_path(cuda):
     for k in g_p:
         assert torch.isfinite(g_k[k]).all(), k
         assert _rel_err(g_k[k], g_p[k]) <= BWD_TOL, (k, _rel_err(g_k[k], g_p[k]))
+
+
+# ---- projection: the kernel path against the plain path ---------------------
+#
+# ClusterProjector at both presets' full widths with random weights and a
+# density and a semantic bias, chosen (as tests/test_torch_projection.py
+# chooses its reduced fields') so that the images hold semantics, kept
+# pixels and occluded ones.  Tolerances of the chip_smoke.py [count]
+# phase: the occlusion-free image within 2/255 a pixel, at most 0.5 % of a
+# crop's visible pixels flipped (an accumulation near 0.5 takes the other
+# side in bf16), the same jobs empty.
+
+PROJ_BIASES = {"cropnerf": (("field.mlp_base.b.1", 0.0),
+                            ("field.semantic_head.b.0", 3.0)),
+               "cropnerf-mxu": (("field.mlp_top.b.3", 0.0),
+                                ("field.mlp_semantic.b.1", 3.0))}
+PROJ_LAUNCHES = {"cropnerf": {"hash_encode": 6},
+                 "cropnerf-mxu": {"fused_pe_nerf": 1, "fused_pe_density": 1}}
+PROJ_BOXES = ([[-0.2, -0.2, -0.2], [0.2, 0.2, 0.2]],      # inside the frame
+              [[2.4, -0.1, 0.2], [2.8, 0.1, 0.5]],        # behind camera 0
+              [[0.0, 0.0, 0.0], [0.002, 0.002, 0.002]],   # under 10 hits
+              [[-0.6, -0.6, -0.6], [0.6, 0.6, 0.6]])      # most of the frame
+
+
+def _ring_cameras(cuda, n, h, w, focal):
+    import numpy as np
+    from cropnerf_tpu_torch.core.cameras import Cameras
+    c2w = []
+    for i in range(n):
+        theta = 2 * np.pi * i / n
+        eye = np.array([1.2 * np.cos(theta), 1.2 * np.sin(theta), 0.3])
+        fwd = -eye / np.linalg.norm(eye)
+        right = np.cross(fwd, [0.0, 0.0, 1.0])
+        right /= np.linalg.norm(right)
+        c2w.append(np.concatenate([np.stack(
+            [right, np.cross(right, fwd), -fwd], axis=1), eye[:, None]], 1))
+    full = lambda v: torch.full((n,), v, device=cuda)  # noqa: E731
+    return Cameras(c2w=torch.tensor(np.stack(c2w), dtype=torch.float32,
+                                    device=cuda),
+                   fx=full(focal), fy=full(focal), cx=full(w / 2.0),
+                   cy=full(h / 2.0), width=full(w).long(),
+                   height=full(h).long())
+
+
+def _projection_scene(cuda, preset, n_cams=4):
+    import numpy as np
+    cfg = PRESETS[preset]
+    params = model_init(cfg.model, n_cams, torch.Generator().manual_seed(0),
+                        cuda)
+    named = dict(params.named_parameters())
+    with torch.no_grad():
+        for name, bias in PROJ_BIASES[preset]:
+            named[name][0] += bias
+    plain = (_plain_grid(cfg) if preset == "cropnerf" else
+             dataclasses.replace(cfg, model=dataclasses.replace(
+                 cfg.model, field=dataclasses.replace(cfg.model.field,
+                                                      mlp_impl="xla"))))
+    jobs = [(c, np.array(b, np.float32)) for c in range(n_cams)
+            for b in PROJ_BOXES]
+    return cfg.model, plain.model, params, jobs
+
+
+def _project_counted(proj, jobs):
+    from cropnerf_tpu_torch.ops.cuda import hash_encode as khash
+    counters = (kfield.fused_pe_nerf, kfield.fused_pe_density,
+                kmlp.fused_mlp, kmlp.fused_mlp_wide, khash.hash_encode,
+                kfield.fused_pe_mlp)
+    for k in counters:
+        k.launches = 0
+    out = {i: (w, v) for i, w, v in proj.iter_projections(jobs)}
+    torch.cuda.synchronize()
+    return out, {k.__name__: k.launches for k in counters}
+
+
+def _images_agree(got, ref, plan):
+    for job in plan.jobs:
+        (w, v), (rw, rv) = got[job.index], ref[job.index]
+        assert abs(w - rw).max() <= 2 / 255, job.index
+        assert ((v > 0) != (rv > 0)).sum() <= 0.005 * job.n_pix, job.index
+    assert ({i for i, (w, _) in got.items() if not w.any()}
+            == {i for i, (w, _) in ref.items() if not w.any()})
+
+
+@pytest.mark.parametrize("preset", ["cropnerf", "cropnerf-mxu"])
+def test_projection_kernel_path_matches_plain_path(cuda, preset):
+    """The kernel path against the plain path on the same jobs, with each
+    kernel of the path launched exactly its count a dispatch and nothing
+    else launched; the plain path launches nothing."""
+    from cropnerf_tpu_torch.projection.project import ClusterProjector
+    model, plain, params, jobs = _projection_scene(cuda, preset)
+    cams = _ring_cameras(cuda, 4, 480, 640, 600.0)
+    results = {}
+    for name, cfg in (("kernel", model), ("plain", plain)):
+        proj = ClusterProjector(params, cfg, cams, 480, 640)
+        plan = proj.plan(jobs)
+        results[name], launches = _project_counted(proj, jobs)
+        want = {k: (PROJ_LAUNCHES[preset].get(k, 0) * len(plan.dispatches)
+                    if name == "kernel" else 0) for k in launches}
+        assert launches == want, (name, launches, want)
+    assert 1 in plan.outside and len(plan.dispatches) > 1
+    _images_agree(results["kernel"], results["plain"], plan)
+    kept = sum(int((v > 0).sum()) for _, v in results["kernel"].values())
+    assert kept > 0
+    # the box under 10 hits gives zero images from every camera
+    assert not any(results["kernel"][i][0].any() for i in (2, 6, 10, 14))
+
+
+@pytest.mark.parametrize("preset", ["cropnerf", "cropnerf-mxu"])
+def test_projection_row_segments_match_one_dispatch(cuda, preset):
+    """A samples budget of 4096 rays a dispatch renders every crop in row
+    segments; the images agree with the default budget's."""
+    from cropnerf_tpu_torch.projection.project import ClusterProjector
+    model, _, params, jobs = _projection_scene(cuda, preset)
+    cams = _ring_cameras(cuda, 4, 480, 640, 600.0)
+    spr = (model.num_nerf_samples_per_ray
+           + sum(model.num_proposal_samples_per_ray))
+    one = ClusterProjector(params, model, cams, 480, 640)
+    seg = ClusterProjector(params, model, cams, 480, 640,
+                           max_samples_per_dispatch=4096 * spr)
+    assert seg.max_rays_per_job == 4096
+    plan = seg.plan(jobs)
+    assert max(j.n_pix for j in plan.jobs) > 4096
+    ref, _ = _project_counted(one, jobs)
+    got, launches = _project_counted(seg, jobs)
+    for k, n in PROJ_LAUNCHES[preset].items():
+        assert launches[k] == n * len(plan.dispatches)
+    _images_agree(got, ref, plan)

@@ -757,6 +757,26 @@ def test_outlier_removal_and_normals_match_jax(std_ratio):
     assert np.median(np.abs(n_got[12:, 2])) > 0.9     # the flat cloud's z
 
 
+@pytest.mark.parametrize("std_ratio", [2.0, 10.0])
+def test_exporter_outlier_removal_matches_jax(std_ratio):
+    """The exporter's k-d tree outlier removal keeps the indices of the JAX
+    exporter's (the counting stage's native backend), on a flat cloud with
+    far outliers and on a surface cloud of two touching spheres."""
+    from cropnerf_tpu.counting.clustering import \
+        statistical_outlier_removal as jax_sor
+    from cropnerf_tpu_torch.export.pointcloud import outlier_inliers
+    rng = np.random.default_rng(1)
+    shell = rng.standard_normal((4000, 3))
+    shell /= np.linalg.norm(shell, axis=1, keepdims=True)
+    spheres = np.concatenate([0.25 * shell[:3000],
+                              [0.27, -0.18, 0.1] + 0.14 * shell[3000:]])
+    spheres[:5] *= 6.0                                 # far outliers
+    for pts in (_cloud(), spheres.astype(np.float32)):
+        got = outlier_inliers(pts, 20, std_ratio)
+        np.testing.assert_array_equal(got, jax_sor(pts, 20, std_ratio))
+        assert len(got) < len(pts)
+
+
 def test_generate_point_cloud_and_export(tmp_path):
     """The port's exporter end to end on the CPU: batches drawn from its
     generator, the kept points of each batch, the outlier removal, and the
