@@ -69,8 +69,9 @@ Run from the root of the repository:  python3 chip_smoke.py
    16,384 rays a batch up to 1,000,000 points (thresholds at a first
    batch's medians), each with exact launch counts of K1 and K5;
 5d. drives the CLI in process, cli.main([...]) ([cli] lines), on a
-   ray-traced 3DCotton-layout dataset of 32 views of 1200x800: for cropnerf
-   train --max-steps 500 (an eval batch, an eval image and the save at step
+   ray-traced 3DCotton-layout dataset of 32 views of 1200x800 (for
+   cropnerf, whose count is not held, the same scene at 600x400): for
+   cropnerf train --max-steps 500 (an eval batch, an eval image and the save at step
    500, then the full eval), train --resume --max-steps 20, export at 128^3
    (thresholds from the trained field's quantiles), uncertainty at lod 8
    over 8 batches and render (2 frames of 256x256, --eval-metrics); for
@@ -96,7 +97,31 @@ Run from the root of the repository:  python3 chip_smoke.py
    each), its kernel path against the plain path on one subcluster from
    three cameras, its PNG tree for completeness, and the native
    point-cloud backend (built in step 1 from cropnerf_tpu_torch/native)
-   must be the one that ran;
+   must be the one that ran.  cropnerf's export, segment and project run
+   on two ranks under torchrun (export --multichip, project --multichip:
+   rank r takes chunks and dispatches r, r+2, ...), each rank's launches
+   counted: the export byte for byte against one process's
+   export_and_write, the PNGs of supercluster 0's subcluster 0 from
+   cameras 0, 10 and 20 byte for byte against one process's
+   ClusterProjector on the same jobs;
+5f. runs two ranks under torchrun ([ddp] lines; NCCL when the machine has
+   two cards, else gloo with both ranks on the one card, which says
+   nothing about scaling): one sharded-bank step of cropnerf-mxu (K1) and
+   of cropnerf (K4) at full widths on the [train] bank, 4096 rays (2048 a
+   rank), held against replay_sharded_step run here on the same card
+   through assert_grads_match (atol 3e-5, rtol 1e-2, camera_opt 1e-3),
+   each rank's launches exact, its step time and an all-reduce of a
+   buffer of the gradients' size; the replicated-bank step of
+   cropnerf-mxu against the one-process step on the same draws, and the
+   ranks' parameters bit for bit after 5 steps; then train --multichip
+   --shard-bank on (cropnerf-mxu, 200 steps) on the [cli] dataset: one
+   checkpoint that loads, run_config.json's shard_bank and padded image
+   count, the RGB loss falling from step 100 to 200, each rank's K1
+   launches;
+5g. serves the cropnerf-mxu run with the viewer command's server
+   (cli.make_viewer) in the background (its BayesRays grid, the counted
+   instances and the cluster boxes): one /render per channel, each a PNG
+   of the asked size, timed;
 6. traces one forward, render, export and training step of cropnerf-mxu,
    one forward and training step of cropnerf, one BayesRays batch of each,
    one training step and depth-cloud batch of the fused-proposal path and
@@ -107,11 +132,13 @@ Run from the root of the repository:  python3 chip_smoke.py
 
 Any failed phase raises and the script exits non-zero.  It needs a CUDA
 device and the repository beside it; without either it fails before it
-prints a result.
+prints a result.  ``chip_smoke.py --rank JOB`` is the script's own rank
+entry, which torchrun runs on each rank of the [ddp] and [count] phases.
 """
 from __future__ import annotations
 
 import dataclasses
+import io
 import json
 import math
 import re
@@ -122,6 +149,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -2016,6 +2044,18 @@ def propfused_phase(dev, card, bank, rb, cams, kernels) -> tuple:
 
 CLI_IMAGES = (32, 800, 1200)   # views, height, width: the [train] bank's shape
 CLI_FOCAL = 1000.0             # pixels: a 62-degree horizontal field of view
+# each preset's [cli] and [count] dataset: (views, height, width, focal).
+# The cropnerf arm, whose count is printed and not held, sees the same
+# scene at half the resolution (a quarter of project's rays), so that the
+# script stays inside its time with the [ddp] phase
+CLI_DATA = {"cropnerf-mxu": (*CLI_IMAGES, CLI_FOCAL),
+            "cropnerf": (32, 400, 600, CLI_FOCAL / 2)}
+
+
+def cli_data(work: Path, preset: str) -> Path:
+    """The directory of ``preset``'s [cli] dataset (``work/data`` is
+    cropnerf-mxu's, which the [ddp] phase trains on too)."""
+    return work / ("data" if preset == "cropnerf-mxu" else f"data_{preset}")
 CLI_STEPS = 500                # both presets' eval-batch and eval-image cadence
 CLI_RESUME_STEPS = 20
 CLI_EXPORT_SIDE = 128
@@ -2127,11 +2167,11 @@ def cli_phase(dev, card, kernels, bare_step_ms: dict, work: Path) -> dict:
     from cropnerf_tpu_torch.models.config import PRESETS
     from cropnerf_tpu_torch.train.trainer import Trainer, load_trainer_from_run
     from cropnerf_tpu_torch.export.volume import export_and_write
-    t0 = time.perf_counter()
-    n_img, h, w = CLI_IMAGES
-    data = write_cli_dataset(work / "data", n_img, h, w, CLI_FOCAL)
-    log(f"[cli] dataset: {n_img} views of {w}x{h}, three spheres, written "
-        f"in {time.perf_counter() - t0:.1f} s")
+    for preset, (n_img, h, w, focal) in CLI_DATA.items():
+        t0 = time.perf_counter()
+        write_cli_dataset(cli_data(work, preset), n_img, h, w, focal)
+        log(f"[cli] {preset} dataset: {n_img} views of {w}x{h}, three "
+            f"spheres, written in {time.perf_counter() - t0:.1f} s")
     have_mpl = importlib.util.find_spec("matplotlib") is not None
     if not have_mpl:
         log("[cli] matplotlib does not import on this machine: "
@@ -2151,10 +2191,11 @@ def cli_phase(dev, card, kernels, bare_step_ms: dict, work: Path) -> dict:
                               "export-pointcloud": ("fused_pe_nerf",)}}
     table = {p: {**cmds, "resume": cmds["train"]} for p, cmds in table.items()}
     g = torch.Generator(device=dev).manual_seed(11)
-    info = {"card": card, "dataset": list(CLI_IMAGES),
-            "matplotlib": have_mpl}
+    info = {"card": card, "dataset": CLI_DATA, "matplotlib": have_mpl}
     for preset in ("cropnerf", "cropnerf-mxu"):
         run = work / preset
+        data = cli_data(work, preset)
+        h, w = CLI_DATA[preset][1:3]
         cmd_s, launches, res = {}, {}, {}
 
         def drive(name, fn):
@@ -2384,6 +2425,10 @@ COUNT_CLOUD_POINTS = 200_000    # export-pointcloud for depth-project
 COUNT_LAUNCHES = {"cropnerf": {"hash_encode": 6},
                   "cropnerf-mxu": {"fused_pe_nerf": 1,
                                    "fused_pe_density": 1}}
+# the presets whose export, segment and project run on DDP_RANKS ranks
+# under torchrun (the [ddp] phase's export --multichip and project
+# --multichip) in place of one process
+COUNT_RANKS = ("cropnerf",)
 
 
 def plant_box(outputs) -> np.ndarray:
@@ -2450,6 +2495,52 @@ def projection_against_plain(trainer, plain_cfg, info, dev) -> dict:
                 seconds=secs, projector=kernel_proj, plan=plan)
 
 
+def projection_against_one_process(trainer, info, n_cams: int, out: Path,
+                                   check_dir: Path) -> tuple:
+    """The PNGs of supercluster 0's subcluster 0 from COUNT_CHECK_CAMS in
+    the tree ``project`` wrote on two ranks, against one process's
+    ClusterProjector rendering the dispatches that hold those jobs, cut
+    from the same job list as ``run_projections`` cuts it: the same rays in
+    the same batches, so the same bits.  (A GEMM's result may depend on how
+    many rows it multiplies, so another batching of the same jobs can move
+    a pixel by one 8-bit level.)  Returns (the images that differ, the
+    dispatches rendered)."""
+    from cropnerf_tpu_torch.projection.project import (ClusterProjector,
+                                                       _save_gray)
+    jobs, want = [], {}
+    for s, row in enumerate(info):
+        for c in range(n_cams):
+            for i in range(row["aabb"].shape[0]):
+                if s == 0 and i == 0 and c in COUNT_CHECK_CAMS:
+                    want[len(jobs)] = c
+                jobs.append((c, row["aabb"][i]))
+    proj = ClusterProjector(trainer.state.params, trainer.cfg.model,
+                            trainer.bank.cameras, trainer.bank.height,
+                            trainer.bank.width)
+    plan = proj.plan(jobs)
+    slots = {slot for slot, job in enumerate(plan.jobs) if job.index in want}
+    sub = dataclasses.replace(
+        plan, outside=[i for i in plan.outside if i in want],
+        dispatches=[d for d in plan.dispatches
+                    if any(slot in slots for slot, _, _ in d)])
+    check_dir.mkdir()
+    diff = []
+    for idx, wo_occ, visible in proj.iter_projections(jobs, sub):
+        if idx not in want:     # another job, partly in these dispatches
+            continue
+        c = want[idx]
+        for kind, img in (("wo_occ", wo_occ), ("visible", visible)):
+            mine = check_dir / f"{kind}_{c}.png"
+            _save_gray(mine, img)
+            tree = (out / "super_cluster_0" / f"cam_{c}"
+                    / f"{kind}_cluster_0.png")
+            if mine.read_bytes() != tree.read_bytes():
+                diff.append(f"cam_{c}/{kind}")
+    check(len(list(check_dir.iterdir())) == 2 * len(want),
+          f"the one-process check rendered {sorted(check_dir.iterdir())}")
+    return diff, len(sub.dispatches)
+
+
 def count_phase(dev, card, kernels, work: Path) -> tuple:
     """The counting pipeline through ``python -m cropnerf_tpu_torch.cli``
     in process, on the [cli] phase's runs and dataset, for cropnerf and
@@ -2469,6 +2560,7 @@ def count_phase(dev, card, kernels, work: Path) -> tuple:
     from cropnerf_tpu_torch.data.dataparser import (DataparserConfig,
                                                     parse_transforms)
     from cropnerf_tpu_torch.export.ply import read_ply
+    from cropnerf_tpu_torch.export.volume import export_and_write
     from cropnerf_tpu_torch.native import pointcloud_ops as nat
     from cropnerf_tpu_torch.train.trainer import load_trainer_from_run
 
@@ -2478,14 +2570,16 @@ def count_phase(dev, card, kernels, work: Path) -> tuple:
           "the counting stage would not run on the native backend")
     log(f"[count] point-cloud backend: native ({nat.library_path().name}, "
         "built from cropnerf_tpu_torch/native/src)")
-    data = work / "data"
-    # project indexes its labels by training camera: the label directory
-    # holds the training split's frames alone, in the split's order
-    train = parse_transforms(DataparserConfig(data_dir=data), "train")
-    labels = work / "labels_train"
-    labels.mkdir()
-    for p in train.image_paths:
-        shutil.copy(data / "labels" / p.name, labels / f"label_{p.name}")
+    # project indexes its labels by training camera: each label directory
+    # holds its dataset's training split alone, in the split's order
+    label_dirs = {}
+    for preset in CLI_DATA:
+        data = cli_data(work, preset)
+        train = parse_transforms(DataparserConfig(data_dir=data), "train")
+        label_dirs[preset] = labels = work / f"labels_train_{preset}"
+        labels.mkdir()
+        for p in train.image_paths:
+            shutil.copy(data / "labels" / p.name, labels / f"label_{p.name}")
     n_cams = len(train.image_paths)
     box = plant_box(train)
     box_args = ["--aabb", *(repr(float(v)) for v in box.ravel())]
@@ -2505,6 +2599,7 @@ def count_phase(dev, card, kernels, work: Path) -> tuple:
     steps = {}
     for preset in ("cropnerf", "cropnerf-mxu"):
         run = work / preset
+        data, labels = cli_data(work, preset), label_dirs[preset]
         pcd = run / "count_exports"
         out = run / "projection"
         cmd_s, launches, res = {}, {}, {}
@@ -2519,13 +2614,64 @@ def count_phase(dev, card, kernels, work: Path) -> tuple:
                 + str({k: v for k, v in launches[name].items() if v}))
             return res[name]
 
-        drive("export", ["export", "--run-dir", str(run), "--output-dir",
-                         str(pcd), "--num-points-per-side",
-                         str(COUNT_EXPORT_SIDE), *box_args, *thr])
+        export_argv = ["export", "--run-dir", str(run), "--output-dir",
+                       str(pcd), "--num-points-per-side",
+                       str(COUNT_EXPORT_SIDE), *box_args, *thr]
+        segment_argv = ["segment", "--pcd-dir", str(pcd), "--k",
+                        str(COUNT_K), "--vx-size", str(COUNT_VX_SIZE)]
+        project_argv = ["project", "--run-dir", str(run), "--pcd-dir",
+                        str(pcd), "--k", str(COUNT_K), "--label-dir",
+                        str(labels), "--output-dir", str(out)]
+        if preset in COUNT_RANKS:
+            # export, segment (rank 0) and project on DDP_RANKS ranks
+            ranks = launch_ranks({"commands": [
+                {"name": "export", "argv": export_argv + ["--multichip"],
+                 "ranks": "all"},
+                {"name": "segment", "argv": segment_argv, "ranks": "main"},
+                {"name": "project", "argv": project_argv + ["--multichip"],
+                 "ranks": "all"}]}, work / f"{preset}_ranks",
+                f"[count] {preset}")
+            by_rank = {}
+            for name in ("export", "segment", "project"):
+                per = [r["commands"][name] for r in ranks]
+                by_rank[name] = [nonzero(c.get("launches", {})) for c in per]
+                launches[name] = {k.__name__: sum(
+                    c.get("launches", {}).get(k.__name__, 0) for c in per)
+                    for k in kernels}
+                cmd_s[name] = per[0]["s"]
+                log(f"[count] {preset} {name} on {DDP_RANKS} ranks: "
+                    f"{per[0]['s']:.2f} s, launches per rank "
+                    f"{by_rank[name]}")
+            # run_projections' report, as rank 0 sent it back
+            report = SimpleNamespace(**{
+                k: ranks[0]["commands"]["project"][k]
+                for k in ("plan", "render_s", "png_s")})
+            log(f"[count] {preset} the torchrun call took "
+                f"{ranks[0]['torchrun_s']:.1f} s; {card}")
+            # the export row for row against one process's
+            trainer = load_trainer_from_run(run, device=dev)
+            direct = export_and_write(
+                trainer.state.params, trainer.cfg.model,
+                np.array([float(v) for v in box.ravel()],
+                         np.float32).reshape(2, 3), work / "direct_export",
+                dataparser_scale=2.0,
+                num_points_per_side=COUNT_EXPORT_SIDE,
+                **{k.lstrip("-").replace("-", "_"): float(v)
+                   for k, v in COUNT_THRESHOLDS})
+            same = {name: path.read_bytes()
+                    == (pcd / f"{name}.ply").read_bytes()
+                    for name, path in direct.items()}
+            log(f"[count] {preset} export on {DDP_RANKS} ranks against one "
+                f"process's export_and_write: files byte for byte {same}")
+            check(all(same.values()), f"{preset} two-rank export differs "
+                  f"from one process's: {same}")
+            del trainer
+        else:
+            by_rank = None
+            drive("export", export_argv)
+            drive("segment", segment_argv)
         cloud = {name: len(read_ply(pcd / f"{name}.ply")[0])
                  for name in ("semantic", "semantic_colormap", "density")}
-        drive("segment", ["segment", "--pcd-dir", str(pcd), "--k",
-                          str(COUNT_K), "--vx-size", str(COUNT_VX_SIZE)])
         sc = np.load(pcd / f"all_super_cluster_info_nsub_{COUNT_K}.npy",
                      allow_pickle=True)
         sc_points = [sum(len(p) for p in row["pcd"].values()) for row in sc]
@@ -2534,16 +2680,22 @@ def count_phase(dev, card, kernels, work: Path) -> tuple:
         check(len(sc) > 0, f"{preset} segment found no supercluster")
 
         cams = range(n_cams)
-        report = drive("project", [
-            "project", "--run-dir", str(run), "--pcd-dir", str(pcd),
-            "--k", str(COUNT_K), "--label-dir", str(labels),
-            "--output-dir", str(out)])
+        if by_rank is None:
+            report = drive("project", project_argv)
         plan = report.plan
         want = {k.__name__: COUNT_LAUNCHES[preset].get(k.__name__, 0)
                 * plan["dispatches"] for k in kernels}
         check(launches["project"] == want,
               f"{preset} project launched {launches['project']}, its plan "
               f"of {plan['dispatches']} dispatches asks {want}")
+        if by_rank is not None:
+            # rank r renders dispatches r, r + DDP_RANKS, ...
+            for r, got in enumerate(by_rank["project"]):
+                share = len(range(r, plan["dispatches"], DDP_RANKS))
+                check(got == {k: v * share for k, v in
+                              COUNT_LAUNCHES[preset].items()},
+                      f"{preset} project rank {r} launched {got} for "
+                      f"{share} dispatches")
         missing = [
             f"super_cluster_{s}/cam_{c}/{kind}_cluster_{i}.png"
             for s in range(len(sc)) for c in cams
@@ -2607,6 +2759,16 @@ def count_phase(dev, card, kernels, work: Path) -> tuple:
               and vs["worst_visible_share"] <= COUNT_VISIBLE_SHARE
               and vs["skipped"]["kernel"] == vs["skipped"]["plain"],
               f"{preset} project: kernel path against plain path {vs}")
+        if by_rank is not None:
+            diff, n_disp = projection_against_one_process(
+                trainer, sc, n_cams, out, work / f"{preset}_check_png")
+            log(f"[count] {preset} project on {DDP_RANKS} ranks: "
+                f"supercluster 0's subcluster 0 from cameras "
+                f"{COUNT_CHECK_CAMS} against one process's ClusterProjector "
+                f"rendering the same {n_disp} dispatches of the same plan: "
+                f"PNGs byte for byte {not diff} {diff}; {rate:.0f} rays/s "
+                f"over both passes on {DDP_RANKS} ranks; {card}")
+            check(not diff, f"{preset} two-rank projection differs: {diff}")
         steps[f"{preset} project dispatch"] = (
             lambda proj=proj, vplan=vplan:
             proj._render(vplan.jobs, vplan.dispatches[0]))
@@ -2618,6 +2780,7 @@ def count_phase(dev, card, kernels, work: Path) -> tuple:
             "plan": plan,
             "render_s": report.render_s, "png_s": report.png_s,
             "rays_per_s": rate, "total_count": result.total_count,
+            "launches_by_rank": by_rank,
             "per_super_cluster": result.per_super_cluster,
             "vs_plain": vs}
         del trainer
@@ -2636,11 +2799,12 @@ def count_phase(dev, card, kernels, work: Path) -> tuple:
 def host_commands(drive, run, pcd, data, labels, work, n_cams) -> dict:
     """depth-project on export-pointcloud's cloud and render
     --export-cameras' poses, depth-count, then process-labels, rescale
-    --nearest, segment-masks and import-colmap once each."""
+    --nearest, segment-masks and import-colmap once each, on the cropnerf
+    arm's dataset."""
     from PIL import Image
     from cropnerf_tpu_torch.data.preprocess import (
         convert_segmentation_img_to_label)
-    n_img, h, w = CLI_IMAGES
+    n_img, h, w, focal = CLI_DATA["cropnerf"]
     drive("render --export-cameras", [
         "render", "--run-dir", str(run), "--export-cameras", "--n-frames",
         "1", "--size", "64", "--output", str(work / "orbit.mp4")])
@@ -2653,7 +2817,7 @@ def host_commands(drive, run, pcd, data, labels, work, n_cams) -> dict:
         "depth-project", "--pcd-dir", str(pcd), "--transforms",
         str(run / "transforms_train.json"), "--full-tree", str(cloud),
         "--k", str(COUNT_K), "--output-dir", str(depth), "--height", str(h),
-        "--width", str(w), "--fx", str(CLI_FOCAL), "--fy", str(CLI_FOCAL),
+        "--width", str(w), "--fx", str(focal), "--fy", str(focal),
         "--cx", str(w / 2), "--cy", str(h / 2)])
     cams = sorted(depth.glob("super_cluster_*/cam_*"))
     check(len(cams) > 0 and all(len(list(d.glob("occ_free_*.png")))
@@ -2726,6 +2890,419 @@ def host_commands(drive, run, pcd, data, labels, work, n_cams) -> dict:
     return {"depth_total_count": depth_result.total_count,
             "depth_per_super_cluster": depth_result.per_super_cluster,
             "segment_mask_shares": [float((m > 0).mean()) for m in masks]}
+
+
+# ---- the [ddp] phase: two ranks under torchrun ------------------------------
+
+DDP_RANKS = 2
+DDP_REPLICATED_STEPS = 5        # replicated steps before the ranks' params
+DDP_TIMED = 5                   # timed steps (and all-reduces) per rank
+DDP_TRAIN_STEPS = 200
+DDP_TIMEOUT = 420               # seconds for one torchrun of the phase
+# each rank's launches in one sharded step
+DDP_LAUNCHES = {"cropnerf-mxu": {"fused_pe_nerf": 1, "fused_pe_nerf_bwd": 1},
+                "cropnerf": {"hash_encode": 3, "hash_encode_bwd": 3}}
+# the replay oracle's tolerances (cropnerf_tpu/train/debug.py's, camera_opt
+# apart): both sides run the same kernels on the same card
+DDP_ATOL, DDP_RTOL, DDP_ATOL_CAMERA_OPT = 3e-5, 1e-2, 1e-3
+DDP_REPLICATED_TOL = GRAD_TOL   # relative L2 of the gradients vs one process
+VIEWER_CHANNELS = ("rgb", "semantics_colormap", "depth", "accumulation",
+                   "uncertainty", "instances")
+VIEWER_SIZE = 256
+RANK_SCRIPT = Path(__file__).resolve()   # what torchrun runs on each rank
+
+
+def kernel_wrappers() -> tuple:
+    """Every kernel wrapper of the port, each with its launch count."""
+    from cropnerf_tpu_torch.ops.cuda import fused_mlp as kmlp
+    from cropnerf_tpu_torch.ops.cuda import fused_pe_field as kf
+    from cropnerf_tpu_torch.ops.cuda.hash_encode import (hash_encode,
+                                                         hash_encode_bwd)
+    from cropnerf_tpu_torch.ops.cuda.transmittance import render_weights_cuda
+    return (kf.fused_pe_nerf, kf.fused_pe_nerf_bwd, kf.fused_pe_density,
+            kf.fused_pe_density_bwd, kmlp.fused_mlp, kmlp.fused_mlp_bwd,
+            kmlp.fused_mlp_wide, kmlp.fused_mlp_bwd_wide, hash_encode,
+            hash_encode_bwd, kf.fused_pe_mlp, kf.fused_pe_mlp_wide,
+            kf.fused_pe_mlp_bwd, render_weights_cuda)
+
+
+def rank_log(msg: str) -> None:
+    """One whole line in one write: the ranks share the output."""
+    sys.stdout.write(msg + "\n")
+    sys.stdout.flush()
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def launch_ranks(job: dict, work: Path, what: str) -> list:
+    """Run ``job`` on DDP_RANKS ranks: ``torchrun --standalone
+    --nproc-per-node DDP_RANKS chip_smoke.py --rank JOB``.  Each rank
+    writes its results to ``work/rank{r}.json``; the ranks' output goes to
+    ``work/torchrun.log``.  A rank that fails, or a run past DDP_TIMEOUT,
+    fails the phase."""
+    work.mkdir(parents=True, exist_ok=True)
+    job = dict(job, out=str(work))
+    (work / "job.json").write_text(json.dumps(job))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(DDP_RANKS), str(RANK_SCRIPT),
+           "--rank", str(work / "job.json")]
+    t = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=DDP_TIMEOUT)
+    except subprocess.TimeoutExpired as e:
+        raise SystemExit(f"chip_smoke FAILED: {what} ran past "
+                         f"{DDP_TIMEOUT} s:\n{(e.stdout or '')[-3000:]}")
+    (work / "torchrun.log").write_text(proc.stdout + proc.stderr)
+    check(proc.returncode == 0, f"{what}: torchrun exit {proc.returncode}:\n"
+          f"{(proc.stdout + proc.stderr)[-6000:]}")
+    ranks = [json.loads((work / f"rank{r}.json").read_text())
+             for r in range(DDP_RANKS)]
+    ranks[0]["torchrun_s"] = time.perf_counter() - t
+    for line in proc.stdout.splitlines():
+        if line.startswith("[rank"):
+            log(f"[ddp] {line}")
+    return ranks
+
+
+def rank_main(job_path: Path) -> None:
+    """One rank under torchrun: join the group (``initialize_multihost``:
+    NCCL when every rank has its own card, else gloo), run the job's
+    data-parallel steps and CLI commands with the launch counts zeroed
+    before each, and write what it found to ``{out}/rank{r}.json``."""
+    repo = Path(__file__).resolve().parent
+    sys.path.insert(0, str(repo))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from cropnerf_tpu_torch import cli
+    from cropnerf_tpu_torch.parallel.dist import (barrier,
+                                                  initialize_multihost,
+                                                  shutdown)
+    job = json.loads(job_path.read_text())
+    out = Path(job["out"])
+    mesh = initialize_multihost()
+    kernels = kernel_wrappers()
+    res = {"rank": mesh.rank, "backend": mesh.backend,
+           "device": str(mesh.device),
+           "device_count": torch.cuda.device_count(), "commands": {}}
+    if job.get("steps"):
+        res["steps"] = ddp_rank_steps(mesh, kernels, out)
+    for cmd in job.get("commands", []):
+        entry = {}
+        if cmd["ranks"] == "all" or mesh.is_main:
+            made = {}
+            t = time.perf_counter()
+            entry["launches"] = counted(
+                kernels, lambda: made.update(r=cli.main(cmd["argv"])))
+            sync(mesh.device)
+            entry["s"] = time.perf_counter() - t
+            r = made["r"]
+            if hasattr(r, "plan"):
+                entry.update(plan=r.plan, render_s=r.render_s,
+                             png_s=r.png_s)
+            rank_log(f"[rank {mesh.rank}] {cmd['name']}: {entry['s']:.2f} "
+                     f"s, launches {nonzero(entry['launches'])}")
+        barrier(cmd["name"], mesh)
+        res["commands"][cmd["name"]] = entry
+    (out / f"rank{mesh.rank}.json").write_text(json.dumps(res))
+    barrier("done", mesh)
+    shutdown()
+
+
+def ddp_rank_steps(mesh, kernels, out: Path) -> dict:
+    """A rank's part of the [ddp] checks on the [train] phase's bank: one
+    sharded-bank step with its gradients for cropnerf-mxu and cropnerf
+    (the shard: this rank's 16 images), then DDP_TIMED timed steps and
+    all-reduces of a buffer of the gradients' size; then
+    DDP_REPLICATED_STEPS replicated-bank steps of cropnerf-mxu, the first
+    with its gradients.  Rank 0 saves the gradients; every rank its
+    parameters after the replicated steps."""
+    import torch.distributed as dist
+    from cropnerf_tpu_torch.data.databank import (build_sharded_pixel_bank,
+                                                  process_image_range)
+    from cropnerf_tpu_torch.models.config import PRESETS
+    from cropnerf_tpu_torch.train.state import create_train_state
+    from cropnerf_tpu_torch.train.step import (make_sharded_train_step,
+                                               make_train_step)
+    from tools.hash_bwd_real_step import synthetic_bank
+    dev = mesh.device
+    bank = synthetic_bank(dev)
+    n, h, w = bank.num_images, bank.height, bank.width
+    lo, hi = process_image_range(n, mesh)
+    shard = build_sharded_pixel_bank(
+        bank.rgb.view(n, h, w, 3)[lo:hi].cpu().numpy(),
+        bank.mask.view(n, h, w)[lo:hi].cpu().numpy(), bank.cameras, mesh)
+    res = {"images": [lo, hi], "image_offset": shard.image_offset}
+    for preset in ("cropnerf-mxu", "cropnerf"):
+        cfg = dataclasses.replace(PRESETS[preset],
+                                  train_num_rays_per_batch=RAYS)
+        state = create_train_state(cfg, n, torch.Generator().manual_seed(0),
+                                   dev)
+        step = make_sharded_train_step(cfg, mesh, return_grads=True)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        m = {}
+        launches = counted(kernels, lambda: m.update(
+            step(state, shard, gen)[1]))
+        if mesh.is_main:
+            torch.save({"grads": {k: v.cpu() for k, v in m["grads"].items()},
+                        **{k: float(v) for k, v in m.items() if k != "grads"}},
+                       out / f"sharded_{preset}.pt")
+        step = make_sharded_train_step(cfg, mesh)
+        runs = []
+        for _ in range(DDP_TIMED):
+            sync(dev)
+            t = time.perf_counter()
+            step(state, shard, gen)
+            sync(dev)
+            runs.append((time.perf_counter() - t) * 1e3)
+        numel = sum(p.numel() for p in state.params.parameters()) + 7
+        buf = torch.zeros(numel, device=dev)
+        ar = []
+        for _ in range(DDP_TIMED):
+            sync(dev)
+            t = time.perf_counter()
+            dist.all_reduce(buf, group=mesh.group)
+            sync(dev)
+            ar.append((time.perf_counter() - t) * 1e3)
+        med = statistics.median(runs)
+        res[preset] = {"launches": nonzero(launches), "step_ms": med,
+                       "runs_ms": runs, "rays_per_s": RAYS / med * 1e3,
+                       "allreduce_ms": statistics.median(ar),
+                       "allreduce_runs_ms": ar, "buffer_floats": numel,
+                       "loss": float(m["loss"])}
+        rank_log(f"[rank {mesh.rank}] {preset} sharded step: launches "
+                 f"{nonzero(launches)}, median {med:.2f} ms "
+                 f"({RAYS / med * 1e3:.0f} rays/s over both ranks), "
+                 f"all-reduce of {numel} floats "
+                 f"{statistics.median(ar):.2f} ms")
+        del state, step, buf
+    cfg = dataclasses.replace(PRESETS["cropnerf-mxu"],
+                              train_num_rays_per_batch=RAYS)
+    state = create_train_state(cfg, n, torch.Generator().manual_seed(0), dev)
+    step = make_train_step(cfg, mesh=mesh, return_grads=True)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    m = {}
+    launches = counted(kernels, lambda: m.update(step(state, bank, gen)[1]))
+    if mesh.is_main:
+        torch.save({"grads": {k: v.cpu() for k, v in m["grads"].items()},
+                    **{k: float(v) for k, v in m.items() if k != "grads"}},
+                   out / "replicated.pt")
+    for _ in range(DDP_REPLICATED_STEPS - 1):
+        step(state, bank, gen)
+    torch.save({k: v.cpu() for k, v in state.params.state_dict().items()},
+               out / f"replicated_params_rank{mesh.rank}.pt")
+    res["replicated"] = {"launches": nonzero(launches),
+                         "loss": float(m["loss"])}
+    return res
+
+
+def ddp_phase(dev, card, bank, work: Path) -> dict:
+    """The [ddp] lines: two ranks under torchrun (NCCL on two cards, gloo
+    when they share one): the sharded-bank step of cropnerf-mxu (K1) and
+    cropnerf (K4) at full widths against the replay oracle run here on the
+    same card, the replicated-bank step against the one-process step on the
+    same draws and the ranks' parameters after DDP_REPLICATED_STEPS steps,
+    then ``train --multichip --shard-bank on`` (cropnerf-mxu,
+    DDP_TRAIN_STEPS steps) on the [cli] dataset."""
+    from cropnerf_tpu_torch.data.databank import padded_num_images
+    from cropnerf_tpu_torch.models.config import PRESETS
+    from cropnerf_tpu_torch.train.debug import (assert_grads_match,
+                                                replay_sharded_step)
+    from cropnerf_tpu_torch.train.state import create_train_state
+    from cropnerf_tpu_torch.train.step import make_train_step
+    from cropnerf_tpu_torch.train.trainer import load_trainer_from_run
+    n_cards = torch.cuda.device_count()
+    run = work / "ddp_run"
+    train_argv = ["train", "--method", "cropnerf-mxu", "--data",
+                  str(work / "data"), "--output", str(run), "--max-steps",
+                  str(DDP_TRAIN_STEPS), "--rays-per-batch", str(RAYS),
+                  "--multichip", "--shard-bank", "on"]
+    log(f"[ddp] {n_cards} card(s) visible; {DDP_RANKS} ranks "
+        + ("over NCCL, one card each" if n_cards >= DDP_RANKS else
+           "sharing one card over gloo (NCCL refuses two ranks on one "
+           "card): the numbers below say nothing about scaling"))
+    ranks = launch_ranks({"steps": True, "commands": [
+        {"name": "train", "argv": train_argv, "ranks": "all"}]},
+        work / "ddp_job", "[ddp]")
+    backends = {r["backend"] for r in ranks}
+    log(f"[ddp] torch.cuda.device_count() {n_cards}; backend "
+        f"{sorted(backends)}; ranks on {[r['device'] for r in ranks]}; "
+        f"the torchrun call took {ranks[0]['torchrun_s']:.1f} s")
+    want_backend = "nccl" if n_cards >= DDP_RANKS else "gloo"
+    check(backends == {want_backend},
+          f"[ddp] backend {backends}, expected {want_backend}")
+    info = {"card": card, "device_count": n_cards, "backend": want_backend,
+            "ranks": DDP_RANKS, "torchrun_s": ranks[0]["torchrun_s"]}
+    out = work / "ddp_job"
+
+    # 1. the sharded-bank step against the replay oracle
+    n = bank.num_images
+    for preset in ("cropnerf-mxu", "cropnerf"):
+        cfg = dataclasses.replace(PRESETS[preset],
+                                  train_num_rays_per_batch=RAYS)
+        state = create_train_state(cfg, n, torch.Generator().manual_seed(0),
+                                   dev)
+        ref = replay_sharded_step(state, bank,
+                                   torch.Generator(device=dev).manual_seed(5),
+                                   cfg, DDP_RANKS)
+        got = torch.load(out / f"sharded_{preset}.pt")
+        got["grads"] = {k: v.to(dev) for k, v in got["grads"].items()}
+        worst = assert_grads_match(got, ref, DDP_ATOL, DDP_RTOL,
+                                   DDP_ATOL_CAMERA_OPT)
+        per_rank = [r["steps"][preset] for r in ranks]
+        log(f"[ddp] {preset} sharded step ({RAYS} rays, {RAYS // DDP_RANKS} "
+            f"a rank) against replay_sharded_step on this card: loss "
+            f"{got['loss']:.6f} vs {float(ref['loss']):.6f}; largest "
+            "gradient deviation per leaf group "
+            + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+            + f" (atol {DDP_ATOL}, rtol {DDP_RTOL}, camera_opt "
+            f"{DDP_ATOL_CAMERA_OPT}); launches per rank "
+            f"{[p['launches'] for p in per_rank]}")
+        for r, p in enumerate(per_rank):
+            check(p["launches"] == DDP_LAUNCHES[preset],
+                  f"[ddp] {preset} rank {r} launched {p['launches']}, one "
+                  f"sharded step launches {DDP_LAUNCHES[preset]}")
+            log(f"[ddp] {preset} rank {r}: step median {p['step_ms']:.2f} "
+                f"ms of {DDP_TIMED} ({p['rays_per_s']:.0f} rays/s, the "
+                f"global batch), all-reduce of {p['buffer_floats']} floats "
+                f"median {p['allreduce_ms']:.2f} ms; {card}")
+        info[preset] = {"worst_by_group": worst, "loss": got["loss"],
+                        "replay_loss": float(ref["loss"]),
+                        "ranks": per_rank}
+        del state, ref, got
+
+    # 2. the replicated-bank step against the one-process step
+    cfg = dataclasses.replace(PRESETS["cropnerf-mxu"],
+                              train_num_rays_per_batch=RAYS)
+    state = create_train_state(cfg, n, torch.Generator().manual_seed(0), dev)
+    _, ref = make_train_step(cfg, return_grads=True)(
+        state, bank, torch.Generator(device=dev).manual_seed(6))
+    got = torch.load(out / "replicated.pt")
+    l2 = {k: float(torch.linalg.vector_norm(got["grads"][k].to(dev) - g)
+                   / max(float(torch.linalg.vector_norm(g)), 1e-30))
+          for k, g in ref["grads"].items()}
+    worst = max(l2, key=l2.get)
+    p = [torch.load(out / f"replicated_params_rank{r}.pt")
+         for r in range(DDP_RANKS)]
+    same = all(torch.equal(p[0][k], q[k]) for q in p[1:] for k in p[0])
+    loss_rel = abs(got["loss"] - float(ref["loss"])) / abs(float(ref["loss"]))
+    log(f"[ddp] cropnerf-mxu replicated-bank step vs the one-process step "
+        f"on the same draws: loss {got['loss']:.6f} vs "
+        f"{float(ref['loss']):.6f} (rel {loss_rel:.2e}); gradient relative "
+        f"L2 worst {worst} {l2[worst]:.2e} (at most {DDP_REPLICATED_TOL}); "
+        f"ranks' parameters after {DDP_REPLICATED_STEPS} steps bit for bit "
+        f"{same}; launches per rank "
+        f"{[r['steps']['replicated']['launches'] for r in ranks]}")
+    check(loss_rel <= 1e-3 and l2[worst] <= DDP_REPLICATED_TOL and same,
+          "[ddp] replicated-bank step against the one-process step")
+    info["replicated"] = {"loss": got["loss"], "one_process_loss":
+                          float(ref["loss"]), "loss_rel": loss_rel,
+                          "grad_rel_l2_worst": [worst, l2[worst]],
+                          "params_bitwise": same}
+    del state, ref, got, p
+
+    # 3. train --multichip --shard-bank on through torchrun
+    cmds = [r["commands"]["train"] for r in ranks]
+    ckpts = sorted(p.name for p in (run / "checkpoints").iterdir())
+    meta = json.loads((run / "run_config.json").read_text())
+    trained = {r["step"]: r for r in metrics_log(run) if "train/loss" in r}
+    n_train = meta["num_train_images"]
+    trainer = load_trainer_from_run(run, device=dev)
+    want_n = padded_num_images(len(trainer.train_outputs.image_paths),
+                               DDP_RANKS)
+    rgb = {s: trained[s]["train/rgb_loss"] for s in (100, DDP_TRAIN_STEPS)}
+    log(f"[ddp] train --multichip --shard-bank on, cropnerf-mxu, "
+        f"{DDP_TRAIN_STEPS} steps on the [cli] dataset: wall s per rank "
+        f"{[round(c['s'], 2) for c in cmds]}; launches per rank "
+        f"{[nonzero(c['launches']) for c in cmds]}; checkpoints {ckpts}, "
+        f"loaded at step {trainer.state.step}; run_config shard_bank "
+        f"{meta['shard_bank']}, num_train_images {n_train} (padded from "
+        f"{len(trainer.train_outputs.image_paths)}); rgb_loss step 100 "
+        f"{rgb[100]:.5f} -> step {DDP_TRAIN_STEPS} "
+        f"{rgb[DDP_TRAIN_STEPS]:.5f}; {card}")
+    check(ckpts == [f"step-{DDP_TRAIN_STEPS:09d}.pt"]
+          and trainer.state.step == DDP_TRAIN_STEPS
+          and meta["shard_bank"] is True and n_train == want_n
+          and rgb[DDP_TRAIN_STEPS] < rgb[100],
+          "[ddp] train --multichip: checkpoints, run_config or loss")
+    for r, c in enumerate(cmds):
+        check(c["launches"]["fused_pe_nerf_bwd"] == DDP_TRAIN_STEPS
+              and c["launches"]["fused_pe_nerf"] >= DDP_TRAIN_STEPS,
+              f"[ddp] train rank {r} launched {nonzero(c['launches'])}")
+    del trainer
+    info["train"] = {"wall_s": [c["s"] for c in cmds],
+                     "launches": [nonzero(c["launches"]) for c in cmds],
+                     "rgb_loss": rgb, "checkpoints": ckpts,
+                     "num_train_images": n_train}
+    info["launches"] = {
+        **{f"{preset} sharded step rank {r}": ranks[r]["steps"][preset][
+            "launches"] for preset in ("cropnerf-mxu", "cropnerf")
+           for r in range(DDP_RANKS)},
+        **{f"cropnerf-mxu replicated step rank {r}":
+           ranks[r]["steps"]["replicated"]["launches"]
+           for r in range(DDP_RANKS)},
+        **{f"train rank {r}": nonzero(cmds[r]["launches"])
+           for r in range(DDP_RANKS)}}
+    return info
+
+
+def viewer_phase(card, run: Path, pcd: Path) -> dict:
+    """The ``viewer`` command's server (``cli.make_viewer`` on its parsed
+    arguments) on the cropnerf-mxu run, serving in the background (its
+    BayesRays grid, the counted instances and the cluster boxes as
+    overlays): the page, one /render per channel, each a PNG of the asked
+    size, timed after a first request, and a 404; then the server stops."""
+    import urllib.error
+    import urllib.request
+    from PIL import Image
+    from cropnerf_tpu_torch import cli
+    argv = ["viewer", "--run-dir", str(run), "--port", "0", "--size",
+            str(VIEWER_SIZE), "--uncertainty", str(run / "unc.npy"),
+            "--uncertainty-lod", str(CLI_UNC_LOD), "--instances-ply",
+            str(pcd / "full_tree_seg_result.ply"), "--pcd-dir", str(pcd),
+            "--k", str(COUNT_K)]
+    t0 = time.perf_counter()
+    server = cli.make_viewer(cli.build_parser().parse_args(argv))
+    server.start_background()
+    start_s = time.perf_counter() - t0
+    times = {}
+    try:
+        base = f"http://127.0.0.1:{server.port}"
+        with urllib.request.urlopen(base + "/", timeout=60) as r:
+            check(r.status == 200 and b"cropnerf viewer" in r.read(),
+                  "[viewer] GET / did not return the page")
+        for channel in VIEWER_CHANNELS:
+            url = (f"{base}/render?theta=0.5&phi=0.35&r=1.3&f=1"
+                   f"&channel={channel}")
+            for _ in range(2):     # the first request warms the path
+                t = time.perf_counter()
+                with urllib.request.urlopen(url, timeout=120) as r:
+                    body = r.read()
+                    kind = r.headers["Content-Type"]
+                ms = (time.perf_counter() - t) * 1e3
+            img = Image.open(io.BytesIO(body))
+            check(kind == "image/png" and img.size == (VIEWER_SIZE,
+                                                       VIEWER_SIZE),
+                  f"[viewer] {channel}: {kind} {img.size}")
+            times[channel] = ms
+        try:
+            urllib.request.urlopen(base + "/nothing", timeout=60)
+            missing = 200
+        except urllib.error.HTTPError as e:
+            missing = e.code
+        check(missing == 404, f"[viewer] an unknown path gave {missing}")
+    finally:
+        server.shutdown()
+    log(f"[viewer] viewer --run-dir <cropnerf-mxu run> --uncertainty "
+        f"--instances-ply --pcd-dir: serving after {start_s:.1f} s; "
+        f"{VIEWER_SIZE}x{VIEWER_SIZE} PNG per channel, ms per request "
+        "after a first: " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                      times.items())
+        + f"; / the page, an unknown path 404; stopped; {card}")
+    return {"card": card, "start_s": start_s, "size": VIEWER_SIZE,
+            "render_ms": times}
 
 
 def main() -> None:
@@ -3289,6 +3866,13 @@ def main() -> None:
     # ---- 5e. the counting pipeline through the CLI ------------------------
     count_info, count_steps = count_phase(dev, card, all_kernels, work)
     steps.update(count_steps)
+
+    # ---- 5f. two ranks: the data-parallel steps and train --multichip -----
+    ddp_info = ddp_phase(dev, card, bank, work)
+
+    # ---- 5g. the viewer ----------------------------------------------------
+    viewer_info = viewer_phase(card, work / "cropnerf-mxu",
+                               work / "cropnerf-mxu" / "count_exports")
     shutil.rmtree(work)
 
     # ---- 6. where the time goes: one traced call of each path step ------
@@ -3404,6 +3988,8 @@ def main() -> None:
         "propfused": pf_info,
         "cli": cli_info,
         "count": count_info,
+        "ddp": ddp_info,
+        "viewer": viewer_info,
         "trace": breakdown}
     for entry in line["kernels"]:
         entry["launches_by_path"]["cli"] = {
@@ -3414,6 +4000,9 @@ def main() -> None:
             f"{preset} {cmd}": n.get(entry["name"], 0)
             for preset in ("cropnerf", "cropnerf-mxu")
             for cmd, n in count_info[preset]["launches"].items()}
+        entry["launches_by_path"]["ddp"] = {
+            path: n.get(entry["name"], 0)
+            for path, n in ddp_info["launches"].items()}
     print(json.dumps(line), flush=True)
     shutil.rmtree(out_dir)
     print(smi, flush=True)
@@ -3423,4 +4012,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == "--rank":
+        rank_main(Path(sys.argv[2]))
+    else:
+        main()

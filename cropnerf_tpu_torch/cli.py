@@ -15,17 +15,24 @@
     python -m cropnerf_tpu_torch.cli rescale --src-dir ... --dst-dir ... --factor F
     python -m cropnerf_tpu_torch.cli segment-masks --image-dir ... --out-dir ...
     python -m cropnerf_tpu_torch.cli import-colmap --colmap-dir ... --output ...
+    python -m cropnerf_tpu_torch.cli viewer --run-dir ... [--port 7007]
 
 The commands that run a model (train, export, export-pointcloud, project,
-render, uncertainty) run on the card; ``CROPNERF_PLATFORM=cpu`` runs them
-on the CPU, and without a card they raise.  The others are host code.  A
-run directory written by either package serves the model commands, once a
-JAX run's checkpoint has been converted by ``tools/jax_run_to_torch.py``,
-and the counting commands read and write the JAX package's artifacts.
-Not yet here: the JAX CLI's ``--multichip`` and ``--shard-bank``
-(multi-GPU), ``--min-rays-per-s`` (the JAX trainer's watchdog),
-``--remat`` (the port does not rematerialise), and the ``viewer``
-command.
+render, uncertainty, viewer) run on the card; ``CROPNERF_PLATFORM=cpu``
+runs them on the CPU, and without a card they raise.  The others are host
+code.  A run directory written by either package serves the model
+commands, once a JAX run's checkpoint has been converted by
+``tools/jax_run_to_torch.py``, and the counting commands read and write
+the JAX package's artifacts.
+
+Several cards: ``--multichip`` on train, export, export-pointcloud and
+project.  Under a launcher (``torchrun --nproc-per-node N -m
+cropnerf_tpu_torch.cli ...``, which sets RANK and WORLD_SIZE) a model
+command joins the launcher's process group; with no launcher,
+``--multichip`` starts one rank per visible card itself, and with one card
+it says so and runs on that card.  Left out: ``--min-rays-per-s`` (the JAX
+trainer's watchdog against its compiler) and ``--remat`` (the port does not
+rematerialise).
 """
 from __future__ import annotations
 
@@ -33,17 +40,41 @@ import argparse
 import json
 import os
 import signal
+import sys
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from .device import resolve_device
+from .parallel import dist as pdist
+from .parallel.mesh import main_rank
 
 
 def cli_device() -> torch.device:
     """The card, or the CPU when ``CROPNERF_PLATFORM=cpu``."""
     return resolve_device(os.environ.get("CROPNERF_PLATFORM") or "cuda")
+
+
+def _command_mesh(args, what: str = "running"):
+    """The process group a model command runs on: the launcher's group
+    when a launcher set one up, else None (with ``--multichip`` and one
+    visible card, after the JAX CLI's note)."""
+    if pdist.launcher_world_size() > 1:
+        return pdist.current_mesh() or pdist.initialize_multihost()
+    if getattr(args, "multichip", False):
+        print(f"[--multichip] NOTE: only one device is visible — {what} "
+              "single-device (no mesh)", flush=True)
+    return None
+
+
+def _model_device(mesh) -> torch.device:
+    return mesh.device if mesh is not None else cli_device()
+
+
+def _add_multichip_flag(p):
+    p.add_argument("--multichip", action="store_true",
+                   help="shard rays over all local devices")
 
 
 def _add_train(sub):
@@ -59,6 +90,15 @@ def _add_train(sub):
     p.add_argument("--semantic-dir", default="semantics")
     p.add_argument("--train-split-fraction", type=float, default=0.95)
     p.add_argument("--experiment-name", default="cropnerf")
+    p.add_argument("--multichip", action="store_true",
+                   help="shard rays over all local devices")
+    p.add_argument("--shard-bank", choices=["auto", "on", "off"],
+                   default="auto",
+                   help="with --multichip: shard the pixel bank over the "
+                        "mesh (per-device local ray sampling; the multi-host "
+                        "data path). auto = on for multi-host pods, off "
+                        "otherwise; off forces the replicated bank even on "
+                        "pods")
     p.add_argument("--rays-per-batch", type=int, default=None,
                    help="override the preset's train ray batch")
     p.add_argument("--steps-per-dispatch", type=int, default=1,
@@ -90,6 +130,10 @@ def _cmd_train(args):
     data_cfg = DataparserConfig(
         data_dir=args.data, semantic_dir=args.semantic_dir,
         train_split_fraction=args.train_split_fraction)
+    mesh = _command_mesh(args, "training")
+    if args.shard_bank != "auto" and mesh is None:
+        raise SystemExit("--shard-bank requires --multichip (and >1 device)")
+    shard_bank = {"auto": None, "on": True, "off": False}[args.shard_bank]
     thr = args.mask_threshold
     if thr is None:
         thr = SEMANTIC_THRESHOLD
@@ -99,7 +143,8 @@ def _cmd_train(args):
                       experiment_name=args.experiment_name,
                       resume=args.resume,
                       steps_per_dispatch=args.steps_per_dispatch,
-                      semantic_threshold=thr, device=cli_device())
+                      semantic_threshold=thr, device=_model_device(mesh),
+                      mesh=mesh, shard_bank=shard_bank)
     previous = trainer.install_signal_handlers()
     try:
         metrics = trainer.train(num_steps=args.max_steps)
@@ -108,7 +153,8 @@ def _cmd_train(args):
         # handlers back
         for sig, handler in previous.items():
             signal.signal(sig, handler)
-    print(json.dumps({k: v for k, v in metrics.items()}, default=float))
+    if main_rank(mesh):
+        print(json.dumps({k: v for k, v in metrics.items()}, default=float))
     return trainer
 
 
@@ -132,6 +178,7 @@ def _add_export(sub):
                    help="density cutoff (default 70.0, reference)")
     p.add_argument("--colormap-threshold", type=float, default=None,
                    help="sigmoid cutoff for the colormap cloud (default 0.999)")
+    _add_multichip_flag(p)
 
 
 def _cmd_export(args):
@@ -139,7 +186,9 @@ def _cmd_export(args):
     from .export.volume import export_and_write
     from .train.trainer import load_trainer_from_run
 
-    trainer = load_trainer_from_run(args.run_dir, device=cli_device())
+    mesh = _command_mesh(args)
+    trainer = load_trainer_from_run(args.run_dir, device=_model_device(mesh),
+                                    mesh=mesh)
     out_dir = args.output_dir or (Path(args.run_dir) / "exports")
     if args.aabb is not None:
         aabb = np.array(args.aabb, np.float32).reshape(2, 3)
@@ -152,11 +201,13 @@ def _cmd_export(args):
                           if args.unscale else 2.0),
         num_points_per_side=args.num_points_per_side,
         rays_per_batch=args.rays_per_batch,
-        render_rgb=args.render_rgb,
+        render_rgb=args.render_rgb, mesh=mesh,
         **{k: v for k, v in (
             ("semantic_threshold", args.semantic_threshold),
             ("density_threshold", args.density_threshold),
             ("colormap_threshold", args.colormap_threshold)) if v is not None})
+    if not main_rank(mesh):
+        return paths
     for name, p in paths.items():
         n = ply_vertex_count(Path(p))
         if n == 0:
@@ -192,6 +243,7 @@ def _add_export_pointcloud(sub):
     p.add_argument("--unscale", action="store_true",
                    help="apply the reference's 2/scale artifact transform")
     p.add_argument("--seed", type=int, default=0)
+    _add_multichip_flag(p)
 
 
 def _cmd_export_pointcloud(args):
@@ -199,7 +251,9 @@ def _cmd_export_pointcloud(args):
     from .export.pointcloud import export_depth_pointcloud
     from .train.trainer import load_trainer_from_run
 
-    trainer = load_trainer_from_run(args.run_dir, device=cli_device())
+    mesh = _command_mesh(args)
+    trainer = load_trainer_from_run(args.run_dir, device=_model_device(mesh),
+                                    mesh=mesh)
     out = args.output or (Path(args.run_dir) / "exports" / "semantics_pc.ply")
     scale = (2.0 / trainer.train_outputs.dataparser_scale
              if args.unscale else 1.0)
@@ -211,7 +265,9 @@ def _cmd_export_pointcloud(args):
         semantic_threshold=args.semantic_threshold,
         accumulation_threshold=args.accumulation_threshold,
         remove_outliers=not args.keep_outliers, std_ratio=args.std_ratio,
-        seed=args.seed)
+        seed=args.seed, mesh=mesh)
+    if not main_rank(mesh):
+        return path
     n = ply_vertex_count(Path(path))
     if n == 0:
         print("WARNING: semantics_pc.ply is empty — lower "
@@ -254,13 +310,16 @@ def _add_project(sub):
     p.add_argument("--output-dir", type=Path, default=None)
     p.add_argument("--label-dir", type=Path, default=None,
                    help="GT instance-label images (label_*.png) to copy")
+    _add_multichip_flag(p)
 
 
 def _cmd_project(args):
     from .projection.project import run_projections
     from .train.trainer import load_trainer_from_run
 
-    trainer = load_trainer_from_run(args.run_dir, device=cli_device())
+    mesh = _command_mesh(args)
+    trainer = load_trainer_from_run(args.run_dir, device=_model_device(mesh),
+                                    mesh=mesh)
     info = _super_cluster_info(args)
     out_dir = args.output_dir or (Path(args.run_dir) / "projection")
     label_paths = None
@@ -273,8 +332,9 @@ def _cmd_project(args):
     report = run_projections(trainer.state.params, trainer.cfg.model,
                              trainer.bank.cameras, trainer.bank.height,
                              trainer.bank.width, info, out_dir,
-                             label_paths=label_paths)
-    print(out_dir)
+                             label_paths=label_paths, mesh=mesh)
+    if main_rank(mesh):
+        print(out_dir)
     return report
 
 
@@ -486,6 +546,81 @@ def _cmd_uncertainty(args):
     return out
 
 
+def _add_viewer(sub):
+    p = sub.add_parser("viewer", help="interactive web viewer "
+                       "(≙ debug/viewer.py, headless-friendly)")
+    p.add_argument("--run-dir", type=Path, required=True)
+    p.add_argument("--port", type=int, default=7007)
+    p.add_argument("--size", type=int, default=256)
+    p.add_argument("--uncertainty", type=Path, default=None,
+                   help="unc.npy hessian grid to expose as an "
+                        "'uncertainty' channel")
+    p.add_argument("--instances-ply", type=Path, default=None,
+                   help="instance-coloured result cloud "
+                        "(full_tree_seg_result.ply from `count`) shown in "
+                        "the 'instances' overlay channel")
+    p.add_argument("--pcd-dir", type=Path, default=None,
+                   help="segmenter output dir: draws the supercluster/"
+                        "subcluster AABBs as wireframes in the 'instances' "
+                        "channel (≙ the reference's cluster debug viewers)")
+    p.add_argument("--k", type=int, default=None,
+                   help="with --pcd-dir: which "
+                        "all_super_cluster_info_nsub_<k>.npy to overlay "
+                        "(default: the highest k present; the loaded file "
+                        "is printed either way)")
+    p.add_argument("--uncertainty-lod", type=int, default=8)
+
+
+def make_viewer(args):
+    """The ``viewer`` command's server, bound to its port and not yet
+    serving (``serve_forever`` or ``start_background``).  Its overlays:
+    the instance cloud's points and colours in [0, 1], and the boxes of
+    the ``all_super_cluster_info_nsub_<k>.npy`` chosen (the highest k
+    present, in numeric order, unless ``--k`` names one)."""
+    import re
+    from .train.trainer import load_trainer_from_run
+    from .viewer.server import ViewerServer, make_model_renderer
+
+    trainer = load_trainer_from_run(args.run_dir, device=cli_device())
+    hessian = (np.load(args.uncertainty)
+               if args.uncertainty is not None else None)
+    instances = None
+    if args.instances_ply is not None:
+        from .export.ply import read_ply
+        pts, cols = read_ply(args.instances_ply)
+        cols = (np.ones((len(pts), 3), np.float32) if cols is None
+                else np.asarray(cols, np.float32) / 255.0)
+        instances = (pts, cols)
+    aabbs = None
+    if args.pcd_dir is not None:
+        # numeric sort: 'nsub_10' must not beat 'nsub_2' lexicographically
+        infos = sorted(
+            Path(args.pcd_dir).glob("all_super_cluster_info_nsub_*.npy"),
+            key=lambda p: int(re.search(r"nsub_(\d+)", p.name).group(1)))
+        if args.k is not None:
+            infos = [p for p in infos
+                     if p.name == f"all_super_cluster_info_nsub_{args.k}.npy"]
+            if not infos:
+                raise SystemExit(
+                    f"no all_super_cluster_info_nsub_{args.k}.npy in "
+                    f"{args.pcd_dir}")
+        if infos:
+            print(f"[viewer] cluster overlay from {infos[-1].name}",
+                  flush=True)
+            info = np.load(infos[-1], allow_pickle=True)
+            boxes = [np.asarray(row["aabb"]) for row in info]
+            aabbs = np.concatenate(boxes) if boxes else None
+    render_image = make_model_renderer(trainer.state.params, trainer.cfg,
+                                       size=args.size, hessian=hessian,
+                                       uncertainty_lod=args.uncertainty_lod,
+                                       instances=instances, aabbs=aabbs)
+    return ViewerServer(render_image, port=args.port)
+
+
+def _cmd_viewer(args):
+    make_viewer(args).serve_forever()
+
+
 def _add_process_labels(sub):
     p = sub.add_parser("process-labels", help="instance-colour PNGs → label "
                        "images (≙ utils/convert_segmentation_img_to_label.py)")
@@ -609,6 +744,7 @@ COMMANDS = {
     "rescale": (_add_rescale, _cmd_rescale),
     "segment-masks": (_add_segment_masks, _cmd_segment_masks),
     "import-colmap": (_add_import_colmap, _cmd_import_colmap),
+    "viewer": (_add_viewer, _cmd_viewer),
 }
 
 
@@ -620,13 +756,42 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def _rank_main(index: int, argv, world: int, port: int) -> None:
+    """One rank of a run that ``main`` started itself."""
+    os.environ.update(RANK=str(index), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(index), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    main(argv)
+
+
 def main(argv=None):
     """Run one command; returns what it made: ``train`` the Trainer,
     ``project`` its ProjectionReport, ``count`` and ``depth-count`` their
     CountResult, the preprocessing commands their counts or the
-    transforms they wrote, the others the paths they wrote."""
+    transforms they wrote, the others the paths they wrote.
+
+    ``--multichip`` with no launcher and more than one visible card starts
+    one rank per card (``torch.multiprocessing``, a free localhost port)
+    and returns None once every rank has finished."""
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
-    return COMMANDS[args.command][1](args)
+    if (getattr(args, "multichip", False)
+            and os.environ.get("CROPNERF_PLATFORM") != "cpu"
+            and pdist.launcher_world_size() == 1
+            and torch.cuda.device_count() > 1):
+        import torch.multiprocessing as mp
+        world = torch.cuda.device_count()
+        print(f"[--multichip] starting {world} ranks, one per card",
+              flush=True)
+        mp.start_processes(_rank_main, args=(argv, world, pdist.free_port()),
+                           nprocs=world, start_method="spawn")
+        return None
+    joined = pdist.current_mesh()
+    try:
+        return COMMANDS[args.command][1](args)
+    finally:
+        if joined is None and pdist.current_mesh() is not None:
+            pdist.shutdown()
 
 
 if __name__ == "__main__":

@@ -12,6 +12,12 @@ per batch.  Statistical outliers are then removed on the host by a k-d
 tree queried on every core (the JAX exporter calls the counting stage's
 native backend, whose grid suits volume-filling clouds, not these
 surfaces); normals, when asked for, are PCA over the k nearest neighbours.
+
+Across ranks (``mesh``) rank r renders batches r, r+N, ... (every rank
+draws every batch's pixels from the one generator, so the draws are a
+one-rank run's), and rank 0 gathers the kept points in batch order, stops
+where a one-rank run stops, removes the outliers and writes the cloud:
+the same cloud as one rank's.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from ..core.rays import RayBundle
 from ..data.databank import PixelBank, decode_pixel_index
 from ..models.config import ModelConfig
 from ..models.model import CropNeRFParams, forward
+from ..parallel.mesh import Mesh, gather_in_order, main_rank
 from .ply import write_ply
 
 
@@ -69,31 +76,42 @@ def generate_point_cloud(params: CropNeRFParams, model_cfg: ModelConfig,
                          seed: int = 0,
                          max_batches: int = 2000,
                          generator: Optional[torch.Generator] = None,
-                         compute_dtype: torch.dtype = torch.bfloat16
-                         ) -> Tuple[np.ndarray, np.ndarray]:
+                         compute_dtype: torch.dtype = torch.bfloat16,
+                         mesh: Optional[Mesh] = None
+                         ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
     """(points [N, 3], colours [N, 3]) float32 in the dataparser frame.
 
     Each batch draws ``rays_per_batch`` pixel indices from ``generator``
     (default: one on the bank's device seeded with ``seed``) until
-    ``num_points`` points are kept or ``max_batches`` batches ran."""
+    ``num_points`` points are kept or ``max_batches`` batches ran.
+    ``mesh``: the batches split over the ranks; rank 0 returns the cloud,
+    the other ranks None."""
     device = bank.rgb.device
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(seed)
-    points, colors = [], []
-    total = 0
-    for _ in range(max_batches):
-        idx = torch.randint(0, bank.num_pixels, (rays_per_batch,),
-                            generator=generator,
-                            device=generator.device).to(device)
+
+    def draw(_):
+        return torch.randint(0, bank.num_pixels, (rays_per_batch,),
+                             generator=generator,
+                             device=generator.device).to(device)
+
+    def batch(_, idx):
         pts, rgb, keep = depth_points(params, model_cfg, bank, idx,
                                       only_semantics, semantic_threshold,
                                       accumulation_threshold, compute_dtype)
-        kept = torch.cat([pts[keep], rgb[keep]], dim=1).cpu().numpy()
+        return torch.cat([pts[keep], rgb[keep]], dim=1).cpu().numpy()
+
+    points, colors = [], []
+    total = 0
+    for _, kept in gather_in_order(max_batches, batch, mesh, prepare=draw,
+                                   should_stop=lambda: total >= num_points):
+        if total >= num_points:       # a round's batches past the stop
+            continue
         points.append(kept[:, :3])
         colors.append(kept[:, 3:])
         total += len(kept)
-        if total >= num_points:
-            break
+    if not main_rank(mesh):
+        return None
     if not points:
         return np.zeros((0, 3), np.float32), np.zeros((0, 3), np.float32)
     pts = np.concatenate(points)[:num_points]
@@ -159,8 +177,13 @@ def export_depth_pointcloud(params: CropNeRFParams, model_cfg: ModelConfig,
     CLI).  ``normals_k``: estimate PCA normals over k-NN, oriented towards
     the centroid's +z viewpoint, and store them as nx/ny/nz.
     ``scale_factor`` multiplies the points on write.  ``kwargs`` go to
-    :func:`generate_point_cloud`."""
-    pts, cols = generate_point_cloud(params, model_cfg, bank, **kwargs)
+    :func:`generate_point_cloud`; with a ``mesh`` there, rank 0 writes.
+    Every rank returns the path."""
+    mesh = kwargs.get("mesh")
+    cloud = generate_point_cloud(params, model_cfg, bank, **kwargs)
+    if not main_rank(mesh):
+        return Path(output_path)
+    pts, cols = cloud
     normals = None
     if normals_k:
         if len(pts) > normals_k + 1:

@@ -7,6 +7,12 @@ which keeps the samples whose density passes the threshold; only those rows
 cross to the host.  Per-sample thresholds then split them into
 semantic.ply (semantic logit >= 3 and density >= 70), semantic_colormap.ply
 (sigmoid >= 0.9 and density) and density.ply (density alone).
+
+Across ranks (``mesh``) rank r takes chunks r, r+N, ...; rank 0 gathers
+their rows in chunk order and writes the clouds.  Every chunk is computed
+as a one-rank run computes it (the sampler's jitter comes from one
+generator that every rank advances for every chunk), so the clouds hold
+the same rows in the same order.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ import torch
 from ..core.rays import RayBundle
 from ..models.config import ModelConfig
 from ..models.model import CropNeRFParams, forward_export
+from ..parallel.mesh import Mesh, gather_in_order, main_rank
 from .ply import write_ply
 
 SEMANTIC_LOGIT_THRESHOLD = 3.0
@@ -65,15 +72,17 @@ def sample_volume(params: CropNeRFParams, model_cfg: ModelConfig,
                   density_threshold: float = DENSITY_THRESHOLD,
                   colormap_threshold: float = COLORMAP_THRESHOLD,
                   chunk_noise: Optional[Callable[[int], torch.Tensor]] = None,
-                  compute_dtype: torch.dtype = torch.bfloat16
-                  ) -> Dict[str, ExportedCloud]:
+                  compute_dtype: torch.dtype = torch.bfloat16,
+                  mesh: Optional[Mesh] = None
+                  ) -> Optional[Dict[str, ExportedCloud]]:
     """Dense volume sampling → {"semantic", "semantic_colormap", "density"}
     clouds in the dataparser frame.
 
     The sampler's jitter for chunk ``c`` is ``chunk_noise(c)`` ([B, S+1]
     uniform draws) when given, else drawn from a ``torch.Generator`` seeded
     with ``seed``.  The last chunk repeats its final origin up to the chunk
-    size; those padding rays emit no points.
+    size; those padding rays emit no points.  ``mesh``: the chunks split
+    over the ranks; rank 0 returns the clouds, the other ranks None.
     """
     device = params.camera_opt.device
     num_samples = num_samples or num_points_per_side
@@ -94,16 +103,17 @@ def sample_volume(params: CropNeRFParams, model_cfg: ModelConfig,
         generator = torch.Generator(device).manual_seed(seed)
     ray_of_row = torch.arange(B * num_samples, device=device) // num_samples
 
-    rows = []
-    for c in range(n_chunks):
+    def draw(c):
+        return (chunk_noise(c) if chunk_noise is not None else
+                torch.rand((B, num_samples + 1), generator=generator,
+                           device=device))
+
+    def chunk_rows(c, noise):
         rb = RayBundle(
             origins=origins[c * B:(c + 1) * B], directions=direction,
             nears=torch.zeros((B,), device=device),
             fars=torch.full((B,), far, device=device),
             camera_idx=torch.zeros((B,), dtype=torch.long, device=device))
-        noise = (chunk_noise(c) if chunk_noise is not None else
-                 torch.rand((B, num_samples + 1), generator=generator,
-                            device=device))
         out = forward_export(params, rb, model_cfg, num_samples, aabb_t,
                              render_rgb_samples=render_rgb, noise=noise,
                              compute_dtype=compute_dtype)
@@ -117,8 +127,18 @@ def sample_volume(params: CropNeRFParams, model_cfg: ModelConfig,
                 (sig >= colormap_threshold).float()[:, None]]
         if render_rgb:
             cols.append(out["rgb"].reshape(-1, 3)[idx])
-        rows.append(torch.cat(cols, dim=1))
-    rows = torch.cat(rows).cpu().numpy()
+        return torch.cat(cols, dim=1)
+
+    if mesh is None or mesh.size == 1:
+        rows = torch.cat([chunk_rows(c, draw(c)) for c in range(n_chunks)]
+                         ).cpu().numpy()
+    else:
+        parts = [r for _, r in gather_in_order(
+            n_chunks, lambda c, noise: chunk_rows(c, noise).cpu().numpy(),
+            mesh, prepare=draw)]
+        if not mesh.is_main:
+            return None
+        rows = np.concatenate(parts)
 
     pts, sig = rows[:, :3], rows[:, 3]
     result = {}
@@ -142,16 +162,18 @@ def unscale_points(points: np.ndarray, dataparser_scale: float,
 def export_and_write(params: CropNeRFParams, model_cfg: ModelConfig,
                      aabb: np.ndarray, output_dir: Path,
                      dataparser_scale: float = 1.0,
+                     mesh: Optional[Mesh] = None,
                      **kwargs) -> Dict[str, Path]:
     """Sample the volume and write semantic.ply / semantic_colormap.ply /
-    density.ply."""
+    density.ply (rank 0 writes them; every rank returns their paths)."""
     output_dir = Path(output_dir)
-    output_dir.mkdir(parents=True, exist_ok=True)
-    clouds = sample_volume(params, model_cfg, aabb, **kwargs)
-    paths = {}
-    for name, cloud in clouds.items():
-        p = output_dir / f"{name}.ply"
-        write_ply(p, unscale_points(cloud.points, dataparser_scale),
-                  cloud.colors, cloud.alpha)
-        paths[name] = p
+    clouds = sample_volume(params, model_cfg, aabb, mesh=mesh, **kwargs)
+    paths = {name: output_dir / f"{name}.ply"
+             for name in ("semantic", "semantic_colormap", "density")}
+    if main_rank(mesh):
+        output_dir.mkdir(parents=True, exist_ok=True)
+        for name, cloud in clouds.items():
+            write_ply(paths[name],
+                      unscale_points(cloud.points, dataparser_scale),
+                      cloud.colors, cloud.alpha)
     return paths

@@ -3,17 +3,32 @@
 
 Jitter comes either from a ``torch.Generator`` or from a noise tensor the
 caller passes, so a test can feed this module and the JAX package the same
-draws.
+draws.  A :class:`RowShard` in place of the generator draws a whole batch's
+jitter and keeps one rank's rows of it.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..core.rays import RayBundle, RaySamples, ray_samples_from_bins
 
 Spacing = Tuple[Callable, Callable]
+
+
+class RowShard(NamedTuple):
+    """Draw ``world`` times the rows asked for from ``generator`` and keep
+    rows [rank·R, (rank+1)·R): each rank of a data-parallel step gets its
+    rows of the draws a one-process step makes, and the ranks' generators
+    stay in step."""
+    generator: torch.Generator
+    rank: int
+    world: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.generator.device
 
 
 def spacing_uniform() -> Spacing:
@@ -66,7 +81,14 @@ def _draw(shape, like: torch.Tensor, generator: Optional[torch.Generator],
         if tuple(noise.shape) != tuple(shape):
             raise ValueError(f"noise shape {tuple(noise.shape)} != {shape}")
         return noise.to(device=like.device, dtype=like.dtype)
-    u = torch.rand(shape, generator=generator, device=generator.device)
+    if isinstance(generator, RowShard):
+        n = shape[0]
+        u = torch.rand((n * generator.world, *shape[1:]),
+                       generator=generator.generator,
+                       device=generator.device)
+        u = u[generator.rank * n:(generator.rank + 1) * n]
+    else:
+        u = torch.rand(shape, generator=generator, device=generator.device)
     return u.to(device=like.device, dtype=like.dtype)
 
 

@@ -25,8 +25,11 @@ rays, so a crop larger than a dispatch is rendered in row-major pixel
 segments and stitched, and each dispatch is one ``forward`` and one
 ``forward_accumulation`` on the device with one copy of its results back
 to the host.  Every ray is computed on its own, so the images do not
-depend on how the jobs are batched.  The multi-GPU ``mesh`` comes with the
-multi-GPU slice.
+depend on how the jobs are batched.
+
+Across ranks (``mesh``) rank r renders dispatches r, r+N, ... of the same
+plan; rank 0 gathers their results in dispatch order, stitches them and
+writes the PNG tree, which is the one-rank tree byte for byte.
 """
 from __future__ import annotations
 
@@ -44,6 +47,7 @@ from ..core.cameras import Cameras, generate_rays, ray_aabb_intersect
 from ..core.rays import RayBundle
 from ..models.config import ModelConfig
 from ..models.model import CropNeRFParams, forward, forward_accumulation
+from ..parallel.mesh import Mesh, gather_in_order, main_rank
 
 OCCLUSION_THRESHOLD = 0.5   # fruit_nerf.py:313
 MIN_VALID_RAYS = 10         # fruit_nerf.py:293
@@ -222,14 +226,17 @@ class ClusterProjector:
                             hit]).cpu().numpy()
 
     def iter_projections(self, jobs: Sequence[Tuple[int, np.ndarray]],
-                         plan: Optional[ProjectionPlan] = None
+                         plan: Optional[ProjectionPlan] = None,
+                         mesh: Optional[Mesh] = None
                          ) -> Iterator[Tuple[int, np.ndarray, np.ndarray]]:
         """Render ``(cam_idx, aabb)`` jobs.
 
         Yields ``(job_index, wo_occ [H,W], visible [H,W])`` exactly once per
         job: the jobs no pixel sees first, then the others as their last
         dispatch completes, so the caller can stream results to disk
-        without holding every full-size image.
+        without holding every full-size image.  ``mesh``: the dispatches
+        split over the ranks; rank 0 yields every job, the other ranks
+        render their dispatches and yield nothing.
         """
         H, W = self.height, self.width
         plan = plan if plan is not None else self.plan(jobs)
@@ -238,12 +245,15 @@ class ClusterProjector:
             return idx, np.zeros((H, W), np.float32), \
                 np.zeros((H, W), np.float32)
 
-        for idx in plan.outside:
-            yield _zero(idx)
+        if main_rank(mesh):
+            for idx in plan.outside:
+                yield _zero(idx)
         placed = plan.jobs
         results = {}
-        for segments in plan.dispatches:
-            res = self._render(placed, segments)
+        for d, res in gather_in_order(
+                len(plan.dispatches),
+                lambda d: self._render(placed, plan.dispatches[d]), mesh):
+            segments = plan.dispatches[d]
             at = 0
             for slot, start, stop in segments:
                 job = placed[slot]
@@ -296,11 +306,14 @@ def run_projections(params: CropNeRFParams, model_cfg: ModelConfig,
                     label_paths: Optional[list] = None,
                     camera_indices: Optional[list] = None,
                     occlusion_threshold: float = OCCLUSION_THRESHOLD,
-                    compute_dtype: torch.dtype = torch.bfloat16
+                    compute_dtype: torch.dtype = torch.bfloat16,
+                    mesh: Optional[Mesh] = None,
+                    rays_per_dispatch: int = 262_144
                     ) -> ProjectionReport:
     """Write the full projection tree
     ``super_cluster_{s}/cam_{c}/{wo_occ,visible}_cluster_{i}.png``
-    (and the copied GT label images) that the merger reads."""
+    (and the copied GT label images) that the merger reads.  ``mesh``:
+    the dispatches split over the ranks, and rank 0 writes the tree."""
     output_dir = Path(output_dir)
     n_cams = cameras.num_cameras
     cam_ids = camera_indices if camera_indices is not None else range(n_cams)
@@ -312,21 +325,24 @@ def run_projections(params: CropNeRFParams, model_cfg: ModelConfig,
             "label_paths=None to skip GT label copying)")
     projector = ClusterProjector(params, model_cfg, cameras, height, width,
                                  occlusion_threshold,
+                                 rays_per_dispatch=rays_per_dispatch,
                                  compute_dtype=compute_dtype)
 
     # every (supercluster, camera, subcluster) job up front, so that the
     # dispatches fill across all of them; results stream to disk as their
     # dispatches complete
     jobs, dests = [], []
+    writes = main_rank(mesh)
     for s, info in enumerate(super_cluster_info):
         aabbs = info["aabb"]
         for c in cam_ids:
             cam_dir = output_dir / f"super_cluster_{s}" / f"cam_{c}"
-            cam_dir.mkdir(parents=True, exist_ok=True)
+            if writes:
+                cam_dir.mkdir(parents=True, exist_ok=True)
             for i in range(aabbs.shape[0]):
                 jobs.append((int(c), aabbs[i]))
                 dests.append((cam_dir, i))
-            if label_paths is not None:
+            if label_paths is not None and writes:
                 lp = Path(label_paths[c])
                 if lp.exists():
                     name = (lp.name if lp.name.startswith("label_")
@@ -335,19 +351,23 @@ def run_projections(params: CropNeRFParams, model_cfg: ModelConfig,
 
     plan = projector.plan(jobs)
     summary = plan.summary()
-    print(f"[project] {summary['jobs']} jobs ({summary['outside']} outside "
-          f"every view): {summary['rays']} rays in "
-          f"{summary['dispatches']} dispatches of up to "
-          f"{summary['rays_per_dispatch']} rays", flush=True)
+    if writes:
+        print(f"[project] {summary['jobs']} jobs ({summary['outside']} "
+              f"outside every view): {summary['rays']} rays in "
+              f"{summary['dispatches']} dispatches of up to "
+              f"{summary['rays_per_dispatch']} rays"
+              + (f" over {mesh.size} ranks" if mesh is not None else ""),
+              flush=True)
     t0 = time.perf_counter()
     t_io = 0.0
-    for idx, wo_occ, visible in projector.iter_projections(jobs, plan):
+    for idx, wo_occ, visible in projector.iter_projections(jobs, plan, mesh):
         cam_dir, i = dests[idx]
         t1 = time.perf_counter()
         _save_gray(cam_dir / f"wo_occ_cluster_{i}.png", wo_occ)
         _save_gray(cam_dir / f"visible_cluster_{i}.png", visible)
         t_io += time.perf_counter() - t1
     render_s = time.perf_counter() - t0 - t_io
-    print(f"[project] render+stitch {render_s:.1f}s, png io {t_io:.1f}s",
-          flush=True)
+    if writes:
+        print(f"[project] render+stitch {render_s:.1f}s, png io "
+              f"{t_io:.1f}s", flush=True)
     return ProjectionReport(output_dir, summary, render_s, t_io)

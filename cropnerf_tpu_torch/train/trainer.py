@@ -10,9 +10,17 @@ the same model and frame).  The loop logs every ``log_every`` steps and on
 the last; only those steps read values from the card.  Checkpoints are
 ``torch.save`` files, ``checkpoints/step-{step:09d}.pt``, holding the
 parameters, each optimizer's state and the step; a JAX run's orbax
-checkpoint becomes one through ``tools/jax_run_to_torch.py``.  The
-multi-GPU bank and the JAX trainer's throughput watchdog are not part of
-the port.
+checkpoint becomes one through ``tools/jax_run_to_torch.py``.  The JAX
+trainer's throughput watchdog is not part of the port.
+
+Across ranks (``mesh``, one process per rank) the step averages the
+gradients over the ranks; the bank is replicated, or sharded by image
+(``shard_bank``: each rank loads only its own images).  Rank 0 alone
+writes the logs, ``run_config.json``, the eval images and the
+checkpoints, and every save is followed by a barrier; the eval cadences
+run on rank 0 while the others wait at a barrier (JAX's one-process mesh
+shards the eval render instead).  Every rank resumes from the same
+checkpoint.
 """
 from __future__ import annotations
 
@@ -27,15 +35,20 @@ import numpy as np
 import torch
 
 from ..core.cameras import Cameras
-from ..data.databank import PixelBank, build_pixel_bank
+from ..data.databank import (PixelBank, build_pixel_bank,
+                             build_sharded_pixel_bank, pad_cameras,
+                             padded_num_images, process_image_range)
 from ..data.dataparser import DataparserConfig, DataparserOutputs, parse_transforms
 from ..data.dataset import SEMANTIC_THRESHOLD, load_split
 from ..device import resolve_device
 from ..models.config import TrainConfig, train_config_from_dict
 from ..ops import metrics as metric_ops
+from ..parallel.dist import barrier
+from ..parallel.mesh import Mesh, main_rank
 from ..utils.writer import MetricsWriter
 from .state import TrainState, create_train_state
-from .step import make_eval_batch_fn, make_render_fn, make_train_step
+from .step import (make_eval_batch_fn, make_render_fn,
+                   make_sharded_train_step, make_train_step)
 
 
 def cameras_from_outputs(out: DataparserOutputs,
@@ -54,28 +67,36 @@ def cameras_from_outputs(out: DataparserOutputs,
 
 
 class Trainer:
-    """Trains one model on one GPU (or the CPU)."""
+    """Trains one model on one GPU (or the CPU), or on the ranks of
+    ``mesh``, each on its own device (``mesh.device``)."""
 
     def __init__(self, cfg: TrainConfig, data_config: DataparserConfig,
                  output_dir: Path, experiment_name: str = "cropnerf",
                  resume: bool = False, steps_per_dispatch: int = 1,
                  num_images_override: Optional[int] = None,
                  semantic_threshold: "int | str" = SEMANTIC_THRESHOLD,
-                 device: torch.device | str = "cuda"):
-        self.device = resolve_device(device)
+                 device: torch.device | str = "cuda",
+                 mesh: Optional[Mesh] = None,
+                 shard_bank: Optional[bool] = None):
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.device = (self.mesh.device if self.mesh is not None
+                       else resolve_device(device))
         self.cfg = cfg
         self.data_config = data_config
         self.output_dir = Path(output_dir)
         self.experiment_name = experiment_name
+        self.is_main = main_rank(self.mesh)
+        # sharded bank: default on when the ranks span several nodes (each
+        # node then loads only its ranks' images, the reference's per-rank
+        # datamanager); opt-in on one node
+        if shard_bank is None:
+            shard_bank = self.mesh is not None and self.mesh.nodes > 1
+        self.shard_bank = bool(shard_bank and self.mesh is not None)
 
         self.semantic_threshold = semantic_threshold
         self.train_outputs = parse_transforms(data_config, "train")
         self.eval_outputs = parse_transforms(data_config, "eval")
-        images, masks = load_split(self.train_outputs,
-                                   semantic_threshold=semantic_threshold)
-        self.bank: PixelBank = build_pixel_bank(
-            images, masks, cameras_from_outputs(self.train_outputs,
-                                                self.device), self.device)
+        self.bank: PixelBank = self._build_train_bank()
         self.eval_images, self.eval_masks = load_split(
             self.eval_outputs, semantic_threshold=semantic_threshold)
         self.eval_cameras = cameras_from_outputs(self.eval_outputs,
@@ -102,7 +123,12 @@ class Trainer:
                 raise ValueError(f"{name}={cadence} must be a multiple of "
                                  f"steps_per_dispatch={k}")
         self.steps_per_dispatch = k
-        self.train_step = make_train_step(cfg, num_inner=k)
+        if self.shard_bank and k != 1:
+            raise ValueError("steps_per_dispatch > 1 is not wired for "
+                             "sharded banks")
+        self.train_step = (make_sharded_train_step(cfg, self.mesh)
+                           if self.shard_bank else
+                           make_train_step(cfg, num_inner=k, mesh=self.mesh))
         self.eval_batch_fn = make_eval_batch_fn(cfg)
         self.render = make_render_fn(cfg)
         # the loop's draws; a resume does not restore them (nor does JAX's)
@@ -111,8 +137,11 @@ class Trainer:
 
         self.ckpt_dir = self.output_dir / "checkpoints"
         self.output_dir.mkdir(parents=True, exist_ok=True)
-        self.writer = MetricsWriter(self.output_dir / "logs")
-        self._write_run_metadata()
+        # the metrics writer opens at the first write (a command that only
+        # serves the run writes no log)
+        self.writer: Optional[MetricsWriter] = None
+        if self.is_main:
+            self._write_run_metadata()
         self._stop_requested = False
         if resume:
             ckpts = sorted(self.ckpt_dir.glob("step-*"))
@@ -120,6 +149,33 @@ class Trainer:
                 self.load_checkpoint(ckpts[-1])
                 print(f"resumed from {ckpts[-1].name} "
                       f"(step {self.state.step})", flush=True)
+
+    def _build_train_bank(self) -> PixelBank:
+        cams = cameras_from_outputs(self.train_outputs, self.device)
+        if not self.shard_bank:
+            images, masks = load_split(
+                self.train_outputs,
+                semantic_threshold=self.semantic_threshold)
+            return build_pixel_bank(images, masks, cams, self.device)
+        # the frame list padded to the mesh size; this rank loads only its
+        # contiguous slice of it
+        n = len(self.train_outputs.image_paths)
+        n_pad = padded_num_images(n, self.mesh.size)
+        sel = np.arange(n_pad) % n
+        lo, hi = process_image_range(n_pad, self.mesh)
+        images, masks = load_split(self.train_outputs, indices=sel[lo:hi],
+                                   semantic_threshold=self.semantic_threshold)
+        return build_sharded_pixel_bank(
+            images, masks, pad_cameras(cams, self.mesh.size), self.mesh)
+
+    def _write(self, step: int, metrics: Dict[str, float],
+               prefix: str = "train") -> None:
+        """Log ``metrics`` on rank 0."""
+        if not self.is_main:
+            return
+        if self.writer is None:
+            self.writer = MetricsWriter(self.output_dir / "logs")
+        self.writer.write(step, metrics, prefix=prefix)
 
     def install_signal_handlers(self) -> dict:
         """Graceful preemption: SIGTERM/SIGINT request a stop; the train
@@ -142,7 +198,7 @@ class Trainer:
         meta = {
             "experiment_name": self.experiment_name,
             "num_train_images": self.num_train_images,
-            "shard_bank": False,   # the sharded bank is not ported
+            "shard_bank": self.shard_bank,
             "semantic_threshold": self.semantic_threshold,
             "config": dataclasses.asdict(self.cfg),
             "data_config": {k: str(v) for k, v in
@@ -161,15 +217,20 @@ class Trainer:
 
     def save_checkpoint(self) -> Path:
         """Params, every optimizer's moments and the step, written to a
-        hidden file and renamed, so a checkpoint is whole or absent."""
+        hidden file and renamed, so a checkpoint is whole or absent.  Rank
+        0 writes it (the ranks hold the same state) and every rank waits
+        for it."""
         step = self.state.step
         path = self.ckpt_dir / f"step-{step:09d}.pt"
-        self.ckpt_dir.mkdir(parents=True, exist_ok=True)
-        tmp = self.ckpt_dir / f".{path.name}.tmp"
-        torch.save({"params": self.state.params.state_dict(),
-                    "optimizers": self.state.optimizer.state_dict(),
-                    "step": step}, tmp)
-        os.replace(tmp, path)
+        if self.is_main:
+            self.ckpt_dir.mkdir(parents=True, exist_ok=True)
+            tmp = self.ckpt_dir / f".{path.name}.tmp"
+            torch.save({"params": self.state.params.state_dict(),
+                        "optimizers": self.state.optimizer.state_dict(),
+                        "step": step}, tmp)
+            os.replace(tmp, path)
+        if self.mesh is not None:
+            barrier(f"save step {step}", self.mesh)
         return path
 
     def load_checkpoint(self, path: Path) -> None:
@@ -285,47 +346,60 @@ class Trainer:
                 m["rays_per_s_window"] = rays_win / max(now - t_win, 1e-9)
                 m["step"] = step
                 last_metrics = m
-                self.writer.write(step, m)
-                print(f"[step {step}] loss={m['loss']:.4f} "
-                      f"psnr={m['psnr']:.2f} rays/s={m['rays_per_s']:.0f}",
-                      flush=True)
-            if step % cfg.steps_per_eval_batch == 0 and step > 0:
+                self._write(step, m)
+                if self.is_main:
+                    print(f"[step {step}] loss={m['loss']:.4f} "
+                          f"psnr={m['psnr']:.2f} "
+                          f"rays/s={m['rays_per_s']:.0f}", flush=True)
+            # the eval cadences run on rank 0; the other ranks wait
+            due = step > 0 and (
+                step % cfg.steps_per_eval_batch == 0,
+                step % cfg.steps_per_eval_image == 0,
+                cfg.steps_per_eval_all_images > 0
+                and step % cfg.steps_per_eval_all_images == 0)
+            if due and due[0] and self.is_main:
                 eb = self.eval_batch(seed=step)
                 last_metrics.update(eb)
-                self.writer.write(step, eb, prefix="eval")
-            if step % cfg.steps_per_eval_image == 0 and step > 0:
+                self._write(step, eb, prefix="eval")
+            if due and due[1] and self.is_main:
                 em = self.eval_image(0, save_dir=self.output_dir /
                                      "eval_images" / f"step_{step:09d}")
                 last_metrics.update(em)
-                self.writer.write(step, em, prefix="eval")
+                self._write(step, em, prefix="eval")
                 print(f"[step {step}] eval "
                       f"psnr={last_metrics['eval_psnr']:.2f} "
                       f"iou={last_metrics['eval_iou']:.3f}", flush=True)
-            if (cfg.steps_per_eval_all_images > 0 and step > 0
-                    and step % cfg.steps_per_eval_all_images == 0):
+            if due and due[2] and self.is_main:
                 ea = self.eval_all_images()
                 last_metrics.update({f"all_{key}": v for key, v in ea.items()})
-                self.writer.write(step, ea, prefix="eval_all")
+                self._write(step, ea, prefix="eval_all")
+            if due and any(due) and self.mesh is not None:
+                barrier(f"eval step {step}", self.mesh)
             if step % cfg.steps_per_save == 0 and step > 0:
                 self.save_checkpoint()
             if did_log:
                 t_win, rays_win = time.perf_counter(), 0
-        # full eval at the end of training
-        if not self._stop_requested:
+        # full eval at the end of training, on rank 0
+        if not self._stop_requested and self.is_main:
             ea = self.eval_all_images()
             last_metrics.update({f"all_{key}": v for key, v in ea.items()})
-            self.writer.write(self.state.step, ea, prefix="eval_all")
+            self._write(self.state.step, ea, prefix="eval_all")
             print("[final] " + " ".join(f"{key}={v:.3f}"
                                         for key, v in ea.items()), flush=True)
+        if self.mesh is not None:
+            barrier("final eval", self.mesh)
         self.save_checkpoint()
         return last_metrics
 
 
 def load_trainer_from_run(run_dir: Path,
-                          device: torch.device | str = "cuda") -> Trainer:
+                          device: torch.device | str = "cuda",
+                          mesh: Optional[Mesh] = None) -> Trainer:
     """A Trainer (model, data and the latest checkpoint) from a run
     directory written by either package; a JAX run's checkpoint must have
-    been converted by ``tools/jax_run_to_torch.py``."""
+    been converted by ``tools/jax_run_to_torch.py``.  With ``mesh`` every
+    rank loads the whole run on its own device (a replicated bank) and
+    rank 0 alone rewrites the run's metadata."""
     run_dir = Path(run_dir)
     meta = json.loads((run_dir / "run_config.json").read_text())
     cfg = train_config_from_dict(meta["config"])
@@ -334,12 +408,15 @@ def load_trainer_from_run(run_dir: Path,
         data_dir=Path(dc["data_dir"]),
         train_split_fraction=float(dc["train_split_fraction"]),
         semantic_dir=dc["semantic_dir"])
+    if mesh is not None:
+        # every rank has read the metadata before rank 0 rewrites it
+        barrier("run_config.json read", mesh)
     trainer = Trainer(cfg, data_config, run_dir,
                       experiment_name=meta.get("experiment_name", "cropnerf"),
                       num_images_override=meta.get("num_train_images"),
                       semantic_threshold=meta.get("semantic_threshold",
                                                   SEMANTIC_THRESHOLD),
-                      device=device)
+                      device=device, mesh=mesh, shard_bank=False)
     ckpts = sorted((run_dir / "checkpoints").glob("step-*"))
     if ckpts:
         trainer.load_checkpoint(ckpts[-1])

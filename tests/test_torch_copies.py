@@ -22,6 +22,9 @@ COPIES = ["models/config.py", "export/ply.py", "data/dataparser.py",
 # functions of it hold the JAX file's code
 NATIVE_WRAPPERS = ["available", "voxel_downsample", "dbscan",
                    "statistical_outlier_removal", "kmeans"]
+# viewer/server.py: the page, the HTTP server and the instance overlay are
+# framework-free and hold the JAX file's code; make_model_renderer is a port
+VIEWER_COPIES = ["_PAGE", "ViewerServer", "_overlay_instances"]
 
 
 class _StripDocsAndImports(ast.NodeTransformer):
@@ -79,6 +82,28 @@ def test_native_wrappers_hold_the_jax_code():
            for pkg in ("cropnerf_tpu", "cropnerf_tpu_torch")]
     assert (src[0][src[0].index("#include"):]
             == src[1][src[1].index("#include"):])
+
+
+def _top_level(path: Path) -> dict:
+    """Top-level functions, classes and assignments by name."""
+    tree = _StripDocsAndImports().visit(ast.parse(path.read_text()))
+    out = {}
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            out[node.name] = ast.dump(node, include_attributes=False)
+        elif isinstance(node, ast.Assign):
+            for t in node.targets:
+                if isinstance(t, ast.Name):
+                    out[t.id] = ast.dump(node, include_attributes=False)
+    return out
+
+
+@pytest.mark.parametrize("name", VIEWER_COPIES)
+def test_viewer_copies_hold_the_jax_code(name):
+    rel = Path("viewer") / "server.py"
+    jax_defs = _top_level(REPO / "cropnerf_tpu" / rel)
+    port_defs = _top_level(REPO / "cropnerf_tpu_torch" / rel)
+    assert port_defs[name] == jax_defs[name], name
 
 
 def test_the_comparison_sees_a_changed_line(tmp_path):

@@ -3,10 +3,11 @@ the PyTorch port, on a small copy of ``chip_smoke.py``'s ray-traced
 dataset (32 views of 120x80, three spheres).
 
 It prints each logged step's loss, RGB, semantic, interlevel and
-distortion terms and PSNR, so that a trend seen in ``chip_smoke.py``'s
-``[cli]`` phase (the total loss of ``cropnerf-mxu``) can be held against
-the JAX package on the same data.  Run from the root of the repository,
-one package per process:
+distortion terms and PSNR, then the held-out view's metrics after the
+last step (``eval_all_images``: PSNR, SSIM, IoU), so that a trend seen
+in ``chip_smoke.py``'s ``[cli]`` phase can be held against the JAX
+package on the same data.  Run from the root of the repository, one
+package per process:
 
     JAX_PLATFORMS=cpu python tools/loss_terms.py --package jax
     python tools/loss_terms.py --package torch
@@ -64,6 +65,8 @@ def main() -> None:
             if "train/loss" in rec:
                 print(json.dumps({"step": rec["step"], **{
                     k: rec[f"train/{k}"] for k in TERMS}}), flush=True)
+        print(json.dumps({"step": args.steps,
+                          "heldout": trainer.eval_all_images()}), flush=True)
 
 
 if __name__ == "__main__":
