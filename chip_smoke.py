@@ -122,6 +122,29 @@ Run from the root of the repository:  python3 chip_smoke.py
    (cli.make_viewer) in the background (its BayesRays grid, the counted
    instances and the cluster boxes): one /render per channel, each a PNG
    of the asked size, timed;
+5h. trains the presets that keep ModelConfig.remat on ([remat] lines) at
+   full widths and their published batches on the [train] bank:
+   cropnerf-big (8192 rays), cropnerf-huge (16384) and semantic-nerf
+   (4096).  For each, the gradient of one batch with remat on against
+   three with it off, from the same parameters and draws: the loss equal,
+   every K4 backward's positions and cotangent bit for bit, every leaf bit
+   for bit where the remat-off runs agree and else within REMAT_NOISE
+   times their largest deviation from one another (the grids': K4
+   backward's atomics); K4's launches exactly (6 forward and 3 backward a
+   step with remat on, 3 and 3 off; semantic-nerf 4 and 2, 2 and 2); step
+   ms and peak memory each way, and model TFLOP/s and mfu
+   (utils/flops.py) against 989 TFLOP/s; one BayesRays batch of
+   cropnerf-big each way (no replay there: the same launches, the grid
+   within the remat-off runs' deviation); cropnerf at 32,768 rays with
+   remat on and off; K4 forward and backward at every hash encode of
+   each of these steps' shapes and layouts against its plain version
+   (float64 table), and its time per lookup at each hash field's table.
+   Then train
+   --method cropnerf-huge --max-steps 50 through the CLI on the [cli]
+   scene at 600x400 (its checkpoint loads bit for bit), and the trainer's
+   throughput watchdog on the card: cropnerf-big with remat off and an
+   unreachable floor, 40 steps logged every 5, rebuilds at steps 10 and
+   20 and "giving up" once, at step 30;
 6. traces one forward, render, export and training step of cropnerf-mxu,
    one forward and training step of cropnerf, one BayesRays batch of each,
    one training step and depth-cloud batch of the fused-proposal path and
@@ -3305,6 +3328,421 @@ def viewer_phase(card, run: Path, pcd: Path) -> dict:
             "render_ms": times}
 
 
+# ---- rematerialisation: the presets that keep it on ([remat]) --------------
+
+# the presets whose ModelConfig keeps remat on, at their published batches
+REMAT_PRESETS = ("cropnerf-big", "cropnerf-huge", "semantic-nerf")
+# K4 launches of one proposal-update step, (forward, backward), with remat
+# on and off: each hash encode launches once forward, once more in its
+# replay under remat, and once backward (semantic-nerf's field is a PE
+# field on plain matmuls, so only its two proposal nets encode)
+REMAT_K4 = {"cropnerf-big": {True: (6, 3), False: (3, 3)},
+            "cropnerf-huge": {True: (6, 3), False: (3, 3)},
+            "semantic-nerf": {True: (4, 2), False: (2, 2)},
+            "cropnerf": {True: (6, 3), False: (3, 3)}}
+# remat-off gradients taken from the same state and draws: their pairwise
+# deviation is each leaf's noise floor (K4 backward's atomics).  A leaf's
+# largest deviation is an extreme of that rounding noise, and the one of
+# remat on against off is a draw of the same extreme as the off runs' own
+# (one H100 run saw 3.331e-16 against 2.776e-16 on a proposal grid), so it
+# is held to REMAT_NOISE times the floor; what makes the check exact is
+# that every K4 backward receives the same bits with remat on and off
+REMAT_OFF_RUNS = 3
+REMAT_NOISE = 2.0
+REMAT_TIMED = 5                 # timed steps each way, after a first
+REMAT_CROPNERF_RAYS = 32_768    # cropnerf (remat off) with --remat on and off
+REMAT_CLI_STEPS = 50
+WATCHDOG_STEPS, WATCHDOG_LOG = 40, 5
+
+
+def with_remat(cfg, on: bool):
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                              remat=on))
+
+
+def leaf_group(name: str) -> str:
+    """A parameter's group: its first two name parts (field.grid,
+    field.mlp_base, proposal_0.grid, camera_opt, ...)."""
+    return ".".join(name.split(".")[:2])
+
+
+def remat_gradient(state, cfg, bank, dev):
+    """(loss, gradients by name, K4 backward's inputs) of one training
+    batch of ``cfg`` on ``state``'s parameters, from a generator seeded
+    alike every time; the parameters and the optimizer stay as they are.
+    The inputs are each hash_encode_bwd call's level layout, positions and
+    cotangent, copied, in the order of the calls."""
+    from cropnerf_tpu_torch.ops.cuda import hash_encode as kh
+    from cropnerf_tpu_torch.train.step import train_loss
+    gen = torch.Generator(device=dev).manual_seed(7)
+    idx = torch.randint(0, bank.num_pixels, (cfg.train_num_rays_per_batch,),
+                        generator=gen, device=dev)
+    inputs, bwd = [], kh.hash_encode_bwd
+
+    def capture(table2d, pos, grad, *layout, **kw):
+        inputs.append((layout, pos.clone(), grad.clone()))
+        # the kernel counts its launches on the module's hash_encode_bwd
+        kh.hash_encode_bwd = bwd
+        try:
+            return bwd(table2d, pos, grad, *layout, **kw)
+        finally:
+            kh.hash_encode_bwd = capture
+
+    state.optimizer.zero_grad(set_to_none=True)
+    kh.hash_encode_bwd = capture
+    try:
+        loss, _ = train_loss(state.params, bank, idx, state.step, cfg, gen)
+        loss.backward()
+    finally:
+        kh.hash_encode_bwd = bwd
+    grads = {k: p.grad.detach().clone()
+             for k, p in state.params.named_parameters()
+             if p.grad is not None}
+    state.optimizer.zero_grad(set_to_none=True)
+    return loss.detach(), grads, inputs
+
+
+def remat_bayesrays(params, cfg, bank, kernels, dev, card) -> dict:
+    """One BayesRays batch (RAYS rays, lod UNC_LOD) of ``cfg`` with remat
+    on and twice off.  The Hessian pass samples without a graph and
+    differentiates field_density, outside the checkpointed functions, so
+    remat replays nothing there: K4 launches 3 forward and 1 backward
+    (dpos alone) each way, and the grid is remat off's, bit for bit where
+    the remat-off runs agree."""
+    from cropnerf_tpu_torch.uncertainty import bayesrays as br
+    rb = next(br.bank_ray_batches(bank, cfg.model, 1, RAYS,
+                                  torch.Generator(device=dev).manual_seed(9)))
+    grids, launched = [], []
+    for on in (True, False, False):
+        comp = br.ComputeUncertainty(params, with_remat(cfg, on).model,
+                                     lod=UNC_LOD)
+        launched.append(counted(kernels, lambda: grids.append(
+            comp.batch(rb))))
+    floor = (grids[1] - grids[2]).abs().max().item()
+    dev_on = min((grids[0] - g).abs().max().item() for g in grids[1:])
+    want = {k.__name__: 0 for k in kernels}
+    want.update(hash_encode=3, hash_encode_bwd=1)
+    check(all(n == want for n in launched),
+          f"[remat] BayesRays launches {[nonzero(n) for n in launched]} "
+          f"(remat on, off, off), expected {nonzero(want)} each")
+    check(torch.equal(grids[0], grids[1]) if floor == 0
+          else dev_on <= REMAT_NOISE * floor,
+          f"[remat] BayesRays grid: remat on deviates {dev_on:.3e} from "
+          f"off, whose runs deviate {floor:.3e}")
+    log(f"[remat] BayesRays batch of {RAYS} rays at lod {UNC_LOD}, remat on "
+        f"and off: launches {nonzero(launched[0])} each way (no replay); "
+        f"grid |on - off| {dev_on:.3e} (off runs {floor:.3e}); {card}")
+    return {"launches": launched[0], "deviation": dev_on, "floor": floor}
+
+
+def k4_path_rows(cfg, dev) -> dict:
+    """K4 at each hash encode of one ``cfg`` training step (rays x that
+    net's samples, uniform positions, a random table of the grid's
+    layout): the forward bit for bit and the backward's table and
+    position gradients against the plain version with a float64 table,
+    and at the field's encode the device ms and ns per position and
+    level.  Returns {label: entry} for the encodes that hash."""
+    from cropnerf_tpu_torch.ops import hashgrid as hg
+    from cropnerf_tpu_torch.ops.cuda import hash_encode as kh
+    g = torch.Generator(device=dev).manual_seed(19)
+    rows = {}
+    for label, n, gc in hash_path_shapes(cfg):
+        if label == "field" and cfg.model.field.field_type != "hash":
+            continue
+        res = hg.level_resolutions(gc.num_levels, gc.min_res, gc.max_res)
+        t = 2 ** gc.log2_hashmap_size
+        table = torch.rand((sum(hg.level_row_counts(res, t)), 2),
+                           generator=g, device=dev) * 2 - 1
+        pos = torch.rand((n, 3), generator=g, device=dev)
+        table2d, offsets, dense, _ = hg._table_layout(table, res, "auto", t)
+        layout = (tuple(res), tuple(offsets), tuple(dense), t)
+        cot = torch.randn((n, 2 * len(res)), generator=g, device=dev)
+        with torch.no_grad():
+            bitwise = torch.equal(kh.hash_encode_fwd(table2d, pos, *layout),
+                                  hg.hashgrid_encode_plain(table, pos, res,
+                                                           table_size=t))
+        dt, dp = kh.hash_encode_bwd(table2d, pos, cot, *layout)
+        tt = table.double().requires_grad_(True)
+        tp = pos.clone().requires_grad_(True)
+        with torch.enable_grad():
+            hg.hashgrid_encode_plain(tt, tp, res, table_size=t).backward(
+                cot.double())
+        k = {"n": n, "levels": len(res), "rows": table2d.shape[0],
+             "dense_levels": sum(dense), "group": kh.level_group(len(res)),
+             "fwd_bitwise": bitwise,
+             "dtable_err": rel_err(dt, tt.grad.reshape(-1, 2)),
+             "dpos_err": rel_err(dp, tp.grad)}
+        del tt, tp, dt, dp
+        check(bitwise and k["dtable_err"] <= HASH_TOL
+              and k["dpos_err"] <= DPOS_TOL,
+              f"hash_encode at {label} of {gc} disagrees with its plain "
+              f"version: {k}")
+        if label == "field":
+            fwd = pass_ms(lambda: kh.hash_encode_fwd(table2d, pos, *layout),
+                          10, HASH_FWD_PASSES)["total"]["median"]
+            bwd = pass_ms(lambda: kh.hash_encode_bwd(table2d, pos, cot,
+                                                     *layout), 5,
+                          HASH_BWD_PASSES)["total"]["median"]
+            lookups = n * len(res)
+            k.update(fwd_ms=fwd, bwd_ms=bwd,
+                     fwd_ns_per_lookup=fwd * 1e6 / lookups,
+                     bwd_ns_per_lookup=bwd * 1e6 / lookups)
+        rows[label] = k
+        del table, pos, cot, table2d
+    return rows
+
+
+def remat_phase(dev, card, bank, kernels, work: Path) -> dict:
+    """The presets that keep ``remat`` on (cropnerf-big at 8192 rays,
+    cropnerf-huge at 16384, semantic-nerf at 4096) at full widths on the
+    [train] bank: the gradient of one batch with remat on against
+    REMAT_OFF_RUNS with it off (the loss equal; each leaf within the
+    remat-off runs' own deviation, bit for bit where that is 0), exact K4
+    launches, step ms and peak memory each way, model TFLOP/s and mfu;
+    cropnerf at 32,768 rays with --remat's effect on and off; K4 per
+    lookup at each field table; then ``train --method cropnerf-huge``
+    through the CLI on the [cli] scene at 600x400, with the preset's remat,
+    to a checkpoint that loads, and the watchdog on the card (cropnerf-big,
+    remat off, an unreachable floor: 2 rebuilds and one "giving up")."""
+    import contextlib
+    from cropnerf_tpu_torch import cli
+    from cropnerf_tpu_torch.data.dataparser import DataparserConfig
+    from cropnerf_tpu_torch.models.config import PRESETS
+    from cropnerf_tpu_torch.train.state import create_train_state
+    from cropnerf_tpu_torch.train.step import make_train_step
+    from cropnerf_tpu_torch.train.trainer import (Trainer,
+                                                  load_trainer_from_run)
+    from cropnerf_tpu_torch.utils.flops import mfu, train_step_flops
+    info = {"card": card, "presets": {}, "launches": {}}
+    cases = [(name, PRESETS[name]) for name in REMAT_PRESETS] + [
+        ("cropnerf", dataclasses.replace(
+            PRESETS["cropnerf"],
+            train_num_rays_per_batch=REMAT_CROPNERF_RAYS))]
+    peak_tflops = PEAK_BF16_FLOPS / 1e12
+
+    def want(k4, n=1):
+        w = {k.__name__: 0 for k in kernels}
+        w.update(hash_encode=k4[0] * n, hash_encode_bwd=k4[1] * n)
+        return w
+
+    for name, cfg in cases:
+        check(cfg.model.remat == (name != "cropnerf"),
+              f"{name}: remat {cfg.model.remat} in the preset")
+        R = cfg.train_num_rays_per_batch
+        state = create_train_state(cfg, bank.num_images,
+                                   torch.Generator().manual_seed(0), dev)
+        entry = {"rays": R}
+        if name != "cropnerf":
+            launched, losses, grads, same_inputs = {}, [], [], []
+            for label, on in [("on", True)] + [(f"off {i}", False)
+                                               for i in range(REMAT_OFF_RUNS)]:
+                res = {}
+                launched[label] = counted(kernels, lambda on=on: res.update(
+                    run=remat_gradient(state, with_remat(cfg, on), bank,
+                                       dev)))
+                loss, g, inputs = res.pop("run")
+                losses.append(loss)
+                grads.append(g)
+                if on:
+                    ref_inputs = inputs
+                else:       # K4 backward's inputs, bit for bit
+                    same_inputs.append(
+                        len(inputs) == len(ref_inputs)
+                        == REMAT_K4[name][False][1]
+                        and all(a[0] == b[0] and torch.equal(a[1], b[1])
+                                and torch.equal(a[2], b[2])
+                                for a, b in zip(inputs, ref_inputs)))
+                del inputs
+            del ref_inputs
+            g_on, offs = grads[0], grads[1:]
+            leaves = {}
+            for k in offs[0]:
+                floor = max((a[k] - b[k]).abs().max().item()
+                            for i, a in enumerate(offs) for b in offs[i + 1:])
+                dev_on = min((g_on[k] - o[k]).abs().max().item()
+                             for o in offs)
+                exact = all(torch.equal(g_on[k], o[k]) for o in offs)
+                leaves[k] = (dev_on, floor, exact)
+            groups = {}
+            for k, (dev_on, floor, _) in leaves.items():
+                grp = groups.setdefault(leaf_group(k), [0.0, 0.0])
+                grp[0], grp[1] = max(grp[0], dev_on), max(grp[1], floor)
+            log(f"[remat] {name} one batch of {R} rays, remat on against "
+                f"{REMAT_OFF_RUNS} runs off: loss {losses[0].item():.6f} on, "
+                f"{[l.item() for l in losses[1:]]} off; K4 backward's "
+                f"inputs bit for bit {same_inputs}; largest |on - off| per "
+                f"leaf group (the off runs' own): "
+                + ", ".join(f"{k} {v[0]:.3e} ({v[1]:.3e})"
+                            for k, v in groups.items())
+                + f"; K4 launches on {nonzero(launched['on'])}, off "
+                f"{nonzero(launched['off 0'])}; {card}")
+            for label, n in launched.items():
+                k4 = REMAT_K4[name][label == "on"]
+                check(n == want(k4), f"[remat] {name} {label}: launches "
+                      f"{nonzero(n)}, expected {nonzero(want(k4))}")
+            check(all(torch.equal(losses[0], l) for l in losses[1:]),
+                  f"[remat] {name}: the loss differs with remat on and off")
+            check(all(same_inputs), f"[remat] {name}: K4 backward's inputs "
+                  f"differ with remat on and off: {same_inputs}")
+            check(set(g_on) == set(offs[0]), f"[remat] {name}: leaves "
+                  f"{sorted(g_on)} on, {sorted(offs[0])} off")
+            for k, (dev_on, floor, exact) in leaves.items():
+                check(exact if floor == 0 else dev_on <= REMAT_NOISE * floor,
+                      f"[remat] {name} {k}: remat on deviates {dev_on:.3e} "
+                      f"from remat off, whose runs deviate {floor:.3e}")
+            del grads, offs, g_on
+            entry.update(loss=losses[0].item(), deviation=groups,
+                         k4_bwd_inputs_equal=same_inputs)
+            if name == "cropnerf-big":
+                entry["bayesrays"] = remat_bayesrays(state.params, cfg, bank,
+                                                     kernels, dev, card)
+        flops = train_step_flops(cfg)["model_flops_per_step"]
+        for on in (True, False):
+            step_fn = make_train_step(with_remat(cfg, on))
+            gen = torch.Generator(device=dev).manual_seed(8)
+            times, mem = [], {}
+
+            def run():
+                step_fn(state, bank, gen)
+
+            def steps():
+                times.extend(wall_ms(run) for _ in range(1 + REMAT_TIMED))
+                torch.cuda.synchronize()
+                mem["base"] = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                run()
+                torch.cuda.synchronize()
+                mem["peak"] = torch.cuda.max_memory_allocated()
+
+            n = 2 + REMAT_TIMED
+            launches = counted(kernels, steps)
+            path = f"{name} remat {'on' if on else 'off'}, {n} steps"
+            info["launches"][path] = launches
+            check(launches == want(REMAT_K4[name][on], n),
+                  f"[remat] {path}: launches {nonzero(launches)}, expected "
+                  f"{nonzero(want(REMAT_K4[name][on], n))}")
+            med = statistics.median(times[1:])
+            rate = mfu(flops, med / 1e3, peak_tflops)
+            entry["on" if on else "off"] = {
+                "median_ms": med, "runs_ms": times[1:], "first_ms": times[0],
+                "peak_gib": mem["peak"] / 2**30,
+                "step_gib": (mem["peak"] - mem["base"]) / 2**30,
+                "rays_per_s": R / med * 1e3, **rate}
+        check(state.step == 2 * n and all(
+            torch.isfinite(p).all() for p in state.params.parameters()),
+              f"[remat] {name}: step {state.step}, parameters not finite")
+        on, off = entry["on"], entry["off"]
+        entry.update(peak_ratio=off["peak_gib"] / on["peak_gib"],
+                     step_ratio=off["step_gib"] / on["step_gib"],
+                     time_cost=on["median_ms"] / off["median_ms"] - 1,
+                     model_flops_per_step=flops)
+        for label, e in (("on", on), ("off", off)):
+            log(f"[remat] {name} {R} rays, remat {label}: step median "
+                f"{e['median_ms']:.2f} ms of {REMAT_TIMED} (runs "
+                + ", ".join(f"{v:.2f}" for v in e["runs_ms"])
+                + f"; first {e['first_ms']:.2f}), {e['rays_per_s']:.0f} "
+                f"rays/s; peak {e['peak_gib']:.3f} GiB, of it the step's "
+                f"own {e['step_gib']:.3f} GiB; {card}")
+        log(f"[remat] {name}: remat off / on peak {entry['peak_ratio']:.3f}x "
+            f"(the step's own {entry['step_ratio']:.3f}x), remat's step "
+            f"time {entry['time_cost']:+.1%}; model FLOPs per step "
+            f"{flops:.4e} (utils/flops.py train_step_flops): "
+            f"{on['tflops_per_s']:.3f} TFLOP/s, mfu {on['mfu']:.5f} with "
+            f"remat on, {off['tflops_per_s']:.3f} / {off['mfu']:.5f} off, "
+            f"against {peak_tflops:.0f} TFLOP/s bf16; {card}")
+        entry["k4"] = rows = k4_path_rows(cfg, dev)
+        log(f"[remat] {name} K4 at each encode of the step against its "
+            f"plain version (float64 table; limits {HASH_TOL}, {DPOS_TOL}): "
+            + "; ".join(f"{label} [{k['n']},3] x {k['levels']} levels on "
+                        f"{k['rows']} rows ({k['dense_levels']} dense): "
+                        f"forward bit-identical {k['fwd_bitwise']}, dtable "
+                        f"{k['dtable_err']:.2e}, dpos {k['dpos_err']:.2e}"
+                        for label, k in rows.items()) + f"; {card}")
+        k = rows.get("field")
+        if k is not None:
+            log(f"[remat] {name} K4 at the field's encode: forward "
+                f"{k['fwd_ms']:.4f} ms ({k['fwd_ns_per_lookup']:.4f} ns a "
+                f"position-level), backward {k['bwd_ms']:.4f} ms "
+                f"({k['bwd_ns_per_lookup']:.4f} ns); {card}")
+        info["presets"][name] = entry
+        del state
+        torch.cuda.empty_cache()
+
+    # the CLI: train cropnerf-huge with the preset's remat to a checkpoint
+    data = cli_data(work, "cropnerf")
+    run = work / "remat_huge"
+    res = {}
+    t0 = time.perf_counter()
+    launches = counted(kernels, lambda: res.update(tr=cli.main([
+        "train", "--method", "cropnerf-huge", "--data", str(data),
+        "--output", str(run), "--max-steps", str(REMAT_CLI_STEPS)])))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tr = res.pop("tr")
+    h, w = int(tr.eval_outputs.height[0]), int(tr.eval_outputs.width[0])
+    chunks = -(-h * w // tr.cfg.eval_num_rays_per_chunk)
+    expect = want((6 * REMAT_CLI_STEPS + 3 * chunks * len(tr.eval_images),
+                   3 * REMAT_CLI_STEPS))
+    info["launches"][f"cli train cropnerf-huge {REMAT_CLI_STEPS} steps"] = \
+        launches
+    ckpt = run / "checkpoints" / f"step-{REMAT_CLI_STEPS:09d}.pt"
+    check(tr.cfg.model.remat and tr.state.step == REMAT_CLI_STEPS
+          and ckpt.is_file(), f"[remat] train cropnerf-huge: remat "
+          f"{tr.cfg.model.remat}, step {tr.state.step}, {ckpt.name}")
+    check(launches == expect, f"[remat] train cropnerf-huge: launches "
+          f"{nonzero(launches)}, expected {nonzero(expect)} (the end's "
+          f"eval render {chunks} chunks of {h}x{w})")
+    last = metrics_log(run)[-1]
+    loaded = load_trainer_from_run(run, device=dev)
+    same = all(torch.equal(v, loaded.state.params.state_dict()[k])
+               for k, v in tr.state.params.state_dict().items())
+    check(same and loaded.state.step == REMAT_CLI_STEPS
+          and loaded.cfg.model.remat,
+          f"[remat] the cropnerf-huge checkpoint does not load back")
+    final = {k: v for k, v in last.items() if k.startswith("eval_all")}
+    check(all(math.isfinite(v) for v in final.values()) and final,
+          f"[remat] cropnerf-huge final eval {final}")
+    log(f"[remat] train --method cropnerf-huge --max-steps "
+        f"{REMAT_CLI_STEPS} (remat on, {tr.cfg.train_num_rays_per_batch} "
+        f"rays, {w}x{h} views): {wall:.2f} s, launches {nonzero(launches)}; "
+        f"{ckpt.name} ({ckpt.stat().st_size / 2**20:.1f} MiB) loads bit for "
+        f"bit; final eval {final}; {card}")
+    info["cli"] = {"wall_s": wall, "launches": launches, "final": final,
+                   "checkpoint_mib": ckpt.stat().st_size / 2**20}
+    del tr, loaded
+    torch.cuda.empty_cache()
+
+    # the watchdog on the card: an unreachable floor on cropnerf-big
+    cfg = with_remat(PRESETS["cropnerf-big"], False)
+    trainer = Trainer(cfg, DataparserConfig(data_dir=data),
+                      work / "watchdog", device=dev, min_rays_per_s=1e15)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        m = trainer.train(num_steps=WATCHDOG_STEPS, log_every=WATCHDOG_LOG)
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    said = {key: [ln.split("]")[0] + "]" for ln in lines if key in ln]
+            for key in ("rebuilding the train step", "giving up")}
+    for ln in lines:
+        if "WATCHDOG" in ln:
+            log(f"[remat] watchdog: {ln}")
+    check(trainer._slow_retries == 2
+          and said["rebuilding the train step"] == ["[step 10]", "[step 20]"]
+          and said["giving up"] == ["[step 30]"]
+          and trainer.state.step == WATCHDOG_STEPS
+          and math.isfinite(m["loss"]),
+          f"[remat] watchdog: {said}, {trainer._slow_retries} rebuilds, "
+          f"step {trainer.state.step}, loss {m['loss']}")
+    log(f"[remat] watchdog, cropnerf-big remat off, floor 1e15 rays/s, "
+        f"{WATCHDOG_STEPS} steps logged every {WATCHDOG_LOG}: {said}; loss "
+        f"{m['loss']:.5f}; {wall:.2f} s; {card}")
+    info["watchdog"] = {"said": said, "wall_s": wall, "loss": m["loss"]}
+    del trainer
+    torch.cuda.empty_cache()
+    return info
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke FAILED: no CUDA device is visible")
@@ -3873,6 +4311,9 @@ def main() -> None:
     # ---- 5g. the viewer ----------------------------------------------------
     viewer_info = viewer_phase(card, work / "cropnerf-mxu",
                                work / "cropnerf-mxu" / "count_exports")
+
+    # ---- 5h. rematerialisation: -big, -huge, semantic-nerf; the watchdog --
+    remat_info = remat_phase(dev, card, bank, all_kernels, work)
     shutil.rmtree(work)
 
     # ---- 6. where the time goes: one traced call of each path step ------
@@ -3990,6 +4431,7 @@ def main() -> None:
         "count": count_info,
         "ddp": ddp_info,
         "viewer": viewer_info,
+        "remat": remat_info,
         "trace": breakdown}
     for entry in line["kernels"]:
         entry["launches_by_path"]["cli"] = {
@@ -4003,6 +4445,9 @@ def main() -> None:
         entry["launches_by_path"]["ddp"] = {
             path: n.get(entry["name"], 0)
             for path, n in ddp_info["launches"].items()}
+        entry["launches_by_path"]["remat"] = {
+            path: n.get(entry["name"], 0)
+            for path, n in remat_info["launches"].items()}
     print(json.dumps(line), flush=True)
     shutil.rmtree(out_dir)
     print(smi, flush=True)

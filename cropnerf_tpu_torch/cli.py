@@ -30,9 +30,10 @@ project.  Under a launcher (``torchrun --nproc-per-node N -m
 cropnerf_tpu_torch.cli ...``, which sets RANK and WORLD_SIZE) a model
 command joins the launcher's process group; with no launcher,
 ``--multichip`` starts one rank per visible card itself, and with one card
-it says so and runs on that card.  Left out: ``--min-rays-per-s`` (the JAX
-trainer's watchdog against its compiler) and ``--remat`` (the port does not
-rematerialise).
+it says so and runs on that card.  ``train --remat on|off`` overrides the
+preset's rematerialisation (``torch.utils.checkpoint`` of the field and
+the proposal nets), and ``train --min-rays-per-s R`` arms the trainer's
+throughput watchdog.
 """
 from __future__ import annotations
 
@@ -101,6 +102,11 @@ def _add_train(sub):
                         "pods")
     p.add_argument("--rays-per-batch", type=int, default=None,
                    help="override the preset's train ray batch")
+    p.add_argument("--remat", choices=["on", "off"], default=None,
+                   help="override activation rematerialisation (default: "
+                        "preset choice — off for the base config, on for "
+                        "-big/-huge and semantic-nerf; turn on for very "
+                        "large ray batches)")
     p.add_argument("--steps-per-dispatch", type=int, default=1,
                    help="run K optimizer steps per call of the step. "
                         "Cadences (log/eval/save) must be multiples of K")
@@ -111,6 +117,12 @@ def _add_train(sub):
                         "dispatch (.jpg → 125, else any nonzero)")
     p.add_argument("--resume", action="store_true",
                    help="resume from the latest checkpoint in --output")
+    p.add_argument("--min-rays-per-s", type=float, default=None,
+                   help="throughput watchdog floor: if a logging window "
+                        "after the first runs below this rate, rebuild the "
+                        "train step (at most twice; off by default; on the "
+                        "card the rebuild changes nothing and the option "
+                        "reports slow windows)")
 
 
 def _cmd_train(args):
@@ -127,6 +139,10 @@ def _cmd_train(args):
     if args.rays_per_batch is not None:
         cfg = dataclasses.replace(cfg,
                                   train_num_rays_per_batch=args.rays_per_batch)
+    if args.remat is not None:
+        cfg = dataclasses.replace(
+            cfg, model=dataclasses.replace(cfg.model,
+                                           remat=args.remat == "on"))
     data_cfg = DataparserConfig(
         data_dir=args.data, semantic_dir=args.semantic_dir,
         train_split_fraction=args.train_split_fraction)
@@ -144,7 +160,8 @@ def _cmd_train(args):
                       resume=args.resume,
                       steps_per_dispatch=args.steps_per_dispatch,
                       semantic_threshold=thr, device=_model_device(mesh),
-                      mesh=mesh, shard_bank=shard_bank)
+                      mesh=mesh, shard_bank=shard_bank,
+                      min_rays_per_s=args.min_rays_per_s)
     previous = trainer.install_signal_handlers()
     try:
         metrics = trainer.train(num_steps=args.max_steps)

@@ -4,11 +4,12 @@ The port's own copy of ``cropnerf_tpu/models/config.py``: the same frozen
 dataclasses, defaults and ``PRESETS``, field for field (pinned by
 ``tests/test_torch_model.py``), so a run configuration written by either
 package describes the same model.  Option values that only the JAX package
-acts on (hash-grid ``cell_pack``, the Pallas row tiles, remat) are kept so
-the trees stay equal; the port ignores them.  Hash-grid ``impl`` "xla" and
-"pallas" both run the port's ``hash_encode`` kernels on the card; the
-port's own value "plain" selects the plain PyTorch encode, the reference
-path its tests compare with.
+acts on (hash-grid ``cell_pack``, the Pallas row tiles) are kept so the
+trees stay equal; the port ignores them.  ``remat`` and ``remat_props``
+act in the port as in JAX (``models/model.py``).  Hash-grid ``impl``
+"xla" and "pallas" both run the port's ``hash_encode`` kernels on the
+card; the port's own value "plain" selects the plain PyTorch encode, the
+reference path its tests compare with.
 """
 from __future__ import annotations
 

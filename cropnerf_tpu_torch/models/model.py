@@ -11,6 +11,15 @@ JAX params pytree: ``field``, ``camera_opt`` and ``proposal_{i}``.
 ``forward(train=True)`` records the autograd graph the training step
 differentiates; ``forward(train=False)`` and the export entry points run
 without one, whatever the caller's grad mode.
+
+Rematerialisation, as the JAX package's ``jax.checkpoint``: with
+``ModelConfig.remat`` or ``remat_props`` the proposal density nets, and
+with ``remat`` the field, run under ``torch.utils.checkpoint``, so the
+graph keeps their inputs alone and the backward runs them again (the hash
+encodes among them) instead of storing their activations.  Only a call
+that records a graph is checkpointed.  Neither function draws random
+numbers (the samplers draw outside them), so the checkpoint stashes no RNG
+state.
 """
 from __future__ import annotations
 
@@ -18,6 +27,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.rays import RayBundle, RaySamples
 from ..device import resolve_device
@@ -67,6 +77,16 @@ def anneal_factor(step: torch.Tensor | int, cfg: ModelConfig) -> torch.Tensor:
     return s * x / ((s - 1.0) * x + 1.0)
 
 
+def _remat(on: bool, fn: Callable, *args, **kwargs):
+    """``fn(*args, **kwargs)``, under ``torch.utils.checkpoint`` when ``on``
+    and a graph is being recorded: the backward runs ``fn`` again in place
+    of reading its stored activations."""
+    if not (on and torch.is_grad_enabled()):
+        return fn(*args, **kwargs)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False, **kwargs)
+
+
 def _sdist(samples: RaySamples) -> torch.Tensor:
     return torch.cat([samples.spacing_starts, samples.spacing_ends[..., -1:]],
                      dim=-1)
@@ -98,9 +118,10 @@ def _proposal_sampling(params: CropNeRFParams, rb: RayBundle,
     frozen = prop_update is not None and not prop_update
     for i in range(n_prop):
         with torch.set_grad_enabled(torch.is_grad_enabled() and not frozen):
-            density = proposal_density(params.proposal(i), samples.positions,
-                                       cfg.proposal_fields[i],
-                                       compute_dtype=compute_dtype)
+            density = _remat(cfg.remat or cfg.remat_props, proposal_density,
+                             params.proposal(i), samples.positions,
+                             cfg.proposal_fields[i],
+                             compute_dtype=compute_dtype)
         if density_hook is not None:
             density = density_hook(samples.positions, density)
         weights = render_ops.render_weights(density, samples.deltas)
@@ -146,10 +167,10 @@ def _forward(params, ray_bundle, cfg, train, anneal, background,
     samples, weights_list, sdist_list = _proposal_sampling(
         params, rb, cfg, train, anneal, generator, compute_dtype, prop_update,
         density_hook)
-    density, rgb_samples, sem_samples = field_all(
-        params.field, samples.positions, samples.directions,
-        samples.camera_idx, cfg.field, train, compute_dtype,
-        cfg.pass_semantic_gradients)
+    density, rgb_samples, sem_samples = _remat(
+        cfg.remat, field_all, params.field, samples.positions,
+        samples.directions, samples.camera_idx, cfg.field, train,
+        compute_dtype, cfg.pass_semantic_gradients)
     if cfg.use_gradient_scaling:
         # identity forward; the backward scales by clamp(t², 0, 1)
         # (nerfstudio scale_gradients_by_distance_squared)

@@ -10,8 +10,19 @@ the same model and frame).  The loop logs every ``log_every`` steps and on
 the last; only those steps read values from the card.  Checkpoints are
 ``torch.save`` files, ``checkpoints/step-{step:09d}.pt``, holding the
 parameters, each optimizer's state and the step; a JAX run's orbax
-checkpoint becomes one through ``tools/jax_run_to_torch.py``.  The JAX
-trainer's throughput watchdog is not part of the port.
+checkpoint becomes one through ``tools/jax_run_to_torch.py``.
+
+The throughput watchdog (``min_rays_per_s``, off by default) holds each
+clean logging window to a floor of rays/s, as the JAX trainer's does: a
+window that holds the first steps (the kernels' build at first use) or a
+rebuild, or eval or save work, is exempt.  Below the floor it rebuilds
+the train step, at most ``_MAX_SLOW_RETRIES`` times, then warns once that
+it gives up.  JAX re-jits there against its compiler's slow executables.
+On the card that rebuild is a no-op: there is no compiler to run again,
+and the step function keeps no state between calls, so the new step
+computes what the old one did at the same speed.  The port keeps it so
+that the watchdog's bookkeeping (the retries, the exempt window after
+each, the three messages) is the JAX trainer's.
 
 Across ranks (``mesh``, one process per rank) the step averages the
 gradients over the ranks; the bank is replicated, or sharded by image
@@ -50,6 +61,9 @@ from .state import TrainState, create_train_state
 from .step import (make_eval_batch_fn, make_render_fn,
                    make_sharded_train_step, make_train_step)
 
+# bound on the watchdog's rebuilds of the train step in one run
+_MAX_SLOW_RETRIES = 2
+
 
 def cameras_from_outputs(out: DataparserOutputs,
                          device: torch.device | str = "cuda") -> Cameras:
@@ -77,7 +91,8 @@ class Trainer:
                  semantic_threshold: "int | str" = SEMANTIC_THRESHOLD,
                  device: torch.device | str = "cuda",
                  mesh: Optional[Mesh] = None,
-                 shard_bank: Optional[bool] = None):
+                 shard_bank: Optional[bool] = None,
+                 min_rays_per_s: Optional[float] = None):
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.device = (self.mesh.device if self.mesh is not None
                        else resolve_device(device))
@@ -126,9 +141,14 @@ class Trainer:
         if self.shard_bank and k != 1:
             raise ValueError("steps_per_dispatch > 1 is not wired for "
                              "sharded banks")
-        self.train_step = (make_sharded_train_step(cfg, self.mesh)
-                           if self.shard_bank else
-                           make_train_step(cfg, num_inner=k, mesh=self.mesh))
+        self.train_step = self._build_train_step()
+        # the throughput watchdog's floor and state; each rank keeps its
+        # own (a rebuild has no collective) and rank 0 alone prints
+        self.min_rays_per_s = min_rays_per_s
+        self._slow_retries = 0
+        self._busy_windows = 0
+        self._warned_busy_windows = False
+        self._watchdog_gave_up = False
         self.eval_batch_fn = make_eval_batch_fn(cfg)
         self.render = make_render_fn(cfg)
         # the loop's draws; a resume does not restore them (nor does JAX's)
@@ -149,6 +169,12 @@ class Trainer:
                 self.load_checkpoint(ckpts[-1])
                 print(f"resumed from {ckpts[-1].name} "
                       f"(step {self.state.step})", flush=True)
+
+    def _build_train_step(self):
+        if self.shard_bank:
+            return make_sharded_train_step(self.cfg, self.mesh)
+        return make_train_step(self.cfg, num_inner=self.steps_per_dispatch,
+                               mesh=self.mesh)
 
     def _build_train_bank(self) -> PixelBank:
         cams = cameras_from_outputs(self.train_outputs, self.device)
@@ -326,8 +352,11 @@ class Trainer:
         t0 = time.perf_counter()
         rays_done = 0
         # the window rate covers the training calls since the last log; the
-        # window is re-armed after that step's eval and save work
-        t_win, rays_win = t0, 0
+        # window is re-armed after that step's eval and save work.  The
+        # first window (the kernels' build at first use) and the one after
+        # a rebuild (win_rebuilt), and any window that held eval or save
+        # work (win_busy), are exempt from the watchdog's floor
+        t_win, rays_win, win_rebuilt, win_busy = t0, 0, True, False
         for i in range(total // k):
             if self._stop_requested:
                 break
@@ -351,6 +380,8 @@ class Trainer:
                     print(f"[step {step}] loss={m['loss']:.4f} "
                           f"psnr={m['psnr']:.2f} "
                           f"rays/s={m['rays_per_s']:.0f}", flush=True)
+                win_rebuilt = self._watchdog(step, m["rays_per_s_window"],
+                                             win_rebuilt, win_busy)
             # the eval cadences run on rank 0; the other ranks wait
             due = step > 0 and (
                 step % cfg.steps_per_eval_batch == 0,
@@ -373,12 +404,15 @@ class Trainer:
                 ea = self.eval_all_images()
                 last_metrics.update({f"all_{key}": v for key, v in ea.items()})
                 self._write(step, ea, prefix="eval_all")
-            if due and any(due) and self.mesh is not None:
-                barrier(f"eval step {step}", self.mesh)
+            if due and any(due):
+                win_busy = True
+                if self.mesh is not None:
+                    barrier(f"eval step {step}", self.mesh)
             if step % cfg.steps_per_save == 0 and step > 0:
                 self.save_checkpoint()
+                win_busy = True
             if did_log:
-                t_win, rays_win = time.perf_counter(), 0
+                t_win, rays_win, win_busy = time.perf_counter(), 0, False
         # full eval at the end of training, on rank 0
         if not self._stop_requested and self.is_main:
             ea = self.eval_all_images()
@@ -390,6 +424,47 @@ class Trainer:
             barrier("final eval", self.mesh)
         self.save_checkpoint()
         return last_metrics
+
+    def _watchdog(self, step: int, rate: float, rebuilt: bool,
+                  busy: bool) -> bool:
+        """The throughput watchdog at a logging window of ``rate`` rays/s
+        that held the first steps or a rebuild (``rebuilt``), or eval or
+        save work (``busy``).  Returns whether it rebuilt the step, which
+        exempts the next window."""
+        floor = self.min_rays_per_s
+        if floor is None:
+            return False
+        # an eval or save cadence at or below the logging cadence exempts
+        # every window, which turns the floor off: say so once
+        self._busy_windows = self._busy_windows + 1 if busy else 0
+        if self._busy_windows == 10 and not self._warned_busy_windows:
+            self._warned_busy_windows = True
+            self._say("[watchdog] NOTE: the last 10 logging windows all "
+                      "contained eval/save work and were exempted from the "
+                      "throughput floor — the watchdog is effectively "
+                      "disabled at this eval/log cadence; raise log_every "
+                      "or lower the eval cadence to re-arm it")
+        if rebuilt or busy or rate >= floor:
+            return False
+        if self._slow_retries < _MAX_SLOW_RETRIES:
+            self._slow_retries += 1
+            self._say(f"[step {step}] WATCHDOG: window throughput "
+                      f"{rate:.0f} rays/s < floor {floor:.0f} — rebuilding "
+                      f"the train step (retry {self._slow_retries}/"
+                      f"{_MAX_SLOW_RETRIES})")
+            self.train_step = self._build_train_step()
+            return True
+        if not self._watchdog_gave_up:
+            self._watchdog_gave_up = True
+            self._say(f"[step {step}] WATCHDOG: still below floor "
+                      f"({rate:.0f} < {floor:.0f} rays/s) after "
+                      f"{_MAX_SLOW_RETRIES} rebuilds — giving up; run "
+                      f"continues at reduced throughput")
+        return False
+
+    def _say(self, msg: str) -> None:
+        if self.is_main:
+            print(msg, flush=True)
 
 
 def load_trainer_from_run(run_dir: Path,

@@ -19,9 +19,8 @@ from cropnerf_tpu_torch.export.volume import export_and_write
 from cropnerf_tpu_torch.train.trainer import load_trainer_from_run
 from test_trainer import write_synthetic_dataset
 
-# options of the JAX CLI the port leaves out: the JAX trainer's watchdog
-# against its compiler and rematerialisation
-OMITTED = {"--min-rays-per-s", "--remat"}
+# options of the JAX CLI the port leaves out: none
+OMITTED = set()
 JAX_ADDERS = {"train": jcli._add_train, "export": jcli._add_export,
               "export-pointcloud": jcli._add_export_pointcloud,
               "segment": jcli._add_segment, "project": jcli._add_project,
@@ -188,6 +187,23 @@ def test_train_in_process_gives_the_signal_handlers_back(run_dir, on_cpu,
                         "--train-split-fraction", "0.8"])
     assert trainer.state.step == 2 and trainer.steps_per_dispatch == 2
     assert {s: signal.getsignal(s) for s in before} == before
+
+
+@pytest.mark.parametrize("remat", ["on", "off"])
+def test_train_remat_and_watchdog_options(run_dir, on_cpu, tmp_path, remat):
+    """``--remat`` lands in the run's model config (the preset's own
+    ``remat`` is off), and ``--min-rays-per-s`` arms the watchdog."""
+    meta = json.loads((run_dir / "run_config.json").read_text())
+    assert meta["config"]["model"]["remat"] is False
+    trainer = cli.main(["train", "--method", "cropnerf-tiny", "--data",
+                        meta["data_config"]["data_dir"], "--output",
+                        str(tmp_path / "run"), "--max-steps", "1",
+                        "--train-split-fraction", "0.8", "--remat", remat,
+                        "--min-rays-per-s", "1e15"])
+    written = json.loads((tmp_path / "run" / "run_config.json").read_text())
+    assert written["config"]["model"]["remat"] is (remat == "on")
+    assert trainer.cfg.model.remat is (remat == "on")
+    assert trainer.min_rays_per_s == 1e15 and trainer._slow_retries == 0
 
 
 def test_project_on_the_run(run_dir, on_cpu, capsys):
