@@ -15,8 +15,10 @@ Run from the root of the repository:  python3 chip_smoke.py
    the BayesRays batch, with and without weight gradients; K3 per head on
    its wgmma kernels, at an export chunk or a BayesRays batch, the tiles'
    edges, a ragged N and an x or g off 16-byte alignment, two runs
-   bit-identical, and on its wmma route at cropnerf-mxu-huge's colour
-   head, each route's launches counted apart; K1's and K2's
+   bit-identical, for cropnerf-mxu's 64-wide heads and for -big's and
+   -huge's 128- and 256-wide ones (each at its preset's BayesRays batch),
+   and on its wmma route at a 3-layer 256-wide net no preset builds, each
+   route's launches counted apart; K1's and K2's
    forward over three profiler windows, also under the schedule the port
    does not use (its two warpgroups together instead of out of phase),
    which must give the same bits, and their backward pass by pass, tile,
@@ -145,6 +147,16 @@ Run from the root of the repository:  python3 chip_smoke.py
    throughput watchdog on the card: cropnerf-big with remat off and an
    unreachable floor, 40 steps logged every 5, rebuilds at steps 10 and
    20 and "giving up" once, at step 30;
+5i. drives K3's wide heads on their paths ([wide] lines): cropnerf-mxu-big
+   and -huge at their published widths, random weights, a 128^3 volume
+   export with colours (each head's K3 forward once a chunk) and 8
+   BayesRays batches of 4096 rays on the semantics and the rgb channel
+   (K3's backward once and three times a batch), with exact launch counts,
+   none on the wmma route; the export row for row against the same export
+   with K3's plain version, the Hessians against the plain path; then
+   train --method cropnerf-mxu-huge --max-steps 50, export --render-rgb at
+   64 a side and uncertainty --iters 2 through the CLI on the [cli] scene
+   at 600x400, K3's launches exact;
 6. traces one forward, render, export and training step of cropnerf-mxu,
    one forward and training step of cropnerf, one BayesRays batch of each,
    one training step and depth-cloud batch of the fused-proposal path and
@@ -239,9 +251,13 @@ def device_ms(fn, iters: int, only: str | None = None) -> float:
     Unlike ``cuda_ms`` it leaves out host time the device waited through,
     such as a wrapper packing its weights.  The profiler now and then drops
     a window's device rows, all of them or only some (a fill kernel kept,
-    the port's kernel lost): a window with no device time for ``only`` is
-    profiled again, up to PROFILE_TRIES windows in all, and if every window
-    came back empty the calls are timed with CUDA events instead."""
+    the port's kernel lost, or some of its launches: K6's windows keep 18
+    of 20).  So with ``only`` a call's time is the recorded launches' mean
+    times the launches a call makes (the recorded ones over the calls,
+    rounded up); a window with no device time, or with fewer launches of
+    ``only`` than half the calls, is profiled again, up to PROFILE_TRIES
+    windows in all.  If every window came back short the calls are timed
+    with CUDA events instead."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -252,14 +268,19 @@ def device_ms(fn, iters: int, only: str | None = None) -> float:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA
-                    and (only is None or only in e.key))
-        if total > 0:
-            return total / 1e3 / iters
-        log(f"[profile] window {window + 1} of {PROFILE_TRIES} recorded no "
-            f"device time for {what}")
-    log(f"[profile] no device time for {what} in {PROFILE_TRIES} windows: "
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and (only is None or only in e.key)]
+        total = sum(e.self_device_time_total for e in rows) / 1e3
+        launched = sum(e.count for e in rows)
+        if total > 0 and only is None:
+            return total / iters
+        if total > 0 and 2 * launched >= iters:
+            return total / launched * math.ceil(launched / iters)
+        log(f"[profile] window {window + 1} of {PROFILE_TRIES} recorded "
+            f"{launched} launches and {total:.4f} ms of device time for "
+            f"{what} in {iters} calls")
+    log(f"[profile] no full window for {what} in {PROFILE_TRIES} windows: "
         f"timed with CUDA events instead (host time included)")
     return cuda_ms(fn, iters)
 
@@ -1165,10 +1186,11 @@ def mlp_fwd_entry(heads, n, dev, card, report) -> dict:
         bound_ms=sum(k["bound_ms"] for k in vals), bound_by="bytes")
 
 
-def mlp_bwd_entry(heads, n, dev, card, report) -> dict:
+def mlp_bwd_entry(heads, n_of, dev, card, report) -> dict:
     """K3 backward (csrc/fused_mlp_bwd.cu, the wgmma route) on the vanilla
-    field's two heads at the BayesRays batch (N = n), a ragged N and the
-    tiles' edges (N = 1, 63, 64, 65), with and without weight gradients,
+    field's heads at the BayesRays batch (N = n_of[label], or n_of for
+    every head), a ragged N and the tiles' edges (N = 1, 63, 64, 65), with
+    and without weight gradients,
     against autograd through the plain version; on x and g one float into
     larger buffers (not 16-byte aligned: the same bits as aligned copies);
     two runs bit-identical; each call's launches on the wgmma counter
@@ -1181,6 +1203,7 @@ def mlp_bwd_entry(heads, n, dev, card, report) -> dict:
     want = {"fused_mlp": 0, "fused_mlp_wide": 0, "fused_mlp_bwd": 1,
             "fused_mlp_bwd_wide": 0}
     for label, wbs in heads.items():
+        n = n_of[label] if isinstance(n_of, dict) else n_of
         wd = [w.detach() for w in wbs]
         din, dout = wd[0].shape[0], wd[-2].shape[1]
         dims = [din] + [w.shape[1] for w in wd[0::2]]
@@ -1241,7 +1264,7 @@ def mlp_bwd_entry(heads, n, dev, card, report) -> dict:
         xb, cot = x_all, cot_all
         macs = mlp_macs(dims)
         hidden = macs - dims[-2] * dims[-1]
-        k = dict(errs=errs, dims=dims, unaligned_same_bits=unaligned_same,
+        k = dict(errs=errs, dims=dims, n=n, unaligned_same_bits=unaligned_same,
                  deterministic=True,
                  ms=device_ms(lambda: kernel(xb, cot, False), 20, KERNEL_NS),
                  call_ms=cuda_ms(lambda: kernel(xb, cot, False), 20),
@@ -1271,7 +1294,7 @@ def mlp_bwd_entry(heads, n, dev, card, report) -> dict:
     check(all(v == 0 for v in spills.values()), f"fused_mlp_bwd spills {spills}")
     vals = list(per.values())
     return dict(
-        shape=" and ".join(f"{label} [{n},{k['dims'][0]}]->"
+        shape=" and ".join(f"{label} [{k['n']},{k['dims'][0]}]->"
                            f"{'->'.join(map(str, k['dims'][1:]))}"
                            for label, k in per.items())
         + ", g -> dx (BayesRays: no weight gradient)",
@@ -1286,23 +1309,24 @@ def mlp_bwd_entry(heads, n, dev, card, report) -> dict:
         bound_ms=sum(k["bound_ms"] for k in vals), bound_by="bytes")
 
 
+# the net K3's wmma route keeps: -huge's colour head with a second 256-wide
+# hidden layer, whose weight images overflow the wgmma kernels' shared
+# memory (no preset builds one)
+WMMA_DIMS = [89, 256, 256, 3]
+
+
 def mlp_wide_entries(dev, card, report, n_fwd, n_bwd) -> dict:
-    """K3's wmma route (csrc/fused_mlp.cu, PRs 1 and 4) at
-    cropnerf-mxu-huge's colour head, [N, 89] -> 256 -> 3, which no path of
-    this script drives: the forward at an export chunk (N = n_fwd) and a
-    ragged N, the backward at a BayesRays batch (N = n_bwd) with and
-    without weight gradients, against the plain version, each call's
-    launches on the wmma counters alone."""
-    from cropnerf_tpu_torch.models.config import PRESETS
-    from cropnerf_tpu_torch.models.vanilla import DIR_FREQS
+    """K3's wmma route (csrc/fused_mlp.cu, PRs 1 and 4) at WMMA_DIMS, a net
+    no preset builds and no path of this script drives: the forward at an
+    export chunk (N = n_fwd) and a ragged N, the backward at a BayesRays
+    batch (N = n_bwd) with and without weight gradients, against the plain
+    version, each call's launches on the wmma counters alone."""
     from cropnerf_tpu_torch.ops.cuda import fused_mlp as km
     from cropnerf_tpu_torch.ops.mlp import mlp_init
-    f = PRESETS["cropnerf-mxu-huge"].model.field
-    dims = [f.geo_feat_dim + 3 * (2 * DIR_FREQS + 1)
-            + f.appearance_embedding_dim, f.hidden_dim_color, 3]
+    dims = WMMA_DIMS
     check(km.fused_mlp_route(dims[0], dims[1:]) == "wmma",
-          f"-huge's colour head {dims} is not on the wmma route")
-    head = mlp_init(dims[0], dims[1], dims[2], 2,
+          f"{dims} is not on the wmma route")
+    head = mlp_init(dims[0], dims[1], dims[-1], len(dims) - 1,
                     torch.Generator().manual_seed(15), dev)
     wd = [t.detach() for w, b in zip(head.w, head.b)
           for t in (w, b.reshape(1, -1))]
@@ -1362,7 +1386,8 @@ def mlp_wide_entries(dev, card, report, n_fwd, n_bwd) -> dict:
     hidden = macs - dims[-2] * dims[-1]
     regs = kernel_names(ptxas_registers(report), "fused_mlp")
     spills = kernel_names(ptxas_spills(report), "fused_mlp")
-    shape = f"-huge's colour head [{{n}},{dims[0]}]->{dims[1]}->{dims[2]}"
+    shape = (f"a 3-layer net [{{n}},{dims[0]}]->"
+             f"{'->'.join(map(str, dims[1:]))}")
     fwd_k = dict(
         shape=shape.format(n=n_fwd) + " (no path of this script)",
         source="cropnerf_tpu_torch/csrc/fused_mlp.cu",
@@ -3743,6 +3768,320 @@ def remat_phase(dev, card, bank, kernels, work: Path) -> dict:
     return info
 
 
+# ---- slice 15: K3's wide heads on their paths, the [wide] phase ------------
+
+WIDE_PRESETS = ("cropnerf-mxu-big", "cropnerf-mxu-huge")
+WIDE_REPEATS = 2                # timed exports after the counted one
+WIDE_FLIP = 1e-2                # a semantic flag may flip only this close to
+                                # its threshold, in sigmoid units
+WIDE_CLI_STEPS = 50             # train --method cropnerf-mxu-huge (600x400)
+WIDE_CLI_EXPORT_SIDE = 64
+WIDE_CLI_UNC_ITERS = 2
+
+
+def wide_heads(dev) -> tuple:
+    """The heads of cropnerf-mxu-big and -huge at their published widths,
+    random weights from a seeded generator: ({label: wbs}, {label: the
+    BayesRays batch of the preset, 4096 rays x its samples a ray}).  The
+    semantic head, [30, 128, 128, 1] in both, is taken once, at -big's
+    larger batch."""
+    from cropnerf_tpu_torch.models.config import PRESETS
+    from cropnerf_tpu_torch.models.vanilla import vanilla_field_init
+    heads, batch = {}, {}
+    for preset in WIDE_PRESETS:
+        m = PRESETS[preset].model
+        f = vanilla_field_init(m.field, 8, torch.Generator().manual_seed(17),
+                               dev)
+        tag = preset.split("-")[-1]
+        pairs = [(f"-{tag} colour head", f.mlp_color)]
+        if tag == "big":
+            pairs.insert(0, ("semantic head", f.mlp_semantic))
+        for label, mlp in pairs:
+            heads[label] = [t.detach() for w, b in zip(mlp.w, mlp.b)
+                            for t in (w, b.reshape(1, -1))]
+            batch[label] = RAYS * m.num_nerf_samples_per_ray
+    return heads, batch
+
+
+class k3_plain:
+    """K3's plain version in place of its kernels (``fused_mlp``, which
+    ops/mlp.py looks up at each call), the same bf16 arithmetic on the
+    card: everything else of the path runs as it does."""
+
+    def __enter__(self):
+        from cropnerf_tpu_torch.ops.cuda import fused_mlp as km
+        self.km, self.kernel = km, km.fused_mlp
+        km.fused_mlp = lambda x, wbs, dtype=torch.bfloat16: \
+            km.fused_mlp_plain(x, wbs, dtype)
+
+    def __exit__(self, *exc):
+        self.km.fused_mlp = self.kernel
+
+
+def traced(fn) -> dict:
+    """One call under torch.profiler: its wall ms, the device's busy ms and
+    K3's share (the wgmma kernels mlp_fwd_kernel, mlp_bwd_kernel and the
+    weight-gradient column sums), profiled again if a window records no
+    device time, up to PROFILE_TRIES windows."""
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ms = wall_ms(fn)
+        rows = [(e.key, e.self_device_time_total / 1e3)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        busy = sum(v for _, v in rows)
+        if busy > 0:
+            return dict(wall_ms=ms, device_ms=busy, k3_ms=sum(
+                v for k, v in rows if "mlp_fwd_kernel" in k
+                or "mlp_bwd_kernel" in k))
+    return dict(wall_ms=ms, device_ms=math.nan, k3_ms=math.nan)
+
+
+def export_vs_k3_plain(clouds, ref, thr) -> dict:
+    """A volume export against the same export with K3's plain version:
+    the density cloud (rows set by K2's density) the same rows in the same
+    order; its colours (the colour head) and alphas (the semantic head's
+    sigmoid) within TOL; each density row's semantic and colormap flags
+    the same, but where the plain path's alpha lies within WIDE_FLIP of the
+    flag's threshold (the last bit of a logit there decides)."""
+    d, dp = clouds["density"], ref["density"]
+    check(d.points.shape == dp.points.shape
+          and np.array_equal(d.points, dp.points),
+          f"export: {len(d.points)} density rows vs {len(dp.points)} with "
+          "K3's plain version, or not in the same order")
+
+    def keys(pts):
+        return np.ascontiguousarray(pts).view(np.dtype((np.void, 12))).ravel()
+
+    rows = keys(d.points)
+    out = dict(rows=len(rows),
+               colour_err=float(np.abs(d.colors - dp.colors).max()
+                                / max(np.abs(dp.colors).max(), 1e-6)),
+               alpha_err=float(np.abs(d.alpha - dp.alpha).max()))
+    sem_at = 1 / (1 + math.exp(-thr["semantic_threshold"]))
+    for name, at in (("semantic", sem_at),
+                     ("semantic_colormap", thr["colormap_threshold"])):
+        a = np.isin(rows, keys(clouds[name].points))
+        b = np.isin(rows, keys(ref[name].points))
+        flips = np.nonzero(a != b)[0]
+        out[f"{name}_rows"] = int(a.sum())
+        out[f"{name}_flips"] = len(flips)
+        check(np.all(np.abs(dp.alpha[flips] - at) <= WIDE_FLIP),
+              f"export {name}: {len(flips)} rows flip, some away from the "
+              f"threshold {at:.4f}")
+    check(out["colour_err"] <= TOL and out["alpha_err"] <= TOL,
+          f"export colours / alphas against K3's plain version: {out}")
+    return out
+
+
+def wide_phase(dev, card, bank, kernels, work: Path) -> dict:
+    """cropnerf-mxu-big and -huge at their published widths, random weights
+    from a seeded generator ([wide] lines): the EXPORT_SIDE^3 volume export
+    with colours and UNC_BATCHES BayesRays batches of RAYS rays on the
+    semantics and on the rgb channel, each with exact launch counts (K3 on
+    its wgmma kernels, none on the wmma route's counters; counts zeroed
+    just before each call and read just after), wall ms and, from one
+    traced call, device ms with K3's share.  The export is held against
+    the same export with K3's plain version (export_vs_k3_plain) and
+    against the plain path's point counts, the Hessians against the plain
+    path's.  Then through the CLI on the [cli] scene at 600x400: train
+    --method cropnerf-mxu-huge --max-steps WIDE_CLI_STEPS, export
+    --render-rgb at WIDE_CLI_EXPORT_SIDE a side and uncertainty --iters
+    WIDE_CLI_UNC_ITERS, with K3's launches exact.  Returns (numbers for
+    the JSON line, the -huge export and BayesRays batch for the trace)."""
+    from cropnerf_tpu_torch import cli
+    from cropnerf_tpu_torch.export.ply import ply_vertex_count
+    from cropnerf_tpu_torch.export.volume import (export_and_write,
+                                                  orthographic_ray_grid,
+                                                  sample_volume)
+    from cropnerf_tpu_torch.models.config import PRESETS
+    from cropnerf_tpu_torch.models.model import model_init
+    from cropnerf_tpu_torch.train.trainer import load_trainer_from_run
+    from cropnerf_tpu_torch.uncertainty import bayesrays as br
+    names = [k.__name__ for k in kernels]
+
+    def want(**n):
+        return {k: n.get(k, 0) for k in names}
+
+    aabb = [[-1.0, -1.0, -1.0], [1.0, 1.0, 1.0]]
+    n_chunks = -(-EXPORT_SIDE ** 2 // EXPORT_RAYS)
+    info, trace_steps = {"card": card, "launches": {}}, {}
+    g = torch.Generator(device=dev).manual_seed(19)
+    for preset in WIDE_PRESETS:
+        cfg = PRESETS[preset]
+        m = cfg.model
+        plain_m = dataclasses.replace(m, field=dataclasses.replace(
+            m.field, mlp_impl="xla"))
+        params = model_init(m, bank.num_images,
+                            torch.Generator().manual_seed(0), dev)
+        entry = {}
+        # ---- the volume export
+        thr = export_thresholds(params, m.field, g, dev)
+        kw = dict(num_points_per_side=EXPORT_SIDE, render_rgb=True, **thr)
+        out_dir = work / f"wide_{preset}"
+        res = {}
+        exp_want = want(fused_pe_density=n_chunks, fused_mlp=2 * n_chunks)
+        launches = counted(kernels, lambda: res.update(first=wall_ms(
+            lambda: res.update(paths=export_and_write(params, m, aabb,
+                                                      out_dir, **kw)))))
+        check(launches == exp_want, f"[wide] {preset} export launches "
+              f"{nonzero(launches)}, expected {nonzero(exp_want)}")
+        info["launches"][f"{preset} export"] = launches
+        runs = [wall_ms(lambda: export_and_write(params, m, aabb, out_dir,
+                                                 **kw))
+                for _ in range(WIDE_REPEATS)]
+        tr_exp = traced(lambda: export_and_write(params, m, aabb, out_dir,
+                                                 **kw))
+        points = {k: ply_vertex_count(v) for k, v in res["paths"].items()}
+        clouds = sample_volume(params, m, aabb, **kw)
+        with k3_plain():
+            vs = export_vs_k3_plain(clouds, sample_volume(params, m, aabb,
+                                                          **kw), thr)
+        plain_points = {k: len(c.points) for k, c in
+                        sample_volume(params, plain_m, aabb, **kw).items()}
+        check(points["density"] > points["semantic"] > 0, f"[wide] {preset} "
+              f"export points {points}")
+        for k in points:
+            check(abs(points[k] - plain_points[k]) <= 0.01 * plain_points[k]
+                  + 10, f"[wide] {preset} export {k}: {points[k]} points vs "
+                  f"plain path {plain_points[k]}")
+        entry["export"] = dict(first_ms=res["first"], runs_ms=runs,
+                               points=points, plain_points=plain_points,
+                               vs_k3_plain=vs, **tr_exp)
+        log(f"[wide] {preset} export {EXPORT_SIDE}^3 with colours: first "
+            f"{res['first']:.1f} ms, runs "
+            + ", ".join(f"{v:.1f}" for v in runs)
+            + f" ms; traced {tr_exp['wall_ms']:.1f} ms, device "
+            f"{tr_exp['device_ms']:.3f} ms of it K3 {tr_exp['k3_ms']:.3f} "
+            f"ms; launches {nonzero(launches)} ({n_chunks} chunks); points "
+            f"{points} (plain path {plain_points}); against K3's plain "
+            f"version: {vs}; {card}")
+        del clouds, res
+
+        # ---- the BayesRays pass, both channels
+        batches = list(br.bank_ray_batches(
+            bank, m, UNC_BATCHES, RAYS,
+            torch.Generator(device=dev).manual_seed(9)))
+        for channel, per in (("semantics", 1), ("rgb", 3)):
+            comp = br.ComputeUncertainty(params, m, lod=UNC_LOD,
+                                         channel=channel)
+            grid, runs = [], []
+
+            def run_all():
+                acc = None
+                for rb in batches:
+                    t0 = time.perf_counter()
+                    h = comp.batch(rb)
+                    torch.cuda.synchronize()
+                    runs.append((time.perf_counter() - t0) * 1e3)
+                    acc = h if acc is None else acc + h
+                grid.append(acc)
+
+            unc_want = want(fused_pe_density=UNC_BATCHES,
+                            fused_pe_density_bwd=per * UNC_BATCHES,
+                            fused_mlp=UNC_BATCHES,
+                            fused_mlp_bwd=per * UNC_BATCHES)
+            launches = counted(kernels, run_all)
+            check(launches == unc_want, f"[wide] {preset} {channel} "
+                  f"launches {nonzero(launches)}, expected "
+                  f"{nonzero(unc_want)}")
+            info["launches"][f"{preset} uncertainty {channel}"] = launches
+            hess = grid[0]
+            plain = br.ComputeUncertainty(params, plain_m, lod=UNC_LOD,
+                                          channel=channel)
+            ref = sum(plain.batch(rb) for rb in batches)
+            l2 = ((hess - ref).norm() / ref.norm()).item()
+            hot = len(set(hess.topk(1000).indices.tolist())
+                      & set(ref.topk(1000).indices.tolist())) / 1000
+            check(bool(torch.isfinite(hess).all()) and hess.max() > 0
+                  and l2 <= GRAD_TOL and hot >= 0.9,
+                  f"[wide] {preset} {channel} Hessian vs plain path: L2 "
+                  f"{l2:.3e}, hottest 1000 shared {hot:.3f}")
+            check(torch.equal(comp.batch(batches[0]), comp.batch(batches[0])),
+                  f"[wide] {preset} {channel} batch differs between two runs")
+            tr_unc = traced(lambda: comp.batch(batches[0]))
+            med = statistics.median(runs[1:])
+            entry[f"uncertainty {channel}"] = dict(
+                runs_ms=runs, median_ms=med, vs_plain_l2=l2, hot1000=hot,
+                **tr_unc)
+            log(f"[wide] {preset} BayesRays {channel}, {UNC_BATCHES} batches "
+                f"of {RAYS} rays ({RAYS * m.num_nerf_samples_per_ray} "
+                f"samples), lod {UNC_LOD}: median {med:.2f} ms a batch, runs "
+                + ", ".join(f"{v:.2f}" for v in runs) + f"; traced "
+                f"{tr_unc['wall_ms']:.2f} ms, device {tr_unc['device_ms']:.3f}"
+                f" ms of it K3 {tr_unc['k3_ms']:.3f} ms; launches "
+                f"{nonzero(launches)}; vs plain path L2 {l2:.3e}, hottest "
+                f"1000 shared {hot:.3f}; {card}")
+            if preset == "cropnerf-mxu-huge" and channel == "semantics":
+                trace_steps[f"{preset} uncertainty batch"] = (
+                    lambda comp=comp, rb=batches[0]: comp.batch(rb))
+            del comp, plain, grid, hess, ref
+        if preset == "cropnerf-mxu-huge":
+            trace_steps[f"{preset} export (sample_volume)"] = (
+                lambda params=params, m=m, kw=kw:
+                sample_volume(params, m, aabb, **kw))
+        info[preset] = entry
+        del params, batches
+        torch.cuda.empty_cache()
+
+    # ---- the CLI: cropnerf-mxu-huge on the [cli] scene at 600x400
+    data = cli_data(work, "cropnerf")
+    run = work / "wide_huge"
+    cmds, res = {}, {}
+
+    def drive(name, argv):
+        t0 = time.perf_counter()
+        n = counted(kernels, lambda: res.update({name: cli.main(argv)}))
+        torch.cuda.synchronize()
+        cmds[name] = time.perf_counter() - t0
+        info["launches"][f"cli cropnerf-mxu-huge {name}"] = n
+        log(f"[wide] cli cropnerf-mxu-huge {name}: {cmds[name]:.2f} s, "
+            f"launches {nonzero(n)}")
+        return n
+
+    n = drive("train", ["train", "--method", "cropnerf-mxu-huge", "--data",
+                        str(data), "--output", str(run), "--max-steps",
+                        str(WIDE_CLI_STEPS)])
+    check(n["fused_pe_nerf_bwd"] == WIDE_CLI_STEPS
+          and n["fused_pe_nerf"] >= WIDE_CLI_STEPS
+          and all(n[k] == 0 for k in ("fused_mlp", "fused_mlp_bwd",
+                                      "fused_mlp_wide", "fused_mlp_bwd_wide")),
+          f"[wide] cli train launches {nonzero(n)}")
+    trainer = load_trainer_from_run(run, device=dev)
+    check(trainer.state.step == WIDE_CLI_STEPS, "[wide] cli train: step "
+          f"{trainer.state.step}")
+    box = np.asarray(trainer.train_outputs.scene_box, np.float32)
+    thr = export_thresholds(trainer.state.params, trainer.cfg.model.field,
+                            g, dev)
+    chunks = -(-orthographic_ray_grid(box, WIDE_CLI_EXPORT_SIDE)[0].shape[0]
+               // EXPORT_RAYS)
+    del trainer
+    n = drive("export", ["export", "--run-dir", str(run), "--render-rgb",
+                         "--num-points-per-side", str(WIDE_CLI_EXPORT_SIDE)]
+              + [a for k, v in thr.items()
+                 for a in (f"--{k.replace('_', '-')}", repr(v))])
+    check(n == want(fused_pe_density=chunks, fused_mlp=2 * chunks),
+          f"[wide] cli export launches {nonzero(n)} ({chunks} chunks)")
+    points = {k: ply_vertex_count(v) for k, v in res["export"].items()}
+    check(points["density"] > 0, f"[wide] cli export points {points}")
+    n = drive("uncertainty", ["uncertainty", "--run-dir", str(run), "--iters",
+                              str(WIDE_CLI_UNC_ITERS)])
+    u = WIDE_CLI_UNC_ITERS
+    check(n == want(fused_pe_density=u, fused_pe_density_bwd=u, fused_mlp=u,
+                    fused_mlp_bwd=u), f"[wide] cli uncertainty launches "
+          f"{nonzero(n)}")
+    grid = np.load(res["uncertainty"])
+    check(bool(np.isfinite(grid).all()) and grid.max() > 0,
+          "[wide] cli uncertainty grid")
+    info["cli"] = dict(command_s=cmds, export_points=points,
+                       export_chunks=chunks)
+    log(f"[wide] cli cropnerf-mxu-huge wall s: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in cmds.items())
+        + f"; export {WIDE_CLI_EXPORT_SIDE} a side, points {points}; {card}")
+    return info, trace_steps
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke FAILED: no CUDA device is visible")
@@ -3834,21 +4173,21 @@ def main() -> None:
     col_wbs = [w for pair in zip(params.field.mlp_color.w,
                                  params.field.mlp_color.b)
                for w in (pair[0], pair[1].reshape(1, -1))]
-    def head_net(wbs):
-        """(din, dout, layers) of a head, as the wgmma kernels' layouts
-        take it."""
-        return wbs[0].shape[0], wbs[-2].shape[1], len(wbs) // 2
-
     smem = {
         "fused_pe_nerf": kfield.smem_bytes(kfield.pack_pe_field(
             3, POS_FREQS, base, top, color, sem, de=de, device=dev)[2], True),
         "fused_pe_density": kfield.smem_bytes(kfield.pack_pe_field(
             3, POS_FREQS, base, top, device=dev)[2], False),
-        "fused_mlp semantic head": kmlp.mlp_layout(*head_net(sem_wbs))[2],
-        "fused_mlp colour head": kmlp.mlp_layout(*head_net(col_wbs))[2]}
+        "fused_mlp semantic head": kmlp.net_layout(sem_wbs)[2],
+        "fused_mlp colour head": kmlp.net_layout(col_wbs)[2]}
+    wide, wide_batch = wide_heads(dev)
+    smem.update({f"fused_mlp {label} (x stages a warpgroup)": (
+        kmlp.net_layout(w)[2], kmlp.net_layout(w)[4])
+        for label, w in wide.items()})
     log("[build] dynamic shared memory per block at the path's widths: "
         + ", ".join(f"{k} {v} B" for k, v in smem.items()))
-    check(all(v > 0 for v in smem.values()), f"kernel layouts {smem}")
+    check(all(v[0] > 0 if isinstance(v, tuple) else v > 0
+              for v in smem.values()), f"kernel layouts {smem}")
 
     def field_inputs(n):
         x = torch.rand((n, 3), generator=g, device=dev) * 2 - 1
@@ -4037,10 +4376,11 @@ def main() -> None:
             3, POS_FREQS, base, top, color, sem, de=de, device=dev)[2]),
         "trunk only": kfield.bwd_smem_bytes(kfield.pack_pe_field(
             3, POS_FREQS, base, top, device=dev)[2], False),
-        "fused_mlp semantic head": kmlp.mlp_layout(*head_net(sem_wbs),
-                                                   False)[4],
-        "fused_mlp colour head": kmlp.mlp_layout(*head_net(col_wbs),
-                                                 False)[4]}
+        "fused_mlp semantic head": kmlp.net_layout(sem_wbs, False)[4],
+        "fused_mlp colour head": kmlp.net_layout(col_wbs, False)[4],
+        **{f"fused_mlp {label} (dx only; with dW)": (
+            kmlp.net_layout(w, False)[4], kmlp.net_layout(w, True)[4])
+           for label, w in wide.items()}}
     log(f"[build] fused_pe_field_bwd registers {regs}, spill bytes "
         f"{spills}; backward dynamic "
         f"shared memory per block: "
@@ -4050,6 +4390,13 @@ def main() -> None:
         base, top, trunk_macs, n_unc, dev, card, reports["fused_pe_field_bwd"])
     kernels["fused_mlp_bwd"] = mlp_bwd_entry(heads, n_unc, dev, card,
                                              reports["fused_mlp_bwd"])
+    # K3 at -big's and -huge's heads, 128 and 256 wide: an export chunk,
+    # each preset's BayesRays batch
+    k3_heads = {
+        "fused_mlp 128/256 wide": mlp_fwd_entry(wide, n2, dev, card,
+                                                reports["fused_mlp_fwd"]),
+        "fused_mlp_bwd 128/256 wide": mlp_bwd_entry(
+            wide, wide_batch, dev, card, reports["fused_mlp_bwd"])}
     k3_wide = mlp_wide_entries(dev, card, reports["fused_mlp"], n2, n_unc)
     hash_k = hash_kernels(PRESETS["cropnerf"], dev, card,
                           reports["hash_encode"])
@@ -4314,6 +4661,10 @@ def main() -> None:
 
     # ---- 5h. rematerialisation: -big, -huge, semantic-nerf; the watchdog --
     remat_info = remat_phase(dev, card, bank, all_kernels, work)
+
+    # ---- 5i. K3's wide heads on their paths: -big and -huge ---------------
+    wide_info, wide_steps = wide_phase(dev, card, bank, all_kernels, work)
+    steps.update(wide_steps)
     shutil.rmtree(work)
 
     # ---- 6. where the time goes: one traced call of each path step ------
@@ -4371,6 +4722,19 @@ def main() -> None:
         kernel_route=k["kernel_route"], registers=k["registers"],
         spill_bytes=k["spill_bytes"])
         for name, k in k3_wide.items()] + [dict(
+        name=name, route="cuda", source=k["source"], replaces=k["replaces"],
+        launches=sum(n[counter] for path, n in wide_info["launches"].items()
+                     if not path.startswith("cli")),
+        launches_by_path={path: n[counter]
+                          for path, n in wide_info["launches"].items()},
+        max_abs_err=k["max_abs_err"], rel_err=k["rel_err"], ms=k["ms"],
+        call_ms=k["call_ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+        bound_by=k["bound_by"], library_ms=None, shape=k["shape"], card=card,
+        kernel_route=k["kernel_route"], by_head=k["by_head"],
+        registers=k["registers"], spill_bytes=k["spill_bytes"],
+        **{key: k[key] for key in ("deterministic", "with_dw_ms") if key in k})
+        for name, k in k3_heads.items()
+        for counter in [name.split()[0]]] + [dict(
         name=name, route="cuda", source=k["source"], replaces=k["replaces"],
         launches=hash_train["launches"][name],
         launches_by_path={
@@ -4432,6 +4796,7 @@ def main() -> None:
         "ddp": ddp_info,
         "viewer": viewer_info,
         "remat": remat_info,
+        "wide": wide_info,
         "trace": breakdown}
     for entry in line["kernels"]:
         entry["launches_by_path"]["cli"] = {

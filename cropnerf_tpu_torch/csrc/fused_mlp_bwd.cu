@@ -3,8 +3,9 @@
 //
 // Replaces cropnerf_tpu/ops/pallas/fused_mlp.py _bwd_kernel (the backward
 // of fused_mlp) for the nets fused_mlp_fwd.cu takes: x [N, din] through a
-// relu MLP of 2 or 3 layers, hidden layers at most 64 wide, din at most
-// 128, at most 16 outputs.  Given the cotangent g [N, dout] it returns dx
+// relu MLP of 2 or 3 layers, hidden layers padded to HWP = 64, 128 or 256
+// columns, din at most 256, at most 16 outputs (every head of the
+// cropnerf-mxu family).  Given the cotangent g [N, dout] it returns dx
 // [N, din] and the f32 gradient of every weight and bias, each only where
 // asked.
 //
@@ -15,49 +16,59 @@
 // cotangents.
 //
 // Bound on an H100: bytes.  The BayesRays pass asks for dx alone: the
-// colour head reads x and g and writes dx, 604 bytes a row, for ~10 kMAC
-// (the hidden layer's recompute and two input gradients), ~33 FLOP a byte.
-// So dx is the whole cost, and the kernel moves x, g and dx by bulk copies
-// with nothing else through device memory.
+// colour head [N, 74] -> 64 -> 3 reads x and g and writes dx, 604 bytes a
+// row, for ~10 kMAC (the hidden layer's recompute and two input
+// gradients), ~33 FLOP a byte; -huge's [N, 89] -> 256 -> 3 ~49 kMAC
+// against 724 bytes (~135), -big's [N, 185] -> 128 -> 3 ~48 kMAC against
+// 1,492 (~64); the semantic head [N, 30] -> 128 -> 128 -> 1 ~41 kMAC
+// against 244 bytes (~338, about even).  So dx is the whole cost, and the
+// kernel moves x, g and dx by bulk copies with nothing else through
+// device memory.
 //
 // Design.  The forward kernel's skeleton: persistent blocks of up to four
-// warpgroups (two with weight gradients), 64-row tiles in a fixed order,
-// the whole net resident in shared memory (both halves of mlp_images: the
-// forward images and the input-gradient images of Wᵀ).  Per tile a
-// warpgroup:
-//   1. waits for its x and g tiles, bulk-copied into one of two stages
+// warpgroups (fewer wider, or with weight gradients), 64-row tiles
+// in a fixed order, the whole net resident in shared memory (both halves
+// of mlp_images: the forward images and the input-gradient images of Wᵀ).
+// Per tile a warpgroup:
+//   1. waits for its x and g tiles, bulk-copied into one of its stages
 //      while the previous tile ran (the ragged last tile, or an x or g not
 //      16-byte aligned, by the threads, rows past N as zero);
-//   2. recomputes the hidden layers as wgmma m64n64 products fed from
-//      registers, keeping each bf16 activation in registers: they are the
-//      relu masks;
-//   3. goes back through the layers with the cotangents in registers:
-//      G·W_lᵀ as wgmma with G the register A operand, the relu mask and the
-//      bf16 rounding in registers; dx = G_0·W_0ᵀ in 16-column products,
-//      staged over the x tile it no longer needs and written back by one
-//      bulk store.
+//   2. recomputes the hidden layers in blocks of 64 columns, wgmma m64n64
+//      products fed from registers, keeping each bf16 activation in
+//      registers: they are the relu masks;
+//   3. goes back through the layers with the cotangents in registers, a
+//      block of 64 columns at a time: G·W_lᵀ as wgmma with G the register
+//      A operand, the relu mask and the bf16 rounding in registers; dx =
+//      G_0·W_0ᵀ in 16-column products, staged over the x tile it no
+//      longer needs and written back by one bulk store.
 // Without weight gradients that is all: no column sum, no barrier for one.
 // With them, the activations and cotangents also go to chunk-major tiles,
 // and dW_l += A_lᵀ·G_l runs as wgmma with both operands MN-major from
 // those tiles (layer 0 as dW_0ᵀ += G_0ᵀ·A_0, one 16-column block of A_0 at
-// a time), the relu masks read back from the activations' tiles; the sums
-// stay in registers across all of a warpgroup's tiles, and each warp adds
-// its rows' bias-gradient column sums into its own row in shared memory.
-// At the end the block adds its warpgroups' sums in order into its partial
-// row, and fixed-order column sums reduce the blocks' rows.  No atomics: the plan depends on N and the
-// SM count alone, so two runs give the same bits.  Rows past N load zero x
-// and zero cotangents, so they add nothing.
+// a time), and each warp adds its rows' bias-gradient column sums into its
+// own row in shared memory.  The 64-wide nets keep the weight sums in
+// registers across all of a warpgroup's tiles (the masks then read back
+// from the activations' tiles), and at the end the block adds its
+// warpgroups' sums in order into its partial row; the wider nets' sums do
+// not fit registers (-big's dW_0 alone is 192 x 128), so each tile's
+// products are added, block by block, into the warpgroup's own partial
+// row in device memory (zeroed by the caller; each element always by the
+// same thread).  Fixed-order column sums reduce the rows.  No atomics:
+// the plan depends on N and the SM count alone, so two runs give the same
+// bits.  Rows past N load zero x and zero cotangents, so they add nothing.
 #include "bwd_layers.cuh"
 #include "wgmma_mlp.cuh"
 
 namespace cropnerf {
 namespace mlp {
 
-// Warpgroups a block, at most: four with dx alone (three for a 3-layer net,
-// whose two activations stay in registers as masks), two with the weight
-// gradients in registers.
-__host__ __device__ constexpr int bwd_max_wgs(int nl, bool dw) {
-  return dw ? 2 : nl == 3 ? 3 : 4;
+// Warpgroups a block, at most.  64 wide: four with dx alone (three for a
+// 3-layer net, whose two activations stay in registers as masks), two with
+// the weight gradients in registers.  Wider: two (the activations and
+// cotangents of 128 or 256 columns and layer 0's A operand stay within
+// 255 registers a thread; at three, within 168, they spill).
+__host__ __device__ constexpr int bwd_max_wgs(int nl, bool dw, int hwp) {
+  return hwp != HW ? 2 : dw ? 2 : nl == 3 ? 3 : 4;
 }
 
 __device__ __forceinline__ float bf_lo(uint32_t p) { return __uint_as_float(p << 16); }
@@ -128,6 +139,27 @@ __device__ __forceinline__ void mask_to_g(uint32_t (&g)[HW / 16][4], const float
   }
 }
 
+// Block cb of the cotangent of the layer below, from acc = G·W_lᵀ over
+// that block's 64 columns: as mask_to_g, into k-steps 4cb .. 4cb + 3 of g,
+// the relu mask read from the same k-steps of the bf16 activation `act`
+// and the bias sums added at brow's columns 64cb ...
+template <bool DB, int S>
+__device__ __forceinline__ void mask_block(uint32_t (&g)[S][4], int cb,
+                                           const float (&acc)[HW / 2],
+                                           const uint32_t (&act)[S][4], float* brow,
+                                           const Lane& ln) {
+  uint32_t blk[HW / 16][4], m[HW / 16][4];
+#pragma unroll
+  for (int s = 0; s < HW / 16; ++s)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) m[s][i] = act[4 * cb + s][i];
+  mask_to_g<DB>(blk, acc, m, brow + cb * HW, ln);
+#pragma unroll
+  for (int s = 0; s < HW / 16; ++s)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) g[4 * cb + s][i] = blk[s][i];
+}
+
 // One 16-column step s of a register A operand into a chunk-major tile.
 __device__ __forceinline__ void store_step(bf16* t, int s, const uint32_t (&a)[4],
                                            const Lane& ln) {
@@ -161,7 +193,8 @@ __device__ __forceinline__ void store_tile(bf16* t, const uint32_t (&a)[N][4], i
 }
 
 // row[i·n + c] (=, or += unless `first`) the accumulators of a 64 x n
-// weight gradient (rows r0, r0 + 8 and columns 8j + cq (+1) of the thread).
+// weight gradient (rows r0, r0 + 8 and columns 8j + cq (+1) of the thread;
+// a block of a wider row where n is the row's width).
 template <int R>
 __device__ __forceinline__ void add_rows(float* row, int n, const float (&v)[R], bool first,
                                          const Lane& ln) {
@@ -179,35 +212,40 @@ __device__ __forceinline__ void add_rows(float* row, int n, const float (&v)[R],
   }
 }
 
-template <int NL, bool DW, bool DX>
-__global__ void __launch_bounds__(128 * bwd_max_wgs(NL, DW), 1)
+template <int NL, bool DW, bool DX, int HWP>
+__global__ void __launch_bounds__(128 * bwd_max_wgs(NL, DW, HWP), 1)
 mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g_out,
                float* __restrict__ dx, const bf16* __restrict__ img,
                const float* __restrict__ bias, float* __restrict__ wpart,
-               float* __restrict__ bpart, long long n_rows, int din, int dout, int in_al,
-               int dx_al) {
-  const Layout L(din, dout, NL);
-  const BwdSmem S(L, DW);
+               float* __restrict__ bpart, long long n_rows, int din, int dout, int ns_arg,
+               int in_al, int dx_al) {
+  constexpr int KB = max_kb(NL, HWP), NB = HWP / HW, S = HWP / 16;
+  const int ns = stages<HWP>(ns_arg);
+  // weight sums in registers over the warpgroup's tiles (64 wide), or
+  // each tile's products flushed into the warpgroup's partial row (wider)
+  constexpr bool RDW = DW && HWP == HW, FLUSH = DW && HWP != HW;
+  const Layout L(din, dout, NL, HWP);
+  const BwdSmem SM(L, DW, ns);
   extern __shared__ __align__(128) unsigned char smem[];
   const Lane ln;
   const int wgs = blockDim.x >> 7;
   const int xb = L.x_bytes(), ob = L.o_bytes();
-  unsigned char* reg = smem + S.wg_at + ln.wg * S.wg_bytes;
-  uint64_t* full = reinterpret_cast<uint64_t*>(reg + S.bar_at);
-  const float* sbias = reinterpret_cast<const float*>(smem + S.bias_at);
+  unsigned char* reg = smem + SM.wg_at + ln.wg * SM.wg_bytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(reg + SM.bar_at);
+  const float* sbias = reinterpret_cast<const float*>(smem + SM.bias_at);
   const uint32_t s_img = smem_u32(smem);
   auto fimg = [&](int l) { return s_img + L.fw_off(l) * 2; };
   auto bimg = [&](int l) { return s_img + L.bw_off(l) * 2; };
-  bf16* a0t = reinterpret_cast<bf16*>(reg + S.a0_at);                 // A_0
+  bf16* a0t = reinterpret_cast<bf16*>(reg + SM.a0_at);                // A_0
   auto aht = [&](int l) {                                              // A_l, l >= 1
-    return reinterpret_cast<bf16*>(reg + S.ah_at + (l - 1) * TILE_BYTES);
+    return reinterpret_cast<bf16*>(reg + SM.ah_at + (l - 1) * L.tile_bytes());
   };
-  bf16* glt = reinterpret_cast<bf16*>(reg + S.gl_at);                 // G_{NL-1}
+  bf16* glt = reinterpret_cast<bf16*>(reg + SM.gl_at);                // G_{NL-1}
   auto ght = [&](int l) {                                              // G_l, l < NL - 1
-    return reinterpret_cast<bf16*>(reg + S.gh_at + l * TILE_BYTES);
+    return reinterpret_cast<bf16*>(reg + SM.gh_at + l * L.tile_bytes());
   };
   // the bias gradients' column sums: one row a warp, for the whole kernel
-  float* bsum = reinterpret_cast<float*>(smem + S.bsum_at(wgs));
+  float* bsum = reinterpret_cast<float*>(smem + SM.bsum_at(wgs));
   float* brow = bsum + (ln.wg * 4 + ln.warp) * L.n_bias();
   const int bar = 1 + ln.wg;
   const bool elected = ln.t == 0;
@@ -216,12 +254,11 @@ mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g_out,
   {
     const uint4* src = reinterpret_cast<const uint4*>(img);
     uint4* dst = reinterpret_cast<uint4*>(smem);
-    for (int i = threadIdx.x; i < S.bias_at / 16; i += blockDim.x) dst[i] = __ldg(src + i);
-    float* b = reinterpret_cast<float*>(smem + S.bias_at);
+    for (int i = threadIdx.x; i < SM.bias_at / 16; i += blockDim.x) dst[i] = __ldg(src + i);
+    float* b = reinterpret_cast<float*>(smem + SM.bias_at);
     for (int i = threadIdx.x; i < L.n_bias(); i += blockDim.x) b[i] = __ldg(bias + i);
     if (elected) {
-      mbar_init(&full[0], 1);
-      mbar_init(&full[1], 1);
+      for (int s = 0; s < ns; ++s) mbar_init(&full[s], 1);
       mbar_fence_init();
     }
     if (DW)
@@ -230,13 +267,13 @@ mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g_out,
   fence_async_smem();
   __syncthreads();
 
-  // weight gradient sums over the warpgroup's tiles
-  float dw0[MAX_KB][8];                // dW_0ᵀ by 16-column blocks of kp
+  // weight gradient sums over the warpgroup's tiles (64 wide)
+  float dw0[KB][8];                    // dW_0ᵀ by 16-column blocks of kp
   float dwh[NL == 3 ? HW / 2 : 1];     // dW_1 of a 3-layer net
   float dwl[OW / 2];                   // dW of the last layer
-  if constexpr (DW) {
+  if constexpr (RDW) {
 #pragma unroll
-    for (int i = 0; i < MAX_KB; ++i)
+    for (int i = 0; i < KB; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) dw0[i][j] = 0.0f;
 #pragma unroll
@@ -244,6 +281,8 @@ mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g_out,
 #pragma unroll
     for (int i = 0; i < OW / 2; ++i) dwl[i] = 0.0f;
   }
+  // the warpgroup's partial row of weight gradients (wider nets)
+  float* wrow = wpart + ((long long)blockIdx.x * wgs + ln.wg) * L.fwd_elems();
 
   const int kb = L.kp >> 4;
   const long long n_tiles = (n_rows + ROWS - 1) / ROWS;
@@ -253,7 +292,7 @@ mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g_out,
   // of x and g, or a bare arrival where the threads load them
   auto issue = [&](long long t, int s) {
     if (t >= n_tiles) return;
-    unsigned char* st = reg + s * S.stage_bytes;
+    unsigned char* st = reg + s * SM.stage_bytes;
     if (bulk_in(t)) {
       mbar_expect_tx(&full[s], xb + ob);
       bulk_load(st, x + t * ROWS * din, xb, &full[s]);
@@ -263,24 +302,25 @@ mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g_out,
     }
   };
   long long tile = (long long)blockIdx.x * wgs + ln.wg;
-  if (elected) issue(tile, 0);
+  if (elected)
+    for (int s = 0; s + 1 < ns; ++s) issue(tile + s * stride, s);
 
   float acc[HW / 2];
-  uint32_t a0[MAX_KB][4];
-  uint32_t act[NL - 1][HW / 16][4];    // A_l (l >= 1), bf16 pairs: the relu masks
-  uint32_t mask[HW / 16][4];           // with dW, a mask read back from its tile
-  uint32_t gh[HW / 16][4];             // the hidden cotangent, bf16 pairs
+  uint32_t a0[KB][4];
+  uint32_t act[NL - 1][S][4];          // A_l (l >= 1), bf16 pairs: the relu masks
+  uint32_t mask[HW / 16][4];           // 64 wide with dW, a mask read back from its tile
+  uint32_t gc[NL - 1][S][4];           // G_l (l < NL - 1), bf16 pairs
   uint32_t gl[4];                      // the output cotangent, bf16 pairs
   for (int it = 0; tile < n_tiles; tile += stride, ++it) {
-    const int s = it & 1;
+    const int s = it % ns;
     const long long row0 = tile * ROWS;
-    float* xt = reinterpret_cast<float*>(reg + s * S.stage_bytes);
-    float* gt = reinterpret_cast<float*>(reg + s * S.stage_bytes + xb);
+    float* xt = reinterpret_cast<float*>(reg + s * SM.stage_bytes);
+    float* gt = reinterpret_cast<float*>(reg + s * SM.stage_bytes + xb);
     if (elected) {
-      bulk_wait_read();                  // the previous tile's dx store has read its stage
-      issue(tile + stride, s ^ 1);       // the next tile, under this one
+      bulk_wait_read();                  // the last dx store has read its stage
+      issue(tile + (ns - 1) * stride, (it + ns - 1) % ns);  // ns - 1 tiles ahead
     }
-    mbar_wait(&full[s], (it >> 1) & 1);
+    mbar_wait(&full[s], (it / ns) & 1);
     if (!bulk_in(tile)) {
       load_rows(xt, x, row0, din, n_rows, ln);
       load_rows(gt, g_out, row0, dout, n_rows, ln);
@@ -288,7 +328,7 @@ mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g_out,
     }
 
     // ---- 1. the stages into registers (and, for dW, into operand tiles)
-    x_to_a(a0, xt, din, kb, ln);
+    x_to_a<KB>(a0, xt, din, kb, ln);
     g_to_a<DW>(gl, gt, dout, brow + L.b_off(NL - 1), ln);
     if constexpr (DW) {
       store_tile(a0t, a0, kb, ln);
@@ -297,71 +337,94 @@ mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g_out,
     }
     named_sync(bar, 128);                // the stage is read
 
-    // ---- 2. the forward: A_{l+1} = bf16(relu(A_l W_l + b_l)) in registers
-    wgmma_fence();
-    mma_layer0(acc, a0, fimg(0), kb);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(acc);
-    relu_to_a(act[0], acc, sbias + L.b_off(0), ln);
-    if constexpr (NL == 3) {
+    // ---- 2. the forward: A_{l+1} = bf16(relu(A_l W_l + b_l)) in registers,
+    // a block of 64 columns at a time
+#pragma unroll
+    for (int cb = 0; cb < NB; ++cb) {
       wgmma_fence();
-      mma_regs<HW>(acc, act[0], fimg(1));
+      mma_cols<KB>(acc, a0, fimg(0), HWP, cb, kb);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
-      relu_to_a(act[1], acc, sbias + L.b_off(1), ln);
+      relu_block(act[0], cb, acc, sbias + L.b_off(0), ln);
+    }
+    if constexpr (NL == 3) {
+#pragma unroll
+      for (int cb = 0; cb < NB; ++cb) {
+        wgmma_fence();
+        mma_cols<S>(acc, act[0], fimg(1), HWP, cb);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        relu_block(act[1], cb, acc, sbias + L.b_off(1), ln);
+      }
     }
     if constexpr (DW) {
 #pragma unroll
-      for (int l = 1; l < NL; ++l) store_tile(aht(l), act[l - 1], HW / 16, ln);
+      for (int l = 1; l < NL; ++l) store_tile(aht(l), act[l - 1], S, ln);
       fence_async_smem();
       named_sync(bar, 128);
     }
 
-    // ---- 3. back through the layers: the last layer's input gradient (one
-    // k-step) and weight gradient
-    wgmma_fence();
-    if constexpr (DW) mma_dw<OW>(dwl, smem_u32(aht(NL - 1)), smem_u32(glt));
-    WgmmaRA<HW, 0>::mma(acc, gl, gmma_desc(bimg(NL - 1), HW * 16, 128), 0);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(acc);
-    if constexpr (DW) fence_regs(dwl);
-    // G_{NL-2} = mask(A_{NL-1}) (G_{NL-1}·W_{NL-1}ᵀ); with dW the mask is
-    // read back from A's tile, so no activation stays in registers
-    if constexpr (DW) load_tile(mask, aht(NL - 1), ln);
-    mask_to_g<DW>(gh, acc, DW ? mask : act[NL - 2], brow + L.b_off(NL - 2), ln);
-    if constexpr (NL == 3) {
-      // the hidden layer: G_0 = mask(A_1) (G_1·W_1ᵀ), dW_1 += A_1ᵀ·G_1
-      if constexpr (DW) {
-        store_tile(ght(1), gh, HW / 16, ln);
-        fence_async_smem();
-        named_sync(bar, 128);
-      }
+    // ---- 3. back through the layers, a block of 64 columns at a time:
+    // G_{NL-2} = mask(A_{NL-1}) (G_{NL-1}·W_{NL-1}ᵀ), one k-step each; 64
+    // wide with dW, the last layer's weight gradient beside it, and the
+    // mask read back from A's tile, so no activation stays in registers
+#pragma unroll
+    for (int cb = 0; cb < NB; ++cb) {
       wgmma_fence();
-      if constexpr (DW) mma_dw<HW>(dwh, smem_u32(aht(1)), smem_u32(ght(1)));
-      mma_regs<HW>(acc, gh, bimg(1));
+      if constexpr (RDW) mma_dw<OW>(dwl, smem_u32(aht(NL - 1)), smem_u32(glt));
+      WgmmaRA<HW, 0>::mma(acc, gl, gmma_desc(bimg(NL - 1) + cb * 1024, HWP * 16, 128), 0);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
-      if constexpr (DW) fence_regs(dwh);
-      if constexpr (DW) load_tile(mask, aht(1), ln);
-      mask_to_g<DW>(gh, acc, DW ? mask : act[0], brow + L.b_off(0), ln);
+      if constexpr (RDW) {
+        fence_regs(dwl);
+        load_tile(mask, aht(NL - 1), ln);
+        mask_to_g<DW>(gc[NL - 2], acc, mask, brow + L.b_off(NL - 2), ln);
+      } else {
+        mask_block<DW>(gc[NL - 2], cb, acc, act[NL - 2], brow + L.b_off(NL - 2), ln);
+      }
+    }
+    if constexpr (NL == 3) {
+      // the hidden layer: G_0 = mask(A_1) (G_1·W_1ᵀ), dW_1 += A_1ᵀ·G_1
+      if constexpr (DW) {
+        store_tile(ght(1), gc[1], S, ln);
+        fence_async_smem();
+        named_sync(bar, 128);
+      }
+#pragma unroll
+      for (int cb = 0; cb < NB; ++cb) {
+        wgmma_fence();
+        if constexpr (RDW) mma_dw<HW>(dwh, smem_u32(aht(1)), smem_u32(ght(1)));
+        mma_cols<S>(acc, gc[1], bimg(1), HWP, cb);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        if constexpr (RDW) {
+          fence_regs(dwh);
+          load_tile(mask, aht(1), ln);
+          mask_to_g<DW>(gc[0], acc, mask, brow + L.b_off(0), ln);
+        } else {
+          mask_block<DW>(gc[0], cb, acc, act[0], brow + L.b_off(0), ln);
+        }
+      }
     }
     if constexpr (DW) {
-      // dW_0ᵀ += G_0ᵀ·A_0, a 16-column block of A_0 at a time
-      store_tile(ght(0), gh, HW / 16, ln);
+      store_tile(ght(0), gc[0], S, ln);
       fence_async_smem();
       named_sync(bar, 128);
+    }
+    if constexpr (RDW) {
+      // dW_0ᵀ += G_0ᵀ·A_0, a 16-column block of A_0 at a time
       wgmma_fence();
 #pragma unroll
-      for (int cb = 0; cb < MAX_KB; ++cb)
+      for (int cb = 0; cb < KB; ++cb)
         if (cb < kb) mma_dw<16>(dw0[cb], smem_u32(ght(0)), smem_u32(a0t) + cb * 2048);
       wgmma_commit();
       wgmma_wait<0>();
 #pragma unroll
-      for (int cb = 0; cb < MAX_KB; ++cb) fence_regs(dw0[cb]);
+      for (int cb = 0; cb < KB; ++cb) fence_regs(dw0[cb]);
     }
 
     // ---- 4. dx = G_0·W_0ᵀ, two 16-column products a group, staged over
@@ -375,9 +438,9 @@ mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g_out,
         for (int u = 0; u < 2; ++u) {
           if (cb + u < kb) {
 #pragma unroll
-            for (int k = 0; k < HW / 16; ++k)
+            for (int k = 0; k < S; ++k)
               WgmmaRA<16, 0>::mma(
-                  d[u], gh[k],
+                  d[u], gc[0][k],
                   gmma_desc(bimg(0) + 2 * k * L.kp * 16 + (cb + u) * 256, L.kp * 16, 128),
                   k > 0 ? 1 : 0);
           }
@@ -413,33 +476,94 @@ mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g_out,
         }
       }
     }
-  }
-  if (elected) bulk_wait();
 
-  if constexpr (DW) {
-    // the block's partial row: its warpgroups' weight sums in order, then
-    // the bias rows of every warp in order
-    float* wrow = wpart + (long long)blockIdx.x * L.fwd_elems();
-    for (int w = 0; w < wgs; ++w) {
-      if (ln.wg == w) {
-        // dW_0 [kp, HW] from the blocks of dW_0ᵀ: (16cb + 8j + cq + e, r0 + 8h)
+    // ---- 5. wider nets: this tile's weight gradients from the operand
+    // tiles, block by block into the warpgroup's partial row
+    if constexpr (FLUSH) {
+#pragma unroll 1
+      for (int hb = 0; hb < NB; ++hb) {
+        const uint32_t a_last = smem_u32(aht(NL - 1)) + hb * 8 * 1024;
+        {   // dW_{NL-1} rows 64hb ..: A_{NL-1}ᵀ·G_{NL-1}
+          float d[OW / 2];
 #pragma unroll
-        for (int cb = 0; cb < MAX_KB; ++cb) {
-          if (cb >= kb) continue;
+          for (int i = 0; i < OW / 2; ++i) d[i] = 0.0f;
+          wgmma_fence();
+          mma_dw<OW>(d, a_last, smem_u32(glt));
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(d);
+          add_rows(wrow + L.fw_off(NL - 1) + hb * HW * OW, OW, d, false, ln);
+        }
+        if constexpr (NL == 3) {
+          // dW_1 block (hb, nb): A_1ᵀ·G_1
+#pragma unroll 1
+          for (int nb = 0; nb < NB; ++nb) {
+            float d[HW / 2];
+#pragma unroll
+            for (int i = 0; i < HW / 2; ++i) d[i] = 0.0f;
+            wgmma_fence();
+            mma_dw<HW>(d, smem_u32(aht(1)) + hb * 8 * 1024, smem_u32(ght(1)) + nb * 8 * 1024);
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(d);
+            add_rows(wrow + L.fw_off(1) + hb * HW * HWP + nb * HW, HWP, d, false, ln);
+          }
+        }
+        // dW_0ᵀ rows 64hb ..: G_0ᵀ·A_0, a 16-column block of A_0 at a time
+#pragma unroll 1
+        for (int cb = 0; cb < kb; ++cb) {
+          float d[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) d[i] = 0.0f;
+          wgmma_fence();
+          mma_dw<16>(d, smem_u32(ght(0)) + hb * 8 * 1024, smem_u32(a0t) + cb * 2048);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(d);
 #pragma unroll
           for (int j = 0; j < 2; ++j)
 #pragma unroll
             for (int h = 0; h < 2; ++h)
 #pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                float* p = wrow + L.fw_off(0) + (16 * cb + 8 * j + ln.cq + e) * HW + ln.r0 + 8 * h;
-                const float v = dw0[cb][4 * j + 2 * h + e];
-                *p = w == 0 ? v : *p + v;
-              }
+              for (int e = 0; e < 2; ++e)
+                wrow[L.fw_off(0) + (16 * cb + 8 * j + ln.cq + e) * HWP + hb * HW + ln.r0 +
+                     8 * h] += d[4 * j + 2 * h + e];
         }
-        if constexpr (NL == 3) add_rows(wrow + L.fw_off(1), HW, dwh, w == 0, ln);
-        add_rows(wrow + L.fw_off(NL - 1), OW, dwl, w == 0, ln);
       }
+      named_sync(bar, 128);              // the operand tiles are read
+    }
+  }
+  if (elected) bulk_wait();
+
+  if constexpr (DW) {
+    // the block's partial row: 64 wide, its warpgroups' weight sums in
+    // order; then the bias rows of every warp in order
+    if constexpr (RDW) {
+      float* brow_w = wpart + (long long)blockIdx.x * L.fwd_elems();
+      for (int w = 0; w < wgs; ++w) {
+        if (ln.wg == w) {
+          // dW_0 [kp, HW] from the blocks of dW_0ᵀ: (16cb + 8j + cq + e, r0 + 8h)
+#pragma unroll
+          for (int cb = 0; cb < KB; ++cb) {
+            if (cb >= kb) continue;
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+#pragma unroll
+              for (int h = 0; h < 2; ++h)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  float* p = brow_w + L.fw_off(0) + (16 * cb + 8 * j + ln.cq + e) * HW + ln.r0 +
+                             8 * h;
+                  const float v = dw0[cb][4 * j + 2 * h + e];
+                  *p = w == 0 ? v : *p + v;
+                }
+          }
+          if constexpr (NL == 3) add_rows(brow_w + L.fw_off(1), HW, dwh, w == 0, ln);
+          add_rows(brow_w + L.fw_off(NL - 1), OW, dwl, w == 0, ln);
+        }
+        __syncthreads();
+      }
+    } else {
       __syncthreads();
     }
     for (int c = threadIdx.x; c < L.n_bias(); c += blockDim.x) {
@@ -450,48 +574,53 @@ mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g_out,
   }
 }
 
-// Warpgroups a block of the backward: as many as fit, up to its maximum.
-static int bwd_wgs(const Layout& L, bool dw) {
-  const BwdSmem S(L, dw);
-  int wgs = bwd_max_wgs(L.nl, dw);
-  while (wgs > 0 && S.total(wgs) > 232448) --wgs;
-  return wgs;
+// Weight-gradient partial rows a block writes: one (its warpgroups' sums
+// in order) 64 wide, one a warpgroup wider.
+static int wpart_rows(const Layout& L, int wgs) { return L.hw == HW ? 1 : wgs; }
+
+// (warpgroups, stages) of the backward's blocks: as many warpgroups as
+// fit, up to bwd_max_wgs, two stages each; one stage where two do not fit
+// one warpgroup (the wider nets with weight gradients).
+static int2 bwd_plan(const Layout& L, bool dw) {
+  return plan_blocks([&](int wgs, int ns) { return BwdSmem(L, dw, ns).total(wgs); }, L.hw,
+                     bwd_max_wgs(L.nl, dw, L.hw), 2);
 }
 
-template <int NL, bool DW, bool DX>
+template <int NL, bool DW, bool DX, int HWP>
 static int launch(const float* x, const float* g, float* dx, const void* img, const float* bias,
-                  float* wpart, float* bpart, long long n_rows, int din, int dout, int blocks,
-                  int wgs, cudaStream_t s) {
-  auto k = mlp_bwd_kernel<NL, DW, DX>;
-  const int smem = BwdSmem(Layout(din, dout, NL), DW).total(wgs);
+                  float* wpart, float* bpart, long long n_rows, const Layout& L, int blocks,
+                  int2 plan, cudaStream_t s) {
+  auto k = mlp_bwd_kernel<NL, DW, DX, HWP>;
+  const int smem = BwdSmem(L, DW, plan.y).total(plan.x);
   cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const int in_al = (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
                     (reinterpret_cast<uintptr_t>(g) & 15) == 0;
   const int dx_al = (reinterpret_cast<uintptr_t>(dx) & 15) == 0;
-  k<<<(unsigned)blocks, 128 * wgs, smem, s>>>(x, g, dx, reinterpret_cast<const bf16*>(img), bias,
-                                              wpart, bpart, n_rows, din, dout, in_al, dx_al);
+  k<<<(unsigned)blocks, 128 * plan.x, smem, s>>>(x, g, dx, reinterpret_cast<const bf16*>(img),
+                                                  bias, wpart, bpart, n_rows, L.din, L.dout,
+                                                  plan.y, in_al, dx_al);
   return (int)cudaGetLastError();
 }
 
-template <int NL>
+template <int NL, int HWP>
 static int run(const float* x, const float* g, float* dx, const void* img, const float* bias,
-               float* wpart, float* bpart, float* dw, float* db, long long n_rows, int din,
-               int dout, int blocks, int wgs, cudaStream_t s) {
+               float* wpart, float* bpart, float* dw, float* db, long long n_rows,
+               const Layout& L, int blocks, cudaStream_t s) {
   const bool need_dw = wpart != nullptr, need_dx = dx != nullptr;
+  const int2 plan = bwd_plan(L, need_dw);
   int err;
   if (need_dw && need_dx)
-    err = launch<NL, true, true>(x, g, dx, img, bias, wpart, bpart, n_rows, din, dout, blocks,
-                                 wgs, s);
+    err = launch<NL, true, true, HWP>(x, g, dx, img, bias, wpart, bpart, n_rows, L, blocks,
+                                      plan, s);
   else if (need_dw)
-    err = launch<NL, true, false>(x, g, dx, img, bias, wpart, bpart, n_rows, din, dout, blocks,
-                                  wgs, s);
+    err = launch<NL, true, false, HWP>(x, g, dx, img, bias, wpart, bpart, n_rows, L, blocks,
+                                       plan, s);
   else
-    err = launch<NL, false, true>(x, g, dx, img, bias, wpart, bpart, n_rows, din, dout, blocks,
-                                  wgs, s);
+    err = launch<NL, false, true, HWP>(x, g, dx, img, bias, wpart, bpart, n_rows, L, blocks,
+                                       plan, s);
   if (err || !need_dw) return err;
-  const Layout L(din, dout, NL);
-  err = column_sum(wpart, blocks, L.fwd_elems(), dw, s);
+  err = column_sum(wpart, (long long)blocks * wpart_rows(L, plan.x), L.fwd_elems(), dw, s);
   if (err) return err;
   return column_sum(bpart, blocks, L.n_bias(), db, s);
 }
@@ -500,48 +629,57 @@ static int run(const float* x, const float* g, float* dx, const void* img, const
 }  // namespace cropnerf
 
 // Sizes of the backward for a net x [N, din] -> n_layers layers -> dout,
-// with or without weight gradients: out[0] the elements of the weight
-// images (bf16; both halves of mlp_images), out[1] the padded biases,
-// out[2] and out[3] a block's partial row of weight and bias gradients
-// (layer l's padded weight [K, width] at its forward image's offset, its
-// bias at l·64), out[4] the dynamic shared memory, out[5] the warpgroups a
-// block.  Returns 0, or -1 for a net the kernel does not take.
-extern "C" int cropnerf_mlp_bwd_layout(int din, int dout, int n_layers, int need_dw,
+// hidden layers padded to hw, with or without weight gradients: out[0] the
+// elements of the weight images (bf16; both halves of mlp_images), out[1]
+// the padded biases, out[2] and out[3] a partial row of weight and bias
+// gradients (layer l's padded weight [K, width] at its forward image's
+// offset, its bias at l·hw), out[4] the dynamic shared memory, out[5] the
+// warpgroups a block, out[6] the weight partial rows a block writes (the
+// caller zeroes them for hw > 64), out[7] the x and g stages a warpgroup.
+// Returns 0, or -1 for a net the kernel does not take.
+extern "C" int cropnerf_mlp_bwd_layout(int din, int dout, int n_layers, int hw, int need_dw,
                                        long long* out) {
   using namespace cropnerf::mlp;
-  const Layout L(din, dout, n_layers);
+  const Layout L(din, dout, n_layers, hw);
   if (!L.ok()) return -1;
-  const int wgs = bwd_wgs(L, need_dw != 0);
-  if (wgs < 1) return -1;
+  const int2 plan = bwd_plan(L, need_dw != 0);
+  if (plan.x < 1) return -1;
   out[0] = 2 * L.fwd_elems();
   out[1] = L.n_bias();
   out[2] = L.fwd_elems();
   out[3] = L.n_bias();
-  out[4] = BwdSmem(L, need_dw != 0).total(wgs);
-  out[5] = wgs;
+  out[4] = BwdSmem(L, need_dw != 0, plan.y).total(plan.x);
+  out[5] = plan.x;
+  out[6] = wpart_rows(L, plan.x);
+  out[7] = plan.y;
   return 0;
 }
 
 // The backward on `stream`: x [n_rows, din], g [n_rows, dout]; img and bias
-// as mlp_images builds them.  A null dx skips dx; null wpart, bpart, dw and
-// db skip the weight gradients, otherwise wpart and bpart hold `blocks`
-// rows of the partial sizes and dw, db receive the padded f32 gradients.
-// Returns a cudaError_t (0 on success).
+// as mlp_images builds them for hidden width hw.  A null dx skips dx; null
+// wpart, bpart, dw and db skip the weight gradients, otherwise wpart holds
+// `blocks` x out[6] rows and bpart `blocks` rows of the partial sizes, and
+// dw, db receive the padded f32 gradients.  Returns a cudaError_t (0 on
+// success).
 extern "C" int cropnerf_mlp_bwd(const float* x, const float* g, float* dx, const void* img,
-                                const float* bias, int din, int dout, int n_layers,
+                                const float* bias, int din, int dout, int n_layers, int hw,
                                 long long n_rows, int blocks, float* wpart, float* bpart,
                                 float* dw, float* db, void* stream) {
   using namespace cropnerf::mlp;
-  const Layout L(din, dout, n_layers);
+  const Layout L(din, dout, n_layers, hw);
   const bool need_dw = wpart != nullptr;
   if (!L.ok() || (need_dw && (bpart == nullptr || dw == nullptr || db == nullptr)) ||
       (!need_dw && dx == nullptr) || blocks < 1 || n_rows < 0)
     return (int)cudaErrorInvalidValue;
-  const int wgs = bwd_wgs(L, need_dw);
-  if (wgs < 1) return (int)cudaErrorInvalidValue;
+  if (bwd_plan(L, need_dw).x < 1) return (int)cudaErrorInvalidValue;
   if (n_rows == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (n_layers == 2)
-    return run<2>(x, g, dx, img, bias, wpart, bpart, dw, db, n_rows, din, dout, blocks, wgs, s);
-  return run<3>(x, g, dx, img, bias, wpart, bpart, dw, db, n_rows, din, dout, blocks, wgs, s);
+  if (n_layers == 3)
+    return hw == 64 ? run<3, 64>(x, g, dx, img, bias, wpart, bpart, dw, db, n_rows, L, blocks, s)
+                    : run<3, 128>(x, g, dx, img, bias, wpart, bpart, dw, db, n_rows, L, blocks,
+                                  s);
+  if (hw == 64) return run<2, 64>(x, g, dx, img, bias, wpart, bpart, dw, db, n_rows, L, blocks, s);
+  if (hw == 128)
+    return run<2, 128>(x, g, dx, img, bias, wpart, bpart, dw, db, n_rows, L, blocks, s);
+  return run<2, 256>(x, g, dx, img, bias, wpart, bpart, dw, db, n_rows, L, blocks, s);
 }

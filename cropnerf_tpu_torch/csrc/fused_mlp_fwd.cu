@@ -2,60 +2,77 @@
 //
 // Replaces cropnerf_tpu/ops/pallas/fused_mlp.py _fwd_kernel (the forward
 // of fused_mlp): x [N, din] f32 through a relu MLP of 2 or 3 layers whose
-// hidden layers are at most 64 wide, with din at most 128 and at most 16
-// outputs, into [N, dout] f32.  Other nets take the wmma route of
-// fused_mlp.cu (ops/cuda/fused_mlp.py fused_mlp_route picks it by shape).
+// hidden layers are padded to HWP = 64, 128 or 256 columns, with din at
+// most 256 and at most 16 outputs, into [N, dout] f32: every head of the
+// cropnerf-mxu family (64 wide in -mxu and -q; 128 and 256 in -big and
+// -huge).  Nets whose images do not fit shared memory take the wmma route
+// of fused_mlp.cu (ops/cuda/fused_mlp.py fused_mlp_route picks it by
+// shape).
 //
 // Arithmetic, as the TPU kernel: x rounded to bf16; each hidden layer a
 // bf16 product with f32 sums plus the f32 bias, relu, rounded to bf16; the
 // last layer a product plus its f32 bias, stored f32.
 //
-// Bound on an H100: bytes.  The colour head [N, 74] -> 64 -> 3 takes ~5
-// kMAC a row against 308 bytes of x and output, the semantic head [N, 15]
-// -> 64 -> 1 ~1 kMAC against 64 bytes: ~33 and ~32 FLOP a byte, far below
-// the card's ~295.  So the kernel reads x once and writes y once, keeps
-// every bulk copy of x in flight a tile ahead and spends no shared-memory
-// round trip on the hidden layers.
+// Bound on an H100: bytes for the colour heads, about even for the wide
+// semantic head.  [N, 74] -> 64 -> 3 takes ~5 kMAC a row against 308
+// bytes of x and output (~33 FLOP a byte), -huge's [N, 89] -> 256 -> 3
+// ~24 kMAC against 368 bytes (~128), -big's [N, 185] -> 128 -> 3 ~24 kMAC
+// against 752 (~63), all below the card's ~295; the semantic head
+// [N, 30] -> 128 -> 128 -> 1 ~21 kMAC against 124 bytes (~332).  So the
+// kernel reads x once and writes y once, keeps bulk copies of x in flight
+// ahead of the tile it computes and spends no shared-memory round trip on
+// the hidden layers.
 //
-// Design.  Persistent blocks, one per SM, of up to four warpgroups (as
-// many as shared memory holds for din); every warpgroup takes 64-row tiles
-// in a fixed order (tile = its global index + k x the warpgroups in the
-// grid).  The net's forward images (mlp_images: the first half of the
-// image the backward also reads) and the biases stay in shared memory for
-// the kernel's life.  Per tile a warpgroup:
+// Design.  Persistent blocks, one per SM, of up to four warpgroups (three
+// for the wider nets, for their registers; as many as shared memory holds
+// for din); every warpgroup takes 64-row tiles in a fixed
+// order (tile = its global index + k x the warpgroups in the grid).  The
+// net's forward images (mlp_images: the first half of the image the
+// backward also reads) and the biases stay in shared memory for the
+// kernel's life.  Per tile a warpgroup:
 //   1. waits for its x tile, a contiguous 256·din bytes that one thread
-//      bulk-copied into one of two stages while the previous tile ran
-//      (the ragged last tile, or an x not 16-byte aligned, is loaded by
-//      the warpgroup's threads, rows past N as zero);
+//      bulk-copied into one of its `ns` stages (two; up to four where one
+//      warpgroup fills the block, as for -big's 47 KB tiles) while the
+//      tiles before it ran (the ragged last tile, or an x not 16-byte
+//      aligned, is loaded by the warpgroup's threads, rows past N as zero);
 //   2. converts its rows straight into the register A operand of layer 0
-//      (bf16 pairs, columns past din zero) and runs layer 0 as wgmma
-//      m64n64, din/16 k-steps;
-//   3. adds the bias, applies relu and rounds in registers, feeding the
-//      next product from registers; the last layer is m64n16;
+//      (bf16 pairs, columns past din zero);
+//   3. runs each hidden layer in blocks of 64 columns (wgmma m64n64,
+//      din/16 or HWP/16 k-steps), adding the bias, applying relu and
+//      rounding in registers; the last hidden layer's blocks feed the last
+//      layer's product (m64n16) one block at a time, under the product of
+//      the next block, so no activation wider than 64 columns is ever held
+//      whole but a 3-layer net's first (the A operand of its second);
 //   4. adds the last bias and stages the [64, dout] rows, which one thread
 //      writes back with one bulk store (the ragged last tile, or an output
 //      not 16-byte aligned, is stored by the threads that hold the rows).
+// The 64-wide nets run one block of columns, two stages, four warpgroups.
 #include "wgmma_mlp.cuh"
 
 namespace cropnerf {
 namespace mlp {
 
-constexpr int FWD_MAX_WGS = 4;         // warpgroups a block, at most
+// Warpgroups a block, at most: four for the 64-wide nets, three wider (the
+// A operand of layer 0, a 3-layer net's first hidden layer and a block's
+// products within 168 registers a thread; four spill).
+__host__ __device__ constexpr int fwd_max_wgs(int hwp) { return hwp == HW ? 4 : 3; }
 
-template <int NL>
-__global__ void __launch_bounds__(128 * FWD_MAX_WGS, 1)
+template <int NL, int HWP>
+__global__ void __launch_bounds__(128 * fwd_max_wgs(HWP), 1)
 mlp_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
                const bf16* __restrict__ img, const float* __restrict__ bias, long long n_rows,
-               int din, int dout, int x_al, int out_al) {
-  const Layout L(din, dout, NL);
-  const FwdSmem S(L);
+               int din, int dout, int ns_arg, int x_al, int out_al) {
+  constexpr int KB = max_kb(NL, HWP), NB = HWP / HW;
+  const int ns = stages<HWP>(ns_arg);
+  const Layout L(din, dout, NL, HWP);
+  const FwdSmem S(L, ns);
   extern __shared__ __align__(128) unsigned char smem[];
   const Lane ln;
   const int wgs = blockDim.x >> 7;
   const int xb = L.x_bytes(), ob = L.o_bytes();
   unsigned char* reg = smem + S.wg_at + ln.wg * S.wg_bytes;
-  float* ostage = reinterpret_cast<float*>(reg + 2 * xb);
-  uint64_t* full = reinterpret_cast<uint64_t*>(reg + 2 * xb + ob);
+  float* ostage = reinterpret_cast<float*>(reg + ns * xb);
+  uint64_t* full = reinterpret_cast<uint64_t*>(reg + ns * xb + ob);
   const float* sbias = reinterpret_cast<const float*>(smem + S.bias_at);
   const uint32_t s_img = smem_u32(smem);
   const int bar = 1 + ln.wg;
@@ -69,8 +86,7 @@ mlp_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
     float* b = reinterpret_cast<float*>(smem + S.bias_at);
     for (int i = threadIdx.x; i < L.n_bias(); i += blockDim.x) b[i] = __ldg(bias + i);
     if (elected) {
-      mbar_init(&full[0], 1);
-      mbar_init(&full[1], 1);
+      for (int s = 0; s < ns; ++s) mbar_init(&full[s], 1);
       mbar_fence_init();
     }
   }
@@ -93,47 +109,67 @@ mlp_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
     }
   };
   long long tile = (long long)blockIdx.x * wgs + ln.wg;
-  if (elected) issue(tile, 0);
+  if (elected)
+    for (int s = 0; s + 1 < ns; ++s) issue(tile + s * stride, s);
 
+  const uint32_t w0 = s_img + L.fw_off(0) * 2, wl = s_img + L.fw_off(NL - 1) * 2;
   float acc[HW / 2];
   float acc_out[OW / 2];
-  uint32_t a[HW / 16][4];
-  uint32_t a0[MAX_KB][4];
+  uint32_t blk[HW / 16][4];
+  uint32_t a0[KB][4];
+  uint32_t a1[NL == 3 ? HWP / 16 : 1][4];
   for (int it = 0; tile < n_tiles; tile += stride, ++it) {
-    const int s = it & 1;
+    const int s = it % ns;
     const long long row0 = tile * ROWS;
     float* xt = reinterpret_cast<float*>(reg + s * xb);
-    if (elected) issue(tile + stride, s ^ 1);   // the next tile, under this one
-    mbar_wait(&full[s], (it >> 1) & 1);
+    // the tile ns - 1 ahead, under this one, into the stage the last read
+    if (elected) issue(tile + (ns - 1) * stride, (it + ns - 1) % ns);
+    mbar_wait(&full[s], (it / ns) & 1);
     if (!bulk_in(tile)) {
       load_rows(xt, x, row0, din, n_rows, ln);
       named_sync(bar, 128);
     }
 
-    // ---- 1. layer 0 from registers
-    x_to_a(a0, xt, din, kb, ln);
+    // ---- 1. layer 0 from registers: a 3-layer net's whole first layer,
+    // block by block, the A operand of its second
+    x_to_a<KB>(a0, xt, din, kb, ln);
+    if constexpr (NL == 3) {
+#pragma unroll
+      for (int cb = 0; cb < NB; ++cb) {
+        wgmma_fence();
+        mma_cols<KB>(acc, a0, w0, HWP, cb, kb);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        relu_block(a1, cb, acc, sbias + L.b_off(0), ln);
+      }
+    }
+    // ---- 2. the last hidden layer's first block, then block by block its
+    // activation into the last layer's product, under the next block's
+    const int lh = NL - 2;
+    const uint32_t wh = s_img + L.fw_off(lh) * 2;
+    auto hidden = [&](int cb) {
+      if constexpr (NL == 3)
+        mma_cols<HWP / 16>(acc, a1, wh, HWP, cb);
+      else
+        mma_cols<KB>(acc, a0, wh, HWP, cb, kb);
+    };
     wgmma_fence();
-    mma_layer0(acc, a0, s_img + L.fw_off(0) * 2, kb);
+    hidden(0);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
-
-    // ---- 2. the hidden layers from registers, then the last layer
 #pragma unroll
-    for (int l = 1; l < NL - 1; ++l) {
-      relu_to_a(a, acc, sbias + L.b_off(l - 1), ln);
+    for (int cb = 0; cb < NB; ++cb) {
+      relu_to_a(blk, acc, sbias + L.b_off(lh) + cb * HW, ln);
       wgmma_fence();
-      mma_regs<HW>(acc, a, s_img + L.fw_off(l) * 2);
+      mma_out(acc_out, blk, wl, cb);
+      if (cb + 1 < NB) hidden(cb + 1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
+      fence_regs(acc_out);
     }
-    relu_to_a(a, acc, sbias + L.b_off(NL - 2), ln);
-    wgmma_fence();
-    mma_regs<OW>(acc_out, a, s_img + L.fw_off(NL - 1) * 2);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(acc_out);
 
     // ---- 3. the last bias; the rows staged for one bulk store, or stored
     // by the threads that hold them
@@ -168,62 +204,70 @@ mlp_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
   if (elected) bulk_wait();
 }
 
-template <int NL>
+template <int NL, int HWP>
 static int launch(const float* x, float* out, const void* img, const float* bias,
-                  long long n_rows, int din, int dout, int blocks, int wgs, cudaStream_t s) {
-  auto k = mlp_fwd_kernel<NL>;
-  const int smem = FwdSmem(Layout(din, dout, NL)).total(wgs);
+                  long long n_rows, const Layout& L, int blocks, int2 plan, cudaStream_t s) {
+  auto k = mlp_fwd_kernel<NL, HWP>;
+  const int smem = FwdSmem(L, plan.y).total(plan.x);
   cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const int x_al = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
   const int out_al = (reinterpret_cast<uintptr_t>(out) & 15) == 0;
-  k<<<(unsigned)blocks, 128 * wgs, smem, s>>>(x, out, reinterpret_cast<const bf16*>(img), bias,
-                                              n_rows, din, dout, x_al, out_al);
+  k<<<(unsigned)blocks, 128 * plan.x, smem, s>>>(x, out, reinterpret_cast<const bf16*>(img),
+                                                  bias, n_rows, L.din, L.dout, plan.y, x_al,
+                                                  out_al);
   return (int)cudaGetLastError();
 }
 
-// Warpgroups a block of the forward: as many as fit, up to FWD_MAX_WGS.
-static int fwd_wgs(const Layout& L) {
-  const FwdSmem S(L);
-  int wgs = FWD_MAX_WGS;
-  while (wgs > 0 && S.total(wgs) > 232448) --wgs;
-  return wgs;
+// (warpgroups, stages) of the forward's blocks: as many warpgroups as fit,
+// up to fwd_max_wgs, two stages each; a lone warpgroup of a wider net
+// takes up to four stages.
+static int2 fwd_plan(const Layout& L) {
+  return plan_blocks([&](int wgs, int ns) { return FwdSmem(L, ns).total(wgs); }, L.hw,
+                     fwd_max_wgs(L.hw), 4);
 }
 
 }  // namespace mlp
 }  // namespace cropnerf
 
-// Sizes of the forward for a net x [N, din] -> n_layers layers -> dout:
-// out[0] the elements of the forward images it reads (bf16; the first
-// half of mlp_images' image), out[1] the padded biases, out[2] the dynamic
-// shared memory, out[3] the warpgroups a block.  Returns 0, or -1 for a
-// net the kernel does not take.
-extern "C" int cropnerf_mlp_fwd_layout(int din, int dout, int n_layers, long long* out) {
+// Sizes of the forward for a net x [N, din] -> n_layers layers -> dout,
+// hidden layers padded to hw: out[0] the elements of the forward images it
+// reads (bf16; the first half of mlp_images' image), out[1] the padded
+// biases, out[2] the dynamic shared memory, out[3] the warpgroups a block,
+// out[4] the x stages a warpgroup.  Returns 0, or -1 for a net the kernel
+// does not take.
+extern "C" int cropnerf_mlp_fwd_layout(int din, int dout, int n_layers, int hw,
+                                       long long* out) {
   using namespace cropnerf::mlp;
-  const Layout L(din, dout, n_layers);
+  const Layout L(din, dout, n_layers, hw);
   if (!L.ok()) return -1;
-  const int wgs = fwd_wgs(L);
-  if (wgs < 1) return -1;
+  const int2 plan = fwd_plan(L);
+  if (plan.x < 1) return -1;
   out[0] = L.fwd_elems();
   out[1] = L.n_bias();
-  out[2] = FwdSmem(L).total(wgs);
-  out[3] = wgs;
+  out[2] = FwdSmem(L, plan.y).total(plan.x);
+  out[3] = plan.x;
+  out[4] = plan.y;
   return 0;
 }
 
 // The forward on `stream`: x [n_rows, din] -> out [n_rows, dout] f32, with
-// `blocks` persistent blocks; img and bias as mlp_images builds them.
-// Returns a cudaError_t (0 on success).
+// `blocks` persistent blocks; img and bias as mlp_images builds them for
+// hidden width hw.  Returns a cudaError_t (0 on success).
 extern "C" int cropnerf_mlp_fwd(const float* x, float* out, const void* img, const float* bias,
-                                int din, int dout, int n_layers, long long n_rows, int blocks,
-                                void* stream) {
+                                int din, int dout, int n_layers, int hw, long long n_rows,
+                                int blocks, void* stream) {
   using namespace cropnerf::mlp;
-  const Layout L(din, dout, n_layers);
+  const Layout L(din, dout, n_layers, hw);
   if (!L.ok() || blocks < 1 || n_rows < 0) return (int)cudaErrorInvalidValue;
-  const int wgs = fwd_wgs(L);
-  if (wgs < 1) return (int)cudaErrorInvalidValue;
+  const int2 plan = fwd_plan(L);
+  if (plan.x < 1) return (int)cudaErrorInvalidValue;
   if (n_rows == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (n_layers == 2) return launch<2>(x, out, img, bias, n_rows, din, dout, blocks, wgs, s);
-  return launch<3>(x, out, img, bias, n_rows, din, dout, blocks, wgs, s);
+  if (n_layers == 3)
+    return hw == 64 ? launch<3, 64>(x, out, img, bias, n_rows, L, blocks, plan, s)
+                    : launch<3, 128>(x, out, img, bias, n_rows, L, blocks, plan, s);
+  if (hw == 64) return launch<2, 64>(x, out, img, bias, n_rows, L, blocks, plan, s);
+  if (hw == 128) return launch<2, 128>(x, out, img, bias, n_rows, L, blocks, plan, s);
+  return launch<2, 256>(x, out, img, bias, n_rows, L, blocks, plan, s);
 }

@@ -3,15 +3,17 @@
 // vanilla field's heads' forward and backward (fused_mlp_fwd.cu,
 // fused_mlp_bwd.cu).
 //
-// A net of NL layers is padded to hidden width HW and output width OW and
-// kept in shared memory as weight images (ops/cuda/fused_mlp.py
+// A net of NL layers is padded to hidden width HW (the heads' nets: HWP,
+// a multiple of HW) and output width OW and kept in shared memory as
+// weight images (ops/cuda/fused_mlp.py
 // mlp_images, ops/cuda/fused_pe_field.py pe_mlp_images): first every
 // layer's forward image (element (k, n) of the [K, width] weight at
 // (k/8)·width·8 + n·8 + k%8, the K-major core matrices of a wgmma B
 // operand), then the backward's input-gradient images of Wᵀ (element
 // (n, k) at (n/8)·K·8 + k·8 + n%8); the biases padded alike, layer after
-// layer.  K is HW for every layer of the PE nets and for the heads' hidden
-// and last layers; the heads' layer 0 takes the padded input width KP.  A
+// layer.  K is HW for every layer of the PE nets, HWP for the heads'
+// hidden and last layers; the heads' layer 0 takes the padded input width
+// KP.  A
 // warpgroup works on 64-row tiles, kept chunk-major where they are
 // operands in shared memory (wgmma_layers.cuh), and feeds each hidden
 // layer's bf16 activations to the next product from registers.
@@ -124,27 +126,36 @@ namespace mlp {
 
 using namespace pemlp;
 
-constexpr int MAX_DIN = 128;           // input columns the heads' kernels take
-constexpr int MAX_KB = MAX_DIN / 16;   // 16-column k-steps of layer 0
+// The heads' nets (fused_mlp): x [N, din] through NL layers, every hidden
+// layer padded to HWP (64, 128 or 256 columns: the host's
+// ops/cuda/fused_mlp.py mlp_hidden_pad), dout padded to OW, layer 0
+// taking kp = din padded to 16.  A wide layer runs in blocks of HW = 64
+// columns, each a wgmma m64n64 product.  The weight images: forward images
+// of layers 0 .. NL-1, then the input-gradient images in the same order
+// and sizes.  Layer 0's A operand stays in registers, max_kb 16-column
+// k-steps of it: 8 (din up to 128) for the 64-wide nets and every 3-layer
+// net, 16 (din up to 256) for the wider 2-layer nets.  No 3-layer net 256
+// wide fits shared memory.
+__host__ __device__ constexpr int max_kb(int nl, int hwp) { return hwp == HW || nl == 3 ? 8 : 16; }
 
-// The heads' nets (fused_mlp): x [N, din] through NL layers, hidden widths
-// padded to HW, dout padded to OW, layer 0 taking kp = din padded to 16.
-// The weight images: forward images of layers 0 .. NL-1, then the
-// input-gradient images in the same order and sizes.
 struct Layout {
-  int din, kp, dout, nl;
-  __host__ __device__ Layout(int din_, int dout_, int nl_)
-      : din(din_), kp((din_ + 15) & ~15), dout(dout_), nl(nl_) {}
-  __host__ __device__ int fw_off(int l) const { return l == 0 ? 0 : kp * HW + (l - 1) * HW * HW; }
-  __host__ __device__ int fwd_elems() const { return fw_off(nl - 1) + HW * OW; }
+  int din, kp, dout, nl, hw;
+  __host__ __device__ Layout(int din_, int dout_, int nl_, int hw_)
+      : din(din_), kp((din_ + 15) & ~15), dout(dout_), nl(nl_), hw(hw_) {}
+  __host__ __device__ int fw_off(int l) const { return l == 0 ? 0 : kp * hw + (l - 1) * hw * hw; }
+  __host__ __device__ int fwd_elems() const { return fw_off(nl - 1) + hw * OW; }
   __host__ __device__ int bw_off(int l) const { return fwd_elems() + fw_off(l); }
-  __host__ __device__ int b_off(int l) const { return l * HW; }
-  __host__ __device__ int n_bias() const { return (nl - 1) * HW + OW; }
+  __host__ __device__ int b_off(int l) const { return l * hw; }
+  __host__ __device__ int n_bias() const { return (nl - 1) * hw + OW; }
   // a 64-row tile of x, of g (or the output): contiguous rows
   __host__ __device__ int x_bytes() const { return ROWS * din * 4; }
   __host__ __device__ int o_bytes() const { return ROWS * dout * 4; }
+  // a 64-row chunk-major bf16 tile of a hidden layer
+  __host__ __device__ int tile_bytes() const { return ROWS * hw * 2; }
   __host__ __device__ bool ok() const {
-    return din >= 1 && din <= MAX_DIN && dout >= 1 && dout <= OW && (nl == 2 || nl == 3);
+    const bool width = hw == 64 || hw == 128 || (hw == 256 && nl == 2);
+    return width && din >= 1 && din <= 16 * max_kb(nl, hw) && dout >= 1 && dout <= OW &&
+           (nl == 2 || nl == 3);
   }
 };
 
@@ -157,10 +168,11 @@ __device__ __forceinline__ uint32_t x_pair(const float* t, int r, int c, int din
 
 // Layer 0's register A operand from a row-major f32 tile: k-step s holds
 // columns 16s .. 16s + 15 of the calling thread's rows.
-__device__ __forceinline__ void x_to_a(uint32_t (&a)[MAX_KB][4], const float* t, int din, int kb,
+template <int KB>
+__device__ __forceinline__ void x_to_a(uint32_t (&a)[KB][4], const float* t, int din, int kb,
                                        const Lane& ln) {
 #pragma unroll
-  for (int s = 0; s < MAX_KB; ++s) {
+  for (int s = 0; s < KB; ++s) {
     if (s < kb) {
       const int c = 16 * s + ln.cq;
       a[s][0] = x_pair(t, ln.r0, c, din);
@@ -171,13 +183,42 @@ __device__ __forceinline__ void x_to_a(uint32_t (&a)[MAX_KB][4], const float* t,
   }
 }
 
-// acc (=) A·W_0 over kb k-steps, A in registers, W_0 the [kp, HW] image.
-__device__ __forceinline__ void mma_layer0(float (&acc)[HW / 2], const uint32_t (&a)[MAX_KB][4],
-                                           uint32_t w0, int kb) {
+// acc (=) A·B over columns 64cb .. 64cb + 63 of B: A in registers, its
+// first `steps` 16-column k-steps; B a weight image (K-major core
+// matrices) `width` columns wide.
+template <int S>
+__device__ __forceinline__ void mma_cols(float (&acc)[HW / 2], const uint32_t (&a)[S][4],
+                                         uint32_t b, int width, int cb, int steps = S) {
 #pragma unroll
-  for (int s = 0; s < MAX_KB; ++s)
-    if (s < kb)
-      WgmmaRA<HW, 0>::mma(acc, a[s], gmma_desc(w0 + 2 * s * HW * 16, HW * 16, 128), s > 0 ? 1 : 0);
+  for (int s = 0; s < S; ++s)
+    if (s < steps)
+      WgmmaRA<HW, 0>::mma(acc, a[s],
+                          gmma_desc(b + 2 * s * width * 16 + cb * 1024, width * 16, 128),
+                          s > 0 ? 1 : 0);
+}
+
+// acc (+)= A·B over rows 64cb .. 64cb + 63 of the last layer's [hw, OW]
+// image B: the share of the hidden block cb, A its bf16 activations in
+// registers; block 0 overwrites acc.
+__device__ __forceinline__ void mma_out(float (&acc)[OW / 2], const uint32_t (&a)[HW / 16][4],
+                                        uint32_t b, int cb) {
+#pragma unroll
+  for (int s = 0; s < HW / 16; ++s)
+    WgmmaRA<OW, 0>::mma(acc, a[s], gmma_desc(b + 2 * (4 * cb + s) * OW * 16, OW * 16, 128),
+                        cb > 0 || s > 0 ? 1 : 0);
+}
+
+// Block cb of a hidden layer's activation, bf16(relu(acc + b[64cb ..])),
+// into k-steps 4cb .. 4cb + 3 of the register A operand a.
+template <int S>
+__device__ __forceinline__ void relu_block(uint32_t (&a)[S][4], int cb, const float (&acc)[HW / 2],
+                                           const float* b, const Lane& ln) {
+  uint32_t blk[HW / 16][4];
+  relu_to_a(blk, acc, b + cb * HW, ln);
+#pragma unroll
+  for (int s = 0; s < HW / 16; ++s)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[4 * cb + s][i] = blk[s][i];
 }
 
 // Rows of a ragged or unaligned tile by ordinary loads, zero past N.
@@ -188,46 +229,70 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src, long lon
 }
 
 // The forward's shared memory: the forward images and biases, then per
-// warpgroup two x stages, an output stage and the stages' barriers.
+// warpgroup `ns` x stages, an output stage and the stages' barriers.
 struct FwdSmem {
   int bias_at, wg_at, wg_bytes;
-  __host__ __device__ explicit FwdSmem(const Layout& L) {
+  __host__ __device__ FwdSmem(const Layout& L, int ns) {
     bias_at = L.fwd_elems() * 2;
     wg_at = al128(bias_at + L.n_bias() * 4);
-    wg_bytes = 2 * L.x_bytes() + L.o_bytes() + 128;
+    wg_bytes = ns * L.x_bytes() + L.o_bytes() + 128;
   }
   __host__ __device__ int total(int wgs) const { return wg_at + wgs * wg_bytes; }
 };
 
 // The backward's shared memory: both halves of the images and the biases,
-// then per warpgroup two stages of x and g tiles and the barriers; with
+// then per warpgroup `ns` stages of x and g tiles and the barriers; with
 // weight gradients also the chunk-major tiles their products read (A_0,
 // the hidden activations, the output cotangent, the hidden cotangents);
 // then, with weight gradients, the warps' bias-gradient rows.
 struct BwdSmem {
   int bias_at, wg_at, stage_bytes, a0_at, ah_at, gl_at, gh_at, bar_at, wg_bytes, n_bias;
   bool dw;
-  __host__ __device__ BwdSmem(const Layout& L, bool dw_) : n_bias(L.n_bias()), dw(dw_) {
+  __host__ __device__ BwdSmem(const Layout& L, bool dw_, int ns) : n_bias(L.n_bias()), dw(dw_) {
     bias_at = 2 * L.fwd_elems() * 2;
     wg_at = al128(bias_at + L.n_bias() * 4);
     stage_bytes = L.x_bytes() + L.o_bytes();
-    int off = 2 * stage_bytes;
+    int off = ns * stage_bytes;
     a0_at = off;
     if (dw) off += ROWS * L.kp * 2;
     ah_at = off;
-    if (dw) off += (L.nl - 1) * TILE_BYTES;
+    if (dw) off += (L.nl - 1) * L.tile_bytes();
     gl_at = off;
     if (dw) off += ROWS * OW * 2;
     gh_at = off;
-    if (dw) off += (L.nl - 1) * TILE_BYTES;
+    if (dw) off += (L.nl - 1) * L.tile_bytes();
     bar_at = off;
-    wg_bytes = al128(off + 16);
+    wg_bytes = al128(off + 8 * ns);
   }
   __host__ __device__ int bsum_at(int wgs) const { return wg_at + wgs * wg_bytes; }
   __host__ __device__ int total(int wgs) const {
     return bsum_at(wgs) + (dw ? wgs * 4 * n_bias * 4 : 0);
   }
 };
+
+constexpr int MAX_SMEM = 232448;       // dynamic shared memory a block may use
+
+// The stages of a warpgroup of a kernel of padded width HWP: two, a
+// constant, for the 64-wide nets (a count known only at run time costs
+// their kernels a spill at 128 registers), else the launch's.
+template <int HWP>
+__device__ __forceinline__ int stages(int ns) { return HWP == HW ? 2 : ns; }
+
+// (warpgroups, stages) of a kernel of padded width hw whose shared memory
+// is smem(wgs, ns): the most warpgroups up to max_wgs with two stages
+// each; wider than 64, one warpgroup takes up to max_ns stages where they
+// fit, and one stage where two do not.  (0, 0) where nothing fits.
+template <class F>
+__host__ int2 plan_blocks(const F& smem, int hw, int max_wgs, int max_ns) {
+  for (int wgs = max_wgs; wgs >= 1; --wgs) {
+    if (smem(wgs, 2) > MAX_SMEM) continue;
+    int ns = 2;
+    if (wgs == 1 && hw != HW)
+      while (ns < max_ns && smem(1, ns + 1) <= MAX_SMEM) ++ns;
+    return make_int2(wgs, ns);
+  }
+  return hw != HW && smem(1, 1) <= MAX_SMEM ? make_int2(1, 1) : make_int2(0, 0);
+}
 
 }  // namespace mlp
 }  // namespace cropnerf

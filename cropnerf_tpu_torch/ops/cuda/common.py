@@ -106,25 +106,26 @@ def unpack_layers(layers: Sequence[Layer], dwbuf: torch.Tensor,
 
 
 # csrc/wgmma_mlp.cuh: the widths the wgmma MLP kernels pad a net's hidden
-# layers and its output to
+# layers (the PE nets; the heads' nets to a multiple of it) and its output
+# to
 WGMMA_HIDDEN, WGMMA_OUT = 64, 16
 
 
 @functools.lru_cache(maxsize=None)
 def _image_gather(shapes: tuple, k0: int, backward: bool,
-                  device: torch.device
+                  device: torch.device, hidden: int = WGMMA_HIDDEN
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Where each element of ``weight_images`` for weights and biases of
-    ``shapes`` comes from in their flattened concatenation with one zero
-    appended (the padding), on ``device``: (image indices, bias indices,
-    that zero)."""
+    ``shapes`` (hidden layers padded to ``hidden``) comes from in their
+    flattened concatenation with one zero appended (the padding), on
+    ``device``: (image indices, bias indices, that zero)."""
     n_layers, pad = len(shapes) // 2, sum(int(np.prod(s)) for s in shapes)
     at = torch.arange(pad).split([int(np.prod(s)) for s in shapes])
     fwd, bwd, bias = [], [], []
     for l in range(n_layers):
         w, b = at[2 * l].reshape(shapes[2 * l]), at[2 * l + 1]
-        k = k0 if l == 0 else WGMMA_HIDDEN
-        width = WGMMA_OUT if l == n_layers - 1 else WGMMA_HIDDEN
+        k = k0 if l == 0 else hidden
+        width = WGMMA_OUT if l == n_layers - 1 else hidden
         wp = torch.full((k, width), pad)
         wp[:w.shape[0], :w.shape[1]] = w
         fwd.append(wp.reshape(k // 8, 8, width).permute(0, 2, 1).reshape(-1))
@@ -137,10 +138,12 @@ def _image_gather(shapes: tuple, k0: int, backward: bool,
 
 
 def weight_images(wbs: Sequence[torch.Tensor], k0: int,
-                  backward: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+                  backward: bool = True, hidden: int = WGMMA_HIDDEN
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The wgmma MLP kernels' weights, on the weights' device: (bf16
-    images, f32 biases).  Every layer's weight is zero-padded to [k0, 64]
-    (layer 0), [64, 64] (hidden) or [64, 16] (the last) and laid out as a
+    images, f32 biases).  Every layer's weight is zero-padded to [k0, H]
+    (layer 0), [H, H] (hidden) or [H, 16] (the last), H = ``hidden`` (64,
+    or the heads' 128 and 256), and laid out as a
     wgmma B operand in K-major core matrices: first all forward images
     (element (k, n) of a [K, width] weight at (k/8)·width·8 + n·8 + k%8;
     all a forward kernel reads), then, with ``backward``, all
@@ -149,7 +152,8 @@ def weight_images(wbs: Sequence[torch.Tensor], k0: int,
     card: one concatenation and gathers at indices cached per shape and
     device."""
     img_at, bias_at, zero = _image_gather(
-        tuple(tuple(t.shape) for t in wbs), k0, backward, wbs[0].device)
+        tuple(tuple(t.shape) for t in wbs), k0, backward, wbs[0].device,
+        hidden)
     flat = torch.cat([t.reshape(-1) for t in wbs] + [zero]).float()
     return (flat.index_select(0, img_at).to(torch.bfloat16),
             flat.index_select(0, bias_at))

@@ -6,19 +6,24 @@
 the CPU (autograd through it is the CPU backward).  The kernels replace
 the Pallas ``_fwd_kernel`` and ``_bwd_kernel``; they run the vanilla
 field's semantic and colour heads on the export path and in the BayesRays
-pass, and are memory-bound on an H100 (see the sources' notes).  A net's
+pass, and are mostly memory-bound on an H100 (see the sources' notes).  A net's
 shape alone picks its kernels (``fused_mlp_route``):
 
-- "wgmma", the heads of ``cropnerf-mxu`` and ``-q`` (2 or 3 layers,
-  hidden widths up to 64, up to 128 inputs and 16 outputs):
-  ``csrc/fused_mlp_fwd.cu`` and ``csrc/fused_mlp_bwd.cu``, persistent
-  warpgroups on ``wgmma`` with the net resident in shared memory as the
-  weight images ``mlp_images`` builds once per call (the forward half
-  alone where no graph is recorded) and the backward reuses; launches
-  counted on ``fused_mlp`` and ``fused_mlp_bwd``;
-- "wmma", every other net (``-big``'s and ``-huge``'s heads):
-  ``csrc/fused_mlp.cu`` on ``pack_mlp``'s buffers; launches counted on
-  ``fused_mlp_wide`` and ``fused_mlp_bwd_wide``.
+- "wgmma", every head of the ``cropnerf-mxu`` family (2 or 3 layers,
+  hidden widths up to 256, up to 256 inputs and 16 outputs, and a net
+  whose weight images and one warpgroup's tiles fit a block's shared
+  memory): ``csrc/fused_mlp_fwd.cu`` and ``csrc/fused_mlp_bwd.cu``,
+  persistent warpgroups on ``wgmma`` with the net resident in shared
+  memory as the weight images ``mlp_images`` builds once per call (the
+  forward half alone where no graph is recorded) and the backward reuses,
+  hidden layers padded to 64 (``-mxu``, ``-q``), 128 (``-big``; the
+  semantic head of ``-huge``) or 256 (``-huge``'s colour head,
+  ``mlp_hidden_pad``); launches counted on ``fused_mlp`` and
+  ``fused_mlp_bwd``;
+- "wmma", every other net (no preset builds one: more layers, wider
+  layers, or a net too large for shared memory): ``csrc/fused_mlp.cu`` on
+  ``pack_mlp``'s buffers; launches counted on ``fused_mlp_wide`` and
+  ``fused_mlp_bwd_wide``.
 
 On the card the backward (``fused_mlp_bwd``) recomputes the forward from x
 and the weights, as the JAX custom VJP saves only ``(x, wbs)``, and
@@ -170,31 +175,75 @@ def run_backward(name, x, wbs, g, need_dx, need_dw):
     return dx, dwbs
 
 
-# csrc/wgmma_mlp.cuh: the widest input the wgmma kernels take
-MLP_MAX_DIN = 128
+# csrc/wgmma_mlp.cuh max_kb: the widest input the wgmma kernels take, and
+# the widest where layer 0's A operand holds 8 k-steps in registers (the
+# nets padded to 64 hidden columns and every 3-layer net)
+MLP_MAX_DIN, MLP_MAX_DIN_8 = 256, 128
+
+
+def mlp_hidden_pad(din: int, widths: Sequence[int]) -> int:
+    """The hidden width the wgmma kernels pad a net x [N, din] →
+    ``widths`` to: 64, 128 or 256, the first at or above every hidden
+    layer (128 at least for din over 128); 0 for a layer over 256."""
+    need = max(widths[:-1])
+    if din > MLP_MAX_DIN_8:
+        need = max(need, WGMMA_HIDDEN + 1)
+    return next((hw for hw in (64, 128, 256) if need <= hw), 0)
+
+
+def _al128(n: int) -> int:
+    return (n + 127) // 128 * 128
+
+
+def _least_bwd_smem(din: int, dout: int, n_layers: int, hw: int) -> int:
+    """Shared memory a block of the wgmma backward with weight gradients
+    takes at one warpgroup and one stage (``csrc/wgmma_mlp.cuh``
+    ``BwdSmem``): the least that the largest of the net's kernels needs.
+    Both image halves and the biases, an x and g tile, the operand tiles,
+    the stage's barrier, the warps' bias rows."""
+    kp, n_bias = pad16(din), (n_layers - 1) * hw + WGMMA_OUT
+    fwd_elems = kp * hw + (n_layers - 2) * hw * hw + hw * WGMMA_OUT
+    tiles = 64 * 2 * (kp + 2 * (n_layers - 1) * hw + WGMMA_OUT)
+    warpgroup = _al128(64 * 4 * (din + dout) + tiles + 8)
+    return _al128(4 * fwd_elems + 4 * n_bias) + warpgroup + 16 * n_bias
 
 
 def fused_mlp_route(din: int, widths: Sequence[int]) -> str:
     """The kernels a net x [N, din] → ``widths`` (each layer's output
     width) takes on the card, by its shape alone: "wgmma"
     (``csrc/fused_mlp_fwd.cu``, ``csrc/fused_mlp_bwd.cu``) for 2 or 3
-    layers with hidden widths up to 64, din up to 128 and up to 16 outputs
-    (both heads of ``cropnerf-mxu`` and ``-q``), else "wmma"
-    (``csrc/fused_mlp.cu``; ``-big``'s and ``-huge``'s heads)."""
-    return ("wgmma" if len(widths) in (2, 3) and 1 <= din <= MLP_MAX_DIN
-            and all(h <= WGMMA_HIDDEN for h in widths[:-1])
-            and widths[-1] <= WGMMA_OUT else "wmma")
+    layers with hidden widths up to 256, din up to 256 (128 for 3 layers)
+    and up to 16 outputs whose weight images and one warpgroup's tiles fit
+    a block's shared memory (every head of the ``cropnerf-mxu`` family),
+    else "wmma" (``csrc/fused_mlp.cu``)."""
+    max_din = MLP_MAX_DIN_8 if len(widths) == 3 else MLP_MAX_DIN
+    if not (len(widths) in (2, 3) and 1 <= din <= max_din
+            and 1 <= widths[-1] <= WGMMA_OUT):
+        return "wmma"
+    hw = mlp_hidden_pad(din, widths)
+    fits = hw and _least_bwd_smem(din, widths[-1], len(widths),
+                                  hw) <= MAX_SMEM_BYTES
+    return "wgmma" if fits else "wmma"
+
+
+def _widths(wbs) -> list:
+    return [w.shape[1] for w in wbs[0::2]]
 
 
 def _route(x, wbs) -> str:
-    return fused_mlp_route(x.shape[1], [w.shape[1] for w in wbs[0::2]])
+    return fused_mlp_route(x.shape[1], _widths(wbs))
+
+
+def _hidden(wbs) -> int:
+    return mlp_hidden_pad(wbs[0].shape[0], _widths(wbs))
 
 
 def mlp_images(wbs: Sequence[torch.Tensor], backward: bool = True
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The wgmma kernels' weights (``common.weight_images``): layer 0's
-    rows padded to din rounded up to 16, every other layer's to 64."""
-    return weight_images(wbs, pad16(wbs[0].shape[0]), backward)
+    rows padded to din rounded up to 16, every other layer's to the net's
+    padded hidden width (``mlp_hidden_pad``)."""
+    return weight_images(wbs, pad16(wbs[0].shape[0]), backward, _hidden(wbs))
 
 
 def _wgmma_lib(name: str, entry: str, argtypes) -> ctypes.CDLL:
@@ -209,8 +258,8 @@ def _wgmma_lib(name: str, entry: str, argtypes) -> ctypes.CDLL:
 def _fwd_lib():
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib = _wgmma_lib("fused_mlp_fwd", "cropnerf_mlp_fwd",
-                     [vp] * 4 + [i32] * 3 + [ctypes.c_longlong, i32, vp])
-    lib.cropnerf_mlp_fwd_layout.argtypes = [i32] * 3 + [
+                     [vp] * 4 + [i32] * 4 + [ctypes.c_longlong, i32, vp])
+    lib.cropnerf_mlp_fwd_layout.argtypes = [i32] * 4 + [
         ctypes.POINTER(ctypes.c_longlong)]
     return lib
 
@@ -219,27 +268,35 @@ def _fwd_lib():
 def _bwd_lib():
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib = _wgmma_lib("fused_mlp_bwd", "cropnerf_mlp_bwd",
-                     [vp] * 5 + [i32] * 3 + [ctypes.c_longlong, i32]
+                     [vp] * 5 + [i32] * 4 + [ctypes.c_longlong, i32]
                      + [vp] * 5)
-    lib.cropnerf_mlp_bwd_layout.argtypes = [i32] * 4 + [
+    lib.cropnerf_mlp_bwd_layout.argtypes = [i32] * 5 + [
         ctypes.POINTER(ctypes.c_longlong)]
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def mlp_layout(din: int, dout: int, n_layers: int, need_dw=None) -> list:
+def mlp_layout(din: int, dout: int, n_layers: int, hw: int,
+               need_dw=None) -> list:
     """The sizes the wgmma forward (``need_dw`` None: image and bias
-    elements, shared memory, warpgroups a block) or backward kernel's C
-    layout function (image and bias elements, partial-row sizes, shared
-    memory, warpgroups) reports for a net."""
-    sizes = (ctypes.c_longlong * 6)()
-    err = (_fwd_lib().cropnerf_mlp_fwd_layout(din, dout, n_layers, sizes)
+    elements, shared memory, warpgroups a block, x stages a warpgroup) or
+    backward kernel's C layout function (image and bias elements,
+    partial-row sizes, shared memory, warpgroups, weight partial rows a
+    block, stages) reports for a net with hidden layers padded to ``hw``."""
+    sizes = (ctypes.c_longlong * 8)()
+    err = (_fwd_lib().cropnerf_mlp_fwd_layout(din, dout, n_layers, hw, sizes)
            if need_dw is None else _bwd_lib().cropnerf_mlp_bwd_layout(
-               din, dout, n_layers, int(need_dw), sizes))
+               din, dout, n_layers, hw, int(need_dw), sizes))
     if err:
         raise ValueError(f"fused_mlp: the wgmma kernels do not take x [N, "
-                         f"{din}] -> {n_layers} layers -> {dout}")
-    return list(sizes)
+                         f"{din}] -> {n_layers} layers ({hw} wide) -> {dout}")
+    return list(sizes[:5] if need_dw is None else sizes)
+
+
+def net_layout(wbs: Sequence[torch.Tensor], need_dw=None) -> list:
+    """``mlp_layout`` of the net ``wbs``."""
+    return mlp_layout(wbs[0].shape[0], wbs[-2].shape[1], len(wbs) // 2,
+                      _hidden(wbs), need_dw)
 
 
 def _wgmma_forward(x, wbs, img, bias) -> torch.Tensor:
@@ -247,8 +304,8 @@ def _wgmma_forward(x, wbs, img, bias) -> torch.Tensor:
     N = 0) on ``mlp_images``, with or without the backward's half: the
     [N, Dout] float32 output."""
     device, (n, din) = x.device, x.shape
-    dout, n_layers = wbs[-2].shape[1], len(wbs) // 2
-    fwd_elems, n_bias, _, wgs = mlp_layout(din, dout, n_layers)[:4]
+    dout, n_layers, hw = wbs[-2].shape[1], len(wbs) // 2, _hidden(wbs)
+    fwd_elems, n_bias, _, wgs = mlp_layout(din, dout, n_layers, hw)[:4]
     check_images("fused_mlp", img, bias, (fwd_elems, 2 * fwd_elems), n_bias)
     out = torch.empty((n, dout), dtype=torch.float32, device=device)
     if n == 0:
@@ -257,7 +314,7 @@ def _wgmma_forward(x, wbs, img, bias) -> torch.Tensor:
     with torch.cuda.device(device):
         err = _fwd_lib().cropnerf_mlp_fwd(
             x.data_ptr(), out.data_ptr(), img.data_ptr(), bias.data_ptr(),
-            din, dout, n_layers, n, blocks, stream_ptr(device))
+            din, dout, n_layers, hw, n, blocks, stream_ptr(device))
     if err:
         raise RuntimeError(f"fused_mlp kernel launch failed: cudaError {err}")
     fused_mlp.launches += 1
@@ -305,8 +362,9 @@ def fused_mlp_bwd(x: torch.Tensor, wbs: Sequence[torch.Tensor],
         raise ValueError("fused_mlp_bwd: nothing asked for")
     if _route(x, wbs) == "wmma":
         return fused_mlp_bwd_wide(x, wbs, g, need_dx, need_dw)
-    img_elems, n_bias, total_w, total_b, _, wgs = mlp_layout(
-        din, dout, n_layers, need_dw)
+    hw = _hidden(wbs)
+    img_elems, n_bias, total_w, total_b, _, wgs, w_rows, _ = mlp_layout(
+        din, dout, n_layers, hw, need_dw)
     img, bias = images if images is not None else mlp_images(wbs)
     check_images("fused_mlp_bwd", img, bias, (img_elems,), n_bias)
     blocks = persistent_blocks(n, sm_count(device), wgs)
@@ -315,8 +373,9 @@ def fused_mlp_bwd(x: torch.Tensor, wbs: Sequence[torch.Tensor],
     if need_dw:
         dw = torch.zeros((total_w,), dtype=torch.float32, device=device)
         db = torch.zeros((total_b,), dtype=torch.float32, device=device)
-        wpart = torch.empty((blocks * total_w,), dtype=torch.float32,
-                            device=device)
+        # the wider nets' warpgroups add each tile into their own row
+        wpart = (torch.empty if hw == WGMMA_HIDDEN else torch.zeros)(
+            (blocks * w_rows * total_w,), dtype=torch.float32, device=device)
         bpart = torch.empty((blocks * total_b,), dtype=torch.float32,
                             device=device)
         ptrs = [t.data_ptr() for t in (wpart, bpart, dw, db)]
@@ -324,7 +383,7 @@ def fused_mlp_bwd(x: torch.Tensor, wbs: Sequence[torch.Tensor],
         with torch.cuda.device(device):
             err = _bwd_lib().cropnerf_mlp_bwd(
                 x.data_ptr(), g.data_ptr(), dx.data_ptr() if need_dx else None,
-                img.data_ptr(), bias.data_ptr(), din, dout, n_layers, n,
+                img.data_ptr(), bias.data_ptr(), din, dout, n_layers, hw, n,
                 blocks, *ptrs, stream_ptr(device))
         if err:
             raise RuntimeError(f"fused_mlp_bwd kernel launch failed: "
@@ -336,18 +395,17 @@ def fused_mlp_bwd(x: torch.Tensor, wbs: Sequence[torch.Tensor],
 def unpack_images_grads(wbs: Sequence[torch.Tensor], dw: torch.Tensor,
                         db: torch.Tensor) -> list:
     """The wgmma backward's padded f32 gradients (layer l's weight [K,
-    width] at its forward image's offset, its bias at l·64) → [dW0, db0,
-    ...] in the shapes of ``wbs``."""
-    n_layers, kp = len(wbs) // 2, pad16(wbs[0].shape[0])
+    width] at its forward image's offset, its bias at l·H, H the net's
+    padded hidden width) → [dW0, db0, ...] in the shapes of ``wbs``."""
+    n_layers, kp, hw = len(wbs) // 2, pad16(wbs[0].shape[0]), _hidden(wbs)
     out, w_off = [], 0
     for l in range(n_layers):
         w, b = wbs[2 * l], wbs[2 * l + 1]
-        k = kp if l == 0 else WGMMA_HIDDEN
-        width = WGMMA_OUT if l == n_layers - 1 else WGMMA_HIDDEN
+        k = kp if l == 0 else hw
+        width = WGMMA_OUT if l == n_layers - 1 else hw
         out.append(dw[w_off:w_off + k * width].reshape(k, width)
                    [:w.shape[0], :w.shape[1]])
-        out.append(db[l * WGMMA_HIDDEN:l * WGMMA_HIDDEN + b.numel()]
-                   .reshape(b.shape))
+        out.append(db[l * hw:l * hw + b.numel()].reshape(b.shape))
         w_off += k * width
     return out
 
@@ -356,24 +414,28 @@ class _FusedMlp(torch.autograd.Function):
     """Forward kernel, and the backward kernel as its gradient, on the
     route the net's shape picks.  Saves x and the weights, as the JAX
     custom VJP does, and on the wgmma route the weight images the forward
-    built, which the backward reads too."""
+    built, which the backward reads too: all through ``save_for_backward``,
+    so that a checkpoint's hooks drop the images with the rest and its
+    replay builds them again."""
 
     @staticmethod
     def forward(ctx, x, *wbs):
-        ctx.save_for_backward(x, *wbs)
-        ctx.images = None
+        ctx.n_wbs = len(wbs)
         if _route(x, wbs) == "wmma":
+            ctx.save_for_backward(x, *wbs)
             return fused_mlp_wide(x, wbs)
-        ctx.images = mlp_images(wbs)
-        return _wgmma_forward(x, wbs, *ctx.images)
+        images = mlp_images(wbs)
+        ctx.save_for_backward(x, *wbs, *images)
+        return _wgmma_forward(x, wbs, *images)
 
     @staticmethod
     def backward(ctx, g):
-        x, *wbs = ctx.saved_tensors
+        x, *rest = ctx.saved_tensors
+        wbs, images = rest[:ctx.n_wbs], rest[ctx.n_wbs:] or None
         need_dx = ctx.needs_input_grad[0]
         need_dw = any(ctx.needs_input_grad[1:])
         dx, dwbs = fused_mlp_bwd(x, wbs, g.contiguous(), need_dx, need_dw,
-                                 ctx.images)
+                                 images)
         return (dx, *(dwbs if need_dw else [None] * len(wbs)))
 
 

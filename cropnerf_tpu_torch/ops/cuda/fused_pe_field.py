@@ -767,22 +767,24 @@ class _FusedPeMlp(torch.autograd.Function):
     for the gradients asked for (no dx where x needs none, no weight
     gradients where the weights need none).  Saves x and the weights, as
     the JAX ``_plain_fwd`` does, and the weight images the forward built,
-    which the backward reads too."""
+    which the backward reads too: all through ``save_for_backward``, so
+    that a checkpoint's hooks drop the images with the rest and its replay
+    builds them again."""
 
     @staticmethod
     def forward(ctx, x, num_freqs, *wbs):
-        ctx.save_for_backward(x, *wbs)
+        images = pe_mlp_images(wbs)
+        ctx.save_for_backward(x, *wbs, *images)
         ctx.num_freqs = num_freqs
-        ctx.images = pe_mlp_images(wbs)
-        return _pe_mlp_fwd_launch(x, wbs, num_freqs, *ctx.images)
+        return _pe_mlp_fwd_launch(x, wbs, num_freqs, *images)
 
     @staticmethod
     def backward(ctx, g):
-        x, *wbs = ctx.saved_tensors
+        x, *wbs, img, bias = ctx.saved_tensors
         need_dx = ctx.needs_input_grad[0]
         need_dw = any(ctx.needs_input_grad[2:])
         dx, dwbs = fused_pe_mlp_bwd(x, wbs, ctx.num_freqs, g.contiguous(),
-                                    need_dx, need_dw, ctx.images)
+                                    need_dx, need_dw, (img, bias))
         return (dx, None, *(dwbs if need_dw else [None] * len(wbs)))
 
 

@@ -147,13 +147,19 @@ def test_fused_pe_density_forward_tiling_edges(cuda, n, hidden):
     assert _rel_err(got, ref) <= TOL, _rel_err(got, ref)
 
 
-# K3 (fused_mlp): the heads of cropnerf-mxu and -q (wgmma route), a
-# three-layer net on the wgmma kernels, and -big's and -huge's heads and
-# wider nets (wmma route)
+# K3 (fused_mlp): the heads of cropnerf-mxu and -q, a three-layer net, a
+# 128-wide net and -big's and -huge's heads (128 and 256 wide) on the wgmma
+# kernels, and a 3-layer net 256 wide, too large for their shared memory
+# (wmma route)
 K3_DIMS = [(15, 64, 1), (74, 64, 3), (39, 64, 48, 16), (15, 128, 1),
            (63, 256, 256, 16), (30, 128, 128, 1), (185, 128, 3), (89, 256, 3)]
 K3_IDS = ["semantic-head", "colour-head", "three-layers", "128-wide", "wide",
           "big-semantic-head", "big-colour-head", "huge-colour-head"]
+K3_WMMA = [(63, 256, 256, 16)]
+# the nets the BayesRays batches of -big (4096 rays x 128 samples) and
+# -huge (4096 x 64) send through the backward
+K3_BAYESRAYS = [((30, 128, 128, 1), 524_288), ((185, 128, 3), 524_288),
+                ((30, 128, 128, 1), 262_144), ((89, 256, 3), 262_144)]
 
 
 def _k3_net(cuda, dims, seed=3):
@@ -189,8 +195,7 @@ def test_fused_mlp_kernel_matches_plain(cuda, dims, n):
     export chunk's ragged N; two runs give the same bits."""
     g, wbs = _k3_net(cuda, dims)
     route = kmlp.fused_mlp_route(dims[0], dims[1:])
-    assert route == ("wgmma" if max(dims[1:-1]) <= 64 and dims[0] <= 128
-                     else "wmma")
+    assert route == ("wmma" if dims in K3_WMMA else "wgmma")
     x = torch.randn((n, dims[0]), generator=g, device=cuda)
     before = _k3_launches()
     got = kmlp.fused_mlp(x, wbs)
@@ -493,7 +498,8 @@ def test_fused_mlp_backward_kernel_matches_plain(cuda, dims, n, need_dw):
         "the backward kernel is not deterministic"
 
 
-@pytest.mark.parametrize("dims", K3_DIMS[:3], ids=K3_IDS[:3])
+@pytest.mark.parametrize("dims", K3_DIMS[:4] + K3_DIMS[5:],
+                         ids=K3_IDS[:4] + K3_IDS[5:])
 def test_fused_mlp_backward_asks_and_alignment(cuda, dims):
     """The wgmma backward: dx alone and the weight gradients alone are the
     full backward's bits; on x and g one float into larger buffers (not
@@ -514,6 +520,49 @@ def test_fused_mlp_backward_asks_and_alignment(cuda, dims):
     off_dx, off_dw = kmlp.fused_mlp_bwd(x_off, wbs, g_off, True, True)
     assert torch.equal(dx, off_dx)
     assert all(torch.equal(a, b) for a, b in zip(dw, off_dw))
+
+
+@pytest.mark.parametrize("case", range(len(K3_BAYESRAYS)),
+                         ids=["big-semantic", "big-colour", "huge-semantic",
+                              "huge-colour"])
+def test_fused_mlp_backward_at_the_bayesrays_batches(cuda, case):
+    """K3's dx-only backward of -big's and -huge's heads at the BayesRays
+    batch each preset makes, on the wgmma kernel (one launch), against
+    autograd through the plain version, row by row; two runs give the
+    same bits."""
+    dims, n = K3_BAYESRAYS[case]
+    g, wbs = _k3_net(cuda, dims)
+    x = torch.randn((n, dims[0]), generator=g, device=cuda)
+    cot = torch.randn((n, dims[-1]), generator=g, device=cuda)
+    before = _k3_launches()
+    dx, _ = kmlp.fused_mlp_bwd(x, wbs, cot, True, False)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_k3_launches(), before)] == [0, 0, 1, 0]
+    leaf = x.clone().requires_grad_(True)
+    ref, = _grads(kmlp.fused_mlp_plain(leaf, wbs), [leaf], cot)
+    assert _grad_agrees(dx, ref, per_row=True), _rel_err(dx, ref)
+    assert torch.equal(dx, kmlp.fused_mlp_bwd(x, wbs, cot, True, False)[0])
+
+
+def test_fused_mlp_layouts_take_the_routed_nets(cuda):
+    """Every net the route sends to the wgmma kernels has a layout in both
+    kernels, with and without weight gradients, within a block's shared
+    memory; the route's own estimate of the largest is the C layout's."""
+    nets = [d for d in K3_DIMS if d not in K3_WMMA] + [
+        (128, 64, 16), (129, 64, 1), (96, 256, 3), (205, 128, 3),
+        (93, 128, 128, 1)]
+    for dims in nets:
+        din, widths = dims[0], list(dims[1:])
+        assert kmlp.fused_mlp_route(din, widths) == "wgmma", dims
+        hw = kmlp.mlp_hidden_pad(din, widths)
+        fwd = kmlp.mlp_layout(din, widths[-1], len(widths), hw)
+        assert 0 < fwd[2] <= 232_448 and fwd[3] >= 1, (dims, fwd)
+        for need_dw in (False, True):
+            bwd = kmlp.mlp_layout(din, widths[-1], len(widths), hw, need_dw)
+            assert 0 < bwd[4] <= 232_448 and bwd[5] >= 1, (dims, bwd)
+            if need_dw and bwd[5] == 1 and bwd[7] == 1:
+                assert bwd[4] == kmlp._least_bwd_smem(
+                    din, widths[-1], len(widths), hw), dims
 
 
 def _synthetic_bank(cuda, n_img=4, h=120, w=160):

@@ -2,7 +2,8 @@
 leaves alone, on seeded inputs at the main paths' shapes, on one NVIDIA
 GPU: K3 forward and backward (``fused_mlp``, ``fused_mlp_bwd``: dx alone
 and with the weight gradients) at cropnerf-mxu's heads and, on its wmma
-route (``csrc/fused_mlp.cu``), at cropnerf-mxu-huge's colour head; K4
+route (``csrc/fused_mlp.cu``), at a 3-layer 256-wide net no preset builds
+(-huge's colour head with a second hidden layer); K4
 forward (``hash_encode_fwd``); K5 forward (``fused_pe_mlp`` without a
 graph) and backward (``fused_pe_mlp_bwd``: dx and every weight gradient)
 at cropnerf-mxu's proposal nets, and K5's forward on its wmma route at
@@ -48,8 +49,8 @@ def main() -> None:
     out = {}
     with torch.no_grad():
         # K3: the vanilla field's heads at an export chunk and a BayesRays
-        # batch (-huge's colour head, the wmma route, comes last, so that
-        # the draws before it are those of earlier versions of this script)
+        # batch (the wmma route's net comes last, so that the draws before
+        # it are those of earlier versions of this script)
         def k3(name, dims):
             wbs = []
             for a, b in zip(dims[:-1], dims[1:]):
@@ -97,7 +98,7 @@ def main() -> None:
                     cot = torch.randn((4096 * smp, 1), generator=g, device=dev)
                     dx, dw = kfield.fused_pe_mlp_bwd(x, wbs, p.pe_freqs, cot)
                     out[f"fused_pe_mlp_bwd net {i}"] = digest([dx] + dw)
-        k3("huge colour head", (89, 256, 3))
+        k3("wmma route net", (89, 256, 256, 3))
     print(json.dumps({"port_root": str(args.port_root),
                       "card": torch.cuda.get_device_name(0), "sha256": out}),
           flush=True)

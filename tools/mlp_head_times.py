@@ -1,14 +1,17 @@
 """K3 (``fused_mlp``) per head on one NVIDIA GPU: the vanilla field's
-semantic and colour heads of ``cropnerf-mxu`` as the paths launch them.
+semantic and colour heads of a ``cropnerf-mxu`` preset (``--preset``:
+``cropnerf-mxu``, the default, or ``-q``, ``-big``, ``-huge``, whose heads
+are 64, 64, 128 and 128/256 wide) as the paths launch them.
 
 For the port found under ``--port-root`` (default: this repository) this
 script prints, as one JSON line, for each head:
 
 - the forward at one export chunk (512 rays x 128 samples, N = 65,536),
   without a graph, as the volume export calls it once a head a chunk;
-- the backward with dx alone at one BayesRays batch (4096 rays x 48
-  samples, N = 196,608), as the uncertainty pass calls it (the semantics
-  channel runs the semantic head alone);
+- the backward with dx alone at one BayesRays batch (4096 rays x the
+  preset's samples a ray: 48, 128 for -big, 64 for -huge), as the
+  uncertainty pass calls it (the semantics channel runs the semantic head
+  alone, the rgb channel the colour head);
 
 each as the device ms of the port's kernels (``torch.profiler``, the
 median of three windows of 20 calls), the ms a call between CUDA events
@@ -18,9 +21,12 @@ products over 989 TFLOP/s, whichever is larger).  It also prints the
 rule-2 scores of the paths' launches, launches x (ms - bound ms): the
 forward's 64 launches in the 128^3 export (each head once in each of 32
 chunks) and the backward's 8 launches of the semantic head in 8 BayesRays
-semantics batches.  Run it on two trees in turn in one call, alternating:
+semantics batches.  The tree under ``--port-root`` picks each head's
+kernels by its own route (before this script's tree, -big's and -huge's
+heads took the wmma route of ``csrc/fused_mlp.cu``).  Run it on two trees
+in turn in one call, alternating:
 
-    python3 tools/mlp_head_times.py [--port-root DIR]
+    python3 tools/mlp_head_times.py [--port-root DIR] [--preset NAME]
 """
 from __future__ import annotations
 
@@ -38,7 +44,7 @@ from torch.profiler import ProfilerActivity, profile
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 bandwidth
 EXPORT_N, EXPORT_CHUNKS = 512 * 128, 32
-UNC_N, UNC_BATCHES = 4096 * 48, 8
+UNC_RAYS, UNC_BATCHES = 4096, 8
 
 
 def device_ms(fn, iters: int = 20, windows: int = 3) -> float:
@@ -86,6 +92,7 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--port-root", type=Path,
                         default=Path(__file__).resolve().parents[1])
+    parser.add_argument("--preset", default="cropnerf-mxu")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device is visible")
@@ -94,7 +101,9 @@ def main() -> None:
     from cropnerf_tpu_torch.models.vanilla import vanilla_field_init
     from cropnerf_tpu_torch.ops.cuda import fused_mlp as kmlp
     dev = torch.device("cuda")
-    field = vanilla_field_init(PRESETS["cropnerf-mxu"].model.field, 8,
+    model = PRESETS[args.preset].model
+    unc_n = UNC_RAYS * model.num_nerf_samples_per_ray
+    field = vanilla_field_init(model.field, 8,
                                torch.Generator().manual_seed(0), dev)
     g = torch.Generator(device=dev).manual_seed(31)
     heads = {}
@@ -105,8 +114,8 @@ def main() -> None:
         dims = [wbs[0].shape[0]] + [w.shape[1] for w in wbs[0::2]]
         macs = sum(a * b for a, b in zip(dims[:-1], dims[1:]))
         w_bytes = sum(w.numel() * 4 for w in wbs)
-        x = torch.randn((UNC_N, dims[0]), generator=g, device=dev)
-        cot = torch.randn((UNC_N, dims[-1]), generator=g, device=dev)
+        x = torch.randn((unc_n, dims[0]), generator=g, device=dev)
+        cot = torch.randn((unc_n, dims[-1]), generator=g, device=dev)
         xf = x[:EXPORT_N]
 
         def fwd(xf=xf, wbs=wbs):
@@ -119,15 +128,16 @@ def main() -> None:
         hidden = macs - dims[-2] * dims[-1]
         heads[label] = {
             "dims": dims,
+            "route": kmlp.fused_mlp_route(dims[0], dims[1:]),
             "fwd": {"n": EXPORT_N, "ms": device_ms(fwd),
                     "call_ms": call_ms(fwd),
                     "bound_ms": bound_ms(2.0 * EXPORT_N * macs,
                                          EXPORT_N * (dims[0] + dims[-1]) * 4
                                          + w_bytes)},
-            "bwd_dx": {"n": UNC_N, "ms": device_ms(bwd),
+            "bwd_dx": {"n": unc_n, "ms": device_ms(bwd),
                        "call_ms": call_ms(bwd),
-                       "bound_ms": bound_ms(2.0 * UNC_N * (hidden + macs),
-                                            UNC_N * (2 * dims[0] + dims[-1])
+                       "bound_ms": bound_ms(2.0 * unc_n * (hidden + macs),
+                                            unc_n * (2 * dims[0] + dims[-1])
                                             * 4 + w_bytes)}}
     sem, col = heads["semantic head"], heads["colour head"]
     scores = {
@@ -138,6 +148,7 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(json.dumps({"port_root": str(args.port_root), "card": smi,
+                      "preset": args.preset,
                       "heads": heads, "rule2_scores": scores}), flush=True)
 
 
