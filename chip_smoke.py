@@ -33,8 +33,13 @@ Run from the root of the repository:  python3 chip_smoke.py
    (csrc/fused_pe_mlp_fwd.cu and csrc/fused_pe_mlp_bwd.cu; the backward
    with dx and the weight gradients) at both nets' training shapes, a
    ragged N and N < 64, each over three profiler windows, and the
-   forward's second route (the PE variant of csrc/fused_mlp.cu) at
-   cropnerf-mxu-q's 128-wide nets; the transmittance scan K6 at a training
+   forward's wmma route (the PE variant of csrc/fused_mlp.cu) at a 4-layer
+   net no preset builds; K5's wide route (the PE variants of
+   csrc/fused_mlp_fwd.cu and csrc/fused_mlp_bwd.cu) at cropnerf-mxu-q's
+   128-wide nets, forward and backward (dx with dW, and dW alone) at a
+   training step's shapes, a ragged N, N < 64, one row and none, with
+   exact launches, two runs bit-identical, registers and spills (none
+   allowed); the transmittance scan K6 at a training
    step's three compositing shapes, at [16384, 3000] and at a ragged shape,
    called through its own entry point with its launches counted (no model
    path calls it);
@@ -70,6 +75,13 @@ Run from the root of the repository:  python3 chip_smoke.py
    every loss held against the plain path's, and the depth point cloud at
    16,384 rays a batch up to 1,000,000 points (thresholds at a first
    batch's medians), each with exact launch counts of K1 and K5;
+5c'. drives cropnerf-mxu-q at its published widths and batch ([mxuq]
+   lines): the published preset (proposal nets on plain matmuls) forward,
+   the 256x256 render and the 128^3 export against the all-plain path and
+   1 + TRAIN_STEPS training steps with every loss held against the
+   all-plain path's; then its fused-proposal variant (K5's wide route)
+   through the [propfused] phase: forward, render, training steps (2 + 2
+   K5 launches a step) and one depth-cloud batch, launches exact;
 5d. drives the CLI in process, cli.main([...]) ([cli] lines), on a
    ray-traced 3DCotton-layout dataset of 32 views of 1200x800 (for
    cropnerf, whose count is not held, the same scene at 600x400): for
@@ -147,7 +159,11 @@ Run from the root of the repository:  python3 chip_smoke.py
    throughput watchdog on the card: cropnerf-big with remat off and an
    unreachable floor, 40 steps logged every 5, rebuilds at steps 10 and
    20 and "giving up" once, at step 30;
-5i. drives K3's wide heads on their paths ([wide] lines): cropnerf-mxu-big
+5i. drives K3's wide heads on their paths ([wide] lines): first
+   cropnerf-mxu-big's training step at its published batch (8192 rays,
+   512/256/128 samples; 1 + 3 steps, K1's launches exact, the first
+   step's losses against the all-plain path's, step ms and peak GiB);
+   then cropnerf-mxu-big
    and -huge at their published widths, random weights, a 128^3 volume
    export with colours (each head's K3 forward once a chunk) and 8
    BayesRays batches of 4096 rays on the semantics and the rgb channel
@@ -159,7 +175,8 @@ Run from the root of the repository:  python3 chip_smoke.py
    at 600x400, K3's launches exact;
 6. traces one forward, render, export and training step of cropnerf-mxu,
    one forward and training step of cropnerf, one BayesRays batch of each,
-   one training step and depth-cloud batch of the fused-proposal path and
+   one training step and depth-cloud batch of the fused-proposal path, one
+   fused-proposal cropnerf-mxu-q training step and
    one dispatch of each project with torch.profiler, and prints the device
    time of the busiest operations and the device's busy share;
 7. prints one JSON line of kernel numbers, the nvidia-smi card line, and
@@ -384,6 +401,14 @@ def row_agreement(got, ref):
     row_err = (got - ref).abs().amax(dim=1) / ref.abs().max().clamp_min(1e-12)
     return ((row_err <= GRAD_TOL).float().mean().item(),
             ((got - ref).norm() / ref.norm().clamp_min(1e-12)).item())
+
+
+def ray_share(got, ref) -> float:
+    """Share of rays (rows, or pixels of an image) whose largest error is
+    within 2 TOL of max |ref|."""
+    g, r = got.float(), ref.float()
+    err = (g - r).abs().reshape(-1, g.shape[-1]).amax(1)
+    return (err <= 2 * TOL * r.abs().max().clamp_min(1e-6)).float().mean().item()
 
 
 def weight_grad_errors(got, ref):
@@ -1091,6 +1116,15 @@ def kernel_names(per_entry: dict, keep: str) -> dict:
     return out
 
 
+def k3_names(per_entry: dict, keep: str, pe: bool = False) -> dict:
+    """``kernel_names`` of csrc/fused_mlp_fwd.cu's or fused_mlp_bwd.cu's
+    entries: K3's (the PE template argument, the last, false) or, with
+    ``pe``, K5's wide route's (true)."""
+    end = "true>" if pe else "false>"
+    return {k: v for k, v in kernel_names(per_entry, keep).items()
+            if k.endswith(end)}
+
+
 def k3_counts(fn) -> dict:
     """Launches of K3's four counters during ``fn()``."""
     from cropnerf_tpu_torch.ops.cuda import fused_mlp as km
@@ -1165,8 +1199,8 @@ def mlp_fwd_entry(heads, n, dev, card, report) -> dict:
             f"bit-identical {deterministic}; {k['ms']:.4f} ms (call "
             f"{k['call_ms']:.4f}), plain {k['plain_ms']:.4f} ms, bound "
             f"{k['bound_ms']:.4f} ms ({k['bound_by']}); {card}")
-    regs = kernel_names(ptxas_registers(report), "3mlp14mlp_fwd")
-    spills = kernel_names(ptxas_spills(report), "3mlp14mlp_fwd")
+    regs = k3_names(ptxas_registers(report), "3mlp14mlp_fwd")
+    spills = k3_names(ptxas_spills(report), "3mlp14mlp_fwd")
     log(f"[build] fused_mlp_fwd registers {regs}, spill bytes {spills}")
     check(all(v == 0 for v in spills.values()), f"fused_mlp_fwd spills {spills}")
     vals = list(per.values())
@@ -1288,8 +1322,8 @@ def mlp_bwd_entry(heads, n_of, dev, card, report) -> dict:
             f"({k['bound_by']}); with dW {k['with_dw_ms']:.4f} ms, plain "
             f"{k['with_dw_plain_ms']:.4f} ms, bound "
             f"{k['with_dw_bound_ms']:.4f} ms; {card}")
-    regs = kernel_names(ptxas_registers(report), "3mlp14mlp_bwd")
-    spills = kernel_names(ptxas_spills(report), "3mlp14mlp_bwd")
+    regs = k3_names(ptxas_registers(report), "3mlp14mlp_bwd")
+    spills = k3_names(ptxas_spills(report), "3mlp14mlp_bwd")
     log(f"[build] fused_mlp_bwd registers {regs}, spill bytes {spills}")
     check(all(v == 0 for v in spills.values()), f"fused_mlp_bwd spills {spills}")
     vals = list(per.values())
@@ -1639,6 +1673,12 @@ def all_plain_cfg(cfg):
                               for p in m.proposal_fields)))
 
 
+# the net K5's wmma route keeps (no wgmma kernel takes 4 layers): -mxu's
+# second proposal net with a third hidden layer
+WMMA_PE_NET = dict(field_type="pe", hidden_dim=64, num_layers=4, pe_freqs=6,
+                   mlp_impl="pallas-fused")
+
+
 def pe_mlp_entries(cfg, dev, card, reports, kernels) -> dict:
     """K5 forward (csrc/fused_pe_mlp_fwd.cu) and backward
     (csrc/fused_pe_mlp_bwd.cu) against the plain version at one
@@ -1648,10 +1688,11 @@ def pe_mlp_entries(cfg, dev, card, reports, kernels) -> dict:
     carry the camera-opt graph).  Each entry's ms, plain ms and bound are
     the two nets' summed: one training step's calls; the kernels' times
     are the median of BWD_WINDOWS profiler windows.  Then the forward's
-    second route (pe_mlp_fwd_route "wmma": the PE variant of
-    csrc/fused_mlp.cu) at cropnerf-mxu-q's 128-wide nets, with its own
-    launch count."""
-    from cropnerf_tpu_torch.models.config import PRESETS
+    wmma route (pe_mlp_fwd_route "wmma": the PE variant of
+    csrc/fused_mlp.cu) at WMMA_PE_NET, a net no preset builds and no
+    wgmma kernel takes, with its own launch count.  cropnerf-mxu-q's
+    128-wide nets are pe_mlp_wide_entries'."""
+    from cropnerf_tpu_torch.models.config import ProposalFieldConfig
     from cropnerf_tpu_torch.models.proposal import proposal_init
     from cropnerf_tpu_torch.ops.cuda import fused_pe_field as kf
     m, R = cfg.model, cfg.train_num_rays_per_batch
@@ -1755,15 +1796,14 @@ def pe_mlp_entries(cfg, dev, card, reports, kernels) -> dict:
             f"{card}")
         del x_all, cot_all
 
-    # the second route: cropnerf-mxu-q's 128-wide proposal nets
-    mq = PRESETS["cropnerf-mxu-q"].model
+    # the wmma route: a 4-layer net at net 1's batch
     wide = {}
-    for i, p in enumerate(mq.proposal_fields):
-        n, F = R * mq.num_proposal_samples_per_ray[i], p.pe_freqs
+    for i, p in enumerate([ProposalFieldConfig(**WMMA_PE_NET)]):
+        n, F = R * m.num_proposal_samples_per_ray[1], p.pe_freqs
         wd = net(p, i)
         dims = [3 * (1 + 2 * F)] + [w.shape[1] for w in wd[0::2]]
         check(kf.pe_mlp_fwd_route(3, F, dims[1:]) == "wmma",
-              f"cropnerf-mxu-q net {i} {dims} is not on the wmma route")
+              f"the wmma route's net {dims} is not on the wmma route")
         xb = torch.rand((n, 3), generator=g, device=dev) * 2 - 1
         res = {}
         launches = counted(kernels, lambda: res.update(
@@ -1783,13 +1823,13 @@ def pe_mlp_entries(cfg, dev, card, reports, kernels) -> dict:
                                              nbytes(xb, *wd) + n * 4)
         want = {k_.__name__: 0 for k_ in kernels}
         want["fused_pe_mlp_wide"] = 1
-        log(f"[kernel] fused_pe_mlp second route (wmma, csrc/fused_mlp.cu) "
-            f"cropnerf-mxu-q net {i} [{n},3] -> {'->'.join(map(str, dims))}: "
+        log(f"[kernel] fused_pe_mlp wmma route (csrc/fused_mlp.cu) "
+            f"4-layer net [{n},3] -> {'->'.join(map(str, dims))}: "
             f"err {w['rel_err']:.2e} (ragged {ragged:.2e}), {w['ms']:.4f} ms, "
             f"plain {w['plain_ms']:.4f} ms, bound {w['bound_ms']:.4f} ms "
             f"({w['bound_by']}), launches {launches}; {card}")
         check(launches == want and w["rel_err"] <= TOL and ragged <= TOL,
-              f"fused_pe_mlp second route net {i}: {w}")
+              f"fused_pe_mlp wmma route: {w}")
     regs = ptxas_registers(reports["fused_pe_mlp_fwd"])
     spills = ptxas_spills(reports["fused_pe_mlp_fwd"])
     wide_regs = {e: r for e, r in ptxas_registers(reports["fused_mlp"]).items()
@@ -1797,7 +1837,7 @@ def pe_mlp_entries(cfg, dev, card, reports, kernels) -> dict:
     bwd_regs = ptxas_registers(reports["fused_pe_mlp_bwd"])
     bwd_spills = ptxas_spills(reports["fused_pe_mlp_bwd"])
     log(f"[build] fused_pe_mlp_fwd registers {regs}, spill bytes {spills}; "
-        f"second route (fused_mlp PE variant) registers {wide_regs}; "
+        f"wmma route (fused_mlp.cu PE variant) registers {wide_regs}; "
         f"fused_pe_mlp_bwd registers {bwd_regs}, spill bytes {bwd_spills}")
     check(all(v == 0 for v in spills.values()),
           f"fused_pe_mlp_fwd spills {spills}")
@@ -1820,7 +1860,7 @@ def pe_mlp_entries(cfg, dev, card, reports, kernels) -> dict:
             rel_err=max(c["fwd_err"] for k in vals for c in k["cases"].values()),
             max_abs_err=max(c["fwd_abs"] for k in vals
                             for c in k["cases"].values()),
-            second_route=dict(
+            wmma_route=dict(
                 route="wmma", source="cropnerf_tpu_torch/csrc/fused_mlp.cu",
                 registers=wide_regs, by_net=wide)),
         "fused_pe_mlp_bwd": dict(
@@ -1835,6 +1875,195 @@ def pe_mlp_entries(cfg, dev, card, reports, kernels) -> dict:
             rel_err=max(c["dx_l2"] for k in vals for c in k["cases"].values()),
             max_abs_err=max(c["bwd_abs"] for k in vals
                             for c in k["cases"].values()))}
+
+
+# K5's wide route (the PE variants of csrc/fused_mlp_fwd.cu and
+# csrc/fused_mlp_bwd.cu) by the kernel names the profiler records
+PE_MLP_WIDE_FWD_PASSES = {"kernel": ("mlp_fwd_kernel",)}
+PE_MLP_WIDE_BWD_PASSES = {"kernel": ("mlp_bwd_kernel",),
+                          "sums": ("column_sum_kernel",)}
+
+
+def pe_mlp_wide_entries(dev, card, reports, kernels) -> dict:
+    """K5's wide route (pe_mlp_fwd_route "wide": the PE variants of
+    csrc/fused_mlp_fwd.cu and csrc/fused_mlp_bwd.cu) against the plain
+    version at cropnerf-mxu-q's two 128-wide proposal nets: one training
+    step's shapes (4096 rays x 256 and x 96 samples), a ragged N, N < 64,
+    one row and none; the backward with dx and the weight gradients (a
+    training step's: the samples carry the camera-opt graph) and with the
+    weight gradients alone (positions without a graph), the latter the
+    former's bits; two runs bit-identical; each call's launches exact.
+    Each entry's ms, plain ms and bound are the two nets' summed, one
+    training step's calls; the kernels' times are the median of
+    BWD_WINDOWS profiler windows."""
+    from cropnerf_tpu_torch.models.config import PRESETS
+    from cropnerf_tpu_torch.models.proposal import proposal_init
+    from cropnerf_tpu_torch.ops.cuda import fused_pe_field as kf
+    cfg = PRESETS["cropnerf-mxu-q"]
+    m, R = cfg.model, cfg.train_num_rays_per_batch
+    g = torch.Generator(device=dev).manual_seed(14)
+    names = [k.__name__ for k in kernels]
+
+    def want(**n):
+        return {k: n.get(k, 0) for k in names}
+
+    per = {}
+    for i, (p, smp) in enumerate(zip(m.proposal_fields,
+                                     m.num_proposal_samples_per_ray)):
+        n, F = R * smp, p.pe_freqs
+        prop = proposal_init(p, torch.Generator().manual_seed(i), dev)
+        wd = [t.detach() for w, b in zip(prop.mlp.w, prop.mlp.b)
+              for t in (w, b.reshape(1, -1))]
+        dims = [3 * (1 + 2 * F)] + [w.shape[1] for w in wd[0::2]]
+        check(kf.pe_mlp_fwd_route(3, F, dims[1:]) == "wide",
+              f"cropnerf-mxu-q net {i} {dims} is not on the wide route")
+        x_all = torch.rand((n, 3), generator=g, device=dev) * 2 - 1
+        cot_all = torch.randn((n, 1), generator=g, device=dev)
+
+        def fwd(xb, wd=wd, F=F):
+            with torch.no_grad():
+                return kf.fused_pe_mlp(xb, wd, F)
+
+        def plain_fwd(xb, wd=wd, F=F):
+            with torch.no_grad():
+                return kf.fused_pe_mlp_plain(xb, wd, F)
+
+        def bwd(xb, cot, need_dx=True, wd=wd, F=F):
+            dx, dw = kf.fused_pe_mlp_bwd(xb, wd, F, cot, need_dx, True)
+            return ([dx] if need_dx else []) + dw
+
+        def plain_bwd(xb, cot, wd=wd, F=F):
+            leaves = [xb.clone().requires_grad_(True)] + [
+                w.clone().requires_grad_(True) for w in wd]
+            with torch.enable_grad():
+                out = kf.fused_pe_mlp_plain(leaves[0], leaves[1:], F)
+                return list(torch.autograd.grad(out, leaves, cot))
+
+        cases = {}
+        for nc in (n, n - 77, 50, 1, 0):
+            xb, cot = x_all[:nc].contiguous(), cot_all[:nc].contiguous()
+            res = {}
+            launches = counted(kernels, lambda: res.update(
+                out=fwd(xb), full=bwd(xb, cot), dw=bwd(xb, cot, False)))
+            expect = want(fused_pe_mlp=1, fused_pe_mlp_bwd=2) if nc else want()
+            out, got_g = res["out"], res["full"]
+            check(launches == expect and out.shape == (nc, 1)
+                  and got_g[0].shape == (nc, 3),
+                  f"fused_pe_mlp wide net {i} N={nc}: launches "
+                  f"{nonzero(launches)}, expected {nonzero(expect)}")
+            if nc == 0:
+                check(all(float(t.abs().sum()) == 0 for t in got_g[1:]),
+                      f"fused_pe_mlp_bwd wide net {i} N=0: nonzero dW")
+                cases["N=0"] = dict(launches=nonzero(launches))
+                continue
+            ref, ref_g = plain_fwd(xb), plain_bwd(xb, cot)
+            share, l2 = row_agreement(got_g[0], ref_g[0])
+            w_err, w_l2 = weight_grad_errors(got_g[1:], ref_g[1:])
+            cases[f"N={nc}"] = c = dict(
+                fwd_err=rel_err(out, ref), fwd_abs=abs_err(out, ref),
+                rows=share, dx_l2=l2, w_err=w_err, w_l2=w_l2,
+                bwd_abs=max(abs_err(a, b) for a, b in zip(got_g, ref_g)),
+                dw_alone_same_bits=all(torch.equal(a, b) for a, b in
+                                       zip(res["dw"], got_g[1:])))
+            check(bool(torch.isfinite(out).all()) and c["fwd_err"] <= TOL,
+                  f"fused_pe_mlp wide net {i} N={nc}: {c['fwd_err']:.2e}")
+            check(share >= ROW_SHARE and l2 <= GRAD_TOL
+                  and weight_grads_ok(w_err, w_l2, nc)
+                  and c["dw_alone_same_bits"],
+                  f"fused_pe_mlp_bwd wide net {i} N={nc}: rows {share:.4f}, "
+                  f"dx L2 {l2:.2e}, weights {w_err:.2e} (L2 {w_l2:.2e}), dW "
+                  f"alone the same bits {c['dw_alone_same_bits']}")
+            if nc == n:
+                again = bwd(xb, cot)
+                c["deterministic"] = (torch.equal(out, fwd(xb)) and all(
+                    torch.equal(a, b) for a, b in zip(got_g, again)))
+                check(c["deterministic"], f"fused_pe_mlp wide net {i} "
+                      "differs between two runs")
+                del again
+            del res, got_g, ref_g
+        xb, cot = x_all, cot_all
+        macs = mlp_macs(dims)
+        hidden = macs - dims[-2] * dims[-1]
+        k = dict(n=n, num_freqs=F, dims=dims, cases=cases,
+                 fwd_passes=pass_ms(lambda: fwd(xb), 20,
+                                    PE_MLP_WIDE_FWD_PASSES),
+                 call_ms=cuda_ms(lambda: fwd(xb), 20),
+                 plain_ms=device_ms(lambda: plain_fwd(xb), 5),
+                 bwd_passes=pass_ms(lambda: bwd(xb, cot), 10,
+                                    PE_MLP_WIDE_BWD_PASSES),
+                 bwd_call_ms=cuda_ms(lambda: bwd(xb, cot), 10),
+                 bwd_plain_ms=device_ms(lambda: plain_bwd(xb, cot), 5),
+                 dw_only_ms=device_ms(lambda: bwd(xb, cot, False), 10,
+                                      KERNEL_NS))
+        k["ms"] = k["fwd_passes"]["total"]["median"]
+        k["bwd_ms"] = k["bwd_passes"]["total"]["median"]
+        # tensor-core products only, as the 64-wide nets' entries count them
+        k["bound_ms"], k["bound_by"] = bound(2.0 * n * macs,
+                                             nbytes(xb, *wd) + n * 4)
+        k["bwd_bound_ms"], k["bwd_bound_by"] = bound(
+            2.0 * n * (hidden + 2 * macs), nbytes(xb, cot, xb, *wd, *wd))
+        per[f"net {i}"] = k
+        log(f"[kernel] fused_pe_mlp wide net {i} [{n},3] -> "
+            f"{'->'.join(map(str, dims))} (F={F}): err by case "
+            + ", ".join(f"{c_}: fwd {v['fwd_err']:.2e}, dx rows "
+                        f"{v['rows']:.5f}/L2 {v['dx_l2']:.2e}, weights "
+                        f"{v['w_err']:.2e}/L2 {v['w_l2']:.2e}"
+                        for c_, v in cases.items() if "rows" in v)
+            + f"; forward {k['ms']:.4f} ms (call {k['call_ms']:.4f}; over "
+            f"{BWD_WINDOWS} windows, median (min-max): "
+            f"{fmt_passes(k['fwd_passes'])}), plain {k['plain_ms']:.4f} ms, "
+            f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}); backward with "
+            f"dx and dW {k['bwd_ms']:.4f} ms (call {k['bwd_call_ms']:.4f}; by "
+            f"pass over {BWD_WINDOWS} windows, median (min-max): "
+            f"{fmt_passes(k['bwd_passes'])}), dW alone "
+            f"{k['dw_only_ms']:.4f} ms, plain {k['bwd_plain_ms']:.4f} ms, "
+            f"bound {k['bwd_bound_ms']:.4f} ms ({k['bwd_bound_by']}); {card}")
+        del x_all, cot_all
+    regs = k3_names(ptxas_registers(reports["fused_mlp_fwd"]),
+                    "3mlp14mlp_fwd", pe=True)
+    spills = k3_names(ptxas_spills(reports["fused_mlp_fwd"]),
+                      "3mlp14mlp_fwd", pe=True)
+    bwd_regs = k3_names(ptxas_registers(reports["fused_mlp_bwd"]),
+                        "3mlp14mlp_bwd", pe=True)
+    bwd_spills = k3_names(ptxas_spills(reports["fused_mlp_bwd"]),
+                          "3mlp14mlp_bwd", pe=True)
+    log(f"[build] K5 wide route: fused_mlp_fwd PE variant registers {regs}, "
+        f"spill bytes {spills}; fused_mlp_bwd PE variant registers "
+        f"{bwd_regs}, spill bytes {bwd_spills}")
+    check(regs and bwd_regs and all(v == 0 for v in spills.values())
+          and all(v == 0 for v in bwd_spills.values()),
+          f"K5 wide route spills {spills} {bwd_spills}")
+    vals = list(per.values())
+    shape = " and ".join(f"{name} x [{k['n']},3] -> "
+                         f"{'->'.join(map(str, k['dims']))}"
+                         for name, k in per.items())
+    cases = [c for k in vals for c in k["cases"].values() if "rows" in c]
+    return {
+        "fused_pe_mlp wide": dict(
+            source="cropnerf_tpu_torch/csrc/fused_mlp_fwd.cu", by_net=per,
+            registers=regs, spill_bytes=spills,
+            replaces="cropnerf_tpu/ops/pallas/fused_pe_field.py:822",
+            shape=f"cropnerf-mxu-q's two proposal nets at one training "
+                  f"step: {shape}",
+            ms=sum(k["ms"] for k in vals),
+            call_ms=sum(k["call_ms"] for k in vals),
+            plain_ms=sum(k["plain_ms"] for k in vals),
+            bound_ms=sum(k["bound_ms"] for k in vals), bound_by="operations",
+            rel_err=max(c["fwd_err"] for c in cases),
+            max_abs_err=max(c["fwd_abs"] for c in cases)),
+        "fused_pe_mlp_bwd wide": dict(
+            source="cropnerf_tpu_torch/csrc/fused_mlp_bwd.cu", by_net=per,
+            registers=bwd_regs, spill_bytes=bwd_spills,
+            replaces="cropnerf_tpu/ops/pallas/fused_pe_field.py:835",
+            shape=f"their backward with dx and every weight gradient: "
+                  f"{shape}",
+            ms=sum(k["bwd_ms"] for k in vals),
+            call_ms=sum(k["bwd_call_ms"] for k in vals),
+            plain_ms=sum(k["bwd_plain_ms"] for k in vals),
+            bound_ms=sum(k["bwd_bound_ms"] for k in vals),
+            bound_by="operations",
+            rel_err=max(c["dx_l2"] for c in cases),
+            max_abs_err=max(c["bwd_abs"] for c in cases))}
 
 
 # K6 shapes: the three compositing levels of a cropnerf-mxu training step
@@ -1903,20 +2132,22 @@ CLOUD_RAYS = 16_384      # the CLI's rays per depth-cloud batch
 CLOUD_POINTS = 1_000_000  # the CLI default's points (the reference: 10 M)
 
 
-def propfused_phase(dev, card, bank, rb, cams, kernels) -> tuple:
-    """The fused-proposal path (K5) at full widths: forward at RAYS rays and
-    the RENDER_HW^2 render against the plain path (field and proposal nets
-    on plain matmuls), 1 + TRAIN_STEPS training steps with every loss held
-    against the plain path's, and the depth point cloud at CLOUD_RAYS rays
-    a batch up to CLOUD_POINTS points, with exact launch counts for each
-    call.  Returns (numbers for the JSON line, calls for the trace)."""
+def propfused_phase(dev, card, bank, rb, cams, kernels,
+                    preset: str = "cropnerf-mxu") -> tuple:
+    """The fused-proposal path (K5) of ``preset`` at full widths: forward at
+    RAYS rays and the RENDER_HW^2 render against the plain path (field and
+    proposal nets on plain matmuls), 1 + TRAIN_STEPS training steps with
+    every loss held against the plain path's, and the depth point cloud at
+    CLOUD_RAYS rays a batch up to CLOUD_POINTS points (cropnerf-mxu; one
+    batch for another preset), with exact launch counts for each call.
+    Returns (numbers for the JSON line, calls for the trace)."""
     from cropnerf_tpu_torch.export import pointcloud as tpc
     from cropnerf_tpu_torch.models.config import PRESETS
     from cropnerf_tpu_torch.models.model import forward, model_init
-    from cropnerf_tpu_torch.train.state import create_train_state
-    from cropnerf_tpu_torch.train.step import (_bank_rays, make_render_fn,
-                                               make_train_step)
-    cfg = propfused_cfg(PRESETS["cropnerf-mxu"])
+    from cropnerf_tpu_torch.train.step import _bank_rays, make_render_fn
+    full_cloud = preset == "cropnerf-mxu"
+    tag = "[propfused]" if full_cloud else "[mxuq] propfused"
+    cfg = propfused_cfg(PRESETS[preset])
     plain = all_plain_cfg(cfg)
     m, mp = cfg.model, plain.model
     params = model_init(m, bank.num_images, torch.Generator().manual_seed(0),
@@ -1939,8 +2170,8 @@ def propfused_phase(dev, card, bank, rb, cams, kernels) -> tuple:
                              fused_pe_mlp=n_prop * n_chunks))}
     for step, (fn, expect) in steps.items():
         launches = counted(kernels, fn)
-        log(f"[propfused] {step} launches: {launches}")
-        check(launches == expect, f"propfused {step} launches {launches}, "
+        log(f"{tag} {step} launches: {launches}")
+        check(launches == expect, f"{tag} {step} launches {launches}, "
               f"expected {expect}")
         runs = [wall_ms(fn) for _ in range(REPEATS)]
         info[step] = dict(launches=launches, runs_ms=runs,
@@ -1951,16 +2182,27 @@ def propfused_phase(dev, card, bank, rb, cams, kernels) -> tuple:
     for label, a, b in (("forward", res["fwd"], fwd_p),
                         ("render", res["img"], img_p)):
         for k in ("rgb", "accumulation", "semantics"):
-            check(bool(torch.isfinite(a[k]).all()), f"propfused {label} {k}")
+            check(bool(torch.isfinite(a[k]).all()), f"{tag} {label} {k}")
             agree[f"{label} {k}"] = rel_err(a[k], b[k])
+            if not full_cloud:
+                agree[f"{label} {k} rays within"] = ray_share(a[k], b[k])
         dd = (a["depth"] - b["depth"]).abs()
         agree[f"{label} depth equal"] = (
             dd <= 1e-3 * b["depth"].abs() + 1e-4).float().mean().item()
     for k, v in agree.items():
-        check(v >= 0.99 if k.endswith("depth equal") else v <= 2 * TOL,
-              f"propfused {k}: {v:.3e}")
+        if k.endswith(("depth equal", "rays within")):
+            check(v >= 0.99, f"{tag} {k}: {v:.4f} < 0.99")
+        else:
+            # cropnerf-mxu-q's 128-wide proposal nets sharpen the sample
+            # weights: the kernel's and the plain version's last bits move
+            # a few rays' samples (its float32 render lies 10x further
+            # from JAX's than cropnerf-mxu's, with either proposal path:
+            # tests/test_torch_propfused_wide.py); 99 % of its rays within
+            # 2 TOL of max, every ray within 10 TOL
+            limit = 2 * TOL if full_cloud else 10 * TOL
+            check(v <= limit, f"{tag} {k}: {v:.3e} > {limit}")
     info["vs_plain"] = agree
-    log(f"[propfused] forward {RAYS} rays: median "
+    log(f"{tag} forward {RAYS} rays: median "
         f"{info['forward']['median_ms']:.2f} ms; render {RENDER_HW}x"
         f"{RENDER_HW}: median {info['render']['median_ms']:.2f} ms "
         f"({RENDER_HW ** 2 / info['render']['median_ms'] * 1e3:.0f} rays/s); "
@@ -1970,58 +2212,24 @@ def propfused_phase(dev, card, bank, rb, cams, kernels) -> tuple:
     # training: the kernel path and the plain path from the same parameters
     # and draws, every step's loss held against the plain path's
     n_steps = 1 + TRAIN_STEPS
-    losses, runs, states = {}, [], {}
-    for label, c in (("kernel", cfg), ("plain", plain)):
-        state = create_train_state(c, bank.num_images,
-                                   torch.Generator().manual_seed(0), dev)
-        step_fn = make_train_step(c)
-        gen = torch.Generator(device=dev).manual_seed(4)
-        out = []
-
-        def run(state=state, step_fn=step_fn, gen=gen, out=out):
-            out.append(step_fn(state, bank, gen)[1]["loss"])
-
-        if label == "kernel":
-            launches = counted(kernels, lambda: runs.extend(
-                wall_ms(run) for _ in range(n_steps)))
-        else:
-            plain_runs = [wall_ms(run) for _ in range(n_steps)]
-        losses[label] = [v.item() for v in out]
-        states[label] = (state, run)
+    info["train"], run_train = train_vs_plain(cfg, plain, bank, kernels,
+                                              n_steps, tag, dev)
+    t = info["train"]
     per_step = want(fused_pe_nerf=1, fused_pe_nerf_bwd=1,
                     fused_pe_mlp=n_prop, fused_pe_mlp_bwd=n_prop)
     expect = {k: n_steps * v for k, v in per_step.items()}
-    log(f"[propfused] launches in {n_steps} training steps: {launches}")
-    check(launches == expect, f"propfused training launches {launches}, "
-          f"expected {expect}")
-    loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses["kernel"],
-                                                     losses["plain"])]
-    check(all(math.isfinite(v) for v in losses["kernel"])
-          and max(loss_rel) <= 2e-2, f"propfused losses {losses}")
-    med = statistics.median(runs[1:])
-    state, run_train = states["kernel"]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    run_train()
-    torch.cuda.synchronize()
-    info["train"] = dict(
-        launches=launches, runs_ms=runs, median_ms=med, first_ms=runs[0],
-        rays_per_s=cfg.train_num_rays_per_batch / med * 1e3,
-        plain_runs_ms=plain_runs,
-        plain_median_ms=statistics.median(plain_runs[1:]),
-        losses=losses["kernel"], plain_losses=losses["plain"],
-        max_loss_rel=max(loss_rel),
-        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-    log(f"[propfused] train step at {cfg.train_num_rays_per_batch} rays: "
-        f"median {med:.2f} ms of {TRAIN_STEPS} "
-        f"({info['train']['rays_per_s']:.0f} rays/s), runs "
-        + ", ".join(f"{v:.2f}" for v in runs)
-        + f" ms; plain path median {info['train']['plain_median_ms']:.2f} ms; "
-        f"losses vs plain path: max rel {max(loss_rel):.2e} (first "
-        f"{losses['kernel'][0]:.5f} vs {losses['plain'][0]:.5f}, last "
-        f"{losses['kernel'][-1]:.5f} vs {losses['plain'][-1]:.5f}); peak "
-        f"{info['train']['peak_gib']:.2f} GiB; {card}")
-    del states["plain"]
+    log(f"{tag} launches in {n_steps} training steps: {t['launches']}")
+    check(t["launches"] == expect, f"{tag} training launches "
+          f"{t['launches']}, expected {expect}")
+    log(f"{tag} train step at {cfg.train_num_rays_per_batch} rays: "
+        f"median {t['median_ms']:.2f} ms of {TRAIN_STEPS} "
+        f"({t['rays_per_s']:.0f} rays/s), runs "
+        + ", ".join(f"{v:.2f}" for v in t["runs_ms"])
+        + f" ms; plain path median {t['plain_median_ms']:.2f} ms; "
+        f"losses vs plain path: max rel {t['max_loss_rel']:.2e} (first "
+        f"{t['losses'][0]:.5f} vs {t['plain_losses'][0]:.5f}, last "
+        f"{t['losses'][-1]:.5f} vs {t['plain_losses'][-1]:.5f}); peak "
+        f"{t['peak_gib']:.2f} GiB; {card}")
 
     # the depth point cloud: thresholds at a first batch's medians (random
     # weights keep no ray at the CLI's 0.5), then the exporter
@@ -2039,10 +2247,54 @@ def propfused_phase(dev, card, bank, rb, cams, kernels) -> tuple:
     same = ((pk - pp).abs().amax(1) <= 1e-3 * pp.abs().amax(1) + 1e-4)
     cloud_agree = dict(keep_equal=(kk == kp).float().mean().item(),
                        points_equal=same.float().mean().item(),
-                       colours=rel_err(ck, cp))
-    check(cloud_agree["keep_equal"] >= 0.99 and cloud_agree["points_equal"]
-          >= 0.99 and cloud_agree["colours"] <= 2 * TOL,
-          f"propfused depth batch vs plain path {cloud_agree}")
+                       colours=rel_err(ck, cp),
+                       colours_rays_within=ray_share(ck, cp))
+    if full_cloud:
+        colours_ok = cloud_agree["colours"] <= 2 * TOL
+        keep_ok = cloud_agree["keep_equal"] >= 0.99
+    else:
+        # cropnerf-mxu-q as its render above: 99 % of rays within 2 TOL.
+        # Its accumulation saturates, so most rays lie within the last bits
+        # of the median threshold, where the two paths decide apart (7-14 %
+        # of the rays on the card, none in the points or colours): a keep
+        # flag may flip only where the plain path's accumulation or
+        # colormap lies within WIDE_FLIP of its threshold, as
+        # export_vs_k3_plain holds the wide presets' flags
+        colours_ok = (cloud_agree["colours_rays_within"] >= 0.99
+                      and cloud_agree["colours"] <= 10 * TOL)
+        with torch.no_grad():
+            op = forward(params, _bank_rays(bank, idx0, cfg)[2], mp)
+        near = ((op["accumulation"][..., 0]
+                 - thr["accumulation_threshold"]).abs() <= WIDE_FLIP) | (
+            (op["semantics_colormap"][..., 0]
+             - thr["semantic_threshold"]).abs() <= WIDE_FLIP)
+        cloud_agree["flips_near_threshold"] = int(((kk != kp) & near).sum())
+        cloud_agree["flips_away"] = int(((kk != kp) & ~near).sum())
+        keep_ok = cloud_agree["flips_away"] == 0
+    check(keep_ok and cloud_agree["points_equal"] >= 0.99 and colours_ok,
+          f"{tag} depth batch vs plain path {cloud_agree}")
+    if not full_cloud:
+        # one batch of the exporter, its launches exact
+        res = {}
+        launches = counted(kernels, lambda: res.update(ms=wall_ms(
+            lambda: tpc.depth_points(params, m, bank, idx0, **thr))))
+        expect = want(fused_pe_nerf=1, fused_pe_mlp=n_prop)
+        check(launches == expect, f"{tag} depth batch launches {launches}, "
+              f"expected {expect}")
+        runs = [wall_ms(lambda: tpc.depth_points(params, m, bank, idx0,
+                                                 **thr))
+                for _ in range(REPEATS)]
+        info["pointcloud"] = dict(
+            rays_per_batch=CLOUD_RAYS, batches=1, thresholds=thr,
+            first_ms=res["ms"], runs_ms=runs,
+            median_batch_ms=statistics.median(runs), launches=launches,
+            kept=int(kk.sum()), first_batch_vs_plain=cloud_agree)
+        log(f"{tag} depth-cloud batch of {CLOUD_RAYS} rays at thresholds "
+            f"{thr}: {int(kk.sum())} points kept; first {res['ms']:.2f} ms, "
+            f"median {info['pointcloud']['median_batch_ms']:.2f} ms of "
+            f"{REPEATS}; launches {nonzero(launches)}; vs plain path "
+            f"{cloud_agree}; {card}")
+        return info, {f"{preset} propfused train step": run_train}
     batch_ms = []                 # each batch's device work, synchronised
     depth_points = tpc.depth_points
 
@@ -2064,7 +2316,7 @@ def propfused_phase(dev, card, bank, rb, cams, kernels) -> tuple:
     nb = len(batch_ms)
     pts, cols = cloud["pc"]
     expect = want(fused_pe_nerf=nb, fused_pe_mlp=n_prop * nb)
-    log(f"[propfused] depth cloud launches in {nb} batches: {launches}")
+    log(f"{tag} depth cloud launches in {nb} batches: {launches}")
     check(launches == expect, f"depth cloud launches {launches}, expected "
           f"{expect}")
     check(0 < len(pts) <= CLOUD_POINTS and bool(np.isfinite(pts).all())
@@ -2076,7 +2328,7 @@ def propfused_phase(dev, card, bank, rb, cams, kernels) -> tuple:
         batches_seconds=batches_s,
         median_batch_ms=statistics.median(batch_ms), launches=launches,
         first_batch_vs_plain=cloud_agree)
-    log(f"[propfused] depth cloud: {len(pts)} points (of {CLOUD_POINTS} "
+    log(f"{tag} depth cloud: {len(pts)} points (of {CLOUD_POINTS} "
         f"asked) from {nb} batches of {CLOUD_RAYS} rays at thresholds {thr}: "
         f"{cloud_s:.2f} s, of which the batches {batches_s:.2f} s (median "
         f"{statistics.median(batch_ms):.2f} ms a batch) and the host's "
@@ -2085,6 +2337,172 @@ def propfused_phase(dev, card, bank, rb, cams, kernels) -> tuple:
     trace = {"propfused train step": run_train,
              "propfused depth-cloud batch": lambda: tpc.depth_points(
                  params, m, bank, idx0, **thr)}
+    return info, trace
+
+
+def train_vs_plain(cfg, plain, bank, kernels, n_steps, tag, dev,
+                   plain_steps=None) -> tuple:
+    """``n_steps`` training steps of ``cfg`` and ``plain_steps`` (all of
+    them by default) of its plain path from the same parameters and draws
+    on ``bank``: the kernel path's launches (counted over its steps), each
+    step's loss against the plain path's within 2e-2, and the first step's
+    loss terms within 2e-2 (or 1e-4 absolute), wall ms of each step, the
+    peak device memory of one more step.  Returns the numbers and the
+    kernel path's step (for the trace)."""
+    from cropnerf_tpu_torch.train.state import create_train_state
+    from cropnerf_tpu_torch.train.step import make_train_step
+    losses, terms, runs, plain_runs, kernel_run = {}, {}, [], [], None
+    for label, c in (("kernel", cfg), ("plain", plain)):
+        state = create_train_state(c, bank.num_images,
+                                   torch.Generator().manual_seed(0), dev)
+        step_fn = make_train_step(c)
+        gen = torch.Generator(device=dev).manual_seed(4)
+        out = []
+
+        def run(state=state, step_fn=step_fn, gen=gen, out=out):
+            out.append(step_fn(state, bank, gen)[1])
+
+        if label == "kernel":
+            launches = counted(kernels, lambda: runs.extend(
+                wall_ms(run) for _ in range(n_steps)))
+            kernel_run = run
+        else:
+            plain_runs = [wall_ms(run)
+                          for _ in range(plain_steps or n_steps)]
+        losses[label] = [d["loss"].item() for d in out]
+        terms[label] = {k: v.item() for k, v in out[0].items()
+                        if k.endswith("loss")}
+        del state, out[:]
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses["kernel"],
+                                                     losses["plain"])]
+    check(all(math.isfinite(v) for v in losses["kernel"])
+          and max(loss_rel) <= 2e-2, f"{tag} losses {losses}")
+    check(all(abs(v - terms["plain"][k]) <= max(2e-2 * abs(terms["plain"][k]),
+                                                  1e-4)
+              for k, v in terms["kernel"].items()),
+          f"{tag} first step's loss terms {terms}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernel_run()
+    torch.cuda.synchronize()
+    med = statistics.median(runs[1:])
+    return dict(launches=launches, runs_ms=runs, median_ms=med,
+                first_ms=runs[0],
+                rays_per_s=cfg.train_num_rays_per_batch / med * 1e3,
+                plain_runs_ms=plain_runs,
+                plain_median_ms=statistics.median(plain_runs[1:]
+                                                  or plain_runs),
+                losses=losses["kernel"], plain_losses=losses["plain"],
+                first_terms=terms["kernel"], plain_first_terms=terms["plain"],
+                max_loss_rel=max(loss_rel),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30), kernel_run
+
+
+def mxuq_phase(dev, card, bank, rb, cams, kernels) -> tuple:
+    """cropnerf-mxu-q at its published widths and batch, random weights
+    from a seeded generator, on the [train] bank ([mxuq] lines).  The
+    published preset (its proposal nets on plain matmuls: K1 forward and
+    backward, K2 and K3): forward at RAYS rays, the RENDER_HW^2 render and
+    the EXPORT_SIDE^3 export with colours against the all-plain path, then
+    1 + TRAIN_STEPS training steps with every loss held against the
+    all-plain path's.  Then the fused-proposal variant (K1 and K5's wide
+    route) through propfused_phase: forward, render, training steps and
+    one depth-cloud batch.  Launches exact for each call, counts zeroed
+    just before and read just after.  Returns (numbers for the JSON line,
+    calls for the trace)."""
+    from cropnerf_tpu_torch.export.ply import ply_vertex_count
+    from cropnerf_tpu_torch.export.volume import export_and_write
+    from cropnerf_tpu_torch.models.config import PRESETS
+    from cropnerf_tpu_torch.models.model import forward, model_init
+    from cropnerf_tpu_torch.train.step import make_render_fn
+    cfg = PRESETS["cropnerf-mxu-q"]
+    plain = all_plain_cfg(cfg)
+    m, mp = cfg.model, plain.model
+    names = [k.__name__ for k in kernels]
+
+    def want(**n):
+        return {k: n.get(k, 0) for k in names}
+
+    params = model_init(m, bank.num_images, torch.Generator().manual_seed(0),
+                        dev)
+    render, render_p = make_render_fn(cfg), make_render_fn(plain)
+    r_chunks = math.ceil(RENDER_HW ** 2 / cfg.eval_num_rays_per_chunk)
+    e_chunks = -(-EXPORT_SIDE ** 2 // EXPORT_RAYS)
+    aabb = [[-1.0, -1.0, -1.0], [1.0, 1.0, 1.0]]
+    thr = export_thresholds(params, m.field,
+                            torch.Generator(device=dev).manual_seed(21), dev)
+    out_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_mxuq_"))
+    kw = dict(num_points_per_side=EXPORT_SIDE, render_rgb=True, **thr)
+    res, info = {}, {"card": card}
+    steps = {
+        "forward": (lambda: res.update(fwd=forward(params, rb, m)),
+                    want(fused_pe_nerf=1)),
+        "render": (lambda: res.update(img=render(params, cams, 0, RENDER_HW,
+                                                 RENDER_HW)),
+                   want(fused_pe_nerf=r_chunks)),
+        "export": (lambda: res.update(paths=export_and_write(
+            params, m, aabb, out_dir, **kw)),
+                   want(fused_pe_density=e_chunks, fused_mlp=2 * e_chunks))}
+    for step, (fn, expect) in steps.items():
+        launches = counted(kernels, fn)
+        check(launches == expect, f"[mxuq] {step} launches "
+              f"{nonzero(launches)}, expected {nonzero(expect)}")
+        runs = [wall_ms(fn) for _ in range(REPEATS)]
+        info[step] = dict(launches=launches, runs_ms=runs,
+                          median_ms=statistics.median(runs))
+        log(f"[mxuq] {step}: median {info[step]['median_ms']:.2f} ms of "
+            f"{REPEATS}, runs " + ", ".join(f"{v:.2f}" for v in runs)
+            + f" ms; launches {nonzero(launches)}; {card}")
+    agree = {}
+    for label, a, b in (("forward", res["fwd"], forward(params, rb, mp)),
+                        ("render", res["img"], render_p(params, cams, 0,
+                                                        RENDER_HW,
+                                                        RENDER_HW))):
+        for k in ("rgb", "accumulation", "semantics"):
+            check(bool(torch.isfinite(a[k]).all()), f"[mxuq] {label} {k}")
+            agree[f"{label} {k}"] = rel_err(a[k], b[k])
+        dd = (a["depth"] - b["depth"]).abs()
+        agree[f"{label} depth equal"] = (
+            dd <= 1e-3 * b["depth"].abs() + 1e-4).float().mean().item()
+    for k, v in agree.items():
+        check(v >= 0.99 if k.endswith("depth equal") else v <= 2 * TOL,
+              f"[mxuq] {k}: {v:.3e}")
+    points = {k: ply_vertex_count(v) for k, v in res["paths"].items()}
+    plain_points = {k: ply_vertex_count(v) for k, v in export_and_write(
+        params, mp, aabb, out_dir / "plain", **kw).items()}
+    check(points["density"] > points["semantic"] > 0, f"[mxuq] export "
+          f"points {points}")
+    for k in points:
+        check(abs(points[k] - plain_points[k]) <= 0.01 * plain_points[k] + 10,
+              f"[mxuq] export {k}: {points[k]} points vs plain path "
+              f"{plain_points[k]}")
+    info["vs_plain"] = agree
+    info["export"].update(points=points, plain_points=plain_points,
+                          thresholds=thr)
+    log(f"[mxuq] published preset vs plain path: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in agree.items())
+        + f"; export {EXPORT_SIDE}^3 points {points} (plain {plain_points})"
+        f"; {card}")
+    shutil.rmtree(out_dir)
+
+    n_steps = 1 + TRAIN_STEPS
+    info["train"], _ = train_vs_plain(cfg, plain, bank, kernels, n_steps,
+                                      "[mxuq] published", dev)
+    t = info["train"]
+    expect = want(fused_pe_nerf=n_steps, fused_pe_nerf_bwd=n_steps)
+    check(t["launches"] == expect, f"[mxuq] training launches "
+          f"{nonzero(t['launches'])}, expected {nonzero(expect)}")
+    log(f"[mxuq] published train step at {cfg.train_num_rays_per_batch} "
+        f"rays: median {t['median_ms']:.2f} ms of {TRAIN_STEPS} "
+        f"({t['rays_per_s']:.0f} rays/s), runs "
+        + ", ".join(f"{v:.2f}" for v in t["runs_ms"])
+        + f" ms; plain path median {t['plain_median_ms']:.2f} ms; losses vs "
+        f"plain path: max rel {t['max_loss_rel']:.2e}; launches "
+        f"{nonzero(t['launches'])}; peak {t['peak_gib']:.2f} GiB; {card}")
+    del params
+    torch.cuda.empty_cache()
+    info["propfused"], trace = propfused_phase(dev, card, bank, rb, cams,
+                                               kernels, "cropnerf-mxu-q")
     return info, trace
 
 
@@ -3775,6 +4193,7 @@ WIDE_REPEATS = 2                # timed exports after the counted one
 WIDE_FLIP = 1e-2                # a semantic flag may flip only this close to
                                 # its threshold, in sigmoid units
 WIDE_CLI_STEPS = 50             # train --method cropnerf-mxu-huge (600x400)
+WIDE_TRAIN_STEPS = 3            # cropnerf-mxu-big's timed steps after a first
 WIDE_CLI_EXPORT_SIDE = 64
 WIDE_CLI_UNC_ITERS = 2
 
@@ -3889,7 +4308,11 @@ def wide_phase(dev, card, bank, kernels, work: Path) -> dict:
     --method cropnerf-mxu-huge --max-steps WIDE_CLI_STEPS, export
     --render-rgb at WIDE_CLI_EXPORT_SIDE a side and uncertainty --iters
     WIDE_CLI_UNC_ITERS, with K3's launches exact.  Returns (numbers for
-    the JSON line, the -huge export and BayesRays batch for the trace)."""
+    the JSON line, the -huge export and BayesRays batch for the trace).
+    First, cropnerf-mxu-big's training step at its published batch (8192
+    rays, 512/256/128 samples): 1 + WIDE_TRAIN_STEPS steps with exact K1
+    launches, the first step's losses against the all-plain path's, step
+    ms and peak GiB."""
     from cropnerf_tpu_torch import cli
     from cropnerf_tpu_torch.export.ply import ply_vertex_count
     from cropnerf_tpu_torch.export.volume import (export_and_write,
@@ -3908,6 +4331,29 @@ def wide_phase(dev, card, bank, kernels, work: Path) -> dict:
     n_chunks = -(-EXPORT_SIDE ** 2 // EXPORT_RAYS)
     info, trace_steps = {"card": card, "launches": {}}, {}
     g = torch.Generator(device=dev).manual_seed(19)
+
+    # ---- cropnerf-mxu-big's training step
+    cfg = PRESETS["cropnerf-mxu-big"]
+    n_steps = 1 + WIDE_TRAIN_STEPS
+    t, _ = train_vs_plain(cfg, all_plain_cfg(cfg), bank, kernels, n_steps,
+                          "[wide] cropnerf-mxu-big train", dev, plain_steps=1)
+    expect = want(fused_pe_nerf=n_steps, fused_pe_nerf_bwd=n_steps)
+    check(t["launches"] == expect, f"[wide] cropnerf-mxu-big training "
+          f"launches {nonzero(t['launches'])}, expected {nonzero(expect)}")
+    info["launches"]["cropnerf-mxu-big train"] = t["launches"]
+    info["cropnerf-mxu-big train"] = t
+    log(f"[wide] cropnerf-mxu-big train step at "
+        f"{cfg.train_num_rays_per_batch} rays, samples "
+        f"{cfg.model.num_proposal_samples_per_ray}/"
+        f"{cfg.model.num_nerf_samples_per_ray}: median {t['median_ms']:.2f} "
+        f"ms of {WIDE_TRAIN_STEPS} ({t['rays_per_s']:.0f} rays/s), runs "
+        + ", ".join(f"{v:.2f}" for v in t["runs_ms"])
+        + f" ms; plain path's first step {t['plain_runs_ms'][0]:.2f} ms; "
+        f"first step's loss terms {t['first_terms']} vs plain "
+        f"{t['plain_first_terms']}; launches {nonzero(t['launches'])}; peak "
+        f"{t['peak_gib']:.2f} GiB; {card}")
+    torch.cuda.empty_cache()
+
     for preset in WIDE_PRESETS:
         cfg = PRESETS[preset]
         m = cfg.model
@@ -4515,6 +4961,7 @@ def main() -> None:
                                   fused_pe_mlp_wide, fused_pe_mlp_bwd,
                                   render_weights_cuda)
     pe_k = pe_mlp_entries(cfg, dev, card, reports, all_kernels)
+    pe_wide = pe_mlp_wide_entries(dev, card, reports, all_kernels)
     k6 = transmittance_entry(dev, card, all_kernels)
     hash_path, hash_forward = hash_serving(dev, card, rb, cams, aabb, out_dir,
                                            all_kernels)
@@ -4642,6 +5089,12 @@ def main() -> None:
     pf_info, pf_steps = propfused_phase(dev, card, bank, rb, cams, all_kernels)
     steps.update(pf_steps)
 
+    # ---- 5c'. cropnerf-mxu-q, published and with fused proposals (K5's
+    # wide route) ------------------------------------------------------------
+    mq_info, mq_steps = mxuq_phase(dev, card, bank, rb, cams, all_kernels)
+    steps.update(mq_steps)
+    mq_pf = mq_info["propfused"]
+
     # ---- 5d. the trainer loop and the CLI ---------------------------------
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
     cli_info = cli_phase(dev, card, all_kernels,
@@ -4764,8 +5217,20 @@ def main() -> None:
         bound_by=k["bound_by"], library_ms=None, shape=k["shape"], card=card,
         registers=k["registers"], by_net=k["by_net"],
         **{key: k[key] for key in ("spill_bytes", "ms_min", "ms_max",
-                                   "second_route") if key in k})
+                                   "wmma_route") if key in k})
         for name, k in pe_k.items()] + [dict(
+        name=name, route="cuda", source=k["source"], replaces=k["replaces"],
+        launches=mq_pf["train"]["launches"][counter],
+        launches_by_path={path: mq_pf[path]["launches"][counter]
+                          for path in ("forward", "render", "train",
+                                       "pointcloud")},
+        max_abs_err=k["max_abs_err"], rel_err=k["rel_err"], ms=k["ms"],
+        call_ms=k["call_ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+        bound_by=k["bound_by"], library_ms=None, shape=k["shape"], card=card,
+        kernel_route="wgmma (PE variant)", registers=k["registers"],
+        spill_bytes=k["spill_bytes"], by_net=k["by_net"])
+        for name, k in pe_wide.items()
+        for counter in [name.split()[0]]] + [dict(
         name="render_weights_cuda", route="cuda", source=k6["source"],
         replaces=k6["replaces"], launches=k6["launches"],
         launches_by_path={"its entry point at K6_SHAPES": k6["launches"],
@@ -4791,6 +5256,7 @@ def main() -> None:
         "bwd_kernels": {name: kernels[name] for name in
                         ("fused_pe_density_bwd", "fused_mlp_bwd")},
         "propfused": pf_info,
+        "mxuq": mq_info,
         "cli": cli_info,
         "count": count_info,
         "ddp": ddp_info,

@@ -56,6 +56,25 @@
 // same thread).  Fixed-order column sums reduce the rows.  No atomics:
 // the plan depends on N and the SM count alone, so two runs give the same
 // bits.  Rows past N load zero x and zero cotangents, so they add nothing.
+//
+// The PE variant (PE = true) is the recompute backward of fused_pe_mlp's
+// nets wider than 64, replacing cropnerf_tpu/ops/pallas/fused_pe_field.py
+// _plain_bwd_kernel for them (cropnerf-mxu-q's proposal nets, 33 or 39 ->
+// 128 -> 128 -> 1), with K5's arithmetic (fused_pe_mlp_bwd.cu's note):
+// x [N, 3] arrives in the stages (768 bytes a tile); step 1 encodes it,
+// two threads a row (wgmma_mlp.cuh pe_encode), into A_0's chunk-major tile,
+// which layer 0's products read, and keeps each column's f32
+// d(encode)/d(pre) x 2^f in a derivative tile; step 4 scales G_0·W_0ᵀ's
+// f32 columns by those (pe_dscale) and sums each coordinate's columns in
+// column order into dx [N, 3] (pe_dx).  Bound: operations, ~62 kMAC a row
+// at net 0 and 64 at net 1 (the hidden layers' recompute, every input
+// gradient, every weight gradient) against 20 bytes of x, g and dx: 0.183
+// ms for a training step's two nets at 989 TFLOP/s.  The weight sums stay
+// on the heads' scheme, each tile's products added into the warpgroup's
+// partial row in device memory (L2: 98 KB a warpgroup at -q's nets): at
+// 128 wide they hold 24,576 f32, 192 registers a thread, and the block's
+// shared memory holds both image halves (98 KB), the operand tiles (73 KB)
+// and the derivative tile (17 KB), so neither keeps them on chip.
 #include "bwd_layers.cuh"
 #include "wgmma_mlp.cuh"
 
@@ -212,19 +231,19 @@ __device__ __forceinline__ void add_rows(float* row, int n, const float (&v)[R],
   }
 }
 
-template <int NL, bool DW, bool DX, int HWP>
+template <int NL, bool DW, bool DX, int HWP, bool PE>
 __global__ void __launch_bounds__(128 * bwd_max_wgs(NL, DW, HWP), 1)
 mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g_out,
                float* __restrict__ dx, const bf16* __restrict__ img,
                const float* __restrict__ bias, float* __restrict__ wpart,
                float* __restrict__ bpart, long long n_rows, int din, int dout, int ns_arg,
-               int in_al, int dx_al) {
+               int in_al, int dx_al, int num_freqs) {
   constexpr int KB = max_kb(NL, HWP), NB = HWP / HW, S = HWP / 16;
   const int ns = stages<HWP>(ns_arg);
   // weight sums in registers over the warpgroup's tiles (64 wide), or
   // each tile's products flushed into the warpgroup's partial row (wider)
   constexpr bool RDW = DW && HWP == HW, FLUSH = DW && HWP != HW;
-  const Layout L(din, dout, NL, HWP);
+  const Layout L(din, dout, NL, HWP, PE);
   const BwdSmem SM(L, DW, ns);
   extern __shared__ __align__(128) unsigned char smem[];
   const Lane ln;
@@ -237,6 +256,7 @@ mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g_out,
   auto fimg = [&](int l) { return s_img + L.fw_off(l) * 2; };
   auto bimg = [&](int l) { return s_img + L.bw_off(l) * 2; };
   bf16* a0t = reinterpret_cast<bf16*>(reg + SM.a0_at);                // A_0
+  float* dd = reinterpret_cast<float*>(reg + SM.dd_at);               // PE: d(encode)
   auto aht = [&](int l) {                                              // A_l, l >= 1
     return reinterpret_cast<bf16*>(reg + SM.ah_at + (l - 1) * L.tile_bytes());
   };
@@ -263,6 +283,10 @@ mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g_out,
     }
     if (DW)
       for (int i = threadIdx.x; i < wgs * 4 * L.n_bias(); i += blockDim.x) bsum[i] = 0.0f;
+    // a PE net's encoding tile zero: its padded columns stay so
+    if (PE)
+      for (int i = ln.t; i < L.in_bytes() / 16; i += 128)
+        reinterpret_cast<uint4*>(a0t)[i] = make_uint4(0u, 0u, 0u, 0u);
   }
   fence_async_smem();
   __syncthreads();
@@ -295,7 +319,7 @@ mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g_out,
     unsigned char* st = reg + s * SM.stage_bytes;
     if (bulk_in(t)) {
       mbar_expect_tx(&full[s], xb + ob);
-      bulk_load(st, x + t * ROWS * din, xb, &full[s]);
+      bulk_load(st, x + t * ROWS * L.xc, xb, &full[s]);
       bulk_load(st + xb, g_out + t * ROWS * dout, ob, &full[s]);
     } else {
       mbar_arrive(&full[s]);
@@ -306,7 +330,7 @@ mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g_out,
     for (int s = 0; s + 1 < ns; ++s) issue(tile + s * stride, s);
 
   float acc[HW / 2];
-  uint32_t a0[KB][4];
+  uint32_t a0[PE ? 1 : KB][4];
   uint32_t act[NL - 1][S][4];          // A_l (l >= 1), bf16 pairs: the relu masks
   uint32_t mask[HW / 16][4];           // 64 wide with dW, a mask read back from its tile
   uint32_t gc[NL - 1][S][4];           // G_l (l < NL - 1), bf16 pairs
@@ -322,19 +346,29 @@ mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g_out,
     }
     mbar_wait(&full[s], (it / ns) & 1);
     if (!bulk_in(tile)) {
-      load_rows(xt, x, row0, din, n_rows, ln);
+      load_rows(xt, x, row0, L.xc, n_rows, ln);
       load_rows(gt, g_out, row0, dout, n_rows, ln);
       named_sync(bar, 128);
     }
 
-    // ---- 1. the stages into registers (and, for dW, into operand tiles)
-    x_to_a<KB>(a0, xt, din, kb, ln);
+    // ---- 1. the stages into registers (and, for dW, into operand tiles);
+    // a PE net's x encoded, two threads a row, into A_0's tile, with its
+    // derivatives for dx
+    if constexpr (PE) {
+      const int er = ln.t >> 1;
+      float xr[DIM];
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) xr[d] = xt[er * DIM + d];
+      pe_encode<DX>(a0t, dd + er * DLD, xr, er, ln.t & 1, num_freqs, 0);
+    } else {
+      x_to_a<KB>(a0, xt, din, kb, ln);
+    }
     g_to_a<DW>(gl, gt, dout, brow + L.b_off(NL - 1), ln);
     if constexpr (DW) {
-      store_tile(a0t, a0, kb, ln);
+      if constexpr (!PE) store_tile(a0t, a0, kb, ln);
       store_step(glt, 0, gl, ln);
-      fence_async_smem();
     }
+    if constexpr (DW || PE) fence_async_smem();
     named_sync(bar, 128);                // the stage is read
 
     // ---- 2. the forward: A_{l+1} = bf16(relu(A_l W_l + b_l)) in registers,
@@ -342,7 +376,10 @@ mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g_out,
 #pragma unroll
     for (int cb = 0; cb < NB; ++cb) {
       wgmma_fence();
-      mma_cols<KB>(acc, a0, fimg(0), HWP, cb, kb);
+      if constexpr (PE)
+        mma_cols_s<ENC_MAX / 16>(acc, smem_u32(a0t), fimg(0), HWP, cb, kb);
+      else
+        mma_cols<KB>(acc, a0, fimg(0), HWP, cb, kb);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -428,9 +465,10 @@ mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g_out,
     }
 
     // ---- 4. dx = G_0·W_0ᵀ, two 16-column products a group, staged over
-    // the x tile for one bulk store, or stored by the threads that hold it
+    // the x tile for one bulk store, or stored by the threads that hold it;
+    // a PE net's scaled by the derivatives and summed per coordinate
     if constexpr (DX) {
-      const bool bulk_out = dx_al && (tile + 1) * ROWS <= n_rows;
+      const bool bulk_out = !PE && dx_al && (tile + 1) * ROWS <= n_rows;
       for (int cb = 0; cb < kb; cb += 2) {
         float d[2][8];
         wgmma_fence();
@@ -458,16 +496,24 @@ mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g_out,
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
               const int r = ln.r0 + 8 * h;
-              float* o = bulk_out ? xt + r * din + c : dx + (row0 + r) * din + c;
-              if (bulk_out || row0 + r < n_rows) {
-                if (c < din) o[0] = d[u][4 * j + 2 * h];
-                if (c + 1 < din) o[1] = d[u][4 * j + 2 * h + 1];
+              if constexpr (PE) {
+                pe_dscale(dd, r, c, d[u][4 * j + 2 * h], d[u][4 * j + 2 * h + 1], din);
+              } else {
+                float* o = bulk_out ? xt + r * din + c : dx + (row0 + r) * din + c;
+                if (bulk_out || row0 + r < n_rows) {
+                  if (c < din) o[0] = d[u][4 * j + 2 * h];
+                  if (c + 1 < din) o[1] = d[u][4 * j + 2 * h + 1];
+                }
               }
             }
           }
         }
       }
-      if (bulk_out) {
+      if constexpr (PE) {
+        named_sync(bar, 128);
+        pe_dx(dx, dd, row0, n_rows, num_freqs, ln.t);
+        named_sync(bar, 128);            // the derivative tile is read
+      } else if (bulk_out) {
         fence_async_smem();
         named_sync(bar, 128);
         if (elected) {
@@ -586,11 +632,11 @@ static int2 bwd_plan(const Layout& L, bool dw) {
                      bwd_max_wgs(L.nl, dw, L.hw), 2);
 }
 
-template <int NL, bool DW, bool DX, int HWP>
+template <int NL, bool DW, bool DX, int HWP, bool PE>
 static int launch(const float* x, const float* g, float* dx, const void* img, const float* bias,
                   float* wpart, float* bpart, long long n_rows, const Layout& L, int blocks,
-                  int2 plan, cudaStream_t s) {
-  auto k = mlp_bwd_kernel<NL, DW, DX, HWP>;
+                  int2 plan, int num_freqs, cudaStream_t s) {
+  auto k = mlp_bwd_kernel<NL, DW, DX, HWP, PE>;
   const int smem = BwdSmem(L, DW, plan.y).total(plan.x);
   cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
@@ -599,26 +645,26 @@ static int launch(const float* x, const float* g, float* dx, const void* img, co
   const int dx_al = (reinterpret_cast<uintptr_t>(dx) & 15) == 0;
   k<<<(unsigned)blocks, 128 * plan.x, smem, s>>>(x, g, dx, reinterpret_cast<const bf16*>(img),
                                                   bias, wpart, bpart, n_rows, L.din, L.dout,
-                                                  plan.y, in_al, dx_al);
+                                                  plan.y, in_al, dx_al, num_freqs);
   return (int)cudaGetLastError();
 }
 
-template <int NL, int HWP>
+template <int NL, int HWP, bool PE = false>
 static int run(const float* x, const float* g, float* dx, const void* img, const float* bias,
                float* wpart, float* bpart, float* dw, float* db, long long n_rows,
-               const Layout& L, int blocks, cudaStream_t s) {
+               const Layout& L, int blocks, cudaStream_t s, int num_freqs = 0) {
   const bool need_dw = wpart != nullptr, need_dx = dx != nullptr;
   const int2 plan = bwd_plan(L, need_dw);
   int err;
   if (need_dw && need_dx)
-    err = launch<NL, true, true, HWP>(x, g, dx, img, bias, wpart, bpart, n_rows, L, blocks,
-                                      plan, s);
+    err = launch<NL, true, true, HWP, PE>(x, g, dx, img, bias, wpart, bpart, n_rows, L, blocks,
+                                          plan, num_freqs, s);
   else if (need_dw)
-    err = launch<NL, true, false, HWP>(x, g, dx, img, bias, wpart, bpart, n_rows, L, blocks,
-                                       plan, s);
+    err = launch<NL, true, false, HWP, PE>(x, g, dx, img, bias, wpart, bpart, n_rows, L,
+                                           blocks, plan, num_freqs, s);
   else
-    err = launch<NL, false, true, HWP>(x, g, dx, img, bias, wpart, bpart, n_rows, L, blocks,
-                                       plan, s);
+    err = launch<NL, false, true, HWP, PE>(x, g, dx, img, bias, wpart, bpart, n_rows, L,
+                                           blocks, plan, num_freqs, s);
   if (err || !need_dw) return err;
   err = column_sum(wpart, (long long)blocks * wpart_rows(L, plan.x), L.fwd_elems(), dw, s);
   if (err) return err;
@@ -636,11 +682,13 @@ static int run(const float* x, const float* g, float* dx, const void* img, const
 // offset, its bias at l·hw), out[4] the dynamic shared memory, out[5] the
 // warpgroups a block, out[6] the weight partial rows a block writes (the
 // caller zeroes them for hw > 64), out[7] the x and g stages a warpgroup.
-// Returns 0, or -1 for a net the kernel does not take.
+// With pe, the PE variant for a net whose layer 0 takes the din-column
+// encoding of x [N, 3].  Returns 0, or -1 for a net the kernel does not
+// take.
 extern "C" int cropnerf_mlp_bwd_layout(int din, int dout, int n_layers, int hw, int need_dw,
-                                       long long* out) {
+                                       int pe, long long* out) {
   using namespace cropnerf::mlp;
-  const Layout L(din, dout, n_layers, hw);
+  const Layout L(din, dout, n_layers, hw, pe != 0);
   if (!L.ok()) return -1;
   const int2 plan = bwd_plan(L, need_dw != 0);
   if (plan.x < 1) return -1;
@@ -659,21 +707,35 @@ extern "C" int cropnerf_mlp_bwd_layout(int din, int dout, int n_layers, int hw, 
 // as mlp_images builds them for hidden width hw.  A null dx skips dx; null
 // wpart, bpart, dw and db skip the weight gradients, otherwise wpart holds
 // `blocks` x out[6] rows and bpart `blocks` rows of the partial sizes, and
-// dw, db receive the padded f32 gradients.  Returns a cudaError_t (0 on
+// dw, db receive the padded f32 gradients.  num_freqs >= 0 runs the PE
+// variant: x and dx [n_rows, 3], their encoding of din = 3(1 + 2
+// num_freqs) columns layer 0's input.  Returns a cudaError_t (0 on
 // success).
 extern "C" int cropnerf_mlp_bwd(const float* x, const float* g, float* dx, const void* img,
                                 const float* bias, int din, int dout, int n_layers, int hw,
-                                long long n_rows, int blocks, float* wpart, float* bpart,
-                                float* dw, float* db, void* stream) {
+                                int num_freqs, long long n_rows, int blocks, float* wpart,
+                                float* bpart, float* dw, float* db, void* stream) {
   using namespace cropnerf::mlp;
-  const Layout L(din, dout, n_layers, hw);
+  const bool pe = num_freqs >= 0;
+  const Layout L(din, dout, n_layers, hw, pe);
   const bool need_dw = wpart != nullptr;
   if (!L.ok() || (need_dw && (bpart == nullptr || dw == nullptr || db == nullptr)) ||
-      (!need_dw && dx == nullptr) || blocks < 1 || n_rows < 0)
+      (!need_dw && dx == nullptr) || blocks < 1 || n_rows < 0 ||
+      (pe && din != DIM * (1 + 2 * num_freqs)))
     return (int)cudaErrorInvalidValue;
   if (bwd_plan(L, need_dw).x < 1) return (int)cudaErrorInvalidValue;
   if (n_rows == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (pe) {
+    if (n_layers == 3)
+      return run<3, 128, true>(x, g, dx, img, bias, wpart, bpart, dw, db, n_rows, L, blocks, s,
+                               num_freqs);
+    if (hw == 128)
+      return run<2, 128, true>(x, g, dx, img, bias, wpart, bpart, dw, db, n_rows, L, blocks, s,
+                               num_freqs);
+    return run<2, 256, true>(x, g, dx, img, bias, wpart, bpart, dw, db, n_rows, L, blocks, s,
+                             num_freqs);
+  }
   if (n_layers == 3)
     return hw == 64 ? run<3, 64>(x, g, dx, img, bias, wpart, bpart, dw, db, n_rows, L, blocks, s)
                     : run<3, 128>(x, g, dx, img, bias, wpart, bpart, dw, db, n_rows, L, blocks,

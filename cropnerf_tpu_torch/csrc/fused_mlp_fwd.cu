@@ -47,6 +47,21 @@
 //      writes back with one bulk store (the ragged last tile, or an output
 //      not 16-byte aligned, is stored by the threads that hold the rows).
 // The 64-wide nets run one block of columns, two stages, four warpgroups.
+//
+// The PE variant (PE = true) is the forward of fused_pe_mlp's nets wider
+// than 64, replacing cropnerf_tpu/ops/pallas/fused_pe_field.py
+// _plain_fwd_kernel for them (cropnerf-mxu-q's proposal nets, 33 or 39 ->
+// 128 -> 128 -> 1): x [N, 3] arrives in the stages as above (768 bytes a
+// tile), and step 2 is K5's encoding (wgmma_mlp.cuh pe_encode, two threads
+// a row, one sincosf a pair) into the warpgroup's chunk-major tile of kp
+// columns, whose padded columns stay zero, layer 0 reading its A operand
+// from there (no x row in registers); the rest is the heads' kernel.
+// Bound: operations, ~24 kMAC a row at -q's nets against 16 bytes of x
+// and output, 0.061 ms for a training step's two nets (1,441,792 rows) at
+// 989 TFLOP/s.  It takes the heads' skeleton rather than an HWP parameter
+// for fused_pe_mlp_fwd.cu because the wide layers, their 64-column blocks
+// and the last layer's product under the next block's are all here
+// already; the PE nets add a prologue, not a kernel.
 #include "wgmma_mlp.cuh"
 
 namespace cropnerf {
@@ -57,22 +72,24 @@ namespace mlp {
 // products within 168 registers a thread; four spill).
 __host__ __device__ constexpr int fwd_max_wgs(int hwp) { return hwp == HW ? 4 : 3; }
 
-template <int NL, int HWP>
+template <int NL, int HWP, bool PE>
 __global__ void __launch_bounds__(128 * fwd_max_wgs(HWP), 1)
 mlp_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
                const bf16* __restrict__ img, const float* __restrict__ bias, long long n_rows,
-               int din, int dout, int ns_arg, int x_al, int out_al) {
+               int din, int dout, int ns_arg, int x_al, int out_al, int num_freqs) {
   constexpr int KB = max_kb(NL, HWP), NB = HWP / HW;
   const int ns = stages<HWP>(ns_arg);
-  const Layout L(din, dout, NL, HWP);
+  const Layout L(din, dout, NL, HWP, PE);
   const FwdSmem S(L, ns);
   extern __shared__ __align__(128) unsigned char smem[];
   const Lane ln;
   const int wgs = blockDim.x >> 7;
   const int xb = L.x_bytes(), ob = L.o_bytes();
   unsigned char* reg = smem + S.wg_at + ln.wg * S.wg_bytes;
-  float* ostage = reinterpret_cast<float*>(reg + ns * xb);
-  uint64_t* full = reinterpret_cast<uint64_t*>(reg + ns * xb + ob);
+  unsigned char* xs = reg + S.x_at;                        // the x stages
+  bf16* e = reinterpret_cast<bf16*>(reg);                  // a PE net's encoding
+  float* ostage = reinterpret_cast<float*>(xs + ns * xb);
+  uint64_t* full = reinterpret_cast<uint64_t*>(xs + ns * xb + ob);
   const float* sbias = reinterpret_cast<const float*>(smem + S.bias_at);
   const uint32_t s_img = smem_u32(smem);
   const int bar = 1 + ln.wg;
@@ -89,6 +106,10 @@ mlp_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
       for (int s = 0; s < ns; ++s) mbar_init(&full[s], 1);
       mbar_fence_init();
     }
+    // a PE net's encoding tile zero: its padded columns stay so
+    if (PE)
+      for (int i = ln.t; i < L.in_bytes() / 16; i += 128)
+        reinterpret_cast<uint4*>(e)[i] = make_uint4(0u, 0u, 0u, 0u);
   }
   fence_async_smem();
   __syncthreads();
@@ -103,7 +124,7 @@ mlp_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
     if (t >= n_tiles) return;
     if (bulk_in(t)) {
       mbar_expect_tx(&full[s], xb);
-      bulk_load(reg + s * xb, x + t * ROWS * din, xb, &full[s]);
+      bulk_load(xs + s * xb, x + t * ROWS * L.xc, xb, &full[s]);
     } else {
       mbar_arrive(&full[s]);
     }
@@ -116,28 +137,48 @@ mlp_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
   float acc[HW / 2];
   float acc_out[OW / 2];
   uint32_t blk[HW / 16][4];
-  uint32_t a0[KB][4];
+  uint32_t a0[PE ? 1 : KB][4];
   uint32_t a1[NL == 3 ? HWP / 16 : 1][4];
+  const uint32_t s_e = smem_u32(e);
+  // layer 0's block cb of 64 columns: A in registers, or a PE net's
+  // encoding tile
+  auto layer0 = [&](int cb) {
+    if constexpr (PE)
+      mma_cols_s<ENC_MAX / 16>(acc, s_e, w0, HWP, cb, kb);
+    else
+      mma_cols<KB>(acc, a0, w0, HWP, cb, kb);
+  };
   for (int it = 0; tile < n_tiles; tile += stride, ++it) {
     const int s = it % ns;
     const long long row0 = tile * ROWS;
-    float* xt = reinterpret_cast<float*>(reg + s * xb);
+    float* xt = reinterpret_cast<float*>(xs + s * xb);
     // the tile ns - 1 ahead, under this one, into the stage the last read
     if (elected) issue(tile + (ns - 1) * stride, (it + ns - 1) % ns);
     mbar_wait(&full[s], (it / ns) & 1);
     if (!bulk_in(tile)) {
-      load_rows(xt, x, row0, din, n_rows, ln);
+      load_rows(xt, x, row0, L.xc, n_rows, ln);
       named_sync(bar, 128);
     }
 
-    // ---- 1. layer 0 from registers: a 3-layer net's whole first layer,
-    // block by block, the A operand of its second
-    x_to_a<KB>(a0, xt, din, kb, ln);
+    // ---- 1. layer 0 from registers (a PE net's from its encoding, two
+    // threads a row): a 3-layer net's whole first layer, block by block,
+    // the A operand of its second
+    if constexpr (PE) {
+      const int er = ln.t >> 1;
+      float xr[DIM];
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) xr[d] = xt[er * DIM + d];
+      pe_encode<false>(e, nullptr, xr, er, ln.t & 1, num_freqs, 0);
+      fence_async_smem();
+      named_sync(bar, 128);
+    } else {
+      x_to_a<KB>(a0, xt, din, kb, ln);
+    }
     if constexpr (NL == 3) {
 #pragma unroll
       for (int cb = 0; cb < NB; ++cb) {
         wgmma_fence();
-        mma_cols<KB>(acc, a0, w0, HWP, cb, kb);
+        layer0(cb);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(acc);
@@ -152,7 +193,7 @@ mlp_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
       if constexpr (NL == 3)
         mma_cols<HWP / 16>(acc, a1, wh, HWP, cb);
       else
-        mma_cols<KB>(acc, a0, wh, HWP, cb, kb);
+        layer0(cb);
     };
     wgmma_fence();
     hidden(0);
@@ -204,10 +245,11 @@ mlp_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
   if (elected) bulk_wait();
 }
 
-template <int NL, int HWP>
+template <int NL, int HWP, bool PE = false>
 static int launch(const float* x, float* out, const void* img, const float* bias,
-                  long long n_rows, const Layout& L, int blocks, int2 plan, cudaStream_t s) {
-  auto k = mlp_fwd_kernel<NL, HWP>;
+                  long long n_rows, const Layout& L, int blocks, int2 plan, cudaStream_t s,
+                  int num_freqs = 0) {
+  auto k = mlp_fwd_kernel<NL, HWP, PE>;
   const int smem = FwdSmem(L, plan.y).total(plan.x);
   cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
@@ -215,7 +257,7 @@ static int launch(const float* x, float* out, const void* img, const float* bias
   const int out_al = (reinterpret_cast<uintptr_t>(out) & 15) == 0;
   k<<<(unsigned)blocks, 128 * plan.x, smem, s>>>(x, out, reinterpret_cast<const bf16*>(img),
                                                   bias, n_rows, L.din, L.dout, plan.y, x_al,
-                                                  out_al);
+                                                  out_al, num_freqs);
   return (int)cudaGetLastError();
 }
 
@@ -234,12 +276,13 @@ static int2 fwd_plan(const Layout& L) {
 // hidden layers padded to hw: out[0] the elements of the forward images it
 // reads (bf16; the first half of mlp_images' image), out[1] the padded
 // biases, out[2] the dynamic shared memory, out[3] the warpgroups a block,
-// out[4] the x stages a warpgroup.  Returns 0, or -1 for a net the kernel
-// does not take.
-extern "C" int cropnerf_mlp_fwd_layout(int din, int dout, int n_layers, int hw,
+// out[4] the x stages a warpgroup.  With pe, the PE variant for a net whose
+// layer 0 takes the din-column encoding of x [N, 3].  Returns 0, or -1 for
+// a net the kernel does not take.
+extern "C" int cropnerf_mlp_fwd_layout(int din, int dout, int n_layers, int hw, int pe,
                                        long long* out) {
   using namespace cropnerf::mlp;
-  const Layout L(din, dout, n_layers, hw);
+  const Layout L(din, dout, n_layers, hw, pe != 0);
   if (!L.ok()) return -1;
   const int2 plan = fwd_plan(L);
   if (plan.x < 1) return -1;
@@ -253,17 +296,28 @@ extern "C" int cropnerf_mlp_fwd_layout(int din, int dout, int n_layers, int hw,
 
 // The forward on `stream`: x [n_rows, din] -> out [n_rows, dout] f32, with
 // `blocks` persistent blocks; img and bias as mlp_images builds them for
-// hidden width hw.  Returns a cudaError_t (0 on success).
+// hidden width hw.  num_freqs >= 0 runs the PE variant: x [n_rows, 3], its
+// encoding of din = 3(1 + 2 num_freqs) columns layer 0's input.  Returns a
+// cudaError_t (0 on success).
 extern "C" int cropnerf_mlp_fwd(const float* x, float* out, const void* img, const float* bias,
-                                int din, int dout, int n_layers, int hw, long long n_rows,
-                                int blocks, void* stream) {
+                                int din, int dout, int n_layers, int hw, int num_freqs,
+                                long long n_rows, int blocks, void* stream) {
   using namespace cropnerf::mlp;
-  const Layout L(din, dout, n_layers, hw);
-  if (!L.ok() || blocks < 1 || n_rows < 0) return (int)cudaErrorInvalidValue;
+  const bool pe = num_freqs >= 0;
+  const Layout L(din, dout, n_layers, hw, pe);
+  if (!L.ok() || blocks < 1 || n_rows < 0 || (pe && din != DIM * (1 + 2 * num_freqs)))
+    return (int)cudaErrorInvalidValue;
   const int2 plan = fwd_plan(L);
   if (plan.x < 1) return (int)cudaErrorInvalidValue;
   if (n_rows == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (pe) {
+    if (n_layers == 3)
+      return launch<3, 128, true>(x, out, img, bias, n_rows, L, blocks, plan, s, num_freqs);
+    if (hw == 128)
+      return launch<2, 128, true>(x, out, img, bias, n_rows, L, blocks, plan, s, num_freqs);
+    return launch<2, 256, true>(x, out, img, bias, n_rows, L, blocks, plan, s, num_freqs);
+  }
   if (n_layers == 3)
     return hw == 64 ? launch<3, 64>(x, out, img, bias, n_rows, L, blocks, plan, s)
                     : launch<3, 128>(x, out, img, bias, n_rows, L, blocks, plan, s);

@@ -7,7 +7,8 @@
 // through a relu MLP whose hidden layers are at most 64 wide and whose last
 // layer is linear with at most 16 outputs.  Given the cotangent g [N, Dout]
 // it returns dx [N, 3] and the f32 gradient of every weight and bias, each
-// only where asked.
+// only where asked.  Nets wider than 64 take the PE variant of
+// fused_mlp_bwd.cu.
 //
 // Arithmetic, as the TPU kernel: the encoding and the hidden layers are
 // recomputed in bf16 with f32 sums (the accurate sinf/cosf, as one sincosf;
@@ -56,7 +57,6 @@ namespace pemlp {
 
 constexpr int WGS = 3;                 // warpgroups a block
 constexpr int THREADS = 128 * WGS;
-constexpr int DLD = ENC_MAX + 4;       // row stride of the derivative tile
 constexpr int GL_BYTES = ROWS * OW * 2;
 
 // Everything the layout of a net with NL layers fixes: the weight images
@@ -166,7 +166,6 @@ pe_mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g_out,
 
   const int F = num_freqs;
   const int enc_cols = DIM * (1 + 2 * F);
-  const int cos0 = DIM * (1 + F);
   const long long n_tiles = (n_rows + ROWS - 1) / ROWS;
   const long long stride = (long long)gridDim.x * WGS;
   long long tile = (long long)blockIdx.x * WGS + ln.wg;
@@ -183,32 +182,7 @@ pe_mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g_out,
   for (; tile < n_tiles; tile += stride) {
     const long long row0 = tile * ROWS;
     // ---- 1. the encoding and its derivatives; the output cotangent
-    {
-      bf16* e = act;
-      float* drow = dd + er * DLD;
-      if (half == 0) {
-#pragma unroll
-        for (int d = 0; d < DIM; ++d) {
-          e[cm(er, d)] = __float2bfloat16_rn(xr[d]);
-          drow[d] = 1.0f;
-        }
-      } else {
-        for (int c = enc_cols; c < ENC_MAX; ++c) e[cm(er, c)] = __float2bfloat16_rn(0.0f);
-      }
-      for (int f = half; f < F; f += 2) {
-        const float scale = (float)(1 << f);
-#pragma unroll
-        for (int d = 0; d < DIM; ++d) {
-          float sn, cs;
-          sincosf(xr[d] * scale, &sn, &cs);
-          const int cs_ = DIM + f * DIM + d, cc = cos0 + f * DIM + d;
-          e[cm(er, cs_)] = __float2bfloat16_rn(sn);
-          e[cm(er, cc)] = __float2bfloat16_rn(cs);
-          drow[cs_] = cs * scale;
-          drow[cc] = -sn * scale;
-        }
-      }
-    }
+    pe_encode<true>(act, dd + er * DLD, xr, er, half, F, ENC_MAX);
     if (ln.t < ROWS) {
       const long long row = row0 + ln.t;
       const bool in = row < n_rows;
@@ -305,23 +279,13 @@ pe_mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g_out,
         // columns in column order
 #pragma unroll
         for (int j = 0; j < HW / 8; ++j) {
-          const int c = 8 * j + ln.cq;
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            float* p = dd + (ln.r0 + 8 * h) * DLD + c;
-            if (c < enc_cols) p[0] = __fmul_rn(acc[4 * j + 2 * h], p[0]);
-            if (c + 1 < enc_cols) p[1] = __fmul_rn(acc[4 * j + 2 * h + 1], p[1]);
-          }
+          for (int h = 0; h < 2; ++h)
+            pe_dscale(dd, ln.r0 + 8 * h, 8 * j + ln.cq, acc[4 * j + 2 * h],
+                      acc[4 * j + 2 * h + 1], enc_cols);
         }
         named_sync(bar, 128);
-        for (int i = ln.t; i < ROWS * DIM; i += 128) {
-          const int k = i / ROWS, r = i % ROWS;
-          const float* p = dd + r * DLD;
-          float s = p[k];
-          for (int f = 0; f < F; ++f) s = __fadd_rn(s, p[DIM + f * DIM + k]);
-          for (int f = 0; f < F; ++f) s = __fadd_rn(s, p[cos0 + f * DIM + k]);
-          if (row0 + r < n_rows) dx[(row0 + r) * DIM + k] = s;
-        }
+        pe_dx(dx, dd, row0, n_rows, F, ln.t);
       }
     }
     named_sync(bar, 128);                // the tile's buffers are free

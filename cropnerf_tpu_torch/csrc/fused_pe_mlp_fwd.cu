@@ -5,11 +5,12 @@
 // cos(2^f x)] (f-major blocks, ops/posenc.nerf_encoding's columns), and run
 // through a relu MLP whose hidden layers are at most 64 wide and whose last
 // layer is linear with at most 16 outputs, into [N, Dout] f32.  Wider nets
-// take the wmma route of fused_mlp.cu (ops/cuda/fused_pe_field.py
-// pe_mlp_fwd_route picks it by shape).
+// take the PE variant of fused_mlp_fwd.cu, or the wmma route of
+// fused_mlp.cu (ops/cuda/fused_pe_field.py pe_mlp_fwd_route picks by
+// shape).
 //
-// Arithmetic, as the TPU kernel: the encoding rounded to bf16 (the accurate
-// sinf/cosf, as one sincosf a pair, the same bits; |2^f x| reaches 2^8);
+// Arithmetic, as the TPU kernel: the encoding rounded to bf16 (wgmma_mlp.cuh
+// pe_encode: the accurate sinf/cosf, as one sincosf a pair);
 // each hidden layer a bf16 product with f32 sums plus the f32 bias, relu,
 // rounded to bf16; the last layer a product plus its f32 bias, stored f32.
 //
@@ -88,7 +89,6 @@ pe_mlp_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
   const int F = num_freqs;
   const int enc_cols = DIM * (1 + 2 * F);
   const int k0 = (enc_cols + 15) & ~15;
-  const int cos0 = DIM * (1 + F);
   const long long n_tiles = (n_rows + ROWS - 1) / ROWS;
   const long long stride = (long long)gridDim.x * FWD_WGS;
   long long tile = (long long)blockIdx.x * FWD_WGS + ln.wg;
@@ -109,20 +109,7 @@ pe_mlp_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
   for (; tile < n_tiles; tile += stride) {
     const long long row0 = tile * ROWS;
     // ---- 1. the encoding
-    if (half == 0) {
-#pragma unroll
-      for (int d = 0; d < DIM; ++d) e[cm(er, d)] = __float2bfloat16_rn(xr[d]);
-    }
-    for (int f = half; f < F; f += 2) {
-      const float scale = (float)(1 << f);
-#pragma unroll
-      for (int d = 0; d < DIM; ++d) {
-        float sn, cs;
-        sincosf(xr[d] * scale, &sn, &cs);
-        e[cm(er, DIM + f * DIM + d)] = __float2bfloat16_rn(sn);
-        e[cm(er, cos0 + f * DIM + d)] = __float2bfloat16_rn(cs);
-      }
-    }
+    pe_encode<false>(e, nullptr, xr, er, half, F, 0);
     load_x(tile + stride);               // the next tile's x, under this tile's products
     fence_async_smem();
     named_sync(bar, 128);

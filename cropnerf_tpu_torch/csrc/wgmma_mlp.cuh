@@ -1,7 +1,8 @@
 // What the wgmma MLP kernels share: the PE proposal nets' forward and
-// recompute backward (fused_pe_mlp_fwd.cu, fused_pe_mlp_bwd.cu) and the
-// vanilla field's heads' forward and backward (fused_mlp_fwd.cu,
-// fused_mlp_bwd.cu).
+// recompute backward (fused_pe_mlp_fwd.cu, fused_pe_mlp_bwd.cu; the nets
+// wider than 64 on the PE variants of fused_mlp_fwd.cu and
+// fused_mlp_bwd.cu) and the vanilla field's heads' forward and backward
+// (fused_mlp_fwd.cu, fused_mlp_bwd.cu).
 //
 // A net of NL layers is padded to hidden width HW (the heads' nets: HWP,
 // a multiple of HW) and output width OW and kept in shared memory as
@@ -35,6 +36,7 @@ constexpr int DIM = 3;                 // coordinates of x (the PE nets)
 constexpr int ENC_MAX = 64;            // encoding columns, padded
 constexpr int CHUNK = 512;             // elements of an 8-column chunk
 constexpr int TILE_BYTES = ROWS * HW * 2;
+constexpr int DLD = ENC_MAX + 4;       // row stride of the PE derivative tile (f32)
 
 __host__ __device__ constexpr int al128(int b) { return (b + 127) & ~127; }
 
@@ -80,6 +82,71 @@ __device__ __forceinline__ void mma_k(float (&acc)[N / 2], uint32_t a, uint32_t 
 __device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ---- the PE nets' encoding and the epilogue of their dx
+
+// Row er of a 64-row tile's encoding from its x, two threads a row (half 0
+// the identity columns and the even frequencies, half 1 the odd ones):
+// bf16 columns [x | sin(2^f x) | cos(2^f x)] (f-major blocks,
+// ops/posenc.nerf_encoding's) into the chunk-major tile e, each pair by one
+// sincosf (the accurate sinf/cosf, the same bits; |2^f x| reaches 2^8).
+// With DERIV also each column's f32 d(encode)/d(pre) x 2^f into drow, and
+// half 1 zeroes e's columns from the encoding's end up to zero_to.
+template <bool DERIV>
+__device__ __forceinline__ void pe_encode(bf16* e, float* drow, const float (&xr)[DIM], int er,
+                                          int half, int F, int zero_to) {
+  const int cos0 = DIM * (1 + F);
+  if (half == 0) {
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) {
+      e[cm(er, d)] = __float2bfloat16_rn(xr[d]);
+      if (DERIV) drow[d] = 1.0f;
+    }
+  } else {
+    for (int c = DIM * (1 + 2 * F); c < zero_to; ++c) e[cm(er, c)] = __float2bfloat16_rn(0.0f);
+  }
+  for (int f = half; f < F; f += 2) {
+    const float scale = (float)(1 << f);
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) {
+      float sn, cs;
+      sincosf(xr[d] * scale, &sn, &cs);
+      const int cs_ = DIM + f * DIM + d, cc = cos0 + f * DIM + d;
+      e[cm(er, cs_)] = __float2bfloat16_rn(sn);
+      e[cm(er, cc)] = __float2bfloat16_rn(cs);
+      if (DERIV) {
+        drow[cs_] = cs * scale;
+        drow[cc] = -sn * scale;
+      }
+    }
+  }
+}
+
+// Layer 0's f32 input gradient (v0, v1) at columns c, c + 1 of the tile's
+// row r, times the derivatives of the tile dd (DLD floats a row) in their
+// place; nothing past the encoding's enc_cols columns.
+__device__ __forceinline__ void pe_dscale(float* dd, int r, int c, float v0, float v1,
+                                          int enc_cols) {
+  float* p = dd + r * DLD + c;
+  if (c < enc_cols) p[0] = __fmul_rn(v0, p[0]);
+  if (c + 1 < enc_cols) p[1] = __fmul_rn(v1, p[1]);
+}
+
+// dx [N, 3] of the tile's rows below n_rows: per row and coordinate the sum
+// of its scaled columns in column order (identity, sines by frequency,
+// cosines by frequency); t the thread in the warpgroup.
+__device__ __forceinline__ void pe_dx(float* dx, const float* dd, long long row0,
+                                      long long n_rows, int F, int t) {
+  const int cos0 = DIM * (1 + F);
+  for (int i = t; i < ROWS * DIM; i += 128) {
+    const int k = i / ROWS, r = i % ROWS;
+    const float* p = dd + r * DLD;
+    float s = p[k];
+    for (int f = 0; f < F; ++f) s = __fadd_rn(s, p[DIM + f * DIM + k]);
+    for (int f = 0; f < F; ++f) s = __fadd_rn(s, p[cos0 + f * DIM + k]);
+    if (row0 + r < n_rows) dx[(row0 + r) * DIM + k] = s;
+  }
 }
 
 // A of the next product from a 64-column accumulator: bf16(relu(acc + b)),
@@ -136,26 +203,36 @@ using namespace pemlp;
 // k-steps of it: 8 (din up to 128) for the 64-wide nets and every 3-layer
 // net, 16 (din up to 256) for the wider 2-layer nets.  No 3-layer net 256
 // wide fits shared memory.
+//
+// The PE variant (fused_pe_mlp's nets wider than 64, hidden padded to 128
+// or 256): x [N, 3] is encoded, two threads a row, into a chunk-major
+// tile of kp columns (din = 3(1 + 2F) at most ENC_MAX), layer 0's A
+// operand read from there, and the net is laid out as the heads' with
+// that din.
 __host__ __device__ constexpr int max_kb(int nl, int hwp) { return hwp == HW || nl == 3 ? 8 : 16; }
 
 struct Layout {
-  int din, kp, dout, nl, hw;
-  __host__ __device__ Layout(int din_, int dout_, int nl_, int hw_)
-      : din(din_), kp((din_ + 15) & ~15), dout(dout_), nl(nl_), hw(hw_) {}
+  int din, kp, dout, nl, hw, xc;
+  bool pe;
+  __host__ __device__ Layout(int din_, int dout_, int nl_, int hw_, bool pe_ = false)
+      : din(din_), kp((din_ + 15) & ~15), dout(dout_), nl(nl_), hw(hw_), xc(pe_ ? DIM : din_),
+        pe(pe_) {}
   __host__ __device__ int fw_off(int l) const { return l == 0 ? 0 : kp * hw + (l - 1) * hw * hw; }
   __host__ __device__ int fwd_elems() const { return fw_off(nl - 1) + hw * OW; }
   __host__ __device__ int bw_off(int l) const { return fwd_elems() + fw_off(l); }
   __host__ __device__ int b_off(int l) const { return l * hw; }
   __host__ __device__ int n_bias() const { return (nl - 1) * hw + OW; }
-  // a 64-row tile of x, of g (or the output): contiguous rows
-  __host__ __device__ int x_bytes() const { return ROWS * din * 4; }
+  // a 64-row tile of x (xc columns: din, or a PE net's 3), of g (or the
+  // output): contiguous rows
+  __host__ __device__ int x_bytes() const { return ROWS * xc * 4; }
   __host__ __device__ int o_bytes() const { return ROWS * dout * 4; }
-  // a 64-row chunk-major bf16 tile of a hidden layer
+  // a 64-row chunk-major bf16 tile of a hidden layer, of layer 0's input
   __host__ __device__ int tile_bytes() const { return ROWS * hw * 2; }
+  __host__ __device__ int in_bytes() const { return ROWS * kp * 2; }
   __host__ __device__ bool ok() const {
     const bool width = hw == 64 || hw == 128 || (hw == 256 && nl == 2);
     return width && din >= 1 && din <= 16 * max_kb(nl, hw) && dout >= 1 && dout <= OW &&
-           (nl == 2 || nl == 3);
+           (nl == 2 || nl == 3) && (!pe || (hw != HW && din <= ENC_MAX));
   }
 };
 
@@ -197,6 +274,19 @@ __device__ __forceinline__ void mma_cols(float (&acc)[HW / 2], const uint32_t (&
                           s > 0 ? 1 : 0);
 }
 
+// As mma_cols, A a chunk-major 64-row tile in shared memory (a PE net's
+// encoding).
+template <int S>
+__device__ __forceinline__ void mma_cols_s(float (&acc)[HW / 2], uint32_t a, uint32_t b,
+                                           int width, int cb, int steps) {
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+    if (s < steps)
+      Wgmma<HW, 0, 0>::mma(acc, gmma_desc(a + s * 2048, 1024, 128),
+                           gmma_desc(b + 2 * s * width * 16 + cb * 1024, width * 16, 128),
+                           s > 0 ? 1 : 0);
+}
+
 // acc (+)= A·B over rows 64cb .. 64cb + 63 of the last layer's [hw, OW]
 // image B: the share of the hidden block cb, A its bf16 activations in
 // registers; block 0 overwrites acc.
@@ -229,13 +319,15 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src, long lon
 }
 
 // The forward's shared memory: the forward images and biases, then per
-// warpgroup `ns` x stages, an output stage and the stages' barriers.
+// warpgroup a PE net's encoding tile, `ns` x stages, an output stage and
+// the stages' barriers.
 struct FwdSmem {
-  int bias_at, wg_at, wg_bytes;
+  int bias_at, wg_at, x_at, wg_bytes;
   __host__ __device__ FwdSmem(const Layout& L, int ns) {
     bias_at = L.fwd_elems() * 2;
     wg_at = al128(bias_at + L.n_bias() * 4);
-    wg_bytes = ns * L.x_bytes() + L.o_bytes() + 128;
+    x_at = L.pe ? L.in_bytes() : 0;
+    wg_bytes = x_at + ns * L.x_bytes() + L.o_bytes() + 128;
   }
   __host__ __device__ int total(int wgs) const { return wg_at + wgs * wg_bytes; }
 };
@@ -243,10 +335,11 @@ struct FwdSmem {
 // The backward's shared memory: both halves of the images and the biases,
 // then per warpgroup `ns` stages of x and g tiles and the barriers; with
 // weight gradients also the chunk-major tiles their products read (A_0,
-// the hidden activations, the output cotangent, the hidden cotangents);
-// then, with weight gradients, the warps' bias-gradient rows.
+// the hidden activations, the output cotangent, the hidden cotangents),
+// and for a PE net its encoding as A_0 and the derivative tile; then, with
+// weight gradients, the warps' bias-gradient rows.
 struct BwdSmem {
-  int bias_at, wg_at, stage_bytes, a0_at, ah_at, gl_at, gh_at, bar_at, wg_bytes, n_bias;
+  int bias_at, wg_at, stage_bytes, a0_at, ah_at, gl_at, gh_at, dd_at, bar_at, wg_bytes, n_bias;
   bool dw;
   __host__ __device__ BwdSmem(const Layout& L, bool dw_, int ns) : n_bias(L.n_bias()), dw(dw_) {
     bias_at = 2 * L.fwd_elems() * 2;
@@ -254,13 +347,15 @@ struct BwdSmem {
     stage_bytes = L.x_bytes() + L.o_bytes();
     int off = ns * stage_bytes;
     a0_at = off;
-    if (dw) off += ROWS * L.kp * 2;
+    if (dw || L.pe) off += L.in_bytes();
     ah_at = off;
     if (dw) off += (L.nl - 1) * L.tile_bytes();
     gl_at = off;
     if (dw) off += ROWS * OW * 2;
     gh_at = off;
     if (dw) off += (L.nl - 1) * L.tile_bytes();
+    dd_at = off;
+    if (L.pe) off += ROWS * DLD * 4;
     bar_at = off;
     wg_bytes = al128(off + 8 * ns);
   }

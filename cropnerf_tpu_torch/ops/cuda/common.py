@@ -107,8 +107,9 @@ def unpack_layers(layers: Sequence[Layer], dwbuf: torch.Tensor,
 
 # csrc/wgmma_mlp.cuh: the widths the wgmma MLP kernels pad a net's hidden
 # layers (the PE nets; the heads' nets to a multiple of it) and its output
-# to
+# to; the PE nets' encoding columns at most and x's coordinates
 WGMMA_HIDDEN, WGMMA_OUT = 64, 16
+PE_ENC, PE_DIM = 64, 3
 
 
 @functools.lru_cache(maxsize=None)

@@ -29,9 +29,10 @@ On the card the backward (``fused_mlp_bwd``) recomputes the forward from x
 and the weights, as the JAX custom VJP saves only ``(x, wbs)``, and
 computes only the gradients autograd asks for: dx alone when no weight
 needs one.  The ragged tail of N is masked in the kernels; there is no
-fallback.  ``run_forward`` also launches the PE variant of the wmma
-forward, which ``fused_pe_field.fused_pe_mlp`` (the PE proposal nets)
-takes for nets wider than its own kernels.
+fallback.  ``fused_pe_field.fused_pe_mlp`` (the PE proposal nets) takes
+the PE variants of both routes for nets wider than its own kernels:
+``wgmma_forward`` and ``wgmma_backward`` with ``num_freqs``, and the wmma
+forward through ``run_forward`` with ``pe``.
 """
 from __future__ import annotations
 
@@ -43,10 +44,10 @@ import torch
 
 from ..mlp import mm_f32acc
 from . import build
-from .common import (MAX_SMEM_BYTES, WGMMA_HIDDEN, WGMMA_OUT, c_ints,
-                     check_images, check_kernel_call, check_rows,
-                     pack_layers, pad16, persistent_blocks, sm_count,
-                     stream_ptr, unpack_layers, weight_images)
+from .common import (MAX_SMEM_BYTES, PE_DIM, PE_ENC, WGMMA_HIDDEN,
+                     WGMMA_OUT, c_ints, check_images, check_kernel_call,
+                     check_rows, pack_layers, pad16, persistent_blocks,
+                     sm_count, stream_ptr, unpack_layers, weight_images)
 
 
 def fused_mlp_plain(x: torch.Tensor, wbs: Sequence[torch.Tensor],
@@ -195,16 +196,21 @@ def _al128(n: int) -> int:
     return (n + 127) // 128 * 128
 
 
-def _least_bwd_smem(din: int, dout: int, n_layers: int, hw: int) -> int:
+def _least_bwd_smem(din: int, dout: int, n_layers: int, hw: int,
+                    pe: bool = False) -> int:
     """Shared memory a block of the wgmma backward with weight gradients
     takes at one warpgroup and one stage (``csrc/wgmma_mlp.cuh``
     ``BwdSmem``): the least that the largest of the net's kernels needs.
     Both image halves and the biases, an x and g tile, the operand tiles,
-    the stage's barrier, the warps' bias rows."""
+    the stage's barrier, the warps' bias rows; with ``pe`` (a PE net whose
+    layer 0 takes the din-column encoding of x [N, 3]) x's tile is 3
+    columns and the derivative tile is added."""
     kp, n_bias = pad16(din), (n_layers - 1) * hw + WGMMA_OUT
     fwd_elems = kp * hw + (n_layers - 2) * hw * hw + hw * WGMMA_OUT
     tiles = 64 * 2 * (kp + 2 * (n_layers - 1) * hw + WGMMA_OUT)
-    warpgroup = _al128(64 * 4 * (din + dout) + tiles + 8)
+    derivs = 64 * 4 * (PE_ENC + 4) if pe else 0
+    warpgroup = _al128(64 * 4 * ((PE_DIM if pe else din) + dout) + tiles
+                       + derivs + 8)
     return _al128(4 * fwd_elems + 4 * n_bias) + warpgroup + 16 * n_bias
 
 
@@ -258,8 +264,8 @@ def _wgmma_lib(name: str, entry: str, argtypes) -> ctypes.CDLL:
 def _fwd_lib():
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib = _wgmma_lib("fused_mlp_fwd", "cropnerf_mlp_fwd",
-                     [vp] * 4 + [i32] * 4 + [ctypes.c_longlong, i32, vp])
-    lib.cropnerf_mlp_fwd_layout.argtypes = [i32] * 4 + [
+                     [vp] * 4 + [i32] * 5 + [ctypes.c_longlong, i32, vp])
+    lib.cropnerf_mlp_fwd_layout.argtypes = [i32] * 5 + [
         ctypes.POINTER(ctypes.c_longlong)]
     return lib
 
@@ -268,45 +274,53 @@ def _fwd_lib():
 def _bwd_lib():
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib = _wgmma_lib("fused_mlp_bwd", "cropnerf_mlp_bwd",
-                     [vp] * 5 + [i32] * 4 + [ctypes.c_longlong, i32]
+                     [vp] * 5 + [i32] * 5 + [ctypes.c_longlong, i32]
                      + [vp] * 5)
-    lib.cropnerf_mlp_bwd_layout.argtypes = [i32] * 5 + [
+    lib.cropnerf_mlp_bwd_layout.argtypes = [i32] * 6 + [
         ctypes.POINTER(ctypes.c_longlong)]
     return lib
 
 
 @functools.lru_cache(maxsize=None)
 def mlp_layout(din: int, dout: int, n_layers: int, hw: int,
-               need_dw=None) -> list:
+               need_dw=None, pe: bool = False) -> list:
     """The sizes the wgmma forward (``need_dw`` None: image and bias
     elements, shared memory, warpgroups a block, x stages a warpgroup) or
     backward kernel's C layout function (image and bias elements,
     partial-row sizes, shared memory, warpgroups, weight partial rows a
-    block, stages) reports for a net with hidden layers padded to ``hw``."""
+    block, stages) reports for a net with hidden layers padded to ``hw``
+    (with ``pe``, the PE variant's, layer 0 taking the din-column encoding
+    of x [N, 3])."""
     sizes = (ctypes.c_longlong * 8)()
-    err = (_fwd_lib().cropnerf_mlp_fwd_layout(din, dout, n_layers, hw, sizes)
+    err = (_fwd_lib().cropnerf_mlp_fwd_layout(din, dout, n_layers, hw,
+                                              int(pe), sizes)
            if need_dw is None else _bwd_lib().cropnerf_mlp_bwd_layout(
-               din, dout, n_layers, hw, int(need_dw), sizes))
+               din, dout, n_layers, hw, int(need_dw), int(pe), sizes))
     if err:
         raise ValueError(f"fused_mlp: the wgmma kernels do not take x [N, "
-                         f"{din}] -> {n_layers} layers ({hw} wide) -> {dout}")
+                         f"{din}] -> {n_layers} layers ({hw} wide) -> {dout}"
+                         + (" (PE)" if pe else ""))
     return list(sizes[:5] if need_dw is None else sizes)
 
 
-def net_layout(wbs: Sequence[torch.Tensor], need_dw=None) -> list:
+def net_layout(wbs: Sequence[torch.Tensor], need_dw=None,
+               pe: bool = False) -> list:
     """``mlp_layout`` of the net ``wbs``."""
     return mlp_layout(wbs[0].shape[0], wbs[-2].shape[1], len(wbs) // 2,
-                      _hidden(wbs), need_dw)
+                      _hidden(wbs), need_dw, pe)
 
 
-def _wgmma_forward(x, wbs, img, bias) -> torch.Tensor:
+def wgmma_forward(name, x, wbs, img, bias, num_freqs: int = -1
+                  ) -> torch.Tensor:
     """One launch of ``csrc/fused_mlp_fwd.cu`` on CUDA tensors (none for
     N = 0) on ``mlp_images``, with or without the backward's half: the
-    [N, Dout] float32 output."""
-    device, (n, din) = x.device, x.shape
+    [N, Dout] float32 output.  ``num_freqs`` >= 0: the PE variant, x
+    [N, 3] encoded with that many frequencies into layer 0's input."""
+    device, n, din = x.device, x.shape[0], wbs[0].shape[0]
     dout, n_layers, hw = wbs[-2].shape[1], len(wbs) // 2, _hidden(wbs)
-    fwd_elems, n_bias, _, wgs = mlp_layout(din, dout, n_layers, hw)[:4]
-    check_images("fused_mlp", img, bias, (fwd_elems, 2 * fwd_elems), n_bias)
+    fwd_elems, n_bias, _, wgs = mlp_layout(din, dout, n_layers, hw,
+                                           pe=num_freqs >= 0)[:4]
+    check_images(name, img, bias, (fwd_elems, 2 * fwd_elems), n_bias)
     out = torch.empty((n, dout), dtype=torch.float32, device=device)
     if n == 0:
         return out
@@ -314,10 +328,17 @@ def _wgmma_forward(x, wbs, img, bias) -> torch.Tensor:
     with torch.cuda.device(device):
         err = _fwd_lib().cropnerf_mlp_fwd(
             x.data_ptr(), out.data_ptr(), img.data_ptr(), bias.data_ptr(),
-            din, dout, n_layers, hw, n, blocks, stream_ptr(device))
+            din, dout, n_layers, hw, num_freqs, n, blocks, stream_ptr(device))
     if err:
-        raise RuntimeError(f"fused_mlp kernel launch failed: cudaError {err}")
-    fused_mlp.launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    return out
+
+
+def _wgmma_forward(x, wbs, img, bias) -> torch.Tensor:
+    """``wgmma_forward`` of ``fused_mlp``, counted."""
+    out = wgmma_forward("fused_mlp", x, wbs, img, bias)
+    if x.shape[0]:
+        fused_mlp.launches += 1
     return out
 
 
@@ -353,20 +374,34 @@ def fused_mlp_bwd(x: torch.Tensor, wbs: Sequence[torch.Tensor],
     float32.  It recomputes the forward.  ``images``: the (image, bias) of
     ``mlp_images`` for ``wbs`` where the caller has them (the forward's),
     else built here."""
-    device = check_kernel_call("fused_mlp_bwd", [x, g, *wbs], torch.bfloat16)
+    check_kernel_call("fused_mlp_bwd", [x, g, *wbs], torch.bfloat16)
     check_rows("x", x)
-    n, din = x.shape
-    dout, n_layers = wbs[-2].shape[1], len(wbs) // 2
-    check_rows("g", g, n=n, cols=dout)
+    n = x.shape[0]
+    check_rows("g", g, n=n, cols=wbs[-2].shape[1])
     if not (need_dx or need_dw):
         raise ValueError("fused_mlp_bwd: nothing asked for")
     if _route(x, wbs) == "wmma":
         return fused_mlp_bwd_wide(x, wbs, g, need_dx, need_dw)
-    hw = _hidden(wbs)
+    out = wgmma_backward("fused_mlp_bwd", x, wbs, g, need_dx, need_dw,
+                         images)
+    if n:
+        fused_mlp_bwd.launches += 1
+    return out
+
+
+def wgmma_backward(name, x, wbs, g, need_dx, need_dw, images=None,
+                   num_freqs: int = -1):
+    """One launch of ``csrc/fused_mlp_bwd.cu`` on checked CUDA tensors and
+    its weight-gradient sums (none for N = 0): (dx or None, [dW0, db0,
+    ...] in the shapes of ``wbs`` or None) in float32, on ``images`` or
+    ``mlp_images`` built here.  ``num_freqs`` >= 0: the PE variant, x and
+    dx [N, 3], x encoded with that many frequencies into layer 0's input."""
+    device, n, din = x.device, x.shape[0], wbs[0].shape[0]
+    dout, n_layers, hw = wbs[-2].shape[1], len(wbs) // 2, _hidden(wbs)
     img_elems, n_bias, total_w, total_b, _, wgs, w_rows, _ = mlp_layout(
-        din, dout, n_layers, hw, need_dw)
+        din, dout, n_layers, hw, need_dw, num_freqs >= 0)
     img, bias = images if images is not None else mlp_images(wbs)
-    check_images("fused_mlp_bwd", img, bias, (img_elems,), n_bias)
+    check_images(name, img, bias, (img_elems,), n_bias)
     blocks = persistent_blocks(n, sm_count(device), wgs)
     dx = torch.empty_like(x) if need_dx else None
     ptrs = [None] * 4
@@ -383,12 +418,11 @@ def fused_mlp_bwd(x: torch.Tensor, wbs: Sequence[torch.Tensor],
         with torch.cuda.device(device):
             err = _bwd_lib().cropnerf_mlp_bwd(
                 x.data_ptr(), g.data_ptr(), dx.data_ptr() if need_dx else None,
-                img.data_ptr(), bias.data_ptr(), din, dout, n_layers, hw, n,
-                blocks, *ptrs, stream_ptr(device))
+                img.data_ptr(), bias.data_ptr(), din, dout, n_layers, hw,
+                num_freqs, n, blocks, *ptrs, stream_ptr(device))
         if err:
-            raise RuntimeError(f"fused_mlp_bwd kernel launch failed: "
-                               f"cudaError {err}")
-        fused_mlp_bwd.launches += 1
+            raise RuntimeError(f"{name} kernel launch failed: cudaError "
+                               f"{err}")
     return dx, (unpack_images_grads(wbs, dw, db) if need_dw else None)
 
 

@@ -24,19 +24,25 @@ image, the workspace and the weight-gradient tasks).
 plain versions.
 
 ``fused_pe_mlp`` (the PE proposal nets with ``mlp_impl="pallas-fused"``:
-encode, then a narrow relu MLP to [N, 1]) launches, for tensors on the
-card, its forward ``csrc/fused_pe_mlp_fwd.cu`` (replacing
-``_plain_fwd_kernel``) and its recompute backward
-``csrc/fused_pe_mlp_bwd.cu`` (replacing ``_plain_bwd_kernel``): both
-persistent warpgroups on ``wgmma`` with the net resident in shared memory,
-on the weight images ``pe_mlp_images`` builds once per call (the
-forward half alone where no graph is recorded) and the backward reuses.
-Nets wider than those kernels take (``pe_mlp_fwd_route``) run their
-forward on the PE variant of the fused MLP forward,
-``csrc/fused_mlp.cu``, and have no backward kernel.  On the
-CPU it computes ``fused_pe_mlp_plain``.  The JAX selector argument ``s``
-(zero gradient) has no counterpart: the kernels and the plain version
-build the encoding from the frequencies.
+encode, then a relu MLP to [N, 1]) launches, for tensors on the card, a
+forward kernel (replacing ``_plain_fwd_kernel``) and a recompute backward
+(replacing ``_plain_bwd_kernel``), both persistent warpgroups on
+``wgmma`` with the net resident in shared memory, on the weight images
+``pe_mlp_images`` builds once per call (the forward half alone where no
+graph is recorded) and the backward reuses.  The net's shape picks them
+(``pe_mlp_fwd_route``): "wgmma", hidden layers up to 64 wide (every
+preset's 64-wide nets), ``csrc/fused_pe_mlp_fwd.cu`` and
+``csrc/fused_pe_mlp_bwd.cu``; "wide", hidden layers padded to 128 or 256
+(``cropnerf-mxu-q``'s 128-wide nets), the PE variants of
+``csrc/fused_mlp_fwd.cu`` and ``csrc/fused_mlp_bwd.cu``; launches of both
+counted on ``fused_pe_mlp`` and ``fused_pe_mlp_bwd``.  Every other net
+("wmma": 4 layers, 17 outputs, more than 64 encoding columns, x not
+[N, 3], or a wide net whose backward overflows shared memory) runs its
+forward on the PE variant of ``csrc/fused_mlp.cu`` (counted on
+``fused_pe_mlp_wide``) and has no backward kernel.  On the CPU it
+computes ``fused_pe_mlp_plain``.  The JAX selector argument ``s`` (zero
+gradient) has no counterpart: the kernels and the plain version build the
+encoding from the frequencies.
 
 Rounding points follow the JAX kernels: the encoding is rounded to the
 compute dtype before base layer 0, every hidden layer applies relu then
@@ -54,12 +60,14 @@ import torch
 
 from ..mlp import mm_f32acc
 from . import build
-from .fused_mlp import fused_mlp_plain, run_forward
+from .fused_mlp import (_least_bwd_smem, fused_mlp_plain, mlp_hidden_pad,
+                        mlp_images, run_forward, wgmma_backward,
+                        wgmma_forward)
 from .pe_plan import build_forward_plan, build_plan, image_index, weight_image
-from .common import (MAX_SMEM_BYTES, WGMMA_HIDDEN, WGMMA_OUT, c_ints,
-                     check_images, check_kernel_call, check_rows,
-                     pack_layers, pad16, stream_ptr, unpack_layers,
-                     weight_images)
+from .common import (MAX_SMEM_BYTES, PE_DIM, PE_ENC, WGMMA_HIDDEN,
+                     WGMMA_OUT, c_ints, check_images, check_kernel_call,
+                     check_rows, pack_layers, pad16, stream_ptr,
+                     unpack_layers, weight_images)
 from .common import persistent_blocks as pe_mlp_blocks
 from .common import sm_count
 
@@ -574,7 +582,7 @@ def _check_pe_mlp(x, wbs, num_freqs) -> int:
 # csrc/wgmma_mlp.cuh: the widths the kernels' layout pads every net to, the
 # coordinates of x; the warpgroups a block of the backward and the forward
 PE_MLP_HIDDEN, PE_MLP_OUT, PE_MLP_ENC, PE_MLP_DIM = (WGMMA_HIDDEN, WGMMA_OUT,
-                                                     64, 3)
+                                                     PE_ENC, PE_DIM)
 PE_MLP_WGS, PE_MLP_FWD_WGS = 3, 4
 
 
@@ -591,29 +599,56 @@ def pe_mlp_kernels_take(dim: int, num_freqs: int,
 
 
 def pe_mlp_fwd_route(dim: int, num_freqs: int, widths: Sequence[int]) -> str:
-    """The forward kernel a net takes on the card, by its shape alone:
-    "wgmma" (``csrc/fused_pe_mlp_fwd.cu``) for every net the wgmma kernels
-    take (all presets' PE proposal nets at 64 wide), else "wmma" (the PE
-    variant of ``csrc/fused_mlp.cu``, hidden widths up to 256: the 128-wide
-    nets of ``cropnerf-mxu-q``)."""
-    return "wgmma" if pe_mlp_kernels_take(dim, num_freqs, widths) else "wmma"
+    """The kernels a net takes on the card, by its shape alone: "wgmma"
+    (``csrc/fused_pe_mlp_fwd.cu``, ``csrc/fused_pe_mlp_bwd.cu``) for every
+    net those take (all presets' PE proposal nets at 64 wide); "wide" (the
+    PE variants of ``csrc/fused_mlp_fwd.cu`` and ``csrc/fused_mlp_bwd.cu``)
+    for x [N, 3], at most 64 encoding columns, 2 or 3 layers and at most 16
+    outputs, hidden layers padded to 128 or 256 (``mlp_hidden_pad``), whose
+    backward with weight gradients fits a block's shared memory at one
+    warpgroup (the 128-wide nets of ``cropnerf-mxu-q``; not a 3-layer net
+    256 wide); else "wmma" (the PE variant of ``csrc/fused_mlp.cu``'s
+    forward, hidden widths up to 256; no backward kernel)."""
+    if pe_mlp_kernels_take(dim, num_freqs, widths):
+        return "wgmma"
+    enc = dim * (1 + 2 * num_freqs)
+    if (dim == PE_MLP_DIM and enc <= PE_MLP_ENC and len(widths) in (2, 3)
+            and 1 <= widths[-1] <= PE_MLP_OUT):
+        hw = mlp_hidden_pad(enc, widths)
+        if hw and _least_bwd_smem(enc, widths[-1], len(widths), hw,
+                                  pe=True) <= MAX_SMEM_BYTES:
+            return "wide"
+    return "wmma"
+
+
+def _wide(wbs) -> bool:
+    """Whether a net the kernels take is on the "wide" route: a hidden
+    layer over 64."""
+    return any(w.shape[1] > PE_MLP_HIDDEN for w in wbs[0:-2:2])
 
 
 def _check_pe_mlp_bwd(x, wbs, num_freqs) -> None:
-    """The nets the backward kernel takes (``pe_mlp_kernels_take``)."""
+    """The nets a backward kernel takes (``pe_mlp_fwd_route`` "wgmma" or
+    "wide")."""
     widths = [w.shape[1] for w in wbs[0::2]]
-    if not pe_mlp_kernels_take(x.shape[1], num_freqs, widths):
+    if pe_mlp_fwd_route(x.shape[1], num_freqs, widths) == "wmma":
         raise ValueError(
-            f"fused_pe_mlp_bwd: the kernel takes x [N, {PE_MLP_DIM}], at most "
-            f"{PE_MLP_ENC} encoding columns, 2 or 3 layers, hidden widths up "
-            f"to {PE_MLP_HIDDEN} and {PE_MLP_OUT} outputs; got x "
+            f"fused_pe_mlp_bwd: the kernels take x [N, {PE_MLP_DIM}], at most "
+            f"{PE_MLP_ENC} encoding columns, 2 or 3 layers and {PE_MLP_OUT} "
+            f"outputs, with hidden widths up to {PE_MLP_HIDDEN}, or padded to "
+            f"128 or 256 where the weight images and one warpgroup's tiles "
+            f"fit {MAX_SMEM_BYTES} B of shared memory; got x "
             f"{tuple(x.shape)}, F={num_freqs}, widths {widths}")
 
 
 def pe_mlp_images(wbs: Sequence[torch.Tensor], backward: bool = True
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The wgmma kernels' weights (``common.weight_images``), every
-    layer's rows padded to 64: the encoding's too."""
+    """The wgmma kernels' weights (``common.weight_images``): for the
+    64-wide nets every layer's rows padded to 64, the encoding's too; for
+    the "wide" route ``fused_mlp.mlp_images``' layout (the encoding's rows
+    padded to 16, hidden layers to 128 or 256)."""
+    if _wide(wbs):
+        return mlp_images(wbs, backward)
     return weight_images(wbs, PE_MLP_HIDDEN, backward)
 
 
@@ -665,10 +700,16 @@ def _pe_mlp_fwd_layout(n_layers: int) -> Tuple[int, int]:
 
 
 def _pe_mlp_fwd_launch(x, wbs, num_freqs, img, bias) -> torch.Tensor:
-    """One launch of ``csrc/fused_pe_mlp_fwd.cu`` on CUDA tensors (none for
-    N = 0) on ``pe_mlp_images``, with or without the backward's half: the
-    [N, Dout] float32 output."""
+    """One launch of the forward kernel of the net's route on CUDA tensors
+    (none for N = 0), ``csrc/fused_pe_mlp_fwd.cu`` or the PE variant of
+    ``csrc/fused_mlp_fwd.cu``, on ``pe_mlp_images``, with or without the
+    backward's half: the [N, Dout] float32 output."""
     device, n = x.device, x.shape[0]
+    if _wide(wbs):
+        out = wgmma_forward("fused_pe_mlp", x, wbs, img, bias, num_freqs)
+        if n:
+            fused_pe_mlp.launches += 1
+        return out
     lib = _pe_mlp_fwd_lib()
     fwd_elems, n_bias = _pe_mlp_fwd_layout(len(wbs) // 2)
     check_images("fused_pe_mlp", img, bias, (fwd_elems, 2 * fwd_elems),
@@ -720,6 +761,12 @@ def fused_pe_mlp_bwd(x: torch.Tensor, wbs: Sequence[torch.Tensor],
     _check_pe_mlp_bwd(x, wbs, num_freqs)
     if not (need_dx or need_dw):
         raise ValueError("fused_pe_mlp_bwd: nothing asked for")
+    if _wide(wbs):
+        out = wgmma_backward("fused_pe_mlp_bwd", x, wbs, g, need_dx, need_dw,
+                             images, num_freqs)
+        if n:
+            fused_pe_mlp_bwd.launches += 1
+        return out
     lib = _pe_mlp_bwd_lib()
     img_elems, n_bias, total_w, total_b, _, wgs = _layout(
         "fused_pe_mlp_bwd", lib.cropnerf_pe_mlp_bwd_layout, n_layers)
@@ -790,9 +837,9 @@ class _FusedPeMlp(torch.autograd.Function):
 
 def _fused_pe_mlp_card(x, wbs, num_freqs) -> torch.Tensor:
     """``fused_pe_mlp`` on checked CUDA tensors.  Where a graph is recorded
-    (only for the nets the backward kernel takes), the autograd function
+    (only for the nets a backward kernel takes), the autograd function
     above; else the forward kernel that ``pe_mlp_fwd_route`` picks, the
-    wgmma kernel on the forward half of the weight images alone."""
+    wgmma kernels on the forward half of the weight images alone."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *wbs)):
         _check_pe_mlp_bwd(x, wbs, num_freqs)
         return _FusedPeMlp.apply(x, num_freqs, *wbs)
@@ -809,9 +856,9 @@ def fused_pe_mlp(x: torch.Tensor, wbs: Sequence[torch.Tensor],
     """x [N, dim] float32 (encoder domain, unit*2-1) → NeRF encoding with
     ``num_freqs`` frequencies → relu MLP wbs = [W0, b0, W1, b1, ...] (W
     [in, out], b [1, out]; linear last layer) → [N, Dout] float32,
-    differentiable in x and the weights.  On the card the forward kernel
-    is the one ``pe_mlp_fwd_route`` picks by shape, and a graph is recorded
-    only for the nets the backward kernel takes (``_check_pe_mlp_bwd``)."""
+    differentiable in x and the weights.  On the card the kernels are the
+    ones ``pe_mlp_fwd_route`` picks by shape, and a graph is recorded only
+    for the nets a backward kernel takes (``_check_pe_mlp_bwd``)."""
     _check_pe_mlp(x, wbs, num_freqs)
     if x.device.type == "cpu":
         return fused_pe_mlp_plain(x, wbs, num_freqs, compute_dtype)

@@ -565,6 +565,33 @@ def test_fused_mlp_layouts_take_the_routed_nets(cuda):
                     din, widths[-1], len(widths), hw), dims
 
 
+def test_pe_mlp_wide_layouts_take_the_routed_nets(cuda):
+    """Every PE net the K5 route sends to the wide kernels has a layout in
+    both kernels' PE variants, with and without weight gradients, within a
+    block's shared memory, at least the route's estimate (equal at one
+    stage); a 3-layer net 256 wide has none."""
+    for F, widths in ((5, [128, 128, 1]), (6, [128, 128, 1]),
+                      (10, [128, 128, 16]), (5, [256, 1]), (5, [64, 65, 1])):
+        din = 3 * (1 + 2 * F)
+        assert kfield.pe_mlp_fwd_route(3, F, widths) == "wide", widths
+        hw = kmlp.mlp_hidden_pad(din, widths)
+        fwd = kmlp.mlp_layout(din, widths[-1], len(widths), hw, pe=True)
+        assert 0 < fwd[2] <= 232_448 and fwd[3] >= 1, (widths, fwd)
+        for need_dw in (False, True):
+            bwd = kmlp.mlp_layout(din, widths[-1], len(widths), hw, need_dw,
+                                  True)
+            assert 0 < bwd[4] <= 232_448 and bwd[5] >= 1, (widths, bwd)
+            if need_dw:
+                least = kmlp._least_bwd_smem(din, widths[-1], len(widths), hw,
+                                             pe=True)
+                assert bwd[5] == 1 and least <= bwd[4], (widths, bwd, least)
+                if bwd[7] == 1:
+                    assert bwd[4] == least, widths
+    assert kfield.pe_mlp_fwd_route(3, 5, [256, 256, 1]) == "wmma"
+    with pytest.raises(ValueError):
+        kmlp.mlp_layout(33, 1, 3, 256, True, True)
+
+
 def _synthetic_bank(cuda, n_img=4, h=120, w=160):
     import numpy as np
     from cropnerf_tpu_torch.core.cameras import Cameras
@@ -1004,9 +1031,10 @@ def test_uncertainty_kernel_path_matches_plain_path(cuda, preset, channel):
     assert all(p.requires_grad for p in params.parameters())
 
 
-# ---- K5, the fused PE proposal nets (csrc/fused_pe_mlp_fwd.cu, forward, or
-# for nets wider than 64 the PE variant of csrc/fused_mlp.cu;
-# csrc/fused_pe_mlp_bwd.cu, backward) ----------------------------------------
+# ---- K5, the fused PE proposal nets (csrc/fused_pe_mlp_fwd.cu, forward, and
+# csrc/fused_pe_mlp_bwd.cu, backward; for nets wider than 64 the PE variants
+# of csrc/fused_mlp_fwd.cu and csrc/fused_mlp_bwd.cu, and for nets no wgmma
+# kernel takes the PE variant of csrc/fused_mlp.cu's forward) ----------------
 #
 # Held as K3: outputs to TOL of max |plain|, dx row by row, weight and bias
 # gradients in relative L2 (and by their max from 1000 rows on).
@@ -1061,29 +1089,39 @@ def test_fused_pe_mlp_kernel_matches_plain(cuda, case, need_dw):
         "the backward kernel is not deterministic"
 
 
-# (num_freqs, hidden width, layers, N) of the forward alone: both nets at
-# a training step's sample counts, a ragged N, N < 64, one row and none, a
-# two-layer net, and cropnerf-mxu-q's 128-wide nets (the wmma route)
-K5_FWD_GPU_CASES = {"net0": (5, 64, 3, 1_048_576), "net1": (6, 64, 3, 393_216),
-                    "net0-ragged": (5, 64, 3, 1_048_576 - 77),
-                    "net1-small": (6, 64, 3, 50), "one-row": (5, 64, 3, 1),
-                    "empty": (5, 64, 3, 0), "two-layers": (8, 32, 2, 4099),
-                    "q-net0": (5, 128, 3, 1_048_576),
-                    "q-net1-ragged": (6, 128, 3, 393_216 - 77)}
+# (num_freqs, hidden width, layers, N, route) of the forward alone: both
+# nets at a training step's sample counts, a ragged N, N < 64, one row and
+# none, a two-layer net, cropnerf-mxu-q's 128-wide nets (the wide route), a
+# two-layer net 256 wide, and a 4-layer net (the wmma route)
+K5_FWD_GPU_CASES = {"net0": (5, 64, 3, 1_048_576, "wgmma"),
+                    "net1": (6, 64, 3, 393_216, "wgmma"),
+                    "net0-ragged": (5, 64, 3, 1_048_576 - 77, "wgmma"),
+                    "net1-small": (6, 64, 3, 50, "wgmma"),
+                    "one-row": (5, 64, 3, 1, "wgmma"),
+                    "empty": (5, 64, 3, 0, "wgmma"),
+                    "two-layers": (8, 32, 2, 4099, "wgmma"),
+                    "q-net0": (5, 128, 3, 1_048_576, "wide"),
+                    "q-net1-ragged": (6, 128, 3, 393_216 - 77, "wide"),
+                    "q-small": (5, 128, 3, 50, "wide"),
+                    "q-one-row": (6, 128, 3, 1, "wide"),
+                    "q-empty": (5, 128, 3, 0, "wide"),
+                    "two-layers-256": (5, 256, 2, 65_536 + 3, "wide"),
+                    "four-layers": (5, 64, 4, 65_536 + 3, "wmma")}
 
 
 @pytest.mark.parametrize("case", list(K5_FWD_GPU_CASES))
 @torch.no_grad()
 def test_fused_pe_mlp_forward_routes(cuda, case):
     """K5's forward on the route its net's shape picks: the wgmma kernel
-    (csrc/fused_pe_mlp_fwd.cu) for nets up to 64 wide, the wmma route for
-    the 128-wide ones, each counting its own launches; against the plain
-    version, and the same bits on two runs."""
-    F, hidden, layers, n = K5_FWD_GPU_CASES[case]
+    (csrc/fused_pe_mlp_fwd.cu) for nets up to 64 wide and the PE variant of
+    csrc/fused_mlp_fwd.cu for the wider ones, both counted on
+    fused_pe_mlp, and the wmma route (a 4-layer net) on fused_pe_mlp_wide;
+    against the plain version, and the same bits on two runs."""
+    F, hidden, layers, n, want = K5_FWD_GPU_CASES[case]
     wbs = _prop_net(cuda, F, False, hidden=hidden, layers=layers)
     widths = [w.shape[1] for w in wbs[0::2]]
     route = kfield.pe_mlp_fwd_route(3, F, widths)
-    assert route == ("wmma" if hidden > 64 else "wgmma")
+    assert route == want
     g = torch.Generator(device=cuda).manual_seed(19)
     x = torch.rand((n, 3), generator=g, device=cuda) * 2 - 1
     before = (kfield.fused_pe_mlp.launches, kfield.fused_pe_mlp_wide.launches)
@@ -1091,8 +1129,8 @@ def test_fused_pe_mlp_forward_routes(cuda, case):
     torch.cuda.synchronize()
     launched = (kfield.fused_pe_mlp.launches - before[0],
                 kfield.fused_pe_mlp_wide.launches - before[1])
-    assert launched == ((0, 0) if n == 0 else (1, 0) if route == "wgmma"
-                        else (0, 1))
+    assert launched == ((0, 0) if n == 0 else (0, 1) if route == "wmma"
+                        else (1, 0))
     assert out.shape == (n, 1) and torch.isfinite(out).all()
     if n:
         assert _rel_err(out, kfield.fused_pe_mlp_plain(x, wbs, F)) <= TOL
@@ -1174,20 +1212,75 @@ def test_fused_pe_mlp_backward_tiling_edges(cuda, F, n):
 
 
 def test_fused_pe_mlp_backward_refuses_wider_nets(cuda):
-    """A net the backward kernel does not take (hidden 128) is refused when
-    the forward records the graph, before any launch."""
-    from cropnerf_tpu_torch.models.config import ProposalFieldConfig
-    from cropnerf_tpu_torch.models.proposal import proposal_init
-    cfg = ProposalFieldConfig(field_type="pe", hidden_dim=128, num_layers=3,
-                              pe_freqs=5, mlp_impl="pallas-fused")
-    prop = proposal_init(cfg, torch.Generator().manual_seed(0), cuda)
-    wbs = _leaves([t for w, b in zip(prop.mlp.w, prop.mlp.b)
-                   for t in (w, b.reshape(1, -1))], True)
+    """A net no backward kernel takes (3 layers 256 wide: its images and a
+    warpgroup's tiles overflow shared memory) is refused when the forward
+    records the graph, before any launch; its forward runs on the wmma
+    route."""
+    wbs = _prop_net(cuda, 5, True, hidden=256)
     x = torch.rand((100, 3), device=cuda) * 2 - 1
-    with pytest.raises(ValueError, match="hidden widths"):
+    before = kfield.fused_pe_mlp_wide.launches
+    with pytest.raises(ValueError, match="shared memory"):
         kfield.fused_pe_mlp(x, wbs, 5)
     with torch.no_grad():
         assert kfield.fused_pe_mlp(x, wbs, 5).shape == (100, 1)
+    assert kfield.fused_pe_mlp_wide.launches == before + 1
+
+
+# (num_freqs, hidden width, layers, N) of the wide route's backward:
+# cropnerf-mxu-q's nets at a training step's sample counts (4096 rays x 256
+# and x 96), a ragged N, N < 64, one row, and a two-layer net 256 wide
+K5_WIDE_GPU_CASES = {"q-net0": (5, 128, 3, 1_048_576),
+                     "q-net1": (6, 128, 3, 393_216),
+                     "q-net0-ragged": (5, 128, 3, 1_048_576 - 77),
+                     "q-net1-small": (6, 128, 3, 50),
+                     "q-one-row": (5, 128, 3, 1),
+                     "two-layers-256": (5, 256, 2, 65_536 + 3)}
+
+
+@pytest.mark.parametrize("variant", ["dx-dW", "dW-only", "dx-only"])
+@pytest.mark.parametrize("case", list(K5_WIDE_GPU_CASES))
+def test_fused_pe_mlp_wide_backward_matches_plain(cuda, case, variant):
+    """The wide route's backward (the PE variant of csrc/fused_mlp_bwd.cu)
+    through autograd, as a training step records it: dx with the weight
+    gradients (the proposal samples carry the camera-opt graph), the weight
+    gradients alone (positions without a graph) and dx alone; one launch
+    of each kernel counted on fused_pe_mlp and fused_pe_mlp_bwd, against
+    the plain version, two runs the same bits, and each partial backward
+    the full one's bits."""
+    F, hidden, layers, n = K5_WIDE_GPU_CASES[case]
+    need_dx, need_dw = variant != "dW-only", variant != "dx-only"
+    wbs = _prop_net(cuda, F, need_dw, hidden=hidden, layers=layers)
+    assert kfield.pe_mlp_fwd_route(3, F, [w.shape[1] for w in wbs[0::2]]) \
+        == "wide"
+    g = torch.Generator(device=cuda).manual_seed(29)
+    x = (torch.rand((n, 3), generator=g, device=cuda) * 2 - 1
+         ).requires_grad_(need_dx)
+    cot = torch.randn((n, 1), generator=g, device=cuda)
+    leaves = ([x] if need_dx else []) + (wbs if need_dw else [])
+    before = (kfield.fused_pe_mlp.launches, kfield.fused_pe_mlp_bwd.launches)
+    out = kfield.fused_pe_mlp(x, wbs, F)
+    got = _grads(out, leaves, cot)
+    torch.cuda.synchronize()
+    assert (kfield.fused_pe_mlp.launches, kfield.fused_pe_mlp_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref_out = kfield.fused_pe_mlp_plain(x, wbs, F)
+    ref = _grads(ref_out, leaves, cot)
+    assert out.shape == (n, 1) and torch.isfinite(out).all()
+    assert _rel_err(out.detach(), ref_out.detach()) <= TOL
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert a.shape == b.shape and torch.isfinite(a).all(), i
+        ok = (_grad_agrees(a, b, per_row=True) if need_dx and i == 0
+              else _weight_grad_agrees(a, b, n))
+        assert ok, (i, _rel_err(a, b))
+    again = _grads(kfield.fused_pe_mlp(x, wbs, F), leaves, cot)
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+        "the backward kernel is not deterministic"
+    wd = [w.detach() for w in wbs]
+    dx, dw = kfield.fused_pe_mlp_bwd(x.detach(), wd, F, cot, True, True)
+    if need_dx:
+        assert torch.equal(got[0], dx)
+    if need_dw:
+        assert all(torch.equal(a, b) for a, b in zip(got[-len(dw):], dw))
 
 
 # ---- K6, the transmittance scan (csrc/transmittance.cu) ----------------------

@@ -11,7 +11,9 @@ PyTorch versions for CPU tensors.  Each comparison runs in the float32 arm
 (1e-4) and the bf16 arm (2e-2; gradients 5e-2, the rtol of JAX's own
 kernel-vs-fallback test).  CPU models of the CUDA kernels' loops hold the
 kernels' arithmetic (the encoding's backward through the selector, the
-segmented warp scan) against the plain versions.
+segmented warp scan) against the plain versions.  ``cropnerf-mxu-q``'s
+proposal nets are 128 wide (the "wide" route of K5); its fused-proposal
+path runs the training step, the render and the depth batch too.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from torch_parity import (arm, assert_close, np_wbs, to_jax,  # noqa: F401
 
 BWD_TOL = {"f32": 1e-4, "bf16": 5e-2}
 PROP_WIDTHS = {5: [33, 64, 64, 1], 6: [39, 64, 64, 1]}   # the path's two nets
+Q_WIDTHS = {5: [33, 128, 128, 1], 6: [39, 128, 128, 1]}  # cropnerf-mxu-q's
 
 
 def _loss(out, lib):
@@ -42,19 +45,26 @@ def _loss(out, lib):
 
 # --- K5: fused_pe_mlp --------------------------------------------------------
 
-# (num_freqs, N, JAX interpret): both nets through the Pallas kernel in
-# interpret mode (128-row tiles) and through the jnp path, and a ragged N
-# (the jnp path: no tile of 128 rows or more divides it)
-K5_CASES = {"net0-kernel": (5, 256, True), "net1-kernel": (6, 256, True),
-            "net0-jnp": (5, 256, False), "net1-ragged": (6, 200, False)}
+# (num_freqs, N, JAX interpret, widths): both nets through the Pallas
+# kernel in interpret mode (128-row tiles) and through the jnp path, and a
+# ragged N (the jnp path: no tile of 128 rows or more divides it); the
+# path's 64-wide nets and cropnerf-mxu-q's 128-wide ones
+K5_CASES = {"net0-kernel": (5, 256, True, PROP_WIDTHS),
+            "net1-kernel": (6, 256, True, PROP_WIDTHS),
+            "net0-jnp": (5, 256, False, PROP_WIDTHS),
+            "net1-ragged": (6, 200, False, PROP_WIDTHS),
+            "q-net0-kernel": (5, 256, True, Q_WIDTHS),
+            "q-net1-kernel": (6, 256, True, Q_WIDTHS),
+            "q-net0-jnp": (5, 256, False, Q_WIDTHS),
+            "q-net1-ragged": (6, 200, False, Q_WIDTHS)}
 
 
 @pytest.mark.parametrize("case", list(K5_CASES))
 def test_fused_pe_mlp_matches_jax(case, arm):
-    F, n, interpret = K5_CASES[case]
+    F, n, interpret, widths = K5_CASES[case]
     rng = np.random.default_rng(20 + F)
     x = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
-    wbs = np_wbs(rng, PROP_WIDTHS[F])
+    wbs = np_wbs(rng, widths[F])
     s = jnp.asarray(jfield.pe_selector_matrix(F))
 
     def jloss(x, wbs):
@@ -87,10 +97,13 @@ def test_fused_pe_mlp_checks_its_inputs():
     with pytest.raises(ValueError):                 # an odd weight list
         tfield.fused_pe_mlp(x, wbs[:3], 5)
     assert tfield.fused_pe_mlp(x[:0], wbs, 5).shape == (0, 1)
-    tfield._check_pe_mlp_bwd(x, wbs, 5)             # the backward kernel's nets
-    wide = to_torch(np_wbs(np.random.default_rng(0), [33, 128, 128, 1]))
-    with pytest.raises(ValueError, match="hidden widths"):
-        tfield._check_pe_mlp_bwd(x, wide, 5)
+    tfield._check_pe_mlp_bwd(x, wbs, 5)             # the backward kernels' nets
+    wide = to_torch(np_wbs(np.random.default_rng(0), Q_WIDTHS[5]))
+    tfield._check_pe_mlp_bwd(x, wide, 5)
+    # a 3-layer net 256 wide: its images and tiles overflow shared memory
+    big = to_torch(np_wbs(np.random.default_rng(0), [33, 256, 256, 1]))
+    with pytest.raises(ValueError, match="shared memory"):
+        tfield._check_pe_mlp_bwd(x, big, 5)
 
 
 def _pe_encoding(x, F):
@@ -136,14 +149,15 @@ def _wmma_forward_model(x, wbs, F):
 @pytest.mark.parametrize("F", [5, 6])
 def test_wmma_route_model_reproduces_plain(F, hidden):
     """The wmma route's forward on pack_mlp's buffers against the plain
-    version: the 64-wide nets of the path and cropnerf-mxu-q's 128-wide
-    ones, which take this route on the card; 300 rows."""
+    version: the 64-wide nets of the path and, 128 wide, a 4-layer net,
+    which takes this route on the card; 300 rows."""
     rng = np.random.default_rng(50 + F)
     dims = [3 * (1 + 2 * F), hidden, hidden, 1]
+    if hidden == 128:
+        dims.insert(1, hidden)
+        assert tfield.pe_mlp_fwd_route(3, F, dims[1:]) == "wmma"
     wt = to_torch(np_wbs(rng, dims))
     x = torch.from_numpy(rng.uniform(-1, 1, (300, 3)).astype(np.float32))
-    if hidden == 128:
-        assert tfield.pe_mlp_fwd_route(3, F, dims[1:]) == "wmma"
     with torch.no_grad():
         got = _wmma_forward_model(x, wt, F)
         plain = tfield.fused_pe_mlp_plain(x, wt, F)
@@ -290,13 +304,14 @@ def test_pe_mlp_images_lay_out_both_operands():
 @pytest.mark.parametrize("preset", ["cropnerf-mxu", "cropnerf-mxu-q",
                                     "cropnerf-mxu-big", "cropnerf-mxu-huge"])
 def test_pe_mlp_forward_route_by_preset(preset):
-    """Every preset's PE proposal nets at 64 wide take the wgmma forward
-    kernel (csrc/fused_pe_mlp_fwd.cu), cropnerf-mxu-q's 128-wide nets the
-    wmma route (the PE variant of csrc/fused_mlp.cu): the route depends on
-    the net's shape alone."""
+    """Every preset's PE proposal nets at 64 wide take the wgmma kernels
+    (csrc/fused_pe_mlp_fwd.cu, csrc/fused_pe_mlp_bwd.cu), cropnerf-mxu-q's
+    128-wide nets the wide route (the PE variants of csrc/fused_mlp_fwd.cu
+    and csrc/fused_mlp_bwd.cu): the route depends on the net's shape
+    alone."""
     from cropnerf_tpu_torch.models.config import PRESETS
     from cropnerf_tpu_torch.models.proposal import proposal_init
-    want = "wmma" if preset == "cropnerf-mxu-q" else "wgmma"
+    want = "wide" if preset == "cropnerf-mxu-q" else "wgmma"
     for i, p in enumerate(PRESETS[preset].model.proposal_fields):
         prop = proposal_init(p, torch.Generator().manual_seed(i), "cpu")
         widths = [w.shape[1] for w in prop.mlp.w]
@@ -305,21 +320,41 @@ def test_pe_mlp_forward_route_by_preset(preset):
             want == "wgmma")
 
 
-# (dim, F, output widths, route): the wgmma kernels' edges
+# (dim, F, output widths, route): the wgmma kernels' edges, 64 wide and
+# wide; the wmma route's nets (its forward alone on the card) are those
+# neither takes
 ROUTE_EDGES = [(3, 8, [64, 64, 1], "wgmma"),      # 51 encoding columns
                (3, 10, [64, 64, 1], "wgmma"),     # 63 columns
                (3, 11, [64, 64, 1], "wmma"),      # 69 columns
                (3, 5, [32, 1], "wgmma"),          # 2 layers, narrower
                (3, 5, [64, 64, 64, 1], "wmma"),   # 4 layers
                (3, 5, [64, 64, 17], "wmma"),      # 17 outputs
-               (3, 5, [64, 65, 1], "wmma"),       # a hidden layer of 65
-               (2, 5, [64, 64, 1], "wmma")]       # x [N, 2]
+               (3, 5, [64, 65, 1], "wide"),       # a hidden layer of 65
+               (2, 5, [64, 64, 1], "wmma"),       # x [N, 2]
+               (3, 5, [128, 128, 1], "wide"),     # cropnerf-mxu-q's nets
+               (3, 6, [128, 128, 1], "wide"),
+               (3, 10, [128, 128, 16], "wide"),   # 63 columns, 16 outputs
+               (3, 5, [256, 1], "wide"),          # 2 layers, 256 wide
+               (3, 5, [256, 256, 1], "wmma"),     # overflows shared memory
+               (3, 11, [128, 128, 1], "wmma"),    # 69 columns
+               (3, 5, [128, 128, 128, 1], "wmma"),  # 4 layers
+               (2, 5, [128, 128, 1], "wmma")]     # x [N, 2]
 
 
 @pytest.mark.parametrize("case", range(len(ROUTE_EDGES)))
 def test_pe_mlp_forward_route_edges(case):
+    """The route by shape, and the backward kernels' nets: every net but
+    the wmma route's records a graph on the card."""
     dim, F, widths, route = ROUTE_EDGES[case]
     assert tfield.pe_mlp_fwd_route(dim, F, widths) == route
+    x = torch.zeros((4, dim))
+    wbs = to_torch(np_wbs(np.random.default_rng(case),
+                          [dim * (1 + 2 * F), *widths]))
+    if route == "wmma":
+        with pytest.raises(ValueError, match="fused_pe_mlp_bwd"):
+            tfield._check_pe_mlp_bwd(x, wbs, F)
+    else:
+        tfield._check_pe_mlp_bwd(x, wbs, F)
 
 
 @pytest.mark.parametrize("n", [1_048_576, 393_216, 1_048_576 - 77, 200, 50,
@@ -374,19 +409,20 @@ def _hidden_net(hidden, seed=40):
     return x, wt
 
 
-@pytest.mark.parametrize("hidden", [64, 128])
+@pytest.mark.parametrize("hidden", [64, 128, 256])
 def test_forward_saves_its_images_for_the_backward(hidden, monkeypatch):
     """Where a graph is recorded, the card path builds the wgmma kernels'
     weight images once, in the forward, and hands those very tensors to
-    the backward: they equal pe_mlp_images of the weights.  A net on the
-    wmma route has no backward kernel and records no graph.  The kernels
-    are stood in for by the plain version here."""
+    the backward: they equal pe_mlp_images of the weights (128 wide,
+    fused_mlp.mlp_images').  A net on the wmma route (3 layers, 256 wide)
+    has no backward kernel and records no graph.  The kernels are stood in
+    for by the plain version here."""
     F = 5
     x, wt = _hidden_net(hidden)
     wt = [w.requires_grad_(True) for w in wt]
     seen = _stand_in_kernels(monkeypatch)
-    if hidden == 128:
-        with pytest.raises(ValueError, match="hidden widths"):
+    if hidden == 256:
+        with pytest.raises(ValueError, match="shared memory"):
             tfield._fused_pe_mlp_card(x, wt, F)
         assert seen == {}
         return
@@ -396,15 +432,18 @@ def test_forward_saves_its_images_for_the_backward(hidden, monkeypatch):
     assert all(a is b for a, b in zip(seen["bwd"], seen["fwd"]))
     assert torch.equal(seen["fwd"][0], img)
     assert torch.equal(seen["fwd"][1], bias)
+    if hidden == 128:
+        want = tmlp.mlp_images([w.detach() for w in wt])
+        assert torch.equal(img, want[0]) and torch.equal(bias, want[1])
 
 
-@pytest.mark.parametrize("hidden", [64, 128])
+@pytest.mark.parametrize("hidden", [64, 128, 256])
 def test_forward_without_a_graph_builds_only_forward_images(hidden,
                                                             monkeypatch):
     """Where no graph is recorded (serving, the render, the depth cloud),
     the card path launches the forward kernel its route picks and builds
-    no backward half: the wgmma kernel gets the forward images alone, the
-    wmma route none."""
+    no backward half: the wgmma kernels (64 and 128 wide) get the forward
+    images alone, the wmma route (3 layers, 256 wide) none."""
     F = 5
     x, wt = _hidden_net(hidden)
     seen = _stand_in_kernels(monkeypatch)
@@ -412,7 +451,7 @@ def test_forward_without_a_graph_builds_only_forward_images(hidden,
         out = tfield._fused_pe_mlp_card(x, [w.requires_grad_(True)
                                             for w in wt], F)
     assert not out.requires_grad
-    if hidden == 128:
+    if hidden == 256:
         assert seen == {"wide": True}
         return
     img, bias = tfield.pe_mlp_images(wt)
@@ -575,13 +614,14 @@ def test_scan_kernel_model_reproduces_plain(shape):
 
 # --- the path: cropnerf-mxu with fused PE proposal nets ----------------------
 
-def propfused(presets, **changes):
-    """The path's configuration, reduced: ``cropnerf-mxu`` with both PE
-    proposal nets on the fused kernel (``benchmarks/ab_pe_fused.py``'s
+def propfused(presets, preset="cropnerf-mxu", **changes):
+    """The path's configuration, reduced: ``cropnerf-mxu`` (or
+    ``cropnerf-mxu-q``, its proposal nets 128 wide) with both PE proposal
+    nets on the fused kernel (``benchmarks/ab_pe_fused.py``'s
     ``dataclasses.replace``) at full widths, 32 and 16 proposal samples
     then 8 field samples per ray."""
     from torch_parity import reduced_mxu
-    cfg = reduced_mxu(presets)
+    cfg = reduced_mxu(presets, preset)
     m = cfg.model
     m = dataclasses.replace(
         m, proposal_fields=tuple(dataclasses.replace(p, mlp_impl="pallas-fused")
@@ -589,20 +629,28 @@ def propfused(presets, **changes):
     return dataclasses.replace(cfg, model=m, **changes)
 
 
-def test_train_step_matches_jax(arm, monkeypatch):
-    """One training step (every step updates the proposal nets, whose
-    positions carry the camera-opt graph: K5's backward with dx)."""
+def _check_train_step(preset, arm, monkeypatch, kinked=None, kink_tol=None):
     from cropnerf_tpu.models.config import PRESETS as JAX_PRESETS
     from cropnerf_tpu_torch.models.config import PRESETS as TORCH_PRESETS
     from test_torch_train import RAYS, STEP, check_train_step
-    jcfg, tcfg = (propfused(p, train_num_rays_per_batch=RAYS)
+    jcfg, tcfg = (propfused(p, preset, train_num_rays_per_batch=RAYS)
                   for p in (JAX_PRESETS, TORCH_PRESETS))
     assert not tcfg.model.proposal_no_grad_schedule
-    check_train_step(jcfg, tcfg, STEP, arm, monkeypatch)
+    check_train_step(jcfg, tcfg, STEP, arm, monkeypatch, kinked, kink_tol)
+
+
+def test_train_step_matches_jax(arm, monkeypatch):
+    """One training step (every step updates the proposal nets, whose
+    positions carry the camera-opt graph: K5's backward with dx)."""
+    _check_train_step("cropnerf-mxu", arm, monkeypatch)
 
 
 def test_render_matches_jax(arm):
     """make_render_fn: an 8x8 image with lens distortion in one chunk."""
+    _check_render("cropnerf-mxu", arm)
+
+
+def _check_render(preset, arm, semantics_tol=None):
     from cropnerf_tpu.core.cameras import Cameras as JaxCameras
     from cropnerf_tpu.models.config import PRESETS as JAX_PRESETS
     from cropnerf_tpu.train.step import make_render_fn as jax_make_render_fn
@@ -611,7 +659,7 @@ def test_render_matches_jax(arm):
     from cropnerf_tpu_torch.train.step import make_render_fn
     from test_torch_render_export import H, W, _camera_arrays
     from torch_parity import jax_and_torch_params
-    jcfg, tcfg = (propfused(p, eval_num_rays_per_chunk=H * W)
+    jcfg, tcfg = (propfused(p, preset, eval_num_rays_per_chunk=H * W)
                   for p in (JAX_PRESETS, TORCH_PRESETS))
     params, tp = jax_and_torch_params(jcfg.model, num_images=1)
     cams = _camera_arrays()
@@ -623,7 +671,8 @@ def test_render_matches_jax(arm):
         0, H, W)
     for k in ("rgb", "accumulation", "semantics", "semantics_colormap"):
         assert got[k].shape[:2] == (H, W)
-        assert_close(got[k], ref[k], arm.tol, k)
+        tol = semantics_tol if k == "semantics" and semantics_tol else arm.tol
+        assert_close(got[k], ref[k], tol, k)
     same_depth = np.isclose(got["depth"].numpy(), np.asarray(ref["depth"]),
                             atol=arm.tol, rtol=arm.tol)
     assert same_depth.mean() >= (1.0 if arm.name == "f32" else 0.9)
@@ -675,13 +724,18 @@ def test_forward_and_depth_batch_match_jax(arm, monkeypatch):
     proposal nets and the field), the points, colours and keep mask; in the
     float32 arm the JAX ``generate_point_cloud`` itself keeps the same
     points."""
+    _check_forward_and_depth_batch("cropnerf-mxu", arm, monkeypatch)
+
+
+def _check_forward_and_depth_batch(preset, arm, monkeypatch):
     from cropnerf_tpu.export import pointcloud as jpc
     from cropnerf_tpu.models.config import PRESETS as JAX_PRESETS
     from cropnerf_tpu_torch.export import pointcloud as tpc
     from cropnerf_tpu_torch.models.config import PRESETS as TORCH_PRESETS
     from test_torch_train import N_IMG, _banks
     from torch_parity import jax_and_torch_params
-    jcfg, tcfg = propfused(JAX_PRESETS), propfused(TORCH_PRESETS)
+    jcfg, tcfg = propfused(JAX_PRESETS, preset), propfused(TORCH_PRESETS,
+                                                           preset)
     params, tp = jax_and_torch_params(jcfg.model, num_images=N_IMG)
     jb, tb = _banks()
     _, sub = jax.random.split(jax.random.PRNGKey(0))

@@ -149,10 +149,10 @@ KINK_TOL = {"f32": 3e-2, "bf16": 1e-1}
 PIXEL_SEED = 3
 
 
-def _close(got, ref, arm, what, kinked=False):
+def _close(got, ref, arm, what, kinked=False, kink_tol=KINK_TOL):
     if kinked:
         err = np.linalg.norm(got - ref) / max(np.linalg.norm(ref), 1e-12)
-        assert err <= KINK_TOL[arm.name], (what, err)
+        assert err <= kink_tol[arm.name], (what, err)
     elif arm.name == "f32":
         err = np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-12)
         assert err <= 1e-3, (what, err)
@@ -178,11 +178,15 @@ def test_train_step_loss_and_gradients_match_jax(arm, no_grad_schedule,
     check_train_step(jcfg, tcfg, step, arm, monkeypatch)
 
 
-def check_train_step(jcfg, tcfg, step, arm, monkeypatch):
+def check_train_step(jcfg, tcfg, step, arm, monkeypatch, kinked=None,
+                     kink_tol=None):
     """One training step of ``tcfg`` on the port against ``jcfg`` on JAX,
     from the same parameters and pixels: the loss and its terms, every
-    gradient leaf (the trunk's under the relu-kink bound), the rays'
-    gradients and the camera-opt leaf."""
+    gradient leaf (the trunk's, or those ``kinked`` names, under the
+    relu-kink bound: KINK_TOL, or ``kink_tol``), the rays' gradients and
+    the camera-opt leaf."""
+    kinked = kinked or _kinked
+    kink_tol = kink_tol or KINK_TOL
     frozen = (tcfg.model.proposal_no_grad_schedule
               and not bool(tstep._prop_update_bool(step, tcfg)))
     params, tp = jax_and_torch_params(jcfg.model, num_images=N_IMG)
@@ -219,21 +223,22 @@ def check_train_step(jcfg, tcfg, step, arm, monkeypatch):
     assert set(got) == set(ref)
     for k, r in ref.items():
         if k != "camera_opt":
-            _close(got[k].numpy(), r, arm, k, _kinked(k))
+            _close(got[k].numpy(), r, arm, k, kinked(k), kink_tol)
     if frozen:
         assert all(got[k].abs().sum() == 0 for k in got
                    if k.startswith("proposal_"))
     # camera_opt sums each camera's rays' pose gradients, which cancel: it
     # is held to the rays' tolerance times the sum of their magnitudes
     g_o, g_d = np.asarray(g_o), np.asarray(g_d)
-    _close(rays["rb"].origins.grad.numpy(), g_o, arm, "ray origins", True)
+    _close(rays["rb"].origins.grad.numpy(), g_o, arm, "ray origins", True,
+           kink_tol)
     _close(rays["rb"].directions.grad.numpy(), g_d, arm, "ray directions",
-           True)
+           True, kink_tol)
     cam = idx // (H * W)
     scale = np.zeros((N_IMG, 6), np.float32)
     np.add.at(scale[:, :3], cam, np.abs(g_o))
     np.add.at(scale[:, 3:], cam, np.linalg.norm(g_d, axis=1)[:, None])
-    cam_tol = KINK_TOL[arm.name]
+    cam_tol = kink_tol[arm.name]
     diff = np.abs(got["camera_opt"].numpy() - ref["camera_opt"])
     assert np.all(diff <= cam_tol * scale + 1e-7), (diff / scale).max()
 

@@ -73,10 +73,11 @@ def assert_close(got, ref, tol: float, what: str = "") -> None:
     np.testing.assert_allclose(got, ref, atol=tol, rtol=tol, err_msg=what)
 
 
-def reduced_mxu(presets, **model_changes):
-    """The cropnerf-mxu preset at full widths with few samples: 32 and 16
-    proposal samples, then 8 field samples per ray."""
-    cfg = presets["cropnerf-mxu"]
+def reduced_mxu(presets, preset="cropnerf-mxu", **model_changes):
+    """The cropnerf-mxu preset (or another of its family) at full widths
+    with few samples: 32 and 16 proposal samples, then 8 field samples per
+    ray."""
+    cfg = presets[preset]
     changes = dict(num_nerf_samples_per_ray=8,
                    num_proposal_samples_per_ray=(32, 16))
     changes.update(model_changes)

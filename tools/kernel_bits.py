@@ -6,9 +6,11 @@ route (``csrc/fused_mlp.cu``), at a 3-layer 256-wide net no preset builds
 (-huge's colour head with a second hidden layer); K4
 forward (``hash_encode_fwd``); K5 forward (``fused_pe_mlp`` without a
 graph) and backward (``fused_pe_mlp_bwd``: dx and every weight gradient)
-at cropnerf-mxu's proposal nets, and K5's forward on its wmma route at
-cropnerf-mxu-q's 128-wide nets.  Run it on two trees in one call on the
-same card; equal lines mean equal bits:
+at cropnerf-mxu's proposal nets, and K5 at cropnerf-mxu-q's 128-wide nets
+(the forward, and the backward where the tree has a kernel for them:
+their route, and so their bits, differ between trees that send them to
+other kernels).  Run it on two trees in one call on the same card; equal
+lines mean equal bits:
 
     python3 tools/kernel_bits.py [--port-root DIR]
 """
@@ -81,8 +83,9 @@ def main() -> None:
             out[f"hash_encode {name}"] = digest([kh.hash_encode_fwd(
                 table2d, pos, tuple(res), tuple(offsets), tuple(dense), t)])
         # K5: the fused proposal nets of cropnerf-mxu, the forward (no graph)
-        # and the backward with dx and dW; then -q's 128-wide nets, the
-        # forward's wmma route
+        # and the backward with dx and dW; then -q's 128-wide nets' forward
+        # (their backward last, for the same draws as before)
+        q_nets = []
         for preset in ("cropnerf-mxu", "cropnerf-mxu-q"):
             mx = PRESETS[preset].model
             for i, (p, smp) in enumerate(zip(mx.proposal_fields,
@@ -91,14 +94,24 @@ def main() -> None:
                 wbs = [t.detach() for w, b in zip(prop.mlp.w, prop.mlp.b)
                        for t in (w, b.reshape(1, -1))]
                 x = torch.rand((4096 * smp, 3), generator=g, device=dev) * 2 - 1
-                tag = "" if preset == "cropnerf-mxu" else " wmma route"
+                tag = "" if preset == "cropnerf-mxu" else " 128 wide"
                 out[f"fused_pe_mlp{tag} net {i}"] = digest(
                     [kfield.fused_pe_mlp(x, wbs, p.pe_freqs)])
+                if tag:
+                    q_nets.append((i, x, wbs, p.pe_freqs))
                 if preset == "cropnerf-mxu":
                     cot = torch.randn((4096 * smp, 1), generator=g, device=dev)
                     dx, dw = kfield.fused_pe_mlp_bwd(x, wbs, p.pe_freqs, cot)
                     out[f"fused_pe_mlp_bwd net {i}"] = digest([dx] + dw)
         k3("wmma route net", (89, 256, 256, 3))
+        for i, x, wbs, F in q_nets:
+            cot = torch.randn((x.shape[0], 1), generator=g, device=dev)
+            try:
+                dx, dw = kfield.fused_pe_mlp_bwd(x, wbs, F, cot)
+            except ValueError:
+                out[f"fused_pe_mlp_bwd 128 wide net {i}"] = "no kernel"
+            else:
+                out[f"fused_pe_mlp_bwd 128 wide net {i}"] = digest([dx] + dw)
     print(json.dumps({"port_root": str(args.port_root),
                       "card": torch.cuda.get_device_name(0), "sha256": out}),
           flush=True)
