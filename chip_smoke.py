@@ -1877,17 +1877,20 @@ def pe_mlp_entries(cfg, dev, card, reports, kernels) -> dict:
                             for c in k["cases"].values()))}
 
 
-# K5's wide route (the PE variants of csrc/fused_mlp_fwd.cu and
-# csrc/fused_mlp_bwd.cu) by the kernel names the profiler records
+# K5's wide route (the PE variant of csrc/fused_mlp_fwd.cu; the backward
+# with weight gradients csrc/fused_pe_mlp_wide_bwd.cu) by the kernel names
+# the profiler records
 PE_MLP_WIDE_FWD_PASSES = {"kernel": ("mlp_fwd_kernel",)}
-PE_MLP_WIDE_BWD_PASSES = {"kernel": ("mlp_bwd_kernel",),
+PE_MLP_WIDE_BWD_PASSES = {"kernel": ("pe_wide_bwd_kernel",),
                           "sums": ("column_sum_kernel",)}
 
 
 def pe_mlp_wide_entries(dev, card, reports, kernels) -> dict:
-    """K5's wide route (pe_mlp_fwd_route "wide": the PE variants of
-    csrc/fused_mlp_fwd.cu and csrc/fused_mlp_bwd.cu) against the plain
-    version at cropnerf-mxu-q's two 128-wide proposal nets: one training
+    """K5's wide route (pe_mlp_fwd_route "wide": the PE variant of
+    csrc/fused_mlp_fwd.cu, and with weight gradients
+    csrc/fused_pe_mlp_wide_bwd.cu, which keeps each block's weight sums in
+    a warpgroup's registers) against the plain version at cropnerf-mxu-q's
+    two 128-wide proposal nets: one training
     step's shapes (4096 rays x 256 and x 96 samples), a ragged N, N < 64,
     one row and none; the backward with dx and the weight gradients (a
     training step's: the samples carry the camera-opt graph) and with the
@@ -2023,16 +2026,36 @@ def pe_mlp_wide_entries(dev, card, reports, kernels) -> dict:
                     "3mlp14mlp_fwd", pe=True)
     spills = k3_names(ptxas_spills(reports["fused_mlp_fwd"]),
                       "3mlp14mlp_fwd", pe=True)
-    bwd_regs = k3_names(ptxas_registers(reports["fused_mlp_bwd"]),
-                        "3mlp14mlp_bwd", pe=True)
-    bwd_spills = k3_names(ptxas_spills(reports["fused_mlp_bwd"]),
-                          "3mlp14mlp_bwd", pe=True)
+    dx_regs = k3_names(ptxas_registers(reports["fused_mlp_bwd"]),
+                       "3mlp14mlp_bwd", pe=True)
+    dx_spills = k3_names(ptxas_spills(reports["fused_mlp_bwd"]),
+                         "3mlp14mlp_bwd", pe=True)
+    bwd_regs = kernel_names(ptxas_registers(
+        reports["fused_pe_mlp_wide_bwd"]), "pe_wide_bwd_kernel")
+    bwd_spills = kernel_names(ptxas_spills(
+        reports["fused_pe_mlp_wide_bwd"]), "pe_wide_bwd_kernel")
+    # the backward's block at -q's nets: shared memory, warpgroups, sets
+    from cropnerf_tpu_torch.ops.cuda import fused_mlp as kmlp
+    blocks = {}
+    for i, k in per.items():
+        lay = kmlp.mlp_layout(k["dims"][0], k["dims"][-1], len(k["dims"]) - 1,
+                              k["dims"][1], True, True)
+        blocks[i] = dict(smem_bytes=lay[4], compute_warpgroups=lay[5],
+                         weight_gradient_warpgroups=1,
+                         partial_rows=lay[6], stages=lay[7],
+                         operand_sets=lay[8])
     log(f"[build] K5 wide route: fused_mlp_fwd PE variant registers {regs}, "
-        f"spill bytes {spills}; fused_mlp_bwd PE variant registers "
-        f"{bwd_regs}, spill bytes {bwd_spills}")
-    check(regs and bwd_regs and all(v == 0 for v in spills.values())
-          and all(v == 0 for v in bwd_spills.values()),
-          f"K5 wide route spills {spills} {bwd_spills}")
+        f"spill bytes {spills}; fused_pe_mlp_wide_bwd (dx and dW, dW alone) "
+        f"registers {bwd_regs}, spill bytes {bwd_spills}; its blocks at "
+        f"cropnerf-mxu-q's nets {blocks}; dx alone on fused_mlp_bwd's PE "
+        f"variant: registers {dx_regs}, spill bytes {dx_spills}")
+    check(regs and bwd_regs and dx_regs
+          and all(v == 0 for v in (*spills.values(), *bwd_spills.values(),
+                                   *dx_spills.values()))
+          and all(b["compute_warpgroups"] == 1 and b["partial_rows"] == 1
+                  and b["smem_bytes"] <= 232_448 for b in blocks.values()),
+          f"K5 wide route: spills {spills} {bwd_spills} {dx_spills}, "
+          f"blocks {blocks}")
     vals = list(per.values())
     shape = " and ".join(f"{name} x [{k['n']},3] -> "
                          f"{'->'.join(map(str, k['dims']))}"
@@ -2052,8 +2075,9 @@ def pe_mlp_wide_entries(dev, card, reports, kernels) -> dict:
             rel_err=max(c["fwd_err"] for c in cases),
             max_abs_err=max(c["fwd_abs"] for c in cases)),
         "fused_pe_mlp_bwd wide": dict(
-            source="cropnerf_tpu_torch/csrc/fused_mlp_bwd.cu", by_net=per,
-            registers=bwd_regs, spill_bytes=bwd_spills,
+            source="cropnerf_tpu_torch/csrc/fused_pe_mlp_wide_bwd.cu",
+            by_net=per, registers=bwd_regs, spill_bytes=bwd_spills,
+            blocks=blocks,
             replaces="cropnerf_tpu/ops/pallas/fused_pe_field.py:835",
             shape=f"their backward with dx and every weight gradient: "
                   f"{shape}",

@@ -58,25 +58,18 @@
 // bits.  Rows past N load zero x and zero cotangents, so they add nothing.
 //
 // The PE variant (PE = true) is the recompute backward of fused_pe_mlp's
-// nets wider than 64, replacing cropnerf_tpu/ops/pallas/fused_pe_field.py
-// _plain_bwd_kernel for them (cropnerf-mxu-q's proposal nets, 33 or 39 ->
-// 128 -> 128 -> 1), with K5's arithmetic (fused_pe_mlp_bwd.cu's note):
-// x [N, 3] arrives in the stages (768 bytes a tile); step 1 encodes it,
-// two threads a row (wgmma_mlp.cuh pe_encode), into A_0's chunk-major tile,
-// which layer 0's products read, and keeps each column's f32
-// d(encode)/d(pre) x 2^f in a derivative tile; step 4 scales G_0·W_0ᵀ's
-// f32 columns by those (pe_dscale) and sums each coordinate's columns in
-// column order into dx [N, 3] (pe_dx).  Bound: operations, ~62 kMAC a row
-// at net 0 and 64 at net 1 (the hidden layers' recompute, every input
-// gradient, every weight gradient) against 20 bytes of x, g and dx: 0.183
-// ms for a training step's two nets at 989 TFLOP/s.  The weight sums stay
-// on the heads' scheme, each tile's products added into the warpgroup's
-// partial row in device memory (L2: 98 KB a warpgroup at -q's nets): at
-// 128 wide they hold 24,576 f32, 192 registers a thread, and the block's
-// shared memory holds both image halves (98 KB), the operand tiles (73 KB)
-// and the derivative tile (17 KB), so neither keeps them on chip.
+// nets wider than 64 without weight gradients (dx alone), replacing
+// cropnerf_tpu/ops/pallas/fused_pe_field.py _plain_bwd_kernel for them,
+// with K5's arithmetic (fused_pe_mlp_bwd.cu's note): x [N, 3] arrives in
+// the stages (768 bytes a tile); step 1 encodes it, two threads a row
+// (wgmma_mlp.cuh pe_encode), into A_0's chunk-major tile, which layer 0's
+// products read, and keeps each column's f32 d(encode)/d(pre) x 2^f in a
+// derivative tile; step 4 scales G_0·W_0ᵀ's f32 columns by those
+// (pe_dscale) and sums each coordinate's columns in column order into dx
+// [N, 3] (pe_dx).  With weight gradients those nets take
+// fused_pe_mlp_wide_bwd.cu, which keeps the sums on chip.
 #include "bwd_layers.cuh"
-#include "wgmma_mlp.cuh"
+#include "wgmma_bwd.cuh"
 
 namespace cropnerf {
 namespace mlp {
@@ -88,147 +81,6 @@ namespace mlp {
 // 255 registers a thread; at three, within 168, they spill).
 __host__ __device__ constexpr int bwd_max_wgs(int nl, bool dw, int hwp) {
   return hwp != HW ? 2 : dw ? 2 : nl == 3 ? 3 : 4;
-}
-
-__device__ __forceinline__ float bf_lo(uint32_t p) { return __uint_as_float(p << 16); }
-__device__ __forceinline__ float bf_hi(uint32_t p) { return __uint_as_float(p & 0xffff0000u); }
-
-// A warp's column sums of a thread's f32 sums over its lanes with the same
-// columns (lane % 4), in a fixed shuffle order.
-__device__ __forceinline__ float warp_colsum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 4);
-  v += __shfl_xor_sync(0xffffffffu, v, 8);
-  v += __shfl_xor_sync(0xffffffffu, v, 16);
-  return v;
-}
-
-// The output cotangent as the register A operand of G·W_lastᵀ (one k-step
-// of 16 columns, zero past dout); with DB its f32 column sums over the
-// warp's 16 rows added into the warp's bias row `brow`.
-template <bool DB>
-__device__ __forceinline__ void g_to_a(uint32_t (&a)[4], const float* t, int dout, float* brow,
-                                       const Lane& ln) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int c = ln.cq + 8 * h;
-    const float* p0 = t + ln.r0 * dout + c;
-    const float* p1 = p0 + 8 * dout;
-    const float u0 = c < dout ? p0[0] : 0.0f, u1 = c + 1 < dout ? p0[1] : 0.0f;
-    const float w0 = c < dout ? p1[0] : 0.0f, w1 = c + 1 < dout ? p1[1] : 0.0f;
-    a[2 * h] = bf16_pair(u0, u1);
-    a[2 * h + 1] = bf16_pair(w0, w1);
-    if (DB) {
-      const float s0 = warp_colsum(u0 + w0), s1 = warp_colsum(u1 + w1);
-      if (ln.lane < 4) {
-        brow[c] += s0;
-        brow[c + 1] += s1;
-      }
-    }
-  }
-}
-
-// The cotangent of the layer below from acc = G·W_lᵀ: the relu mask of the
-// bf16 activation `act` (the forward's A operand registers) applied in f32,
-// rounded to the register A operand g of the next product; with DB the f32
-// column sums over the warp's 16 rows added into the warp's bias row.
-template <bool DB>
-__device__ __forceinline__ void mask_to_g(uint32_t (&g)[HW / 16][4], const float (&acc)[HW / 2],
-                                          const uint32_t (&act)[HW / 16][4], float* brow,
-                                          const Lane& ln) {
-#pragma unroll
-  for (int s = 0; s < HW / 16; ++s) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int j = 2 * s + h;
-      const uint32_t m0 = act[s][2 * h], m1 = act[s][2 * h + 1];
-      const float v0 = bf_lo(m0) > 0.0f ? acc[4 * j] : 0.0f;
-      const float v1 = bf_hi(m0) > 0.0f ? acc[4 * j + 1] : 0.0f;
-      const float v2 = bf_lo(m1) > 0.0f ? acc[4 * j + 2] : 0.0f;
-      const float v3 = bf_hi(m1) > 0.0f ? acc[4 * j + 3] : 0.0f;
-      g[s][2 * h] = bf16_pair(v0, v1);
-      g[s][2 * h + 1] = bf16_pair(v2, v3);
-      if (DB) {
-        const float s0 = warp_colsum(v0 + v2), s1 = warp_colsum(v1 + v3);
-        if (ln.lane < 4) {
-          brow[8 * j + ln.cq] += s0;
-          brow[8 * j + ln.cq + 1] += s1;
-        }
-      }
-    }
-  }
-}
-
-// Block cb of the cotangent of the layer below, from acc = G·W_lᵀ over
-// that block's 64 columns: as mask_to_g, into k-steps 4cb .. 4cb + 3 of g,
-// the relu mask read from the same k-steps of the bf16 activation `act`
-// and the bias sums added at brow's columns 64cb ...
-template <bool DB, int S>
-__device__ __forceinline__ void mask_block(uint32_t (&g)[S][4], int cb,
-                                           const float (&acc)[HW / 2],
-                                           const uint32_t (&act)[S][4], float* brow,
-                                           const Lane& ln) {
-  uint32_t blk[HW / 16][4], m[HW / 16][4];
-#pragma unroll
-  for (int s = 0; s < HW / 16; ++s)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) m[s][i] = act[4 * cb + s][i];
-  mask_to_g<DB>(blk, acc, m, brow + cb * HW, ln);
-#pragma unroll
-  for (int s = 0; s < HW / 16; ++s)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) g[4 * cb + s][i] = blk[s][i];
-}
-
-// One 16-column step s of a register A operand into a chunk-major tile.
-__device__ __forceinline__ void store_step(bf16* t, int s, const uint32_t (&a)[4],
-                                           const Lane& ln) {
-  const int c = 16 * s + ln.cq;
-  *reinterpret_cast<uint32_t*>(t + cm(ln.r0, c)) = a[0];
-  *reinterpret_cast<uint32_t*>(t + cm(ln.r0 + 8, c)) = a[1];
-  *reinterpret_cast<uint32_t*>(t + cm(ln.r0, c + 8)) = a[2];
-  *reinterpret_cast<uint32_t*>(t + cm(ln.r0 + 8, c + 8)) = a[3];
-}
-
-// The register A operand of a 64-column chunk-major tile (the inverse of
-// store_tile).
-__device__ __forceinline__ void load_tile(uint32_t (&a)[HW / 16][4], const bf16* t,
-                                          const Lane& ln) {
-#pragma unroll
-  for (int s = 0; s < HW / 16; ++s) {
-    const int c = 16 * s + ln.cq;
-    a[s][0] = *reinterpret_cast<const uint32_t*>(t + cm(ln.r0, c));
-    a[s][1] = *reinterpret_cast<const uint32_t*>(t + cm(ln.r0 + 8, c));
-    a[s][2] = *reinterpret_cast<const uint32_t*>(t + cm(ln.r0, c + 8));
-    a[s][3] = *reinterpret_cast<const uint32_t*>(t + cm(ln.r0 + 8, c + 8));
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void store_tile(bf16* t, const uint32_t (&a)[N][4], int steps,
-                                           const Lane& ln) {
-#pragma unroll
-  for (int s = 0; s < N; ++s)
-    if (s < steps) store_step(t, s, a[s], ln);
-}
-
-// row[i·n + c] (=, or += unless `first`) the accumulators of a 64 x n
-// weight gradient (rows r0, r0 + 8 and columns 8j + cq (+1) of the thread;
-// a block of a wider row where n is the row's width).
-template <int R>
-__device__ __forceinline__ void add_rows(float* row, int n, const float (&v)[R], bool first,
-                                         const Lane& ln) {
-#pragma unroll
-  for (int j = 0; j < R / 4; ++j) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float* p = row + (ln.r0 + 8 * h) * n + 8 * j + ln.cq + e;
-        const float x = v[4 * j + 2 * h + e];
-        *p = first ? x : *p + x;
-      }
-    }
-  }
 }
 
 template <int NL, bool DW, bool DX, int HWP, bool PE>
@@ -655,20 +507,23 @@ static int run(const float* x, const float* g, float* dx, const void* img, const
                const Layout& L, int blocks, cudaStream_t s, int num_freqs = 0) {
   const bool need_dw = wpart != nullptr, need_dx = dx != nullptr;
   const int2 plan = bwd_plan(L, need_dw);
-  int err;
-  if (need_dw && need_dx)
-    err = launch<NL, true, true, HWP, PE>(x, g, dx, img, bias, wpart, bpart, n_rows, L, blocks,
-                                          plan, num_freqs, s);
-  else if (need_dw)
-    err = launch<NL, true, false, HWP, PE>(x, g, dx, img, bias, wpart, bpart, n_rows, L,
-                                           blocks, plan, num_freqs, s);
-  else
-    err = launch<NL, false, true, HWP, PE>(x, g, dx, img, bias, wpart, bpart, n_rows, L,
-                                           blocks, plan, num_freqs, s);
-  if (err || !need_dw) return err;
-  err = column_sum(wpart, (long long)blocks * wpart_rows(L, plan.x), L.fwd_elems(), dw, s);
-  if (err) return err;
-  return column_sum(bpart, blocks, L.n_bias(), db, s);
+  if (!need_dw)
+    return launch<NL, false, true, HWP, PE>(x, g, dx, img, bias, wpart, bpart, n_rows, L,
+                                            blocks, plan, num_freqs, s);
+  if constexpr (PE) {
+    return (int)cudaErrorInvalidValue;   // fused_pe_mlp_wide_bwd.cu
+  } else {
+    const int err =
+        need_dx ? launch<NL, true, true, HWP, PE>(x, g, dx, img, bias, wpart, bpart, n_rows, L,
+                                                  blocks, plan, num_freqs, s)
+                : launch<NL, true, false, HWP, PE>(x, g, dx, img, bias, wpart, bpart, n_rows, L,
+                                                   blocks, plan, num_freqs, s);
+    if (err) return err;
+    const int e2 =
+        column_sum(wpart, (long long)blocks * wpart_rows(L, plan.x), L.fwd_elems(), dw, s);
+    if (e2) return e2;
+    return column_sum(bpart, blocks, L.n_bias(), db, s);
+  }
 }
 
 }  // namespace mlp
@@ -683,13 +538,14 @@ static int run(const float* x, const float* g, float* dx, const void* img, const
 // warpgroups a block, out[6] the weight partial rows a block writes (the
 // caller zeroes them for hw > 64), out[7] the x and g stages a warpgroup.
 // With pe, the PE variant for a net whose layer 0 takes the din-column
-// encoding of x [N, 3].  Returns 0, or -1 for a net the kernel does not
-// take.
+// encoding of x [N, 3], without weight gradients (with them:
+// fused_pe_mlp_wide_bwd.cu).  Returns 0, or -1 for a net the kernel does
+// not take.
 extern "C" int cropnerf_mlp_bwd_layout(int din, int dout, int n_layers, int hw, int need_dw,
                                        int pe, long long* out) {
   using namespace cropnerf::mlp;
   const Layout L(din, dout, n_layers, hw, pe != 0);
-  if (!L.ok()) return -1;
+  if (!L.ok() || (pe && need_dw)) return -1;
   const int2 plan = bwd_plan(L, need_dw != 0);
   if (plan.x < 1) return -1;
   out[0] = 2 * L.fwd_elems();
@@ -708,8 +564,8 @@ extern "C" int cropnerf_mlp_bwd_layout(int din, int dout, int n_layers, int hw, 
 // wpart, bpart, dw and db skip the weight gradients, otherwise wpart holds
 // `blocks` x out[6] rows and bpart `blocks` rows of the partial sizes, and
 // dw, db receive the padded f32 gradients.  num_freqs >= 0 runs the PE
-// variant: x and dx [n_rows, 3], their encoding of din = 3(1 + 2
-// num_freqs) columns layer 0's input.  Returns a cudaError_t (0 on
+// variant (dx alone): x and dx [n_rows, 3], their encoding of din = 3(1 +
+// 2 num_freqs) columns layer 0's input.  Returns a cudaError_t (0 on
 // success).
 extern "C" int cropnerf_mlp_bwd(const float* x, const float* g, float* dx, const void* img,
                                 const float* bias, int din, int dout, int n_layers, int hw,
@@ -721,7 +577,7 @@ extern "C" int cropnerf_mlp_bwd(const float* x, const float* g, float* dx, const
   const bool need_dw = wpart != nullptr;
   if (!L.ok() || (need_dw && (bpart == nullptr || dw == nullptr || db == nullptr)) ||
       (!need_dw && dx == nullptr) || blocks < 1 || n_rows < 0 ||
-      (pe && din != DIM * (1 + 2 * num_freqs)))
+      (pe && (din != DIM * (1 + 2 * num_freqs) || need_dw)))
     return (int)cudaErrorInvalidValue;
   if (bwd_plan(L, need_dw).x < 1) return (int)cudaErrorInvalidValue;
   if (n_rows == 0) return 0;

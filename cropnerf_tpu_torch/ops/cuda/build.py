@@ -22,7 +22,8 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("fused_pe_field", "fused_pe_field_bwd", "fused_mlp",
            "fused_mlp_fwd", "fused_mlp_bwd", "fused_pe_mlp_fwd",
-           "fused_pe_mlp_bwd", "hash_encode", "transmittance")
+           "fused_pe_mlp_bwd", "fused_pe_mlp_wide_bwd", "hash_encode",
+           "transmittance")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

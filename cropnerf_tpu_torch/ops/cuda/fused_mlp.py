@@ -44,7 +44,7 @@ import torch
 
 from ..mlp import mm_f32acc
 from . import build
-from .common import (MAX_SMEM_BYTES, PE_DIM, PE_ENC, WGMMA_HIDDEN,
+from .common import (MAX_SMEM_BYTES, PE_ENC, WGMMA_HIDDEN,
                      WGMMA_OUT, c_ints, check_images, check_kernel_call,
                      check_rows, pack_layers, pad16, persistent_blocks,
                      sm_count, stream_ptr, unpack_layers, weight_images)
@@ -199,18 +199,23 @@ def _al128(n: int) -> int:
 def _least_bwd_smem(din: int, dout: int, n_layers: int, hw: int,
                     pe: bool = False) -> int:
     """Shared memory a block of the wgmma backward with weight gradients
-    takes at one warpgroup and one stage (``csrc/wgmma_mlp.cuh``
-    ``BwdSmem``): the least that the largest of the net's kernels needs.
-    Both image halves and the biases, an x and g tile, the operand tiles,
-    the stage's barrier, the warps' bias rows; with ``pe`` (a PE net whose
-    layer 0 takes the din-column encoding of x [N, 3]) x's tile is 3
-    columns and the derivative tile is added."""
+    takes at one warpgroup, one stage and one set of operand tiles: the
+    least that the largest of the net's kernels needs.  K3's
+    (``csrc/wgmma_mlp.cuh`` ``BwdSmem``): both image halves and the
+    biases, an x and g tile, the operand tiles, the stage's barrier, the
+    warps' bias rows.  With ``pe`` K5's wide backward's
+    (``csrc/fused_pe_mlp_wide_bwd.cu`` ``WideSmem``, a PE net whose layer
+    0 takes the din-column encoding of x [N, 3]): the forward images alone
+    and the biases, a g tile, the derivative tile, the operand tiles, the
+    barriers of the stage and of the sets, the warps' bias rows."""
     kp, n_bias = pad16(din), (n_layers - 1) * hw + WGMMA_OUT
     fwd_elems = kp * hw + (n_layers - 2) * hw * hw + hw * WGMMA_OUT
     tiles = 64 * 2 * (kp + 2 * (n_layers - 1) * hw + WGMMA_OUT)
-    derivs = 64 * 4 * (PE_ENC + 4) if pe else 0
-    warpgroup = _al128(64 * 4 * ((PE_DIM if pe else din) + dout) + tiles
-                       + derivs + 8)
+    if pe:
+        derivs = 64 * 4 * (PE_ENC + 4)
+        block = _al128(64 * 4 * dout + derivs + _al128(tiles) + 8 * 5)
+        return _al128(2 * fwd_elems + 4 * n_bias) + block + 16 * n_bias
+    warpgroup = _al128(64 * 4 * (din + dout) + tiles + 8)
     return _al128(4 * fwd_elems + 4 * n_bias) + warpgroup + 16 * n_bias
 
 
@@ -282,25 +287,51 @@ def _bwd_lib():
 
 
 @functools.lru_cache(maxsize=None)
+def _pe_wide_bwd_lib():
+    """``csrc/fused_pe_mlp_wide_bwd.cu``: K5's wide backward with weight
+    gradients, with ``fused_mlp_bwd.cu``'s C signatures."""
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib = _wgmma_lib("fused_pe_mlp_wide_bwd", "cropnerf_pe_wide_bwd",
+                     [vp] * 5 + [i32] * 5 + [ctypes.c_longlong, i32]
+                     + [vp] * 5)
+    lib.cropnerf_pe_wide_bwd_layout.argtypes = [i32] * 6 + [
+        ctypes.POINTER(ctypes.c_longlong)]
+    return lib
+
+
+def _bwd_entry(need_dw, pe: bool):
+    """(library, entry name) of the wgmma backward: K5's wide backward
+    for a PE net with weight gradients, else ``fused_mlp_bwd.cu``'s."""
+    if pe and need_dw:
+        return _pe_wide_bwd_lib(), "cropnerf_pe_wide_bwd"
+    return _bwd_lib(), "cropnerf_mlp_bwd"
+
+
+@functools.lru_cache(maxsize=None)
 def mlp_layout(din: int, dout: int, n_layers: int, hw: int,
                need_dw=None, pe: bool = False) -> list:
     """The sizes the wgmma forward (``need_dw`` None: image and bias
     elements, shared memory, warpgroups a block, x stages a warpgroup) or
     backward kernel's C layout function (image and bias elements,
-    partial-row sizes, shared memory, warpgroups, weight partial rows a
-    block, stages) reports for a net with hidden layers padded to ``hw``
-    (with ``pe``, the PE variant's, layer 0 taking the din-column encoding
-    of x [N, 3])."""
-    sizes = (ctypes.c_longlong * 8)()
-    err = (_fwd_lib().cropnerf_mlp_fwd_layout(din, dout, n_layers, hw,
-                                              int(pe), sizes)
-           if need_dw is None else _bwd_lib().cropnerf_mlp_bwd_layout(
-               din, dout, n_layers, hw, int(need_dw), int(pe), sizes))
+    partial-row sizes, shared memory, warpgroups a block that take tiles,
+    weight partial rows a block, stages; K5's wide backward also its
+    operand-tile sets) reports for a net with hidden layers padded to
+    ``hw`` (with ``pe``, the PE variant's, layer 0 taking the din-column
+    encoding of x [N, 3])."""
+    sizes = (ctypes.c_longlong * 9)()
+    if need_dw is None:
+        err = _fwd_lib().cropnerf_mlp_fwd_layout(din, dout, n_layers, hw,
+                                                 int(pe), sizes)
+    else:
+        lib, entry = _bwd_entry(need_dw, pe)
+        err = getattr(lib, f"{entry}_layout")(din, dout, n_layers, hw,
+                                              int(need_dw), int(pe), sizes)
     if err:
         raise ValueError(f"fused_mlp: the wgmma kernels do not take x [N, "
                          f"{din}] -> {n_layers} layers ({hw} wide) -> {dout}"
                          + (" (PE)" if pe else ""))
-    return list(sizes[:5] if need_dw is None else sizes)
+    n = 5 if need_dw is None else 9 if pe and need_dw else 8
+    return list(sizes[:n])
 
 
 def net_layout(wbs: Sequence[torch.Tensor], need_dw=None,
@@ -395,11 +426,13 @@ def wgmma_backward(name, x, wbs, g, need_dx, need_dw, images=None,
     its weight-gradient sums (none for N = 0): (dx or None, [dW0, db0,
     ...] in the shapes of ``wbs`` or None) in float32, on ``images`` or
     ``mlp_images`` built here.  ``num_freqs`` >= 0: the PE variant, x and
-    dx [N, 3], x encoded with that many frequencies into layer 0's input."""
+    dx [N, 3], x encoded with that many frequencies into layer 0's input;
+    with weight gradients on ``csrc/fused_pe_mlp_wide_bwd.cu``."""
     device, n, din = x.device, x.shape[0], wbs[0].shape[0]
     dout, n_layers, hw = wbs[-2].shape[1], len(wbs) // 2, _hidden(wbs)
-    img_elems, n_bias, total_w, total_b, _, wgs, w_rows, _ = mlp_layout(
-        din, dout, n_layers, hw, need_dw, num_freqs >= 0)
+    pe = num_freqs >= 0
+    img_elems, n_bias, total_w, total_b, _, wgs, w_rows = mlp_layout(
+        din, dout, n_layers, hw, need_dw, pe)[:7]
     img, bias = images if images is not None else mlp_images(wbs)
     check_images(name, img, bias, (img_elems,), n_bias)
     blocks = persistent_blocks(n, sm_count(device), wgs)
@@ -408,15 +441,18 @@ def wgmma_backward(name, x, wbs, g, need_dx, need_dw, images=None,
     if need_dw:
         dw = torch.zeros((total_w,), dtype=torch.float32, device=device)
         db = torch.zeros((total_b,), dtype=torch.float32, device=device)
-        # the wider nets' warpgroups add each tile into their own row
-        wpart = (torch.empty if hw == WGMMA_HIDDEN else torch.zeros)(
-            (blocks * w_rows * total_w,), dtype=torch.float32, device=device)
+        # K3's wider nets' warpgroups add each tile into their own row;
+        # every other kernel writes its rows whole
+        wpart = (torch.zeros if hw != WGMMA_HIDDEN and not pe else
+                 torch.empty)((blocks * w_rows * total_w,),
+                              dtype=torch.float32, device=device)
         bpart = torch.empty((blocks * total_b,), dtype=torch.float32,
                             device=device)
         ptrs = [t.data_ptr() for t in (wpart, bpart, dw, db)]
     if n:
+        lib, entry = _bwd_entry(need_dw, pe)
         with torch.cuda.device(device):
-            err = _bwd_lib().cropnerf_mlp_bwd(
+            err = getattr(lib, entry)(
                 x.data_ptr(), g.data_ptr(), dx.data_ptr() if need_dx else None,
                 img.data_ptr(), bias.data_ptr(), din, dout, n_layers, hw,
                 num_freqs, n, blocks, *ptrs, stream_ptr(device))

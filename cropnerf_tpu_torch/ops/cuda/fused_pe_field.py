@@ -33,9 +33,12 @@ graph is recorded) and the backward reuses.  The net's shape picks them
 (``pe_mlp_fwd_route``): "wgmma", hidden layers up to 64 wide (every
 preset's 64-wide nets), ``csrc/fused_pe_mlp_fwd.cu`` and
 ``csrc/fused_pe_mlp_bwd.cu``; "wide", hidden layers padded to 128 or 256
-(``cropnerf-mxu-q``'s 128-wide nets), the PE variants of
-``csrc/fused_mlp_fwd.cu`` and ``csrc/fused_mlp_bwd.cu``; launches of both
-counted on ``fused_pe_mlp`` and ``fused_pe_mlp_bwd``.  Every other net
+(``cropnerf-mxu-q``'s 128-wide nets), the PE variant of
+``csrc/fused_mlp_fwd.cu`` and, with weight gradients,
+``csrc/fused_pe_mlp_wide_bwd.cu`` (each block's weight sums kept in a
+warpgroup's registers across its tiles; dx alone the PE variant of
+``csrc/fused_mlp_bwd.cu``); launches of both counted on ``fused_pe_mlp``
+and ``fused_pe_mlp_bwd``.  Every other net
 ("wmma": 4 layers, 17 outputs, more than 64 encoding columns, x not
 [N, 3], or a wide net whose backward overflows shared memory) runs its
 forward on the PE variant of ``csrc/fused_mlp.cu`` (counted on
@@ -602,13 +605,15 @@ def pe_mlp_fwd_route(dim: int, num_freqs: int, widths: Sequence[int]) -> str:
     """The kernels a net takes on the card, by its shape alone: "wgmma"
     (``csrc/fused_pe_mlp_fwd.cu``, ``csrc/fused_pe_mlp_bwd.cu``) for every
     net those take (all presets' PE proposal nets at 64 wide); "wide" (the
-    PE variants of ``csrc/fused_mlp_fwd.cu`` and ``csrc/fused_mlp_bwd.cu``)
-    for x [N, 3], at most 64 encoding columns, 2 or 3 layers and at most 16
-    outputs, hidden layers padded to 128 or 256 (``mlp_hidden_pad``), whose
-    backward with weight gradients fits a block's shared memory at one
-    warpgroup (the 128-wide nets of ``cropnerf-mxu-q``; not a 3-layer net
-    256 wide); else "wmma" (the PE variant of ``csrc/fused_mlp.cu``'s
-    forward, hidden widths up to 256; no backward kernel)."""
+    PE variant of ``csrc/fused_mlp_fwd.cu``, ``csrc/fused_pe_mlp_wide_bwd.cu``
+    and the PE variant of ``csrc/fused_mlp_bwd.cu``) for x [N, 3], at most
+    64 encoding columns, 2 or 3 layers and at most 16 outputs, hidden
+    layers padded to 128 or 256 (``mlp_hidden_pad``), whose backward with
+    weight gradients fits a block's shared memory at one stage and one set
+    of operand tiles (the 128-wide nets of ``cropnerf-mxu-q``; not a
+    3-layer net 256 wide); else "wmma" (the PE variant of
+    ``csrc/fused_mlp.cu``'s forward, hidden widths up to 256; no backward
+    kernel)."""
     if pe_mlp_kernels_take(dim, num_freqs, widths):
         return "wgmma"
     enc = dim * (1 + 2 * num_freqs)
@@ -636,8 +641,8 @@ def _check_pe_mlp_bwd(x, wbs, num_freqs) -> None:
             f"fused_pe_mlp_bwd: the kernels take x [N, {PE_MLP_DIM}], at most "
             f"{PE_MLP_ENC} encoding columns, 2 or 3 layers and {PE_MLP_OUT} "
             f"outputs, with hidden widths up to {PE_MLP_HIDDEN}, or padded to "
-            f"128 or 256 where the weight images and one warpgroup's tiles "
-            f"fit {MAX_SMEM_BYTES} B of shared memory; got x "
+            f"128 or 256 where the weight images and one set of operand "
+            f"tiles fit {MAX_SMEM_BYTES} B of shared memory; got x "
             f"{tuple(x.shape)}, F={num_freqs}, widths {widths}")
 
 

@@ -567,9 +567,12 @@ def test_fused_mlp_layouts_take_the_routed_nets(cuda):
 
 def test_pe_mlp_wide_layouts_take_the_routed_nets(cuda):
     """Every PE net the K5 route sends to the wide kernels has a layout in
-    both kernels' PE variants, with and without weight gradients, within a
-    block's shared memory, at least the route's estimate (equal at one
-    stage); a 3-layer net 256 wide has none."""
+    the forward's PE variant and in the backward's, without weight
+    gradients (csrc/fused_mlp_bwd.cu) and with them
+    (csrc/fused_pe_mlp_wide_bwd.cu: one warpgroup taking tiles and one
+    partial row a block), within a block's shared memory, at least the
+    route's estimate (equal at one stage and one operand-tile set; -q's
+    nets take two sets); a 3-layer net 256 wide has none."""
     for F, widths in ((5, [128, 128, 1]), (6, [128, 128, 1]),
                       (10, [128, 128, 16]), (5, [256, 1]), (5, [64, 65, 1])):
         din = 3 * (1 + 2 * F)
@@ -584,9 +587,12 @@ def test_pe_mlp_wide_layouts_take_the_routed_nets(cuda):
             if need_dw:
                 least = kmlp._least_bwd_smem(din, widths[-1], len(widths), hw,
                                              pe=True)
-                assert bwd[5] == 1 and least <= bwd[4], (widths, bwd, least)
-                if bwd[7] == 1:
+                assert bwd[5] == 1 and bwd[6] == 1 and least <= bwd[4], (
+                    widths, bwd, least)
+                if bwd[7] == 1 and bwd[8] == 1:
                     assert bwd[4] == least, widths
+                if widths == [128, 128, 1]:
+                    assert bwd[8] == 2, (widths, bwd)
     assert kfield.pe_mlp_fwd_route(3, 5, [256, 256, 1]) == "wmma"
     with pytest.raises(ValueError):
         kmlp.mlp_layout(33, 1, 3, 256, True, True)
@@ -1281,6 +1287,48 @@ def test_fused_pe_mlp_wide_backward_matches_plain(cuda, case, variant):
         assert torch.equal(got[0], dx)
     if need_dw:
         assert all(torch.equal(a, b) for a, b in zip(got[-len(dw):], dw))
+
+
+# (num_freqs, widths, N) of the wide backward's other kernels
+# (csrc/fused_pe_mlp_wide_bwd.cu, by the encoding's 16-column blocks and
+# the operand-tile sets): 63 encoding columns and 16 outputs (one set),
+# 9 columns and 3 outputs, a 2-layer net 256 wide at 21 columns
+K5_WIDE_NETS = {"63-cols-16-out": (10, [128, 128, 16], 65_536 + 5),
+                "9-cols-3-out": (1, [128, 128, 3], 20_000),
+                "two-layers-256-21-cols": (3, [256, 2], 7_000)}
+
+
+@pytest.mark.parametrize("net", list(K5_WIDE_NETS))
+def test_fused_pe_mlp_wide_backward_nets_match_plain(cuda, net):
+    """K5's wide backward with weight gradients on every operand width it
+    instantiates: dx and dW, and dW alone, against autograd of the plain
+    version, dW alone the full backward's bits, two runs the same bits."""
+    F, widths, n = K5_WIDE_NETS[net]
+    assert kfield.pe_mlp_fwd_route(3, F, widths) == "wide"
+    g = torch.Generator(device=cuda).manual_seed(31)
+    dims = [3 * (1 + 2 * F)] + widths
+    wbs = []
+    for a, b in zip(dims[:-1], dims[1:]):
+        wbs += [torch.randn((a, b), generator=g, device=cuda) / a ** 0.5,
+                torch.randn((1, b), generator=g, device=cuda) * 0.1]
+    x = torch.rand((n, 3), generator=g, device=cuda) * 2 - 1
+    cot = torch.randn((n, widths[-1]), generator=g, device=cuda)
+    before = kfield.fused_pe_mlp_bwd.launches
+    dx, dw = kfield.fused_pe_mlp_bwd(x, wbs, F, cot, True, True)
+    dx2, dw2 = kfield.fused_pe_mlp_bwd(x, wbs, F, cot, True, True)
+    _, dw_alone = kfield.fused_pe_mlp_bwd(x, wbs, F, cot, False, True)
+    torch.cuda.synchronize()
+    assert kfield.fused_pe_mlp_bwd.launches == before + 3
+    leaves = _leaves([x, *wbs], True)
+    ref = _grads(kfield.fused_pe_mlp_plain(leaves[0], leaves[1:], F), leaves,
+                 cot)
+    assert _grad_agrees(dx, ref[0], per_row=True)
+    for i, (a, b) in enumerate(zip(dw, ref[1:])):
+        assert a.shape == b.shape and _weight_grad_agrees(a, b, n), (
+            i, _rel_err(a, b))
+    assert torch.equal(dx, dx2)
+    assert all(torch.equal(a, b) for a, b in zip(dw, dw2))
+    assert all(torch.equal(a, b) for a, b in zip(dw, dw_alone))
 
 
 # ---- K6, the transmittance scan (csrc/transmittance.cu) ----------------------

@@ -32,19 +32,23 @@ from torch_parity import (arm, assert_close, np_wbs, to_jax,  # noqa: F401
 
 
 def _wide_kernel_model(x, wbs, F, g, sm_count):
-    """The "wide" route's kernels (the PE variants of csrc/fused_mlp_fwd.cu
-    and csrc/fused_mlp_bwd.cu) in torch, on the weight images
-    ``pe_mlp_images`` builds for the net (``fused_mlp.mlp_images``' layout:
-    the encoding's rows padded to 16, hidden layers to 128 or 256), read
-    back as their wgmma operands index them (test_torch_fused_mlp
-    ``_operands``): the encoding rounded to bf16 as layer 0's input, the
-    heads' kernels' forward and recompute, and per 64-row tile going back
-    through the layers the weight gradient of bf16 operands added into its
-    warpgroup's partial row (one warpgroup a block with weight gradients),
-    the input gradient G·Wᵀ, the relu mask of the bf16 activation and the
-    bias gradients' f32 column sums; the rows summed in order; dx from
-    layer 0's f32 input gradient times d(encode)/d(pre)·2^f, summed per
-    coordinate in column order.  Returns (out, dx, [dW0, db0, ...])."""
+    """The "wide" route's kernels (the PE variant of csrc/fused_mlp_fwd.cu,
+    and with weight gradients csrc/fused_pe_mlp_wide_bwd.cu) in torch, on
+    the weight images ``pe_mlp_images`` builds for the net
+    (``fused_mlp.mlp_images``' layout: the encoding's rows padded to 16,
+    hidden layers to 128 or 256), read back as their wgmma operands index
+    them (test_torch_fused_mlp ``_operands``; the backward's G·Wᵀ reads
+    the forward images, the same values): the encoding rounded to bf16 as
+    layer 0's input, the heads' kernels' forward and recompute, and per
+    64-row tile going back through the layers the input gradient G·Wᵀ, the
+    relu mask of the bf16 activation and the bias gradients' f32 column
+    sums.  The weight gradients follow the backward's plan: block b of
+    ``pe_mlp_blocks(N, sm_count, 1)`` takes tiles b, b + blocks, ... in
+    order, and its f32 sums of bf16 operands take each tile's products a
+    16-row k-step at a time (its wgmma chain), kept across its tiles and
+    written once into its partial row; the rows summed in block order.  dx
+    from layer 0's f32 input gradient times d(encode)/d(pre)·2^f, summed
+    per coordinate in column order.  Returns (out, dx, [dW0, db0, ...])."""
     from test_torch_fused_mlp import OW, _operands
     N, dim = x.shape
     din, dout, n_layers = dim * (1 + 2 * F), wbs[-2].shape[1], len(wbs) // 2
@@ -65,18 +69,22 @@ def _wide_kernel_model(x, wbs, F, g, sm_count):
                         torch.where(col < sin_end, torch.cos(pre),
                                     -torch.sin(pre)) * freq)
     blocks = tfield.pe_mlp_blocks(N, sm_count, 1)
+    # each block's sums over its tiles, its partial row once written
     rows = torch.zeros((blocks, sum(f.numel() for f in fw)))
     db = torch.zeros(bias.numel())
     dx = torch.zeros((N, dim))
-    for t in range(-(-N // 64)):
+    for t in range(-(-N // 64)):                  # block t % blocks, in order
         r = slice(64 * t, min(64 * t + 64, N))
-        row = rows[t % blocks]
+        acc = rows[t % blocks]
         gcur = gl[r]
         db[b_at[-1]:b_at[-1] + OW] += gcur.sum(0)
         for l in range(n_layers - 1, -1, -1):
             gb = gcur.bfloat16().float()
-            grad_w = (acts[l][r].T @ gb if l else (gb.T @ acts[0][r]).T)
-            row[offs[l]:offs[l] + grad_w.numel()] += grad_w.reshape(-1)
+            a_l = acts[l][r]
+            for k in range(0, a_l.shape[0], 16):  # the k-steps of the chain
+                grad_w = (a_l[k:k + 16].T @ gb[k:k + 16] if l else
+                          (gb[k:k + 16].T @ a_l[k:k + 16]).T)
+                acc[offs[l]:offs[l] + grad_w.numel()] += grad_w.reshape(-1)
             v = gb @ bw[l].T
             if l:
                 gcur = torch.where(acts[l][r] > 0, v, 0.0)
@@ -104,8 +112,8 @@ def test_wide_kernel_model_reproduces_plain(case):
     version (the same roundings: 1e-2 of max) and against the JAX VJP of
     fused_pe_mlp: the output to 2e-2 of max, dx row by row (2e-2 of max
     on 98 % of rows) and every gradient to 5e-2 in relative L2, the card's
-    gradient tolerance; the rows spread over 2 blocks of one warpgroup,
-    their weight gradients in two partial rows."""
+    gradient tolerance; the rows spread over 2 blocks, their weight
+    gradients in two partial rows."""
     F, dims, n = WIDE_MODEL_CASES[case]
     assert tfield.pe_mlp_fwd_route(3, F, dims[1:]) == "wide"
     rng = np.random.default_rng(70 + n)
@@ -182,8 +190,11 @@ def test_q_train_step_matches_jax(arm, monkeypatch):
 # differ from JAX's by up to 3.0e-4 (2 of 64 pixels over 1e-4), with its
 # proposal nets on the fused kernel or on plain matmuls alike (2.9e-4), so
 # the fused nets add nothing; JAX's own fused and plain proposal nets give
-# renders 7.2e-5 apart (cropnerf-mxu: 1.5e-5, the port 3.0e-5).  Its
-# sharper sample weights carry the last bits further; ROADMAP.md Queue 3.
+# renders 7.2e-5 apart (cropnerf-mxu: 1.5e-5, the port 3.0e-5).
+# tools/q_render_stages.py finds every stage within float32 rounding of
+# JAX's on the same inputs: the PE field magnifies the resampled
+# positions' last bits, and -q's sharper weights carry them into the
+# semantics (ROADMAP.md Queue 3).
 Q_SEMANTICS_TOL = {"f32": 5e-4, "bf16": 2e-2}
 
 

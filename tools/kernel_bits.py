@@ -1,9 +1,10 @@
 """Checksums of the outputs of the port's kernels that a kernel redesign
 leaves alone, on seeded inputs at the main paths' shapes, on one NVIDIA
 GPU: K3 forward and backward (``fused_mlp``, ``fused_mlp_bwd``: dx alone
-and with the weight gradients) at cropnerf-mxu's heads and, on its wmma
-route (``csrc/fused_mlp.cu``), at a 3-layer 256-wide net no preset builds
-(-huge's colour head with a second hidden layer); K4
+and with the weight gradients) at cropnerf-mxu's heads, on its wmma
+route (``csrc/fused_mlp.cu``) at a 3-layer 256-wide net no preset builds
+(-huge's colour head with a second hidden layer), and (last) at the
+128- and 256-wide heads of cropnerf-mxu-big and -huge; K4
 forward (``hash_encode_fwd``); K5 forward (``fused_pe_mlp`` without a
 graph) and backward (``fused_pe_mlp_bwd``: dx and every weight gradient)
 at cropnerf-mxu's proposal nets, and K5 at cropnerf-mxu-q's 128-wide nets
@@ -112,6 +113,9 @@ def main() -> None:
                 out[f"fused_pe_mlp_bwd 128 wide net {i}"] = "no kernel"
             else:
                 out[f"fused_pe_mlp_bwd 128 wide net {i}"] = digest([dx] + dw)
+        k3("-big semantic head", (30, 128, 128, 1))
+        k3("-big colour head", (185, 128, 3))
+        k3("-huge colour head", (89, 256, 3))
     print(json.dumps({"port_root": str(args.port_root),
                       "card": torch.cuda.get_device_name(0), "sha256": out}),
           flush=True)

@@ -11,7 +11,8 @@ script prints, as one JSON line, for each head:
 - the backward with dx alone at one BayesRays batch (4096 rays x the
   preset's samples a ray: 48, 128 for -big, 64 for -huge), as the
   uncertainty pass calls it (the semantics channel runs the semantic head
-  alone, the rgb channel the colour head);
+  alone, the rgb channel the colour head), and at the same batch the
+  backward with dx and every weight gradient;
 
 each as the device ms of the port's kernels (``torch.profiler``, the
 median of three windows of 20 calls), the ms a call between CUDA events
@@ -122,8 +123,11 @@ def main() -> None:
             with torch.no_grad():
                 return kmlp.fused_mlp(xf, wbs)
 
-        def bwd(x=x, cot=cot, wbs=wbs):
-            return kmlp.fused_mlp_bwd(x, wbs, cot, True, False)
+        def bwd(x=x, cot=cot, wbs=wbs, need_dw=False):
+            return kmlp.fused_mlp_bwd(x, wbs, cot, True, need_dw)
+
+        def bwd_dw(x=x, cot=cot, wbs=wbs):
+            return bwd(x, cot, wbs, True)
 
         hidden = macs - dims[-2] * dims[-1]
         heads[label] = {
@@ -138,7 +142,13 @@ def main() -> None:
                        "call_ms": call_ms(bwd),
                        "bound_ms": bound_ms(2.0 * unc_n * (hidden + macs),
                                             unc_n * (2 * dims[0] + dims[-1])
-                                            * 4 + w_bytes)}}
+                                            * 4 + w_bytes)},
+            "bwd_dx_dw": {"n": unc_n, "ms": device_ms(bwd_dw),
+                          "call_ms": call_ms(bwd_dw),
+                          "bound_ms": bound_ms(
+                              2.0 * unc_n * (hidden + 2 * macs),
+                              unc_n * (2 * dims[0] + dims[-1]) * 4
+                              + 2 * w_bytes)}}
     sem, col = heads["semantic head"], heads["colour head"]
     scores = {
         "fwd": EXPORT_CHUNKS * sum(h["fwd"]["ms"] - h["fwd"]["bound_ms"]
