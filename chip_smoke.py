@@ -17,8 +17,7 @@ Run from the root of the repository:  python3 chip_smoke.py
    edges, a ragged N and an x or g off 16-byte alignment, two runs
    bit-identical, for cropnerf-mxu's 64-wide heads and for -big's and
    -huge's 128- and 256-wide ones (each at its preset's BayesRays batch),
-   and on its wmma route at a 3-layer 256-wide net no preset builds, each
-   route's launches counted apart; K1's and K2's
+   each route's launches counted apart; K1's and K2's
    forward over three profiler windows, also under the schedule the port
    does not use (its two warpgroups together instead of out of phase),
    which must give the same bits, and their backward pass by pass, tile,
@@ -32,14 +31,21 @@ Run from the root of the repository:  python3 chip_smoke.py
    rows, which the kernel beats: no floor); the fused PE proposal nets K5 forward and backward
    (csrc/fused_pe_mlp_fwd.cu and csrc/fused_pe_mlp_bwd.cu; the backward
    with dx and the weight gradients) at both nets' training shapes, a
-   ragged N and N < 64, each over three profiler windows, and the
-   forward's wmma route (the PE variant of csrc/fused_mlp.cu) at a 4-layer
-   net no preset builds; K5's wide route (the PE variants of
+   ragged N and N < 64, each over three profiler windows; K5's wide route
+   (the PE variants of
    csrc/fused_mlp_fwd.cu and csrc/fused_mlp_bwd.cu) at cropnerf-mxu-q's
    128-wide nets, forward and backward (dx with dW, and dW alone) at a
    training step's shapes, a ragged N, N < 64, one row and none, with
    exact launches, two runs bit-identical, registers and spills (none
-   allowed); the transmittance scan K6 at a training
+   allowed); the stream route of K3 and K5 (csrc/fused_mlp_stream.cu,
+   the nets the resident-weight kernels do not take) at -huge's semantic
+   head 256 wide (an export chunk, its BayesRays batch), at a 3-layer
+   256-wide net no preset builds, at [prop256]'s 256-wide proposal nets
+   (a training step's batches) and at a 4-layer net 64 wide, forward,
+   backward with dx and dW, dx alone and dW alone, a ragged N and N = 1,
+   against the plain version, by pass, with exact launches, two runs
+   bit-identical, registers and spills (none allowed); the transmittance
+   scan K6 at a training
    step's three compositing shapes, at [16384, 3000] and at a ragged shape,
    called through its own entry point with its launches counted (no model
    path calls it);
@@ -82,6 +88,14 @@ Run from the root of the repository:  python3 chip_smoke.py
    all-plain path's; then its fused-proposal variant (K5's wide route)
    through the [propfused] phase: forward, render, training steps (2 + 2
    K5 launches a step) and one depth-cloud batch, launches exact;
+5c''. drives [prop256] ([prop256] lines): cropnerf-mxu-q with both PE
+   proposal nets fused and 256 wide (K5's stream route) through the
+   [propfused] phase: forward at 4096 rays, the 256x256 render, 1 +
+   TRAIN_STEPS training steps and one 16,384-ray depth-cloud batch, each
+   against the plain path, launches exact; then cropnerf-mxu-huge with a
+   256-wide semantic head (K3's stream route): the 64^3 export with
+   colours against the same export with K3's plain version and one
+   BayesRays batch on the semantics channel against the plain path;
 5d. drives the CLI in process, cli.main([...]) ([cli] lines), on a
    ray-traced 3DCotton-layout dataset of 32 views of 1200x800 (for
    cropnerf, whose count is not held, the same scene at 600x400): for
@@ -168,7 +182,7 @@ Run from the root of the repository:  python3 chip_smoke.py
    export with colours (each head's K3 forward once a chunk) and 8
    BayesRays batches of 4096 rays on the semantics and the rgb channel
    (K3's backward once and three times a batch), with exact launch counts,
-   none on the wmma route; the export row for row against the same export
+   none on the stream route; the export row for row against the same export
    with K3's plain version, the Hessians against the plain path; then
    train --method cropnerf-mxu-huge --max-steps 50, export --render-rgb at
    64 a side and uncertainty --iters 2 through the CLI on the [cli] scene
@@ -176,7 +190,8 @@ Run from the root of the repository:  python3 chip_smoke.py
 6. traces one forward, render, export and training step of cropnerf-mxu,
    one forward and training step of cropnerf, one BayesRays batch of each,
    one training step and depth-cloud batch of the fused-proposal path, one
-   fused-proposal cropnerf-mxu-q training step and
+   fused-proposal cropnerf-mxu-q training step, one [prop256] training
+   step, -huge export and BayesRays batch and
    one dispatch of each project with torch.profiler, and prints the device
    time of the busiest operations and the device's busy share;
 7. prints one JSON line of kernel numbers, the nvidia-smi card line, and
@@ -1128,8 +1143,8 @@ def k3_names(per_entry: dict, keep: str, pe: bool = False) -> dict:
 def k3_counts(fn) -> dict:
     """Launches of K3's four counters during ``fn()``."""
     from cropnerf_tpu_torch.ops.cuda import fused_mlp as km
-    return counted((km.fused_mlp, km.fused_mlp_wide, km.fused_mlp_bwd,
-                    km.fused_mlp_bwd_wide), fn)
+    return counted((km.fused_mlp, km.fused_mlp_stream, km.fused_mlp_bwd,
+                    km.fused_mlp_stream_bwd), fn)
 
 
 def mlp_fwd_entry(heads, n, dev, card, report) -> dict:
@@ -1143,8 +1158,8 @@ def mlp_fwd_entry(heads, n, dev, card, report) -> dict:
     from cropnerf_tpu_torch.ops.cuda import fused_mlp as km
     g = torch.Generator(device=dev).manual_seed(14)
     per = {}
-    want = {"fused_mlp": 1, "fused_mlp_wide": 0, "fused_mlp_bwd": 0,
-            "fused_mlp_bwd_wide": 0}
+    want = {"fused_mlp": 1, "fused_mlp_stream": 0, "fused_mlp_bwd": 0,
+            "fused_mlp_stream_bwd": 0}
     for label, wbs in heads.items():
         wd = [w.detach() for w in wbs]
         dims = [wd[0].shape[0]] + [w.shape[1] for w in wd[0::2]]
@@ -1234,8 +1249,8 @@ def mlp_bwd_entry(heads, n_of, dev, card, report) -> dict:
     from cropnerf_tpu_torch.ops.cuda import fused_mlp as km
     g = torch.Generator(device=dev).manual_seed(12)
     per = {}
-    want = {"fused_mlp": 0, "fused_mlp_wide": 0, "fused_mlp_bwd": 1,
-            "fused_mlp_bwd_wide": 0}
+    want = {"fused_mlp": 0, "fused_mlp_stream": 0, "fused_mlp_bwd": 1,
+            "fused_mlp_stream_bwd": 0}
     for label, wbs in heads.items():
         n = n_of[label] if isinstance(n_of, dict) else n_of
         wd = [w.detach() for w in wbs]
@@ -1343,121 +1358,264 @@ def mlp_bwd_entry(heads, n_of, dev, card, report) -> dict:
         bound_ms=sum(k["bound_ms"] for k in vals), bound_by="bytes")
 
 
-# the net K3's wmma route keeps: -huge's colour head with a second 256-wide
-# hidden layer, whose weight images overflow the wgmma kernels' shared
-# memory (no preset builds one)
-WMMA_DIMS = [89, 256, 256, 3]
+# the stream route's nets (csrc/fused_mlp_stream.cu), which the
+# resident-weight kernels do not take.  K3: -huge's semantic head at 256
+# wide (the [prop256] phase's -huge, at its 64-side export's chunk and its
+# BayesRays batch) and -huge's colour head with a second 256-wide hidden
+# layer (no preset builds it), at an export chunk and cropnerf-mxu's
+# BayesRays batch.  K5: [prop256]'s proposal nets, 3 layers 256 wide, at a
+# training step's batches (4096 rays x 256 and x 96 samples), and a 4-layer
+# net 64 wide (-mxu's second net with a third hidden layer) at net 1's.
+# The first K3 net and the K5 [prop256] nets are the main path's.
+STREAM_K3 = {"-huge semantic head 256 wide": ([30, 256, 256, 1], 512 * 64,
+                                              RAYS * 64),
+             "3-layer 256-wide net": ([89, 256, 256, 3], 512 * 128,
+                                      RAYS * 48)}
+STREAM_K5 = {"[prop256] net 0": (5, 256, 3, RAYS * 256),
+             "[prop256] net 1": (6, 256, 3, RAYS * 96),
+             "4-layer net": (6, 64, 4, RAYS * 96)}
+STREAM_FWD_PASSES = {"kernel": ("mlp_stream_fwd_kernel",)}
+STREAM_BWD_PASSES = {"tile": ("mlp_stream_bwd_kernel",),
+                     "dw": ("pe_field_bwd_dw_kernel",),
+                     "sums": ("chunk_sum_kernel", "column_sum_kernel")}
 
 
-def mlp_wide_entries(dev, card, report, n_fwd, n_bwd) -> dict:
-    """K3's wmma route (csrc/fused_mlp.cu, PRs 1 and 4) at WMMA_DIMS, a net
-    no preset builds and no path of this script drives: the forward at an
-    export chunk (N = n_fwd) and a ragged N, the backward at a BayesRays
-    batch (N = n_bwd) with and without weight gradients, against the plain
-    version, each call's launches on the wmma counters alone."""
+def stream_counts(fn) -> dict:
+    """Launches of the stream route's four counters during ``fn()``."""
     from cropnerf_tpu_torch.ops.cuda import fused_mlp as km
-    from cropnerf_tpu_torch.ops.mlp import mlp_init
-    dims = WMMA_DIMS
-    check(km.fused_mlp_route(dims[0], dims[1:]) == "wmma",
-          f"{dims} is not on the wmma route")
-    head = mlp_init(dims[0], dims[1], dims[-1], len(dims) - 1,
-                    torch.Generator().manual_seed(15), dev)
-    wd = [t.detach() for w, b in zip(head.w, head.b)
-          for t in (w, b.reshape(1, -1))]
+    from cropnerf_tpu_torch.ops.cuda import fused_pe_field as kf
+    return counted((km.fused_mlp_stream, km.fused_mlp_stream_bwd,
+                    kf.fused_pe_mlp_stream, kf.fused_pe_mlp_stream_bwd), fn)
+
+
+def stream_net_entry(label, dims, n_fwd, n_bwd, F, dev, card) -> dict:
+    """One stream net, K3 (F None: x [N, dims[0]]) or K5 (x [N, 3] encoded
+    with F frequencies into dims[0] columns): the forward at n_fwd, a
+    ragged N and N = 1, and the backward at n_bwd with dx and the weight
+    gradients, dx alone (K3's BayesRays variant) and the weight gradients
+    alone, against the plain version (dx row by row, the weight gradients
+    in relative L2); dx alone and dW alone the full backward's bits; two
+    runs bit-identical; each call's launches on its stream counter alone;
+    device ms by pass, plain ms and bounds."""
+    from cropnerf_tpu_torch.ops.cuda import fused_mlp as km
+    from cropnerf_tpu_torch.ops.cuda import fused_pe_field as kf
+    pe = F is not None
     g = torch.Generator(device=dev).manual_seed(16)
-    x = torch.randn((n_bwd, dims[0]), generator=g, device=dev)
-    cot = torch.randn((n_bwd, dims[-1]), generator=g, device=dev)
-    xf = x[:n_fwd]
+    wd = []
+    for a, b in zip(dims[:-1], dims[1:]):
+        wd += [torch.randn((a, b), generator=g, device=dev) / a ** 0.5,
+               torch.randn((1, b), generator=g, device=dev) * 0.05]
+    n = max(n_fwd, n_bwd)
+    x_all = ((torch.rand((n, 3), generator=g, device=dev) * 2 - 1) if pe
+             else torch.randn((n, dims[0]), generator=g, device=dev))
+    cot_all = torch.randn((n, dims[-1]), generator=g, device=dev)
+    route = (kf.pe_mlp_fwd_route(3, F, dims[1:]) if pe
+             else km.fused_mlp_route(dims[0], dims[1:]))
+    check(route == "stream", f"{label} {dims} is not on the stream route")
+    fname, bname = (("fused_pe_mlp_stream", "fused_pe_mlp_stream_bwd") if pe
+                    else ("fused_mlp_stream", "fused_mlp_stream_bwd"))
 
     def fwd(xb):
         with torch.no_grad():
-            return km.fused_mlp(xb, wd)
+            return kf.fused_pe_mlp(xb, wd, F) if pe else km.fused_mlp(xb, wd)
 
     def plain_fwd(xb):
         with torch.no_grad():
-            return km.fused_mlp_plain(xb, wd)
+            return (kf.fused_pe_mlp_plain(xb, wd, F) if pe
+                    else km.fused_mlp_plain(xb, wd))
 
-    def bwd(xb, cb, need_dw):
-        dx, dw = km.fused_mlp_bwd(xb, wd, cb, True, need_dw)
-        return [dx] + (dw if need_dw else [])
+    def bwd(xb, cb, need_dx=True, need_dw=True):
+        dx, dw = (kf.fused_pe_mlp_bwd(xb, wd, F, cb, need_dx, need_dw) if pe
+                  else km.fused_mlp_bwd(xb, wd, cb, need_dx, need_dw))
+        return [dx] + (dw or [])
 
-    def plain_bwd(xb, cb, need_dw):
+    def plain_bwd(xb, cb, need_dw=True):
         leaves = [xb.clone().requires_grad_(True)] + [
             w.clone().requires_grad_(need_dw) for w in wd]
         with torch.enable_grad():
-            out = km.fused_mlp_plain(leaves[0], leaves[1:])
+            out = (kf.fused_pe_mlp_plain(leaves[0], leaves[1:], F) if pe
+                   else km.fused_mlp_plain(leaves[0], leaves[1:]))
             return list(torch.autograd.grad(
                 out, leaves if need_dw else leaves[:1], cb))
 
-    res = {}
-    fwd_launches = k3_counts(lambda: res.update(out=fwd(xf)))
-    fwd_err = rel_err(res["out"], plain_fwd(xf))
-    ragged = rel_err(fwd(xf[:n_fwd - 3]), plain_fwd(xf[:n_fwd - 3]))
-    check(fwd_launches == {"fused_mlp": 0, "fused_mlp_wide": 1,
-                           "fused_mlp_bwd": 0, "fused_mlp_bwd_wide": 0}
-          and fwd_err <= TOL and ragged <= TOL,
-          f"fused_mlp wmma route: err {fwd_err:.2e}, ragged {ragged:.2e}, "
-          f"launches {fwd_launches}")
-    bwd_cases, bwd_launches = {}, {}
-    for need_dw in (False, True):
-        bwd_launches[need_dw] = k3_counts(lambda: res.update(
-            got=bwd(x, cot, need_dw)))
-        got, ref = res["got"], plain_bwd(x, cot, need_dw)
+    want_f = {"fused_mlp_stream": 0, "fused_mlp_stream_bwd": 0,
+              "fused_pe_mlp_stream": 0, "fused_pe_mlp_stream_bwd": 0}
+    want_b = dict(want_f, **{bname: 1})
+    want_f[fname] = 1
+    cases, res = {}, {}
+    for m in (n_fwd, n_fwd - 3, 1):
+        xb = x_all[:m].contiguous()
+        launched = stream_counts(lambda: res.update(out=fwd(xb)))
+        out, ref = res["out"], plain_fwd(xb)
+        cases[f"forward N={m}"] = c = dict(err=rel_err(out, ref),
+                                           abs=abs_err(out, ref))
+        check(launched == want_f and out.shape == (m, dims[-1])
+              and bool(torch.isfinite(out).all()) and c["err"] <= TOL,
+              f"{fname} {label} N={m}: {c}, launches {launched}")
+    for m in (n_bwd, n_bwd - 77, 1):
+        xb, cb = x_all[:m].contiguous(), cot_all[:m].contiguous()
+        launched = stream_counts(lambda: res.update(got=bwd(xb, cb)))
+        got, ref = res["got"], plain_bwd(xb, cb)
         share, l2 = row_agreement(got[0], ref[0])
         w_err, w_l2 = weight_grad_errors(got[1:], ref[1:])
-        bwd_cases["with dW" if need_dw else "dx only"] = dict(
+        cases[f"backward N={m}"] = c = dict(
             rows=share, dx_l2=l2, w_err=w_err, w_l2=w_l2,
             abs=max(abs_err(a, b) for a, b in zip(got, ref)))
-        check(bwd_launches[need_dw] == {"fused_mlp": 0, "fused_mlp_wide": 0,
-                                        "fused_mlp_bwd": 0,
-                                        "fused_mlp_bwd_wide": 1}
-              and share >= ROW_SHARE and l2 <= GRAD_TOL
-              and weight_grads_ok(w_err, w_l2, n_bwd),
-              f"fused_mlp_bwd wmma route dW={need_dw}: rows {share:.4f}, "
-              f"dx L2 {l2:.2e}, weights {w_err:.2e}, launches "
-              f"{bwd_launches[need_dw]}")
+        check(launched == want_b and share >= ROW_SHARE and l2 <= GRAD_TOL
+              and weight_grads_ok(w_err, w_l2, m),
+              f"{bname} {label} N={m}: {c}, launches {launched}")
+        if m == n_bwd:
+            dx_only = bwd(xb, cb, True, False)
+            dw_only = bwd(xb, cb, False, True)[1:]
+            again = bwd(xb, cb)
+            c["asks_same_bits"] = (torch.equal(dx_only[0], got[0]) and all(
+                torch.equal(a, b) for a, b in zip(dw_only, got[1:])))
+            c["deterministic"] = all(torch.equal(a, b)
+                                     for a, b in zip(got, again))
+            check(c["asks_same_bits"] and c["deterministic"],
+                  f"{bname} {label}: dx alone / dW alone / a second run "
+                  "differ from the full backward")
+            del dx_only, dw_only, again
+        del got, ref
+    xf, xb, cb = (x_all[:n_fwd].contiguous(), x_all[:n_bwd].contiguous(),
+                  cot_all[:n_bwd].contiguous())
+    fwd_same = torch.equal(fwd(xf), fwd(xf))
+    check(fwd_same, f"{fname} {label} differs between two runs")
     macs = mlp_macs(dims)
     hidden = macs - dims[-2] * dims[-1]
-    regs = kernel_names(ptxas_registers(report), "fused_mlp")
-    spills = kernel_names(ptxas_spills(report), "fused_mlp")
-    shape = (f"a 3-layer net [{{n}},{dims[0]}]->"
-             f"{'->'.join(map(str, dims[1:]))}")
-    fwd_k = dict(
-        shape=shape.format(n=n_fwd) + " (no path of this script)",
-        source="cropnerf_tpu_torch/csrc/fused_mlp.cu",
-        replaces="cropnerf_tpu/ops/pallas/fused_mlp.py:30",
-        kernel_route="wmma", launches=fwd_launches["fused_mlp_wide"],
-        rel_err=max(fwd_err, ragged),
-        max_abs_err=abs_err(res["out"], plain_fwd(xf)),
-        ms=device_ms(lambda: fwd(xf), 10, KERNEL_NS),
-        call_ms=cuda_ms(lambda: fwd(xf), 10),
-        plain_ms=device_ms(lambda: plain_fwd(xf), 10),
-        registers={e: r for e, r in regs.items() if "fwd" in e},
-        spill_bytes={e: r for e, r in spills.items() if "fwd" in e})
-    fwd_k["bound_ms"], fwd_k["bound_by"] = bound(
-        2.0 * n_fwd * macs, nbytes(xf, *wd) + n_fwd * dims[-1] * 4)
-    bwd_k = dict(
-        shape=shape.format(n=n_bwd) + ", g -> dx (no path of this script)",
-        source="cropnerf_tpu_torch/csrc/fused_mlp.cu",
-        replaces="cropnerf_tpu/ops/pallas/fused_mlp.py:45",
-        kernel_route="wmma", launches=bwd_launches[False]["fused_mlp_bwd_wide"],
-        cases=bwd_cases,
-        rel_err=max(c["dx_l2"] for c in bwd_cases.values()),
-        max_abs_err=max(c["abs"] for c in bwd_cases.values()),
-        ms=device_ms(lambda: bwd(x, cot, False), 10, KERNEL_NS),
-        call_ms=cuda_ms(lambda: bwd(x, cot, False), 10),
-        plain_ms=device_ms(lambda: plain_bwd(x, cot, False), 5),
-        registers={e: r for e, r in regs.items() if "bwd" in e},
-        spill_bytes={e: r for e, r in spills.items() if "bwd" in e})
-    bwd_k["bound_ms"], bwd_k["bound_by"] = bound(
-        2.0 * n_bwd * (hidden + macs), nbytes(x, cot, x, *wd))
-    for name, k in (("fused_mlp_wide", fwd_k), ("fused_mlp_bwd_wide", bwd_k)):
-        log(f"[kernel] {name} (wmma route, csrc/fused_mlp.cu): {k['shape']}; "
-            f"err {k['rel_err']:.2e}, {k['ms']:.4f} ms (call "
-            f"{k['call_ms']:.4f}), plain {k['plain_ms']:.4f} ms, bound "
-            f"{k['bound_ms']:.4f} ms ({k['bound_by']}), launches "
-            f"{k['launches']}; registers {k['registers']}; {card}")
-    return {"fused_mlp_wide": fwd_k, "fused_mlp_bwd_wide": bwd_k}
+    w_bytes = nbytes(*wd)
+    k = dict(dims=dims, n_fwd=n_fwd, n_bwd=n_bwd, num_freqs=F, cases=cases,
+             forward_deterministic=fwd_same,
+             fwd_passes=pass_ms(lambda: fwd(xf), 10, STREAM_FWD_PASSES),
+             call_ms=cuda_ms(lambda: fwd(xf), 10),
+             plain_ms=device_ms(lambda: plain_fwd(xf), 5),
+             bwd_passes=pass_ms(lambda: bwd(xb, cb), 5, STREAM_BWD_PASSES),
+             bwd_call_ms=cuda_ms(lambda: bwd(xb, cb), 5),
+             bwd_plain_ms=device_ms(lambda: plain_bwd(xb, cb), 3),
+             dx_passes=pass_ms(lambda: bwd(xb, cb, True, False), 5,
+                               STREAM_BWD_PASSES),
+             dx_plain_ms=device_ms(lambda: plain_bwd(xb, cb, False), 3))
+    k["ms"] = k["fwd_passes"]["total"]["median"]
+    k["bwd_ms"] = k["bwd_passes"]["total"]["median"]
+    k["dx_ms"] = k["dx_passes"]["total"]["median"]
+    # the forward reads x and the weights and writes y; the backward
+    # recomputes the hidden layers, then every input gradient (and every
+    # weight gradient), reading x, g and the weights and writing dx (and
+    # dW); the workspace the weight gradients go through is the design's
+    # cost, not the function's
+    io = 3 * 4 if pe else dims[0] * 4
+    k["bound_ms"], k["bound_by"] = bound(
+        2.0 * n_fwd * macs, n_fwd * (io + dims[-1] * 4) + w_bytes)
+    k["bwd_bound_ms"], k["bwd_bound_by"] = bound(
+        2.0 * n_bwd * (hidden + 2 * macs),
+        n_bwd * (2 * io + dims[-1] * 4) + 2 * w_bytes)
+    k["dx_bound_ms"], k["dx_bound_by"] = bound(
+        2.0 * n_bwd * (hidden + macs),
+        n_bwd * (2 * io + dims[-1] * 4) + w_bytes)
+    arrow = "->".join(map(str, dims[1:]))
+    log(f"[kernel] stream {label}: x [{n_fwd},{3 if pe else dims[0]}]"
+        f"{f' (F={F})' if pe else ''} -> {dims[0]} -> {arrow}: forward "
+        f"{k['ms']:.4f} ms (call {k['call_ms']:.4f}), plain "
+        f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
+        f"({k['bound_by']}); backward at N={n_bwd} with dx and dW "
+        f"{k['bwd_ms']:.4f} ms (call {k['bwd_call_ms']:.4f}; by pass over "
+        f"{BWD_WINDOWS} windows, median (min-max): "
+        f"{fmt_passes(k['bwd_passes'])}), plain {k['bwd_plain_ms']:.4f} ms, "
+        f"bound {k['bwd_bound_ms']:.4f} ms ({k['bwd_bound_by']}); dx alone "
+        f"{k['dx_ms']:.4f} ms, plain {k['dx_plain_ms']:.4f} ms, bound "
+        f"{k['dx_bound_ms']:.4f} ms ({k['dx_bound_by']}); errors "
+        + ", ".join(f"{c_}: {v}" for c_, v in cases.items()) + f"; {card}")
+    del x_all, cot_all
+    return k
+
+
+def stream_entries(dev, card, report) -> dict:
+    """The stream route's kernels (csrc/fused_mlp_stream.cu) at STREAM_K3
+    and STREAM_K5 (stream_net_entry), the kernel line's four entries: K3's
+    forward and backward (main path: -huge's semantic head at 256 wide,
+    its export chunk, and its BayesRays batch's dx alone) and K5's (main
+    path: [prop256]'s two proposal nets, one training step's calls summed,
+    the backward with dx and dW); the other nets in by_net.  Launches are
+    filled in from the [prop256] phase."""
+    k3 = {label: stream_net_entry(label, dims, nf, nb, None, dev, card)
+          for label, (dims, nf, nb) in STREAM_K3.items()}
+    k5 = {label: stream_net_entry(label, [3 * (1 + 2 * F)] + [hw] * (
+        layers - 1) + [1], n, n, F, dev, card)
+        for label, (F, hw, layers, n) in STREAM_K5.items()}
+    regs = kernel_names_plain(ptxas_registers(report))
+    spills = kernel_names_plain(ptxas_spills(report))
+    log(f"[build] fused_mlp_stream registers {regs}, spill bytes {spills}")
+    check(all(v == 0 for v in spills.values()),
+          f"fused_mlp_stream spills {spills}")
+    main3 = k3["-huge semantic head 256 wide"]
+    main5 = [k5["[prop256] net 0"], k5["[prop256] net 1"]]
+
+    def errs(ks, kind):
+        cs = [c for k in ks for name, c in k["cases"].items()
+              if name.startswith(kind)]
+        if kind == "forward":
+            return max(c["err"] for c in cs), max(c["abs"] for c in cs)
+        return max(c["dx_l2"] for c in cs), max(c["abs"] for c in cs)
+
+    def entry(ks, kind, **kw):
+        rel, ab = errs(ks, kind)
+        return dict(source="cropnerf_tpu_torch/csrc/fused_mlp_stream.cu",
+                    kernel_route="stream", registers=regs, spill_bytes=spills,
+                    rel_err=rel, max_abs_err=ab, **kw)
+
+    src = "cropnerf_tpu/ops/pallas/"
+    dims3 = "->".join(map(str, main3["dims"]))
+    shape5 = " and ".join(f"x [{k['n_fwd']},3] -> "
+                          f"{'->'.join(map(str, k['dims']))}" for k in main5)
+    return {
+        "fused_mlp_stream": entry(
+            [main3], "forward", by_net=k3,
+            shape=f"-huge's semantic head at 256 wide, [{main3['n_fwd']}] x "
+                  f"{dims3} (one chunk of the 64-side export)",
+            replaces=src + "fused_mlp.py:30", ms=main3["ms"],
+            call_ms=main3["call_ms"], plain_ms=main3["plain_ms"],
+            bound_ms=main3["bound_ms"], bound_by=main3["bound_by"]),
+        "fused_mlp_stream_bwd": entry(
+            [main3], "backward", by_net=k3,
+            shape=f"its dx alone at -huge's BayesRays batch, "
+                  f"[{main3['n_bwd']}] x {dims3}",
+            replaces=src + "fused_mlp.py:45", ms=main3["dx_ms"],
+            with_dw_ms=main3["bwd_ms"], call_ms=main3["bwd_call_ms"],
+            plain_ms=main3["dx_plain_ms"], bound_ms=main3["dx_bound_ms"],
+            bound_by=main3["dx_bound_by"]),
+        "fused_pe_mlp_stream": entry(
+            main5, "forward", by_net=k5,
+            shape=f"[prop256]'s two proposal nets, one training step: "
+                  f"{shape5}",
+            replaces=src + "fused_pe_field.py:822",
+            ms=sum(k["ms"] for k in main5),
+            call_ms=sum(k["call_ms"] for k in main5),
+            plain_ms=sum(k["plain_ms"] for k in main5),
+            bound_ms=sum(k["bound_ms"] for k in main5),
+            bound_by="operations"),
+        "fused_pe_mlp_stream_bwd": entry(
+            main5, "backward", by_net=k5,
+            shape=f"their backward with dx and every weight gradient: "
+                  f"{shape5}",
+            replaces=src + "fused_pe_field.py:835",
+            ms=sum(k["bwd_ms"] for k in main5),
+            call_ms=sum(k["bwd_call_ms"] for k in main5),
+            plain_ms=sum(k["bwd_plain_ms"] for k in main5),
+            bound_ms=sum(k["bwd_bound_ms"] for k in main5),
+            bound_by="operations")}
+
+
+def kernel_names_plain(per_entry: dict) -> dict:
+    """Mangled names of csrc/fused_mlp_stream.cu's kernels -> short names
+    (mlp_stream_fwd_kernel, mlp_stream_bwd_kernel<true/false> and the
+    weight-gradient pass's)."""
+    out = {}
+    for name, v in per_entry.items():
+        m = re.search(r"([A-Za-z_]+_kernel)(ILb([01])E)?", name)
+        if m:
+            out[m.group(1) + ("" if not m.group(2) else
+                              "<true>" if m.group(3) == "1" else "<false>")] = v
+    return out
 
 
 def uncertainty_phase(dev, card, bank, cams, kernels) -> tuple:
@@ -1655,13 +1813,16 @@ def uncertainty_phase(dev, card, bank, cams, kernels) -> tuple:
 
 # ---- slice 5: K5 (fused PE proposal nets), K6 (transmittance), [propfused] --
 
-def propfused_cfg(cfg):
+def propfused_cfg(cfg, prop_hidden: int | None = None):
     """cropnerf-mxu with both PE proposal nets on the fused kernel, as
-    benchmarks/ab_pe_fused.py builds it (pallas-fused:pallas-fused)."""
+    benchmarks/ab_pe_fused.py builds it (pallas-fused:pallas-fused); with
+    ``prop_hidden`` both nets that wide, as benchmarks/ab_propshape.py
+    builds its arms."""
     m = cfg.model
+    more = {} if prop_hidden is None else {"hidden_dim": prop_hidden}
     return dataclasses.replace(cfg, model=dataclasses.replace(
-        m, proposal_fields=tuple(dataclasses.replace(p, mlp_impl="pallas-fused")
-                                 for p in m.proposal_fields)))
+        m, proposal_fields=tuple(dataclasses.replace(
+            p, mlp_impl="pallas-fused", **more) for p in m.proposal_fields)))
 
 
 def all_plain_cfg(cfg):
@@ -1673,12 +1834,6 @@ def all_plain_cfg(cfg):
                               for p in m.proposal_fields)))
 
 
-# the net K5's wmma route keeps (no wgmma kernel takes 4 layers): -mxu's
-# second proposal net with a third hidden layer
-WMMA_PE_NET = dict(field_type="pe", hidden_dim=64, num_layers=4, pe_freqs=6,
-                   mlp_impl="pallas-fused")
-
-
 def pe_mlp_entries(cfg, dev, card, reports, kernels) -> dict:
     """K5 forward (csrc/fused_pe_mlp_fwd.cu) and backward
     (csrc/fused_pe_mlp_bwd.cu) against the plain version at one
@@ -1687,12 +1842,9 @@ def pe_mlp_entries(cfg, dev, card, reports, kernels) -> dict:
     the weight gradients, the variant the training step runs (its samples
     carry the camera-opt graph).  Each entry's ms, plain ms and bound are
     the two nets' summed: one training step's calls; the kernels' times
-    are the median of BWD_WINDOWS profiler windows.  Then the forward's
-    wmma route (pe_mlp_fwd_route "wmma": the PE variant of
-    csrc/fused_mlp.cu) at WMMA_PE_NET, a net no preset builds and no
-    wgmma kernel takes, with its own launch count.  cropnerf-mxu-q's
-    128-wide nets are pe_mlp_wide_entries'."""
-    from cropnerf_tpu_torch.models.config import ProposalFieldConfig
+    are the median of BWD_WINDOWS profiler windows.  cropnerf-mxu-q's
+    128-wide nets are pe_mlp_wide_entries', the stream route's nets
+    stream_entries'."""
     from cropnerf_tpu_torch.models.proposal import proposal_init
     from cropnerf_tpu_torch.ops.cuda import fused_pe_field as kf
     m, R = cfg.model, cfg.train_num_rays_per_batch
@@ -1796,48 +1948,11 @@ def pe_mlp_entries(cfg, dev, card, reports, kernels) -> dict:
             f"{card}")
         del x_all, cot_all
 
-    # the wmma route: a 4-layer net at net 1's batch
-    wide = {}
-    for i, p in enumerate([ProposalFieldConfig(**WMMA_PE_NET)]):
-        n, F = R * m.num_proposal_samples_per_ray[1], p.pe_freqs
-        wd = net(p, i)
-        dims = [3 * (1 + 2 * F)] + [w.shape[1] for w in wd[0::2]]
-        check(kf.pe_mlp_fwd_route(3, F, dims[1:]) == "wmma",
-              f"the wmma route's net {dims} is not on the wmma route")
-        xb = torch.rand((n, 3), generator=g, device=dev) * 2 - 1
-        res = {}
-        launches = counted(kernels, lambda: res.update(
-            out=kf.fused_pe_mlp(xb, wd, F).detach()))
-        with torch.no_grad():
-            ref = kf.fused_pe_mlp_plain(xb, wd, F)
-            ragged = rel_err(kf.fused_pe_mlp(xb[:n - 77], wd, F),
-                             kf.fused_pe_mlp_plain(xb[:n - 77], wd, F))
-        wide[f"net {i}"] = w = dict(
-            n=n, dims=dims, launches=launches,
-            rel_err=rel_err(res["out"], ref),
-            ragged_rel_err=ragged,
-            ms=device_ms(lambda: kf.fused_pe_mlp(xb, wd, F).detach(), 10,
-                         KERNEL_NS),
-            plain_ms=device_ms(lambda: kf.fused_pe_mlp_plain(xb, wd, F), 5))
-        w["bound_ms"], w["bound_by"] = bound(2.0 * n * mlp_macs(dims),
-                                             nbytes(xb, *wd) + n * 4)
-        want = {k_.__name__: 0 for k_ in kernels}
-        want["fused_pe_mlp_wide"] = 1
-        log(f"[kernel] fused_pe_mlp wmma route (csrc/fused_mlp.cu) "
-            f"4-layer net [{n},3] -> {'->'.join(map(str, dims))}: "
-            f"err {w['rel_err']:.2e} (ragged {ragged:.2e}), {w['ms']:.4f} ms, "
-            f"plain {w['plain_ms']:.4f} ms, bound {w['bound_ms']:.4f} ms "
-            f"({w['bound_by']}), launches {launches}; {card}")
-        check(launches == want and w["rel_err"] <= TOL and ragged <= TOL,
-              f"fused_pe_mlp wmma route: {w}")
     regs = ptxas_registers(reports["fused_pe_mlp_fwd"])
     spills = ptxas_spills(reports["fused_pe_mlp_fwd"])
-    wide_regs = {e: r for e, r in ptxas_registers(reports["fused_mlp"]).items()
-                 if "Lb1E" in e}
     bwd_regs = ptxas_registers(reports["fused_pe_mlp_bwd"])
     bwd_spills = ptxas_spills(reports["fused_pe_mlp_bwd"])
     log(f"[build] fused_pe_mlp_fwd registers {regs}, spill bytes {spills}; "
-        f"wmma route (fused_mlp.cu PE variant) registers {wide_regs}; "
         f"fused_pe_mlp_bwd registers {bwd_regs}, spill bytes {bwd_spills}")
     check(all(v == 0 for v in spills.values()),
           f"fused_pe_mlp_fwd spills {spills}")
@@ -1859,10 +1974,7 @@ def pe_mlp_entries(cfg, dev, card, reports, kernels) -> dict:
             bound_ms=sum(k["bound_ms"] for k in vals), bound_by="operations",
             rel_err=max(c["fwd_err"] for k in vals for c in k["cases"].values()),
             max_abs_err=max(c["fwd_abs"] for k in vals
-                            for c in k["cases"].values()),
-            wmma_route=dict(
-                route="wmma", source="cropnerf_tpu_torch/csrc/fused_mlp.cu",
-                registers=wide_regs, by_net=wide)),
+                            for c in k["cases"].values())),
         "fused_pe_mlp_bwd": dict(
             source="cropnerf_tpu_torch/csrc/fused_pe_mlp_bwd.cu", by_net=per,
             registers=bwd_regs, spill_bytes=bwd_spills,
@@ -2157,21 +2269,27 @@ CLOUD_POINTS = 1_000_000  # the CLI default's points (the reference: 10 M)
 
 
 def propfused_phase(dev, card, bank, rb, cams, kernels,
-                    preset: str = "cropnerf-mxu") -> tuple:
-    """The fused-proposal path (K5) of ``preset`` at full widths: forward at
-    RAYS rays and the RENDER_HW^2 render against the plain path (field and
-    proposal nets on plain matmuls), 1 + TRAIN_STEPS training steps with
-    every loss held against the plain path's, and the depth point cloud at
-    CLOUD_RAYS rays a batch up to CLOUD_POINTS points (cropnerf-mxu; one
-    batch for another preset), with exact launch counts for each call.
-    Returns (numbers for the JSON line, calls for the trace)."""
+                    preset: str = "cropnerf-mxu",
+                    prop_hidden: int | None = None) -> tuple:
+    """The fused-proposal path (K5) of ``preset`` at full widths (with
+    ``prop_hidden``, its proposal nets that wide: [prop256], on K5's
+    stream route): forward at RAYS rays and the RENDER_HW^2 render against
+    the plain path (field and proposal nets on plain matmuls), 1 +
+    TRAIN_STEPS training steps with every loss held against the plain
+    path's, and the depth point cloud at CLOUD_RAYS rays a batch up to
+    CLOUD_POINTS points (cropnerf-mxu; one batch for another preset), with
+    exact launch counts for each call.  Returns (numbers for the JSON
+    line, calls for the trace)."""
     from cropnerf_tpu_torch.export import pointcloud as tpc
     from cropnerf_tpu_torch.models.config import PRESETS
     from cropnerf_tpu_torch.models.model import forward, model_init
     from cropnerf_tpu_torch.train.step import _bank_rays, make_render_fn
-    full_cloud = preset == "cropnerf-mxu"
-    tag = "[propfused]" if full_cloud else "[mxuq] propfused"
-    cfg = propfused_cfg(PRESETS[preset])
+    full_cloud = preset == "cropnerf-mxu" and prop_hidden is None
+    tag = ("[propfused]" if full_cloud else "[prop256]" if prop_hidden
+           else "[mxuq] propfused")
+    cfg = propfused_cfg(PRESETS[preset], prop_hidden)
+    k5, k5b = (("fused_pe_mlp_stream", "fused_pe_mlp_stream_bwd")
+               if prop_hidden else ("fused_pe_mlp", "fused_pe_mlp_bwd"))
     plain = all_plain_cfg(cfg)
     m, mp = cfg.model, plain.model
     params = model_init(m, bank.num_images, torch.Generator().manual_seed(0),
@@ -2187,11 +2305,11 @@ def propfused_phase(dev, card, bank, rb, cams, kernels,
 
     res, info = {}, {"card": card}
     steps = {"forward": (lambda: res.update(fwd=forward(params, rb, m)),
-                         want(fused_pe_nerf=1, fused_pe_mlp=n_prop)),
+                         want(fused_pe_nerf=1, **{k5: n_prop})),
              "render": (lambda: res.update(img=render(params, cams, 0,
                                                       RENDER_HW, RENDER_HW)),
                         want(fused_pe_nerf=n_chunks,
-                             fused_pe_mlp=n_prop * n_chunks))}
+                             **{k5: n_prop * n_chunks}))}
     for step, (fn, expect) in steps.items():
         launches = counted(kernels, fn)
         log(f"{tag} {step} launches: {launches}")
@@ -2240,7 +2358,7 @@ def propfused_phase(dev, card, bank, rb, cams, kernels,
                                               n_steps, tag, dev)
     t = info["train"]
     per_step = want(fused_pe_nerf=1, fused_pe_nerf_bwd=1,
-                    fused_pe_mlp=n_prop, fused_pe_mlp_bwd=n_prop)
+                    **{k5: n_prop, k5b: n_prop})
     expect = {k: n_steps * v for k, v in per_step.items()}
     log(f"{tag} launches in {n_steps} training steps: {t['launches']}")
     check(t["launches"] == expect, f"{tag} training launches "
@@ -2302,7 +2420,7 @@ def propfused_phase(dev, card, bank, rb, cams, kernels,
         res = {}
         launches = counted(kernels, lambda: res.update(ms=wall_ms(
             lambda: tpc.depth_points(params, m, bank, idx0, **thr))))
-        expect = want(fused_pe_nerf=1, fused_pe_mlp=n_prop)
+        expect = want(fused_pe_nerf=1, **{k5: n_prop})
         check(launches == expect, f"{tag} depth batch launches {launches}, "
               f"expected {expect}")
         runs = [wall_ms(lambda: tpc.depth_points(params, m, bank, idx0,
@@ -2318,7 +2436,8 @@ def propfused_phase(dev, card, bank, rb, cams, kernels,
             f"median {info['pointcloud']['median_batch_ms']:.2f} ms of "
             f"{REPEATS}; launches {nonzero(launches)}; vs plain path "
             f"{cloud_agree}; {card}")
-        return info, {f"{preset} propfused train step": run_train}
+        return info, {(f"{tag} train step" if prop_hidden else
+                       f"{preset} propfused train step"): run_train}
     batch_ms = []                 # each batch's device work, synchronised
     depth_points = tpc.depth_points
 
@@ -2527,6 +2646,138 @@ def mxuq_phase(dev, card, bank, rb, cams, kernels) -> tuple:
     torch.cuda.empty_cache()
     info["propfused"], trace = propfused_phase(dev, card, bank, rb, cams,
                                                kernels, "cropnerf-mxu-q")
+    return info, trace
+
+
+# ---- [prop256]: 256-wide PE proposal nets and -huge's 256-wide semantic head
+
+PROP256_HIDDEN = 256            # both proposal nets' hidden width
+PROP256_SEMANTICS = 256         # -huge's semantic head's hidden width
+PROP256_EXPORT_SIDE = 64
+P256_PATHS = ("forward", "render", "train", "pointcloud", "huge export",
+              "huge bayesrays")
+P256_MAIN = {"fused_mlp_stream": "huge export",
+             "fused_mlp_stream_bwd": "huge bayesrays",
+             "fused_pe_mlp_stream": "train",
+             "fused_pe_mlp_stream_bwd": "train"}
+
+
+def prop256_phase(dev, card, bank, rb, cams, kernels, work: Path) -> tuple:
+    """[prop256]: cropnerf-mxu-q with both PE proposal nets fused and
+    PROP256_HIDDEN wide (3 layers, F = 5 and 6: K5's stream route) through
+    propfused_phase: forward at RAYS rays, the RENDER_HW^2 render, 1 +
+    TRAIN_STEPS training steps (K1 and K5 forward and backward) with every
+    loss held against the plain path's, one depth-cloud batch of
+    CLOUD_RAYS rays.  Then K3's stream route on a model path:
+    cropnerf-mxu-huge with hidden_dim_semantics PROP256_SEMANTICS (its
+    semantic head [30, 256, 256, 1]), random weights from a seeded
+    generator: the PROP256_EXPORT_SIDE^3 export with colours (K2 and both
+    heads once a chunk: the colour head on K3's wgmma kernels, the
+    semantic head on the stream route) held against the same export with
+    K3's plain version and the plain path's point counts, and one
+    BayesRays batch of RAYS rays on the semantics channel (K3's forward
+    and dx-only backward on the stream route), its Hessian against the
+    plain path's.  Launches exact, counts zeroed just before each call
+    and read just after.  Returns (numbers for the JSON line, calls for
+    the trace)."""
+    from cropnerf_tpu_torch.export.ply import ply_vertex_count
+    from cropnerf_tpu_torch.export.volume import (export_and_write,
+                                                  sample_volume)
+    from cropnerf_tpu_torch.models.config import PRESETS
+    from cropnerf_tpu_torch.models.model import model_init
+    from cropnerf_tpu_torch.ops.cuda import fused_mlp as km
+    from cropnerf_tpu_torch.uncertainty import bayesrays as br
+    info, trace = propfused_phase(dev, card, bank, rb, cams, kernels,
+                                  "cropnerf-mxu-q", PROP256_HIDDEN)
+    names = [k.__name__ for k in kernels]
+
+    def want(**n):
+        return {k: n.get(k, 0) for k in names}
+
+    cfg = PRESETS["cropnerf-mxu-huge"]
+    m = dataclasses.replace(cfg.model, field=dataclasses.replace(
+        cfg.model.field, hidden_dim_semantics=PROP256_SEMANTICS))
+    plain_m = dataclasses.replace(m, field=dataclasses.replace(
+        m.field, mlp_impl="xla"))
+    params = model_init(m, bank.num_images, torch.Generator().manual_seed(0),
+                        dev)
+    sem = params.field.mlp_semantic.w
+    dims = [sem[0].shape[0]] + [w.shape[1] for w in sem]
+    check(km.fused_mlp_route(dims[0], dims[1:]) == "stream",
+          f"[prop256] -huge's semantic head {dims} is not on the stream "
+          "route")
+    side = PROP256_EXPORT_SIDE
+    n_chunks = -(-side ** 2 // EXPORT_RAYS)
+    aabb = [[-1.0, -1.0, -1.0], [1.0, 1.0, 1.0]]
+    thr = export_thresholds(params, m.field,
+                            torch.Generator(device=dev).manual_seed(22), dev)
+    kw = dict(num_points_per_side=side, render_rgb=True, **thr)
+    out_dir = work / "prop256_huge"
+    res = {}
+    exp_want = want(fused_pe_density=n_chunks, fused_mlp=n_chunks,
+                    fused_mlp_stream=n_chunks)
+    launches = counted(kernels, lambda: res.update(first=wall_ms(
+        lambda: res.update(paths=export_and_write(params, m, aabb, out_dir,
+                                                  **kw)))))
+    check(launches == exp_want, f"[prop256] -huge export launches "
+          f"{nonzero(launches)}, expected {nonzero(exp_want)}")
+    runs = [wall_ms(lambda: export_and_write(params, m, aabb, out_dir, **kw))
+            for _ in range(WIDE_REPEATS)]
+    points = {k: ply_vertex_count(v) for k, v in res["paths"].items()}
+    clouds = sample_volume(params, m, aabb, **kw)
+    with k3_plain():
+        vs = export_vs_k3_plain(clouds, sample_volume(params, m, aabb, **kw),
+                                thr)
+    plain_points = {k: len(c.points) for k, c in
+                    sample_volume(params, plain_m, aabb, **kw).items()}
+    check(points["density"] > points["semantic"] > 0,
+          f"[prop256] -huge export points {points}")
+    for k in points:
+        check(abs(points[k] - plain_points[k]) <= 0.01 * plain_points[k] + 10,
+              f"[prop256] -huge export {k}: {points[k]} points vs plain path "
+              f"{plain_points[k]}")
+    info["huge export"] = dict(side=side, chunks=n_chunks, launches=launches,
+                               first_ms=res["first"], runs_ms=runs,
+                               points=points, plain_points=plain_points,
+                               vs_k3_plain=vs)
+    log(f"[prop256] cropnerf-mxu-huge, semantic head {dims}: export "
+        f"{side}^3 with colours: first {res['first']:.1f} ms, runs "
+        + ", ".join(f"{v:.1f}" for v in runs)
+        + f" ms; launches {nonzero(launches)} ({n_chunks} chunks); points "
+        f"{points} (plain path {plain_points}); against K3's plain version: "
+        f"{vs}; {card}")
+    del clouds
+
+    rbs = list(br.bank_ray_batches(bank, m, 1, RAYS,
+                                   torch.Generator(device=dev).manual_seed(9)))
+    comp = br.ComputeUncertainty(params, m, lod=UNC_LOD, channel="semantics")
+    launches = counted(kernels, lambda: res.update(
+        ms=wall_ms(lambda: res.update(hess=comp.batch(rbs[0])))))
+    unc_want = want(fused_pe_density=1, fused_pe_density_bwd=1,
+                    fused_mlp_stream=1, fused_mlp_stream_bwd=1)
+    check(launches == unc_want, f"[prop256] -huge BayesRays launches "
+          f"{nonzero(launches)}, expected {nonzero(unc_want)}")
+    hess = res["hess"]
+    ref = br.ComputeUncertainty(params, plain_m, lod=UNC_LOD,
+                                channel="semantics").batch(rbs[0])
+    l2 = ((hess - ref).norm() / ref.norm()).item()
+    hot = len(set(hess.topk(1000).indices.tolist())
+              & set(ref.topk(1000).indices.tolist())) / 1000
+    check(bool(torch.isfinite(hess).all()) and hess.max() > 0
+          and l2 <= GRAD_TOL, f"[prop256] -huge BayesRays Hessian vs plain "
+          f"path: L2 {l2:.3e}")
+    runs = [wall_ms(lambda: comp.batch(rbs[0])) for _ in range(REPEATS)]
+    info["huge bayesrays"] = dict(rays=RAYS, launches=launches,
+                                  first_ms=res["ms"], runs_ms=runs,
+                                  hessian_l2=l2, hottest_1000_shared=hot)
+    log(f"[prop256] cropnerf-mxu-huge BayesRays batch of {RAYS} rays "
+        f"(semantics, lod {UNC_LOD}): first {res['ms']:.1f} ms, median "
+        f"{statistics.median(runs):.1f} ms of {REPEATS}; Hessian vs plain "
+        f"path L2 {l2:.3e}, hottest 1000 shared {hot:.3f}; launches "
+        f"{nonzero(launches)}; {card}")
+    trace["[prop256] -huge export"] = lambda: export_and_write(
+        params, m, aabb, out_dir, **kw)
+    trace["[prop256] -huge BayesRays batch"] = lambda: comp.batch(rbs[0])
     return info, trace
 
 
@@ -3411,9 +3662,10 @@ def kernel_wrappers() -> tuple:
     from cropnerf_tpu_torch.ops.cuda.transmittance import render_weights_cuda
     return (kf.fused_pe_nerf, kf.fused_pe_nerf_bwd, kf.fused_pe_density,
             kf.fused_pe_density_bwd, kmlp.fused_mlp, kmlp.fused_mlp_bwd,
-            kmlp.fused_mlp_wide, kmlp.fused_mlp_bwd_wide, hash_encode,
-            hash_encode_bwd, kf.fused_pe_mlp, kf.fused_pe_mlp_wide,
-            kf.fused_pe_mlp_bwd, render_weights_cuda)
+            kmlp.fused_mlp_stream, kmlp.fused_mlp_stream_bwd, hash_encode,
+            hash_encode_bwd, kf.fused_pe_mlp, kf.fused_pe_mlp_stream,
+            kf.fused_pe_mlp_bwd, kf.fused_pe_mlp_stream_bwd,
+            render_weights_cuda)
 
 
 def rank_log(msg: str) -> None:
@@ -4323,7 +4575,7 @@ def wide_phase(dev, card, bank, kernels, work: Path) -> dict:
     from a seeded generator ([wide] lines): the EXPORT_SIDE^3 volume export
     with colours and UNC_BATCHES BayesRays batches of RAYS rays on the
     semantics and on the rgb channel, each with exact launch counts (K3 on
-    its wgmma kernels, none on the wmma route's counters; counts zeroed
+    its wgmma kernels, none on the stream route's counters; counts zeroed
     just before each call and read just after), wall ms and, from one
     traced call, device ms with K3's share.  The export is held against
     the same export with K3's plain version (export_vs_k3_plain) and
@@ -4516,7 +4768,7 @@ def wide_phase(dev, card, bank, kernels, work: Path) -> dict:
     check(n["fused_pe_nerf_bwd"] == WIDE_CLI_STEPS
           and n["fused_pe_nerf"] >= WIDE_CLI_STEPS
           and all(n[k] == 0 for k in ("fused_mlp", "fused_mlp_bwd",
-                                      "fused_mlp_wide", "fused_mlp_bwd_wide")),
+                                      "fused_mlp_stream", "fused_mlp_stream_bwd")),
           f"[wide] cli train launches {nonzero(n)}")
     trainer = load_trainer_from_run(run, device=dev)
     check(trainer.state.step == WIDE_CLI_STEPS, "[wide] cli train: step "
@@ -4574,13 +4826,15 @@ def main() -> None:
     from cropnerf_tpu_torch.ops.cuda import fused_pe_field as kfield
     from cropnerf_tpu_torch.ops.cuda.hash_encode import (hash_encode,
                                                          hash_encode_bwd)
+    from cropnerf_tpu_torch.ops.cuda.mlp_plan import program_key
     from cropnerf_tpu_torch.ops.cuda.fused_mlp import (fused_mlp,
                                                        fused_mlp_bwd,
                                                        fused_mlp_plain)
     from cropnerf_tpu_torch.ops.cuda.fused_pe_field import (
         fused_pe_density, fused_pe_density_bwd, fused_pe_density_plain,
-        fused_pe_mlp, fused_pe_mlp_bwd, fused_pe_mlp_wide, fused_pe_nerf,
-        fused_pe_nerf_bwd, fused_pe_nerf_plain)
+        fused_pe_mlp, fused_pe_mlp_bwd, fused_pe_mlp_stream,
+        fused_pe_mlp_stream_bwd, fused_pe_nerf, fused_pe_nerf_bwd,
+        fused_pe_nerf_plain)
     from cropnerf_tpu_torch.ops.cuda.transmittance import render_weights_cuda
     from cropnerf_tpu_torch.ops.posenc import nerf_encoding
     from cropnerf_tpu_torch.train.step import make_render_fn
@@ -4654,9 +4908,15 @@ def main() -> None:
     smem.update({f"fused_mlp {label} (x stages a warpgroup)": (
         kmlp.net_layout(w)[2], kmlp.net_layout(w)[4])
         for label, w in wide.items()})
+    for label, (F, hw, layers, _) in STREAM_K5.items():
+        din = 3 * (1 + 2 * F)
+        widths = [hw] * (layers - 1) + [1]
+        smem[f"fused_mlp_stream {label} (forward, backward)"] = tuple(
+            kmlp.stream_smem_bytes(program_key(din, widths, 3, F, bw), bw)
+            for bw in (False, True))
     log("[build] dynamic shared memory per block at the path's widths: "
         + ", ".join(f"{k} {v} B" for k, v in smem.items()))
-    check(all(v[0] > 0 if isinstance(v, tuple) else v > 0
+    check(all(min(v) > 0 if isinstance(v, tuple) else v > 0
               for v in smem.values()), f"kernel layouts {smem}")
 
     def field_inputs(n):
@@ -4867,7 +5127,7 @@ def main() -> None:
                                                 reports["fused_mlp_fwd"]),
         "fused_mlp_bwd 128/256 wide": mlp_bwd_entry(
             wide, wide_batch, dev, card, reports["fused_mlp_bwd"])}
-    k3_wide = mlp_wide_entries(dev, card, reports["fused_mlp"], n2, n_unc)
+    stream_k = stream_entries(dev, card, reports["fused_mlp_stream"])
     hash_k = hash_kernels(PRESETS["cropnerf"], dev, card,
                           reports["hash_encode"])
 
@@ -4900,7 +5160,7 @@ def main() -> None:
 
     path_kernels = (fused_pe_nerf, fused_pe_nerf_bwd, fused_pe_density,
                     fused_pe_density_bwd, fused_mlp, fused_mlp_bwd,
-                    kmlp.fused_mlp_wide, kmlp.fused_mlp_bwd_wide)
+                    kmlp.fused_mlp_stream, kmlp.fused_mlp_stream_bwd)
     result = {}
     steps = {
         "forward": lambda: result.update(fwd=forward(params, rb, m)),
@@ -4917,7 +5177,7 @@ def main() -> None:
     launches = {name: sum(n[name] for n in step_launches.values())
                 for name in step_launches["forward"]}
     check(all(v > 0 for k, v in launches.items() if "_bwd" not in k
-              and "wide" not in k),
+              and "stream" not in k),
           f"a kernel of the path never launched: {launches}")
     check(all(v == 0 for k, v in launches.items() if "_bwd" in k),
           "serving recorded a graph and ran a backward")
@@ -4926,9 +5186,9 @@ def main() -> None:
     want_k3 = {"forward": 0, "render": 0, "export": 2 * n_chunks}
     for step, n in want_k3.items():
         got = step_launches[step]
-        check(got["fused_mlp"] == n and got["fused_mlp_wide"] == 0,
+        check(got["fused_mlp"] == n and got["fused_mlp_stream"] == 0,
               f"K3 launches of the {step}: {got}, expected fused_mlp {n} "
-              f"and fused_mlp_wide 0")
+              f"and fused_mlp_stream 0")
     # steady state: the first calls above also grew the allocator's pools
     runs_ms = {step: [wall_ms(fn) for _ in range(REPEATS)]
                for step, fn in steps.items()}
@@ -4982,7 +5242,8 @@ def main() -> None:
               f"export {k}: {counts[k]} points vs plain {counts_p[k]}")
 
     all_kernels = path_kernels + (hash_encode, hash_encode_bwd, fused_pe_mlp,
-                                  fused_pe_mlp_wide, fused_pe_mlp_bwd,
+                                  fused_pe_mlp_stream, fused_pe_mlp_bwd,
+                                  fused_pe_mlp_stream_bwd,
                                   render_weights_cuda)
     pe_k = pe_mlp_entries(cfg, dev, card, reports, all_kernels)
     pe_wide = pe_mlp_wide_entries(dev, card, reports, all_kernels)
@@ -5119,6 +5380,13 @@ def main() -> None:
     steps.update(mq_steps)
     mq_pf = mq_info["propfused"]
 
+    # ---- 5c''. [prop256]: -q's proposal nets 256 wide and -huge's 256-wide
+    # semantic head (the stream route of K5 and K3) ---------------------------
+    p256_work = Path(tempfile.mkdtemp(prefix="chip_smoke_prop256_"))
+    p256, p256_steps = prop256_phase(dev, card, bank, rb, cams, all_kernels,
+                                     p256_work)
+    steps.update(p256_steps)
+
     # ---- 5d. the trainer loop and the CLI ---------------------------------
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
     cli_info = cli_phase(dev, card, all_kernels,
@@ -5143,6 +5411,7 @@ def main() -> None:
     wide_info, wide_steps = wide_phase(dev, card, bank, all_kernels, work)
     steps.update(wide_steps)
     shutil.rmtree(work)
+    shutil.rmtree(p256_work)
 
     # ---- 6. where the time goes: one traced call of each path step ------
     breakdown = {}
@@ -5176,6 +5445,12 @@ def main() -> None:
                             if name.startswith("fused_pe_nerf") else
                             unc_mxu[name] if name.endswith("_bwd") else
                             launches[name]) for name in kernels}
+    # the stream route's kernels: launches on the [prop256] phase's paths;
+    # each kernel's main path there
+    p256_paths = {name: {path: p256[path]["launches"].get(name, 0)
+                         for path in P256_PATHS} for name in stream_k}
+    check(all(p256_paths[name][P256_MAIN[name]] > 0 for name in stream_k),
+          f"a stream kernel never launched on its path: {p256_paths}")
     line = {"kernels": [dict(
         name=name, route="cuda", source=k["source"], replaces=k["replaces"],
         launches=main_launches[name],
@@ -5190,15 +5465,15 @@ def main() -> None:
            if key in k})
         for name, k in kernels.items()] + [dict(
         name=name, route="cuda", source=k["source"], replaces=k["replaces"],
-        launches=k["launches"],
-        launches_by_path={"its phase at -huge's colour head": k["launches"],
-                          "model paths of this script": 0},
+        launches=p256_paths[name][P256_MAIN[name]],
+        launches_by_path={"[prop256]": p256_paths[name]},
         max_abs_err=k["max_abs_err"], rel_err=k["rel_err"], ms=k["ms"],
         call_ms=k["call_ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
         bound_by=k["bound_by"], library_ms=None, shape=k["shape"], card=card,
         kernel_route=k["kernel_route"], registers=k["registers"],
-        spill_bytes=k["spill_bytes"])
-        for name, k in k3_wide.items()] + [dict(
+        spill_bytes=k["spill_bytes"], by_net=k["by_net"],
+        **{key: k[key] for key in ("with_dw_ms",) if key in k})
+        for name, k in stream_k.items()] + [dict(
         name=name, route="cuda", source=k["source"], replaces=k["replaces"],
         launches=sum(n[counter] for path, n in wide_info["launches"].items()
                      if not path.startswith("cli")),
@@ -5240,8 +5515,8 @@ def main() -> None:
         call_ms=k["call_ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
         bound_by=k["bound_by"], library_ms=None, shape=k["shape"], card=card,
         registers=k["registers"], by_net=k["by_net"],
-        **{key: k[key] for key in ("spill_bytes", "ms_min", "ms_max",
-                                   "wmma_route") if key in k})
+        **{key: k[key] for key in ("spill_bytes", "ms_min", "ms_max")
+           if key in k})
         for name, k in pe_k.items()] + [dict(
         name=name, route="cuda", source=k["source"], replaces=k["replaces"],
         launches=mq_pf["train"]["launches"][counter],
@@ -5281,6 +5556,7 @@ def main() -> None:
                         ("fused_pe_density_bwd", "fused_mlp_bwd")},
         "propfused": pf_info,
         "mxuq": mq_info,
+        "prop256": p256,
         "cli": cli_info,
         "count": count_info,
         "ddp": ddp_info,

@@ -68,7 +68,7 @@
 // (pe_dscale) and sums each coordinate's columns in column order into dx
 // [N, 3] (pe_dx).  With weight gradients those nets take
 // fused_pe_mlp_wide_bwd.cu, which keeps the sums on chip.
-#include "bwd_layers.cuh"
+#include "column_sum.cuh"
 #include "wgmma_bwd.cuh"
 
 namespace cropnerf {

@@ -5,9 +5,9 @@
 // hidden layers are padded to HWP = 64, 128 or 256 columns, with din at
 // most 256 and at most 16 outputs, into [N, dout] f32: every head of the
 // cropnerf-mxu family (64 wide in -mxu and -q; 128 and 256 in -big and
-// -huge).  Nets whose images do not fit shared memory take the wmma route
-// of fused_mlp.cu (ops/cuda/fused_mlp.py fused_mlp_route picks it by
-// shape).
+// -huge).  Nets whose images do not fit shared memory take the stream
+// route of fused_mlp_stream.cu (ops/cuda/fused_mlp.py fused_mlp_route
+// picks it by shape).
 //
 // Arithmetic, as the TPU kernel: x rounded to bf16; each hidden layer a
 // bf16 product with f32 sums plus the f32 bias, relu, rounded to bf16; the

@@ -95,32 +95,6 @@ struct FwdArgs {
   Layout s;
 };
 
-// The order of the consumers' products, out of phase: warpgroup 0 starts
-// each product, warpgroup 1 starts it once warpgroup 0 has issued the
-// products of its first slab, and warpgroup 0 starts the next once
-// warpgroup 1 has done the same, so each warpgroup's epilogue runs while
-// the other's slabs multiply.  Both read the same slabs; before it hands
-// over, a warpgroup holds at most 1 <= stages - 2 slab of its product that
-// the other has not read (MIN_STAGES), so the ring always has room for it
-// and the two never wait on each other in a circle.
-//
-// turn[w] completes a phase when the other warpgroup's 4 warps have handed
-// over; p counts the calling warpgroup's products, `total` is the block's
-// count, the same for both.  mbarriers rather than named barriers, so that
-// a fault in the order traps (mbar_wait) instead of hanging the card.
-struct PingPong {
-  uint64_t* turn;
-  int wg, lane;
-  long long p, total;
-  __device__ void wait() const {
-    if (wg == 0 && p == 0) return;
-    mbar_wait(&turn[wg], (uint32_t)((wg == 0 ? p - 1 : p) & 1));
-  }
-  __device__ void pass() const {
-    if ((wg == 0 || p + 1 < total) && lane == 0) mbar_arrive(&turn[wg ^ 1]);
-  }
-};
-
 struct FwdTile {
   const FwdArgs& a;
   unsigned char* wgm;   // this warpgroup's region

@@ -49,7 +49,7 @@
 // column sums reduce the blocks' rows.  No atomics: the plan depends on N
 // and the SM count alone, so two runs give the same bits.  Rows past N load
 // zero x and zero cotangents, so they add nothing.
-#include "bwd_layers.cuh"
+#include "column_sum.cuh"
 #include "wgmma_mlp.cuh"
 
 namespace cropnerf {

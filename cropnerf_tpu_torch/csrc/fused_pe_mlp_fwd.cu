@@ -5,9 +5,9 @@
 // cos(2^f x)] (f-major blocks, ops/posenc.nerf_encoding's columns), and run
 // through a relu MLP whose hidden layers are at most 64 wide and whose last
 // layer is linear with at most 16 outputs, into [N, Dout] f32.  Wider nets
-// take the PE variant of fused_mlp_fwd.cu, or the wmma route of
-// fused_mlp.cu (ops/cuda/fused_pe_field.py pe_mlp_fwd_route picks by
-// shape).
+// take the PE variant of fused_mlp_fwd.cu, or the stream route of
+// fused_mlp_stream.cu (ops/cuda/fused_pe_field.py pe_mlp_fwd_route picks
+// by shape).
 //
 // Arithmetic, as the TPU kernel: the encoding rounded to bf16 (wgmma_mlp.cuh
 // pe_encode: the accurate sinf/cosf, as one sincosf a pair);

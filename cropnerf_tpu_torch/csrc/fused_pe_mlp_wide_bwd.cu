@@ -54,11 +54,11 @@
 // one, handed back after each tile).  At the end the weight-gradient
 // warpgroup writes its sums once into the block's partial row and the
 // block its warps' bias sums in order into its bias row; fixed-order
-// column sums (bwd_layers.cuh column_sum) reduce the rows.  No atomics:
+// column sums (column_sum.cuh) reduce the rows.  No atomics:
 // the plan depends on N and the SM count alone, so two runs give the same
 // bits, and the weight gradients are the same with and without dx.  Rows
 // past N encode zero x and load zero cotangents, so they add nothing.
-#include "bwd_layers.cuh"
+#include "column_sum.cuh"
 #include "wgmma_bwd.cuh"
 
 namespace cropnerf {

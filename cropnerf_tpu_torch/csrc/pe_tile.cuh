@@ -261,20 +261,21 @@ __device__ __forceinline__ void activation_out(const float (&v)[N / 2], const Bi
 
 // ---- the rows' encoding --------------------------------------------------------
 
-// Row r's NeRF encoding [x | sin(2^f x) | cos(2^f x)], rounded to bf16,
-// into the chunk-major tile e (zero columns up to enc_pad); xv(d) is the
-// row's coordinate d.  Two threads share a row: half 0 writes x and the
-// even frequencies, half 1 the odd ones and the zero columns.  sincosf is
-// the accurate sinf and cosf in one range reduction (arguments reach
-// 2^9 rad); no integer division.
+// Row r's NeRF encoding [x | sin(2^f x) | cos(2^f x)] of `dim`
+// coordinates and F frequencies (enc_cols columns), rounded to bf16, into
+// the chunk-major tile e (zero columns up to enc_pad); xv(d) is the row's
+// coordinate d.  Two threads share a row: half 0 writes x and the even
+// frequencies, half 1 the odd ones and the zero columns.  sincosf is the
+// accurate sinf and cosf in one range reduction (arguments reach 2^9 rad);
+// no integer division.
 template <class Xv>
-__device__ __forceinline__ void encode_row(const Xv& xv, int r, int half, const int* h, bf16* e) {
-  const int dim = h[H_DIM], F = h[H_FREQS];
+__device__ __forceinline__ void encode_row(const Xv& xv, int r, int half, int dim, int F,
+                                           int enc_cols, int enc_pad, bf16* e) {
   const int cos0 = dim * (1 + F);
   if (half == 0) {
     for (int d = 0; d < dim; ++d) e[cm(r, d)] = __float2bfloat16_rn(xv(d));
   } else {
-    for (int c = h[H_ENC_COLS]; c < h[H_ENC_PAD]; ++c) e[cm(r, c)] = __float2bfloat16_rn(0.0f);
+    for (int c = enc_cols; c < enc_pad; ++c) e[cm(r, c)] = __float2bfloat16_rn(0.0f);
   }
   for (int f = half; f < F; f += 2) {
     const float scale = (float)(1 << f);
@@ -286,6 +287,40 @@ __device__ __forceinline__ void encode_row(const Xv& xv, int r, int half, const 
     }
   }
 }
+
+// The same with the widths from a program's header.
+template <class Xv>
+__device__ __forceinline__ void encode_row(const Xv& xv, int r, int half, const int* h, bf16* e) {
+  encode_row(xv, r, half, h[H_DIM], h[H_FREQS], h[H_ENC_COLS], h[H_ENC_PAD], e);
+}
+
+// ---- two warpgroups out of phase ---------------------------------------------
+
+// The order of the consumers' products, out of phase: warpgroup 0 starts
+// each product, warpgroup 1 starts it once warpgroup 0 has issued the
+// products of its first slab, and warpgroup 0 starts the next once
+// warpgroup 1 has done the same, so each warpgroup's epilogue runs while
+// the other's slabs multiply.  Both read the same slabs; before it hands
+// over, a warpgroup holds at most 1 <= stages - 2 slab of its product that
+// the other has not read (the kernels' MIN_STAGES), so the ring always has
+// room for it and the two never wait on each other in a circle.
+//
+// turn[w] completes a phase when the other warpgroup's 4 warps have handed
+// over; p counts the calling warpgroup's products, `total` is the block's
+// count, the same for both.  mbarriers rather than named barriers, so that
+// a fault in the order traps (mbar_wait) instead of hanging the card.
+struct PingPong {
+  uint64_t* turn;
+  int wg, lane;
+  long long p, total;
+  __device__ void wait() const {
+    if (wg == 0 && p == 0) return;
+    mbar_wait(&turn[wg], (uint32_t)((wg == 0 ? p - 1 : p) & 1));
+  }
+  __device__ void pass() const {
+    if ((wg == 0 || p + 1 < total) && lane == 0) mbar_arrive(&turn[wg ^ 1]);
+  }
+};
 
 }  // namespace pe
 }  // namespace cropnerf

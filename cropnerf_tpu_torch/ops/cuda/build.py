@@ -20,7 +20,7 @@ from typing import Dict, Iterable
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("fused_pe_field", "fused_pe_field_bwd", "fused_mlp",
+SOURCES = ("fused_pe_field", "fused_pe_field_bwd", "fused_mlp_stream",
            "fused_mlp_fwd", "fused_mlp_bwd", "fused_pe_mlp_fwd",
            "fused_pe_mlp_bwd", "fused_pe_mlp_wide_bwd", "hash_encode",
            "transmittance")

@@ -1,13 +1,15 @@
 """Argument checks and weight packing shared by the kernel wrappers.
 
-The wmma kernels take every weight of a network in one bf16 buffer and
-every bias in one f32 buffer (``pack_layers``).  Each matrix is
-zero-padded to multiples of 16 in both dims (the wmma tile); a layer whose
-input is a concatenation of two activations (the skip layer, the colour
-head's layer 0) stacks the two padded row blocks.  Each layer is described
-to the kernel by five ints: (weight offset, bias offset, padded K, padded
-N, rows taken from the first input).  The wgmma MLP kernels (K3 and K5)
-take ``weight_images`` instead and run ``persistent_blocks`` blocks.
+The PE field's kernels (K1, K2) take every weight of the field in one
+bf16 buffer and every bias in one f32 buffer (``pack_layers``), and return
+their weight gradients in that layout, as the stream route's backward
+(``mlp_plan.py``) does.  Each matrix is zero-padded to multiples of 16 in
+both dims; a layer whose input is a concatenation of two activations (the
+skip layer, the colour head's layer 0) stacks the two padded row blocks.
+Each layer is described by five ints: (weight offset, bias offset, padded
+K, padded N, rows taken from the first input).  The resident-weight wgmma
+MLP kernels (K3 and K5) take ``weight_images`` instead and run
+``persistent_blocks`` blocks.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ import torch
 # one dense layer: ([(weight [k_i, n], padded k_i), ...], bias [n] or [1, n])
 Layer = Tuple[List[Tuple[torch.Tensor, int]], torch.Tensor]
 
-MAX_WIDTH = 256            # csrc/fused_layers.cuh MAX_WIDTH
+MAX_WIDTH = 256            # the widest padded layer of the kernels
 MAX_SMEM_BYTES = 232_448   # per-block dynamic shared memory on Hopper
 
 

@@ -20,19 +20,22 @@ shape alone picks its kernels (``fused_mlp_route``):
   semantic head of ``-huge``) or 256 (``-huge``'s colour head,
   ``mlp_hidden_pad``); launches counted on ``fused_mlp`` and
   ``fused_mlp_bwd``;
-- "wmma", every other net (no preset builds one: more layers, wider
-  layers, or a net too large for shared memory): ``csrc/fused_mlp.cu`` on
-  ``pack_mlp``'s buffers; launches counted on ``fused_mlp_wide`` and
-  ``fused_mlp_bwd_wide``.
+- "stream", every other net of 1 to 32 layers whose input and layers are
+  at most 256 wide (more layers, more outputs, or a net too large for
+  shared memory, such as ``-huge`` with a 256-wide semantic head):
+  ``csrc/fused_mlp_stream.cu``, ``wgmma`` with the weights streamed
+  through shared memory, on the programs ``mlp_plan.py`` builds; launches
+  counted on ``fused_mlp_stream`` and ``fused_mlp_stream_bwd``.
 
-On the card the backward (``fused_mlp_bwd``) recomputes the forward from x
+A wider net has no kernel: on the card ``fused_mlp`` raises for it.  On
+the card the backward (``fused_mlp_bwd``) recomputes the forward from x
 and the weights, as the JAX custom VJP saves only ``(x, wbs)``, and
 computes only the gradients autograd asks for: dx alone when no weight
 needs one.  The ragged tail of N is masked in the kernels; there is no
 fallback.  ``fused_pe_field.fused_pe_mlp`` (the PE proposal nets) takes
 the PE variants of both routes for nets wider than its own kernels:
-``wgmma_forward`` and ``wgmma_backward`` with ``num_freqs``, and the wmma
-forward through ``run_forward`` with ``pe``.
+``wgmma_forward`` and ``wgmma_backward``, ``stream_forward`` and
+``stream_backward`` with ``num_freqs``.
 """
 from __future__ import annotations
 
@@ -46,8 +49,10 @@ from ..mlp import mm_f32acc
 from . import build
 from .common import (MAX_SMEM_BYTES, PE_ENC, WGMMA_HIDDEN,
                      WGMMA_OUT, c_ints, check_images, check_kernel_call,
-                     check_rows, pack_layers, pad16, persistent_blocks,
-                     sm_count, stream_ptr, unpack_layers, weight_images)
+                     check_rows, pad16, persistent_blocks, sm_count,
+                     stream_ptr, unpack_layers, weight_images)
+from .mlp_plan import (program_key, stream_images, stream_layers,
+                       stream_plan, stream_takes)
 
 
 def fused_mlp_plain(x: torch.Tensor, wbs: Sequence[torch.Tensor],
@@ -64,116 +69,10 @@ def fused_mlp_plain(x: torch.Tensor, wbs: Sequence[torch.Tensor],
     return h.float()
 
 
-@functools.lru_cache(maxsize=None)
-def _lib():
-    """The library of ``csrc/fused_mlp.cu`` (the "wmma" route): the plain
-    MLP's entry points and the PE MLP's (``fused_pe_mlp`` in
-    ``fused_pe_field.py``)."""
-    lib = build.load("fused_mlp")
-    meta = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
-    pe = [ctypes.c_int, ctypes.c_int]
-    lib.cropnerf_fused_mlp_fwd.argtypes = [ctypes.c_void_p] * 4 + meta + [
-        ctypes.c_longlong, ctypes.c_void_p]
-    lib.cropnerf_fused_pe_mlp_fwd.argtypes = [ctypes.c_void_p] * 4 + meta + pe + [
-        ctypes.c_longlong, ctypes.c_void_p]
-    lib.cropnerf_fused_mlp_bwd.argtypes = [ctypes.c_void_p] * 5 + meta + [
-        ctypes.c_longlong] + [ctypes.c_void_p] * 5
-    lib.cropnerf_fused_mlp_bwd_sizes.argtypes = meta + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
-    lib.cropnerf_fused_mlp_bwd_smem_bytes.argtypes = meta
-    for f in ("cropnerf_fused_mlp_fwd", "cropnerf_fused_pe_mlp_fwd",
-              "cropnerf_fused_mlp_bwd",
-              "cropnerf_fused_mlp_bwd_sizes",
-              "cropnerf_fused_mlp_bwd_smem_bytes"):
-        getattr(lib, f).restype = ctypes.c_int
-    return lib
-
-
 def _layers(wbs: Sequence[torch.Tensor]):
+    """``common.pack_layers``' layers of the net ``wbs``."""
     return [([(wbs[2 * i], pad16(wbs[2 * i].shape[0]))], wbs[2 * i + 1])
             for i in range(len(wbs) // 2)]
-
-
-def pack_mlp(din: int, wbs: Sequence[torch.Tensor],
-             device: torch.device | str = "cpu"):
-    """(bf16 weights, f32 biases, meta ints) as the kernels take them."""
-    layers = _layers(wbs)
-    wbuf, bbuf, descs = pack_layers(layers, torch.device(device))
-    hmax = max([pad16(din)] + [pad16(w.shape[1]) for w in wbs[0::2]])
-    return wbuf, bbuf, [din, pad16(din), wbs[-2].shape[1], len(layers),
-                        hmax] + descs
-
-
-def bwd_smem_bytes(meta) -> int:
-    """Dynamic shared memory one block of the backward takes for ``meta``
-    (-1 where the kernel rejects the layout)."""
-    return _lib().cropnerf_fused_mlp_bwd_smem_bytes(c_ints(meta), len(meta))
-
-
-def run_forward(name, x, wbs, din, pe=None):
-    """One launch of the forward kernel (of the PE MLP with ``pe`` = (dim,
-    num_freqs), whose MLP takes the ``din``-wide encoding); no launch for
-    N = 0.  Returns the [N, Dout] float32 output."""
-    device = x.device
-    n_rows = x.shape[0]
-    wbuf, bbuf, meta = pack_mlp(din, wbs, device)
-    out = torch.empty((n_rows, wbs[-2].shape[1]), dtype=torch.float32,
-                      device=device)
-    if n_rows == 0:
-        return out
-    lib = _lib()
-    args = [x.data_ptr(), out.data_ptr(), wbuf.data_ptr(), bbuf.data_ptr(),
-            c_ints(meta), len(meta)]
-    with torch.cuda.device(device):
-        err = (lib.cropnerf_fused_mlp_fwd(*args, n_rows, stream_ptr(device))
-               if pe is None else lib.cropnerf_fused_pe_mlp_fwd(
-                   *args, *pe, n_rows, stream_ptr(device)))
-    if err:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    return out
-
-
-def run_backward(name, x, wbs, g, need_dx, need_dw):
-    """One launch of the wmma backward kernel and its weight-gradient sums:
-    (dx or None, [dW0, db0, ...] in the shapes of ``wbs`` or None) in
-    float32.  No launch for N = 0."""
-    device = check_kernel_call(name, [x, g, *wbs], torch.bfloat16)
-    n = x.shape[0]
-    check_rows("g", g, n=n, cols=wbs[-2].shape[1])
-    wbuf, bbuf, meta = pack_mlp(x.shape[1], wbs, device)
-    lib = _lib()
-    sizes = (ctypes.c_longlong * 4)()
-    if lib.cropnerf_fused_mlp_bwd_sizes(c_ints(meta), len(meta), n,
-                                        int(need_dw), sizes):
-        raise ValueError(f"{name}: the kernel rejects this layout")
-    smem = bwd_smem_bytes(meta)
-    if not 0 < smem <= MAX_SMEM_BYTES:
-        raise ValueError(f"{name}: the kernel rejects this layout or needs "
-                         f"{smem} B of shared memory per block, more than "
-                         f"{MAX_SMEM_BYTES}")
-    n_wpart, n_bpart, total_w, total_b = list(sizes)
-    dx = torch.empty_like(x) if need_dx else None
-    ptrs = [None] * 4
-    if need_dw:
-        dw = torch.zeros((total_w,), dtype=torch.float32, device=device)
-        db = torch.zeros((total_b,), dtype=torch.float32, device=device)
-        wpart = torch.zeros((n_wpart,), dtype=torch.float32, device=device)
-        bpart = torch.zeros((n_bpart,), dtype=torch.float32, device=device)
-        ptrs = [t.data_ptr() for t in (wpart, bpart, dw, db)]
-    if n:
-        args = [x.data_ptr(), g.data_ptr(), dx.data_ptr() if need_dx else None,
-                wbuf.data_ptr(), bbuf.data_ptr(), c_ints(meta), len(meta)]
-        with torch.cuda.device(device):
-            err = lib.cropnerf_fused_mlp_bwd(*args, n, *ptrs,
-                                             stream_ptr(device))
-        if err:
-            raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    dwbs = None
-    if need_dw:
-        dwbs = [t for ws, db_l in unpack_layers(_layers(wbs), dw, db,
-                                                meta[5:])
-                for t in (*ws, db_l)]
-    return dx, dwbs
 
 
 # csrc/wgmma_mlp.cuh max_kb: the widest input the wgmma kernels take, and
@@ -226,15 +125,21 @@ def fused_mlp_route(din: int, widths: Sequence[int]) -> str:
     layers with hidden widths up to 256, din up to 256 (128 for 3 layers)
     and up to 16 outputs whose weight images and one warpgroup's tiles fit
     a block's shared memory (every head of the ``cropnerf-mxu`` family),
-    else "wmma" (``csrc/fused_mlp.cu``)."""
+    else "stream" (``csrc/fused_mlp_stream.cu``) for 1 to 32 layers with
+    din and every width up to 256.  Raises ValueError for a wider or
+    deeper net, which no kernel takes."""
     max_din = MLP_MAX_DIN_8 if len(widths) == 3 else MLP_MAX_DIN
-    if not (len(widths) in (2, 3) and 1 <= din <= max_din
+    if (len(widths) in (2, 3) and 1 <= din <= max_din
             and 1 <= widths[-1] <= WGMMA_OUT):
-        return "wmma"
-    hw = mlp_hidden_pad(din, widths)
-    fits = hw and _least_bwd_smem(din, widths[-1], len(widths),
-                                  hw) <= MAX_SMEM_BYTES
-    return "wgmma" if fits else "wmma"
+        hw = mlp_hidden_pad(din, widths)
+        if hw and _least_bwd_smem(din, widths[-1], len(widths),
+                                  hw) <= MAX_SMEM_BYTES:
+            return "wgmma"
+    if stream_takes(din, widths):
+        return "stream"
+    raise ValueError(f"fused_mlp: no kernel takes x [N, {din}] -> "
+                     f"{list(widths)} (at most 32 layers, each and the "
+                     "input at most 256 wide)")
 
 
 def _widths(wbs) -> list:
@@ -373,25 +278,142 @@ def _wgmma_forward(x, wbs, img, bias) -> torch.Tensor:
     return out
 
 
-def fused_mlp_wide(x: torch.Tensor, wbs: Sequence[torch.Tensor]
-                   ) -> torch.Tensor:
-    """The "wmma" route's forward on CUDA tensors (``csrc/fused_mlp.cu``;
-    one launch, none for N = 0)."""
-    out = run_forward("fused_mlp", x, wbs, x.shape[1])
+@functools.lru_cache(maxsize=None)
+def _stream_lib():
+    """``csrc/fused_mlp_stream.cu``: the stream route's forward and
+    backward, K3's and K5's."""
+    lib = build.load("fused_mlp_stream")
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    prog = [ctypes.POINTER(ctypes.c_int), vp, i32, i64]
+    lib.cropnerf_mlp_stream_fwd.argtypes = [vp] * 4 + prog + [vp]
+    lib.cropnerf_mlp_stream_bwd.argtypes = [vp] * 5 + prog + [vp] * 7
+    lib.cropnerf_mlp_stream_bwd_sizes.argtypes = prog[:1] + [
+        i32, i64, ctypes.POINTER(ctypes.c_longlong)]
+    for f in ("fwd", "bwd"):
+        getattr(lib, f"cropnerf_mlp_stream_{f}_smem_bytes").argtypes = [
+            ctypes.POINTER(ctypes.c_int), i32]
+    for f in ("fwd", "bwd", "bwd_sizes", "fwd_smem_bytes", "bwd_smem_bytes"):
+        getattr(lib, f"cropnerf_mlp_stream_{f}").restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=64)
+def _stream_program(key: tuple, device: torch.device):
+    """(the program's ints on the host, the same on the device) of
+    ``mlp_plan.program_key``'s ``key``, built once: a copy from host memory
+    to the card waits for the stream, so it is not made on every call."""
+    prog = stream_plan(key).ints()
+    return prog, torch.tensor(prog, dtype=torch.int32, device=device)
+
+
+def _stream_key(x, wbs, num_freqs: int, backward: bool, need_dx=True,
+                need_dw=True) -> tuple:
+    pe = num_freqs >= 0
+    return program_key(wbs[0].shape[0], _widths(wbs), x.shape[1] if pe else 0,
+                       num_freqs if pe else 0, backward, need_dx, need_dw)
+
+
+def stream_smem_bytes(key: tuple, backward: bool) -> int:
+    """Dynamic shared memory a block of the stream kernel takes for the
+    program ``key`` (-1 where the kernel rejects it): the C layout
+    function, which ``mlp_plan.stream_smem`` mirrors."""
+    prog = stream_plan(key).ints()
+    f = "bwd" if backward else "fwd"
+    return getattr(_stream_lib(), f"cropnerf_mlp_stream_{f}_smem_bytes")(
+        c_ints(prog), len(prog))
+
+
+def stream_forward(name, x, wbs, num_freqs: int = -1) -> torch.Tensor:
+    """One launch of ``csrc/fused_mlp_stream.cu``'s forward on CUDA
+    tensors (none for N = 0): the [N, Dout] float32 output.  ``num_freqs``
+    >= 0: K5's variant, x [N, dim] encoded with that many frequencies into
+    layer 0's input."""
+    device, n = x.device, x.shape[0]
+    out = torch.empty((n, wbs[-2].shape[1]), dtype=torch.float32,
+                      device=device)
+    if n == 0:
+        return out
+    key = _stream_key(x, wbs, num_freqs, False)
+    prog, prog_dev = _stream_program(key, device)
+    img, bias = stream_images(wbs, key)
+    with torch.cuda.device(device):
+        err = _stream_lib().cropnerf_mlp_stream_fwd(
+            x.data_ptr(), out.data_ptr(), img.data_ptr(), bias.data_ptr(),
+            c_ints(prog), prog_dev.data_ptr(), len(prog), n,
+            stream_ptr(device))
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    return out
+
+
+def stream_backward(name, x, wbs, g, need_dx, need_dw, num_freqs: int = -1):
+    """One launch of ``csrc/fused_mlp_stream.cu``'s backward on checked
+    CUDA tensors, and its weight-gradient pass (none for N = 0): (dx or
+    None, [dW0, db0, ...] in the shapes of ``wbs`` or None) in float32.
+    ``num_freqs`` >= 0: K5's variant, x and dx [N, dim]."""
+    device, n = x.device, x.shape[0]
+    key = _stream_key(x, wbs, num_freqs, True, need_dx, need_dw)
+    prog, prog_dev = _stream_program(key, device)
+    lib = _stream_lib()
+    sizes = (ctypes.c_longlong * 6)()
+    if lib.cropnerf_mlp_stream_bwd_sizes(c_ints(prog), len(prog), n, sizes):
+        raise ValueError(f"{name}: the stream kernel rejects this net")
+    ws_n, mask_n, bpart_n, wpart_n, total_w, total_b = list(sizes)
+    f32 = dict(dtype=torch.float32, device=device)
+    dx = torch.empty_like(x) if need_dx else None
+    dw = db = ws = masks = bpart = wpart = None
+    if need_dw:
+        dw, db = torch.zeros((total_w,), **f32), torch.zeros((total_b,), **f32)
+    if n:
+        img, bias = stream_images(wbs, key)
+        if mask_n:
+            masks = torch.empty((mask_n,), dtype=torch.int32, device=device)
+        if need_dw:
+            ws = torch.empty((ws_n,), dtype=torch.bfloat16, device=device)
+            bpart, wpart = (torch.empty((bpart_n,), **f32),
+                            torch.empty((wpart_n,), **f32))
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        with torch.cuda.device(device):
+            err = lib.cropnerf_mlp_stream_bwd(
+                x.data_ptr(), g.data_ptr(), ptr(dx), img.data_ptr(),
+                bias.data_ptr(), c_ints(prog), prog_dev.data_ptr(), len(prog),
+                n, ptr(ws), ptr(masks), ptr(bpart), ptr(wpart), ptr(dw),
+                ptr(db), stream_ptr(device))
+        if err:
+            raise RuntimeError(f"{name} kernel launch failed: cudaError "
+                               f"{err}")
+    return dx, (unpack_stream_grads(wbs, dw, db) if need_dw else None)
+
+
+def unpack_stream_grads(wbs: Sequence[torch.Tensor], dw: torch.Tensor,
+                        db: torch.Tensor) -> list:
+    """The stream backward's packed f32 gradients (``common.pack_layers``'
+    layout) → [dW0, db0, ...] in the shapes of ``wbs``."""
+    descs = [v for l in stream_layers(wbs[0].shape[0], _widths(wbs))
+             for v in l]
+    return [t for ws, db_l in unpack_layers(_layers(wbs), dw, db, descs)
+            for t in (*ws, db_l)]
+
+
+def fused_mlp_stream(x: torch.Tensor, wbs: Sequence[torch.Tensor]
+                     ) -> torch.Tensor:
+    """The "stream" route's forward on CUDA tensors
+    (``csrc/fused_mlp_stream.cu``; one launch, none for N = 0)."""
+    out = stream_forward("fused_mlp", x, wbs)
     if x.shape[0]:
-        fused_mlp_wide.launches += 1
+        fused_mlp_stream.launches += 1
     return out
 
 
 @torch.no_grad()
-def fused_mlp_bwd_wide(x: torch.Tensor, wbs: Sequence[torch.Tensor],
-                       g: torch.Tensor, need_dx: bool = True,
-                       need_dw: bool = True):
-    """The "wmma" route's backward on CUDA tensors (``csrc/fused_mlp.cu``):
-    as ``fused_mlp_bwd``."""
-    out = run_backward("fused_mlp_bwd", x, wbs, g, need_dx, need_dw)
+def fused_mlp_stream_bwd(x: torch.Tensor, wbs: Sequence[torch.Tensor],
+                         g: torch.Tensor, need_dx: bool = True,
+                         need_dw: bool = True):
+    """The "stream" route's backward on CUDA tensors
+    (``csrc/fused_mlp_stream.cu``): as ``fused_mlp_bwd``."""
+    out = stream_backward("fused_mlp_bwd", x, wbs, g, need_dx, need_dw)
     if x.shape[0]:
-        fused_mlp_bwd_wide.launches += 1
+        fused_mlp_stream_bwd.launches += 1
     return out
 
 
@@ -411,8 +433,8 @@ def fused_mlp_bwd(x: torch.Tensor, wbs: Sequence[torch.Tensor],
     check_rows("g", g, n=n, cols=wbs[-2].shape[1])
     if not (need_dx or need_dw):
         raise ValueError("fused_mlp_bwd: nothing asked for")
-    if _route(x, wbs) == "wmma":
-        return fused_mlp_bwd_wide(x, wbs, g, need_dx, need_dw)
+    if _route(x, wbs) == "stream":
+        return fused_mlp_stream_bwd(x, wbs, g, need_dx, need_dw)
     out = wgmma_backward("fused_mlp_bwd", x, wbs, g, need_dx, need_dw,
                          images)
     if n:
@@ -491,9 +513,9 @@ class _FusedMlp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, *wbs):
         ctx.n_wbs = len(wbs)
-        if _route(x, wbs) == "wmma":
+        if _route(x, wbs) == "stream":
             ctx.save_for_backward(x, *wbs)
-            return fused_mlp_wide(x, wbs)
+            return fused_mlp_stream(x, wbs)
         images = mlp_images(wbs)
         ctx.save_for_backward(x, *wbs, *images)
         return _wgmma_forward(x, wbs, *images)
@@ -515,8 +537,8 @@ def _fused_mlp_card(x, wbs) -> torch.Tensor:
     route alone, on the wgmma route with the forward half of the images."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *wbs)):
         return _FusedMlp.apply(x, *wbs)
-    if _route(x, wbs) == "wmma":
-        return fused_mlp_wide(x, wbs)
+    if _route(x, wbs) == "stream":
+        return fused_mlp_stream(x, wbs)
     return _wgmma_forward(x, wbs, *mlp_images(wbs, backward=False))
 
 
@@ -541,6 +563,6 @@ def fused_mlp(x: torch.Tensor, wbs: Sequence[torch.Tensor],
 
 
 fused_mlp.launches = 0
-fused_mlp_wide.launches = 0
+fused_mlp_stream.launches = 0
 fused_mlp_bwd.launches = 0
-fused_mlp_bwd_wide.launches = 0
+fused_mlp_stream_bwd.launches = 0

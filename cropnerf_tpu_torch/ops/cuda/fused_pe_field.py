@@ -26,10 +26,7 @@ plain versions.
 ``fused_pe_mlp`` (the PE proposal nets with ``mlp_impl="pallas-fused"``:
 encode, then a relu MLP to [N, 1]) launches, for tensors on the card, a
 forward kernel (replacing ``_plain_fwd_kernel``) and a recompute backward
-(replacing ``_plain_bwd_kernel``), both persistent warpgroups on
-``wgmma`` with the net resident in shared memory, on the weight images
-``pe_mlp_images`` builds once per call (the forward half alone where no
-graph is recorded) and the backward reuses.  The net's shape picks them
+(replacing ``_plain_bwd_kernel``).  The net's shape picks them
 (``pe_mlp_fwd_route``): "wgmma", hidden layers up to 64 wide (every
 preset's 64-wide nets), ``csrc/fused_pe_mlp_fwd.cu`` and
 ``csrc/fused_pe_mlp_bwd.cu``; "wide", hidden layers padded to 128 or 256
@@ -37,15 +34,21 @@ preset's 64-wide nets), ``csrc/fused_pe_mlp_fwd.cu`` and
 ``csrc/fused_mlp_fwd.cu`` and, with weight gradients,
 ``csrc/fused_pe_mlp_wide_bwd.cu`` (each block's weight sums kept in a
 warpgroup's registers across its tiles; dx alone the PE variant of
-``csrc/fused_mlp_bwd.cu``); launches of both counted on ``fused_pe_mlp``
-and ``fused_pe_mlp_bwd``.  Every other net
-("wmma": 4 layers, 17 outputs, more than 64 encoding columns, x not
-[N, 3], or a wide net whose backward overflows shared memory) runs its
-forward on the PE variant of ``csrc/fused_mlp.cu`` (counted on
-``fused_pe_mlp_wide``) and has no backward kernel.  On the CPU it
-computes ``fused_pe_mlp_plain``.  The JAX selector argument ``s`` (zero
-gradient) has no counterpart: the kernels and the plain version build the
-encoding from the frequencies.
+``csrc/fused_mlp_bwd.cu``); both persistent warpgroups on ``wgmma`` with
+the net resident in shared memory, on the weight images
+``pe_mlp_images`` builds once per call (the forward half alone where no
+graph is recorded) and the backward reuses; launches counted on
+``fused_pe_mlp`` and ``fused_pe_mlp_bwd``.  Every other net of 1 to 32
+layers whose encoding and layers are at most 256 wide ("stream": 4
+layers, 17 outputs, more than 64 encoding columns, x not [N, 3], or a
+wide net too large for shared memory, such as ``cropnerf-mxu-q``'s nets
+at 256 wide) runs on ``csrc/fused_mlp_stream.cu``, the weights streamed
+through shared memory, forward and backward (counted on
+``fused_pe_mlp_stream`` and ``fused_pe_mlp_stream_bwd``); so on the card
+every such net records a graph.  A wider net has no kernel and raises on
+the card.  On the CPU it computes ``fused_pe_mlp_plain``.  The JAX
+selector argument ``s`` (zero gradient) has no counterpart: the kernels
+and the plain version build the encoding from the frequencies.
 
 Rounding points follow the JAX kernels: the encoding is rounded to the
 compute dtype before base layer 0, every hidden layer applies relu then
@@ -64,8 +67,9 @@ import torch
 from ..mlp import mm_f32acc
 from . import build
 from .fused_mlp import (_least_bwd_smem, fused_mlp_plain, mlp_hidden_pad,
-                        mlp_images, run_forward, wgmma_backward,
-                        wgmma_forward)
+                        mlp_images, stream_backward, stream_forward,
+                        wgmma_backward, wgmma_forward)
+from .mlp_plan import stream_takes
 from .pe_plan import build_forward_plan, build_plan, image_index, weight_image
 from .common import (MAX_SMEM_BYTES, PE_DIM, PE_ENC, WGMMA_HIDDEN,
                      WGMMA_OUT, c_ints, check_images, check_kernel_call,
@@ -602,18 +606,19 @@ def pe_mlp_kernels_take(dim: int, num_freqs: int,
 
 
 def pe_mlp_fwd_route(dim: int, num_freqs: int, widths: Sequence[int]) -> str:
-    """The kernels a net takes on the card, by its shape alone: "wgmma"
-    (``csrc/fused_pe_mlp_fwd.cu``, ``csrc/fused_pe_mlp_bwd.cu``) for every
-    net those take (all presets' PE proposal nets at 64 wide); "wide" (the
-    PE variant of ``csrc/fused_mlp_fwd.cu``, ``csrc/fused_pe_mlp_wide_bwd.cu``
-    and the PE variant of ``csrc/fused_mlp_bwd.cu``) for x [N, 3], at most
-    64 encoding columns, 2 or 3 layers and at most 16 outputs, hidden
-    layers padded to 128 or 256 (``mlp_hidden_pad``), whose backward with
-    weight gradients fits a block's shared memory at one stage and one set
-    of operand tiles (the 128-wide nets of ``cropnerf-mxu-q``; not a
-    3-layer net 256 wide); else "wmma" (the PE variant of
-    ``csrc/fused_mlp.cu``'s forward, hidden widths up to 256; no backward
-    kernel)."""
+    """The kernels a net takes on the card, forward and backward, by its
+    shape alone: "wgmma" (``csrc/fused_pe_mlp_fwd.cu``,
+    ``csrc/fused_pe_mlp_bwd.cu``) for every net those take (all presets'
+    PE proposal nets at 64 wide); "wide" (the PE variant of
+    ``csrc/fused_mlp_fwd.cu``, ``csrc/fused_pe_mlp_wide_bwd.cu`` and the
+    PE variant of ``csrc/fused_mlp_bwd.cu``) for x [N, 3], at most 64
+    encoding columns, 2 or 3 layers and at most 16 outputs, hidden layers
+    padded to 128 or 256 (``mlp_hidden_pad``), whose backward with weight
+    gradients fits a block's shared memory at one stage and one set of
+    operand tiles (the 128-wide nets of ``cropnerf-mxu-q``; not a 3-layer
+    net 256 wide); else "stream" (``csrc/fused_mlp_stream.cu``) for 1 to
+    32 layers with the encoding and every width up to 256.  Raises
+    ValueError for a wider or deeper net, which no kernel takes."""
     if pe_mlp_kernels_take(dim, num_freqs, widths):
         return "wgmma"
     enc = dim * (1 + 2 * num_freqs)
@@ -623,27 +628,23 @@ def pe_mlp_fwd_route(dim: int, num_freqs: int, widths: Sequence[int]) -> str:
         if hw and _least_bwd_smem(enc, widths[-1], len(widths), hw,
                                   pe=True) <= MAX_SMEM_BYTES:
             return "wide"
-    return "wmma"
+    if stream_takes(enc, widths, dim, num_freqs):
+        return "stream"
+    raise ValueError(
+        f"fused_pe_mlp: no kernel takes x [N, {dim}], F={num_freqs} "
+        f"({enc} encoding columns) -> {list(widths)} (at most 32 layers, "
+        "each and the encoding at most 256 wide, F at most 30)")
+
+
+def _pe_route(x, wbs, num_freqs) -> str:
+    return pe_mlp_fwd_route(x.shape[1], num_freqs,
+                            [w.shape[1] for w in wbs[0::2]])
 
 
 def _wide(wbs) -> bool:
-    """Whether a net the kernels take is on the "wide" route: a hidden
-    layer over 64."""
+    """Whether a net the wgmma kernels take is on the "wide" route: a
+    hidden layer over 64."""
     return any(w.shape[1] > PE_MLP_HIDDEN for w in wbs[0:-2:2])
-
-
-def _check_pe_mlp_bwd(x, wbs, num_freqs) -> None:
-    """The nets a backward kernel takes (``pe_mlp_fwd_route`` "wgmma" or
-    "wide")."""
-    widths = [w.shape[1] for w in wbs[0::2]]
-    if pe_mlp_fwd_route(x.shape[1], num_freqs, widths) == "wmma":
-        raise ValueError(
-            f"fused_pe_mlp_bwd: the kernels take x [N, {PE_MLP_DIM}], at most "
-            f"{PE_MLP_ENC} encoding columns, 2 or 3 layers and {PE_MLP_OUT} "
-            f"outputs, with hidden widths up to {PE_MLP_HIDDEN}, or padded to "
-            f"128 or 256 where the weight images and one set of operand "
-            f"tiles fit {MAX_SMEM_BYTES} B of shared memory; got x "
-            f"{tuple(x.shape)}, F={num_freqs}, widths {widths}")
 
 
 def pe_mlp_images(wbs: Sequence[torch.Tensor], backward: bool = True
@@ -736,16 +737,27 @@ def _pe_mlp_fwd_launch(x, wbs, num_freqs, img, bias) -> torch.Tensor:
     return out
 
 
-def fused_pe_mlp_wide(x: torch.Tensor, wbs: Sequence[torch.Tensor],
-                      num_freqs: int) -> torch.Tensor:
-    """The "wmma" route of ``pe_mlp_fwd_route`` on CUDA tensors: the PE
-    variant of ``csrc/fused_mlp.cu``'s forward for nets the wgmma kernels
-    do not take (one launch, none for N = 0)."""
-    out = run_forward("fused_pe_mlp", x, wbs,
-                      x.shape[1] * (1 + 2 * num_freqs),
-                      pe=(x.shape[1], num_freqs))
+def fused_pe_mlp_stream(x: torch.Tensor, wbs: Sequence[torch.Tensor],
+                        num_freqs: int) -> torch.Tensor:
+    """The "stream" route of ``pe_mlp_fwd_route`` on CUDA tensors: K5's
+    variant of ``csrc/fused_mlp_stream.cu``'s forward (one launch, none for
+    N = 0)."""
+    out = stream_forward("fused_pe_mlp", x, wbs, num_freqs)
     if x.shape[0]:
-        fused_pe_mlp_wide.launches += 1
+        fused_pe_mlp_stream.launches += 1
+    return out
+
+
+@torch.no_grad()
+def fused_pe_mlp_stream_bwd(x: torch.Tensor, wbs: Sequence[torch.Tensor],
+                            num_freqs: int, g: torch.Tensor,
+                            need_dx: bool = True, need_dw: bool = True):
+    """The "stream" route's backward on CUDA tensors (K5's variant of
+    ``csrc/fused_mlp_stream.cu``'s): as ``fused_pe_mlp_bwd``."""
+    out = stream_backward("fused_pe_mlp_bwd", x, wbs, g, need_dx, need_dw,
+                          num_freqs)
+    if x.shape[0]:
+        fused_pe_mlp_stream_bwd.launches += 1
     return out
 
 
@@ -757,16 +769,19 @@ def fused_pe_mlp_bwd(x: torch.Tensor, wbs: Sequence[torch.Tensor],
     cotangent g [N, Dout] → (dx [N, dim] or None, [dW0, db0, ...] in the
     shapes of ``wbs`` or None) in float32.  It recomputes the forward.
     ``images``: the (image, bias) of ``pe_mlp_images`` for ``wbs`` where
-    the caller has them (the forward's), else built here."""
+    the caller has them (the forward's; none on the stream route), else
+    built here.  On the net's route (``pe_mlp_fwd_route``)."""
     _check_pe_mlp(x, wbs, num_freqs)
     device = check_kernel_call("fused_pe_mlp_bwd", [x, g, *wbs],
                                torch.bfloat16)
     n, n_layers = x.shape[0], len(wbs) // 2
     check_rows("g", g, n=n, cols=wbs[-2].shape[1])
-    _check_pe_mlp_bwd(x, wbs, num_freqs)
     if not (need_dx or need_dw):
         raise ValueError("fused_pe_mlp_bwd: nothing asked for")
-    if _wide(wbs):
+    route = _pe_route(x, wbs, num_freqs)
+    if route == "stream":
+        return fused_pe_mlp_stream_bwd(x, wbs, num_freqs, g, need_dx, need_dw)
+    if route == "wide":
         out = wgmma_backward("fused_pe_mlp_bwd", x, wbs, g, need_dx, need_dw,
                              images, num_freqs)
         if n:
@@ -818,39 +833,41 @@ class _FusedPeMlp(torch.autograd.Function):
     """Forward kernel, and the backward kernel as its gradient, run only
     for the gradients asked for (no dx where x needs none, no weight
     gradients where the weights need none).  Saves x and the weights, as
-    the JAX ``_plain_fwd`` does, and the weight images the forward built,
-    which the backward reads too: all through ``save_for_backward``, so
-    that a checkpoint's hooks drop the images with the rest and its replay
-    builds them again."""
+    the JAX ``_plain_fwd`` does, and on the wgmma routes the weight images
+    the forward built, which the backward reads too: all through
+    ``save_for_backward``, so that a checkpoint's hooks drop the images
+    with the rest and its replay builds them again."""
 
     @staticmethod
     def forward(ctx, x, num_freqs, *wbs):
+        ctx.num_freqs, ctx.n_wbs = num_freqs, len(wbs)
+        if _pe_route(x, wbs, num_freqs) == "stream":
+            ctx.save_for_backward(x, *wbs)
+            return fused_pe_mlp_stream(x, wbs, num_freqs)
         images = pe_mlp_images(wbs)
         ctx.save_for_backward(x, *wbs, *images)
-        ctx.num_freqs = num_freqs
         return _pe_mlp_fwd_launch(x, wbs, num_freqs, *images)
 
     @staticmethod
     def backward(ctx, g):
-        x, *wbs, img, bias = ctx.saved_tensors
+        x, *rest = ctx.saved_tensors
+        wbs, images = rest[:ctx.n_wbs], tuple(rest[ctx.n_wbs:]) or None
         need_dx = ctx.needs_input_grad[0]
         need_dw = any(ctx.needs_input_grad[2:])
         dx, dwbs = fused_pe_mlp_bwd(x, wbs, ctx.num_freqs, g.contiguous(),
-                                    need_dx, need_dw, (img, bias))
+                                    need_dx, need_dw, images)
         return (dx, None, *(dwbs if need_dw else [None] * len(wbs)))
 
 
 def _fused_pe_mlp_card(x, wbs, num_freqs) -> torch.Tensor:
-    """``fused_pe_mlp`` on checked CUDA tensors.  Where a graph is recorded
-    (only for the nets a backward kernel takes), the autograd function
-    above; else the forward kernel that ``pe_mlp_fwd_route`` picks, the
-    wgmma kernels on the forward half of the weight images alone."""
+    """``fused_pe_mlp`` on checked CUDA tensors.  Where a graph is
+    recorded, the autograd function above; else the forward kernel that
+    ``pe_mlp_fwd_route`` picks, the wgmma kernels on the forward half of
+    the weight images alone."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *wbs)):
-        _check_pe_mlp_bwd(x, wbs, num_freqs)
         return _FusedPeMlp.apply(x, num_freqs, *wbs)
-    widths = [w.shape[1] for w in wbs[0::2]]
-    if pe_mlp_fwd_route(x.shape[1], num_freqs, widths) == "wmma":
-        return fused_pe_mlp_wide(x, wbs, num_freqs)
+    if _pe_route(x, wbs, num_freqs) == "stream":
+        return fused_pe_mlp_stream(x, wbs, num_freqs)
     return _pe_mlp_fwd_launch(x, wbs, num_freqs,
                               *pe_mlp_images(wbs, backward=False))
 
@@ -862,8 +879,8 @@ def fused_pe_mlp(x: torch.Tensor, wbs: Sequence[torch.Tensor],
     ``num_freqs`` frequencies → relu MLP wbs = [W0, b0, W1, b1, ...] (W
     [in, out], b [1, out]; linear last layer) → [N, Dout] float32,
     differentiable in x and the weights.  On the card the kernels are the
-    ones ``pe_mlp_fwd_route`` picks by shape, and a graph is recorded only
-    for the nets a backward kernel takes (``_check_pe_mlp_bwd``)."""
+    ones ``pe_mlp_fwd_route`` picks by shape, each route with its
+    backward."""
     _check_pe_mlp(x, wbs, num_freqs)
     if x.device.type == "cpu":
         return fused_pe_mlp_plain(x, wbs, num_freqs, compute_dtype)
@@ -876,5 +893,6 @@ fused_pe_density_bwd.launches = 0
 fused_pe_nerf.launches = 0
 fused_pe_nerf_bwd.launches = 0
 fused_pe_mlp.launches = 0
-fused_pe_mlp_wide.launches = 0
+fused_pe_mlp_stream.launches = 0
 fused_pe_mlp_bwd.launches = 0
+fused_pe_mlp_stream_bwd.launches = 0

@@ -67,31 +67,39 @@ def test_fused_mlp_route_by_preset(preset):
 
 # (din, output widths, route): the wgmma kernels' edges.  A net takes them
 # where its weight images and one warpgroup's tiles fit shared memory
-# (the backward with weight gradients needs most).
+# (the backward with weight gradients needs most); the stream route takes
+# the rest up to 256 wide and 32 layers; None: no kernel.
 ROUTE_EDGES = [(128, [64, 16], "wgmma"),      # the widest input at 64
                (129, [64, 1], "wgmma"),       # one more: padded to 128
                (1, [8, 1], "wgmma"),          # one input, a narrow layer
                (39, [64, 48, 16], "wgmma"),   # three layers
-               (15, [64, 64, 64, 1], "wmma"),  # four layers
-               (15, [1], "wmma"),             # one layer
+               (15, [64, 64, 64, 1], "stream"),  # four layers
+               (15, [1], "stream"),           # one layer
                (15, [65, 1], "wgmma"),        # a hidden layer of 65: 128
-               (15, [64, 17], "wmma"),        # 17 outputs
+               (15, [64, 17], "stream"),      # 17 outputs
                (89, [256, 3], "wgmma"),       # 256 hidden (-huge's colour)
-               (15, [257, 1], "wmma"),        # 257 hidden
+               (15, [257, 1], None),          # 257 hidden: no kernel
                (96, [256, 3], "wgmma"),       # the widest input at 256
-               (97, [256, 3], "wmma"),        # one more: shared memory
+               (97, [256, 3], "stream"),      # one more: shared memory
                (205, [128, 3], "wgmma"),      # the widest input at 128
-               (206, [128, 3], "wmma"),       # one more: shared memory
+               (206, [128, 3], "stream"),     # one more: shared memory
                (93, [128, 128, 1], "wgmma"),  # the widest 3-layer input
-               (94, [128, 128, 1], "wmma"),   # one more: shared memory
-               (30, [256, 256, 1], "wmma"),   # 3 layers 256 wide
-               (256, [8, 1], "wmma"),         # din 256: shared memory
-               (257, [8, 1], "wmma")]         # din over 256
+               (94, [128, 128, 1], "stream"),  # one more: shared memory
+               (30, [256, 256, 1], "stream"),  # 3 layers 256 wide
+               (256, [8, 1], "stream"),       # din 256: shared memory
+               (257, [8, 1], None),           # din over 256
+               (40, [128] * 5 + [7], "stream"),  # 6 layers 128 wide
+               (256, [256] * 32, "stream"),   # 32 layers 256 wide
+               (15, [64] * 33, None)]         # 33 layers
 
 
 @pytest.mark.parametrize("case", range(len(ROUTE_EDGES)))
 def test_fused_mlp_route_edges(case):
     din, widths, route = ROUTE_EDGES[case]
+    if route is None:
+        with pytest.raises(ValueError, match="no kernel"):
+            tmlp.fused_mlp_route(din, widths)
+        return
     assert tmlp.fused_mlp_route(din, widths) == route
 
 
@@ -252,8 +260,8 @@ def _stand_in_kernels(monkeypatch):
         seen["fwd"] = (img, bias)
         return tmlp.fused_mlp_plain(x, wbs)
 
-    def wide(x, wbs):
-        seen["wide"] = True
+    def stream(x, wbs):
+        seen["stream"] = True
         return tmlp.fused_mlp_plain(x, wbs)
 
     def bwd(x, wbs, g, need_dx, need_dw, images):
@@ -261,7 +269,7 @@ def _stand_in_kernels(monkeypatch):
         return None, [torch.zeros_like(w) for w in wbs]
 
     monkeypatch.setattr(tmlp, "_wgmma_forward", launch)
-    monkeypatch.setattr(tmlp, "fused_mlp_wide", wide)
+    monkeypatch.setattr(tmlp, "fused_mlp_stream", stream)
     monkeypatch.setattr(tmlp, "fused_mlp_bwd", bwd)
     return seen
 
@@ -279,19 +287,19 @@ def _net(dims, seed=40):
 ROUTE_NETS = [[74, 64, 3], [30, 256, 256, 1]]
 
 
-@pytest.mark.parametrize("dims", ROUTE_NETS, ids=["wgmma", "wmma"])
+@pytest.mark.parametrize("dims", ROUTE_NETS, ids=["wgmma", "stream"])
 def test_forward_saves_its_images_for_the_backward(dims, monkeypatch):
     """Where a graph is recorded, the card path of the wgmma route builds
     the weight images once, in the forward, and hands those very tensors
-    to the backward; the wmma route builds none.  The kernels are stood in
-    for by the plain version."""
+    to the backward; the stream route builds none (its kernels gather
+    their own).  The kernels are stood in for by the plain version."""
     x, wt = _net(dims)
     wt = [w.requires_grad_(True) for w in wt]
     seen = _stand_in_kernels(monkeypatch)
     out = tmlp._fused_mlp_card(x, wt)
     out.sum().backward()
-    if tmlp.fused_mlp_route(dims[0], dims[1:]) == "wmma":
-        assert seen == {"wide": True, "bwd": None}
+    if tmlp.fused_mlp_route(dims[0], dims[1:]) == "stream":
+        assert seen == {"stream": True, "bwd": None}
         return
     img, bias = tmlp.mlp_images([w.detach() for w in wt])
     assert all(a is b for a, b in zip(seen["bwd"], seen["fwd"]))
@@ -299,20 +307,20 @@ def test_forward_saves_its_images_for_the_backward(dims, monkeypatch):
     assert torch.equal(seen["fwd"][1], bias)
 
 
-@pytest.mark.parametrize("dims", ROUTE_NETS, ids=["wgmma", "wmma"])
+@pytest.mark.parametrize("dims", ROUTE_NETS, ids=["wgmma", "stream"])
 def test_forward_without_a_graph_builds_only_forward_images(dims,
                                                             monkeypatch):
     """Where no graph is recorded (the export, the render), the card path
     launches the forward kernel its route picks and builds no backward
-    half: the wgmma kernel gets the forward images alone, the wmma route
+    half: the wgmma kernel gets the forward images alone, the stream route
     none."""
     x, wt = _net(dims)
     seen = _stand_in_kernels(monkeypatch)
     with torch.no_grad():
         out = tmlp._fused_mlp_card(x, [w.requires_grad_(True) for w in wt])
     assert not out.requires_grad
-    if tmlp.fused_mlp_route(dims[0], dims[1:]) == "wmma":
-        assert seen == {"wide": True}
+    if tmlp.fused_mlp_route(dims[0], dims[1:]) == "stream":
+        assert seen == {"stream": True}
         return
     img, bias = tmlp.mlp_images(wt)
     assert set(seen) == {"fwd"}

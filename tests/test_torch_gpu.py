@@ -149,13 +149,16 @@ def test_fused_pe_density_forward_tiling_edges(cuda, n, hidden):
 
 # K3 (fused_mlp): the heads of cropnerf-mxu and -q, a three-layer net, a
 # 128-wide net and -big's and -huge's heads (128 and 256 wide) on the wgmma
-# kernels, and a 3-layer net 256 wide, too large for their shared memory
-# (wmma route)
+# kernels; a 3-layer net 256 wide, too large for their shared memory,
+# -huge's semantic head at 256 wide and a 6-layer net on the stream route
 K3_DIMS = [(15, 64, 1), (74, 64, 3), (39, 64, 48, 16), (15, 128, 1),
-           (63, 256, 256, 16), (30, 128, 128, 1), (185, 128, 3), (89, 256, 3)]
+           (63, 256, 256, 16), (30, 128, 128, 1), (185, 128, 3), (89, 256, 3),
+           (30, 256, 256, 1), (39, 128, 128, 128, 128, 128, 7)]
 K3_IDS = ["semantic-head", "colour-head", "three-layers", "128-wide", "wide",
-          "big-semantic-head", "big-colour-head", "huge-colour-head"]
-K3_WMMA = [(63, 256, 256, 16)]
+          "big-semantic-head", "big-colour-head", "huge-colour-head",
+          "huge-semantic-256", "six-layers"]
+K3_STREAM = [(63, 256, 256, 16), (30, 256, 256, 1),
+             (39, 128, 128, 128, 128, 128, 7)]
 # the nets the BayesRays batches of -big (4096 rays x 128 samples) and
 # -huge (4096 x 64) send through the backward
 K3_BAYESRAYS = [((30, 128, 128, 1), 524_288), ((185, 128, 3), 524_288),
@@ -177,13 +180,13 @@ def _k3_counters(route, backward=False):
     """The launch counter of K3's route, forward or backward."""
     if backward:
         return (kmlp.fused_mlp_bwd if route == "wgmma"
-                else kmlp.fused_mlp_bwd_wide)
-    return kmlp.fused_mlp if route == "wgmma" else kmlp.fused_mlp_wide
+                else kmlp.fused_mlp_stream_bwd)
+    return kmlp.fused_mlp if route == "wgmma" else kmlp.fused_mlp_stream
 
 
 def _k3_launches():
-    return [k.launches for k in (kmlp.fused_mlp, kmlp.fused_mlp_wide,
-                                 kmlp.fused_mlp_bwd, kmlp.fused_mlp_bwd_wide)]
+    return [k.launches for k in (kmlp.fused_mlp, kmlp.fused_mlp_stream,
+                                 kmlp.fused_mlp_bwd, kmlp.fused_mlp_stream_bwd)]
 
 
 @pytest.mark.parametrize("dims", K3_DIMS, ids=K3_IDS)
@@ -195,7 +198,7 @@ def test_fused_mlp_kernel_matches_plain(cuda, dims, n):
     export chunk's ragged N; two runs give the same bits."""
     g, wbs = _k3_net(cuda, dims)
     route = kmlp.fused_mlp_route(dims[0], dims[1:])
-    assert route == ("wmma" if dims in K3_WMMA else "wgmma")
+    assert route == ("stream" if dims in K3_STREAM else "wgmma")
     x = torch.randn((n, dims[0]), generator=g, device=cuda)
     before = _k3_launches()
     got = kmlp.fused_mlp(x, wbs)
@@ -473,9 +476,9 @@ def test_fused_pe_density_backward_tiling_edges(cuda, n):
 @pytest.mark.parametrize("dims", K3_DIMS, ids=K3_IDS)
 def test_fused_mlp_backward_kernel_matches_plain(cuda, dims, n, need_dw):
     """K3's backward on the vanilla field's heads (the BayesRays batch,
-    ragged N and the tiles' edges), a three-layer net and the wmma route's
-    nets, each route counting its own launches; two runs give the same
-    bits."""
+    ragged N and the tiles' edges), a three-layer net and the stream
+    route's nets, each route counting its own launches; two runs give the
+    same bits."""
     g, wbs = _k3_net(cuda, dims)
     route = kmlp.fused_mlp_route(dims[0], dims[1:])
     wbs = _leaves(wbs, need_dw)
@@ -501,9 +504,9 @@ def test_fused_mlp_backward_kernel_matches_plain(cuda, dims, n, need_dw):
 @pytest.mark.parametrize("dims", K3_DIMS[:4] + K3_DIMS[5:],
                          ids=K3_IDS[:4] + K3_IDS[5:])
 def test_fused_mlp_backward_asks_and_alignment(cuda, dims):
-    """The wgmma backward: dx alone and the weight gradients alone are the
-    full backward's bits; on x and g one float into larger buffers (not
-    16-byte aligned) the same bits again."""
+    """Each route's backward: dx alone and the weight gradients alone are
+    the full backward's bits; on x and g one float into larger buffers
+    (not 16-byte aligned) the same bits again."""
     g, wbs = _k3_net(cuda, dims)
     n = 4099
     xb = torch.randn((n * dims[0] + 1,), generator=g, device=cuda)
@@ -548,7 +551,7 @@ def test_fused_mlp_layouts_take_the_routed_nets(cuda):
     """Every net the route sends to the wgmma kernels has a layout in both
     kernels, with and without weight gradients, within a block's shared
     memory; the route's own estimate of the largest is the C layout's."""
-    nets = [d for d in K3_DIMS if d not in K3_WMMA] + [
+    nets = [d for d in K3_DIMS if d not in K3_STREAM] + [
         (128, 64, 16), (129, 64, 1), (96, 256, 3), (205, 128, 3),
         (93, 128, 128, 1)]
     for dims in nets:
@@ -572,7 +575,8 @@ def test_pe_mlp_wide_layouts_take_the_routed_nets(cuda):
     (csrc/fused_pe_mlp_wide_bwd.cu: one warpgroup taking tiles and one
     partial row a block), within a block's shared memory, at least the
     route's estimate (equal at one stage and one operand-tile set; -q's
-    nets take two sets); a 3-layer net 256 wide has none."""
+    nets take two sets); a 3-layer net 256 wide has none (the stream
+    route takes it)."""
     for F, widths in ((5, [128, 128, 1]), (6, [128, 128, 1]),
                       (10, [128, 128, 16]), (5, [256, 1]), (5, [64, 65, 1])):
         din = 3 * (1 + 2 * F)
@@ -593,7 +597,7 @@ def test_pe_mlp_wide_layouts_take_the_routed_nets(cuda):
                     assert bwd[4] == least, widths
                 if widths == [128, 128, 1]:
                     assert bwd[8] == 2, (widths, bwd)
-    assert kfield.pe_mlp_fwd_route(3, 5, [256, 256, 1]) == "wmma"
+    assert kfield.pe_mlp_fwd_route(3, 5, [256, 256, 1]) == "stream"
     with pytest.raises(ValueError):
         kmlp.mlp_layout(33, 1, 3, 256, True, True)
 
@@ -1098,7 +1102,8 @@ def test_fused_pe_mlp_kernel_matches_plain(cuda, case, need_dw):
 # (num_freqs, hidden width, layers, N, route) of the forward alone: both
 # nets at a training step's sample counts, a ragged N, N < 64, one row and
 # none, a two-layer net, cropnerf-mxu-q's 128-wide nets (the wide route), a
-# two-layer net 256 wide, and a 4-layer net (the wmma route)
+# two-layer net 256 wide, and on the stream route a 4-layer net and [prop256]'s
+# nets (3 layers 256 wide) at a training step's sample counts
 K5_FWD_GPU_CASES = {"net0": (5, 64, 3, 1_048_576, "wgmma"),
                     "net1": (6, 64, 3, 393_216, "wgmma"),
                     "net0-ragged": (5, 64, 3, 1_048_576 - 77, "wgmma"),
@@ -1112,7 +1117,11 @@ K5_FWD_GPU_CASES = {"net0": (5, 64, 3, 1_048_576, "wgmma"),
                     "q-one-row": (6, 128, 3, 1, "wide"),
                     "q-empty": (5, 128, 3, 0, "wide"),
                     "two-layers-256": (5, 256, 2, 65_536 + 3, "wide"),
-                    "four-layers": (5, 64, 4, 65_536 + 3, "wmma")}
+                    "four-layers": (5, 64, 4, 65_536 + 3, "stream"),
+                    "prop256-net0": (5, 256, 3, 1_048_576, "stream"),
+                    "prop256-net1-ragged": (6, 256, 3, 393_216 - 77, "stream"),
+                    "prop256-one-row": (5, 256, 3, 1, "stream"),
+                    "prop256-empty": (6, 256, 3, 0, "stream")}
 
 
 @pytest.mark.parametrize("case", list(K5_FWD_GPU_CASES))
@@ -1121,8 +1130,9 @@ def test_fused_pe_mlp_forward_routes(cuda, case):
     """K5's forward on the route its net's shape picks: the wgmma kernel
     (csrc/fused_pe_mlp_fwd.cu) for nets up to 64 wide and the PE variant of
     csrc/fused_mlp_fwd.cu for the wider ones, both counted on
-    fused_pe_mlp, and the wmma route (a 4-layer net) on fused_pe_mlp_wide;
-    against the plain version, and the same bits on two runs."""
+    fused_pe_mlp, and the stream route (csrc/fused_mlp_stream.cu) on
+    fused_pe_mlp_stream; against the plain version, and the same bits on
+    two runs."""
     F, hidden, layers, n, want = K5_FWD_GPU_CASES[case]
     wbs = _prop_net(cuda, F, False, hidden=hidden, layers=layers)
     widths = [w.shape[1] for w in wbs[0::2]]
@@ -1130,12 +1140,13 @@ def test_fused_pe_mlp_forward_routes(cuda, case):
     assert route == want
     g = torch.Generator(device=cuda).manual_seed(19)
     x = torch.rand((n, 3), generator=g, device=cuda) * 2 - 1
-    before = (kfield.fused_pe_mlp.launches, kfield.fused_pe_mlp_wide.launches)
+    before = (kfield.fused_pe_mlp.launches,
+              kfield.fused_pe_mlp_stream.launches)
     out = kfield.fused_pe_mlp(x, wbs, F)
     torch.cuda.synchronize()
     launched = (kfield.fused_pe_mlp.launches - before[0],
-                kfield.fused_pe_mlp_wide.launches - before[1])
-    assert launched == ((0, 0) if n == 0 else (0, 1) if route == "wmma"
+                kfield.fused_pe_mlp_stream.launches - before[1])
+    assert launched == ((0, 0) if n == 0 else (0, 1) if route == "stream"
                         else (1, 0))
     assert out.shape == (n, 1) and torch.isfinite(out).all()
     if n:
@@ -1217,19 +1228,120 @@ def test_fused_pe_mlp_backward_tiling_edges(cuda, F, n):
         assert _weight_grad_agrees(a, b, n), (i, _rel_err(a, b))
 
 
-def test_fused_pe_mlp_backward_refuses_wider_nets(cuda):
-    """A net no backward kernel takes (3 layers 256 wide: its images and a
-    warpgroup's tiles overflow shared memory) is refused when the forward
-    records the graph, before any launch; its forward runs on the wmma
-    route."""
-    wbs = _prop_net(cuda, 5, True, hidden=256)
-    x = torch.rand((100, 3), device=cuda) * 2 - 1
-    before = kfield.fused_pe_mlp_wide.launches
-    with pytest.raises(ValueError, match="shared memory"):
-        kfield.fused_pe_mlp(x, wbs, 5)
-    with torch.no_grad():
-        assert kfield.fused_pe_mlp(x, wbs, 5).shape == (100, 1)
-    assert kfield.fused_pe_mlp_wide.launches == before + 1
+# (num_freqs, x's columns, output widths, N) of the stream route's
+# backward: [prop256]'s nets at a training step's sample counts, a ragged
+# N, one row, and the other nets of the route table (tests/
+# test_torch_propfused.py ROUTE_EDGES): 69 encoding columns, 4 layers, 17
+# outputs, x [N, 2], and at 256 encoding columns (x [N, 4], F = 30)
+K5_STREAM_GPU_CASES = {"prop256-net0": (5, 3, [256, 256, 1], 1_048_576),
+                       "prop256-net1": (6, 3, [256, 256, 1], 393_216),
+                       "prop256-ragged": (5, 3, [256, 256, 1], 65_536 - 77),
+                       "prop256-one-row": (6, 3, [256, 256, 1], 1),
+                       "69-columns": (11, 3, [64, 64, 1], 65_536 + 3),
+                       "69-columns-128": (11, 3, [128, 128, 1], 4099),
+                       "four-layers": (5, 3, [64, 64, 64, 1], 65_536 + 3),
+                       "four-layers-128": (5, 3, [128, 128, 128, 1], 4099),
+                       "17-outputs": (5, 3, [64, 64, 17], 4099),
+                       "x2": (5, 2, [64, 64, 1], 4099),
+                       "x2-128": (5, 2, [128, 128, 1], 4099),
+                       "244-columns": (30, 4, [256, 256, 1], 4099)}
+
+
+@pytest.mark.parametrize("case", list(K5_STREAM_GPU_CASES))
+def test_fused_pe_mlp_stream_backward_matches_plain(cuda, case):
+    """K5's backward on the stream route (csrc/fused_mlp_stream.cu), which
+    records a graph for every net the route takes: through autograd (one
+    launch each way, counted on fused_pe_mlp_stream and
+    fused_pe_mlp_stream_bwd) against autograd of the plain version, dx row
+    by row and the weight gradients in relative L2; dx alone and the
+    weight gradients alone are the full backward's bits, and two runs give
+    the same bits."""
+    F, dim, widths, n = K5_STREAM_GPU_CASES[case]
+    assert kfield.pe_mlp_fwd_route(dim, F, widths) == "stream"
+    g = torch.Generator(device=cuda).manual_seed(29)
+    dims = [dim * (1 + 2 * F), *widths]
+    wbs = []
+    for a, b in zip(dims[:-1], dims[1:]):
+        wbs += [torch.randn((a, b), generator=g, device=cuda) / a ** 0.5,
+                torch.randn((1, b), generator=g, device=cuda) * 0.05]
+    x = (torch.rand((n, dim), generator=g, device=cuda) * 2 - 1)
+    cot = torch.randn((n, widths[-1]), generator=g, device=cuda)
+    leaves = [x.clone().requires_grad_(True)] + _leaves(wbs, True)
+    before = (kfield.fused_pe_mlp_stream.launches,
+              kfield.fused_pe_mlp_stream_bwd.launches)
+    got = _grads(kfield.fused_pe_mlp(leaves[0], leaves[1:], F), leaves, cot)
+    torch.cuda.synchronize()
+    assert (kfield.fused_pe_mlp_stream.launches - before[0],
+            kfield.fused_pe_mlp_stream_bwd.launches - before[1]) == (1, 1)
+    ref = _grads(kfield.fused_pe_mlp_plain(leaves[0], leaves[1:], F), leaves,
+                 cot)
+    assert got[0].shape == (n, dim) and torch.isfinite(got[0]).all()
+    assert _grad_agrees(got[0], ref[0], per_row=True), _rel_err(got[0], ref[0])
+    for i, (a, b) in enumerate(zip(got[1:], ref[1:])):
+        assert a.shape == b.shape and torch.isfinite(a).all(), i
+        assert _weight_grad_agrees(a, b, n), (i, _rel_err(a, b))
+    dx, dw = kfield.fused_pe_mlp_bwd(x, wbs, F, cot, True, True)
+    dx_only, none = kfield.fused_pe_mlp_bwd(x, wbs, F, cot, True, False)
+    none2, dw_only = kfield.fused_pe_mlp_bwd(x, wbs, F, cot, False, True)
+    assert none is None and none2 is None
+    assert torch.equal(dx, got[0]) and torch.equal(dx_only, dx)
+    assert all(torch.equal(a, b) and torch.equal(a, c)
+               for a, b, c in zip(dw, dw_only, got[1:]))
+
+
+def test_stream_layouts_are_the_planned_ones(cuda):
+    """The stream kernels' C layout functions give the shared memory that
+    mlp_plan.stream_smem computes from the program, which the route's
+    scope rests on, at the route's widest, deepest and narrowest nets."""
+    from cropnerf_tpu_torch.ops.cuda import mlp_plan
+    nets = [(256, [256] * 32, 0, 0), (244, [256] * 32, 4, 30),
+            (244, [256, 256, 1], 4, 30), (33, [256, 256, 1], 3, 5),
+            (89, [256, 256, 3], 0, 0), (15, [1], 0, 0), (3, [16, 1], 3, 0)]
+    for din, widths, dim, F in nets:
+        for backward in (False, True):
+            for need_dx, need_dw in ((True, True), (True, False),
+                                     (False, True)):
+                key = mlp_plan.program_key(din, widths, dim, F, backward,
+                                           need_dx, need_dw)
+                want = mlp_plan.stream_smem(mlp_plan.stream_plan(key).header,
+                                            backward)[0]
+                got = kmlp.stream_smem_bytes(key, backward)
+                assert got == want and 0 < got <= 232_448, (din, widths, got)
+
+
+@torch.no_grad()
+def test_fused_mlp_stream_deep_net(cuda):
+    """K3's stream route at its deepest and widest, 32 layers of 256 with
+    256 inputs and outputs, forward and backward, against the plain
+    version in float32: in bf16 the roundings compound over the 32 layers
+    (the bf16 plain version is 0.24 from float32 in relative L2), so the
+    kernel is held to be no further from float32 than the bf16 plain
+    version is, times 1.1; dx alone and dW alone are the full backward's
+    bits."""
+    dims = (256,) + (256,) * 32
+    g, wbs = _k3_net(cuda, dims)
+    n = 4099
+    x = torch.randn((n, 256), generator=g, device=cuda)
+    cot = torch.randn((n, 256), generator=g, device=cuda)
+    assert kmlp.fused_mlp_route(256, list(dims[1:])) == "stream"
+    out = kmlp.fused_mlp(x, wbs)
+    dx, dw = kmlp.fused_mlp_bwd(x, wbs, cot, True, True)
+    ref = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        leaves = [x.clone().requires_grad_(True)] + _leaves(wbs, True)
+        with torch.enable_grad():
+            o = kmlp.fused_mlp_plain(leaves[0], leaves[1:], dtype)
+            ref[dtype] = [o.detach()] + list(_grads(o, leaves, cot))
+    l2 = lambda a, b: ((a - b).norm() / b.norm()).item()  # noqa: E731
+    for i, got in enumerate([out, dx, *dw]):
+        f32, bf = ref[torch.float32][i], ref[torch.bfloat16][i]
+        assert torch.isfinite(got).all(), i
+        assert l2(got, f32) <= 1.1 * l2(bf, f32) + 1e-3, (i, l2(got, f32),
+                                                          l2(bf, f32))
+    dx_only, _ = kmlp.fused_mlp_bwd(x, wbs, cot, True, False)
+    _, dw_only = kmlp.fused_mlp_bwd(x, wbs, cot, False, True)
+    assert torch.equal(dx_only, dx)
+    assert all(torch.equal(a, b) for a, b in zip(dw_only, dw))
 
 
 # (num_freqs, hidden width, layers, N) of the wide route's backward:
@@ -1478,7 +1590,7 @@ def _projection_scene(cuda, preset, n_cams=4):
 def _project_counted(proj, jobs):
     from cropnerf_tpu_torch.ops.cuda import hash_encode as khash
     counters = (kfield.fused_pe_nerf, kfield.fused_pe_density,
-                kmlp.fused_mlp, kmlp.fused_mlp_wide, khash.hash_encode,
+                kmlp.fused_mlp, kmlp.fused_mlp_stream, khash.hash_encode,
                 kfield.fused_pe_mlp)
     for k in counters:
         k.launches = 0

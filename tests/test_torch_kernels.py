@@ -126,8 +126,8 @@ def test_wrappers_reject_bad_inputs():
 # --- the packed layout, run through a model of the CUDA kernels' loops ---
 
 def _kernel_layer(a0, a1, wbuf, bbuf, desc):
-    """One dense_layer: [A0 | A1] @ W + b over padded widths, f32 sum of
-    bf16 operands (csrc/fused_layers.cuh)."""
+    """One dense layer: [A0 | A1] @ W + b over padded widths, f32 sum of
+    bf16 operands."""
     w_off, b_off, k, n, ka = desc
     w = wbuf[w_off:w_off + k * n].reshape(k, n).float()
     a = torch.cat([a0[:, :ka], a1[:, :k - ka]], dim=1) if ka < k else a0[:, :k]
@@ -843,11 +843,11 @@ def test_fused_mlp_backward_matches_jax(case, arm):
 
 
 def _kernel_model_mlp_bwd(x, wbuf, bbuf, meta, g, need_dw=True):
-    """csrc/fused_mlp.cu's backward in torch, on the packed buffers and
-    meta the wrapper builds: the bf16 recompute A_l kept per layer, then
-    per layer the weight gradient A_lᵀ·G_l of bf16 operands, G_{l-1} =
-    relu mask of A_l (bf16(G_l) Wᵀ) in f32 for the bias sums and bf16 for
-    the next product, and dx."""
+    """The MLP backward's arithmetic in torch, on pack_layers' buffers (the
+    layout the stream route's weight gradients come back in): the bf16
+    recompute A_l kept per layer, then per layer the weight gradient
+    A_lᵀ·G_l of bf16 operands, G_{l-1} = relu mask of A_l (bf16(G_l) Wᵀ) in
+    f32 for the bias sums and bf16 for the next product, and dx."""
     din, din_pad, dout, n_layers, _ = meta[:5]
     L = [meta[5 + 5 * i:10 + 5 * i] for i in range(n_layers)]
     N = x.shape[0]
@@ -887,7 +887,8 @@ def test_mlp_backward_kernel_model_reproduces_plain_autograd(case):
     cot = torch.from_numpy(rng.standard_normal(out.shape).astype(np.float32))
     ref = torch.autograd.grad(out, [x, *wt], cot)
     with torch.no_grad():
-        wbuf, bbuf, meta = tmlp.pack_mlp(dims[0], wt)
+        wbuf, bbuf, descs = pack_layers(tmlp._layers(wt), torch.device("cpu"))
+        meta = [dims[0], pad16(dims[0]), dims[-1], len(dims) - 1, 0] + descs
         dx, dwbuf, dbbuf = _kernel_model_mlp_bwd(x, wbuf, bbuf, meta, cot)
         grads = [t for ws, db in tmlp.unpack_layers(tmlp._layers(wt), dwbuf,
                                                     dbbuf, meta[5:])

@@ -97,13 +97,15 @@ def test_fused_pe_mlp_checks_its_inputs():
     with pytest.raises(ValueError):                 # an odd weight list
         tfield.fused_pe_mlp(x, wbs[:3], 5)
     assert tfield.fused_pe_mlp(x[:0], wbs, 5).shape == (0, 1)
-    tfield._check_pe_mlp_bwd(x, wbs, 5)             # the backward kernels' nets
+    # the kernels' nets: every net the three routes take has a backward;
+    # one over 256 wide has no kernel
     wide = to_torch(np_wbs(np.random.default_rng(0), Q_WIDTHS[5]))
-    tfield._check_pe_mlp_bwd(x, wide, 5)
-    # a 3-layer net 256 wide: its images and tiles overflow shared memory
     big = to_torch(np_wbs(np.random.default_rng(0), [33, 256, 256, 1]))
-    with pytest.raises(ValueError, match="shared memory"):
-        tfield._check_pe_mlp_bwd(x, big, 5)
+    wider = to_torch(np_wbs(np.random.default_rng(0), [33, 257, 1]))
+    assert [tfield._pe_route(x, w, 5) for w in (wbs, wide, big)] == [
+        "wgmma", "wide", "stream"]
+    with pytest.raises(ValueError, match="no kernel"):
+        tfield._pe_route(x, wider, 5)
 
 
 def _pe_encoding(x, F):
@@ -124,45 +126,33 @@ def _pe_encoding(x, F):
     return enc, coord, freq, pre, sin_end
 
 
-def _wmma_forward_model(x, wbs, F):
-    """The forward of the "wmma" route (csrc/fused_mlp.cu's PE variant) in
-    torch, on the buffers pack_mlp builds: the encoding zero-padded to a
-    multiple of 16 columns and rounded to bf16, each layer's product on
-    the packed bf16 weights with f32 sums plus the f32 bias, relu and bf16
-    for the hidden layers, the last layer's first Dout columns."""
-    dim = x.shape[1]
-    wbuf, bbuf, meta = tmlp.pack_mlp(dim * (1 + 2 * F), wbs)
-    din, din_pad, dout, n_layers, _ = meta[:5]
-    layers = [meta[5 + 5 * i:10 + 5 * i] for i in range(n_layers)]
-    a = torch.zeros((x.shape[0], din_pad))
-    a[:, :din] = _pe_encoding(x, F)[0]
-    h = a.bfloat16()
-    for l, (w_off, b_off, k, n, _) in enumerate(layers):
-        h = (h.float() @ wbuf[w_off:w_off + k * n].reshape(k, n).float()
-             + bbuf[b_off:b_off + n])
-        if l < n_layers - 1:
-            h = torch.relu(h).bfloat16()
-    return h[:, :dout]
-
-
 @pytest.mark.parametrize("hidden", [64, 128])
 @pytest.mark.parametrize("F", [5, 6])
-def test_wmma_route_model_reproduces_plain(F, hidden):
-    """The wmma route's forward on pack_mlp's buffers against the plain
-    version: the 64-wide nets of the path and, 128 wide, a 4-layer net,
-    which takes this route on the card; 300 rows."""
+def test_stream_route_model_reproduces_plain(F, hidden):
+    """The stream route's programs (csrc/fused_mlp_stream.cu, in torch:
+    test_torch_stream's model) on their gathered images against the plain
+    version, forward and backward: the 64-wide nets of the path and, 128
+    wide, a 4-layer net, which takes this route on the card; 300 rows."""
+    from test_torch_stream import _stream_model
     rng = np.random.default_rng(50 + F)
     dims = [3 * (1 + 2 * F), hidden, hidden, 1]
     if hidden == 128:
         dims.insert(1, hidden)
-        assert tfield.pe_mlp_fwd_route(3, F, dims[1:]) == "wmma"
+        assert tfield.pe_mlp_fwd_route(3, F, dims[1:]) == "stream"
     wt = to_torch(np_wbs(rng, dims))
     x = torch.from_numpy(rng.uniform(-1, 1, (300, 3)).astype(np.float32))
+    cot = torch.from_numpy(rng.standard_normal((300, 1)).astype(np.float32))
+    leaves = [t.clone().requires_grad_(True) for t in (x, *wt)]
+    plain = tfield.fused_pe_mlp_plain(leaves[0], leaves[1:], F)
+    ref = torch.autograd.grad(plain, leaves, cot)
     with torch.no_grad():
-        got = _wmma_forward_model(x, wt, F)
-        plain = tfield.fused_pe_mlp_plain(x, wt, F)
+        got = _stream_model(x, wt, F)
+        dx, grads = _stream_model(x, wt, F, cot)
     assert got.shape == (300, 1)
-    assert_close(got, plain, 1e-5, "out")
+    assert_close(got, plain.detach(), 1e-5, "out")
+    for i, (g, r) in enumerate(zip([dx, *grads], ref)):
+        err = (g - r).abs().max() / r.abs().max().clamp_min(1e-6)
+        assert err <= 1e-2, (i, err)
 
 
 def _kernel_model_pe_mlp(x, wbs, F, g, sm_count):
@@ -321,40 +311,53 @@ def test_pe_mlp_forward_route_by_preset(preset):
 
 
 # (dim, F, output widths, route): the wgmma kernels' edges, 64 wide and
-# wide; the wmma route's nets (its forward alone on the card) are those
-# neither takes
+# wide; the stream route's nets are those neither takes, up to 256 wide
 ROUTE_EDGES = [(3, 8, [64, 64, 1], "wgmma"),      # 51 encoding columns
                (3, 10, [64, 64, 1], "wgmma"),     # 63 columns
-               (3, 11, [64, 64, 1], "wmma"),      # 69 columns
+               (3, 11, [64, 64, 1], "stream"),    # 69 columns
                (3, 5, [32, 1], "wgmma"),          # 2 layers, narrower
-               (3, 5, [64, 64, 64, 1], "wmma"),   # 4 layers
-               (3, 5, [64, 64, 17], "wmma"),      # 17 outputs
+               (3, 5, [64, 64, 64, 1], "stream"),  # 4 layers
+               (3, 5, [64, 64, 17], "stream"),    # 17 outputs
                (3, 5, [64, 65, 1], "wide"),       # a hidden layer of 65
-               (2, 5, [64, 64, 1], "wmma"),       # x [N, 2]
+               (2, 5, [64, 64, 1], "stream"),     # x [N, 2]
                (3, 5, [128, 128, 1], "wide"),     # cropnerf-mxu-q's nets
                (3, 6, [128, 128, 1], "wide"),
                (3, 10, [128, 128, 16], "wide"),   # 63 columns, 16 outputs
                (3, 5, [256, 1], "wide"),          # 2 layers, 256 wide
-               (3, 5, [256, 256, 1], "wmma"),     # overflows shared memory
-               (3, 11, [128, 128, 1], "wmma"),    # 69 columns
-               (3, 5, [128, 128, 128, 1], "wmma"),  # 4 layers
-               (2, 5, [128, 128, 1], "wmma")]     # x [N, 2]
+               (3, 5, [256, 256, 1], "stream"),   # overflows shared memory
+               (3, 11, [128, 128, 1], "stream"),  # 69 columns
+               (3, 5, [128, 128, 128, 1], "stream"),  # 4 layers
+               (2, 5, [128, 128, 1], "stream"),   # x [N, 2]
+               (3, 5, [257, 1], None),            # 257 wide: no kernel
+               (3, 5, [64] * 33, None),           # 33 layers
+               (4, 31, [64, 1], None)]            # F over 30
 
 
 @pytest.mark.parametrize("case", range(len(ROUTE_EDGES)))
-def test_pe_mlp_forward_route_edges(case):
-    """The route by shape, and the backward kernels' nets: every net but
-    the wmma route's records a graph on the card."""
+def test_pe_mlp_forward_route_edges(case, monkeypatch):
+    """The route by shape, and the backward: every net a route takes
+    records a graph on the card (the kernels stood in for by the plain
+    version) and hands its backward to the route's kernel; a net no route
+    takes raises before any launch."""
     dim, F, widths, route = ROUTE_EDGES[case]
-    assert tfield.pe_mlp_fwd_route(dim, F, widths) == route
     x = torch.zeros((4, dim))
-    wbs = to_torch(np_wbs(np.random.default_rng(case),
-                          [dim * (1 + 2 * F), *widths]))
-    if route == "wmma":
-        with pytest.raises(ValueError, match="fused_pe_mlp_bwd"):
-            tfield._check_pe_mlp_bwd(x, wbs, F)
-    else:
-        tfield._check_pe_mlp_bwd(x, wbs, F)
+    wbs = [w.requires_grad_(True) for w in to_torch(np_wbs(
+        np.random.default_rng(case), [dim * (1 + 2 * F), *widths]))]
+    seen = _stand_in_kernels(monkeypatch)
+    if route is None:
+        with pytest.raises(ValueError, match="no kernel"):
+            tfield.pe_mlp_fwd_route(dim, F, widths)
+        with pytest.raises(ValueError, match="no kernel"):
+            tfield._fused_pe_mlp_card(x, wbs, F)
+        assert seen == {}
+        return
+    assert tfield.pe_mlp_fwd_route(dim, F, widths) == route
+    out = tfield._fused_pe_mlp_card(x, wbs, F)
+    assert out.requires_grad
+    out.sum().backward()
+    stream = route == "stream"
+    assert set(seen) == ({"stream", "stream_bwd"} if stream
+                         else {"fwd", "bwd"})
 
 
 @pytest.mark.parametrize("n", [1_048_576, 393_216, 1_048_576 - 77, 200, 50,
@@ -388,17 +391,31 @@ def _stand_in_kernels(monkeypatch):
         seen["fwd"] = (img, bias)
         return tfield.fused_pe_mlp_plain(x, wbs, num_freqs)
 
-    def wide(x, wbs, num_freqs):
-        seen["wide"] = True
+    def stream(x, wbs, num_freqs):
+        seen["stream"] = True
         return tfield.fused_pe_mlp_plain(x, wbs, num_freqs)
 
     def bwd(x, wbs, num_freqs, g, need_dx, need_dw, images):
         seen["bwd"] = images
         return None, [torch.zeros_like(w) for w in wbs]
 
+    def stream_bwd(x, wbs, num_freqs, g, need_dx, need_dw):
+        seen["stream_bwd"] = True
+        return None, [torch.zeros_like(w) for w in wbs]
+
     monkeypatch.setattr(tfield, "_pe_mlp_fwd_launch", launch)
-    monkeypatch.setattr(tfield, "fused_pe_mlp_wide", wide)
-    monkeypatch.setattr(tfield, "fused_pe_mlp_bwd", bwd)
+    monkeypatch.setattr(tfield, "fused_pe_mlp_stream", stream)
+    monkeypatch.setattr(tfield, "fused_pe_mlp_stream_bwd", stream_bwd)
+    real_bwd = tfield.fused_pe_mlp_bwd
+
+    def route_bwd(x, wbs, num_freqs, g, need_dx, need_dw, images):
+        if tfield._pe_route(x, wbs, num_freqs) == "stream":
+            return real_bwd(x, wbs, num_freqs, g, need_dx, need_dw, images)
+        return bwd(x, wbs, num_freqs, g, need_dx, need_dw, images)
+
+    monkeypatch.setattr(tfield, "fused_pe_mlp_bwd", route_bwd)
+    monkeypatch.setattr(tfield, "check_kernel_call",
+                        lambda name, ts, dtype: ts[0].device)
     return seen
 
 
@@ -414,20 +431,19 @@ def test_forward_saves_its_images_for_the_backward(hidden, monkeypatch):
     """Where a graph is recorded, the card path builds the wgmma kernels'
     weight images once, in the forward, and hands those very tensors to
     the backward: they equal pe_mlp_images of the weights (128 wide,
-    fused_mlp.mlp_images').  A net on the wmma route (3 layers, 256 wide)
-    has no backward kernel and records no graph.  The kernels are stood in
-    for by the plain version here."""
+    fused_mlp.mlp_images').  A net on the stream route (3 layers, 256
+    wide) builds no images: its kernels gather their own from the
+    weights, forward and backward.  The kernels are stood in for by the
+    plain version here."""
     F = 5
     x, wt = _hidden_net(hidden)
     wt = [w.requires_grad_(True) for w in wt]
     seen = _stand_in_kernels(monkeypatch)
-    if hidden == 256:
-        with pytest.raises(ValueError, match="shared memory"):
-            tfield._fused_pe_mlp_card(x, wt, F)
-        assert seen == {}
-        return
     out = tfield._fused_pe_mlp_card(x, wt, F)
     out.sum().backward()
+    if hidden == 256:
+        assert seen == {"stream": True, "stream_bwd": True}
+        return
     img, bias = tfield.pe_mlp_images([w.detach() for w in wt])
     assert all(a is b for a, b in zip(seen["bwd"], seen["fwd"]))
     assert torch.equal(seen["fwd"][0], img)
@@ -443,7 +459,7 @@ def test_forward_without_a_graph_builds_only_forward_images(hidden,
     """Where no graph is recorded (serving, the render, the depth cloud),
     the card path launches the forward kernel its route picks and builds
     no backward half: the wgmma kernels (64 and 128 wide) get the forward
-    images alone, the wmma route (3 layers, 256 wide) none."""
+    images alone, the stream route (3 layers, 256 wide) none."""
     F = 5
     x, wt = _hidden_net(hidden)
     seen = _stand_in_kernels(monkeypatch)
@@ -452,7 +468,7 @@ def test_forward_without_a_graph_builds_only_forward_images(hidden,
                                             for w in wt], F)
     assert not out.requires_grad
     if hidden == 256:
-        assert seen == {"wide": True}
+        assert seen == {"stream": True}
         return
     img, bias = tfield.pe_mlp_images(wt)
     assert set(seen) == {"fwd"}

@@ -1,0 +1,342 @@
+"""The stream route of K3 and K5 (``csrc/fused_mlp_stream.cu``, planned by
+``ops/cuda/mlp_plan.py``): the nets the resident-weight wgmma kernels do
+not take, forward and backward, against the JAX package on the CPU.
+
+The kernels run only on the card (``tests/test_torch_gpu.py``).  Here a
+CPU model runs their programs op by op in torch on what the wrapper hands
+them (``_stream_model``): the weight image and padded biases gathered
+from the weights (read back as each product's B operand), 128-row tiles,
+relu masks from the recompute, cotangents rounded to the compute dtype as
+product operands, each A_l and G_l in its workspace slot, the
+weight-gradient tasks over the workspace's splits and the per-block bias
+sums.  The model runs every net of ``test_torch_propfused.py``'s and
+``test_torch_fused_mlp.py``'s route tables that is on the stream route,
+and is held against the JAX kernels' VJP: K5's ``fused_pe_mlp`` through
+its jnp path (the ``_plain_ref`` VJP) or in interpret mode on 128-row
+tiles, K3's ``fused_mlp`` in interpret mode: the float32 arm to 1e-4 of
+the largest value, the bf16 arm the output to 2e-2 and the gradients as
+``test_stream_programs_match_jax`` says.  Then the slice as a whole:
+``cropnerf-mxu-q`` with both PE proposal nets fused at 256 wide
+(``[prop256]``), one training step against JAX's.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cropnerf_tpu.ops.pallas import fused_pe_field as jfield
+from cropnerf_tpu.ops.pallas.fused_mlp import fused_mlp as jax_fused_mlp
+from cropnerf_tpu_torch.ops.cuda import fused_mlp as tmlp
+from cropnerf_tpu_torch.ops.cuda import fused_pe_field as tfield
+from cropnerf_tpu_torch.ops.cuda import mlp_plan as mp
+from cropnerf_tpu_torch.ops.cuda import pe_plan as P
+from torch_parity import arm, np_wbs, to_jax, to_torch  # noqa: F401
+
+def _images(wbs, key, dtype):
+    """``mlp_plan.stream_images`` in ``dtype`` (bf16 as on the card, float32
+    for the f32 arm): the same gather, rounded or not."""
+    img_at, bias_at, zero = mp._gather(tuple(tuple(t.shape) for t in wbs), key,
+                                       torch.device("cpu"))
+    flat = torch.cat([t.reshape(-1) for t in wbs] + [zero]).float()
+    return flat.index_select(0, img_at).to(dtype), flat.index_select(0, bias_at)
+
+
+def _stream_model(x, wbs, F=None, g=None, need_dx=True, need_dw=True,
+                  dtype=torch.bfloat16):
+    """The stream kernels' programs in torch.  K3 on x [N, din] with F
+    None, else K5 on x [N, dim] with F frequencies.  Without g the forward
+    program: returns the [N, dout] output.  With the cotangent g the
+    backward program and the weight-gradient pass: returns (dx or None,
+    [dW0, db0, ...] or None)."""
+    din, widths = wbs[0].shape[0], [w.shape[1] for w in wbs[0::2]]
+    dim = x.shape[1] if F is not None else 0
+    backward = g is not None
+    key = mp.program_key(din, widths, dim, F or 0, backward, need_dx, need_dw)
+    plan = mp.stream_plan(key)
+    h = plan.header
+    img, bias = _images(wbs, key, dtype)
+    N, in_pad = x.shape[0], h[mp.M_IN_PAD]
+    n_pad = -(-N // P.TILE) * P.TILE
+    rows = torch.arange(n_pad)
+    xs = torch.zeros((n_pad, x.shape[1]))
+    xs[:N] = x
+    a0 = torch.zeros((n_pad, in_pad))
+    a0[:, :din] = tfield._encode(xs, F) if dim else xs
+    bufs = {mp.IN: a0.to(dtype),
+            mp.ACT: torch.zeros((n_pad, h[mp.M_ACT_W]), dtype=dtype)}
+    ws = torch.zeros(h[mp.M_WS_COLS] * n_pad + P.BLOCK * P.DW_M, dtype=dtype)
+
+    def store(col, t):
+        if col >= 0:
+            ws[P.ws_index(col, t.shape[1], n_pad, rows,
+                          torch.arange(t.shape[1]))] = t.to(dtype)
+
+    store(h[mp.M_IN_SLOT], bufs[mp.IN])
+    masks, out = {}, None
+    bpart = torch.zeros((n_pad // P.BLOCK, h[mp.M_TOTAL_B]))
+    dx = torch.zeros((n_pad, din)) if need_dx else None
+    genc = torch.zeros((n_pad, in_pad))
+
+    def emit_g(op, v):
+        if op[P.O_MASK] >= 0:
+            v = torch.where(masks[op[P.O_MASK]], v, 0.0)
+        n = op[P.O_N]
+        bufs[mp.ACT][:, :n] = v.to(dtype)
+        if op[P.O_BOFF] >= 0:
+            b, nv = op[P.O_BOFF], op[P.O_NVALID]
+            bpart[:, b:b + nv] = v.reshape(-1, P.BLOCK, n).sum(1)[:, :nv]
+        store(op[P.O_WS], bufs[mp.ACT][:, :n])
+
+    for op in plan.ops:
+        kind, n, K = op[P.O_KIND], op[P.O_N], op[P.O_K]
+        if kind == P.EMIT:
+            v = torch.zeros((n_pad, n))
+            v[:N, :g.shape[1]] = g
+            emit_g(op, v)
+            continue
+        b = P.from_core_k_major(img[op[P.O_IMG]:op[P.O_IMG] + K * n], K, n)
+        acc = bufs[op[P.O_A0]][:, :K].float() @ b.float()
+        epi = op[P.O_EPI]
+        if kind == P.FWD:
+            nv = op[P.O_NVALID]
+            acc[:, :nv] += bias[op[P.O_BOFF]:op[P.O_BOFF] + nv]
+            if epi == mp.Y_OUT:
+                out = acc[:N, :h[mp.M_DOUT]]
+                continue
+            hb = torch.relu(acc).to(dtype)
+            bufs[mp.ACT][:, :n] = hb
+            if op[P.O_MASK] >= 0:
+                masks[op[P.O_MASK]] = hb.float() > 0
+            store(op[P.O_WS], hb)
+        elif epi == mp.G_MASKED:
+            emit_g(op, acc)
+        else:
+            c = op[P.O_COL]
+            if epi == mp.DX:
+                if c < din:
+                    dx[:, c:c + n] = acc[:, :min(n, din - c)]
+            else:
+                genc[:, c:c + n] = acc
+    if not backward:
+        return out
+    if need_dx and dim:
+        col = torch.arange(din)
+        sel = torch.from_numpy(tfield.pe_selector_matrix(F, dim=dim))
+        pre = xs @ sel
+        sin_end = dim * (1 + F)
+        gd = genc[:, :din]
+        d_pre = torch.where(col < dim, gd,
+                            torch.where(col < sin_end, gd * torch.cos(pre),
+                                        -gd * torch.sin(pre)))
+        dx = d_pre @ sel.T
+    if need_dx:
+        dx = dx[:N]
+    if not need_dw:
+        return dx, None
+    splits, per = P.dw_splits(N, len(plan.tasks))
+    wpart = torch.zeros((splits, h[mp.M_TOTAL_W]))
+    for sp in range(splits):                  # split-K pass: Aᵀ·G per task
+        r = rows[sp * per * P.BLOCK:(sp + 1) * per * P.BLOCK]
+        for t in plan.tasks:
+            m, nn, bn = t[P.T_M_VALID], t[P.T_N], t[P.T_BN]
+            a = ws[P.ws_index(t[P.T_A_COL], t[P.T_A_W], n_pad, r,
+                              t[P.T_I0] + torch.arange(m))]
+            gg = ws[P.ws_index(t[P.T_G_COL], bn, n_pad, r, torch.arange(nn))]
+            o = t[P.T_W_OFF] + t[P.T_W_ROW0] * nn
+            wpart[sp, o:o + m * nn] = (a.float().T @ gg.float()).reshape(-1)
+    return dx, tmlp.unpack_stream_grads(wbs, wpart.sum(0), bpart.sum(0))
+
+
+def _rel(got, ref) -> float:
+    got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
+    assert got.shape == ref.shape, (got.shape, ref.shape)
+    return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-6))
+
+
+# the nets of the route tables on the stream route: (x's columns, F or
+# None for K3, output widths, rows, JAX in interpret mode)
+STREAM_NETS = {
+    "k5-69-columns": (3, 11, [64, 64, 1], 300, False),
+    "k5-4-layers": (3, 5, [64, 64, 64, 1], 256, True),
+    "k5-17-outputs": (3, 5, [64, 64, 17], 300, False),
+    "k5-x2": (2, 5, [64, 64, 1], 300, False),
+    "k5-256-wide": (3, 5, [256, 256, 1], 300, False),
+    "k5-69-columns-128": (3, 11, [128, 128, 1], 300, False),
+    "k5-4-layers-128": (3, 5, [128, 128, 128, 1], 300, False),
+    "k5-x2-128": (2, 5, [128, 128, 1], 300, False),
+    "k3-huge-colour-2": (89, None, [256, 256, 3], 256, True),
+    "k3-semantic-256": (30, None, [256, 256, 1], 256, True),
+    "k3-6-layers": (40, None, [128] * 5 + [7], 256, True),
+}
+
+
+@pytest.mark.parametrize("case", list(STREAM_NETS))
+def test_stream_programs_match_jax(case, arm):
+    """Both programs of each stream net, on 256 or 300 rows (a ragged
+    last tile): the output, dx and every weight and bias gradient against
+    the JAX VJP.  The float32 arm holds each to 1e-4 of its largest value.
+    In the bf16 arm XLA sums in another order, so some bf16 activations
+    round to the other neighbour and their rows' relu masks differ (17 of
+    256 rows of the 256-wide K3 net, 12 % of max dx; deeper nets and K5's
+    high frequencies magnify it), and autograd of the port's plain version
+    differs from JAX's VJP as much.  There the output is held to 2e-2 of
+    max, everything to 1e-2 of max against autograd of the plain version,
+    which rounds where the model does, and every gradient's relative L2
+    distance to JAX's to the plain version's plus 1e-2."""
+    cols, F, widths, n, interpret = STREAM_NETS[case]
+    assert (tmlp.fused_mlp_route(cols, widths) if F is None else
+            tfield.pe_mlp_fwd_route(cols, F, widths)) == "stream"
+    rng = np.random.default_rng(60 + len(case))
+    din = cols if F is None else cols * (1 + 2 * F)
+    x = (rng.standard_normal((n, cols)) if F is None
+         else rng.uniform(-1, 1, (n, cols))).astype(np.float32)
+    wbs = np_wbs(rng, [din, *widths])
+    cot = rng.standard_normal((n, widths[-1])).astype(np.float32)
+    if F is None:
+        fn = lambda x, w: jax_fused_mlp(x, w, 128, True)  # noqa: E731
+    else:
+        s = jnp.asarray(jfield.pe_selector_matrix(F, dim=cols))
+        fn = lambda x, w: jfield.fused_pe_mlp(  # noqa: E731
+            x, s, w, F, 128, interpret, cols, 128)
+    ref, vjp = jax.vjp(fn, jnp.asarray(x), to_jax(wbs))
+    jgrads = [np.asarray(r) for r in (lambda d, w: [d, *w])(
+        *vjp(jnp.asarray(cot)))]
+    xt, wt = torch.from_numpy(x), to_torch(wbs)
+    out = _stream_model(xt, wt, F, dtype=arm.dtype)
+    dx, grads = _stream_model(xt, wt, F, torch.from_numpy(cot),
+                              dtype=arm.dtype)
+    assert _rel(out, ref) <= arm.tol, "out"
+    if arm.name == "f32":
+        for i, (got, r) in enumerate(zip([dx, *grads], jgrads)):
+            assert _rel(got, r) <= arm.tol, (i, _rel(got, r))
+        return
+    leaves = [t.clone().requires_grad_(True) for t in (xt, *wt)]
+    plain = (tmlp.fused_mlp_plain(leaves[0], leaves[1:]) if F is None else
+             tfield.fused_pe_mlp_plain(leaves[0], leaves[1:], F))
+    pgrads = torch.autograd.grad(plain, leaves, torch.from_numpy(cot))
+    assert _rel(out, plain.detach()) <= 1e-2, "out vs plain"
+    for i, (got, p, r) in enumerate(zip([dx, *grads], pgrads, jgrads)):
+        assert _rel(got, p) <= 1e-2, (i, _rel(got, p))
+        l2 = np.linalg.norm(r)
+        model, torch_plain = (np.linalg.norm(t.numpy() - r) / l2
+                              for t in (got, p))
+        assert model <= torch_plain + 1e-2, (i, model, torch_plain)
+
+
+@pytest.mark.parametrize("variant", ["dx", "dw"])
+def test_stream_backward_variants_give_the_full_backward(variant):
+    """dx alone and the weight gradients alone are the full backward's: the
+    programs differ only in the ops and slots they leave out."""
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.uniform(-1, 1, (200, 3)).astype(np.float32))
+    wt = to_torch(np_wbs(rng, [33, 256, 256, 1]))
+    cot = torch.from_numpy(rng.standard_normal((200, 1)).astype(np.float32))
+    dx, grads = _stream_model(x, wt, 5, cot)
+    got_dx, got_w = _stream_model(x, wt, 5, cot, need_dx=variant == "dx",
+                                  need_dw=variant == "dw")
+    if variant == "dx":
+        assert got_w is None and torch.equal(got_dx, dx)
+    else:
+        assert got_dx is None
+        assert all(torch.equal(a, b) for a, b in zip(got_w, grads))
+
+
+# (din, F or None, widths): every layout the route takes fits a block's
+# shared memory, forward (three 64-row slab stages) and backward (two
+# stages, of 32 rows or 16)
+SMEM_EDGES = [(256, None, [256] * 32), (256, None, [256] * 31 + [1]),
+              (244, (4, 30), [256] * 32), (244, (4, 30), [256, 256, 1]),
+              (1, None, [1]), (15, None, [1]), (3, (3, 0), [16, 1])]
+
+
+@pytest.mark.parametrize("case", range(len(SMEM_EDGES)))
+def test_stream_layouts_fit_shared_memory(case):
+    din, pe, widths = SMEM_EDGES[case]
+    dim, F = pe or (0, 0)
+    assert mp.stream_takes(din, widths, dim, F)
+    for backward, stages in ((False, mp.MIN_FWD_STAGES), (True, 2)):
+        plan = mp.build_stream_plan(din, widths, dim, F, backward=backward)
+        smem, got = mp.stream_smem(plan.header, backward)
+        assert smem <= tmlp.MAX_SMEM_BYTES and got >= stages, (backward, got)
+
+
+@pytest.mark.parametrize("net", [(15, [257, 1]), (257, [8, 1]),
+                                 (15, [64] * 33), (15, [300])])
+def test_stream_route_refuses_wider_nets(net):
+    """Nets over 256 wide, a din over 256 or more than 32 layers take no
+    kernel: fused_mlp_route raises, and so does the plan."""
+    din, widths = net
+    assert not mp.stream_takes(din, widths)
+    with pytest.raises(ValueError):
+        tmlp.fused_mlp_route(din, widths)
+    with pytest.raises(ValueError):
+        mp.build_stream_plan(din, widths)
+
+
+def test_stream_images_lay_out_each_products_operand():
+    """The weight image holds each product's B in program order: a
+    forward op's W_l [k, n] zero-padded to [k rounded to 16, its wgmma
+    width], a backward op's W_lᵀ over the input rows it produces, zero
+    elsewhere; the biases padded to 16 layer after layer."""
+    wt = to_torch(np_wbs(np.random.default_rng(3), [39, 100, 256, 3]))
+    key = mp.program_key(39, [100, 256, 3], 3, 6, True)
+    plan = mp.stream_plan(key)
+    img, bias = mp.stream_images(wt, key)
+    assert img.dtype == torch.bfloat16 and img.numel() == plan.header[
+        mp.M_IMG_ELEMS]
+    for op, (layer, transposed, row0, rows, K, N) in zip(
+            [o for o in plan.ops if o[P.O_KIND] != P.EMIT], plan.images):
+        b = P.from_core_k_major(img[op[P.O_IMG]:op[P.O_IMG] + K * N], K, N)
+        w = wt[2 * layer].bfloat16()
+        want = torch.zeros((K, N), dtype=torch.bfloat16)
+        if transposed:
+            part = w[row0:row0 + rows].T
+            want[:part.shape[0], :part.shape[1]] = part
+        else:
+            want[:w.shape[0], :w.shape[1]] = w
+        assert torch.equal(b, want), (layer, transposed, row0)
+    want_b = torch.cat([torch.nn.functional.pad(
+        wt[2 * l + 1].reshape(-1), (0, -(-n // 16) * 16 - n))
+        for l, n in enumerate([100, 256, 3])])
+    assert torch.equal(bias, want_b)
+
+
+# --- the slice: cropnerf-mxu-q with both proposal nets fused at 256 wide --
+
+def prop256(presets, **changes):
+    """``[prop256]``, reduced: ``cropnerf-mxu-q`` with both PE proposal nets
+    fused and 256 wide (``benchmarks/ab_propshape.py``'s
+    ``dataclasses.replace``), 3 layers each, with few rays and samples
+    (``test_torch_propfused.propfused``)."""
+    from test_torch_propfused import propfused
+    cfg = propfused(presets, "cropnerf-mxu-q", **changes)
+    m = cfg.model
+    m = dataclasses.replace(m, proposal_fields=tuple(
+        dataclasses.replace(p, hidden_dim=256) for p in m.proposal_fields))
+    return dataclasses.replace(cfg, model=m)
+
+
+@pytest.mark.parametrize("arm", ["f32"], indirect=True)
+def test_prop256_train_step_matches_jax(arm, monkeypatch):
+    """One training step of [prop256] against JAX's (its proposal nets on
+    the stream route's forward and backward on the card), in the float32
+    arm, every leaf behind a relu unit and the rays in relative L2 to
+    Q_KINK_TOL, as cropnerf-mxu-q's step (test_torch_propfused_wide.py)."""
+    from cropnerf_tpu.models.config import PRESETS as JAX_PRESETS
+    from cropnerf_tpu_torch.models.config import PRESETS as TORCH_PRESETS
+    from test_torch_propfused_wide import Q_KINK_TOL, _q_kinked
+    from test_torch_train import RAYS, STEP, check_train_step
+    jcfg, tcfg = (prop256(p, train_num_rays_per_batch=RAYS)
+                  for p in (JAX_PRESETS, TORCH_PRESETS))
+    for p in tcfg.model.proposal_fields:
+        assert (p.hidden_dim, p.num_layers, p.mlp_impl) == (
+            256, 3, "pallas-fused")
+        widths = [256] * (p.num_layers - 1) + [1]
+        assert tfield.pe_mlp_fwd_route(3, p.pe_freqs, widths) == "stream"
+    check_train_step(jcfg, tcfg, STEP, arm, monkeypatch, _q_kinked,
+                     Q_KINK_TOL)

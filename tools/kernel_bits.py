@@ -1,17 +1,20 @@
 """Checksums of the outputs of the port's kernels that a kernel redesign
 leaves alone, on seeded inputs at the main paths' shapes, on one NVIDIA
 GPU: K3 forward and backward (``fused_mlp``, ``fused_mlp_bwd``: dx alone
-and with the weight gradients) at cropnerf-mxu's heads, on its wmma
-route (``csrc/fused_mlp.cu``) at a 3-layer 256-wide net no preset builds
-(-huge's colour head with a second hidden layer), and (last) at the
+and with the weight gradients) at cropnerf-mxu's heads, at a 3-layer
+256-wide net no preset builds (-huge's colour head with a second hidden
+layer, on the stream route ``csrc/fused_mlp_stream.cu``; its lines differ
+between trees that send it to other kernels), and at the
 128- and 256-wide heads of cropnerf-mxu-big and -huge; K4
 forward (``hash_encode_fwd``); K5 forward (``fused_pe_mlp`` without a
 graph) and backward (``fused_pe_mlp_bwd``: dx and every weight gradient)
 at cropnerf-mxu's proposal nets, and K5 at cropnerf-mxu-q's 128-wide nets
 (the forward, and the backward where the tree has a kernel for them:
 their route, and so their bits, differ between trees that send them to
-other kernels).  Run it on two trees in one call on the same card; equal
-lines mean equal bits:
+other kernels); last K1 and K2 forward and backward (``fused_pe_nerf``,
+``fused_pe_density``; K2's dx alone) at cropnerf-mxu's rows and K6
+(``render_weights_cuda``).  Run it on two trees in one call on the same
+card; equal lines mean equal bits:
 
     python3 tools/kernel_bits.py [--port-root DIR]
 """
@@ -52,8 +55,8 @@ def main() -> None:
     out = {}
     with torch.no_grad():
         # K3: the vanilla field's heads at an export chunk and a BayesRays
-        # batch (the wmma route's net comes last, so that the draws before
-        # it are those of earlier versions of this script)
+        # batch (the 3-layer 256-wide net comes last, so that the draws
+        # before it are those of earlier versions of this script)
         def k3(name, dims):
             wbs = []
             for a, b in zip(dims[:-1], dims[1:]):
@@ -104,7 +107,7 @@ def main() -> None:
                     cot = torch.randn((4096 * smp, 1), generator=g, device=dev)
                     dx, dw = kfield.fused_pe_mlp_bwd(x, wbs, p.pe_freqs, cot)
                     out[f"fused_pe_mlp_bwd net {i}"] = digest([dx] + dw)
-        k3("wmma route net", (89, 256, 256, 3))
+        k3("3-layer 256-wide net", (89, 256, 256, 3))
         for i, x, wbs, F in q_nets:
             cot = torch.randn((x.shape[0], 1), generator=g, device=dev)
             try:
@@ -116,6 +119,39 @@ def main() -> None:
         k3("-big semantic head", (30, 128, 128, 1))
         k3("-big colour head", (185, 128, 3))
         k3("-huge colour head", (89, 256, 3))
+        # K1 and K2 (the PE field, forward and backward) at a cropnerf-mxu
+        # training step's and BayesRays batch's rows, K6 at a training
+        # step's compositing shape (last, for the same draws as before)
+        from cropnerf_tpu_torch.models.model import model_init
+        from cropnerf_tpu_torch.models.vanilla import (POS_FREQS,
+                                                       fused_field_weights)
+        from cropnerf_tpu_torch.ops.cuda.transmittance import (
+            render_weights_cuda)
+        mx = PRESETS["cropnerf-mxu"].model
+        params = model_init(mx, 8, torch.Generator().manual_seed(0), dev)
+        base, top, color, sem = (
+            [w.detach() for w in ws]
+            for ws in fused_field_weights(params.field, mx.field))
+        n = 4096 * mx.num_nerf_samples_per_ray
+        x = torch.rand((n, 3), generator=g, device=dev) * 2 - 1
+        ex = torch.randn((n, color[1].shape[0]), generator=g, device=dev)
+        outs = kfield.fused_pe_nerf(x, ex, base, top, color, sem, POS_FREQS)
+        out["fused_pe_nerf"] = digest(outs)
+        cots = [torch.randn(o.shape, generator=g, device=dev) for o in outs]
+        grads = kfield.fused_pe_nerf_bwd(x, ex, base, top, color, sem,
+                                         POS_FREQS, *cots)
+        out["fused_pe_nerf_bwd"] = digest(
+            list(grads[:2]) + [t for grp in grads[2:] for t in grp])
+        t = kfield.fused_pe_density(x, base, top, POS_FREQS)
+        out["fused_pe_density"] = digest([t])
+        dx, _, _ = kfield.fused_pe_density_bwd(
+            x, base, top, POS_FREQS, torch.randn(t.shape, generator=g,
+                                                 device=dev), True, False)
+        out["fused_pe_density_bwd dx"] = digest([dx])
+        density = torch.rand((4096, 256), generator=g, device=dev) * 4
+        deltas = torch.rand((4096, 256), generator=g, device=dev) * 0.02
+        out["render_weights_cuda"] = digest([render_weights_cuda(density,
+                                                                 deltas)])
     print(json.dumps({"port_root": str(args.port_root),
                       "card": torch.cuda.get_device_name(0), "sha256": out}),
           flush=True)

@@ -23,8 +23,8 @@ rule-2 scores of the paths' launches, launches x (ms - bound ms): the
 forward's 64 launches in the 128^3 export (each head once in each of 32
 chunks) and the backward's 8 launches of the semantic head in 8 BayesRays
 semantics batches.  The tree under ``--port-root`` picks each head's
-kernels by its own route (before this script's tree, -big's and -huge's
-heads took the wmma route of ``csrc/fused_mlp.cu``).  Run it on two trees
+kernels by its own route (``fused_mlp_route``), so two trees may time a
+head on different kernels.  Run it on two trees
 in turn in one call, alternating:
 
     python3 tools/mlp_head_times.py [--port-root DIR] [--preset NAME]

@@ -70,8 +70,10 @@ def main() -> None:
                "fwd": {"ms": device_ms(fwd), "call_ms": call_ms(fwd),
                        "bound_ms": bound_ms(2.0 * n * macs,
                                             n * 16 + w_bytes)}}
+        # a tree whose K5 has no backward for the net refuses it here
+        refuse = getattr(kfield, "_check_pe_mlp_bwd", lambda *args: None)
         try:
-            kfield._check_pe_mlp_bwd(x, wbs, F)
+            refuse(x, wbs, F)
         except ValueError:
             net["bwd"] = None
         else:
