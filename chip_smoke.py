@@ -470,9 +470,20 @@ def ptxas_spills(report: str) -> dict:
     return spills
 
 
+def bool_args(name: str) -> str:
+    """The bool template arguments of a mangled kernel name, as
+    "<true, false>" (the backwards' STORE, the tile kernels' WIDE); "" for
+    none."""
+    m = re.search(r"_kernelI((?:Lb[01]E)+)E", name)
+    if not m:
+        return ""
+    flags = re.findall(r"Lb([01])E", m.group(1))
+    return "<" + ", ".join("true" if f == "1" else "false" for f in flags) + ">"
+
+
 def short_names(per_entry: dict) -> dict:
-    """Mangled kernel names of the PE field's kernels -> readable ones (the
-    backward's STORE flag as <true>/<false>); others as they are."""
+    """Mangled kernel names of the PE field's kernels -> readable ones (with
+    their bool template arguments); others as they are."""
     out = {}
     for name, v in per_entry.items():
         short = name
@@ -480,8 +491,7 @@ def short_names(per_entry: dict) -> dict:
                        "chunk_sum_kernel", "column_sum_kernel", "dx_rows",
                        "pe_field_fwd_kernel"):
             if kernel in name:
-                short = kernel + ("<true>" if "ILb1E" in name else
-                                  "<false>" if "ILb0E" in name else "")
+                short = kernel + bool_args(name)
         out[short] = v
     return out
 
@@ -1547,8 +1557,19 @@ def stream_entries(dev, card, report) -> dict:
     log(f"[build] fused_mlp_stream registers {regs}, spill bytes {spills}")
     check(all(v == 0 for v in spills.values()),
           f"fused_mlp_stream spills {spills}")
-    main3 = k3["-huge semantic head 256 wide"]
-    main5 = [k5["[prop256] net 0"], k5["[prop256] net 1"]]
+    return stream_line(k3, k5, "-huge semantic head 256 wide",
+                       ["[prop256] net 0", "[prop256] net 1"],
+                       "-huge's semantic head at 256 wide", "[prop256]'s",
+                       regs, spills)
+
+
+def stream_line(k3, k5, label3, labels5, what3, what5, regs, spills,
+                route="stream") -> dict:
+    """The kernel line's four stream-route entries from stream_net_entry's
+    nets: K3's forward at net ``label3``'s export chunk and its dx alone at
+    its BayesRays batch, K5's forward and backward with dW summed over a
+    training step's two nets ``labels5``; every net in by_net."""
+    main3, main5 = k3[label3], [k5[label] for label in labels5]
 
     def errs(ks, kind):
         cs = [c for k in ks for name, c in k["cases"].items()
@@ -1560,7 +1581,7 @@ def stream_entries(dev, card, report) -> dict:
     def entry(ks, kind, **kw):
         rel, ab = errs(ks, kind)
         return dict(source="cropnerf_tpu_torch/csrc/fused_mlp_stream.cu",
-                    kernel_route="stream", registers=regs, spill_bytes=spills,
+                    kernel_route=route, registers=regs, spill_bytes=spills,
                     rel_err=rel, max_abs_err=ab, **kw)
 
     src = "cropnerf_tpu/ops/pallas/"
@@ -1570,23 +1591,22 @@ def stream_entries(dev, card, report) -> dict:
     return {
         "fused_mlp_stream": entry(
             [main3], "forward", by_net=k3,
-            shape=f"-huge's semantic head at 256 wide, [{main3['n_fwd']}] x "
-                  f"{dims3} (one chunk of the 64-side export)",
+            shape=f"{what3}, [{main3['n_fwd']}] x {dims3} (one chunk of the "
+                  "64-side export)",
             replaces=src + "fused_mlp.py:30", ms=main3["ms"],
             call_ms=main3["call_ms"], plain_ms=main3["plain_ms"],
             bound_ms=main3["bound_ms"], bound_by=main3["bound_by"]),
         "fused_mlp_stream_bwd": entry(
             [main3], "backward", by_net=k3,
-            shape=f"its dx alone at -huge's BayesRays batch, "
-                  f"[{main3['n_bwd']}] x {dims3}",
+            shape=f"its dx alone at a BayesRays batch, [{main3['n_bwd']}] x "
+                  f"{dims3}",
             replaces=src + "fused_mlp.py:45", ms=main3["dx_ms"],
             with_dw_ms=main3["bwd_ms"], call_ms=main3["bwd_call_ms"],
             plain_ms=main3["dx_plain_ms"], bound_ms=main3["dx_bound_ms"],
             bound_by=main3["dx_bound_by"]),
         "fused_pe_mlp_stream": entry(
             main5, "forward", by_net=k5,
-            shape=f"[prop256]'s two proposal nets, one training step: "
-                  f"{shape5}",
+            shape=f"{what5} two proposal nets, one training step: {shape5}",
             replaces=src + "fused_pe_field.py:822",
             ms=sum(k["ms"] for k in main5),
             call_ms=sum(k["call_ms"] for k in main5),
@@ -1607,14 +1627,13 @@ def stream_entries(dev, card, report) -> dict:
 
 def kernel_names_plain(per_entry: dict) -> dict:
     """Mangled names of csrc/fused_mlp_stream.cu's kernels -> short names
-    (mlp_stream_fwd_kernel, mlp_stream_bwd_kernel<true/false> and the
-    weight-gradient pass's)."""
+    (mlp_stream_fwd_kernel<WIDE>, mlp_stream_bwd_kernel<STORE, WIDE> and
+    the weight-gradient pass's)."""
     out = {}
     for name, v in per_entry.items():
-        m = re.search(r"([A-Za-z_]+_kernel)(ILb([01])E)?", name)
+        m = re.search(r"([A-Za-z_]+_kernel)", name)
         if m:
-            out[m.group(1) + ("" if not m.group(2) else
-                              "<true>" if m.group(3) == "1" else "<false>")] = v
+            out[m.group(1) + bool_args(name)] = v
     return out
 
 
@@ -2270,10 +2289,12 @@ CLOUD_POINTS = 1_000_000  # the CLI default's points (the reference: 10 M)
 
 def propfused_phase(dev, card, bank, rb, cams, kernels,
                     preset: str = "cropnerf-mxu",
-                    prop_hidden: int | None = None) -> tuple:
-    """The fused-proposal path (K5) of ``preset`` at full widths (with
-    ``prop_hidden``, its proposal nets that wide: [prop256], on K5's
-    stream route): forward at RAYS rays and the RENDER_HW^2 render against
+                    prop_hidden: int | None = None, base=None,
+                    tag: str | None = None) -> tuple:
+    """The fused-proposal path (K5) of ``preset`` (or of the config
+    ``base``, logged under ``tag``) at full widths (with ``prop_hidden``,
+    its proposal nets that wide: [prop256] and [w512], on K5's stream
+    route): forward at RAYS rays and the RENDER_HW^2 render against
     the plain path (field and proposal nets on plain matmuls), 1 +
     TRAIN_STEPS training steps with every loss held against the plain
     path's, and the depth point cloud at CLOUD_RAYS rays a batch up to
@@ -2285,9 +2306,9 @@ def propfused_phase(dev, card, bank, rb, cams, kernels,
     from cropnerf_tpu_torch.models.model import forward, model_init
     from cropnerf_tpu_torch.train.step import _bank_rays, make_render_fn
     full_cloud = preset == "cropnerf-mxu" and prop_hidden is None
-    tag = ("[propfused]" if full_cloud else "[prop256]" if prop_hidden
-           else "[mxuq] propfused")
-    cfg = propfused_cfg(PRESETS[preset], prop_hidden)
+    tag = tag or ("[propfused]" if full_cloud else "[prop256]" if prop_hidden
+                  else "[mxuq] propfused")
+    cfg = propfused_cfg(base or PRESETS[preset], prop_hidden)
     k5, k5b = (("fused_pe_mlp_stream", "fused_pe_mlp_stream_bwd")
                if prop_hidden else ("fused_pe_mlp", "fused_pe_mlp_bwd"))
     plain = all_plain_cfg(cfg)
@@ -2680,23 +2701,44 @@ def prop256_phase(dev, card, bank, rb, cams, kernels, work: Path) -> tuple:
     plain path's.  Launches exact, counts zeroed just before each call
     and read just after.  Returns (numbers for the JSON line, calls for
     the trace)."""
+    from cropnerf_tpu_torch.models.config import PRESETS
+    info, trace = propfused_phase(dev, card, bank, rb, cams, kernels,
+                                  "cropnerf-mxu-q", PROP256_HIDDEN)
+    cfg = PRESETS["cropnerf-mxu-huge"]
+    m = dataclasses.replace(cfg.model, field=dataclasses.replace(
+        cfg.model.field, hidden_dim_semantics=PROP256_SEMANTICS))
+    sub, sub_trace = stream_head_paths(
+        dev, card, bank, kernels, m, "[prop256] cropnerf-mxu-huge",
+        "[prop256] -huge", work / "prop256_huge", 22)
+    info["huge export"], info["huge bayesrays"] = sub["export"], sub["bayesrays"]
+    trace.update(sub_trace)
+    return info, trace
+
+
+def stream_head_paths(dev, card, bank, kernels, m, tag: str, trace_tag: str,
+                      out_dir: Path, seed: int) -> tuple:
+    """K3's stream route on a model path: the model ``m`` (a semantic head
+    K3's stream route takes), random weights from a seeded generator: the
+    PROP256_EXPORT_SIDE^3 export with colours (K2 and both heads once a
+    chunk: the colour head on K3's wgmma kernels, the semantic head on the
+    stream route) held against the same export with K3's plain version and
+    the plain path's point counts, and one BayesRays batch of RAYS rays on
+    the semantics channel (K2's and K3's forward and dx-only backward),
+    its Hessian against the plain path's.  Launches exact, counts zeroed
+    just before each call and read just after.  Returns ({"export": ...,
+    "bayesrays": ...}, calls for the trace)."""
     from cropnerf_tpu_torch.export.ply import ply_vertex_count
     from cropnerf_tpu_torch.export.volume import (export_and_write,
                                                   sample_volume)
-    from cropnerf_tpu_torch.models.config import PRESETS
     from cropnerf_tpu_torch.models.model import model_init
     from cropnerf_tpu_torch.ops.cuda import fused_mlp as km
     from cropnerf_tpu_torch.uncertainty import bayesrays as br
-    info, trace = propfused_phase(dev, card, bank, rb, cams, kernels,
-                                  "cropnerf-mxu-q", PROP256_HIDDEN)
     names = [k.__name__ for k in kernels]
 
     def want(**n):
         return {k: n.get(k, 0) for k in names}
 
-    cfg = PRESETS["cropnerf-mxu-huge"]
-    m = dataclasses.replace(cfg.model, field=dataclasses.replace(
-        cfg.model.field, hidden_dim_semantics=PROP256_SEMANTICS))
+    info = {}
     plain_m = dataclasses.replace(m, field=dataclasses.replace(
         m.field, mlp_impl="xla"))
     params = model_init(m, bank.num_images, torch.Generator().manual_seed(0),
@@ -2704,22 +2746,20 @@ def prop256_phase(dev, card, bank, rb, cams, kernels, work: Path) -> tuple:
     sem = params.field.mlp_semantic.w
     dims = [sem[0].shape[0]] + [w.shape[1] for w in sem]
     check(km.fused_mlp_route(dims[0], dims[1:]) == "stream",
-          f"[prop256] -huge's semantic head {dims} is not on the stream "
-          "route")
+          f"{tag}'s semantic head {dims} is not on the stream route")
     side = PROP256_EXPORT_SIDE
     n_chunks = -(-side ** 2 // EXPORT_RAYS)
     aabb = [[-1.0, -1.0, -1.0], [1.0, 1.0, 1.0]]
     thr = export_thresholds(params, m.field,
-                            torch.Generator(device=dev).manual_seed(22), dev)
+                            torch.Generator(device=dev).manual_seed(seed), dev)
     kw = dict(num_points_per_side=side, render_rgb=True, **thr)
-    out_dir = work / "prop256_huge"
     res = {}
     exp_want = want(fused_pe_density=n_chunks, fused_mlp=n_chunks,
                     fused_mlp_stream=n_chunks)
     launches = counted(kernels, lambda: res.update(first=wall_ms(
         lambda: res.update(paths=export_and_write(params, m, aabb, out_dir,
                                                   **kw)))))
-    check(launches == exp_want, f"[prop256] -huge export launches "
+    check(launches == exp_want, f"{tag} export launches "
           f"{nonzero(launches)}, expected {nonzero(exp_want)}")
     runs = [wall_ms(lambda: export_and_write(params, m, aabb, out_dir, **kw))
             for _ in range(WIDE_REPEATS)]
@@ -2731,16 +2771,16 @@ def prop256_phase(dev, card, bank, rb, cams, kernels, work: Path) -> tuple:
     plain_points = {k: len(c.points) for k, c in
                     sample_volume(params, plain_m, aabb, **kw).items()}
     check(points["density"] > points["semantic"] > 0,
-          f"[prop256] -huge export points {points}")
+          f"{tag} export points {points}")
     for k in points:
         check(abs(points[k] - plain_points[k]) <= 0.01 * plain_points[k] + 10,
-              f"[prop256] -huge export {k}: {points[k]} points vs plain path "
+              f"{tag} export {k}: {points[k]} points vs plain path "
               f"{plain_points[k]}")
-    info["huge export"] = dict(side=side, chunks=n_chunks, launches=launches,
-                               first_ms=res["first"], runs_ms=runs,
-                               points=points, plain_points=plain_points,
-                               vs_k3_plain=vs)
-    log(f"[prop256] cropnerf-mxu-huge, semantic head {dims}: export "
+    info["export"] = dict(side=side, chunks=n_chunks, launches=launches,
+                          first_ms=res["first"], runs_ms=runs,
+                          points=points, plain_points=plain_points,
+                          vs_k3_plain=vs)
+    log(f"{tag}, semantic head {dims}: export "
         f"{side}^3 with colours: first {res['first']:.1f} ms, runs "
         + ", ".join(f"{v:.1f}" for v in runs)
         + f" ms; launches {nonzero(launches)} ({n_chunks} chunks); points "
@@ -2755,7 +2795,7 @@ def prop256_phase(dev, card, bank, rb, cams, kernels, work: Path) -> tuple:
         ms=wall_ms(lambda: res.update(hess=comp.batch(rbs[0])))))
     unc_want = want(fused_pe_density=1, fused_pe_density_bwd=1,
                     fused_mlp_stream=1, fused_mlp_stream_bwd=1)
-    check(launches == unc_want, f"[prop256] -huge BayesRays launches "
+    check(launches == unc_want, f"{tag} BayesRays launches "
           f"{nonzero(launches)}, expected {nonzero(unc_want)}")
     hess = res["hess"]
     ref = br.ComputeUncertainty(params, plain_m, lod=UNC_LOD,
@@ -2764,21 +2804,273 @@ def prop256_phase(dev, card, bank, rb, cams, kernels, work: Path) -> tuple:
     hot = len(set(hess.topk(1000).indices.tolist())
               & set(ref.topk(1000).indices.tolist())) / 1000
     check(bool(torch.isfinite(hess).all()) and hess.max() > 0
-          and l2 <= GRAD_TOL, f"[prop256] -huge BayesRays Hessian vs plain "
+          and l2 <= GRAD_TOL, f"{tag} BayesRays Hessian vs plain "
           f"path: L2 {l2:.3e}")
     runs = [wall_ms(lambda: comp.batch(rbs[0])) for _ in range(REPEATS)]
-    info["huge bayesrays"] = dict(rays=RAYS, launches=launches,
-                                  first_ms=res["ms"], runs_ms=runs,
-                                  hessian_l2=l2, hottest_1000_shared=hot)
-    log(f"[prop256] cropnerf-mxu-huge BayesRays batch of {RAYS} rays "
+    info["bayesrays"] = dict(rays=RAYS, launches=launches,
+                             first_ms=res["ms"], runs_ms=runs,
+                             hessian_l2=l2, hottest_1000_shared=hot)
+    log(f"{tag} BayesRays batch of {RAYS} rays "
         f"(semantics, lod {UNC_LOD}): first {res['ms']:.1f} ms, median "
         f"{statistics.median(runs):.1f} ms of {REPEATS}; Hessian vs plain "
         f"path L2 {l2:.3e}, hottest 1000 shared {hot:.3f}; launches "
         f"{nonzero(launches)}; {card}")
-    trace["[prop256] -huge export"] = lambda: export_and_write(
-        params, m, aabb, out_dir, **kw)
-    trace["[prop256] -huge BayesRays batch"] = lambda: comp.batch(rbs[0])
+    trace = {f"{trace_tag} export": lambda: export_and_write(
+        params, m, aabb, out_dir, **kw),
+        f"{trace_tag} BayesRays batch": lambda: comp.batch(rbs[0])}
     return info, trace
+
+
+# ---- [w512]: a 512-wide trunk, semantic head and PE proposal nets ---------
+
+W512 = 512                      # the trunk's, semantic head's and nets' width
+W512_PATHS = ("forward", "render", "train", "pointcloud", "export",
+              "bayesrays")
+# each [w512] kernel's main path
+W512_MAIN = {"fused_pe_nerf": "train", "fused_pe_nerf_bwd": "train",
+             "fused_pe_density": "export",
+             "fused_pe_density_bwd": "bayesrays",
+             "fused_mlp_stream": "export", "fused_mlp_stream_bwd": "bayesrays",
+             "fused_pe_mlp_stream": "train",
+             "fused_pe_mlp_stream_bwd": "train"}
+
+
+def w512_cfg():
+    """[w512]: cropnerf-mxu (its batch, samples and 64-wide colour head)
+    with a W512-wide trunk (``field.hidden_dim``) and semantic head
+    (``hidden_dim_semantics``), built with ``dataclasses.replace`` as
+    benchmarks/ab_propshape.py builds its arms; ``propfused_cfg(...,
+    W512)`` adds its two PE proposal nets, fused and W512 wide."""
+    from cropnerf_tpu_torch.models.config import PRESETS
+    cfg = PRESETS["cropnerf-mxu"]
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, field=dataclasses.replace(
+            cfg.model.field, hidden_dim=W512, hidden_dim_semantics=W512)))
+
+
+def w512_field_entries(m, dev, card, reports) -> dict:
+    """K1 and K2 at [w512]'s field (wide programs), random weights from a
+    seeded generator, against their plain versions at the path's shapes:
+    K1 forward and backward at a training step's field rows (RAYS x 48
+    samples), K2 forward at a 64-side export chunk (512 rays x 64) and its
+    dx-only backward at a BayesRays batch (RAYS x 48, density_bwd_entry).
+    K1's heads read t rounded to bf16; where the kernel's t and the plain
+    version's round to neighbours the 512-wide semantic head moves that
+    row's logit, so its outputs are held against the plain heads on the
+    kernel's own t (heads_plain) and in relative L2 against the plain
+    version.  Device ms, plain ms, bounds, registers and spills."""
+    from cropnerf_tpu_torch.models.model import model_init
+    from cropnerf_tpu_torch.models.vanilla import (DIR_FREQS, POS_FREQS,
+                                                   fused_field_weights)
+    from cropnerf_tpu_torch.ops.cuda import fused_pe_field as kf
+    from cropnerf_tpu_torch.ops.posenc import nerf_encoding
+    fcfg = m.field
+    params = model_init(m, 8, torch.Generator().manual_seed(31), dev)
+    base, top, color, sem = [[w.detach() for w in grp] for grp in
+                             fused_field_weights(params.field, fcfg)]
+    wd = [*base, *top, *color, *sem]
+    g = torch.Generator(device=dev).manual_seed(32)
+    n1, n2 = RAYS * m.num_nerf_samples_per_ray, 512 * PROP256_EXPORT_SIDE
+    x = torch.rand((n1, 3), generator=g, device=dev) * 2 - 1
+    d = torch.randn((n1, 3), generator=g, device=dev)
+    app = params.field.appearance.mean(0).expand(n1, -1)
+    ex = torch.cat([nerf_encoding(d / d.norm(dim=-1, keepdim=True),
+                                  DIR_FREQS), app], -1).contiguous()
+    de = ex.shape[1]
+    enc_w = 3 * (1 + 2 * POS_FREQS)
+    H, G = fcfg.hidden_dim, fcfg.geo_feat_dim
+    trunk_macs = (mlp_macs([enc_w, H, H, H, H])
+                  + mlp_macs([H + enc_w, H, H, H, 1 + G]))
+    head_macs = ((G + de) * fcfg.hidden_dim_color + fcfg.hidden_dim_color * 3
+                 + mlp_macs([G, fcfg.hidden_dim_semantics,
+                             fcfg.num_semantic_classes]))
+    meta = kf.pack_pe_field(3, POS_FREQS, base, top, color, sem, de=de,
+                            device=dev)[2]
+    smem = {"K1 forward": kf.smem_bytes(meta, True),
+            "K1 backward": kf.bwd_smem_bytes(meta, True),
+            "K2 forward": kf.smem_bytes(meta, False),
+            "K2 backward": kf.bwd_smem_bytes(meta, False)}
+    check(all(0 < v <= 232_448 for v in smem.values()),
+          f"[w512] K1/K2 layouts {smem}")
+    regs_f = short_names(ptxas_registers(reports["fused_pe_field"]))
+    spills_f = short_names(ptxas_spills(reports["fused_pe_field"]))
+    regs_b = short_names(ptxas_registers(reports["fused_pe_field_bwd"]))
+    spills_b = short_names(ptxas_spills(reports["fused_pe_field_bwd"]))
+    out = {}
+    with torch.no_grad():
+        k1 = lambda: kf.fused_pe_nerf(x, ex, base, top, color, sem, POS_FREQS)  # noqa: E731
+        p1 = lambda: kf.fused_pe_nerf_plain(x, ex, base, top, color, sem, POS_FREQS)  # noqa: E731
+        got, ref = k1(), p1()
+        on_t = kf.heads_plain(got[0], ex, color, sem)
+        errs = dict(t=rel_err(got[0], ref[0]),
+                    rgb_on_t=rel_err(got[1], on_t[0]),
+                    sem_on_t=rel_err(got[2], on_t[1]),
+                    rgb_l2=((got[1] - ref[1]).norm() / ref[1].norm()).item(),
+                    sem_l2=((got[2] - ref[2]).norm() / ref[2].norm()).item(),
+                    sem_vs_plain=rel_err(got[2], ref[2]))
+        same = all(torch.equal(a, b) for a, b in zip(got, k1()))
+        check(all(v <= TOL for k, v in errs.items() if k != "sem_vs_plain")
+              and same and all(bool(torch.isfinite(o).all()) for o in got),
+              f"[w512] fused_pe_nerf vs plain {errs}, deterministic {same}")
+        out["fused_pe_nerf"] = dict(
+            shape=f"x [{n1},3], extras [{n1},{de}] -> t [{n1},16], rgb, sem "
+                  f"(trunk and semantic head {H} wide)",
+            source="cropnerf_tpu_torch/csrc/fused_pe_field.cu",
+            replaces="cropnerf_tpu/ops/pallas/fused_pe_field.py:713",
+            errors=errs, rel_err=max(errs["t"], errs["sem_on_t"],
+                                     errs["rgb_on_t"]),
+            max_abs_err=max(abs_err(a, b) for a, b in zip(got, ref)),
+            deterministic=same, passes=pass_ms(k1, 10, FWD_PASSES),
+            call_ms=cuda_ms(k1, 10), plain_ms=device_ms(p1, 3),
+            flops=2.0 * n1 * (trunk_macs + head_macs),
+            bytes=nbytes(x, ex, *wd) + nbytes(*got),
+            registers=regs_f, spill_bytes=spills_f)
+        del got, ref, on_t
+        cots = [torch.randn((n1, c), generator=g, device=dev)
+                for c in (1 + G, 3, fcfg.num_semantic_classes)]
+        nb_, nt_, nc_ = len(base), len(top), len(color)
+
+        def kb():
+            dx, dex, *gs = kf.fused_pe_nerf_bwd(x, ex, base, top, color, sem,
+                                                POS_FREQS, *cots, False)
+            return [dx, dex] + [t for grp in gs for t in grp]
+
+        def pb():
+            leaves = [t.clone().requires_grad_(True) for t in (x, ex, *wd)]
+            ws = leaves[2:]
+            with torch.enable_grad():
+                outs = kf.fused_pe_nerf_plain(
+                    leaves[0], leaves[1], ws[:nb_], ws[nb_:nb_ + nt_],
+                    ws[nb_ + nt_:nb_ + nt_ + nc_], ws[nb_ + nt_ + nc_:],
+                    POS_FREQS)
+                return list(torch.autograd.grad(outs, leaves, cots))
+
+        got_g, ref_g = kb(), pb()
+        rows = [row_agreement(a, b) for a, b in zip(got_g[:2], ref_g[:2])]
+        w_err, w_l2 = weight_grad_errors(got_g[2:], ref_g[2:])
+        same = all(torch.equal(a, b) for a, b in zip(got_g, kb()))
+        check(all(s_ >= ROW_SHARE and l2 <= GRAD_TOL for s_, l2 in rows)
+              and weight_grads_ok(w_err, w_l2, n1) and same,
+              f"[w512] fused_pe_nerf_bwd vs plain: rows {rows}, weights "
+              f"{w_err:.2e} (L2 {w_l2:.2e}), deterministic {same}")
+        head_last = fcfg.hidden_dim_color * 3 + (
+            fcfg.hidden_dim_semantics * fcfg.num_semantic_classes)
+        fwd_macs = trunk_macs + head_macs
+        bwd_macs = ((fwd_macs - head_last)
+                    + (fwd_macs - G * fcfg.hidden_dim_semantics) + fwd_macs)
+        out["fused_pe_nerf_bwd"] = dict(
+            shape=f"x [{n1},3], extras [{n1},{de}], cotangents -> dx, "
+                  f"dextras, every weight and bias gradient",
+            source="cropnerf_tpu_torch/csrc/fused_pe_field_bwd.cu",
+            replaces="cropnerf_tpu/ops/pallas/fused_pe_field.py:786",
+            rows=rows, rel_err=w_err, weights_l2=w_l2,
+            max_abs_err=max(abs_err(a, b) for a, b in zip(got_g, ref_g)),
+            deterministic=same, passes=pass_ms(kb, 5), call_ms=cuda_ms(kb, 5),
+            plain_ms=device_ms(pb, 3), flops=2.0 * n1 * bwd_macs,
+            bytes=nbytes(x, ex, *cots, *wd) + nbytes(x, ex, *wd),
+            registers=regs_b, spill_bytes=spills_b)
+        del got_g, ref_g
+        x2 = x[:n2].contiguous()
+        k2 = lambda: kf.fused_pe_density(x2, base, top, POS_FREQS)  # noqa: E731
+        p2 = lambda: kf.fused_pe_density_plain(x2, base, top, POS_FREQS)  # noqa: E731
+        got, ref = k2(), p2()
+        same = torch.equal(got, k2())
+        check(rel_err(got, ref) <= TOL and same,
+              f"[w512] fused_pe_density vs plain {rel_err(got, ref):.2e}")
+        out["fused_pe_density"] = dict(
+            shape=f"x [{n2},3] -> t [{n2},16] (trunk {H} wide)",
+            source="cropnerf_tpu_torch/csrc/fused_pe_field.cu",
+            replaces="cropnerf_tpu/ops/pallas/fused_pe_field.py:328",
+            rel_err=rel_err(got, ref), max_abs_err=abs_err(got, ref),
+            deterministic=same, passes=pass_ms(k2, 10, FWD_PASSES),
+            call_ms=cuda_ms(k2, 10), plain_ms=device_ms(p2, 3),
+            flops=2.0 * n2 * trunk_macs,
+            bytes=nbytes(x2, *base, *top) + nbytes(got),
+            registers=regs_f, spill_bytes=spills_f)
+    k2b = density_bwd_entry(base, top, trunk_macs, n1, dev, card,
+                            reports["fused_pe_field_bwd"])
+    k2b["replaces"] = "cropnerf_tpu/ops/pallas/fused_pe_field.py:390"
+    out["fused_pe_density_bwd"] = k2b
+    for name, k in out.items():
+        if "passes" in k and name != "fused_pe_density_bwd":
+            k["ms"] = k["passes"]["total"]["median"]
+            k["bound_ms"], k["bound_by"] = bound(k["flops"], k["bytes"])
+        log(f"[w512] kernel {name}: {k['shape']}; err {k['rel_err']:.2e}"
+            + (f" ({k['errors']})" if "errors" in k else "")
+            + (f", dx/dextras rows and L2 {k['rows']}, weights L2 "
+               f"{k['weights_l2']:.2e}" if "rows" in k else "")
+            + f"; kernel {k['ms']:.4f} ms (call {k['call_ms']:.4f}), plain "
+            f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
+            f"({k['bound_by']}); passes {fmt_passes(k['passes'])}; registers "
+            f"{k['registers']}, spill bytes {k['spill_bytes']}; {card}")
+    log(f"[w512] K1/K2 dynamic shared memory per block: {smem}")
+    return out
+
+
+# the stream route at [w512]'s shapes: K3 its semantic head ([15, 512, 1]:
+# a 64-side export chunk, a BayesRays batch), K5 its proposal nets (a
+# training step's samples)
+W512_STREAM_K3 = {"[w512] semantic head": ([15, W512, 1],
+                                           512 * PROP256_EXPORT_SIDE,
+                                           RAYS * 48)}
+W512_STREAM_K5 = {"[w512] net 0": (5, W512, 3, RAYS * 256),
+                  "[w512] net 1": (6, W512, 3, RAYS * 96)}
+
+
+def w512_stream_entries(dev, card, report) -> dict:
+    """The stream route's four kernels at [w512]'s nets (wide programs,
+    stream_net_entry), in the kernel line's format (stream_line): K3's
+    forward at the export chunk and its dx alone at the BayesRays batch,
+    K5's forward and backward with dW summed over one training step's two
+    nets."""
+    k3 = {label: stream_net_entry(label, dims, nf, nb, None, dev, card)
+          for label, (dims, nf, nb) in W512_STREAM_K3.items()}
+    k5 = {label: stream_net_entry(label, [3 * (1 + 2 * F)] + [hw] * (
+        layers - 1) + [1], n, n, F, dev, card)
+        for label, (F, hw, layers, n) in W512_STREAM_K5.items()}
+    return stream_line(k3, k5, "[w512] semantic head", list(W512_STREAM_K5),
+                       "[w512]'s semantic head", "[w512]'s",
+                       kernel_names_plain(ptxas_registers(report)),
+                       kernel_names_plain(ptxas_spills(report)),
+                       "stream (wide)")
+
+
+def w512_phase(dev, card, bank, rb, cams, kernels, reports,
+               work: Path) -> tuple:
+    """[w512] (w512_cfg, both PE proposal nets fused and W512 wide): first
+    each of its kernels at the path's shapes against its plain version
+    (w512_field_entries, w512_stream_entries); then the path through
+    propfused_phase: forward at RAYS rays, the RENDER_HW^2 render, 1 +
+    TRAIN_STEPS training steps (K1 forward and backward with the semantic
+    head inside, K5's stream route forward and backward) with every loss
+    held against the plain path's, one depth-cloud batch; then
+    stream_head_paths: the 64-side export (K2, K3 stream for the semantic
+    head, K3 wgmma for the colour head) and one BayesRays batch (K2's and
+    K3's dx-only backwards).  Launches exact, counts zeroed just before
+    each call and read just after.  Returns (numbers for the JSON line,
+    calls for the trace, the kernel entries with their launches on
+    [w512]'s paths)."""
+    entries = w512_field_entries(w512_cfg().model, dev, card, reports)
+    entries.update(w512_stream_entries(dev, card, reports["fused_mlp_stream"]))
+    base = w512_cfg()
+    info, trace = propfused_phase(dev, card, bank, rb, cams, kernels,
+                                  "cropnerf-mxu", W512, base, "[w512]")
+    sub, sub_trace = stream_head_paths(dev, card, bank, kernels, base.model,
+                                       "[w512]", "[w512]", work / "w512", 23)
+    info.update(sub)
+    trace.update(sub_trace)
+    paths = {name: {path: info[path]["launches"].get(name, 0)
+                    for path in W512_PATHS} for name in entries}
+    log(f"[w512] launches by path: {paths}")
+    check(all(paths[name][W512_MAIN[name]] > 0 for name in entries),
+          f"[w512] a kernel never launched on its main path: {paths}")
+    for name, k in entries.items():
+        k["launches"] = paths[name][W512_MAIN[name]]
+        k["launches_by_path"] = {"[w512]": paths[name]}
+    info["kernels"] = {name: {key: v for key, v in k.items()
+                              if key not in ("by_net", "cases")}
+                       for name, k in entries.items()}
+    return info, trace, entries
 
 
 # ---- the trainer loop and the CLI: the [cli] phase -----------------------
@@ -5387,6 +5679,14 @@ def main() -> None:
                                      p256_work)
     steps.update(p256_steps)
 
+    # ---- 5c'''. [w512]: a 512-wide trunk, semantic head and PE proposal
+    # nets (the tile kernels' wide programs) -------------------------------
+    w512_work = Path(tempfile.mkdtemp(prefix="chip_smoke_w512_"))
+    w512, w512_steps, w512_k = w512_phase(dev, card, bank, rb, cams,
+                                          all_kernels, reports, w512_work)
+    steps.update(w512_steps)
+    shutil.rmtree(w512_work)
+
     # ---- 5d. the trainer loop and the CLI ---------------------------------
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
     cli_info = cli_phase(dev, card, all_kernels,
@@ -5530,6 +5830,17 @@ def main() -> None:
         spill_bytes=k["spill_bytes"], by_net=k["by_net"])
         for name, k in pe_wide.items()
         for counter in [name.split()[0]]] + [dict(
+        name=f"{name} [w512]", route="cuda", source=k["source"],
+        replaces=k["replaces"], launches=k["launches"],
+        launches_by_path=k["launches_by_path"], max_abs_err=k["max_abs_err"],
+        rel_err=k["rel_err"], ms=k["ms"], call_ms=k["call_ms"],
+        plain_ms=k["plain_ms"], bound_ms=k["bound_ms"], bound_by=k["bound_by"],
+        library_ms=None, shape=k["shape"], card=card,
+        registers=k["registers"], spill_bytes=k["spill_bytes"],
+        **{key: k[key] for key in ("passes", "with_dw_passes", "with_dw_ms",
+                                   "deterministic", "errors", "rows",
+                                   "kernel_route", "by_net") if key in k})
+        for name, k in w512_k.items()] + [dict(
         name="render_weights_cuda", route="cuda", source=k6["source"],
         replaces=k6["replaces"], launches=k6["launches"],
         launches_by_path={"its entry point at K6_SHAPES": k6["launches"],
@@ -5557,6 +5868,7 @@ def main() -> None:
         "propfused": pf_info,
         "mxuq": mq_info,
         "prop256": p256,
+        "w512": w512,
         "cli": cli_info,
         "count": count_info,
         "ddp": ddp_info,

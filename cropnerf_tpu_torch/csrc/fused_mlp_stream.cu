@@ -4,10 +4,11 @@
 //   K3 fused_mlp     x [N, din] -> relu MLP -> [N, dout]
 //   K5 fused_pe_mlp  x [N, dim] -> NeRF encoding -> relu MLP -> [N, dout]
 // Every net of 1 to 32 layers whose input (din, or the encoding's dim(1 +
-// 2F) columns) and every layer are at most 256 wide: deeper, wider or
-// longer-input nets than fused_mlp_{fwd,bwd}.cu and fused_pe_mlp_*.cu hold
-// in shared memory (ops/cuda/fused_mlp.py fused_mlp_route and
-// ops/cuda/fused_pe_field.py pe_mlp_fwd_route pick the route by shape).
+// 2F) columns, at most 256) and every layer are at most 512 wide: deeper,
+// wider or longer-input nets than fused_mlp_{fwd,bwd}.cu and
+// fused_pe_mlp_*.cu hold in shared memory (ops/cuda/fused_mlp.py
+// fused_mlp_route and ops/cuda/fused_pe_field.py pe_mlp_fwd_route pick the
+// route by shape).
 //
 // Replaces, for those nets, cropnerf_tpu/ops/pallas/fused_mlp.py
 // _fwd_kernel and _bwd_kernel (K3), and cropnerf_tpu/ops/pallas/
@@ -63,6 +64,15 @@
 //    to one row of partials; then pe_dw.cuh's pass: dW_l = A_lᵀ·G_l as a
 //    split-K wgmma GEMM over the workspace and fixed-order sums of the
 //    splits and the bias rows.
+//  * a net with its input or a layer over 256 wide (up to 512) runs wide
+//    (pe_tile.cuh): both warpgroups on one 64-row tile at a time, each
+//    with half of every product's columns, one IN and one ACT buffer for
+//    the block (64 KB each at 512), slabs of 32 rows as wide as the
+//    product; the forward's blocks walk 64-row tiles with the warpgroups
+//    in phase, the backward's take their 128-row tile's halves in turn,
+//    each warpgroup storing its half of every product's workspace block.
+//    At 512 wide the workspace is ~1 KB a row a layer for A_l and as much
+//    for G_l, written once and read once (PERF.md).
 // No floating-point atomics: two runs give the same bits, and the weight
 // gradients are the same with and without dx.  Rows past N load zero x
 // (K3) or encode zero x (K5) and zero cotangents, so they add nothing.
@@ -88,8 +98,10 @@ constexpr int FWD_SLAB = 64;       // forward: weight rows a slab, one wgmma gro
 constexpr int FWD_DEPTH = 2;       // forward: wgmma groups in flight
 constexpr int MIN_FWD_STAGES = 3;  // PingPong hands over after 1 slab: 1 <= stages - 2
 
-__host__ __device__ inline bool wgmma_width(int n) {
-  return n == 16 || n == 32 || n == 64 || n == 128 || n == 256;
+// Whether a program runs wide (mlp_plan.py stream_wide): its input or a
+// layer over MAX_N.
+__host__ __device__ inline bool stream_wide(const int* h) {
+  return h[M_IN_PAD] > MAX_N || h[M_ACT_W] > MAX_N;
 }
 
 // The header, ops and tasks the kernels accept.
@@ -101,17 +113,20 @@ inline bool program_ok(const int* prog, int prog_len, bool backward) {
       prog_len != M_HEADER + n_ops * OP_INTS + n_tasks * TASK_INTS)
     return false;
   const int pad = h[M_IN_PAD], act_w = h[M_ACT_W];
-  if (h[M_DIN] < 1 || pad < h[M_DIN] || pad % 16 || pad > MAX_N || !wgmma_width(act_w) ||
-      h[M_DOUT] < 1 || h[M_DOUT] > MAX_N || h[M_DIM] < 0)
+  if (h[M_DIN] < 1 || pad < h[M_DIN] || pad % 16 || pad > MAX_W ||
+      !product_width(act_w, MAX_W) || h[M_DOUT] < 1 || h[M_DOUT] > act_w || h[M_DIM] < 0)
     return false;
-  if (h[M_DIM] > 0 &&
-      (h[M_FREQS] < 0 || h[M_FREQS] > 30 || h[M_DIN] != h[M_DIM] * (1 + 2 * h[M_FREQS])))
+  if (h[M_DIM] > 0 && (h[M_FREQS] < 0 || h[M_FREQS] > 30 || pad > MAX_N ||
+                       h[M_DIN] != h[M_DIM] * (1 + 2 * h[M_FREQS])))
     return false;
+  const int most = stream_wide(h) ? MAX_W : MAX_N;
   const int* ops = prog + M_HEADER;
   for (int o = 0; o < n_ops; ++o) {
     const int* op = ops + o * OP_INTS;
     const int kind = op[O_KIND], N = op[O_N];
-    if (!wgmma_width(N) || N > act_w) return false;
+    if (!product_width(N, most)) return false;
+    // an output into ACT fits it; layer 0's input gradient goes elsewhere
+    if (!(kind == BWD && op[O_EPI] != G_MASKED) && N > act_w) return false;
     if (kind == EMIT) {
       if (!backward) return false;
       continue;
@@ -128,20 +143,22 @@ inline bool program_ok(const int* prog, int prog_len, bool backward) {
   return pebwd::tasks_ok(ops + n_ops * OP_INTS, n_tasks);
 }
 
-// A_0 of a warpgroup's 64 rows from row0: bf16(x) (K3), or K5's encoding
-// of x rounded to bf16 (two threads a row), zero past N and in the padded
-// columns.
+// A_0 of the 64 rows from row0: bf16(x) (K3, thread t of `step`), or K5's
+// encoding of x rounded to bf16 (two threads a row, t < 128), zero past N
+// and in the padded columns.
 __device__ __forceinline__ void input_tile(const float* __restrict__ x, const int* h,
-                                           long long row0, long long n_rows, bf16* dst, int t) {
+                                           long long row0, long long n_rows, bf16* dst, int t,
+                                           int step) {
   const int din = h[M_DIN], pad = h[M_IN_PAD], dim = h[M_DIM];
   if (dim == 0) {
-    for (int i = t; i < ROWS * pad; i += 128) {
+    for (int i = t; i < ROWS * pad; i += step) {
       const int r = i / pad, c = i - r * pad;
       const long long row = row0 + r;
       dst[cm(r, c)] = __float2bfloat16_rn((c < din && row < n_rows) ? x[row * din + c] : 0.0f);
     }
     return;
   }
+  if (t >= 128) return;
   const int r = t >> 1;
   const long long row = row0 + r;
   encode_row([&](int d) { return row < n_rows ? __ldg(x + row * dim + d) : 0.0f; }, r, t & 1,
@@ -151,9 +168,10 @@ __device__ __forceinline__ void input_tile(const float* __restrict__ x, const in
 // ---- the forward ------------------------------------------------------------------
 
 struct FwdLayout {     // dynamic shared memory, in bytes
-  int wg_bytes;        // one warpgroup's region
+  int wg_bytes;        // one warpgroup's region (the block's one region when wide)
   int in, act;         // offsets inside it
   int turn, total;
+  bool wide;
   RingLayout ring;
 };
 
@@ -163,9 +181,10 @@ __host__ __device__ inline FwdLayout fwd_layout(const int* h) {
   s.in = off; off += al128(ROWS * h[M_IN_PAD] * 2);
   s.act = off; off += al128(ROWS * h[M_ACT_W] * 2);
   s.wg_bytes = off;
-  off = 2 * s.wg_bytes;
+  s.wide = stream_wide(h);
+  off = (s.wide ? 1 : 2) * s.wg_bytes;
   s.turn = off; off += 2 * 8;
-  s.ring = ring_layout(off, FWD_SLAB);
+  s.ring = s.wide ? ring_layout(off, SLAB_K, MAX_W) : ring_layout(off, FWD_SLAB);
   s.total = s.ring.total;
   return s;
 }
@@ -181,6 +200,7 @@ struct FwdArgs {
   FwdLayout s;
 };
 
+template <bool WIDE>
 struct FwdTile {
   const FwdArgs& a;
   unsigned char* wgm;   // this warpgroup's region
@@ -193,16 +213,22 @@ struct FwdTile {
 
   __device__ __forceinline__ bf16* in() const { return reinterpret_cast<bf16*>(wgm + a.s.in); }
   __device__ __forceinline__ bf16* act() const { return reinterpret_cast<bf16*>(wgm + a.s.act); }
-  __device__ __forceinline__ void sync() const { named_sync(1 + ln.wg, 128); }
+  // The threads that share the tile: a warpgroup, or both when wide.
+  __device__ __forceinline__ void sync() const {
+    if constexpr (WIDE) named_sync(1, CONSUMERS);
+    else named_sync(1 + ln.wg, 128);
+  }
 
-  // The f32 output rows: the product plus the bias, straight from the
-  // accumulators (rows past N and the padded columns dropped).
+  // The f32 output rows: the product (columns from cb) plus the bias,
+  // straight from the accumulators (rows past N and the padded columns
+  // dropped).
   template <int N>
-  __device__ __forceinline__ void y_out(const float (&v)[N / 2], const float* b, int nvalid) {
+  __device__ __forceinline__ void y_out(const float (&v)[N / 2], const float* b, int nvalid,
+                                        int cb) {
     const int cols = a.h[M_DOUT];
 #pragma unroll
     for (int j = 0; j < N / 8; ++j) {
-      const int c = 8 * j + ln.cq;
+      const int c = cb + 8 * j + ln.cq;
       const float2 bb = c < nvalid ? __ldg(reinterpret_cast<const float2*>(b + c))
                                    : make_float2(0.0f, 0.0f);
 #pragma unroll
@@ -215,17 +241,25 @@ struct FwdTile {
     }
   }
 
+  // A product of N columns a warpgroup: the op's whole width, or when
+  // wide this warpgroup's half of it, from column cb.
   template <int N>
   __device__ __forceinline__ void run_product(const int* op) {
     float acc[N / 2];
-    pe::product<N, FWD_DEPTH>(op, smem_u32(op[O_A0] == IN ? in() : act()), 0, rg, slab,
-                              ln.lane, acc, PingPong{turn, ln.wg, ln.lane, p, total});
+    const uint32_t a0 = smem_u32(op[O_A0] == IN ? in() : act());
+    const int cb = WIDE ? ln.wg * N : 0;
+    if constexpr (WIDE)
+      pe::product<N, FWD_DEPTH, AnyOrder, 2 * N>(op, a0, 0, rg, slab, ln.lane, acc, AnyOrder(),
+                                                cb);
+    else
+      pe::product<N, FWD_DEPTH>(op, a0, 0, rg, slab, ln.lane, acc,
+                                PingPong{turn, ln.wg, ln.lane, p, total});
     ++p;
     const float* b = a.bias + op[O_BOFF];
     const int nvalid = op[O_NVALID];
     sync();                            // every warp's products have read their operands
     if (op[O_EPI] == Y_OUT) {
-      y_out<N>(acc, b, nvalid);
+      y_out<N>(acc, b, nvalid, cb);
       return;
     }
     uint32_t mw[(N + 63) / 64] = {};
@@ -234,7 +268,7 @@ struct FwdTile {
                         return c < nvalid ? __ldg(reinterpret_cast<const float2*>(b + c))
                                           : make_float2(0.0f, 0.0f);
                       },
-                      true, act(), ln, mw);
+                      true, act(), ln, mw, cb);
     fence_async_smem();                // visible to the next products
     sync();
   }
@@ -244,16 +278,18 @@ struct FwdTile {
     const long long my_tiles = (a.n_tiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
     total = my_tiles * n_ops;
     for (long long tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
-      row0 = tile * TILE_ROWS + ln.wg * ROWS;
+      row0 = WIDE ? tile * ROWS : tile * TILE_ROWS + ln.wg * ROWS;
       sync();                          // the last tile's products have read IN
-      input_tile(a.x, a.h, row0, a.n_rows, in(), ln.t);
+      if constexpr (WIDE) input_tile(a.x, a.h, row0, a.n_rows, in(), threadIdx.x, CONSUMERS);
+      else input_tile(a.x, a.h, row0, a.n_rows, in(), ln.t, 128);
       fence_async_smem();
       sync();
       for (int o = 0; o < n_ops; ++o) {
         int op[OP_INTS];
 #pragma unroll
         for (int i = 0; i < OP_INTS; ++i) op[i] = __ldg(a.ops + o * OP_INTS + i);
-        switch (op[O_N]) {
+        switch (WIDE ? op[O_N] / 2 : op[O_N]) {
+          case 8: if constexpr (WIDE) run_product<8>(op); break;
           case 16: run_product<16>(op); break;
           case 32: run_product<32>(op); break;
           case 64: run_product<64>(op); break;
@@ -265,6 +301,7 @@ struct FwdTile {
   }
 };
 
+template <bool WIDE>
 __global__ void __launch_bounds__(ALL_THREADS, 1)
 mlp_stream_fwd_kernel(const __grid_constant__ FwdArgs a) {
   extern __shared__ __align__(1024) unsigned char smem[];
@@ -284,17 +321,20 @@ mlp_stream_fwd_kernel(const __grid_constant__ FwdArgs a) {
           produce_slabs(a.ops, a.h[M_N_OPS], a.img, rg, slab);
       },
       [&] {
-        FwdTile tile{a, smem + (threadIdx.x >> 7) * a.s.wg_bytes, rg, turn};
+        FwdTile<WIDE> tile{a, smem + (WIDE ? 0 : threadIdx.x >> 7) * a.s.wg_bytes, rg, turn};
         tile.run();
       });
 }
 
 // ---- the backward -----------------------------------------------------------------
 
+constexpr int CS_BYTES = 4 * MAX_N * 4;     // a warpgroup's bias column sums
+
 struct BwdLayout {     // dynamic shared memory of the tile kernel, in bytes
-  int wg_bytes;        // one warpgroup's region
+  int wg_bytes;        // one warpgroup's region (the block's one region when wide)
   int in, genc, act, colsum;   // offsets inside it; K5's f32 genc over in
   int total;
+  bool wide;
   RingLayout ring;
 };
 
@@ -304,13 +344,15 @@ __host__ __device__ inline BwdLayout bwd_layout(const int* h) {
   s.in = s.genc = 0;
   int off = h[M_DIM] > 0 ? (int)lmax(in_bytes, al128(ROWS * h[M_IN_PAD] * 4)) : in_bytes;
   s.act = off; off += al128(ROWS * h[M_ACT_W] * 2);
-  s.colsum = off; off += 4 * MAX_N * 4;
+  s.wide = stream_wide(h);
+  s.colsum = off; off += (s.wide ? 2 : 1) * CS_BYTES;
   s.wg_bytes = off;
-  off = 2 * s.wg_bytes;
+  off = (s.wide ? 1 : 2) * s.wg_bytes;
   // 32-row slabs, or 16 where two stages of 32 do not fit (K5 at 256
   // encoding columns and 256 wide)
-  s.ring = ring_layout(off, SLAB_K);
-  if (s.ring.stages < 2) s.ring = ring_layout(off, SLAB_K / 2);
+  const int width = s.wide ? MAX_W : MAX_N;
+  s.ring = ring_layout(off, SLAB_K, width);
+  if (s.ring.stages < 2) s.ring = ring_layout(off, SLAB_K / 2, width);
   s.total = s.ring.total;
   return s;
 }
@@ -329,7 +371,7 @@ struct BwdArgs {
   BwdLayout s;
 };
 
-template <bool STORE>
+template <bool STORE, bool WIDE>
 struct BwdTile {
   const BwdArgs& a;
   unsigned char* wgm;   // this warpgroup's region
@@ -338,12 +380,25 @@ struct BwdTile {
   Lane ln;
   long long row0;       // first row of the warpgroup
   int slab = 0;
+  int part_row = 0;     // the row of the bias partials its rows' sums go to
 
   __device__ bf16* in() const { return reinterpret_cast<bf16*>(wgm + a.s.in); }
   __device__ float* genc() const { return reinterpret_cast<float*>(wgm + a.s.genc); }
   __device__ bf16* act() const { return reinterpret_cast<bf16*>(wgm + a.s.act); }
-  __device__ float* colsum() const { return reinterpret_cast<float*>(wgm + a.s.colsum); }
-  __device__ void sync() const { named_sync(1 + ln.wg, 128); }
+  __device__ float* colsum() const {
+    return reinterpret_cast<float*>(wgm + a.s.colsum + (WIDE ? ln.wg * CS_BYTES : 0));
+  }
+  // The threads that share the tile: a warpgroup, or both when wide.
+  __device__ void sync() const {
+    if constexpr (WIDE) named_sync(1, CONSUMERS);
+    else named_sync(1 + ln.wg, 128);
+  }
+  // Whether this warpgroup forms K5's dx of the rows (when wide,
+  // warpgroup 0 for both).
+  __device__ bool rows_owner() const { return !WIDE || ln.wg == 0; }
+  // The first of the op's columns this warpgroup computes (N a warpgroup).
+  template <int N>
+  __device__ int col_base() const { return WIDE ? ln.wg * N : 0; }
 
   // Before the warpgroup overwrites a buffer: its bulk stores have read
   // their sources and every warp's products have read their operands.
@@ -351,23 +406,34 @@ struct BwdTile {
     if (STORE && ln.t == 0) bulk_wait_read();
     sync();
   }
-  // After the warpgroup wrote `src` (width columns): visible to wgmma and
-  // the bulk engine; stored to workspace slot `col` unless col < 0.
-  __device__ void after_write(const bf16* src, int col, int width) const {
+  // After the tile's threads wrote `src` (width columns): visible to wgmma
+  // and the bulk engine; stored to workspace slot `col` unless col < 0.
+  // When wide each warpgroup stores the half of the columns it wrote
+  // (`halves`, a product's output), or warpgroup 0 the whole.
+  __device__ void after_write(const bf16* src, int col, int width, bool halves) const {
     fence_async_smem();
     sync();
-    if (STORE && col >= 0 && ln.t == 0) {
-      bf16* dst = a.ws + (long long)col * a.n_pad + (row0 / ROWS) * ROWS * width;
-      bulk_store(dst, src, ROWS * width * 2);
-      bulk_commit();
+    if (!STORE || col < 0 || ln.t != 0) return;
+    int c0 = 0, w = width;
+    if constexpr (WIDE) {
+      if (halves) {
+        w = width / 2;
+        c0 = ln.wg * w;
+      } else if (ln.wg != 0) {
+        return;
+      }
     }
+    bf16* dst = a.ws + (long long)col * a.n_pad + (row0 / ROWS) * ROWS * width + c0 * ROWS;
+    bulk_store(dst, src + c0 * ROWS, ROWS * w * 2);
+    bulk_commit();
   }
 
-  // A cotangent tile into ACT in place: the relu mask of `mask` (-1:
-  // none), bf16 for the next product, f32 column sums for the bias
-  // gradient, the workspace slot.
+  // A cotangent tile (the warpgroup's N columns) into ACT in place: the
+  // relu mask of `mask` (-1: none), bf16 for the next product, f32 column
+  // sums for the bias gradient, the workspace slot.
   template <int N>
   __device__ void emit_g(const int* op, float (&v)[N / 2]) {
+    const int cb = col_base<N>();
     constexpr int W = (N + 63) / 64;
     uint32_t mw[W];
     const int mask = op[O_MASK];
@@ -382,7 +448,7 @@ struct BwdTile {
 #pragma unroll
       for (int q = 0; q < 4; ++q)
         if (!((bits >> q) & 1)) v[4 * j + q] = 0.0f;
-      const int c = 8 * j + ln.cq;
+      const int c = cb + 8 * j + ln.cq;
       *reinterpret_cast<__nv_bfloat162*>(dst + cm(ln.r0, c)) =
           __floats2bfloat162_rn(v[4 * j], v[4 * j + 1]);
       *reinterpret_cast<__nv_bfloat162*>(dst + cm(ln.r0 + 8, c)) =
@@ -398,11 +464,11 @@ struct BwdTile {
       }
       pebwd::warp_colsum<N / 4>(s, colsum() + ln.warp * MAX_N, ln.lane);
     }
-    after_write(dst, op[O_WS], N);
+    after_write(dst, op[O_WS], op[O_N], true);
     if (STORE && boff >= 0) {
       const float* cs = colsum();
-      float* out = a.bpart + (long long)(blockIdx.x * 2 + ln.wg) * a.h[M_TOTAL_B] + boff;
-      for (int c = ln.t; c < op[O_NVALID]; c += 128)
+      float* out = a.bpart + (long long)part_row * a.h[M_TOTAL_B] + boff + cb;
+      for (int c = ln.t; c < N && cb + c < op[O_NVALID]; c += 128)
         out[c] = ((cs[c] + cs[MAX_N + c]) + cs[2 * MAX_N + c]) + cs[3 * MAX_N + c];
     }
   }
@@ -410,6 +476,7 @@ struct BwdTile {
   // The recompute of a hidden layer: bias, relu, bf16 into ACT, its mask.
   template <int N>
   __device__ void forward_epilogue(const int* op, float (&v)[N / 2]) {
+    const int cb = col_base<N>();
     const float* bias = a.bias + op[O_BOFF];
     const int nvalid = op[O_NVALID];
     constexpr int W = (N + 63) / 64;
@@ -422,16 +489,18 @@ struct BwdTile {
                         return c < nvalid ? __ldg(reinterpret_cast<const float2*>(bias + c))
                                           : make_float2(0.0f, 0.0f);
                       },
-                      true, act(), ln, mw);
+                      true, act(), ln, mw, cb);
 #pragma unroll
     for (int w = 0; w < W; ++w) masks[(op[O_MASK] + w) * CONSUMERS + threadIdx.x] = mw[w];
-    after_write(act(), op[O_WS], N);
+    after_write(act(), op[O_WS], op[O_N], true);
   }
 
   template <int N>
   __device__ void run_product(const int* op) {
     float acc[N / 2];
-    pe::product<N>(op, smem_u32(op[O_A0] == IN ? in() : act()), 0, rg, slab, ln.lane, acc);
+    const int cb = col_base<N>();
+    pe::product<N, 1, AnyOrder, WIDE ? 2 * N : N>(op, smem_u32(op[O_A0] == IN ? in() : act()),
+                                                  0, rg, slab, ln.lane, acc, AnyOrder(), cb);
     if (op[O_KIND] == FWD) {
       forward_epilogue<N>(op, acc);
       return;
@@ -446,7 +515,7 @@ struct BwdTile {
       const int din = a.h[M_DIN];
 #pragma unroll
       for (int j = 0; j < N / 8; ++j) {
-        const int c = op[O_COL] + 8 * j + ln.cq;
+        const int c = op[O_COL] + cb + 8 * j + ln.cq;
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const long long row = row0 + ln.r0 + 8 * (q >> 1);
@@ -456,7 +525,7 @@ struct BwdTile {
     } else {                           // K5: the f32 input gradient of the encoding
 #pragma unroll
       for (int j = 0; j < N / 8; ++j) {
-        const int c = op[O_COL] + 8 * j + ln.cq;
+        const int c = op[O_COL] + cb + 8 * j + ln.cq;
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh)
           *reinterpret_cast<float2*>(genc() + cm(ln.r0 + 8 * hh, c)) =
@@ -471,13 +540,13 @@ struct BwdTile {
   template <int N>
   __device__ void emit(const int* op) {
     float v[N / 2];
-    const int cols = a.h[M_DOUT];
+    const int cols = a.h[M_DOUT], cb = col_base<N>();
 #pragma unroll
     for (int j = 0; j < N / 8; ++j) {
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const long long row = row0 + ln.r0 + 8 * (q >> 1);
-        const int c = 8 * j + ln.cq + (q & 1);
+        const int c = cb + 8 * j + ln.cq + (q & 1);
         v[4 * j + q] = (c < cols && row < a.n_rows) ? a.g[row * cols + c] : 0.0f;
       }
     }
@@ -485,20 +554,27 @@ struct BwdTile {
   }
 
   __device__ void run() {
-    input_tile(a.x, a.h, row0, a.n_rows, in(), ln.t);
-    after_write(in(), a.h[M_IN_SLOT], a.h[M_IN_PAD]);
+    if constexpr (WIDE) input_tile(a.x, a.h, row0, a.n_rows, in(), threadIdx.x, CONSUMERS);
+    else input_tile(a.x, a.h, row0, a.n_rows, in(), ln.t, 128);
+    after_write(in(), a.h[M_IN_SLOT], a.h[M_IN_PAD], false);
     const int n_ops = a.h[M_N_OPS];
     for (int o = 0; o < n_ops; ++o) {
       int op[OP_INTS];
 #pragma unroll
       for (int i = 0; i < OP_INTS; ++i) op[i] = __ldg(a.ops + o * OP_INTS + i);
       const int kind = op[O_KIND];
-      switch (op[O_N]) {
+      switch (WIDE ? op[O_N] / 2 : op[O_N]) {
 #define CROPNERF_CASE(NN)                            \
   case NN:                                           \
     if (kind == EMIT) emit<NN>(op);                  \
     else run_product<NN>(op);                        \
     break;
+        case 8:                        // a wide program's 16-wide products
+          if constexpr (WIDE) {
+            if (kind == EMIT) emit<8>(op);
+            else run_product<8>(op);
+          }
+          break;
         CROPNERF_CASE(16)
         CROPNERF_CASE(32)
         CROPNERF_CASE(64)
@@ -535,27 +611,35 @@ __device__ __noinline__ void pe_dx_rows(const float* __restrict__ x, const float
   }
 }
 
-template <bool STORE>
+template <bool STORE, bool WIDE>
 __global__ void __launch_bounds__(ALL_THREADS, 1)
 mlp_stream_bwd_kernel(const __grid_constant__ BwdArgs a) {
   extern __shared__ __align__(1024) unsigned char smem[];
   const Ring rg = make_ring(smem, a.s.ring);
   init_ring(rg);
   __syncthreads();
+  // a wide program takes the tile's two 64-row halves in turn
+  constexpr int halves = WIDE ? 2 : 1;
   split_roles(
       [&] {                            // the producer: the weight slabs, in order
         int slab = 0;
-        produce_slabs(a.ops, a.h[M_N_OPS], a.img, rg, slab);
+        for (int i = 0; i < halves; ++i) produce_slabs(a.ops, a.h[M_N_OPS], a.img, rg, slab);
       },
       [&] {
-        BwdTile<STORE> tile{a, smem + (threadIdx.x >> 7) * a.s.wg_bytes,
+        const int wg = threadIdx.x >> 7;
+        BwdTile<STORE, WIDE> tile{a, smem + (WIDE ? 0 : wg) * a.s.wg_bytes,
                             a.masks + (long long)blockIdx.x * a.h[M_MASK_WORDS] * CONSUMERS,
                             rg};
-        tile.row0 = (long long)blockIdx.x * TILE_ROWS + tile.ln.wg * ROWS;
-        tile.run();
-        if (a.dx != nullptr && a.h[M_DIM] > 0)
-          pe_dx_rows(a.x, tile.genc(), a.dx, tile.row0, a.n_rows, a.h[M_DIM], a.h[M_FREQS],
-                     tile.ln.t);
+        for (int i = 0; i < halves; ++i) {
+          const int part = WIDE ? i : wg;
+          tile.row0 = (long long)blockIdx.x * TILE_ROWS + part * ROWS;
+          tile.part_row = blockIdx.x * 2 + part;
+          if (i) tile.before_write();  // the first half's stores and dx have read the tile
+          tile.run();
+          if (a.dx != nullptr && a.h[M_DIM] > 0 && tile.rows_owner())
+            pe_dx_rows(a.x, tile.genc(), a.dx, tile.row0, a.n_rows, a.h[M_DIM], a.h[M_FREQS],
+                       tile.ln.t);
+        }
         if (STORE && tile.ln.t == 0) bulk_wait();
       });
 }
@@ -604,15 +688,15 @@ extern "C" int cropnerf_mlp_stream_fwd(const float* x, float* out, const void* i
   fa.bias = b;
   fa.ops = prog_dev + M_HEADER;
   fa.n_rows = n_rows;
-  fa.n_tiles = (n_rows + TILE_ROWS - 1) / TILE_ROWS;
   for (int i = 0; i < M_HEADER; ++i) fa.h[i] = prog[i];
   fa.s = fwd_layout(prog);
-  e = cudaFuncSetAttribute(mlp_stream_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           fa.s.total);
+  const int rows = fa.s.wide ? ROWS : TILE_ROWS;   // the tiles the blocks walk
+  fa.n_tiles = (n_rows + rows - 1) / rows;
+  auto kernel = fa.s.wide ? mlp_stream_fwd_kernel<true> : mlp_stream_fwd_kernel<false>;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, fa.s.total);
   if (e != cudaSuccess) return (int)e;
   const unsigned blocks = (unsigned)lmin(fa.n_tiles, sms);
-  mlp_stream_fwd_kernel<<<blocks, ALL_THREADS, fa.s.total,
-                          reinterpret_cast<cudaStream_t>(stream)>>>(fa);
+  kernel<<<blocks, ALL_THREADS, fa.s.total, reinterpret_cast<cudaStream_t>(stream)>>>(fa);
   return (int)cudaGetLastError();
 }
 
@@ -692,7 +776,10 @@ extern "C" int cropnerf_mlp_stream_bwd(const float* x, const float* g, float* dx
   ba.n_pad = p.split.n_pad;
   for (int i = 0; i < M_HEADER; ++i) ba.h[i] = h[i];
   ba.s = bwd_layout(h);
-  auto kernel = store ? mlp_stream_bwd_kernel<true> : mlp_stream_bwd_kernel<false>;
+  auto kernel = store ? (ba.s.wide ? mlp_stream_bwd_kernel<true, true>
+                                   : mlp_stream_bwd_kernel<true, false>)
+                      : (ba.s.wide ? mlp_stream_bwd_kernel<false, true>
+                                   : mlp_stream_bwd_kernel<false, false>);
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ba.s.total);
   if (e != cudaSuccess) return (int)e;

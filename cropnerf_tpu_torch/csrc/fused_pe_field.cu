@@ -35,6 +35,13 @@
 //  * persistent blocks: min(tiles, SMs) blocks walk the 128-row tiles with
 //    a stride, and the producer runs the program's slab sequence once per
 //    tile without draining the ring, so there is no wave tail of blocks;
+//  * a trunk or head over 256 wide (up to 512) runs wide (pe_tile.cuh):
+//    the blocks walk 64-row tiles, both warpgroups on the same rows, each
+//    multiplying half of every slab's columns into its own 64 x N/2
+//    accumulators, one activation tile (64 KB at 512) that both read and
+//    then overwrite in place after a barrier over both, and 32-row slabs
+//    as wide as the product; the warpgroups then run in phase, not out of
+//    it;
 //  * the serial parts are kept short: the encoding takes one sincosf per
 //    (coordinate, frequency), two threads a row, from x loaded into
 //    registers a tile ahead; the extras (up to 2 * EX_REGS columns; wider
@@ -58,9 +65,10 @@ constexpr int EX_REGS = 32;            // extras prefetched a thread (64 columns
 constexpr int MIN_STAGES = 3;          // PingPong hands over after 1 slab: 1 <= stages - 2
 
 struct Layout {        // dynamic shared memory, in bytes
-  int wg_bytes;        // one warpgroup's region
+  int wg_bytes;        // one warpgroup's region (the block's one region when wide)
   int enc, tb, act;    // offsets inside it; enc also stages the outputs
   int bias, ops, turn, total;
+  bool wide;
   RingLayout ring;
 };
 
@@ -75,14 +83,19 @@ __host__ __device__ inline Layout fwd_layout(const int* h) {
   s.tb = off; off += al128(ROWS * h[H_TB_W] * 2);
   s.act = off; off += al128(ROWS * h[H_ACT_W] * 2);
   s.wg_bytes = off;
-  off = 2 * s.wg_bytes;
+  s.wide = wide_header(h);
+  off = (s.wide ? 1 : 2) * s.wg_bytes;
   s.bias = off; off += al128(h[H_TOTAL_B] * 4);
   s.ops = off; off += al128(h[H_N_OPS] * OP_INTS * 4);
   s.turn = off; off += 2 * 8;
-  s.ring = ring_layout(off, SLAB_ROWS);
+  s.ring = s.wide ? ring_layout(off, SLAB_K, MAX_W) : ring_layout(off, SLAB_ROWS);
   s.total = s.ring.total;
   return s;
 }
+
+// Rows of the tiles the blocks walk: 128 (a warpgroup's 64 each), or 64
+// for a wide program (both warpgroups on the same rows).
+__host__ __device__ inline int tile_rows(const Layout& s) { return s.wide ? ROWS : TILE_ROWS; }
 
 struct FwdArgs {
   const float *x, *ex;
@@ -95,6 +108,7 @@ struct FwdArgs {
   Layout s;
 };
 
+template <bool WIDE>
 struct FwdTile {
   const FwdArgs& a;
   unsigned char* wgm;   // this warpgroup's region
@@ -117,9 +131,20 @@ struct FwdTile {
   __device__ __forceinline__ bf16* tb() const { return reinterpret_cast<bf16*>(wgm + a.s.tb); }
   __device__ __forceinline__ bf16* act() const { return reinterpret_cast<bf16*>(wgm + a.s.act); }
   __device__ __forceinline__ bf16* buf(int id) const { return id == ACT ? act() : id == ENC ? enc() : tb(); }
-  __device__ __forceinline__ void sync() const { named_sync(1 + ln.wg, 128); }
+  // The threads that share the tile: a warpgroup, or both when wide.
+  __device__ __forceinline__ void sync() const {
+    if constexpr (WIDE) named_sync(1, CONSUMERS);
+    else named_sync(1 + ln.wg, 128);
+  }
   __device__ __forceinline__ int row() const { return ln.t >> 1; }
   __device__ __forceinline__ int half() const { return ln.t & 1; }
+  // Whether this warpgroup encodes its rows and holds their x and extras
+  // (when wide, warpgroup 0 for both).
+  __device__ __forceinline__ bool rows_owner() const { return !WIDE || ln.wg == 0; }
+  // The first row of this warpgroup in tile `tile`.
+  __device__ __forceinline__ long long first_row(long long tile) const {
+    return WIDE ? tile * ROWS : tile * TILE_ROWS + ln.wg * ROWS;
+  }
 
   // x of the thread's row of the warpgroup's rows from row0 (zeros past N).
   __device__ __forceinline__ void load_x(long long first) {
@@ -160,11 +185,13 @@ struct FwdTile {
       if (i < w / 2) act()[cm(row(), c0 + i)] = __float2bfloat16_rn(exr[i]);
   }
 
-  // f32 rows of an output: the product plus its bias, staged row-major
-  // [64, cols] and stored with consecutive threads on consecutive addresses
-  // (rows past n_rows and the padded columns are dropped).
+  // f32 rows of an output: the product (columns from cb) plus its bias,
+  // staged row-major [64, cols] and stored with consecutive threads on
+  // consecutive addresses (rows past n_rows and the padded columns are
+  // dropped).
   template <int N>
-  __device__ __forceinline__ void output(const int* op, const float (&v)[N / 2], const float* b) {
+  __device__ __forceinline__ void output(const int* op, const float (&v)[N / 2], const float* b,
+                                         int cb) {
     const int epi = op[O_EPI], nvalid = op[O_NVALID];
     const int cols = epi == T_OUT ? a.h[H_T_COLS] : epi == RGB_OUT ? a.h[H_RGB_COLS]
                                                                   : a.h[H_SEM_COLS];
@@ -174,28 +201,37 @@ struct FwdTile {
     for (int j = 0; j < N / 8; ++j) {
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        const int c = 8 * j + ln.cq + (q & 1);
+        const int c = cb + 8 * j + ln.cq + (q & 1);
         if (c < cols)
           st[(ln.r0 + 8 * (q >> 1)) * cols + c] = v[4 * j + q] + (c < nvalid ? b[c] : 0.0f);
       }
     }
     sync();
     const long long first = row0 * cols, end = a.n_rows * cols;
-    for (int i = ln.t; i < ROWS * cols; i += 128)
+    const int step = WIDE ? CONSUMERS : 128;
+    for (int i = WIDE ? (int)threadIdx.x : ln.t; i < ROWS * cols; i += step)
       if (first + i < end) out[first + i] = st[i];
   }
 
+  // A product of N columns a warpgroup: the op's whole width, or when
+  // wide this warpgroup's half of it, from column cb.
   template <int N>
   __device__ __forceinline__ void run_product(const int* op) {
     float acc[N / 2];
-    pe::product<N, WAIT_DEPTH>(op, smem_u32(buf(op[O_A0])), smem_u32(buf(op[O_A1])), rg, slab,
-                               ln.lane, acc, PingPong{turn, ln.wg, ln.lane, p, total});
+    const uint32_t a0 = smem_u32(buf(op[O_A0])), a1 = smem_u32(buf(op[O_A1]));
+    const int cb = WIDE ? ln.wg * N : 0;
+    if constexpr (WIDE)
+      pe::product<N, WAIT_DEPTH, AnyOrder, 2 * N>(op, a0, a1, rg, slab, ln.lane, acc,
+                                                 AnyOrder(), cb);
+    else
+      pe::product<N, WAIT_DEPTH>(op, a0, a1, rg, slab, ln.lane, acc,
+                                 PingPong{turn, ln.wg, ln.lane, p, total});
     ++p;
     const int epi = op[O_EPI], nvalid = op[O_NVALID];
     const float* b = bias + op[O_BOFF];
     sync();                            // every warp's products have read their operands
     if (epi == RGB_OUT || epi == SEM_OUT) {
-      output<N>(op, acc, b);
+      output<N>(op, acc, b, cb);
       return;
     }
     uint32_t mw[(N + 63) / 64] = {};
@@ -204,9 +240,9 @@ struct FwdTile {
                         return c < nvalid ? *reinterpret_cast<const float2*>(b + c)
                                           : make_float2(0.0f, 0.0f);
                       },
-                      epi == RELU, epi == RELU ? act() : tb(), ln, mw);
+                      epi == RELU, epi == RELU ? act() : tb(), ln, mw, cb);
     fence_async_smem();                // visible to the next products
-    if (epi == T_OUT) output<N>(op, acc, b);
+    if (epi == T_OUT) output<N>(op, acc, b, cb);
     sync();
   }
 
@@ -220,27 +256,30 @@ struct FwdTile {
     }
     const long long my_tiles = (a.n_tiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
     total = my_tiles * n_products;
-    load_x((long long)blockIdx.x * TILE_ROWS + ln.wg * ROWS);
+    const bool owner = rows_owner();
+    if (owner) load_x(first_row(blockIdx.x));
     for (long long tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
-      row0 = tile * TILE_ROWS + ln.wg * ROWS;
+      row0 = first_row(tile);
       sync();                          // the last tile's outputs have left the stage
-      encode_row([&](int d) { return d == 0 ? xr[0] : d == 1 ? xr[1] : d == 2 ? xr[2] : xr[3]; },
-                 row(), half(), a.h, enc());
+      if (owner)
+        encode_row([&](int d) { return d == 0 ? xr[0] : d == 1 ? xr[1] : d == 2 ? xr[2] : xr[3]; },
+                   row(), half(), a.h, enc());
       fence_async_smem();
       sync();
-      load_x(row0 + (long long)gridDim.x * TILE_ROWS);   // the next tile's, ahead
+      if (owner) load_x(first_row(tile + gridDim.x));   // the next tile's, ahead
       for (int o = 0; o < n_ops; ++o) {
         int op[OP_INTS];
 #pragma unroll
         for (int i = 0; i < OP_INTS; ++i) op[i] = ops[o * OP_INTS + i];
         if (op[O_KIND] == EX) {        // the extras, over the trunk's last activation
-          store_extras(op[O_N]);
+          if (owner) store_extras(op[O_N]);
           fence_async_smem();
           sync();
           continue;
         }
-        if (op[O_EPI] == T_OUT && ex_w > 0 && ex_w <= 2 * EX_REGS) load_extras(ex_w);
-        switch (op[O_N]) {
+        if (owner && op[O_EPI] == T_OUT && ex_w > 0 && ex_w <= 2 * EX_REGS) load_extras(ex_w);
+        switch (WIDE ? op[O_N] / 2 : op[O_N]) {
+          case 8: if constexpr (WIDE) run_product<8>(op); break;
           case 16: run_product<16>(op); break;
           case 32: run_product<32>(op); break;
           case 64: run_product<64>(op); break;
@@ -252,6 +291,7 @@ struct FwdTile {
   }
 };
 
+template <bool WIDE>
 __global__ void __launch_bounds__(ALL_THREADS, 1)
 pe_field_fwd_kernel(const __grid_constant__ FwdArgs a) {
   extern __shared__ __align__(1024) unsigned char smem[];
@@ -275,7 +315,8 @@ pe_field_fwd_kernel(const __grid_constant__ FwdArgs a) {
           produce_slabs(a.ops, a.h[H_N_OPS], a.img, rg, slab);
       },
       [&] {
-        FwdTile tile{a, smem + (threadIdx.x >> 7) * a.s.wg_bytes, bias, ops, rg, turn};
+        FwdTile<WIDE> tile{a, smem + (WIDE ? 0 : threadIdx.x >> 7) * a.s.wg_bytes, bias, ops,
+                           rg, turn};
         tile.run();
       });
 }
@@ -319,15 +360,14 @@ extern "C" int cropnerf_pe_field_fwd(const float* x, const float* ex, float* t_o
   fa.bias = b;
   fa.ops = prog_dev + H_HEADER;
   fa.n_rows = n_rows;
-  fa.n_tiles = (n_rows + TILE_ROWS - 1) / TILE_ROWS;
   for (int i = 0; i < H_HEADER; ++i) fa.h[i] = prog[i];
   fa.s = fwd_layout(prog);
-  e = cudaFuncSetAttribute(pe_field_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           fa.s.total);
+  fa.n_tiles = (n_rows + tile_rows(fa.s) - 1) / tile_rows(fa.s);
+  auto kernel = fa.s.wide ? pe_field_fwd_kernel<true> : pe_field_fwd_kernel<false>;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, fa.s.total);
   if (e != cudaSuccess) return (int)e;
   const unsigned blocks = (unsigned)lmin(fa.n_tiles, sms);
-  pe_field_fwd_kernel<<<blocks, ALL_THREADS, fa.s.total,
-                        reinterpret_cast<cudaStream_t>(stream)>>>(fa);
+  kernel<<<blocks, ALL_THREADS, fa.s.total, reinterpret_cast<cudaStream_t>(stream)>>>(fa);
   return (int)cudaGetLastError();
 }
 

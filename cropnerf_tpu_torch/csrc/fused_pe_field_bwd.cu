@@ -55,6 +55,12 @@
 //   3. column sums: the splits into dW, and the bias partials into db in
 //      two passes (64-row chunks, then the chunks), each in a fixed order.
 // Rows past N load zero cotangents, so they add nothing to dW or db.
+// A trunk or head over 256 wide (up to 512) runs wide (pe_tile.cuh): the
+// block takes its tile's two 64-row halves one after the other, both
+// warpgroups on each, each with half of every product's columns (its own
+// relu-mask words and bias column sums, and its half of each workspace
+// block, by its own bulk store); the slabs are then as wide as the
+// product (32 x 512 bf16, 32 KB).
 #include "pe_dw.cuh"
 
 namespace cropnerf {
@@ -66,10 +72,13 @@ using namespace pe;
 enum { G_MASKED, GT_ADD, DEX, GENC_SET, GENC_ADD };
 enum { SRC_GT, SRC_RGB, SRC_SEM };
 
+constexpr int CS_BYTES = 4 * MAX_N * 4;     // a warpgroup's bias column sums
+
 struct Layout {        // dynamic shared memory of the tile kernel, in bytes
-  int wg_bytes;        // one warpgroup's region
+  int wg_bytes;        // one warpgroup's region (the block's one region when wide)
   int xs, enc, tb, gt, genc, act, colsum;    // offsets inside it
-  int masks, ring, bars, stages, total;
+  int masks, ring, bars, stages, total, stage;
+  bool wide;
 };
 
 __host__ __device__ inline Layout tile_layout(const int* h) {
@@ -83,15 +92,17 @@ __host__ __device__ inline Layout tile_layout(const int* h) {
   s.genc = u;                          // the backward's, over enc/tb/gt
   off = (int)lmax(off, u + al128(ROWS * h[H_ENC_PAD] * 4));
   s.act = off; off += al128(ROWS * h[H_ACT_W] * 2);
-  s.colsum = off; off += 4 * MAX_N * 4;
+  s.wide = wide_header(h);
+  s.colsum = off; off += (s.wide ? 2 : 1) * CS_BYTES;
   s.wg_bytes = off;
-  off = 2 * s.wg_bytes;
+  off = (s.wide ? 1 : 2) * s.wg_bytes;
   s.masks = off; off += al128(h[H_MASK_WORDS] * CONSUMERS * 4);
-  const RingLayout r = ring_layout(off, SLAB_K);
+  const RingLayout r = s.wide ? ring_layout(off, SLAB_K, MAX_W) : ring_layout(off, SLAB_K);
   s.bars = r.bars;
   s.ring = r.ring;
   s.stages = r.stages;
   s.total = r.total;
+  s.stage = r.stage;
   return s;
 }
 
@@ -108,7 +119,7 @@ struct TileArgs {
   Layout s;
 };
 
-template <bool STORE>
+template <bool STORE, bool WIDE>
 struct Tile {
   const TileArgs& a;
   unsigned char* wgm;   // this warpgroup's region
@@ -117,6 +128,7 @@ struct Tile {
   Lane ln;
   long long row0;       // first row of the warpgroup
   int slab = 0;
+  int part_row = 0;     // the row of the bias partials its rows' sums go to
 
   __device__ bf16* act() const { return reinterpret_cast<bf16*>(wgm + a.s.act); }
   __device__ bf16* enc() const { return reinterpret_cast<bf16*>(wgm + a.s.enc); }
@@ -124,9 +136,20 @@ struct Tile {
   __device__ float* gt() const { return reinterpret_cast<float*>(wgm + a.s.gt); }
   __device__ float* genc() const { return reinterpret_cast<float*>(wgm + a.s.genc); }
   __device__ float* xs() const { return reinterpret_cast<float*>(wgm + a.s.xs); }
-  __device__ float* colsum() const { return reinterpret_cast<float*>(wgm + a.s.colsum); }
+  __device__ float* colsum() const {
+    return reinterpret_cast<float*>(wgm + a.s.colsum + (WIDE ? ln.wg * CS_BYTES : 0));
+  }
   __device__ bf16* buf(int id) const { return id == ACT ? act() : id == ENC ? enc() : tb(); }
-  __device__ void sync() const { named_sync(1 + ln.wg, 128); }
+  // The threads that share the tile: a warpgroup, or both when wide.
+  __device__ void sync() const {
+    if constexpr (WIDE) named_sync(1, CONSUMERS);
+    else named_sync(1 + ln.wg, 128);
+  }
+  __device__ int tid() const { return WIDE ? (int)threadIdx.x : ln.t; }
+  __device__ int nthreads() const { return WIDE ? CONSUMERS : 128; }
+  // Whether this warpgroup encodes the rows and forms their dx (when wide,
+  // warpgroup 0 for both).
+  __device__ bool rows_owner() const { return !WIDE || ln.wg == 0; }
 
   // Before the warpgroup overwrites a buffer: its bulk stores have read
   // their sources and every warp's products have read their operands.
@@ -134,30 +157,47 @@ struct Tile {
     if (STORE && ln.t == 0) bulk_wait_read();
     sync();
   }
-  // After the warpgroup wrote `src` (width columns): visible to wgmma and
-  // the bulk engine; stored to workspace slot `col` unless col < 0.
-  __device__ void after_write(const bf16* src, int col, int width) const {
+  // After the tile's threads wrote `src` (width columns): visible to wgmma
+  // and the bulk engine; stored to workspace slot `col` unless col < 0.
+  // When wide each warpgroup stores the half of the columns it wrote
+  // (`halves`, a product's output), or warpgroup 0 the whole.
+  __device__ void after_write(const bf16* src, int col, int width, bool halves) const {
     fence_async_smem();
     sync();
-    if (STORE && col >= 0 && ln.t == 0) {
-      bf16* dst = a.ws + (long long)col * a.n_pad + (row0 / ROWS) * ROWS * width;
-      bulk_store(dst, src, ROWS * width * 2);
-      bulk_commit();
+    if (!STORE || col < 0 || ln.t != 0) return;
+    int c0 = 0, w = width;
+    if constexpr (WIDE) {
+      if (halves) {
+        w = width / 2;
+        c0 = ln.wg * w;
+      } else if (ln.wg != 0) {
+        return;
+      }
     }
+    bf16* dst = a.ws + (long long)col * a.n_pad + (row0 / ROWS) * ROWS * width + c0 * ROWS;
+    bulk_store(dst, src + c0 * ROWS, ROWS * w * 2);
+    bulk_commit();
   }
 
-  // acc = [A0 | A1] · B over the op's K, B streamed from the ring.
+  // acc = [A0 | A1] · B over the op's K, B streamed from the ring: N of
+  // its columns from cb.
   template <int N>
-  __device__ void product(const int* op, float (&acc)[N / 2]) {
-    pe::product<N>(op, smem_u32(buf(op[O_A0])), smem_u32(buf(op[O_A1])), rg, slab, ln.lane,
-                   acc);
+  __device__ void product(const int* op, float (&acc)[N / 2], int cb) {
+    pe::product<N, 1, AnyOrder, WIDE ? 2 * N : N>(op, smem_u32(buf(op[O_A0])),
+                                                  smem_u32(buf(op[O_A1])), rg, slab, ln.lane,
+                                                  acc, AnyOrder(), cb);
   }
 
-  // A cotangent tile into the act buffer in place: the relu mask of `mask`
-  // (-1: none), bf16 for the next product, f32 column sums for the bias
-  // gradient, the workspace slot.
+  // The first of the op's columns this warpgroup computes (N a warpgroup).
+  template <int N>
+  __device__ int col_base() const { return WIDE ? ln.wg * N : 0; }
+
+  // A cotangent tile (the warpgroup's N columns) into the act buffer in
+  // place: the relu mask of `mask` (-1: none), bf16 for the next product,
+  // f32 column sums for the bias gradient, the workspace slot.
   template <int N>
   __device__ void emit_g(const int* op, float (&v)[N / 2]) {
+    const int cb = col_base<N>();
     constexpr int W = (N + 63) / 64;
     uint32_t mw[W];
     const int mask = op[O_MASK];
@@ -172,7 +212,7 @@ struct Tile {
 #pragma unroll
       for (int q = 0; q < 4; ++q)
         if (!((bits >> q) & 1)) v[4 * j + q] = 0.0f;
-      const int c = 8 * j + ln.cq;
+      const int c = cb + 8 * j + ln.cq;
       *reinterpret_cast<__nv_bfloat162*>(dst + cm(ln.r0, c)) =
           __floats2bfloat162_rn(v[4 * j], v[4 * j + 1]);
       *reinterpret_cast<__nv_bfloat162*>(dst + cm(ln.r0 + 8, c)) =
@@ -188,17 +228,18 @@ struct Tile {
       }
       warp_colsum<N / 4>(s, colsum() + ln.warp * MAX_N, ln.lane);
     }
-    after_write(dst, op[O_WS], N);
+    after_write(dst, op[O_WS], op[O_N], true);
     if (STORE && boff >= 0) {
       const float* cs = colsum();
-      float* out = a.bpart + (long long)(blockIdx.x * 2 + ln.wg) * a.h[H_TOTAL_B] + boff;
-      for (int c = ln.t; c < op[O_NVALID]; c += 128)
+      float* out = a.bpart + (long long)part_row * a.h[H_TOTAL_B] + boff + cb;
+      for (int c = ln.t; c < N && cb + c < op[O_NVALID]; c += 128)
         out[c] = ((cs[c] + cs[MAX_N + c]) + cs[2 * MAX_N + c]) + cs[3 * MAX_N + c];
     }
   }
 
   template <int N>
   __device__ void forward_epilogue(const int* op, float (&v)[N / 2]) {
+    const int cb = col_base<N>();
     const bool relu = op[O_EPI] == RELU;
     const float* bias = a.bias + op[O_BOFF];
     const int nvalid = op[O_NVALID];
@@ -213,12 +254,12 @@ struct Tile {
                         return make_float2(c < nvalid ? __ldg(bias + c) : 0.0f,
                                            c + 1 < nvalid ? __ldg(bias + c + 1) : 0.0f);
                       },
-                      relu, dst, ln, mw);
+                      relu, dst, ln, mw, cb);
     if (op[O_MASK] >= 0) {
 #pragma unroll
       for (int w = 0; w < W; ++w) masks[(op[O_MASK] + w) * CONSUMERS + threadIdx.x] = mw[w];
     }
-    after_write(dst, op[O_WS], N);
+    after_write(dst, op[O_WS], op[O_N], true);
   }
 
   // f32 into a chunk-major f32 tile (set or add), columns from `col`.
@@ -241,7 +282,8 @@ struct Tile {
   template <int N>
   __device__ void run_product(const int* op) {
     float acc[N / 2];
-    product<N>(op, acc);
+    const int cb = col_base<N>();
+    product<N>(op, acc, cb);
     if (op[O_KIND] == FWD) {
       forward_epilogue<N>(op, acc);
       return;
@@ -256,7 +298,7 @@ struct Tile {
       const int de = a.h[H_DE];
 #pragma unroll
       for (int j = 0; j < N / 8; ++j) {
-        const int c = op[O_COL] + 8 * j + ln.cq;
+        const int c = op[O_COL] + cb + 8 * j + ln.cq;
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const long long row = row0 + ln.r0 + 8 * (q >> 1);
@@ -264,9 +306,9 @@ struct Tile {
         }
       }
     } else if (epi == GT_ADD) {
-      to_f32<N>(gt(), op[O_COL], true, acc);
+      to_f32<N>(gt(), op[O_COL] + cb, true, acc);
     } else {
-      to_f32<N>(genc(), op[O_COL], epi == GENC_ADD, acc);
+      to_f32<N>(genc(), op[O_COL] + cb, epi == GENC_ADD, acc);
     }
     fence_async_smem();
     sync();
@@ -279,11 +321,12 @@ struct Tile {
     const int src = op[O_EPI];
     const float* g = src == SRC_RGB ? a.g_rgb : a.g_sem;
     const int cols = src == SRC_RGB ? a.h[H_RGB_COLS] : a.h[H_SEM_COLS];
+    const int cb = col_base<N>();
 #pragma unroll
     for (int j = 0; j < N / 8; ++j) {
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        const int r = ln.r0 + 8 * (q >> 1), c = 8 * j + ln.cq + (q & 1);
+        const int r = ln.r0 + 8 * (q >> 1), c = cb + 8 * j + ln.cq + (q & 1);
         if (src == SRC_GT) {
           v[4 * j + q] = gt()[cm(r, c)];
         } else {
@@ -299,30 +342,32 @@ struct Tile {
     before_write();
     bf16* dst = act();
     const int de = a.h[H_DE], w = op[O_N];
-    for (int i = ln.t; i < ROWS * w; i += 128) {
+    for (int i = tid(); i < ROWS * w; i += nthreads()) {
       const int r = i / w, c = i - r * w;
       const long long row = row0 + r;
       dst[cm(r, c)] = __float2bfloat16_rn((c < de && row < a.n_rows) ? a.ex[row * de + c] : 0.0f);
     }
-    after_write(dst, op[O_WS], w);
+    after_write(dst, op[O_WS], w, false);
   }
 
   __device__ void prologue() {
     const int dim = a.h[H_DIM], tw = a.h[H_TB_W], t_cols = a.h[H_T_COLS];
     float* x = xs();
-    for (int i = ln.t; i < ROWS * dim; i += 128) {
+    for (int i = tid(); i < ROWS * dim; i += nthreads()) {
       const long long g = row0 * dim + i;
       x[i] = g < a.n_rows * dim ? a.x[g] : 0.0f;
     }
-    for (int i = ln.t; i < ROWS * tw; i += 128) {
+    for (int i = tid(); i < ROWS * tw; i += nthreads()) {
       const int r = i / tw, c = i - r * tw;
       const long long row = row0 + r;
       gt()[cm(r, c)] = (c < t_cols && row < a.n_rows) ? a.g_t[row * t_cols + c] : 0.0f;
     }
     sync();
-    const float* xr = x + (ln.t >> 1) * dim;
-    encode_row([&](int d) { return xr[d]; }, ln.t >> 1, ln.t & 1, a.h, enc());
-    after_write(enc(), a.h[H_ENC_SLOT], a.h[H_ENC_PAD]);
+    if (rows_owner()) {
+      const float* xr = x + (ln.t >> 1) * dim;
+      encode_row([&](int d) { return xr[d]; }, ln.t >> 1, ln.t & 1, a.h, enc());
+    }
+    after_write(enc(), a.h[H_ENC_SLOT], a.h[H_ENC_PAD], false);
   }
 
   __device__ void run() {
@@ -337,12 +382,18 @@ struct Tile {
         load_extras(op);
         continue;
       }
-      switch (op[O_N]) {
+      switch (WIDE ? op[O_N] / 2 : op[O_N]) {
 #define CROPNERF_CASE(NN)                            \
   case NN:                                           \
     if (kind == EMIT) emit<NN>(op);                  \
     else run_product<NN>(op);                        \
     break;
+        case 8:                        // a wide program's 16-wide products
+          if constexpr (WIDE) {
+            if (kind == EMIT) emit<8>(op);
+            else run_product<8>(op);
+          }
+          break;
         CROPNERF_CASE(16)
         CROPNERF_CASE(32)
         CROPNERF_CASE(64)
@@ -376,27 +427,35 @@ __device__ __noinline__ void dx_rows(const float* xs, const float* genc, float* 
   }
 }
 
-template <bool STORE>
+template <bool STORE, bool WIDE>
 __global__ void __launch_bounds__(ALL_THREADS, 1)
 pe_field_bwd_tile_kernel(const __grid_constant__ TileArgs a) {
   extern __shared__ __align__(1024) unsigned char smem[];
-  const Ring rg =
-      make_ring(smem, RingLayout{a.s.bars, a.s.ring, a.s.stages, a.s.total, SLAB_K});
+  const Ring rg = make_ring(
+      smem, RingLayout{a.s.bars, a.s.ring, a.s.stages, a.s.total, SLAB_K, a.s.stage});
   init_ring(rg);
   __syncthreads();
+  // a wide program takes the tile's two 64-row halves in turn
+  constexpr int halves = WIDE ? 2 : 1;
   split_roles(
       [&] {                            // the producer: the weight slabs, in order
         int slab = 0;
-        produce_slabs(a.ops, a.h[H_N_OPS], a.img, rg, slab);
+        for (int i = 0; i < halves; ++i) produce_slabs(a.ops, a.h[H_N_OPS], a.img, rg, slab);
       },
       [&] {
-        Tile<STORE> tile{a, smem + (threadIdx.x >> 7) * a.s.wg_bytes,
+        const int wg = threadIdx.x >> 7;
+        Tile<STORE, WIDE> tile{a, smem + (WIDE ? 0 : wg) * a.s.wg_bytes,
                          reinterpret_cast<uint32_t*>(smem + a.s.masks), rg};
-        tile.row0 = (long long)blockIdx.x * TILE_ROWS + tile.ln.wg * ROWS;
-        tile.run();
-        if (a.dx != nullptr)
-          dx_rows(tile.xs(), tile.genc(), a.dx, tile.row0, a.n_rows, a.h[H_DIM], a.h[H_FREQS],
-                  tile.ln.t);
+        for (int i = 0; i < halves; ++i) {
+          const int part = WIDE ? i : wg;
+          tile.row0 = (long long)blockIdx.x * TILE_ROWS + part * ROWS;
+          tile.part_row = blockIdx.x * 2 + part;
+          if (i) tile.before_write();  // the first half's stores and dx have read the tile
+          tile.run();
+          if (a.dx != nullptr && tile.rows_owner())
+            dx_rows(tile.xs(), tile.genc(), a.dx, tile.row0, a.n_rows, a.h[H_DIM],
+                    a.h[H_FREQS], tile.ln.t);
+        }
         if (STORE && tile.ln.t == 0) bulk_wait();
       });
 }
@@ -484,7 +543,10 @@ extern "C" int cropnerf_pe_field_bwd(const float* x, const float* ex, const floa
   ta.n_pad = p.split.n_pad;
   for (int i = 0; i < H_HEADER; ++i) ta.h[i] = h[i];
   ta.s = tile_layout(h);
-  auto kernel = store ? pe_field_bwd_tile_kernel<true> : pe_field_bwd_tile_kernel<false>;
+  auto kernel = store ? (ta.s.wide ? pe_field_bwd_tile_kernel<true, true>
+                                   : pe_field_bwd_tile_kernel<true, false>)
+                      : (ta.s.wide ? pe_field_bwd_tile_kernel<false, true>
+                                   : pe_field_bwd_tile_kernel<false, false>);
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ta.s.total);
   if (e != cudaSuccess) return (int)e;

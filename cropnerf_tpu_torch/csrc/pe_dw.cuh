@@ -19,9 +19,11 @@ namespace pebwd {
 
 using namespace pe;
 
-// a weight-gradient task (mirrors ops/cuda/pe_plan.py)
+// a weight-gradient task (mirrors ops/cuda/pe_plan.py): G's columns
+// [T_J0, T_J0 + T_BN) of its slot (T_G_COL, T_G_W), so that a G wider than
+// MAX_N (a wide program's) is taken in MAX_N-column blocks
 enum {
-  T_A_COL, T_A_W, T_I0, T_M_VALID, T_W_ROW0, T_G_COL, T_BN, T_N, T_W_OFF,
+  T_A_COL, T_A_W, T_I0, T_M_VALID, T_W_ROW0, T_G_COL, T_BN, T_N, T_W_OFF, T_G_W, T_J0,
   TASK_INTS
 };
 
@@ -79,9 +81,9 @@ struct DwArgs {
   int per_split;       // 64-row blocks per split
 };
 
-// One task over one split: wpart[split, w_off + (w_row0 + i) n + j] =
-// sum over the split's rows r of A[r, i0 + i] G[r, j], i < m_valid, j < n.
-// Warpgroup w takes i in [64w, 64w + 64).
+// One task over one split: wpart[split, w_off + (w_row0 + i) n + j0 + j] =
+// sum over the split's rows r of A[r, i0 + i] G[r, j0 + j], i < m_valid,
+// j < BN, j0 + j < n.  Warpgroup w takes i in [64w, 64w + 64).
 template <int BN>
 __device__ void dw_task(const DwArgs& a, const int* t, unsigned char* ring, uint64_t* full,
                         uint64_t* empty, long long b0, long long b1) {
@@ -112,15 +114,15 @@ __device__ void dw_task(const DwArgs& a, const int* t, unsigned char* ring, uint
   }
   wgmma_wait<0>();
   fence_regs(acc);
-  const int n = t[T_N], m_valid = t[T_M_VALID];
-  float* out = a.wpart + (long long)blockIdx.y * a.total_w + t[T_W_OFF];
+  const int n = t[T_N], m_valid = t[T_M_VALID], j0 = t[T_J0];
+  float* out = a.wpart + (long long)blockIdx.y * a.total_w + t[T_W_OFF] + j0;
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
     const int c = 8 * j + ln.cq;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int i = ln.wg * ROWS + ln.r0 + 8 * h;
-      if (i < m_valid && c < n) {
+      if (i < m_valid && j0 + c < n) {
         float* p = out + (long long)(t[T_W_ROW0] + i) * n + c;
         *reinterpret_cast<float2*>(p) = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
       }
@@ -157,7 +159,8 @@ pe_field_bwd_dw_kernel(const __grid_constant__ DwArgs a) {
       unsigned char* dst = smem + stage * DW_STAGE;
       const bf16* pa = a.ws + (long long)t[T_A_COL] * a.n_pad + b * ROWS * t[T_A_W] +
                        (t[T_I0] >> 3) * CHUNK;
-      const bf16* pg = a.ws + (long long)t[T_G_COL] * a.n_pad + b * ROWS * BN;
+      const bf16* pg = a.ws + (long long)t[T_G_COL] * a.n_pad + b * ROWS * t[T_G_W] +
+                       (t[T_J0] >> 3) * CHUNK;
       bulk_load(dst, pa, DW_A_BYTES, &full[stage]);
       bulk_load(dst + DW_A_BYTES, pg, g_bytes, &full[stage]);
     }
@@ -208,11 +211,13 @@ __host__ inline DwSplit dw_split(long long n_rows, int n_tasks) {
   return p;
 }
 
-// Whether every task's G width is a wgmma width.
+// Whether every task's G columns are a wgmma width inside its slot.
 inline bool tasks_ok(const int* tasks, int n_tasks) {
   for (int i = 0; i < n_tasks; ++i) {
-    const int bn = tasks[i * TASK_INTS + T_BN];
-    if (bn != 16 && bn != 32 && bn != 64 && bn != 128 && bn != 256) return false;
+    const int* t = tasks + i * TASK_INTS;
+    if (!product_width(t[T_BN], MAX_N) || !product_width(t[T_G_W], MAX_W) || t[T_J0] < 0 ||
+        t[T_J0] % 16 || t[T_J0] + t[T_BN] > t[T_G_W])
+      return false;
   }
   return true;
 }

@@ -12,6 +12,17 @@
 // hands its registers to the consumers (setmaxnreg), so that a 64 x 256
 // product's 128 accumulators a thread fit without spills.  A slab is free
 // again when all 8 consumer warps have arrived on its `empty` barrier.
+//
+// A program with a layer wider than MAX_N (up to MAX_W) is "wide": a
+// 64 x 512 product's accumulators do not fit one warpgroup's registers,
+// nor two 64-row tiles of its activations a block's shared memory.  So
+// both warpgroups work on one 64-row tile at a time (a 128-row tile is two
+// of them, one after the other) and each takes half of every product's
+// columns (64 x N/2, N/2 = 8..256) from the same slabs, which are as wide
+// as the product; the activation tile is still overwritten in place, once
+// both warpgroups have read it (a barrier over the 256 consumer threads).
+// The kernels take the mode as a template argument (WIDE), so that a
+// program at most MAX_N wide runs none of the wide mode's code.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -48,7 +59,8 @@ constexpr int PRODUCER_REGS = 40;      // setmaxnreg: the producer gives
 constexpr int CONSUMER_REGS = 232;     // registers to the accumulators
 constexpr int SLAB_K = 32;             // weight rows per slab (the backward's)
 constexpr int MAX_STAGES = 8;
-constexpr int MAX_N = 256;
+constexpr int MAX_N = 256;             // the widest product of a warpgroup
+constexpr int MAX_W = 512;             // the widest layer: two warpgroups' halves
 constexpr int SMEM_LIMIT = 232448;
 constexpr int CHUNK = 512;             // elements of an 8-column chunk of 64 rows
 
@@ -57,23 +69,30 @@ __host__ __device__ inline long long lmax(long long a, long long b) { return a >
 __host__ __device__ inline long long lmin(long long a, long long b) { return a < b ? a : b; }
 
 // The slab ring's barriers and stages after `off` bytes of other shared
-// memory: slabs of slab_k weight rows (up to MAX_N wide), as many stages as
-// fit, up to MAX_STAGES.
+// memory: slabs of slab_k weight rows up to `width` wide (MAX_N, or MAX_W
+// for a wide program), as many stages as fit, up to MAX_STAGES.
 struct RingLayout {
-  int bars, ring, stages, total, slab_k;
+  int bars, ring, stages, total, slab_k, stage;
 };
 
-__host__ __device__ inline int stage_bytes(int slab_k) { return slab_k * MAX_N * 2; }
-
-__host__ __device__ inline RingLayout ring_layout(int off, int slab_k) {
+__host__ __device__ inline RingLayout ring_layout(int off, int slab_k, int width = MAX_N) {
   RingLayout r;
   r.bars = off;
   r.ring = al128(off + 2 * MAX_STAGES * 8);
-  r.stages = (int)lmin(MAX_STAGES, (SMEM_LIMIT - r.ring) / stage_bytes(slab_k));
-  r.total = r.ring + r.stages * stage_bytes(slab_k);
+  r.stage = slab_k * width * 2;
+  r.stages = (int)lmin(MAX_STAGES, (SMEM_LIMIT - r.ring) / r.stage);
+  r.total = r.ring + r.stages * r.stage;
   r.slab_k = slab_k;
   return r;
 }
+
+// A product width: 16 * 2^i up to `most`.
+__host__ __device__ inline bool product_width(int n, int most) {
+  return n >= 16 && n <= most && (n & (n - 1)) == 0;
+}
+
+// Whether a program with header h runs wide (pe_plan.py wide_program).
+__host__ __device__ inline bool wide_header(const int* h) { return h[H_ACT_W] > MAX_N; }
 
 // The header and ops both kernels accept: `task_ints` ints per task after
 // the ops (0 for the forward, which has none).
@@ -84,14 +103,15 @@ inline bool program_ok(const int* prog, int prog_len, int task_ints) {
       prog_len != H_HEADER + h[H_N_OPS] * OP_INTS + h[H_N_TASKS] * task_ints)
     return false;
   if (h[H_DIM] < 1 || h[H_FREQS] < 0 || h[H_FREQS] > 30 || h[H_ENC_PAD] % 16 ||
-      h[H_ACT_W] > MAX_N || h[H_ACT_W] % 16 || h[H_TB_W] > MAX_N || h[H_EX_PAD] > h[H_ACT_W] ||
-      h[H_ENC_PAD] > h[H_ACT_W])
+      h[H_ENC_PAD] > MAX_N || h[H_ACT_W] > MAX_W || h[H_ACT_W] % 16 || h[H_TB_W] > h[H_ACT_W] ||
+      h[H_EX_PAD] > h[H_ACT_W] || h[H_ENC_PAD] > h[H_ACT_W])
     return false;
+  const int most = wide_header(h) ? MAX_W : MAX_N;
   const int* ops = prog + H_HEADER;
   for (int o = 0; o < h[H_N_OPS]; ++o) {
     const int* op = ops + o * OP_INTS;
     const int N = op[O_N];
-    if (N != 16 && N != 32 && N != 64 && N != 128 && N != 256 && op[O_KIND] != EX) return false;
+    if (!product_width(N, most) && op[O_KIND] != EX) return false;
     if ((op[O_KIND] == FWD || op[O_KIND] == BWD) && (op[O_K] <= 0 || op[O_K] % 16 ||
                                                     op[O_KA] % 16))
       return false;
@@ -121,12 +141,12 @@ struct Ring {
   unsigned char* base;
   uint64_t* full;      // a slab has landed (the producer's transaction count)
   uint64_t* empty;     // every consumer warp is done with it
-  int stages, slab_k;
+  int stages, slab_k, stage;   // stage: bytes a stage
 };
 
 __device__ __forceinline__ Ring make_ring(unsigned char* smem, const RingLayout& r) {
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + r.bars);
-  return Ring{smem + r.ring, full, full + MAX_STAGES, r.stages, r.slab_k};
+  return Ring{smem + r.ring, full, full + MAX_STAGES, r.stages, r.slab_k, r.stage};
 }
 
 // One thread initialises the barriers; a block barrier must follow.
@@ -157,8 +177,7 @@ __device__ __forceinline__ void produce_slabs(const int* ops, int n_ops, const b
       mbar_wait(&rg.empty[stage], ((slab / S) & 1) ^ 1);
       const uint32_t bytes = (uint32_t)(min(SK, K - k0) * N * 2);
       mbar_expect_tx(&rg.full[stage], bytes);
-      bulk_load(rg.base + stage * stage_bytes(SK), src + (long long)k0 * N, bytes,
-                &rg.full[stage]);
+      bulk_load(rg.base + stage * rg.stage, src + (long long)k0 * N, bytes, &rg.full[stage]);
     }
   }
 }
@@ -186,17 +205,19 @@ struct AnyOrder {
 };
 
 // acc = [A0 | A1] · B over the op's K, B streamed from the ring; a0/a1 are
-// the shared addresses of the chunk-major operands.  Each slab's products
-// are one wgmma group; up to DEPTH groups stay in flight while the next is
+// the shared addresses of the chunk-major operands.  B's slabs are BW
+// columns wide (the op's O_N); the product takes N of them from column cb
+// (all of them, or a wide program's warpgroup's half).  Each slab's products are
+// one wgmma group; up to DEPTH groups stay in flight while the next is
 // issued, and a slab is released when its group is done.  `turn.wait()`
 // runs before the first slab's products are issued, `turn.pass()` right
 // after they are.
-template <int N, int DEPTH = 1, class Turn = AnyOrder>
+template <int N, int DEPTH = 1, class Turn = AnyOrder, int BW = N>
 __device__ __forceinline__ void product(const int* op, uint32_t a0, uint32_t a1, const Ring& rg,
                                         int& slab, int lane, float (&acc)[N / 2],
-                                        const Turn& turn = Turn()) {
+                                        const Turn& turn = Turn(), int cb = 0) {
   const int K = op[O_K], ka = op[O_KA];
-  const uint32_t r = smem_u32(rg.base);
+  const uint32_t r = smem_u32(rg.base) + cb * 16;
   const int S = rg.stages, SK = rg.slab_k;
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) acc[i] = 0.0f;
@@ -212,8 +233,7 @@ __device__ __forceinline__ void product(const int* op, uint32_t a0, uint32_t a1,
       const int kg = k0 + kk;
       const uint32_t abase = kg < ka ? a0 + (kg >> 3) * 1024 : a1 + ((kg - ka) >> 3) * 1024;
       const uint64_t da = gmma_desc(abase, 1024, 128);
-      const uint64_t db =
-          gmma_desc(r + stage * stage_bytes(SK) + (kk >> 3) * N * 16, N * 16, 128);
+      const uint64_t db = gmma_desc(r + stage * rg.stage + (kk >> 3) * BW * 16, BW * 16, 128);
       Wgmma<N, 0, 0>::mma(acc, da, db, 1);
     }
     wgmma_commit();
@@ -231,17 +251,18 @@ __device__ __forceinline__ void product(const int* op, uint32_t a0, uint32_t a1,
   slab = first + n_slabs;
 }
 
-// y = v + bias over a product's columns, relu'd if asked, rounded to bf16
-// into the chunk-major tile `dst`; bias2(c) gives the biases of columns c
-// and c + 1 (c even).  Bit 4(j % 8) + q of mw[j / 8] is set where
-// y[4j + q] > 0 after the rounding (the backward's relu masks).
+// y = v + bias over a product's columns (from column cb of the layer),
+// relu'd if asked, rounded to bf16 into the chunk-major tile `dst`;
+// bias2(c) gives the biases of columns c and c + 1 (c even).  Bit
+// 4(j % 8) + q of mw[j / 8] is set where y[4j + q] > 0 after the rounding
+// (the backward's relu masks).
 template <int N, class Bias2>
 __device__ __forceinline__ void activation_out(const float (&v)[N / 2], const Bias2& bias2,
                                                bool relu, bf16* dst, const Lane& ln,
-                                               uint32_t (&mw)[(N + 63) / 64]) {
+                                               uint32_t (&mw)[(N + 63) / 64], int cb = 0) {
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {
-    const int c = 8 * j + ln.cq;
+    const int c = cb + 8 * j + ln.cq;
     const float2 b = bias2(c);
     float y[4] = {v[4 * j] + b.x, v[4 * j + 1] + b.y, v[4 * j + 2] + b.x, v[4 * j + 3] + b.y};
     if (relu) {

@@ -67,6 +67,20 @@ template <int N, int TA, int TB>
 struct Wgmma;
 
 template <int TA, int TB>
+struct Wgmma<8, TA, TB> {
+  __device__ __forceinline__ static void mma(float (&d)[4], uint64_t da, uint64_t db,
+                                             int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3"
+      "}, %4, %5, p, 1, 1, %7, %8;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB>
 struct Wgmma<16, TA, TB> {
   __device__ __forceinline__ static void mma(float (&d)[8], uint64_t da, uint64_t db,
                                              int scale_d) {

@@ -21,8 +21,10 @@ shape alone picks its kernels (``fused_mlp_route``):
   ``mlp_hidden_pad``); launches counted on ``fused_mlp`` and
   ``fused_mlp_bwd``;
 - "stream", every other net of 1 to 32 layers whose input and layers are
-  at most 256 wide (more layers, more outputs, or a net too large for
-  shared memory, such as ``-huge`` with a 256-wide semantic head):
+  at most 512 wide (more layers, more outputs, a net too large for shared
+  memory, such as ``-huge`` with a 256-wide semantic head, or one wider
+  than 256, such as a 512-wide semantic head, which runs with both
+  warpgroups on one tile, each half of every product):
   ``csrc/fused_mlp_stream.cu``, ``wgmma`` with the weights streamed
   through shared memory, on the programs ``mlp_plan.py`` builds; launches
   counted on ``fused_mlp_stream`` and ``fused_mlp_stream_bwd``.
@@ -47,12 +49,12 @@ import torch
 
 from ..mlp import mm_f32acc
 from . import build
-from .common import (MAX_SMEM_BYTES, PE_ENC, WGMMA_HIDDEN,
+from .common import (MAX_SMEM_BYTES, MAX_WIDTH, PE_ENC, WGMMA_HIDDEN,
                      WGMMA_OUT, c_ints, check_images, check_kernel_call,
                      check_rows, pad16, persistent_blocks, sm_count,
                      stream_ptr, unpack_layers, weight_images)
-from .mlp_plan import (program_key, stream_images, stream_layers,
-                       stream_plan, stream_takes)
+from .mlp_plan import (MAX_LAYERS, program_key, stream_images,
+                       stream_layers, stream_plan, stream_takes)
 
 
 def fused_mlp_plain(x: torch.Tensor, wbs: Sequence[torch.Tensor],
@@ -126,8 +128,9 @@ def fused_mlp_route(din: int, widths: Sequence[int]) -> str:
     and up to 16 outputs whose weight images and one warpgroup's tiles fit
     a block's shared memory (every head of the ``cropnerf-mxu`` family),
     else "stream" (``csrc/fused_mlp_stream.cu``) for 1 to 32 layers with
-    din and every width up to 256.  Raises ValueError for a wider or
-    deeper net, which no kernel takes."""
+    din and every width up to 512 (every layout of which fits a block's
+    shared memory).  Raises ValueError for a wider or deeper net, which no
+    kernel takes."""
     max_din = MLP_MAX_DIN_8 if len(widths) == 3 else MLP_MAX_DIN
     if (len(widths) in (2, 3) and 1 <= din <= max_din
             and 1 <= widths[-1] <= WGMMA_OUT):
@@ -138,8 +141,8 @@ def fused_mlp_route(din: int, widths: Sequence[int]) -> str:
     if stream_takes(din, widths):
         return "stream"
     raise ValueError(f"fused_mlp: no kernel takes x [N, {din}] -> "
-                     f"{list(widths)} (at most 32 layers, each and the "
-                     "input at most 256 wide)")
+                     f"{list(widths)} (at most {MAX_LAYERS} layers, each "
+                     f"and the input at most {MAX_WIDTH} wide)")
 
 
 def _widths(wbs) -> list:

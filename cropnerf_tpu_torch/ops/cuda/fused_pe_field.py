@@ -10,8 +10,12 @@ on the CPU.  The kernel replaces the Pallas ``_fwd_kernel`` and
 note): every intermediate stays in shared memory, the weights stream from
 L2.  ``pe_plan.py`` plans it (``build_forward_plan``: the program and its
 ``wgmma`` weight image); the kernel runs that program on the tile
-interpreter it shares with the backward.  The ragged tail of N is masked
-in the kernel; there is no fallback.
+interpreter it shares with the backward.  The trunk and the heads take
+layers up to 512 wide (``common.MAX_WIDTH``); a layer over 256 makes the
+program wide (``pe_plan.wide_program``: both warpgroups on one 64-row
+tile, each half of every product), and a wider layer, or a layout over a
+block's shared memory, raises on the card with its reason.  The ragged
+tail of N is masked in the kernel; there is no fallback.
 
 Both are differentiable.  On the card their backwards are
 ``fused_pe_nerf_bwd`` and ``fused_pe_density_bwd``, the CUDA kernels of
@@ -39,14 +43,15 @@ the net resident in shared memory, on the weight images
 ``pe_mlp_images`` builds once per call (the forward half alone where no
 graph is recorded) and the backward reuses; launches counted on
 ``fused_pe_mlp`` and ``fused_pe_mlp_bwd``.  Every other net of 1 to 32
-layers whose encoding and layers are at most 256 wide ("stream": 4
-layers, 17 outputs, more than 64 encoding columns, x not [N, 3], or a
-wide net too large for shared memory, such as ``cropnerf-mxu-q``'s nets
-at 256 wide) runs on ``csrc/fused_mlp_stream.cu``, the weights streamed
-through shared memory, forward and backward (counted on
-``fused_pe_mlp_stream`` and ``fused_pe_mlp_stream_bwd``); so on the card
-every such net records a graph.  A wider net has no kernel and raises on
-the card.  On the CPU it computes ``fused_pe_mlp_plain``.  The JAX
+layers whose layers are at most 512 wide and whose encoding is at most 256
+("stream": 4 layers, 17 outputs, more than 64 encoding columns, x not
+[N, 3], a wide net too large for shared memory, such as
+``cropnerf-mxu-q``'s nets at 256 wide, or a net over 256 wide, which runs
+with both warpgroups on one tile, each half of every product) runs on
+``csrc/fused_mlp_stream.cu``, the weights streamed through shared memory,
+forward and backward (counted on ``fused_pe_mlp_stream`` and
+``fused_pe_mlp_stream_bwd``); so on the card every such net records a
+graph.  A wider net has no kernel and raises on the card.  On the CPU it computes ``fused_pe_mlp_plain``.  The JAX
 selector argument ``s`` (zero gradient) has no counterpart: the kernels
 and the plain version build the encoding from the frequencies.
 
@@ -69,9 +74,9 @@ from . import build
 from .fused_mlp import (_least_bwd_smem, fused_mlp_plain, mlp_hidden_pad,
                         mlp_images, stream_backward, stream_forward,
                         wgmma_backward, wgmma_forward)
-from .mlp_plan import stream_takes
+from .mlp_plan import (MAX_FREQS, MAX_LAYERS, MAX_PE_IN, stream_takes)
 from .pe_plan import build_forward_plan, build_plan, image_index, weight_image
-from .common import (MAX_SMEM_BYTES, PE_DIM, PE_ENC, WGMMA_HIDDEN,
+from .common import (MAX_SMEM_BYTES, MAX_WIDTH, PE_DIM, PE_ENC, WGMMA_HIDDEN,
                      WGMMA_OUT, c_ints, check_images, check_kernel_call,
                      check_rows, pack_layers, pad16, stream_ptr,
                      unpack_layers, weight_images)
@@ -141,8 +146,22 @@ def fused_pe_nerf_plain(x: torch.Tensor, extras: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain-PyTorch trunk + heads (≙ the JAX ``_mega_ref``).  The semantic
     head reads a detached trunk output unless ``pass_sem_grad``."""
+    t = fused_pe_density_plain(x, base_wbs, top_wbs, num_freqs,
+                               compute_dtype)
+    return (t, *heads_plain(t, extras, color_wbs, sem_wbs, compute_dtype,
+                            pass_sem_grad))
+
+
+def heads_plain(t: torch.Tensor, extras: torch.Tensor,
+                color_wbs: Sequence[torch.Tensor],
+                sem_wbs: Sequence[torch.Tensor],
+                compute_dtype: torch.dtype = torch.bfloat16,
+                pass_sem_grad: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The colour and semantic heads of ``fused_pe_nerf_plain`` on the trunk
+    output t [N, 1+G] (rounded to ``compute_dtype`` first): (rgb_raw,
+    sem_raw) in float32."""
     cd = compute_dtype
-    t = fused_pe_density_plain(x, base_wbs, top_wbs, num_freqs, cd)
     tb = t.to(cd)
     ex = extras.to(cd)
     c = (mm_f32acc(tb, color_wbs[0], cd) + mm_f32acc(ex, color_wbs[1], cd)
@@ -155,7 +174,7 @@ def fused_pe_nerf_plain(x: torch.Tensor, extras: torch.Tensor,
     for i in range(1, len(sem_wbs) // 2):
         sm = torch.relu(sm).to(cd)
         sm = mm_f32acc(sm, sem_wbs[2 * i], cd) + sem_wbs[2 * i + 1]
-    return t, c.float(), sm.float()
+    return c.float(), sm.float()
 
 
 @functools.lru_cache(maxsize=None)
@@ -617,8 +636,8 @@ def pe_mlp_fwd_route(dim: int, num_freqs: int, widths: Sequence[int]) -> str:
     gradients fits a block's shared memory at one stage and one set of
     operand tiles (the 128-wide nets of ``cropnerf-mxu-q``; not a 3-layer
     net 256 wide); else "stream" (``csrc/fused_mlp_stream.cu``) for 1 to
-    32 layers with the encoding and every width up to 256.  Raises
-    ValueError for a wider or deeper net, which no kernel takes."""
+    32 layers with every width up to 512 and the encoding up to 256.
+    Raises ValueError for a wider or deeper net, which no kernel takes."""
     if pe_mlp_kernels_take(dim, num_freqs, widths):
         return "wgmma"
     enc = dim * (1 + 2 * num_freqs)
@@ -632,8 +651,9 @@ def pe_mlp_fwd_route(dim: int, num_freqs: int, widths: Sequence[int]) -> str:
         return "stream"
     raise ValueError(
         f"fused_pe_mlp: no kernel takes x [N, {dim}], F={num_freqs} "
-        f"({enc} encoding columns) -> {list(widths)} (at most 32 layers, "
-        "each and the encoding at most 256 wide, F at most 30)")
+        f"({enc} encoding columns) -> {list(widths)} (at most {MAX_LAYERS} "
+        f"layers, each at most {MAX_WIDTH} wide, the encoding at most "
+        f"{MAX_PE_IN}, F at most {MAX_FREQS})")
 
 
 def _pe_route(x, wbs, num_freqs) -> str:

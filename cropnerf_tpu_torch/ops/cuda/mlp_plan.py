@@ -6,8 +6,11 @@ ops in ``pe_plan``'s format, with a header of their own.  A net is 1 to
 ``MAX_LAYERS`` layers on an input of ``din`` columns (K3's x, or K5's
 encoding of x [N, dim] with F frequencies), each layer padded as
 ``common.pack_layers`` pads it ([k rounded up to 16, n rounded up to 16],
-biases alike), and each product's output to its wgmma width
-(``pe_plan.pow2_width``).  The forward program is one FWD op per layer,
+biases alike), and each product's output to its width
+(``pe_plan.pow2_width``).  Every input and layer is at most ``MAX_W``
+(512) wide, K5's encoding at most ``MAX_N`` (256); a net with an input or
+a layer over ``MAX_N`` runs wide (``pe_plan.wide_program``: both
+warpgroups on one 64-row tile, each half of every product).  The forward program is one FWD op per layer,
 the last writing the f32 output (Y_OUT).  The backward's recomputes the
 hidden layers (RELU, with relu masks and workspace slots), takes the last
 layer's cotangent from g (EMIT), goes back through the layers in place
@@ -32,14 +35,14 @@ from typing import List, Sequence, Tuple
 import torch
 
 from .common import MAX_SMEM_BYTES, pad16
-from .pe_plan import (BWD, DW_M, EMIT, FWD, MAX_N, O_A0, O_A1, O_BOFF, O_COL,
-                      O_EPI, O_IMG, O_K, O_KA, O_KIND, O_MASK, O_N, O_NVALID,
-                      O_WS, OP_INTS, T_A_COL, T_A_W, T_BN, T_G_COL, T_I0,
-                      T_M_VALID, T_N, T_W_OFF, T_W_ROW0, TASK_INTS, Plan,
-                      core_k_major, pow2_chunks, pow2_width)
+from .pe_plan import (BWD, EMIT, FWD, MAX_N, MAX_W, O_A0, O_A1, O_BOFF,
+                      O_COL, O_EPI, O_IMG, O_K, O_KA, O_KIND, O_MASK, O_N,
+                      O_NVALID, O_WS, OP_INTS, Plan, core_k_major, dw_tasks,
+                      mask_words, pow2_chunks, pow2_width, wide_program)
 
 MAX_LAYERS = 32          # the deepest net the stream route takes
 MAX_FREQS = 30
+MAX_PE_IN = MAX_N        # K5's encoding columns at most
 
 # header of a stream program (csrc/fused_mlp_stream.cu)
 (M_DIN, M_IN_PAD, M_DOUT, M_DIM, M_FREQS, M_ACT_W, M_N_OPS, M_N_TASKS,
@@ -51,7 +54,9 @@ IN, ACT = range(2)
 RELU, Y_OUT = range(2)
 G_MASKED, DX, GENC = range(3)
 
-# shared-memory layout constants of the kernels (csrc/pe_tile.cuh)
+# shared-memory layout constants of the kernels (csrc/pe_tile.cuh): rows
+# of a tile, ring stages at most, slab rows of the forward (32 when wide)
+# and of the backward, ring stages the forward needs (2 when wide)
 ROWS, MAX_STAGES, FWD_SLAB, BWD_SLAB, MIN_FWD_STAGES = 64, 8, 64, 32, 3
 
 
@@ -59,13 +64,19 @@ def stream_takes(din: int, widths: Sequence[int], dim: int = 0,
                  num_freqs: int = 0) -> bool:
     """Whether the stream kernels take a net x [N, din] → ``widths`` (K3,
     ``dim`` 0) or its K5 variant on x [N, dim] with ``num_freqs``
-    frequencies (din = dim(1 + 2F)): 1 to 32 layers, the input and every
-    layer at most 256 wide."""
-    if dim and not (0 <= num_freqs <= MAX_FREQS
+    frequencies (din = dim(1 + 2F) at most 256): 1 to 32 layers, the
+    input and every layer at most 512 wide."""
+    if dim and not (0 <= num_freqs <= MAX_FREQS and din <= MAX_PE_IN
                     and din == dim * (1 + 2 * num_freqs)):
         return False
-    return (1 <= len(widths) <= MAX_LAYERS and 1 <= din <= MAX_N
-            and all(1 <= w <= MAX_N for w in widths))
+    return (1 <= len(widths) <= MAX_LAYERS and 1 <= din <= MAX_W
+            and all(1 <= w <= MAX_W for w in widths))
+
+
+def stream_wide(h: Sequence[int]) -> bool:
+    """Whether a stream program (header ``h``) runs wide: its input or a
+    layer over ``MAX_N``."""
+    return wide_program([h[M_IN_PAD], h[M_ACT_W]])
 
 
 def stream_layers(din: int, widths: Sequence[int]) -> List[List[int]]:
@@ -83,7 +94,8 @@ def _check(din, widths, dim, num_freqs):
     if not stream_takes(din, widths, dim, num_freqs):
         raise ValueError(
             f"the stream kernels take 1 to {MAX_LAYERS} layers with the input "
-            f"and every layer at most {MAX_N} wide; got din {din}, widths "
+            f"and every layer at most {MAX_W} wide (K5's encoding at most "
+            f"{MAX_PE_IN}, F at most {MAX_FREQS}); got din {din}, widths "
             f"{list(widths)}" + (f", x [N, {dim}], F={num_freqs}" if dim else ""))
 
 
@@ -133,6 +145,7 @@ def build_stream_plan(din: int, widths: Sequence[int], dim: int = 0,
     L, n = stream_layers(din, widths), len(widths)
     nw = [pow2_width(w) for w in widths]
     in_pad = pad16(din)
+    wide = wide_program(nw + [in_pad])
     net = _Ops(L, nw)
     store = backward and need_dw
     slots, ws_cols, words, masks, tasks = {}, 0, 0, {}, []
@@ -152,7 +165,7 @@ def build_stream_plan(din: int, widths: Sequence[int], dim: int = 0,
         slot("in", in_pad)
         for l in range(n - 1):                   # the hidden layers' recompute
             masks[l] = words
-            words += (nw[l] + 63) // 64
+            words += mask_words(nw[l], wide)
             net.fwd(l, RELU, mask=masks[l], ws=slot(f"a{l}", nw[l]))
         last = L[n - 1]
         net.other(EMIT, nw[n - 1], boff=last[1] if store else -1,
@@ -165,7 +178,7 @@ def build_stream_plan(din: int, widths: Sequence[int], dim: int = 0,
                         ws=slot(f"g{p}", nw[p]))
         if need_dx:                              # layer 0's input gradient
             col = 0
-            for N in pow2_chunks(in_pad):
+            for N in pow2_chunks(in_pad, MAX_W if wide else MAX_N):
                 net.product(BWD, 0, True, col, N, L[0][3], N, a0=ACT,
                             epi=GENC if dim else DX, col=col)
                 col += N
@@ -173,14 +186,8 @@ def build_stream_plan(din: int, widths: Sequence[int], dim: int = 0,
             for l in range(n):
                 a_col, a_w = slots["in" if l == 0 else f"a{l - 1}"]
                 g_col, g_w = slots[f"g{l}"]
-                for i0 in range(0, L[l][2], DW_M):
-                    t = [0] * TASK_INTS
-                    t[T_A_COL], t[T_A_W], t[T_I0] = a_col, a_w, i0
-                    t[T_M_VALID] = min(DW_M, L[l][2] - i0)
-                    t[T_W_ROW0] = i0
-                    t[T_G_COL], t[T_BN], t[T_N] = g_col, g_w, L[l][3]
-                    t[T_W_OFF] = L[l][0]
-                    tasks.append(t)
+                tasks += dw_tasks(a_col, a_w, L[l][2], 0, g_col, g_w,
+                                  L[l][3], L[l][0])
     h = [0] * M_HEADER
     h[M_DIN], h[M_IN_PAD], h[M_DOUT] = din, in_pad, widths[-1]
     h[M_DIM], h[M_FREQS] = dim, num_freqs if dim else 0
@@ -199,28 +206,33 @@ def _al128(b: int) -> int:
     return (b + 127) // 128 * 128
 
 
-def _ring_stages(off: int, slab_k: int) -> Tuple[int, int]:
+def _ring_stages(off: int, slab_k: int, width: int = MAX_N) -> Tuple[int, int]:
     """csrc/pe_tile.cuh ring_layout: (stages, total bytes)."""
     ring = _al128(off + 2 * MAX_STAGES * 8)
-    stage = slab_k * MAX_N * 2
+    stage = slab_k * width * 2
     stages = min(MAX_STAGES, (MAX_SMEM_BYTES - ring) // stage)
     return stages, ring + stages * stage
 
 
 def stream_smem(h: Sequence[int], backward: bool) -> Tuple[int, int]:
     """(dynamic shared memory a block takes, ring stages) of a program
-    with header ``h``: csrc/fused_mlp_stream.cu fwd_layout / bwd_layout."""
+    with header ``h``: csrc/fused_mlp_stream.cu fwd_layout / bwd_layout.
+    A wide program keeps one region for the block, not one a warpgroup,
+    and slabs of 32 rows as wide as ``MAX_W``."""
+    wide = stream_wide(h)
+    copies, width = (1, MAX_W) if wide else (2, MAX_N)
     in_bytes = _al128(ROWS * h[M_IN_PAD] * 2)
     act = _al128(ROWS * h[M_ACT_W] * 2)
     if not backward:
-        stages, total = _ring_stages(2 * (in_bytes + act) + 16, FWD_SLAB)
+        stages, total = _ring_stages(copies * (in_bytes + act) + 16,
+                                     BWD_SLAB if wide else FWD_SLAB, width)
         return total, stages
     region = (max(in_bytes, _al128(ROWS * h[M_IN_PAD] * 4)) if h[M_DIM]
               else in_bytes)
-    off = 2 * (region + act + 4 * MAX_N * 4)
-    stages, total = _ring_stages(off, BWD_SLAB)
+    off = copies * (region + act) + 2 * 4 * MAX_N * 4    # and the column sums
+    stages, total = _ring_stages(off, BWD_SLAB, width)
     if stages < 2:
-        stages, total = _ring_stages(off, BWD_SLAB // 2)
+        stages, total = _ring_stages(off, BWD_SLAB // 2, width)
     return total, stages
 
 

@@ -8,10 +8,19 @@ forward's meta (``pack_pe_field``).  The forward program runs the layers
 in order and writes t, rgb_raw and sem_raw; the backward's runs the
 forward recompute layer by layer, then the backward through the heads and
 the trunk.  Each product op names its operands, its output width N (16,
-32, 64, 128 or 256: one ``wgmma`` shape), its reduction width K and the
+32, 64, 128, 256 or 512), its reduction width K and the
 offset of its B operand in the weight image; each op names its epilogue.
 For the backward the same module lays out the workspace that the
-weight-gradient pass reads and lists that pass's tasks.  Everything here is
+weight-gradient pass reads and lists that pass's tasks.
+
+A program whose layers are all at most ``MAX_N`` (256) wide runs each
+product as one ``wgmma`` shape on a warpgroup's own 64 rows.  A program
+with a wider layer (up to ``MAX_W``, 512) is "wide" (``wide_program``):
+both consumer warpgroups share one 64-row tile and each takes half of
+every product's N columns, so that no accumulator is wider than 256; its
+relu masks take half the words a thread, its input-gradient products take
+chunks up to 512 wide, and its weight-gradient tasks take a G slot wider
+than 256 in 256-column blocks (``T_J0``).  Everything here is
 plain Python, so the CPU tests run both programs
 (``tests/test_torch_kernels.py``) and hold them against the plain versions
 and autograd.
@@ -40,7 +49,8 @@ import torch
 TILE = 128               # rows per tile (two warpgroups of 64)
 BLOCK = 64               # rows per warpgroup and per workspace block
 DW_M = 128               # weight rows per weight-gradient task (2 x 64)
-MAX_N = 256
+MAX_N = 256              # the widest product a warpgroup takes (one wgmma)
+MAX_W = 512              # the widest layer: two warpgroups' halves
 SPLIT_TARGET = 264       # weight-gradient blocks to aim for (2 per SM)
 
 # header of the program
@@ -63,29 +73,66 @@ G_MASKED, GT_ADD, DEX, GENC_SET, GENC_ADD = range(5)
 # EMIT sources
 SRC_GT, SRC_RGB, SRC_SEM = range(3)
 
-# weight-gradient task fields
+# weight-gradient task fields: A's slot, width and first column; the
+# weight rows; G's slot, the task's G columns (a wgmma width), the layer's
+# padded width (dW's row stride), dW's offset; G's slot width and the
+# task's first G column (0 unless G is wider than MAX_N)
 (T_A_COL, T_A_W, T_I0, T_M_VALID, T_W_ROW0, T_G_COL, T_BN, T_N, T_W_OFF,
- TASK_INTS) = range(10)
+ T_G_W, T_J0, TASK_INTS) = range(12)
 
 
 def pow2_width(n: int) -> int:
-    """The smallest wgmma width (16 · 2^i) that holds n columns."""
+    """The smallest product width (16 · 2^i) that holds n columns, up to
+    ``MAX_W``."""
     w = 16
     while w < n:
         w *= 2
-    if w > MAX_N:
-        raise ValueError(f"width {n} exceeds {MAX_N}")
+    if w > MAX_W:
+        raise ValueError(f"width {n} exceeds {MAX_W}")
     return w
 
 
-def pow2_chunks(n: int) -> List[int]:
-    """n (a multiple of 16) as a sum of wgmma widths, largest first."""
+def pow2_chunks(n: int, largest: int = MAX_N) -> List[int]:
+    """n (a multiple of 16) as a sum of product widths up to ``largest``,
+    largest first."""
     out, rest = [], n
-    for w in (256, 128, 64, 32, 16):
-        while rest >= w:
+    for w in (512, 256, 128, 64, 32, 16):
+        while w <= largest and rest >= w:
             out.append(w)
             rest -= w
     return out
+
+
+def wide_program(widths) -> bool:
+    """Whether a program whose products and activation tiles have these
+    widths runs wide: both warpgroups on one 64-row tile, each half of
+    every product (the kernels: the header's activation width over
+    MAX_N)."""
+    return max(widths) > MAX_N
+
+
+def mask_words(n: int, wide: bool) -> int:
+    """Relu-mask words a thread keeps for a product n wide: 4 bits for
+    each 8 columns of its accumulator (half of them when wide)."""
+    return ((n // 2 if wide else n) + 63) // 64
+
+
+def dw_tasks(a_col, a_w, rows, w_row0, g_col, g_w, n, w_off):
+    """The weight-gradient tasks of dW rows [w_row0, w_row0 + rows)
+    (A's first ``rows`` columns in slot (a_col, a_w)) against the G slot
+    (g_col, g_w) of a layer n wide: DW_M weight rows a task, G in blocks of
+    at most MAX_N columns."""
+    tasks = []
+    for i0 in range(0, rows, DW_M):
+        for j0 in range(0, n if g_w > MAX_N else 1, MAX_N):
+            t = [0] * TASK_INTS
+            t[T_A_COL], t[T_A_W], t[T_I0] = a_col, a_w, i0
+            t[T_M_VALID] = min(DW_M, rows - i0)
+            t[T_W_ROW0] = w_row0 + i0
+            t[T_G_COL], t[T_BN], t[T_N] = g_col, min(g_w, MAX_N), n
+            t[T_W_OFF], t[T_G_W], t[T_J0] = w_off, g_w, j0
+            tasks.append(t)
+    return tasks
 
 
 @dataclasses.dataclass
@@ -124,6 +171,7 @@ class _Net:
         self.s0 = self.c0 + n_color
         self.n_layers = len(L)
         self.nw = [pow2_width(l[3]) for l in L]
+        self.wide = wide_program(self.nw + [self.ex_pad])
         self.t_last = self.c0 - 1
         if L[0][2] != self.enc_pad or L[self.top0][2] - L[self.top0][4] != self.enc_pad:
             raise ValueError("the encoding must feed layer 0 and the skip layer")
@@ -223,7 +271,7 @@ def build_plan(meta, heads: bool, pass_sem: bool, need_dw: bool) -> Plan:
     masks, words = {}, 0
     for l in hidden:
         masks[l] = words
-        words += (nw[l] + 63) // 64
+        words += mask_words(nw[l], net.wide)
 
     slots, ws_cols = {}, 0
 
@@ -267,7 +315,7 @@ def build_plan(meta, heads: bool, pass_sem: bool, need_dw: bool) -> Plan:
 
     def grad_to(l, c_lo, cw, epi):
         col = 0
-        for N in pow2_chunks(cw):
+        for N in pow2_chunks(cw, MAX_W if net.wide else MAX_N):
             net.product(BWD, l, True, c_lo + col, N, L[l][3], N, a0=ACT,
                         a1=ACT, ka=L[l][3], epi=epi, col=col)
             col += N
@@ -313,14 +361,8 @@ def build_plan(meta, heads: bool, pass_sem: bool, need_dw: bool) -> Plan:
             g_col, g_w = slots[f"g{l}"]
             for name, row0, rows in a_parts(l):
                 a_col, a_w = slots[name]
-                for i0 in range(0, rows, DW_M):
-                    t = [0] * TASK_INTS
-                    t[T_A_COL], t[T_A_W], t[T_I0] = a_col, a_w, i0
-                    t[T_M_VALID] = min(DW_M, rows - i0)
-                    t[T_W_ROW0] = row0 + i0
-                    t[T_G_COL], t[T_BN], t[T_N] = g_col, g_w, L[l][3]
-                    t[T_W_OFF] = L[l][0]
-                    tasks.append(t)
+                tasks += dw_tasks(a_col, a_w, rows, row0, g_col, g_w,
+                                  L[l][3], L[l][0])
 
     header = net.header({H_MASK_WORDS: words, H_WS_COLS: ws_cols,
                          H_ENC_SLOT: enc_slot, H_N_TASKS: len(tasks),

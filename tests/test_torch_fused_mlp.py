@@ -68,7 +68,7 @@ def test_fused_mlp_route_by_preset(preset):
 # (din, output widths, route): the wgmma kernels' edges.  A net takes them
 # where its weight images and one warpgroup's tiles fit shared memory
 # (the backward with weight gradients needs most); the stream route takes
-# the rest up to 256 wide and 32 layers; None: no kernel.
+# the rest up to 512 wide and 32 layers; None: no kernel.
 ROUTE_EDGES = [(128, [64, 16], "wgmma"),      # the widest input at 64
                (129, [64, 1], "wgmma"),       # one more: padded to 128
                (1, [8, 1], "wgmma"),          # one input, a narrow layer
@@ -78,7 +78,9 @@ ROUTE_EDGES = [(128, [64, 16], "wgmma"),      # the widest input at 64
                (15, [65, 1], "wgmma"),        # a hidden layer of 65: 128
                (15, [64, 17], "stream"),      # 17 outputs
                (89, [256, 3], "wgmma"),       # 256 hidden (-huge's colour)
-               (15, [257, 1], None),          # 257 hidden: no kernel
+               (15, [513, 1], None),          # 513 hidden: no kernel
+               (15, [257, 1], "stream"),      # 257 hidden: stream, wide
+               (15, [512, 1], "stream"),      # [w512]'s semantic head
                (96, [256, 3], "wgmma"),       # the widest input at 256
                (97, [256, 3], "stream"),      # one more: shared memory
                (205, [128, 3], "wgmma"),      # the widest input at 128
@@ -87,7 +89,9 @@ ROUTE_EDGES = [(128, [64, 16], "wgmma"),      # the widest input at 64
                (94, [128, 128, 1], "stream"),  # one more: shared memory
                (30, [256, 256, 1], "stream"),  # 3 layers 256 wide
                (256, [8, 1], "stream"),       # din 256: shared memory
-               (257, [8, 1], None),           # din over 256
+               (513, [8, 1], None),           # din over 512
+               (257, [8, 1], "stream"),       # din over 256: wide
+               (512, [512] * 32, "stream"),   # 32 layers 512 wide, din 512
                (40, [128] * 5 + [7], "stream"),  # 6 layers 128 wide
                (256, [256] * 32, "stream"),   # 32 layers 256 wide
                (15, [64] * 33, None)]         # 33 layers

@@ -1244,7 +1244,11 @@ K5_STREAM_GPU_CASES = {"prop256-net0": (5, 3, [256, 256, 1], 1_048_576),
                        "17-outputs": (5, 3, [64, 64, 17], 4099),
                        "x2": (5, 2, [64, 64, 1], 4099),
                        "x2-128": (5, 2, [128, 128, 1], 4099),
-                       "244-columns": (30, 4, [256, 256, 1], 4099)}
+                       "244-columns": (30, 4, [256, 256, 1], 4099),
+                       "w512-net0": (5, 3, [512, 512, 1], 1_048_576),
+                       "w512-net1": (6, 3, [512, 512, 1], 393_216),
+                       "w512-ragged": (5, 3, [512, 512, 1], 65_536 - 77),
+                       "w512-one-row": (6, 3, [512, 512, 1], 1)}
 
 
 @pytest.mark.parametrize("case", list(K5_STREAM_GPU_CASES))
@@ -1292,11 +1296,15 @@ def test_fused_pe_mlp_stream_backward_matches_plain(cuda, case):
 def test_stream_layouts_are_the_planned_ones(cuda):
     """The stream kernels' C layout functions give the shared memory that
     mlp_plan.stream_smem computes from the program, which the route's
-    scope rests on, at the route's widest, deepest and narrowest nets."""
+    scope rests on, at the route's widest, deepest and narrowest nets (512
+    wide: the wide programs' layouts)."""
     from cropnerf_tpu_torch.ops.cuda import mlp_plan
     nets = [(256, [256] * 32, 0, 0), (244, [256] * 32, 4, 30),
             (244, [256, 256, 1], 4, 30), (33, [256, 256, 1], 3, 5),
-            (89, [256, 256, 3], 0, 0), (15, [1], 0, 0), (3, [16, 1], 3, 0)]
+            (89, [256, 256, 3], 0, 0), (15, [1], 0, 0), (3, [16, 1], 3, 0),
+            (512, [512] * 32, 0, 0), (244, [512] * 32, 4, 30),
+            (33, [512, 512, 1], 3, 5), (15, [512, 1], 0, 0),
+            (512, [16, 1], 0, 0)]
     for din, widths, dim, F in nets:
         for backward in (False, True):
             for need_dx, need_dw in ((True, True), (True, False),
@@ -1652,3 +1660,168 @@ def test_projection_row_segments_match_one_dispatch(cuda, preset):
     for k, n in PROJ_LAUNCHES[preset].items():
         assert launches[k] == n * len(plan.dispatches)
     _images_agree(got, ref, plan)
+
+
+# --- 512 wide: the tile kernels' wide programs ([w512]) -----------------------
+#
+# A layer over 256 wide makes a program wide: both warpgroups on one 64-row
+# tile, each with half of every product.  Row counts: one row, either side
+# of a 64-row tile (the wide forward's) and of a 128-row tile (the
+# backward's, whose halves a wide block takes in turn), an export chunk and
+# a training step's field samples (4096 rays x 48).
+W512_N = [1, 63, 65, 129, 65_536 - 45, 196_608]
+
+
+def _w512_field(cuda):
+    """[w512]'s field: cropnerf-mxu with a 512-wide trunk and semantic
+    head, its colour head 64 wide."""
+    cfg, params = _field(cuda, hidden_dim=512, hidden_dim_semantics=512)
+    groups = fused_field_weights(params.field, cfg.field)
+    assert groups[0][0].shape[1] == 512 and groups[3][0].shape[1] == 512
+    return groups
+
+
+@pytest.mark.parametrize("n", W512_N)
+def test_fused_pe_nerf_w512_matches_plain(cuda, n):
+    """K1 forward and backward at [w512]'s widths (wide programs) against
+    the plain version and its autograd, one launch each way; two runs give
+    the same bits.  The heads read t rounded to bf16, and where the
+    kernel's t and the plain version's lie on either side of a rounding
+    boundary (sums in another order) the 512-wide semantic head moves that
+    row's logit by up to ~2 % of the largest; so rgb_raw and sem_raw are
+    held to TOL against the plain heads on the kernel's own t
+    (``heads_plain``), and in relative L2 to TOL against the plain
+    version."""
+    base, top, color, sem = [_leaves(grp, True) for grp in _w512_field(cuda)]
+    x, extras = _field_inputs(n, color[1].shape[0], cuda, seed=31)
+    x.requires_grad_(True)
+    extras.requires_grad_(True)
+    wbs = [*base, *top, *color, *sem]
+    before = (kfield.fused_pe_nerf.launches, kfield.fused_pe_nerf_bwd.launches)
+    got = kfield.fused_pe_nerf(x, extras, base, top, color, sem, POS_FREQS)
+    ref = kfield.fused_pe_nerf_plain(x, extras, base, top, color, sem,
+                                     POS_FREQS)
+    with torch.no_grad():
+        on_t = kfield.heads_plain(got[0], extras, color, sem)
+    assert _rel_err(got[0], ref[0]) <= TOL, ("t", _rel_err(got[0], ref[0]))
+    for name, a, b, c in zip(("rgb_raw", "sem_raw"), got[1:], ref[1:], on_t):
+        assert a.shape == b.shape and torch.isfinite(a).all(), name
+        assert _rel_err(a, c) <= TOL, (name, _rel_err(a, c))
+        assert ((a - b).norm() / b.norm()).item() <= TOL, name
+    g = torch.Generator(device=cuda).manual_seed(5)
+    cots = [torch.randn(o.shape, generator=g, device=cuda) for o in ref]
+    got_g = _grads(got, [x, extras, *wbs], cots)
+    torch.cuda.synchronize()
+    assert (kfield.fused_pe_nerf.launches,
+            kfield.fused_pe_nerf_bwd.launches) == (before[0] + 1, before[1] + 1)
+    ref_g = _grads(ref, [x, extras, *wbs], cots)
+    for i, (a, b) in enumerate(zip(got_g, ref_g)):
+        assert a.shape == b.shape and torch.isfinite(a).all(), i
+        ok = (_grad_agrees(a, b, per_row=True) if i < 2
+              else _weight_grad_agrees(a, b, n))
+        assert ok, (i, _rel_err(a, b))
+    again = _grads(kfield.fused_pe_nerf(x, extras, base, top, color, sem,
+                                        POS_FREQS), [x, extras, *wbs], cots)
+    assert all(torch.equal(a, b) for a, b in zip(got_g, again)), \
+        "the backward kernel is not deterministic"
+
+
+@pytest.mark.parametrize("need_dw", [True, False], ids=["with-dW", "dx-only"])
+@pytest.mark.parametrize("n", W512_N)
+def test_fused_pe_density_w512_matches_plain(cuda, n, need_dw):
+    """K2 forward and backward at [w512]'s trunk (wide programs), with the
+    weight gradients and with dx alone (the BayesRays pass, bit-equal to
+    the full backward's dx), one launch each way; two runs give the same
+    bits."""
+    base, top, _, _ = _w512_field(cuda)
+    base, top = _leaves(base, need_dw), _leaves(top, need_dw)
+    x, _ = _field_inputs(n, 1, cuda, seed=32)
+    x.requires_grad_(True)
+    leaves = [x] + (base + top if need_dw else [])
+    cot = torch.randn((n, top[-2].shape[1]), device=cuda,
+                      generator=torch.Generator(device=cuda).manual_seed(6))
+    before = (kfield.fused_pe_density.launches,
+              kfield.fused_pe_density_bwd.launches)
+    out = kfield.fused_pe_density(x, base, top, POS_FREQS)
+    ref_out = kfield.fused_pe_density_plain(x, base, top, POS_FREQS)
+    assert _rel_err(out.detach(), ref_out.detach()) <= TOL
+    got = _grads(out, leaves, cot)
+    torch.cuda.synchronize()
+    assert (kfield.fused_pe_density.launches,
+            kfield.fused_pe_density_bwd.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    ref = _grads(ref_out, leaves, cot)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert a.shape == b.shape and torch.isfinite(a).all(), i
+        ok = (_grad_agrees(a, b, per_row=True) if i == 0
+              else _weight_grad_agrees(a, b, n))
+        assert ok, (i, _rel_err(a, b))
+    again = _grads(kfield.fused_pe_density(x, base, top, POS_FREQS), leaves,
+                   cot)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if not need_dw:
+        full = _grads(kfield.fused_pe_density(x, _leaves(base, True),
+                                              _leaves(top, True), POS_FREQS),
+                      [x], cot)
+        assert torch.equal(full[0], got[0])
+
+
+# K3 on the stream route's wide programs: [w512]'s semantic head (its export
+# and BayesRays batches) and a 512-wide net on 512 inputs
+K3_W512 = {"semantic-512": (15, 512, 1), "din-512": (512, 512, 16)}
+
+
+@pytest.mark.parametrize("need_dw", [True, False], ids=["with-dW", "dx-only"])
+@pytest.mark.parametrize("n", [1, 65, 129, 262_144 - 3])
+@pytest.mark.parametrize("net", list(K3_W512))
+def test_fused_mlp_stream_w512_matches_plain(cuda, net, n, need_dw):
+    """K3's stream route at 512 wide, forward and backward, one launch
+    each way on the stream counters; dx alone and dW alone are the full
+    backward's bits; two runs give the same bits."""
+    dims = K3_W512[net]
+    g, wbs = _k3_net(cuda, dims)
+    assert kmlp.fused_mlp_route(dims[0], list(dims[1:])) == "stream"
+    wbs = _leaves(wbs, need_dw)
+    x = torch.randn((n, dims[0]), generator=g, device=cuda, requires_grad=True)
+    cot = torch.randn((n, dims[-1]), generator=g, device=cuda)
+    leaves = [x] + (wbs if need_dw else [])
+    before = _k3_launches()
+    out = kmlp.fused_mlp(x, wbs)
+    ref_out = kmlp.fused_mlp_plain(x, wbs)
+    assert _rel_err(out.detach(), ref_out.detach()) <= TOL
+    got = _grads(out, leaves, cot)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_k3_launches(), before)] == [0, 1, 0, 1]
+    ref = _grads(ref_out, leaves, cot)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert a.shape == b.shape and torch.isfinite(a).all(), i
+        ok = (_grad_agrees(a, b, per_row=True) if i == 0
+              else _weight_grad_agrees(a, b, n))
+        assert ok, (i, _rel_err(a, b))
+    again = _grads(kmlp.fused_mlp(x, wbs), leaves, cot)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    with torch.no_grad():
+        dx, dw = kmlp.fused_mlp_bwd(x, wbs, cot, True, True)
+        dx_only, _ = kmlp.fused_mlp_bwd(x, wbs, cot, True, False)
+        _, dw_only = kmlp.fused_mlp_bwd(x, wbs, cot, False, True)
+    assert torch.equal(dx_only, dx)
+    assert all(torch.equal(a, b) for a, b in zip(dw_only, dw))
+
+
+def test_w512_layouts_fit_and_refuse_past_512(cuda):
+    """[w512]'s K1 and K2 programs fit a block's shared memory forward and
+    backward; a 513-wide layer has no kernel on any route and raises
+    before a launch, with its width in the message."""
+    base, top, color, sem = [[w.detach() for w in grp]
+                             for grp in _w512_field(cuda)]
+    _, _, meta = kfield.pack_pe_field(3, POS_FREQS, base, top, color, sem,
+                                      de=color[1].shape[0])
+    for heads in (True, False):
+        assert 0 < kfield.smem_bytes(meta, heads) <= 232_448
+        assert 0 < kfield.bwd_smem_bytes(meta, heads) <= 232_448
+    x = torch.zeros((64, 15), device=cuda)
+    _, wbs = _k3_net(cuda, (15, 513, 1))
+    before = _k3_launches()
+    with pytest.raises(ValueError, match="513"):
+        kmlp.fused_mlp(x, wbs)
+    assert _k3_launches() == before

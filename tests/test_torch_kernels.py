@@ -19,13 +19,22 @@ from cropnerf_tpu.ops.pallas import fused_pe_field as jfield
 from cropnerf_tpu.ops.pallas.fused_mlp import fused_mlp as jax_fused_mlp
 from cropnerf_tpu_torch.ops.cuda import fused_mlp as tmlp
 from cropnerf_tpu_torch.ops.cuda import fused_pe_field as tfield
-from cropnerf_tpu_torch.ops.cuda.common import pack_layers, pad16
+from cropnerf_tpu_torch.ops.cuda.common import MAX_WIDTH, pack_layers, pad16
 from torch_parity import arm, assert_close, np_wbs, to_jax, to_torch  # noqa: F401
 
-# (num_freqs, hidden, n_base, n_top, G, De, Hc, Hs, N): narrow widths, and
-# the flagship's full widths at N=128
+# (num_freqs, hidden, n_base, n_top, G, De, Hc, Hs, N): narrow widths, the
+# flagship's full widths at N=128, and [w512]'s (a 512-wide trunk and
+# semantic head: the kernels' wide programs)
 PE_CASES = [(4, 32, 2, 2, 7, 11, 16, 16, 256),
-            (10, 256, 4, 4, 15, 59, 64, 64, 128)]
+            (10, 256, 4, 4, 15, 59, 64, 64, 128),
+            (10, 512, 4, 4, 15, 59, 64, 512, 128)]
+PE_IDS = ["narrow", "flagship", "w512"]
+
+
+def _rel(got, ref) -> float:
+    got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
+    assert got.shape == ref.shape, (got.shape, ref.shape)
+    return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-6))
 
 
 def _pe_inputs(case, seed=0):
@@ -45,7 +54,7 @@ def _pe_inputs(case, seed=0):
     return x, extras, base, top, color_wbs, sem_wbs
 
 
-@pytest.mark.parametrize("case", PE_CASES, ids=["narrow", "flagship"])
+@pytest.mark.parametrize("case", PE_CASES, ids=PE_IDS)
 def test_fused_pe_density_matches_jax_kernel(case, arm):
     x, _, base, top, _, _ = _pe_inputs(case)
     F = case[0]
@@ -57,7 +66,7 @@ def test_fused_pe_density_matches_jax_kernel(case, arm):
     assert_close(got, ref, arm.tol, "t")
 
 
-@pytest.mark.parametrize("case", PE_CASES, ids=["narrow", "flagship"])
+@pytest.mark.parametrize("case", PE_CASES, ids=PE_IDS)
 def test_fused_pe_nerf_matches_jax_kernel(case, arm):
     x, extras, base, top, color_wbs, sem_wbs = _pe_inputs(case)
     F = case[0]
@@ -172,7 +181,7 @@ def _kernel_model_pe_field(x, extras, wbuf, bbuf, meta, heads):
     return (t, *outs)
 
 
-@pytest.mark.parametrize("case", PE_CASES, ids=["narrow", "flagship"])
+@pytest.mark.parametrize("case", PE_CASES[:2], ids=PE_IDS[:2])
 def test_packed_layout_reproduces_plain_path(case):
     x, extras, base, top, color_wbs, sem_wbs = _pe_inputs(case, seed=3)
     F = case[0]
@@ -185,7 +194,7 @@ def test_packed_layout_reproduces_plain_path(case):
     assert_close(got, ref, 1e-5, "t")
     wbuf, bbuf, meta = tfield.pack_pe_field(3, F, base_t, top_t, color_t,
                                             sem_t, de=extras.shape[1])
-    assert max(meta[17::5]) <= 256 and meta[13] == max(meta[17::5])
+    assert max(meta[17::5]) <= MAX_WIDTH and meta[13] == max(meta[17::5])
     got = _kernel_model_pe_field(x_t, ex_t, wbuf, bbuf, meta, True)
     ref = tfield.fused_pe_nerf_plain(x_t, ex_t, base_t, top_t, color_t,
                                      sem_t, F)
@@ -263,6 +272,29 @@ def _kernel_model_pe_field_fwd(x, extras, wbuf, bbuf, meta, heads):
     return outs[P.T_OUT], outs[P.RGB_OUT], outs[P.SEM_OUT]
 
 
+@pytest.mark.parametrize("heads", [True, False], ids=["heads", "trunk"])
+def test_wide_kernel_models_reproduce_plain_path(heads):
+    """[w512]'s forward program (a wide program) on a float32 weight image
+    gives the float32 plain version's outputs to 1e-5 of their largest
+    value: the same products, biases and relus, summed in another order.
+    (In bf16 a few activations of the 512-wide layers round to the other
+    neighbour when summed in another order, 8.5e-4 of max here; the
+    program's bf16 arithmetic is held against the JAX kernels in
+    test_forward_kernel_model_matches_jax_kernel.)"""
+    case = PE_CASES[2]
+    x, ex, groups, (wbuf, bbuf, meta) = _fwd_case(case, heads, torch.float32)
+    F = case[0]
+    assert meta[13] == 512
+    got = _kernel_model_pe_field_fwd(x, ex, wbuf, bbuf, meta, heads)
+    if heads:
+        ref = tfield.fused_pe_nerf_plain(x, ex, *groups, F, torch.float32)
+    else:
+        got = (got,)
+        ref = (tfield.fused_pe_density_plain(x, *groups, F, torch.float32),)
+    for name, g, r in zip(("t", "rgb_raw", "sem_raw"), got, ref):
+        assert _rel(g, r) <= 1e-5, (name, _rel(g, r))
+
+
 def _f32_weight_buffer(groups, F, de):
     """pack_pe_field's weight buffer in float32, for the f32 arm's run of
     the programs: the same layers and blocks, unrounded."""
@@ -292,7 +324,7 @@ def _fwd_case(case, heads, dtype=torch.bfloat16, seed=3):
 
 
 @pytest.mark.parametrize("heads", [True, False], ids=["heads", "trunk"])
-@pytest.mark.parametrize("case", PE_CASES, ids=["narrow", "flagship"])
+@pytest.mark.parametrize("case", PE_CASES[:2], ids=PE_IDS[:2])
 def test_forward_kernel_model_reproduces_plain_path(case, heads):
     """The forward program on the weight image gives the plain version's
     outputs: the same bf16 operands and rounding points, float32 sums in
@@ -309,7 +341,7 @@ def test_forward_kernel_model_reproduces_plain_path(case, heads):
 
 
 @pytest.mark.parametrize("heads", [True, False], ids=["heads", "trunk"])
-@pytest.mark.parametrize("case", PE_CASES, ids=["narrow", "flagship"])
+@pytest.mark.parametrize("case", PE_CASES, ids=PE_IDS)
 def test_forward_kernel_model_matches_jax_kernel(case, heads, arm):
     """The forward program against the JAX kernels in interpret mode, in
     both arms at the arm's tolerance (f32 1e-4, bf16 2e-2): the f32 arm
@@ -343,7 +375,7 @@ def _check_weight_image(plan, wbuf, meta):
     products = [op for op in plan.ops if op[P.O_KIND] in (P.FWD, P.BWD)]
     assert len(products) == len(plan.images)
     for op, (layer, transposed, row0, rows, K, N) in zip(products, plan.images):
-        assert (op[P.O_K], op[P.O_N]) == (K, N) and N in (16, 32, 64, 128, 256)
+        assert (op[P.O_K], op[P.O_N]) == (K, N) and N in (16, 32, 64, 128, 256, 512)
         assert K % 16 == 0 and 0 < op[P.O_KA] <= K
         b = P.from_core_k_major(img[op[P.O_IMG]:op[P.O_IMG] + K * N], K, N)
         w_off, _, k, n, _ = L[layer]
@@ -357,7 +389,7 @@ def _check_weight_image(plan, wbuf, meta):
 
 
 @pytest.mark.parametrize("heads", [True, False], ids=["heads", "trunk"])
-@pytest.mark.parametrize("case", PE_CASES, ids=["narrow", "flagship"])
+@pytest.mark.parametrize("case", PE_CASES, ids=PE_IDS)
 def test_pe_fwd_plan_runs_each_layer_once(case, heads):
     """One FWD op per layer in order, the EX op before the colour head, the
     output epilogues on the trunk's, colour head's and semantic head's last
@@ -401,9 +433,12 @@ def test_pe_fwd_plan_runs_each_layer_once(case, heads):
 
 # (num_freqs, hidden, n_base, n_top, G, De, Hc, Hs, C, N, interpret): the
 # shapes of test_mega_kernel_interpret_matches_fallback (JAX in interpret
-# mode), and the flagship's full widths at N=256 (JAX's reference path)
+# mode), the flagship's full widths at N=256 and [w512]'s (JAX's reference
+# path)
 BWD_CASES = [(4, 32, 2, 2, 7, 19, 24, 16, 2, 256, True),
-             (10, 256, 4, 4, 15, 59, 64, 64, 1, 256, False)]
+             (10, 256, 4, 4, 15, 59, 64, 64, 1, 256, False),
+             (10, 512, 4, 4, 15, 59, 64, 512, 1, 256, False)]
+BWD_IDS = ["jax-test", "flagship", "w512"]
 BWD_TOL = {"f32": 1e-4, "bf16": 5e-2}   # bf16: JAX's own kernel-vs-fallback
 
 
@@ -430,7 +465,7 @@ def _bwd_loss(t, rgb, sm, lib):
 
 
 @pytest.mark.parametrize("pass_sem", [False, True])
-@pytest.mark.parametrize("case", BWD_CASES, ids=["jax-test", "flagship"])
+@pytest.mark.parametrize("case", BWD_CASES[:2], ids=BWD_IDS[:2])
 def test_fused_pe_nerf_backward_matches_jax(case, pass_sem, arm):
     import jax
     x, extras, groups = _bwd_inputs(case)
@@ -474,8 +509,11 @@ def _kernel_model_pe_field_bwd(x, extras, wbuf, bbuf, meta, g_t, g_rgb,
     A and G written to its workspace slot in the chunk-major block
     layout), dx, dextras; the weight-gradient tasks Aᵀ·G read back from
     the workspace per split; the fixed-order sums.  A meta without heads
-    (n_color 0) runs the trunk alone; need_dw False returns dx alone."""
+    (n_color 0) runs the trunk alone; need_dw False returns dx alone.  The
+    activations and operands take the weights' dtype (bf16 as on the card,
+    float32 for the f32 arm)."""
     from cropnerf_tpu_torch.ops.cuda import pe_plan as P
+    cd = wbuf.dtype
     heads = meta[8] > 0
     plan = P.build_plan(meta, heads, pass_sem, need_dw)
     img = P.weight_image(wbuf, P.image_index(meta, plan))
@@ -493,18 +531,18 @@ def _kernel_model_pe_field_bwd(x, extras, wbuf, bbuf, meta, g_t, g_rgb,
         return out
 
     xs = padded(x, dim)
-    ws = torch.zeros(P.ws_elems(plan, N), dtype=torch.bfloat16)
+    ws = torch.zeros(P.ws_elems(plan, N), dtype=cd)
 
     def store(col, t):
         if col >= 0:
             ws[P.ws_index(col, t.shape[1], n_pad, rows,
-                          torch.arange(t.shape[1]))] = t.bfloat16()
+                          torch.arange(t.shape[1]))] = t.to(cd)
 
     enc = torch.zeros((n_pad, enc_pad))
     enc[:, :enc_cols] = tfield._encode(xs, F)
-    bufs = {P.ENC: enc.bfloat16(),
-            P.ACT: torch.zeros((n_pad, h[P.H_ACT_W]), dtype=torch.bfloat16),
-            P.TB: torch.zeros((n_pad, tw), dtype=torch.bfloat16)}
+    bufs = {P.ENC: enc.to(cd),
+            P.ACT: torch.zeros((n_pad, h[P.H_ACT_W]), dtype=cd),
+            P.TB: torch.zeros((n_pad, tw), dtype=cd)}
     store(h[P.H_ENC_SLOT], bufs[P.ENC])
     gt = padded(g_t, tw)
     genc = torch.zeros((n_pad, enc_pad))
@@ -516,7 +554,7 @@ def _kernel_model_pe_field_bwd(x, extras, wbuf, bbuf, meta, g_t, g_rgb,
         if op[P.O_MASK] >= 0:
             v = torch.where(masks[op[P.O_MASK]], v, 0.0)
         n = op[P.O_N]
-        bufs[P.ACT][:, :n] = v.bfloat16()
+        bufs[P.ACT][:, :n] = v.to(cd)
         if op[P.O_BOFF] >= 0:
             b, nv = op[P.O_BOFF], op[P.O_NVALID]
             bpart[:, b:b + nv] = v.reshape(-1, P.BLOCK, n).sum(1)[:, :nv]
@@ -525,7 +563,7 @@ def _kernel_model_pe_field_bwd(x, extras, wbuf, bbuf, meta, g_t, g_rgb,
     for op in plan.ops:
         kind, n, K, ka = op[P.O_KIND], op[P.O_N], op[P.O_K], op[P.O_KA]
         if kind == P.EX:
-            bufs[P.ACT][:, :n] = padded(extras, n).bfloat16()
+            bufs[P.ACT][:, :n] = padded(extras, n).to(cd)
             store(op[P.O_WS], bufs[P.ACT][:, :n])
             continue
         if kind == P.EMIT:
@@ -541,7 +579,7 @@ def _kernel_model_pe_field_bwd(x, extras, wbuf, bbuf, meta, g_t, g_rgb,
         if kind == P.FWD:
             nv = op[P.O_NVALID]
             acc[:, :nv] += bbuf[op[P.O_BOFF]:op[P.O_BOFF] + nv]
-            hb = (torch.relu(acc) if epi == P.RELU else acc).bfloat16()
+            hb = (torch.relu(acc) if epi == P.RELU else acc).to(cd)
             bufs[P.ACT if epi == P.RELU else P.TB][:, :n] = hb
             if op[P.O_MASK] >= 0:
                 masks[op[P.O_MASK]] = hb.float() > 0
@@ -577,19 +615,22 @@ def _kernel_model_pe_field_bwd(x, extras, wbuf, bbuf, meta, g_t, g_rgb,
     for sp in range(splits):                  # split-K pass: Aᵀ·G per task
         r = rows[sp * per * P.BLOCK:(sp + 1) * per * P.BLOCK]
         for t in plan.tasks:
-            m, nn, bn = t[P.T_M_VALID], t[P.T_N], t[P.T_BN]
+            m, nn, j0 = t[P.T_M_VALID], t[P.T_N], t[P.T_J0]
+            cols = min(t[P.T_BN], nn - j0)
             a = ws[P.ws_index(t[P.T_A_COL], t[P.T_A_W], n_pad, r,
                               t[P.T_I0] + torch.arange(m))]
-            g = ws[P.ws_index(t[P.T_G_COL], bn, n_pad, r, torch.arange(nn))]
+            g = ws[P.ws_index(t[P.T_G_COL], t[P.T_G_W], n_pad, r,
+                              j0 + torch.arange(cols))]
             o = t[P.T_W_OFF] + t[P.T_W_ROW0] * nn
-            wpart[sp, o:o + m * nn] = (a.float().T @ g.float()).reshape(-1)
+            wpart[sp, o:o + m * nn].view(m, nn)[:, j0:j0 + cols] = (
+                a.float().T @ g.float())
     dwbuf = wpart.sum(0)
     dbbuf = bpart.sum(0)
     return dx, (dex[:N, :de] if heads else None), dwbuf, dbbuf
 
 
 @pytest.mark.parametrize("pass_sem", [False, True])
-@pytest.mark.parametrize("case", BWD_CASES, ids=["jax-test", "flagship"])
+@pytest.mark.parametrize("case", BWD_CASES, ids=BWD_IDS)
 def test_backward_kernel_model_reproduces_plain_autograd(case, pass_sem):
     x, extras, groups = _bwd_inputs(case, seed=4)
     F = case[0]
@@ -616,6 +657,113 @@ def test_backward_kernel_model_reproduces_plain_autograd(case, pass_sem):
         assert err <= 2e-2, (i, err)
 
 
+@pytest.mark.parametrize("heads", [True, False], ids=["heads", "trunk"])
+@pytest.mark.parametrize("case", BWD_CASES, ids=BWD_IDS)
+def test_backward_kernel_model_matches_jax(case, heads, arm):
+    """The backward's three passes (K1 with the heads, K2 without) against
+    the JAX VJP of fused_pe_nerf / fused_pe_density at the case's path (in
+    interpret mode or the reference path), [w512]'s wide programs
+    included.  The float32 arm runs the programs on a float32 image and
+    holds dx, dextras and every weight and bias gradient to 1e-4 of its
+    largest value.  In the bf16 arm the two frameworks round some
+    activations to the other bf16 neighbour (test_stream_programs_match_jax
+    says how that spreads), so each gradient is held to 2e-2 of max against
+    autograd of the plain version (which rounds where the program does, as
+    test_backward_kernel_model_reproduces_plain_autograd holds it) and in
+    relative L2 to JAX's no further than the plain version's plus 1e-2."""
+    import jax
+    x, extras, groups = _bwd_inputs(case, seed=12)
+    F, interpret = case[0], case[-1]
+    groups = groups if heads else groups[:2]
+    rng = np.random.default_rng(13)
+    n = x.shape[0]
+    cols = [groups[1][-2].shape[1]] + ([3, groups[3][-2].shape[1]] if heads
+                                       else [])
+    cots = [rng.standard_normal((n, c)).astype(np.float32) for c in cols]
+    s = jnp.asarray(jfield.pe_selector_matrix(F))
+    if heads:
+        fn = lambda x, ex, *g: jfield.fused_pe_nerf(  # noqa: E731
+            x, ex, s, *g, F, False, 128, interpret, 3, 128)
+        _, vjp = jax.vjp(fn, jnp.asarray(x), jnp.asarray(extras),
+                         *[to_jax(g) for g in groups])
+        jg = vjp(tuple(jnp.asarray(c) for c in cots))
+    else:
+        fn = lambda x, *g: jfield.fused_pe_density(  # noqa: E731
+            x, s, *g, F, 128, interpret, 3, 128)
+        _, vjp = jax.vjp(fn, jnp.asarray(x), *[to_jax(g) for g in groups])
+        jg = (lambda d, *w: (d, None, *w))(*vjp(jnp.asarray(cots[0])))
+    jflat = [jg[0]] + ([jg[1]] if heads else []) + [
+        w for g in jg[2:] for w in g]
+    xt, ext = torch.from_numpy(x), torch.from_numpy(extras)
+    tg = [to_torch(g) for g in groups]
+    de = extras.shape[1] if heads else 0
+    wbuf, bbuf, meta = tfield.pack_pe_field(3, F, *tg, de=de)
+    if arm.name == "f32":
+        wbuf = _f32_weight_buffer(tg, F, de)
+    tcots = [torch.from_numpy(c) for c in cots] + [None] * (3 - len(cots))
+    dx, dex, dwbuf, dbbuf = _kernel_model_pe_field_bwd(
+        xt, ext if heads else None, wbuf, bbuf, meta, *tcots, False)
+    grads = tfield.unpack_pe_field_grads(dwbuf, dbbuf, meta, *tg)
+    got = [dx] + ([dex] if heads else []) + [g for gs in grads for g in gs]
+    assert len(got) == len(jflat)
+    if arm.name == "f32":
+        for i, (g, r) in enumerate(zip(got, jflat)):
+            assert _rel(g, r) <= 1e-4, (i, _rel(g, r))
+        return
+    leaves = [t.clone().requires_grad_(True)
+              for t in [xt] + ([ext] if heads else []) + [w for g in tg for w in g]]
+    k = 2 if heads else 1
+    wl, it = [], iter(leaves[k:])
+    for g in tg:
+        wl.append([next(it) for _ in g])
+    outs = (tfield.fused_pe_nerf_plain(leaves[0], leaves[1], *wl, F) if heads
+            else (tfield.fused_pe_density_plain(leaves[0], *wl, F),))
+    pgrads = torch.autograd.grad(outs, leaves, [c for c in tcots if c is not None])
+    for i, (g, p, r) in enumerate(zip(got, pgrads, jflat)):
+        assert _rel(g, p) <= 2e-2, (i, _rel(g, p))
+        r = np.asarray(r)
+        l2 = np.linalg.norm(r)
+        model, plain = (np.linalg.norm(t.numpy() - r) / l2 for t in (g, p))
+        assert model <= plain + 1e-2, (i, model, plain)
+
+
+def test_wide_programs_split_every_product_between_warpgroups():
+    """[w512]'s programs run wide (a layer over 256): every product of a
+    wide program is at most 512 columns, so that each warpgroup's half is
+    one wgmma shape; the relu masks take half the words a thread; layer
+    0's input-gradient products take chunks up to 512; the weight-gradient
+    tasks take each 512-wide G in two 256-column blocks of its slot; and
+    a net at most 256 wide keeps today's program, its tasks' G whole."""
+    from cropnerf_tpu_torch.ops.cuda import pe_plan as P
+    for case, wide in ((BWD_CASES[1], False), (BWD_CASES[2], True)):
+        _, _, meta = _bwd_meta(case)
+        fwd = P.build_forward_plan(meta, True)
+        full = P.build_plan(meta, True, True, True)
+        L = [meta[14 + 5 * i:19 + 5 * i] for i in range((len(meta) - 14) // 5)]
+        for plan in (fwd, full):
+            assert P.wide_program([plan.header[P.H_ACT_W]]) == wide
+            assert all(op[P.O_N] <= (P.MAX_W if wide else P.MAX_N)
+                       for op in plan.ops)
+        widths = {op[P.O_MASK]: op[P.O_N] for op in full.ops
+                  if op[P.O_KIND] == P.FWD and op[P.O_MASK] >= 0}
+        words = sorted(widths)
+        for w0, w1 in zip(words, words[1:] + [full.header[P.H_MASK_WORDS]]):
+            assert w1 - w0 == P.mask_words(widths[w0], wide)
+        assert P.mask_words(512, True) == 4 and P.mask_words(512, False) == 8
+        blocks = {}
+        for t in full.tasks:
+            blocks.setdefault((t[P.T_W_OFF], t[P.T_W_ROW0]), []).append(
+                (t[P.T_J0], t[P.T_BN], t[P.T_G_W]))
+        for w_off, _, k, n, _ in L:
+            want = ([(0, 256, 512), (256, 256, 512)] if n > P.MAX_N
+                    else [(0, P.pow2_width(n), P.pow2_width(n))])
+            assert blocks[(w_off, 0)] == want
+    with pytest.raises(ValueError):              # a layer over 512
+        _bwd_meta((10, 640, 4, 4, 15, 59, 64, 64, 1, 256, False))
+        P.build_plan(_bwd_meta((10, 640, 4, 4, 15, 59, 64, 64, 1, 256, False))[2],
+                     True, False, True)
+
+
 def _bwd_meta(case, heads=True):
     _, extras, (base, top, color, sem) = _bwd_inputs(case)
     F = case[0]
@@ -625,7 +773,7 @@ def _bwd_meta(case, heads=True):
     return tfield.pack_pe_field(3, F, tb, tt)
 
 
-@pytest.mark.parametrize("case", BWD_CASES, ids=["jax-test", "flagship"])
+@pytest.mark.parametrize("case", BWD_CASES, ids=BWD_IDS)
 def test_pe_bwd_weight_image_holds_each_product_operand(case):
     """The wgmma weight image: each product op's B, decoded from the
     K-major core-matrix layout, is the layer's W block (forward) or the Wᵀ
@@ -670,12 +818,15 @@ def test_pe_bwd_workspace_slots_and_tasks(heads):
     for t in plan.tasks:
         rows_t = range(t[P.T_W_ROW0], t[P.T_W_ROW0] + t[P.T_M_VALID])
         for r in rows_t:
-            key = (t[P.T_W_OFF], r)
+            key = (t[P.T_W_OFF], r, t[P.T_J0])
             covered[key] = covered.get(key, 0) + 1
-        assert 0 < t[P.T_M_VALID] <= P.DW_M and t[P.T_BN] == P.pow2_width(t[P.T_N])
+        assert 0 < t[P.T_M_VALID] <= P.DW_M and t[P.T_G_W] == P.pow2_width(t[P.T_N])
+        assert t[P.T_BN] == min(t[P.T_G_W], P.MAX_N) and t[P.T_J0] % P.MAX_N == 0
+    blocks = lambda n: range(0, n, P.MAX_N) if n > P.MAX_N else [0]  # noqa: E731
     for w_off, _, k, n, _ in L[:n_layers]:
-        assert all(covered.get((w_off, r)) == 1 for r in range(k))
-    assert len(covered) == sum(l[2] for l in L[:n_layers])
+        assert all(covered.get((w_off, r, j0)) == 1 for r in range(k)
+                   for j0 in blocks(n))
+    assert len(covered) == sum(l[2] * len(blocks(l[3])) for l in L[:n_layers])
     for n, tasks in ((1, 21), (196_608, 21), (5000, 16), (129, 0)):
         splits, per = P.dw_splits(n, tasks)
         blocks = -(-n // P.TILE) * 2
@@ -713,9 +864,11 @@ def test_pe_bwd_programs_ask_only_for_what_is_needed():
             elif op[P.O_KIND] == P.BWD and op[P.O_EPI] == P.G_MASKED:
                 assert written[op[P.O_MASK]] == op[P.O_N]
     assert P.pow2_chunks(48) == [32, 16] and P.pow2_chunks(160) == [128, 32]
-    assert [P.pow2_width(n) for n in (16, 17, 48, 64, 200)] == [16, 32, 64, 64, 256]
-    with pytest.raises(ValueError):
-        P.pow2_width(272)
+    assert P.pow2_chunks(512) == [256, 256] and P.pow2_chunks(512, 512) == [512]
+    assert [P.pow2_width(n) for n in (16, 17, 48, 64, 200, 272, 512)] == [
+        16, 32, 64, 64, 256, 512, 512]
+    with pytest.raises(ValueError):             # past the widest layer
+        P.pow2_width(513)
 
 
 def _warp_colsum_model(nv):
@@ -747,7 +900,7 @@ def test_warp_colsum_writes_each_column_once(n):
     assert all(len(v) == 1 for v in writes.values())
 
 
-@pytest.mark.parametrize("case", BWD_CASES, ids=["jax-test", "flagship"])
+@pytest.mark.parametrize("case", BWD_CASES, ids=BWD_IDS)
 def test_trunk_backward_kernel_model_dx_alone_matches_full(case):
     """The dx-only program (the BayesRays pass's) gives the full program's
     dx."""
@@ -899,7 +1052,7 @@ def test_mlp_backward_kernel_model_reproduces_plain_autograd(case):
         assert err <= 2e-2, (i, err)
 
 
-@pytest.mark.parametrize("case", BWD_CASES, ids=["jax-test", "flagship"])
+@pytest.mark.parametrize("case", BWD_CASES, ids=BWD_IDS)
 def test_trunk_backward_kernel_model_reproduces_plain_autograd(case):
     """The backward kernel without heads (fused_pe_density's backward):
     the same three passes on the trunk alone."""

@@ -98,10 +98,10 @@ def test_fused_pe_mlp_checks_its_inputs():
         tfield.fused_pe_mlp(x, wbs[:3], 5)
     assert tfield.fused_pe_mlp(x[:0], wbs, 5).shape == (0, 1)
     # the kernels' nets: every net the three routes take has a backward;
-    # one over 256 wide has no kernel
+    # one over 512 wide has no kernel
     wide = to_torch(np_wbs(np.random.default_rng(0), Q_WIDTHS[5]))
     big = to_torch(np_wbs(np.random.default_rng(0), [33, 256, 256, 1]))
-    wider = to_torch(np_wbs(np.random.default_rng(0), [33, 257, 1]))
+    wider = to_torch(np_wbs(np.random.default_rng(0), [33, 513, 1]))
     assert [tfield._pe_route(x, w, 5) for w in (wbs, wide, big)] == [
         "wgmma", "wide", "stream"]
     with pytest.raises(ValueError, match="no kernel"):
@@ -328,7 +328,9 @@ ROUTE_EDGES = [(3, 8, [64, 64, 1], "wgmma"),      # 51 encoding columns
                (3, 11, [128, 128, 1], "stream"),  # 69 columns
                (3, 5, [128, 128, 128, 1], "stream"),  # 4 layers
                (2, 5, [128, 128, 1], "stream"),   # x [N, 2]
-               (3, 5, [257, 1], None),            # 257 wide: no kernel
+               (3, 5, [513, 1], None),            # 513 wide: no kernel
+               (3, 5, [512, 512, 1], "stream"),   # [w512]'s nets: wide
+               (3, 6, [512, 512, 1], "stream"),
                (3, 5, [64] * 33, None),           # 33 layers
                (4, 31, [64, 1], None)]            # F over 30
 

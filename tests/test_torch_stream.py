@@ -143,12 +143,15 @@ def _stream_model(x, wbs, F=None, g=None, need_dx=True, need_dw=True,
     for sp in range(splits):                  # split-K pass: Aᵀ·G per task
         r = rows[sp * per * P.BLOCK:(sp + 1) * per * P.BLOCK]
         for t in plan.tasks:
-            m, nn, bn = t[P.T_M_VALID], t[P.T_N], t[P.T_BN]
+            m, nn, j0 = t[P.T_M_VALID], t[P.T_N], t[P.T_J0]
+            cols = min(t[P.T_BN], nn - j0)
             a = ws[P.ws_index(t[P.T_A_COL], t[P.T_A_W], n_pad, r,
                               t[P.T_I0] + torch.arange(m))]
-            gg = ws[P.ws_index(t[P.T_G_COL], bn, n_pad, r, torch.arange(nn))]
+            gg = ws[P.ws_index(t[P.T_G_COL], t[P.T_G_W], n_pad, r,
+                               j0 + torch.arange(cols))]
             o = t[P.T_W_OFF] + t[P.T_W_ROW0] * nn
-            wpart[sp, o:o + m * nn] = (a.float().T @ gg.float()).reshape(-1)
+            wpart[sp, o:o + m * nn].view(m, nn)[:, j0:j0 + cols] = (
+                a.float().T @ gg.float())
     return dx, tmlp.unpack_stream_grads(wbs, wpart.sum(0), bpart.sum(0))
 
 
@@ -172,6 +175,9 @@ STREAM_NETS = {
     "k3-huge-colour-2": (89, None, [256, 256, 3], 256, True),
     "k3-semantic-256": (30, None, [256, 256, 1], 256, True),
     "k3-6-layers": (40, None, [128] * 5 + [7], 256, True),
+    "k5-512-wide": (3, 5, [512, 512, 1], 300, False),
+    "k3-semantic-512": (15, None, [512, 1], 256, True),
+    "k3-512-din-512": (512, None, [512, 16], 256, True),
 }
 
 
@@ -247,11 +253,14 @@ def test_stream_backward_variants_give_the_full_backward(variant):
 
 
 # (din, F or None, widths): every layout the route takes fits a block's
-# shared memory, forward (three 64-row slab stages) and backward (two
-# stages, of 32 rows or 16)
+# shared memory, forward (three slab stages: of 64 rows, or 32 rows 512
+# wide for a net over 256 wide) and backward (two stages, of 32 rows or 16)
 SMEM_EDGES = [(256, None, [256] * 32), (256, None, [256] * 31 + [1]),
               (244, (4, 30), [256] * 32), (244, (4, 30), [256, 256, 1]),
-              (1, None, [1]), (15, None, [1]), (3, (3, 0), [16, 1])]
+              (1, None, [1]), (15, None, [1]), (3, (3, 0), [16, 1]),
+              (512, None, [512] * 32), (512, None, [512] * 31 + [1]),
+              (244, (4, 30), [512] * 32), (33, (3, 5), [512, 512, 1]),
+              (512, None, [16, 1]), (1, None, [512]), (15, None, [257, 1])]
 
 
 @pytest.mark.parametrize("case", range(len(SMEM_EDGES)))
@@ -265,10 +274,10 @@ def test_stream_layouts_fit_shared_memory(case):
         assert smem <= tmlp.MAX_SMEM_BYTES and got >= stages, (backward, got)
 
 
-@pytest.mark.parametrize("net", [(15, [257, 1]), (257, [8, 1]),
-                                 (15, [64] * 33), (15, [300])])
+@pytest.mark.parametrize("net", [(15, [513, 1]), (513, [8, 1]),
+                                 (15, [64] * 33), (15, [600])])
 def test_stream_route_refuses_wider_nets(net):
-    """Nets over 256 wide, a din over 256 or more than 32 layers take no
+    """Nets over 512 wide, a din over 512 or more than 32 layers take no
     kernel: fused_mlp_route raises, and so does the plan."""
     din, widths = net
     assert not mp.stream_takes(din, widths)
@@ -338,5 +347,59 @@ def test_prop256_train_step_matches_jax(arm, monkeypatch):
             256, 3, "pallas-fused")
         widths = [256] * (p.num_layers - 1) + [1]
         assert tfield.pe_mlp_fwd_route(3, p.pe_freqs, widths) == "stream"
+    check_train_step(jcfg, tcfg, STEP, arm, monkeypatch, _q_kinked,
+                     Q_KINK_TOL)
+
+
+# --- the slice: cropnerf-mxu with a 512-wide trunk, semantic head and PE
+# proposal nets ([w512]) --
+
+def w512(presets, **changes):
+    """``[w512]``, reduced: ``cropnerf-mxu`` with a 512-wide trunk
+    (``field.hidden_dim``) and semantic head (``hidden_dim_semantics``),
+    and both PE proposal nets fused and 512 wide, 3 layers each
+    (``dataclasses.replace``, as ``benchmarks/ab_propshape.py`` builds its
+    arms), with few rays and samples (``test_torch_propfused.propfused``);
+    the colour head stays 64 wide."""
+    from test_torch_propfused import propfused
+    cfg = propfused(presets, "cropnerf-mxu", **changes)
+    m = cfg.model
+    m = dataclasses.replace(
+        m, field=dataclasses.replace(m.field, hidden_dim=512,
+                                     hidden_dim_semantics=512),
+        proposal_fields=tuple(dataclasses.replace(p, hidden_dim=512)
+                              for p in m.proposal_fields))
+    return dataclasses.replace(cfg, model=m)
+
+
+@pytest.mark.parametrize("arm", ["f32"], indirect=True)
+def test_w512_train_step_matches_jax(arm, monkeypatch):
+    """One training step of [w512] against JAX's (on the card: K1 forward
+    and backward as wide programs with the 512-wide semantic head inside,
+    both proposal nets on the stream route's wide programs), in the float32
+    arm, every leaf behind a relu unit and the rays in relative L2 to
+    Q_KINK_TOL, as cropnerf-mxu-q's and [prop256]'s steps."""
+    from cropnerf_tpu.models.config import PRESETS as JAX_PRESETS
+    from cropnerf_tpu_torch.models.config import PRESETS as TORCH_PRESETS
+    from cropnerf_tpu_torch.models.vanilla import fused_field_weights
+    from cropnerf_tpu_torch.models.vanilla import vanilla_field_init
+    from test_torch_propfused_wide import Q_KINK_TOL, _q_kinked
+    from test_torch_train import RAYS, STEP, check_train_step
+    jcfg, tcfg = (w512(p, train_num_rays_per_batch=RAYS)
+                  for p in (JAX_PRESETS, TORCH_PRESETS))
+    f = tcfg.model.field
+    assert (f.hidden_dim, f.hidden_dim_semantics, f.hidden_dim_color,
+            f.mlp_impl) == (512, 512, 64, "pallas-fused")
+    field = vanilla_field_init(f, 2, torch.Generator().manual_seed(0))
+    _, _, meta = tfield.pack_pe_field(3, 10, *fused_field_weights(field, f),
+                                      de=27 + f.appearance_embedding_dim)
+    assert P.wide_program([P.build_plan(meta, True, False, True).header[
+        P.H_ACT_W]])
+    for p in tcfg.model.proposal_fields:
+        assert (p.hidden_dim, p.num_layers, p.mlp_impl) == (
+            512, 3, "pallas-fused")
+        widths = [512] * (p.num_layers - 1) + [1]
+        assert tfield.pe_mlp_fwd_route(3, p.pe_freqs, widths) == "stream"
+    assert tmlp.fused_mlp_route(f.geo_feat_dim, [512, 1]) == "stream"
     check_train_step(jcfg, tcfg, STEP, arm, monkeypatch, _q_kinked,
                      Q_KINK_TOL)

@@ -13,8 +13,10 @@ at cropnerf-mxu's proposal nets, and K5 at cropnerf-mxu-q's 128-wide nets
 their route, and so their bits, differ between trees that send them to
 other kernels); last K1 and K2 forward and backward (``fused_pe_nerf``,
 ``fused_pe_density``; K2's dx alone) at cropnerf-mxu's rows and K6
-(``render_weights_cuda``).  Run it on two trees in one call on the same
-card; equal lines mean equal bits:
+(``render_weights_cuda``); then K5 on the stream route at [prop256]'s
+nets (3 layers 256 wide, F = 5 and 6: forward, and the backward with dx
+and dW).  Run it on two trees in one call on the same card; equal lines
+mean equal bits:
 
     python3 tools/kernel_bits.py [--port-root DIR]
 """
@@ -152,6 +154,20 @@ def main() -> None:
         deltas = torch.rand((4096, 256), generator=g, device=dev) * 0.02
         out["render_weights_cuda"] = digest([render_weights_cuda(density,
                                                                  deltas)])
+        # K5's stream route at [prop256]'s nets (last, for the same draws
+        # as before)
+        for i, (F, smp) in enumerate(((5, 256), (6, 96))):
+            din = 3 * (1 + 2 * F)
+            wbs = []
+            for a, b in zip((din, 256, 256), (256, 256, 1)):
+                wbs += [torch.randn((a, b), generator=g, device=dev) / a ** 0.5,
+                        torch.randn((1, b), generator=g, device=dev) * 0.05]
+            x = torch.rand((4096 * smp, 3), generator=g, device=dev) * 2 - 1
+            cot = torch.randn((4096 * smp, 1), generator=g, device=dev)
+            out[f"fused_pe_mlp 256 wide net {i}"] = digest(
+                [kfield.fused_pe_mlp(x, wbs, F)])
+            dx, dw = kfield.fused_pe_mlp_bwd(x, wbs, F, cot)
+            out[f"fused_pe_mlp_bwd 256 wide net {i}"] = digest([dx] + dw)
     print(json.dumps({"port_root": str(args.port_root),
                       "card": torch.cuda.get_device_name(0), "sha256": out}),
           flush=True)
