@@ -339,7 +339,8 @@ HASH_FWD_PASSES = {"kernel": ("hash_encode_fwd_kernel",)}
 BWD_WINDOWS = 3          # profiler windows per K1/K2 timing
 
 
-def pass_ms(fn, iters: int, passes: dict = BWD_PASSES) -> dict:
+def pass_ms(fn, iters: int, passes: dict = BWD_PASSES,
+            names: dict | None = None) -> dict:
     """Device ms per call of each pass of a kernel call (``passes``: name
     -> kernel names; the PE field's forward or backward, the hash-grid
     encode's backward, the PE nets' backward) and of all the port's
@@ -347,7 +348,8 @@ def pass_ms(fn, iters: int, passes: dict = BWD_PASSES) -> dict:
     median, minimum and maximum of the windows.  A window with no device
     time for the port's kernels is profiled again, up to PROFILE_TRIES
     more windows; if none had any, "total" is timed with CUDA events and
-    the passes are not measured (None)."""
+    the passes are not measured (None).  ``names``, if given, receives
+    each pass's kernel names as the profiler recorded them."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -369,6 +371,9 @@ def pass_ms(fn, iters: int, passes: dict = BWD_PASSES) -> dict:
             per[name].append(sum(e.self_device_time_total for e in events
                                  if any(k in e.key for k in keys))
                              / 1e3 / iters)
+            if names is not None:
+                names[name] = sorted({e.key for e in events
+                                      if any(k in e.key for k in keys)})
         per["total"].append(total / 1e3 / iters)
         if len(per["total"]) == BWD_WINDOWS:
             break
@@ -385,6 +390,39 @@ def pass_ms(fn, iters: int, passes: dict = BWD_PASSES) -> dict:
             f"recorded device time for {KERNEL_NS}")
     return {name: {"median": statistics.median(v), "min": min(v),
                    "max": max(v)} for name, v in per.items()}
+
+
+def cluster_report(tag: str, grid: dict, n_rows: int, halves: int,
+                   img_bytes: int, passes: dict, bound_ms: float, regs: dict,
+                   spills: dict, names: dict, card: str) -> dict:
+    """Logs and returns what a backward tile kernel redesigned as persistent
+    clusters (csrc/pe_tile.cuh) does: its cluster size and the clusters
+    resident at once (the C grid query), the whole call's time against
+    its bound, the kernel's registers and spills, and the kernel names the
+    profiler recorded.  The log line adds the weight bytes the tile
+    kernel's copies ask of L2 and their rate over the tile pass: a model
+    (each group of ``cluster`` tiles takes the weight image once a 64-row
+    half, ``halves`` halves a tile), not a reading, so the returned entry,
+    which goes into the kernels line, leaves them out."""
+    tiles = -(-n_rows // 128)
+    c = max(grid["cluster"], 1)
+    model_bytes = -(-tiles // c) * halves * img_bytes
+    tile_ms, ms = passes["tile"]["median"], passes["total"]["median"]
+    rate = ("no tile time" if not tile_ms
+            else f"{model_bytes / (tile_ms * 1e9):.3f} TB/s")
+    log(f"[cluster] {tag}: clusters of {grid['cluster']}, "
+        f"{grid['active_clusters']} resident, {grid['blocks']} blocks for "
+        f"{tiles} tiles; {ms:.4f} ms against the {bound_ms:.4f} ms bound "
+        f"({ms / bound_ms:.2f}x; tile pass {tile_ms}); weight bytes asked "
+        f"of L2, modelled: {model_bytes / 1e9:.3f} GB "
+        f"({tiles * halves * img_bytes / 1e9:.3f} GB one block a tile), "
+        f"{rate} over the tile pass; registers {regs}, spill bytes {spills}; "
+        f"profiler names {names}; {card}")
+    return dict(cluster=grid["cluster"],
+                active_clusters=grid["active_clusters"],
+                blocks=grid["blocks"], n_tiles=tiles, ms=ms, tile_ms=tile_ms,
+                bound_ms=bound_ms, factor=ms / bound_ms, registers=regs,
+                spill_bytes=spills, profiler_names=names)
 
 
 def fmt_passes(p: dict) -> str:
@@ -479,6 +517,10 @@ def bool_args(name: str) -> str:
         return ""
     flags = re.findall(r"Lb([01])E", m.group(1))
     return "<" + ", ".join("true" if f == "1" else "false" for f in flags) + ">"
+
+
+def bool_word(b: bool) -> str:
+    return "true" if b else "false"
 
 
 def short_names(per_entry: dict) -> dict:
@@ -1035,7 +1077,8 @@ def hash_real_step(bank, dev, rate) -> dict:
 
 # ---- the BayesRays slice: K2 and K3 backward, the [uncertainty] phase ------
 
-def density_bwd_entry(base, top, trunk_macs, n, dev, card, report) -> dict:
+def density_bwd_entry(base, top, trunk_macs, n, dev, card, report,
+                      names: dict | None = None) -> dict:
     """K2 backward (the trunk-only mode of csrc/fused_pe_field_bwd.cu)
     against autograd through the plain version at N = 128, 1000, n - 77 and
     n, with the weight gradients and with dx alone (the BayesRays pass's
@@ -1096,7 +1139,7 @@ def density_bwd_entry(base, top, trunk_macs, n, dev, card, report) -> dict:
                for (m, w), v in cases.items()},
         max_abs_err=cases[(n, False)]["abs"],
         rel_err=cases[(n, False)]["dx_l2"],
-        passes=pass_ms(lambda: kernel(xb, cot, False), 10),
+        passes=pass_ms(lambda: kernel(xb, cot, False), 10, BWD_PASSES, names),
         call_ms=cuda_ms(lambda: kernel(xb, cot, False), 10),
         plain_ms=device_ms(lambda: plain(xb, cot, False), 3),
         with_dw_passes=pass_ms(lambda: kernel(xb, cot, True), 5),
@@ -1398,7 +1441,8 @@ def stream_counts(fn) -> dict:
                     kf.fused_pe_mlp_stream, kf.fused_pe_mlp_stream_bwd), fn)
 
 
-def stream_net_entry(label, dims, n_fwd, n_bwd, F, dev, card) -> dict:
+def stream_net_entry(label, dims, n_fwd, n_bwd, F, dev, card,
+                     report: str = "") -> dict:
     """One stream net, K3 (F None: x [N, dims[0]]) or K5 (x [N, 3] encoded
     with F frequencies into dims[0] columns): the forward at n_fwd, a
     ragged N and N = 1, and the backward at n_bwd with dx and the weight
@@ -1406,9 +1450,12 @@ def stream_net_entry(label, dims, n_fwd, n_bwd, F, dev, card) -> dict:
     alone, against the plain version (dx row by row, the weight gradients
     in relative L2); dx alone and dW alone the full backward's bits; two
     runs bit-identical; each call's launches on its stream counter alone;
-    device ms by pass, plain ms and bounds."""
+    device ms by pass, plain ms and bounds; the backward's persistent
+    clusters (cluster_report, with and without dW; ``report`` is the
+    library's ptxas report)."""
     from cropnerf_tpu_torch.ops.cuda import fused_mlp as km
     from cropnerf_tpu_torch.ops.cuda import fused_pe_field as kf
+    from cropnerf_tpu_torch.ops.cuda import mlp_plan
     pe = F is not None
     g = torch.Generator(device=dev).manual_seed(16)
     wd = []
@@ -1494,16 +1541,18 @@ def stream_net_entry(label, dims, n_fwd, n_bwd, F, dev, card) -> dict:
     macs = mlp_macs(dims)
     hidden = macs - dims[-2] * dims[-1]
     w_bytes = nbytes(*wd)
+    bwd_names, dx_names = {}, {}
     k = dict(dims=dims, n_fwd=n_fwd, n_bwd=n_bwd, num_freqs=F, cases=cases,
              forward_deterministic=fwd_same,
              fwd_passes=pass_ms(lambda: fwd(xf), 10, STREAM_FWD_PASSES),
              call_ms=cuda_ms(lambda: fwd(xf), 10),
              plain_ms=device_ms(lambda: plain_fwd(xf), 5),
-             bwd_passes=pass_ms(lambda: bwd(xb, cb), 5, STREAM_BWD_PASSES),
+             bwd_passes=pass_ms(lambda: bwd(xb, cb), 5, STREAM_BWD_PASSES,
+                                bwd_names),
              bwd_call_ms=cuda_ms(lambda: bwd(xb, cb), 5),
              bwd_plain_ms=device_ms(lambda: plain_bwd(xb, cb), 3),
              dx_passes=pass_ms(lambda: bwd(xb, cb, True, False), 5,
-                               STREAM_BWD_PASSES),
+                               STREAM_BWD_PASSES, dx_names),
              dx_plain_ms=device_ms(lambda: plain_bwd(xb, cb, False), 3))
     k["ms"] = k["fwd_passes"]["total"]["median"]
     k["bwd_ms"] = k["bwd_passes"]["total"]["median"]
@@ -1522,6 +1571,21 @@ def stream_net_entry(label, dims, n_fwd, n_bwd, F, dev, card) -> dict:
     k["dx_bound_ms"], k["dx_bound_by"] = bound(
         2.0 * n_bwd * (hidden + macs),
         n_bwd * (2 * io + dims[-1] * 4) + w_bytes)
+    regs = kernel_names_plain(ptxas_registers(report))
+    spills = kernel_names_plain(ptxas_spills(report))
+    for what, need_dw, names in (("with dW", True, bwd_names),
+                                 ("dx alone", False, dx_names)):
+        key = mlp_plan.program_key(dims[0], dims[1:], 3 if pe else 0,
+                                   F if pe else 0, True, True, need_dw)
+        h = mlp_plan.stream_plan(key).header
+        wide = mlp_plan.stream_wide(h)
+        kn = f"mlp_stream_bwd_kernel<{bool_word(need_dw)}, {bool_word(wide)}>"
+        k["cluster" if need_dw else "dx_cluster"] = cluster_report(
+            f"stream {label} backward, {what}", km.stream_bwd_grid(key, n_bwd),
+            n_bwd, 2 if wide else 1, h[mlp_plan.M_IMG_ELEMS] * 2,
+            k["bwd_passes" if need_dw else "dx_passes"],
+            k["bwd_bound_ms" if need_dw else "dx_bound_ms"],
+            {kn: regs.get(kn)}, {kn: spills.get(kn)}, names, card)
     arrow = "->".join(map(str, dims[1:]))
     log(f"[kernel] stream {label}: x [{n_fwd},{3 if pe else dims[0]}]"
         f"{f' (F={F})' if pe else ''} -> {dims[0]} -> {arrow}: forward "
@@ -1547,10 +1611,11 @@ def stream_entries(dev, card, report) -> dict:
     path: [prop256]'s two proposal nets, one training step's calls summed,
     the backward with dx and dW); the other nets in by_net.  Launches are
     filled in from the [prop256] phase."""
-    k3 = {label: stream_net_entry(label, dims, nf, nb, None, dev, card)
+    k3 = {label: stream_net_entry(label, dims, nf, nb, None, dev, card,
+                                  report)
           for label, (dims, nf, nb) in STREAM_K3.items()}
     k5 = {label: stream_net_entry(label, [3 * (1 + 2 * F)] + [hw] * (
-        layers - 1) + [1], n, n, F, dev, card)
+        layers - 1) + [1], n, n, F, dev, card, report)
         for label, (F, hw, layers, n) in STREAM_K5.items()}
     regs = kernel_names_plain(ptxas_registers(report))
     spills = kernel_names_plain(ptxas_spills(report))
@@ -1601,6 +1666,7 @@ def stream_line(k3, k5, label3, labels5, what3, what5, regs, spills,
             shape=f"its dx alone at a BayesRays batch, [{main3['n_bwd']}] x "
                   f"{dims3}",
             replaces=src + "fused_mlp.py:45", ms=main3["dx_ms"],
+            cluster=main3["dx_cluster"], with_dw_cluster=main3["cluster"],
             with_dw_ms=main3["bwd_ms"], call_ms=main3["bwd_call_ms"],
             plain_ms=main3["dx_plain_ms"], bound_ms=main3["dx_bound_ms"],
             bound_by=main3["dx_bound_by"]),
@@ -1618,6 +1684,7 @@ def stream_line(k3, k5, label3, labels5, what3, what5, regs, spills,
             shape=f"their backward with dx and every weight gradient: "
                   f"{shape5}",
             replaces=src + "fused_pe_field.py:835",
+            cluster=[k["cluster"] for k in main5],
             ms=sum(k["bwd_ms"] for k in main5),
             call_ms=sum(k["bwd_call_ms"] for k in main5),
             plain_ms=sum(k["bwd_plain_ms"] for k in main5),
@@ -2896,6 +2963,7 @@ def w512_field_entries(m, dev, card, reports) -> dict:
     spills_f = short_names(ptxas_spills(reports["fused_pe_field"]))
     regs_b = short_names(ptxas_registers(reports["fused_pe_field_bwd"]))
     spills_b = short_names(ptxas_spills(reports["fused_pe_field_bwd"]))
+    k1_names, k2_names = {}, {}
     out = {}
     with torch.no_grad():
         k1 = lambda: kf.fused_pe_nerf(x, ex, base, top, color, sem, POS_FREQS)  # noqa: E731
@@ -2965,8 +3033,9 @@ def w512_field_entries(m, dev, card, reports) -> dict:
             replaces="cropnerf_tpu/ops/pallas/fused_pe_field.py:786",
             rows=rows, rel_err=w_err, weights_l2=w_l2,
             max_abs_err=max(abs_err(a, b) for a, b in zip(got_g, ref_g)),
-            deterministic=same, passes=pass_ms(kb, 5), call_ms=cuda_ms(kb, 5),
-            plain_ms=device_ms(pb, 3), flops=2.0 * n1 * bwd_macs,
+            deterministic=same, passes=pass_ms(kb, 5, BWD_PASSES, k1_names),
+            call_ms=cuda_ms(kb, 5), plain_ms=device_ms(pb, 3),
+            flops=2.0 * n1 * bwd_macs,
             bytes=nbytes(x, ex, *cots, *wd) + nbytes(x, ex, *wd),
             registers=regs_b, spill_bytes=spills_b)
         del got_g, ref_g
@@ -2988,7 +3057,7 @@ def w512_field_entries(m, dev, card, reports) -> dict:
             bytes=nbytes(x2, *base, *top) + nbytes(got),
             registers=regs_f, spill_bytes=spills_f)
     k2b = density_bwd_entry(base, top, trunk_macs, n1, dev, card,
-                            reports["fused_pe_field_bwd"])
+                            reports["fused_pe_field_bwd"], k2_names)
     k2b["replaces"] = "cropnerf_tpu/ops/pallas/fused_pe_field.py:390"
     out["fused_pe_density_bwd"] = k2b
     for name, k in out.items():
@@ -3004,6 +3073,22 @@ def w512_field_entries(m, dev, card, reports) -> dict:
             f"({k['bound_by']}); passes {fmt_passes(k['passes'])}; registers "
             f"{k['registers']}, spill bytes {k['spill_bytes']}; {card}")
     log(f"[w512] K1/K2 dynamic shared memory per block: {smem}")
+    # the two redesigned tile kernels' clusters and weight streams
+    from cropnerf_tpu_torch.ops.cuda import pe_plan
+    meta2 = kf.pack_pe_field(3, POS_FREQS, base, top, device=dev)[2]
+    for name, mt, heads, need_dw, kn, names in (
+            ("fused_pe_nerf_bwd", meta, True, True,
+             "pe_field_bwd_tile_kernel<true, true>", k1_names),
+            ("fused_pe_density_bwd", meta2, False, False,
+             "pe_field_bwd_tile_kernel<false, true>", k2_names)):
+        k = out[name]
+        img = pe_plan.build_plan(mt, heads, False, need_dw).header[
+            pe_plan.H_IMG_ELEMS] * 2
+        k["cluster"] = cluster_report(
+            f"[w512] {name}{'' if need_dw else ' dx alone'}",
+            kf.bwd_grid(mt, heads, need_dw, n1), n1, 2, img, k["passes"],
+            k["bound_ms"], {kn: regs_b.get(kn)}, {kn: spills_b.get(kn)},
+            names, card)
     return out
 
 
@@ -3023,10 +3108,11 @@ def w512_stream_entries(dev, card, report) -> dict:
     forward at the export chunk and its dx alone at the BayesRays batch,
     K5's forward and backward with dW summed over one training step's two
     nets."""
-    k3 = {label: stream_net_entry(label, dims, nf, nb, None, dev, card)
+    k3 = {label: stream_net_entry(label, dims, nf, nb, None, dev, card,
+                                  report)
           for label, (dims, nf, nb) in W512_STREAM_K3.items()}
     k5 = {label: stream_net_entry(label, [3 * (1 + 2 * F)] + [hw] * (
-        layers - 1) + [1], n, n, F, dev, card)
+        layers - 1) + [1], n, n, F, dev, card, report)
         for label, (F, hw, layers, n) in W512_STREAM_K5.items()}
     return stream_line(k3, k5, "[w512] semantic head", list(W512_STREAM_K5),
                        "[w512]'s semantic head", "[w512]'s",

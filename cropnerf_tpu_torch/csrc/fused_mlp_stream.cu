@@ -53,8 +53,11 @@
 //    PingPong), so one's epilogue runs while the other's slabs multiply;
 //    64-row slabs, two wgmma groups in flight.  The last layer's epilogue
 //    writes the f32 rows from the accumulators.
-//  * mlp_stream_bwd_kernel, one block per 128-row tile: the forward
-//    recompute (relu masks as bits, kept in device memory per tile, so the
+//  * mlp_stream_bwd_kernel, persistent clusters of BWD_CLUSTER blocks
+//    that multicast each weight slab into every block's ring (pe_tile.cuh
+//    ClusterRing, ClusterWalk), two wgmma groups in flight up to 256 wide:
+//    per 128-row tile the forward
+//    recompute (relu masks as bits, kept in device memory per block, so the
 //    depth costs no shared memory either), the last layer's cotangent
 //    from g, then G_{l-1} = mask ⊙ G_l·W_lᵀ in place layer by layer, and
 //    layer 0's input gradient in 16..256-column products (K3: dx rows in
@@ -329,6 +332,8 @@ mlp_stream_fwd_kernel(const __grid_constant__ FwdArgs a) {
 // ---- the backward -----------------------------------------------------------------
 
 constexpr int CS_BYTES = 4 * MAX_N * 4;     // a warpgroup's bias column sums
+constexpr int BWD_DEPTH = 2;       // backward up to MAX_N wide: wgmma groups in flight
+constexpr int MIN_BWD_STAGES = 3;  // and its stages (DEPTH 2 holds three)
 
 struct BwdLayout {     // dynamic shared memory of the tile kernel, in bytes
   int wg_bytes;        // one warpgroup's region (the block's one region when wide)
@@ -337,6 +342,8 @@ struct BwdLayout {     // dynamic shared memory of the tile kernel, in bytes
   bool wide;
   RingLayout ring;
 };
+
+__host__ __device__ inline int min_bwd_stages(bool wide) { return wide ? 2 : MIN_BWD_STAGES; }
 
 __host__ __device__ inline BwdLayout bwd_layout(const int* h) {
   BwdLayout s;
@@ -348,11 +355,15 @@ __host__ __device__ inline BwdLayout bwd_layout(const int* h) {
   s.colsum = off; off += (s.wide ? 2 : 1) * CS_BYTES;
   s.wg_bytes = off;
   off = (s.wide ? 1 : 2) * s.wg_bytes;
-  // 32-row slabs, or 16 where two stages of 32 do not fit (K5 at 256
-  // encoding columns and 256 wide)
+  // a cluster ring of 64-row slabs where MIN_BWD_STAGES of them fit (fewer
+  // waits and releases a product, faster than 32-row slabs up to 256 wide;
+  // PERF.md), else 32-row slabs, or 16 where the stages the kernel needs (2
+  // wide, else MIN_BWD_STAGES) of 32 do not fit (K5 at 256 encoding columns)
   const int width = s.wide ? MAX_W : MAX_N;
-  s.ring = ring_layout(off, SLAB_K, width);
-  if (s.ring.stages < 2) s.ring = ring_layout(off, SLAB_K / 2, width);
+  s.ring = ring_layout(off, 2 * SLAB_K, width, CLUSTER_BAR_SETS);
+  if (s.ring.stages < MIN_BWD_STAGES) s.ring = ring_layout(off, SLAB_K, width, CLUSTER_BAR_SETS);
+  if (s.ring.stages < min_bwd_stages(s.wide))
+    s.ring = ring_layout(off, SLAB_K / 2, width, CLUSTER_BAR_SETS);
   s.total = s.ring.total;
   return s;
 }
@@ -366,7 +377,7 @@ struct BwdArgs {
   bf16* ws;
   uint32_t* masks;
   float* bpart;
-  long long n_rows, n_pad;
+  long long n_rows, n_pad, n_tiles;
   int h[M_HEADER];
   BwdLayout s;
 };
@@ -378,7 +389,7 @@ struct BwdTile {
   uint32_t* masks;      // the block's relu masks, a word a thread per 64 columns
   Ring rg;
   Lane ln;
-  long long row0;       // first row of the warpgroup
+  long long row0 = 0;   // first row of the warpgroup
   int slab = 0;
   int part_row = 0;     // the row of the bias partials its rows' sums go to
 
@@ -499,8 +510,8 @@ struct BwdTile {
   __device__ void run_product(const int* op) {
     float acc[N / 2];
     const int cb = col_base<N>();
-    pe::product<N, 1, AnyOrder, WIDE ? 2 * N : N>(op, smem_u32(op[O_A0] == IN ? in() : act()),
-                                                  0, rg, slab, ln.lane, acc, AnyOrder(), cb);
+    pe::product<N, WIDE ? 1 : BWD_DEPTH, AnyOrder, WIDE ? 2 * N : N>(
+        op, smem_u32(op[O_A0] == IN ? in() : act()), 0, rg, slab, ln.lane, acc, AnyOrder(), cb);
     if (op[O_KIND] == FWD) {
       forward_epilogue<N>(op, acc);
       return;
@@ -611,30 +622,46 @@ __device__ __noinline__ void pe_dx_rows(const float* __restrict__ x, const float
   }
 }
 
+// One block of a persistent cluster (pe_tile.cuh): the cluster ring, and
+// the block's tiles in ClusterWalk's order.  Up to MAX_N wide the two
+// warpgroups take a 128-row tile's halves, two wgmma groups in flight; a
+// wide program takes the halves in turn with both warpgroups on each.
+// Bias partials stay one row a tile's 64-row half (part_row), whatever
+// block takes it; relu masks are the block's.
 template <bool STORE, bool WIDE>
 __global__ void __launch_bounds__(ALL_THREADS, 1)
 mlp_stream_bwd_kernel(const __grid_constant__ BwdArgs a) {
   extern __shared__ __align__(1024) unsigned char smem[];
-  const Ring rg = make_ring(smem, a.s.ring);
-  init_ring(rg);
-  __syncthreads();
-  // a wide program takes the tile's two 64-row halves in turn
+  using Walk = ClusterWalk<BWD_CLUSTER>;
+  const ClusterRing<BWD_CLUSTER> rg = make_cluster_ring<BWD_CLUSTER>(smem, a.s.ring);
+  init_cluster_ring(rg);
+  cluster_sync();
+  const int n_ops = a.h[M_N_OPS];
   constexpr int halves = WIDE ? 2 : 1;
   split_roles(
-      [&] {                            // the producer: the weight slabs, in order
+      [&] {                            // the producer: the slabs, once a tile's half
         int slab = 0;
-        for (int i = 0; i < halves; ++i) produce_slabs(a.ops, a.h[M_N_OPS], a.img, rg, slab);
+        for (int grp = Walk::first(); grp < Walk::groups(a.n_tiles); grp += Walk::step())
+          for (int i = 0; i < halves; ++i)
+            produce_slabs_multicast(a.ops, n_ops, a.img, rg, slab, cluster_rank());
+        await_release(rg, slab);
       },
       [&] {
         const int wg = threadIdx.x >> 7;
         BwdTile<STORE, WIDE> tile{a, smem + (WIDE ? 0 : wg) * a.s.wg_bytes,
-                            a.masks + (long long)blockIdx.x * a.h[M_MASK_WORDS] * CONSUMERS,
-                            rg};
-        for (int i = 0; i < halves; ++i) {
-          const int part = WIDE ? i : wg;
-          tile.row0 = (long long)blockIdx.x * TILE_ROWS + part * ROWS;
-          tile.part_row = blockIdx.x * 2 + part;
-          if (i) tile.before_write();  // the first half's stores and dx have read the tile
+                                  a.masks + (long long)blockIdx.x * a.h[M_MASK_WORDS] * CONSUMERS,
+                                  rg.ring};
+        const int n_halves = halves * Walk::my_groups(a.n_tiles);
+        for (int h = 0; h < n_halves; ++h) {
+          const long long t = Walk::tile(Walk::first() + h / halves * Walk::step());
+          if (t >= a.n_tiles) {        // a padding tile: the slabs, nothing written
+            skip_slabs(a.ops, n_ops, tile.rg, tile.slab, tile.ln.lane);
+            continue;
+          }
+          const int part = WIDE ? h & 1 : wg;
+          tile.row0 = t * TILE_ROWS + part * ROWS;
+          tile.part_row = (int)(t * 2 + part);
+          if (h) tile.before_write();  // the last half's stores and dx have read the tile
           tile.run();
           if (a.dx != nullptr && a.h[M_DIM] > 0 && tile.rows_owner())
             pe_dx_rows(a.x, tile.genc(), a.dx, tile.row0, a.n_rows, a.h[M_DIM], a.h[M_FREQS],
@@ -654,7 +681,8 @@ struct Plan {
 static bool bwd_plan(const int* prog, int prog_len, long long n_rows, Plan* p) {
   if (!program_ok(prog, prog_len, true)) return false;
   p->h = prog;
-  if (bwd_layout(prog).ring.stages < 2) return false;
+  const BwdLayout s = bwd_layout(prog);
+  if (s.ring.stages < min_bwd_stages(s.wide)) return false;
   p->split = pebwd::dw_split(n_rows, prog[M_N_TASKS]);
   return true;
 }
@@ -707,21 +735,34 @@ extern "C" int cropnerf_mlp_stream_fwd_smem_bytes(const int* prog, int prog_len)
   return fwd_layout(prog).total;
 }
 
+// The SMs of the current device: a bound on the backward's persistent grid
+// (a block takes more than half an SM's shared memory).
+static cudaError_t device_sms(int* sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return e;
+}
+
 // Sizes of the buffers the wrapper allocates for cropnerf_mlp_stream_bwd:
-// out[0] bf16 workspace elements, out[1] uint32 relu-mask words, out[2] f32
-// bias partials (and their chunk sums), out[3] f32 weight partials (0, 0,
-// 0 for the workspace and the partials without the weight gradients),
-// out[4] packed weights, out[5] packed biases.  Returns 0, or -1 where the
-// program is rejected.
+// out[0] bf16 workspace elements, out[1] uint32 relu-mask words (a block's
+// for each SM of the current device), out[2] f32 bias partials (and their
+// chunk sums), out[3] f32 weight partials (0, 0, 0 for the workspace and
+// the partials without the weight gradients), out[4] packed weights,
+// out[5] packed biases.  Returns 0, -1 where the program is rejected, or
+// the cudaError_t of the device query.
 extern "C" int cropnerf_mlp_stream_bwd_sizes(const int* prog, int prog_len, long long n_rows,
                                              long long* out) {
   using namespace cropnerf::stream;
   Plan p;
   if (!bwd_plan(prog, prog_len, n_rows, &p)) return -1;
+  int sms = 0;
+  const cudaError_t e = device_sms(&sms);
+  if (e != cudaSuccess) return (int)e;
   const int* h = p.h;
   const bool store = h[M_STORE] != 0;
   out[0] = store ? (long long)h[M_WS_COLS] * p.split.n_pad + ROWS * 128 : 0;
-  out[1] = p.split.n_tiles * h[M_MASK_WORDS] * CONSUMERS;
+  out[1] = (long long)sms * h[M_MASK_WORDS] * CONSUMERS;
   out[2] = store ? cropnerf::pebwd::bias_partial_elems(p.split, h[M_TOTAL_B]) : 0;
   out[3] = store ? p.split.splits * (long long)h[M_TOTAL_W] : 0;
   out[4] = h[M_TOTAL_W];
@@ -738,13 +779,46 @@ extern "C" int cropnerf_mlp_stream_bwd_smem_bytes(const int* prog, int prog_len)
   return bwd_layout(p.h).total;
 }
 
+namespace cropnerf {
+namespace stream {
+
+static decltype(&mlp_stream_bwd_kernel<true, true>) bwd_kernel(bool store, bool wide) {
+  return store ? (wide ? mlp_stream_bwd_kernel<true, true> : mlp_stream_bwd_kernel<true, false>)
+               : (wide ? mlp_stream_bwd_kernel<false, true> : mlp_stream_bwd_kernel<false, false>);
+}
+
+}  // namespace stream
+}  // namespace cropnerf
+
+// The tile kernel's persistent grid at n_rows on the current device:
+// out[0] the cluster size, out[1] the clusters resident at once, out[2] the
+// blocks launched.  Returns 0, -1 where the program is rejected, or a
+// cudaError_t (cudaErrorLaunchOutOfResources where no cluster fits).
+extern "C" int cropnerf_mlp_stream_bwd_grid(const int* prog, int prog_len, long long n_rows,
+                                            long long* out) {
+  using namespace cropnerf::stream;
+  Plan p;
+  if (!bwd_plan(prog, prog_len, n_rows, &p)) return -1;
+  const BwdLayout s = bwd_layout(p.h);
+  cropnerf::pe::ClusterGrid g{0, 0, 0};
+  const int e = cluster_launch(bwd_kernel(p.h[M_STORE] != 0, s.wide),
+                               static_cast<const BwdArgs*>(nullptr), s.total, p.split.n_tiles,
+                               nullptr, &g);
+  out[0] = g.cluster;
+  out[1] = g.active;
+  out[2] = g.blocks;
+  return e;
+}
+
 // Launches the backward on `stream`; returns a cudaError_t (0 on success).
 // `prog` is the backward program on the host, `prog_dev` the same ints on
 // the device; every other pointer is on the device.  g is the cotangent
 // [n_rows, dout]; a null dx skips dx (the program then has no input-gradient
 // ops of layer 0).  masks, ws, bpart and wpart are scratch of the sizes
 // above; dw and db receive the packed f32 weight and bias gradients (the
-// layout of ops/cuda/common.py pack_layers).
+// layout of ops/cuda/common.py pack_layers).  The tile kernel runs as
+// persistent clusters (cropnerf_mlp_stream_bwd_grid); a refused cluster
+// launch returns its error, with no other grid tried.
 extern "C" int cropnerf_mlp_stream_bwd(const float* x, const float* g, float* dx, const void* img,
                                        const float* b, const int* prog, const int* prog_dev,
                                        int prog_len, long long n_rows, void* ws, void* masks,
@@ -761,6 +835,9 @@ extern "C" int cropnerf_mlp_stream_bwd(const float* x, const float* g, float* dx
   if (h[M_MASK_WORDS] > 0 && masks == nullptr) return (int)cudaErrorInvalidValue;
   if (n_rows <= 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  int sms = 0;
+  cudaError_t e = device_sms(&sms);
+  if (e != cudaSuccess) return (int)e;
 
   BwdArgs ba;
   ba.x = x;
@@ -774,18 +851,14 @@ extern "C" int cropnerf_mlp_stream_bwd(const float* x, const float* g, float* dx
   ba.bpart = bpart;
   ba.n_rows = n_rows;
   ba.n_pad = p.split.n_pad;
+  ba.n_tiles = p.split.n_tiles;
   for (int i = 0; i < M_HEADER; ++i) ba.h[i] = h[i];
   ba.s = bwd_layout(h);
-  auto kernel = store ? (ba.s.wide ? mlp_stream_bwd_kernel<true, true>
-                                   : mlp_stream_bwd_kernel<true, false>)
-                      : (ba.s.wide ? mlp_stream_bwd_kernel<false, true>
-                                   : mlp_stream_bwd_kernel<false, false>);
-  cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ba.s.total);
-  if (e != cudaSuccess) return (int)e;
-  kernel<<<(unsigned)p.split.n_tiles, ALL_THREADS, ba.s.total, s>>>(ba);
-  e = cudaGetLastError();
-  if (e != cudaSuccess || !store) return (int)e;
+  cropnerf::pe::ClusterGrid grid{0, 0, 0};
+  // the masks hold a block's words for each SM
+  const int err = cluster_launch(bwd_kernel(store, ba.s.wide), &ba, ba.s.total, ba.n_tiles, s,
+                                 &grid, sms);
+  if (err || !store) return err;
   return cropnerf::pebwd::run_dw_sums(ba.ws, prog_dev + M_HEADER + h[M_N_OPS] * OP_INTS,
                                       h[M_N_TASKS], p.split, h[M_TOTAL_W], h[M_TOTAL_B], wpart,
                                       bpart, dw, db, s);

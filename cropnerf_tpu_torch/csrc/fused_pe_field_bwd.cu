@@ -60,7 +60,12 @@
 // warpgroups on each, each with half of every product's columns (its own
 // relu-mask words and bias column sums, and its half of each workspace
 // block, by its own bulk store); the slabs are then as wide as the
-// product (32 x 512 bf16, 32 KB).
+// product (32 x 512 bf16, 32 KB).  Such a program streams ~7.7 MB of
+// weights a 64-row half, more than its operations need from L2, so its
+// blocks run as persistent clusters of BWD_CLUSTER that multicast each
+// slab into every block's ring (pe_tile.cuh ClusterRing): each weight
+// leaves L2 once a cluster, and no block starts or drains its ring but
+// once.
 #include "pe_dw.cuh"
 
 namespace cropnerf {
@@ -97,7 +102,9 @@ __host__ __device__ inline Layout tile_layout(const int* h) {
   s.wg_bytes = off;
   off = (s.wide ? 1 : 2) * s.wg_bytes;
   s.masks = off; off += al128(h[H_MASK_WORDS] * CONSUMERS * 4);
-  const RingLayout r = s.wide ? ring_layout(off, SLAB_K, MAX_W) : ring_layout(off, SLAB_K);
+  // a wide program's tile kernel takes a cluster ring
+  const RingLayout r =
+      s.wide ? ring_layout(off, SLAB_K, MAX_W, CLUSTER_BAR_SETS) : ring_layout(off, SLAB_K);
   s.bars = r.bars;
   s.ring = r.ring;
   s.stages = r.stages;
@@ -114,7 +121,7 @@ struct TileArgs {
   const int* ops;
   bf16* ws;
   float* bpart;
-  long long n_rows, n_pad;
+  long long n_rows, n_pad, n_tiles;
   int h[H_HEADER];
   Layout s;
 };
@@ -427,30 +434,39 @@ __device__ __noinline__ void dx_rows(const float* xs, const float* genc, float* 
   }
 }
 
-template <bool STORE, bool WIDE>
-__global__ void __launch_bounds__(ALL_THREADS, 1)
-pe_field_bwd_tile_kernel(const __grid_constant__ TileArgs a) {
-  extern __shared__ __align__(1024) unsigned char smem[];
-  const Ring rg = make_ring(
-      smem, RingLayout{a.s.bars, a.s.ring, a.s.stages, a.s.total, SLAB_K, a.s.stage});
-  init_ring(rg);
-  __syncthreads();
-  // a wide program takes the tile's two 64-row halves in turn
-  constexpr int halves = WIDE ? 2 : 1;
+// A wide program's block of a persistent cluster (pe_tile.cuh): the
+// cluster ring, the block's tiles in ClusterWalk's order, each tile's two
+// 64-row halves in turn with both warpgroups on each.  Bias partials stay
+// one row a tile's half (part_row), whatever block takes it.
+template <bool STORE>
+__device__ __forceinline__ void wide_tiles(const TileArgs& a, unsigned char* smem,
+                                           const RingLayout& rl) {
+  const ClusterRing<BWD_CLUSTER> rg = make_cluster_ring<BWD_CLUSTER>(smem, rl);
+  init_cluster_ring(rg);
+  cluster_sync();
+  using Walk = ClusterWalk<BWD_CLUSTER>;
+  const int n_ops = a.h[H_N_OPS];
   split_roles(
-      [&] {                            // the producer: the weight slabs, in order
+      [&] {                            // the producer: the slabs, once a tile's half
         int slab = 0;
-        for (int i = 0; i < halves; ++i) produce_slabs(a.ops, a.h[H_N_OPS], a.img, rg, slab);
+        for (int grp = Walk::first(); grp < Walk::groups(a.n_tiles); grp += Walk::step())
+          for (int i = 0; i < 2; ++i)
+            produce_slabs_multicast(a.ops, n_ops, a.img, rg, slab, cluster_rank());
+        await_release(rg, slab);
       },
       [&] {
-        const int wg = threadIdx.x >> 7;
-        Tile<STORE, WIDE> tile{a, smem + (WIDE ? 0 : wg) * a.s.wg_bytes,
-                         reinterpret_cast<uint32_t*>(smem + a.s.masks), rg};
-        for (int i = 0; i < halves; ++i) {
-          const int part = WIDE ? i : wg;
-          tile.row0 = (long long)blockIdx.x * TILE_ROWS + part * ROWS;
-          tile.part_row = blockIdx.x * 2 + part;
-          if (i) tile.before_write();  // the first half's stores and dx have read the tile
+        Tile<STORE, true> tile{a, smem, reinterpret_cast<uint32_t*>(smem + a.s.masks), rg.ring};
+        const int n_halves = 2 * Walk::my_groups(a.n_tiles);
+        for (int h = 0; h < n_halves; ++h) {
+          const long long t = Walk::tile(Walk::first() + (h >> 1) * Walk::step());
+          if (t >= a.n_tiles) {        // a padding tile: the slabs, nothing written
+            skip_slabs(a.ops, n_ops, tile.rg, tile.slab, tile.ln.lane);
+            continue;
+          }
+          const int part = h & 1;
+          tile.row0 = t * TILE_ROWS + part * ROWS;
+          tile.part_row = (int)(t * 2 + part);
+          if (h) tile.before_write();  // the last half's stores and dx have read the tile
           tile.run();
           if (a.dx != nullptr && tile.rows_owner())
             dx_rows(tile.xs(), tile.genc(), a.dx, tile.row0, a.n_rows, a.h[H_DIM],
@@ -460,12 +476,52 @@ pe_field_bwd_tile_kernel(const __grid_constant__ TileArgs a) {
       });
 }
 
+// Up to MAX_N wide, one block a 128-row tile, a warpgroup a 64-row half;
+// a wide program runs as persistent clusters (wide_tiles, launched by
+// cluster_launch).
+template <bool STORE, bool WIDE>
+__global__ void __launch_bounds__(ALL_THREADS, 1)
+pe_field_bwd_tile_kernel(const __grid_constant__ TileArgs a) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const RingLayout rl{a.s.bars, a.s.ring, a.s.stages, a.s.total, SLAB_K, a.s.stage};
+  if constexpr (WIDE) {
+    wide_tiles<STORE>(a, smem, rl);
+  } else {
+    const Ring rg = make_ring(smem, rl);
+    init_ring(rg);
+    __syncthreads();
+    split_roles(
+        [&] {                          // the producer: the weight slabs, in order
+          int slab = 0;
+          produce_slabs(a.ops, a.h[H_N_OPS], a.img, rg, slab);
+        },
+        [&] {
+          const int wg = threadIdx.x >> 7;
+          Tile<STORE, false> tile{a, smem + wg * a.s.wg_bytes,
+                                  reinterpret_cast<uint32_t*>(smem + a.s.masks), rg};
+          tile.row0 = (long long)blockIdx.x * TILE_ROWS + wg * ROWS;
+          tile.part_row = blockIdx.x * 2 + wg;
+          tile.run();
+          if (a.dx != nullptr)
+            dx_rows(tile.xs(), tile.genc(), a.dx, tile.row0, a.n_rows, a.h[H_DIM],
+                    a.h[H_FREQS], tile.ln.t);
+          if (STORE && tile.ln.t == 0) bulk_wait();
+        });
+  }
+}
+
 // The program's header, checked; the split plan of the weight-gradient
 // pass (pe_dw.cuh dw_split).
 struct Plan {
   const int* h;
   DwSplit split;
 };
+
+static decltype(&pe_field_bwd_tile_kernel<true, true>) tile_kernel(bool store, bool wide) {
+  return store ? (wide ? pe_field_bwd_tile_kernel<true, true> : pe_field_bwd_tile_kernel<true, false>)
+               : (wide ? pe_field_bwd_tile_kernel<false, true>
+                       : pe_field_bwd_tile_kernel<false, false>);
+}
 
 static bool plan(const int* prog, int prog_len, long long n_rows, Plan* p) {
   if (!program_ok(prog, prog_len, TASK_INTS)) return false;
@@ -508,12 +564,36 @@ extern "C" int cropnerf_pe_field_bwd_smem_bytes(const int* prog, int prog_len) {
   return tile_layout(p.h).total;
 }
 
+// The tile kernel's grid at n_rows on the current device: out[0] the
+// cluster size (0: one block a tile, up to MAX_N wide), out[1] the clusters
+// resident at once, out[2] the blocks launched.  Returns 0, -1 where the
+// program is rejected, or a cudaError_t (cudaErrorLaunchOutOfResources
+// where no cluster fits).
+extern "C" int cropnerf_pe_field_bwd_grid(const int* prog, int prog_len, long long n_rows,
+                                          long long* out) {
+  using namespace cropnerf::pebwd;
+  Plan p;
+  if (!plan(prog, prog_len, n_rows, &p)) return -1;
+  const Layout s = tile_layout(p.h);
+  cropnerf::pe::ClusterGrid g{0, 0, p.split.n_tiles};
+  const int e = s.wide ? cluster_launch(tile_kernel(p.h[H_STORE] != 0, true),
+                                        static_cast<const TileArgs*>(nullptr), s.total,
+                                        p.split.n_tiles, nullptr, &g)
+                       : 0;
+  out[0] = g.cluster;
+  out[1] = g.active;
+  out[2] = g.blocks;
+  return e;
+}
+
 // Launches the backward on `stream`; returns a cudaError_t (0 on success).
 // `prog` is the program on the host, `prog_dev` the same ints on the device;
 // every other pointer is on the device.  ws, bpart and wpart are scratch of
 // the sizes above; dw and db receive the packed f32 weight and bias
 // gradients.  Without the heads ex, g_rgb, g_sem and dex are not read
-// (null).  A null dx skips dx.
+// (null).  A null dx skips dx.  A wide program's tile kernel runs as
+// persistent clusters (cropnerf_pe_field_bwd_grid); a refused cluster
+// launch returns its error, with no other grid tried.
 extern "C" int cropnerf_pe_field_bwd(const float* x, const float* ex, const float* g_t,
                                      const float* g_rgb, const float* g_sem, float* dx,
                                      float* dex, const void* img, const float* b,
@@ -541,18 +621,22 @@ extern "C" int cropnerf_pe_field_bwd(const float* x, const float* ex, const floa
   ta.bpart = bpart;
   ta.n_rows = n_rows;
   ta.n_pad = p.split.n_pad;
+  ta.n_tiles = p.split.n_tiles;
   for (int i = 0; i < H_HEADER; ++i) ta.h[i] = h[i];
   ta.s = tile_layout(h);
-  auto kernel = store ? (ta.s.wide ? pe_field_bwd_tile_kernel<true, true>
-                                   : pe_field_bwd_tile_kernel<true, false>)
-                      : (ta.s.wide ? pe_field_bwd_tile_kernel<false, true>
-                                   : pe_field_bwd_tile_kernel<false, false>);
-  cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ta.s.total);
-  if (e != cudaSuccess) return (int)e;
-  kernel<<<(unsigned)p.split.n_tiles, ALL_THREADS, ta.s.total, s>>>(ta);
-  e = cudaGetLastError();
-  if (e != cudaSuccess || !store) return (int)e;
+  auto kernel = tile_kernel(store, ta.s.wide);
+  if (ta.s.wide) {
+    cropnerf::pe::ClusterGrid grid{0, 0, 0};
+    const int err = cluster_launch(kernel, &ta, ta.s.total, ta.n_tiles, s, &grid);
+    if (err || !store) return err;
+  } else {
+    cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ta.s.total);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<(unsigned)p.split.n_tiles, ALL_THREADS, ta.s.total, s>>>(ta);
+    e = cudaGetLastError();
+    if (e != cudaSuccess || !store) return (int)e;
+  }
 
   return run_dw_sums(ta.ws, prog_dev + H_HEADER + h[H_N_OPS] * OP_INTS, h[H_N_TASKS], p.split,
                      h[H_TOTAL_W], h[H_TOTAL_B], wpart, bpart, dw, db, s);

@@ -23,10 +23,18 @@
 // both warpgroups have read it (a barrier over the 256 consumer threads).
 // The kernels take the mode as a template argument (WIDE), so that a
 // program at most MAX_N wide runs none of the wide mode's code.
+//
+// The backwards that stream the whole image for every tile (the stream
+// route's, and K1's and K2's wide programs) run as persistent clusters
+// whose blocks share each slab (the cluster ring, below); the others keep
+// Ring and produce_slabs.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <mutex>
+#include <vector>
 
 #include "wgmma_layers.cuh"
 
@@ -70,15 +78,18 @@ __host__ __device__ inline long long lmin(long long a, long long b) { return a <
 
 // The slab ring's barriers and stages after `off` bytes of other shared
 // memory: slabs of slab_k weight rows up to `width` wide (MAX_N, or MAX_W
-// for a wide program), as many stages as fit, up to MAX_STAGES.
+// for a wide program), as many stages as fit, up to MAX_STAGES; `bar_sets`
+// arrays of MAX_STAGES barriers (full and empty, and a cluster ring's
+// peer barriers).
 struct RingLayout {
   int bars, ring, stages, total, slab_k, stage;
 };
 
-__host__ __device__ inline RingLayout ring_layout(int off, int slab_k, int width = MAX_N) {
+__host__ __device__ inline RingLayout ring_layout(int off, int slab_k, int width = MAX_N,
+                                                  int bar_sets = 2) {
   RingLayout r;
   r.bars = off;
-  r.ring = al128(off + 2 * MAX_STAGES * 8);
+  r.ring = al128(off + bar_sets * MAX_STAGES * 8);
   r.stage = slab_k * width * 2;
   r.stages = (int)lmin(MAX_STAGES, (SMEM_LIMIT - r.ring) / r.stage);
   r.total = r.ring + r.stages * r.stage;
@@ -194,6 +205,218 @@ __device__ __forceinline__ void split_roles(Producer&& produce, Consumer&& consu
   }
   setmaxnreg_inc<CONSUMER_REGS>();
   consume();
+}
+
+// ---- the cluster ring: persistent clusters that share the weight stream ----------
+//
+// The backwards' tile kernels (the stream route's, and K1's and K2's wide
+// programs) run as persistent clusters of BWD_CLUSTER blocks on
+// neighbouring SMs.  Every block of a cluster runs the same slabs in the
+// same order, and its producer copies its 1/BWD_CLUSTER share of each slab
+// into the same stage of every block's ring at once (a multicast bulk
+// copy), so each weight leaves L2 once a cluster rather than once a block.
+// A block's `full` barrier expects the whole slab (every block's share
+// completes on it).  The consumers release a stage on their block's
+// `empty` barrier as with Ring (the same product code); the producer, once
+// its block's consumers are done with a stage, relays that to every block
+// of the cluster (a remote arrive on its `peer` barrier, BWD_CLUSTER
+// arrivals a phase) and refills the stage only when its own `peer` barrier
+// says every block is done, since its copy writes into all of them.
+// Clusters of two: clusters of four ran slower on the H100 (PERF.md).
+constexpr int BWD_CLUSTER = 2;
+constexpr int CLUSTER_BAR_SETS = 3;    // full, empty and peer barriers
+
+template <int C>
+struct ClusterRing {
+  Ring ring;           // what the consumers take (full and empty barriers)
+  uint64_t* peer;      // every block of the cluster is done with the stage
+};
+
+// A ring laid out by ring_layout(..., CLUSTER_BAR_SETS): the peer barriers
+// follow the empty ones.
+template <int C>
+__device__ __forceinline__ ClusterRing<C> make_cluster_ring(unsigned char* smem,
+                                                            const RingLayout& r) {
+  const Ring ring = make_ring(smem, r);
+  return ClusterRing<C>{ring, ring.empty + MAX_STAGES};
+}
+
+// One thread initialises the barriers; a cluster barrier must follow
+// before any copy or arrive.
+template <int C>
+__device__ __forceinline__ void init_cluster_ring(const ClusterRing<C>& rg) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < rg.ring.stages; ++i) {
+      mbar_init(&rg.ring.full[i], 1);
+      mbar_init(&rg.ring.empty[i], CONSUMERS / 32);
+      mbar_init(&rg.peer[i], C);
+    }
+    mbar_fence_init();
+  }
+}
+
+// Before slab `slab` goes into its stage: the stage's last use released by
+// every block of the cluster (this block's consumers, relayed to the
+// others; then the others' relays).  A stage's first use waits for nothing.
+template <int C>
+__device__ __forceinline__ void await_stage(const ClusterRing<C>& rg, int slab) {
+  const int S = rg.ring.stages, stage = slab % S;
+  if (slab < S) return;
+  const uint32_t parity = ((slab / S) & 1) ^ 1;
+  mbar_wait(&rg.ring.empty[stage], parity);
+#pragma unroll
+  for (int c = 0; c < C; ++c) mbar_arrive_cluster(&rg.peer[stage], c);
+  mbar_wait(&rg.peer[stage], parity);
+}
+
+// produce_slabs for a cluster ring: block `rank`'s share of every slab,
+// into every block of the cluster.  A slab is a multiple of 512 bytes, so
+// each share is a multiple of 16.
+template <int C>
+__device__ __forceinline__ void produce_slabs_multicast(const int* ops, int n_ops,
+                                                        const bf16* img, const ClusterRing<C>& rg,
+                                                        int& slab, uint32_t rank) {
+  const Ring& r = rg.ring;
+  const int S = r.stages, SK = r.slab_k;
+  for (int o = 0; o < n_ops; ++o) {
+    const int* op = ops + o * OP_INTS;
+    const int kind = __ldg(op + O_KIND);
+    if (kind != FWD && kind != BWD) continue;
+    const int N = __ldg(op + O_N), K = __ldg(op + O_K);
+    const unsigned char* src = reinterpret_cast<const unsigned char*>(img + __ldg(op + O_IMG));
+    for (int k0 = 0; k0 < K; k0 += SK, ++slab) {
+      const int stage = slab % S;
+      await_stage(rg, slab);
+      const uint32_t bytes = (uint32_t)(min(SK, K - k0) * N * 2), share = bytes / C;
+      mbar_expect_tx(&r.full[stage], bytes);
+      bulk_load_multicast(r.base + stage * r.stage + rank * share,
+                          src + (long long)k0 * N * 2 + rank * share, share, &r.full[stage],
+                          (uint16_t)((1u << C) - 1));
+    }
+  }
+}
+
+// The producer's last step: every stage released by the whole cluster, as
+// if `slab` and the stages' next slabs followed, so that no peer arrives
+// on this block's barriers after it has exited.  `slab` counts the slabs
+// produced.
+template <int C>
+__device__ __forceinline__ void await_release(const ClusterRing<C>& rg, int slab) {
+  for (int i = slab; i < slab + rg.ring.stages; ++i) await_stage(rg, i);
+}
+
+// A padding tile's part of the ring protocol: each of the program's slabs
+// taken and released without a product (the calling warp's lane `lane`).
+__device__ __forceinline__ void skip_slabs(const int* ops, int n_ops, const Ring& rg, int& slab,
+                                           int lane) {
+  const int S = rg.stages, SK = rg.slab_k;
+  for (int o = 0; o < n_ops; ++o) {
+    const int* op = ops + o * OP_INTS;
+    const int kind = __ldg(op + O_KIND);
+    if (kind != FWD && kind != BWD) continue;
+    const int n_slabs = (__ldg(op + O_K) + SK - 1) / SK;
+    for (int s = 0; s < n_slabs; ++s, ++slab) {
+      mbar_wait(&rg.full[slab % S], (slab / S) & 1);
+      if (lane == 0) mbar_arrive(&rg.empty[slab % S]);
+    }
+  }
+}
+
+// The tiles of a block of a persistent cluster of C blocks: the cluster
+// takes groups of C consecutive tiles, from its index in steps of the
+// count of clusters, and its block of rank r tile C·group + r of each.
+// Where n_tiles is not a multiple of C the last group's tiles past n_tiles
+// are padding tiles: their blocks take the slabs (skip_slabs) and write
+// nothing.  A block's real tiles come before its padding tiles.  The walk
+// keeps no state: it reads the cluster's special registers where it needs
+// them.  The consumers run one loop over their halves, the tile recomputed
+// from the loop's counter, with one call site of the program: a loop of
+// tiles around a loop of halves holds more registers over the products,
+// and the wide programs then spill.
+template <int C>
+struct ClusterWalk {
+  __device__ static int groups(long long n_tiles) { return (int)((n_tiles + C - 1) / C); }
+  __device__ static int first() { return (int)cluster_index(); }
+  __device__ static int step() { return (int)cluster_count(); }
+  __device__ static int tile(int group) { return group * C + (int)cluster_rank(); }
+  // How many groups the block takes (at least one: the grid has no more
+  // clusters than groups).
+  __device__ static int my_groups(long long n_tiles) {
+    return (groups(n_tiles) - first() + step() - 1) / step();
+  }
+};
+
+// The persistent grid of a cluster kernel (host): as many clusters of
+// BWD_CLUSTER blocks as are resident at once (cudaOccupancyMaxActiveClusters),
+// at most one a group of tiles.
+struct ClusterGrid {
+  int cluster, active;
+  long long blocks;
+};
+
+// cudaOccupancyMaxActiveClusters for `cfg`, asked once a (device, kernel,
+// shared memory) and then remembered: a training step launches the
+// backwards dozens of times at the same few sizes.
+inline cudaError_t active_clusters(const void* kernel, const cudaLaunchConfig_t& cfg,
+                                   int* active) {
+  struct Entry {
+    int device;
+    const void* kernel;
+    size_t smem;
+    int active;
+  };
+  static std::mutex mu;
+  static std::vector<Entry> seen;
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Entry& s : seen)
+    if (s.device == device && s.kernel == kernel && s.smem == cfg.dynamicSmemBytes) {
+      *active = s.active;
+      return cudaSuccess;
+    }
+  e = cudaOccupancyMaxActiveClusters(active, kernel, &cfg);
+  if (e == cudaSuccess) seen.push_back(Entry{device, kernel, cfg.dynamicSmemBytes, *active});
+  return e;
+}
+
+// Sets the kernel's shared memory, sizes its grid into *grid and, unless
+// args is null, launches it as clusters on `stream`.  Returns a cudaError_t:
+// cudaErrorLaunchOutOfResources where no cluster fits the card,
+// cudaErrorInvalidConfiguration for a grid over `max_blocks` (0: no
+// bound); there is no fallback to a grid without clusters.
+template <class Args>
+inline int cluster_launch(void (*kernel)(Args), const Args* args, int smem, long long n_tiles,
+                          cudaStream_t stream, ClusterGrid* grid, long long max_blocks = 0) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = BWD_CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(BWD_CLUSTER);
+  cfg.blockDim = dim3(ALL_THREADS);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int active = 0;
+  e = active_clusters((const void*)kernel, cfg, &active);
+  if (e != cudaSuccess) return (int)e;
+  const long long groups = (n_tiles + BWD_CLUSTER - 1) / BWD_CLUSTER;
+  grid->cluster = BWD_CLUSTER;
+  grid->active = active;
+  grid->blocks = lmin(active, groups) * BWD_CLUSTER;
+  if (active < 1) return (int)cudaErrorLaunchOutOfResources;
+  if (max_blocks > 0 && grid->blocks > max_blocks) return (int)cudaErrorInvalidConfiguration;
+  if (args == nullptr || n_tiles < 1) return 0;
+  cfg.gridDim = dim3((unsigned)grid->blocks);
+  e = cudaLaunchKernelEx(&cfg, kernel, *args);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 // ---- the product ---------------------------------------------------------------

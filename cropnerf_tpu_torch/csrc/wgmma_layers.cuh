@@ -319,4 +319,56 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// ---- thread-block clusters -------------------------------------------------
+
+// The calling block's rank in its cluster, its cluster's index in the grid
+// (x) and the count of clusters (x).
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_index() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_count() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;\n" : "=r"(r));
+  return r;
+}
+// Barrier over every thread of the cluster: shared-memory writes before it
+// (such as barrier initialisation) are visible to the peers after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// Arrives on the mbarrier at `bar`'s offset in the shared memory of block
+// `cta` of the cluster (the calling block's own too).  The default
+// semantics (release at CTA scope): what the arrive hands over is a stage
+// whose asynchronous reads (wgmma) the caller has waited for, so no
+// cluster-wide fence is needed, and one would stall the warp on every
+// stage.
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(smem_u32(bar)),
+      "r"(cta)
+      : "memory");
+}
+// bulk_load into the same offset `dst` of the shared memory of every block
+// of the cluster in `mask`, each completing on the barrier at `bar`'s offset
+// in its own shared memory.
+__device__ __forceinline__ void bulk_load_multicast(void* dst, const void* src, uint32_t bytes,
+                                                    uint64_t* bar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
+      "[%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar)), "h"(mask)
+      : "memory");
+}
+
 }  // namespace cropnerf

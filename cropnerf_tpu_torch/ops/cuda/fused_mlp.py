@@ -290,14 +290,40 @@ def _stream_lib():
     prog = [ctypes.POINTER(ctypes.c_int), vp, i32, i64]
     lib.cropnerf_mlp_stream_fwd.argtypes = [vp] * 4 + prog + [vp]
     lib.cropnerf_mlp_stream_bwd.argtypes = [vp] * 5 + prog + [vp] * 7
-    lib.cropnerf_mlp_stream_bwd_sizes.argtypes = prog[:1] + [
-        i32, i64, ctypes.POINTER(ctypes.c_longlong)]
+    for f in ("bwd_sizes", "bwd_grid"):
+        getattr(lib, f"cropnerf_mlp_stream_{f}").argtypes = prog[:1] + [
+            i32, i64, ctypes.POINTER(ctypes.c_longlong)]
     for f in ("fwd", "bwd"):
         getattr(lib, f"cropnerf_mlp_stream_{f}_smem_bytes").argtypes = [
             ctypes.POINTER(ctypes.c_int), i32]
-    for f in ("fwd", "bwd", "bwd_sizes", "fwd_smem_bytes", "bwd_smem_bytes"):
+    for f in ("fwd", "bwd", "bwd_sizes", "bwd_grid", "fwd_smem_bytes",
+              "bwd_smem_bytes"):
         getattr(lib, f"cropnerf_mlp_stream_{f}").restype = ctypes.c_int
     return lib
+
+
+def stream_bwd_grid(key: tuple, n_rows: int) -> dict:
+    """The persistent grid of the stream backward's tile kernel for the
+    program ``key`` at ``n_rows`` rows on the current card: the cluster
+    size, the clusters resident at once, the blocks launched, and the C
+    function's return (0, or the cudaError that refuses the launch)."""
+    prog = stream_plan(key).ints()
+    out = (ctypes.c_longlong * 3)()
+    err = _stream_lib().cropnerf_mlp_stream_bwd_grid(c_ints(prog), len(prog),
+                                                    n_rows, out)
+    if err == -1:
+        raise ValueError("the stream kernel rejects this net")
+    return dict(cluster=out[0], active_clusters=out[1], blocks=out[2],
+                error=err)
+
+
+def cluster_refusal(name: str, err: int, grid: dict, smem: int) -> str:
+    """The message of a refused cluster launch: the error, the cluster
+    size, the clusters that fit and a block's shared memory."""
+    return (f"{name}: the cluster launch was refused (cudaError {err}): "
+            f"clusters of {grid['cluster']} blocks of {smem} B of shared "
+            f"memory, {grid['active_clusters']} resident at once, "
+            f"{grid['blocks']} blocks; the kernel has no other grid")
 
 
 @functools.lru_cache(maxsize=64)
@@ -359,8 +385,11 @@ def stream_backward(name, x, wbs, g, need_dx, need_dw, num_freqs: int = -1):
     prog, prog_dev = _stream_program(key, device)
     lib = _stream_lib()
     sizes = (ctypes.c_longlong * 6)()
-    if lib.cropnerf_mlp_stream_bwd_sizes(c_ints(prog), len(prog), n, sizes):
+    rc = lib.cropnerf_mlp_stream_bwd_sizes(c_ints(prog), len(prog), n, sizes)
+    if rc == -1:
         raise ValueError(f"{name}: the stream kernel rejects this net")
+    if rc:
+        raise RuntimeError(f"{name}: the device query failed: cudaError {rc}")
     ws_n, mask_n, bpart_n, wpart_n, total_w, total_b = list(sizes)
     f32 = dict(dtype=torch.float32, device=device)
     dx = torch.empty_like(x) if need_dx else None
@@ -383,6 +412,10 @@ def stream_backward(name, x, wbs, g, need_dx, need_dw, num_freqs: int = -1):
                 n, ptr(ws), ptr(masks), ptr(bpart), ptr(wpart), ptr(dw),
                 ptr(db), stream_ptr(device))
         if err:
+            grid = stream_bwd_grid(key, n)
+            if grid["error"]:
+                raise RuntimeError(cluster_refusal(
+                    name, err, grid, stream_smem_bytes(key, True)))
             raise RuntimeError(f"{name} kernel launch failed: cudaError "
                                f"{err}")
     return dx, (unpack_stream_grads(wbs, dw, db) if need_dw else None)

@@ -71,9 +71,9 @@ import torch
 
 from ..mlp import mm_f32acc
 from . import build
-from .fused_mlp import (_least_bwd_smem, fused_mlp_plain, mlp_hidden_pad,
-                        mlp_images, stream_backward, stream_forward,
-                        wgmma_backward, wgmma_forward)
+from .fused_mlp import (_least_bwd_smem, cluster_refusal, fused_mlp_plain,
+                        mlp_hidden_pad, mlp_images, stream_backward,
+                        stream_forward, wgmma_backward, wgmma_forward)
 from .mlp_plan import (MAX_FREQS, MAX_LAYERS, MAX_PE_IN, stream_takes)
 from .pe_plan import build_forward_plan, build_plan, image_index, weight_image
 from .common import (MAX_SMEM_BYTES, MAX_WIDTH, PE_DIM, PE_ENC, WGMMA_HIDDEN,
@@ -197,10 +197,11 @@ def _bwd_lib():
         ctypes.POINTER(ctypes.c_int), ctypes.c_void_p, ctypes.c_int,
         ctypes.c_longlong] + [ctypes.c_void_p] * 6
     lib.cropnerf_pe_field_bwd.restype = ctypes.c_int
-    lib.cropnerf_pe_field_bwd_sizes.argtypes = [
-        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_longlong,
-        ctypes.POINTER(ctypes.c_longlong)]
-    lib.cropnerf_pe_field_bwd_sizes.restype = ctypes.c_int
+    for f in ("sizes", "grid"):
+        getattr(lib, f"cropnerf_pe_field_bwd_{f}").argtypes = [
+            ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_longlong,
+            ctypes.POINTER(ctypes.c_longlong)]
+        getattr(lib, f"cropnerf_pe_field_bwd_{f}").restype = ctypes.c_int
     lib.cropnerf_pe_field_bwd_smem_bytes.argtypes = [
         ctypes.POINTER(ctypes.c_int), ctypes.c_int]
     lib.cropnerf_pe_field_bwd_smem_bytes.restype = ctypes.c_int
@@ -391,6 +392,22 @@ def bwd_smem_bytes(meta, heads: bool = True) -> int:
     return _bwd_lib().cropnerf_pe_field_bwd_smem_bytes(c_ints(prog), len(prog))
 
 
+def bwd_grid(meta, heads: bool, need_dw: bool, n_rows: int) -> dict:
+    """The grid of the backward's tile kernel (dx with the weight
+    gradients, or dx alone) at ``n_rows`` rows on the current card: the
+    cluster size (0 up to 256 wide: one block a tile), the clusters resident
+    at once, the blocks launched, and the C function's return (0, or the
+    cudaError that refuses the launch)."""
+    prog = build_plan(meta, heads, False, need_dw).ints()
+    out = (ctypes.c_longlong * 3)()
+    err = _bwd_lib().cropnerf_pe_field_bwd_grid(c_ints(prog), len(prog),
+                                                n_rows, out)
+    if err == -1:
+        raise ValueError("the kernel rejects this layout")
+    return dict(cluster=out[0], active_clusters=out[1], blocks=out[2],
+                error=err)
+
+
 def _bwd_launch(name, x, extras, cots, dx, dex, wbuf, bbuf, meta, heads,
                 pass_sem, need_dw, device):
     """One launch of the backward kernel (pe_plan.py plans it): the
@@ -432,6 +449,9 @@ def _bwd_launch(name, x, extras, cots, dx, dex, wbuf, bbuf, meta, heads,
                 prog_dev.data_ptr(), len(prog), n, ptr(ws), *ptrs,
                 stream_ptr(device))
         if err:
+            grid = bwd_grid(meta, heads, need_dw, n)
+            if grid["error"]:
+                raise RuntimeError(cluster_refusal(name, err, grid, smem))
             raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     return (dw, db) if need_dw else None
 

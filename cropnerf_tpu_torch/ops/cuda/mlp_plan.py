@@ -34,11 +34,12 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-from .common import MAX_SMEM_BYTES, pad16
-from .pe_plan import (BWD, EMIT, FWD, MAX_N, MAX_W, O_A0, O_A1, O_BOFF,
-                      O_COL, O_EPI, O_IMG, O_K, O_KA, O_KIND, O_MASK, O_N,
-                      O_NVALID, O_WS, OP_INTS, Plan, core_k_major, dw_tasks,
-                      mask_words, pow2_chunks, pow2_width, wide_program)
+from .common import pad16
+from .pe_plan import (BWD, CLUSTER_BAR_SETS, EMIT, FWD, MAX_N, MAX_W, O_A0,
+                      O_A1, O_BOFF, O_COL, O_EPI, O_IMG, O_K, O_KA, O_KIND,
+                      O_MASK, O_N, O_NVALID, O_WS, OP_INTS, Plan, al128,
+                      core_k_major, dw_tasks, mask_words, pow2_chunks,
+                      pow2_width, ring_stages, wide_program)
 
 MAX_LAYERS = 32          # the deepest net the stream route takes
 MAX_FREQS = 30
@@ -55,9 +56,10 @@ RELU, Y_OUT = range(2)
 G_MASKED, DX, GENC = range(3)
 
 # shared-memory layout constants of the kernels (csrc/pe_tile.cuh): rows
-# of a tile, ring stages at most, slab rows of the forward (32 when wide)
-# and of the backward, ring stages the forward needs (2 when wide)
-ROWS, MAX_STAGES, FWD_SLAB, BWD_SLAB, MIN_FWD_STAGES = 64, 8, 64, 32, 3
+# of a tile, slab rows of the forward (32 when wide) and of the backward,
+# ring stages the forward needs (2 when wide) and the backward up to MAX_N
+# wide (two wgmma groups in flight)
+ROWS, FWD_SLAB, BWD_SLAB, MIN_FWD_STAGES, MIN_BWD_STAGES = 64, 64, 32, 3, 3
 
 
 def stream_takes(din: int, widths: Sequence[int], dim: int = 0,
@@ -202,38 +204,32 @@ def build_stream_plan(din: int, widths: Sequence[int], dim: int = 0,
     return Plan(h, net.ops, tasks, net.images, slots)
 
 
-def _al128(b: int) -> int:
-    return (b + 127) // 128 * 128
-
-
-def _ring_stages(off: int, slab_k: int, width: int = MAX_N) -> Tuple[int, int]:
-    """csrc/pe_tile.cuh ring_layout: (stages, total bytes)."""
-    ring = _al128(off + 2 * MAX_STAGES * 8)
-    stage = slab_k * width * 2
-    stages = min(MAX_STAGES, (MAX_SMEM_BYTES - ring) // stage)
-    return stages, ring + stages * stage
-
-
 def stream_smem(h: Sequence[int], backward: bool) -> Tuple[int, int]:
     """(dynamic shared memory a block takes, ring stages) of a program
     with header ``h``: csrc/fused_mlp_stream.cu fwd_layout / bwd_layout.
     A wide program keeps one region for the block, not one a warpgroup,
-    and slabs of 32 rows as wide as ``MAX_W``."""
+    and slabs of 32 rows as wide as ``MAX_W``; the backward's ring is a
+    cluster ring (``CLUSTER_BAR_SETS`` barrier arrays) of 64-row slabs
+    where ``MIN_BWD_STAGES`` of them fit, else of 32-row slabs, or 16 where
+    the stages it needs (``MIN_BWD_STAGES`` up to ``MAX_N`` wide, 2 wide)
+    of 32 do not fit."""
     wide = stream_wide(h)
     copies, width = (1, MAX_W) if wide else (2, MAX_N)
-    in_bytes = _al128(ROWS * h[M_IN_PAD] * 2)
-    act = _al128(ROWS * h[M_ACT_W] * 2)
+    in_bytes = al128(ROWS * h[M_IN_PAD] * 2)
+    act = al128(ROWS * h[M_ACT_W] * 2)
     if not backward:
-        stages, total = _ring_stages(copies * (in_bytes + act) + 16,
+        stages, total = ring_stages(copies * (in_bytes + act) + 16,
                                      BWD_SLAB if wide else FWD_SLAB, width)
         return total, stages
-    region = (max(in_bytes, _al128(ROWS * h[M_IN_PAD] * 4)) if h[M_DIM]
+    region = (max(in_bytes, al128(ROWS * h[M_IN_PAD] * 4)) if h[M_DIM]
               else in_bytes)
     off = copies * (region + act) + 2 * 4 * MAX_N * 4    # and the column sums
-    stages, total = _ring_stages(off, BWD_SLAB, width)
-    if stages < 2:
-        stages, total = _ring_stages(off, BWD_SLAB // 2, width)
-    return total, stages
+    for slab, least in ((2 * BWD_SLAB, MIN_BWD_STAGES),
+                        (BWD_SLAB, 2 if wide else MIN_BWD_STAGES),
+                        (BWD_SLAB // 2, 0)):
+        stages, total = ring_stages(off, slab, width, CLUSTER_BAR_SETS)
+        if stages >= least:
+            return total, stages
 
 
 @functools.lru_cache(maxsize=None)

@@ -46,6 +46,8 @@ from typing import List
 
 import torch
 
+from .common import MAX_SMEM_BYTES
+
 TILE = 128               # rows per tile (two warpgroups of 64)
 BLOCK = 64               # rows per warpgroup and per workspace block
 DW_M = 128               # weight rows per weight-gradient task (2 x 64)
@@ -432,3 +434,75 @@ def dw_splits(n_rows: int, n_tasks: int) -> int:
     want = max(1, -(-SPLIT_TARGET // max(n_tasks, 1)))
     per = max(1, -(-blocks // want))
     return -(-blocks // per), per
+
+
+# ---- the backwards' persistent clusters (csrc/pe_tile.cuh) -----------------
+
+CLUSTER_BAR_SETS = 3     # a cluster ring's barrier arrays: full, empty, peer
+RING_STAGES, SLAB_K = 8, 32   # ring stages at most, the backward's slab rows
+
+
+def cluster_walk(n_tiles: int, cluster: int, n_clusters: int
+                 ) -> List[List[int]]:
+    """``ClusterWalk``: the tiles each block of a persistent grid of
+    ``n_clusters`` clusters of ``cluster`` blocks takes, in order (block
+    ``cluster * k + r`` is rank r of cluster k).  The cluster takes groups
+    of ``cluster`` consecutive tiles, from its index in steps of
+    ``n_clusters``; its rank-r block tile ``cluster * group + r`` of each.
+    A tile from ``n_tiles`` on is a padding tile: its block takes the
+    slabs and writes nothing."""
+    groups = -(-n_tiles // cluster)
+    return [[g * cluster + r for g in range(k, groups, n_clusters)]
+            for k in range(n_clusters) for r in range(cluster)]
+
+
+def cluster_blocks(n_tiles: int, cluster: int, active: int) -> int:
+    """``cluster_launch``'s grid: ``active`` clusters resident at once,
+    at most one a group of tiles."""
+    return min(active, -(-n_tiles // cluster)) * cluster
+
+
+def tile_writes(tile: int, n_tiles: int) -> dict:
+    """What a backward tile kernel writes for ``tile``: its two 64-row
+    halves' bias-partial rows (``part_row``), workspace blocks (a slot's
+    64-row block ``row0 / 64``) and the rows of dx; nothing for a padding
+    tile."""
+    if tile >= n_tiles:
+        return dict(part_rows=[], ws_blocks=[], rows=range(0))
+    return dict(part_rows=[2 * tile, 2 * tile + 1],
+                ws_blocks=[2 * tile, 2 * tile + 1],
+                rows=range(tile * TILE, (tile + 1) * TILE))
+
+
+def al128(b: int) -> int:
+    return (b + 127) // 128 * 128
+
+
+def ring_stages(off: int, slab_k: int, width: int = MAX_N, bar_sets: int = 2
+                ) -> tuple:
+    """csrc/pe_tile.cuh ``ring_layout``: (stages, total bytes) of the slab
+    ring after ``off`` bytes and ``bar_sets`` barrier arrays, slabs of
+    ``slab_k`` rows ``width`` wide."""
+    ring = al128(off + bar_sets * RING_STAGES * 8)
+    stage = slab_k * width * 2
+    stages = min(RING_STAGES, (MAX_SMEM_BYTES - ring) // stage)
+    return stages, ring + stages * stage
+
+
+def bwd_tile_smem(h) -> tuple:
+    """(dynamic shared memory, ring stages) of the backward's tile kernel
+    for the program with header ``h``: ``fused_pe_field_bwd.cu``
+    ``tile_layout``.  A wide program keeps one region for the block,
+    slabs as wide as ``MAX_W`` and a cluster ring (its peer barriers after
+    the full and empty ones)."""
+    wide = h[H_ACT_W] > MAX_N
+    u = al128(BLOCK * h[H_DIM] * 4)
+    off = (u + al128(BLOCK * h[H_ENC_PAD] * 2) + al128(BLOCK * h[H_TB_W] * 2)
+           + al128(BLOCK * h[H_TB_W] * 4))
+    off = max(off, u + al128(BLOCK * h[H_ENC_PAD] * 4))
+    off += al128(BLOCK * h[H_ACT_W] * 2) + (2 if wide else 1) * 4 * MAX_N * 4
+    off = (1 if wide else 2) * off
+    off += al128(h[H_MASK_WORDS] * 2 * 128 * 4)
+    stages, total = ring_stages(off, SLAB_K, MAX_W if wide else MAX_N,
+                                CLUSTER_BAR_SETS if wide else 2)
+    return total, stages

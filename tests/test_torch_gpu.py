@@ -1248,7 +1248,9 @@ K5_STREAM_GPU_CASES = {"prop256-net0": (5, 3, [256, 256, 1], 1_048_576),
                        "w512-net0": (5, 3, [512, 512, 1], 1_048_576),
                        "w512-net1": (6, 3, [512, 512, 1], 393_216),
                        "w512-ragged": (5, 3, [512, 512, 1], 65_536 - 77),
-                       "w512-one-row": (6, 3, [512, 512, 1], 1)}
+                       "w512-one-row": (6, 3, [512, 512, 1], 1),
+                       "prop256-three-tiles": (5, 3, [256, 256, 1], 300),
+                       "w512-three-tiles": (5, 3, [512, 512, 1], 300)}
 
 
 @pytest.mark.parametrize("case", list(K5_STREAM_GPU_CASES))
@@ -1305,6 +1307,9 @@ def test_stream_layouts_are_the_planned_ones(cuda):
             (512, [512] * 32, 0, 0), (244, [512] * 32, 4, 30),
             (33, [512, 512, 1], 3, 5), (15, [512, 1], 0, 0),
             (512, [16, 1], 0, 0)]
+    # and every stream net of the backward's route table
+    nets += [(dim * (1 + 2 * F), widths, dim, F)
+             for F, dim, widths, _ in K5_STREAM_GPU_CASES.values()]
     for din, widths, dim, F in nets:
         for backward in (False, True):
             for need_dx, need_dw in ((True, True), (True, False),
@@ -1315,6 +1320,51 @@ def test_stream_layouts_are_the_planned_ones(cuda):
                                             backward)[0]
                 got = kmlp.stream_smem_bytes(key, backward)
                 assert got == want and 0 < got <= 232_448, (din, widths, got)
+
+
+def test_backward_tile_kernels_run_as_clusters(cuda):
+    """The stream route's backward tile kernel, at every net of its route
+    table, and K1's and K2's at [w512]'s widths run as persistent clusters
+    (csrc/pe_tile.cuh cluster_launch): clusters of the build's size (2 or
+    4), at least one resident, the grid pe_plan.cluster_blocks sizes, no
+    more blocks than SMs; K1 and K2 up to 256 wide keep one block a tile.
+    The C layout of K1's and K2's tile kernel is pe_plan.bwd_tile_smem's."""
+    from cropnerf_tpu_torch.ops.cuda import mlp_plan
+    from cropnerf_tpu_torch.ops.cuda import pe_plan
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    sizes = set()
+
+    def held(grid, n, wide=True):
+        tiles = -(-n // 128)
+        if not wide:
+            assert grid == dict(cluster=0, active_clusters=0, blocks=tiles,
+                                error=0), grid
+            return
+        c, k = grid["cluster"], grid["active_clusters"]
+        assert grid["error"] == 0 and c == 2 and k >= 1, grid
+        assert grid["blocks"] == pe_plan.cluster_blocks(tiles, c, k) <= sms
+        sizes.add(c)
+
+    for F, dim, widths, n in K5_STREAM_GPU_CASES.values():
+        for need_dx, need_dw in ((True, True), (True, False), (False, True)):
+            key = mlp_plan.program_key(dim * (1 + 2 * F), widths, dim, F,
+                                       True, need_dx, need_dw)
+            held(kmlp.stream_bwd_grid(key, n), n)
+    for hidden, hs, wide in ((256, 64, False), (512, 512, True)):
+        cfg, params = _field(cuda, hidden_dim=hidden, hidden_dim_semantics=hs)
+        base, top, color, sem = [[w.detach() for w in grp] for grp in
+                                 fused_field_weights(params.field, cfg.field)]
+        for heads in (True, False):
+            grp = (base, top, color, sem) if heads else (base, top)
+            de = {"de": color[1].shape[0]} if heads else {}
+            _, _, meta = kfield.pack_pe_field(3, POS_FREQS, *grp, **de)
+            plan = pe_plan.build_plan(meta, heads, False, True)
+            assert kfield.bwd_smem_bytes(meta, heads) == \
+                pe_plan.bwd_tile_smem(plan.header)[0]
+            for need_dw in ((True,) if heads else (True, False)):
+                for n in (1, 300, 196_608):
+                    held(kfield.bwd_grid(meta, heads, need_dw, n), n, wide)
+    assert len(sizes) == 1, sizes
 
 
 @torch.no_grad()
@@ -1669,7 +1719,7 @@ def test_projection_row_segments_match_one_dispatch(cuda, preset):
 # of a 64-row tile (the wide forward's) and of a 128-row tile (the
 # backward's, whose halves a wide block takes in turn), an export chunk and
 # a training step's field samples (4096 rays x 48).
-W512_N = [1, 63, 65, 129, 65_536 - 45, 196_608]
+W512_N = [1, 63, 65, 129, 300, 65_536 - 45, 196_608]
 
 
 def _w512_field(cuda):

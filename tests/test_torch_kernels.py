@@ -727,6 +727,34 @@ def test_backward_kernel_model_matches_jax(case, heads, arm):
         assert model <= plain + 1e-2, (i, model, plain)
 
 
+# the tile kernel's dynamic shared memory at [w512]'s programs, as the C
+# layout function reports it on the card (PERF.md §6, the 512-wide K1 and
+# K2 backward rows): the layout before the cluster ring plus its third
+# barrier array (8 barriers, which moves the 128-byte-aligned ring by 128
+# bytes); K1 with the heads, K2 the trunk alone (the same with and without
+# dW)
+W512_BWD_SMEM = {True: 223_104 + 128, False: 217_984 + 128}
+
+
+@pytest.mark.parametrize("heads", [True, False], ids=["K1", "K2"])
+def test_w512_bwd_tile_layout_mirror(heads):
+    """``pe_plan.bwd_tile_smem`` (the mirror of fused_pe_field_bwd.cu's
+    ``tile_layout``) at [w512]'s K1 and K2 backward programs: the bytes the
+    C function reported with a cluster ring's barriers, three 32 KB stages
+    of 512-wide slabs, over half an SM's shared memory (a block an SM, so a
+    cluster of two takes two SMs); the flagship's (256 wide, no cluster
+    ring) fits too."""
+    from cropnerf_tpu_torch.ops.cuda import pe_plan as P
+    _, _, meta = _bwd_meta(BWD_CASES[2], heads)
+    for need_dw in ((True,) if heads else (True, False)):
+        plan = P.build_plan(meta, heads, True, need_dw)
+        assert P.bwd_tile_smem(plan.header) == (W512_BWD_SMEM[heads], 3)
+    _, _, meta = _bwd_meta(BWD_CASES[1], heads)
+    total, stages = P.bwd_tile_smem(P.build_plan(meta, heads, True,
+                                                 True).header)
+    assert 232_448 // 2 < total <= 232_448 and stages >= 2
+
+
 def test_wide_programs_split_every_product_between_warpgroups():
     """[w512]'s programs run wide (a layer over 256): every product of a
     wide program is at most 512 columns, so that each warpgroup's half is

@@ -254,7 +254,9 @@ def test_stream_backward_variants_give_the_full_backward(variant):
 
 # (din, F or None, widths): every layout the route takes fits a block's
 # shared memory, forward (three slab stages: of 64 rows, or 32 rows 512
-# wide for a net over 256 wide) and backward (two stages, of 32 rows or 16)
+# wide for a net over 256 wide) and backward (of 32 rows or 16: three
+# stages up to 256 wide, for two wgmma groups in flight and the
+# warpgroups' hand-over; two when wide)
 SMEM_EDGES = [(256, None, [256] * 32), (256, None, [256] * 31 + [1]),
               (244, (4, 30), [256] * 32), (244, (4, 30), [256, 256, 1]),
               (1, None, [1]), (15, None, [1]), (3, (3, 0), [16, 1]),
@@ -268,10 +270,89 @@ def test_stream_layouts_fit_shared_memory(case):
     din, pe, widths = SMEM_EDGES[case]
     dim, F = pe or (0, 0)
     assert mp.stream_takes(din, widths, dim, F)
-    for backward, stages in ((False, mp.MIN_FWD_STAGES), (True, 2)):
+    for backward in (False, True):
         plan = mp.build_stream_plan(din, widths, dim, F, backward=backward)
+        wide = mp.stream_wide(plan.header)
+        stages = (mp.MIN_FWD_STAGES if not backward
+                  else 2 if wide else mp.MIN_BWD_STAGES)
         smem, got = mp.stream_smem(plan.header, backward)
         assert smem <= tmlp.MAX_SMEM_BYTES and got >= stages, (backward, got)
+
+
+# the tile counts of the persistent clusters' walk (csrc/pe_tile.cuh
+# ClusterWalk): one tile, a cluster's worth, one past it, a ragged last
+# group, and [w512]'s 1,048,576-row net (8192 tiles) and one tile more
+WALK_TILES = [1, 2, 3, 131, 8192, 8193]
+
+
+@pytest.mark.parametrize("cluster", [2, 4])
+@pytest.mark.parametrize("n_tiles", WALK_TILES)
+def test_cluster_walk_takes_every_tile_once(n_tiles, cluster):
+    """The backwards' persistent clusters, at one resident cluster, a few
+    and a card's worth (132 SMs): every real tile is taken exactly once;
+    the padding tiles are the last group's past n_tiles and write nothing;
+    the blocks of a cluster take as many tiles each (the same slabs, in
+    lockstep), each its real tiles first; the bias-partial rows and the
+    workspace blocks stay one per 64-row half per tile, 2 n_tiles of each
+    in all, whichever block takes it."""
+    groups = -(-n_tiles // cluster)
+    for active in (1, 3, 132 // cluster):
+        blocks = P.cluster_blocks(n_tiles, cluster, active)
+        n_clusters = blocks // cluster
+        assert blocks % cluster == 0 and n_clusters == min(active, groups)
+        walk = P.cluster_walk(n_tiles, cluster, n_clusters)
+        assert len(walk) == blocks
+        taken = sorted(t for w in walk for t in w)
+        assert taken == list(range(groups * cluster))
+        pads = taken[n_tiles:]
+        assert all(P.tile_writes(t, n_tiles) == dict(
+            part_rows=[], ws_blocks=[], rows=range(0)) for t in pads)
+        for b, w in enumerate(walk):
+            k, r = divmod(b, cluster)
+            assert len(w) == len(walk[k * cluster])
+            real = [t < n_tiles for t in w]
+            assert real == sorted(real, reverse=True)
+            assert w == [g * cluster + r for g in range(k, groups,
+                                                         n_clusters)]
+        rows = [pr for w in walk for t in w
+                for pr in P.tile_writes(t, n_tiles)["part_rows"]]
+        assert sorted(rows) == list(range(2 * n_tiles))
+        blocks_ws = [b for w in walk for t in w
+                     for b in P.tile_writes(t, n_tiles)["ws_blocks"]]
+        assert sorted(blocks_ws) == list(range(2 * n_tiles))
+
+
+@pytest.mark.parametrize("case", list(STREAM_NETS))
+def test_stream_backward_layout_holds_its_barriers(case):
+    """Each stream net's backward layout (``stream_smem``, the C
+    ``bwd_layout``'s mirror): up to 256 wide two warpgroup regions and the
+    column sums before a cluster ring (three barrier arrays: full, empty,
+    peer) of 64-row slabs where ``MIN_BWD_STAGES`` of them fit, else 32-row
+    ones (16 where too few of those fit); when wide one region and at
+    least two stages; over half and within a block's shared memory either
+    way, so that a block holds an SM and a cluster of two takes two."""
+    cols, F, widths, _, _ = STREAM_NETS[case]
+    din = cols * (1 + 2 * F) if F is not None else cols
+    plan = mp.build_stream_plan(din, widths, cols if F is not None else 0,
+                                F or 0, backward=True)
+    h = plan.header
+    wide = mp.stream_wide(h)
+    total, stages = mp.stream_smem(h, True)
+    in_b = P.al128(mp.ROWS * h[mp.M_IN_PAD] * 2)
+    region = (max(in_b, P.al128(mp.ROWS * h[mp.M_IN_PAD] * 4))
+              if h[mp.M_DIM] else in_b)
+    act = P.al128(mp.ROWS * h[mp.M_ACT_W] * 2)
+    off = (1 if wide else 2) * (region + act) + 2 * 4 * P.MAX_N * 4
+    width = P.MAX_W if wide else P.MAX_N
+    least = 2 if wide else mp.MIN_BWD_STAGES
+    slab = (64 if P.ring_stages(off, 64, width, 3)[0] >= mp.MIN_BWD_STAGES
+            else 32 if P.ring_stages(off, 32, width, 3)[0] >= least else 16)
+    assert (stages, total) == P.ring_stages(off, slab, width, 3)
+    if not wide and F is not None and cols * (1 + 2 * F) <= 64:
+        assert slab == 64, (case, slab)       # [prop256]'s nets and the like
+    assert P.CLUSTER_BAR_SETS == 3
+    assert stages >= (2 if wide else mp.MIN_BWD_STAGES)
+    assert tmlp.MAX_SMEM_BYTES // 2 < total <= tmlp.MAX_SMEM_BYTES
 
 
 @pytest.mark.parametrize("net", [(15, [513, 1]), (513, [8, 1]),

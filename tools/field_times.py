@@ -5,12 +5,15 @@ on each, alternating: parent, change, change, parent).  Seeded random
 weights; cropnerf-mxu's field (256 wide) at a training step's rows (4096
 rays x 48 samples), K2 forward at a 128-side export chunk, its dx-only
 backward at a BayesRays batch, K5 at [prop256]'s two nets (3 layers 256
-wide); then the same at [w512]'s widths (field trunk and semantic head
-512 wide, K5 nets 3 x 512) where the tree takes them ("no kernel"
-otherwise).  Each time is the median of five CUDA-event windows of ten
-calls, after two warm-up calls:
+wide), K3's stream route at -huge's 256-wide semantic head (dx alone at
+its BayesRays batch, and with dW); then the same at [w512]'s widths
+(field trunk and semantic head 512 wide, K5 nets 3 x 512, K3's semantic
+head [15, 512, 1]) where the tree takes them ("no kernel" otherwise).
+Each time is the median of five CUDA-event windows of ten calls, after
+two warm-up calls.  ``--only TEXT`` times only the calls whose names
+hold TEXT:
 
-    python3 tools/field_times.py [--port-root DIR]
+    python3 tools/field_times.py [--port-root DIR] [--only TEXT]
 """
 from __future__ import annotations
 
@@ -45,6 +48,7 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--port-root", type=Path,
                         default=Path(__file__).resolve().parents[1])
+    parser.add_argument("--only", default="")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device is visible")
@@ -53,6 +57,7 @@ def main() -> None:
     from cropnerf_tpu_torch.models.model import model_init
     from cropnerf_tpu_torch.models.vanilla import (POS_FREQS,
                                                    fused_field_weights)
+    from cropnerf_tpu_torch.ops.cuda import fused_mlp as km
     from cropnerf_tpu_torch.ops.cuda import fused_pe_field as kf
     dev = torch.device("cuda")
     out = {}
@@ -94,13 +99,28 @@ def main() -> None:
             calls[f"fused_pe_mlp_bwd net {i}"] = (
                 lambda xp=xp, wbs=wbs, F=F, cp=cp: kf.fused_pe_mlp_bwd(
                     xp, wbs, F, cp))
+        # K3's stream route: the semantic head, at its BayesRays batch
+        dims, n3 = (((30, 256, 256, 1), 262_144) if width == 256
+                    else ((15, 512, 1), 196_608))
+        w3 = []
+        for a, b in zip(dims[:-1], dims[1:]):
+            w3 += [torch.randn((a, b), generator=g, device=dev) / a ** 0.5,
+                   torch.randn((1, b), generator=g, device=dev) * 0.05]
+        x3 = torch.randn((n3, dims[0]), generator=g, device=dev)
+        c3 = torch.randn((n3, 1), generator=g, device=dev)
+        calls["fused_mlp_bwd semantic head dx"] = (
+            lambda: km.fused_mlp_bwd(x3, w3, c3, True, False))
+        calls["fused_mlp_bwd semantic head with dW"] = (
+            lambda: km.fused_mlp_bwd(x3, w3, c3, True, True))
         with torch.no_grad():
             for name, fn in calls.items():
+                if args.only not in f"{name} {width}":
+                    continue
                 try:
                     out[f"{name} {width}"] = cuda_ms(fn)
                 except ValueError:
                     out[f"{name} {width}"] = "no kernel"
-        del params, x, ex, cots, calls
+        del params, x, ex, cots, calls, x3, c3
         torch.cuda.empty_cache()
     print(json.dumps({"port_root": str(args.port_root),
                       "card": torch.cuda.get_device_name(0), "ms": out}),

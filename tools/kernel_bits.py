@@ -15,8 +15,12 @@ other kernels); last K1 and K2 forward and backward (``fused_pe_nerf``,
 ``fused_pe_density``; K2's dx alone) at cropnerf-mxu's rows and K6
 (``render_weights_cuda``); then K5 on the stream route at [prop256]'s
 nets (3 layers 256 wide, F = 5 and 6: forward, and the backward with dx
-and dW).  Run it on two trees in one call on the same card; equal lines
-mean equal bits:
+and dW); last K3's stream route at -huge's 256-wide semantic head and at
+[w512]'s 512-wide one, K5's at [w512]'s nets (3 x 512), and K1 and K2 at
+[w512]'s field (trunk and semantic head 512 wide: K1 forward and
+backward, K2 forward, its dx alone and its backward with dW), where the
+tree takes them ("no kernel" otherwise).  Run it on two trees in one call
+on the same card; equal lines mean equal bits:
 
     python3 tools/kernel_bits.py [--port-root DIR]
 """
@@ -168,6 +172,65 @@ def main() -> None:
                 [kfield.fused_pe_mlp(x, wbs, F)])
             dx, dw = kfield.fused_pe_mlp_bwd(x, wbs, F, cot)
             out[f"fused_pe_mlp_bwd 256 wide net {i}"] = digest([dx] + dw)
+        # the stream route's heads (K3) and [w512]'s nets (K5), then K1 and
+        # K2 at [w512]'s field (last, for the same draws as before)
+        def no_kernel(name, fn):
+            try:
+                fn()
+            except ValueError:
+                out[name] = "no kernel"
+
+        no_kernel("fused_mlp -huge semantic head 256 wide",
+                  lambda: k3("-huge semantic head 256 wide", (30, 256, 256, 1)))
+        no_kernel("fused_mlp [w512] semantic head",
+                  lambda: k3("[w512] semantic head", (15, 512, 1)))
+        for i, (F, smp) in enumerate(((5, 256), (6, 96))):
+            din = 3 * (1 + 2 * F)
+            wbs = []
+            for a, b in zip((din, 512, 512), (512, 512, 1)):
+                wbs += [torch.randn((a, b), generator=g, device=dev) / a ** 0.5,
+                        torch.randn((1, b), generator=g, device=dev) * 0.05]
+            x = torch.rand((4096 * smp, 3), generator=g, device=dev) * 2 - 1
+            cot = torch.randn((4096 * smp, 1), generator=g, device=dev)
+
+            def k5(i=i, x=x, wbs=wbs, F=F, cot=cot):
+                out[f"fused_pe_mlp 512 wide net {i}"] = digest(
+                    [kfield.fused_pe_mlp(x, wbs, F)])
+                dx, dw = kfield.fused_pe_mlp_bwd(x, wbs, F, cot)
+                out[f"fused_pe_mlp_bwd 512 wide net {i}"] = digest([dx] + dw)
+
+            no_kernel(f"fused_pe_mlp 512 wide net {i}", k5)
+        import dataclasses
+        mw = dataclasses.replace(mx, field=dataclasses.replace(
+            mx.field, hidden_dim=512, hidden_dim_semantics=512))
+        params = model_init(mw, 8, torch.Generator().manual_seed(0), dev)
+        base, top, color, sem = (
+            [w.detach() for w in ws]
+            for ws in fused_field_weights(params.field, mw.field))
+        n = 4096 * mw.num_nerf_samples_per_ray
+        x = torch.rand((n, 3), generator=g, device=dev) * 2 - 1
+        ex = torch.randn((n, color[1].shape[0]), generator=g, device=dev)
+
+        def k1_k2():
+            outs = kfield.fused_pe_nerf(x, ex, base, top, color, sem, POS_FREQS)
+            out["fused_pe_nerf 512 wide"] = digest(outs)
+            cots = [torch.randn(o.shape, generator=g, device=dev)
+                    for o in outs]
+            grads = kfield.fused_pe_nerf_bwd(x, ex, base, top, color, sem,
+                                             POS_FREQS, *cots)
+            out["fused_pe_nerf_bwd 512 wide"] = digest(
+                list(grads[:2]) + [t for grp in grads[2:] for t in grp])
+            t = kfield.fused_pe_density(x, base, top, POS_FREQS)
+            out["fused_pe_density 512 wide"] = digest([t])
+            cot = torch.randn(t.shape, generator=g, device=dev)
+            dx, _, _ = kfield.fused_pe_density_bwd(x, base, top, POS_FREQS,
+                                                   cot, True, False)
+            out["fused_pe_density_bwd dx 512 wide"] = digest([dx])
+            dx, db_, dt_ = kfield.fused_pe_density_bwd(x, base, top,
+                                                       POS_FREQS, cot)
+            out["fused_pe_density_bwd 512 wide"] = digest([dx, *db_, *dt_])
+
+        no_kernel("fused_pe_nerf 512 wide", k1_k2)
     print(json.dumps({"port_root": str(args.port_root),
                       "card": torch.cuda.get_device_name(0), "sha256": out}),
           flush=True)
