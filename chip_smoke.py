@@ -425,6 +425,38 @@ def cluster_report(tag: str, grid: dict, n_rows: int, halves: int,
                 spill_bytes=spills, profiler_names=names)
 
 
+def fwd_cluster_report(tag: str, grid: dict, n_rows: int, img_bytes: int,
+                       ms: float, bound_ms: float, regs: dict, spills: dict,
+                       card: str) -> dict:
+    """Logs and returns what a forward of the tile interpreter does with
+    its weight stream: over 256 wide its column split over persistent
+    clusters (csrc/pe_tile.cuh: the cluster size and the clusters resident
+    at once, from the C grid query), else persistent blocks; and the
+    weight bytes its copies ask of L2 in the call, modelled, not read: the
+    image once a 128-row tile (a wide cluster's two blocks half of it
+    each), where the wide forward before the split took it once a 64-row
+    tile.  Being a model, the modelled bytes stay in the log line: the
+    returned entry, which goes into the kernels line, leaves them out."""
+    tiles = -(-n_rows // 128)
+    model = tiles * img_bytes
+    wide = grid["cluster"] > 0
+    how = (f"clusters of {grid['cluster']}, {grid['active_clusters']} "
+           f"resident" if wide else "persistent blocks, no cluster")
+    log(f"[cluster] {tag}: {how}, {grid['blocks']} blocks for {tiles} "
+        f"128-row tiles; weight bytes asked of L2 per call, modelled: "
+        f"{model / 1e9:.3f} GB ({model / (ms * 1e9):.3f} TB/s over the "
+        f"call's {ms:.4f} ms"
+        + (f"; {2 * model / 1e9:.3f} GB a call before the split" if wide
+           else "")
+        + f"); {ms:.4f} ms against the {bound_ms:.4f} ms bound "
+        f"({ms / bound_ms:.2f}x); registers {regs}, spill bytes {spills}; "
+        f"{card}")
+    return dict(cluster=grid["cluster"],
+                active_clusters=grid["active_clusters"],
+                blocks=grid["blocks"], n_tiles=tiles, ms=ms, bound_ms=bound_ms,
+                registers=regs, spill_bytes=spills)
+
+
 def fmt_passes(p: dict) -> str:
     return ", ".join(f"{name} not measured" if v["median"] is None else
                      f"{name} {v['median']:.4f} ({v['min']:.4f}-"
@@ -1573,6 +1605,14 @@ def stream_net_entry(label, dims, n_fwd, n_bwd, F, dev, card,
         n_bwd * (2 * io + dims[-1] * 4) + w_bytes)
     regs = kernel_names_plain(ptxas_registers(report))
     spills = kernel_names_plain(ptxas_spills(report))
+    fkey = mlp_plan.program_key(dims[0], dims[1:], 3 if pe else 0,
+                                F if pe else 0, False)
+    fh = mlp_plan.stream_plan(fkey).header
+    kn = f"mlp_stream_fwd_kernel<{bool_word(mlp_plan.stream_wide(fh))}>"
+    k["fwd_cluster"] = fwd_cluster_report(
+        f"stream {label} forward", km.stream_fwd_grid(fkey, n_fwd), n_fwd,
+        fh[mlp_plan.M_IMG_ELEMS] * 2, k["ms"], k["bound_ms"],
+        {kn: regs.get(kn)}, {kn: spills.get(kn)}, card)
     for what, need_dw, names in (("with dW", True, bwd_names),
                                  ("dx alone", False, dx_names)):
         key = mlp_plan.program_key(dims[0], dims[1:], 3 if pe else 0,
@@ -3073,9 +3113,20 @@ def w512_field_entries(m, dev, card, reports) -> dict:
             f"({k['bound_by']}); passes {fmt_passes(k['passes'])}; registers "
             f"{k['registers']}, spill bytes {k['spill_bytes']}; {card}")
     log(f"[w512] K1/K2 dynamic shared memory per block: {smem}")
-    # the two redesigned tile kernels' clusters and weight streams
+    # the wide forwards' column split and the two redesigned backward tile
+    # kernels' clusters, and their weight streams
     from cropnerf_tpu_torch.ops.cuda import pe_plan
     meta2 = kf.pack_pe_field(3, POS_FREQS, base, top, device=dev)[2]
+    kn = "pe_field_fwd_kernel<true>"
+    for name, mt, heads, n in (("fused_pe_nerf", meta, True, n1),
+                               ("fused_pe_density", meta2, False, n2)):
+        k = out[name]
+        img = pe_plan.build_forward_plan(mt, heads).header[
+            pe_plan.H_IMG_ELEMS] * 2
+        k["cluster"] = fwd_cluster_report(
+            f"[w512] {name} forward", kf.fwd_grid(mt, heads, n), n, img,
+            k["ms"], k["bound_ms"], {kn: regs_f.get(kn)},
+            {kn: spills_f.get(kn)}, card)
     for name, mt, heads, need_dw, kn, names in (
             ("fused_pe_nerf_bwd", meta, True, True,
              "pe_field_bwd_tile_kernel<true, true>", k1_names),

@@ -53,7 +53,7 @@
 //    PingPong), so one's epilogue runs while the other's slabs multiply;
 //    64-row slabs, two wgmma groups in flight.  The last layer's epilogue
 //    writes the f32 rows from the accumulators.
-//  * mlp_stream_bwd_kernel, persistent clusters of BWD_CLUSTER blocks
+//  * mlp_stream_bwd_kernel, persistent clusters of CLUSTER blocks
 //    that multicast each weight slab into every block's ring (pe_tile.cuh
 //    ClusterRing, ClusterWalk), two wgmma groups in flight up to 256 wide:
 //    per 128-row tile the forward
@@ -68,12 +68,18 @@
 //    split-K wgmma GEMM over the workspace and fixed-order sums of the
 //    splits and the bias rows.
 //  * a net with its input or a layer over 256 wide (up to 512) runs wide
-//    (pe_tile.cuh): both warpgroups on one 64-row tile at a time, each
+//    (pe_tile.cuh).  The forward: persistent clusters of two blocks walk
+//    the 128-row tiles together, each block computing half of every
+//    product's columns from 32-row slabs of that half (16 KB), each
+//    warpgroup on its own 64 rows out of phase (PingPongWide) with one
+//    buffer (ACT, which takes the input too: layer 0 overwrites it in
+//    place like every later layer), its half of every output written
+//    there, then by one bulk copy into the peer block's copy (Mirror).
+//    The backward: both warpgroups on one 64-row tile at a time, each
 //    with half of every product's columns, one IN and one ACT buffer for
 //    the block (64 KB each at 512), slabs of 32 rows as wide as the
-//    product; the forward's blocks walk 64-row tiles with the warpgroups
-//    in phase, the backward's take their 128-row tile's halves in turn,
-//    each warpgroup storing its half of every product's workspace block.
+//    product; the blocks take their 128-row tile's halves in turn, each
+//    warpgroup storing its half of every product's workspace block.
 //    At 512 wide the workspace is ~1 KB a row a layer for A_l and as much
 //    for G_l, written once and read once (PERF.md).
 // No floating-point atomics: two runs give the same bits, and the weight
@@ -171,9 +177,9 @@ __device__ __forceinline__ void input_tile(const float* __restrict__ x, const in
 // ---- the forward ------------------------------------------------------------------
 
 struct FwdLayout {     // dynamic shared memory, in bytes
-  int wg_bytes;        // one warpgroup's region (the block's one region when wide)
-  int in, act;         // offsets inside it
-  int turn, total;
+  int wg_bytes;        // one warpgroup's region
+  int in, act;         // offsets inside it (the same when wide)
+  int turn, mirror, total;
   bool wide;
   RingLayout ring;
 };
@@ -181,13 +187,20 @@ struct FwdLayout {     // dynamic shared memory, in bytes
 __host__ __device__ inline FwdLayout fwd_layout(const int* h) {
   FwdLayout s;
   int off = 0;
-  s.in = off; off += al128(ROWS * h[M_IN_PAD] * 2);
-  s.act = off; off += al128(ROWS * h[M_ACT_W] * 2);
-  s.wg_bytes = off;
   s.wide = stream_wide(h);
-  off = (s.wide ? 1 : 2) * s.wg_bytes;
+  if (s.wide) {        // one buffer as wide as the input and every layer
+    s.in = s.act = off;
+    off += al128(ROWS * (int)lmax(h[M_IN_PAD], h[M_ACT_W]) * 2);
+  } else {
+    s.in = off; off += al128(ROWS * h[M_IN_PAD] * 2);
+    s.act = off; off += al128(ROWS * h[M_ACT_W] * 2);
+  }
+  s.wg_bytes = off;
+  off = 2 * s.wg_bytes;
   s.turn = off; off += 2 * 8;
-  s.ring = s.wide ? ring_layout(off, SLAB_K, MAX_W) : ring_layout(off, FWD_SLAB);
+  s.mirror = off; if (s.wide) off += MIRROR_BYTES;
+  // a wide block's slabs: 32 rows of its half of the columns (MAX_N)
+  s.ring = s.wide ? ring_layout(off, SLAB_K) : ring_layout(off, FWD_SLAB);
   s.total = s.ring.total;
   return s;
 }
@@ -209,18 +222,18 @@ struct FwdTile {
   unsigned char* wgm;   // this warpgroup's region
   Ring rg;
   uint64_t* turn;
+  Mirror mir;           // when wide: the handshake with the peer block
   Lane ln;
+  int last_buf = -1;    // when wide: the buffer the last product mirrored (-1: none)
+  int last_half = 0;    // and the columns of its half
   long long row0 = 0;   // first row of the warpgroup in the current tile
   long long p = 0, total = 0;
   int slab = 0;
 
   __device__ __forceinline__ bf16* in() const { return reinterpret_cast<bf16*>(wgm + a.s.in); }
   __device__ __forceinline__ bf16* act() const { return reinterpret_cast<bf16*>(wgm + a.s.act); }
-  // The threads that share the tile: a warpgroup, or both when wide.
-  __device__ __forceinline__ void sync() const {
-    if constexpr (WIDE) named_sync(1, CONSUMERS);
-    else named_sync(1 + ln.wg, 128);
-  }
+  // The threads that share the tile: the warpgroup.
+  __device__ __forceinline__ void sync() const { named_sync(1 + ln.wg, 128); }
 
   // The f32 output rows: the product (columns from cb) plus the bias,
   // straight from the accumulators (rows past N and the padded columns
@@ -244,25 +257,48 @@ struct FwdTile {
     }
   }
 
+  // The slab of op's product that first reads the peer's half of the
+  // last product's output (PingPongWide), or none.
+  __device__ __forceinline__ int s_wait(const int* op) const {
+    const int base = last_buf < 0 ? -1
+                     : op[O_A0] == last_buf ? 0
+                     : op[O_A1] == last_buf ? op[O_KA] : -1;
+    return base < 0 ? 1 << 30
+                    : (base + (int)((blockIdx.x % CLUSTER) ^ 1u) * last_half) / rg.slab_k;
+  }
+
   // A product of N columns a warpgroup: the op's whole width, or when
-  // wide this warpgroup's half of it, from column cb.
+  // wide this block's half of it, from column cb.  When wide a hidden
+  // layer's output goes into this warpgroup's tile, then into the peer's
+  // copy (Mirror).
   template <int N>
   __device__ __forceinline__ void run_product(const int* op) {
     float acc[N / 2];
     const uint32_t a0 = smem_u32(op[O_A0] == IN ? in() : act());
-    const int cb = WIDE ? ln.wg * N : 0;
     if constexpr (WIDE)
-      pe::product<N, FWD_DEPTH, AnyOrder, 2 * N>(op, a0, 0, rg, slab, ln.lane, acc, AnyOrder(),
-                                                cb);
+      pe::product<N, FWD_DEPTH>(op, a0, 0, rg, slab, ln.lane, acc,
+                                PingPongWide{{turn, ln.wg, ln.lane, p, total}, mir.wrote(ln),
+                                             s_wait(op)});
     else
       pe::product<N, FWD_DEPTH>(op, a0, 0, rg, slab, ln.lane, acc,
                                 PingPong{turn, ln.wg, ln.lane, p, total});
-    ++p;
     const float* b = a.bias + op[O_BOFF];
     const int nvalid = op[O_NVALID];
+    const int cb = WIDE ? (int)(blockIdx.x % CLUSTER) * N : 0;
+    const bool to_device = op[O_EPI] == Y_OUT;
     sync();                            // every warp's products have read their operands
-    if (op[O_EPI] == Y_OUT) {
+    if constexpr (WIDE) {
+      mir.done_reading(ln, to_device ? 0 : N * 128);
+      mir.await_peer(ln, p);
+    }
+    ++p;
+    if (to_device) {
       y_out<N>(acc, b, nvalid, cb);
+      if constexpr (WIDE) {
+        sync();                        // every thread has passed await_peer
+        mir.hand_over(ln, nullptr, 0, 0);
+        last_buf = -1;
+      }
       return;
     }
     uint32_t mw[(N + 63) / 64] = {};
@@ -272,19 +308,27 @@ struct FwdTile {
                                           : make_float2(0.0f, 0.0f);
                       },
                       true, act(), ln, mw, cb);
-    fence_async_smem();                // visible to the next products
+    fence_async_smem();                // visible to the next products (and the copy)
     sync();
+    if constexpr (WIDE) {
+      mir.hand_over(ln, act(), cb, N * 128);
+      last_buf = ACT;
+      last_half = N;
+    }
   }
 
   __device__ __forceinline__ void run() {
     const int n_ops = a.h[M_N_OPS];
-    const long long my_tiles = (a.n_tiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
+    // the tiles: the block's (persistent blocks), or when wide its
+    // cluster's, which both blocks of the cluster take
+    const long long first = WIDE ? blockIdx.x / CLUSTER : blockIdx.x;
+    const long long step = WIDE ? gridDim.x / CLUSTER : gridDim.x;
+    const long long my_tiles = (a.n_tiles - first + step - 1) / step;
     total = my_tiles * n_ops;
-    for (long long tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
-      row0 = WIDE ? tile * ROWS : tile * TILE_ROWS + ln.wg * ROWS;
+    for (long long tile = first; tile < a.n_tiles; tile += step) {
+      row0 = tile * TILE_ROWS + ln.wg * ROWS;
       sync();                          // the last tile's products have read IN
-      if constexpr (WIDE) input_tile(a.x, a.h, row0, a.n_rows, in(), threadIdx.x, CONSUMERS);
-      else input_tile(a.x, a.h, row0, a.n_rows, in(), ln.t, 128);
+      input_tile(a.x, a.h, row0, a.n_rows, in(), ln.t, 128);
       fence_async_smem();
       sync();
       for (int o = 0; o < n_ops; ++o) {
@@ -301,6 +345,7 @@ struct FwdTile {
         }
       }
     }
+    if constexpr (WIDE) mir.drain(ln, total);
   }
 };
 
@@ -316,15 +361,26 @@ mlp_stream_fwd_kernel(const __grid_constant__ FwdArgs a) {
     mbar_init(&turn[1], 4);
     mbar_fence_init();
   }
-  __syncthreads();
+  Mirror mir{};
+  if constexpr (WIDE) {
+    mir = make_mirror(smem, a.s.mirror);
+    cluster_sync();                    // the peer's barriers are initialised
+  } else {
+    __syncthreads();
+  }
   split_roles(
       [&] {                            // the producer: the program's slabs, once per tile
         int slab = 0;
-        for (long long tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x)
-          produce_slabs(a.ops, a.h[M_N_OPS], a.img, rg, slab);
+        if constexpr (WIDE) {
+          for (long long tile = blockIdx.x / CLUSTER; tile < a.n_tiles; tile += gridDim.x / CLUSTER)
+            produce_half_slabs(a.ops, a.h[M_N_OPS], a.img, rg, slab, blockIdx.x % CLUSTER);
+        } else {
+          for (long long tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x)
+            produce_slabs(a.ops, a.h[M_N_OPS], a.img, rg, slab);
+        }
       },
       [&] {
-        FwdTile<WIDE> tile{a, smem + (WIDE ? 0 : threadIdx.x >> 7) * a.s.wg_bytes, rg, turn};
+        FwdTile<WIDE> tile{a, smem + (threadIdx.x >> 7) * a.s.wg_bytes, rg, turn, mir};
         tile.run();
       });
 }
@@ -632,8 +688,8 @@ template <bool STORE, bool WIDE>
 __global__ void __launch_bounds__(ALL_THREADS, 1)
 mlp_stream_bwd_kernel(const __grid_constant__ BwdArgs a) {
   extern __shared__ __align__(1024) unsigned char smem[];
-  using Walk = ClusterWalk<BWD_CLUSTER>;
-  const ClusterRing<BWD_CLUSTER> rg = make_cluster_ring<BWD_CLUSTER>(smem, a.s.ring);
+  using Walk = ClusterWalk<CLUSTER>;
+  const ClusterRing<CLUSTER> rg = make_cluster_ring<CLUSTER>(smem, a.s.ring);
   init_cluster_ring(rg);
   cluster_sync();
   const int n_ops = a.h[M_N_OPS];
@@ -718,14 +774,48 @@ extern "C" int cropnerf_mlp_stream_fwd(const float* x, float* out, const void* i
   fa.n_rows = n_rows;
   for (int i = 0; i < M_HEADER; ++i) fa.h[i] = prog[i];
   fa.s = fwd_layout(prog);
-  const int rows = fa.s.wide ? ROWS : TILE_ROWS;   // the tiles the blocks walk
-  fa.n_tiles = (n_rows + rows - 1) / rows;
-  auto kernel = fa.s.wide ? mlp_stream_fwd_kernel<true> : mlp_stream_fwd_kernel<false>;
+  fa.n_tiles = (n_rows + TILE_ROWS - 1) / TILE_ROWS;
+  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (fa.s.wide) {                     // persistent clusters; a refused launch returns its error
+    cropnerf::pe::ClusterGrid grid{0, 0, 0};
+    return cluster_launch(mlp_stream_fwd_kernel<true>, &fa, fa.s.total, fa.n_tiles, st, &grid);
+  }
+  auto kernel = mlp_stream_fwd_kernel<false>;
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, fa.s.total);
   if (e != cudaSuccess) return (int)e;
   const unsigned blocks = (unsigned)lmin(fa.n_tiles, sms);
-  kernel<<<blocks, ALL_THREADS, fa.s.total, reinterpret_cast<cudaStream_t>(stream)>>>(fa);
+  kernel<<<blocks, ALL_THREADS, fa.s.total, st>>>(fa);
   return (int)cudaGetLastError();
+}
+
+// The forward's grid at n_rows rows on the current device: out[0] the
+// cluster size (0: persistent blocks, a program at most MAX_N wide),
+// out[1] the clusters resident at once (0 without clusters), out[2] the
+// blocks launched.  Returns 0, -1 where the program is rejected, or a
+// cudaError_t (cudaErrorLaunchOutOfResources where no cluster fits).
+extern "C" int cropnerf_mlp_stream_fwd_grid(const int* prog, int prog_len, long long n_rows,
+                                            long long* out) {
+  using namespace cropnerf::stream;
+  if (!fwd_program_fits(prog, prog_len)) return -1;
+  const FwdLayout s = fwd_layout(prog);
+  const long long n_tiles = (n_rows + TILE_ROWS - 1) / TILE_ROWS;
+  if (s.wide) {
+    cropnerf::pe::ClusterGrid g{0, 0, 0};
+    const int e = cluster_launch(mlp_stream_fwd_kernel<true>,
+                                 static_cast<const FwdArgs*>(nullptr), s.total, n_tiles, nullptr,
+                                 &g);
+    out[0] = g.cluster;
+    out[1] = g.active;
+    out[2] = g.blocks;
+    return e;
+  }
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  out[0] = 0;
+  out[1] = 0;
+  out[2] = lmin(n_tiles, sms);
+  return (int)e;
 }
 
 // Dynamic shared memory of the forward (-1 where the program is rejected).
@@ -802,8 +892,8 @@ extern "C" int cropnerf_mlp_stream_bwd_grid(const int* prog, int prog_len, long 
   const BwdLayout s = bwd_layout(p.h);
   cropnerf::pe::ClusterGrid g{0, 0, 0};
   const int e = cluster_launch(bwd_kernel(p.h[M_STORE] != 0, s.wide),
-                               static_cast<const BwdArgs*>(nullptr), s.total, p.split.n_tiles,
-                               nullptr, &g);
+                               static_cast<const BwdArgs*>(nullptr), s.total,
+                               (p.split.n_tiles + CLUSTER - 1) / CLUSTER, nullptr, &g);
   out[0] = g.cluster;
   out[1] = g.active;
   out[2] = g.blocks;
@@ -856,8 +946,8 @@ extern "C" int cropnerf_mlp_stream_bwd(const float* x, const float* g, float* dx
   ba.s = bwd_layout(h);
   cropnerf::pe::ClusterGrid grid{0, 0, 0};
   // the masks hold a block's words for each SM
-  const int err = cluster_launch(bwd_kernel(store, ba.s.wide), &ba, ba.s.total, ba.n_tiles, s,
-                                 &grid, sms);
+  const int err = cluster_launch(bwd_kernel(store, ba.s.wide), &ba, ba.s.total,
+                                 (ba.n_tiles + CLUSTER - 1) / CLUSTER, s, &grid, sms);
   if (err || !store) return err;
   return cropnerf::pebwd::run_dw_sums(ba.ws, prog_dev + M_HEADER + h[M_N_OPS] * OP_INTS,
                                       h[M_N_TASKS], p.split, h[M_TOTAL_W], h[M_TOTAL_B], wpart,

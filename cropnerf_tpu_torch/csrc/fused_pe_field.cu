@@ -36,12 +36,16 @@
 //    a stride, and the producer runs the program's slab sequence once per
 //    tile without draining the ring, so there is no wave tail of blocks;
 //  * a trunk or head over 256 wide (up to 512) runs wide (pe_tile.cuh):
-//    the blocks walk 64-row tiles, both warpgroups on the same rows, each
-//    multiplying half of every slab's columns into its own 64 x N/2
-//    accumulators, one activation tile (64 KB at 512) that both read and
-//    then overwrite in place after a barrier over both, and 32-row slabs
-//    as wide as the product; the warpgroups then run in phase, not out of
-//    it;
+//    persistent clusters of two blocks on two SMs walk the 128-row tiles
+//    together, each block computing half of every product's columns (64 x
+//    N/2 accumulators a warpgroup) from 32-row slabs of that half alone
+//    (16 KB), so each weight byte leaves L2 once per 128 rows, and each
+//    warpgroup on its own 64 rows, out of phase as above.  Each warpgroup
+//    keeps its own encoding, t and 512-wide activation tiles (both blocks
+//    encode the rows and load the extras) and writes its half of every
+//    output into them and into the peer block's through distributed
+//    shared memory (pe_tile.cuh Mirror); the block that owns an output's
+//    columns writes them to device memory;
 //  * the serial parts are kept short: the encoding takes one sincosf per
 //    (coordinate, frequency), two threads a row, from x loaded into
 //    registers a tile ahead; the extras (up to 2 * EX_REGS columns; wider
@@ -61,13 +65,15 @@ using namespace pe;
 constexpr int MAX_DIM = 4;             // a row's x is kept in registers
 constexpr int SLAB_ROWS = 64;          // weight rows per slab: 4 wgmma steps a group
 constexpr int WAIT_DEPTH = 2;          // wgmma groups in flight (pe::product)
+constexpr int WIDE_DEPTH = 1;          // and when wide: three 16 KB stages leave a
+                                       // slab's room for the producer (PERF.md)
 constexpr int EX_REGS = 32;            // extras prefetched a thread (64 columns a row)
 constexpr int MIN_STAGES = 3;          // PingPong hands over after 1 slab: 1 <= stages - 2
 
 struct Layout {        // dynamic shared memory, in bytes
-  int wg_bytes;        // one warpgroup's region (the block's one region when wide)
+  int wg_bytes;        // one warpgroup's region
   int enc, tb, act;    // offsets inside it; enc also stages the outputs
-  int bias, ops, turn, total;
+  int bias, ops, turn, mirror, total;
   bool wide;
   RingLayout ring;
 };
@@ -84,18 +90,16 @@ __host__ __device__ inline Layout fwd_layout(const int* h) {
   s.act = off; off += al128(ROWS * h[H_ACT_W] * 2);
   s.wg_bytes = off;
   s.wide = wide_header(h);
-  off = (s.wide ? 1 : 2) * s.wg_bytes;
+  off = 2 * s.wg_bytes;
   s.bias = off; off += al128(h[H_TOTAL_B] * 4);
   s.ops = off; off += al128(h[H_N_OPS] * OP_INTS * 4);
   s.turn = off; off += 2 * 8;
-  s.ring = s.wide ? ring_layout(off, SLAB_K, MAX_W) : ring_layout(off, SLAB_ROWS);
+  s.mirror = off; if (s.wide) off += MIRROR_BYTES;
+  // a wide block's slabs: 32 rows of its half of the columns (MAX_N)
+  s.ring = s.wide ? ring_layout(off, SLAB_K) : ring_layout(off, SLAB_ROWS);
   s.total = s.ring.total;
   return s;
 }
-
-// Rows of the tiles the blocks walk: 128 (a warpgroup's 64 each), or 64
-// for a wide program (both warpgroups on the same rows).
-__host__ __device__ inline int tile_rows(const Layout& s) { return s.wide ? ROWS : TILE_ROWS; }
 
 struct FwdArgs {
   const float *x, *ex;
@@ -117,6 +121,8 @@ struct FwdTile {
   Ring rg;
   uint64_t* turn;
   Lane ln;
+  int last = -1;        // when wide: the buffer the last product mirrored and
+                        // its half's columns (buffer << 16 | columns), or -1
   long long row0 = 0;   // first row of the warpgroup in the current tile
   long long p = 0, total = 0;
   int slab = 0;
@@ -126,24 +132,47 @@ struct FwdTile {
   float xr[MAX_DIM];
   float exr[EX_REGS];
 
-  __device__ __forceinline__ bf16* enc() const { return reinterpret_cast<bf16*>(wgm + a.s.enc); }
-  __device__ __forceinline__ float* stage() const { return reinterpret_cast<float*>(wgm + a.s.enc); }
-  __device__ __forceinline__ bf16* tb() const { return reinterpret_cast<bf16*>(wgm + a.s.tb); }
-  __device__ __forceinline__ bf16* act() const { return reinterpret_cast<bf16*>(wgm + a.s.act); }
-  __device__ __forceinline__ bf16* buf(int id) const { return id == ACT ? act() : id == ENC ? enc() : tb(); }
-  // The threads that share the tile: a warpgroup, or both when wide.
-  __device__ __forceinline__ void sync() const {
-    if constexpr (WIDE) named_sync(1, CONSUMERS);
-    else named_sync(1 + ln.wg, 128);
+  // When wide the region, the biases, the ops and the handshake barriers
+  // are found from the layout where they are needed rather than held in
+  // registers over the products (a warpgroup's 64 x 256 accumulators leave
+  // little room).
+  __device__ __forceinline__ unsigned char* region() const {
+    if constexpr (WIDE) {
+      extern __shared__ __align__(1024) unsigned char fwd_smem[];
+      return fwd_smem + ln.wg * a.s.wg_bytes;
+    } else {
+      return wgm;
+    }
   }
+  __device__ __forceinline__ const float* biases() const {
+    if constexpr (WIDE) {
+      extern __shared__ __align__(1024) unsigned char fwd_smem[];
+      return reinterpret_cast<const float*>(fwd_smem + a.s.bias);
+    } else {
+      return bias;
+    }
+  }
+  __device__ __forceinline__ const int* op_list() const {
+    if constexpr (WIDE) {
+      extern __shared__ __align__(1024) unsigned char fwd_smem[];
+      return reinterpret_cast<const int*>(fwd_smem + a.s.ops);
+    } else {
+      return ops;
+    }
+  }
+  __device__ __forceinline__ Mirror mirror() const { return Mirror{a.s.mirror}; }
+  __device__ __forceinline__ bf16* enc() const { return reinterpret_cast<bf16*>(region() + a.s.enc); }
+  __device__ __forceinline__ float* stage() const { return reinterpret_cast<float*>(region() + a.s.enc); }
+  __device__ __forceinline__ bf16* tb() const { return reinterpret_cast<bf16*>(region() + a.s.tb); }
+  __device__ __forceinline__ bf16* act() const { return reinterpret_cast<bf16*>(region() + a.s.act); }
+  __device__ __forceinline__ bf16* buf(int id) const { return id == ACT ? act() : id == ENC ? enc() : tb(); }
+  // The threads that share the tile: the warpgroup.
+  __device__ __forceinline__ void sync() const { named_sync(1 + ln.wg, 128); }
   __device__ __forceinline__ int row() const { return ln.t >> 1; }
   __device__ __forceinline__ int half() const { return ln.t & 1; }
-  // Whether this warpgroup encodes its rows and holds their x and extras
-  // (when wide, warpgroup 0 for both).
-  __device__ __forceinline__ bool rows_owner() const { return !WIDE || ln.wg == 0; }
   // The first row of this warpgroup in tile `tile`.
   __device__ __forceinline__ long long first_row(long long tile) const {
-    return WIDE ? tile * ROWS : tile * TILE_ROWS + ln.wg * ROWS;
+    return tile * TILE_ROWS + ln.wg * ROWS;
   }
 
   // x of the thread's row of the warpgroup's rows from row0 (zeros past N).
@@ -167,10 +196,11 @@ struct FwdTile {
   }
 
   // The extras into the act tile: from the registers, or straight from
-  // device memory where they are too wide for them.
+  // device memory where they are too wide for them or the program is wide
+  // (no registers held over the trunk's last product).
   __device__ __forceinline__ void store_extras(int w) {
     const int c0 = half() * (w / 2);
-    if (w > 2 * EX_REGS) {
+    if (WIDE || w > 2 * EX_REGS) {
       const long long r = row0 + row();
       const int de = a.h[H_DE];
       for (int i = 0; i < w / 2; ++i) {
@@ -188,7 +218,7 @@ struct FwdTile {
   // f32 rows of an output: the product (columns from cb) plus its bias,
   // staged row-major [64, cols] and stored with consecutive threads on
   // consecutive addresses (rows past n_rows and the padded columns are
-  // dropped).
+  // dropped; when wide, the other block's columns too).
   template <int N>
   __device__ __forceinline__ void output(const int* op, const float (&v)[N / 2], const float* b,
                                          int cb) {
@@ -208,76 +238,115 @@ struct FwdTile {
     }
     sync();
     const long long first = row0 * cols, end = a.n_rows * cols;
-    const int step = WIDE ? CONSUMERS : 128;
-    for (int i = WIDE ? (int)threadIdx.x : ln.t; i < ROWS * cols; i += step)
+    for (int i = ln.t; i < ROWS * cols; i += 128) {
+      if constexpr (WIDE) {
+        const int c = i % cols;
+        if (c < cb || c >= cb + N) continue;
+      }
       if (first + i < end) out[first + i] = st[i];
+    }
+  }
+
+  // The slab of op's product that first reads the peer's half of the
+  // last product's output (PingPongWide), or none.
+  __device__ __forceinline__ int s_wait(const int* op) const {
+    const int buf = last >> 16;
+    const int base = last < 0 ? -1 : op[O_A0] == buf ? 0 : op[O_A1] == buf ? op[O_KA] : -1;
+    return base < 0 ? 1 << 30
+                    : (base + (int)((blockIdx.x % CLUSTER) ^ 1u) * (last & 0xffff)) / SLAB_K;
   }
 
   // A product of N columns a warpgroup: the op's whole width, or when
-  // wide this warpgroup's half of it, from column cb.
+  // wide this block's half of it, from column cb.  When wide an activation
+  // output goes into this warpgroup's tile, then into the peer's copy
+  // (Mirror).
   template <int N>
   __device__ __forceinline__ void run_product(const int* op) {
     float acc[N / 2];
     const uint32_t a0 = smem_u32(buf(op[O_A0])), a1 = smem_u32(buf(op[O_A1]));
-    const int cb = WIDE ? ln.wg * N : 0;
     if constexpr (WIDE)
-      pe::product<N, WAIT_DEPTH, AnyOrder, 2 * N>(op, a0, a1, rg, slab, ln.lane, acc,
-                                                 AnyOrder(), cb);
+      pe::product<N, WIDE_DEPTH>(op, a0, a1, rg, slab, ln.lane, acc,
+                                 PingPongWide{{turn, ln.wg, ln.lane, p, total},
+                                              mirror().wrote(ln), s_wait(op)});
     else
       pe::product<N, WAIT_DEPTH>(op, a0, a1, rg, slab, ln.lane, acc,
                                  PingPong{turn, ln.wg, ln.lane, p, total});
-    ++p;
     const int epi = op[O_EPI], nvalid = op[O_NVALID];
-    const float* b = bias + op[O_BOFF];
+    const float* b = biases() + op[O_BOFF];
+    const int cb = WIDE ? (int)(blockIdx.x % CLUSTER) * N : 0;
+    const bool to_device = epi == RGB_OUT || epi == SEM_OUT;
     sync();                            // every warp's products have read their operands
-    if (epi == RGB_OUT || epi == SEM_OUT) {
-      output<N>(op, acc, b, cb);
-      return;
-    }
+    const auto bias2 = [&](int c) {    // nvalid is even: c < nvalid covers c + 1
+      return c < nvalid ? *reinterpret_cast<const float2*>(b + c) : make_float2(0.0f, 0.0f);
+    };
     uint32_t mw[(N + 63) / 64] = {};
-    activation_out<N>(acc,
-                      [&](int c) {     // nvalid is even: c < nvalid covers c + 1
-                        return c < nvalid ? *reinterpret_cast<const float2*>(b + c)
-                                          : make_float2(0.0f, 0.0f);
-                      },
-                      epi == RELU, epi == RELU ? act() : tb(), ln, mw, cb);
-    fence_async_smem();                // visible to the next products
-    if (epi == T_OUT) output<N>(op, acc, b, cb);
-    sync();
+    bf16* dst = epi == RELU ? act() : tb();
+    if constexpr (WIDE) {              // one call site of each epilogue (fewer registers)
+      mirror().done_reading(ln, to_device ? 0 : N * 128);
+      mirror().await_peer(ln, p);
+      ++p;
+      if (!to_device) {
+        activation_out<N>(acc, bias2, epi == RELU, dst, ln, mw, cb);
+        fence_async_smem();            // visible to the next products (and the copy)
+      }
+      if (epi != RELU) output<N>(op, acc, b, cb);
+      sync();
+      mirror().hand_over(ln, dst, cb, to_device ? 0 : N * 128);
+      last = to_device ? -1 : (epi == RELU ? ACT : TB) << 16 | N;
+    } else {
+      ++p;
+      if (to_device) {
+        output<N>(op, acc, b, cb);
+        return;
+      }
+      activation_out<N>(acc, bias2, epi == RELU, dst, ln, mw, cb);
+      fence_async_smem();              // visible to the next products
+      if (epi == T_OUT) output<N>(op, acc, b, cb);
+      sync();
+    }
   }
 
   __device__ __forceinline__ void run() {
     const int n_ops = a.h[H_N_OPS];
     int n_products = 0, ex_w = 0;
     for (int o = 0; o < n_ops; ++o) {
-      const int kind = ops[o * OP_INTS + O_KIND];
+      const int kind = op_list()[o * OP_INTS + O_KIND];
       n_products += kind == FWD;
-      if (kind == EX) ex_w = ops[o * OP_INTS + O_N];
+      if (kind == EX) ex_w = op_list()[o * OP_INTS + O_N];
     }
-    const long long my_tiles = (a.n_tiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
+    // the tiles: the block's (persistent blocks), or when wide its
+    // cluster's, which both blocks of the cluster take
+    const long long first = WIDE ? blockIdx.x / CLUSTER : blockIdx.x;
+    const long long step = WIDE ? gridDim.x / CLUSTER : gridDim.x;
+    const long long my_tiles = (a.n_tiles - first + step - 1) / step;
     total = my_tiles * n_products;
-    const bool owner = rows_owner();
-    if (owner) load_x(first_row(blockIdx.x));
-    for (long long tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
+    if constexpr (!WIDE) load_x(first_row(first));
+    for (long long tile = first; tile < a.n_tiles; tile += step) {
       row0 = first_row(tile);
       sync();                          // the last tile's outputs have left the stage
-      if (owner)
-        encode_row([&](int d) { return d == 0 ? xr[0] : d == 1 ? xr[1] : d == 2 ? xr[2] : xr[3]; },
-                   row(), half(), a.h, enc());
+      if constexpr (WIDE) load_x(row0);    // (no registers held a tile ahead)
+      encode_row([&](int d) { return d == 0 ? xr[0] : d == 1 ? xr[1] : d == 2 ? xr[2] : xr[3]; },
+                 row(), half(), a.h, enc());
       fence_async_smem();
       sync();
-      if (owner) load_x(first_row(tile + gridDim.x));   // the next tile's, ahead
+      if constexpr (!WIDE) load_x(first_row(tile + step));   // the next tile's, ahead
       for (int o = 0; o < n_ops; ++o) {
-        int op[OP_INTS];
+        // the op's fields: from the block's copy when wide (fewer registers
+        // over the products), else copied to registers
+        int opr[OP_INTS];
+        const int* op = op_list() + o * OP_INTS;
+        if constexpr (!WIDE) {
 #pragma unroll
-        for (int i = 0; i < OP_INTS; ++i) op[i] = ops[o * OP_INTS + i];
+          for (int i = 0; i < OP_INTS; ++i) opr[i] = op[i];
+          op = opr;
+        }
         if (op[O_KIND] == EX) {        // the extras, over the trunk's last activation
-          if (owner) store_extras(op[O_N]);
+          store_extras(op[O_N]);
           fence_async_smem();
           sync();
           continue;
         }
-        if (owner && op[O_EPI] == T_OUT && ex_w > 0 && ex_w <= 2 * EX_REGS) load_extras(ex_w);
+        if (!WIDE && op[O_EPI] == T_OUT && ex_w > 0 && ex_w <= 2 * EX_REGS) load_extras(ex_w);
         switch (WIDE ? op[O_N] / 2 : op[O_N]) {
           case 8: if constexpr (WIDE) run_product<8>(op); break;
           case 16: run_product<16>(op); break;
@@ -288,6 +357,7 @@ struct FwdTile {
         }
       }
     }
+    if constexpr (WIDE) mirror().drain(ln, total);
   }
 };
 
@@ -305,18 +375,24 @@ pe_field_fwd_kernel(const __grid_constant__ FwdArgs a) {
     mbar_init(&turn[1], 4);
     mbar_fence_init();
   }
+  if constexpr (WIDE) make_mirror(smem, a.s.mirror);
   for (int i = threadIdx.x; i < a.h[H_TOTAL_B]; i += ALL_THREADS) bias[i] = a.bias[i];
   for (int i = threadIdx.x; i < a.h[H_N_OPS] * OP_INTS; i += ALL_THREADS) ops[i] = a.ops[i];
-  __syncthreads();
+  if constexpr (WIDE) cluster_sync();  // the peer's barriers are initialised
+  else __syncthreads();
   split_roles(
       [&] {                            // the producer: the program's slabs, once per tile
         int slab = 0;
-        for (long long tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x)
-          produce_slabs(a.ops, a.h[H_N_OPS], a.img, rg, slab);
+        if constexpr (WIDE) {
+          for (long long tile = blockIdx.x / CLUSTER; tile < a.n_tiles; tile += gridDim.x / CLUSTER)
+            produce_half_slabs(a.ops, a.h[H_N_OPS], a.img, rg, slab, blockIdx.x % CLUSTER);
+        } else {
+          for (long long tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x)
+            produce_slabs(a.ops, a.h[H_N_OPS], a.img, rg, slab);
+        }
       },
       [&] {
-        FwdTile<WIDE> tile{a, smem + (WIDE ? 0 : threadIdx.x >> 7) * a.s.wg_bytes, bias, ops,
-                           rg, turn};
+        FwdTile<WIDE> tile{a, smem + (threadIdx.x >> 7) * a.s.wg_bytes, bias, ops, rg, turn};
         tile.run();
       });
 }
@@ -362,13 +438,47 @@ extern "C" int cropnerf_pe_field_fwd(const float* x, const float* ex, float* t_o
   fa.n_rows = n_rows;
   for (int i = 0; i < H_HEADER; ++i) fa.h[i] = prog[i];
   fa.s = fwd_layout(prog);
-  fa.n_tiles = (n_rows + tile_rows(fa.s) - 1) / tile_rows(fa.s);
-  auto kernel = fa.s.wide ? pe_field_fwd_kernel<true> : pe_field_fwd_kernel<false>;
+  fa.n_tiles = (n_rows + TILE_ROWS - 1) / TILE_ROWS;
+  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (fa.s.wide) {                     // persistent clusters; a refused launch returns its error
+    cropnerf::pe::ClusterGrid grid{0, 0, 0};
+    return cluster_launch(pe_field_fwd_kernel<true>, &fa, fa.s.total, fa.n_tiles, st, &grid);
+  }
+  auto kernel = pe_field_fwd_kernel<false>;
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, fa.s.total);
   if (e != cudaSuccess) return (int)e;
   const unsigned blocks = (unsigned)lmin(fa.n_tiles, sms);
-  kernel<<<blocks, ALL_THREADS, fa.s.total, reinterpret_cast<cudaStream_t>(stream)>>>(fa);
+  kernel<<<blocks, ALL_THREADS, fa.s.total, st>>>(fa);
   return (int)cudaGetLastError();
+}
+
+// The forward's grid at n_rows rows on the current device: out[0] the
+// cluster size (0: persistent blocks, a program at most MAX_N wide),
+// out[1] the clusters resident at once (0 without clusters), out[2] the
+// blocks launched.  Returns 0, -1 where the program is rejected, or a
+// cudaError_t (cudaErrorLaunchOutOfResources where no cluster fits).
+extern "C" int cropnerf_pe_field_fwd_grid(const int* prog, int prog_len, long long n_rows,
+                                          long long* out) {
+  using namespace cropnerf::pefwd;
+  if (!program_fits(prog, prog_len)) return -1;
+  const Layout s = fwd_layout(prog);
+  const long long n_tiles = (n_rows + TILE_ROWS - 1) / TILE_ROWS;
+  if (s.wide) {
+    cropnerf::pe::ClusterGrid g{0, 0, 0};
+    const int e = cluster_launch(pe_field_fwd_kernel<true>, static_cast<const FwdArgs*>(nullptr),
+                                 s.total, n_tiles, nullptr, &g);
+    out[0] = g.cluster;
+    out[1] = g.active;
+    out[2] = g.blocks;
+    return e;
+  }
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  out[0] = 0;
+  out[1] = 0;
+  out[2] = lmin(n_tiles, sms);
+  return (int)e;
 }
 
 // Dynamic shared memory of the forward (-1 where the program is rejected).

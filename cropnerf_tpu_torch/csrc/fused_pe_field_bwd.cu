@@ -62,7 +62,7 @@
 // block, by its own bulk store); the slabs are then as wide as the
 // product (32 x 512 bf16, 32 KB).  Such a program streams ~7.7 MB of
 // weights a 64-row half, more than its operations need from L2, so its
-// blocks run as persistent clusters of BWD_CLUSTER that multicast each
+// blocks run as persistent clusters of CLUSTER that multicast each
 // slab into every block's ring (pe_tile.cuh ClusterRing): each weight
 // leaves L2 once a cluster, and no block starts or drains its ring but
 // once.
@@ -441,10 +441,10 @@ __device__ __noinline__ void dx_rows(const float* xs, const float* genc, float* 
 template <bool STORE>
 __device__ __forceinline__ void wide_tiles(const TileArgs& a, unsigned char* smem,
                                            const RingLayout& rl) {
-  const ClusterRing<BWD_CLUSTER> rg = make_cluster_ring<BWD_CLUSTER>(smem, rl);
+  const ClusterRing<CLUSTER> rg = make_cluster_ring<CLUSTER>(smem, rl);
   init_cluster_ring(rg);
   cluster_sync();
-  using Walk = ClusterWalk<BWD_CLUSTER>;
+  using Walk = ClusterWalk<CLUSTER>;
   const int n_ops = a.h[H_N_OPS];
   split_roles(
       [&] {                            // the producer: the slabs, once a tile's half
@@ -578,7 +578,7 @@ extern "C" int cropnerf_pe_field_bwd_grid(const int* prog, int prog_len, long lo
   cropnerf::pe::ClusterGrid g{0, 0, p.split.n_tiles};
   const int e = s.wide ? cluster_launch(tile_kernel(p.h[H_STORE] != 0, true),
                                         static_cast<const TileArgs*>(nullptr), s.total,
-                                        p.split.n_tiles, nullptr, &g)
+                                        (p.split.n_tiles + CLUSTER - 1) / CLUSTER, nullptr, &g)
                        : 0;
   out[0] = g.cluster;
   out[1] = g.active;
@@ -627,7 +627,8 @@ extern "C" int cropnerf_pe_field_bwd(const float* x, const float* ex, const floa
   auto kernel = tile_kernel(store, ta.s.wide);
   if (ta.s.wide) {
     cropnerf::pe::ClusterGrid grid{0, 0, 0};
-    const int err = cluster_launch(kernel, &ta, ta.s.total, ta.n_tiles, s, &grid);
+    const int err =
+        cluster_launch(kernel, &ta, ta.s.total, (ta.n_tiles + CLUSTER - 1) / CLUSTER, s, &grid);
     if (err || !store) return err;
   } else {
     cudaError_t e =

@@ -14,13 +14,23 @@
 // again when all 8 consumer warps have arrived on its `empty` barrier.
 //
 // A program with a layer wider than MAX_N (up to MAX_W) is "wide": a
-// 64 x 512 product's accumulators do not fit one warpgroup's registers,
-// nor two 64-row tiles of its activations a block's shared memory.  So
-// both warpgroups work on one 64-row tile at a time (a 128-row tile is two
-// of them, one after the other) and each takes half of every product's
-// columns (64 x N/2, N/2 = 8..256) from the same slabs, which are as wide
-// as the product; the activation tile is still overwritten in place, once
-// both warpgroups have read it (a barrier over the 256 consumer threads).
+// 64 x 512 product's accumulators do not fit one warpgroup's registers.
+// Each product's columns are then split in halves (64 x N/2, N/2 =
+// 8..256, the same wgmma shapes and k order in every mode):
+//  * the forward runs as persistent clusters of CLUSTER (2) blocks on two
+//    SMs that walk the 128-row tiles together.  Each block computes one
+//    half of every product's columns, so its producer streams only that
+//    half of each slab (produce_half_slabs), and its two warpgroups take
+//    their own 64 rows out of phase (PingPongWide), each with its own copy
+//    of its rows' activation tiles.  A warpgroup writes its half of each
+//    output into its own tile, then by one bulk copy into the peer
+//    block's (the same warpgroup there, on the same rows), in place, with
+//    a pairwise handshake (Mirror);
+//  * the backwards keep both warpgroups on one 64-row tile at a time (a
+//    128-row tile is two of them, one after the other), each taking half
+//    of every product's columns from slabs as wide as the product, the
+//    tile overwritten in place once both have read it (a barrier over the
+//    256 consumer threads).
 // The kernels take the mode as a template argument (WIDE), so that a
 // program at most MAX_N wide runs none of the wide mode's code.
 //
@@ -210,20 +220,22 @@ __device__ __forceinline__ void split_roles(Producer&& produce, Consumer&& consu
 // ---- the cluster ring: persistent clusters that share the weight stream ----------
 //
 // The backwards' tile kernels (the stream route's, and K1's and K2's wide
-// programs) run as persistent clusters of BWD_CLUSTER blocks on
+// programs) run as persistent clusters of CLUSTER blocks on
 // neighbouring SMs.  Every block of a cluster runs the same slabs in the
-// same order, and its producer copies its 1/BWD_CLUSTER share of each slab
+// same order, and its producer copies its 1/CLUSTER share of each slab
 // into the same stage of every block's ring at once (a multicast bulk
 // copy), so each weight leaves L2 once a cluster rather than once a block.
 // A block's `full` barrier expects the whole slab (every block's share
 // completes on it).  The consumers release a stage on their block's
 // `empty` barrier as with Ring (the same product code); the producer, once
 // its block's consumers are done with a stage, relays that to every block
-// of the cluster (a remote arrive on its `peer` barrier, BWD_CLUSTER
+// of the cluster (a remote arrive on its `peer` barrier, CLUSTER
 // arrivals a phase) and refills the stage only when its own `peer` barrier
 // says every block is done, since its copy writes into all of them.
 // Clusters of two: clusters of four ran slower on the H100 (PERF.md).
-constexpr int BWD_CLUSTER = 2;
+// The wide forward's column split (below) runs on clusters of the same
+// size, its two blocks the halves of every product.
+constexpr int CLUSTER = 2;
 constexpr int CLUSTER_BAR_SETS = 3;    // full, empty and peer barriers
 
 template <int C>
@@ -346,9 +358,9 @@ struct ClusterWalk {
   }
 };
 
-// The persistent grid of a cluster kernel (host): as many clusters of
-// BWD_CLUSTER blocks as are resident at once (cudaOccupancyMaxActiveClusters),
-// at most one a group of tiles.
+// The persistent grid of a cluster kernel (host): as many clusters as are
+// resident at once (cudaOccupancyMaxActiveClusters), at most one a group
+// of tiles.
 struct ClusterGrid {
   int cluster, active;
   long long blocks;
@@ -382,22 +394,26 @@ inline cudaError_t active_clusters(const void* kernel, const cudaLaunchConfig_t&
 }
 
 // Sets the kernel's shared memory, sizes its grid into *grid and, unless
-// args is null, launches it as clusters on `stream`.  Returns a cudaError_t:
+// args is null, launches it as clusters of CLUSTER blocks on `stream`, one
+// cluster for each of `n_groups` groups of work up to the clusters
+// resident at once (the backwards: CLUSTER tiles a group, a tile a block;
+// the wide forward: a tile a group).  Returns a cudaError_t:
 // cudaErrorLaunchOutOfResources where no cluster fits the card,
 // cudaErrorInvalidConfiguration for a grid over `max_blocks` (0: no
 // bound); there is no fallback to a grid without clusters.
 template <class Args>
-inline int cluster_launch(void (*kernel)(Args), const Args* args, int smem, long long n_tiles,
+inline int cluster_launch(void (*kernel)(Args), const Args* args, int smem, long long n_groups,
                           cudaStream_t stream, ClusterGrid* grid, long long max_blocks = 0) {
+  constexpr int cluster = CLUSTER;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = BWD_CLUSTER;
+  attr[0].val.clusterDim.x = cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(BWD_CLUSTER);
+  cfg.gridDim = dim3(cluster);
   cfg.blockDim = dim3(ALL_THREADS);
   cfg.dynamicSmemBytes = (size_t)smem;
   cfg.stream = stream;
@@ -406,13 +422,12 @@ inline int cluster_launch(void (*kernel)(Args), const Args* args, int smem, long
   int active = 0;
   e = active_clusters((const void*)kernel, cfg, &active);
   if (e != cudaSuccess) return (int)e;
-  const long long groups = (n_tiles + BWD_CLUSTER - 1) / BWD_CLUSTER;
-  grid->cluster = BWD_CLUSTER;
+  grid->cluster = cluster;
   grid->active = active;
-  grid->blocks = lmin(active, groups) * BWD_CLUSTER;
+  grid->blocks = lmin(active, n_groups) * cluster;
   if (active < 1) return (int)cudaErrorLaunchOutOfResources;
   if (max_blocks > 0 && grid->blocks > max_blocks) return (int)cudaErrorInvalidConfiguration;
-  if (args == nullptr || n_tiles < 1) return 0;
+  if (args == nullptr || n_groups < 1) return 0;
   cfg.gridDim = dim3((unsigned)grid->blocks);
   e = cudaLaunchKernelEx(&cfg, kernel, *args);
   if (e != cudaSuccess) return (int)e;
@@ -425,6 +440,7 @@ inline int cluster_launch(void (*kernel)(Args), const Args* args, int smem, long
 struct AnyOrder {
   __device__ void wait() const {}
   __device__ void pass() const {}
+  __device__ void slab(int) const {}
 };
 
 // acc = [A0 | A1] · B over the op's K, B streamed from the ring; a0/a1 are
@@ -434,7 +450,7 @@ struct AnyOrder {
 // one wgmma group; up to DEPTH groups stay in flight while the next is
 // issued, and a slab is released when its group is done.  `turn.wait()`
 // runs before the first slab's products are issued, `turn.pass()` right
-// after they are.
+// after they are, `turn.slab(s)` before slab s is awaited.
 template <int N, int DEPTH = 1, class Turn = AnyOrder, int BW = N>
 __device__ __forceinline__ void product(const int* op, uint32_t a0, uint32_t a1, const Ring& rg,
                                         int& slab, int lane, float (&acc)[N / 2],
@@ -449,6 +465,7 @@ __device__ __forceinline__ void product(const int* op, uint32_t a0, uint32_t a1,
   const int first = slab, n_slabs = (K + SK - 1) / SK;
   for (int s = 0; s < n_slabs; ++s) {
     const int cur = first + s, stage = cur % S;
+    turn.slab(s);
     mbar_wait(&rg.full[stage], (cur / S) & 1);
     wgmma_fence();
     const int k0 = s * SK, ks = min(SK, K - k0);
@@ -564,7 +581,175 @@ struct PingPong {
   __device__ void pass() const {
     if ((wg == 0 || p + 1 < total) && lane == 0) mbar_arrive(&turn[wg ^ 1]);
   }
+  __device__ void slab(int) const {}
 };
+
+// mbar_wait as one asm loop, skipped where `wait` is 0, with the same trap.
+// Before a product, a C++ branch or loop around a wait makes the compiler
+// serialise the wide kernels' wgmma (ptxas C7520); this form, followed by
+// a wgmma fence, does not.
+__device__ __forceinline__ void mbar_spin(uint64_t* bar, uint32_t parity, uint32_t wait = 1) {
+  asm volatile(
+      "{\n.reg .pred P1, P2;\n.reg .u64 T0, T1;\n"
+      "setp.eq.u32 P1, %2, 0;\n"
+      "@P1 bra DONE;\n"
+      "mov.u64 T0, %%clock64;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "mov.u64 T1, %%clock64;\n"
+      "sub.u64 T1, T1, T0;\n"
+      "setp.gt.u64 P2, T1, 20000000000;\n"
+      "@P2 trap;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity), "r"(wait)
+      : "memory");
+}
+
+// The order of a wide forward's products (pe::product's Turn): PingPong's,
+// and the handshake's step 1 (Mirror) at the slab that first reads the
+// peer's half of the previous product's output (s_wait; none past the
+// product's slabs), so that the copy's flight overlaps the slabs before.
+// The first product of warpgroup 0 waits for the parity a fresh barrier
+// counts as completed.
+struct PingPongWide : PingPong {
+  uint64_t* wrote;   // this warpgroup's Mirror wrote barrier
+  int s_wait;
+  __device__ void wait() const {
+    mbar_spin(&turn[wg], (uint32_t)((wg == 0 ? p - 1 : p) & 1));
+    wgmma_fence();
+  }
+  __device__ void slab(int s) const {
+    mbar_spin(wrote, (uint32_t)((p - 1) & 1), s == s_wait);
+  }
+};
+
+// ---- the wide forward: every product's columns split over a cluster ----------
+//
+// A wide forward runs as persistent clusters of CLUSTER blocks on two SMs.
+// The cluster walks the 128-row tiles (tiles cluster_index() + k ·
+// cluster_count(), the same for both blocks); block `rank` computes columns
+// [rank · N/2, (rank + 1) · N/2) of every product of N columns, and its
+// warpgroups their own 64 rows of the tile, out of phase (PingPong).  Each
+// warpgroup keeps its own copy of its rows' activation tiles, so the
+// wgmma A operands stay local; the epilogue writes the warpgroup's half of
+// the output into its own tile and into the peer's (Mirror).
+constexpr int MIRROR_BYTES = 2 * 2 * 8;   // read and wrote barriers of two warpgroups
+
+// produce_slabs for a wide forward: block `rank`'s half of every product's
+// columns, slab by slab.  In the weight image a slab's 8-row k-groups each
+// hold N/8 core matrices in column order, so a half is one contiguous run
+// of N/2 · 16 bytes a k-group: one bulk copy each, landing as the K-major
+// core-matrix layout of the [rows, N/2] half (pe::product with BW = N/2).
+__device__ __forceinline__ void produce_half_slabs(const int* ops, int n_ops, const bf16* img,
+                                                   const Ring& rg, int& slab, uint32_t rank) {
+  const int S = rg.stages, SK = rg.slab_k;
+  for (int o = 0; o < n_ops; ++o) {
+    const int* op = ops + o * OP_INTS;
+    if (__ldg(op + O_KIND) != FWD) continue;
+    const int N = __ldg(op + O_N), K = __ldg(op + O_K), half = N / 2;
+    const unsigned char* src = reinterpret_cast<const unsigned char*>(img + __ldg(op + O_IMG));
+    for (int k0 = 0; k0 < K; k0 += SK, ++slab) {
+      const int stage = slab % S, groups = min(SK, K - k0) / 8;
+      mbar_wait(&rg.empty[stage], ((slab / S) & 1) ^ 1);
+      mbar_expect_tx(&rg.full[stage], (uint32_t)(groups * half * 16));
+      for (int g = 0; g < groups; ++g)
+        bulk_load(rg.base + stage * rg.stage + g * half * 16,
+                  src + ((long long)(k0 / 8 + g) * N + rank * half) * 16, (uint32_t)(half * 16),
+                  &rg.full[stage]);
+    }
+  }
+}
+
+// The handshake of a wide forward's warpgroup with its peer: the same
+// warpgroup of the other block, on the same 64 rows, computing the other
+// half of every product.  Each keeps its own copy of the rows' activation
+// tiles; an activation output's half goes into the warpgroup's own tile,
+// then by one bulk copy (chunk-major columns are contiguous) into the
+// peer's, in place.  Every product p runs the same steps in both:
+//  1. before it reads it, the peer's half of p - 1's output has landed
+//     (wrote[wg], phase p - 1: PingPongWide waits at the first slab that
+//     reads it, and a product that reads none of it does not wait, since
+//     phases complete in order and a later wait covers it);
+//  2. after it, once the warpgroup has passed step 1, its threads tell the
+//     peer it has read its tiles (read[wg] there) and arm phase p of its
+//     own wrote[wg] with the bytes the peer's copy of p brings (0 for an
+//     output that goes to device memory alone);
+//  3. it waits until the peer has finished p (read[wg], phase p) before it
+//     writes anything: the peer has then waited for this warpgroup's copy
+//     of p - 1, whose source these writes may overwrite, wherever p reads
+//     it (the programs' next product reads every mirrored output but a
+//     trunk-only program's t, whose copy a later wait covers before t is
+//     written again);
+//  4. after its writes (fenced, and a warpgroup barrier after every
+//     thread's step 3), one thread copies its half to the peer and
+//     arrives on the peer's wrote[wg].
+// So each of the peer's phases needs this warpgroup's previous one, and no
+// barrier runs a phase ahead of a wait on it.  At the end each warpgroup
+// waits for the peer's last hand-over and arrives once more on the peer's
+// read barrier, and leaves once the peer has done the same: nothing
+// reaches a block after it exits, and its last copy has been read.
+// mbarriers, so that a fault in the order traps instead of hanging the
+// card; nothing waits on the whole cluster.
+//
+// A wide forward's grid is one-dimensional with clusters of CLUSTER blocks,
+// so a block's cluster is blockIdx.x / CLUSTER and its rank blockIdx.x %
+// CLUSTER; Mirror keeps no registers and reads both, and the barriers'
+// offset, where it needs them (a warpgroup's 64 x 256 accumulators leave
+// little room).
+struct Mirror {
+  int off;          // the barriers' offset in shared memory: read[2], then wrote[2]
+
+  __device__ static uint32_t peer() { return (blockIdx.x % CLUSTER) ^ 1u; }
+  __device__ uint64_t* bars() const {
+    extern __shared__ __align__(1024) unsigned char mirror_smem[];
+    return reinterpret_cast<uint64_t*>(mirror_smem + off);
+  }
+  __device__ uint64_t* read(const Lane& ln) const { return bars() + ln.wg; }
+  __device__ uint64_t* wrote(const Lane& ln) const { return bars() + 2 + ln.wg; }
+  // Step 2, after a warpgroup barrier: every thread arrives, and arms its
+  // share of `bytes` (a multiple of 128); no branch (see mbar_spin).
+  __device__ void done_reading(const Lane& ln, uint32_t bytes) const {
+    mbar_arrive_cluster(read(ln), peer());
+    mbar_expect_tx(wrote(ln), bytes / 128);
+  }
+  // Step 3 of product p.
+  __device__ void await_peer(const Lane& ln, long long p) const {
+    mbar_wait(read(ln), (uint32_t)(p & 1));
+  }
+  // Step 4: `bytes` of `tile` from column cb (none for an output that goes
+  // to device memory alone).
+  __device__ void hand_over(const Lane& ln, const bf16* tile, int cb, uint32_t bytes) const {
+    if (ln.t != 0) return;
+    const uint32_t bar = cluster_addr(wrote(ln), peer());
+    if (bytes) {
+      const bf16* src = tile + (cb >> 3) * CHUNK;
+      bulk_copy_cluster(cluster_addr(src, peer()), src, bytes, bar);
+    }
+    mbar_arrive_remote(bar);
+  }
+  // The warpgroup's last step, after `total` products.
+  __device__ void drain(const Lane& ln, long long total) const {
+    mbar_wait(wrote(ln), (uint32_t)((total - 1) & 1));
+    mbar_arrive_cluster(read(ln), peer());
+    mbar_wait(read(ln), (uint32_t)(total & 1));
+  }
+};
+
+// One thread initialises a block's Mirror barriers (after `off` bytes); a
+// cluster barrier must follow before any remote arrive or copy.
+__device__ __forceinline__ Mirror make_mirror(unsigned char* smem, int off) {
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + off);
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < 2; ++w) {
+      mbar_init(&bars[w], 128);     // the peer's threads
+      mbar_init(&bars[2 + w], 129); // this warpgroup's arms, the peer's hand-over
+    }
+    mbar_fence_init();
+  }
+  return Mirror{off};
+}
 
 }  // namespace pe
 }  // namespace cropnerf

@@ -359,6 +359,31 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t cta)
       "r"(cta)
       : "memory");
 }
+// The shared::cluster address of `p`'s offset in block `cta`'s shared memory.
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, uint32_t cta) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_u32(p)), "r"(cta));
+  return r;
+}
+// Arrives on the mbarrier at the shared::cluster address `bar` (a
+// cluster_addr), with the default semantics (release at CTA scope), as
+// mbar_arrive_cluster does.
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// This block's shared memory -> another block's (`dst` and `bar`
+// cluster_addr's there), `bytes` (a multiple of 16, both addresses 16-byte
+// aligned), completing on that block's barrier `bar` (its transaction
+// count).  The source is read by the async proxy: the writes to it need
+// fence_async_smem and a barrier first.
+__device__ __forceinline__ void bulk_copy_cluster(uint32_t dst, const void* src, uint32_t bytes,
+                                                  uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(dst),
+      "r"(smem_u32(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
 // bulk_load into the same offset `dst` of the shared memory of every block
 // of the cluster in `mask`, each completing on the barrier at `bar`'s offset
 // in its own shared memory.

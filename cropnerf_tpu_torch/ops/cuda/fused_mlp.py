@@ -290,14 +290,14 @@ def _stream_lib():
     prog = [ctypes.POINTER(ctypes.c_int), vp, i32, i64]
     lib.cropnerf_mlp_stream_fwd.argtypes = [vp] * 4 + prog + [vp]
     lib.cropnerf_mlp_stream_bwd.argtypes = [vp] * 5 + prog + [vp] * 7
-    for f in ("bwd_sizes", "bwd_grid"):
+    for f in ("bwd_sizes", "bwd_grid", "fwd_grid"):
         getattr(lib, f"cropnerf_mlp_stream_{f}").argtypes = prog[:1] + [
             i32, i64, ctypes.POINTER(ctypes.c_longlong)]
     for f in ("fwd", "bwd"):
         getattr(lib, f"cropnerf_mlp_stream_{f}_smem_bytes").argtypes = [
             ctypes.POINTER(ctypes.c_int), i32]
-    for f in ("fwd", "bwd", "bwd_sizes", "bwd_grid", "fwd_smem_bytes",
-              "bwd_smem_bytes"):
+    for f in ("fwd", "bwd", "bwd_sizes", "bwd_grid", "fwd_grid",
+              "fwd_smem_bytes", "bwd_smem_bytes"):
         getattr(lib, f"cropnerf_mlp_stream_{f}").restype = ctypes.c_int
     return lib
 
@@ -307,10 +307,22 @@ def stream_bwd_grid(key: tuple, n_rows: int) -> dict:
     program ``key`` at ``n_rows`` rows on the current card: the cluster
     size, the clusters resident at once, the blocks launched, and the C
     function's return (0, or the cudaError that refuses the launch)."""
+    return _stream_grid("bwd", key, n_rows)
+
+
+def stream_fwd_grid(key: tuple, n_rows: int) -> dict:
+    """The stream forward's grid for the program ``key`` at ``n_rows``
+    rows on the current card, as ``stream_bwd_grid`` gives the backward's:
+    clusters of two a wide program, else persistent blocks, one an SM up
+    to the tiles (cluster 0, no clusters resident)."""
+    return _stream_grid("fwd", key, n_rows)
+
+
+def _stream_grid(kind: str, key: tuple, n_rows: int) -> dict:
     prog = stream_plan(key).ints()
     out = (ctypes.c_longlong * 3)()
-    err = _stream_lib().cropnerf_mlp_stream_bwd_grid(c_ints(prog), len(prog),
-                                                    n_rows, out)
+    err = getattr(_stream_lib(), f"cropnerf_mlp_stream_{kind}_grid")(
+        c_ints(prog), len(prog), n_rows, out)
     if err == -1:
         raise ValueError("the stream kernel rejects this net")
     return dict(cluster=out[0], active_clusters=out[1], blocks=out[2],
@@ -371,6 +383,10 @@ def stream_forward(name, x, wbs, num_freqs: int = -1) -> torch.Tensor:
             c_ints(prog), prog_dev.data_ptr(), len(prog), n,
             stream_ptr(device))
     if err:
+        grid = stream_fwd_grid(key, n)
+        if grid["error"]:
+            raise RuntimeError(cluster_refusal(
+                name, err, grid, stream_smem_bytes(key, False)))
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     return out
 

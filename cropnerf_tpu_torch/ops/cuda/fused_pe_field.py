@@ -12,9 +12,10 @@ L2.  ``pe_plan.py`` plans it (``build_forward_plan``: the program and its
 ``wgmma`` weight image); the kernel runs that program on the tile
 interpreter it shares with the backward.  The trunk and the heads take
 layers up to 512 wide (``common.MAX_WIDTH``); a layer over 256 makes the
-program wide (``pe_plan.wide_program``: both warpgroups on one 64-row
-tile, each half of every product), and a wider layer, or a layout over a
-block's shared memory, raises on the card with its reason.  The ragged
+program wide (``pe_plan.wide_program``: every product's columns split in
+halves, the forward's over a persistent cluster of two blocks, ``fwd_grid``,
+whose refusal raises), and a wider layer, or a layout over a block's
+shared memory, raises on the card with its reason.  The ragged
 tail of N is masked in the kernel; there is no fallback.
 
 Both are differentiable.  On the card their backwards are
@@ -187,6 +188,10 @@ def _lib():
     lib.cropnerf_pe_field_fwd_smem_bytes.argtypes = [
         ctypes.POINTER(ctypes.c_int), ctypes.c_int]
     lib.cropnerf_pe_field_fwd_smem_bytes.restype = ctypes.c_int
+    lib.cropnerf_pe_field_fwd_grid.argtypes = [
+        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_longlong,
+        ctypes.POINTER(ctypes.c_longlong)]
+    lib.cropnerf_pe_field_fwd_grid.restype = ctypes.c_int
     return lib
 
 
@@ -297,6 +302,22 @@ def smem_bytes(meta, heads: bool) -> int:
     return _lib().cropnerf_pe_field_fwd_smem_bytes(c_ints(prog), len(prog))
 
 
+def fwd_grid(meta, heads: bool, n_rows: int) -> dict:
+    """The forward's grid at ``n_rows`` rows on the current card: the
+    cluster size (0 up to 256 wide: persistent blocks), the clusters
+    resident at once (0 without clusters), the blocks launched, and
+    the C function's return (0, or the cudaError that refuses the
+    launch)."""
+    prog = build_forward_plan(meta, heads).ints()
+    out = (ctypes.c_longlong * 3)()
+    err = _lib().cropnerf_pe_field_fwd_grid(c_ints(prog), len(prog), n_rows,
+                                            out)
+    if err == -1:
+        raise ValueError("the kernel rejects this layout")
+    return dict(cluster=out[0], active_clusters=out[1], blocks=out[2],
+                error=err)
+
+
 @functools.lru_cache(maxsize=16)
 def _program(meta: tuple, device: torch.device, heads: bool,
              backward: bool = False, pass_sem: bool = False,
@@ -334,6 +355,9 @@ def _launch(name, x, extras, outs, wbuf, bbuf, meta, heads, device):
             img.data_ptr(), bbuf.data_ptr(), c_ints(prog),
             prog_dev.data_ptr(), len(prog), x.shape[0], stream_ptr(device))
     if err:
+        grid = fwd_grid(meta, heads, x.shape[0])
+        if grid["error"]:
+            raise RuntimeError(cluster_refusal(name, err, grid, smem))
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
 

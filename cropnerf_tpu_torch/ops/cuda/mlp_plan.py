@@ -9,8 +9,10 @@ encoding of x [N, dim] with F frequencies), each layer padded as
 biases alike), and each product's output to its width
 (``pe_plan.pow2_width``).  Every input and layer is at most ``MAX_W``
 (512) wide, K5's encoding at most ``MAX_N`` (256); a net with an input or
-a layer over ``MAX_N`` runs wide (``pe_plan.wide_program``: both
-warpgroups on one 64-row tile, each half of every product).  The forward program is one FWD op per layer,
+a layer over ``MAX_N`` runs wide (``pe_plan.wide_program``: every
+product's columns split in halves; the forward's over a cluster of two
+blocks, each warpgroup with one buffer that takes the input too, the
+backward's between a block's two warpgroups).  The forward program is one FWD op per layer,
 the last writing the f32 output (Y_OUT).  The backward's recomputes the
 hidden layers (RELU, with relu masks and workspace slots), takes the last
 layer's cotangent from g (EMIT), goes back through the layers in place
@@ -35,9 +37,10 @@ from typing import List, Sequence, Tuple
 import torch
 
 from .common import pad16
-from .pe_plan import (BWD, CLUSTER_BAR_SETS, EMIT, FWD, MAX_N, MAX_W, O_A0,
-                      O_A1, O_BOFF, O_COL, O_EPI, O_IMG, O_K, O_KA, O_KIND,
-                      O_MASK, O_N, O_NVALID, O_WS, OP_INTS, Plan, al128,
+from .pe_plan import (BWD, CLUSTER_BAR_SETS, EMIT, FWD, MAX_N, MAX_W,
+                      MIRROR_BYTES, O_A0, O_A1, O_BOFF, O_COL, O_EPI, O_IMG,
+                      O_K, O_KA, O_KIND, O_MASK, O_N, O_NVALID, O_WS,
+                      OP_INTS, Plan, al128,
                       core_k_major, dw_tasks, mask_words, pow2_chunks,
                       pow2_width, ring_stages, wide_program)
 
@@ -57,8 +60,8 @@ G_MASKED, DX, GENC = range(3)
 
 # shared-memory layout constants of the kernels (csrc/pe_tile.cuh): rows
 # of a tile, slab rows of the forward (32 when wide) and of the backward,
-# ring stages the forward needs (2 when wide) and the backward up to MAX_N
-# wide (two wgmma groups in flight)
+# ring stages the forward needs and the backward up to MAX_N wide (two
+# wgmma groups in flight)
 ROWS, FWD_SLAB, BWD_SLAB, MIN_FWD_STAGES, MIN_BWD_STAGES = 64, 64, 32, 3, 3
 
 
@@ -207,19 +210,25 @@ def build_stream_plan(din: int, widths: Sequence[int], dim: int = 0,
 def stream_smem(h: Sequence[int], backward: bool) -> Tuple[int, int]:
     """(dynamic shared memory a block takes, ring stages) of a program
     with header ``h``: csrc/fused_mlp_stream.cu fwd_layout / bwd_layout.
-    A wide program keeps one region for the block, not one a warpgroup,
-    and slabs of 32 rows as wide as ``MAX_W``; the backward's ring is a
-    cluster ring (``CLUSTER_BAR_SETS`` barrier arrays) of 64-row slabs
-    where ``MIN_BWD_STAGES`` of them fit, else of 32-row slabs, or 16 where
-    the stages it needs (``MIN_BWD_STAGES`` up to ``MAX_N`` wide, 2 wide)
-    of 32 do not fit."""
+    The forward keeps a region a warpgroup; a wide forward's is one buffer
+    as wide as the input and every layer, and its block adds the
+    handshake barriers and slabs of 32 rows of its half of the columns
+    (``MAX_N``).  A wide backward keeps one region for the block and slabs
+    of 32 rows as wide as ``MAX_W``; the backward's ring is a cluster ring
+    (``CLUSTER_BAR_SETS`` barrier arrays) of 64-row slabs where
+    ``MIN_BWD_STAGES`` of them fit, else of 32-row slabs, or 16 where the
+    stages it needs (``MIN_BWD_STAGES`` up to ``MAX_N`` wide, 2 wide) of 32
+    do not fit."""
     wide = stream_wide(h)
     copies, width = (1, MAX_W) if wide else (2, MAX_N)
     in_bytes = al128(ROWS * h[M_IN_PAD] * 2)
     act = al128(ROWS * h[M_ACT_W] * 2)
     if not backward:
-        stages, total = ring_stages(copies * (in_bytes + act) + 16,
-                                     BWD_SLAB if wide else FWD_SLAB, width)
+        region = (al128(ROWS * max(h[M_IN_PAD], h[M_ACT_W]) * 2) if wide
+                  else in_bytes + act)
+        stages, total = ring_stages(
+            2 * region + 16 + (MIRROR_BYTES if wide else 0),
+            BWD_SLAB if wide else FWD_SLAB)
         return total, stages
     region = (max(in_bytes, al128(ROWS * h[M_IN_PAD] * 4)) if h[M_DIM]
               else in_bytes)

@@ -16,11 +16,16 @@ weight-gradient pass reads and lists that pass's tasks.
 A program whose layers are all at most ``MAX_N`` (256) wide runs each
 product as one ``wgmma`` shape on a warpgroup's own 64 rows.  A program
 with a wider layer (up to ``MAX_W``, 512) is "wide" (``wide_program``):
-both consumer warpgroups share one 64-row tile and each takes half of
-every product's N columns, so that no accumulator is wider than 256; its
-relu masks take half the words a thread, its input-gradient products take
-chunks up to 512 wide, and its weight-gradient tasks take a G slot wider
-than 256 in 256-column blocks (``T_J0``).  Everything here is
+every product's N columns are split in halves, so that no accumulator is
+wider than 256.  The forward runs as persistent clusters of ``CLUSTER`` (2)
+blocks that walk the 128-row tiles together, each block computing one
+half of every product from that half of each slab alone
+(``half_slab_index``) and mirroring its output into the other block's
+tiles (``fwd_smem`` mirrors its layout); the backward keeps both
+warpgroups of a block on one 64-row tile, each taking half of every
+product: its relu masks take half the words a thread, its input-gradient
+products take chunks up to 512 wide, and its weight-gradient tasks take a
+G slot wider than 256 in 256-column blocks (``T_J0``).  Everything here is
 plain Python, so the CPU tests run both programs
 (``tests/test_torch_kernels.py``) and hold them against the plain versions
 and autograd.
@@ -107,9 +112,10 @@ def pow2_chunks(n: int, largest: int = MAX_N) -> List[int]:
 
 def wide_program(widths) -> bool:
     """Whether a program whose products and activation tiles have these
-    widths runs wide: both warpgroups on one 64-row tile, each half of
-    every product (the kernels: the header's activation width over
-    MAX_N)."""
+    widths runs wide: every product's columns in halves, the forward's
+    over a cluster of two blocks, the backward's between a block's two
+    warpgroups on one 64-row tile (the kernels: the header's activation
+    width over MAX_N)."""
     return max(widths) > MAX_N
 
 
@@ -436,10 +442,13 @@ def dw_splits(n_rows: int, n_tasks: int) -> int:
     return -(-blocks // per), per
 
 
-# ---- the backwards' persistent clusters (csrc/pe_tile.cuh) -----------------
+# ---- the persistent clusters (csrc/pe_tile.cuh) -----------------------------
 
 CLUSTER_BAR_SETS = 3     # a cluster ring's barrier arrays: full, empty, peer
 RING_STAGES, SLAB_K = 8, 32   # ring stages at most, the backward's slab rows
+CLUSTER = 2              # a cluster's blocks: a wide forward's halves of a product
+MIRROR_BYTES = 32        # a wide forward block's handshake barriers (Mirror)
+FWD_SLAB, FWD_MIN_STAGES = 64, 3   # the forward's slab rows and least stages
 
 
 def cluster_walk(n_tiles: int, cluster: int, n_clusters: int
@@ -506,3 +515,42 @@ def bwd_tile_smem(h) -> tuple:
     stages, total = ring_stages(off, SLAB_K, MAX_W if wide else MAX_N,
                                 CLUSTER_BAR_SETS if wide else 2)
     return total, stages
+
+
+# ---- the forward's layout and the wide forward's split ---------------------
+
+def fwd_smem(h) -> tuple:
+    """(dynamic shared memory, ring stages) of the forward kernel for the
+    program with header ``h``: ``fused_pe_field.cu`` ``fwd_layout``.  Each
+    consumer warpgroup keeps its region (encoding and output stage, t, the
+    activation tile); the block keeps its biases, the ops and the turn
+    barriers, a wide program also its handshake barriers; then a ring of
+    64-row slabs ``MAX_N`` wide, or when wide of 32-row slabs of the
+    block's half."""
+    wide = h[H_ACT_W] > MAX_N
+    out_cols = max(h[H_T_COLS], h[H_RGB_COLS], h[H_SEM_COLS])
+    region = (al128(max(BLOCK * h[H_ENC_PAD] * 2, BLOCK * out_cols * 4))
+              + al128(BLOCK * h[H_TB_W] * 2) + al128(BLOCK * h[H_ACT_W] * 2))
+    off = 2 * region + al128(h[H_TOTAL_B] * 4)
+    off += al128(h[H_N_OPS] * OP_INTS * 4) + 2 * 8 + (MIRROR_BYTES if wide
+                                                      else 0)
+    stages, total = ring_stages(off, SLAB_K if wide else FWD_SLAB)
+    return total, stages
+
+
+def half_slab_index(op, rank: int, slab_k: int = SLAB_K) -> List[List[int]]:
+    """The weight-image elements a wide forward block of rank ``rank``
+    copies for a product op, slab by slab (``produce_half_slabs``): for
+    each 8-row k-group of a slab, the block's half of its N // 8 core
+    matrices, one contiguous run of N // 2 * 8 elements; the slab lands as
+    the K-major core-matrix image of its [rows, N // 2] half."""
+    N, K, img = op[O_N], op[O_K], op[O_IMG]
+    half = N // 2
+    slabs = []
+    for k0 in range(0, K, slab_k):
+        idx = []
+        for g in range(min(slab_k, K - k0) // 8):
+            start = img + ((k0 // 8 + g) * N + rank * half) * 8
+            idx += range(start, start + half * 8)
+        slabs.append(idx)
+    return slabs

@@ -1121,6 +1121,10 @@ K5_FWD_GPU_CASES = {"net0": (5, 64, 3, 1_048_576, "wgmma"),
                     "prop256-net0": (5, 256, 3, 1_048_576, "stream"),
                     "prop256-net1-ragged": (6, 256, 3, 393_216 - 77, "stream"),
                     "prop256-one-row": (5, 256, 3, 1, "stream"),
+                    "w512-net0": (5, 512, 3, 1_048_576, "stream"),
+                    "w512-net1-ragged": (6, 512, 3, 393_216 - 77, "stream"),
+                    "w512-three-tiles": (5, 512, 3, 300, "stream"),
+                    "w512-one-row": (6, 512, 3, 1, "stream"),
                     "prop256-empty": (6, 256, 3, 0, "stream")}
 
 
@@ -1325,8 +1329,8 @@ def test_stream_layouts_are_the_planned_ones(cuda):
 def test_backward_tile_kernels_run_as_clusters(cuda):
     """The stream route's backward tile kernel, at every net of its route
     table, and K1's and K2's at [w512]'s widths run as persistent clusters
-    (csrc/pe_tile.cuh cluster_launch): clusters of the build's size (2 or
-    4), at least one resident, the grid pe_plan.cluster_blocks sizes, no
+    (csrc/pe_tile.cuh cluster_launch): clusters of CLUSTER blocks (2, its
+    mirror pe_plan.CLUSTER), at least one resident, the grid pe_plan.cluster_blocks sizes, no
     more blocks than SMs; K1 and K2 up to 256 wide keep one block a tile.
     The C layout of K1's and K2's tile kernel is pe_plan.bwd_tile_smem's."""
     from cropnerf_tpu_torch.ops.cuda import mlp_plan
@@ -1341,7 +1345,7 @@ def test_backward_tile_kernels_run_as_clusters(cuda):
                                 error=0), grid
             return
         c, k = grid["cluster"], grid["active_clusters"]
-        assert grid["error"] == 0 and c == 2 and k >= 1, grid
+        assert grid["error"] == 0 and c == pe_plan.CLUSTER and k >= 1, grid
         assert grid["blocks"] == pe_plan.cluster_blocks(tiles, c, k) <= sms
         sizes.add(c)
 
@@ -1714,11 +1718,13 @@ def test_projection_row_segments_match_one_dispatch(cuda, preset):
 
 # --- 512 wide: the tile kernels' wide programs ([w512]) -----------------------
 #
-# A layer over 256 wide makes a program wide: both warpgroups on one 64-row
-# tile, each with half of every product.  Row counts: one row, either side
-# of a 64-row tile (the wide forward's) and of a 128-row tile (the
-# backward's, whose halves a wide block takes in turn), an export chunk and
-# a training step's field samples (4096 rays x 48).
+# A layer over 256 wide makes a program wide: every product's columns in
+# halves, the forward's over a cluster of two blocks (each warpgroup on its
+# own 64 rows of a 128-row tile), the backward's between a block's two
+# warpgroups on one 64-row half at a time.  Row counts: one row, either
+# side of a warpgroup's 64 rows and of a 128-row tile, 300 (a tile whose
+# second warpgroup has 44 rows), an export chunk less a ragged tail and a
+# training step's field samples (4096 rays x 48).
 W512_N = [1, 63, 65, 129, 300, 65_536 - 45, 196_608]
 
 
@@ -1857,6 +1863,51 @@ def test_fused_mlp_stream_w512_matches_plain(cuda, net, n, need_dw):
     assert torch.equal(dx_only, dx)
     assert all(torch.equal(a, b) for a, b in zip(dw_only, dw))
 
+
+
+def test_wide_forwards_run_as_split_clusters(cuda):
+    """The wide forwards (K1 and K2 at [w512]'s field, the stream route's
+    K5 nets and K3 head at 512 wide) run as persistent clusters of CLUSTER
+    (2) blocks (csrc/pe_tile.cuh cluster_launch, a 128-row tile a
+    cluster): at least one resident, as many clusters as tiles up to the
+    resident count, no more blocks than SMs; the forwards up to 256 wide
+    keep persistent
+    blocks, one an SM up to the tiles.  The C layout of K1's and K2's
+    forward is pe_plan.fwd_smem's."""
+    from cropnerf_tpu_torch.ops.cuda import mlp_plan
+    from cropnerf_tpu_torch.ops.cuda import pe_plan
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+
+    def held(grid, n, wide):
+        tiles = -(-n // 128)
+        if not wide:
+            assert grid == dict(cluster=0, active_clusters=0,
+                                blocks=min(tiles, sms), error=0), grid
+            return
+        k = grid["active_clusters"]
+        c = pe_plan.CLUSTER
+        assert grid["error"] == 0 and grid["cluster"] == c and k >= 1, grid
+        assert grid["blocks"] == c * min(k, tiles) <= sms, grid
+
+    for hidden, hs, wide in ((256, 64, False), (512, 512, True)):
+        cfg, params = _field(cuda, hidden_dim=hidden, hidden_dim_semantics=hs)
+        base, top, color, sem = [[w.detach() for w in grp] for grp in
+                                 fused_field_weights(params.field, cfg.field)]
+        for heads in (True, False):
+            grp = (base, top, color, sem) if heads else (base, top)
+            de = {"de": color[1].shape[0]} if heads else {}
+            _, _, meta = kfield.pack_pe_field(3, POS_FREQS, *grp, **de)
+            h = pe_plan.build_forward_plan(meta, heads).header
+            assert kfield.smem_bytes(meta, heads) == pe_plan.fwd_smem(h)[0]
+            for n in (1, 300, 196_608):
+                held(kfield.fwd_grid(meta, heads, n), n, wide)
+    for din, widths, dim, F in ((33, [512, 512, 1], 3, 5),
+                                (39, [512, 512, 1], 3, 6),
+                                (15, [512, 1], 0, 0),
+                                (39, [256, 256, 1], 3, 6)):
+        key = mlp_plan.program_key(din, widths, dim, F, False)
+        for n in (1, 300, 1_048_576):
+            held(kmlp.stream_fwd_grid(key, n), n, max(widths) > 256)
 
 def test_w512_layouts_fit_and_refuse_past_512(cuda):
     """[w512]'s K1 and K2 programs fit a block's shared memory forward and

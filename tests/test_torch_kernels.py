@@ -295,6 +295,172 @@ def test_wide_kernel_models_reproduce_plain_path(heads):
         assert _rel(g, r) <= 1e-5, (name, _rel(g, r))
 
 
+
+def _split_halves(img, op, dtype):
+    """Each block's B operand of a wide forward's product op, [K, N // 2]:
+    the slabs ``pe_plan.half_slab_index`` names, each read back as the
+    K-major core-matrix image of its rows of the block's half."""
+    from cropnerf_tpu_torch.ops.cuda import pe_plan as P
+    half = op[P.O_N] // 2
+    out = []
+    for rank in range(P.CLUSTER):
+        slabs = [P.from_core_k_major(img[torch.tensor(idx)], len(idx) // half,
+                                     half)
+                 for idx in P.half_slab_index(op, rank)]
+        out.append(torch.cat(slabs).to(dtype))
+    return out
+
+
+def _split_model_pe_field_fwd(x, extras, wbuf, bbuf, meta, heads):
+    """csrc/fused_pe_field.cu's wide forward as its cluster runs it: two
+    blocks, each with its own copy of the rows' encoding, activation and t
+    tiles, computing one half of every product's columns from the half
+    slabs its producer copies, then writing that half into its own tiles
+    and its peer's (Mirror); each output's columns come from the block
+    that owns them.  The two copies must stay equal.  Returns t, or (t,
+    rgb_raw, sem_raw) with the heads."""
+    from cropnerf_tpu_torch.ops.cuda import pe_plan as P
+    cd = wbuf.dtype
+    plan = P.build_forward_plan(meta, heads)
+    img = P.weight_image(wbuf, P.image_index(meta, plan))
+    h = plan.header
+    assert P.wide_program([h[P.H_ACT_W]])
+    N = x.shape[0]
+    n_pad = -(-N // P.TILE) * P.TILE
+    xs, exs = torch.zeros((n_pad, h[P.H_DIM])), torch.zeros((n_pad, h[P.H_ACT_W]))
+    xs[:N] = x
+    if heads:
+        exs[:N, :extras.shape[1]] = extras
+    enc = torch.zeros((n_pad, h[P.H_ENC_PAD]))
+    enc[:, :h[P.H_ENC_COLS]] = tfield._encode(xs, h[P.H_FREQS])
+    blocks = [{P.ENC: enc.to(cd),
+               P.ACT: torch.zeros((n_pad, h[P.H_ACT_W]), dtype=cd),
+               P.TB: torch.zeros((n_pad, h[P.H_TB_W]), dtype=cd)}
+              for _ in range(P.CLUSTER)]
+    cols = {P.T_OUT: h[P.H_T_COLS], P.RGB_OUT: h[P.H_RGB_COLS],
+            P.SEM_OUT: h[P.H_SEM_COLS]}
+    outs = {}
+    for op in plan.ops:
+        n, K, ka = op[P.O_N], op[P.O_K], op[P.O_KA]
+        if op[P.O_KIND] == P.EX:               # each block loads the extras
+            for bufs in blocks:
+                bufs[P.ACT][:, :n] = exs[:, :n].to(cd)
+            continue
+        half, epi = n // 2, op[P.O_EPI]
+        accs = []
+        for rank, (bufs, b) in enumerate(zip(blocks, _split_halves(img, op, cd))):
+            a = torch.cat([bufs[op[P.O_A0]][:, :ka],
+                           bufs[op[P.O_A1]][:, :K - ka]], 1)
+            acc = a.float() @ b.float()
+            c = torch.arange(rank * half, (rank + 1) * half)
+            live = c < op[P.O_NVALID]
+            acc[:, live] += bbuf[op[P.O_BOFF] + c[live]]
+            accs.append(acc)
+        for rank, acc in enumerate(accs):      # every product read, then the stores
+            c = slice(rank * half, (rank + 1) * half)
+            if epi in (P.RELU, P.T_OUT):
+                v = (torch.relu(acc) if epi == P.RELU else acc).to(cd)
+                for bufs in blocks:            # its own copy and its peer's
+                    bufs[P.ACT if epi == P.RELU else P.TB][:, c] = v
+            if epi in cols:
+                out = outs.setdefault(epi, torch.full((n_pad, cols[epi]), float("nan")))
+                width = max(0, min(half, cols[epi] - rank * half))
+                out[:, rank * half:rank * half + width] = acc[:, :width]
+    for buf in (P.ENC, P.ACT, P.TB):
+        assert torch.equal(blocks[0][buf], blocks[1][buf]), buf
+    got = [outs[e][:N] for e in ((P.T_OUT, P.RGB_OUT, P.SEM_OUT) if heads
+                                 else (P.T_OUT,))]
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    return tuple(got) if heads else got[0]
+
+
+@pytest.mark.parametrize("heads", [True, False], ids=["heads", "trunk"])
+def test_wide_split_model_reproduces_plain_path(heads):
+    """[w512]'s forward program as the wide forward's cluster runs it
+    (``_split_model_pe_field_fwd``: two blocks, each computing its half of
+    every product's columns from its half slabs and mirroring it) on a
+    float32 weight image gives the float32 plain version's outputs to
+    1e-5 of their largest value, as the whole program does
+    (test_wide_kernel_models_reproduce_plain_path), and the whole
+    program's values bit for bit in bf16 (each column's sum is the same
+    sum, in the same k order)."""
+    case = PE_CASES[2]
+    F = case[0]
+    x, ex, groups, (wbuf, bbuf, meta) = _fwd_case(case, heads, torch.float32)
+    got = _split_model_pe_field_fwd(x, ex, wbuf, bbuf, meta, heads)
+    if heads:
+        ref = tfield.fused_pe_nerf_plain(x, ex, *groups, F, torch.float32)
+    else:
+        got = (got,)
+        ref = (tfield.fused_pe_density_plain(x, *groups, F, torch.float32),)
+    for name, g, r in zip(("t", "rgb_raw", "sem_raw"), got, ref):
+        assert _rel(g, r) <= 1e-5, (name, _rel(g, r))
+    x, ex, _, (wbuf, bbuf, meta) = _fwd_case(case, heads)
+    split = _split_model_pe_field_fwd(x, ex, wbuf, bbuf, meta, heads)
+    whole = _kernel_model_pe_field_fwd(x, ex, wbuf, bbuf, meta, heads)
+    for g, w in zip(split if heads else (split,), whole if heads else (whole,)):
+        assert torch.equal(g, w), float((g - w).abs().max())
+
+
+@pytest.mark.parametrize("heads", [True, False], ids=["heads", "trunk"])
+def test_wide_forward_half_slabs_cover_each_product(heads):
+    """``produce_half_slabs`` at [w512]'s forward programs: for every
+    product the two blocks' copies take each element of its B image once
+    between them, each block the same k rows of its own columns in every
+    slab, as 16-byte-aligned runs whose slab fits a 16 KB stage (32 rows
+    of 256 columns)."""
+    from cropnerf_tpu_torch.ops.cuda import pe_plan as P
+    _, _, _, (wbuf, _, meta) = _fwd_case(PE_CASES[2], heads)
+    plan = P.build_forward_plan(meta, heads)
+    img = P.image_index(meta, plan)
+    for op in (op for op in plan.ops if op[P.O_KIND] == P.FWD):
+        N, K, at = op[P.O_N], op[P.O_K], op[P.O_IMG]
+        halves = [P.half_slab_index(op, r) for r in range(P.CLUSTER)]
+        flat = sorted(i for hs in halves for slab in hs for i in slab)
+        assert flat == list(range(at, at + K * N))
+        for hs in halves:
+            assert len(hs) == -(-K // P.SLAB_K)
+            for slab in hs:
+                assert len(slab) * 2 <= P.SLAB_K * P.MAX_N * 2
+                runs = [slab[i:i + N // 2 * 8]
+                        for i in range(0, len(slab), N // 2 * 8)]
+                assert all(r[0] * 2 % 16 == 0 and r == list(range(r[0], r[0] + len(r)))
+                           for r in runs)
+        # block r's columns: the B matrix's [:, r N/2:(r+1) N/2]
+        b = P.from_core_k_major(img[at:at + K * N], K, N)
+        for r, hs in enumerate(halves):
+            got = torch.cat([P.from_core_k_major(img[torch.tensor(s)],
+                                                 len(s) // (N // 2), N // 2)
+                             for s in hs])
+            assert torch.equal(got, b[:, r * N // 2:(r + 1) * N // 2])
+
+
+# the forward kernel's dynamic shared memory and ring stages
+# (``pe_plan.fwd_smem``, the mirror of fused_pe_field.cu's ``fwd_layout``):
+# up to 256 wide a warpgroup's region each, the biases, 64-row slabs (the
+# layouts before the wide forward's split, unchanged); [w512]'s wide
+# programs a region a warpgroup with the 512-wide activation tile, the
+# biases, the handshake barriers and 16 KB stages of 32 rows of the
+# block's half
+FWD_SMEM = {("narrow", True): (218_624, 6), ("narrow", False): (218_112, 6),
+            ("flagship", True): (226_048, 4), ("flagship", False): (225_152, 4),
+            ("w512", True): (218_624, 3), ("w512", False): (232_320, 4)}
+
+
+@pytest.mark.parametrize("heads", [True, False], ids=["K1", "K2"])
+@pytest.mark.parametrize("case", PE_CASES, ids=PE_IDS)
+def test_forward_layout_mirror(case, heads):
+    """``pe_plan.fwd_smem`` at the narrow, flagship and [w512] programs:
+    every one fits a block's shared memory with at least the three stages
+    ``PingPong`` needs; the values are those the layouts give (the card's
+    C function is held to the mirror in tests/test_torch_gpu.py)."""
+    from cropnerf_tpu_torch.ops.cuda import pe_plan as P
+    _, _, _, (_, _, meta) = _fwd_case(case, heads)
+    h = P.build_forward_plan(meta, heads).header
+    total, stages = P.fwd_smem(h)
+    assert total <= 232_448 and stages >= P.FWD_MIN_STAGES
+    assert (total, stages) == FWD_SMEM[(PE_IDS[PE_CASES.index(case)], heads)]
+
 def _f32_weight_buffer(groups, F, de):
     """pack_pe_field's weight buffer in float32, for the f32 arm's run of
     the programs: the same layers and blocks, unrounded."""

@@ -253,8 +253,9 @@ def test_stream_backward_variants_give_the_full_backward(variant):
 
 
 # (din, F or None, widths): every layout the route takes fits a block's
-# shared memory, forward (three slab stages: of 64 rows, or 32 rows 512
-# wide for a net over 256 wide) and backward (of 32 rows or 16: three
+# shared memory, forward (three slab stages: of 64 rows, or for a net over
+# 256 wide 32 rows of a block's 256-column half) and backward (of 32 rows
+# or 16: three
 # stages up to 256 wide, for two wgmma groups in flight and the
 # warpgroups' hand-over; two when wide)
 SMEM_EDGES = [(256, None, [256] * 32), (256, None, [256] * 31 + [1]),
@@ -354,6 +355,83 @@ def test_stream_backward_layout_holds_its_barriers(case):
     assert stages >= (2 if wide else mp.MIN_BWD_STAGES)
     assert tmlp.MAX_SMEM_BYTES // 2 < total <= tmlp.MAX_SMEM_BYTES
 
+
+
+def _stream_split_model(x, wbs, F=None):
+    """The stream forward's wide program as its cluster runs it, in
+    float32: two blocks, each warpgroup with one buffer that takes the
+    input (K5's encoding or K3's x) and every layer in place, each block
+    computing its half of every product's columns from the half slabs its
+    producer copies (``pe_plan.half_slab_index``) and writing that half
+    into its own buffer and its peer's; the last layer's columns come from
+    the block that owns them.  The two copies must stay equal."""
+    din, widths = wbs[0].shape[0], [w.shape[1] for w in wbs[0::2]]
+    dim = x.shape[1] if F is not None else 0
+    key = mp.program_key(din, widths, dim, F or 0, False)
+    plan = mp.stream_plan(key)
+    h = plan.header
+    assert mp.stream_wide(h)
+    img, bias = _images(wbs, key, torch.float32)
+    N = x.shape[0]
+    n_pad = -(-N // P.TILE) * P.TILE
+    xs = torch.zeros((n_pad, x.shape[1]))
+    xs[:N] = x
+    width = max(h[mp.M_IN_PAD], h[mp.M_ACT_W])
+    blocks = [torch.zeros((n_pad, width)) for _ in range(P.CLUSTER)]
+    for buf in blocks:                         # each block encodes the rows
+        buf[:, :din] = tfield._encode(xs, F) if dim else xs
+    out = torch.full((n_pad, h[mp.M_DOUT]), float("nan"))
+    for op in plan.ops:
+        n, K, half = op[P.O_N], op[P.O_K], op[P.O_N] // 2
+        accs = []
+        for rank, buf in enumerate(blocks):
+            b = torch.cat([P.from_core_k_major(img[torch.tensor(idx)],
+                                               len(idx) // half, half)
+                           for idx in P.half_slab_index(op, rank)])
+            acc = buf[:, :K] @ b
+            c = torch.arange(rank * half, (rank + 1) * half)
+            live = c < op[P.O_NVALID]
+            acc[:, live] += bias[op[P.O_BOFF] + c[live]]
+            accs.append(acc)
+        for rank, acc in enumerate(accs):
+            if op[P.O_EPI] == mp.Y_OUT:
+                w = max(0, min(half, h[mp.M_DOUT] - rank * half))
+                out[:, rank * half:rank * half + w] = acc[:, :w]
+                continue
+            for buf in blocks:                 # its own copy and its peer's
+                buf[:, rank * half:(rank + 1) * half] = torch.relu(acc)
+    assert torch.equal(blocks[0], blocks[1])
+    return out[:N]
+
+
+# [w512]'s wide stream forwards: K5's first proposal net (3 x 512, F = 5)
+# and K3's semantic head ([15, 512, 1]), and a K3 net whose 512-wide input
+# is wider than its layers
+SPLIT_NETS = {"w512-net0": (3, 5, [512, 512, 1]),
+              "w512-semantic-head": (15, None, [512, 1]),
+              "wide-input": (512, None, [256, 16])}
+
+
+@pytest.mark.parametrize("case", list(SPLIT_NETS))
+def test_stream_split_model_reproduces_plain(case):
+    """The wide stream forward's column split (``_stream_split_model``)
+    gives the float32 plain version's output to 1e-5 of its largest
+    value; its layout (``stream_smem``) is a 512-wide buffer a warpgroup,
+    the handshake barriers and six 16 KB stages, within a block's shared
+    memory."""
+    cols, F, widths = SPLIT_NETS[case]
+    rng = np.random.default_rng(5)
+    din = cols * (1 + 2 * F) if F is not None else cols
+    x = torch.from_numpy(rng.uniform(-1, 1, (200, cols)).astype(np.float32))
+    wbs = to_torch(np_wbs(rng, [din] + widths))
+    got = _stream_split_model(x, wbs, F)
+    ref = (tfield.fused_pe_mlp_plain(x, wbs, F, torch.float32) if F is not None
+           else tmlp.fused_mlp_plain(x, wbs, torch.float32))
+    err = float((got - ref).abs().max() / ref.abs().max())
+    assert err <= 1e-5, err
+    h = mp.stream_plan(mp.program_key(din, widths, cols if F is not None else 0,
+                                      F or 0, False)).header
+    assert mp.stream_smem(h, False) == (229_632, 6)
 
 @pytest.mark.parametrize("net", [(15, [513, 1]), (513, [8, 1]),
                                  (15, [64] * 33), (15, [600])])

@@ -6,14 +6,14 @@ weights; cropnerf-mxu's field (256 wide) at a training step's rows (4096
 rays x 48 samples), K2 forward at a 128-side export chunk, its dx-only
 backward at a BayesRays batch, K5 at [prop256]'s two nets (3 layers 256
 wide), K3's stream route at -huge's 256-wide semantic head (dx alone at
-its BayesRays batch, and with dW); then the same at [w512]'s widths
-(field trunk and semantic head 512 wide, K5 nets 3 x 512, K3's semantic
-head [15, 512, 1]) where the tree takes them ("no kernel" otherwise).
-Each time is the median of five CUDA-event windows of ten calls, after
-two warm-up calls.  ``--only TEXT`` times only the calls whose names
-hold TEXT:
+its BayesRays batch, and with dW; its forward at an export chunk); then
+the same at [w512]'s widths (field trunk and semantic head 512 wide, K5
+nets 3 x 512, K3's semantic head [15, 512, 1]) where the tree takes them
+("no kernel" otherwise).  Each time is the median of five CUDA-event
+windows of ten calls, after two warm-up calls.  ``--only TEXT[,TEXT...]``
+times only the calls whose names hold one of the comma-separated TEXTs:
 
-    python3 tools/field_times.py [--port-root DIR] [--only TEXT]
+    python3 tools/field_times.py [--port-root DIR] [--only TEXT[,TEXT...]]
 """
 from __future__ import annotations
 
@@ -108,19 +108,22 @@ def main() -> None:
                    torch.randn((1, b), generator=g, device=dev) * 0.05]
         x3 = torch.randn((n3, dims[0]), generator=g, device=dev)
         c3 = torch.randn((n3, 1), generator=g, device=dev)
+        x3e = x3[:512 * 64].contiguous()
+        calls["fused_mlp semantic head"] = lambda: km.fused_mlp(x3e, w3)
         calls["fused_mlp_bwd semantic head dx"] = (
             lambda: km.fused_mlp_bwd(x3, w3, c3, True, False))
         calls["fused_mlp_bwd semantic head with dW"] = (
             lambda: km.fused_mlp_bwd(x3, w3, c3, True, True))
         with torch.no_grad():
             for name, fn in calls.items():
-                if args.only not in f"{name} {width}":
+                if not any(t in f"{name} {width}"
+                           for t in args.only.split(",")):
                     continue
                 try:
                     out[f"{name} {width}"] = cuda_ms(fn)
                 except ValueError:
                     out[f"{name} {width}"] = "no kernel"
-        del params, x, ex, cots, calls, x3, c3
+        del params, x, ex, cots, calls, x3, c3, x3e
         torch.cuda.empty_cache()
     print(json.dumps({"port_root": str(args.port_root),
                       "card": torch.cuda.get_device_name(0), "ms": out}),
