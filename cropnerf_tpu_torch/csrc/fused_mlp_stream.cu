@@ -103,6 +103,7 @@ enum { IN, ACT };                  // a warpgroup's buffers
 enum { RELU, Y_OUT };              // epilogues of FWD ops
 enum { G_MASKED, DX, GENC };       // epilogues of BWD ops
 
+constexpr int STREAM_W = PASS_W;   // the widest input and layer of the route
 constexpr int FWD_SLAB = 64;       // forward: weight rows a slab, one wgmma group
 constexpr int FWD_DEPTH = 2;       // forward: wgmma groups in flight
 constexpr int MIN_FWD_STAGES = 3;  // PingPong hands over after 1 slab: 1 <= stages - 2
@@ -122,13 +123,13 @@ inline bool program_ok(const int* prog, int prog_len, bool backward) {
       prog_len != M_HEADER + n_ops * OP_INTS + n_tasks * TASK_INTS)
     return false;
   const int pad = h[M_IN_PAD], act_w = h[M_ACT_W];
-  if (h[M_DIN] < 1 || pad < h[M_DIN] || pad % 16 || pad > MAX_W ||
-      !product_width(act_w, MAX_W) || h[M_DOUT] < 1 || h[M_DOUT] > act_w || h[M_DIM] < 0)
+  if (h[M_DIN] < 1 || pad < h[M_DIN] || pad % 16 || pad > STREAM_W ||
+      !product_width(act_w, STREAM_W) || h[M_DOUT] < 1 || h[M_DOUT] > act_w || h[M_DIM] < 0)
     return false;
   if (h[M_DIM] > 0 && (h[M_FREQS] < 0 || h[M_FREQS] > 30 || pad > MAX_N ||
                        h[M_DIN] != h[M_DIM] * (1 + 2 * h[M_FREQS])))
     return false;
-  const int most = stream_wide(h) ? MAX_W : MAX_N;
+  const int most = stream_wide(h) ? STREAM_W : MAX_N;
   const int* ops = prog + M_HEADER;
   for (int o = 0; o < n_ops; ++o) {
     const int* op = ops + o * OP_INTS;
@@ -415,7 +416,7 @@ __host__ __device__ inline BwdLayout bwd_layout(const int* h) {
   // waits and releases a product, faster than 32-row slabs up to 256 wide;
   // PERF.md), else 32-row slabs, or 16 where the stages the kernel needs (2
   // wide, else MIN_BWD_STAGES) of 32 do not fit (K5 at 256 encoding columns)
-  const int width = s.wide ? MAX_W : MAX_N;
+  const int width = s.wide ? STREAM_W : MAX_N;
   s.ring = ring_layout(off, 2 * SLAB_K, width, CLUSTER_BAR_SETS);
   if (s.ring.stages < MIN_BWD_STAGES) s.ring = ring_layout(off, SLAB_K, width, CLUSTER_BAR_SETS);
   if (s.ring.stages < min_bwd_stages(s.wide))

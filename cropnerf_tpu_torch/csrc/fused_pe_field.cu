@@ -46,6 +46,19 @@
 //    output into them and into the peer block's through distributed
 //    shared memory (pe_tile.cuh Mirror); the block that owns an output's
 //    columns writes them to device memory;
+//  * a trunk or head over 512 wide (up to 1024) runs in class 2
+//    (pe_tile.cuh): persistent blocks walk 64-row tiles with both
+//    warpgroups on the same rows, each computing half of every product's
+//    columns in phase, from 32-row slabs as wide as the product (up to
+//    512); a 1024-wide product takes two passes, the first pass's output
+//    parked as packed bf16 in a block's scratch in device memory (64 KB a
+//    block, written by each thread under the second pass and read back by
+//    the same thread) until the second pass has read the activation tile
+//    (64 x 1024 bf16, 128 KB: one copy is all a block's shared memory holds
+//    beside two 32 KB stages; 64 parked registers a thread beside the 128
+//    accumulators spill here, where the backward's fit).  The biases are
+//    read from device memory (L1) rather than copied, and the extras are
+//    loaded straight into the tile;
 //  * the serial parts are kept short: the encoding takes one sincosf per
 //    (coordinate, frequency), two threads a row, from x loaded into
 //    registers a tile ahead; the extras (up to 2 * EX_REGS columns; wider
@@ -69,12 +82,15 @@ constexpr int WIDE_DEPTH = 1;          // and when wide: three 16 KB stages leav
                                        // slab's room for the producer (PERF.md)
 constexpr int EX_REGS = 32;            // extras prefetched a thread (64 columns a row)
 constexpr int MIN_STAGES = 3;          // PingPong hands over after 1 slab: 1 <= stages - 2
+constexpr int PASS_DEPTH = 1;          // class 2: one group in flight (two 32 KB stages)
+constexpr int PASS_MIN_STAGES = 2;
+constexpr int PARK_WORDS = MAX_N / 4;  // class 2: the bf16 pairs a thread parks a pass
 
 struct Layout {        // dynamic shared memory, in bytes
-  int wg_bytes;        // one warpgroup's region
+  int wg_bytes;        // one warpgroup's region (class 2: the block's one region)
   int enc, tb, act;    // offsets inside it; enc also stages the outputs
   int bias, ops, turn, mirror, total;
-  bool wide;
+  int wc;              // the width class
   RingLayout ring;
 };
 
@@ -89,35 +105,45 @@ __host__ __device__ inline Layout fwd_layout(const int* h) {
   s.tb = off; off += al128(ROWS * h[H_TB_W] * 2);
   s.act = off; off += al128(ROWS * h[H_ACT_W] * 2);
   s.wg_bytes = off;
-  s.wide = wide_header(h);
-  off = 2 * s.wg_bytes;
-  s.bias = off; off += al128(h[H_TOTAL_B] * 4);
+  s.wc = width_class(h);
+  off = (s.wc == 2 ? 1 : 2) * s.wg_bytes;
+  s.bias = off; if (s.wc != 2) off += al128(h[H_TOTAL_B] * 4);
   s.ops = off; off += al128(h[H_N_OPS] * OP_INTS * 4);
   s.turn = off; off += 2 * 8;
-  s.mirror = off; if (s.wide) off += MIRROR_BYTES;
-  // a wide block's slabs: 32 rows of its half of the columns (MAX_N)
-  s.ring = s.wide ? ring_layout(off, SLAB_K) : ring_layout(off, SLAB_ROWS);
+  s.mirror = off; if (s.wc == 1) off += MIRROR_BYTES;
+  // a class 1 block's slabs: 32 rows of its half of the columns (MAX_N);
+  // class 2's: 32 rows as wide as a pass (PASS_W)
+  s.ring = s.wc == 1   ? ring_layout(off, SLAB_K)
+           : s.wc == 2 ? ring_layout(off, SLAB_K, PASS_W)
+                       : ring_layout(off, SLAB_ROWS);
   s.total = s.ring.total;
   return s;
 }
+
+// Rows of the tiles the blocks walk: 128 (a warpgroup's 64 each), or 64
+// in class 2 (both warpgroups on the same rows).
+__host__ __device__ inline int tile_rows(const Layout& s) { return s.wc == 2 ? ROWS : TILE_ROWS; }
 
 struct FwdArgs {
   const float *x, *ex;
   float *t, *rgb, *sem;
   const bf16* img;
   const float* bias;
+  uint32_t* park;      // class 2: PARK_WORDS x CONSUMERS words a block
   const int* ops;
   long long n_rows, n_tiles;
   int h[H_HEADER];
   Layout s;
 };
 
-template <bool WIDE>
+template <int WC>
 struct FwdTile {
+  static constexpr bool WIDE = WC == 1;     // the column split over a cluster
+  static constexpr bool PASSES = WC == 2;   // both warpgroups on a tile, in passes
   const FwdArgs& a;
-  unsigned char* wgm;   // this warpgroup's region
-  const float* bias;    // the block's copies of the biases and the ops
-  const int* ops;
+  unsigned char* wgm;   // this warpgroup's region (class 2: the block's)
+  const float* bias;    // the block's copies of the biases (class 2: the
+  const int* ops;       // biases in device memory) and the ops
   Ring rg;
   uint64_t* turn;
   Lane ln;
@@ -140,6 +166,9 @@ struct FwdTile {
     if constexpr (WIDE) {
       extern __shared__ __align__(1024) unsigned char fwd_smem[];
       return fwd_smem + ln.wg * a.s.wg_bytes;
+    } else if constexpr (PASSES) {     // the block's one region, at offset 0
+      extern __shared__ __align__(1024) unsigned char fwd_smem[];
+      return fwd_smem;
     } else {
       return wgm;
     }
@@ -166,13 +195,16 @@ struct FwdTile {
   __device__ __forceinline__ bf16* tb() const { return reinterpret_cast<bf16*>(region() + a.s.tb); }
   __device__ __forceinline__ bf16* act() const { return reinterpret_cast<bf16*>(region() + a.s.act); }
   __device__ __forceinline__ bf16* buf(int id) const { return id == ACT ? act() : id == ENC ? enc() : tb(); }
-  // The threads that share the tile: the warpgroup.
-  __device__ __forceinline__ void sync() const { named_sync(1 + ln.wg, 128); }
+  // The threads that share the tile: the warpgroup, or both in class 2.
+  __device__ __forceinline__ void sync() const {
+    if constexpr (PASSES) named_sync(1, CONSUMERS);
+    else named_sync(1 + ln.wg, 128);
+  }
   __device__ __forceinline__ int row() const { return ln.t >> 1; }
   __device__ __forceinline__ int half() const { return ln.t & 1; }
   // The first row of this warpgroup in tile `tile`.
   __device__ __forceinline__ long long first_row(long long tile) const {
-    return tile * TILE_ROWS + ln.wg * ROWS;
+    return PASSES ? tile * ROWS : tile * TILE_ROWS + ln.wg * ROWS;
   }
 
   // x of the thread's row of the warpgroup's rows from row0 (zeros past N).
@@ -200,7 +232,7 @@ struct FwdTile {
   // (no registers held over the trunk's last product).
   __device__ __forceinline__ void store_extras(int w) {
     const int c0 = half() * (w / 2);
-    if (WIDE || w > 2 * EX_REGS) {
+    if (WIDE || PASSES || w > 2 * EX_REGS) {
       const long long r = row0 + row();
       const int de = a.h[H_DE];
       for (int i = 0; i < w / 2; ++i) {
@@ -218,7 +250,8 @@ struct FwdTile {
   // f32 rows of an output: the product (columns from cb) plus its bias,
   // staged row-major [64, cols] and stored with consecutive threads on
   // consecutive addresses (rows past n_rows and the padded columns are
-  // dropped; when wide, the other block's columns too).
+  // dropped; when wide, the other block's columns too; in class 2 both
+  // warpgroups stage their halves, then store the rows together).
   template <int N>
   __device__ __forceinline__ void output(const int* op, const float (&v)[N / 2], const float* b,
                                          int cb) {
@@ -238,7 +271,7 @@ struct FwdTile {
     }
     sync();
     const long long first = row0 * cols, end = a.n_rows * cols;
-    for (int i = ln.t; i < ROWS * cols; i += 128) {
+    for (int i = PASSES ? (int)threadIdx.x : ln.t; i < ROWS * cols; i += PASSES ? CONSUMERS : 128) {
       if constexpr (WIDE) {
         const int c = i % cols;
         if (c < cb || c >= cb + N) continue;
@@ -306,6 +339,112 @@ struct FwdTile {
     }
   }
 
+  // Class 2: a product of N columns a warpgroup, both warpgroups on the
+  // tile's rows in phase (AnyOrder), warpgroup w's columns [wN, (w + 1)N)
+  // of the slabs (the op's 2N).
+  template <int N>
+  __device__ __forceinline__ void run_product_in_phase(const int* op) {
+    float acc[N / 2];
+    const uint32_t a0 = smem_u32(buf(op[O_A0])), a1 = smem_u32(buf(op[O_A1]));
+    const int cb = ln.wg * N;
+    pe::product<N, PASS_DEPTH, AnyOrder, 2 * N>(op, a0, a1, rg, slab, ln.lane, acc, AnyOrder(),
+                                                 cb);
+    const int epi = op[O_EPI], nvalid = op[O_NVALID];
+    const float* b = a.bias + op[O_BOFF];
+    sync();                            // every warp's products have read their operands
+    if (epi == RGB_OUT || epi == SEM_OUT) {
+      output<N>(op, acc, b, cb);
+      return;
+    }
+    uint32_t mw[(N + 63) / 64] = {};
+    activation_out<N>(acc,
+                      [&](int c) {     // nvalid is even: c < nvalid covers c + 1
+                        return c < nvalid ? __ldg(reinterpret_cast<const float2*>(b + c))
+                                          : make_float2(0.0f, 0.0f);
+                      },
+                      epi == RELU, epi == RELU ? act() : tb(), ln, mw, cb);
+    fence_async_smem();                // visible to the next products
+    if (epi == T_OUT) output<N>(op, acc, b, cb);
+    sync();
+  }
+
+  // Class 2: a hidden layer over PASS_W (1024) wide, in two passes of both
+  // warpgroups; warpgroup w's columns [512w + 256q, +256) in pass q.  The
+  // first pass's relu'd bf16 waits in the block's scratch in device memory
+  // (each thread's own words, read back by the same thread) until the
+  // second pass has read the tile.
+  __device__ __forceinline__ void run_passes(const int* op) {
+    constexpr int N = MAX_N;
+    const uint32_t a0 = smem_u32(buf(op[O_A0])), a1 = smem_u32(buf(op[O_A1]));
+    const int cb = ln.wg * PASS_W;
+    const auto bias2 = [&](int c) {    // nvalid is even: c < nvalid covers c + 1
+      const float* b = a.bias + op[O_BOFF];
+      return c < op[O_NVALID] ? __ldg(reinterpret_cast<const float2*>(b + c))
+                              : make_float2(0.0f, 0.0f);
+    };
+    uint32_t mw[N / 64] = {};
+    uint32_t* park = a.park + (long long)blockIdx.x * PARK_WORDS * CONSUMERS + threadIdx.x;
+    {
+      float acc[N / 2];
+      pe::product<N, PASS_DEPTH, AnyOrder, PASS_W>(op, a0, a1, rg, slab, ln.lane, acc,
+                                                   AnyOrder(), ln.wg * N);
+      __nv_bfloat162 v[N / 4];
+      activation_pack<N>(acc, bias2, true, v, ln, mw, cb);
+#pragma unroll
+      for (int i = 0; i < N / 4; ++i) park[i * CONSUMERS] = *reinterpret_cast<uint32_t*>(&v[i]);
+    }
+    float acc[N / 2];
+    pe::product<N, PASS_DEPTH, AnyOrder, PASS_W>(op, a0, a1, rg, slab, ln.lane, acc, AnyOrder(),
+                                                 ln.wg * N);
+    sync();                            // every warp's products have read the tile
+    activation_out<N>(acc, bias2, true, act(), ln, mw, cb + N);
+    __nv_bfloat162 v[N / 4];
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) {
+      const uint32_t w = park[i * CONSUMERS];
+      v[i] = *reinterpret_cast<const __nv_bfloat162*>(&w);
+    }
+    store_packed<N>(v, act(), ln, cb);
+    fence_async_smem();
+    sync();
+  }
+
+  // Class 2: the block's 64-row tiles, warpgroup 0 encoding the rows and
+  // loading the extras.
+  __device__ __forceinline__ void run_in_phase() {
+    const int n_ops = a.h[H_N_OPS];
+    const bool owner = ln.wg == 0;
+    for (long long tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
+      row0 = first_row(tile);
+      sync();                          // the last tile's outputs have left the stage
+      if (owner) {
+        load_x(row0);
+        encode_row([&](int d) { return d == 0 ? xr[0] : d == 1 ? xr[1] : d == 2 ? xr[2] : xr[3]; },
+                   row(), half(), a.h, enc());
+      }
+      fence_async_smem();
+      sync();
+      for (int o = 0; o < n_ops; ++o) {
+        const int* op = ops + o * OP_INTS;
+        if (op[O_KIND] == EX) {        // the extras, over the trunk's last activation
+          if (owner) store_extras(op[O_N]);
+          fence_async_smem();
+          sync();
+          continue;
+        }
+        switch (op[O_N] / 2) {
+          case 8: run_product_in_phase<8>(op); break;
+          case 16: run_product_in_phase<16>(op); break;
+          case 32: run_product_in_phase<32>(op); break;
+          case 64: run_product_in_phase<64>(op); break;
+          case 128: run_product_in_phase<128>(op); break;
+          case 256: run_product_in_phase<256>(op); break;
+          case 512: run_passes(op); break;
+        }
+      }
+    }
+  }
+
   __device__ __forceinline__ void run() {
     const int n_ops = a.h[H_N_OPS];
     int n_products = 0, ex_w = 0;
@@ -361,9 +500,10 @@ struct FwdTile {
   }
 };
 
-template <bool WIDE>
+template <int WC>
 __global__ void __launch_bounds__(ALL_THREADS, 1)
 pe_field_fwd_kernel(const __grid_constant__ FwdArgs a) {
+  constexpr bool WIDE = WC == 1;
   extern __shared__ __align__(1024) unsigned char smem[];
   const Ring rg = make_ring(smem, a.s.ring);
   float* bias = reinterpret_cast<float*>(smem + a.s.bias);
@@ -376,7 +516,8 @@ pe_field_fwd_kernel(const __grid_constant__ FwdArgs a) {
     mbar_fence_init();
   }
   if constexpr (WIDE) make_mirror(smem, a.s.mirror);
-  for (int i = threadIdx.x; i < a.h[H_TOTAL_B]; i += ALL_THREADS) bias[i] = a.bias[i];
+  if constexpr (WC != 2)
+    for (int i = threadIdx.x; i < a.h[H_TOTAL_B]; i += ALL_THREADS) bias[i] = a.bias[i];
   for (int i = threadIdx.x; i < a.h[H_N_OPS] * OP_INTS; i += ALL_THREADS) ops[i] = a.ops[i];
   if constexpr (WIDE) cluster_sync();  // the peer's barriers are initialised
   else __syncthreads();
@@ -388,12 +529,17 @@ pe_field_fwd_kernel(const __grid_constant__ FwdArgs a) {
             produce_half_slabs(a.ops, a.h[H_N_OPS], a.img, rg, slab, blockIdx.x % CLUSTER);
         } else {
           for (long long tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x)
-            produce_slabs(a.ops, a.h[H_N_OPS], a.img, rg, slab);
+            produce_slabs<WC == 2>(a.ops, a.h[H_N_OPS], a.img, rg, slab);
         }
       },
       [&] {
-        FwdTile<WIDE> tile{a, smem + (threadIdx.x >> 7) * a.s.wg_bytes, bias, ops, rg, turn};
-        tile.run();
+        if constexpr (WC == 2) {
+          FwdTile<WC> tile{a, smem, a.bias, ops, rg, turn};
+          tile.run_in_phase();
+        } else {
+          FwdTile<WC> tile{a, smem + (threadIdx.x >> 7) * a.s.wg_bytes, bias, ops, rg, turn};
+          tile.run();
+        }
       });
 }
 
@@ -408,7 +554,8 @@ static bool program_fits(const int* prog, int prog_len) {
     if (op[O_KIND] == EX && (op[O_N] > h[H_ACT_W] || op[O_N] < 1)) return false;
     if (op[O_KIND] == FWD && (op[O_EPI] < RELU || op[O_EPI] > SEM_OUT)) return false;
   }
-  return fwd_layout(h).ring.stages >= MIN_STAGES;
+  const Layout s = fwd_layout(h);
+  return s.ring.stages >= (s.wc == 2 ? PASS_MIN_STAGES : MIN_STAGES);
 }
 
 }  // namespace pefwd
@@ -417,14 +564,18 @@ static bool program_fits(const int* prog, int prog_len) {
 // Launches the forward on `stream`; returns a cudaError_t (0 on success).
 // `prog` is the program (pe_plan.py build_forward_plan) on the host,
 // `prog_dev` the same ints on the device; `img` is its weight image, `b`
-// the packed f32 biases.  Without the heads ex, rgb_out and sem_out are
-// not read (null).  Every pointer but `prog` is on the device.
+// the packed f32 biases; `park` (class 2 alone, else unread) holds
+// PARK_WORDS x 256 uint32 words for each SM of the device (pe_plan.py
+// fwd_park_elems).  Without the heads ex, rgb_out and sem_out are not read
+// (null).  Every pointer but `prog` is on the device.
 extern "C" int cropnerf_pe_field_fwd(const float* x, const float* ex, float* t_out,
                                      float* rgb_out, float* sem_out, const void* img,
-                                     const float* b, const int* prog, const int* prog_dev,
-                                     int prog_len, long long n_rows, void* stream) {
+                                     const float* b, void* park, const int* prog,
+                                     const int* prog_dev, int prog_len, long long n_rows,
+                                     void* stream) {
   using namespace cropnerf::pefwd;
   if (!program_fits(prog, prog_len)) return (int)cudaErrorInvalidValue;
+  if (width_class(prog) == 2 && park == nullptr) return (int)cudaErrorInvalidValue;
   if (n_rows <= 0) return 0;
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -434,17 +585,18 @@ extern "C" int cropnerf_pe_field_fwd(const float* x, const float* ex, float* t_o
   fa.x = x; fa.ex = ex; fa.t = t_out; fa.rgb = rgb_out; fa.sem = sem_out;
   fa.img = reinterpret_cast<const cropnerf::bf16*>(img);
   fa.bias = b;
+  fa.park = reinterpret_cast<uint32_t*>(park);
   fa.ops = prog_dev + H_HEADER;
   fa.n_rows = n_rows;
   for (int i = 0; i < H_HEADER; ++i) fa.h[i] = prog[i];
   fa.s = fwd_layout(prog);
-  fa.n_tiles = (n_rows + TILE_ROWS - 1) / TILE_ROWS;
+  fa.n_tiles = (n_rows + tile_rows(fa.s) - 1) / tile_rows(fa.s);
   const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (fa.s.wide) {                     // persistent clusters; a refused launch returns its error
+  if (fa.s.wc == 1) {                  // persistent clusters; a refused launch returns its error
     cropnerf::pe::ClusterGrid grid{0, 0, 0};
-    return cluster_launch(pe_field_fwd_kernel<true>, &fa, fa.s.total, fa.n_tiles, st, &grid);
+    return cluster_launch(pe_field_fwd_kernel<1>, &fa, fa.s.total, fa.n_tiles, st, &grid);
   }
-  auto kernel = pe_field_fwd_kernel<false>;
+  auto kernel = fa.s.wc == 2 ? pe_field_fwd_kernel<2> : pe_field_fwd_kernel<0>;
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, fa.s.total);
   if (e != cudaSuccess) return (int)e;
   const unsigned blocks = (unsigned)lmin(fa.n_tiles, sms);
@@ -453,7 +605,7 @@ extern "C" int cropnerf_pe_field_fwd(const float* x, const float* ex, float* t_o
 }
 
 // The forward's grid at n_rows rows on the current device: out[0] the
-// cluster size (0: persistent blocks, a program at most MAX_N wide),
+// cluster size (0: persistent blocks, a program of class 0 or 2),
 // out[1] the clusters resident at once (0 without clusters), out[2] the
 // blocks launched.  Returns 0, -1 where the program is rejected, or a
 // cudaError_t (cudaErrorLaunchOutOfResources where no cluster fits).
@@ -462,10 +614,10 @@ extern "C" int cropnerf_pe_field_fwd_grid(const int* prog, int prog_len, long lo
   using namespace cropnerf::pefwd;
   if (!program_fits(prog, prog_len)) return -1;
   const Layout s = fwd_layout(prog);
-  const long long n_tiles = (n_rows + TILE_ROWS - 1) / TILE_ROWS;
-  if (s.wide) {
+  const long long n_tiles = (n_rows + tile_rows(s) - 1) / tile_rows(s);
+  if (s.wc == 1) {
     cropnerf::pe::ClusterGrid g{0, 0, 0};
-    const int e = cluster_launch(pe_field_fwd_kernel<true>, static_cast<const FwdArgs*>(nullptr),
+    const int e = cluster_launch(pe_field_fwd_kernel<1>, static_cast<const FwdArgs*>(nullptr),
                                  s.total, n_tiles, nullptr, &g);
     out[0] = g.cluster;
     out[1] = g.active;

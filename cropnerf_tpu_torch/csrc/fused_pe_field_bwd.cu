@@ -66,6 +66,14 @@
 // slab into every block's ring (pe_tile.cuh ClusterRing): each weight
 // leaves L2 once a cluster, and no block starts or drains its ring but
 // once.
+// A trunk or head over 512 wide (up to 1024) runs in class 2: the same
+// clusters, tiles and halves, a 1024-wide product in two passes of both
+// warpgroups (pe_tile.cuh), the first pass's output (a recomputed
+// activation, or a masked cotangent with its bias column sums already
+// taken) kept in registers as packed bf16 until the second pass has read
+// the tile.  The relu masks (8 words a thread a 1024-wide layer) go to
+// device memory, a block's words apart: a 64 x 1024 tile (128 KB) and two
+// 32 KB stages leave no room for them.
 #include "pe_dw.cuh"
 
 namespace cropnerf {
@@ -83,7 +91,7 @@ struct Layout {        // dynamic shared memory of the tile kernel, in bytes
   int wg_bytes;        // one warpgroup's region (the block's one region when wide)
   int xs, enc, tb, gt, genc, act, colsum;    // offsets inside it
   int masks, ring, bars, stages, total, stage;
-  bool wide;
+  int wc;              // the width class (1 and 2 wide; 2: the masks in device memory)
 };
 
 __host__ __device__ inline Layout tile_layout(const int* h) {
@@ -97,14 +105,14 @@ __host__ __device__ inline Layout tile_layout(const int* h) {
   s.genc = u;                          // the backward's, over enc/tb/gt
   off = (int)lmax(off, u + al128(ROWS * h[H_ENC_PAD] * 4));
   s.act = off; off += al128(ROWS * h[H_ACT_W] * 2);
-  s.wide = wide_header(h);
-  s.colsum = off; off += (s.wide ? 2 : 1) * CS_BYTES;
+  s.wc = width_class(h);
+  s.colsum = off; off += (s.wc ? 2 : 1) * CS_BYTES;
   s.wg_bytes = off;
-  off = (s.wide ? 1 : 2) * s.wg_bytes;
-  s.masks = off; off += al128(h[H_MASK_WORDS] * CONSUMERS * 4);
+  off = (s.wc ? 1 : 2) * s.wg_bytes;
+  s.masks = off; if (s.wc != 2) off += al128(h[H_MASK_WORDS] * CONSUMERS * 4);
   // a wide program's tile kernel takes a cluster ring
   const RingLayout r =
-      s.wide ? ring_layout(off, SLAB_K, MAX_W, CLUSTER_BAR_SETS) : ring_layout(off, SLAB_K);
+      s.wc ? ring_layout(off, SLAB_K, PASS_W, CLUSTER_BAR_SETS) : ring_layout(off, SLAB_K);
   s.bars = r.bars;
   s.ring = r.ring;
   s.stages = r.stages;
@@ -120,17 +128,19 @@ struct TileArgs {
   const float* bias;
   const int* ops;
   bf16* ws;
+  uint32_t* masks;     // class 2: the relu masks, a block's words each
   float* bpart;
   long long n_rows, n_pad, n_tiles;
   int h[H_HEADER];
   Layout s;
 };
 
-template <bool STORE, bool WIDE>
+template <bool STORE, int WC>
 struct Tile {
+  static constexpr bool WIDE = WC != 0;
   const TileArgs& a;
   unsigned char* wgm;   // this warpgroup's region
-  uint32_t* masks;
+  uint32_t* masks;      // in shared memory, or the block's in device memory (class 2)
   Ring rg;
   Lane ln;
   long long row0;       // first row of the warpgroup
@@ -199,18 +209,18 @@ struct Tile {
   template <int N>
   __device__ int col_base() const { return WIDE ? ln.wg * N : 0; }
 
-  // A cotangent tile (the warpgroup's N columns) into the act buffer in
-  // place: the relu mask of `mask` (-1: none), bf16 for the next product,
-  // f32 column sums for the bias gradient, the workspace slot.
+  // A cotangent tile (the warpgroup's N columns from column cb) into the
+  // act buffer in place: the relu mask of `mask` (-1: none; its words from
+  // mask + mo), bf16 for the next product, f32 column sums for the bias
+  // gradient, the workspace slot.
   template <int N>
-  __device__ void emit_g(const int* op, float (&v)[N / 2]) {
-    const int cb = col_base<N>();
+  __device__ void emit_g(const int* op, float (&v)[N / 2], int cb, int mo) {
     constexpr int W = (N + 63) / 64;
     uint32_t mw[W];
     const int mask = op[O_MASK];
 #pragma unroll
     for (int w = 0; w < W; ++w)
-      mw[w] = mask >= 0 ? masks[(mask + w) * CONSUMERS + threadIdx.x] : 0xffffffffu;
+      mw[w] = mask >= 0 ? masks[(mask + mo + w) * CONSUMERS + threadIdx.x] : 0xffffffffu;
     before_write();
     bf16* dst = act();
 #pragma unroll
@@ -245,8 +255,7 @@ struct Tile {
   }
 
   template <int N>
-  __device__ void forward_epilogue(const int* op, float (&v)[N / 2]) {
-    const int cb = col_base<N>();
+  __device__ void forward_epilogue(const int* op, float (&v)[N / 2], int cb, int mo) {
     const bool relu = op[O_EPI] == RELU;
     const float* bias = a.bias + op[O_BOFF];
     const int nvalid = op[O_NVALID];
@@ -264,9 +273,85 @@ struct Tile {
                       relu, dst, ln, mw, cb);
     if (op[O_MASK] >= 0) {
 #pragma unroll
-      for (int w = 0; w < W; ++w) masks[(op[O_MASK] + w) * CONSUMERS + threadIdx.x] = mw[w];
+      for (int w = 0; w < W; ++w) masks[(op[O_MASK] + mo + w) * CONSUMERS + threadIdx.x] = mw[w];
     }
     after_write(dst, op[O_WS], op[O_N], true);
+  }
+
+  // Class 2: a product over PASS_W (1024) columns in two passes of both
+  // warpgroups, warpgroup w's columns [512w + 256q, +256) in pass q (the
+  // slabs' [256w, +256)): a recomputed hidden layer (FWD) or a masked
+  // cotangent (G_MASKED).  The first pass's epilogue runs in full but its
+  // bf16 output stays in registers (its mask words, or its bias column
+  // sums, are written at once); it goes into the tile once the second pass
+  // has read the tile, and the second pass's epilogue stores the
+  // warpgroup's 512 columns to the workspace.
+  __device__ void run_passes(const int* op) {
+    constexpr int N = MAX_N, W = N / 64;
+    const int cb = ln.wg * PASS_W;
+    const bool fwd = op[O_KIND] == FWD;
+    __nv_bfloat162 park[N / 4];
+    {
+      float v[N / 2];
+      pe::product<N, 1, AnyOrder, PASS_W>(op, smem_u32(buf(op[O_A0])), smem_u32(buf(op[O_A1])),
+                                          rg, slab, ln.lane, v, AnyOrder(), ln.wg * N);
+      uint32_t mw[W];
+      const int mask = op[O_MASK];
+      if (fwd) {
+        const float* bias = a.bias + op[O_BOFF];
+        const int nvalid = op[O_NVALID];
+#pragma unroll
+        for (int w = 0; w < W; ++w) mw[w] = 0;
+        activation_pack<N>(v,
+                           [&](int c) {
+                             return make_float2(c < nvalid ? __ldg(bias + c) : 0.0f,
+                                                c + 1 < nvalid ? __ldg(bias + c + 1) : 0.0f);
+                           },
+                           true, park, ln, mw, cb);
+        if (mask >= 0) {
+#pragma unroll
+          for (int w = 0; w < W; ++w) masks[(mask + w) * CONSUMERS + threadIdx.x] = mw[w];
+        }
+      } else {
+#pragma unroll
+        for (int w = 0; w < W; ++w) mw[w] = masks[(mask + w) * CONSUMERS + threadIdx.x];
+#pragma unroll
+        for (int j = 0; j < N / 8; ++j) {
+          const uint32_t bits = mw[j >> 3] >> ((j & 7) * 4);
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            if (!((bits >> q) & 1)) v[4 * j + q] = 0.0f;
+        }
+        const int boff = op[O_BOFF];
+        if (STORE && boff >= 0) {
+          float s[N / 4];
+#pragma unroll
+          for (int j = 0; j < N / 8; ++j) {
+            s[2 * j] = v[4 * j] + v[4 * j + 2];
+            s[2 * j + 1] = v[4 * j + 1] + v[4 * j + 3];
+          }
+          named_sync(2 + ln.wg, 128);  // the warpgroup's last bias sums have left colsum
+          warp_colsum<N / 4>(s, colsum() + ln.warp * MAX_N, ln.lane);
+          named_sync(2 + ln.wg, 128);
+          const float* cs = colsum();
+          float* out = a.bpart + (long long)part_row * a.h[H_TOTAL_B] + boff + cb;
+          for (int c = ln.t; c < N && cb + c < op[O_NVALID]; c += 128)
+            out[c] = ((cs[c] + cs[MAX_N + c]) + cs[2 * MAX_N + c]) + cs[3 * MAX_N + c];
+        }
+#pragma unroll
+        for (int j = 0; j < N / 8; ++j) {
+          park[2 * j] = __floats2bfloat162_rn(v[4 * j], v[4 * j + 1]);
+          park[2 * j + 1] = __floats2bfloat162_rn(v[4 * j + 2], v[4 * j + 3]);
+        }
+      }
+    }
+    float v[N / 2];
+    pe::product<N, 1, AnyOrder, PASS_W>(op, smem_u32(buf(op[O_A0])), smem_u32(buf(op[O_A1])), rg,
+                                        slab, ln.lane, v, AnyOrder(), ln.wg * N);
+    before_write();                    // both passes have read the tile
+    store_packed<N>(park, act(), ln, cb);
+    if (fwd) forward_epilogue<N>(op, v, cb + N, W);
+    else emit_g<N>(op, v, cb + N, W);
   }
 
   // f32 into a chunk-major f32 tile (set or add), columns from `col`.
@@ -292,12 +377,12 @@ struct Tile {
     const int cb = col_base<N>();
     product<N>(op, acc, cb);
     if (op[O_KIND] == FWD) {
-      forward_epilogue<N>(op, acc);
+      forward_epilogue<N>(op, acc, cb, 0);
       return;
     }
     const int epi = op[O_EPI];
     if (epi == G_MASKED) {
-      emit_g<N>(op, acc);
+      emit_g<N>(op, acc, cb, 0);
       return;
     }
     before_write();
@@ -342,7 +427,7 @@ struct Tile {
         }
       }
     }
-    emit_g<N>(op, v);
+    emit_g<N>(op, v, cb, 0);
   }
 
   __device__ void load_extras(const int* op) {
@@ -407,6 +492,9 @@ struct Tile {
         CROPNERF_CASE(128)
         CROPNERF_CASE(256)
 #undef CROPNERF_CASE
+        case 512:                      // class 2: a 1024-wide product in two passes
+          if constexpr (WC == 2) run_passes(op);
+          break;
       }
     }
   }
@@ -437,8 +525,9 @@ __device__ __noinline__ void dx_rows(const float* xs, const float* genc, float* 
 // A wide program's block of a persistent cluster (pe_tile.cuh): the
 // cluster ring, the block's tiles in ClusterWalk's order, each tile's two
 // 64-row halves in turn with both warpgroups on each.  Bias partials stay
-// one row a tile's half (part_row), whatever block takes it.
-template <bool STORE>
+// one row a tile's half (part_row), whatever block takes it; class 2's
+// relu masks are the block's in device memory.
+template <bool STORE, int WC>
 __device__ __forceinline__ void wide_tiles(const TileArgs& a, unsigned char* smem,
                                            const RingLayout& rl) {
   const ClusterRing<CLUSTER> rg = make_cluster_ring<CLUSTER>(smem, rl);
@@ -451,16 +540,19 @@ __device__ __forceinline__ void wide_tiles(const TileArgs& a, unsigned char* sme
         int slab = 0;
         for (int grp = Walk::first(); grp < Walk::groups(a.n_tiles); grp += Walk::step())
           for (int i = 0; i < 2; ++i)
-            produce_slabs_multicast(a.ops, n_ops, a.img, rg, slab, cluster_rank());
+            produce_slabs_multicast<CLUSTER, WC == 2>(a.ops, n_ops, a.img, rg, slab,
+                                                      cluster_rank());
         await_release(rg, slab);
       },
       [&] {
-        Tile<STORE, true> tile{a, smem, reinterpret_cast<uint32_t*>(smem + a.s.masks), rg.ring};
+        uint32_t* masks = WC == 2 ? a.masks + (long long)blockIdx.x * a.h[H_MASK_WORDS] * CONSUMERS
+                                  : reinterpret_cast<uint32_t*>(smem + a.s.masks);
+        Tile<STORE, WC> tile{a, smem, masks, rg.ring};
         const int n_halves = 2 * Walk::my_groups(a.n_tiles);
         for (int h = 0; h < n_halves; ++h) {
           const long long t = Walk::tile(Walk::first() + (h >> 1) * Walk::step());
           if (t >= a.n_tiles) {        // a padding tile: the slabs, nothing written
-            skip_slabs(a.ops, n_ops, tile.rg, tile.slab, tile.ln.lane);
+            skip_slabs<WC == 2>(a.ops, n_ops, tile.rg, tile.slab, tile.ln.lane);
             continue;
           }
           const int part = h & 1;
@@ -477,15 +569,15 @@ __device__ __forceinline__ void wide_tiles(const TileArgs& a, unsigned char* sme
 }
 
 // Up to MAX_N wide, one block a 128-row tile, a warpgroup a 64-row half;
-// a wide program runs as persistent clusters (wide_tiles, launched by
-// cluster_launch).
-template <bool STORE, bool WIDE>
+// a wide program (class 1 or 2) runs as persistent clusters (wide_tiles,
+// launched by cluster_launch).
+template <bool STORE, int WC>
 __global__ void __launch_bounds__(ALL_THREADS, 1)
 pe_field_bwd_tile_kernel(const __grid_constant__ TileArgs a) {
   extern __shared__ __align__(1024) unsigned char smem[];
   const RingLayout rl{a.s.bars, a.s.ring, a.s.stages, a.s.total, SLAB_K, a.s.stage};
-  if constexpr (WIDE) {
-    wide_tiles<STORE>(a, smem, rl);
+  if constexpr (WC != 0) {
+    wide_tiles<STORE, WC>(a, smem, rl);
   } else {
     const Ring rg = make_ring(smem, rl);
     init_ring(rg);
@@ -497,7 +589,7 @@ pe_field_bwd_tile_kernel(const __grid_constant__ TileArgs a) {
         },
         [&] {
           const int wg = threadIdx.x >> 7;
-          Tile<STORE, false> tile{a, smem + wg * a.s.wg_bytes,
+          Tile<STORE, 0> tile{a, smem + wg * a.s.wg_bytes,
                                   reinterpret_cast<uint32_t*>(smem + a.s.masks), rg};
           tile.row0 = (long long)blockIdx.x * TILE_ROWS + wg * ROWS;
           tile.part_row = blockIdx.x * 2 + wg;
@@ -517,10 +609,14 @@ struct Plan {
   DwSplit split;
 };
 
-static decltype(&pe_field_bwd_tile_kernel<true, true>) tile_kernel(bool store, bool wide) {
-  return store ? (wide ? pe_field_bwd_tile_kernel<true, true> : pe_field_bwd_tile_kernel<true, false>)
-               : (wide ? pe_field_bwd_tile_kernel<false, true>
-                       : pe_field_bwd_tile_kernel<false, false>);
+static decltype(&pe_field_bwd_tile_kernel<true, 1>) tile_kernel(bool store, int wc) {
+  if (store)
+    return wc == 2 ? pe_field_bwd_tile_kernel<true, 2>
+           : wc == 1 ? pe_field_bwd_tile_kernel<true, 1>
+                     : pe_field_bwd_tile_kernel<true, 0>;
+  return wc == 2 ? pe_field_bwd_tile_kernel<false, 2>
+         : wc == 1 ? pe_field_bwd_tile_kernel<false, 1>
+                   : pe_field_bwd_tile_kernel<false, 0>;
 }
 
 static bool plan(const int* prog, int prog_len, long long n_rows, Plan* p) {
@@ -533,13 +629,23 @@ static bool plan(const int* prog, int prog_len, long long n_rows, Plan* p) {
   return true;
 }
 
+static cudaError_t device_sms(int* sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return e;
+}
+
 }  // namespace pebwd
 }  // namespace cropnerf
 
 // Sizes of the buffers the wrapper allocates for cropnerf_pe_field_bwd:
 // out[0] bf16 workspace elements (0 without the weight gradients), out[1]
 // f32 bias partials (and their chunk sums), out[2] f32 weight partials, out[3] packed weights,
-// out[4] packed biases.  Returns 0, or -1 where the program is rejected.
+// out[4] packed biases, out[5] uint32 relu-mask words in device memory (a
+// block's for each SM of the current device in class 2, else 0).  Returns
+// 0, -1 where the program is rejected, or the cudaError_t of the device
+// query.
 extern "C" int cropnerf_pe_field_bwd_sizes(const int* prog, int prog_len, long long n_rows,
                                            long long* out) {
   using namespace cropnerf::pebwd;
@@ -547,6 +653,13 @@ extern "C" int cropnerf_pe_field_bwd_sizes(const int* prog, int prog_len, long l
   if (!plan(prog, prog_len, n_rows, &p)) return -1;
   const int* h = p.h;
   const bool store = h[H_STORE] != 0;
+  out[5] = 0;
+  if (width_class(h) == 2) {
+    int sms = 0;
+    const cudaError_t e = device_sms(&sms);
+    if (e != cudaSuccess) return (int)e;
+    out[5] = (long long)sms * h[H_MASK_WORDS] * CONSUMERS;
+  }
   out[0] = store ? (long long)h[H_WS_COLS] * p.split.n_pad + ROWS * 128 : 0;
   out[1] = store ? bias_partial_elems(p.split, h[H_TOTAL_B]) : 0;
   out[2] = store ? p.split.splits * (long long)h[H_TOTAL_W] : 0;
@@ -576,10 +689,10 @@ extern "C" int cropnerf_pe_field_bwd_grid(const int* prog, int prog_len, long lo
   if (!plan(prog, prog_len, n_rows, &p)) return -1;
   const Layout s = tile_layout(p.h);
   cropnerf::pe::ClusterGrid g{0, 0, p.split.n_tiles};
-  const int e = s.wide ? cluster_launch(tile_kernel(p.h[H_STORE] != 0, true),
-                                        static_cast<const TileArgs*>(nullptr), s.total,
-                                        (p.split.n_tiles + CLUSTER - 1) / CLUSTER, nullptr, &g)
-                       : 0;
+  const int e = s.wc ? cluster_launch(tile_kernel(p.h[H_STORE] != 0, s.wc),
+                                      static_cast<const TileArgs*>(nullptr), s.total,
+                                      (p.split.n_tiles + CLUSTER - 1) / CLUSTER, nullptr, &g)
+                     : 0;
   out[0] = g.cluster;
   out[1] = g.active;
   out[2] = g.blocks;
@@ -591,15 +704,16 @@ extern "C" int cropnerf_pe_field_bwd_grid(const int* prog, int prog_len, long lo
 // every other pointer is on the device.  ws, bpart and wpart are scratch of
 // the sizes above; dw and db receive the packed f32 weight and bias
 // gradients.  Without the heads ex, g_rgb, g_sem and dex are not read
-// (null).  A null dx skips dx.  A wide program's tile kernel runs as
-// persistent clusters (cropnerf_pe_field_bwd_grid); a refused cluster
+// (null).  A null dx skips dx.  `masks` holds out[5] words of the sizes
+// above (class 2; else unread, null).  A wide program's tile kernel runs
+// as persistent clusters (cropnerf_pe_field_bwd_grid); a refused cluster
 // launch returns its error, with no other grid tried.
 extern "C" int cropnerf_pe_field_bwd(const float* x, const float* ex, const float* g_t,
                                      const float* g_rgb, const float* g_sem, float* dx,
                                      float* dex, const void* img, const float* b,
                                      const int* prog, const int* prog_dev, int prog_len,
-                                     long long n_rows, void* ws, float* bpart, float* wpart,
-                                     float* dw, float* db, void* stream) {
+                                     long long n_rows, void* ws, void* masks, float* bpart,
+                                     float* wpart, float* dw, float* db, void* stream) {
   using namespace cropnerf::pebwd;
   Plan p;
   if (!plan(prog, prog_len, n_rows, &p)) return (int)cudaErrorInvalidValue;
@@ -608,8 +722,15 @@ extern "C" int cropnerf_pe_field_bwd(const float* x, const float* ex, const floa
   if (store && (ws == nullptr || bpart == nullptr || wpart == nullptr || dw == nullptr ||
                 db == nullptr))
     return (int)cudaErrorInvalidValue;
+  const int wc = width_class(h);
+  if (wc == 2 && masks == nullptr) return (int)cudaErrorInvalidValue;
   if (n_rows <= 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  int sms = 0;
+  if (wc == 2) {
+    const cudaError_t e = device_sms(&sms);
+    if (e != cudaSuccess) return (int)e;
+  }
 
   TileArgs ta;
   ta.x = x; ta.ex = ex; ta.g_t = g_t; ta.g_rgb = g_rgb; ta.g_sem = g_sem;
@@ -618,17 +739,19 @@ extern "C" int cropnerf_pe_field_bwd(const float* x, const float* ex, const floa
   ta.bias = b;
   ta.ops = prog_dev + H_HEADER;
   ta.ws = reinterpret_cast<cropnerf::bf16*>(ws);
+  ta.masks = reinterpret_cast<uint32_t*>(masks);
   ta.bpart = bpart;
   ta.n_rows = n_rows;
   ta.n_pad = p.split.n_pad;
   ta.n_tiles = p.split.n_tiles;
   for (int i = 0; i < H_HEADER; ++i) ta.h[i] = h[i];
   ta.s = tile_layout(h);
-  auto kernel = tile_kernel(store, ta.s.wide);
-  if (ta.s.wide) {
+  auto kernel = tile_kernel(store, ta.s.wc);
+  if (ta.s.wc) {
     cropnerf::pe::ClusterGrid grid{0, 0, 0};
-    const int err =
-        cluster_launch(kernel, &ta, ta.s.total, (ta.n_tiles + CLUSTER - 1) / CLUSTER, s, &grid);
+    // class 2's masks hold a block's words for each SM
+    const int err = cluster_launch(kernel, &ta, ta.s.total, (ta.n_tiles + CLUSTER - 1) / CLUSTER,
+                                   s, &grid, wc == 2 ? sms : 0);
     if (err || !store) return err;
   } else {
     cudaError_t e =

@@ -13,10 +13,12 @@
 // product's 128 accumulators a thread fit without spills.  A slab is free
 // again when all 8 consumer warps have arrived on its `empty` barrier.
 //
-// A program with a layer wider than MAX_N (up to MAX_W) is "wide": a
-// 64 x 512 product's accumulators do not fit one warpgroup's registers.
-// Each product's columns are then split in halves (64 x N/2, N/2 =
-// 8..256, the same wgmma shapes and k order in every mode):
+// A program's width class (width_class) is that of its widest layer.
+// Up to MAX_N (class 0) a warpgroup takes a whole product.  Over MAX_N, up
+// to PASS_W (class 1, "wide"), a 64 x 512 product's accumulators do not
+// fit one warpgroup's registers: each product's columns are split in
+// halves (64 x N/2, N/2 = 8..256, the same wgmma shapes and k order in
+// every mode):
 //  * the forward runs as persistent clusters of CLUSTER (2) blocks on two
 //    SMs that walk the 128-row tiles together.  Each block computes one
 //    half of every product's columns, so its producer streams only that
@@ -31,8 +33,20 @@
 //    of every product's columns from slabs as wide as the product, the
 //    tile overwritten in place once both have read it (a barrier over the
 //    256 consumer threads).
-// The kernels take the mode as a template argument (WIDE), so that a
-// program at most MAX_N wide runs none of the wide mode's code.
+// Over PASS_W, up to MAX_W (class 2), the PE field's kernels keep both
+// warpgroups on one 64-row tile, each with half of every product's
+// columns, as the backwards do in class 1; a product over PASS_W (1024
+// wide) takes two passes of both warpgroups, each pass a PASS_W-wide
+// stream of slabs (the weight image holds a pass's B after the other,
+// pe_plan.py pass_columns), each warpgroup 256 columns a pass.  The first
+// pass's output waits as packed bf16 (activation_pack) until the second
+// pass has read the tile, which it then overwrites (store_packed): in
+// registers in the backward, in a block's scratch in device memory in the
+// forward, which holds more registers over its products.  Relu masks too
+// wide for shared memory go to device memory.
+// The kernels take the class as a template argument, so that a program
+// at most MAX_N wide runs none of the wide modes' code, and one at most
+// PASS_W wide none of class 2's.
 //
 // The backwards that stream the whole image for every tile (the stream
 // route's, and K1's and K2's wide programs) run as persistent clusters
@@ -78,7 +92,9 @@ constexpr int CONSUMER_REGS = 232;     // registers to the accumulators
 constexpr int SLAB_K = 32;             // weight rows per slab (the backward's)
 constexpr int MAX_STAGES = 8;
 constexpr int MAX_N = 256;             // the widest product of a warpgroup
-constexpr int MAX_W = 512;             // the widest layer: two warpgroups' halves
+constexpr int PASS_W = 512;            // two warpgroups' halves: the widest layer of
+                                       // class 1, a pass of class 2
+constexpr int MAX_W = 1024;            // the widest layer: two passes
 constexpr int SMEM_LIMIT = 232448;
 constexpr int CHUNK = 512;             // elements of an 8-column chunk of 64 rows
 
@@ -87,7 +103,7 @@ __host__ __device__ inline long long lmax(long long a, long long b) { return a >
 __host__ __device__ inline long long lmin(long long a, long long b) { return a < b ? a : b; }
 
 // The slab ring's barriers and stages after `off` bytes of other shared
-// memory: slabs of slab_k weight rows up to `width` wide (MAX_N, or MAX_W
+// memory: slabs of slab_k weight rows up to `width` wide (MAX_N, or PASS_W
 // for a wide program), as many stages as fit, up to MAX_STAGES; `bar_sets`
 // arrays of MAX_STAGES barriers (full and empty, and a cluster ring's
 // peer barriers).
@@ -112,8 +128,13 @@ __host__ __device__ inline bool product_width(int n, int most) {
   return n >= 16 && n <= most && (n & (n - 1)) == 0;
 }
 
-// Whether a program with header h runs wide (pe_plan.py wide_program).
-__host__ __device__ inline bool wide_header(const int* h) { return h[H_ACT_W] > MAX_N; }
+// The width class of a program with header h (pe_plan.py width_class).
+__host__ __device__ inline int width_class(const int* h) {
+  return h[H_ACT_W] > PASS_W ? 2 : h[H_ACT_W] > MAX_N ? 1 : 0;
+}
+
+// The passes of a product N wide (class 2): one up to PASS_W, else N / PASS_W.
+__host__ __device__ inline int pass_count(int N) { return N > PASS_W ? N / PASS_W : 1; }
 
 // The header and ops both kernels accept: `task_ints` ints per task after
 // the ops (0 for the forward, which has none).
@@ -127,7 +148,7 @@ inline bool program_ok(const int* prog, int prog_len, int task_ints) {
       h[H_ENC_PAD] > MAX_N || h[H_ACT_W] > MAX_W || h[H_ACT_W] % 16 || h[H_TB_W] > h[H_ACT_W] ||
       h[H_EX_PAD] > h[H_ACT_W] || h[H_ENC_PAD] > h[H_ACT_W])
     return false;
-  const int most = wide_header(h) ? MAX_W : MAX_N;
+  const int wc = width_class(h), most = wc == 2 ? MAX_W : wc == 1 ? PASS_W : MAX_N;
   const int* ops = prog + H_HEADER;
   for (int o = 0; o < h[H_N_OPS]; ++o) {
     const int* op = ops + o * OP_INTS;
@@ -135,6 +156,10 @@ inline bool program_ok(const int* prog, int prog_len, int task_ints) {
     if (!product_width(N, most) && op[O_KIND] != EX) return false;
     if ((op[O_KIND] == FWD || op[O_KIND] == BWD) && (op[O_K] <= 0 || op[O_K] % 16 ||
                                                     op[O_KA] % 16))
+      return false;
+    // two passes: a hidden layer's product, overwriting the tile it reads
+    if (N > PASS_W && !((op[O_KIND] == FWD && op[O_EPI] == RELU) ||
+                        (op[O_KIND] == BWD && op[O_EPI] == 0)))   // the backward's G_MASKED
       return false;
   }
   return true;
@@ -183,7 +208,10 @@ __device__ __forceinline__ void init_ring(const Ring& rg) {
 
 // The producer: every product op's B, in program order, as slabs of
 // rg.slab_k rows.  `slab` counts slabs across calls (a persistent block runs
-// the program once per tile without draining the ring).
+// the program once per tile without draining the ring).  With PASSES (a
+// class 2 program) a product over PASS_W streams its passes' images in
+// turn, each PASS_W wide.
+template <bool PASSES = false>
 __device__ __forceinline__ void produce_slabs(const int* ops, int n_ops, const bf16* img,
                                               const Ring& rg, int& slab) {
   const int S = rg.stages, SK = rg.slab_k;
@@ -192,14 +220,16 @@ __device__ __forceinline__ void produce_slabs(const int* ops, int n_ops, const b
     const int kind = __ldg(op + O_KIND);
     if (kind != FWD && kind != BWD) continue;
     const int N = __ldg(op + O_N), K = __ldg(op + O_K);
+    const int P = PASSES ? pass_count(N) : 1, BW = N / P;
     const bf16* src = img + __ldg(op + O_IMG);
-    for (int k0 = 0; k0 < K; k0 += SK, ++slab) {
-      const int stage = slab % S;
-      mbar_wait(&rg.empty[stage], ((slab / S) & 1) ^ 1);
-      const uint32_t bytes = (uint32_t)(min(SK, K - k0) * N * 2);
-      mbar_expect_tx(&rg.full[stage], bytes);
-      bulk_load(rg.base + stage * rg.stage, src + (long long)k0 * N, bytes, &rg.full[stage]);
-    }
+    for (int q = 0; q < P; ++q, src += (long long)K * BW)
+      for (int k0 = 0; k0 < K; k0 += SK, ++slab) {
+        const int stage = slab % S;
+        mbar_wait(&rg.empty[stage], ((slab / S) & 1) ^ 1);
+        const uint32_t bytes = (uint32_t)(min(SK, K - k0) * BW * 2);
+        mbar_expect_tx(&rg.full[stage], bytes);
+        bulk_load(rg.base + stage * rg.stage, src + (long long)k0 * BW, bytes, &rg.full[stage]);
+      }
   }
 }
 
@@ -283,8 +313,8 @@ __device__ __forceinline__ void await_stage(const ClusterRing<C>& rg, int slab) 
 
 // produce_slabs for a cluster ring: block `rank`'s share of every slab,
 // into every block of the cluster.  A slab is a multiple of 512 bytes, so
-// each share is a multiple of 16.
-template <int C>
+// each share is a multiple of 16.  PASSES as produce_slabs.
+template <int C, bool PASSES = false>
 __device__ __forceinline__ void produce_slabs_multicast(const int* ops, int n_ops,
                                                         const bf16* img, const ClusterRing<C>& rg,
                                                         int& slab, uint32_t rank) {
@@ -295,16 +325,18 @@ __device__ __forceinline__ void produce_slabs_multicast(const int* ops, int n_op
     const int kind = __ldg(op + O_KIND);
     if (kind != FWD && kind != BWD) continue;
     const int N = __ldg(op + O_N), K = __ldg(op + O_K);
+    const int P = PASSES ? pass_count(N) : 1, BW = N / P;
     const unsigned char* src = reinterpret_cast<const unsigned char*>(img + __ldg(op + O_IMG));
-    for (int k0 = 0; k0 < K; k0 += SK, ++slab) {
-      const int stage = slab % S;
-      await_stage(rg, slab);
-      const uint32_t bytes = (uint32_t)(min(SK, K - k0) * N * 2), share = bytes / C;
-      mbar_expect_tx(&r.full[stage], bytes);
-      bulk_load_multicast(r.base + stage * r.stage + rank * share,
-                          src + (long long)k0 * N * 2 + rank * share, share, &r.full[stage],
-                          (uint16_t)((1u << C) - 1));
-    }
+    for (int q = 0; q < P; ++q, src += (long long)K * BW * 2)
+      for (int k0 = 0; k0 < K; k0 += SK, ++slab) {
+        const int stage = slab % S;
+        await_stage(rg, slab);
+        const uint32_t bytes = (uint32_t)(min(SK, K - k0) * BW * 2), share = bytes / C;
+        mbar_expect_tx(&r.full[stage], bytes);
+        bulk_load_multicast(r.base + stage * r.stage + rank * share,
+                            src + (long long)k0 * BW * 2 + rank * share, share, &r.full[stage],
+                            (uint16_t)((1u << C) - 1));
+      }
   }
 }
 
@@ -319,6 +351,8 @@ __device__ __forceinline__ void await_release(const ClusterRing<C>& rg, int slab
 
 // A padding tile's part of the ring protocol: each of the program's slabs
 // taken and released without a product (the calling warp's lane `lane`).
+// PASSES as produce_slabs.
+template <bool PASSES = false>
 __device__ __forceinline__ void skip_slabs(const int* ops, int n_ops, const Ring& rg, int& slab,
                                            int lane) {
   const int S = rg.stages, SK = rg.slab_k;
@@ -326,7 +360,7 @@ __device__ __forceinline__ void skip_slabs(const int* ops, int n_ops, const Ring
     const int* op = ops + o * OP_INTS;
     const int kind = __ldg(op + O_KIND);
     if (kind != FWD && kind != BWD) continue;
-    const int n_slabs = (__ldg(op + O_K) + SK - 1) / SK;
+    const int n_slabs = (PASSES ? pass_count(__ldg(op + O_N)) : 1) * ((__ldg(op + O_K) + SK - 1) / SK);
     for (int s = 0; s < n_slabs; ++s, ++slab) {
       mbar_wait(&rg.full[slab % S], (slab / S) & 1);
       if (lane == 0) mbar_arrive(&rg.empty[slab % S]);
@@ -517,6 +551,48 @@ __device__ __forceinline__ void activation_out(const float (&v)[N / 2], const Bi
                           (__bfloat162float(h1.x) > 0.0f) << 2 |
                           (__bfloat162float(h1.y) > 0.0f) << 3;
     mw[j >> 3] |= bits << ((j & 7) * 4);
+  }
+}
+
+// activation_out's values kept in registers (class 2's first pass): the
+// bf16 pairs of row r0 and of row r0 + 8 of each 8-column group in
+// park[2j] and park[2j + 1], written by store_packed once the tile may be
+// overwritten; the mask bits as activation_out's.
+template <int N, class Bias2>
+__device__ __forceinline__ void activation_pack(const float (&v)[N / 2], const Bias2& bias2,
+                                                bool relu, __nv_bfloat162 (&park)[N / 4],
+                                                const Lane& ln, uint32_t (&mw)[(N + 63) / 64],
+                                                int cb) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int c = cb + 8 * j + ln.cq;
+    const float2 b = bias2(c);
+    float y[4] = {v[4 * j] + b.x, v[4 * j + 1] + b.y, v[4 * j + 2] + b.x, v[4 * j + 3] + b.y};
+    if (relu) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) y[q] = fmaxf(y[q], 0.0f);
+    }
+    const __nv_bfloat162 h0 = __floats2bfloat162_rn(y[0], y[1]);
+    const __nv_bfloat162 h1 = __floats2bfloat162_rn(y[2], y[3]);
+    park[2 * j] = h0;
+    park[2 * j + 1] = h1;
+    const uint32_t bits = (__bfloat162float(h0.x) > 0.0f) | (__bfloat162float(h0.y) > 0.0f) << 1 |
+                          (__bfloat162float(h1.x) > 0.0f) << 2 |
+                          (__bfloat162float(h1.y) > 0.0f) << 3;
+    mw[j >> 3] |= bits << ((j & 7) * 4);
+  }
+}
+
+// The packed pairs of activation_pack (or of a cotangent) into the
+// chunk-major tile `dst` from column cb.
+template <int N>
+__device__ __forceinline__ void store_packed(const __nv_bfloat162 (&park)[N / 4], bf16* dst,
+                                             const Lane& ln, int cb) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int c = cb + 8 * j + ln.cq;
+    *reinterpret_cast<__nv_bfloat162*>(dst + cm(ln.r0, c)) = park[2 * j];
+    *reinterpret_cast<__nv_bfloat162*>(dst + cm(ln.r0 + 8, c)) = park[2 * j + 1];
   }
 }
 

@@ -23,8 +23,10 @@ import torch
 # one dense layer: ([(weight [k_i, n], padded k_i), ...], bias [n] or [1, n])
 Layer = Tuple[List[Tuple[torch.Tensor, int]], torch.Tensor]
 
-MAX_WIDTH = 512            # the widest padded layer of the tile kernels (K1, K2,
-                           # the stream route): two warpgroups' 256-column halves
+MAX_WIDTH = 1024           # the widest padded layer of the PE field's tile
+                           # kernels (K1, K2): two passes of two warpgroups
+STREAM_MAX_WIDTH = 512     # the widest input and layer of the stream route (K3,
+                           # K5): two warpgroups' 256-column halves
 MAX_SMEM_BYTES = 232_448   # per-block dynamic shared memory on Hopper
 
 

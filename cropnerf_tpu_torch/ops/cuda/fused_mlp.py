@@ -49,10 +49,10 @@ import torch
 
 from ..mlp import mm_f32acc
 from . import build
-from .common import (MAX_SMEM_BYTES, MAX_WIDTH, PE_ENC, WGMMA_HIDDEN,
-                     WGMMA_OUT, c_ints, check_images, check_kernel_call,
-                     check_rows, pad16, persistent_blocks, sm_count,
-                     stream_ptr, unpack_layers, weight_images)
+from .common import (MAX_SMEM_BYTES, PE_ENC, STREAM_MAX_WIDTH,
+                     WGMMA_HIDDEN, WGMMA_OUT, c_ints, check_images,
+                     check_kernel_call, check_rows, pad16, persistent_blocks,
+                     sm_count, stream_ptr, unpack_layers, weight_images)
 from .mlp_plan import (MAX_LAYERS, program_key, stream_images,
                        stream_layers, stream_plan, stream_takes)
 
@@ -142,7 +142,7 @@ def fused_mlp_route(din: int, widths: Sequence[int]) -> str:
         return "stream"
     raise ValueError(f"fused_mlp: no kernel takes x [N, {din}] -> "
                      f"{list(widths)} (at most {MAX_LAYERS} layers, each "
-                     f"and the input at most {MAX_WIDTH} wide)")
+                     f"and the input at most {STREAM_MAX_WIDTH} wide)")
 
 
 def _widths(wbs) -> list:

@@ -11,12 +11,15 @@ note): every intermediate stays in shared memory, the weights stream from
 L2.  ``pe_plan.py`` plans it (``build_forward_plan``: the program and its
 ``wgmma`` weight image); the kernel runs that program on the tile
 interpreter it shares with the backward.  The trunk and the heads take
-layers up to 512 wide (``common.MAX_WIDTH``); a layer over 256 makes the
-program wide (``pe_plan.wide_program``: every product's columns split in
-halves, the forward's over a persistent cluster of two blocks, ``fwd_grid``,
-whose refusal raises), and a wider layer, or a layout over a block's
-shared memory, raises on the card with its reason.  The ragged
-tail of N is masked in the kernel; there is no fallback.
+layers up to 1024 wide (``common.MAX_WIDTH``), their output layers up to
+512; a layer over 256 makes the program wide (``pe_plan.width_class`` 1:
+every product's columns split in halves, the forward's over a persistent
+cluster of two blocks, ``fwd_grid``, whose refusal raises), a layer over
+512 puts it in class 2 (both warpgroups on one 64-row tile, a 1024-wide
+product in two passes, the backward's relu masks in device memory), and a
+wider layer, or a layout over a block's shared memory, raises on the card
+with its reason.  The ragged tail of N is masked in the kernel; there is
+no fallback.
 
 Both are differentiable.  On the card their backwards are
 ``fused_pe_nerf_bwd`` and ``fused_pe_density_bwd``, the CUDA kernels of
@@ -76,11 +79,12 @@ from .fused_mlp import (_least_bwd_smem, cluster_refusal, fused_mlp_plain,
                         mlp_hidden_pad, mlp_images, stream_backward,
                         stream_forward, wgmma_backward, wgmma_forward)
 from .mlp_plan import (MAX_FREQS, MAX_LAYERS, MAX_PE_IN, stream_takes)
-from .pe_plan import build_forward_plan, build_plan, image_index, weight_image
-from .common import (MAX_SMEM_BYTES, MAX_WIDTH, PE_DIM, PE_ENC, WGMMA_HIDDEN,
-                     WGMMA_OUT, c_ints, check_images, check_kernel_call,
-                     check_rows, pack_layers, pad16, stream_ptr,
-                     unpack_layers, weight_images)
+from .pe_plan import (H_HEADER, build_forward_plan, build_plan,
+                      fwd_park_elems, image_index, weight_image)
+from .common import (MAX_SMEM_BYTES, PE_DIM, PE_ENC, STREAM_MAX_WIDTH,
+                     WGMMA_HIDDEN, WGMMA_OUT, c_ints, check_images,
+                     check_kernel_call, check_rows, pack_layers, pad16,
+                     stream_ptr, unpack_layers, weight_images)
 from .common import persistent_blocks as pe_mlp_blocks
 from .common import sm_count
 
@@ -181,7 +185,7 @@ def heads_plain(t: torch.Tensor, extras: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = build.load("fused_pe_field")
-    lib.cropnerf_pe_field_fwd.argtypes = [ctypes.c_void_p] * 7 + [
+    lib.cropnerf_pe_field_fwd.argtypes = [ctypes.c_void_p] * 8 + [
         ctypes.POINTER(ctypes.c_int), ctypes.c_void_p, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_void_p]
     lib.cropnerf_pe_field_fwd.restype = ctypes.c_int
@@ -200,7 +204,7 @@ def _bwd_lib():
     lib = build.load("fused_pe_field_bwd")
     lib.cropnerf_pe_field_bwd.argtypes = [ctypes.c_void_p] * 9 + [
         ctypes.POINTER(ctypes.c_int), ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_longlong] + [ctypes.c_void_p] * 6
+        ctypes.c_longlong] + [ctypes.c_void_p] * 7
     lib.cropnerf_pe_field_bwd.restype = ctypes.c_int
     for f in ("sizes", "grid"):
         getattr(lib, f"cropnerf_pe_field_bwd_{f}").argtypes = [
@@ -304,9 +308,9 @@ def smem_bytes(meta, heads: bool) -> int:
 
 def fwd_grid(meta, heads: bool, n_rows: int) -> dict:
     """The forward's grid at ``n_rows`` rows on the current card: the
-    cluster size (0 up to 256 wide: persistent blocks), the clusters
-    resident at once (0 without clusters), the blocks launched, and
-    the C function's return (0, or the cudaError that refuses the
+    cluster size (0 up to 256 wide and over 512: persistent blocks), the
+    clusters resident at once (0 without clusters), the blocks launched,
+    and the C function's return (0, or the cudaError that refuses the
     launch)."""
     prog = build_forward_plan(meta, heads).ints()
     out = (ctypes.c_longlong * 3)()
@@ -348,11 +352,14 @@ def _launch(name, x, extras, outs, wbuf, bbuf, meta, heads, device):
         raise ValueError(f"{name}: needs {smem} B of shared memory per "
                          f"block, more than {MAX_SMEM_BYTES}")
     img = weight_image(wbuf, index)
+    n_park = fwd_park_elems(prog[:H_HEADER], sm_count(device))
+    park = (torch.empty((n_park,), dtype=torch.int32, device=device)
+            if n_park else None)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(device):
         err = lib.cropnerf_pe_field_fwd(
             x.data_ptr(), ptr(extras), *[ptr(o) for o in outs],
-            img.data_ptr(), bbuf.data_ptr(), c_ints(prog),
+            img.data_ptr(), bbuf.data_ptr(), ptr(park), c_ints(prog),
             prog_dev.data_ptr(), len(prog), x.shape[0], stream_ptr(device))
     if err:
         grid = fwd_grid(meta, heads, x.shape[0])
@@ -435,8 +442,9 @@ def bwd_grid(meta, heads: bool, need_dw: bool, n_rows: int) -> dict:
 def _bwd_launch(name, x, extras, cots, dx, dex, wbuf, bbuf, meta, heads,
                 pass_sem, need_dw, device):
     """One launch of the backward kernel (pe_plan.py plans it): the
-    program, the weight image, the workspace and partials, then (dw, db)
-    packed, or None without weight gradients."""
+    program, the weight image, the workspace, the relu masks in device
+    memory (class 2) and partials, then (dw, db) packed, or None without
+    weight gradients."""
     lib = _bwd_lib()
     n = x.shape[0]
     try:
@@ -444,14 +452,17 @@ def _bwd_launch(name, x, extras, cots, dx, dex, wbuf, bbuf, meta, heads,
             tuple(meta), device, heads, True, pass_sem, need_dw)
     except ValueError as e:
         raise ValueError(f"{name}: the kernel rejects this layout ({e})") from e
-    sizes = (ctypes.c_longlong * 5)()
-    if lib.cropnerf_pe_field_bwd_sizes(c_ints(prog), len(prog), n, sizes):
+    sizes = (ctypes.c_longlong * 6)()
+    err = lib.cropnerf_pe_field_bwd_sizes(c_ints(prog), len(prog), n, sizes)
+    if err == -1:
         raise ValueError(f"{name}: the kernel rejects this layout")
+    if err:
+        raise RuntimeError(f"{name}: the device query failed: cudaError {err}")
     smem = lib.cropnerf_pe_field_bwd_smem_bytes(c_ints(prog), len(prog))
     if not 0 < smem <= MAX_SMEM_BYTES:
         raise ValueError(f"{name}: needs {smem} B of shared memory per "
                          f"block, more than {MAX_SMEM_BYTES}")
-    ws_elems, n_bpart, n_wpart, total_w, total_b = list(sizes)
+    ws_elems, n_bpart, n_wpart, total_w, total_b, n_masks = list(sizes)
     f32 = dict(dtype=torch.float32, device=device)
     dw = db = None
     ptrs = [None] * 4
@@ -465,12 +476,14 @@ def _bwd_launch(name, x, extras, cots, dx, dex, wbuf, bbuf, meta, heads,
         img = weight_image(wbuf, index)
         ws = (torch.empty((ws_elems,), dtype=torch.bfloat16, device=device)
               if ws_elems else None)
+        masks = (torch.empty((n_masks,), dtype=torch.int32, device=device)
+                 if n_masks else None)
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         with torch.cuda.device(device):
             err = lib.cropnerf_pe_field_bwd(
                 x.data_ptr(), ptr(extras), *[ptr(c) for c in cots], ptr(dx),
                 ptr(dex), img.data_ptr(), bbuf.data_ptr(), c_ints(prog),
-                prog_dev.data_ptr(), len(prog), n, ptr(ws), *ptrs,
+                prog_dev.data_ptr(), len(prog), n, ptr(ws), ptr(masks), *ptrs,
                 stream_ptr(device))
         if err:
             grid = bwd_grid(meta, heads, need_dw, n)
@@ -696,7 +709,7 @@ def pe_mlp_fwd_route(dim: int, num_freqs: int, widths: Sequence[int]) -> str:
     raise ValueError(
         f"fused_pe_mlp: no kernel takes x [N, {dim}], F={num_freqs} "
         f"({enc} encoding columns) -> {list(widths)} (at most {MAX_LAYERS} "
-        f"layers, each at most {MAX_WIDTH} wide, the encoding at most "
+        f"layers, each at most {STREAM_MAX_WIDTH} wide, the encoding at most "
         f"{MAX_PE_IN}, F at most {MAX_FREQS})")
 
 

@@ -8,8 +8,9 @@ encoding of x [N, dim] with F frequencies), each layer padded as
 ``common.pack_layers`` pads it ([k rounded up to 16, n rounded up to 16],
 biases alike), and each product's output to its width
 (``pe_plan.pow2_width``).  Every input and layer is at most ``MAX_W``
-(512) wide, K5's encoding at most ``MAX_N`` (256); a net with an input or
-a layer over ``MAX_N`` runs wide (``pe_plan.wide_program``: every
+(512, ``common.STREAM_MAX_WIDTH``) wide, K5's encoding at most ``MAX_N``
+(256); a net with an input or a layer over ``MAX_N`` runs wide (width
+class 1, ``pe_plan.width_class``: every
 product's columns split in halves; the forward's over a cluster of two
 blocks, each warpgroup with one buffer that takes the input too, the
 backward's between a block's two warpgroups).  The forward program is one FWD op per layer,
@@ -36,14 +37,15 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-from .common import pad16
-from .pe_plan import (BWD, CLUSTER_BAR_SETS, EMIT, FWD, MAX_N, MAX_W,
+from .common import STREAM_MAX_WIDTH, pad16
+from .pe_plan import (BWD, CLUSTER_BAR_SETS, EMIT, FWD, MAX_N,
                       MIRROR_BYTES, O_A0, O_A1, O_BOFF, O_COL, O_EPI, O_IMG,
                       O_K, O_KA, O_KIND, O_MASK, O_N, O_NVALID, O_WS,
                       OP_INTS, Plan, al128,
                       core_k_major, dw_tasks, mask_words, pow2_chunks,
-                      pow2_width, ring_stages, wide_program)
+                      pow2_width, ring_stages, width_class)
 
+MAX_W = STREAM_MAX_WIDTH  # the widest input and layer of the route (512)
 MAX_LAYERS = 32          # the deepest net the stream route takes
 MAX_FREQS = 30
 MAX_PE_IN = MAX_N        # K5's encoding columns at most
@@ -81,7 +83,7 @@ def stream_takes(din: int, widths: Sequence[int], dim: int = 0,
 def stream_wide(h: Sequence[int]) -> bool:
     """Whether a stream program (header ``h``) runs wide: its input or a
     layer over ``MAX_N``."""
-    return wide_program([h[M_IN_PAD], h[M_ACT_W]])
+    return width_class([h[M_IN_PAD], h[M_ACT_W]]) > 0
 
 
 def stream_layers(din: int, widths: Sequence[int]) -> List[List[int]]:
@@ -150,7 +152,7 @@ def build_stream_plan(din: int, widths: Sequence[int], dim: int = 0,
     L, n = stream_layers(din, widths), len(widths)
     nw = [pow2_width(w) for w in widths]
     in_pad = pad16(din)
-    wide = wide_program(nw + [in_pad])
+    wide = width_class(nw + [in_pad]) > 0
     net = _Ops(L, nw)
     store = backward and need_dw
     slots, ws_cols, words, masks, tasks = {}, 0, 0, {}, []

@@ -8,16 +8,17 @@ forward's meta (``pack_pe_field``).  The forward program runs the layers
 in order and writes t, rgb_raw and sem_raw; the backward's runs the
 forward recompute layer by layer, then the backward through the heads and
 the trunk.  Each product op names its operands, its output width N (16,
-32, 64, 128, 256 or 512), its reduction width K and the
+32, 64, 128, 256, 512 or 1024), its reduction width K and the
 offset of its B operand in the weight image; each op names its epilogue.
 For the backward the same module lays out the workspace that the
 weight-gradient pass reads and lists that pass's tasks.
 
-A program whose layers are all at most ``MAX_N`` (256) wide runs each
-product as one ``wgmma`` shape on a warpgroup's own 64 rows.  A program
-with a wider layer (up to ``MAX_W``, 512) is "wide" (``wide_program``):
-every product's N columns are split in halves, so that no accumulator is
-wider than 256.  The forward runs as persistent clusters of ``CLUSTER`` (2)
+A program's width class (``width_class``) is that of its widest layer.  A
+program whose layers are all at most ``MAX_N`` (256) wide (class 0) runs
+each product as one ``wgmma`` shape on a warpgroup's own 64 rows.  A
+program with a wider layer (up to ``PASS_W``, 512: class 1, "wide") splits
+every product's N columns in halves, so that no accumulator is wider than
+256.  The forward runs as persistent clusters of ``CLUSTER`` (2)
 blocks that walk the 128-row tiles together, each block computing one
 half of every product from that half of each slab alone
 (``half_slab_index``) and mirroring its output into the other block's
@@ -25,8 +26,16 @@ tiles (``fwd_smem`` mirrors its layout); the backward keeps both
 warpgroups of a block on one 64-row tile, each taking half of every
 product: its relu masks take half the words a thread, its input-gradient
 products take chunks up to 512 wide, and its weight-gradient tasks take a
-G slot wider than 256 in 256-column blocks (``T_J0``).  Everything here is
-plain Python, so the CPU tests run both programs
+G slot wider than 256 in 256-column blocks (``T_J0``).  A program with a
+layer over 512 (up to ``MAX_W``, 1024: class 2) keeps both warpgroups on
+one 64-row tile in the forward too; a product over 512 takes two passes of
+both warpgroups, 256 columns a warpgroup a pass, its B in the weight image
+as one ``PASS_W``-wide image a pass (``pass_columns``), the first pass's
+output held until the second has read the tile (the backward's in
+registers, the forward's in a block's scratch in device memory,
+``fwd_park_elems``); the backward's relu masks go to device memory; the
+output layers (t, rgb, sem) stay at most 512 wide.
+Everything here is plain Python, so the CPU tests run both programs
 (``tests/test_torch_kernels.py``) and hold them against the plain versions
 and autograd.
 
@@ -37,7 +46,9 @@ Layouts, shared with the kernels:
   matrix of ``wgmma`` is 128 contiguous bytes;
 * the weight image holds, for each product op in program order, its B
   matrix [K, N] in the K-major core-matrix layout: element (k, j) at
-  ((k // 8) * (N // 8) + j // 8) * 64 + (j % 8) * 8 + k % 8;
+  ((k // 8) * (N // 8) + j // 8) * 64 + (j % 8) * 8 + k % 8 (a class 2
+  product over 512 wide: one such image of [K, 512] a pass, the pass's
+  columns ``pass_columns`` in order);
 * the workspace holds slots (an activation A_l or a cotangent G_l), each
   ``width`` columns wide starting at column ``col`` of a row: element
   (R, c) of the slot at col * n_pad + (R // 64) * 64 * width + the
@@ -57,7 +68,9 @@ TILE = 128               # rows per tile (two warpgroups of 64)
 BLOCK = 64               # rows per warpgroup and per workspace block
 DW_M = 128               # weight rows per weight-gradient task (2 x 64)
 MAX_N = 256              # the widest product a warpgroup takes (one wgmma)
-MAX_W = 512              # the widest layer: two warpgroups' halves
+PASS_W = 512             # two warpgroups' halves: the widest layer of class 1,
+                         # a pass of class 2
+MAX_W = 1024             # the widest layer: two passes
 SPLIT_TARGET = 264       # weight-gradient blocks to aim for (2 per SM)
 
 # header of the program
@@ -103,26 +116,39 @@ def pow2_chunks(n: int, largest: int = MAX_N) -> List[int]:
     """n (a multiple of 16) as a sum of product widths up to ``largest``,
     largest first."""
     out, rest = [], n
-    for w in (512, 256, 128, 64, 32, 16):
+    for w in (1024, 512, 256, 128, 64, 32, 16):
         while w <= largest and rest >= w:
             out.append(w)
             rest -= w
     return out
 
 
-def wide_program(widths) -> bool:
-    """Whether a program whose products and activation tiles have these
-    widths runs wide: every product's columns in halves, the forward's
-    over a cluster of two blocks, the backward's between a block's two
-    warpgroups on one 64-row tile (the kernels: the header's activation
-    width over MAX_N)."""
-    return max(widths) > MAX_N
+def width_class(widths) -> int:
+    """The width class of a program whose products and activation tiles
+    have these widths (the kernels: of the header's activation width).  0
+    up to MAX_N: a warpgroup a product.  1 up to PASS_W ("wide"): every
+    product's columns in halves, the forward's over a cluster of two
+    blocks, the backward's between a block's two warpgroups on one 64-row
+    tile.  2 up to MAX_W: both warpgroups on one 64-row tile forward and
+    backward, a product over PASS_W in two passes."""
+    w = max(widths)
+    return 2 if w > PASS_W else 1 if w > MAX_N else 0
 
 
-def mask_words(n: int, wide: bool) -> int:
+def mask_words(n: int, wide: int) -> int:
     """Relu-mask words a thread keeps for a product n wide: 4 bits for
-    each 8 columns of its accumulator (half of them when wide)."""
+    each 8 columns of its accumulator (half of them when wide, class 1 or
+    2; a class 2 pass's 256 columns take 4 words)."""
     return ((n // 2 if wide else n) + 63) // 64
+
+
+def pass_columns(n: int) -> List[List[int]]:
+    """The columns of a product n wide (over PASS_W, class 2) that each
+    pass computes, in the order its image holds them: warpgroup w's 256
+    columns [w n/2 + 256 q, +256) of pass q, warpgroup 0's first."""
+    half, step = n // 2, PASS_W // 2
+    return [[w * half + q * step + j for w in range(2) for j in range(step)]
+            for q in range(n // PASS_W)]
 
 
 def dw_tasks(a_col, a_w, rows, w_row0, g_col, g_w, n, w_off):
@@ -179,8 +205,14 @@ class _Net:
         self.s0 = self.c0 + n_color
         self.n_layers = len(L)
         self.nw = [pow2_width(l[3]) for l in L]
-        self.wide = wide_program(self.nw + [self.ex_pad])
+        self.wide = width_class(self.nw + [self.ex_pad])
         self.t_last = self.c0 - 1
+        outputs = [self.t_last] + ([self.s0 - 1, len(L) - 1] if heads else [])
+        wide_out = [l for l in outputs if self.nw[l] > PASS_W]
+        if wide_out:
+            raise ValueError(f"an output layer of {L[wide_out[0]][3]} padded "
+                             f"columns; the kernels' output layers take at "
+                             f"most {PASS_W}")
         if L[0][2] != self.enc_pad or L[self.top0][2] - L[self.top0][4] != self.enc_pad:
             raise ValueError("the encoding must feed layer 0 and the skip layer")
         if heads and (L[self.c0][4] != L[self.t_last][3]
@@ -323,7 +355,7 @@ def build_plan(meta, heads: bool, pass_sem: bool, need_dw: bool) -> Plan:
 
     def grad_to(l, c_lo, cw, epi):
         col = 0
-        for N in pow2_chunks(cw, MAX_W if net.wide else MAX_N):
+        for N in pow2_chunks(cw, PASS_W if net.wide else MAX_N):
             net.product(BWD, l, True, c_lo + col, N, L[l][3], N, a0=ACT,
                         a1=ACT, ka=L[l][3], epi=epi, col=col)
             col += N
@@ -381,10 +413,10 @@ def build_plan(meta, heads: bool, pass_sem: bool, need_dw: bool) -> Plan:
 def image_index(meta, plan: Plan) -> torch.Tensor:
     """Where each element of the weight image comes from: an index into the
     packed bf16 weights (``pack_pe_field``), -1 for a zero.  Each product
-    op's B [K, N] in the K-major core-matrix layout, in program order: a
-    forward op's B is W_l's [k, n] block (zero columns up to N); a backward
-    op's is Wᵀ restricted to the input rows it produces (zero rows up to
-    N)."""
+    op's B [K, N] in the K-major core-matrix layout, in program order (a
+    product over PASS_W: each pass's columns, ``pass_image``): a forward
+    op's B is W_l's [k, n] block (zero columns up to N); a backward op's is
+    Wᵀ restricted to the input rows it produces (zero rows up to N)."""
     L = [meta[14 + 5 * i:19 + 5 * i] for i in range((len(meta) - 14) // 5)]
     parts = []
     for layer, transposed, row0, rows, K, N in plan.images:
@@ -395,8 +427,26 @@ def image_index(meta, plan: Plan) -> torch.Tensor:
             idx[:n, :rows] = w_off + (row0 + torch.arange(rows))[None, :] * n + cols[:, None]
         else:
             idx[:, :n] = w_off + torch.arange(k)[:, None] * n + cols[None, :]
-        parts.append(core_k_major(idx))
+        parts.append(pass_image(idx))
     return torch.cat(parts)
+
+
+def pass_image(b: torch.Tensor) -> torch.Tensor:
+    """A product's B [K, N] → its weight image: the K-major core-matrix
+    image, or over PASS_W that of each pass's columns in turn."""
+    if b.shape[1] <= PASS_W:
+        return core_k_major(b)
+    return torch.cat([core_k_major(b[:, cols]) for cols in pass_columns(b.shape[1])])
+
+
+def from_pass_image(img: torch.Tensor, K: int, N: int) -> torch.Tensor:
+    """Inverse of :func:`pass_image`."""
+    if N <= PASS_W:
+        return from_core_k_major(img, K, N)
+    b = torch.empty((K, N), dtype=img.dtype)
+    for q, cols in enumerate(pass_columns(N)):
+        b[:, cols] = from_core_k_major(img[q * K * PASS_W:(q + 1) * K * PASS_W], K, PASS_W)
+    return b
 
 
 def weight_image(wbuf: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
@@ -449,6 +499,8 @@ RING_STAGES, SLAB_K = 8, 32   # ring stages at most, the backward's slab rows
 CLUSTER = 2              # a cluster's blocks: a wide forward's halves of a product
 MIRROR_BYTES = 32        # a wide forward block's handshake barriers (Mirror)
 FWD_SLAB, FWD_MIN_STAGES = 64, 3   # the forward's slab rows and least stages
+PASS_MIN_STAGES = 2      # class 2's forward: one wgmma group in flight
+PARK_WORDS = MAX_N // 4  # class 2's forward: the bf16 pairs a thread parks a pass
 
 
 def cluster_walk(n_tiles: int, cluster: int, n_clusters: int
@@ -502,18 +554,20 @@ def bwd_tile_smem(h) -> tuple:
     """(dynamic shared memory, ring stages) of the backward's tile kernel
     for the program with header ``h``: ``fused_pe_field_bwd.cu``
     ``tile_layout``.  A wide program keeps one region for the block,
-    slabs as wide as ``MAX_W`` and a cluster ring (its peer barriers after
-    the full and empty ones)."""
-    wide = h[H_ACT_W] > MAX_N
+    slabs as wide as ``PASS_W`` and a cluster ring (its peer barriers after
+    the full and empty ones); in class 2 its relu masks are in device
+    memory (``cropnerf_pe_field_bwd_sizes``' out[5])."""
+    wc = width_class([h[H_ACT_W]])
     u = al128(BLOCK * h[H_DIM] * 4)
     off = (u + al128(BLOCK * h[H_ENC_PAD] * 2) + al128(BLOCK * h[H_TB_W] * 2)
            + al128(BLOCK * h[H_TB_W] * 4))
     off = max(off, u + al128(BLOCK * h[H_ENC_PAD] * 4))
-    off += al128(BLOCK * h[H_ACT_W] * 2) + (2 if wide else 1) * 4 * MAX_N * 4
-    off = (1 if wide else 2) * off
-    off += al128(h[H_MASK_WORDS] * 2 * 128 * 4)
-    stages, total = ring_stages(off, SLAB_K, MAX_W if wide else MAX_N,
-                                CLUSTER_BAR_SETS if wide else 2)
+    off += al128(BLOCK * h[H_ACT_W] * 2) + (2 if wc else 1) * 4 * MAX_N * 4
+    off = (1 if wc else 2) * off
+    if wc != 2:
+        off += al128(h[H_MASK_WORDS] * 2 * 128 * 4)
+    stages, total = ring_stages(off, SLAB_K, PASS_W if wc else MAX_N,
+                                CLUSTER_BAR_SETS if wc else 2)
     return total, stages
 
 
@@ -524,18 +578,31 @@ def fwd_smem(h) -> tuple:
     program with header ``h``: ``fused_pe_field.cu`` ``fwd_layout``.  Each
     consumer warpgroup keeps its region (encoding and output stage, t, the
     activation tile); the block keeps its biases, the ops and the turn
-    barriers, a wide program also its handshake barriers; then a ring of
-    64-row slabs ``MAX_N`` wide, or when wide of 32-row slabs of the
-    block's half."""
-    wide = h[H_ACT_W] > MAX_N
+    barriers, a wide program (class 1) also its handshake barriers; then a
+    ring of 64-row slabs ``MAX_N`` wide, or in class 1 of 32-row slabs of
+    the block's half.  Class 2 keeps one region for the block, no biases
+    (read from device memory) and 32-row slabs ``PASS_W`` wide."""
+    wc = width_class([h[H_ACT_W]])
     out_cols = max(h[H_T_COLS], h[H_RGB_COLS], h[H_SEM_COLS])
     region = (al128(max(BLOCK * h[H_ENC_PAD] * 2, BLOCK * out_cols * 4))
               + al128(BLOCK * h[H_TB_W] * 2) + al128(BLOCK * h[H_ACT_W] * 2))
-    off = 2 * region + al128(h[H_TOTAL_B] * 4)
-    off += al128(h[H_N_OPS] * OP_INTS * 4) + 2 * 8 + (MIRROR_BYTES if wide
+    off = (1 if wc == 2 else 2) * region
+    off += 0 if wc == 2 else al128(h[H_TOTAL_B] * 4)
+    off += al128(h[H_N_OPS] * OP_INTS * 4) + 2 * 8 + (MIRROR_BYTES if wc == 1
                                                       else 0)
-    stages, total = ring_stages(off, SLAB_K if wide else FWD_SLAB)
+    stages, total = (ring_stages(off, SLAB_K, PASS_W) if wc == 2
+                     else ring_stages(off, SLAB_K if wc else FWD_SLAB))
     return total, stages
+
+
+def fwd_park_elems(h, sms: int) -> int:
+    """uint32 words of the class 2 forward's scratch in device memory
+    (``fused_pe_field.cu`` ``run_passes``: a 1024-wide product's first pass
+    waits there for the second), a block's ``PARK_WORDS`` a consumer thread
+    for each of ``sms`` SMs; none below class 2."""
+    if width_class([h[H_ACT_W]]) != 2:
+        return 0
+    return sms * PARK_WORDS * 2 * 128
 
 
 def half_slab_index(op, rank: int, slab_k: int = SLAB_K) -> List[List[int]]:

@@ -255,7 +255,7 @@ def _kernel_model_pe_field_fwd(x, extras, wbuf, bbuf, meta, heads):
         if op[P.O_KIND] == P.EX:
             bufs[P.ACT][:, :n] = padded(extras, n).to(cd)
             continue
-        b = P.from_core_k_major(img[op[P.O_IMG]:op[P.O_IMG] + K * n], K, n)
+        b = P.from_pass_image(img[op[P.O_IMG]:op[P.O_IMG] + K * n], K, n)
         a = torch.cat([bufs[op[P.O_A0]][:, :ka], bufs[op[P.O_A1]][:, :K - ka]], 1)
         acc = a.float() @ b.float()
         nv, epi = op[P.O_NVALID], op[P.O_EPI]
@@ -324,7 +324,7 @@ def _split_model_pe_field_fwd(x, extras, wbuf, bbuf, meta, heads):
     plan = P.build_forward_plan(meta, heads)
     img = P.weight_image(wbuf, P.image_index(meta, plan))
     h = plan.header
-    assert P.wide_program([h[P.H_ACT_W]])
+    assert P.width_class([h[P.H_ACT_W]]) == 1
     N = x.shape[0]
     n_pad = -(-N // P.TILE) * P.TILE
     xs, exs = torch.zeros((n_pad, h[P.H_DIM])), torch.zeros((n_pad, h[P.H_ACT_W]))
@@ -541,9 +541,10 @@ def _check_weight_image(plan, wbuf, meta):
     products = [op for op in plan.ops if op[P.O_KIND] in (P.FWD, P.BWD)]
     assert len(products) == len(plan.images)
     for op, (layer, transposed, row0, rows, K, N) in zip(products, plan.images):
-        assert (op[P.O_K], op[P.O_N]) == (K, N) and N in (16, 32, 64, 128, 256, 512)
+        assert (op[P.O_K], op[P.O_N]) == (K, N) and N in (16, 32, 64, 128, 256, 512,
+                                                          1024)
         assert K % 16 == 0 and 0 < op[P.O_KA] <= K
-        b = P.from_core_k_major(img[op[P.O_IMG]:op[P.O_IMG] + K * N], K, N)
+        b = P.from_pass_image(img[op[P.O_IMG]:op[P.O_IMG] + K * N], K, N)
         w_off, _, k, n, _ = L[layer]
         w = wbuf[w_off:w_off + k * n].reshape(k, n)
         want = torch.zeros((K, N), dtype=wbuf.dtype)
@@ -738,7 +739,7 @@ def _kernel_model_pe_field_bwd(x, extras, wbuf, bbuf, meta, g_t, g_rgb,
                  else padded(g_rgb if src == P.SRC_RGB else g_sem, n))
             emit_g(op, v.clone())
             continue
-        b = P.from_core_k_major(img[op[P.O_IMG]:op[P.O_IMG] + K * n], K, n)
+        b = P.from_pass_image(img[op[P.O_IMG]:op[P.O_IMG] + K * n], K, n)
         a = torch.cat([bufs[op[P.O_A0]][:, :ka], bufs[op[P.O_A1]][:, :K - ka]], 1)
         acc = a.float() @ b.float()
         epi = op[P.O_EPI]
@@ -935,8 +936,8 @@ def test_wide_programs_split_every_product_between_warpgroups():
         full = P.build_plan(meta, True, True, True)
         L = [meta[14 + 5 * i:19 + 5 * i] for i in range((len(meta) - 14) // 5)]
         for plan in (fwd, full):
-            assert P.wide_program([plan.header[P.H_ACT_W]]) == wide
-            assert all(op[P.O_N] <= (P.MAX_W if wide else P.MAX_N)
+            assert P.width_class([plan.header[P.H_ACT_W]]) == wide
+            assert all(op[P.O_N] <= (P.PASS_W if wide else P.MAX_N)
                        for op in plan.ops)
         widths = {op[P.O_MASK]: op[P.O_N] for op in full.ops
                   if op[P.O_KIND] == P.FWD and op[P.O_MASK] >= 0}
@@ -952,10 +953,8 @@ def test_wide_programs_split_every_product_between_warpgroups():
             want = ([(0, 256, 512), (256, 256, 512)] if n > P.MAX_N
                     else [(0, P.pow2_width(n), P.pow2_width(n))])
             assert blocks[(w_off, 0)] == want
-    with pytest.raises(ValueError):              # a layer over 512
-        _bwd_meta((10, 640, 4, 4, 15, 59, 64, 64, 1, 256, False))
-        P.build_plan(_bwd_meta((10, 640, 4, 4, 15, 59, 64, 64, 1, 256, False))[2],
-                     True, False, True)
+    with pytest.raises(ValueError):              # a layer over 1024
+        _bwd_meta((10, 1040, 4, 4, 15, 59, 64, 64, 1, 256, False))
 
 
 def _bwd_meta(case, heads=True):
@@ -1059,10 +1058,11 @@ def test_pe_bwd_programs_ask_only_for_what_is_needed():
                 assert written[op[P.O_MASK]] == op[P.O_N]
     assert P.pow2_chunks(48) == [32, 16] and P.pow2_chunks(160) == [128, 32]
     assert P.pow2_chunks(512) == [256, 256] and P.pow2_chunks(512, 512) == [512]
-    assert [P.pow2_width(n) for n in (16, 17, 48, 64, 200, 272, 512)] == [
-        16, 32, 64, 64, 256, 512, 512]
+    assert [P.pow2_width(n) for n in (16, 17, 48, 64, 200, 272, 512, 513,
+                                      1024)] == [
+        16, 32, 64, 64, 256, 512, 512, 1024, 1024]
     with pytest.raises(ValueError):             # past the widest layer
-        P.pow2_width(513)
+        P.pow2_width(1025)
 
 
 def _warp_colsum_model(nv):

@@ -344,7 +344,7 @@ def test_stream_backward_layout_holds_its_barriers(case):
               if h[mp.M_DIM] else in_b)
     act = P.al128(mp.ROWS * h[mp.M_ACT_W] * 2)
     off = (1 if wide else 2) * (region + act) + 2 * 4 * P.MAX_N * 4
-    width = P.MAX_W if wide else P.MAX_N
+    width = mp.MAX_W if wide else P.MAX_N
     least = 2 if wide else mp.MIN_BWD_STAGES
     slab = (64 if P.ring_stages(off, 64, width, 3)[0] >= mp.MIN_BWD_STAGES
             else 32 if P.ring_stages(off, 32, width, 3)[0] >= least else 16)
@@ -552,8 +552,8 @@ def test_w512_train_step_matches_jax(arm, monkeypatch):
     field = vanilla_field_init(f, 2, torch.Generator().manual_seed(0))
     _, _, meta = tfield.pack_pe_field(3, 10, *fused_field_weights(field, f),
                                       de=27 + f.appearance_embedding_dim)
-    assert P.wide_program([P.build_plan(meta, True, False, True).header[
-        P.H_ACT_W]])
+    assert P.width_class([P.build_plan(meta, True, False, True).header[
+        P.H_ACT_W]]) == 1
     for p in tcfg.model.proposal_fields:
         assert (p.hidden_dim, p.num_layers, p.mlp_impl) == (
             512, 3, "pallas-fused")

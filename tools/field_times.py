@@ -8,7 +8,8 @@ backward at a BayesRays batch, K5 at [prop256]'s two nets (3 layers 256
 wide), K3's stream route at -huge's 256-wide semantic head (dx alone at
 its BayesRays batch, and with dW; its forward at an export chunk); then
 the same at [w512]'s widths (field trunk and semantic head 512 wide, K5
-nets 3 x 512, K3's semantic head [15, 512, 1]) where the tree takes them
+nets 3 x 512, K3's semantic head [15, 512, 1]), and K1's and K2's at
+[w1024]'s (a 1024-wide trunk, 64-wide heads), where the tree takes them
 ("no kernel" otherwise).  Each time is the median of five CUDA-event
 windows of ten calls, after two warm-up calls.  ``--only TEXT[,TEXT...]``
 times only the calls whose names hold one of the comma-separated TEXTs:
@@ -61,12 +62,12 @@ def main() -> None:
     from cropnerf_tpu_torch.ops.cuda import fused_pe_field as kf
     dev = torch.device("cuda")
     out = {}
-    for width in (256, 512):
+    for width in (256, 512, 1024):
         g = torch.Generator(device=dev).manual_seed(41)
         m = PRESETS["cropnerf-mxu"].model
         m = dataclasses.replace(m, field=dataclasses.replace(
             m.field, hidden_dim=width,
-            hidden_dim_semantics=64 if width == 256 else width))
+            hidden_dim_semantics=width if width == 512 else 64))
         params = model_init(m, 8, torch.Generator().manual_seed(0), dev)
         base, top, color, sem = ([w.detach() for w in ws] for ws in
                                  fused_field_weights(params.field, m.field))
@@ -85,7 +86,8 @@ def main() -> None:
                 x2, base, top, POS_FREQS),
             "fused_pe_density_bwd dx": lambda: kf.fused_pe_density_bwd(
                 x, base, top, POS_FREQS, cots[0], True, False)}
-        for i, (F, smp) in enumerate(((5, 256), (6, 96))):
+        for i, (F, smp) in enumerate(((5, 256), (6, 96))
+                                     if width < 1024 else ()):
             din = 3 * (1 + 2 * F)
             wbs = []
             for a, b in zip((din, width, width), (width, width, 1)):
@@ -100,6 +102,7 @@ def main() -> None:
                 lambda xp=xp, wbs=wbs, F=F, cp=cp: kf.fused_pe_mlp_bwd(
                     xp, wbs, F, cp))
         # K3's stream route: the semantic head, at its BayesRays batch
+        # (none at 1024: [w1024]'s heads are 64 wide)
         dims, n3 = (((30, 256, 256, 1), 262_144) if width == 256
                     else ((15, 512, 1), 196_608))
         w3 = []
@@ -109,11 +112,12 @@ def main() -> None:
         x3 = torch.randn((n3, dims[0]), generator=g, device=dev)
         c3 = torch.randn((n3, 1), generator=g, device=dev)
         x3e = x3[:512 * 64].contiguous()
-        calls["fused_mlp semantic head"] = lambda: km.fused_mlp(x3e, w3)
-        calls["fused_mlp_bwd semantic head dx"] = (
-            lambda: km.fused_mlp_bwd(x3, w3, c3, True, False))
-        calls["fused_mlp_bwd semantic head with dW"] = (
-            lambda: km.fused_mlp_bwd(x3, w3, c3, True, True))
+        if width < 1024:
+            calls["fused_mlp semantic head"] = lambda: km.fused_mlp(x3e, w3)
+            calls["fused_mlp_bwd semantic head dx"] = (
+                lambda: km.fused_mlp_bwd(x3, w3, c3, True, False))
+            calls["fused_mlp_bwd semantic head with dW"] = (
+                lambda: km.fused_mlp_bwd(x3, w3, c3, True, True))
         with torch.no_grad():
             for name, fn in calls.items():
                 if not any(t in f"{name} {width}"

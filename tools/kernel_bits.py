@@ -18,8 +18,9 @@ nets (3 layers 256 wide, F = 5 and 6: forward, and the backward with dx
 and dW); last K3's stream route at -huge's 256-wide semantic head and at
 [w512]'s 512-wide one, K5's at [w512]'s nets (3 x 512), and K1 and K2 at
 [w512]'s field (trunk and semantic head 512 wide: K1 forward and
-backward, K2 forward, its dx alone and its backward with dW), where the
-tree takes them ("no kernel" otherwise).  Run it on two trees in one call
+backward, K2 forward, its dx alone and its backward with dW), and the
+same at [w1024]'s (a 1024-wide trunk, 64-wide heads), where the tree
+takes them ("no kernel" otherwise).  Run it on two trees in one call
 on the same card; equal lines mean equal bits:
 
     python3 tools/kernel_bits.py [--port-root DIR]
@@ -231,6 +232,36 @@ def main() -> None:
             out["fused_pe_density_bwd 512 wide"] = digest([dx, *db_, *dt_])
 
         no_kernel("fused_pe_nerf 512 wide", k1_k2)
+        # K1 and K2 at [w1024]'s field (last, for the same draws as before)
+        mw = dataclasses.replace(mx, field=dataclasses.replace(
+            mx.field, hidden_dim=1024))
+        params = model_init(mw, 8, torch.Generator().manual_seed(0), dev)
+        base, top, color, sem = (
+            [w.detach() for w in ws]
+            for ws in fused_field_weights(params.field, mw.field))
+        x = torch.rand((n, 3), generator=g, device=dev) * 2 - 1
+        ex = torch.randn((n, color[1].shape[0]), generator=g, device=dev)
+
+        def k1_k2_1024():
+            outs = kfield.fused_pe_nerf(x, ex, base, top, color, sem, POS_FREQS)
+            out["fused_pe_nerf 1024 wide"] = digest(outs)
+            cots = [torch.randn(o.shape, generator=g, device=dev)
+                    for o in outs]
+            grads = kfield.fused_pe_nerf_bwd(x, ex, base, top, color, sem,
+                                             POS_FREQS, *cots)
+            out["fused_pe_nerf_bwd 1024 wide"] = digest(
+                list(grads[:2]) + [t for grp in grads[2:] for t in grp])
+            t = kfield.fused_pe_density(x, base, top, POS_FREQS)
+            out["fused_pe_density 1024 wide"] = digest([t])
+            cot = torch.randn(t.shape, generator=g, device=dev)
+            dx, _, _ = kfield.fused_pe_density_bwd(x, base, top, POS_FREQS,
+                                                   cot, True, False)
+            out["fused_pe_density_bwd dx 1024 wide"] = digest([dx])
+            dx, db_, dt_ = kfield.fused_pe_density_bwd(x, base, top,
+                                                       POS_FREQS, cot)
+            out["fused_pe_density_bwd 1024 wide"] = digest([dx, *db_, *dt_])
+
+        no_kernel("fused_pe_nerf 1024 wide", k1_k2_1024)
     print(json.dumps({"port_root": str(args.port_root),
                       "card": torch.cuda.get_device_name(0), "sha256": out}),
           flush=True)
